@@ -1,0 +1,179 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device and skips without one.
+
+This file imports nothing of JAX, so that it runs on a machine with the
+card and without JAX; skip the JAX-importing conftest there:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: DBoF and MoE max|diff| <= 1e-3 * max|ref| + 1e-6 — both
+sides round the same operands to bf16, only the summation order differs;
+top-k values and indices exactly equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yt8m_tpu_torch.cli import inference as cli
+from yt8m_tpu_torch.convert import load_model, save_checkpoint
+from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
+from yt8m_tpu_torch.data.synthetic import write_dataset
+from yt8m_tpu_torch.kernels import dbof as tdbof
+from yt8m_tpu_torch.kernels import moe_head as tmoe
+from yt8m_tpu_torch.kernels import topk as ttopk
+from yt8m_tpu_torch.models import ModelHParams, get_model
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, rel=1e-3):
+    got = got.detach().cpu().double()
+    want = want.detach().cpu().double()
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item() + 1e-6, err
+
+
+def _dbof_args(seed, b, s, d, k, x_dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+    if x_dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, s, d), generator=g, dtype=torch.uint8)
+        s_in = (4.0 / 255.0) * (0.5 + torch.rand(d, generator=g))
+    else:
+        x = torch.randn(b, s, d, generator=g)
+        s_in = 0.5 + torch.rand(d, generator=g)
+    w = (torch.randn(d, k, generator=g) * d ** -0.5).to(torch.bfloat16)
+    b_in = 0.1 * torch.randn(d, generator=g)
+    s_act = 0.5 + torch.rand(k, generator=g)
+    b_act = 0.1 * torch.randn(k, generator=g)
+    return [t.to(dev) for t in (x, w, s_in, b_in, s_act, b_act)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,s,d,k", [(7, 5, 64, 200), (9, 32, 96, 136),
+                                     (5, 30, 1152, 8192), (1, 1, 32, 8)])
+def test_cuda_dbof_matches_plain(cuda, x_dtype, b, s, d, k):
+    args = _dbof_args(b + k, b, s, d, k, x_dtype, cuda)
+    before = tdbof.dbof_cluster_maxpool_v2.launches
+    got = tdbof.dbof_cluster_maxpool_v2(*args)
+    assert tdbof.dbof_cluster_maxpool_v2.launches == before + 1
+    _close(got, tdbof.dbof_cluster_maxpool_plain(*args))
+
+
+def test_cuda_dbof_masks_padded_frames(cuda):
+    """Every real row is negative before the ReLU; an unmasked zero
+    padding row would give relu(act_bias) = 3."""
+    x, w, s_in, b_in, s_act, b_act = _dbof_args(0, 6, 30, 64, 64,
+                                                torch.uint8, cuda)
+    w = torch.full_like(w, -1.0)
+    got = tdbof.dbof_cluster_maxpool_v2(
+        x, w, torch.ones_like(s_in), torch.ones_like(b_in), s_act,
+        torch.full_like(b_act, 3.0))
+    assert torch.all(got == 0)
+
+
+def _moe_args(seed, b, h, c, m, dev):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, generator=g).abs()
+    wg = torch.randn(h, c * (m + 1), generator=g) * h ** -0.5
+    we = torch.randn(h, c * m, generator=g) * h ** -0.5
+    be = 0.1 * torch.randn(c * m, generator=g)
+    return [x.to(dev), wg.to(torch.bfloat16).to(dev),
+            we.to(torch.bfloat16).to(dev), be.to(dev)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("b,h,c", [(37, 64, 83), (70, 96, 44),
+                                   (130, 1024, 4716)])
+def test_cuda_moe_matches_plain(cuda, m, b, h, c):
+    args = _moe_args(b + c + m, b, h, c, m, cuda)
+    before = tmoe.moe_head_serving.launches
+    got = tmoe.moe_head_serving(*args, m)
+    assert tmoe.moe_head_serving.launches == before + 1
+    _close(got, tmoe.moe_head_plain(*args, m))
+
+
+def test_cuda_moe_clamps_large_logits(cuda):
+    x, wg, we, be = _moe_args(3, 16, 64, 40, 2, cuda)
+    wg = (wg.float() * 400).to(torch.bfloat16)
+    got = tmoe.moe_head_serving(x, wg, we, be, 2)
+    assert torch.isfinite(got).all()
+    _close(got, tmoe.moe_head_plain(x, wg, we, be, 2))
+
+
+def _topk_rows(seed, b, c):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(b, c, generator=g)
+    x[0, : c // 2] = x[0, 0]
+    if b > 4:
+        x[1, ::7] = float("nan")
+        x[2, ::3] = float("-inf")
+        x[3] = -3.4e38
+        x[4, 1::2] = float("inf")
+    return x
+
+
+@pytest.mark.parametrize("b,c,k", [(3, 20, 20), (37, 301, 20),
+                                   (5, 4716, 128), (8, 7, 1),
+                                   (2048, 4716, 20)])
+def test_cuda_topk_matches_plain_exactly(cuda, b, c, k):
+    x = _topk_rows(b + c, b, c).to(cuda)
+    before = ttopk.exact_topk.launches
+    got_v, got_i = ttopk.exact_topk(x, k)
+    assert ttopk.exact_topk.launches == before + 1
+    want_v, want_i = ttopk.exact_topk_plain(x, k)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+def test_cuda_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    x = torch.zeros(2, 40, 64, dtype=torch.uint8, device=cuda)
+    w = torch.zeros(64, 32, dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros(64, device=cuda)
+    a = torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError):  # S = 40 > 32
+        tdbof.dbof_cluster_maxpool_v2(x, w, v, v, a, a)
+    with pytest.raises(ValueError):  # f32 weights: the kernel is bf16
+        tdbof.dbof_cluster_maxpool_v2(x[:, :8].contiguous(), w.float(), v,
+                                      v, a, a)
+    with pytest.raises(ValueError):  # M = 3 is not built
+        tmoe.moe_head_serving(*_moe_args(0, 4, 32, 8, 3, cuda), 3)
+
+
+def test_cuda_inference_matches_cpu(cuda, tmp_path):
+    hp = ModelHParams(vocab_size=40, feature_dim=96, max_frames=20,
+                      dbof_cluster_size=64, dbof_hidden_size=32,
+                      iterations=8)
+    data = str(tmp_path / "data")
+    write_dataset(data, "test", num_shards=2, videos_per_shard=5,
+                  frame_level=True, num_classes=40, seed=1, rgb_dim=64,
+                  audio_dim=32, max_frames=20)
+    model = get_model("DbofModel", hp)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    run = str(tmp_path / "run")
+    save_checkpoint(run, model, "DbofModel", hp, frame_features=True,
+                    feature_names="rgb,audio", feature_sizes="64,32",
+                    num_classes=40, max_frames=20)
+    rc = ReaderConfig("rgb,audio", "64,32", frame_features=True,
+                      num_classes=40, max_frames=20)
+    batch = next(iter(BatchIterator(f"{data}/test-*.tfrecord", rc,
+                                    batch_size=8)))
+    feats = torch.from_numpy(batch["features"])
+    nf = torch.from_numpy(batch["num_frames"])
+    u = torch.rand(8, hp.iterations,
+                   generator=torch.Generator().manual_seed(1))
+    gpu_model = load_model(run, "DbofModel", hp, cuda)
+    with torch.inference_mode():
+        want = model.eval()(feats, nf, u=u)["predictions"]
+        got = gpu_model(feats.to(cuda), nf.to(cuda), u=u.to(cuda))
+    _close(got["predictions"], want, rel=2e-3)
+    stats = cli.main([f"--input_data_pattern={data}/test-*.tfrecord",
+                      f"--train_dir={run}",
+                      f"--output_file={tmp_path / 'g.csv'}",
+                      "--batch_size=4", "--top_k=5", "--device=cuda"])
+    assert stats["num_videos"] == 10 and stats["device"].startswith("cuda")

@@ -1,0 +1,5 @@
+from yt8m_tpu_torch.models.hparams import ModelHParams
+from yt8m_tpu_torch.models.registry import get_model, register
+
+# Import model modules for their registration side effects.
+from yt8m_tpu_torch.models import frame as _frame  # noqa: F401

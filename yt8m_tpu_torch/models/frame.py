@@ -1,0 +1,166 @@
+"""Frame-level models: DBoF (reference: frame_level_models.py :: DbofModel).
+
+Input: uint8 (or float) frame features [B, F, D] plus num_frames [B].
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+from yt8m_tpu_torch.kernels.dbof import dbof_cluster_maxpool_v2
+from yt8m_tpu_torch.models.frame_utils import (
+    ensure_float,
+    frame_pooling,
+    sample_random_frames,
+    sample_random_sequence,
+)
+from yt8m_tpu_torch.models.hparams import ModelHParams
+from yt8m_tpu_torch.models.norm import BN_EPS, BatchNorm, bn_apply, bn_fold
+from yt8m_tpu_torch.models.registry import register
+from yt8m_tpu_torch.models.serving import ServingModule
+from yt8m_tpu_torch.models.video import make_classifier_head
+
+
+@register("DbofModel")
+class DbofModel(ServingModule):
+    """Deep Bag-of-Frames, serving (eval) forward.
+
+    Reference: frame_level_models.py :: DbofModel.create_model —
+      1. sample `--iterations` frames (SampleRandomFrames when
+         --sample_random_frames else SampleRandomSequence);
+      2. FC frames -> --dbof_cluster_size (+BN or bias, ReLU);
+      3. max/average pool over sampled frames (--dbof_pooling_method);
+      4. FC -> --dbof_hidden_size (+BN or bias, ReLU);
+      5. video-level classifier (--dbof_video_level_classifier_model).
+
+    With max pooling (the reference default) steps 2-3 are one fused
+    kernel (kernels/dbof.py) with dequantization and both BatchNorms
+    folded into its two affines, as the JAX model folds them; average
+    pooling runs the JAX model's unfused graph in plain PyTorch. Parameter
+    and buffer names are the JAX model's (`convert.py` carries them over).
+    """
+
+    def __init__(self, hp: ModelHParams):
+        super().__init__()
+        self.hp = hp
+        d, k, h = hp.feature_dim, hp.dbof_cluster_size, hp.dbof_hidden_size
+        self.cluster_kernel = nn.Parameter(torch.empty(d, k))
+        if hp.dbof_add_batch_norm:
+            self.input_bn_scale = nn.Parameter(torch.ones(d))
+            self.input_bn_bias = nn.Parameter(torch.zeros(d))
+            self.register_buffer("input_bn_mean", torch.zeros(d))
+            self.register_buffer("input_bn_var", torch.ones(d))
+            self.cluster_bn_scale = nn.Parameter(torch.ones(k))
+            self.cluster_bn_bias = nn.Parameter(torch.zeros(k))
+            self.register_buffer("cluster_bn_mean", torch.zeros(k))
+            self.register_buffer("cluster_bn_var", torch.ones(k))
+        else:
+            self.cluster_bias = nn.Parameter(torch.zeros(k))
+        self.hidden_kernel = nn.Parameter(torch.empty(k, h))
+        if hp.dbof_add_batch_norm:
+            self.hidden_bn = BatchNorm(h)
+        else:
+            self.hidden_bias = nn.Parameter(torch.zeros(h))
+        self.video_classifier = make_classifier_head(hp, h)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """The JAX model's initialisers, drawn from `generator`."""
+        hp = self.hp
+        with torch.no_grad():
+            self.cluster_kernel.normal_(
+                0.0, hp.feature_dim ** -0.5, generator=generator)
+            self.hidden_kernel.normal_(
+                0.0, hp.dbof_cluster_size ** -0.5, generator=generator)
+            if not hp.dbof_add_batch_norm:
+                self.cluster_bias.normal_(0.0, 0.01, generator=generator)
+                self.hidden_bias.normal_(0.0, 0.01, generator=generator)
+        self.video_classifier.reset_parameters(generator)
+        self.invalidate_serving()
+
+    def make_serving_constants(self) -> dict:
+        hp = self.hp
+        d, k = hp.feature_dim, hp.dbof_cluster_size
+        dev = self.cluster_kernel.device
+        if hp.dbof_add_batch_norm:
+            s_in, b_in = bn_fold(self.input_bn_scale, self.input_bn_bias,
+                                 self.input_bn_mean, self.input_bn_var,
+                                 BN_EPS)
+            s_act, b_act = bn_fold(self.cluster_bn_scale,
+                                   self.cluster_bn_bias,
+                                   self.cluster_bn_mean,
+                                   self.cluster_bn_var, BN_EPS)
+        else:
+            s_in = torch.ones(d, device=dev)
+            b_in = torch.zeros(d, device=dev)
+            s_act = torch.ones(k, device=dev)
+            b_act = self.cluster_bias.detach().clone()
+        return {
+            "cluster_w": self.cluster_kernel.to(hp.dtype).contiguous(),
+            # uint8 input: dequantize folded into the input affine
+            "affine_u8": ((DEQUANT_SCALE * s_in).contiguous(),
+                          (DEQUANT_BIAS * s_in + b_in).contiguous()),
+            "affine_float": (s_in.contiguous(), b_in.contiguous()),
+            "act_affine": (s_act.contiguous(), b_act.contiguous()),
+            "hidden_w": self.hidden_kernel.to(hp.dtype).to(torch.float32),
+        }
+
+    def _cluster_average_pool(self, x_raw):
+        """Steps 2-3 as the JAX model's unfused graph (BN unfolded)."""
+        hp = self.hp
+        b, s, d = x_raw.shape
+        x = ensure_float(x_raw).reshape(b * s, d)
+        if hp.dbof_add_batch_norm:
+            x = bn_apply(x, self.input_bn_scale, self.input_bn_bias,
+                         self.input_bn_mean, self.input_bn_var)
+        act = torch.matmul(
+            x.to(hp.dtype).to(torch.float32),
+            self.cluster_kernel.to(hp.dtype).to(torch.float32),
+        )
+        if hp.dbof_add_batch_norm:
+            act = bn_apply(act, self.cluster_bn_scale, self.cluster_bn_bias,
+                           self.cluster_bn_mean, self.cluster_bn_var)
+        else:
+            act = act + self.cluster_bias
+        act = torch.relu(act).reshape(b, s, -1)
+        return frame_pooling(act, hp.dbof_pooling_method)
+
+    def forward(self, features, num_frames, generator=None, u=None):
+        """{"predictions": [B, vocab] f32}.
+
+        `generator` drives the frame sampling; `u` (the uniforms, [B, S]
+        for random frames or [B, 1] for a random sequence) overrides it.
+        """
+        if self.training:
+            raise NotImplementedError("DbofModel training is not ported yet")
+        hp = self.hp
+        sampler = (sample_random_frames if hp.sample_random_frames
+                   else sample_random_sequence)
+        x_raw = sampler(features, num_frames, hp.iterations,
+                        generator=generator, u=u)
+        if hp.dbof_pooling_method == "max":
+            if hp.dbof_int8_serving and x_raw.dtype == torch.uint8:
+                raise NotImplementedError(
+                    "--dbof_int8_serving is not ported yet"
+                )
+            c = self.serving_constants()
+            s_in, b_in = c["affine_u8" if x_raw.dtype == torch.uint8
+                           else "affine_float"]
+            if x_raw.dtype not in (torch.uint8, torch.float32):
+                x_raw = x_raw.to(torch.float32)
+            pooled = dbof_cluster_maxpool_v2(
+                x_raw.contiguous(), c["cluster_w"], s_in, b_in,
+                *c["act_affine"],
+            )
+        else:
+            pooled = self._cluster_average_pool(x_raw)
+
+        hidden_w = self.serving_constants()["hidden_w"]
+        hidden = torch.matmul(pooled.to(hp.dtype).to(torch.float32), hidden_w)
+        if hp.dbof_add_batch_norm:
+            hidden = self.hidden_bn(hidden)
+        else:
+            hidden = hidden + self.hidden_bias
+        return self.video_classifier(torch.relu(hidden))

@@ -1,0 +1,99 @@
+"""Frame sampling helpers (reference: model_utils.py).
+
+The JAX package draws its uniforms from `jax.random`, whose stream torch
+cannot reproduce. So each sampler takes either a `torch.Generator` or the
+uniforms `u` themselves: the tests feed the port the JAX draws and
+compare the gathered frames exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from yt8m_tpu_torch.data.quantize import dequantize
+
+
+def ensure_float(features: torch.Tensor, dtype=torch.float32):
+    """Dequantize uint8 features; pass floats through (cast to dtype)."""
+    if features.dtype == torch.uint8:
+        return dequantize(features.to(dtype))
+    return features.to(dtype)
+
+
+def frame_mask(num_frames: torch.Tensor, max_frames: int,
+               dtype=torch.float32):
+    """[B] frame counts -> [B, F] validity mask."""
+    pos = torch.arange(max_frames, device=num_frames.device)[None, :]
+    return (pos < num_frames.to(torch.int64)[:, None]).to(dtype)
+
+
+def _uniform(shape, like: torch.Tensor, generator, u):
+    if u is not None:
+        u = torch.as_tensor(u, dtype=torch.float32, device=like.device)
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"u has shape {tuple(u.shape)}, want {shape}")
+        return u
+    return torch.rand(
+        shape, generator=generator, device=like.device, dtype=torch.float32
+    )
+
+
+def _gather_frames(model_input: torch.Tensor, idx: torch.Tensor):
+    rows = torch.arange(model_input.shape[0], device=idx.device)[:, None]
+    return model_input[rows, idx]
+
+
+def sample_random_frames(
+    model_input: torch.Tensor,
+    num_frames: torch.Tensor,
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+):
+    """Uniform-with-replacement frame sampling.
+
+    Reference: model_utils.py :: SampleRandomFrames —
+    index = floor(U[0,1) * num_frames) per (video, sample), in float32
+    as the JAX package computes it. `u` [B, num_samples] overrides the
+    generator.
+    """
+    b = model_input.shape[0]
+    u = _uniform((b, num_samples), model_input, generator, u)
+    nf = torch.clamp(num_frames.to(torch.float32), min=1.0)
+    idx = torch.floor(u * nf[:, None]).to(torch.int64)
+    return _gather_frames(model_input, idx)
+
+
+def sample_random_sequence(
+    model_input: torch.Tensor,
+    num_frames: torch.Tensor,
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+):
+    """Contiguous random crop (reference: SampleRandomSequence).
+
+    start = floor(U * (max(num_frames - num_samples, 0) + 1)); indices
+    clipped to the valid range so short videos repeat their last frame.
+    `u` [B, 1] overrides the generator.
+    """
+    b = model_input.shape[0]
+    u = _uniform((b, 1), model_input, generator, u)
+    nf = num_frames.to(torch.float32)
+    max_start = (torch.clamp(nf - num_samples, min=0.0) + 1.0)[:, None]
+    start = torch.floor(u * max_start).to(torch.int64)
+    offsets = torch.arange(num_samples, device=model_input.device)[None, :]
+    hi = torch.clamp(num_frames.to(torch.int64) - 1, min=0)[:, None]
+    idx = torch.minimum(torch.clamp(start + offsets, min=0), hi)
+    return _gather_frames(model_input, idx)
+
+
+def frame_pooling(frames: torch.Tensor, method: str):
+    """Pool [B, F, D] -> [B, D] (reference: model_utils.py :: FramePooling)."""
+    if method == "max":
+        return torch.amax(frames, dim=1)
+    if method in ("average", "mean"):
+        return torch.mean(frames, dim=1)
+    raise ValueError(f"unknown pooling method {method!r}")

@@ -1,0 +1,69 @@
+"""Video-level classifier heads (reference: video_level_models.py).
+
+Weights keep the JAX package's names and its [in, out] layout.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from yt8m_tpu_torch.kernels.moe_head import moe_head_serving
+from yt8m_tpu_torch.models.serving import ServingModule
+
+
+def lecun_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
+    """Normal with std 1/sqrt(fan_in) for an [in, out] kernel."""
+    with torch.no_grad():
+        return w.normal_(0.0, w.shape[0] ** -0.5, generator=generator)
+
+
+class MoeHead(ServingModule):
+    """Per-class mixture-of-experts logistic head.
+
+    Reference: video_level_models.py :: MoeModel.create_model — a softmax
+    over num_mixtures + 1 gate logits per class (the extra "dummy"
+    expert lets the model abstain), sigmoid experts, and the gate-weighted
+    sum over the real experts. Gate columns are class-major,
+    c*(M+1)+m; expert columns c*M+m.
+
+    Serving runs the fused head (kernels/moe_head.py): its ratio-form
+    softmax with clamped logits is the TPU kernel's.
+    """
+
+    def __init__(self, in_features: int, vocab_size: int = 4716,
+                 num_mixtures: int = 2, dtype=torch.float32):
+        super().__init__()
+        m = num_mixtures
+        self.vocab_size = vocab_size
+        self.num_mixtures = m
+        self.dtype = dtype
+        self.gates_kernel = nn.Parameter(
+            torch.empty(in_features, vocab_size * (m + 1)))
+        self.experts_kernel = nn.Parameter(
+            torch.empty(in_features, vocab_size * m))
+        self.experts_bias = nn.Parameter(torch.zeros(vocab_size * m))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        lecun_normal_(self.gates_kernel, generator)
+        lecun_normal_(self.experts_kernel, generator)
+        with torch.no_grad():
+            self.experts_bias.zero_()
+        self._serving = None
+
+    def make_serving_constants(self) -> dict:
+        return {
+            "gates": self.gates_kernel.to(self.dtype).contiguous(),
+            "experts": self.experts_kernel.to(self.dtype).contiguous(),
+        }
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError("MoeHead training is not ported yet")
+        c = self.serving_constants()
+        probs = moe_head_serving(
+            x.to(torch.float32).contiguous(), c["gates"], c["experts"],
+            self.experts_bias.detach(), self.num_mixtures,
+        )
+        return {"predictions": probs}
