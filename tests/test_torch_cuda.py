@@ -8,7 +8,19 @@ card and without JAX; skip the JAX-importing conftest there:
 
 Tolerances: DBoF and MoE max|diff| <= 1e-3 * max|ref| + 1e-6 — both
 sides round the same operands to bf16, only the summation order differs;
-top-k values and indices exactly equal.
+top-k values and indices exactly equal. NetVLAD: max|diff| <= 2^-8 *
+max|ref| + 1e-6 — the assignment is rounded to bf16 after a softmax whose
+f32 sums run in another order on the two sides, so a value at a rounding
+boundary can land one bf16 step (2^-8 relative) apart and move one
+frame's term of a cluster row, which the intra-normalisation carries
+into the row. LSTM: max|diff| <= 2e-2 * max(1, max|ref|) — both sides
+round h to bf16 before every step's product, so where the f32 sums
+differ in their last bits a rounding can land one bf16 step (2^-8
+relative) apart and that step is carried into the following steps; 2e-2
+is the JAX package's own bound for its kernel against its scan
+(tests/test_kernels.py::test_lstm_recurrence_matches_scan).
+Planted hazards (padded frames or steps past num_frames set to large
+values, num_frames 0) must give results equal to the clean inputs'.
 """
 
 import numpy as np
@@ -20,7 +32,9 @@ from yt8m_tpu_torch.convert import load_model, save_checkpoint
 from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
 from yt8m_tpu_torch.data.synthetic import write_dataset
 from yt8m_tpu_torch.kernels import dbof as tdbof
+from yt8m_tpu_torch.kernels import lstm as tlstm
 from yt8m_tpu_torch.kernels import moe_head as tmoe
+from yt8m_tpu_torch.kernels import netvlad as tvlad
 from yt8m_tpu_torch.kernels import topk as ttopk
 from yt8m_tpu_torch.models import ModelHParams, get_model
 
@@ -38,6 +52,17 @@ def _close(got, want, rel=1e-3):
     want = want.detach().cpu().double()
     err = (got - want).abs().max().item()
     assert err <= rel * want.abs().max().item() + 1e-6, err
+
+
+def _vlad_close(got, want):
+    _close(got, want, rel=2.0 ** -8)
+
+
+def _lstm_close(got, want):
+    got = got.detach().cpu().double()
+    want = want.detach().cpu().double()
+    err = (got - want).abs().max().item()
+    assert err <= 2e-2 * max(1.0, want.abs().max().item()), err
 
 
 def _dbof_args(seed, b, s, d, k, x_dtype, dev):
@@ -90,7 +115,7 @@ def _moe_args(seed, b, h, c, m, dev):
 
 @pytest.mark.parametrize("m", [1, 2, 4])
 @pytest.mark.parametrize("b,h,c", [(37, 64, 83), (70, 96, 44),
-                                   (130, 1024, 4716)])
+                                   (130, 1024, 4716), (512, 2048, 4716)])
 def test_cuda_moe_matches_plain(cuda, m, b, h, c):
     args = _moe_args(b + c + m, b, h, c, m, cuda)
     before = tmoe.moe_head_serving.launches
@@ -121,7 +146,7 @@ def _topk_rows(seed, b, c):
 
 @pytest.mark.parametrize("b,c,k", [(3, 20, 20), (37, 301, 20),
                                    (5, 4716, 128), (8, 7, 1),
-                                   (2048, 4716, 20)])
+                                   (512, 4716, 20), (2048, 4716, 20)])
 def test_cuda_topk_matches_plain_exactly(cuda, b, c, k):
     x = _topk_rows(b + c, b, c).to(cuda)
     before = ttopk.exact_topk.launches
@@ -177,3 +202,168 @@ def test_cuda_inference_matches_cpu(cuda, tmp_path):
                       f"--output_file={tmp_path / 'g.csv'}",
                       "--batch_size=4", "--top_k=5", "--device=cuda"])
     assert stats["num_videos"] == 10 and stats["device"].startswith("cuda")
+
+
+def _vlad_args(seed, b, f, d, k, x_dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+    if x_dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, f, d), generator=g, dtype=torch.uint8)
+    else:
+        x = torch.randn(b, f, d, generator=g)
+    nf = torch.randint(1, f + 1, (b,), generator=g, dtype=torch.int32)
+    nf[0] = f
+    if b > 2:
+        nf[1] = 0
+        nf[2] = 1
+    wc = (torch.randn(d, k, generator=g) * d ** -0.5).to(torch.bfloat16)
+    scale = 0.5 + torch.rand(k, generator=g)
+    bias = 0.3 * torch.randn(k, generator=g)
+    centers = torch.randn(k, d, generator=g) * d ** -0.5
+    return [t.to(dev) for t in (x, nf, wc, scale, bias, centers)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,f,d,k", [(5, 13, 128, 8), (4, 70, 256, 136),
+                                     (3, 300, 1152, 256), (1, 1, 128, 64)])
+def test_cuda_netvlad_matches_plain(cuda, x_dtype, b, f, d, k):
+    args = _vlad_args(b + f + k, b, f, d, k, x_dtype, cuda)
+    before = tvlad.netvlad_aggregate.launches
+    got = tvlad.netvlad_aggregate(*args)
+    assert tvlad.netvlad_aggregate.launches == before + 1
+    want = tvlad.netvlad_aggregate_plain(*args)
+    _vlad_close(got, want)
+    if b > 2:
+        assert torch.all(got[1] == 0)  # num_frames 0: zeros, not NaN
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_netvlad_hazards(cuda, x_dtype):
+    """Frames past num_frames set to large values do not leak; a cluster
+    no frame is assigned to gives an exact zero row."""
+    x, nf, wc, scale, bias, centers = _vlad_args(7, 6, 300, 1152, 256,
+                                                 x_dtype, cuda)
+    bias[5] = -1e4
+    clean, loud = x.clone(), x.clone()
+    for i, n in enumerate(nf.tolist()):
+        clean[i, n:] = 0
+        loud[i, n:] = 255 if x_dtype == torch.uint8 else 1e4
+    got = tvlad.netvlad_aggregate(loud, nf, wc, scale, bias, centers)
+    assert torch.equal(
+        got, tvlad.netvlad_aggregate(clean, nf, wc, scale, bias, centers))
+    assert torch.all(got[:, 5] == 0) and torch.isfinite(got).all()
+    _vlad_close(got, tvlad.netvlad_aggregate_plain(loud, nf, wc, scale,
+                                                   bias, centers))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_netvlad_differs_only_by_assignment_rounding(cuda, x_dtype):
+    """Why the NetVLAD bound is 2^-8: the kernel's bf16 assignment and
+    bf16 of the plain f32 assignment differ, where they do, by one bf16
+    step; on the kernel's own frames, assignment and column sums the
+    plain remainder meets 1e-3 * max|ref| + 1e-6."""
+    args = _vlad_args(11, 6, 300, 1152, 256, x_dtype, cuda)
+    out, xb, ka, colsum = tvlad.netvlad_aggregate_with_scratch(*args)
+    assert torch.all(ka[:, 300:] == 0)
+    ka = ka[:, :300]
+    _, pa = tvlad.netvlad_assign_plain(*args[:5])
+    differ = ka != pa.to(torch.bfloat16)
+    kd = ka[differ].float()
+    pd = pa[differ].to(torch.bfloat16).float()
+    lo, hi = torch.minimum(kd, pd), torch.maximum(kd, pd)
+    assert torch.all((lo > 0) & (hi - lo <= 2.0 ** -7 * lo))
+    tail = tvlad.netvlad_residuals_plain(ka.float(), colsum.sum(1),
+                                         xb.float(), args[5])
+    _close(out, tail, rel=1e-3)
+
+
+def _lstm_args(seed, f, b, h, dev):
+    g = torch.Generator().manual_seed(seed)
+    xp = (0.5 * torch.randn(f, b, 4 * h, generator=g)).to(torch.bfloat16)
+    nf = torch.randint(1, f + 1, (b,), generator=g, dtype=torch.int32)
+    nf[0] = f
+    if b > 2:
+        nf[1] = 0
+        nf[2] = 1
+    wh = (torch.randn(h, 4 * h, generator=g) * h ** -0.5).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(4 * h, generator=g)
+    return [t.to(dev) for t in (xp, nf, wh, bias)]
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+@pytest.mark.parametrize("f,b,h", [(13, 5, 64), (40, 130, 192),
+                                   (300, 512, 1024), (1, 1, 64)])
+def test_cuda_lstm_matches_plain(cuda, reverse, f, b, h):
+    args = _lstm_args(f + b + h, f, b, h, cuda)
+    before = tlstm.lstm_recurrence.launches
+    outs, (c, hs) = tlstm.lstm_recurrence(*args, reverse=reverse)
+    assert tlstm.lstm_recurrence.launches == before + 1
+    w_outs, (w_c, w_h) = tlstm.lstm_recurrence_plain(*args, reverse=reverse)
+    _lstm_close(outs, w_outs)
+    _lstm_close(c, w_c)
+    _lstm_close(hs, w_h)
+    if b > 2:
+        assert torch.all(outs[:, 1] == 0) and torch.all(c[1] == 0)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+def test_cuda_lstm_frozen_carry_ignores_steps_past_num_frames(cuda,
+                                                              reverse):
+    xp, nf, wh, bias = _lstm_args(3, 300, 64, 1024, cuda)
+    clean, loud = xp.clone(), xp.clone()
+    sign = torch.where(torch.arange(xp.shape[2], device=cuda) % 2 == 0,
+                       1e4, -1e4).to(torch.bfloat16)
+    for i, n in enumerate(nf.tolist()):
+        t = slice(0, 300 - n) if reverse else slice(n, 300)
+        clean[t, i] = 0
+        loud[t, i] = sign
+    a = tlstm.lstm_recurrence(clean, nf, wh, bias, reverse=reverse)
+    b = tlstm.lstm_recurrence(loud, nf, wh, bias, reverse=reverse)
+    assert torch.equal(a[0], b[0])
+    assert torch.equal(a[1][0], b[1][0]) and torch.equal(a[1][1], b[1][1])
+
+
+def test_cuda_new_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    x, nf, wc, scale, bias, centers = _vlad_args(0, 2, 8, 128, 64,
+                                                 torch.float32, cuda)
+    with pytest.raises(ValueError):  # f32 weights: the kernel is bf16
+        tvlad.netvlad_aggregate(x, nf, wc.float(), scale, bias, centers)
+    with pytest.raises(ValueError):  # int64 frame counts
+        tvlad.netvlad_aggregate(x, nf.long(), wc, scale, bias, centers)
+    with pytest.raises(ValueError):  # K = 320 > 256
+        args = _vlad_args(0, 2, 8, 128, 320, torch.float32, cuda)
+        tvlad.netvlad_aggregate(*args)
+    xp, nf, wh, bias = _lstm_args(0, 4, 3, 64, cuda)
+    with pytest.raises(ValueError):  # non-contiguous x_proj
+        tlstm.lstm_recurrence(xp.transpose(0, 1), nf, wh, bias)
+    with pytest.raises(ValueError):  # f32 x_proj: the kernel takes bf16
+        tlstm.lstm_recurrence(xp.float(), nf, wh, bias)
+    with pytest.raises(ValueError):  # H = 96 is no multiple of 64
+        tlstm.lstm_recurrence(*_lstm_args(0, 4, 3, 96, cuda))
+
+
+@pytest.mark.parametrize("name,sampled", [
+    ("NetVladLstmModel", 0), ("NetVladBiLstmModel", 0), ("NetVladModel", 0),
+    ("GatedNetVladModel", 0), ("GatedNetVladModel", 8)])
+def test_cuda_netvlad_models_match_cpu(cuda, name, sampled):
+    hp = ModelHParams(vocab_size=40, feature_dim=128, max_frames=30,
+                      netvlad_cluster_size=64, netvlad_hidden_size=96,
+                      lstm_cells=128, lstm_layers=2,
+                      netvlad_sample_frames=sampled)
+    model = get_model(name, hp)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    feats = torch.randint(0, 256, (9, 30, 128), generator=g,
+                          dtype=torch.uint8)
+    nf = torch.tensor([30, 0, 1, 7, 29, 30, 12, 3, 18], dtype=torch.int32)
+    u = torch.rand(9, max(sampled, 1), generator=g)
+    launches = (tvlad.netvlad_aggregate.launches,
+                tlstm.lstm_recurrence.launches)
+    with torch.inference_mode():
+        want = model.eval()(feats, nf, u=u)["predictions"]
+        got = model.to(cuda)(feats.to(cuda), nf.to(cuda),
+                             u=u.to(cuda))["predictions"]
+    assert tvlad.netvlad_aggregate.launches == launches[0] + 1
+    layers = 2 * (2 if "Bi" in name else 1) if "Lstm" in name else 0
+    assert tlstm.lstm_recurrence.launches == launches[1] + layers
+    assert torch.isfinite(got).all()
+    _close(got, want, rel=2e-3)

@@ -46,6 +46,9 @@ SIGNATURES = {
     "yt8m_dbof_cluster_maxpool_f32": [_P] * 8 + [_I] * 4 + [_P],
     "yt8m_moe_head_serving": [_P] * 5 + [_I] * 4 + [_P],
     "yt8m_exact_topk": [_P] * 3 + [_I] * 3 + [_P],
+    "yt8m_netvlad_aggregate_u8": [_P] * 11 + [_I] * 4 + [_P],
+    "yt8m_netvlad_aggregate_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "yt8m_lstm_recurrence": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

@@ -1,0 +1,96 @@
+"""LSTM recurrence for the serving path.
+
+Replaces yt8m_tpu/kernels/lstm.py :: lstm_recurrence. Given the input
+projection x_proj = X @ W_x [F, B, 4H] (time-major, computed outside),
+every step t computes, in TF gate order i, j, f, o with forget bias 1:
+
+    z      = round(h) @ round(W_h) + round(x_proj[t]) + bias     (f32)
+    c'     = c * sigmoid(f + 1) + sigmoid(i) * tanh(j)
+    h'     = tanh(c') * sigmoid(o)
+    (c, h) = (c', h') where num_frames > orig_t, else unchanged
+    out[t] = round(h)
+
+`round` is the cast to bf16; orig_t = F-1-t when `reverse` (x_proj comes
+already flipped in time and the outputs keep that order, as in the JAX
+package). The CUDA kernel (csrc/lstm.cu) is bound by the bf16
+tensor-core rate; it runs one launch per step, all F from one C call,
+and `lstm_recurrence.launches` counts calls of this wrapper.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels._checks import (
+    on_cpu,
+    require,
+    require_cuda_operand,
+)
+
+H_MULTIPLE = 64  # the CUDA kernel's depth tile over H (a block owns 32 units)
+
+
+def lstm_recurrence_plain(x_proj, num_frames, wh, bias, reverse=False):
+    """Plain PyTorch version with the kernel's rounding points: h, W_h and
+    x_proj rounded to bf16, exact products summed in f32."""
+    f, b, g = x_proj.shape
+    hd = g // 4
+    w = wh.to(torch.bfloat16).to(torch.float32)
+    xs = x_proj.to(torch.bfloat16).to(torch.float32)
+    nf = num_frames.to(torch.int64)[:, None]
+    h = torch.zeros((b, hd), dtype=torch.float32, device=x_proj.device)
+    c = torch.zeros_like(h)
+    outs = []
+    for t in range(f):
+        z = torch.matmul(h.to(torch.bfloat16).to(torch.float32), w) + xs[t]
+        z = z + bias
+        zi, zj, zf, zo = torch.split(z, hd, dim=-1)
+        c1 = c * torch.sigmoid(zf + 1.0) + torch.sigmoid(zi) * torch.tanh(zj)
+        h1 = torch.tanh(c1) * torch.sigmoid(zo)
+        live = nf > ((f - 1 - t) if reverse else t)
+        c = torch.where(live, c1, c)
+        h = torch.where(live, h1, h)
+        outs.append(h.to(torch.bfloat16))
+    return torch.stack(outs).to(torch.float32), (c, h)
+
+
+def lstm_recurrence(x_proj, num_frames, wh, bias, reverse=False):
+    """(outputs [F, B, H] f32 (bf16 values), (final_c, final_h) [B, H]
+    f32).
+
+    x_proj [F, B, 4H] (bf16 on the card); num_frames [B] (int32 on the
+    card); wh [H, 4H] (bf16 on the card); bias [4H] f32.
+    """
+    require(x_proj.dim() == 3 and x_proj.shape[2] % 4 == 0,
+            f"x_proj must be [F, B, 4H], got {tuple(x_proj.shape)}")
+    f, b, g = x_proj.shape
+    hd = g // 4
+    require(tuple(wh.shape) == (hd, g),
+            f"wh must be [{hd}, {g}], got {tuple(wh.shape)}")
+    if on_cpu(x_proj, num_frames, wh, bias):
+        return lstm_recurrence_plain(x_proj, num_frames, wh, bias, reverse)
+    require(hd % H_MULTIPLE == 0,
+            f"H={hd} must be a multiple of {H_MULTIPLE}")
+    require(f >= 1, "F must be at least 1")
+    require_cuda_operand("x_proj", x_proj, torch.bfloat16, (f, b, g))
+    require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
+    require_cuda_operand("wh", wh, torch.bfloat16, (hd, g))
+    require_cuda_operand("bias", bias, torch.float32, (g,))
+    dev = x_proj.device
+    h0 = torch.zeros((b, hd), dtype=torch.bfloat16, device=dev)
+    c = torch.zeros((b, hd), dtype=torch.float32, device=dev)
+    h = torch.zeros((b, hd), dtype=torch.float32, device=dev)
+    out = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
+    code = _build.library().yt8m_lstm_recurrence(
+        _build.ptr(x_proj), _build.ptr(num_frames), _build.ptr(wh),
+        _build.ptr(bias), _build.ptr(h0), _build.ptr(c), _build.ptr(h),
+        _build.ptr(out), f, b, hd, int(bool(reverse)),
+        _build.current_stream(dev),
+    )
+    _build.check_launch("lstm_recurrence", code)
+    lstm_recurrence.launches += 1
+    return out.to(torch.float32), (c, h)
+
+
+lstm_recurrence.launches = 0

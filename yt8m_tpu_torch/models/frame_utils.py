@@ -90,10 +90,34 @@ def sample_random_sequence(
     return _gather_frames(model_input, idx)
 
 
-def frame_pooling(frames: torch.Tensor, method: str):
-    """Pool [B, F, D] -> [B, D] (reference: model_utils.py :: FramePooling)."""
+def frame_pooling(frames: torch.Tensor, method: str,
+                  mask: Optional[torch.Tensor] = None):
+    """Pool [B, F, D] -> [B, D]; `mask` [B, F] restricts to real frames.
+
+    Reference: model_utils.py :: FramePooling (max | average). Masked max
+    pooling fills the masked rows with -1e9; masked mean pooling divides
+    by max(sum(mask), 1).
+    """
     if method == "max":
+        if mask is not None:
+            neg = torch.full((), -1e9, dtype=frames.dtype,
+                             device=frames.device)
+            frames = torch.where(mask[:, :, None] > 0, frames, neg)
         return torch.amax(frames, dim=1)
     if method in ("average", "mean"):
-        return torch.mean(frames, dim=1)
+        if mask is None:
+            return torch.mean(frames, dim=1)
+        denom = torch.clamp_min(torch.sum(mask, dim=1, keepdim=True), 1.0)
+        return torch.sum(frames * mask[:, :, None], dim=1) / denom
     raise ValueError(f"unknown pooling method {method!r}")
+
+
+def l2_normalize(x: torch.Tensor, dim, eps: float = 1e-6):
+    """x / sqrt(max(sum(x^2), eps^2)) over `dim`.
+
+    The guard is on the squared norm, as in the JAX package (and
+    tf.nn.l2_normalize), so that an exactly-zero row has a zero, not NaN,
+    gradient.
+    """
+    sum_sq = torch.sum(x * x, dim=dim, keepdim=True)
+    return x / torch.sqrt(torch.clamp_min(sum_sq, eps * eps))

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from yt8m_tpu_torch.kernels.moe_head import moe_head_serving
+from yt8m_tpu_torch.models.norm import BatchNorm
 from yt8m_tpu_torch.models.serving import ServingModule
 
 
@@ -67,3 +68,43 @@ class MoeHead(ServingModule):
             self.experts_bias.detach(), self.num_mixtures,
         )
         return {"predictions": probs}
+
+
+class ContextGate(ServingModule):
+    """Context gating of the gated-NetVLAD family.
+
+    Reference: the JAX package's heads.py :: ContextGate (WILLOW /
+    monkeytyping): y = x * sigmoid(BN(x @ W)), or x * sigmoid(x @ W + b)
+    without BatchNorm. The product is f32 on operands rounded to the
+    compute dtype, as the JAX model's bf16 product with f32 accumulation.
+    """
+
+    def __init__(self, dim: int, add_batch_norm: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.gating_kernel = nn.Parameter(torch.empty(dim, dim))
+        if add_batch_norm:
+            self.gating_bn = BatchNorm(dim)
+        else:
+            self.gating_bias = nn.Parameter(torch.zeros(dim))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        lecun_normal_(self.gating_kernel, generator)
+        if hasattr(self, "gating_bias"):
+            with torch.no_grad():
+                self.gating_bias.zero_()
+        self._serving = None
+
+    def make_serving_constants(self) -> dict:
+        return {"kernel": self.gating_kernel.to(self.dtype).to(torch.float32)}
+
+    def forward(self, x):
+        gates = torch.matmul(x.to(self.dtype).to(torch.float32),
+                             self.serving_constants()["kernel"])
+        if hasattr(self, "gating_bn"):
+            gates = self.gating_bn(gates)
+        else:
+            gates = gates + self.gating_bias
+        return x * torch.sigmoid(gates)

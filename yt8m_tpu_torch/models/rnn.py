@@ -1,0 +1,155 @@
+"""Stacked LSTM, uni- and bidirectional (reference: the JAX package's
+models/rnn.py :: _LstmLayer, _run_rnn), serving forward.
+
+dynamic_rnn(sequence_length) semantics: for t >= num_frames the carry
+passes through unchanged, so the final state is the state at the last
+real frame; the backward direction runs reversed time with the same
+freeze, so its final state has consumed exactly the valid prefix. Cells
+are TF1 BasicLSTMCell (gate order i, j, f, o; forget bias 1.0).
+
+Dispatch follows the JAX package: at compute dtype bf16 a layer runs the
+recurrence kernel (kernels/lstm.py: the CUDA kernel on the card, its
+plain version on the CPU) after one input projection X @ W_x; at float32
+it runs the scan graph, concat([x, h]) @ kernel per step in float32 (the
+CUDA kernel is bf16, so float32 runs on the CPU only).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from yt8m_tpu_torch.kernels.lstm import lstm_recurrence
+from yt8m_tpu_torch.models.frame_utils import (
+    ensure_float,
+    frame_mask,
+    frame_pooling,
+)
+from yt8m_tpu_torch.models.serving import ServingModule
+
+
+class LstmLayer(ServingModule):
+    """One LSTM layer: `kernel` [D+H, 4H] (rows :D act on x, D: on h) and
+    `bias` [4H], as the JAX layer holds them."""
+
+    def __init__(self, in_features: int, hidden: int, dtype=torch.float32,
+                 reverse: bool = False, layer_norm: bool = False):
+        super().__init__()
+        if layer_norm:
+            raise NotImplementedError("--lstm_layer_norm is not ported yet")
+        self.in_features = in_features
+        self.hidden = hidden
+        self.dtype = dtype
+        self.reverse = reverse
+        self.kernel = nn.Parameter(torch.empty(in_features + hidden,
+                                               4 * hidden))
+        self.bias = nn.Parameter(torch.zeros(4 * hidden))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """glorot_uniform kernel and zero bias, as the JAX layer."""
+        fan_in, fan_out = self.kernel.shape
+        limit = (6.0 / (fan_in + fan_out)) ** 0.5
+        with torch.no_grad():
+            self.kernel.uniform_(-limit, limit, generator=generator)
+            self.bias.zero_()
+        self._serving = None
+
+    def make_serving_constants(self) -> dict:
+        d = self.in_features
+        return {
+            "wx": self.kernel[:d].to(torch.bfloat16).contiguous(),
+            "wh": self.kernel[d:].to(torch.bfloat16).contiguous(),
+        }
+
+    def forward(self, xs, num_frames):
+        """xs [F, B, D] float, time-major -> (outputs [F, B, H] f32,
+        (final_c, final_h) [B, H] f32)."""
+        if self.dtype == torch.bfloat16:
+            return self._recurrence(xs, num_frames)
+        return self._scan(xs, num_frames)
+
+    def _recurrence(self, xs, num_frames):
+        c = self.serving_constants()
+        xp = torch.matmul(xs.to(torch.bfloat16), c["wx"])  # [F, B, 4H]
+        if self.reverse:
+            xp = torch.flip(xp, dims=(0,))
+        outputs, state = lstm_recurrence(
+            xp.contiguous(), num_frames.to(torch.int32).contiguous(),
+            c["wh"], self.bias.detach(), reverse=self.reverse,
+        )
+        if self.reverse:
+            outputs = torch.flip(outputs, dims=(0,))
+        return outputs, state
+
+    def _scan(self, xs, num_frames):
+        """The JAX layer's scan graph at float32."""
+        f, b, _ = xs.shape
+        nf = num_frames.to(torch.int64)[:, None]
+        h = torch.zeros((b, self.hidden), dtype=torch.float32,
+                        device=xs.device)
+        c = torch.zeros_like(h)
+        outputs = [None] * f
+        for t in (reversed(range(f)) if self.reverse else range(f)):
+            z = torch.matmul(torch.cat([xs[t], h], dim=-1), self.kernel)
+            z = z + self.bias
+            zi, zj, zf, zo = torch.split(z, self.hidden, dim=-1)
+            c1 = (c * torch.sigmoid(zf + 1.0)
+                  + torch.sigmoid(zi) * torch.tanh(zj))
+            h1 = torch.tanh(c1) * torch.sigmoid(zo)
+            live = nf > t
+            c = torch.where(live, c1, c)
+            h = torch.where(live, h1, h)
+            outputs[t] = h
+        return torch.stack(outputs), (c, h)
+
+
+def add_lstm_stack(model: nn.Module, in_features: int, hidden: int,
+                   layers: int, dtype, bidirectional: bool,
+                   layer_norm: bool = False) -> int:
+    """Register `fw_layer{i}` (and `bw_layer{i}`) on `model`, the JAX
+    names; returns the width of the pooled output."""
+    tags = (("fw", False), ("bw", True)) if bidirectional else (("fw", False),)
+    for tag, reverse in tags:
+        for i in range(layers):
+            setattr(model, f"{tag}_layer{i}", LstmLayer(
+                in_features if i == 0 else hidden, hidden, dtype,
+                reverse=reverse, layer_norm=layer_norm))
+    return hidden * len(tags)
+
+
+def run_rnn(model: nn.Module, features, num_frames, layers: int,
+            bidirectional: bool, pooling: str, residual: bool = False):
+    """features [B, F, D] -> pooled [B, H * directions], through the
+    layers `add_lstm_stack` registered on `model`.
+
+    `residual` adds each layer's input to its output from layer 1 on
+    (layer 0 changes the width), and "last" pooling then takes the
+    residual-summed output at the boundary frame.
+    """
+    features = ensure_float(features)
+    f = features.shape[1]
+    xs = features.transpose(0, 1)  # time-major
+    mask = frame_mask(num_frames, f)
+
+    def stack(tag: str, reverse: bool):
+        h_in = xs
+        final_h = None
+        for i in range(layers):
+            outputs, (_, final_h) = getattr(model, f"{tag}_layer{i}")(
+                h_in, num_frames)
+            if residual and i > 0:
+                outputs = outputs + h_in
+            h_in = outputs
+        if residual:
+            final_h = h_in[0] if reverse else h_in[-1]
+        return h_in, final_h
+
+    outputs, last = stack("fw", False)
+    if bidirectional:
+        outs_bw, last_bw = stack("bw", True)
+        outputs = torch.cat([outputs, outs_bw], dim=-1)
+        last = torch.cat([last, last_bw], dim=-1)
+    if pooling == "last":
+        return last
+    return frame_pooling(outputs.transpose(0, 1), pooling, mask)
