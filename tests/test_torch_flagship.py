@@ -217,9 +217,14 @@ def test_flagship_topk_step_matches_jax_order(monkeypatch):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_flagship_training_mode_and_layer_norm_raise(name):
-    with pytest.raises(NotImplementedError):
-        get_model(name, _hparams(ModelHParams)).train()(
-            torch.from_numpy(_features()), torch.from_numpy(NUM_FRAMES))
+    """Training mode is ported (tests/test_torch_train.py holds it against
+    the JAX model): a finite forward with a regularization loss whose
+    backward reaches every parameter. --lstm_layer_norm still raises."""
+    model = get_model(name, _hparams(ModelHParams)).train()
+    out = model(torch.from_numpy(_features()), torch.from_numpy(NUM_FRAMES))
+    assert torch.isfinite(out["predictions"]).all()
+    (out["predictions"].sum() + out["regularization_loss"]).backward()
+    assert all(p.grad is not None for p in model.parameters())
     if "Lstm" in name:
         with pytest.raises(NotImplementedError):
             get_model(name, _hparams(ModelHParams, lstm_layer_norm=True))

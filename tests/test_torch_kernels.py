@@ -25,6 +25,7 @@ from yt8m_tpu.kernels.dbof import (
 from yt8m_tpu.kernels.moe_head import moe_head_serving as jax_moe
 from yt8m_tpu.kernels.topk import TOPK_NEG as JAX_TOPK_NEG
 from yt8m_tpu.kernels.topk import exact_topk as jax_exact_topk
+from yt8m_tpu.kernels.topk import serving_topk as jax_serving_topk
 from yt8m_tpu_torch.kernels import dbof as tdbof
 from yt8m_tpu_torch.kernels import moe_head as tmoe
 from yt8m_tpu_torch.kernels import topk as ttopk
@@ -178,6 +179,23 @@ def test_topk_k_bound_and_range():
         ttopk.exact_topk(torch.zeros(4, 10), 11)
 
 
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "planted_ties"])
+def test_serving_topk_above_128_matches_jax(ties):
+    """k = 200 > 128: the JAX package's serving_topk takes its exact XLA
+    op there; the port's serving_topk its library op stable_sort_topk (a
+    stable sort). Values and indices equal."""
+    rng = np.random.default_rng(7)
+    x = rng.random((2, 4716)).astype(np.float32)
+    if ties:
+        x[0] = np.repeat(rng.random(4716 // 4 + 1), 4)[:4716]
+        x[1, ::3] = 0.5
+    want_v, want_i = jax_serving_topk(jnp.asarray(x), 200)
+    got_v, got_i = ttopk.serving_topk(torch.from_numpy(x), 200)
+    assert got_v.shape == (2, 200) and got_i.dtype == torch.int32
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
 def test_serving_topk_matches_lax_top_k_on_finite_rows():
     x = np.random.default_rng(4).random((16, 4716)).astype(np.float32)
     want_v, want_i = jax.lax.top_k(jnp.asarray(x), 20)
@@ -191,3 +209,55 @@ def test_mixed_devices_raise():
     with pytest.raises(ValueError):
         tmoe.moe_head_serving(x, torch.zeros(8, 6, device="meta"),
                               torch.zeros(8, 4), torch.zeros(4), 1)
+
+
+@pytest.mark.parametrize("x_dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("d,k", [(100, 13), (128, 100), (1000, 16)])
+def test_netvlad_padding_for_the_card_is_exact(x_dtype, d, k):
+    """The card's wrapper pads D to a multiple of 128 and K to one of 8;
+    on the plain version the padded problem gives the same descriptors
+    (to f32 summation order) and zero rows and columns where padded."""
+    from yt8m_tpu_torch.kernels import netvlad as tvlad
+
+    rng = np.random.default_rng(d + k)
+    if x_dtype == np.uint8:
+        x = rng.integers(0, 256, size=(3, 10, d), dtype=np.uint8)
+    else:
+        x = rng.normal(size=(3, 10, d)).astype(np.float32)
+    nf = torch.tensor([10, 0, 4], dtype=torch.int32)
+    w = torch.from_numpy(rng.normal(0, d ** -0.5, (d, k)).astype(
+        np.float32)).to(torch.bfloat16)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, k).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.3, k).astype(np.float32))
+    centers = torch.from_numpy(rng.normal(0, d ** -0.5, (k, d)).astype(
+        np.float32))
+    args = (torch.from_numpy(x), w, scale, bias, centers)
+    want = tvlad.netvlad_aggregate_plain(args[0], nf, *args[1:])
+    xp, wp, sp, bp, cp = tvlad.pad_operands(*args)
+    assert xp.shape[2] % 128 == 0 and wp.shape[1] % 8 == 0
+    got = tvlad.netvlad_aggregate_plain(xp, nf, wp, sp, bp, cp)
+    assert torch.all(got[:, k:] == 0) and torch.all(got[:, :, d:] == 0)
+    _close(got[:, :k, :d].numpy(), want.numpy())
+
+
+def test_lstm_padding_for_the_card_is_exact():
+    """H padded to a multiple of 64 with zero weights: the real units'
+    outputs and state as without padding (to the f32 summation order of
+    the wider product), the padded units exactly 0."""
+    from yt8m_tpu_torch.kernels import lstm as tlstm
+
+    rng = np.random.default_rng(5)
+    f, b, h = 7, 4, 24
+    xp = torch.from_numpy(rng.normal(0, .5, (f, b, 4 * h)).astype(np.float32))
+    wh = torch.from_numpy(rng.normal(0, .2, (h, 4 * h)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, .1, 4 * h).astype(np.float32))
+    nf = torch.tensor([7, 0, 1, 4], dtype=torch.int32)
+    xq, wq, bq = tlstm.pad_units(64, xp, wh, bias)
+    assert xq.shape == (f, b, 256) and wq.shape == (64, 256)
+    for reverse in (False, True):
+        outs, (c, hh) = tlstm.lstm_recurrence_plain(xp, nf, wh, bias, reverse)
+        o2, (c2, h2) = tlstm.lstm_recurrence_plain(xq, nf, wq, bq, reverse)
+        for got, want in ((o2[..., :h], outs), (c2[:, :h], c),
+                          (h2[:, :h], hh)):
+            _close(got.numpy(), want.numpy())
+        assert torch.all(o2[..., h:] == 0) and torch.all(c2[:, h:] == 0)

@@ -176,10 +176,18 @@ def test_converted_state_dict_keeps_names_and_layout():
 
 
 def test_model_training_mode_raises():
+    """Training mode no longer raises (the training slice ports it): the
+    forward returns predictions and a regularization loss, the backward
+    reaches every parameter and the BatchNorm statistics move.
+    tests/test_torch_train.py holds it against the JAX model."""
     model = get_model("DbofModel", _hparams(ModelHParams))
     feats = torch.from_numpy(_features("uint8"))
-    with pytest.raises(NotImplementedError):
-        model.train()(feats, torch.from_numpy(NUM_FRAMES))
+    before = model.hidden_bn.mean.clone()
+    out = model.train()(feats, torch.from_numpy(NUM_FRAMES))
+    assert torch.isfinite(out["predictions"]).all()
+    (out["predictions"].sum() + out["regularization_loss"]).backward()
+    assert all(p.grad is not None for p in model.parameters())
+    assert not torch.equal(model.hidden_bn.mean, before)
 
 
 def test_int8_serving_not_ported_raises():

@@ -6,7 +6,9 @@ The JAX package's variables are nested dicts, `{"params": {...},
 `video_classifier/gates_kernel`, ...) and the same [in, out] layout of
 every kernel, so the conversion only flattens the two trees into one
 `state_dict` with "." for "/": no tensor is transposed. Gate columns
-stay class-major, c*(M+1)+m.
+stay class-major, c*(M+1)+m. `variables_from_model` goes back: the
+port's parameters and buffers to the JAX package's `params` and
+`batch_stats` trees of numpy arrays.
 
 A checkpoint of the port is a directory holding `model_flags.json` (the
 JAX trainer's format, so either package's recording rebuilds the model)
@@ -51,6 +53,29 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return {
         name: torch.from_numpy(np.array(value, dtype=np.float32))
         for name, value in flat.items()
+    }
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    out: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return out
+
+
+def variables_from_model(model: torch.nn.Module) -> dict:
+    """The port's model -> JAX-shaped variables {"params", "batch_stats"}
+    with numpy f32 leaves (parameters, then buffers)."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    return {
+        "params": _nest({n: host(p) for n, p in model.named_parameters()}),
+        "batch_stats": _nest({n: host(b) for n, b in model.named_buffers()}),
     }
 
 

@@ -1,15 +1,17 @@
-"""Build and bind the port's CUDA kernels: one nvcc call, ctypes.
+"""Build and bind the port's CUDA kernels: nvcc, ctypes.
 
-Every `csrc/*.cu` is compiled by a single nvcc call into one shared
-library with a plain C interface,
+Every `csrc/*.cu` is compiled to an object by its own nvcc process, all
+started together, and the objects are linked into one shared library
+with a plain C interface,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/yt8m_tpu_torch/<hash>/libyt8m_kernels.so \
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o  (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/yt8m_tpu_torch/<hash>/libyt8m_kernels.so *.o
 
-at first use, keyed on a hash of the sources and flags, under the
-checkout's `build/` directory. No PyTorch headers are compiled, so the
-build takes seconds. Each C entry point launches on the stream it is
+at first use, keyed on a hash of the sources (headers included) and
+flags, under the checkout's `build/` directory. No PyTorch headers are
+compiled, so the build takes seconds. Each C entry point launches on the stream it is
 given, allocates nothing and returns `cudaGetLastError()`; the Python
 wrappers allocate outputs with `torch.empty` and raise on a non-zero
 return. Nothing here runs at import time: the CPU tests import every
@@ -30,10 +32,9 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "yt8m_tpu_torch"
 LIB_NAME = "libyt8m_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_TIMEOUT_S = 600
 
@@ -49,6 +50,8 @@ SIGNATURES = {
     "yt8m_netvlad_aggregate_u8": [_P] * 11 + [_I] * 4 + [_P],
     "yt8m_netvlad_aggregate_f32": [_P] * 11 + [_I] * 4 + [_P],
     "yt8m_lstm_recurrence": [_P] * 8 + [_I] * 4 + [_P],
+    "yt8m_lstm_train_forward": [_P] * 10 + [_I] * 4 + [_P],
+    "yt8m_lstm_train_backward": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 
@@ -94,28 +97,54 @@ class BuildResult:
 
 
 def build() -> BuildResult:
-    """Compile the library unless this hash is already built."""
+    """Compile the library unless this hash is already built: one nvcc
+    process per source, all running at once, then one link."""
     lib = library_path()
     log_path = lib.with_name("nvcc.log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return BuildResult(lib, 0.0, log, built=False)
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S
-    )
+    procs = []
+    for src in sources():
+        obj = lib.with_name(f".{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    try:
+        for cmd, _, proc in procs:
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            logs.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = lib.with_name(f".{LIB_NAME}.{tag}")
+    try:
+        if not failed:
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in procs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=NVCC_TIMEOUT_S)
+            logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+    finally:
+        for _, obj, _ in procs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "\n".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{log}"
-        )
+        raise RuntimeError(f"nvcc failed (exit codes {failed}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return BuildResult(lib, seconds, log, built=True)

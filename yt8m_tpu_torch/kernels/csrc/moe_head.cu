@@ -24,6 +24,16 @@
 // never padded. Weight tiles move 4 bf16 (8 bytes) per load where the
 // row strides allow it (C*(M+1) and C*M multiples of 4), else one by
 // one. Simple first kernel: wmma fragments, register double buffering.
+//
+// M in {1, 2, 4} is a template argument; any other M in 1..16 is taken
+// at run time by one more instantiation (M = 0), whose tile and loop
+// bounds come from M at run time and whose registers are sized for the
+// largest tile. The block's combined tile has NC * (2M + 1) columns; NC
+// is 32 classes for M <= 4 and halves as M grows (16 for M <= 8, 8 for
+// M <= 16), so the tile stays within 288 columns, and the columns are
+// padded up to a multiple of 32 (two warps of 16-column fragments).
+// Padded columns are computed from whatever the shared memory holds and
+// never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,8 +45,8 @@ using namespace nvcuda;
 namespace {
 
 constexpr int kBM = 128;      // videos per block
-constexpr int kNC = 32;       // classes per block
 constexpr int kBK = 32;       // reduction chunk
+constexpr int kMaxMixtures = 16;
 constexpr int kThreads = 256;
 constexpr int kLdA = kBK + 8;
 
@@ -59,36 +69,52 @@ struct Vec<1> {
   using T = unsigned short;
 };
 
+// The block's tile for M mixtures.
+struct Shape {
+  int m, nc, gate_cols, expert_cols, cols, pad_cols, warp_frags, ldb, lds;
+  __host__ __device__ constexpr explicit Shape(int m_)
+      : m(m_),
+        nc(m_ <= 4 ? 32 : (m_ <= 8 ? 16 : 8)),  // classes per block
+        gate_cols(nc * (m_ + 1)),
+        expert_cols(nc * m_),
+        cols(gate_cols + expert_cols),  // gate then expert columns
+        pad_cols((cols + 31) / 32 * 32),
+        warp_frags(pad_cols / 16 / 2),  // 16-col fragments per warp
+        ldb(pad_cols + 8),
+        lds(pad_cols + 4) {}
+  __host__ __device__ constexpr int stage_b() const { return kBK * ldb; }
+  __host__ __device__ constexpr size_t smem_bytes() const {
+    const size_t main = static_cast<size_t>(2) * (kBM * kLdA + stage_b()) * 2;
+    const size_t epilogue = static_cast<size_t>(kBM) * lds * 4;
+    return main > epilogue ? main : epilogue;
+  }
+};
+
+constexpr int kMaxCols = 288;  // Shape(m).pad_cols for every m in 1..16
+constexpr int kStageA = kBM * kLdA;
+
+// Per-thread register sizes: those of M's tile, or the largest (M = 0).
 template <int M, int W>
-struct Tile {
-  static constexpr int kGateCols = kNC * (M + 1);
-  static constexpr int kExpertCols = kNC * M;
-  static constexpr int kCols = kGateCols + kExpertCols;  // gate then expert columns
-  static constexpr int kWarpFrags = kCols / 16 / 2;       // 16-col fragments per warp
-  static constexpr int kLdB = kCols + 8;
-  static constexpr int kLdS = kCols + 4;
-  static constexpr int kStageA = kBM * kLdA;
-  static constexpr int kStageB = kBK * kLdB;
-  static constexpr int kGateVecs = kBK * kGateCols / W;   // per chunk
-  static constexpr int kPerThreadB = kBK * kCols / W / kThreads;
-  static constexpr size_t kMainBytes = 2 * (kStageA + kStageB) * 2;
-  static constexpr size_t kEpilogueBytes = static_cast<size_t>(kBM) * kLdS * 4;
-  static constexpr size_t kSmemBytes = kMainBytes > kEpilogueBytes ? kMainBytes : kEpilogueBytes;
-  static_assert(kBK * kCols % (W * kThreads) == 0, "B tile must split evenly");
+struct Regs {
+  static constexpr int kCols = M > 0 ? Shape(M).pad_cols : kMaxCols;
+  static constexpr int kFrags = kCols / 16 / 2;
+  static constexpr int kPerThreadB = (kBK * kCols / W + kThreads - 1) / kThreads;
+  static_assert(M <= kMaxMixtures, "M above the supported range");
 };
 
 // Row and column (within the block's combined tile) of weight vector v.
-template <int M, int W>
-__device__ __forceinline__ void vec_coords(int v, int& row, int& col, bool& gate) {
-  using T = Tile<M, W>;
-  gate = v < T::kGateVecs;
+template <int W>
+__device__ __forceinline__ void vec_coords(const Shape& S, int v, int& row, int& col,
+                                           bool& gate) {
+  const int gate_vecs = kBK * S.gate_cols / W;
+  gate = v < gate_vecs;
   if (gate) {
-    row = v / (T::kGateCols / W);
-    col = (v % (T::kGateCols / W)) * W;
+    row = v / (S.gate_cols / W);
+    col = (v % (S.gate_cols / W)) * W;
   } else {
-    const int e = v - T::kGateVecs;
-    row = e / (T::kExpertCols / W);
-    col = T::kGateCols + (e % (T::kExpertCols / W)) * W;
+    const int e = v - gate_vecs;
+    row = e / (S.expert_cols / W);
+    col = S.gate_cols + (e % (S.expert_cols / W)) * W;
   }
 }
 
@@ -96,21 +122,26 @@ template <int M, int W>
 __global__ void __launch_bounds__(kThreads)
 moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
                 const __nv_bfloat16* __restrict__ we, const float* __restrict__ be,
-                float* __restrict__ out, int B, int H, int C) {
-  using T = Tile<M, W>;
+                float* __restrict__ out, int B, int H, int C, int runtime_m) {
+  using R = Regs<M, W>;
   using VT = typename Vec<W>::T;
+  constexpr Shape kS(M > 0 ? M : 1);
+  const Shape S = M > 0 ? kS : Shape(runtime_m);  // a constant when M > 0
+  const int m_ = S.m;
+  const int vecs_b = kBK * S.cols / W;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + 2 * T::kStageA;
+  __nv_bfloat16* sB = sA + 2 * kStageA;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wm = warp >> 1;  // rows wm*32 .. +32
-  const int wn = warp & 1;   // fragments wn*kWarpFrags .. +kWarpFrags
-  const int c0 = blockIdx.x * kNC;
+  const int wn = warp & 1;   // fragments wn*warp_frags .. +warp_frags
+  const int nc = S.nc;
+  const int c0 = blockIdx.x * nc;
   const int b0 = blockIdx.y * kBM;
-  const size_t gate_stride = static_cast<size_t>(C) * (M + 1);
-  const size_t expert_stride = static_cast<size_t>(C) * M;
+  const size_t gate_stride = static_cast<size_t>(C) * (m_ + 1);
+  const size_t expert_stride = static_cast<size_t>(C) * m_;
 
   // A tile: 128 rows x 32 of x (f32 -> bf16); 16 per thread.
   const int a_row = tid >> 1;
@@ -119,33 +150,34 @@ moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w
   const float* a_src = x + static_cast<size_t>(a_ok ? b0 + a_row : 0) * H + a_q * 16;
 
   float4 ra[4];
-  VT rb[T::kPerThreadB];
+  VT rb[R::kPerThreadB];
   auto global_load = [&](int k0) {
     if (a_ok) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) ra[j] = __ldg(reinterpret_cast<const float4*>(a_src + k0) + j);
     }
 #pragma unroll
-    for (int i = 0; i < T::kPerThreadB; ++i) {
+    for (int i = 0; i < R::kPerThreadB; ++i) {
+      if (tid + i * kThreads >= vecs_b) break;
       int row, col;
       bool gate;
-      vec_coords<M, W>(tid + i * kThreads, row, col, gate);
+      vec_coords<W>(S, tid + i * kThreads, row, col, gate);
       const __nv_bfloat16* src;
       bool ok;
       if (gate) {
-        const int gc = c0 * (M + 1) + col;
-        ok = gc < C * (M + 1);
+        const int gc = c0 * (m_ + 1) + col;
+        ok = gc < C * (m_ + 1);
         src = wg + (k0 + row) * gate_stride + gc;
       } else {
-        const int ec = c0 * M + (col - T::kGateCols);
-        ok = ec < C * M;
+        const int ec = c0 * m_ + (col - S.gate_cols);
+        ok = ec < C * m_;
         src = we + (k0 + row) * expert_stride + ec;
       }
       rb[i] = ok ? __ldg(reinterpret_cast<const VT*>(src)) : VT{};
     }
   };
   auto shared_store = [&](int buf) {
-    uint4* dst = reinterpret_cast<uint4*>(sA + buf * T::kStageA + a_row * kLdA + a_q * 16);
+    uint4* dst = reinterpret_cast<uint4*>(sA + buf * kStageA + a_row * kLdA + a_q * 16);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       dst[j] = a_ok ? make_uint4(pack_bf16(ra[2 * j].x, ra[2 * j].y),
@@ -154,21 +186,23 @@ moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w
                                  pack_bf16(ra[2 * j + 1].z, ra[2 * j + 1].w))
                     : make_uint4(0, 0, 0, 0);
     }
-    __nv_bfloat16* tb = sB + buf * T::kStageB;
+    __nv_bfloat16* tb = sB + buf * S.stage_b();
 #pragma unroll
-    for (int i = 0; i < T::kPerThreadB; ++i) {
+    for (int i = 0; i < R::kPerThreadB; ++i) {
+      if (tid + i * kThreads >= vecs_b) break;
       int row, col;
       bool gate;
-      vec_coords<M, W>(tid + i * kThreads, row, col, gate);
-      *reinterpret_cast<VT*>(tb + row * T::kLdB + col) = rb[i];
+      vec_coords<W>(S, tid + i * kThreads, row, col, gate);
+      *reinterpret_cast<VT*>(tb + row * S.ldb + col) = rb[i];
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][T::kWarpFrags];
+  const int frags = S.warp_frags;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][R::kFrags];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int f = 0; f < T::kWarpFrags; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
+    for (int f = 0; f < R::kFrags; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
 
   const int nk = H / kBK;
   global_load(0);
@@ -177,8 +211,8 @@ moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk) global_load((kt + 1) * kBK);
-    const __nv_bfloat16* tA = sA + cur * T::kStageA;
-    const __nv_bfloat16* tB = sB + cur * T::kStageB;
+    const __nv_bfloat16* tA = sA + cur * kStageA;
+    const __nv_bfloat16* tB = sB + cur * S.stage_b();
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
@@ -186,9 +220,10 @@ moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(fa[i], tA + (wm * 32 + i * 16) * kLdA + kk, kLdA);
 #pragma unroll
-      for (int f = 0; f < T::kWarpFrags; ++f) {
+      for (int f = 0; f < R::kFrags; ++f) {
+        if (f >= frags) break;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, tB + kk * T::kLdB + (wn * T::kWarpFrags + f) * 16, T::kLdB);
+        wmma::load_matrix_sync(fb, tB + kk * S.ldb + (wn * frags + f) * 16, S.ldb);
 #pragma unroll
         for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][f], fa[i], fb, acc[i][f]);
       }
@@ -203,26 +238,29 @@ moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int f = 0; f < T::kWarpFrags; ++f)
-      wmma::store_matrix_sync(stage + (wm * 32 + i * 16) * T::kLdS + (wn * T::kWarpFrags + f) * 16,
-                              acc[i][f], T::kLdS, wmma::mem_row_major);
+    for (int f = 0; f < R::kFrags; ++f) {
+      if (f >= frags) break;
+      wmma::store_matrix_sync(stage + (wm * 32 + i * 16) * S.lds + (wn * frags + f) * 16,
+                              acc[i][f], S.lds, wmma::mem_row_major);
+    }
   __syncthreads();
-  for (int p = tid; p < kBM * kNC; p += kThreads) {
-    const int r = p / kNC;
-    const int c = p % kNC;
+  for (int p = tid; p < kBM * nc; p += kThreads) {
+    const int r = p / nc;
+    const int c = p % nc;
     const int b = b0 + r;
     const int cls = c0 + c;
     if (b >= B || cls >= C) continue;
-    const float* g = stage + r * T::kLdS + c * (M + 1);
-    const float* e = stage + r * T::kLdS + T::kGateCols + c * M;
+    const float* g = stage + r * S.lds + c * (m_ + 1);
+    const float* e = stage + r * S.lds + S.gate_cols + c * m_;
     float den = 0.0f;
     float num = 0.0f;
 #pragma unroll
-    for (int m = 0; m <= M; ++m) {
+    for (int m = 0; m <= (M > 0 ? M : kMaxMixtures); ++m) {
+      if (m > m_) break;
       const float eg = expf(fminf(fmaxf(g[m], -80.0f), 80.0f));
       den += eg;
-      if (m < M) {
-        const float logit = e[m] + be[static_cast<size_t>(cls) * M + m];
+      if (m < m_) {
+        const float logit = e[m] + be[static_cast<size_t>(cls) * m_ + m];
         num += eg * (1.0f / (1.0f + expf(-logit)));
       }
     }
@@ -230,19 +268,21 @@ moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w
   }
 }
 
+// M > 0: the instantiation for that M; M = 0: the one taking m at run time.
 template <int M, int W>
 int launch(const void* x, const void* wg, const void* we, const void* be, void* out, int B,
-           int H, int C, void* stream) {
-  using T = Tile<M, W>;
+           int H, int C, int m, void* stream) {
+  const Shape S(m);
+  const size_t smem = S.smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(moe_head_kernel<M, W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(T::kSmemBytes));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((C + kNC - 1) / kNC, (B + kBM - 1) / kBM);
-  moe_head_kernel<M, W><<<grid, kThreads, T::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((C + S.nc - 1) / S.nc, (B + kBM - 1) / kBM);
+  moe_head_kernel<M, W><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(wg),
       static_cast<const __nv_bfloat16*>(we), static_cast<const float*>(be),
-      static_cast<float*>(out), B, H, C);
+      static_cast<float*>(out), B, H, C, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -253,13 +293,16 @@ extern "C" int yt8m_moe_head_serving(const void* x, const void* wg, const void* 
                                      void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || H % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec4 = (C * (M + 1)) % 4 == 0 && (C * M) % 4 == 0;
+  if (M < 1 || M > kMaxMixtures) return static_cast<int>(cudaErrorInvalidValue);
   switch (M) {
-    case 1: return vec4 ? launch<1, 4>(x, wg, we, be, out, B, H, C, stream)
-                        : launch<1, 1>(x, wg, we, be, out, B, H, C, stream);
-    case 2: return vec4 ? launch<2, 4>(x, wg, we, be, out, B, H, C, stream)
-                        : launch<2, 1>(x, wg, we, be, out, B, H, C, stream);
-    case 4: return vec4 ? launch<4, 4>(x, wg, we, be, out, B, H, C, stream)
-                        : launch<4, 1>(x, wg, we, be, out, B, H, C, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define YT8M_MOE_CASE(m)                                                    \
+  case m:                                                                   \
+    return vec4 ? launch<m, 4>(x, wg, we, be, out, B, H, C, M, stream)      \
+                : launch<m, 1>(x, wg, we, be, out, B, H, C, M, stream);
+    YT8M_MOE_CASE(1) YT8M_MOE_CASE(2) YT8M_MOE_CASE(4)
+#undef YT8M_MOE_CASE
+    default:  // any other M, taken at run time
+      return vec4 ? launch<0, 4>(x, wg, we, be, out, B, H, C, M, stream)
+                  : launch<0, 1>(x, wg, we, be, out, B, H, C, M, stream);
   }
 }

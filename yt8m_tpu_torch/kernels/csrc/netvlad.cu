@@ -22,10 +22,13 @@
 //     buffer from the wrapper; both products read it.
 //  1. vlad_assign_kernel, a block per (video, 64 frames): the [64, K]
 //     assignment product on the tensor cores (wmma, 3-stage cp.async
-//     ring), then per row the affine, the f32 softmax with the max
-//     subtracted and the frame mask; writes bf16(assign) to a [B, F64, K]
-//     scratch (zeros past F) and the chunk's f32 column sums.
-//  2. vlad_aggregate_kernel, a block per (video, 128 feature columns):
+//     ring), one 256-cluster tile after another into a [64, K] f32 tile
+//     in shared memory (K <= 512), then per row the affine, the f32
+//     softmax with the max subtracted and the frame mask; writes
+//     bf16(assign) to a [B, F64, K] scratch (zeros past F) and the
+//     chunk's f32 column sums.
+//  2. vlad_aggregate_kernel, a block per (video, 128 feature columns,
+//     256 clusters):
 //     assign^T @ xb over all frames (the assignment tile is read as a
 //     column-major A operand, so nothing is transposed in memory), minus
 //     colsum (x) centers; writes the unnormalised rows and each row's
@@ -56,18 +59,26 @@ constexpr int kThreads = 256;
 constexpr int kBK = 32;
 constexpr int kStages = 3;
 
-// Launch 1: 64 frames x 256 clusters (K <= 256, masked) a block.
+// Launch 1: 64 frames x 256 clusters a product tile, K <= 512 (two
+// tiles) a block.
 constexpr int kAsgRows = 64;
 constexpr int kAsgCols = 256;
+constexpr int kMaxClusters = 2 * kAsgCols;
 constexpr int kAsgLdA = kBK + 8;
 constexpr int kAsgLdB = kAsgCols + 8;
 constexpr int kAsgStageA = kAsgRows * kAsgLdA;
 constexpr int kAsgStageB = kBK * kAsgLdB;
-constexpr int kAsgLdS = kAsgCols + 4;
 constexpr int kAsgPipeBytes = kStages * (kAsgStageA + kAsgStageB) * 2;
-constexpr int kAsgEpiBytes = kAsgRows * kAsgLdS * 4;
-constexpr int kAsgMainBytes = kAsgPipeBytes > kAsgEpiBytes ? kAsgPipeBytes : kAsgEpiBytes;
-constexpr int kAsgSmem = kAsgMainBytes + 8 * kAsgCols * 4;  // + per-warp column sums
+
+// The [64, ktiles * 256] f32 activation tile, row stride ld_s: it shares
+// the pipeline's memory when one cluster tile covers K, else follows it.
+__host__ __device__ inline int asg_ld_s(int ktiles) { return ktiles * kAsgCols + 4; }
+__host__ __device__ inline int asg_s_offset(int ktiles) { return ktiles == 1 ? 0 : kAsgPipeBytes; }
+inline int asg_smem(int ktiles) {
+  const int s_bytes = kAsgRows * asg_ld_s(ktiles) * 4;
+  return ktiles == 1 ? (s_bytes > kAsgPipeBytes ? s_bytes : kAsgPipeBytes)
+                     : kAsgPipeBytes + s_bytes;
+}
 
 // Launch 2: 256 clusters (masked) x 128 feature columns a block.
 constexpr int kAggRows = 256;
@@ -185,129 +196,123 @@ vlad_assign_kernel(const __nv_bfloat16* __restrict__ xb, const int* __restrict__
   const int a_dst = a_row * kAsgLdA + a_col;
   const int a_bytes = a_ok ? 16 : 0;
   // B: 32 rows x 256 clusters = 32 x 16 B a row, four copies a thread.
-  const __nv_bfloat16* b_src[4];
-  int b_dst[4], b_bytes[4];
+  const int ktiles = (K + kAsgCols - 1) / kAsgCols;
+  const int ld_s = asg_ld_s(ktiles);
+  float* S = reinterpret_cast<float*>(smem + asg_s_offset(ktiles));
+  for (int kc = 0; kc < ktiles; ++kc) {
+    const __nv_bfloat16* b_src[4];
+    int b_dst[4], b_bytes[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int seg = tid + j * kThreads;
-    const int row = seg >> 5;
-    const int col = (seg & 31) * 8;
-    const bool ok = col < K;
-    b_src[j] = wc + static_cast<size_t>(row) * K + (ok ? col : 0);
-    b_dst[j] = row * kAsgLdB + col;
-    b_bytes[j] = ok ? 16 : 0;
-  }
-  auto load_stage = [&](int slot, int kt) {
-    const int d0 = kt * kBK;
-    cp_async16(sA + slot * kAsgStageA + a_dst, a_src + d0, a_bytes);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cp_async16(sB + slot * kAsgStageB + b_dst[j], b_src[j] + static_cast<size_t>(d0) * K,
-                 b_bytes[j]);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = D / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < nk) load_stage(next % kStages, next);
-    cp_async_commit();
-    const int slot = kt % kStages;
-    const __nv_bfloat16* tA = sA + slot * kAsgStageA;
-    const __nv_bfloat16* tB = sB + slot * kAsgStageB;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], tA + (wm * 32 + i * 16) * kAsgLdA + kk, kAsgLdA);
+    for (int j = 0; j < 4; ++j) {
+      const int seg = tid + j * kThreads;
+      const int row = seg >> 5;
+      const int col = kc * kAsgCols + (seg & 31) * 8;
+      const bool ok = col < K;
+      b_src[j] = wc + static_cast<size_t>(row) * K + (ok ? col : 0);
+      b_dst[j] = row * kAsgLdB + (seg & 31) * 8;
+      b_bytes[j] = ok ? 16 : 0;
+    }
+    auto load_stage = [&](int slot, int kt) {
+      const int d0 = kt * kBK;
+      cp_async16(sA + slot * kAsgStageA + a_dst, a_src + d0, a_bytes);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], tB + kk * kAsgLdB + wn * 64 + j * 16, kAsgLdB);
+        cp_async16(sB + slot * kAsgStageB + b_dst[j], b_src[j] + static_cast<size_t>(d0) * K,
+                   b_bytes[j]);
+    };
+
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+    const int nk = D / kBK;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nk) load_stage(s, s);
+      cp_async_commit();
     }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      const int next = kt + kStages - 1;
+      if (next < nk) load_stage(next % kStages, next);
+      cp_async_commit();
+      const int slot = kt % kStages;
+      const __nv_bfloat16* tA = sA + slot * kAsgStageA;
+      const __nv_bfloat16* tB = sB + slot * kAsgStageB;
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(fa[i], tA + (wm * 32 + i * 16) * kAsgLdA + kk, kAsgLdA);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wmma::load_matrix_sync(fb[j], tB + kk * kAsgLdB + wn * 64 + j * 16, kAsgLdB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::store_matrix_sync(S + (wm * 32 + i * 16) * ld_s + kc * kAsgCols + wn * 64 + j * 16,
+                                acc[i][j], ld_s, wmma::mem_row_major);
+    __syncthreads();
   }
-  cp_async_wait<0>();
-  __syncthreads();
 
-  float* S = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(S + (wm * 32 + i * 16) * kAsgLdS + wn * 64 + j * 16, acc[i][j],
-                              kAsgLdS, wmma::mem_row_major);
-  __syncthreads();
-
-  // Softmax: each warp takes 8 rows; lane l holds clusters l + 32c.
+  // Softmax: each warp takes 8 rows; lane l holds clusters l + 32c. The
+  // affine, then exp(a - max), then the probability go back into S.
   const int live_rows = min(num_frames[b], F);
-  float sc[8], bi[8], csum[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int col = lane + 32 * c;
-    sc[c] = col < K ? act_scale[col] : 0.0f;
-    bi[c] = col < K ? act_bias[col] : 0.0f;
-    csum[c] = 0.0f;
-  }
   const size_t arow0 = static_cast<size_t>(b) * chunks * kAsgRows;
   for (int r = warp * 8; r < warp * 8 + 8; ++r) {
     const int t = f0 + r;
-    float a[8];
+    float* row = S + r * ld_s;
     float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = lane + 32 * c;
-      a[c] = col < K ? affine(S[r * kAsgLdS + col], sc[c], bi[c]) : -INFINITY;
-      m = fmaxf(m, a[c]);
+    for (int col = lane; col < K; col += 32) {
+      const float a = affine(row[col], act_scale[col], act_bias[col]);
+      row[col] = a;
+      m = fmaxf(m, a);
     }
     m = warp_max(m);
     float s = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      a[c] = lane + 32 * c < K ? expf(__fsub_rn(a[c], m)) : 0.0f;
-      s += a[c];
+    for (int col = lane; col < K; col += 32) {
+      const float e = expf(__fsub_rn(row[col], m));
+      row[col] = e;
+      s += e;
     }
     s = warp_sum(s);
     const bool live = t < live_rows;
     __nv_bfloat16* dst = assign + (arow0 + t) * K;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = lane + 32 * c;
-      const float p = live ? a[c] / s : 0.0f;
-      csum[c] += p;
-      if (col < K) dst[col] = __float2bfloat16_rn(p);
+    for (int col = lane; col < K; col += 32) {
+      const float p = live ? row[col] / s : 0.0f;
+      row[col] = p;
+      dst[col] = __float2bfloat16_rn(p);
     }
   }
-  float* red = reinterpret_cast<float*>(smem + kAsgMainBytes);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) red[warp * kAsgCols + lane + 32 * c] = csum[c];
   __syncthreads();
-  if (tid < K) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) s += red[w * kAsgCols + tid];
-    colsum[(static_cast<size_t>(b) * chunks + chunk) * K + tid] = s;
+  // Column sums over the 64 rows: each warp's 8 rows, then the 8 warps.
+  for (int col = tid; col < K; col += kThreads) {
+    float total = 0.0f;
+    for (int w = 0; w < 8; ++w) {
+      float part = 0.0f;
+      for (int r = w * 8; r < w * 8 + 8; ++r) part += S[r * ld_s + col];
+      total += part;
+    }
+    colsum[(static_cast<size_t>(b) * chunks + chunk) * K + col] = total;
   }
 }
 
-// Launch 2. Grid (D / 128, B). Warps 4 (clusters) x 2 (columns), a
-// 64 x 64 warp tile each.
+// Launch 2. Grid (D / 128, B, ceil(K / 256)). Warps 4 (clusters) x 2
+// (columns), a 64 x 64 warp tile each.
 __global__ void __launch_bounds__(kThreads, 1)
 vlad_aggregate_kernel(const __nv_bfloat16* __restrict__ xb,
                       const __nv_bfloat16* __restrict__ assign,
@@ -326,6 +331,7 @@ vlad_aggregate_kernel(const __nv_bfloat16* __restrict__ xb,
   const int tile = blockIdx.x;
   const int d0 = tile * kAggCols;
   const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kAggRows;
   const int fa_rows = chunks * kAsgRows;  // rows of the assign scratch
   const __nv_bfloat16* av = assign + static_cast<size_t>(b) * fa_rows * K;
   const __nv_bfloat16* xv = xb + static_cast<size_t>(b) * F * D + d0;
@@ -338,9 +344,9 @@ vlad_aggregate_kernel(const __nv_bfloat16* __restrict__ xb,
       const int seg = tid + j * kThreads;
       const int row = seg >> 5;
       const int col = (seg & 31) * 8;
-      const bool ok = col < K;
+      const bool ok = k0 + col < K;
       cp_async16(sA + slot * kAggStageA + row * kAggLdA + col,
-                 av + static_cast<size_t>(f0 + row) * K + (ok ? col : 0), ok ? 16 : 0);
+                 av + static_cast<size_t>(f0 + row) * K + (ok ? k0 + col : 0), ok ? 16 : 0);
     }
     // B: 32 frames x 128 columns, two copies a thread; frames >= F are 0.
 #pragma unroll
@@ -406,11 +412,12 @@ vlad_aggregate_kernel(const __nv_bfloat16* __restrict__ xb,
 
   // Each warp takes 32 clusters; lanes run along the 128 columns.
   const int tiles = gridDim.x;
-  for (int r = warp * 32; r < warp * 32 + 32 && r < K; ++r) {
+  for (int r = warp * 32; r < warp * 32 + 32 && k0 + r < K; ++r) {
+    const int k = k0 + r;
     float a_sum = 0.0f;
-    for (int c = 0; c < chunks; ++c) a_sum += colsum[(static_cast<size_t>(b) * chunks + c) * K + r];
-    const float* cen = centers + static_cast<size_t>(r) * D + d0;
-    float* dst = out + (static_cast<size_t>(b) * K + r) * D + d0;
+    for (int c = 0; c < chunks; ++c) a_sum += colsum[(static_cast<size_t>(b) * chunks + c) * K + k];
+    const float* cen = centers + static_cast<size_t>(k) * D + d0;
+    float* dst = out + (static_cast<size_t>(b) * K + k) * D + d0;
     float ss = 0.0f;
 #pragma unroll
     for (int c = lane; c < kAggCols; c += 32) {
@@ -419,7 +426,7 @@ vlad_aggregate_kernel(const __nv_bfloat16* __restrict__ xb,
       ss += v * v;
     }
     ss = warp_sum(ss);
-    if (lane == 0) sumsq[(static_cast<size_t>(b) * tiles + tile) * K + r] = ss;
+    if (lane == 0) sumsq[(static_cast<size_t>(b) * tiles + tile) * K + k] = ss;
   }
 }
 
@@ -471,7 +478,7 @@ int launch(const void* x, const void* num_frames, const void* wc, const void* ac
            const void* act_bias, const void* centers, void* xb, void* assign, void* colsum,
            void* sumsq, void* out, int B, int F, int D, int K, void* stream) {
   if (B <= 0 || B > 65535 || F <= 0 || D <= 0 || D % kAggCols != 0 || K < 8 || K % 8 != 0 ||
-      K > kAsgCols)
+      K > kMaxClusters)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunks = (F + kAsgRows - 1) / kAsgRows;
@@ -484,10 +491,12 @@ int launch(const void* x, const void* num_frames, const void* wc, const void* ac
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  const int ktiles = (K + kAsgCols - 1) / kAsgCols;
+  const int asg_bytes = asg_smem(ktiles);
   err = cudaFuncSetAttribute(vlad_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kAsgSmem);
+                             asg_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vlad_assign_kernel<<<dim3(chunks, B), kThreads, kAsgSmem, st>>>(
+  vlad_assign_kernel<<<dim3(chunks, B), kThreads, asg_bytes, st>>>(
       xbp, static_cast<const int*>(num_frames), static_cast<const __nv_bfloat16*>(wc),
       static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
       static_cast<__nv_bfloat16*>(assign), static_cast<float*>(colsum), F, D, K);
@@ -497,7 +506,7 @@ int launch(const void* x, const void* num_frames, const void* wc, const void* ac
   err = cudaFuncSetAttribute(vlad_aggregate_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kAggSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vlad_aggregate_kernel<<<dim3(tiles, B), kThreads, kAggSmem, st>>>(
+  vlad_aggregate_kernel<<<dim3(tiles, B, ktiles), kThreads, kAggSmem, st>>>(
       xbp, static_cast<const __nv_bfloat16*>(assign), static_cast<const float*>(colsum),
       static_cast<const float*>(centers), static_cast<float*>(out), static_cast<float*>(sumsq),
       F, D, K, chunks);

@@ -13,7 +13,9 @@ memory. It applies the input affine once, into a [B*S, D] bf16 buffer
 this wrapper allocates, then runs the product with the BN, ReLU and max
 over frames in its epilogue (see the source for the design). The model
 folds dequantization and both BatchNorms into the two affines, and casts
-`w` to bf16 once.
+`w` to bf16 once. The kernel pools at most 32 frames a video; more are
+pooled in chunks of 32 frames, one launch each, whose outputs the
+wrapper reduces with an elementwise max (a max of maxes is exact).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from yt8m_tpu_torch.kernels._checks import (
     require_cuda_operand,
 )
 
-MAX_FRAMES_PER_VIDEO = 32  # S the CUDA kernel takes (one warp per video)
+MAX_FRAMES_PER_VIDEO = 32  # S one launch takes (one warp per video)
 
 
 def dbof_cluster_maxpool_plain(x, w, in_scale, in_bias, act_scale,
@@ -61,8 +63,7 @@ def dbof_cluster_maxpool_v2(x, w, in_scale, in_bias, act_scale, act_bias):
             f"x: dtype {x.dtype}, want uint8 or float32")
     require(w.dtype == torch.bfloat16,
             "the CUDA kernel computes in bf16; w must be bfloat16")
-    require(1 <= s <= MAX_FRAMES_PER_VIDEO,
-            f"S={s} frames per video, the kernel takes 1..32")
+    require(s >= 1, "S must be at least 1")
     require(d % 32 == 0, f"D={d} must be a multiple of 32")
     require(k % 8 == 0, f"K={k} must be a multiple of 8")
     require_cuda_operand("x", x, x.dtype, (b, s, d))
@@ -71,6 +72,18 @@ def dbof_cluster_maxpool_v2(x, w, in_scale, in_bias, act_scale, act_bias):
                        ("act_scale", act_scale, k),
                        ("act_bias", act_bias, k)):
         require_cuda_operand(name, t, torch.float32, (n,))
+    out = None
+    for s0 in range(0, s, MAX_FRAMES_PER_VIDEO):
+        part = _launch(x[:, s0:s0 + MAX_FRAMES_PER_VIDEO].contiguous(), w,
+                       in_scale, in_bias, act_scale, act_bias)
+        out = part if out is None else torch.maximum(out, part)
+    return out
+
+
+def _launch(x, w, in_scale, in_bias, act_scale, act_bias):
+    """One launch over x [B, S <= 32, D]."""
+    b, s, d = x.shape
+    k = w.shape[1]
     out = torch.empty((b, k), dtype=torch.float32, device=x.device)
     xa = torch.empty((b * s, d), dtype=torch.bfloat16, device=x.device)
     lib = _build.library()

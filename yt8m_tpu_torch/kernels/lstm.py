@@ -14,7 +14,11 @@ every step t computes, in TF gate order i, j, f, o with forget bias 1:
 already flipped in time and the outputs keep that order, as in the JAX
 package). The CUDA kernel (csrc/lstm.cu) is bound by the bf16
 tensor-core rate; it runs one launch per step, all F from one C call,
-and `lstm_recurrence.launches` counts calls of this wrapper.
+and `lstm_recurrence.launches` counts calls of this wrapper. H that is
+no multiple of 64 is padded with units whose W_h columns and rows,
+x_proj columns and bias are zero: such a unit keeps c = 0 and h = 0
+(z = 0 gives c' = c * sigmoid(1) + sigmoid(0) * tanh(0)), so the real
+units see nothing of it.
 """
 
 from __future__ import annotations
@@ -31,6 +35,30 @@ from yt8m_tpu_torch.kernels._checks import (
 H_MULTIPLE = 64  # the CUDA kernel's depth tile over H (a block owns 32 units)
 
 
+def pad_units(hp: int, x_proj, wh, bias):
+    """(x_proj, wh, bias) with hp units: every gate block padded with
+    zero columns, and W_h with zero rows."""
+    hd = wh.shape[0]
+
+    def gates(t):
+        t = t.reshape(*t.shape[:-1], 4, hd)
+        t = torch.nn.functional.pad(t, (0, hp - hd))
+        return t.reshape(*t.shape[:-2], 4 * hp).contiguous()
+
+    wh = torch.nn.functional.pad(gates(wh), (0, 0, 0, hp - hd))
+    return gates(x_proj), wh.contiguous(), gates(bias)
+
+
+def lstm_cell(z, c, hd: int):
+    """The cell on pre-activations z [B, 4H] (f32, TF order i, j, f, o):
+    (gates (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o), c', h')."""
+    zi, zj, zf, zo = torch.split(z, hd, dim=-1)
+    si, tj = torch.sigmoid(zi), torch.tanh(zj)
+    sf, so = torch.sigmoid(zf + 1.0), torch.sigmoid(zo)
+    c1 = c * sf + si * tj
+    return (si, tj, sf, so), c1, torch.tanh(c1) * so
+
+
 def lstm_recurrence_plain(x_proj, num_frames, wh, bias, reverse=False):
     """Plain PyTorch version with the kernel's rounding points: h, W_h and
     x_proj rounded to bf16, exact products summed in f32."""
@@ -44,10 +72,7 @@ def lstm_recurrence_plain(x_proj, num_frames, wh, bias, reverse=False):
     outs = []
     for t in range(f):
         z = torch.matmul(h.to(torch.bfloat16).to(torch.float32), w) + xs[t]
-        z = z + bias
-        zi, zj, zf, zo = torch.split(z, hd, dim=-1)
-        c1 = c * torch.sigmoid(zf + 1.0) + torch.sigmoid(zi) * torch.tanh(zj)
-        h1 = torch.tanh(c1) * torch.sigmoid(zo)
+        _, c1, h1 = lstm_cell(z + bias, c, hd)
         live = nf > ((f - 1 - t) if reverse else t)
         c = torch.where(live, c1, c)
         h = torch.where(live, h1, h)
@@ -70,8 +95,11 @@ def lstm_recurrence(x_proj, num_frames, wh, bias, reverse=False):
             f"wh must be [{hd}, {g}], got {tuple(wh.shape)}")
     if on_cpu(x_proj, num_frames, wh, bias):
         return lstm_recurrence_plain(x_proj, num_frames, wh, bias, reverse)
-    require(hd % H_MULTIPLE == 0,
-            f"H={hd} must be a multiple of {H_MULTIPLE}")
+    if hd % H_MULTIPLE:
+        hp = -(-hd // H_MULTIPLE) * H_MULTIPLE
+        xp, whp, bp = pad_units(hp, x_proj, wh, bias)
+        out, (c, h) = lstm_recurrence(xp, num_frames, whp, bp, reverse)
+        return out[..., :hd].contiguous(), (c[:, :hd], h[:, :hd])
     require(f >= 1, "F must be at least 1")
     require_cuda_operand("x_proj", x_proj, torch.bfloat16, (f, b, g))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))

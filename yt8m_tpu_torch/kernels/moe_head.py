@@ -26,7 +26,7 @@ from yt8m_tpu_torch.kernels._checks import (
     require_cuda_operand,
 )
 
-CUDA_MIXTURES = (1, 2, 4)  # num_mixtures the CUDA kernel is built for
+CUDA_MIXTURES = range(1, 17)  # num_mixtures the CUDA kernel takes
 
 
 def moe_head_plain(x, gate_kernel, expert_kernel, expert_bias,
@@ -61,7 +61,7 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
     if on_cpu(x, gate_kernel, expert_kernel, expert_bias):
         return moe_head_plain(x, gate_kernel, expert_kernel, expert_bias, m)
     require(m in CUDA_MIXTURES,
-            f"num_mixtures={m}: the CUDA kernel is built for {CUDA_MIXTURES}")
+            f"num_mixtures={m}: the CUDA kernel takes 1..16")
     require(h % 32 == 0, f"H={h} must be a multiple of 32")
     require_cuda_operand("x", x, torch.float32, (b, h))
     require_cuda_operand("gate_kernel", gate_kernel, torch.bfloat16,

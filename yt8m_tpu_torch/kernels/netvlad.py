@@ -15,6 +15,15 @@ with float32 frames (the [B, K, D] f32 output alone is 604 MB at B=512);
 both products run on the tensor cores inside it. The wrapper allocates
 the kernel's scratch: the bf16 frames, the bf16 [B, F, K] assignment and
 the partial column sums and sums of squares.
+
+The kernel takes D a multiple of 128 and K a multiple of 8 up to 512;
+`netvlad_aggregate` pads other shapes so that the result is exact.
+Padded features are zero columns of the frames (uint8 frames are first
+dequantized to float32, as the plain version does, since no byte
+dequantizes to 0), of Wc and of the centers: their residual is 0 and
+the norms do not change. Padded clusters get zero Wc columns and a bias
+of -1e30, so their assignment is exactly 0 and their rows are zeros,
+which the wrapper drops.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from yt8m_tpu_torch.kernels._checks import (
 NORM_EPS = 1e-6
 FRAME_CHUNK = 64   # frames per block of the assignment launch
 D_TILE = 128       # feature columns per block of the aggregation launch
-MAX_CLUSTERS = 256  # K one assignment block holds for its softmax
+MAX_CLUSTERS = 512  # K one assignment block holds for its softmax
+K_MULTIPLE = 8      # clusters: 16-byte rows of Wc and the assignment
+PAD_CLUSTER_BIAS = -1e30
 
 
 def netvlad_assign_plain(frames, num_frames, cluster_w, act_scale,
@@ -79,6 +90,25 @@ def netvlad_aggregate_plain(frames, num_frames, cluster_w, act_scale,
     return netvlad_residuals_plain(assign, a_sum, x, centers)
 
 
+def pad_operands(frames, cluster_w, act_scale, act_bias, centers):
+    """(frames, cluster_w, act_scale, act_bias, centers) padded to D a
+    multiple of 128 and K a multiple of 8 (unchanged where they are)."""
+    d, k = cluster_w.shape
+    dp = -(-d // D_TILE) * D_TILE
+    kp = -(-k // K_MULTIPLE) * K_MULTIPLE
+    if (dp, kp) == (d, k):
+        return frames, cluster_w, act_scale, act_bias, centers
+    pad = torch.nn.functional.pad
+    if dp != d:
+        if frames.dtype == torch.uint8:
+            frames = frames.to(torch.float32) * DEQUANT_SCALE + DEQUANT_BIAS
+        frames = pad(frames, (0, dp - d)).contiguous()
+    return (frames, pad(cluster_w, (0, kp - k, 0, dp - d)).contiguous(),
+            pad(act_scale, (0, kp - k), value=1.0),
+            pad(act_bias, (0, kp - k), value=PAD_CLUSTER_BIAS),
+            pad(centers, (0, dp - d, 0, kp - k)).contiguous())
+
+
 def netvlad_aggregate(frames, num_frames, cluster_w, act_scale, act_bias,
                       centers):
     """Normalised VLAD descriptors [B, K, D] f32.
@@ -96,8 +126,12 @@ def netvlad_aggregate(frames, num_frames, cluster_w, act_scale, act_bias,
     if on_cpu(frames, num_frames, cluster_w, act_scale, act_bias, centers):
         return netvlad_aggregate_plain(frames, num_frames, cluster_w,
                                        act_scale, act_bias, centers)
-    return netvlad_aggregate_with_scratch(frames, num_frames, cluster_w,
-                                          act_scale, act_bias, centers)[0]
+    k = cluster_w.shape[1]
+    x, w, scale, bias, cen = pad_operands(frames, cluster_w, act_scale,
+                                          act_bias, centers)
+    out = netvlad_aggregate_with_scratch(x, num_frames, w, scale, bias,
+                                         cen)[0]
+    return out if out.shape[1:] == (k, d) else out[:, :k, :d].contiguous()
 
 
 def netvlad_aggregate_with_scratch(frames, num_frames, cluster_w, act_scale,

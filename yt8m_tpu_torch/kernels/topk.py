@@ -10,6 +10,11 @@ the plain version is a stable descending sort instead.
 The CUDA kernel (csrc/topk.cu) is bound by one read of x from device
 memory; it copies each row to shared memory once and runs the k
 selection rounds there.
+
+serving_topk dispatches as yt8m_tpu/kernels/topk.py :: _dispatch_topk
+does: k <= 128 goes to exact_topk, larger k to a library op outside any
+kernel (there an exact XLA op, here `stable_sort_topk`, a stable
+torch.sort), on either device.
 """
 
 from __future__ import annotations
@@ -27,12 +32,18 @@ TOPK_NEG = -3.0e38
 MAX_K = 128
 
 
-def exact_topk_plain(x, k: int):
-    """Plain PyTorch version: sanitise, stable descending sort, first k."""
+def stable_sort_topk(x, k: int):
+    """Sanitise, stable descending sort, first k: any k <= C, any device.
+
+    The plain version of exact_topk, and serving_topk's library op for
+    k > MAX_K."""
     v = torch.where(torch.isnan(x), torch.full_like(x, TOPK_NEG), x)
     v = torch.clamp_min(v, TOPK_NEG)
     vals, idx = torch.sort(v, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+exact_topk_plain = stable_sort_topk
 
 
 def exact_topk(x, k: int = 20):
@@ -61,5 +72,9 @@ exact_topk.launches = 0
 
 
 def serving_topk(x, k: int):
-    """Serving-tail top-k: exact_topk on float32 predictions."""
-    return exact_topk(x.to(torch.float32).contiguous(), k)
+    """Serving-tail top-k on float32 predictions: exact_topk for
+    k <= MAX_K, the library op stable_sort_topk above it."""
+    x = x.to(torch.float32).contiguous()
+    if k > MAX_K:
+        return stable_sort_topk(x, k)
+    return exact_topk(x, k)

@@ -5,3 +5,4 @@ from yt8m_tpu_torch.models.registry import get_model, register
 from yt8m_tpu_torch.models import frame as _frame  # noqa: F401
 from yt8m_tpu_torch.models import netvlad as _netvlad  # noqa: F401
 from yt8m_tpu_torch.models import netvlad_lstm as _netvlad_lstm  # noqa: F401
+from yt8m_tpu_torch.models import rnn as _rnn  # noqa: F401

@@ -17,7 +17,8 @@ from yt8m_tpu_torch.models.frame_utils import (
     sample_random_sequence,
 )
 from yt8m_tpu_torch.models.hparams import ModelHParams
-from yt8m_tpu_torch.models.norm import BN_EPS, BatchNorm, bn_apply, bn_fold
+from yt8m_tpu_torch.models.heads import l2_loss, rounded
+from yt8m_tpu_torch.models.norm import BN_EPS, BatchNorm, bn_fold, inline_bn
 from yt8m_tpu_torch.models.registry import register
 from yt8m_tpu_torch.models.serving import ServingModule
 from yt8m_tpu_torch.models.video import make_classifier_head
@@ -25,7 +26,7 @@ from yt8m_tpu_torch.models.video import make_classifier_head
 
 @register("DbofModel")
 class DbofModel(ServingModule):
-    """Deep Bag-of-Frames, serving (eval) forward.
+    """Deep Bag-of-Frames.
 
     Reference: frame_level_models.py :: DbofModel.create_model —
       1. sample `--iterations` frames (SampleRandomFrames when
@@ -38,8 +39,11 @@ class DbofModel(ServingModule):
     With max pooling (the reference default) steps 2-3 are one fused
     kernel (kernels/dbof.py) with dequantization and both BatchNorms
     folded into its two affines, as the JAX model folds them; average
-    pooling runs the JAX model's unfused graph in plain PyTorch. Parameter
-    and buffer names are the JAX model's (`convert.py` carries them over).
+    pooling runs the JAX model's unfused graph in plain PyTorch. Training
+    runs that graph for either pooling, as the JAX model does (its
+    kernel is serving-only), with both inline BatchNorms on batch
+    moments, and adds `regularization_loss`. Parameter and buffer names
+    are the JAX model's (`convert.py` carries them over).
     """
 
     def __init__(self, hp: ModelHParams):
@@ -104,43 +108,43 @@ class DbofModel(ServingModule):
                           (DEQUANT_BIAS * s_in + b_in).contiguous()),
             "affine_float": (s_in.contiguous(), b_in.contiguous()),
             "act_affine": (s_act.contiguous(), b_act.contiguous()),
-            "hidden_w": self.hidden_kernel.to(hp.dtype).to(torch.float32),
+            "hidden_w": rounded(self.hidden_kernel, hp.dtype),
         }
 
-    def _cluster_average_pool(self, x_raw):
-        """Steps 2-3 as the JAX model's unfused graph (BN unfolded)."""
+    def _cluster_pool_plain(self, x_raw):
+        """Steps 2-3 as the JAX model's unfused graph (BN unfolded; batch
+        moments in training)."""
         hp = self.hp
         b, s, d = x_raw.shape
         x = ensure_float(x_raw).reshape(b * s, d)
         if hp.dbof_add_batch_norm:
-            x = bn_apply(x, self.input_bn_scale, self.input_bn_bias,
-                         self.input_bn_mean, self.input_bn_var)
-        act = torch.matmul(
-            x.to(hp.dtype).to(torch.float32),
-            self.cluster_kernel.to(hp.dtype).to(torch.float32),
-        )
+            x = inline_bn(x, self.input_bn_scale, self.input_bn_bias,
+                          self.input_bn_mean, self.input_bn_var,
+                          self.training)
+        act = torch.matmul(rounded(x, hp.dtype),
+                           rounded(self.cluster_kernel, hp.dtype))
         if hp.dbof_add_batch_norm:
-            act = bn_apply(act, self.cluster_bn_scale, self.cluster_bn_bias,
-                           self.cluster_bn_mean, self.cluster_bn_var)
+            act = inline_bn(act, self.cluster_bn_scale, self.cluster_bn_bias,
+                            self.cluster_bn_mean, self.cluster_bn_var,
+                            self.training)
         else:
             act = act + self.cluster_bias
         act = torch.relu(act).reshape(b, s, -1)
         return frame_pooling(act, hp.dbof_pooling_method)
 
     def forward(self, features, num_frames, generator=None, u=None):
-        """{"predictions": [B, vocab] f32}.
+        """{"predictions": [B, vocab] f32}, and in training
+        "regularization_loss".
 
         `generator` drives the frame sampling; `u` (the uniforms, [B, S]
         for random frames or [B, 1] for a random sequence) overrides it.
         """
-        if self.training:
-            raise NotImplementedError("DbofModel training is not ported yet")
         hp = self.hp
         sampler = (sample_random_frames if hp.sample_random_frames
                    else sample_random_sequence)
         x_raw = sampler(features, num_frames, hp.iterations,
                         generator=generator, u=u)
-        if hp.dbof_pooling_method == "max":
+        if hp.dbof_pooling_method == "max" and not self.training:
             if hp.dbof_int8_serving and x_raw.dtype == torch.uint8:
                 raise NotImplementedError(
                     "--dbof_int8_serving is not ported yet"
@@ -155,12 +159,19 @@ class DbofModel(ServingModule):
                 *c["act_affine"],
             )
         else:
-            pooled = self._cluster_average_pool(x_raw)
+            pooled = self._cluster_pool_plain(x_raw)
 
-        hidden_w = self.serving_constants()["hidden_w"]
-        hidden = torch.matmul(pooled.to(hp.dtype).to(torch.float32), hidden_w)
+        hidden_w = (rounded(self.hidden_kernel, hp.dtype) if self.training
+                    else self.serving_constants()["hidden_w"])
+        hidden = torch.matmul(rounded(pooled, hp.dtype), hidden_w)
         if hp.dbof_add_batch_norm:
             hidden = self.hidden_bn(hidden)
         else:
             hidden = hidden + self.hidden_bias
-        return self.video_classifier(torch.relu(hidden))
+        out = self.video_classifier(torch.relu(hidden))
+        if self.training:
+            out["regularization_loss"] = (
+                out["regularization_loss"]
+                + hp.l2_penalty * l2_loss(self.cluster_kernel,
+                                          self.hidden_kernel))
+        return out

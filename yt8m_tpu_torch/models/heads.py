@@ -13,6 +13,19 @@ from yt8m_tpu_torch.models.norm import BatchNorm
 from yt8m_tpu_torch.models.serving import ServingModule
 
 
+def l2_loss(*kernels) -> torch.Tensor:
+    """tf.nn.l2_loss semantics: sum(w**2) / 2, summed over kernels."""
+    return sum(torch.sum(torch.square(k.to(torch.float32))) / 2.0
+               for k in kernels)
+
+
+def rounded(w: torch.Tensor, dtype) -> torch.Tensor:
+    """w rounded to the compute dtype and widened to f32: an f32 product
+    of rounded operands is the JAX model's product in `dtype` with f32
+    accumulation. Differentiable (the casts pass the gradient through)."""
+    return w.to(dtype).to(torch.float32)
+
+
 def lecun_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
     """Normal with std 1/sqrt(fan_in) for an [in, out] kernel."""
     with torch.no_grad():
@@ -29,16 +42,21 @@ class MoeHead(ServingModule):
     c*(M+1)+m; expert columns c*M+m.
 
     Serving runs the fused head (kernels/moe_head.py): its ratio-form
-    softmax with clamped logits is the TPU kernel's.
+    softmax with clamped logits is the TPU kernel's. Training runs the
+    JAX model's plain graph (the JAX kernel is serving-only), an f32
+    softmax over the M + 1 gate logits, and adds `regularization_loss`
+    = l2_penalty * l2_loss(gates, experts).
     """
 
     def __init__(self, in_features: int, vocab_size: int = 4716,
-                 num_mixtures: int = 2, dtype=torch.float32):
+                 num_mixtures: int = 2, dtype=torch.float32,
+                 l2_penalty: float = 1e-8):
         super().__init__()
         m = num_mixtures
         self.vocab_size = vocab_size
         self.num_mixtures = m
         self.dtype = dtype
+        self.l2_penalty = l2_penalty
         self.gates_kernel = nn.Parameter(
             torch.empty(in_features, vocab_size * (m + 1)))
         self.experts_kernel = nn.Parameter(
@@ -61,13 +79,28 @@ class MoeHead(ServingModule):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError("MoeHead training is not ported yet")
+            return self._train_forward(x)
         c = self.serving_constants()
         probs = moe_head_serving(
             x.to(torch.float32).contiguous(), c["gates"], c["experts"],
             self.experts_bias.detach(), self.num_mixtures,
         )
         return {"predictions": probs}
+
+    def _train_forward(self, x):
+        m, c = self.num_mixtures, self.vocab_size
+        b = x.shape[0]
+        xa = rounded(x, self.dtype)
+        gate_logits = torch.matmul(xa, rounded(self.gates_kernel, self.dtype))
+        expert_logits = torch.matmul(
+            xa, rounded(self.experts_kernel, self.dtype)) + self.experts_bias
+        gating = torch.softmax(gate_logits.reshape(b, c, m + 1), dim=-1)
+        experts = torch.sigmoid(expert_logits.reshape(b, c, m))
+        return {
+            "predictions": torch.sum(gating[..., :m] * experts, dim=-1),
+            "regularization_loss": self.l2_penalty * l2_loss(
+                self.gates_kernel, self.experts_kernel),
+        }
 
 
 class ContextGate(ServingModule):
@@ -98,11 +131,12 @@ class ContextGate(ServingModule):
         self._serving = None
 
     def make_serving_constants(self) -> dict:
-        return {"kernel": self.gating_kernel.to(self.dtype).to(torch.float32)}
+        return {"kernel": rounded(self.gating_kernel, self.dtype)}
 
     def forward(self, x):
-        gates = torch.matmul(x.to(self.dtype).to(torch.float32),
-                             self.serving_constants()["kernel"])
+        kernel = (rounded(self.gating_kernel, self.dtype) if self.training
+                  else self.serving_constants()["kernel"])
+        gates = torch.matmul(rounded(x, self.dtype), kernel)
         if hasattr(self, "gating_bn"):
             gates = self.gating_bn(gates)
         else:

@@ -1,14 +1,19 @@
 """NetVLAD and gated NetVLAD (reference: the JAX package's
-models/netvlad.py), serving forward.
+models/netvlad.py).
 
     assign = softmax(frames @ W_c [+ BN])        [B, F, K], masked frames 0
     vlad   = assign^T @ frames - colsum(assign) * centers       [B, K, D]
     intra-normalise over D, flatten (index k*D + d), L2 normalise
     FC -> hidden (+BN), optional context gating, then the MoE head.
 
-The aggregation runs the fused kernel (kernels/netvlad.py) with the
-assignment BatchNorm folded into its per-cluster affine, as the JAX model
-folds it for its kernel. Parameter names are the JAX model's.
+Serving runs the fused kernel (kernels/netvlad.py) with the assignment
+BatchNorm folded into its per-cluster affine, as the JAX model folds it
+for its kernel. Training runs the JAX model's plain graph (its fused
+training core is opt-in, --netvlad_fused_train, and not ported): the
+assignment BatchNorm on batch moments over every frame row, the softmax,
+the mask, `a_sum` and the residual product in plain PyTorch, and every
+BatchNorm after it in training mode. Parameter names are the JAX
+model's.
 """
 
 from __future__ import annotations
@@ -17,10 +22,15 @@ import torch
 from torch import nn
 
 from yt8m_tpu_torch.kernels.netvlad import netvlad_aggregate
-from yt8m_tpu_torch.models.frame_utils import sample_random_frames
-from yt8m_tpu_torch.models.heads import ContextGate
+from yt8m_tpu_torch.models.frame_utils import (
+    ensure_float,
+    frame_mask,
+    l2_normalize,
+    sample_random_frames,
+)
+from yt8m_tpu_torch.models.heads import ContextGate, l2_loss, rounded
 from yt8m_tpu_torch.models.hparams import ModelHParams
-from yt8m_tpu_torch.models.norm import BN_EPS, BatchNorm, bn_fold
+from yt8m_tpu_torch.models.norm import BN_EPS, BatchNorm, bn_fold, inline_bn
 from yt8m_tpu_torch.models.registry import register
 from yt8m_tpu_torch.models.serving import ServingModule
 from yt8m_tpu_torch.models.video import make_classifier_head
@@ -77,6 +87,8 @@ class NetVladAggregation(ServingModule):
         }
 
     def forward(self, frames, num_frames):
+        if self.training:
+            return self._train_forward(frames, num_frames)
         c = self.serving_constants()
         vlad = netvlad_aggregate(
             frames.contiguous(), num_frames.to(torch.int32).contiguous(),
@@ -84,14 +96,39 @@ class NetVladAggregation(ServingModule):
         )
         return vlad.reshape(frames.shape[0], -1)
 
+    def _train_forward(self, frames, num_frames):
+        """The JAX model's plain graph (models/netvlad.py:132-197)."""
+        b, f, d = frames.shape
+        k = self.cluster_weights.shape[1]
+        x = ensure_float(frames)
+        act = torch.matmul(rounded(x.reshape(b * f, d), self.dtype),
+                           rounded(self.cluster_weights, self.dtype))
+        if self.add_batch_norm:
+            act = inline_bn(act, self.cluster_bn_scale, self.cluster_bn_bias,
+                            self.cluster_bn_mean, self.cluster_bn_var, True)
+        else:
+            act = act + self.cluster_biases
+        mask = frame_mask(num_frames, f)
+        assign = torch.softmax(act, dim=-1).reshape(b, f, k)
+        assign = assign * mask[:, :, None]
+        a_sum = torch.sum(assign, dim=1)
+        vlad = torch.matmul(rounded(assign, self.dtype).transpose(1, 2),
+                            rounded(x, self.dtype))
+        vlad = vlad - a_sum[:, :, None] * self.cluster_weights2[0].t()
+        vlad = l2_normalize(vlad, dim=2)
+        return l2_normalize(vlad.reshape(b, k * d), dim=1)
+
 
 def hidden_fc(model, prefix: str, x, add_batch_norm: bool):
     """relu(BN(x @ W)) (or + biases) with W = model.<prefix>_weights, the
     JAX model's hidden FC of the VLAD branch. The product is f32 on
     operands rounded to the compute dtype (its bf16 product with f32
-    accumulation); `model.serving_constants()` holds the rounded W."""
-    w = model.serving_constants()[f"{prefix}_weights"]
-    hidden = torch.matmul(x.to(model.hp.dtype).to(torch.float32), w)
+    accumulation); `model.serving_constants()` holds the rounded W, which
+    a training forward rounds anew from the parameter."""
+    dtype = model.hp.dtype
+    w = (rounded(getattr(model, f"{prefix}_weights"), dtype) if model.training
+         else model.serving_constants()[f"{prefix}_weights"])
+    hidden = torch.matmul(rounded(x, dtype), w)
     if add_batch_norm:
         hidden = getattr(model, f"{prefix}_bn")(hidden)
     else:
@@ -154,15 +191,13 @@ class _NetVladBase(ServingModule):
         self.invalidate_serving()
 
     def make_serving_constants(self) -> dict:
-        return {"hidden1_weights":
-                self.hidden1_weights.to(self.hp.dtype).to(torch.float32)}
+        return {"hidden1_weights": rounded(self.hidden1_weights,
+                                           self.hp.dtype)}
 
     def forward(self, features, num_frames, generator=None, u=None):
-        """{"predictions": [B, vocab] f32}. `generator` or the uniforms
-        `u` [B, S] drive --netvlad_sample_frames."""
-        if self.training:
-            raise NotImplementedError(
-                f"{type(self).__name__} training is not ported yet")
+        """{"predictions": [B, vocab] f32}, and in training
+        "regularization_loss". `generator` or the uniforms `u` [B, S]
+        drive --netvlad_sample_frames."""
         hp = self.hp
         if hp.netvlad_sample_frames > 0:
             s = hp.netvlad_sample_frames
@@ -174,7 +209,12 @@ class _NetVladBase(ServingModule):
         hidden = hidden_fc(self, "hidden1", vlad, hp.netvlad_add_batch_norm)
         if self.gating:
             hidden = self.context_gate(hidden)
-        return self.video_classifier(hidden)
+        out = self.video_classifier(hidden)
+        if self.training:
+            out["regularization_loss"] = (
+                out["regularization_loss"] + hp.l2_penalty * l2_loss(
+                    self.vlad.cluster_weights, self.hidden1_weights))
+        return out
 
 
 @register("NetVladModel")

@@ -1,5 +1,5 @@
 """NetVLAD-LSTM, the flagship (reference: the JAX package's
-models/netvlad_lstm.py), serving forward.
+models/netvlad_lstm.py), serving and training forwards.
 
 Two branches over the same masked frames, fused before the head:
 
@@ -9,7 +9,10 @@ Two branches over the same masked frames, fused before the head:
   concat -> optional context gate -> MoE head.
 
 The frames are dequantized once and both branches take the float view,
-as in the JAX model, so the VLAD kernel gets float32 frames here.
+as in the JAX model, so the VLAD kernel gets float32 frames here. In
+training each branch runs its training graph (models/netvlad.py,
+models/rnn.py: the trainable recurrence kernel at bf16) and the output
+carries `regularization_loss`.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.models.frame_utils import ensure_float
-from yt8m_tpu_torch.models.heads import ContextGate
+from yt8m_tpu_torch.models.heads import ContextGate, l2_loss, rounded
 from yt8m_tpu_torch.models.hparams import ModelHParams
 from yt8m_tpu_torch.models.netvlad import (
     NetVladAggregation,
@@ -65,16 +68,13 @@ class _NetVladLstmBase(ServingModule):
         self.invalidate_serving()
 
     def make_serving_constants(self) -> dict:
-        return {"vlad_hidden_weights":
-                self.vlad_hidden_weights.to(self.hp.dtype).to(torch.float32)}
+        return {"vlad_hidden_weights": rounded(self.vlad_hidden_weights,
+                                               self.hp.dtype)}
 
     def forward(self, features, num_frames, generator=None, u=None):
-        """{"predictions": [B, vocab] f32}. Nothing is sampled:
-        `generator` and `u` are accepted for the serving step's
-        signature."""
-        if self.training:
-            raise NotImplementedError(
-                f"{type(self).__name__} training is not ported yet")
+        """{"predictions": [B, vocab] f32}, and in training
+        "regularization_loss". Nothing is sampled: `generator` and `u`
+        are accepted for the serving step's signature."""
         hp = self.hp
         x = ensure_float(features)
         vlad = self.vlad(x, num_frames)
@@ -85,7 +85,12 @@ class _NetVladLstmBase(ServingModule):
         fused = torch.cat([vh, rh], dim=-1)
         if hp.netvlad_gating:
             fused = self.context_gate(fused)
-        return self.video_classifier(fused)
+        out = self.video_classifier(fused)
+        if self.training:
+            out["regularization_loss"] = (
+                out["regularization_loss"] + hp.l2_penalty * l2_loss(
+                    self.vlad.cluster_weights, self.vlad_hidden_weights))
+        return out
 
 
 @register("NetVladLstmModel")

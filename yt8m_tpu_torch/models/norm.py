@@ -1,9 +1,22 @@
-"""Eval-mode BatchNorm with the reference's slim defaults, and the folds
-that turn it into a per-channel affine for the serving kernels.
+"""BatchNorm with the reference's slim defaults, in eval and training
+mode, and the folds that turn it into a per-channel affine for the
+serving kernels.
 
-Every BN of the model zoo uses eps 1e-3 (and momentum 0.99 in training,
-which the serving slice does not run). torch.nn.BatchNorm1d defaults to
-eps 1e-5, so the port keeps its own.
+Every BN of the model zoo uses eps 1e-3 and momentum 0.99 (the JAX
+package's models/norm.py). torch.nn.BatchNorm1d defaults to eps 1e-5 and
+updates its running variance with the unbiased n/(n-1) estimate, so the
+port keeps its own. Two kinds, as in the JAX package:
+
+  * `BatchNorm`, flax's nn.BatchNorm: the batch variance is
+    max(E[x^2] - E[x]^2, 0) (flax's default fast variance), and
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias;
+  * the inline BN of DBoF and NetVLAD (`bn_moments`, `bn_apply`): the
+    batch variance is E[(x - mean)^2] (jnp.var), and
+    y = (x - mean) * rsqrt(var + eps) * scale + bias.
+
+Training mode normalises with the batch moments (biased variance) and
+moves the running statistics once per forward, ra = 0.99 ra + 0.01 batch,
+outside autograd.
 """
 
 from __future__ import annotations
@@ -12,6 +25,7 @@ import torch
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def bn_fold(scale, bias, mean, var, eps: float = BN_EPS):
@@ -21,13 +35,38 @@ def bn_fold(scale, bias, mean, var, eps: float = BN_EPS):
 
 
 def bn_apply(x, scale, bias, mean, var, eps: float = BN_EPS):
-    """Eval-mode BN in the JAX model's inline order."""
+    """The inline BN in the JAX model's order."""
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def bn_moments(x):
+    """Batch mean and biased variance E[(x - mean)^2] over axis 0 (the
+    JAX package's models/norm.py :: bn_moments, jnp.var)."""
+    mean = torch.mean(x, dim=0)
+    return mean, torch.mean(torch.square(x - mean), dim=0)
+
+
+def update_running(ra_mean, ra_var, mean, var) -> None:
+    """ra = 0.99 ra + 0.01 batch, in place and outside autograd."""
+    with torch.no_grad():
+        ra_mean.copy_(BN_MOMENTUM * ra_mean + (1.0 - BN_MOMENTUM) * mean)
+        ra_var.copy_(BN_MOMENTUM * ra_var + (1.0 - BN_MOMENTUM) * var)
+
+
+def inline_bn(x, scale, bias, ra_mean, ra_var, training: bool):
+    """The inline BN of DBoF and NetVLAD: batch moments (and a running
+    statistics update) in training, the running statistics otherwise."""
+    if training:
+        mean, var = bn_moments(x)
+        update_running(ra_mean, ra_var, mean, var)
+    else:
+        mean, var = ra_mean, ra_var
+    return bn_apply(x, scale, bias, mean, var)
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis with flax's parameter names
-    (`scale`, `bias`; running `mean`, `var`) and flax's arithmetic order:
+    """flax's nn.BatchNorm over the last axis, with flax's parameter names
+    (`scale`, `bias`; running `mean`, `var`) and arithmetic order:
     y = (x - mean) * (rsqrt(var + eps) * scale) + bias."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
@@ -40,8 +79,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet"
-            )
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean) * mul + self.bias
+            mean = torch.mean(x, dim=0)
+            var = torch.clamp_min(
+                torch.mean(torch.square(x), dim=0) - torch.square(mean), 0.0)
+            update_running(self.mean, self.var, mean, var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean) * mul + self.bias

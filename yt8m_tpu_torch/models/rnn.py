@@ -1,5 +1,5 @@
 """Stacked LSTM, uni- and bidirectional (reference: the JAX package's
-models/rnn.py :: _LstmLayer, _run_rnn), serving forward.
+models/rnn.py :: _LstmLayer, _run_rnn, LstmModel, BiLstmModel).
 
 dynamic_rnn(sequence_length) semantics: for t >= num_frames the carry
 passes through unchanged, so the final state is the state at the last
@@ -7,11 +7,14 @@ real frame; the backward direction runs reversed time with the same
 freeze, so its final state has consumed exactly the valid prefix. Cells
 are TF1 BasicLSTMCell (gate order i, j, f, o; forget bias 1.0).
 
-Dispatch follows the JAX package: at compute dtype bf16 a layer runs the
-recurrence kernel (kernels/lstm.py: the CUDA kernel on the card, its
-plain version on the CPU) after one input projection X @ W_x; at float32
-it runs the scan graph, concat([x, h]) @ kernel per step in float32 (the
-CUDA kernel is bf16, so float32 runs on the CPU only).
+Dispatch follows the JAX package: at compute dtype bf16 a layer runs a
+recurrence kernel after one bf16 input projection X @ W_x, the serving
+one (kernels/lstm.py) in eval mode and the trainable one
+(kernels/lstm_train.py, a torch.autograd.Function whose backward is a
+kernel too) in training, each the CUDA kernel on the card and its plain
+version on the CPU; at float32 it runs the scan graph, concat([x, h]) @
+kernel per step in float32, under autograd in training (the CUDA kernels
+are bf16, so float32 runs on the CPU only).
 """
 
 from __future__ import annotations
@@ -20,12 +23,16 @@ import torch
 from torch import nn
 
 from yt8m_tpu_torch.kernels.lstm import lstm_recurrence
+from yt8m_tpu_torch.kernels.lstm_train import lstm_recurrence_trainable
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
     frame_mask,
     frame_pooling,
 )
+from yt8m_tpu_torch.models.hparams import ModelHParams
+from yt8m_tpu_torch.models.registry import register
 from yt8m_tpu_torch.models.serving import ServingModule
+from yt8m_tpu_torch.models.video import make_classifier_head
 
 
 class LstmLayer(ServingModule):
@@ -70,14 +77,27 @@ class LstmLayer(ServingModule):
         return self._scan(xs, num_frames)
 
     def _recurrence(self, xs, num_frames):
-        c = self.serving_constants()
-        xp = torch.matmul(xs.to(torch.bfloat16), c["wx"])  # [F, B, 4H]
-        if self.reverse:
-            xp = torch.flip(xp, dims=(0,))
-        outputs, state = lstm_recurrence(
-            xp.contiguous(), num_frames.to(torch.int32).contiguous(),
-            c["wh"], self.bias.detach(), reverse=self.reverse,
-        )
+        d = self.in_features
+        nf = num_frames.to(torch.int32).contiguous()
+        if self.training:
+            # Gradients reach kernel[:D] through the projection, kernel[D:]
+            # and bias through the trainable recurrence.
+            xp = torch.matmul(xs.to(torch.bfloat16),
+                              self.kernel[:d].to(torch.bfloat16))
+            if self.reverse:
+                xp = torch.flip(xp, dims=(0,))
+            outputs, state = lstm_recurrence_trainable(
+                xp.contiguous(), nf, self.kernel[d:], self.bias,
+                reverse=self.reverse)
+        else:
+            c = self.serving_constants()
+            xp = torch.matmul(xs.to(torch.bfloat16), c["wx"])  # [F, B, 4H]
+            if self.reverse:
+                xp = torch.flip(xp, dims=(0,))
+            outputs, state = lstm_recurrence(
+                xp.contiguous(), nf, c["wh"], self.bias.detach(),
+                reverse=self.reverse,
+            )
         if self.reverse:
             outputs = torch.flip(outputs, dims=(0,))
         return outputs, state
@@ -153,3 +173,46 @@ def run_rnn(model: nn.Module, features, num_frames, layers: int,
     if pooling == "last":
         return last
     return frame_pooling(outputs.transpose(0, 1), pooling, mask)
+
+
+class _LstmModelBase(ServingModule):
+    """Reference: the JAX package's _RnnModelBase with cell "lstm": the
+    stacked LSTM pooled per --lstm_pooling, then the video-level head."""
+
+    bidirectional = False
+
+    def __init__(self, hp: ModelHParams):
+        super().__init__()
+        self.hp = hp
+        width = add_lstm_stack(self, hp.feature_dim, hp.lstm_cells,
+                               hp.lstm_layers, hp.dtype, self.bidirectional,
+                               hp.lstm_layer_norm)
+        self.video_classifier = make_classifier_head(hp, width)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """The JAX model's initialisers, drawn from `generator`."""
+        for name, module in self.named_children():
+            if name.startswith(("fw_layer", "bw_layer")):
+                module.reset_parameters(generator)
+        self.video_classifier.reset_parameters(generator)
+        self.invalidate_serving()
+
+    def forward(self, features, num_frames, generator=None, u=None):
+        """{"predictions": [B, vocab] f32}, and in training the head's
+        "regularization_loss". Nothing is sampled."""
+        hp = self.hp
+        pooled = run_rnn(self, features, num_frames, hp.lstm_layers,
+                         self.bidirectional, hp.lstm_pooling,
+                         hp.rnn_residual)
+        return self.video_classifier(pooled)
+
+
+@register("LstmModel")
+class LstmModel(_LstmModelBase):
+    bidirectional = False
+
+
+@register("BiLstmModel")
+class BiLstmModel(_LstmModelBase):
+    bidirectional = True

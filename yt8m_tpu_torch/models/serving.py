@@ -2,9 +2,12 @@
 
 A serving model folds its BatchNorms into affines and casts its weights
 to the compute dtype once, not on every call. The constants are dropped
-when the parameters move (`.to`, `.cuda`) or are reloaded
-(`load_state_dict`), and rebuilt on the next call. Writing to a
-parameter in place does not drop them: call `invalidate_serving()`.
+when the parameters move (`.to`, `.cuda`), are reloaded
+(`load_state_dict`) or the model changes mode (`train()`, `eval()`),
+and rebuilt on the next call. Writing to a parameter in place does not
+drop them: call `invalidate_serving()` (the port's optimizer step does).
+A training forward never reads them: it reads the parameters, so that
+autograd reaches them.
 """
 
 from __future__ import annotations
@@ -31,6 +34,10 @@ class ServingModule(nn.Module):
         for mod in self.modules():
             if isinstance(mod, ServingModule):
                 mod._serving = None
+
+    def train(self, mode: bool = True):
+        self.invalidate_serving()
+        return super().train(mode)
 
     def _apply(self, fn, recurse=True):
         self._serving = None

@@ -15,6 +15,7 @@ def make_classifier_head(hp: ModelHParams, in_features: int):
             vocab_size=hp.vocab_size,
             num_mixtures=hp.moe_num_mixtures,
             dtype=hp.dtype,
+            l2_penalty=hp.moe_l2_penalty,
         )
     if cls_name == "LogisticModel":
         raise NotImplementedError(
