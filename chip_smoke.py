@@ -37,8 +37,23 @@ Phases, one line each with the elapsed seconds:
      clip 1.0) for 10 steps on one repeated synthetic batch, with its
      launch counts set to 0 just before and read just after, a falling
      loss, the median step time of 5, a torch.profiler breakdown of one
-     step and the peak memory; DbofModel trained at B=512, K=8192; one
-     flagship training step on 8 videos on the card and on the CPU.
+     step and the peak memory, once with the plain VLAD training graph
+     and once with --netvlad_fused_train (the netvlad_core kernels, 1 + 1
+     launches a step, checked against their plain versions at the same
+     shape (B=256, F=300, K=256, D=1152) and at small and odd shapes in
+     phase 3, with planted hazards, times, bounds and a library
+     yardstick); DbofModel trained at B=512, K=8192; one flagship
+     training step on 8 videos on the card and on the CPU;
+  7. the reference workflow through the port's CLIs with the flagship at
+     full width and --netvlad_fused_train, over synthetic frame-level
+     TFRecords (512 train and 256 eval videos, 30-300 frames): cli.train
+     to step 2 (a checkpoint at step 2), cli.train again to step 4
+     (resumed at step 2), cli.eval --run_once (finite GAP, Hit@1, mAP in
+     [0, 1]; exact_topk launched through sorted_topk at k=64),
+     cli.inference (the CSV), each with its launch counts set to 0 just
+     before and read just after; the checkpoint's size and its save and
+     restore seconds; 8 eval videos from the checkpoint on the card and
+     on the CPU.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -75,9 +90,17 @@ Tolerances, max|kernel - plain| on the same inputs:
     them: small results of nearly cancelling f32 sums, whose order of
     summation moves them by more than one of their steps. They are held
     by the 1e-3 remainder alone.
+  * netvlad_core (vlad, a_sum, dact, dx, dcenters): <= 1e-3 * max|ref| +
+    1e-6. Both round the products' operands to bf16 at the same points;
+    the softmax's f32 max and sum run in another order, which can move a
+    bf16 assignment one step at a rounding boundary, but one frame's term
+    in a sum over up to 300 frames stays far inside 1e-3 of the largest
+    value (read on the card).
   * planted hazards: the kernel's output with large values in the frames
     or steps past num_frames equals its output with zeros there.
-  * card vs CPU end to end (8 videos): probabilities within 2e-3.
+  * card vs CPU end to end (8 videos): probabilities within 2e-3; the
+    per-video eval loss from the workflow's checkpoint within 2e-3
+    relative.
   * card vs CPU, one flagship training step (8 videos, bf16): the loss
     within 2e-3 relative, each parameter's gradient norm within 2e-2
     relative (the LSTM bound: the recurrence carries one-step bf16
@@ -87,9 +110,12 @@ Tolerances, max|kernel - plain| on the same inputs:
 from __future__ import annotations
 
 import csv
+import gc
 import json
+import logging
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -852,6 +878,10 @@ def device_us(torch, fn, needle: str) -> float:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # A window can lose its first kernel (a one-kernel call read 0 us
+        # on the card): a small kernel of no interest goes first.
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
@@ -1020,6 +1050,165 @@ def check_lstm_train(torch, gen, dev, flush) -> dict:
     }
 
 
+def core_inputs(torch, gen, b, f, d, k, dev):
+    """netvlad_core's inputs as the flagship's training path makes them:
+    x the dequantized uint8 frames, act the assignment product of x's
+    bf16 values with its BatchNorm on batch moments (unit scale, with a
+    gamma and beta), num_frames uniform in [1, f] with f, 0 and 1
+    planted, centers at the initialiser's scale; and a dvlad."""
+    from yt8m_tpu_torch.models.frame_utils import ensure_float
+
+    x = ensure_float(torch.randint(0, 256, (b, f, d), generator=gen,
+                                   dtype=torch.uint8).to(dev))
+    w = (torch.randn(d, k, generator=gen) * d ** -0.5).to(torch.bfloat16)
+    act = torch.matmul(x.reshape(b * f, d).to(torch.bfloat16),
+                       w.to(dev)).to(torch.float32)
+    act = (act - act.mean(0)) * torch.rsqrt(act.var(0, unbiased=False) + 1e-3)
+    act = (act * (0.5 + torch.rand(k, generator=gen)).to(dev)
+           + (0.1 * torch.randn(k, generator=gen)).to(dev)).reshape(b, f, k)
+    nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+    nf[: min(b, 3)] = torch.tensor([f, 0, 1], dtype=torch.int32)[: min(b, 3)]
+    centers = torch.randn(k, d, generator=gen) * d ** -0.5
+    dvlad = torch.randn(b, k, d, generator=gen)
+    return [act, x, nf.to(dev), centers.to(dev)], dvlad.to(dev)
+
+
+def core_grads(torch, args, dvlad, need_x):
+    """vlad and the Function's gradients (act, x or None, centers)."""
+    from yt8m_tpu_torch.kernels.netvlad_train import netvlad_core
+
+    act, x, nf, centers = args
+    a = act.clone().requires_grad_()
+    xx = x.clone().requires_grad_(need_x)
+    c = centers.clone().requires_grad_()
+    vlad = netvlad_core(a, xx, nf, c)
+    vlad.backward(dvlad)
+    return vlad.detach(), a.grad, xx.grad, c.grad
+
+
+def check_netvlad_core(torch, gen, dev, flush) -> dict:
+    """netvlad_core (--netvlad_fused_train) at the flagship's training
+    shape (B=256, F=300, K=256, D=1152) and at small and odd shapes: the
+    CUDA forward (vlad, a_sum) and backward (dact, dx) against the plain
+    versions on the same inputs, the Function's dact and dcenters, the
+    planted hazards, times, bounds and a library yardstick."""
+    from yt8m_tpu_torch.kernels import netvlad_train as tnt
+
+    def compare(name, args, dvlad):
+        fwd0 = tnt.netvlad_core_forward.launches
+        bwd0 = tnt.netvlad_core_backward.launches
+        vlad, a_sum = tnt.netvlad_core_forward(*args)
+        dact, dx = tnt.netvlad_core_backward(*args, dvlad)
+        torch.cuda.synchronize()
+        check(tnt.netvlad_core_forward.launches == fwd0 + 1
+              and tnt.netvlad_core_backward.launches == bwd0 + 1,
+              f"{name}: the kernels did not launch")
+        pv, pa = tnt.netvlad_core_plain_forward(*args)
+        pda, pdx = tnt.netvlad_core_plain_backward(*args, dvlad)
+        errs = [rel_check(f"{name} {what}", g, w, rel=1e-3, abs_=1e-6)
+                for what, g, w in (("vlad", vlad, pv), ("a_sum", a_sum, pa),
+                                   ("dact", dact, pda), ("dx", dx, pdx))]
+        del vlad, dact, dx, pv, pda, pdx
+        got = core_grads(torch, args, dvlad, need_x=False)
+        check(got[2] is None, f"{name}: dx computed for an x without grad")
+        errs.append(rel_check(f"{name} dcenters", got[3],
+                              -torch.einsum("bk,bkd->kd", pa, dvlad),
+                              rel=1e-3, abs_=1e-6))
+        return max(errs)
+
+    for b, f, d, k in ((3, 7, 1000, 100), (5, 70, 1152, 256),
+                       (2, 300, 256, 512)):
+        args, dvlad = core_inputs(torch, gen, b, f, d, k, dev)
+        err = compare(f"netvlad_core B={b} F={f} D={d} K={k}", args, dvlad)
+        say("kernel", f"netvlad_core B={b} F={f} D={d} K={k}: forward, "
+                      f"backward, dcenters max|diff| {err:.3e}")
+    b, f, d, k = TRAIN_BATCH, FLAG_FRAMES, FEATURE_DIM, VLAD_CLUSTERS
+    args, dvlad = core_inputs(torch, gen, b, f, d, k, dev)
+    err = compare("netvlad_core", args, dvlad)
+    act, x, nf, centers = args
+    # Hazards: large finite act and x past num_frames leave vlad and every
+    # gradient bit for bit those of zeros there; dact and dx are zeros
+    # past num_frames; num_frames = 0 (video 1) gives vlad = 0.
+    past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+    clean_a, loud_a = pad_hazard(torch, act, past, 3e4)
+    clean_x, loud_x = pad_hazard(torch, x, past, -1e5)
+    a = core_grads(torch, [clean_a, clean_x, nf, centers], dvlad, True)
+    c = core_grads(torch, [loud_a, loud_x, nf, centers], dvlad, True)
+    check(all(torch.equal(p, q) for p, q in zip(a, c)),
+          "netvlad_core: frames past num_frames moved vlad or a gradient")
+    check(bool(torch.all(c[1][past] == 0)) and bool(torch.all(c[2][past] == 0)),
+          "netvlad_core: dact or dx not 0 past num_frames")
+    check(bool(torch.all(c[0][1] == 0)), "netvlad_core: num_frames=0 is not 0")
+    del a, c, clean_a, loud_a, clean_x, loud_x
+    say("kernel", f"netvlad_core B={b} F={f} D={d} K={k}: forward, backward, "
+                  f"dcenters within 1e-3 * max|ref| + 1e-6 (max|diff| "
+                  f"{err:.3e}); hazards bit-identical, zeros past "
+                  f"num_frames")
+
+    ms_f = time_ms(torch, lambda: tnt.netvlad_core_forward(*args), 10, flush)
+    ms_b = time_ms(torch, lambda: tnt.netvlad_core_backward(
+        *args, dvlad, False), 10, flush)
+    ms_bdx = time_ms(torch, lambda: tnt.netvlad_core_backward(
+        *args, dvlad, True), 10, flush)
+    us_f = device_us(torch, lambda: tnt.netvlad_core_forward(*args),
+                     "vlad_core_fwd")
+    us_b = device_us(torch, lambda: tnt.netvlad_core_backward(
+        *args, dvlad, False), "vlad_core_")
+    plain_f = time_ms(torch, lambda: tnt.netvlad_core_plain_forward(*args), 3,
+                      flush)
+    plain_b = time_ms(torch, lambda: tnt.netvlad_core_plain_backward(
+        *args, dvlad, False), 3, flush)
+    mask = past.logical_not()[:, :, None]
+
+    def library_forward(a):
+        p = torch.softmax(a, -1) * mask
+        v = torch.matmul(p.to(torch.bfloat16).transpose(1, 2),
+                         x.to(torch.bfloat16)).to(torch.float32)
+        return v - p.sum(1)[:, :, None] * centers
+
+    def library():
+        a = act.detach().requires_grad_()
+        library_forward(a).backward(dvlad)
+
+    with torch.no_grad():
+        lib_f = time_ms(torch, lambda: library_forward(act), 5, flush)
+    library_ms = time_ms(torch, library, 5, flush)
+
+    live = int(nf.clamp(0, f).sum())  # this run's live frames
+    f_flops = 2.0 * live * k * d
+    # Forward: live act and x rows read, centers, vlad and a_sum written.
+    f_bytes = live * (k + d) * 4 + 4 * b + k * d * 4 + b * k * d * 4 + b * k * 4
+    # Backward without dx (the main path's): live act and x rows, dvlad,
+    # centers read, dact written for every row.
+    b_bytes = live * (k + d) * 4 + 4 * b + k * d * 4 + b * k * d * 4 + b * f * k * 4
+    bound_f = bound(f_flops, f_bytes, PEAK_BF16_FLOPS)
+    bound_b = bound(f_flops, b_bytes, PEAK_BF16_FLOPS)
+    bound_bdx = bound(2 * f_flops, b_bytes + b * f * d * 4, PEAK_BF16_FLOPS)
+    bound_ms, bound_by = bound(2 * f_flops, f_bytes + b_bytes,
+                               PEAK_BF16_FLOPS)
+    say("kernel", f"netvlad_core B={b} F={f} K={k} D={d}: forward {ms_f:.4f} "
+                  f"ms (profiler {us_f / 1e3:.4f} ms), backward without dx "
+                  f"{ms_b:.4f} ms (profiler {us_b / 1e3:.4f} ms, cdot "
+                  f"included), with dx {ms_bdx:.4f} ms; bounds for this "
+                  f"run's {live} live frames {bound_f[0]:.4f} ms by "
+                  f"{bound_f[1]}, {bound_b[0]:.4f} ms by {bound_b[1]}, "
+                  f"{bound_bdx[0]:.4f} ms by {bound_bdx[1]} with dx; plain "
+                  f"{plain_f:.4f} + {plain_b:.4f} ms; library (bf16 matmul +"
+                  f" softmax) forward {lib_f:.4f} ms, forward + autograd "
+                  f"backward {library_ms:.4f} ms")
+    del args, dvlad, act, x
+    return {
+        "name": "netvlad_core", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/netvlad_train.cu",
+        "replaces": "yt8m_tpu/kernels/netvlad_train.py:208",
+        "max_abs_err": err, "ms": ms_f + ms_b, "plain_ms": plain_f + plain_b,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_forward": ms_f, "ms_backward": ms_b,
+        "ms_backward_with_dx": ms_bdx, "device_ms_forward": us_f / 1e3,
+        "device_ms_backward": us_b / 1e3,
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving end to end, DbofModel and the flagship
 # ---------------------------------------------------------------------------
@@ -1059,9 +1248,10 @@ def make_model(torch, seed: int):
     return hp, model.eval()
 
 
-def make_flagship_model(torch, seed: int):
+def make_flagship_model(torch, seed: int, fused_train: bool = False):
     """NetVladLstmModel at the JAX package's default widths, weights from
-    a seed, non-trivial BatchNorm statistics and biases."""
+    a seed, non-trivial BatchNorm statistics and biases; `fused_train` is
+    --netvlad_fused_train."""
     from yt8m_tpu_torch.models import ModelHParams, get_model
 
     hp = ModelHParams(
@@ -1070,6 +1260,7 @@ def make_flagship_model(torch, seed: int):
         netvlad_add_batch_norm=True, netvlad_gating=True,
         lstm_cells=LSTM_CELLS, lstm_layers=LSTM_LAYERS, lstm_pooling="last",
         moe_num_mixtures=MIXTURES, compute_dtype="bfloat16",
+        netvlad_fused_train=fused_train,
     )
     model = get_model("NetVladLstmModel", hp)
     gen = torch.Generator().manual_seed(seed)
@@ -1109,12 +1300,28 @@ def kernel_wrappers():
     )
     from yt8m_tpu_torch.kernels.moe_head import moe_head_serving
     from yt8m_tpu_torch.kernels.netvlad import netvlad_aggregate
+    from yt8m_tpu_torch.kernels.netvlad_train import (
+        netvlad_core_backward,
+        netvlad_core_forward,
+    )
     from yt8m_tpu_torch.kernels.topk import exact_topk
 
     return {fn.__name__: fn for fn in (
         dbof_cluster_maxpool_v2, moe_head_serving, exact_topk,
         netvlad_aggregate, lstm_recurrence, lstm_train_forward,
-        lstm_train_backward)}
+        lstm_train_backward, netvlad_core_forward, netvlad_core_backward)}
+
+
+def zero_launches():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def read_launches(torch, wrappers) -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in wrappers.items()}
 
 
 def check_csv(path: str) -> int:
@@ -1188,12 +1395,9 @@ def end_to_end(torch, dev, data, model_name) -> dict:
         "--feature_sizes=1024,128", f"--model={model_name}",
         f"--device={dev.type}",
     ]
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = zero_launches()
     stats = inference_cli.main(argv)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches(torch, wrappers)
     say("e2e", f"{model_name} inference CLI: {stats['num_videos']} videos, "
                f"{stats['videos_per_sec']:.1f} videos/s (batch {E2E_BATCH}, "
                f"reader included); launches {launches}")
@@ -1325,50 +1529,61 @@ def profile_window(torch, phase, name, fn, n_steps):
     return idle if kernels else None
 
 
-def train_flagship(torch, dev) -> dict:
-    """The flagship at full width trained through make_train_step: the
-    training path, its launch counts set to 0 just before the 10 steps and
-    read just after."""
-    from yt8m_tpu_torch.kernels import lstm_train as tlt
+def train_flagship(torch, dev, fused: bool = False) -> dict:
+    """The flagship at full width trained through make_train_step, with
+    the plain VLAD training graph or (`fused`, --netvlad_fused_train) the
+    netvlad_core kernels: the training path, its launch counts set to 0
+    just before the 10 steps and read just after."""
     from yt8m_tpu_torch.train.losses import get_loss
     from yt8m_tpu_torch.train.state import TrainState, clip_gradient_norms
     from yt8m_tpu_torch.train.step import make_train_step
 
+    name = "NetVladLstmModel" + (" --netvlad_fused_train" if fused else "")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = make_flagship_model(torch, seed=0)[1].to(dev).train()
+    model = make_flagship_model(torch, seed=0, fused_train=fused)[1]
+    model = model.to(dev).train()
     n_params = sum(p.numel() for p in model.parameters())
     state = TrainState(model, global_batch_size=TRAIN_BATCH)  # config defaults
     step = make_train_step(get_loss("CrossEntropyLoss"))
     batch = train_batch(torch, dev, TRAIN_BATCH, seed=1)
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = zero_launches()
     _, losses = timed_steps(torch, step, state, batch, TRAIN_STEPS)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    say("train", f"NetVladLstmModel B={TRAIN_BATCH} ({n_params} parameters, "
+    launches = read_launches(torch, wrappers)
+    say("train", f"{name} B={TRAIN_BATCH} ({n_params} parameters, "
                  f"bf16, TF32 off, Adam, per-variable clip 1.0): "
                  f"{TRAIN_STEPS} steps on one batch, losses "
                  f"{[round(x, 4) for x in losses]}; launches {launches}, a "
                  f"step: {launches['lstm_train_forward'] // TRAIN_STEPS} "
                  f"forward and {launches['lstm_train_backward'] // TRAIN_STEPS}"
-                 f" backward step kernels")
+                 f" backward step kernels, "
+                 f"{launches['netvlad_core_forward'] / TRAIN_STEPS:g} + "
+                 f"{launches['netvlad_core_backward'] / TRAIN_STEPS:g} "
+                 f"netvlad_core")
     check(all(math.isfinite(x) for x in losses), "training loss not finite")
     check(losses[-1] < losses[0], "training loss did not fall over 10 steps")
-    for name in ("lstm_train_forward", "lstm_train_backward"):
-        check(launches[name] == TRAIN_STEPS * LSTM_LAYERS * FLAG_FRAMES,
-              f"{name}: {launches[name]} step launches, want "
+    for fn in ("lstm_train_forward", "lstm_train_backward"):
+        check(launches[fn] == TRAIN_STEPS * LSTM_LAYERS * FLAG_FRAMES,
+              f"{fn}: {launches[fn]} step launches, want "
               f"{TRAIN_STEPS} x {LSTM_LAYERS} x {FLAG_FRAMES}")
+    for fn in ("netvlad_core_forward", "netvlad_core_backward"):
+        check(launches[fn] == (TRAIN_STEPS if fused else 0),
+              f"{fn}: {launches[fn]} launches in {TRAIN_STEPS} steps of "
+              f"{name}")
     times, _ = timed_steps(torch, step, state, batch, 5)
     step_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    say("train", f"NetVladLstmModel B={TRAIN_BATCH} training step: median "
+    say("train", f"{name} B={TRAIN_BATCH} training step: median "
                  f"{step_ms:.3f} ms of {[round(t, 3) for t in times]} -> "
                  f"{TRAIN_BATCH / step_ms * 1e3:.0f} videos/s; peak memory "
                  f"{peak:.2f} GiB")
-    idle = profile_window(torch, "train", "NetVladLstmModel training",
+    idle = profile_window(torch, "train", f"{name} training",
                           lambda: step(state, batch), 1)
+    if fused:
+        del state, model, batch
+        torch.cuda.empty_cache()
+        return {"launches": launches, "step_ms": step_ms, "idle_share": idle,
+                "peak_gib": peak}
     flush = torch.empty(0, device=dev)
     grads = [p.grad for p in state.params if p.grad is not None]
     clip_ms = time_ms(torch, lambda: clip_gradient_norms(state.params, 1.0),
@@ -1380,7 +1595,8 @@ def train_flagship(torch, dev) -> dict:
                  f"alone, for scale: {f32_ms:.3f} ms)")
     del state, model, batch, grads
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "idle_share": idle}
+    return {"launches": launches, "step_ms": step_ms, "idle_share": idle,
+            "peak_gib": peak}
 
 
 def train_dbof(torch, dev) -> None:
@@ -1447,6 +1663,189 @@ def train_card_vs_cpu(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the reference workflow through the port's CLIs
+# ---------------------------------------------------------------------------
+
+WF_TRAIN_VIDEOS = 512
+WF_EVAL_VIDEOS = 256
+
+
+class LogLines(logging.Handler):
+    """The messages the port logs at INFO and above, kept in order."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def find(self, pattern):
+        return [m for m in map(re.compile(pattern).search, self.messages)
+                if m]
+
+
+def eval_loss_card_vs_cpu(torch, dev, run, data) -> float:
+    """Per-video loss of 8 eval videos from the restored checkpoint, on
+    the card and on the CPU: the largest relative difference."""
+    from yt8m_tpu_torch.config import EvalConfig
+    from yt8m_tpu_torch.convert import load_model
+    from yt8m_tpu_torch.data.readers import BatchIterator
+    from yt8m_tpu_torch.train.loop import reader_config_from, to_device
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.step import make_eval_step
+    from yt8m_tpu_torch.utils.flags import apply_recorded_model_flags
+
+    cfg = EvalConfig(train_dir=run)
+    apply_recorded_model_flags(cfg, [])
+    batch = next(iter(BatchIterator(data, reader_config_from(cfg),
+                                    batch_size=8)))
+    losses = []
+    for d in (dev, torch.device("cpu")):
+        model = load_model(run, cfg.model, cfg.resolved_hparams(), d)
+        _, per_ex = make_eval_step(model, get_loss(cfg.label_loss))(
+            to_device(batch, d))
+        losses.append(per_ex.double().cpu())
+        del model
+    gpu, cpu = losses
+    err = ((gpu - cpu).abs() / cpu.abs().clamp_min(1e-6)).max().item()
+    check(err <= 2e-3, f"eval loss card vs CPU: {err:.3e} relative")
+    return err
+
+
+def cli_workflow(torch, dev, work) -> dict:
+    """train -> resume -> eval -> inference through the port's CLIs with
+    the flagship at full width and --netvlad_fused_train, on synthetic
+    frame-level TFRecords (lengths 30-300); launch counts set to 0 before
+    each CLI and read after it."""
+    from yt8m_tpu_torch.cli import eval as eval_cli
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.data.synthetic import write_dataset
+    from yt8m_tpu_torch.train.checkpoint import dir_bytes, step_dirs
+
+    data = os.path.join(work, "workflow_data")
+    t0 = time.perf_counter()
+    write_dataset(data, "train", num_shards=2,
+                  videos_per_shard=WF_TRAIN_VIDEOS // 2, frame_level=True,
+                  num_classes=CLASSES, seed=5, min_frames=30)
+    write_dataset(data, "validate", num_shards=2,
+                  videos_per_shard=WF_EVAL_VIDEOS // 2, frame_level=True,
+                  num_classes=CLASSES, seed=6, min_frames=30)
+    free = shutil.disk_usage(work).free / 2 ** 30
+    say("workflow", f"wrote {WF_TRAIN_VIDEOS} train and {WF_EVAL_VIDEOS} "
+                    f"eval videos in {time.perf_counter() - t0:.1f} s; "
+                    f"{free:.1f} GiB free on the build disk")
+    run = os.path.join(work, "workflow_run")
+    reader = ["--frame_features=true", "--feature_names=rgb,audio",
+              "--feature_sizes=1024,128", f"--num_classes={CLASSES}",
+              f"--device={dev.type}"]
+    train = [
+        f"--train_data_pattern={data}/train-*.tfrecord", f"--train_dir={run}",
+        f"--batch_size={TRAIN_BATCH}", "--save_checkpoint_every_n_steps=2",
+        "--max_checkpoints_to_keep=1", "--log_every_n_steps=1",
+        "--model=NetVladLstmModel", f"--netvlad_cluster_size={VLAD_CLUSTERS}",
+        f"--netvlad_hidden_size={VLAD_HIDDEN}", f"--lstm_cells={LSTM_CELLS}",
+        f"--lstm_layers={LSTM_LAYERS}", f"--moe_num_mixtures={MIXTURES}",
+        "--netvlad_fused_train", "--compute_dtype=bfloat16",
+    ] + reader
+    logs = LogLines()
+    logger = logging.getLogger("yt8m_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(logs)
+    launches = {}
+    try:
+        for steps in (2, 4):
+            wrappers = zero_launches()
+            t0 = time.perf_counter()
+            last = train_cli.main(train + [f"--max_steps={steps}"])
+            launches[f"train to {steps}"] = read_launches(torch, wrappers)
+            gc.collect()
+            torch.cuda.empty_cache()
+            say("workflow", f"cli.train --max_steps={steps}: at step {last} "
+                            f"in {time.perf_counter() - t0:.1f} s; "
+                            f"checkpoints {step_dirs(run)}")
+            check(last == steps and step_dirs(run) == [steps],
+                  f"cli.train --max_steps={steps}: step {last}, "
+                  f"checkpoints {step_dirs(run)}")
+            got = launches[f"train to {steps}"]
+            for fn, want in (("netvlad_core_forward", 2),
+                             ("netvlad_core_backward", 2),
+                             ("lstm_train_forward",
+                              2 * LSTM_LAYERS * FLAG_FRAMES),
+                             ("lstm_train_backward",
+                              2 * LSTM_LAYERS * FLAG_FRAMES)):
+                check(got[fn] == want, f"cli.train to {steps}: {fn} "
+                                       f"launched {got[fn]} times, want {want}")
+        check([int(m.group(1)) for m in logs.find(
+            r"restoring checkpoint at step (\d+)")] == [2],
+            "the second cli.train did not resume at step 2")
+        losses = [float(m.group(2)) for m in logs.find(
+            r"training step (\d+) \| Loss: (\S+)")]
+        check(len(losses) == 4 and all(map(math.isfinite, losses)),
+              f"training log lines: {losses}")
+        saves = [(float(m.group(2)), float(m.group(3))) for m in logs.find(
+            r"saved checkpoint step (\d+) \(([\d.]+) GB\) in ([\d.]+) s")]
+        restores = [float(m.group(1)) for m in logs.find(
+            r"restored checkpoint step \d+ in ([\d.]+) s")]
+        size = dir_bytes(os.path.join(run, "4")) / 1e9
+        say("workflow", f"losses {losses}; checkpoint {size:.3f} GB on "
+                        f"disk, saves {[t for _, t in saves]} s, restore "
+                        f"{restores} s")
+
+        wrappers = zero_launches()
+        out_eval = eval_cli.main([
+            f"--eval_data_pattern={data}/validate-*.tfrecord",
+            f"--train_dir={run}", "--run_once", f"--batch_size={E2E_BATCH}",
+            f"--device={dev.type}"])
+        launches["eval"] = read_launches(torch, wrappers)
+        mean_ap = float(sum(out_eval["aps"]) / len(out_eval["aps"]))
+        say("workflow", f"cli.eval: step {out_eval['step']}, GAP "
+                        f"{out_eval['gap']:.5f}, Hit@1 "
+                        f"{out_eval['avg_hit_at_one']:.5f}, PERR "
+                        f"{out_eval['avg_perr']:.5f}, mAP {mean_ap:.5f}, "
+                        f"loss {out_eval['avg_loss']:.5f}, "
+                        f"{out_eval['videos_per_sec']:.1f} videos/s; launches "
+                        f"{launches['eval']}")
+        check(out_eval["step"] == 4 and out_eval["nonfinite_predictions"] == 0,
+              "cli.eval: step or non-finite predictions")
+        for key, value in (("GAP", out_eval["gap"]), ("mAP", mean_ap),
+                           ("Hit@1", out_eval["avg_hit_at_one"])):
+            check(math.isfinite(value) and 0.0 <= value <= 1.0,
+                  f"cli.eval {key} = {value}")
+        for fn in ("exact_topk", "netvlad_aggregate", "lstm_recurrence",
+                   "moe_head_serving"):
+            check(launches["eval"][fn] > 0, f"cli.eval did not launch {fn}")
+
+        wrappers = zero_launches()
+        out_csv = os.path.join(work, "workflow.csv")
+        stats = inference_cli.main([
+            f"--input_data_pattern={data}/validate-*.tfrecord",
+            f"--train_dir={run}", f"--output_file={out_csv}",
+            f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
+            f"--device={dev.type}"])
+        launches["inference"] = read_launches(torch, wrappers)
+        check(stats["nonfinite_predictions"] == 0
+              and check_csv(out_csv) == WF_EVAL_VIDEOS,
+              "cli.inference: CSV or non-finite predictions")
+        say("workflow", f"cli.inference: {stats['num_videos']} videos, "
+                        f"{stats['videos_per_sec']:.1f} videos/s, CSV ok; "
+                        f"launches {launches['inference']}")
+        err = eval_loss_card_vs_cpu(torch, dev, run,
+                                    f"{data}/validate-*.tfrecord")
+        say("workflow", f"8 eval videos from the step-4 checkpoint, card vs "
+                        f"CPU: per-video loss within {err:.3e} relative "
+                        f"(bound 2e-3)")
+    finally:
+        logger.removeHandler(logs)
+        shutil.rmtree(run, ignore_errors=True)
+        shutil.rmtree(data, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "checkpoint_gb": size,
+            "save_s": [t for _, t in saves], "restore_s": restores}
+
+
 def main() -> int:
     import torch
 
@@ -1478,7 +1877,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for fn in (check_dbof, check_moe, check_topk, check_netvlad, check_lstm,
-               check_lstm_train):
+               check_lstm_train, check_netvlad_core):
         row = fn(torch, gen, dev, flush)
         say_row("(kernels line)", row)
         rows.append(row)
@@ -1505,16 +1904,37 @@ def main() -> int:
     profile_step(torch, dev, "DbofModel", BATCH)
     profile_step(torch, dev, "NetVladLstmModel", FLAG_BATCH)
     training = train_flagship(torch, dev)
+    fused = train_flagship(torch, dev, fused=True)
+    say("train", f"NetVladLstmModel B={TRAIN_BATCH} training step in one "
+                 f"call: plain VLAD graph {training['step_ms']:.3f} ms, peak "
+                 f"{training['peak_gib']:.2f} GiB; --netvlad_fused_train "
+                 f"{fused['step_ms']:.3f} ms, peak {fused['peak_gib']:.2f} "
+                 f"GiB")
     train_dbof(torch, dev)
     train_card_vs_cpu(torch, dev)
+    work = tempfile.mkdtemp(prefix="chip_smoke_workflow_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        workflow = cli_workflow(torch, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # Launches on the main paths: DBoF's on the DbofModel serving path, the
     # trainable LSTM's (forward and backward step kernels) on the
-    # flagship's training path, the others on the flagship's serving path,
-    # whose shapes their rows were measured at.
+    # flagship's training path, netvlad_core's on the train CLI's two runs
+    # of the workflow (2 + 2 steps), the others on the flagship's serving
+    # path, whose shapes their rows were measured at.
     for row in rows:
         if row["name"] == "lstm_recurrence_trainable":
             fwd = training["launches"]["lstm_train_forward"]
             bwd = training["launches"]["lstm_train_backward"]
+            row.update(launches=fwd + bwd, launches_forward=fwd,
+                       launches_backward=bwd)
+            continue
+        if row["name"] == "netvlad_core":
+            runs = [v for k, v in workflow["launches"].items()
+                    if k.startswith("train")]
+            fwd = sum(r["netvlad_core_forward"] for r in runs)
+            bwd = sum(r["netvlad_core_backward"] for r in runs)
             row.update(launches=fwd + bwd, launches_forward=fwd,
                        launches_backward=bwd)
             continue
@@ -1524,7 +1944,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_forward", "launches_backward", "ms_forward",
-             "ms_backward", "us_per_step_forward", "us_per_step_backward")
+             "ms_backward", "us_per_step_forward", "us_per_step_backward",
+             "ms_backward_with_dx", "device_ms_forward",
+             "device_ms_backward")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}),
         flush=True)

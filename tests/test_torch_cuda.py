@@ -50,6 +50,7 @@ from yt8m_tpu_torch.kernels import lstm as tlstm
 from yt8m_tpu_torch.kernels import lstm_train as tlt
 from yt8m_tpu_torch.kernels import moe_head as tmoe
 from yt8m_tpu_torch.kernels import netvlad as tvlad
+from yt8m_tpu_torch.kernels import netvlad_train as tnt
 from yt8m_tpu_torch.kernels import topk as ttopk
 from yt8m_tpu_torch.models import ModelHParams, get_model
 from yt8m_tpu_torch.train.losses import get_loss
@@ -615,3 +616,128 @@ def test_cuda_training_step_matches_cpu(cuda):
     assert abs(gpu_loss - cpu_loss) <= 2e-3 * abs(cpu_loss)
     for n, v in cpu_norms.items():
         assert abs(gpu_norms[n] - v) <= 2e-2 * max(v, 1e-6), n
+
+
+# ---------------------------------------------------------------------------
+# The trainable NetVLAD core (--netvlad_fused_train).
+# ---------------------------------------------------------------------------
+
+
+def _core_args(seed, b, f, d, k, dev):
+    """act at BN scale, x dequantized from uint8, num_frames with f, 0 and
+    1 planted, centers at the initialiser's scale."""
+    g = torch.Generator().manual_seed(seed)
+    act = 1.5 * torch.randn(b, f, k, generator=g)
+    x = (torch.randint(0, 256, (b, f, d), generator=g).float() * (4.0 / 255.0)
+         + (4.0 / 512.0 - 2.0))
+    nf = torch.randint(1, f + 1, (b,), generator=g, dtype=torch.int32)
+    nf[: min(b, 3)] = torch.tensor([f, 0, 1], dtype=torch.int32)[: min(b, 3)]
+    centers = torch.randn(k, d, generator=g) * d ** -0.5
+    dvlad = torch.randn(b, k, d, generator=g)
+    return [t.to(dev) for t in (act, x, nf, centers)], dvlad.to(dev)
+
+
+def _core_grads(args, dvlad, need_x=True):
+    act, x, nf, centers = args
+    a = act.clone().requires_grad_()
+    xx = x.clone().requires_grad_(need_x)
+    c = centers.clone().requires_grad_()
+    vlad = tnt.netvlad_core(a, xx, nf, c)
+    (vlad * dvlad).sum().backward()
+    return vlad.detach(), a.grad, xx.grad, c.grad
+
+
+@pytest.mark.parametrize("b,f,d,k", [(4, 11, 16, 8), (3, 7, 1000, 100),
+                                     (5, 70, 1152, 256), (2, 300, 256, 512),
+                                     (6, 65, 128, 257), (3, 300, 1152, 256)])
+def test_cuda_netvlad_core_matches_plain(cuda, b, f, d, k):
+    """Forward (vlad, a_sum), backward (dact, dx, with and without dx)
+    against the plain versions; the Function's gradients, dcenters
+    included, against the plain backward and reduction."""
+    args, dvlad = _core_args(b + f + d + k, b, f, d, k, cuda)
+    before = tnt.netvlad_core_forward.launches
+    vlad, a_sum = tnt.netvlad_core_forward(*args)
+    assert tnt.netvlad_core_forward.launches == before + 1
+    want_v, want_a = tnt.netvlad_core_plain_forward(*args)
+    _close(vlad, want_v)
+    _close(a_sum, want_a)
+    want_da, want_dx = tnt.netvlad_core_plain_backward(*args, dvlad)
+    for need_dx in (True, False):
+        before = tnt.netvlad_core_backward.launches
+        dact, dx = tnt.netvlad_core_backward(*args, dvlad, need_dx)
+        assert tnt.netvlad_core_backward.launches == before + 1
+        _close(dact, want_da)
+        if need_dx:
+            _close(dx, want_dx)
+        else:
+            assert dx is None
+    for need_x in (True, False):
+        got = _core_grads(args, dvlad, need_x)
+        _close(got[0], want_v)
+        _close(got[1], want_da)
+        if need_x:
+            _close(got[2], want_dx)
+        else:
+            assert got[2] is None
+        _close(got[3], -torch.einsum("bk,bkd->kd", want_a, dvlad))
+
+
+def test_cuda_netvlad_core_ignores_frames_past_num_frames(cuda):
+    """Large finite act and x past num_frames leave vlad, a_sum and every
+    gradient bit for bit those of zeros there; dact and dx are exact
+    zeros past num_frames; num_frames = 0 gives vlad = 0 and a_sum = 0."""
+    args, dvlad = _core_args(3, 6, 300, 1152, 256, cuda)
+    act, x, nf, centers = args
+    past = torch.arange(300, device=cuda)[None, :] >= nf[:, None]
+    clean = [act.masked_fill(past[..., None], 0),
+             x.masked_fill(past[..., None], 0), nf, centers]
+    loud = [torch.where(past[..., None], 3e4, act),
+            torch.where(past[..., None], -1e5, x), nf, centers]
+    a = _core_grads(clean, dvlad)
+    c = _core_grads(loud, dvlad)
+    for got, want in zip(c, a):
+        assert torch.equal(got, want)
+    assert torch.all(c[1][past] == 0) and torch.all(c[2][past] == 0)
+    vlad, a_sum = tnt.netvlad_core_forward(*loud)
+    assert torch.all(vlad[1] == 0) and torch.all(a_sum[1] == 0)
+
+
+def test_cuda_netvlad_core_rejects_what_the_kernel_cannot_take(cuda):
+    args, _ = _core_args(1, 2, 5, 64, 600, cuda)
+    with pytest.raises(ValueError, match="K <= 512"):
+        tnt.netvlad_core_forward(*args)
+    args, _ = _core_args(1, 2, 5, 64, 8, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tnt.netvlad_core_forward(args[0].double(), *args[1:])
+
+
+def test_cuda_dbof_trainer_resumes_and_evaluates(cuda, tmp_path):
+    """Three DbofModel training steps through the Trainer on the card, two
+    then one after a resume, then an eval of the checkpoint whose top-k
+    runs exact_topk: finite metrics, the step counted on."""
+    from yt8m_tpu_torch.config import EvalConfig, TrainConfig
+    from yt8m_tpu_torch.eval.loop import evaluate_checkpoint
+    from yt8m_tpu_torch.train.checkpoint import step_dirs
+    from yt8m_tpu_torch.train.loop import Trainer
+
+    write_dataset(str(tmp_path), "train", num_shards=1, videos_per_shard=24,
+                  frame_level=True, num_classes=40, seed=3, rgb_dim=96,
+                  audio_dim=32)
+    reader = dict(feature_names="rgb,audio", feature_sizes="96,32",
+                  frame_features=True, num_classes=40, model="DbofModel",
+                  train_dir=str(tmp_path / "run"), batch_size=8,
+                  hparams=ModelHParams(dbof_cluster_size=64,
+                                       dbof_hidden_size=32, iterations=10))
+    data = str(tmp_path / "train-*.tfrecord")
+    assert Trainer(TrainConfig(train_data_pattern=data, max_steps=2,
+                               **reader)).run() == 2
+    trainer = Trainer(TrainConfig(train_data_pattern=data, max_steps=3,
+                                  **reader))
+    assert next(trainer.model.parameters()).is_cuda
+    assert trainer.run() == 3
+    assert step_dirs(reader["train_dir"]) == [2, 3]
+    before = ttopk.exact_topk.launches
+    out = evaluate_checkpoint(EvalConfig(eval_data_pattern=data, **reader))
+    assert ttopk.exact_topk.launches > before
+    assert out["step"] == 3 and out["nonfinite_predictions"] == 0
+    assert 0 <= out["gap"] <= 1 and np.isfinite(out["avg_loss"])

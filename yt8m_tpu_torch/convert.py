@@ -10,10 +10,13 @@ stay class-major, c*(M+1)+m. `variables_from_model` goes back: the
 port's parameters and buffers to the JAX package's `params` and
 `batch_stats` trees of numpy arrays.
 
-A checkpoint of the port is a directory holding `model_flags.json` (the
-JAX trainer's format, so either package's recording rebuilds the model)
-and `model.pt` (the `state_dict`, saved with `torch.save`). Loading an
-orbax checkpoint of the JAX package waits for the training slice.
+A run of the port is a directory holding `model_flags.json` (the JAX
+trainer's format, so either package's recording rebuilds the model) and
+the trainer's step directories (train/checkpoint.py), or a flat
+`model.pt` (the `state_dict`, saved with `torch.save`) as
+`save_checkpoint` writes it. An orbax checkpoint of the JAX package is
+read with orbax outside the port and converted with
+`state_dict_from_jax`.
 """
 
 from __future__ import annotations
@@ -21,14 +24,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from yt8m_tpu_torch.models import ModelHParams, get_model
+from yt8m_tpu_torch.train.checkpoint import MODEL_FILE, restore_model
 
-MODEL_FILE = "model.pt"
 FLAGS_FILE = "model_flags.json"
 
 
@@ -96,11 +99,14 @@ def save_checkpoint(train_dir: str, model, model_name: str,
 
 
 def load_model(train_dir: str, model_name: str, hparams: ModelHParams,
-               device) -> torch.nn.Module:
-    """Build `model_name` from hparams, load train_dir/model.pt, move it
-    to `device` and put it in eval mode."""
+               device, checkpoint_step: Optional[int] = None,
+               use_ema_weights: bool = False) -> torch.nn.Module:
+    """Build `model_name` from hparams, load the weights of train_dir (the
+    step directory `checkpoint_step`, else the latest, else a flat
+    model.pt; the EMA parameters with `use_ema_weights`), move it to
+    `device` and put it in eval mode. The step read is
+    `model.checkpoint_step` (None for a flat model.pt)."""
     model = get_model(model_name, hparams)
-    state = torch.load(os.path.join(train_dir, MODEL_FILE),
-                       map_location="cpu", weights_only=True)
-    model.load_state_dict(state)
+    model.checkpoint_step = restore_model(model, train_dir, checkpoint_step,
+                                          use_ema_weights)
     return model.to(device).eval()

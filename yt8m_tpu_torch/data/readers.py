@@ -1,7 +1,7 @@
 """YT-8M record -> batch readers (reference: readers.py).
 
-A copy of the JAX package's pure-Python reader, cut to what serving uses
-(one ordered pass; no shuffling, no distillation features):
+A copy of the JAX package's pure-Python reader (its shuffling, epochs,
+seed and remainder options; no distillation feature):
   * YT8MAggregatedFeatureReader: video-level tf.Example with float features
     (`mean_rgb`[1024], `mean_audio`[128]) concatenated per --feature_names,
     labels -> dense multi-hot over 4716 classes.
@@ -17,14 +17,14 @@ Output batch dict (numpy, host side):
     frame level: {"id": list[bytes], "features": u8 [B, F, D],
                   "labels": f32 [B, C], "num_frames": i32 [B],
                   "batch_mask": f32 [B]}
-`batch_mask` marks real rows in a padded final batch (inference needs
-every video exactly once).
+`batch_mask` marks real rows in a padded final batch (eval and inference
+need every video exactly once).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -129,14 +129,21 @@ def _dense_labels(label_lists: Sequence[Sequence[int]], num_classes: int):
 
 
 class BatchIterator:
-    """Batches from TFRecord shards, in file order, each video once.
+    """Batches from TFRecord shards (the JAX package's pure-Python
+    BatchIterator, data/readers.py:160-260).
 
-    Pure Python over the numpy-only codec; the native C++ parser of the
-    JAX package is not ported yet.
+    Unshuffled: file order, each video once per epoch. Shuffled: the file
+    list is shuffled each epoch by numpy's default_rng(seed), and records
+    pass through a reservoir of 4 * batch_size drawn by
+    default_rng(seed + 1); the same seed gives the JAX iterator's batches
+    in its order. num_epochs=None repeats forever. The native C++ parser
+    of the JAX package is not ported.
     """
 
     def __init__(self, file_pattern, config: ReaderConfig, batch_size: int,
-                 pad_final_batch: bool = True):
+                 shuffle: bool = False, num_epochs: Optional[int] = 1,
+                 seed: int = 0, pad_final_batch: bool = True,
+                 drop_remainder: bool = False):
         if isinstance(file_pattern, str):
             self.files = glob_files(file_pattern)
         else:
@@ -145,17 +152,48 @@ class BatchIterator:
             raise IOError(f"no files matched {file_pattern!r}")
         self.config = config
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_epochs = num_epochs
+        self.seed = seed
         self.pad_final_batch = pad_final_batch
+        self.drop_remainder = drop_remainder
+
+    def _records(self) -> Iterator[bytes]:
+        epoch = 0
+        rng = np.random.default_rng(self.seed)
+        while self.num_epochs is None or epoch < self.num_epochs:
+            files = list(self.files)
+            if self.shuffle:
+                rng.shuffle(files)
+            for path in files:
+                yield from tfrecord_iterator(path)
+            epoch += 1
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         buf = []
-        for path in self.files:
-            for rec in tfrecord_iterator(path):
-                buf.append(self._parse(rec))
-                if len(buf) == self.batch_size:
-                    yield self._make_batch(buf)
-                    buf = []
-        if buf:
+        records = self._records()
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + 1)
+            pool: List[bytes] = []
+            pool_size = 4 * self.batch_size
+            for rec in records:
+                pool.append(rec)
+                if len(pool) >= pool_size:
+                    idx = int(rng.integers(0, len(pool)))
+                    rec, pool[idx] = pool[idx], pool[-1]
+                    pool.pop()
+                    buf.append(self._parse(rec))
+                    if len(buf) == self.batch_size:
+                        yield self._make_batch(buf)
+                        buf = []
+            rng.shuffle(pool)
+            records = pool
+        for rec in records:
+            buf.append(self._parse(rec))
+            if len(buf) == self.batch_size:
+                yield self._make_batch(buf)
+                buf = []
+        if buf and not self.drop_remainder:
             yield self._make_batch(buf)
 
     def _parse(self, rec: bytes):

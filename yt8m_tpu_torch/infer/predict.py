@@ -56,12 +56,16 @@ def inference(cfg: InferenceConfig, model=None) -> dict:
     """Top-k CSV for every video matched by cfg.input_data_pattern.
 
     Runs on cfg.device ("cuda" unless the caller asks for "cpu"); loads
-    the model from cfg.train_dir unless one is given.
+    the model from cfg.train_dir unless one is given: the checkpoint at
+    --checkpoint_step, else the latest (else a flat model.pt), its EMA
+    parameters with --use_ema_weights.
     """
     device = resolve_device(cfg.device)
     if model is None:
         model = load_model(cfg.train_dir, cfg.model,
-                           cfg.resolved_hparams(), device)
+                           cfg.resolved_hparams(), device,
+                           checkpoint_step=cfg.checkpoint_step,
+                           use_ema_weights=cfg.use_ema_weights)
     step = make_topk_predict_step(model, cfg.top_k)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     reader = ReaderConfig(

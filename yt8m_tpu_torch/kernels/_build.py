@@ -52,6 +52,8 @@ SIGNATURES = {
     "yt8m_lstm_recurrence": [_P] * 8 + [_I] * 4 + [_P],
     "yt8m_lstm_train_forward": [_P] * 10 + [_I] * 4 + [_P],
     "yt8m_lstm_train_backward": [_P] * 8 + [_I] * 4 + [_P],
+    "yt8m_netvlad_core_forward": [_P] * 6 + [_I] * 4 + [_P],
+    "yt8m_netvlad_core_backward": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

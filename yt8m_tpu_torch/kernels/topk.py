@@ -14,7 +14,9 @@ selection rounds there.
 serving_topk dispatches as yt8m_tpu/kernels/topk.py :: _dispatch_topk
 does: k <= 128 goes to exact_topk, larger k to a library op outside any
 kernel (there an exact XLA op, here `stable_sort_topk`, a stable
-torch.sort), on either device.
+torch.sort), on either device. sorted_topk, the eval metric path's top-k
+(JAX: lax.top_k's order as its library op), dispatches the same way:
+both branches already give lax.top_k's order for finite scores.
 """
 
 from __future__ import annotations
@@ -78,3 +80,10 @@ def serving_topk(x, k: int):
     if k > MAX_K:
         return stable_sort_topk(x, k)
     return exact_topk(x, k)
+
+
+def sorted_topk(x, k: int):
+    """The eval metric path's top-k (reference: yt8m_tpu/kernels/topk.py ::
+    sorted_topk): values descending, ties to the lowest index, as
+    lax.top_k orders finite scores; the dispatch of serving_topk."""
+    return serving_topk(x, k)

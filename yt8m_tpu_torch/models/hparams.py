@@ -5,7 +5,9 @@ flags with the same names map 1:1 onto these fields.
 
 Fields that select a Pallas kernel in the JAX package
 (`*_use_pallas`, `moe_head_pallas`) are inert here: the port's serving
-path always runs its CUDA kernels. Fields of model families not yet
+path always runs its CUDA kernels. `netvlad_fused_train` (with
+`netvlad_use_pallas`) selects the trainable VLAD core in training, as in
+the JAX package. Fields of model families not yet
 ported are kept so that recordings of any run load; they are inert too.
 """
 

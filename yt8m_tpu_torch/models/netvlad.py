@@ -8,12 +8,14 @@ models/netvlad.py).
 
 Serving runs the fused kernel (kernels/netvlad.py) with the assignment
 BatchNorm folded into its per-cluster affine, as the JAX model folds it
-for its kernel. Training runs the JAX model's plain graph (its fused
-training core is opt-in, --netvlad_fused_train, and not ported): the
-assignment BatchNorm on batch moments over every frame row, the softmax,
-the mask, `a_sum` and the residual product in plain PyTorch, and every
-BatchNorm after it in training mode. Parameter names are the JAX
-model's.
+for its kernel. Training computes the assignment product and its
+BatchNorm on batch moments over every frame row in plain PyTorch; then,
+with --netvlad_fused_train (and --netvlad_use_pallas, as the JAX model's
+condition has it), the trainable core kernels/netvlad_train.py ::
+netvlad_core (the masked softmax, `a_sum` and the residual product, the
+assignment recomputed in the backward), else the JAX model's plain graph
+for the same steps. Every BatchNorm after it runs in training mode.
+Parameter names are the JAX model's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from yt8m_tpu_torch.kernels.netvlad import netvlad_aggregate
+from yt8m_tpu_torch.kernels.netvlad_train import netvlad_core
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
     frame_mask,
@@ -44,10 +47,12 @@ class NetVladAggregation(ServingModule):
     """
 
     def __init__(self, feature_dim: int, cluster_size: int,
-                 add_batch_norm: bool = True, dtype=torch.float32):
+                 add_batch_norm: bool = True, dtype=torch.float32,
+                 fused_train: bool = False):
         super().__init__()
         d, k = feature_dim, cluster_size
         self.dtype = dtype
+        self.fused_train = fused_train
         self.add_batch_norm = add_batch_norm
         self.cluster_weights = nn.Parameter(torch.empty(d, k))
         self.cluster_weights2 = nn.Parameter(torch.empty(1, d, k))
@@ -97,7 +102,8 @@ class NetVladAggregation(ServingModule):
         return vlad.reshape(frames.shape[0], -1)
 
     def _train_forward(self, frames, num_frames):
-        """The JAX model's plain graph (models/netvlad.py:132-197)."""
+        """The JAX model's training graph (models/netvlad.py:132-197): the
+        fused core with `fused_train`, else the plain steps."""
         b, f, d = frames.shape
         k = self.cluster_weights.shape[1]
         x = ensure_float(frames)
@@ -109,14 +115,26 @@ class NetVladAggregation(ServingModule):
         else:
             act = act + self.cluster_biases
         mask = frame_mask(num_frames, f)
-        assign = torch.softmax(act, dim=-1).reshape(b, f, k)
-        assign = assign * mask[:, :, None]
-        a_sum = torch.sum(assign, dim=1)
-        vlad = torch.matmul(rounded(assign, self.dtype).transpose(1, 2),
-                            rounded(x, self.dtype))
-        vlad = vlad - a_sum[:, :, None] * self.cluster_weights2[0].t()
+        centers = self.cluster_weights2[0].t()
+        if self.fused_train:
+            num_frames_eff = torch.sum(mask, dim=1).to(torch.int32)
+            vlad = netvlad_core(act.reshape(b, f, k), x, num_frames_eff,
+                                centers)
+        else:
+            assign = torch.softmax(act, dim=-1).reshape(b, f, k)
+            assign = assign * mask[:, :, None]
+            a_sum = torch.sum(assign, dim=1)
+            vlad = torch.matmul(rounded(assign, self.dtype).transpose(1, 2),
+                                rounded(x, self.dtype))
+            vlad = vlad - a_sum[:, :, None] * centers
         vlad = l2_normalize(vlad, dim=2)
         return l2_normalize(vlad.reshape(b, k * d), dim=1)
+
+
+def fused_train(hp: ModelHParams) -> bool:
+    """Whether training runs the fused core (the JAX model's condition,
+    models/netvlad.py:156-164, without its TPU-only terms)."""
+    return hp.netvlad_use_pallas and hp.netvlad_fused_train
 
 
 def hidden_fc(model, prefix: str, x, add_batch_norm: bool):
@@ -172,7 +190,7 @@ class _NetVladBase(ServingModule):
         d, k = hp.feature_dim, hp.netvlad_cluster_size
         h = hp.netvlad_hidden_size
         self.vlad = NetVladAggregation(d, k, hp.netvlad_add_batch_norm,
-                                       hp.dtype)
+                                       hp.dtype, fused_train(hp))
         add_hidden_fc(self, "hidden1", k * d, h, hp.netvlad_add_batch_norm)
         if self.gating:
             self.context_gate = ContextGate(h, hp.netvlad_add_batch_norm,

@@ -11,7 +11,8 @@ Two branches over the same masked frames, fused before the head:
 The frames are dequantized once and both branches take the float view,
 as in the JAX model, so the VLAD kernel gets float32 frames here. In
 training each branch runs its training graph (models/netvlad.py,
-models/rnn.py: the trainable recurrence kernel at bf16) and the output
+models/rnn.py: the trainable recurrence kernel at bf16, and the
+trainable VLAD core with --netvlad_fused_train) and the output
 carries `regularization_loss`.
 """
 
@@ -25,6 +26,7 @@ from yt8m_tpu_torch.models.hparams import ModelHParams
 from yt8m_tpu_torch.models.netvlad import (
     NetVladAggregation,
     add_hidden_fc,
+    fused_train,
     hidden_fc,
     reset_hidden_fc,
 )
@@ -42,7 +44,7 @@ class _NetVladLstmBase(ServingModule):
         self.hp = hp
         d, k = hp.feature_dim, hp.netvlad_cluster_size
         bn = hp.netvlad_add_batch_norm
-        self.vlad = NetVladAggregation(d, k, bn, hp.dtype)
+        self.vlad = NetVladAggregation(d, k, bn, hp.dtype, fused_train(hp))
         add_hidden_fc(self, "vlad_hidden", k * d, hp.netvlad_hidden_size, bn)
         rnn_width = add_lstm_stack(self, d, hp.lstm_cells, hp.lstm_layers,
                                    hp.dtype, self.bidirectional,

@@ -1,5 +1,6 @@
-"""The train step (reference: the JAX package's train/step.py ::
-make_train_step, single device).
+"""The train and eval steps (reference: the JAX package's train/step.py
+:: make_train_step, make_eval_step, make_sparse_eval_step; single
+device).
 
 One step: the model's training forward (BatchNorm running statistics
 move once), the label loss as a masked mean over `batch_mask` (times
@@ -7,12 +8,21 @@ move once), the label loss as a masked mean over `batch_mask` (times
 `aux_loss_weight`, `regularization_penalty` times the model's
 regularization loss, the backward, the per-variable clip and the
 optimizer update, then the EMA.
+
+An eval step runs the model in eval mode (its serving kernels on the
+card) and the label loss per example. The sparse eval step returns, in
+place of the dense [B, C] predictions, each video's top-K (value, class,
+label) triplets through sorted_topk, its count of positive labels, the
+batch's positives per class over real rows and the count of non-finite
+predictions over real rows: all that EvaluationMetrics.accumulate_topk
+needs, and all that crosses to the host.
 """
 
 from __future__ import annotations
 
 import torch
 
+from yt8m_tpu_torch.kernels.topk import sorted_topk
 from yt8m_tpu_torch.train.losses import BaseLoss
 from yt8m_tpu_torch.train.state import TrainState
 
@@ -76,3 +86,46 @@ def make_train_step(loss_obj: BaseLoss, regularization_penalty: float = 1.0,
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(model, loss_obj: BaseLoss):
+    """eval_step(batch, generator=None) -> (predictions [B, C] f32,
+    per-example loss [B]), on the model's device."""
+
+    @torch.inference_mode()
+    def eval_step(batch: dict, generator=None):
+        model.eval()
+        out = model(batch["features"], batch["num_frames"],
+                    generator=generator)
+        return out["predictions"], loss_obj.calculate_loss(
+            out["predictions"], batch["labels"])
+
+    return eval_step
+
+
+def make_sparse_eval_step(model, loss_obj: BaseLoss, k: int):
+    """eval_step(batch, generator=None) -> {"loss", "topk_values",
+    "topk_indices", "topk_labels", "labels_per_video", "class_positives",
+    "nonfinite_predictions"}, on the model's device."""
+    dense = make_eval_step(model, loss_obj)
+
+    @torch.inference_mode()
+    def eval_step(batch: dict, generator=None):
+        preds, per_ex = dense(batch, generator)
+        labels = batch["labels"]
+        vals, idx = sorted_topk(preds, min(k, preds.shape[-1]))
+        pos = labels > 0
+        row_keep = (batch["batch_mask"] > 0)[:, None]
+        return {
+            "loss": per_ex,
+            "topk_values": vals,
+            "topk_indices": idx,
+            "topk_labels": torch.gather(labels, 1, idx.long()).to(
+                torch.float32),
+            "labels_per_video": pos.sum(dim=1).to(torch.int32),
+            "class_positives": (pos & row_keep).sum(dim=0).to(torch.int32),
+            "nonfinite_predictions": ((~torch.isfinite(preds)) & row_keep)
+            .sum().to(torch.int32),
+        }
+
+    return eval_step
