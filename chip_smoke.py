@@ -7,53 +7,60 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, one line each with the elapsed seconds:
   1. the card (nvidia-smi name and power limit); raises without CUDA;
-  2. the build of every kernel (one nvcc call);
+  2. the build of every kernel (one nvcc per source, at once, and a link);
   3. each kernel against its plain PyTorch version on the card at the
-     serving shapes of its paths (DBoF at DbofModel's B=2048; MoE and
-     top-k at DbofModel's B=2048, H=1024 and at the flagship's B=512,
-     H=2048; NetVLAD and the LSTM at the flagship's B=512) plus small
-     edge cases and planted hazards, with its median time (CUDA events),
-     the plain version's time, the time of one PyTorch yardstick for the
-     same function, and the bound of the work;
+     shapes of its paths (DBoF at DbofModel's B=2048; MoE and top-k at
+     DbofModel's B=2048, H=1024 and at the flagship's B=512, H=2048;
+     NetVLAD and the LSTM at the flagship's B=512; the GRU at GruModel's
+     B=512, F=300, H=1024; attention pooling at AttentionPoolingModel's
+     B=512, F=300, D=1152, 8 heads, uint8 and f32 frames) plus small,
+     odd and ragged shapes and planted hazards, with its median time (CUDA
+     events; the profiler's device time for attention pooling), the plain
+     version's time, the time of one PyTorch yardstick for the same
+     function, and the bound of the work; the trainable recurrences (the
+     LSTM's and the GRU's, forward with residuals and the reverse-time
+     backward) at their training shape (B=256, F=300, H=1024, both
+     directions) with planted hazards, their rounding witnesses, times
+     and bounds beside one cuDNN layer's forward and backward;
+     netvlad_core at the flagship's training shape (B=256, F=300, K=256,
+     D=1152) and at small and odd shapes;
   4. serving end to end through the inference CLI over synthetic
      frame-level TFRecords, for each path with the launch counts set to
      0 just before it and read just after: DbofModel at the reference
      width (K=8192, H=1024, 30 frames, MoE M=2 over 4716 classes, bf16),
-     then the flagship NetVladLstmModel at the JAX defaults (all 300
-     frames masked by num_frames, D=1152, VLAD K=256 with hidden 1024,
-     BN and context gating, LSTM 2 x 1024 with last pooling, MoE M=2 over
-     4716 classes, bf16); CSV checks, and 8 videos compared with the same
-     model on the CPU;
+     the flagship NetVladLstmModel at the JAX defaults (all 300 frames
+     masked by num_frames, D=1152, VLAD K=256 with hidden 1024, BN and
+     context gating, LSTM 2 x 1024 with last pooling, MoE M=2 over 4716
+     classes, bf16), GruModel (GRU 2 x 1024, last pooling, MoE M=2, bf16)
+     and AttentionPoolingModel (8 heads, hidden 512 with BN, MoE M=2,
+     bf16); CSV checks, and 8 videos compared with the same model on the
+     CPU;
   5. each serving step alone on frames already on the card (DbofModel at
-     B=2048, the flagship at B=512): median step time of 5, and device
+     B=2048, the others at B=512): median step time of 5, and device
      time by kernel from torch.profiler;
-  6. training: the trainable LSTM recurrence (forward with residuals and
-     the reverse-time backward) against its plain version at the
-     flagship's training shape (B=256, F=300, H=1024, both directions)
-     with planted hazards, its rounding witness, times and bounds beside
-     one cuDNN LSTM layer's forward and backward; then the flagship
-     trained at full width through make_train_step (B=256 as
-     bench_train.py, bf16, Adam at the config defaults, per-variable
-     clip 1.0) for 10 steps on one repeated synthetic batch, with its
-     launch counts set to 0 just before and read just after, a falling
-     loss, the median step time of 5, a torch.profiler breakdown of one
-     step and the peak memory, once with the plain VLAD training graph
-     and once with --netvlad_fused_train (the netvlad_core kernels, 1 + 1
-     launches a step, checked against their plain versions at the same
-     shape (B=256, F=300, K=256, D=1152) and at small and odd shapes in
-     phase 3, with planted hazards, times, bounds and a library
-     yardstick); DbofModel trained at B=512, K=8192; one flagship
-     training step on 8 videos on the card and on the CPU;
+  6. training through make_train_step (bf16, Adam at the config
+     defaults, per-variable clip 1.0) with the launch counts set to 0
+     just before and read just after: the flagship at full width (B=256
+     as bench_train.py) for 10 steps on one repeated synthetic batch, a
+     falling loss, the median step time of 5, a torch.profiler breakdown
+     of one step and the peak memory, once with the plain VLAD training
+     graph and once with --netvlad_fused_train (1 + 1 netvlad_core
+     launches a step); DbofModel at B=512, K=8192; one flagship training
+     step on 8 videos on the card and on the CPU; GruModel at B=256 the
+     same way (10 steps, 2F step kernels a layer each way a step) and one
+     of its steps on 8 videos card vs CPU; AttentionPoolingModel at B=256
+     through its plain training graph (no kernel, as in the JAX package);
   7. the reference workflow through the port's CLIs with the flagship at
      full width and --netvlad_fused_train, over synthetic frame-level
-     TFRecords (512 train and 256 eval videos, 30-300 frames): cli.train
+     TFRecords (256 train and 128 eval videos, 30-300 frames): cli.train
      to step 2 (a checkpoint at step 2), cli.train again to step 4
      (resumed at step 2), cli.eval --run_once (finite GAP, Hit@1, mAP in
      [0, 1]; exact_topk launched through sorted_topk at k=64),
      cli.inference (the CSV), each with its launch counts set to 0 just
      before and read just after; the checkpoint's size and its save and
      restore seconds; 8 eval videos from the checkpoint on the card and
-     on the CPU.
+     on the CPU; then GruModel through cli.train (2 steps) -> cli.eval
+     --run_once -> cli.inference on the same videos.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -73,8 +80,9 @@ Tolerances, max|kernel - plain| on the same inputs:
     the card). The witness shows the cause: the assignments differ only
     by one bf16 step at rounding boundaries, and on the kernel's own
     assignment the plain remainder meets 1e-3 * max|ref| + 1e-6.
-  * LSTM, serving and trainable (outputs, final state, gates, c_t, dZ,
-    dx_proj, dW_h, db): <= 2e-2 * max(1, max|ref|). Both round h (and
+  * LSTM and GRU, serving and trainable (outputs, final state, gates,
+    c_t or the candidate, dZ or dA, dx, dW_h, db): <= 2e-2 * max(1,
+    max|ref|). Both round h (and
     dZ) to bf16 before every step's product; where the f32 sums differ
     in their last bits a rounding can land one bf16 step apart, and the
     recurrence carries that step into the following steps. 2e-2 is the
@@ -89,7 +97,17 @@ Tolerances, max|kernel - plain| on the same inputs:
     step apart are counted and printed, with the largest |value| among
     them: small results of nearly cancelling f32 sums, whose order of
     summation moves them by more than one of their steps. They are held
-    by the 1e-3 remainder alone.
+    by the 1e-3 remainder alone. The GRU's witness runs the serving
+    kernel one step at a time and feeds the plain cell the kernel's own
+    state (its f32 h, u and bf16(r * h)): u and h meet 1e-3 * max|ref| +
+    1e-6, bf16(r * h) and the outputs differ only at rounding boundaries;
+    the trainable forward equals those steps bit for bit, and its gates
+    and candidate and the backward's dA_g and dA_c, fed their own bf16
+    streams, differ in the same way only.
+  * attention pooling: <= 1e-3 * max|ref| + 1e-5. Both round x, Q and
+    the attention to bf16 at the same points; the softmax's f32 max and
+    sum run in another order, which can move one bf16 attention weight
+    one step, one frame's term in a sum over up to 300.
   * netvlad_core (vlad, a_sum, dact, dx, dcenters): <= 1e-3 * max|ref| +
     1e-6. Both round the products' operands to bf16 at the same points;
     the softmax's f32 max and sum run in another order, which can move a
@@ -154,6 +172,11 @@ LSTM_TOL = 2e-2
 TRAIN_BATCH = 256      # bench_train.py's NetVladLstmModel batch
 TRAIN_STEPS = 10
 DBOF_TRAIN_BATCH = 512  # bench_train.py's DbofModel batch
+# GruModel and AttentionPoolingModel at the JAX package's defaults.
+GRU_CELLS = 1024
+GRU_LAYERS = 2
+ATTN_HEADS = 8
+ATTN_HIDDEN = 512
 
 
 class SmokeFailure(RuntimeError):
@@ -809,6 +832,28 @@ def check_repaired_shapes(torch, gen, dev) -> None:
                       f"{err:.3e}")
 
 
+def rounding_witness(what, kernel, plain) -> None:
+    """A kernel's bf16 stream against the plain f32 values computed on that
+    stream (kernels/lstm_train.py :: rounding_report): the values that
+    differ sit at bf16 rounding boundaries (median distance from the
+    midpoint <= 2^-14 of the value) and what one bf16 step does not
+    explain is <= 1e-3 * max|ref|; values more than one step apart are
+    counted, not refused."""
+    from yt8m_tpu_torch.kernels.lstm_train import rounding_report
+
+    r = rounding_report(kernel, plain)
+    check(r.median <= 2.0 ** -14 and r.excess <= 1e-3,
+          f"{what}: {r.n} values differ, median distance {r.median:.3e}, "
+          f"remainder beyond one bf16 step {r.excess:.3e}")
+    say("witness", f"{what}: {r.n} of {kernel.numel()} bf16 values differ "
+                   f"from the plain cell on the kernel's stream, plain value "
+                   f"{r.median:.3e} (median) of itself from the rounding "
+                   f"midpoint; {r.n_far} more than one bf16 step apart (up "
+                   f"to {r.far_steps} steps, |value| up to "
+                   f"{r.far_value:.3e} of max|ref|); remainder beyond one "
+                   f"bf16 step {r.excess:.3e} of max|ref| (bound 1e-3)")
+
+
 def lstm_witness(torch, name, args, reverse) -> None:
     """Why the LSTM bounds are 2e-2 and not 1e-3. Fed each kernel's own
     bf16 stream one step at a time, the plain cell rounds to the kernel's
@@ -824,20 +869,7 @@ def lstm_witness(torch, name, args, reverse) -> None:
     xp, nf, wh, bias = args
 
     def report(stream, kernel, plain):
-        r = tlt.rounding_report(kernel, plain)
-        check(r.median <= 2.0 ** -14 and r.excess <= 1e-3,
-              f"{name} {stream}: {r.n} values differ, median distance "
-              f"{r.median:.3e}, remainder beyond one bf16 step "
-              f"{r.excess:.3e}")
-        say("witness", f"{name} reverse={reverse} {stream}: {r.n} of "
-                       f"{kernel.numel()} bf16 values differ from the plain "
-                       f"cell on the kernel's stream, plain value "
-                       f"{r.median:.3e} (median) of itself from the "
-                       f"rounding midpoint; {r.n_far} more than one bf16 "
-                       f"step apart (up to {r.far_steps} steps, |value| up "
-                       f"to {r.far_value:.3e} of max|ref|); remainder beyond"
-                       f" one bf16 step {r.excess:.3e} of max|ref| (bound "
-                       f"1e-3)")
+        rounding_witness(f"{name} reverse={reverse} {stream}", kernel, plain)
 
     def final_state(kind, got, want):
         for g, w, what in zip(got, want, ("c", "h")):
@@ -1210,6 +1242,441 @@ def check_netvlad_core(torch, gen, dev, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (cont.): the GRU recurrences and attention pooling
+# ---------------------------------------------------------------------------
+
+
+def gru_inputs(torch, gen, f, b, h, dev):
+    """xg, xc, num_frames (with f, 0 and 1 planted), bf16 W_hg and W_hc,
+    the gate bias around its initial 1 and the candidate bias."""
+    xg = (0.5 * torch.randn(f, b, 2 * h, generator=gen)).to(torch.bfloat16)
+    xc = (0.5 * torch.randn(f, b, h, generator=gen)).to(torch.bfloat16)
+    nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+    nf[: min(b, 3)] = torch.tensor([f, 0, 1], dtype=torch.int32)[: min(b, 3)]
+    whg = (torch.randn(h, 2 * h, generator=gen) * h ** -0.5).to(torch.bfloat16)
+    whc = (torch.randn(h, h, generator=gen) * h ** -0.5).to(torch.bfloat16)
+    bg = 1.0 + 0.1 * torch.randn(2 * h, generator=gen)
+    bc = 0.1 * torch.randn(h, generator=gen)
+    return [t.to(dev) for t in (xg, xc, nf, whg, whc, bg, bc)]
+
+
+def gru_hazard(torch, args, rev):
+    """(clean, loud, past): the GRU's args with xg and xc zero, and +-1e4,
+    at the steps past num_frames (flipped in time when reversed)."""
+    xg, xc, nf = args[:3]
+    past = torch.arange(xg.shape[0], device=xg.device)[:, None] >= nf[None, :]
+    if rev:
+        past = past.flip(0)
+    clean, loud = [], []
+    for x in (xg, xc):
+        sign = torch.where(torch.arange(x.shape[2], device=x.device) % 2 == 0,
+                           1e4, -1e4).to(x.dtype)
+        c, n = pad_hazard(torch, x, past, sign)
+        clean.append(c)
+        loud.append(n)
+    return clean + list(args[2:]), loud + list(args[2:]), past
+
+
+def recurrence_check(name, pairs) -> float:
+    """LSTM_TOL * max(1, max|ref|) on each (got, want); the largest
+    error."""
+    err = 0.0
+    for g, w in pairs:
+        e = (g.float() - w.float()).abs().max().item()
+        bound_ = LSTM_TOL * max(1.0, w.float().abs().max().item())
+        check(math.isfinite(e) and e <= bound_,
+              f"{name}: max|diff| {e:.3e} > {bound_:.3e}")
+        err = max(err, e)
+    return err
+
+
+def gru_witness(torch, name, args, reverse) -> None:
+    """Why the GRU bounds are 2e-2 and not 1e-3. The serving kernel run
+    one step at a time: fed the kernel's own state, the plain cell's u
+    and f32 h meet 1e-3 * max|ref| + 1e-6, and bf16(r * h) and the
+    outputs round to the kernel's values except at bf16 rounding
+    boundaries (median distance from the midpoint <= 2^-14 of the value;
+    what one bf16 step does not explain <= 1e-3 * max|ref|). The
+    trainable forward equals those steps bit for bit; its gates and
+    candidate, and the backward's dA_g and dA_c, fed their own bf16
+    streams, differ from the plain cell in the same way only."""
+    from yt8m_tpu_torch.kernels import gru_train as tgt
+
+    xg, xc, nf, whg, whc, bg, bc = args
+
+    def report(stream, kernel, plain):
+        rounding_witness(f"{name} reverse={reverse} {stream}", kernel, plain)
+
+    kern, plain = tgt.forward_steps_on_card(*args, reverse)
+    for what in ("u", "h"):
+        err = rel_check(f"{name} step by step {what}", kern[what],
+                        plain[what], rel=1e-3, abs_=1e-6)
+        say("witness", f"{name} reverse={reverse} step by step {what} (f32):"
+                       f" max|diff| {err:.3e} (1e-3 bound "
+                       f"{1e-3 * plain[what].abs().max().item() + 1e-6:.3e})")
+    report("serving bf16(r * h)", kern["rh"], plain["rh"])
+    report("serving outputs", kern["out"], plain["h"])
+    outs, gates, cand, h = tgt.gru_train_forward(*args, reverse)
+    check(torch.equal(outs, kern["out"]) and torch.equal(h, kern["h"][-1]),
+          f"{name}: the trainable forward differs from the serving steps")
+    gp, cp = tgt.residuals_on_stream(outs, kern["rh"], xg, xc, whg, whc, bg,
+                                     bc)
+    del kern, plain
+    report("trainable gates", gates, gp)
+    report("trainable candidate", cand, cp)
+    del gp, cp
+    g = torch.Generator(device=xg.device).manual_seed(5)
+    f, b, hd = outs.shape
+    cot = [torch.randn((f, b, hd), generator=g, device=xg.device),
+           torch.randn((b, hd), generator=g, device=xg.device)]
+    dag, dac = tgt.gru_train_backward(*cot, gates, cand, outs, nf, whg, whc,
+                                      reverse)
+    sg, sc = tgt.backward_on_stream(dag, dac, *cot, gates, cand, outs, nf,
+                                    whg, whc, reverse)
+    report("backward dA_g", dag, sg)
+    report("backward dA_c", dac, sc)
+
+
+def gru_bound(live, f, b, h, live_bytes, step_bytes):
+    """(flops, bytes) of a GRU recurrence: the products of `live` (video,
+    step) pairs (a frozen step needs none), 2 live H 3H; `live_bytes` for
+    each live pair and `step_bytes` for each step, the weights and biases,
+    num_frames and one [B, H] f32 state."""
+    flops = 2.0 * live * h * 3 * h
+    nbytes = (live * live_bytes + f * step_bytes + 3 * h * h * 2 + 3 * h * 4
+              + 4 * b + b * h * 4)
+    return flops, nbytes
+
+
+def check_gru(torch, gen, dev, flush) -> dict:
+    """gru_recurrence at small, odd and ragged shapes, then at GruModel's
+    serving shape (B=512, F=300, H=1024), both directions, against its
+    plain version; planted hazards; times, bound and a cuDNN GRU layer."""
+    from yt8m_tpu_torch.kernels.gru import (
+        gru_recurrence,
+        gru_recurrence_plain,
+    )
+
+    for f, b, h in ((13, 5, 64), (40, 130, 192), (1, 1, 64), (9, 7, 96)):
+        for rev in (False, True):
+            args = gru_inputs(torch, gen, f, b, h, dev)
+            before = gru_recurrence.launches
+            got = gru_recurrence(*args, reverse=rev)
+            check(gru_recurrence.launches == before + 2 * f,
+                  f"gru F={f} H={h}: {gru_recurrence.launches - before} "
+                  f"launches, want {2 * f}")
+            recurrence_check(f"gru edge F={f} B={b} H={h} reverse={rev}",
+                             zip(got, gru_recurrence_plain(*args,
+                                                           reverse=rev)))
+    f, b, h = FLAG_FRAMES, FLAG_BATCH, GRU_CELLS
+    err = 0.0
+    for rev in (False, True):
+        args = gru_inputs(torch, gen, f, b, h, dev)
+        clean, loud, _ = gru_hazard(torch, args, rev)
+        got = gru_recurrence(*loud, reverse=rev)
+        ref = gru_recurrence(*clean, reverse=rev)
+        check(all(torch.equal(a, c) for a, c in zip(got, ref)),
+              f"gru reverse={rev}: steps past num_frames moved the carry")
+        check(bool(torch.all(got[0][:, 1] == 0))
+              and bool(torch.all(got[1][1] == 0)),
+              f"gru reverse={rev}: num_frames=0 moved the carry")
+        want = gru_recurrence_plain(*loud, reverse=rev)
+        torch.cuda.synchronize()
+        err = max(err, recurrence_check(f"gru_recurrence reverse={rev}",
+                                        zip(got, want)))
+        del got, ref, want, clean
+    args = loud
+    xg, xc, nf, whg, whc, bg, bc = args
+    ms = time_ms(torch, lambda: gru_recurrence(*args), 5, flush)
+    plain_ms = time_ms(torch, lambda: gru_recurrence_plain(*args), 2, flush)
+    busy_us = device_us(torch, lambda: gru_recurrence(*args), "gru_")
+    say("kernel", f"gru: {2 * f} step launches per call, "
+                  f"{ms / f * 1e3:.2f} us a step, of which the two step "
+                  f"kernels run {busy_us / f:.2f} us; "
+                  f"{ms / f * 1e3 - busy_us / f:.2f} us a step between "
+                  f"launches")
+
+    # Yardstick: one cuDNN GRU layer over the packed sequence, the input
+    # projection included, timed only: cuDNN applies r after the hidden
+    # product (r * (h @ W_hc)), a different function of the same size.
+    d = FEATURE_DIM
+    frames = torch.randn(f, b, d, device=dev, dtype=torch.bfloat16)
+    wx = (torch.randn(d, 3 * h, device=dev) * d ** -0.5).to(torch.bfloat16)
+    cudnn = torch.nn.GRU(d, h, device=dev, dtype=torch.bfloat16)
+    cudnn.flatten_parameters()
+    lengths = torch.clamp(nf, min=1).cpu()
+
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            frames, lengths, enforce_sorted=False)
+        with torch.no_grad():
+            return cudnn(packed)
+
+    def port_with_projection():
+        xp = torch.matmul(frames, wx)
+        return gru_recurrence(xp[..., :2 * h].contiguous(),
+                              xp[..., 2 * h:].contiguous(), nf, whg, whc, bg,
+                              bc)
+
+    library_ms = time_ms(torch, library, 5, flush)
+    port_ms = time_ms(torch, port_with_projection, 5, flush)
+    say("kernel", f"gru: input projections + kernel {port_ms:.4f} ms vs one "
+                  f"cuDNN GRU layer (projection included; r after the "
+                  f"product) {library_ms:.4f} ms")
+    live = int(nf.sum())  # this run's live (video, step) pairs
+    # xg and xc read for live steps, the outputs written for every step.
+    bound_ms, bound_by = bound(*gru_bound(live, f, b, h, 3 * h * 2,
+                                          b * h * 2), PEAK_BF16_FLOPS)
+    full_ms = bound(*gru_bound(b * f, f, b, h, 3 * h * 2, b * h * 2),
+                    PEAK_BF16_FLOPS)[0]
+    say("kernel", f"gru_recurrence bounds: {bound_ms:.4f} ms by {bound_by} "
+                  f"for this run's {live} live steps; {full_ms:.4f} ms for "
+                  f"all {b * f}")
+    del frames, cudnn
+    return {
+        "name": "gru_recurrence", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/gru.cu",
+        "replaces": "yt8m_tpu/kernels/gru.py:98",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "us_per_step": busy_us / f,
+    }
+
+
+def check_gru_train(torch, gen, dev, flush) -> dict:
+    """gru_recurrence_trainable at GruModel's training shape (B=256,
+    F=300, H=1024), both directions: the CUDA forward's outputs, final h
+    and residuals and the CUDA backward's dA_g and dA_c against the plain
+    versions on the same inputs; the Function's dxg, dxc, dW_hg, dW_hc,
+    dbg and dbc against the plain forward, backward and weight gradients
+    for fixed random cotangents; planted hazards; the witness; times and
+    bounds beside one cuDNN GRU layer's forward and backward."""
+    from yt8m_tpu_torch.kernels import gru_train as tgt
+
+    f, b, h = FLAG_FRAMES, TRAIN_BATCH, GRU_CELLS
+
+    def grads(args, cot, rev):
+        xg, xc, nf, whg, whc, bg, bc = args
+        ps = [xg.clone().requires_grad_(), xc.clone().requires_grad_(),
+              whg.float().requires_grad_(), whc.float().requires_grad_(),
+              bg.clone().requires_grad_(), bc.clone().requires_grad_()]
+        outs, fh = tgt.gru_recurrence_trainable(ps[0], ps[1], nf, *ps[2:],
+                                                rev)
+        ((outs * cot[0]).sum() + (fh * cot[1]).sum()).backward()
+        return [outs.detach(), fh.detach()] + [p.grad for p in ps]
+
+    def plain_grads(args, cot, rev):
+        xg, xc, nf, whg, whc, bg, bc = args
+        outs, gates, cand, hh = tgt.gru_train_forward_plain(*args, rev)
+        dag, dac = tgt.gru_train_backward_plain(*cot, gates, cand, outs, nf,
+                                                whg, whc, rev)
+        return [outs.float(), hh, dag.float(), dac.float(),
+                *tgt.weight_grads(outs, gates, dag, dac)]
+
+    names = ("outputs", "final h", "dxg", "dxc", "dW_hg", "dW_hc", "dbg",
+             "dbc")
+    err = 0.0
+    for rev in (False, True):
+        args = gru_inputs(torch, gen, f, b, h, dev)
+        xg, xc, nf, whg, whc, bg, bc = args
+        got = tgt.gru_train_forward(*args, rev)
+        err = max(err, recurrence_check(
+            f"trainable forward (outputs, gates, candidate, h) reverse={rev}",
+            zip(got, tgt.gru_train_forward_plain(*args, rev))))
+        g = torch.Generator().manual_seed(11 + rev)
+        cot = [torch.randn(f, b, h, generator=g).to(dev),
+               torch.randn(b, h, generator=g).to(dev)]
+        bwd = (*cot, got[1], got[2], got[0], nf, whg, whc, rev)
+        err = max(err, recurrence_check(
+            f"trainable dA_g, dA_c reverse={rev}",
+            zip(tgt.gru_train_backward(*bwd),
+                tgt.gru_train_backward_plain(*bwd))))
+        del got, bwd
+        kg = grads(args, cot, rev)
+        pg = plain_grads(args, cot, rev)
+        for nm, a, c in zip(names, kg, pg):
+            check(bool(torch.isfinite(a).all()), f"trainable {nm}: non-finite")
+            err = max(err, recurrence_check(f"trainable {nm} reverse={rev}",
+                                            [(a, c)]))
+        del kg, pg
+        # Hazards: +-1e4 past num_frames leaves outputs and every gradient
+        # bit for bit those of zeros there; dA is exactly 0 on frozen steps.
+        clean, loud, past = gru_hazard(torch, args, rev)
+        a = grads(clean, cot, rev)
+        c = grads(loud, cot, rev)
+        check(all(torch.equal(x, y) for x, y in zip(a, c)),
+              f"gru trainable reverse={rev}: steps past num_frames moved "
+              f"the outputs or the gradients")
+        check(bool(torch.all(c[2][past] == 0))
+              and bool(torch.all(c[3][past] == 0)),
+              f"gru trainable reverse={rev}: dA not 0 on frozen steps")
+        del a, c, clean, loud
+        say("kernel", f"gru_recurrence_trainable reverse={rev}: forward, "
+                      f"residuals, dA_g, dA_c, dxg, dxc, dW_hg, dW_hc, dbg, "
+                      f"dbc within {LSTM_TOL} * max(1, max|ref|); hazards "
+                      f"bit-identical")
+        gru_witness(torch, "gru", args, rev)
+        torch.cuda.empty_cache()
+
+    xg, xc, nf, whg, whc, bg, bc = args
+    outs, gates, cand, _ = tgt.gru_train_forward(*args)
+    cot = [torch.randn_like(outs, dtype=torch.float32),
+           torch.randn(b, h, device=dev)]
+    bwd = (*cot, gates, cand, outs, nf, whg, whc)
+    ms_f = time_ms(torch, lambda: tgt.gru_train_forward(*args), 5, flush)
+    ms_b = time_ms(torch, lambda: tgt.gru_train_backward(*bwd), 5, flush)
+    us_f = device_us(torch, lambda: tgt.gru_train_forward(*args), "gru_")
+    us_b = device_us(torch, lambda: tgt.gru_train_backward(*bwd), "gru_bptt")
+    plain_f = time_ms(torch, lambda: tgt.gru_train_forward_plain(*args), 2,
+                      flush)
+    plain_b = time_ms(torch, lambda: tgt.gru_train_backward_plain(*bwd), 2,
+                      flush)
+    dag, dac = tgt.gru_train_backward(*bwd)
+    dw_ms = time_ms(torch, lambda: tgt.weight_grads(outs, gates, dag, dac), 5,
+                    flush)
+
+    # Yardstick: one cuDNN GRU layer's forward and backward over the packed
+    # sequence, the input projection included (r after the hidden product:
+    # a different function of the same size), timed only.
+    d = FEATURE_DIM
+    frames = torch.randn(f, b, d, device=dev, dtype=torch.bfloat16)
+    cudnn = torch.nn.GRU(d, h, device=dev, dtype=torch.bfloat16)
+    cudnn.flatten_parameters()
+    lengths = torch.clamp(nf, min=1).cpu()
+
+    def library():
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            frames, lengths, enforce_sorted=False)
+        out, _ = cudnn(packed)
+        out.data.float().sum().backward()
+
+    library_ms = time_ms(torch, library, 5, flush)
+    live = int(nf.sum())
+    # Forward: xg and xc read for live steps; outputs, gates and candidate
+    # written for every step. Backward: dout, gates, candidate and outputs
+    # read, dA_g and dA_c written for every step.
+    f_flops, f_bytes = gru_bound(live, f, b, h, 3 * h * 2, b * 4 * h * 2)
+    b_flops, b_bytes = gru_bound(live, f, b, h, 0, b * 8 * h * 2)
+    bound_f = bound(f_flops, f_bytes, PEAK_BF16_FLOPS)
+    bound_b = bound(b_flops, b_bytes, PEAK_BF16_FLOPS)
+    bound_ms, bound_by = bound(f_flops + b_flops, f_bytes + b_bytes,
+                               PEAK_BF16_FLOPS)
+    say("kernel", f"gru_recurrence_trainable B={b} F={f} H={h}: forward "
+                  f"{ms_f:.3f} ms a call (profiler: {us_f / 1e3:.3f} ms of "
+                  f"kernel, {us_f / f:.2f} us a step), backward {ms_b:.3f} "
+                  f"ms a call ({us_b / 1e3:.3f} ms, {us_b / f:.2f} us a "
+                  f"step); bounds {bound_f[0]:.4f} and {bound_b[0]:.4f} ms by"
+                  f" {bound_f[1]} for this run's {live} live steps; plain "
+                  f"{plain_f:.3f} + {plain_b:.3f} ms; dW + db outside the "
+                  f"kernel {dw_ms:.3f} ms; one cuDNN GRU layer forward + "
+                  f"backward (projection included) {library_ms:.3f} ms")
+    del outs, gates, cand, dag, dac, frames, cudnn, bwd
+    return {
+        "name": "gru_recurrence_trainable", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/gru_train.cu",
+        "replaces": "yt8m_tpu/kernels/gru_train.py:304",
+        "max_abs_err": err, "ms": ms_f + ms_b, "plain_ms": plain_f + plain_b,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_forward": ms_f, "ms_backward": ms_b,
+        "us_per_step_forward": us_f / f, "us_per_step_backward": us_b / f,
+    }
+
+
+def attention_inputs(torch, gen, b, f, d, h, x_dtype, dev):
+    """Frames, num_frames uniform in [1, f] with f, 1 and 0 planted, and a
+    query [D, H] ~ normal(1/sqrt(D))."""
+    if x_dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, f, d), generator=gen,
+                          dtype=torch.uint8)
+    else:
+        x = torch.randn(b, f, d, generator=gen)
+    nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+    nf[: min(b, 3)] = torch.tensor([f, 1, 0], dtype=torch.int32)[: min(b, 3)]
+    q = torch.randn(d, h, generator=gen) * d ** -0.5
+    return [t.to(dev) for t in (x, nf, q)]
+
+
+def check_attention_pool(torch, gen, dev, flush) -> dict:
+    """attention_pool at small and odd shapes (D not a multiple of 4, more
+    than 16 heads, one frame), then at AttentionPoolingModel's serving
+    shape (B=512, F=300, D=1152, H=8) with uint8 and f32 frames against
+    its plain version; frames past num_frames set to 255 / 1e4; the empty
+    video held to the plain version's mean; times, bound and a library
+    yardstick."""
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels.attention_pool import (
+        attention_pool,
+        attention_pool_plain,
+    )
+
+    for b, f, d, h, dt in ((5, 13, 32, 4, torch.uint8),
+                           (3, 70, 1001, 3, torch.float32),
+                           (4, 20, 64, 19, torch.uint8),
+                           (2, 1, 8, 1, torch.float32)):
+        args = attention_inputs(torch, gen, b, f, d, h, dt, dev)
+        rel_check(f"attention_pool edge B={b} F={f} D={d} H={h} {dt}",
+                  attention_pool(*args), attention_pool_plain(*args))
+    b, f, d, h = FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM, ATTN_HEADS
+    errs, times = {}, {}
+    for dt, loud in ((torch.float32, 1e4), (torch.uint8, 255)):
+        x, nf, q = attention_inputs(torch, gen, b, f, d, h, dt, dev)
+        past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+        past[2] = False  # the empty video averages all its rows
+        clean, x = pad_hazard(torch, x, past, loud)
+        args = (x, nf, q)
+        got = attention_pool(*args)
+        check(torch.equal(got, attention_pool(clean, nf, q)),
+              f"attention_pool {dt}: frames past num_frames leaked")
+        check(bool(torch.isfinite(got).all()), f"attention_pool {dt}: "
+                                               f"non-finite")
+        want = attention_pool_plain(*args)
+        torch.cuda.synchronize()
+        errs[dt] = rel_check(f"attention_pool {dt}", got, want)
+        empty = rel_check(f"attention_pool {dt} num_frames=0", got[2],
+                          want[2])
+        say("kernel", f"attention_pool {dt}: max|diff| {errs[dt]:.3e}, the "
+                      f"num_frames=0 video (mean of its {f} rows) "
+                      f"{empty:.3e}; hazards bit-identical")
+        times[dt] = time_ms(torch, lambda: attention_pool(*args), 10, flush)
+        del got, want, clean
+    # The serving path feeds uint8 frames: time and bound that case.
+    us = device_us(torch, lambda: attention_pool(*args), "attention_pool")
+    plain_ms = time_ms(torch, lambda: attention_pool_plain(*args), 3, flush)
+    live = (torch.arange(f, device=dev)[None, :] < nf[:, None])
+    live[nf == 0] = True
+
+    def library():
+        xb = (x.to(torch.float32) * DEQUANT_SCALE
+              + DEQUANT_BIAS).to(torch.bfloat16)
+        scores = torch.matmul(xb, q.to(torch.bfloat16)).to(torch.float32)
+        scores = scores.masked_fill(~live[..., None], -1e9)
+        attn = torch.softmax(scores, dim=1).to(torch.bfloat16)
+        return torch.bmm(attn.transpose(1, 2), xb).to(torch.float32)
+
+    library_ms = time_ms(torch, library, 5, flush)
+    rows = int(live.sum())  # the frames the function must read
+    flops = 4.0 * rows * d * h
+    nbytes = rows * d + d * h * 4 + b * h * d * 4 + 4 * b
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    say("kernel", f"attention_pool B={b} F={f} D={d} H={h}: uint8 "
+                  f"{times[torch.uint8]:.4f} ms (CUDA events; profiler "
+                  f"{us / 1e3:.4f} ms), f32 frames {times[torch.float32]:.4f}"
+                  f" ms; bound {bound_ms:.4f} ms by {bound_by} for this "
+                  f"run's {rows} frames read; plain {plain_ms:.4f} ms; "
+                  f"library (bf16 matmul + masked softmax + bmm) "
+                  f"{library_ms:.4f} ms")
+    return {
+        "name": "attention_pool", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/attention_pool.cu",
+        "replaces": "yt8m_tpu/kernels/attention_pool.py:63",
+        "max_abs_err": max(errs.values()), "ms": us / 1e3,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_events": times[torch.uint8],
+        "ms_events_f32": times[torch.float32],
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving end to end, DbofModel and the flagship
 # ---------------------------------------------------------------------------
 
@@ -1248,6 +1715,24 @@ def make_model(torch, seed: int):
     return hp, model.eval()
 
 
+def perturb_vectors(torch, model, gen) -> None:
+    """Non-trivial BatchNorm statistics and affines, recurrent and expert
+    biases: every 1-D parameter and buffer drawn from `gen`."""
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            if t.dim() != 1:
+                continue
+            n = t.shape[0]
+            if name.endswith(("mean",)):
+                t.copy_(0.5 * torch.randn(n, generator=gen))
+            elif name.endswith(("var", "scale")):
+                t.copy_(0.5 + torch.rand(n, generator=gen))
+            else:  # BN shifts, recurrent and expert biases
+                t.copy_(0.1 * torch.randn(n, generator=gen))
+    model.invalidate_serving()
+
+
 def make_flagship_model(torch, seed: int, fused_train: bool = False):
     """NetVladLstmModel at the JAX package's default widths, weights from
     a seed, non-trivial BatchNorm statistics and biases; `fused_train` is
@@ -1265,19 +1750,48 @@ def make_flagship_model(torch, seed: int, fused_train: bool = False):
     model = get_model("NetVladLstmModel", hp)
     gen = torch.Generator().manual_seed(seed)
     model.reset_parameters(gen)
-    with torch.no_grad():
-        for name, t in list(model.named_parameters()) + list(
-                model.named_buffers()):
-            if t.dim() != 1:
-                continue
-            n = t.shape[0]
-            if name.endswith(("mean",)):
-                t.copy_(0.5 * torch.randn(n, generator=gen))
-            elif name.endswith(("var", "scale")):
-                t.copy_(0.5 + torch.rand(n, generator=gen))
-            else:  # BN shifts, LSTM and expert biases
-                t.copy_(0.1 * torch.randn(n, generator=gen))
+    perturb_vectors(torch, model, gen)
+    return hp, model.eval()
+
+
+def make_gru_model(torch, seed: int):
+    """GruModel at the JAX package's defaults (GRU 2 x 1024 over all 300
+    frames masked by num_frames, last pooling, MoE M=2 over 4716, bf16),
+    weights from a seed, biases drawn."""
+    from yt8m_tpu_torch.models import ModelHParams, get_model
+
+    hp = ModelHParams(
+        vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=FLAG_FRAMES,
+        gru_cells=GRU_CELLS, gru_layers=GRU_LAYERS, lstm_pooling="last",
+        moe_num_mixtures=MIXTURES, compute_dtype="bfloat16",
+    )
+    model = get_model("GruModel", hp)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    perturb_vectors(torch, model, gen)
+    with torch.no_grad():  # the gate biases around their initial 1
+        for name, t in model.named_parameters():
+            if name.endswith("gate_bias"):
+                t.add_(1.0)
     model.invalidate_serving()
+    return hp, model.eval()
+
+
+def make_attention_model(torch, seed: int):
+    """AttentionPoolingModel at the JAX package's defaults (8 heads over
+    all 300 frames masked by num_frames, hidden 512 with BN, MoE M=2 over
+    4716, bf16), weights from a seed, non-trivial BN statistics."""
+    from yt8m_tpu_torch.models import ModelHParams, get_model
+
+    hp = ModelHParams(
+        vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=FLAG_FRAMES,
+        attention_heads=ATTN_HEADS, attention_hidden_size=ATTN_HIDDEN,
+        moe_num_mixtures=MIXTURES, compute_dtype="bfloat16",
+    )
+    model = get_model("AttentionPoolingModel", hp)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    perturb_vectors(torch, model, gen)
     return hp, model.eval()
 
 
@@ -1288,11 +1802,22 @@ PATHS = {
                                                "lstm_recurrence",
                                                "moe_head_serving",
                                                "exact_topk")),
+    "GruModel": (make_gru_model, ("gru_recurrence", "moe_head_serving",
+                                  "exact_topk")),
+    "AttentionPoolingModel": (make_attention_model, ("attention_pool",
+                                                     "moe_head_serving",
+                                                     "exact_topk")),
 }
 
 
 def kernel_wrappers():
+    from yt8m_tpu_torch.kernels.attention_pool import attention_pool
     from yt8m_tpu_torch.kernels.dbof import dbof_cluster_maxpool_v2
+    from yt8m_tpu_torch.kernels.gru import gru_recurrence
+    from yt8m_tpu_torch.kernels.gru_train import (
+        gru_train_backward,
+        gru_train_forward,
+    )
     from yt8m_tpu_torch.kernels.lstm import lstm_recurrence
     from yt8m_tpu_torch.kernels.lstm_train import (
         lstm_train_backward,
@@ -1309,7 +1834,9 @@ def kernel_wrappers():
     return {fn.__name__: fn for fn in (
         dbof_cluster_maxpool_v2, moe_head_serving, exact_topk,
         netvlad_aggregate, lstm_recurrence, lstm_train_forward,
-        lstm_train_backward, netvlad_core_forward, netvlad_core_backward)}
+        lstm_train_backward, netvlad_core_forward, netvlad_core_backward,
+        gru_recurrence, gru_train_forward, gru_train_backward,
+        attention_pool)}
 
 
 def zero_launches():
@@ -1623,20 +2150,98 @@ def train_dbof(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def train_card_vs_cpu(torch, dev) -> None:
-    """One flagship training forward and backward on 8 videos, on the card
-    and on the CPU, from the same weights and batch (bf16): the loss and
-    each parameter's gradient norm, summed in float64 (the CPU's float32
-    norm of the VLAD hidden FC's 302 M-element gradient is off by
-    percents)."""
+def train_gru(torch, dev) -> dict:
+    """GruModel at full width trained through make_train_step (B=256 as
+    bench_train.py trains the LSTM family, bf16, Adam at the config
+    defaults): the trainable GRU kernels' path, its launch counts set to
+    0 just before the 10 steps and read just after."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_gru_model(torch, seed=0)[1].to(dev).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    state = TrainState(model, global_batch_size=TRAIN_BATCH)
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=1)
+    wrappers = zero_launches()
+    _, losses = timed_steps(torch, step, state, batch, TRAIN_STEPS)
+    launches = read_launches(torch, wrappers)
+    say("train", f"GruModel B={TRAIN_BATCH} ({n_params} parameters, bf16, "
+                 f"Adam, per-variable clip 1.0): {TRAIN_STEPS} steps on one "
+                 f"batch, losses {[round(x, 4) for x in losses]}; launches "
+                 f"{launches}, a step: "
+                 f"{launches['gru_train_forward'] // TRAIN_STEPS} forward and "
+                 f"{launches['gru_train_backward'] // TRAIN_STEPS} backward "
+                 f"step kernels")
+    check(all(math.isfinite(x) for x in losses), "GruModel loss not finite")
+    check(losses[-1] < losses[0], "GruModel loss did not fall over 10 steps")
+    want = TRAIN_STEPS * GRU_LAYERS * 2 * FLAG_FRAMES
+    for fn in ("gru_train_forward", "gru_train_backward"):
+        check(launches[fn] == want, f"{fn}: {launches[fn]} step launches, "
+                                    f"want {want}")
+    times, _ = timed_steps(torch, step, state, batch, 5)
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("train", f"GruModel B={TRAIN_BATCH} training step: median "
+                 f"{step_ms:.3f} ms of {[round(t, 3) for t in times]} -> "
+                 f"{TRAIN_BATCH / step_ms * 1e3:.0f} videos/s; peak memory "
+                 f"{peak:.2f} GiB")
+    idle = profile_window(torch, "train", "GruModel training",
+                          lambda: step(state, batch), 1)
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "idle_share": idle,
+            "peak_gib": peak}
+
+
+def train_attention(torch, dev) -> None:
+    """AttentionPoolingModel at full width, B=256: the plain training
+    graph (the JAX package trains it without its kernel), a few steps, a
+    finite loss, no attention_pool launch, the step time."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    model = make_attention_model(torch, seed=0)[1].to(dev).train()
+    state = TrainState(model, global_batch_size=TRAIN_BATCH)
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=2)
+    wrappers = zero_launches()
+    timed_steps(torch, step, state, batch, 2)
+    times, losses = timed_steps(torch, step, state, batch, 5)
+    launches = read_launches(torch, wrappers)
+    check(all(math.isfinite(x) for x in losses),
+          "AttentionPoolingModel loss not finite")
+    check(launches["attention_pool"] == 0,
+          "AttentionPoolingModel training launched the serving kernel")
+    step_ms = statistics.median(times)
+    say("train", f"AttentionPoolingModel B={TRAIN_BATCH} training step "
+                 f"(plain graph): median {step_ms:.3f} ms of "
+                 f"{[round(t, 3) for t in times]} -> "
+                 f"{TRAIN_BATCH / step_ms * 1e3:.0f} videos/s; losses "
+                 f"{[round(x, 4) for x in losses]}")
+    del state, model, batch
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(torch, dev, make=None, name="flagship") -> None:
+    """One training forward and backward of `make`'s model (the flagship
+    by default) on 8 videos, on the card and on the CPU, from the same
+    weights and batch (bf16): the loss and each parameter's gradient
+    norm, summed in float64 (the CPU's float32 norm of the VLAD hidden
+    FC's 302 M-element gradient is off by percents)."""
     from yt8m_tpu_torch.train.losses import get_loss
     from yt8m_tpu_torch.train.step import compute_loss
 
+    make = make or make_flagship_model
     batch = {k: v.cpu() for k, v in train_batch(torch, dev, 8, seed=4).items()}
     batch["num_frames"][:3] = torch.tensor([300, 1, 57], dtype=torch.int32)
     results = []
     for d in (dev, torch.device("cpu")):
-        model = make_flagship_model(torch, seed=0)[1].to(d).train()
+        model = make(torch, seed=0)[1].to(d).train()
         total, _, _, _ = compute_loss(
             model, {k: v.to(d) for k, v in batch.items()},
             get_loss("CrossEntropyLoss"))
@@ -1647,15 +2252,16 @@ def train_card_vs_cpu(torch, dev) -> None:
         del model
     (gpu_loss, gpu), (cpu_loss, cpu) = results
     loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    check(loss_err <= 2e-3, f"training loss card {gpu_loss} vs CPU {cpu_loss}")
+    check(loss_err <= 2e-3, f"{name} training loss card {gpu_loss} vs CPU "
+                            f"{cpu_loss}")
     worst, worst_name = 0.0, ""
     for n, v in cpu.items():
         e = abs(gpu[n] - v) / max(v, 1e-6)
-        check(e <= 2e-2, f"gradient norm of {n}: card {gpu[n]:.6e} vs CPU "
-                         f"{v:.6e}")
+        check(e <= 2e-2, f"{name} gradient norm of {n}: card {gpu[n]:.6e} "
+                         f"vs CPU {v:.6e}")
         if e > worst:
             worst, worst_name = e, n
-    say("train", f"one flagship training step, 8 videos, card vs CPU: loss "
+    say("train", f"one {name} training step, 8 videos, card vs CPU: loss "
                  f"{gpu_loss:.6f} vs {cpu_loss:.6f} ({loss_err:.2e} "
                  f"relative, bound 2e-3); gradient norms of {len(cpu)} "
                  f"parameters within {worst:.2e} relative ({worst_name}; "
@@ -1667,8 +2273,8 @@ def train_card_vs_cpu(torch, dev) -> None:
 # phase 7: the reference workflow through the port's CLIs
 # ---------------------------------------------------------------------------
 
-WF_TRAIN_VIDEOS = 512
-WF_EVAL_VIDEOS = 256
+WF_TRAIN_VIDEOS = 256
+WF_EVAL_VIDEOS = 128
 
 
 class LogLines(logging.Handler):
@@ -1714,16 +2320,10 @@ def eval_loss_card_vs_cpu(torch, dev, run, data) -> float:
     return err
 
 
-def cli_workflow(torch, dev, work) -> dict:
-    """train -> resume -> eval -> inference through the port's CLIs with
-    the flagship at full width and --netvlad_fused_train, on synthetic
-    frame-level TFRecords (lengths 30-300); launch counts set to 0 before
-    each CLI and read after it."""
-    from yt8m_tpu_torch.cli import eval as eval_cli
-    from yt8m_tpu_torch.cli import inference as inference_cli
-    from yt8m_tpu_torch.cli import train as train_cli
+def workflow_data(work) -> str:
+    """Synthetic frame-level TFRecords for the workflows (lengths 30-300):
+    WF_TRAIN_VIDEOS train and WF_EVAL_VIDEOS eval videos under `work`."""
     from yt8m_tpu_torch.data.synthetic import write_dataset
-    from yt8m_tpu_torch.train.checkpoint import dir_bytes, step_dirs
 
     data = os.path.join(work, "workflow_data")
     t0 = time.perf_counter()
@@ -1737,6 +2337,19 @@ def cli_workflow(torch, dev, work) -> dict:
     say("workflow", f"wrote {WF_TRAIN_VIDEOS} train and {WF_EVAL_VIDEOS} "
                     f"eval videos in {time.perf_counter() - t0:.1f} s; "
                     f"{free:.1f} GiB free on the build disk")
+    return data
+
+
+def cli_workflow(torch, dev, work, data) -> dict:
+    """train -> resume -> eval -> inference through the port's CLIs with
+    the flagship at full width and --netvlad_fused_train, on the
+    workflow's TFRecords under `data`; launch counts set to 0 before each
+    CLI and read after it."""
+    from yt8m_tpu_torch.cli import eval as eval_cli
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.train.checkpoint import dir_bytes, step_dirs
+
     run = os.path.join(work, "workflow_run")
     reader = ["--frame_features=true", "--feature_names=rgb,audio",
               "--feature_sizes=1024,128", f"--num_classes={CLASSES}",
@@ -1840,10 +2453,96 @@ def cli_workflow(torch, dev, work) -> dict:
     finally:
         logger.removeHandler(logs)
         shutil.rmtree(run, ignore_errors=True)
-        shutil.rmtree(data, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"launches": launches, "checkpoint_gb": size,
             "save_s": [t for _, t in saves], "restore_s": restores}
+
+
+def gru_workflow(torch, dev, work, data) -> dict:
+    """train -> eval -> inference through the port's CLIs with GruModel at
+    full width (2 steps at B=256, a checkpoint at step 2) on the
+    workflow's TFRecords under `data`; launch counts set to 0 before each
+    CLI and read after it."""
+    from yt8m_tpu_torch.cli import eval as eval_cli
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.train.checkpoint import dir_bytes, step_dirs
+
+    run = os.path.join(work, "gru_run")
+    reader = ["--frame_features=true", "--feature_names=rgb,audio",
+              "--feature_sizes=1024,128", f"--num_classes={CLASSES}",
+              f"--device={dev.type}"]
+    launches = {}
+    try:
+        wrappers = zero_launches()
+        t0 = time.perf_counter()
+        last = train_cli.main([
+            f"--train_data_pattern={data}/train-*.tfrecord",
+            f"--train_dir={run}", f"--batch_size={TRAIN_BATCH}",
+            "--max_steps=2", "--save_checkpoint_every_n_steps=2",
+            "--max_checkpoints_to_keep=1", "--log_every_n_steps=1",
+            "--model=GruModel", f"--gru_cells={GRU_CELLS}",
+            f"--gru_layers={GRU_LAYERS}", f"--moe_num_mixtures={MIXTURES}",
+            "--compute_dtype=bfloat16"] + reader)
+        launches["train"] = read_launches(torch, wrappers)
+        train_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        size = dir_bytes(os.path.join(run, "2")) / 1e9
+        say("workflow", f"GruModel cli.train --max_steps=2: at step {last} in "
+                        f"{train_s:.1f} s; checkpoint {size:.3f} GB; "
+                        f"launches {launches['train']}")
+        check(last == 2 and step_dirs(run) == [2],
+              f"GruModel cli.train: step {last}, checkpoints "
+              f"{step_dirs(run)}")
+        want = 2 * GRU_LAYERS * 2 * FLAG_FRAMES
+        for fn in ("gru_train_forward", "gru_train_backward"):
+            check(launches["train"][fn] == want,
+                  f"GruModel cli.train: {fn} launched "
+                  f"{launches['train'][fn]} times, want {want}")
+
+        wrappers = zero_launches()
+        out_eval = eval_cli.main([
+            f"--eval_data_pattern={data}/validate-*.tfrecord",
+            f"--train_dir={run}", "--run_once", f"--batch_size={E2E_BATCH}",
+            f"--device={dev.type}"])
+        launches["eval"] = read_launches(torch, wrappers)
+        mean_ap = float(sum(out_eval["aps"]) / len(out_eval["aps"]))
+        say("workflow", f"GruModel cli.eval: step {out_eval['step']}, GAP "
+                        f"{out_eval['gap']:.5f}, Hit@1 "
+                        f"{out_eval['avg_hit_at_one']:.5f}, mAP "
+                        f"{mean_ap:.5f}, {out_eval['videos_per_sec']:.1f} "
+                        f"videos/s; launches {launches['eval']}")
+        check(out_eval["step"] == 2 and out_eval["nonfinite_predictions"] == 0,
+              "GruModel cli.eval: step or non-finite predictions")
+        for key, value in (("GAP", out_eval["gap"]), ("mAP", mean_ap),
+                           ("Hit@1", out_eval["avg_hit_at_one"])):
+            check(math.isfinite(value) and 0.0 <= value <= 1.0,
+                  f"GruModel cli.eval {key} = {value}")
+        for fn in ("exact_topk", "gru_recurrence", "moe_head_serving"):
+            check(launches["eval"][fn] > 0,
+                  f"GruModel cli.eval did not launch {fn}")
+
+        wrappers = zero_launches()
+        out_csv = os.path.join(work, "gru_workflow.csv")
+        stats = inference_cli.main([
+            f"--input_data_pattern={data}/validate-*.tfrecord",
+            f"--train_dir={run}", f"--output_file={out_csv}",
+            f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
+            f"--device={dev.type}"])
+        launches["inference"] = read_launches(torch, wrappers)
+        check(stats["nonfinite_predictions"] == 0
+              and check_csv(out_csv) == WF_EVAL_VIDEOS
+              and launches["inference"]["gru_recurrence"] > 0,
+              "GruModel cli.inference: CSV, non-finite predictions or no "
+              "gru_recurrence launch")
+        say("workflow", f"GruModel cli.inference: {stats['num_videos']} "
+                        f"videos, {stats['videos_per_sec']:.1f} videos/s, CSV"
+                        f" ok; launches {launches['inference']}")
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "train_s": train_s, "checkpoint_gb": size}
 
 
 def main() -> int:
@@ -1877,7 +2576,8 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for fn in (check_dbof, check_moe, check_topk, check_netvlad, check_lstm,
-               check_lstm_train, check_netvlad_core):
+               check_lstm_train, check_netvlad_core, check_gru,
+               check_gru_train, check_attention_pool):
         row = fn(torch, gen, dev, flush)
         say_row("(kernels line)", row)
         rows.append(row)
@@ -1903,6 +2603,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_step(torch, dev, "DbofModel", BATCH)
     profile_step(torch, dev, "NetVladLstmModel", FLAG_BATCH)
+    profile_step(torch, dev, "GruModel", FLAG_BATCH)
+    profile_step(torch, dev, "AttentionPoolingModel", FLAG_BATCH)
     training = train_flagship(torch, dev)
     fused = train_flagship(torch, dev, fused=True)
     say("train", f"NetVladLstmModel B={TRAIN_BATCH} training step in one "
@@ -1912,21 +2614,34 @@ def main() -> int:
                  f"GiB")
     train_dbof(torch, dev)
     train_card_vs_cpu(torch, dev)
+    gru_training = train_gru(torch, dev)
+    train_card_vs_cpu(torch, dev, make_gru_model, "GruModel")
+    train_attention(torch, dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_workflow_",
                             dir=os.path.join(REPO, "build"))
     try:
-        workflow = cli_workflow(torch, dev, work)
+        data = workflow_data(work)
+        workflow = cli_workflow(torch, dev, work, data)
+        gru_workflow(torch, dev, work, data)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # Launches on the main paths: DBoF's on the DbofModel serving path, the
-    # trainable LSTM's (forward and backward step kernels) on the
-    # flagship's training path, netvlad_core's on the train CLI's two runs
-    # of the workflow (2 + 2 steps), the others on the flagship's serving
-    # path, whose shapes their rows were measured at.
+    # Launches on the main paths: DBoF's on the DbofModel serving path,
+    # the GRU's and attention pooling's on GruModel's and
+    # AttentionPoolingModel's serving paths, the trainable LSTM's and
+    # GRU's (forward and backward step kernels) on the flagship's and
+    # GruModel's training paths, netvlad_core's on the train CLI's two
+    # runs of the workflow (2 + 2 steps), the others on the flagship's
+    # serving path, whose shapes their rows were measured at.
+    serving_path = {"dbof_cluster_maxpool_v2": "DbofModel",
+                    "gru_recurrence": "GruModel",
+                    "attention_pool": "AttentionPoolingModel"}
+    trained = {"lstm_recurrence_trainable": (training, "lstm_train"),
+               "gru_recurrence_trainable": (gru_training, "gru_train")}
     for row in rows:
-        if row["name"] == "lstm_recurrence_trainable":
-            fwd = training["launches"]["lstm_train_forward"]
-            bwd = training["launches"]["lstm_train_backward"]
+        if row["name"] in trained:
+            run, prefix = trained[row["name"]]
+            fwd = run["launches"][f"{prefix}_forward"]
+            bwd = run["launches"][f"{prefix}_backward"]
             row.update(launches=fwd + bwd, launches_forward=fwd,
                        launches_backward=bwd)
             continue
@@ -1938,15 +2653,15 @@ def main() -> int:
             row.update(launches=fwd + bwd, launches_forward=fwd,
                        launches_backward=bwd)
             continue
-        path = ("DbofModel" if row["name"] == "dbof_cluster_maxpool_v2"
-                else "NetVladLstmModel")
+        path = serving_path.get(row["name"], "NetVladLstmModel")
         row["launches"] = e2e[path]["launches"][row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_forward", "launches_backward", "ms_forward",
              "ms_backward", "us_per_step_forward", "us_per_step_backward",
              "ms_backward_with_dx", "device_ms_forward",
-             "device_ms_backward")
+             "device_ms_backward", "us_per_step", "ms_events",
+             "ms_events_f32")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}),
         flush=True)

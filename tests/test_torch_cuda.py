@@ -35,6 +35,16 @@ only through the 1e-3 remainder. A training step on the card and on the
 CPU from the same weights and batch: loss within 2e-3 relative, each
 parameter's gradient norm within 2e-2 relative (the LSTM bound: the
 recurrence carries one-step bf16 rounding differences).
+The GRU, serving and trainable, has the LSTM's bound for the same cause
+(it rounds h and r * h before its two products, and dA before the
+backward's); its witness runs the serving kernel one step at a time and
+feeds the plain cell the kernel's own state: u and the f32 h meet 1e-3 *
+max|ref| + 1e-6, bf16(r * h) and the outputs differ only at bf16
+rounding boundaries, and so do the trainable forward's residuals and the
+backward's dA on their streams. Attention pooling: max|diff| <= 1e-3 *
+max|ref| + 1e-5 (x, Q and the attention are rounded to bf16 on both
+sides; the softmax's f32 sums run in another order); frames past
+num_frames change nothing; num_frames = 0 is the mean over the F rows.
 """
 
 import numpy as np
@@ -45,7 +55,10 @@ from yt8m_tpu_torch.cli import inference as cli
 from yt8m_tpu_torch.convert import load_model, save_checkpoint
 from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
 from yt8m_tpu_torch.data.synthetic import write_dataset
+from yt8m_tpu_torch.kernels import attention_pool as tap
 from yt8m_tpu_torch.kernels import dbof as tdbof
+from yt8m_tpu_torch.kernels import gru as tgru
+from yt8m_tpu_torch.kernels import gru_train as tgt
 from yt8m_tpu_torch.kernels import lstm as tlstm
 from yt8m_tpu_torch.kernels import lstm_train as tlt
 from yt8m_tpu_torch.kernels import moe_head as tmoe
@@ -741,3 +754,231 @@ def test_cuda_dbof_trainer_resumes_and_evaluates(cuda, tmp_path):
     assert ttopk.exact_topk.launches > before
     assert out["step"] == 3 and out["nonfinite_predictions"] == 0
     assert 0 <= out["gap"] <= 1 and np.isfinite(out["avg_loss"])
+
+
+# ---------------------------------------------------------------------------
+# The GRU recurrence, serving and trainable.
+# ---------------------------------------------------------------------------
+
+
+def _gru_args(seed, f, b, h, dev):
+    g = torch.Generator().manual_seed(seed)
+    xg = (0.5 * torch.randn(f, b, 2 * h, generator=g)).to(torch.bfloat16)
+    xc = (0.5 * torch.randn(f, b, h, generator=g)).to(torch.bfloat16)
+    nf = torch.randint(1, f + 1, (b,), generator=g, dtype=torch.int32)
+    nf[0] = f
+    if b > 2:
+        nf[1] = 0
+        nf[2] = 1
+    whg = (torch.randn(h, 2 * h, generator=g) * h ** -0.5).to(torch.bfloat16)
+    whc = (torch.randn(h, h, generator=g) * h ** -0.5).to(torch.bfloat16)
+    bg = 1.0 + 0.1 * torch.randn(2 * h, generator=g)
+    bc = 0.1 * torch.randn(h, generator=g)
+    return [t.to(dev) for t in (xg, xc, nf, whg, whc, bg, bc)]
+
+
+def _gru_hazard(args, reverse):
+    """(clean, loud) args: xg and xc zero, or +-1e4, past num_frames."""
+    xg, xc, nf = args[:3]
+    f = xg.shape[0]
+    past = torch.arange(f, device=xg.device)[:, None] >= nf[None, :]
+    if reverse:
+        past = past.flip(0)
+    out = []
+    for fill in (None, 1e4):
+        ts = []
+        for x in (xg, xc):
+            if fill is None:
+                ts.append(x.masked_fill(past[..., None], 0))
+            else:
+                sign = torch.where(torch.arange(x.shape[2], device=x.device)
+                                   % 2 == 0, fill, -fill).to(x.dtype)
+                ts.append(torch.where(past[..., None], sign, x))
+        out.append(ts + list(args[2:]))
+    return out, past
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+@pytest.mark.parametrize("f,b,h", [(13, 5, 64), (40, 130, 192),
+                                   (300, 512, 1024), (1, 1, 64), (9, 7, 96)])
+def test_cuda_gru_matches_plain(cuda, reverse, f, b, h):
+    args = _gru_args(f + b + h, f, b, h, cuda)
+    before = tgru.gru_recurrence.launches
+    outs, hs = tgru.gru_recurrence(*args, reverse=reverse)
+    assert tgru.gru_recurrence.launches == before + 2 * f
+    w_outs, w_h = tgru.gru_recurrence_plain(*args, reverse=reverse)
+    _lstm_close(outs, w_outs)
+    _lstm_close(hs, w_h)
+    if b > 2:
+        assert torch.all(outs[:, 1] == 0) and torch.all(hs[1] == 0)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+def test_cuda_gru_frozen_carry_ignores_steps_past_num_frames(cuda, reverse):
+    (clean, loud), _ = _gru_hazard(_gru_args(3, 300, 64, 1024, cuda),
+                                   reverse)
+    a = tgru.gru_recurrence(*clean, reverse=reverse)
+    b = tgru.gru_recurrence(*loud, reverse=reverse)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_cuda_gru_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    xg, xc, nf, whg, whc, bg, bc = _gru_args(0, 4, 3, 64, cuda)
+    with pytest.raises(ValueError):  # f32 xg: the kernel takes bf16
+        tgru.gru_recurrence(xg.float(), xc, nf, whg, whc, bg, bc)
+    with pytest.raises(ValueError):  # int64 frame counts
+        tgru.gru_recurrence(xg, xc, nf.long(), whg, whc, bg, bc)
+    with pytest.raises(ValueError):  # xc of the wrong width
+        tgru.gru_recurrence(xg, xc[..., :32], nf, whg, whc, bg, bc)
+    with pytest.raises(ValueError):  # frames are uint8 or f32
+        tap.attention_pool(torch.zeros(2, 3, 8, device=cuda,
+                                       dtype=torch.float16),
+                           nf[:2], torch.zeros(8, 4, device=cuda))
+
+
+def _gru_train_grads(args, cot, reverse):
+    xg, xc, nf, whg, whc, bg, bc = args
+    params = [x.clone().requires_grad_() for x in (xg, xc)]
+    params += [w.float().requires_grad_() for w in (whg, whc)]
+    params += [b_.clone().requires_grad_() for b_ in (bg, bc)]
+    outs, fh = tgt.gru_recurrence_trainable(params[0], params[1], nf,
+                                            *params[2:], reverse)
+    dout, dfh = cot
+    ((outs * dout).sum() + (fh * dfh).sum()).backward()
+    return [outs, fh] + [p.grad for p in params]
+
+
+def _gru_plain_grads(args, cot, reverse):
+    """The plain forward, backward and weight gradients on the same
+    device: (outs, h, dxg, dxc, dW_hg, dW_hc, dbg, dbc)."""
+    xg, xc, nf, whg, whc, bg, bc = args
+    outs, gates, cand, h = tgt.gru_train_forward_plain(*args, reverse)
+    dag, dac = tgt.gru_train_backward_plain(*cot, gates, cand, outs, nf,
+                                            whg, whc, reverse)
+    return [outs.float(), h, dag.float(), dac.float(),
+            *tgt.weight_grads(outs, gates, dag, dac)]
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+@pytest.mark.parametrize("f,b,h", [(13, 5, 64), (40, 130, 192),
+                                   (300, 256, 1024), (7, 9, 96)])
+def test_cuda_gru_trainable_matches_plain(cuda, reverse, f, b, h):
+    """Forward, residuals, dA_g and dA_c against the plain versions on the
+    same inputs; the Function's outputs and gradients against the plain
+    forward, backward and weight gradients."""
+    args = _gru_args(f + b + h, f, b, h, cuda)
+    g = torch.Generator().manual_seed(h)
+    cot = [torch.randn(f, b, h, generator=g).to(cuda),
+           torch.randn(b, h, generator=g).to(cuda)]
+    if h % 64 == 0:
+        got = tgt.gru_train_forward(*args, reverse)
+        want = tgt.gru_train_forward_plain(*args, reverse)
+        for x, y in zip(got, want):
+            _lstm_close(x.float(), y.float())
+        outs, gates, cand = got[:3]
+        bwd = (*cot, gates, cand, outs, args[2], args[3], args[4], reverse)
+        for x, y in zip(tgt.gru_train_backward(*bwd),
+                        tgt.gru_train_backward_plain(*bwd)):
+            _lstm_close(x.float(), y.float())
+    launches = (tgt.gru_train_forward.launches,
+                tgt.gru_train_backward.launches)
+    got = _gru_train_grads(args, cot, reverse)
+    assert tgt.gru_train_forward.launches == launches[0] + 2 * f
+    assert tgt.gru_train_backward.launches == launches[1] + 2 * f
+    want = _gru_plain_grads(args, cot, reverse)
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all()
+        _lstm_close(x, y)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+def test_cuda_gru_trainable_frozen_steps(cuda, reverse):
+    """+-1e4 in xg and xc past num_frames: outputs and every gradient bit
+    for bit those of zeros there; dA exactly 0 on frozen steps."""
+    args = _gru_args(5, 60, 130, 128, cuda)
+    (clean, loud), past = _gru_hazard(args, reverse)
+    g = torch.Generator().manual_seed(6)
+    cot = [torch.randn(60, 130, 128, generator=g).to(cuda),
+           torch.randn(130, 128, generator=g).to(cuda)]
+    a = _gru_train_grads(clean, cot, reverse)
+    b = _gru_train_grads(loud, cot, reverse)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.all(b[2][past] == 0) and torch.all(b[3][past] == 0)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+def test_cuda_gru_differs_only_by_bf16_rounding(cuda, reverse):
+    """Why the GRU bound is 2e-2 and not 1e-3: step by step from the
+    kernel's own state, u and the f32 h meet 1e-3 * max|ref| + 1e-6 and
+    bf16(r * h) and the outputs differ from the plain cell only at bf16
+    rounding boundaries; so do the trainable forward's gates and
+    candidate and the backward's dA on their own streams."""
+    args = _gru_args(21, 300, 256, 1024, cuda)
+    xg, xc, nf, whg, whc, bg, bc = args
+    kern, plain = tgt.forward_steps_on_card(*args, reverse)
+    _close(kern["u"], plain["u"], rel=1e-3)
+    _close(kern["h"], plain["h"], rel=1e-3)
+    _witness_holds(kern["rh"], plain["rh"])
+    _witness_holds(kern["out"], plain["h"])
+    outs, gates, cand, h = tgt.gru_train_forward(*args, reverse)
+    assert torch.equal(outs, kern["out"]) and torch.equal(h, kern["h"][-1])
+    gp, cp = tgt.residuals_on_stream(outs, kern["rh"], xg, xc, whg, whc, bg,
+                                     bc)
+    _witness_holds(gates, gp)
+    _witness_holds(cand, cp)
+    g = torch.Generator().manual_seed(22)
+    cot = [torch.randn(300, 256, 1024, generator=g).to(cuda),
+           torch.randn(256, 1024, generator=g).to(cuda)]
+    dag, dac = tgt.gru_train_backward(*cot, gates, cand, outs, nf, whg, whc,
+                                      reverse)
+    sg, sc = tgt.backward_on_stream(dag, dac, *cot, gates, cand, outs, nf,
+                                    whg, whc, reverse)
+    _witness_holds(dag, sg)
+    _witness_holds(dac, sc)
+
+
+# ---------------------------------------------------------------------------
+# Attention pooling.
+# ---------------------------------------------------------------------------
+
+
+def _attention_args(seed, b, f, d, h, x_dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+    if x_dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, f, d), generator=g, dtype=torch.uint8)
+    else:
+        x = torch.randn(b, f, d, generator=g)
+    nf = torch.randint(1, f + 1, (b,), generator=g, dtype=torch.int32)
+    nf[0] = f
+    if b > 2:
+        nf[1] = 0
+        nf[2] = 1
+    q = torch.randn(d, h, generator=g) * d ** -0.5
+    return [t.to(dev) for t in (x, nf, q)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,f,d,h", [(5, 13, 32, 4), (7, 300, 1152, 8),
+                                     (3, 70, 1001, 3), (4, 20, 64, 19),
+                                     (2, 1, 8, 1)])
+def test_cuda_attention_pool_matches_plain(cuda, x_dtype, b, f, d, h):
+    args = _attention_args(b + f + d + h, b, f, d, h, x_dtype, cuda)
+    before = tap.attention_pool.launches
+    got = tap.attention_pool(*args)
+    assert tap.attention_pool.launches == before + (2 if h > 16 else 1)
+    assert got.shape == (b, h, d)
+    _close(got, tap.attention_pool_plain(*args), rel=1e-3)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_attention_pool_ignores_frames_past_num_frames(cuda, x_dtype):
+    x, nf, q = _attention_args(3, 64, 300, 1152, 8, x_dtype, cuda)
+    nf[1] = 7  # every video has a frame here
+    past = torch.arange(300, device=cuda)[None, :] >= nf[:, None]
+    loud = 255 if x_dtype == torch.uint8 else 1e4
+    clean = x.masked_fill(past[..., None], 0)
+    noisy = torch.where(past[..., None],
+                        torch.as_tensor(loud, dtype=x.dtype, device=cuda), x)
+    assert torch.equal(tap.attention_pool(clean, nf, q),
+                       tap.attention_pool(noisy, nf, q))

@@ -1,0 +1,110 @@
+"""Masked attention pooling for the serving path.
+
+Replaces yt8m_tpu/kernels/attention_pool.py :: attention_pool. Per
+video, with x the frames (uint8 dequantized as u * 4/255 + (4/512 - 2),
+float32 as they are):
+
+    scores = round(x) @ round(Q)                 [F, H]  (f32 sums)
+    scores = -1e9 where t >= num_frames
+    attn   = softmax over t of scores            (f32)
+    pooled = round(attn)^T @ round(x)            [H, D]  (f32 sums)
+
+`round` is the cast to bf16. A video with num_frames = 0 takes the mean
+over its F rows (every score -1e9, a uniform softmax), as the JAX
+package's attention_pool_reference and its model's graph do; its TPU
+kernel pads F to a multiple of 8 and averages the padded rows as well.
+
+The CUDA kernel (csrc/attention_pool.cu) is bound by the bytes of the
+frames: a block a video, two passes over its live frames (the scores
+and the softmax, then the pooling). `attention_pool.launches` counts its
+launches. D that is no multiple of 4 is padded with zero columns of Q
+(the scores do not change; the padded output columns are dropped). H
+is padded to 1, 2, 4, 8 or 16 heads with zero columns of Q, and more
+than 16 heads run 16 at a time: heads are independent.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from yt8m_tpu_torch.data.quantize import dequantize
+from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels._checks import (
+    on_cpu,
+    require,
+    require_cuda_operand,
+)
+
+MAX_HEADS = 16  # heads a launch; H is padded to a power of two up to it
+SMEM_LIMIT = 232448
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def attention_pool_plain(frames, num_frames, query):
+    """Plain PyTorch version with the kernel's rounding points (those of
+    the JAX package's attention_pool_reference): [B, H, D] f32."""
+    x = frames.to(torch.float32)
+    if frames.dtype == torch.uint8:
+        x = dequantize(x)
+    xb = _bf(x)
+    scores = torch.matmul(xb, _bf(query))  # [B, F, H]
+    f = frames.shape[1]
+    live = (torch.arange(f, device=frames.device)[None, :]
+            < num_frames.to(torch.int64)[:, None])
+    scores = torch.where(live[:, :, None], scores, -1e9)
+    attn = torch.softmax(scores, dim=1)
+    return torch.matmul(_bf(attn).transpose(1, 2), xb)
+
+
+def _heads_padded(h: int) -> int:
+    p = 1
+    while p < h:
+        p *= 2
+    return p
+
+
+def attention_pool(frames, num_frames, query):
+    """[B, H, D] f32: the CUDA kernel for CUDA tensors (frames uint8 or
+    float32 [B, F, D], num_frames int32 [B], query [D, H] float), the
+    plain version for CPU tensors."""
+    require(frames.dim() == 3, f"frames must be [B, F, D], got "
+            f"{tuple(frames.shape)}")
+    b, f, d = frames.shape
+    require(query.dim() == 2 and query.shape[0] == d,
+            f"query must be [{d}, H], got {tuple(query.shape)}")
+    h = query.shape[1]
+    if on_cpu(frames, num_frames, query):
+        return attention_pool_plain(frames, num_frames, query)
+    require(frames.dtype in (torch.uint8, torch.float32),
+            f"frames: dtype {frames.dtype}, want uint8 or float32")
+    if d % 4:
+        frames = torch.nn.functional.pad(frames, (0, 4 - d % 4))
+        query = torch.nn.functional.pad(query, (0, 0, 0, 4 - d % 4))
+        return attention_pool(frames, num_frames, query)[..., :d].contiguous()
+    if h > MAX_HEADS:
+        return torch.cat([attention_pool(frames, num_frames, q) for q in
+                          torch.split(query, MAX_HEADS, dim=1)], dim=1)
+    hp = _heads_padded(h)
+    q = torch.nn.functional.pad(query, (0, hp - h)).to(
+        torch.bfloat16).contiguous()
+    require(f >= 1, "F must be at least 1")
+    require((hp * d + f * hp) * 4 <= SMEM_LIMIT,
+            f"F={f} and D={d} do not fit the kernel's shared memory")
+    require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
+    require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
+    out = torch.empty((b, hp, d), dtype=torch.float32, device=frames.device)
+    entry = (_build.library().yt8m_attention_pool_u8
+             if frames.dtype == torch.uint8
+             else _build.library().yt8m_attention_pool_f32)
+    code = entry(_build.ptr(frames), _build.ptr(num_frames), _build.ptr(q),
+                 _build.ptr(out), b, f, d, hp,
+                 _build.current_stream(frames.device))
+    _build.check_launch("attention_pool", code)
+    attention_pool.launches += 1
+    return out[:, :h] if hp != h else out
+
+
+attention_pool.launches = 0

@@ -1,20 +1,25 @@
-"""Stacked LSTM, uni- and bidirectional (reference: the JAX package's
-models/rnn.py :: _LstmLayer, _run_rnn, LstmModel, BiLstmModel).
+"""Stacked LSTM and GRU, uni- and bidirectional (reference: the JAX
+package's models/rnn.py :: _LstmLayer, _GruLayer, _run_rnn, LstmModel,
+BiLstmModel, GruModel, BiGruModel).
 
 dynamic_rnn(sequence_length) semantics: for t >= num_frames the carry
 passes through unchanged, so the final state is the state at the last
 real frame; the backward direction runs reversed time with the same
 freeze, so its final state has consumed exactly the valid prefix. Cells
-are TF1 BasicLSTMCell (gate order i, j, f, o; forget bias 1.0).
+are TF1 BasicLSTMCell (gate order i, j, f, o; forget bias 1.0) and TF1
+GRUCell (gates r, u with bias 1.0 in the parameters; the candidate reads
+r * h).
 
 Dispatch follows the JAX package: at compute dtype bf16 a layer runs a
-recurrence kernel after one bf16 input projection X @ W_x, the serving
-one (kernels/lstm.py) in eval mode and the trainable one
-(kernels/lstm_train.py, a torch.autograd.Function whose backward is a
-kernel too) in training, each the CUDA kernel on the card and its plain
-version on the CPU; at float32 it runs the scan graph, concat([x, h]) @
-kernel per step in float32, under autograd in training (the CUDA kernels
-are bf16, so float32 runs on the CPU only).
+recurrence kernel after its bf16 input projections (X @ W_x for the
+LSTM; X @ W_xg and X @ W_xc for the GRU), the serving one
+(kernels/lstm.py, kernels/gru.py) in eval mode and the trainable one
+(kernels/lstm_train.py, kernels/gru_train.py, torch.autograd.Functions
+whose backward is a kernel too) in training, each the CUDA kernel on the
+card and its plain version on the CPU; at float32 it runs the scan
+graph, concat([x, h]) @ kernel per step in float32 (the GRU's candidate
+concat([x, r * h]) @ candidate_kernel), under autograd in training (the
+CUDA kernels are bf16, so float32 runs on the CPU only).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from yt8m_tpu_torch.kernels.gru import gru_recurrence
+from yt8m_tpu_torch.kernels.gru_train import gru_recurrence_trainable
 from yt8m_tpu_torch.kernels.lstm import lstm_recurrence
 from yt8m_tpu_torch.kernels.lstm_train import lstm_recurrence_trainable
 from yt8m_tpu_torch.models.frame_utils import (
@@ -138,10 +145,121 @@ def add_lstm_stack(model: nn.Module, in_features: int, hidden: int,
     return hidden * len(tags)
 
 
+class GruLayer(ServingModule):
+    """One GRU layer: `gate_kernel` [D+H, 2H] (r and u columns),
+    `gate_bias` [2H], `candidate_kernel` [D+H, H] and `candidate_bias`
+    [H], as the JAX layer holds them (rows :D act on x, D: on h)."""
+
+    def __init__(self, in_features: int, hidden: int, dtype=torch.float32,
+                 reverse: bool = False):
+        super().__init__()
+        self.in_features = in_features
+        self.hidden = hidden
+        self.dtype = dtype
+        self.reverse = reverse
+        self.gate_kernel = nn.Parameter(torch.empty(in_features + hidden,
+                                                    2 * hidden))
+        self.gate_bias = nn.Parameter(torch.ones(2 * hidden))
+        self.candidate_kernel = nn.Parameter(torch.empty(in_features + hidden,
+                                                         hidden))
+        self.candidate_bias = nn.Parameter(torch.zeros(hidden))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """glorot_uniform kernels, gate bias 1 and candidate bias 0, as the
+        JAX layer."""
+        with torch.no_grad():
+            for w in (self.gate_kernel, self.candidate_kernel):
+                limit = (6.0 / sum(w.shape)) ** 0.5
+                w.uniform_(-limit, limit, generator=generator)
+            self.gate_bias.fill_(1.0)
+            self.candidate_bias.zero_()
+        self._serving = None
+
+    def make_serving_constants(self) -> dict:
+        d = self.in_features
+        return {name: w.to(torch.bfloat16).contiguous() for name, w in (
+            ("wxg", self.gate_kernel[:d]), ("whg", self.gate_kernel[d:]),
+            ("wxc", self.candidate_kernel[:d]),
+            ("whc", self.candidate_kernel[d:]))}
+
+    def forward(self, xs, num_frames):
+        """xs [F, B, D] float, time-major -> (outputs [F, B, H] f32,
+        (final_h, final_h) [B, H] f32)."""
+        if self.dtype == torch.bfloat16:
+            outputs, h = self._recurrence(xs, num_frames)
+        else:
+            outputs, h = self._scan(xs, num_frames)
+        return outputs, (h, h)
+
+    def _recurrence(self, xs, num_frames):
+        d = self.in_features
+        nf = num_frames.to(torch.int32).contiguous()
+        xb = xs.to(torch.bfloat16)
+        if self.training:
+            # Gradients reach the kernels' rows :D through the
+            # projections, their rows D: and the biases through the
+            # trainable recurrence.
+            xg = torch.matmul(xb, self.gate_kernel[:d].to(torch.bfloat16))
+            xc = torch.matmul(xb, self.candidate_kernel[:d].to(
+                torch.bfloat16))
+            if self.reverse:
+                xg, xc = torch.flip(xg, dims=(0,)), torch.flip(xc, dims=(0,))
+            outputs, h = gru_recurrence_trainable(
+                xg.contiguous(), xc.contiguous(), nf, self.gate_kernel[d:],
+                self.candidate_kernel[d:], self.gate_bias,
+                self.candidate_bias, reverse=self.reverse)
+        else:
+            c = self.serving_constants()
+            xg = torch.matmul(xb, c["wxg"])  # [F, B, 2H]
+            xc = torch.matmul(xb, c["wxc"])  # [F, B, H]
+            if self.reverse:
+                xg, xc = torch.flip(xg, dims=(0,)), torch.flip(xc, dims=(0,))
+            outputs, h = gru_recurrence(
+                xg.contiguous(), xc.contiguous(), nf, c["whg"], c["whc"],
+                self.gate_bias.detach(), self.candidate_bias.detach(),
+                reverse=self.reverse)
+        if self.reverse:
+            outputs = torch.flip(outputs, dims=(0,))
+        return outputs, h
+
+    def _scan(self, xs, num_frames):
+        """The JAX layer's scan graph at float32."""
+        f, b, _ = xs.shape
+        nf = num_frames.to(torch.int64)[:, None]
+        h = torch.zeros((b, self.hidden), dtype=torch.float32,
+                        device=xs.device)
+        outputs = [None] * f
+        for t in (reversed(range(f)) if self.reverse else range(f)):
+            gates = torch.sigmoid(torch.matmul(
+                torch.cat([xs[t], h], dim=-1), self.gate_kernel)
+                + self.gate_bias)
+            r, u = torch.split(gates, self.hidden, dim=-1)
+            cand = torch.tanh(torch.matmul(
+                torch.cat([xs[t], r * h], dim=-1), self.candidate_kernel)
+                + self.candidate_bias)
+            h = torch.where(nf > t, u * h + (1.0 - u) * cand, h)
+            outputs[t] = h
+        return torch.stack(outputs), h
+
+
+def add_gru_stack(model: nn.Module, in_features: int, hidden: int,
+                  layers: int, dtype, bidirectional: bool) -> int:
+    """Register `fw_layer{i}` (and `bw_layer{i}`) GRU layers on `model`,
+    the JAX names; returns the width of the pooled output."""
+    tags = (("fw", False), ("bw", True)) if bidirectional else (("fw", False),)
+    for tag, reverse in tags:
+        for i in range(layers):
+            setattr(model, f"{tag}_layer{i}", GruLayer(
+                in_features if i == 0 else hidden, hidden, dtype,
+                reverse=reverse))
+    return hidden * len(tags)
+
+
 def run_rnn(model: nn.Module, features, num_frames, layers: int,
             bidirectional: bool, pooling: str, residual: bool = False):
     """features [B, F, D] -> pooled [B, H * directions], through the
-    layers `add_lstm_stack` registered on `model`.
+    layers `add_lstm_stack` or `add_gru_stack` registered on `model`.
 
     `residual` adds each layer's input to its output from layer 1 on
     (layer 0 changes the width), and "last" pooling then takes the
@@ -175,18 +293,26 @@ def run_rnn(model: nn.Module, features, num_frames, layers: int,
     return frame_pooling(outputs.transpose(0, 1), pooling, mask)
 
 
-class _LstmModelBase(ServingModule):
-    """Reference: the JAX package's _RnnModelBase with cell "lstm": the
-    stacked LSTM pooled per --lstm_pooling, then the video-level head."""
+class _RnnModelBase(ServingModule):
+    """Reference: the JAX package's _RnnModelBase: the stacked LSTM
+    (--lstm_cells, --lstm_layers) or GRU (--gru_cells, --gru_layers)
+    pooled per --lstm_pooling, then the video-level head."""
 
+    cell = "lstm"
     bidirectional = False
 
     def __init__(self, hp: ModelHParams):
         super().__init__()
         self.hp = hp
-        width = add_lstm_stack(self, hp.feature_dim, hp.lstm_cells,
-                               hp.lstm_layers, hp.dtype, self.bidirectional,
-                               hp.lstm_layer_norm)
+        if self.cell == "lstm":
+            self.layers = hp.lstm_layers
+            width = add_lstm_stack(self, hp.feature_dim, hp.lstm_cells,
+                                   hp.lstm_layers, hp.dtype,
+                                   self.bidirectional, hp.lstm_layer_norm)
+        else:
+            self.layers = hp.gru_layers
+            width = add_gru_stack(self, hp.feature_dim, hp.gru_cells,
+                                  hp.gru_layers, hp.dtype, self.bidirectional)
         self.video_classifier = make_classifier_head(hp, width)
         self.reset_parameters()
 
@@ -202,17 +328,31 @@ class _LstmModelBase(ServingModule):
         """{"predictions": [B, vocab] f32}, and in training the head's
         "regularization_loss". Nothing is sampled."""
         hp = self.hp
-        pooled = run_rnn(self, features, num_frames, hp.lstm_layers,
+        pooled = run_rnn(self, features, num_frames, self.layers,
                          self.bidirectional, hp.lstm_pooling,
                          hp.rnn_residual)
         return self.video_classifier(pooled)
 
 
 @register("LstmModel")
-class LstmModel(_LstmModelBase):
+class LstmModel(_RnnModelBase):
+    cell = "lstm"
     bidirectional = False
 
 
 @register("BiLstmModel")
-class BiLstmModel(_LstmModelBase):
+class BiLstmModel(_RnnModelBase):
+    cell = "lstm"
+    bidirectional = True
+
+
+@register("GruModel")
+class GruModel(_RnnModelBase):
+    cell = "gru"
+    bidirectional = False
+
+
+@register("BiGruModel")
+class BiGruModel(_RnnModelBase):
+    cell = "gru"
     bidirectional = True
