@@ -13,9 +13,11 @@ Phases, one line each with the elapsed seconds:
      DbofModel's B=2048, H=1024 and at the flagship's B=512, H=2048;
      NetVLAD and the LSTM at the flagship's B=512; the GRU at GruModel's
      B=512, F=300, H=1024; attention pooling at AttentionPoolingModel's
-     B=512, F=300, D=1152, 8 heads, uint8 and f32 frames) plus small,
-     odd and ragged shapes and planted hazards, with its median time (CUDA
-     events; the profiler's device time for attention pooling), the plain
+     B=512, F=300, D=1152, 8 heads, uint8 and f32 frames; NeXtVLAD at
+     NeXtVladModel's B=512, F=300, D=1152, lambda=2, G=8, K=128, uint8 and
+     f32 frames) plus small, odd and ragged shapes and planted hazards,
+     with its median time (CUDA events; the profiler's device time for
+     attention pooling and NeXtVLAD), the plain
      version's time, the time of one PyTorch yardstick for the same
      function, and the bound of the work; the trainable recurrences (the
      LSTM's and the GRU's, forward with residuals and the reverse-time
@@ -23,7 +25,11 @@ Phases, one line each with the elapsed seconds:
      directions) with planted hazards, their rounding witnesses, times
      and bounds beside one cuDNN layer's forward and backward;
      netvlad_core at the flagship's training shape (B=256, F=300, K=256,
-     D=1152) and at small and odd shapes;
+     D=1152) and at small and odd shapes; the trainable NeXtVLAD (the
+     forward with residuals and the backward's five weight gradients) at
+     NeXtVladModel's training shape (B=256) and at small and odd shapes,
+     with a second run held bit for bit; NeXtVLAD's rounding witnesses,
+     forward and backward;
   4. serving end to end through the inference CLI over synthetic
      frame-level TFRecords, for each path with the launch counts set to
      0 just before it and read just after: DbofModel at the reference
@@ -31,10 +37,11 @@ Phases, one line each with the elapsed seconds:
      the flagship NetVladLstmModel at the JAX defaults (all 300 frames
      masked by num_frames, D=1152, VLAD K=256 with hidden 1024, BN and
      context gating, LSTM 2 x 1024 with last pooling, MoE M=2 over 4716
-     classes, bf16), GruModel (GRU 2 x 1024, last pooling, MoE M=2, bf16)
-     and AttentionPoolingModel (8 heads, hidden 512 with BN, MoE M=2,
-     bf16); CSV checks, and 8 videos compared with the same model on the
-     CPU;
+     classes, bf16), GruModel (GRU 2 x 1024, last pooling, MoE M=2, bf16),
+     AttentionPoolingModel (8 heads, hidden 512 with BN, MoE M=2, bf16)
+     and NeXtVladModel at the JAX defaults (lambda=2, G=8, K=128, hidden
+     1024 with BN and context gating, MoE M=2 over 4716, bf16); CSV
+     checks, and 8 videos compared with the same model on the CPU;
   5. each serving step alone on frames already on the card (DbofModel at
      B=2048, the others at B=512): median step time of 5, and device
      time by kernel from torch.profiler;
@@ -50,6 +57,9 @@ Phases, one line each with the elapsed seconds:
      same way (10 steps, 2F step kernels a layer each way a step) and one
      of its steps on 8 videos card vs CPU; AttentionPoolingModel at B=256
      through its plain training graph (no kernel, as in the JAX package);
+     NeXtVladModel at B=256 the same way as GruModel (1 + 1 trainable
+     NeXtVLAD launches a step) and one of its steps on 8 videos card vs
+     CPU;
   7. the reference workflow through the port's CLIs with the flagship at
      full width and --netvlad_fused_train, over synthetic frame-level
      TFRecords (256 train and 128 eval videos, 30-300 frames): cli.train
@@ -59,8 +69,8 @@ Phases, one line each with the elapsed seconds:
      cli.inference (the CSV), each with its launch counts set to 0 just
      before and read just after; the checkpoint's size and its save and
      restore seconds; 8 eval videos from the checkpoint on the card and
-     on the CPU; then GruModel through cli.train (2 steps) -> cli.eval
-     --run_once -> cli.inference on the same videos.
+     on the CPU; then GruModel and NeXtVladModel each through cli.train
+     (2 steps) -> cli.eval --run_once -> cli.inference on the same videos.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -114,6 +124,18 @@ Tolerances, max|kernel - plain| on the same inputs:
     bf16 assignment one step at a rounding boundary, but one frame's term
     in a sum over up to 300 frames stays far inside 1e-3 of the largest
     value (read on the card).
+  * NeXtVLAD, serving and trainable (the output and the five weight
+    gradients): <= 2^-7 * max|ref| + 1e-6. Both round x, xe, the
+    assignment (and in the backward dv, d_act and d_xe) to bf16 at the
+    same points; where an f32 sum before a rounding runs in another order
+    a value at a rounding boundary lands one bf16 step (2^-8 to 2^-7 of
+    itself) apart, and an xe value or assignment that dominates an
+    element of a short video's row moves the intra-normalised element by
+    up to that share of itself. 1e-3 * max|ref| does not hold (up to
+    3.1e-3 of max|ref| on the forward, 1.8e-3 on dWe, read on the card).
+    The witnesses show the cause: fed the kernel's own bf16 streams, the
+    plain steps round to the kernel's values but at rounding boundaries,
+    and what follows the roundings meets 1e-3 * max|ref| + 1e-6.
   * planted hazards: the kernel's output with large values in the frames
     or steps past num_frames equals its output with zeros there.
   * card vs CPU end to end (8 videos): probabilities within 2e-3; the
@@ -177,6 +199,12 @@ GRU_CELLS = 1024
 GRU_LAYERS = 2
 ATTN_HEADS = 8
 ATTN_HIDDEN = 512
+# NeXtVladModel at the JAX package's defaults.
+NEXTVLAD_LAMBDA = 2
+NEXTVLAD_GROUPS = 8
+NEXTVLAD_CLUSTERS = 128
+NEXTVLAD_HIDDEN = 1024
+NEXTVLAD_REL = 2.0 ** -7
 
 
 class SmokeFailure(RuntimeError):
@@ -1677,6 +1705,334 @@ def check_attention_pool(torch, gen, dev, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (cont.): NeXtVLAD, serving and trainable
+# ---------------------------------------------------------------------------
+
+
+def nextvlad_inputs(torch, gen, b, f, d, lam, g, k, x_dtype, dev):
+    """Frames, num_frames uniform in [1, f] with f, 0 and 1 planted, and
+    the five weights at the JAX initialisers' scales with a drawn
+    attention bias."""
+    if x_dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, f, d), generator=gen,
+                          dtype=torch.uint8)
+    else:
+        x = torch.randn(b, f, d, generator=gen)
+    nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+    nf[: min(b, 3)] = torch.tensor([f, 0, 1], dtype=torch.int32)[: min(b, 3)]
+    de = lam * d
+    w = [torch.randn(d, de, generator=gen) * d ** -0.5,
+         torch.randn(de, g, generator=gen) * de ** -0.5,
+         0.5 * torch.randn(g, generator=gen),
+         torch.randn(de, g * k, generator=gen) * de ** -0.5,
+         torch.randn(k, de // g, generator=gen) * de ** -0.5]
+    return [t.to(dev) for t in (x, nf, *w)]
+
+
+def nextvlad_flops(live, d, de, g, k):
+    """The three products of the forward (and the attention dot) over
+    `live` frames."""
+    p = de // g
+    return 2.0 * live * (d * de + de * g * (k + 1) + g * k * p)
+
+
+def nextvlad_witness(torch, name, args, g) -> None:
+    """Why the NeXtVLAD bound is NEXTVLAD_REL and not 1e-3: the kernel and
+    its plain version part only where a value is rounded to bf16. Fed the
+    kernel's own bf16 frames, the plain f32 xe rounds to the kernel's xe
+    but at rounding boundaries; fed the kernel's own xe, so does the plain
+    f32 assignment (rounding_witness); and the plain aggregation and norm
+    on the kernel's own xe, assignment and a_sum meet 1e-3 * max|ref| +
+    1e-6 (kernels/nextvlad.py :: forward_on_stream)."""
+    from yt8m_tpu_torch.kernels.nextvlad import (
+        forward_on_stream,
+        kernel_layout,
+        nextvlad_aggregate_with_scratch,
+    )
+
+    x, nf, *w = args
+    layout = kernel_layout(*w, g)
+    out, scratch = nextvlad_aggregate_with_scratch(x, nf, layout)
+    pairs = forward_on_stream(x, nf, layout, scratch, out)
+    del scratch
+    for what in ("xe", "assign"):
+        rounding_witness(f"{name} {what}", *pairs[what])
+    got, tail = pairs["out"]
+    err = rel_check(f"{name} on the kernel's own xe and assignment", got,
+                    tail, rel=1e-3, abs_=1e-6)
+    say("witness", f"{name}: plain aggregation and norm on the kernel's own "
+                   f"xe, assignment and a_sum: max|diff| {err:.3e} (1e-3 "
+                   f"bound {1e-3 * tail.abs().max().item() + 1e-6:.3e})")
+
+
+def nextvlad_train_witness(torch, args, g, dy) -> None:
+    """The same for the backward (kernels/nextvlad_train.py ::
+    backward_on_stream): fed the kernel's own residuals and bf16 streams,
+    the plain steps give bf16(dv), bf16(d_act) and bf16(d_xe) that differ
+    from the kernel's only at rounding boundaries, and dv, cdot, d_pre and
+    the weight-gradient products on the kernel's bf16 operands meet 1e-3 *
+    max|ref| + 1e-6."""
+    from yt8m_tpu_torch.kernels import nextvlad_train as tnt
+    from yt8m_tpu_torch.kernels.nextvlad import kernel_layout
+
+    x, nf, *w = args
+    layout = kernel_layout(*w, g, training=True)
+    _, res = tnt.nextvlad_train_forward(x, nf, layout)
+    dwe, dwext, _, _, t = tnt.nextvlad_train_backward_with_scratch(
+        nf, res, layout, dy)
+    pairs = tnt.backward_on_stream(nf, res, layout, dy, dwe, dwext, t)
+    del res, t
+    for what in ("dvb", "d_act", "d_xe"):
+        rounding_witness(f"nextvlad_train {what}", *pairs.pop(what))
+    for what, (got, ref) in pairs.items():
+        err = rel_check(f"nextvlad_train {what} on the kernel's stream", got,
+                        ref, rel=1e-3, abs_=1e-6)
+        say("witness", f"nextvlad_train {what} on the kernel's own stream: "
+                       f"max|diff| {err:.3e} ({err / ref.abs().max().item():.2e}"
+                       f" of max|ref|, bound 1e-3)")
+
+
+def check_nextvlad(torch, gen, dev, flush) -> dict:
+    """nextvlad_aggregate at small and odd shapes (P=8, 2, 144, 251 and
+    K=12, 96, 130, 256, one group and sixteen, D not a multiple of 8),
+    then at NeXtVladModel's serving shape (B=512, F=300, D=1152, lambda=2,
+    G=8, K=128) with uint8 and f32 frames against its plain version, with
+    frames past num_frames set to 255 / 1e4, the num_frames = 0 video, the
+    rounding witness, times, bound and a library yardstick."""
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels.nextvlad import (
+        kernel_layout,
+        nextvlad_aggregate,
+        nextvlad_aggregate_plain,
+    )
+
+    for b, f, d, lam, g, k, dt in ((3, 10, 16, 2, 4, 12, torch.uint8),
+                                   (4, 70, 64, 2, 1, 128, torch.float32),
+                                   (3, 13, 32, 1, 16, 96, torch.uint8),
+                                   (5, 300, 96, 3, 2, 130, torch.float32),
+                                   (2, 130, 1004, 2, 8, 256, torch.uint8)):
+        args = nextvlad_inputs(torch, gen, b, f, d, lam, g, k, dt, dev)
+        err = rel_check(f"nextvlad edge B={b} F={f} D={d} G={g} K={k} {dt}",
+                        nextvlad_aggregate(*args, g),
+                        nextvlad_aggregate_plain(*args, g),
+                        rel=NEXTVLAD_REL, abs_=1e-6)
+        say("kernel", f"nextvlad edge B={b} F={f} D={d} lambda={lam} G={g} "
+                      f"K={k} {dt}: max|diff| {err:.3e}")
+    b, f, d, lam, g, k = (FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM,
+                          NEXTVLAD_LAMBDA, NEXTVLAD_GROUPS, NEXTVLAD_CLUSTERS)
+    de, p = lam * d, lam * d // g
+    errs, times, shares = {}, {}, {}
+    for dt, loud in ((torch.float32, 1e4), (torch.uint8, 255)):
+        args = nextvlad_inputs(torch, gen, b, f, d, lam, g, k, dt, dev)
+        x, nf, *w = args
+        past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+        clean, x = pad_hazard(torch, x, past, loud)
+        args = [x, nf, *w]
+        layout = kernel_layout(*w, g)
+        got = nextvlad_aggregate(*args, g, layout=layout)
+        check(torch.equal(got, nextvlad_aggregate(clean, nf, *w, g,
+                                                  layout=layout)),
+              f"nextvlad {dt}: frames past num_frames leaked")
+        check(bool(torch.isfinite(got).all()), f"nextvlad {dt}: non-finite")
+        check(bool(torch.all(got[1] == 0)),
+              f"nextvlad {dt}: num_frames=0 is not exact zeros")
+        want = nextvlad_aggregate_plain(*args, g)
+        torch.cuda.synchronize()
+        errs[dt] = rel_check(f"nextvlad_aggregate {dt}", got, want,
+                             rel=NEXTVLAD_REL, abs_=1e-6)
+        shares[dt] = errs[dt] / want.abs().max().item()
+        del got, want, clean
+        nextvlad_witness(torch, f"nextvlad_aggregate {dt}", args, g)
+        times[dt] = time_ms(torch, lambda: nextvlad_aggregate(
+            *args, g, layout=layout), 10, flush)
+    # The serving path feeds uint8 frames: time and bound that case.
+    us = device_us(torch, lambda: nextvlad_aggregate(*args, g, layout=layout),
+                   "nxv_")
+    plain_ms = time_ms(torch, lambda: nextvlad_aggregate_plain(*args, g), 3,
+                       flush)
+    live = torch.arange(f, device=dev)[None, :] < nf[:, None]
+    mask = live[:, :, None, None]
+    bf = torch.bfloat16
+    we_b, wa_b, wc_b = w[0].to(bf), w[1].to(bf), w[3].to(bf)
+
+    def library():
+        xb = (x.to(torch.float32) * DEQUANT_SCALE + DEQUANT_BIAS).to(bf)
+        xe = torch.matmul(xb, we_b)
+        alpha = torch.sigmoid(torch.matmul(xe, wa_b).float() + w[2])
+        act = torch.matmul(xe, wc_b).float().reshape(b, f, g, k)
+        a = torch.softmax(act, -1) * alpha[..., None] * mask
+        vlad = torch.bmm(a.to(bf).reshape(b, f * g, k).transpose(1, 2),
+                         xe.reshape(b, f * g, p)).float()
+        vlad = vlad - a.sum((1, 2))[:, :, None] * w[4]
+        return torch.nn.functional.normalize(vlad, dim=2, eps=1e-6)
+
+    library_ms = time_ms(torch, library, 5, flush)
+    real = int(live.sum())  # this run's live frames
+    flops = nextvlad_flops(real, d, de, g, k)
+    nbytes = (real * d + 4 * b + (d * de + de * g + de * g * k) * 2
+              + 4 * g + k * p * 4 + b * k * p * 4)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    say("kernel", f"nextvlad_aggregate B={b} F={f} D={d} De={de} G={g} "
+                  f"K={k} P={p}: uint8 {us / 1e3:.4f} ms by the profiler "
+                  f"(events {times[torch.uint8]:.4f}; f32 frames "
+                  f"{times[torch.float32]:.4f}); bound {bound_ms:.4f} ms by "
+                  f"{bound_by} for this run's {real} live frames "
+                  f"({flops / 1e12:.3f} TFLOP; "
+                  f"{nextvlad_flops(b * f, d, de, g, k) / 989e12 * 1e3:.4f} "
+                  f"ms for all {b * f}); plain {plain_ms:.4f} ms; library "
+                  f"(bf16 matmul + softmax + bmm) {library_ms:.4f} ms; "
+                  f"max|diff| {errs[torch.uint8]:.3e} uint8 "
+                  f"({shares[torch.uint8]:.2e} of max|ref|), "
+                  f"{errs[torch.float32]:.3e} f32 "
+                  f"({shares[torch.float32]:.2e})")
+    return {
+        "name": "nextvlad_aggregate", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/nextvlad.cu",
+        "replaces": "yt8m_tpu/kernels/nextvlad.py:142",
+        "max_abs_err": max(errs.values()), "ms": us / 1e3,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_events": times[torch.uint8],
+        "ms_events_f32": times[torch.float32],
+    }
+
+
+def nextvlad_train_grads(torch, args, g, dy):
+    """(out, the five weight gradients) through the Function."""
+    from yt8m_tpu_torch.kernels.nextvlad_train import nextvlad_aggregate_train
+
+    x, nf, *w = args
+    ws = [t.clone().requires_grad_() for t in w]
+    out = nextvlad_aggregate_train(x, nf, *ws, g)
+    (out * dy).sum().backward()
+    return out.detach(), [t.grad for t in ws]
+
+
+def check_nextvlad_train(torch, gen, dev, flush) -> dict:
+    """nextvlad_aggregate_train at small and odd shapes and at
+    NeXtVladModel's training shape (B=256, F=300, uint8 frames): the
+    forward and the five weight gradients against the plain versions, a
+    second run bit for bit, frames past num_frames set to 255, times by
+    the profiler, bound and the library yardstick under autograd."""
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels import nextvlad_train as tnt
+    from yt8m_tpu_torch.kernels.nextvlad import (
+        kernel_layout,
+        nextvlad_aggregate_plain,
+    )
+
+    names = ("dWe", "dWa", "dab", "dWc", "dcenters")
+
+    def compare(name, args, g, dy):
+        out, grads = nextvlad_train_grads(torch, args, g, dy)
+        errs = [rel_check(f"{name} forward", out,
+                          nextvlad_aggregate_plain(*args, g),
+                          rel=NEXTVLAD_REL, abs_=1e-6)]
+        want = tnt.nextvlad_aggregate_train_plain_backward(*args, dy, g)
+        shares = []
+        for what, got, ref in zip(names, grads, want):
+            errs.append(rel_check(f"{name} {what}", got, ref,
+                                  rel=NEXTVLAD_REL, abs_=1e-6))
+            shares.append(errs[-1] / max(ref.abs().max().item(), 1e-30))
+        again = nextvlad_train_grads(torch, args, g, dy)[1]
+        check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+              f"{name}: a second run gave other gradient bits")
+        return max(errs), shares
+
+    for b, f, d, lam, g, k in ((3, 10, 16, 2, 4, 12), (5, 300, 96, 3, 2, 130),
+                               (2, 130, 1004, 2, 8, 256)):
+        args = nextvlad_inputs(torch, gen, b, f, d, lam, g, k, torch.uint8,
+                               dev)
+        dy = torch.randn(b, k, lam * d // g, generator=gen).to(dev)
+        err, _ = compare(f"nextvlad_train B={b} F={f} D={d} G={g} K={k}",
+                         args, g, dy)
+        say("kernel", f"nextvlad_train B={b} F={f} D={d} lambda={lam} G={g} "
+                      f"K={k}: forward and gradients max|diff| {err:.3e}")
+    b, f, d, lam, g, k = (TRAIN_BATCH, FLAG_FRAMES, FEATURE_DIM,
+                          NEXTVLAD_LAMBDA, NEXTVLAD_GROUPS, NEXTVLAD_CLUSTERS)
+    de, p = lam * d, lam * d // g
+    args = nextvlad_inputs(torch, gen, b, f, d, lam, g, k, torch.uint8, dev)
+    x, nf, *w = args
+    dy = torch.randn(b, k, p, generator=gen).to(dev)
+    err, shares = compare("nextvlad_aggregate_train", args, g, dy)
+    nextvlad_train_witness(torch, args, g, dy)
+    past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+    clean, loud = pad_hazard(torch, x, past, 255)
+    a = nextvlad_train_grads(torch, [clean, nf, *w], g, dy)
+    c = nextvlad_train_grads(torch, [loud, nf, *w], g, dy)
+    check(torch.equal(a[0], c[0]) and all(
+        torch.equal(p_, q_) for p_, q_ in zip(a[1], c[1])),
+        "nextvlad_train: frames past num_frames moved the output or a "
+        "gradient")
+    del a, c, clean, loud
+    say("kernel", f"nextvlad_aggregate_train B={b} F={f}: forward and the "
+                  f"five gradients within {NEXTVLAD_REL:g} * max|ref| + 1e-6 "
+                  f"(max|diff| {err:.3e}; of max|ref|: "
+                  + ", ".join(f"{n} {s:.2e}" for n, s in zip(names, shares))
+                  + "); a second run bit for bit; hazards bit-identical")
+
+    layout = kernel_layout(*w, g, training=True)
+    out, scratch = tnt.nextvlad_train_forward(x, nf, layout)
+    ms_f = time_ms(torch, lambda: tnt.nextvlad_train_forward(x, nf, layout),
+                   5, flush)
+    ms_b = time_ms(torch, lambda: tnt.nextvlad_train_backward(
+        nf, scratch, layout, dy), 5, flush)
+    us_f = device_us(torch, lambda: tnt.nextvlad_train_forward(
+        x, nf, layout), "nxv_")
+    us_b = device_us(torch, lambda: tnt.nextvlad_train_backward(
+        nf, scratch, layout, dy), "nxv_")
+    del out, scratch
+
+    def plain():
+        tnt.nextvlad_aggregate_train_plain_backward(*args, dy, g)
+
+    plain_ms = time_ms(torch, plain, 2, flush)
+    live = past.logical_not()
+    mask = live[:, :, None, None]
+    bf = torch.bfloat16
+
+    def library():
+        ws = [t.detach().requires_grad_() for t in w]
+        xb = (x.to(torch.float32) * DEQUANT_SCALE + DEQUANT_BIAS).to(bf)
+        xe = torch.matmul(xb, ws[0].to(bf))
+        alpha = torch.sigmoid(torch.matmul(xe, ws[1].to(bf)).float() + ws[2])
+        act = torch.matmul(xe, ws[3].to(bf)).float().reshape(b, f, g, k)
+        a = torch.softmax(act, -1) * alpha[..., None] * mask
+        vlad = torch.bmm(a.to(bf).reshape(b, f * g, k).transpose(1, 2),
+                         xe.reshape(b, f * g, p)).float()
+        vlad = vlad - a.sum((1, 2))[:, :, None] * ws[4]
+        torch.nn.functional.normalize(vlad, dim=2, eps=1e-6).backward(dy)
+
+    library_ms = time_ms(torch, library, 3, flush)
+    real = int(live.sum())
+    kx = g * layout["dims"]["Kp"] + layout["dims"]["KA"]
+    f_flops = nextvlad_flops(real, d, de, g, k)
+    # The backward's products per live frame: d_assign and d_xg (2 G K P
+    # each), d_xe and [dWc | dWa] (2 De (G K + G) each), dWe (2 D De).
+    b_flops = 2.0 * real * (2 * g * k * p + 2 * de * (g * k + g) + d * de)
+    nbytes = (real * d + 4 * b + (d * de + de * g + de * g * k) * 2 * 2
+              + 4 * g + k * p * 4 + 2 * b * k * p * 4
+              + (d * de + de * g + de * g * k + g + k * p) * 4)
+    bound_ms, bound_by = bound(f_flops + b_flops, nbytes, PEAK_BF16_FLOPS)
+    say("kernel", f"nextvlad_aggregate_train B={b} F={f}: forward "
+                  f"{us_f / 1e3:.4f} ms, backward {us_b / 1e3:.4f} ms by the "
+                  f"profiler (events {ms_f:.4f} + {ms_b:.4f}); bound "
+                  f"{bound_ms:.4f} ms by {bound_by} for this run's {real} "
+                  f"live frames ({f_flops / 1e12:.3f} + {b_flops / 1e12:.3f} "
+                  f"TFLOP; Kx={kx}); plain forward + backward {plain_ms:.4f} "
+                  f"ms; library (the bf16 yardstick under autograd) "
+                  f"{library_ms:.4f} ms")
+    return {
+        "name": "nextvlad_aggregate_train", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/nextvlad_train.cu",
+        "replaces": "yt8m_tpu/kernels/nextvlad_train.py:372",
+        "max_abs_err": err, "ms": (us_f + us_b) / 1e3, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_forward": us_f / 1e3,
+        "ms_backward": us_b / 1e3, "ms_events": ms_f + ms_b,
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving end to end, DbofModel and the flagship
 # ---------------------------------------------------------------------------
 
@@ -1795,6 +2151,27 @@ def make_attention_model(torch, seed: int):
     return hp, model.eval()
 
 
+def make_nextvlad_model(torch, seed: int):
+    """NeXtVladModel at the JAX package's defaults (lambda=2, G=8, K=128
+    over all 300 frames masked by num_frames, hidden 1024 with BN and
+    context gating, MoE M=2 over 4716, bf16), weights from a seed, BN
+    statistics and biases drawn."""
+    from yt8m_tpu_torch.models import ModelHParams, get_model
+
+    hp = ModelHParams(
+        vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=FLAG_FRAMES,
+        nextvlad_expansion=NEXTVLAD_LAMBDA, nextvlad_groups=NEXTVLAD_GROUPS,
+        nextvlad_cluster_size=NEXTVLAD_CLUSTERS,
+        nextvlad_hidden_size=NEXTVLAD_HIDDEN, moe_num_mixtures=MIXTURES,
+        compute_dtype="bfloat16",
+    )
+    model = get_model("NeXtVladModel", hp)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    perturb_vectors(torch, model, gen)
+    return hp, model.eval()
+
+
 PATHS = {
     "DbofModel": (make_model, ("dbof_cluster_maxpool_v2",
                                "moe_head_serving", "exact_topk")),
@@ -1807,6 +2184,9 @@ PATHS = {
     "AttentionPoolingModel": (make_attention_model, ("attention_pool",
                                                      "moe_head_serving",
                                                      "exact_topk")),
+    "NeXtVladModel": (make_nextvlad_model, ("nextvlad_aggregate",
+                                            "moe_head_serving",
+                                            "exact_topk")),
 }
 
 
@@ -1829,6 +2209,11 @@ def kernel_wrappers():
         netvlad_core_backward,
         netvlad_core_forward,
     )
+    from yt8m_tpu_torch.kernels.nextvlad import nextvlad_aggregate
+    from yt8m_tpu_torch.kernels.nextvlad_train import (
+        nextvlad_train_backward,
+        nextvlad_train_forward,
+    )
     from yt8m_tpu_torch.kernels.topk import exact_topk
 
     return {fn.__name__: fn for fn in (
@@ -1836,7 +2221,8 @@ def kernel_wrappers():
         netvlad_aggregate, lstm_recurrence, lstm_train_forward,
         lstm_train_backward, netvlad_core_forward, netvlad_core_backward,
         gru_recurrence, gru_train_forward, gru_train_backward,
-        attention_pool)}
+        attention_pool, nextvlad_aggregate, nextvlad_train_forward,
+        nextvlad_train_backward)}
 
 
 def zero_launches():
@@ -2033,6 +2419,11 @@ def profile_window(torch, phase, name, fn, n_steps):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # The window loses the kernels launched as it opens (the first
+        # step's first kernels, read on the card): a small kernel of no
+        # interest goes first, outside the timed window.
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_steps):
             fn()
@@ -2225,6 +2616,53 @@ def train_attention(torch, dev) -> None:
                  f"{[round(x, 4) for x in losses]}")
     del state, model, batch
     torch.cuda.empty_cache()
+
+
+def train_nextvlad(torch, dev) -> dict:
+    """NeXtVladModel at full width trained through make_train_step (B=256,
+    bf16, Adam at the config defaults, the fused aggregation by default):
+    the trainable NeXtVLAD kernels' path, its launch counts set to 0 just
+    before the 10 steps and read just after."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_nextvlad_model(torch, seed=0)[1].to(dev).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    state = TrainState(model, global_batch_size=TRAIN_BATCH)
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=1)
+    wrappers = zero_launches()
+    _, losses = timed_steps(torch, step, state, batch, TRAIN_STEPS)
+    launches = read_launches(torch, wrappers)
+    say("train", f"NeXtVladModel B={TRAIN_BATCH} ({n_params} parameters, "
+                 f"bf16, Adam, per-variable clip 1.0): {TRAIN_STEPS} steps on "
+                 f"one batch, losses {[round(x, 4) for x in losses]}; "
+                 f"launches {launches}")
+    check(all(math.isfinite(x) for x in losses),
+          "NeXtVladModel loss not finite")
+    check(losses[-1] < losses[0],
+          "NeXtVladModel loss did not fall over 10 steps")
+    for fn in ("nextvlad_train_forward", "nextvlad_train_backward"):
+        check(launches[fn] == TRAIN_STEPS,
+              f"{fn}: {launches[fn]} launches in {TRAIN_STEPS} steps")
+    check(launches["nextvlad_aggregate"] == 0,
+          "NeXtVladModel training launched the serving wrapper")
+    times, _ = timed_steps(torch, step, state, batch, 5)
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("train", f"NeXtVladModel B={TRAIN_BATCH} training step: median "
+                 f"{step_ms:.3f} ms of {[round(t, 3) for t in times]} -> "
+                 f"{TRAIN_BATCH / step_ms * 1e3:.0f} videos/s; peak memory "
+                 f"{peak:.2f} GiB")
+    idle = profile_window(torch, "train", "NeXtVladModel training",
+                          lambda: step(state, batch), 1)
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "idle_share": idle,
+            "peak_gib": peak}
 
 
 def train_card_vs_cpu(torch, dev, make=None, name="flagship") -> None:
@@ -2458,17 +2896,20 @@ def cli_workflow(torch, dev, work, data) -> dict:
             "save_s": [t for _, t in saves], "restore_s": restores}
 
 
-def gru_workflow(torch, dev, work, data) -> dict:
-    """train -> eval -> inference through the port's CLIs with GruModel at
+def short_workflow(torch, dev, work, data, model, flags, train_want,
+                   serve) -> dict:
+    """train -> eval -> inference through the port's CLIs with `model` at
     full width (2 steps at B=256, a checkpoint at step 2) on the
-    workflow's TFRecords under `data`; launch counts set to 0 before each
-    CLI and read after it."""
+    workflow's TFRecords under `data`: `train_want` maps each training
+    kernel to its launches in the 2 steps, `serve` names the kernels eval
+    and inference must launch; launch counts set to 0 before each CLI and
+    read after it."""
     from yt8m_tpu_torch.cli import eval as eval_cli
     from yt8m_tpu_torch.cli import inference as inference_cli
     from yt8m_tpu_torch.cli import train as train_cli
     from yt8m_tpu_torch.train.checkpoint import dir_bytes, step_dirs
 
-    run = os.path.join(work, "gru_run")
+    run = os.path.join(work, f"{model}_run")
     reader = ["--frame_features=true", "--feature_names=rgb,audio",
               "--feature_sizes=1024,128", f"--num_classes={CLASSES}",
               f"--device={dev.type}"]
@@ -2481,24 +2922,22 @@ def gru_workflow(torch, dev, work, data) -> dict:
             f"--train_dir={run}", f"--batch_size={TRAIN_BATCH}",
             "--max_steps=2", "--save_checkpoint_every_n_steps=2",
             "--max_checkpoints_to_keep=1", "--log_every_n_steps=1",
-            "--model=GruModel", f"--gru_cells={GRU_CELLS}",
-            f"--gru_layers={GRU_LAYERS}", f"--moe_num_mixtures={MIXTURES}",
-            "--compute_dtype=bfloat16"] + reader)
+            f"--model={model}", f"--moe_num_mixtures={MIXTURES}",
+            "--compute_dtype=bfloat16"] + flags + reader)
         launches["train"] = read_launches(torch, wrappers)
         train_s = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
         size = dir_bytes(os.path.join(run, "2")) / 1e9
-        say("workflow", f"GruModel cli.train --max_steps=2: at step {last} in "
+        say("workflow", f"{model} cli.train --max_steps=2: at step {last} in "
                         f"{train_s:.1f} s; checkpoint {size:.3f} GB; "
                         f"launches {launches['train']}")
         check(last == 2 and step_dirs(run) == [2],
-              f"GruModel cli.train: step {last}, checkpoints "
+              f"{model} cli.train: step {last}, checkpoints "
               f"{step_dirs(run)}")
-        want = 2 * GRU_LAYERS * 2 * FLAG_FRAMES
-        for fn in ("gru_train_forward", "gru_train_backward"):
+        for fn, want in train_want.items():
             check(launches["train"][fn] == want,
-                  f"GruModel cli.train: {fn} launched "
+                  f"{model} cli.train: {fn} launched "
                   f"{launches['train'][fn]} times, want {want}")
 
         wrappers = zero_launches()
@@ -2508,23 +2947,20 @@ def gru_workflow(torch, dev, work, data) -> dict:
             f"--device={dev.type}"])
         launches["eval"] = read_launches(torch, wrappers)
         mean_ap = float(sum(out_eval["aps"]) / len(out_eval["aps"]))
-        say("workflow", f"GruModel cli.eval: step {out_eval['step']}, GAP "
+        say("workflow", f"{model} cli.eval: step {out_eval['step']}, GAP "
                         f"{out_eval['gap']:.5f}, Hit@1 "
                         f"{out_eval['avg_hit_at_one']:.5f}, mAP "
                         f"{mean_ap:.5f}, {out_eval['videos_per_sec']:.1f} "
                         f"videos/s; launches {launches['eval']}")
         check(out_eval["step"] == 2 and out_eval["nonfinite_predictions"] == 0,
-              "GruModel cli.eval: step or non-finite predictions")
+              f"{model} cli.eval: step or non-finite predictions")
         for key, value in (("GAP", out_eval["gap"]), ("mAP", mean_ap),
                            ("Hit@1", out_eval["avg_hit_at_one"])):
             check(math.isfinite(value) and 0.0 <= value <= 1.0,
-                  f"GruModel cli.eval {key} = {value}")
-        for fn in ("exact_topk", "gru_recurrence", "moe_head_serving"):
-            check(launches["eval"][fn] > 0,
-                  f"GruModel cli.eval did not launch {fn}")
+                  f"{model} cli.eval {key} = {value}")
 
         wrappers = zero_launches()
-        out_csv = os.path.join(work, "gru_workflow.csv")
+        out_csv = os.path.join(work, f"{model}_workflow.csv")
         stats = inference_cli.main([
             f"--input_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", f"--output_file={out_csv}",
@@ -2532,11 +2968,12 @@ def gru_workflow(torch, dev, work, data) -> dict:
             f"--device={dev.type}"])
         launches["inference"] = read_launches(torch, wrappers)
         check(stats["nonfinite_predictions"] == 0
-              and check_csv(out_csv) == WF_EVAL_VIDEOS
-              and launches["inference"]["gru_recurrence"] > 0,
-              "GruModel cli.inference: CSV, non-finite predictions or no "
-              "gru_recurrence launch")
-        say("workflow", f"GruModel cli.inference: {stats['num_videos']} "
+              and check_csv(out_csv) == WF_EVAL_VIDEOS,
+              f"{model} cli.inference: CSV or non-finite predictions")
+        for fn in serve:
+            check(launches["eval"][fn] > 0 and launches["inference"][fn] > 0,
+                  f"{model} cli.eval or cli.inference did not launch {fn}")
+        say("workflow", f"{model} cli.inference: {stats['num_videos']} "
                         f"videos, {stats['videos_per_sec']:.1f} videos/s, CSV"
                         f" ok; launches {launches['inference']}")
     finally:
@@ -2577,7 +3014,8 @@ def main() -> int:
     rows = []
     for fn in (check_dbof, check_moe, check_topk, check_netvlad, check_lstm,
                check_lstm_train, check_netvlad_core, check_gru,
-               check_gru_train, check_attention_pool):
+               check_gru_train, check_attention_pool, check_nextvlad,
+               check_nextvlad_train):
         row = fn(torch, gen, dev, flush)
         say_row("(kernels line)", row)
         rows.append(row)
@@ -2605,6 +3043,7 @@ def main() -> int:
     profile_step(torch, dev, "NetVladLstmModel", FLAG_BATCH)
     profile_step(torch, dev, "GruModel", FLAG_BATCH)
     profile_step(torch, dev, "AttentionPoolingModel", FLAG_BATCH)
+    profile_step(torch, dev, "NeXtVladModel", FLAG_BATCH)
     training = train_flagship(torch, dev)
     fused = train_flagship(torch, dev, fused=True)
     say("train", f"NetVladLstmModel B={TRAIN_BATCH} training step in one "
@@ -2617,26 +3056,48 @@ def main() -> int:
     gru_training = train_gru(torch, dev)
     train_card_vs_cpu(torch, dev, make_gru_model, "GruModel")
     train_attention(torch, dev)
+    nextvlad_training = train_nextvlad(torch, dev)
+    train_card_vs_cpu(torch, dev, make_nextvlad_model, "NeXtVladModel")
     work = tempfile.mkdtemp(prefix="chip_smoke_workflow_",
                             dir=os.path.join(REPO, "build"))
     try:
         data = workflow_data(work)
         workflow = cli_workflow(torch, dev, work, data)
-        gru_workflow(torch, dev, work, data)
+        gru_want = 2 * GRU_LAYERS * 2 * FLAG_FRAMES
+        short_workflow(torch, dev, work, data, "GruModel",
+                       [f"--gru_cells={GRU_CELLS}",
+                        f"--gru_layers={GRU_LAYERS}"],
+                       {"gru_train_forward": gru_want,
+                        "gru_train_backward": gru_want},
+                       ("exact_topk", "gru_recurrence", "moe_head_serving"))
+        short_workflow(torch, dev, work, data, "NeXtVladModel",
+                       [f"--nextvlad_expansion={NEXTVLAD_LAMBDA}",
+                        f"--nextvlad_groups={NEXTVLAD_GROUPS}",
+                        f"--nextvlad_cluster_size={NEXTVLAD_CLUSTERS}",
+                        f"--nextvlad_hidden_size={NEXTVLAD_HIDDEN}"],
+                       {"nextvlad_train_forward": 2,
+                        "nextvlad_train_backward": 2,
+                        "nextvlad_aggregate": 0},
+                       ("exact_topk", "nextvlad_aggregate",
+                        "moe_head_serving"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # Launches on the main paths: DBoF's on the DbofModel serving path,
-    # the GRU's and attention pooling's on GruModel's and
-    # AttentionPoolingModel's serving paths, the trainable LSTM's and
-    # GRU's (forward and backward step kernels) on the flagship's and
-    # GruModel's training paths, netvlad_core's on the train CLI's two
-    # runs of the workflow (2 + 2 steps), the others on the flagship's
-    # serving path, whose shapes their rows were measured at.
+    # the GRU's, attention pooling's and NeXtVLAD's on GruModel's,
+    # AttentionPoolingModel's and NeXtVladModel's serving paths, the
+    # trainable LSTM's, GRU's (forward and backward step kernels) and
+    # NeXtVLAD's on the flagship's, GruModel's and NeXtVladModel's
+    # training paths, netvlad_core's on the train CLI's two runs of the
+    # workflow (2 + 2 steps), the others on the flagship's serving path,
+    # whose shapes their rows were measured at.
     serving_path = {"dbof_cluster_maxpool_v2": "DbofModel",
                     "gru_recurrence": "GruModel",
-                    "attention_pool": "AttentionPoolingModel"}
+                    "attention_pool": "AttentionPoolingModel",
+                    "nextvlad_aggregate": "NeXtVladModel"}
     trained = {"lstm_recurrence_trainable": (training, "lstm_train"),
-               "gru_recurrence_trainable": (gru_training, "gru_train")}
+               "gru_recurrence_trainable": (gru_training, "gru_train"),
+               "nextvlad_aggregate_train": (nextvlad_training,
+                                            "nextvlad_train")}
     for row in rows:
         if row["name"] in trained:
             run, prefix = trained[row["name"]]

@@ -45,6 +45,17 @@ backward's dA on their streams. Attention pooling: max|diff| <= 1e-3 *
 max|ref| + 1e-5 (x, Q and the attention are rounded to bf16 on both
 sides; the softmax's f32 sums run in another order); frames past
 num_frames change nothing; num_frames = 0 is the mean over the F rows.
+NeXtVLAD, serving and trainable (the output and the five weight
+gradients): max|diff| <= 2^-7 * max|ref| + 1e-6 — x, xe and the
+assignment (and in the backward dv, d_act and d_xe) are rounded to bf16
+on both sides after f32 sums that run in another order, so a value at a
+rounding boundary lands one bf16 step (2^-8 to 2^-7 of itself) apart,
+and an xe value or assignment that dominates an element of a short
+video's intra-normalised row moves the element by up to that share of
+itself; the witness tests show that the plain steps fed the kernel's own
+bf16 streams differ only at rounding boundaries and that what follows
+them meets 1e-3 * max|ref| + 1e-6. The weight gradients are split-K sums
+added in a fixed order: a second run gives the same bits.
 """
 
 import numpy as np
@@ -64,6 +75,8 @@ from yt8m_tpu_torch.kernels import lstm_train as tlt
 from yt8m_tpu_torch.kernels import moe_head as tmoe
 from yt8m_tpu_torch.kernels import netvlad as tvlad
 from yt8m_tpu_torch.kernels import netvlad_train as tnt
+from yt8m_tpu_torch.kernels import nextvlad as tnv
+from yt8m_tpu_torch.kernels import nextvlad_train as tnvt
 from yt8m_tpu_torch.kernels import topk as ttopk
 from yt8m_tpu_torch.models import ModelHParams, get_model
 from yt8m_tpu_torch.train.losses import get_loss
@@ -982,3 +995,202 @@ def test_cuda_attention_pool_ignores_frames_past_num_frames(cuda, x_dtype):
                         torch.as_tensor(loud, dtype=x.dtype, device=cuda), x)
     assert torch.equal(tap.attention_pool(clean, nf, q),
                        tap.attention_pool(noisy, nf, q))
+
+
+# ---------------------------------------------------------------------------
+# NeXtVLAD: the serving aggregation and its trainable backward.
+# ---------------------------------------------------------------------------
+
+
+def _nextvlad_args(seed, b, f, d, lam, g, k, x_dtype, dev):
+    """Frames, num_frames (f, 0 and 1 planted), and the five weights at
+    the JAX initialisers' scales with a drawn attention bias."""
+    gen = torch.Generator().manual_seed(seed)
+    if x_dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, f, d), generator=gen, dtype=torch.uint8)
+    else:
+        x = torch.randn(b, f, d, generator=gen)
+    nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+    nf[: min(b, 3)] = torch.tensor([f, 0, 1], dtype=torch.int32)[: min(b, 3)]
+    de = lam * d
+    w = [torch.randn(d, de, generator=gen) * d ** -0.5,
+         torch.randn(de, g, generator=gen) * de ** -0.5,
+         0.5 * torch.randn(g, generator=gen),
+         torch.randn(de, g * k, generator=gen) * de ** -0.5,
+         torch.randn(k, de // g, generator=gen) * de ** -0.5]
+    return [t.to(dev) for t in (x, nf, *w)]
+
+
+def _nextvlad_close(got, want):
+    _close(got, want, rel=2.0 ** -7)
+
+
+NEXTVLAD_SHAPES = [(3, 10, 16, 2, 4, 12), (4, 70, 64, 2, 1, 128),
+                   (3, 13, 32, 1, 16, 96), (5, 300, 96, 3, 2, 130),
+                   (6, 300, 1152, 2, 8, 128), (2, 130, 1004, 2, 8, 256)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,f,d,lam,g,k", NEXTVLAD_SHAPES)
+def test_cuda_nextvlad_matches_plain(cuda, x_dtype, b, f, d, lam, g, k):
+    args = _nextvlad_args(b + f + d + k, b, f, d, lam, g, k, x_dtype, cuda)
+    before = tnv.nextvlad_aggregate.launches
+    got = tnv.nextvlad_aggregate(*args, g)
+    assert tnv.nextvlad_aggregate.launches == before + 1
+    assert got.shape == (b, k, lam * d // g)
+    assert torch.all(got[1] == 0)  # num_frames = 0
+    _nextvlad_close(got, tnv.nextvlad_aggregate_plain(*args, g))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_nextvlad_ignores_frames_past_num_frames(cuda, x_dtype):
+    x, nf, *w = _nextvlad_args(3, 16, 300, 1152, 2, 8, 128, x_dtype, cuda)
+    past = torch.arange(300, device=cuda)[None, :] >= nf[:, None]
+    loud = 255 if x_dtype == torch.uint8 else 1e4
+    clean = x.masked_fill(past[..., None], 0)
+    noisy = torch.where(past[..., None],
+                        torch.as_tensor(loud, dtype=x.dtype, device=cuda), x)
+    assert torch.equal(tnv.nextvlad_aggregate(clean, nf, *w, 8),
+                       tnv.nextvlad_aggregate(noisy, nf, *w, 8))
+
+
+def _nextvlad_train_grads(args, g, dy):
+    x, nf, *w = args
+    ws = [t.clone().requires_grad_() for t in w]
+    out = tnvt.nextvlad_aggregate_train(x, nf, *ws, g)
+    (out * dy).sum().backward()
+    return out.detach(), [t.grad for t in ws]
+
+
+@pytest.mark.parametrize("b,f,d,lam,g,k", NEXTVLAD_SHAPES)
+def test_cuda_nextvlad_train_matches_plain(cuda, b, f, d, lam, g, k):
+    """The Function's forward and its five weight gradients against the
+    plain versions; a second run gives the same bits (no atomics)."""
+    args = _nextvlad_args(b + f + k, b, f, d, lam, g, k, torch.uint8, cuda)
+    dy = torch.randn(b, k, lam * d // g,
+                     generator=torch.Generator().manual_seed(b)).to(cuda)
+    before = (tnvt.nextvlad_train_forward.launches,
+              tnvt.nextvlad_train_backward.launches)
+    out, grads = _nextvlad_train_grads(args, g, dy)
+    assert (tnvt.nextvlad_train_forward.launches,
+            tnvt.nextvlad_train_backward.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    _nextvlad_close(out, tnv.nextvlad_aggregate_plain(*args, g))
+    want = tnvt.nextvlad_aggregate_train_plain_backward(*args, dy, g)
+    for got, ref in zip(grads, want):
+        assert got.shape == ref.shape
+        _nextvlad_close(got, ref)
+    again = _nextvlad_train_grads(args, g, dy)[1]
+    for a, c in zip(grads, again):
+        assert torch.equal(a, c)
+
+
+def test_cuda_nextvlad_train_ignores_frames_past_num_frames(cuda):
+    """Large frames past num_frames leave every gradient bit for bit;
+    videos with num_frames = 0 alone give zero gradients."""
+    x, nf, *w = _nextvlad_args(4, 12, 300, 1152, 2, 8, 128, torch.float32,
+                               cuda)
+    dy = torch.randn(12, 128, 288,
+                     generator=torch.Generator().manual_seed(5)).to(cuda)
+    past = torch.arange(300, device=cuda)[None, :] >= nf[:, None]
+    clean = x.masked_fill(past[..., None], 0)
+    noisy = torch.where(past[..., None], 1e4, x)
+    a = _nextvlad_train_grads([clean, nf, *w], 8, dy)
+    c = _nextvlad_train_grads([noisy, nf, *w], 8, dy)
+    assert torch.equal(a[0], c[0])
+    for p, q in zip(a[1], c[1]):
+        assert torch.equal(p, q)
+    empty = _nextvlad_train_grads([x[1:2], nf[1:2].clone(), *w], 8,
+                                  dy[1:2])[1]
+    for grad in empty:
+        assert torch.all(grad == 0)
+
+
+def _witness_rounding(kernel, plain):
+    r = tlt.rounding_report(kernel, plain)
+    assert r.median <= 2.0 ** -14 and r.excess <= 1e-3, r
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_nextvlad_differs_only_by_bf16_rounding(cuda, x_dtype):
+    """Why the NeXtVLAD bound is 2^-7: fed the kernel's own bf16 frames
+    and xe, the plain xe and assignment round to the kernel's values but
+    at rounding boundaries, and the plain aggregation and norm on the
+    kernel's own roundings meet 1e-3 * max|ref| + 1e-6."""
+    x, nf, *w = _nextvlad_args(12, 32, 300, 1152, 2, 8, 128, x_dtype, cuda)
+    layout = tnv.kernel_layout(*w, 8)
+    out, scratch = tnv.nextvlad_aggregate_with_scratch(x, nf, layout)
+    pairs = tnv.forward_on_stream(x, nf, layout, scratch, out)
+    _witness_rounding(*pairs["xe"])
+    _witness_rounding(*pairs["assign"])
+    _close(*pairs["out"])
+
+
+def test_cuda_nextvlad_train_differs_only_by_bf16_rounding(cuda):
+    """The same for the backward: bf16(dv), bf16(d_act) and bf16(d_xe)
+    differ from the plain steps on the kernel's stream only at rounding
+    boundaries; dv, cdot, d_pre and the weight-gradient products on the
+    kernel's bf16 operands meet 1e-3 * max|ref| + 1e-6."""
+    x, nf, *w = _nextvlad_args(13, 24, 300, 1152, 2, 8, 128, torch.uint8,
+                               cuda)
+    dy = torch.randn(24, 128, 288,
+                     generator=torch.Generator().manual_seed(6)).to(cuda)
+    layout = tnv.kernel_layout(*w, 8, training=True)
+    _, res = tnvt.nextvlad_train_forward(x, nf, layout)
+    dwe, dwext, _, _, t = tnvt.nextvlad_train_backward_with_scratch(
+        nf, res, layout, dy)
+    pairs = tnvt.backward_on_stream(nf, res, layout, dy, dwe, dwext, t)
+    for name in ("dvb", "d_act", "d_xe"):
+        _witness_rounding(*pairs.pop(name))
+    for got, ref in pairs.values():
+        _close(got, ref)
+
+
+def test_cuda_nextvlad_rejects_what_the_kernel_cannot_take(cuda):
+    args = _nextvlad_args(1, 2, 5, 16, 2, 1, 300, torch.uint8, cuda)
+    with pytest.raises(ValueError, match="K <= 256"):
+        tnv.nextvlad_aggregate(*args, 1)
+    args = _nextvlad_args(1, 2, 5, 16, 2, 4, 12, torch.uint8, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tnv.nextvlad_aggregate(args[0].double(), *args[1:], 4)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tnv.nextvlad_aggregate(*args, 4, torch.float32)
+
+
+def test_cuda_nextvlad_model_matches_cpu(cuda):
+    """NeXtVladModel at small widths, bf16: serving and one training
+    forward and backward on the card and on the CPU from the same weights
+    and batch."""
+    hp = ModelHParams(vocab_size=40, feature_dim=128, max_frames=30,
+                      nextvlad_cluster_size=64, nextvlad_hidden_size=96,
+                      nextvlad_groups=4)
+    g = torch.Generator().manual_seed(3)
+    batch = {
+        "features": torch.randint(0, 256, (9, 30, 128), generator=g,
+                                  dtype=torch.uint8),
+        "num_frames": torch.tensor([30, 0, 1, 7, 29, 30, 12, 3, 18],
+                                   dtype=torch.int32),
+        "labels": (torch.rand(9, 40, generator=g) < 0.1).float(),
+        "batch_mask": torch.ones(9),
+    }
+    served, trained = [], []
+    for dev in (torch.device("cpu"), cuda):
+        model = get_model("NeXtVladModel", hp)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        with torch.no_grad():
+            served.append(model(batch["features"].to(dev),
+                                batch["num_frames"].to(dev))["predictions"])
+        model.train()
+        total, _, _, _ = compute_loss(
+            model, {k: v.to(dev) for k, v in batch.items()},
+            get_loss("CrossEntropyLoss"))
+        total.backward()
+        trained.append((total.item(), {
+            n: p.grad.double().norm().item()
+            for n, p in model.named_parameters()}))
+    assert (served[1].cpu() - served[0]).abs().max().item() <= 2e-3
+    (cpu_loss, cpu_norms), (gpu_loss, gpu_norms) = trained
+    assert abs(gpu_loss - cpu_loss) <= 2e-3 * abs(cpu_loss)
+    for n, v in cpu_norms.items():
+        assert abs(gpu_norms[n] - v) <= 2e-2 * max(v, 1e-6), n
