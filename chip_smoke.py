@@ -29,12 +29,19 @@ Phases, one line each with the elapsed seconds:
      forward with residuals and the backward's five weight gradients) at
      NeXtVladModel's training shape (B=256) and at small and odd shapes,
      with a second run held bit for bit; NeXtVLAD's rounding witnesses,
-     forward and backward;
+     forward and backward; the int8 DBoF kernel at DbofModel's B=2048
+     with its int8-vs-bf16 deviation, DBoF v1 at B=2048 and the sampled
+     DBoF at B=2048, F=300 beside DbofModel's own route (the gather, then
+     v2; timed route, fused, fused, route), and dequant_affine_matmul at the
+     flagship's first LSTM input projection over raw frames (M=153,600,
+     D=1152, N=4096, bf16) and over the audio features (D=128, N=1024,
+     f32), each with edge shapes and the DBoF ones with planted hazards;
   4. serving end to end through the inference CLI over synthetic
      frame-level TFRecords, for each path with the launch counts set to
      0 just before it and read just after: DbofModel at the reference
      width (K=8192, H=1024, 30 frames, MoE M=2 over 4716 classes, bf16),
-     the flagship NetVladLstmModel at the JAX defaults (all 300 frames
+     the same with --dbof_int8_serving (one int8 launch and no bf16 DBoF
+     launch a batch), the flagship NetVladLstmModel at the JAX defaults (all 300 frames
      masked by num_frames, D=1152, VLAD K=256 with hidden 1024, BN and
      context gating, LSTM 2 x 1024 with last pooling, MoE M=2 over 4716
      classes, bf16), GruModel (GRU 2 x 1024, last pooling, MoE M=2, bf16),
@@ -43,7 +50,7 @@ Phases, one line each with the elapsed seconds:
      1024 with BN and context gating, MoE M=2 over 4716, bf16); CSV
      checks, and 8 videos compared with the same model on the CPU;
   5. each serving step alone on frames already on the card (DbofModel at
-     B=2048, the others at B=512): median step time of 5, and device
+     B=2048 with and without --dbof_int8_serving, the others at B=512): median step time of 5, and device
      time by kernel from torch.profiler;
   6. training through make_train_step (bf16, Adam at the config
      defaults, per-variable clip 1.0) with the launch counts set to 0
@@ -70,7 +77,9 @@ Phases, one line each with the elapsed seconds:
      before and read just after; the checkpoint's size and its save and
      restore seconds; 8 eval videos from the checkpoint on the card and
      on the CPU; then GruModel and NeXtVladModel each through cli.train
-     (2 steps) -> cli.eval --run_once -> cli.inference on the same videos.
+     (2 steps) -> cli.eval --run_once -> cli.inference on the same videos,
+     and DbofModel the same way, served by eval and inference with
+     --dbof_int8_serving.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -80,6 +89,16 @@ Tolerances, max|kernel - plain| on the same inputs:
     to bf16 at the same points (elementwise, in the same order); only the
     summation order of the products differs.
   * top-k: exactly equal.
+  * int8 DBoF: bit for bit. The integer sums are exact on both sides (the
+    plain version multiplies in float64, exact below 2^53; float32 would
+    round sums above 2^24), each is converted to f32 once, and the
+    affine runs unfused on both. Its deviation from the bf16 plain
+    version, max|int8 - bf16| / mean|bf16|, is printed (the CPU tests
+    hold the port's int8 path to the JAX test's 0.10 at its shape).
+  * sampled DBoF: bit for bit with v2 on the gathered frames (the same
+    affine rounding, the same product); DBoF v1 and dequant_affine_matmul
+    in bf16 (D >= 512): the DBoF bound; dequant_affine_matmul in f32
+    (D < 512): <= 1e-5 * max|ref| + 1e-6.
   * NetVLAD: <= 2^-8 * max|ref| + 1e-6. The assignment is rounded to
     bf16 after a softmax whose f32 max and sum run in another order in
     the two versions; where a value lies within their last-bit
@@ -166,9 +185,10 @@ import time
 T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM datasheet peaks (dense): bf16 tensor cores, f32 outside them,
-# device memory rate.
+# H100 SXM datasheet peaks (dense): bf16 and int8 tensor cores, f32
+# outside them, device memory rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -287,6 +307,13 @@ def dbof_inputs(torch, gen, b, s, d, k, x_dtype, dev):
     return [t.to(dev) for t in (x, w, s_in, b_in, s_act, b_act)]
 
 
+def dbof_library(torch, x, w, s_in, b_in, s_act, b_act):
+    """Row 1's yardstick: the affine, a bf16 matmul, the epilogue, amax."""
+    xa = (x.to(torch.float32) * s_in + b_in).to(torch.bfloat16)
+    act = torch.matmul(xa, w.to(torch.bfloat16)).to(torch.float32)
+    return torch.amax(torch.relu(act * s_act + b_act), dim=1)
+
+
 def check_dbof(torch, gen, dev, flush) -> dict:
     from yt8m_tpu_torch.kernels.dbof import (
         dbof_cluster_maxpool_plain,
@@ -322,17 +349,11 @@ def check_dbof(torch, gen, dev, flush) -> dict:
     torch.cuda.synchronize()
     err = rel_check("dbof_cluster_maxpool_v2", got, want)
     del want
-    x, w, s_in, b_in, s_act, b_act = args
-
-    def library():
-        xa = (x.to(torch.float32) * s_in + b_in).to(torch.bfloat16)
-        act = torch.matmul(xa, w).to(torch.float32)
-        return torch.amax(torch.relu(act * s_act + b_act), dim=1)
-
     ms = time_ms(torch, lambda: dbof_cluster_maxpool_v2(*args), 10, flush)
     plain_ms = time_ms(torch, lambda: dbof_cluster_maxpool_plain(*args), 3,
                        flush)
-    library_ms = time_ms(torch, library, 5, flush)
+    library_ms = time_ms(torch, lambda: dbof_library(torch, *args), 5,
+                         flush)
     flops = 2.0 * BATCH * FRAMES * FEATURE_DIM * CLUSTERS
     nbytes = (BATCH * FRAMES * FEATURE_DIM + FEATURE_DIM * CLUSTERS * 2
               + 4 * (2 * FEATURE_DIM + 2 * CLUSTERS) + BATCH * CLUSTERS * 4)
@@ -931,21 +952,34 @@ def lstm_witness(torch, name, args, reverse) -> None:
                                                      wh, reverse))
 
 
-def device_us(torch, fn, needle: str) -> float:
-    """Device time (us) of the kernels whose name holds `needle` in one
-    call of fn (torch.profiler)."""
+def device_kernels(torch, fn, needle) -> dict:
+    """Device time (us) by kernel name of the kernels whose name holds
+    `needle` (or one of a tuple of needles) in one call of fn
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # A window can lose its first kernel (a one-kernel call read 0 us
-        # on the card): a small kernel of no interest goes first.
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if needle in e.key)
+    needles = (needle,) if isinstance(needle, str) else needle
+    # A window can lose a kernel (a one-kernel call read 0 us on the
+    # card, twice): a small kernel of no interest goes first, and a
+    # window that saw none of fn's is run again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and any(n in e.key for n in needles)}
+        if seen:
+            return seen
+    check(False, f"the profiler saw no kernel named {needles} in 3 windows")
+
+
+def device_us(torch, fn, needle) -> float:
+    """The summed device time (us) of device_kernels."""
+    return sum(device_kernels(torch, fn, needle).values())
 
 
 def check_lstm_train(torch, gen, dev, flush) -> dict:
@@ -2033,18 +2067,327 @@ def check_nextvlad_train(torch, gen, dev, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (cont.): the int8, v1 and sampled DBoF kernels, dequant matmul
+# ---------------------------------------------------------------------------
+
+
+def int8_inputs(torch, gen, b, s, d, k, dev):
+    """Raw frames, the f32 cluster kernel and folded vectors of
+    dbof_inputs, and the int8 constants built from them."""
+    from yt8m_tpu_torch.kernels.dbof import int8_serving_constants
+
+    x, w, s_in, b_in, s_act, b_act = dbof_inputs(torch, gen, b, s, d, k,
+                                                 torch.uint8, dev)
+    consts = int8_serving_constants(w.float(), s_in, b_in, s_act, b_act)
+    return [x, *consts], [x, w, s_in, b_in, s_act, b_act]
+
+
+def check_dbof_int8(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.dbof import (
+        dbof_cluster_maxpool_int8,
+        dbof_cluster_maxpool_int8_plain,
+        dbof_cluster_maxpool_plain,
+    )
+
+    # Edge cases, each bit for bit: ragged B and K, S < 32, S = 64 (two
+    # launches), the serving widths at B=5; and the padded-row hazard
+    # (every real row negative before the ReLU, an int8 zero row, the raw
+    # byte 128, would give relu(b_col) = 3).
+    for b, s, d, k in ((7, 5, 64, 200), (9, 32, 96, 136), (3, 64, 128, 48),
+                       (5, 30, 1152, 8192)):
+        args, _ = int8_inputs(torch, gen, b, s, d, k, dev)
+        check(torch.equal(dbof_cluster_maxpool_int8(*args),
+                          dbof_cluster_maxpool_int8_plain(*args)),
+              f"dbof int8 edge B={b} S={s} D={d} K={k}: not bit for bit")
+    (x, w8, a_col, _), _ = int8_inputs(torch, gen, 6, 30, 64, 64, dev)
+    # acc <= -72 * 127 a column: with a_col = 1 every real row is < 0.
+    x, w8, a_col = torch.clamp(x, min=200), -w8.abs(), torch.ones_like(a_col)
+    b_col = torch.full_like(a_col, 3.0)
+    check(bool(torch.all(dbof_cluster_maxpool_int8_plain(
+        x, w8, a_col, b_col) == 0)), "dbof int8 hazard: plain not all 0")
+    check(bool(torch.all(dbof_cluster_maxpool_int8(x, w8, a_col, b_col)
+                         == 0)),
+          "dbof int8: padded frame rows leaked into the max")
+
+    args, bf16_args = int8_inputs(torch, gen, BATCH, FRAMES, FEATURE_DIM,
+                                  CLUSTERS, dev)
+    got = dbof_cluster_maxpool_int8(*args)
+    want = dbof_cluster_maxpool_int8_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"dbof_cluster_maxpool_int8: not bit for bit, max|diff| "
+          f"{(got - want).abs().max().item():.3e}")
+    ref = dbof_cluster_maxpool_plain(*bf16_args)
+    deviation = ((got - ref).abs().max() / ref.abs().mean()).item()
+    del want, ref
+    x, w8, a_col, b_col = args
+
+    def library():
+        xi = (x ^ 128).view(torch.int8).reshape(-1, FEATURE_DIM)
+        acc = torch._int_mm(xi, w8).to(torch.float32)
+        act = torch.relu(acc * a_col + b_col)
+        return torch.amax(act.reshape(BATCH, FRAMES, CLUSTERS), dim=1)
+
+    check(torch.equal(library(), got), "int8 library yardstick differs")
+    ms = time_ms(torch, lambda: dbof_cluster_maxpool_int8(*args), 10, flush)
+    us = device_us(torch, lambda: dbof_cluster_maxpool_int8(*args),
+                   "dbof_int8")
+    plain_ms = time_ms(torch, lambda: dbof_cluster_maxpool_int8_plain(*args),
+                       3, flush)
+    library_ms = time_ms(torch, library, 5, flush)
+    ops = 2.0 * BATCH * FRAMES * FEATURE_DIM * CLUSTERS
+    nbytes = (BATCH * FRAMES * FEATURE_DIM + FEATURE_DIM * CLUSTERS
+              + 4 * 2 * CLUSTERS + BATCH * CLUSTERS * 4)
+    bound_ms, bound_by = bound(ops, nbytes, PEAK_INT8_OPS)
+    say("kernel", f"dbof_cluster_maxpool_int8 B={BATCH}: bit for bit with "
+                  f"its plain version (and the edge cases, the hazard); "
+                  f"{us / 1e3:.4f} ms (profiler; events {ms:.4f}); "
+                  f"max|int8 - bf16 plain| / mean|bf16 plain| "
+                  f"{deviation:.4f} (the JAX test bounds it at 0.10 on "
+                  f"16 x 7 x 256 x 256)")
+    return {
+        "name": "dbof_cluster_maxpool_int8", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/dbof_int8.cu",
+        "replaces": "yt8m_tpu/kernels/dbof.py:287",
+        "max_abs_err": 0.0, "ms": us / 1e3, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_events": ms,
+        "int8_vs_bf16": deviation,
+    }
+
+
+# The kernels of a DBoF wrapper's call: csrc/dbof.cu's and the shared
+# launches of csrc/input_affine.cuh (the input affine, the W rounding).
+SHARED_LAUNCHES = "inaff::"
+WHOLE_DBOF = ("dbof", SHARED_LAUNCHES)
+
+
+def whole_call_us(torch, fn, needles, name) -> float:
+    """device_us over every kernel of a wrapper's call, each printed."""
+    seen = device_kernels(torch, fn, needles)
+    for key, us in seen.items():
+        say("kernel", f"{name}: {us / 1e3:.4f} ms {key[:80]}")
+    return sum(seen.values())
+
+
+def check_dbof_v1(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.dbof import (
+        dbof_cluster_maxpool,
+        dbof_cluster_maxpool_v1_plain,
+    )
+
+    def f32_weights(args):
+        x, w, *vec = args
+        return [x, w.float() + 1e-3 * torch.randn(
+            w.shape, generator=gen).to(dev), *vec]
+
+    for b, s, d, k, dt in ((7, 5, 64, 200, torch.uint8),
+                           (9, 32, 96, 136, torch.float32),
+                           (3, 40, 96, 64, torch.uint8)):
+        args = f32_weights(dbof_inputs(torch, gen, b, s, d, k, dt, dev))
+        rel_check(f"dbof v1 edge B={b} S={s} D={d} K={k} {dt}",
+                  dbof_cluster_maxpool(*args),
+                  dbof_cluster_maxpool_v1_plain(*args))
+    args = f32_weights(dbof_inputs(torch, gen, BATCH, FRAMES, FEATURE_DIM,
+                                   CLUSTERS, torch.uint8, dev))
+    got = dbof_cluster_maxpool(*args)
+    err = rel_check("dbof_cluster_maxpool (v1)", got,
+                    dbof_cluster_maxpool_v1_plain(*args))
+    ms = time_ms(torch, lambda: dbof_cluster_maxpool(*args), 10, flush)
+    us = whole_call_us(torch, lambda: dbof_cluster_maxpool(*args),
+                       WHOLE_DBOF, "dbof_cluster_maxpool (v1)")
+    plain_ms = time_ms(
+        torch, lambda: dbof_cluster_maxpool_v1_plain(*args), 3, flush)
+    library_ms = time_ms(torch, lambda: dbof_library(torch, *args), 5,
+                         flush)
+    flops = 2.0 * BATCH * FRAMES * FEATURE_DIM * CLUSTERS
+    nbytes = (BATCH * FRAMES * FEATURE_DIM + FEATURE_DIM * CLUSTERS * 4
+              + 4 * (2 * FEATURE_DIM + 2 * CLUSTERS) + BATCH * CLUSTERS * 4)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    return {
+        "name": "dbof_cluster_maxpool", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/dbof.cu",
+        "replaces": "yt8m_tpu/kernels/dbof.py:65",
+        "max_abs_err": err, "ms": us / 1e3, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_events": ms, "on_main_path": False,
+    }
+
+
+def sampled_inputs(torch, gen, b, f, d, s, k, dev):
+    x, w, *vec = dbof_inputs(torch, gen, b, f, d, k, torch.uint8, dev)
+    idx = torch.randint(0, f, (b, s), generator=gen, dtype=torch.int32)
+    return [x, idx.to(dev), w, *vec]
+
+
+def check_dbof_sampled(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.dbof import (
+        dbof_cluster_maxpool_v2,
+        dbof_sampled_cluster_maxpool,
+        dbof_sampled_cluster_maxpool_plain,
+        sampled_frames_plain,
+    )
+
+    def gathered_v2(x, idx, w, *vec):
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        return dbof_cluster_maxpool_v2(x[rows, idx.long()], w, *vec)
+
+    # Edge cases, each equal to v2 on the gathered frames bit for bit;
+    # indices outside [0, F) select a zero frame.
+    for b, f, d, s, k in ((7, 300, 64, 5, 200), (9, 40, 96, 32, 136)):
+        args = sampled_inputs(torch, gen, b, f, d, s, k, dev)
+        check(torch.equal(dbof_sampled_cluster_maxpool(*args),
+                          gathered_v2(*args)),
+              f"dbof sampled edge B={b} F={f} S={s}: differs from v2 on the "
+              f"gathered frames")
+    x, idx, w, *vec = sampled_inputs(torch, gen, 4, 10, 64, 6, 32, dev)
+    idx[0, :3] = torch.tensor([-1, 10, 1 << 30], dtype=torch.int32)
+    idx[2] = -7
+    check(torch.equal(
+        dbof_sampled_cluster_maxpool(x, idx, w, *vec),
+        dbof_cluster_maxpool_v2(sampled_frames_plain(x, idx), w, *vec)),
+        "dbof sampled: an out-of-range index is not a zero frame")
+
+    # DbofModel's route at F=300: the sampler's gather, then v2.
+    args = sampled_inputs(torch, gen, BATCH, FLAG_FRAMES, FEATURE_DIM,
+                          FRAMES, CLUSTERS, dev)
+    got = dbof_sampled_cluster_maxpool(*args)
+    check(torch.equal(got, gathered_v2(*args)),
+          "dbof_sampled_cluster_maxpool: differs from v2 on the gathered "
+          "frames")
+    err = rel_check("dbof_sampled_cluster_maxpool", got,
+                    dbof_sampled_cluster_maxpool_plain(*args))
+    x, idx, w, *vec = args
+    fused = lambda: dbof_sampled_cluster_maxpool(*args)  # noqa: E731
+    route = lambda: gathered_v2(*args)  # noqa: E731
+    ab = {"fused": [], "route": []}
+    for name in ("route", "fused", "fused", "route"):
+        ab[name].append(time_ms(torch, fused if name == "fused" else route,
+                                10, flush))
+    us = whole_call_us(torch, fused, WHOLE_DBOF,
+                       "dbof_sampled_cluster_maxpool")
+    plain_ms = time_ms(torch, lambda: dbof_sampled_cluster_maxpool_plain(
+        *args), 3, flush)
+
+    def library():
+        xs = torch.index_select(x.reshape(-1, FEATURE_DIM), 0, (
+            torch.arange(BATCH, device=dev)[:, None] * FLAG_FRAMES
+            + idx).reshape(-1)).reshape(BATCH, FRAMES, FEATURE_DIM)
+        return dbof_library(torch, xs, w, *vec)
+
+    library_ms = time_ms(torch, library, 5, flush)
+    flops = 2.0 * BATCH * FRAMES * FEATURE_DIM * CLUSTERS
+    nbytes = (BATCH * FRAMES * (FEATURE_DIM + 4) + FEATURE_DIM * CLUSTERS * 2
+              + 4 * (2 * FEATURE_DIM + 2 * CLUSTERS) + BATCH * CLUSTERS * 4)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    fused_ms = statistics.median(ab["fused"])
+    route_ms = statistics.median(ab["route"])
+    say("kernel", f"dbof sampled A/B at B={BATCH} F={FLAG_FRAMES} S={FRAMES} "
+                  f"(route, fused, fused, route): DbofModel's route (gather "
+                  f"+ v2) {ab['route']} ms, the fused gather {ab['fused']} "
+                  f"ms; median {route_ms:.4f} vs {fused_ms:.4f} ms")
+    return {
+        "name": "dbof_sampled_cluster_maxpool", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/dbof.cu",
+        "replaces": "yt8m_tpu/kernels/dbof.py:439",
+        "max_abs_err": err, "ms": us / 1e3, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "ms_events": fused_ms,
+        "ms_gather_then_v2": route_ms, "on_main_path": False,
+    }
+
+
+def dequant_inputs(torch, gen, m, d, n, dev):
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+
+    x = torch.randint(0, 256, (m, d), generator=gen, dtype=torch.uint8)
+    w = torch.randn(d, n, generator=gen) * d ** -0.5
+    scale = DEQUANT_SCALE * (0.5 + torch.rand(d, generator=gen))
+    bias = DEQUANT_BIAS * scale + 0.1 * torch.randn(d, generator=gen)
+    return [t.to(dev) for t in (x, w, scale, bias)]
+
+
+def check_dequant_matmul(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.dequant_matmul import (
+        compute_dtype,
+        dequant_affine_matmul,
+        dequant_affine_matmul_plain,
+    )
+
+    def rel(d):  # bf16 operands from D = 512, f32 below
+        return 1e-3 if compute_dtype(d) == torch.bfloat16 else 1e-5
+
+    for m, d, n in ((37, 128, 200), (5, 64, 7), (70, 512, 130),
+                    (9, 1000, 1000), (4097, 1152, 257)):
+        args = dequant_inputs(torch, gen, m, d, n, dev)
+        rel_check(f"dequant_affine_matmul edge M={m} D={d} N={n}",
+                  dequant_affine_matmul(*args),
+                  dequant_affine_matmul_plain(*args), rel=rel(d), abs_=1e-6)
+    # The flagship's first LSTM input projection over raw frames (bf16),
+    # and the 128 audio features' (f32).
+    row = {}
+    for m, d, n, peak, tag in ((FLAG_BATCH * FLAG_FRAMES, FEATURE_DIM, 4096,
+                                PEAK_BF16_FLOPS, ""),
+                               (FLAG_BATCH * FLAG_FRAMES, 128, 1024,
+                                PEAK_F32_FLOPS, "_f32")):
+        args = dequant_inputs(torch, gen, m, d, n, dev)
+        got = dequant_affine_matmul(*args)
+        want = dequant_affine_matmul_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_check(f"dequant_affine_matmul M={m} D={d} N={n}", got,
+                        want, rel=rel(d), abs_=1e-6)
+        del got, want
+        x, w, scale, bias = args
+        dt = compute_dtype(d)
+
+        def library():
+            xa = (x.to(torch.float32) * scale + bias).to(dt)
+            return torch.matmul(xa, w.to(dt)).to(torch.float32)
+
+        ms = time_ms(torch, lambda: dequant_affine_matmul(*args), 5, flush)
+        us = whole_call_us(torch, lambda: dequant_affine_matmul(*args),
+                           ("dequant", SHARED_LAUNCHES),
+                           f"dequant_affine_matmul {dt}")
+        plain_ms = time_ms(
+            torch, lambda: dequant_affine_matmul_plain(*args), 3, flush)
+        library_ms = time_ms(torch, library, 5, flush)
+        bound_ms, bound_by = bound(2.0 * m * d * n,
+                                   m * d + d * n * 4 + 8 * d + m * n * 4,
+                                   peak)
+        row.update({f"max_abs_err{tag}": err, f"ms{tag}": us / 1e3,
+                    f"ms_events{tag}": ms, f"plain_ms{tag}": plain_ms,
+                    f"bound_ms{tag}": bound_ms, f"bound_by{tag}": bound_by,
+                    f"library_ms{tag}": library_ms})
+        say("kernel", f"dequant_affine_matmul M={m} D={d} N={n} ({dt}): "
+                      f"{us / 1e3:.4f} ms (profiler; events {ms:.4f}); bound "
+                      f"{bound_ms:.4f} by {bound_by}; plain {plain_ms:.4f}; "
+                      f"library {library_ms:.4f}")
+        del args, x, w
+        torch.cuda.empty_cache()
+    row.update({
+        "name": "dequant_affine_matmul", "route": "cuda",
+        "source": "yt8m_tpu_torch/kernels/csrc/dequant_matmul.cu",
+        "replaces": "yt8m_tpu/kernels/dequant_matmul.py:50",
+        "on_main_path": False,
+    })
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving end to end, DbofModel and the flagship
 # ---------------------------------------------------------------------------
 
 
-def make_model(torch, seed: int):
+def make_model(torch, seed: int, int8: bool = False):
+    """DbofModel at the reference width, weights from a seed, BN
+    statistics and biases drawn; `int8` is --dbof_int8_serving."""
     from yt8m_tpu_torch.models import ModelHParams, get_model
 
     hp = ModelHParams(
         vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=300,
         dbof_cluster_size=CLUSTERS, dbof_hidden_size=HIDDEN,
         iterations=FRAMES, moe_num_mixtures=MIXTURES,
-        compute_dtype="bfloat16",
+        compute_dtype="bfloat16", dbof_int8_serving=int8,
     )
     model = get_model("DbofModel", hp)
     gen = torch.Generator().manual_seed(seed)
@@ -2172,9 +2515,14 @@ def make_nextvlad_model(torch, seed: int):
     return hp, model.eval()
 
 
+# A path's name is the model's, then the CLI flags it runs with; the
+# kernels it must launch.
 PATHS = {
     "DbofModel": (make_model, ("dbof_cluster_maxpool_v2",
                                "moe_head_serving", "exact_topk")),
+    "DbofModel --dbof_int8_serving": (
+        lambda torch, seed: make_model(torch, seed, int8=True),
+        ("dbof_cluster_maxpool_int8", "moe_head_serving", "exact_topk")),
     "NetVladLstmModel": (make_flagship_model, ("netvlad_aggregate",
                                                "lstm_recurrence",
                                                "moe_head_serving",
@@ -2192,7 +2540,13 @@ PATHS = {
 
 def kernel_wrappers():
     from yt8m_tpu_torch.kernels.attention_pool import attention_pool
-    from yt8m_tpu_torch.kernels.dbof import dbof_cluster_maxpool_v2
+    from yt8m_tpu_torch.kernels.dbof import (
+        dbof_cluster_maxpool,
+        dbof_cluster_maxpool_int8,
+        dbof_cluster_maxpool_v2,
+        dbof_sampled_cluster_maxpool,
+    )
+    from yt8m_tpu_torch.kernels.dequant_matmul import dequant_affine_matmul
     from yt8m_tpu_torch.kernels.gru import gru_recurrence
     from yt8m_tpu_torch.kernels.gru_train import (
         gru_train_backward,
@@ -2222,7 +2576,9 @@ def kernel_wrappers():
         lstm_train_backward, netvlad_core_forward, netvlad_core_backward,
         gru_recurrence, gru_train_forward, gru_train_backward,
         attention_pool, nextvlad_aggregate, nextvlad_train_forward,
-        nextvlad_train_backward)}
+        nextvlad_train_backward, dbof_cluster_maxpool_int8,
+        dbof_cluster_maxpool, dbof_sampled_cluster_maxpool,
+        dequant_affine_matmul)}
 
 
 def zero_launches():
@@ -2286,49 +2642,55 @@ def compare_with_cpu(torch, model, make, data_pattern, dev) -> float:
     return err
 
 
-def end_to_end(torch, dev, data, model_name) -> dict:
-    """The inference CLI over `data` with `model_name`, its launch counts
-    set to 0 just before and read just after."""
+def end_to_end(torch, dev, data, path) -> dict:
+    """The inference CLI over `data` on `path` (a model and its flags),
+    its launch counts set to 0 just before and read just after."""
     from yt8m_tpu_torch.cli import inference as inference_cli
     from yt8m_tpu_torch.convert import save_checkpoint
 
-    make, names = PATHS[model_name]
+    make, names = PATHS[path]
+    model_name, *flags = path.split()
     hp, model = make(torch, seed=0)
-    run = os.path.join(os.path.dirname(data), f"run_{model_name}")
+    tag = "_".join(path.replace("-", "").split())
+    run = os.path.join(os.path.dirname(data), f"run_{tag}")
     save_checkpoint(run, model, model_name, hp, frame_features=True,
                     feature_names="rgb,audio", feature_sizes="1024,128",
                     num_classes=CLASSES, max_frames=300,
                     label_loss="CrossEntropyLoss")
-    out_csv = os.path.join(os.path.dirname(data), f"{model_name}.csv")
+    out_csv = os.path.join(os.path.dirname(data), f"{tag}.csv")
     argv = [
         f"--input_data_pattern={data}/test-*.tfrecord",
         f"--train_dir={run}", f"--output_file={out_csv}",
         f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
         "--frame_features=true", "--feature_names=rgb,audio",
         "--feature_sizes=1024,128", f"--model={model_name}",
-        f"--device={dev.type}",
+        f"--device={dev.type}", *flags,
     ]
     wrappers = zero_launches()
     stats = inference_cli.main(argv)
     launches = read_launches(torch, wrappers)
-    say("e2e", f"{model_name} inference CLI: {stats['num_videos']} videos, "
+    say("e2e", f"{path} inference CLI: {stats['num_videos']} videos, "
                f"{stats['videos_per_sec']:.1f} videos/s (batch {E2E_BATCH}, "
                f"reader included); launches {launches}")
     for name in names:
         check(launches[name] > 0,
-              f"{name} was not launched on the {model_name} path")
+              f"{name} was not launched on the {path} path")
+    if "--dbof_int8_serving" in flags:
+        batches = -(-E2E_VIDEOS // E2E_BATCH)
+        check(launches["dbof_cluster_maxpool_int8"] == batches
+              and launches["dbof_cluster_maxpool_v2"] == 0,
+              f"{path}: want {batches} int8 and 0 v2 launches")
     check(stats["num_videos"] == E2E_VIDEOS, "video count")
     check(stats["nonfinite_predictions"] == 0, "non-finite predictions")
     check(check_csv(out_csv) == E2E_VIDEOS, "CSV line count")
-    say("e2e", f"{model_name} CSV ok: {E2E_VIDEOS} lines of {TOP_K} pairs")
+    say("e2e", f"{path} CSV ok: {E2E_VIDEOS} lines of {TOP_K} pairs")
     err = compare_with_cpu(torch, model.to(dev), make,
                            f"{data}/test-*.tfrecord", dev)
-    say("e2e", f"{model_name} 8 videos card vs CPU: max|diff| {err:.3e} "
+    say("e2e", f"{path} 8 videos card vs CPU: max|diff| {err:.3e} "
                f"<= 2e-3")
     del model
     shutil.rmtree(run, ignore_errors=True)
-    return {"launches": {n: launches[n] for n in names},
-            "videos_per_sec": stats["videos_per_sec"]}
+    return {"launches": launches, "videos_per_sec": stats["videos_per_sec"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2353,7 +2715,14 @@ def profile_step(torch, dev, model_name, batch) -> dict:
     step = make_topk_predict_step(model, TOP_K)
     for _ in range(2):
         step(feats, nf, gen)
-    torch.cuda.synchronize()
+    wrappers = zero_launches()
+    step(feats, nf, gen)
+    launches = {k: v for k, v in read_launches(torch, wrappers).items() if v}
+    say("step", f"{model_name} launches in one step: {launches}")
+    if model_name.endswith("--dbof_int8_serving"):
+        check(launches.get("dbof_cluster_maxpool_int8") == 1
+              and "dbof_cluster_maxpool_v2" not in launches,
+              "int8 serving step: want 1 int8 and 0 v2 launches")
     times = []
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
@@ -2376,7 +2745,7 @@ def profile_step(torch, dev, model_name, batch) -> dict:
     del model, feats
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    return {"step_ms": step_ms, "idle_share": idle}
+    return {"step_ms": step_ms, "idle_share": idle, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2897,13 +3266,14 @@ def cli_workflow(torch, dev, work, data) -> dict:
 
 
 def short_workflow(torch, dev, work, data, model, flags, train_want,
-                   serve) -> dict:
+                   serve, serve_flags=(), serve_absent=()) -> dict:
     """train -> eval -> inference through the port's CLIs with `model` at
     full width (2 steps at B=256, a checkpoint at step 2) on the
     workflow's TFRecords under `data`: `train_want` maps each training
     kernel to its launches in the 2 steps, `serve` names the kernels eval
-    and inference must launch; launch counts set to 0 before each CLI and
-    read after it."""
+    and inference (run with `serve_flags`) must launch and `serve_absent`
+    those they must not; launch counts set to 0 before each CLI and read
+    after it."""
     from yt8m_tpu_torch.cli import eval as eval_cli
     from yt8m_tpu_torch.cli import inference as inference_cli
     from yt8m_tpu_torch.cli import train as train_cli
@@ -2944,7 +3314,7 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
         out_eval = eval_cli.main([
             f"--eval_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", "--run_once", f"--batch_size={E2E_BATCH}",
-            f"--device={dev.type}"])
+            f"--device={dev.type}", *serve_flags])
         launches["eval"] = read_launches(torch, wrappers)
         mean_ap = float(sum(out_eval["aps"]) / len(out_eval["aps"]))
         say("workflow", f"{model} cli.eval: step {out_eval['step']}, GAP "
@@ -2965,7 +3335,7 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
             f"--input_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", f"--output_file={out_csv}",
             f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
-            f"--device={dev.type}"])
+            f"--device={dev.type}", *serve_flags])
         launches["inference"] = read_launches(torch, wrappers)
         check(stats["nonfinite_predictions"] == 0
               and check_csv(out_csv) == WF_EVAL_VIDEOS,
@@ -2973,6 +3343,10 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
         for fn in serve:
             check(launches["eval"][fn] > 0 and launches["inference"][fn] > 0,
                   f"{model} cli.eval or cli.inference did not launch {fn}")
+        for fn in serve_absent:
+            check(launches["eval"][fn] == 0
+                  and launches["inference"][fn] == 0,
+                  f"{model} cli.eval or cli.inference launched {fn}")
         say("workflow", f"{model} cli.inference: {stats['num_videos']} "
                         f"videos, {stats['videos_per_sec']:.1f} videos/s, CSV"
                         f" ok; launches {launches['inference']}")
@@ -3015,7 +3389,8 @@ def main() -> int:
     for fn in (check_dbof, check_moe, check_topk, check_netvlad, check_lstm,
                check_lstm_train, check_netvlad_core, check_gru,
                check_gru_train, check_attention_pool, check_nextvlad,
-               check_nextvlad_train):
+               check_nextvlad_train, check_dbof_int8, check_dbof_v1,
+               check_dbof_sampled, check_dequant_matmul):
         row = fn(torch, gen, dev, flush)
         say_row("(kernels line)", row)
         rows.append(row)
@@ -3039,11 +3414,16 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    profile_step(torch, dev, "DbofModel", BATCH)
-    profile_step(torch, dev, "NetVladLstmModel", FLAG_BATCH)
-    profile_step(torch, dev, "GruModel", FLAG_BATCH)
-    profile_step(torch, dev, "AttentionPoolingModel", FLAG_BATCH)
-    profile_step(torch, dev, "NeXtVladModel", FLAG_BATCH)
+    bf16_step = profile_step(torch, dev, "DbofModel", BATCH)
+    int8_step = profile_step(torch, dev, "DbofModel --dbof_int8_serving",
+                             BATCH)
+    say("step", f"DbofModel B={BATCH} serving step in one call: bf16 "
+                f"{bf16_step['step_ms']:.3f} ms, --dbof_int8_serving "
+                f"{int8_step['step_ms']:.3f} ms")
+    steps = [bf16_step, int8_step] + [
+        profile_step(torch, dev, name, FLAG_BATCH)
+        for name in ("NetVladLstmModel", "GruModel", "AttentionPoolingModel",
+                     "NeXtVladModel")]
     training = train_flagship(torch, dev)
     fused = train_flagship(torch, dev, fused=True)
     say("train", f"NetVladLstmModel B={TRAIN_BATCH} training step in one "
@@ -3064,33 +3444,48 @@ def main() -> int:
         data = workflow_data(work)
         workflow = cli_workflow(torch, dev, work, data)
         gru_want = 2 * GRU_LAYERS * 2 * FLAG_FRAMES
-        short_workflow(torch, dev, work, data, "GruModel",
-                       [f"--gru_cells={GRU_CELLS}",
-                        f"--gru_layers={GRU_LAYERS}"],
-                       {"gru_train_forward": gru_want,
-                        "gru_train_backward": gru_want},
-                       ("exact_topk", "gru_recurrence", "moe_head_serving"))
-        short_workflow(torch, dev, work, data, "NeXtVladModel",
-                       [f"--nextvlad_expansion={NEXTVLAD_LAMBDA}",
-                        f"--nextvlad_groups={NEXTVLAD_GROUPS}",
-                        f"--nextvlad_cluster_size={NEXTVLAD_CLUSTERS}",
-                        f"--nextvlad_hidden_size={NEXTVLAD_HIDDEN}"],
-                       {"nextvlad_train_forward": 2,
-                        "nextvlad_train_backward": 2,
-                        "nextvlad_aggregate": 0},
-                       ("exact_topk", "nextvlad_aggregate",
-                        "moe_head_serving"))
+        short_runs = [
+            short_workflow(torch, dev, work, data, "GruModel",
+                           [f"--gru_cells={GRU_CELLS}",
+                            f"--gru_layers={GRU_LAYERS}"],
+                           {"gru_train_forward": gru_want,
+                            "gru_train_backward": gru_want},
+                           ("exact_topk", "gru_recurrence",
+                            "moe_head_serving")),
+            short_workflow(torch, dev, work, data, "NeXtVladModel",
+                           [f"--nextvlad_expansion={NEXTVLAD_LAMBDA}",
+                            f"--nextvlad_groups={NEXTVLAD_GROUPS}",
+                            f"--nextvlad_cluster_size={NEXTVLAD_CLUSTERS}",
+                            f"--nextvlad_hidden_size={NEXTVLAD_HIDDEN}"],
+                           {"nextvlad_train_forward": 2,
+                            "nextvlad_train_backward": 2,
+                            "nextvlad_aggregate": 0},
+                           ("exact_topk", "nextvlad_aggregate",
+                            "moe_head_serving")),
+            short_workflow(torch, dev, work, data, "DbofModel", [],
+                           {"dbof_cluster_maxpool_v2": 0},
+                           ("exact_topk", "dbof_cluster_maxpool_int8",
+                            "moe_head_serving"),
+                           serve_flags=("--dbof_int8_serving",),
+                           serve_absent=("dbof_cluster_maxpool_v2",)),
+        ]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # Launches on the main paths: DBoF's on the DbofModel serving path,
-    # the GRU's, attention pooling's and NeXtVLAD's on GruModel's,
-    # AttentionPoolingModel's and NeXtVladModel's serving paths, the
+    # the int8 DBoF's on DbofModel's with --dbof_int8_serving (DBoF v1,
+    # the sampled DBoF and dequant_affine_matmul lie on no model's path,
+    # in the JAX package as here: their counts summed over every path's
+    # run must be 0), the GRU's, attention pooling's and NeXtVLAD's on
+    # GruModel's, AttentionPoolingModel's and NeXtVladModel's serving
+    # paths, the
     # trainable LSTM's, GRU's (forward and backward step kernels) and
     # NeXtVLAD's on the flagship's, GruModel's and NeXtVladModel's
     # training paths, netvlad_core's on the train CLI's two runs of the
     # workflow (2 + 2 steps), the others on the flagship's serving path,
     # whose shapes their rows were measured at.
     serving_path = {"dbof_cluster_maxpool_v2": "DbofModel",
+                    "dbof_cluster_maxpool_int8":
+                        "DbofModel --dbof_int8_serving",
                     "gru_recurrence": "GruModel",
                     "attention_pool": "AttentionPoolingModel",
                     "nextvlad_aggregate": "NeXtVladModel"}
@@ -3098,6 +3493,11 @@ def main() -> int:
                "gru_recurrence_trainable": (gru_training, "gru_train"),
                "nextvlad_aggregate_train": (nextvlad_training,
                                             "nextvlad_train")}
+    path_runs = [r["launches"] for r in (*e2e.values(), *steps, training,
+                                         fused, gru_training,
+                                         nextvlad_training)]
+    for run in (workflow, *short_runs):
+        path_runs += list(run["launches"].values())
     for row in rows:
         if row["name"] in trained:
             run, prefix = trained[row["name"]]
@@ -3114,6 +3514,12 @@ def main() -> int:
             row.update(launches=fwd + bwd, launches_forward=fwd,
                        launches_backward=bwd)
             continue
+        if row.get("on_main_path") is False:
+            row["launches"] = sum(r.get(row["name"], 0) for r in path_runs)
+            check(row["launches"] == 0,
+                  f"{row['name']} launched {row['launches']} times on the "
+                  f"paths: its row must read the path that launches it")
+            continue
         path = serving_path.get(row["name"], "NetVladLstmModel")
         row["launches"] = e2e[path]["launches"][row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3122,7 +3528,9 @@ def main() -> int:
              "ms_backward", "us_per_step_forward", "us_per_step_backward",
              "ms_backward_with_dx", "device_ms_forward",
              "device_ms_backward", "us_per_step", "ms_events",
-             "ms_events_f32")
+             "ms_events_f32", "on_main_path", "int8_vs_bf16",
+             "ms_gather_then_v2", "max_abs_err_f32", "ms_f32", "plain_ms_f32",
+             "bound_ms_f32", "bound_by_f32", "library_ms_f32")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}),
         flush=True)

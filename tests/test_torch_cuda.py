@@ -56,6 +56,14 @@ itself; the witness tests show that the plain steps fed the kernel's own
 bf16 streams differ only at rounding boundaries and that what follows
 them meets 1e-3 * max|ref| + 1e-6. The weight gradients are split-K sums
 added in a fixed order: a second run gives the same bits.
+The int8 DBoF kernel equals its plain version bit for bit: the integer
+sums are exact on both sides (the plain version sums in float64), and
+both convert each sum to f32 once and apply the affine unfused. The
+sampled DBoF kernel equals v2 on the gathered frames bit for bit (the
+same affine rounding, the same product). DBoF v1 and dequant_affine_matmul
+in bf16 (D >= 512): max|diff| <= 1e-3 * max|ref| + 1e-6, the DBoF bound;
+dequant_affine_matmul in f32 (D < 512): <= 1e-5 * max|ref| + 1e-6 (f32
+operands, only the summation order differs).
 """
 
 import numpy as np
@@ -68,6 +76,7 @@ from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
 from yt8m_tpu_torch.data.synthetic import write_dataset
 from yt8m_tpu_torch.kernels import attention_pool as tap
 from yt8m_tpu_torch.kernels import dbof as tdbof
+from yt8m_tpu_torch.kernels import dequant_matmul as tdq
 from yt8m_tpu_torch.kernels import gru as tgru
 from yt8m_tpu_torch.kernels import gru_train as tgt
 from yt8m_tpu_torch.kernels import lstm as tlstm
@@ -1194,3 +1203,145 @@ def test_cuda_nextvlad_model_matches_cpu(cuda):
     assert abs(gpu_loss - cpu_loss) <= 2e-3 * abs(cpu_loss)
     for n, v in cpu_norms.items():
         assert abs(gpu_norms[n] - v) <= 2e-2 * max(v, 1e-6), n
+
+
+def _int8_args(seed, b, s, d, k, dev):
+    args = _dbof_args(seed, b, s, d, k, torch.uint8, torch.device("cpu"))
+    x, w, s_in, b_in, s_act, b_act = args
+    consts = tdbof.int8_serving_constants(w.float(), s_in, b_in, s_act,
+                                          b_act)
+    return [t.to(dev) for t in (x, *consts)]
+
+
+@pytest.mark.parametrize("b,s,d,k", [(7, 5, 64, 200), (9, 32, 96, 136),
+                                     (5, 30, 1152, 8192), (1, 1, 32, 8),
+                                     (3, 64, 128, 48)])
+def test_cuda_dbof_int8_equals_plain_bit_for_bit(cuda, b, s, d, k):
+    args = _int8_args(b + k, b, s, d, k, cuda)
+    before = tdbof.dbof_cluster_maxpool_int8.launches
+    got = tdbof.dbof_cluster_maxpool_int8(*args)
+    assert tdbof.dbof_cluster_maxpool_int8.launches == before + -(-s // 32)
+    assert torch.equal(got, tdbof.dbof_cluster_maxpool_int8_plain(*args))
+
+
+def test_cuda_dbof_int8_masks_padded_frames(cuda):
+    """Every real row is negative before the ReLU; an unmasked padding row
+    (int8 zero, the raw byte 128) would give relu(b_col) = 3."""
+    x, w8, a_col, _ = _int8_args(0, 6, 30, 64, 64, cuda)
+    x = torch.clamp(x, min=200)
+    w8 = -w8.abs()
+    b_col = torch.full_like(a_col, 3.0)
+    a_col = torch.ones_like(a_col)  # acc <= -72 * 127: every real row < 0
+    got = tdbof.dbof_cluster_maxpool_int8(x, w8, a_col, b_col)
+    assert torch.all(tdbof.dbof_cluster_maxpool_int8_plain(
+        x, w8, a_col, b_col) == 0)
+    assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,s,d,k", [(7, 5, 64, 200), (5, 30, 1152, 8192),
+                                     (3, 40, 96, 64)])
+def test_cuda_dbof_v1_matches_plain(cuda, x_dtype, b, s, d, k):
+    x, w, *vec = _dbof_args(b + k, b, s, d, k, x_dtype, cuda)
+    w = w.float() + 1e-3 * torch.randn(w.shape, device=cuda)  # f32 weights
+    before = (tdbof.dbof_cluster_maxpool.launches,
+              tdbof.dbof_cluster_maxpool_v2.launches)
+    got = tdbof.dbof_cluster_maxpool(x, w, *vec)
+    assert (tdbof.dbof_cluster_maxpool.launches,
+            tdbof.dbof_cluster_maxpool_v2.launches) == (
+                before[0] + -(-s // 32), before[1])
+    _close(got, tdbof.dbof_cluster_maxpool_v1_plain(x, w, *vec))
+
+
+def _sampled_args(seed, b, f, d, s, k, dev):
+    x, w, *vec = _dbof_args(seed, b, f, d, k, torch.uint8, dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    idx = torch.randint(0, f, (b, s), generator=g, dtype=torch.int32)
+    return [x, idx.to(dev), w.float(), *vec]
+
+
+@pytest.mark.parametrize("b,f,d,s,k", [(7, 300, 64, 5, 200),
+                                       (9, 40, 96, 32, 136),
+                                       (5, 300, 1152, 30, 8192)])
+def test_cuda_dbof_sampled_equals_v2_on_gathered_frames(cuda, b, f, d, s, k):
+    x, idx, w, *vec = _sampled_args(b + k, b, f, d, s, k, cuda)
+    before = tdbof.dbof_sampled_cluster_maxpool.launches
+    got = tdbof.dbof_sampled_cluster_maxpool(x, idx, w, *vec)
+    assert tdbof.dbof_sampled_cluster_maxpool.launches == before + 1
+    rows = torch.arange(b, device=cuda)[:, None]
+    want = tdbof.dbof_cluster_maxpool_v2(x[rows, idx.long()].contiguous(),
+                                         w.to(torch.bfloat16), *vec)
+    assert torch.equal(got, want)
+    _close(got, tdbof.dbof_sampled_cluster_maxpool_plain(x, idx, w, *vec))
+
+
+def test_cuda_dbof_sampled_out_of_range_indices(cuda):
+    """An index outside [0, F) selects a zero frame, as the TPU kernel's
+    one-hot select does, and reads nothing out of bounds."""
+    x, idx, w, *vec = _sampled_args(3, 4, 10, 64, 6, 32, cuda)
+    idx[0, :3] = torch.tensor([-1, 10, 1 << 30], dtype=torch.int32)
+    idx[2] = -7
+    got = tdbof.dbof_sampled_cluster_maxpool(x, idx, w, *vec)
+    want = tdbof.dbof_cluster_maxpool_v2(
+        tdbof.sampled_frames_plain(x, idx).contiguous(),
+        w.to(torch.bfloat16), *vec)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,d,n", [(37, 128, 200), (5, 64, 7),
+                                   (1000, 384, 96), (70, 512, 130),
+                                   (9, 1000, 1000), (300, 1152, 4096),
+                                   (4097, 1152, 257)])
+def test_cuda_dequant_matmul_matches_plain(cuda, m, d, n):
+    g = torch.Generator().manual_seed(m + n)
+    x = torch.randint(0, 256, (m, d), generator=g, dtype=torch.uint8)
+    w = torch.randn(d, n, generator=g) * d ** -0.5
+    scale = (4.0 / 255.0) * (0.5 + torch.rand(d, generator=g))
+    bias = -2.0 + 0.1 * torch.randn(d, generator=g)
+    args = [t.to(cuda) for t in (x, w, scale, bias)]
+    before = tdq.dequant_affine_matmul.launches
+    got = tdq.dequant_affine_matmul(*args)
+    assert tdq.dequant_affine_matmul.launches == before + 1
+    _close(got, tdq.dequant_affine_matmul_plain(*args),
+           rel=1e-3 if d >= 512 else 1e-5)
+
+
+def test_cuda_int8_and_dequant_reject_what_the_kernels_cannot_take(cuda):
+    x, w8, a_col, b_col = _int8_args(0, 2, 3, 32, 16, cuda)
+    with pytest.raises(ValueError):  # D = 24 is no multiple of 16
+        tdbof.dbof_cluster_maxpool_int8(x[:, :, :24].contiguous(),
+                                        w8[:24], a_col, b_col)
+    with pytest.raises(ValueError):  # float frames
+        tdbof.dbof_cluster_maxpool_int8(x.float(), w8, a_col, b_col)
+    with pytest.raises(ValueError):  # D = 516 (bf16 route) no multiple of 8
+        tdq.dequant_affine_matmul(
+            torch.zeros(4, 516, dtype=torch.uint8, device=cuda),
+            torch.zeros(516, 8, device=cuda), torch.ones(516, device=cuda),
+            torch.zeros(516, device=cuda))
+
+
+def test_cuda_dbof_int8_model_matches_cpu(cuda):
+    """DbofModel with --dbof_int8_serving at small widths: one int8 launch
+    and no v2 launch a batch; card and CPU within 2e-3."""
+    hp = ModelHParams(vocab_size=40, feature_dim=96, max_frames=20,
+                      dbof_cluster_size=64, dbof_hidden_size=32,
+                      iterations=8, dbof_int8_serving=True)
+    g = torch.Generator().manual_seed(4)
+    feats = torch.randint(0, 256, (9, 20, 96), generator=g,
+                          dtype=torch.uint8)
+    nf = torch.randint(1, 21, (9,), generator=g, dtype=torch.int32)
+    u = torch.rand(9, 8, generator=g)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        model = get_model("DbofModel", hp)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        before = (tdbof.dbof_cluster_maxpool_int8.launches,
+                  tdbof.dbof_cluster_maxpool_v2.launches)
+        with torch.no_grad():
+            out.append(model(feats.to(dev), nf.to(dev),
+                             u=u.to(dev))["predictions"].cpu())
+        launched = (tdbof.dbof_cluster_maxpool_int8.launches - before[0],
+                    tdbof.dbof_cluster_maxpool_v2.launches - before[1])
+        assert launched == ((0, 0) if dev.type == "cpu" else (1, 0))
+    assert (out[1] - out[0]).abs().max().item() <= 2e-3

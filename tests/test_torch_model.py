@@ -190,14 +190,6 @@ def test_model_training_mode_raises():
     assert not torch.equal(model.hidden_bn.mean, before)
 
 
-def test_int8_serving_not_ported_raises():
-    model = get_model("DbofModel",
-                      _hparams(ModelHParams, dbof_int8_serving=True)).eval()
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(_features("uint8")),
-              torch.from_numpy(NUM_FRAMES))
-
-
 def test_serving_constants_follow_reloaded_weights():
     model = get_model("DbofModel", _hparams(ModelHParams)).eval()
     feats = torch.from_numpy(_features("uint8"))

@@ -45,6 +45,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "yt8m_dbof_cluster_maxpool_u8": [_P] * 8 + [_I] * 4 + [_P],
     "yt8m_dbof_cluster_maxpool_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "yt8m_dbof_sampled_cluster_maxpool": [_P] * 9 + [_I] * 5 + [_P],
+    "yt8m_dbof_cluster_maxpool_int8": [_P] * 6 + [_I] * 4 + [_P],
+    "yt8m_round_bf16": [_P] * 2 + [_I] * 3 + [_P],
+    "yt8m_dequant_matmul_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "yt8m_dequant_matmul_f32": [_P] * 5 + [_I] * 3 + [_P],
     "yt8m_moe_head_serving": [_P] * 5 + [_I] * 4 + [_P],
     "yt8m_exact_topk": [_P] * 3 + [_I] * 3 + [_P],
     "yt8m_netvlad_aggregate_u8": [_P] * 11 + [_I] * 4 + [_P],

@@ -1,7 +1,10 @@
 // Fused DBoF cluster + max-pool serving kernel for Hopper (sm_90a).
 //
-// Replaces yt8m_tpu/kernels/dbof.py :: dbof_cluster_maxpool_v2. For
-// sampled frames x [B, S, D] (uint8 or float32):
+// Replaces yt8m_tpu/kernels/dbof.py :: dbof_cluster_maxpool_v2, and with
+// it dbof_cluster_maxpool (v1: the same function, an f32 W rounded to
+// bf16 on every call by yt8m_round_bf16) and dbof_sampled_cluster_maxpool
+// (the frame gather fused into launch 1 below). For sampled frames
+// x [B, S, D] (uint8 or float32):
 //
 //   xa   = bf16(x * in_scale + in_bias)        (dequant + input BN, f32)
 //   act  = xa @ W                              (bf16 in, f32 accumulate)
@@ -12,11 +15,15 @@
 // so the bound is the bf16 tensor-core rate.
 //
 // Design. Two launches on the caller's stream:
-//  1. dbof_input_affine: xa = bf16(x * in_scale + in_bias) for every
-//     sampled frame, once, into a [B*S, D] bf16 buffer from the wrapper.
+//  1. input_affine (input_affine.cuh): xa = bf16(x * in_scale + in_bias)
+//     for every sampled frame, once, into a [B*S, D] bf16 buffer from the
+//     wrapper.
 //     This is the TPU kernel's "dequant + affine once per video block":
 //     fused into the product it would run once per 128-cluster tile, 64
 //     times over, and cost as many instructions as the tensor cores.
+//     The sampled variant (dbof_sampled_input_affine) reads row idx[b, s]
+//     of the full frames [B, F, D] of video b, and a zero frame for an
+//     index outside [0, F), as the TPU kernel's one-hot select does.
 //  2. dbof_cluster_maxpool: a bf16 GEMM whose epilogue is the BN affine,
 //     the ReLU and the max over frames. A block computes 8 videos x 128
 //     clusters; each warp holds two videos' 64 rows (S padded to 32 per
@@ -34,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "input_affine.cuh"
 
 using namespace nvcuda;
 
@@ -54,56 +63,28 @@ constexpr int kStageB = kBK * kLdB;
 constexpr int kSmemBytes = kStages * (kStageA + kStageB) * 2;
 static_assert(8 * 64 * kLdS * 4 <= kSmemBytes, "epilogue stage must fit");
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
+using inaff::affine;
 
-// Unfused multiply and add: the same two roundings as the plain version,
-// so both round the same float to bf16.
-__device__ __forceinline__ float affine(float x, float s, float b) {
-  return __fadd_rn(__fmul_rn(x, s), b);
-}
-
-// Eight consecutive inputs of one frame as floats.
-__device__ __forceinline__ void load8(const uint8_t* p, float (&v)[8]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[i] = static_cast<float>((q.x >> (8 * i)) & 0xffu);
-    v[4 + i] = static_cast<float>((q.y >> (8 * i)) & 0xffu);
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// xa[r, d] = bf16(x[r, d] * in_scale[d] + in_bias[d]) over rows = B*S;
-// one thread per 8 consecutive inputs (D % 8 == 0).
-template <typename T>
+// The gathering variant: xa[b*S + s, d] = bf16(x[b, idx[b*S + s], d] *
+// in_scale[d] + in_bias[d]) over x [B, F, D] uint8, a zero frame where the
+// index is outside [0, F).
 __global__ void __launch_bounds__(256)
-dbof_input_affine(const T* __restrict__ x, const float* __restrict__ in_scale,
-                  const float* __restrict__ in_bias, __nv_bfloat16* __restrict__ xa,
-                  size_t n8, int d8) {
+dbof_sampled_input_affine(const uint8_t* __restrict__ x, const int* __restrict__ idx,
+                          const float* __restrict__ in_scale, const float* __restrict__ in_bias,
+                          __nv_bfloat16* __restrict__ xa, size_t n8, int d8, int S, int F) {
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n8;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / d8;
     const int d0 = static_cast<int>(i % d8) * 8;
+    const int f = idx[r];
     float v[8];
-    load8(x + i * 8, v);
-    const float4 s0 = __ldg(reinterpret_cast<const float4*>(in_scale + d0));
-    const float4 s1 = __ldg(reinterpret_cast<const float4*>(in_scale + d0) + 1);
-    const float4 b0 = __ldg(reinterpret_cast<const float4*>(in_bias + d0));
-    const float4 b1 = __ldg(reinterpret_cast<const float4*>(in_bias + d0) + 1);
-    uint4 out;
-    out.x = pack_bf16(affine(v[0], s0.x, b0.x), affine(v[1], s0.y, b0.y));
-    out.y = pack_bf16(affine(v[2], s0.z, b0.z), affine(v[3], s0.w, b0.w));
-    out.z = pack_bf16(affine(v[4], s1.x, b1.x), affine(v[5], s1.y, b1.y));
-    out.w = pack_bf16(affine(v[6], s1.z, b1.z), affine(v[7], s1.w, b1.w));
-    reinterpret_cast<uint4*>(xa)[i] = out;
+    if (f >= 0 && f < F) {
+      inaff::load8(x + ((r / S) * F + f) * (static_cast<size_t>(d8) * 8) + d0, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = 0.0f;
+    }
+    reinterpret_cast<uint4*>(xa)[i] = inaff::affine8(v, in_scale, in_bias, d0);
   }
 }
 
@@ -242,19 +223,13 @@ dbof_cluster_maxpool_kernel(const __nv_bfloat16* __restrict__ xa,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* in_scale, const void* in_bias, const void* w,
-           const void* act_scale, const void* act_bias, void* xa, void* out, int B, int S,
-           int D, int K, void* stream) {
-  if (B <= 0 || S <= 0 || S > kRowsPerVideo || D <= 0 || D % kBK != 0 || K <= 0 || K % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n8 = static_cast<size_t>(B) * S * D / 8;
-  const int affine_blocks = static_cast<int>((n8 + 255) / 256 < 132 * 16 ? (n8 + 255) / 256
-                                                                        : 132 * 16);
-  dbof_input_affine<T><<<affine_blocks, 256, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(in_scale),
-      static_cast<const float*>(in_bias), static_cast<__nv_bfloat16*>(xa), n8, D / 8);
+bool bad_shape(int B, int S, int D, int K) {
+  return B <= 0 || S <= 0 || S > kRowsPerVideo || D <= 0 || D % kBK != 0 || K <= 0 || K % 8 != 0;
+}
+
+// Launch 2 over the affined rows xa [B*S, D].
+int launch_gemm(const void* xa, const void* w, const void* act_scale, const void* act_bias,
+                void* out, int B, int S, int D, int K, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(dbof_cluster_maxpool_kernel,
@@ -266,6 +241,20 @@ int launch(const void* x, const void* in_scale, const void* in_bias, const void*
       static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
       static_cast<float*>(out), B, S, D, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* x, const void* in_scale, const void* in_bias, const void* w,
+           const void* act_scale, const void* act_bias, void* xa, void* out, int B, int S,
+           int D, int K, void* stream) {
+  if (bad_shape(B, S, D, K)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = inaff::launch_input_affine(
+      static_cast<const T*>(x), static_cast<const float*>(in_scale),
+      static_cast<const float*>(in_bias), static_cast<__nv_bfloat16*>(xa),
+      static_cast<size_t>(B) * S, D, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_gemm(xa, w, act_scale, act_bias, out, B, S, D, K, st);
 }
 
 }  // namespace
@@ -287,4 +276,32 @@ extern "C" int yt8m_dbof_cluster_maxpool_f32(const void* x, const void* in_scale
                                              void* stream) {
   return launch<float>(x, in_scale, in_bias, w, act_scale, act_bias, xa, out, B, S, D, K,
                        stream);
+}
+
+// x: the full frames [B, F, D] uint8; idx: [B, S] int32 sampled indices;
+// xa: a work buffer of B*S*D bf16 from the caller.
+extern "C" int yt8m_dbof_sampled_cluster_maxpool(const void* x, const void* idx,
+                                                 const void* in_scale, const void* in_bias,
+                                                 const void* w, const void* act_scale,
+                                                 const void* act_bias, void* xa, void* out,
+                                                 int B, int F, int S, int D, int K,
+                                                 void* stream) {
+  if (F <= 0 || bad_shape(B, S, D, K)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n8 = static_cast<size_t>(B) * S * D / 8;
+  dbof_sampled_input_affine<<<inaff::blocks(n8), inaff::kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int*>(idx),
+      static_cast<const float*>(in_scale), static_cast<const float*>(in_bias),
+      static_cast<__nv_bfloat16*>(xa), n8, D / 8, S, F);
+  return launch_gemm(xa, w, act_scale, act_bias, out, B, S, D, K, st);
+}
+
+// w [rows, cols] f32 -> w16 [rows, ld] bf16 (round to nearest even), the
+// columns past cols zero: the W rounding of v1 and of the sampled kernel.
+extern "C" int yt8m_round_bf16(const void* w, void* w16, int rows, int cols, int ld,
+                               void* stream) {
+  if (rows <= 0 || cols <= 0 || ld < cols) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(inaff::launch_round_bf16(
+      static_cast<const float*>(w), static_cast<__nv_bfloat16*>(w16), static_cast<size_t>(rows),
+      cols, ld, static_cast<cudaStream_t>(stream)));
 }

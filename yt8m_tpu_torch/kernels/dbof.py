@@ -1,21 +1,43 @@
 """Fused DBoF cluster + max-pool for the serving path.
 
-Replaces yt8m_tpu/kernels/dbof.py :: dbof_cluster_maxpool_v2. For sampled
+Replaces the four DBoF kernels of yt8m_tpu/kernels/dbof.py. For sampled
 frames x [B, S, D] (uint8, or float32):
 
     xa   = round_to(x * in_scale + in_bias, w.dtype)   (affine in f32)
     act  = xa @ w                                      (f32 accumulate)
     out  = max_s relu(act * act_scale + act_bias)      [B, K] f32
 
-The CUDA kernel (csrc/dbof.cu) is bound by the bf16 tensor-core rate at
-the serving shapes; it never writes the [B*S, K] activations to device
-memory. It applies the input affine once, into a [B*S, D] bf16 buffer
-this wrapper allocates, then runs the product with the BN, ReLU and max
-over frames in its epilogue (see the source for the design). The model
-folds dequantization and both BatchNorms into the two affines, and casts
-`w` to bf16 once. The kernel pools at most 32 frames a video; more are
-pooled in chunks of 32 frames, one launch each, whose outputs the
-wrapper reduces with an elementwise max (a max of maxes is exact).
+  * `dbof_cluster_maxpool_v2` (DbofModel's serving path): `w` already in
+    the compute dtype (bf16 on the card). The CUDA kernel (csrc/dbof.cu)
+    is bound by the bf16 tensor-core rate at the serving shapes; it never
+    writes the [B*S, K] activations to device memory. It applies the
+    input affine once, into a [B*S, D] bf16 buffer this wrapper
+    allocates, then runs the product with the BN, ReLU and max over
+    frames in its epilogue (see the source for the design). The model
+    folds dequantization and both BatchNorms into the two affines, and
+    casts `w` to bf16 once.
+  * `dbof_cluster_maxpool` (the TPU package's v1): the same function
+    with an f32 `w` rounded to bf16 on every call (csrc/dbof.cu's
+    yt8m_round_bf16 launch), as the TPU kernel does in its body. The
+    TPU's two versions differ only in grid order and VMEM scratch, so on
+    the card both run csrc/dbof.cu's two launches.
+  * `dbof_sampled_cluster_maxpool`: the sampling gather fused in. It
+    takes the full frames [B, F, D] uint8 and the sampled indices [B, S]
+    (S <= 32); csrc/dbof.cu's gathering affine launch reads row idx[b, s]
+    of video b, and a zero frame for an index outside [0, F) (the TPU
+    kernel's one-hot select gives zero there), then the same product.
+  * `dbof_cluster_maxpool_int8` (--dbof_int8_serving): raw uint8 frames
+    against per-column int8 weights. `int8_serving_constants` folds the
+    input affine into the weights,
+        (x * s_in + b_in) @ W = (x - 128) @ (s_in . W) + 128 colsum + b_in @ W,
+    and quantizes W' = s_in . W per column, symmetrically, to int8 (the
+    only approximation). csrc/dbof_int8.cu then computes (x XOR 0x80) as
+    int8 against w8 on the int8 tensor cores with exact int32 sums, and
+    its epilogue is f32(acc) * a_col + b_col, ReLU, max over frames.
+
+The kernels pool at most 32 frames a video; more are pooled in chunks of
+32 frames, one launch each, whose outputs the wrapper reduces with an
+elementwise max (a max of maxes is exact).
 """
 
 from __future__ import annotations
@@ -44,44 +66,212 @@ def dbof_cluster_maxpool_plain(x, w, in_scale, in_bias, act_scale,
     return torch.amax(act, dim=1)
 
 
+def dbof_cluster_maxpool_v1_plain(x, w, in_scale, in_bias, act_scale,
+                                  act_bias):
+    """Plain version of v1: `w` rounded to bf16, then as v2's."""
+    return dbof_cluster_maxpool_plain(x, w.to(torch.bfloat16), in_scale,
+                                      in_bias, act_scale, act_bias)
+
+
+def sampled_frames_plain(x, idx):
+    """x [B, F, D] and idx [B, S] -> x[b, idx[b, s]], a zero frame where
+    the index is outside [0, F)."""
+    f = x.shape[1]
+    idx = idx.to(torch.int64)
+    ok = (idx >= 0) & (idx < f)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    xs = x[rows, idx.clamp(0, f - 1)]
+    return torch.where(ok[:, :, None], xs, torch.zeros_like(xs))
+
+
+def dbof_sampled_cluster_maxpool_plain(x, idx, w, in_scale, in_bias,
+                                       act_scale, act_bias):
+    return dbof_cluster_maxpool_v1_plain(sampled_frames_plain(x, idx), w,
+                                         in_scale, in_bias, act_scale,
+                                         act_bias)
+
+
+def int8_serving_constants(w, in_scale, in_bias, act_scale, act_bias):
+    """(w8 [D, K] int8, a_col [K] f32, b_col [K] f32) of the int8 path,
+    in the TPU wrapper's formulas and order (yt8m_tpu/kernels/dbof.py ::
+    dbof_cluster_maxpool_int8): `w` is the f32 cluster kernel, the
+    affines f32 with dequantization folded into the input one."""
+    w = w.to(torch.float32)
+    w_prime = in_scale.to(torch.float32)[:, None] * w
+    gamma = torch.clamp_min(torch.amax(torch.abs(w_prime), dim=0),
+                            1e-12) / 127.0
+    w8 = torch.clamp(torch.round(w_prime / gamma[None, :]), -127, 127)
+    colsum = torch.sum(w8, dim=0)  # exact: |sum| <= 127 D < 2^24
+    c = torch.matmul(in_bias.to(torch.float32), w)
+    a_col = gamma * act_scale
+    b_col = (128.0 * colsum * gamma + c) * act_scale + act_bias
+    # Stored cluster-major (w8.t() contiguous), the layout the kernel reads.
+    return (w8.to(torch.int8).t().contiguous().t(), a_col.contiguous(),
+            b_col.contiguous())
+
+
+def dbof_cluster_maxpool_int8_plain(x, w8, a_col, b_col):
+    """Plain version with the kernel's arithmetic: the exact integer
+    product of (x - 128) and w8 (float64 is exact below 2^53; float32
+    would round sums above 2^24 in its own order), one conversion to
+    f32, then f32(acc) * a_col + b_col, ReLU and max over frames."""
+    xi = x.to(torch.float64) - 128.0
+    acc = torch.matmul(xi, w8.to(torch.float64)).to(torch.float32)
+    return torch.amax(torch.relu(acc * a_col + b_col), dim=1)
+
+
 def dbof_cluster_maxpool_v2(x, w, in_scale, in_bias, act_scale, act_bias):
     """relu-activated cluster activations max-pooled over S: [B, K] f32.
 
     x [B, S, D] uint8 or float32; w [D, K] in the compute dtype (bf16 on
     the card); the affines are f32 vectors of D and K.
     """
-    require(x.dim() == 3, f"x must be [B, S, D], got {tuple(x.shape)}")
-    b, s, d = x.shape
-    require(w.dim() == 2 and w.shape[0] == d,
-            f"w must be [{d}, K], got {tuple(w.shape)}")
-    k = w.shape[1]
+    _check_shapes(x, w)
     if on_cpu(x, w, in_scale, in_bias, act_scale, act_bias):
         return dbof_cluster_maxpool_plain(
             x, w, in_scale, in_bias, act_scale, act_bias
         )
+    return _pooled_in_chunks(dbof_cluster_maxpool_v2, x, w, in_scale,
+                             in_bias, act_scale, act_bias)
+
+
+def dbof_cluster_maxpool(x, w, in_scale, in_bias, act_scale, act_bias):
+    """The TPU package's v1: as v2, with an f32 `w` rounded to bf16 on
+    every call."""
+    _check_shapes(x, w)
+    if on_cpu(x, w, in_scale, in_bias, act_scale, act_bias):
+        return dbof_cluster_maxpool_v1_plain(
+            x, w, in_scale, in_bias, act_scale, act_bias
+        )
+    return _pooled_in_chunks(dbof_cluster_maxpool, x, _bf16_on_card(w),
+                             in_scale, in_bias, act_scale, act_bias)
+
+
+def dbof_sampled_cluster_maxpool(x, idx, w, in_scale, in_bias, act_scale,
+                                 act_bias):
+    """Fused frame-sample gather + cluster + max-pool: [B, K] f32.
+
+    x [B, F, D] uint8, the full frames; idx [B, S] the sampled frame
+    indices, S <= 32, an index outside [0, F) selecting a zero frame;
+    w [D, K] f32 (or bf16), rounded to bf16.
+    """
+    require(x.dim() == 3, f"x must be [B, F, D], got {tuple(x.shape)}")
+    if x.dtype != torch.uint8:
+        raise ValueError("dbof_sampled_cluster_maxpool requires uint8 x")
+    b, f, d = x.shape
+    require(idx.dim() == 2 and idx.shape[0] == b,
+            f"idx must be [{b}, S], got {tuple(idx.shape)}")
+    s = idx.shape[1]
+    if s > MAX_FRAMES_PER_VIDEO:
+        raise ValueError(
+            f"num samples {s} > scratch rows {MAX_FRAMES_PER_VIDEO}")
+    require(w.dim() == 2 and w.shape[0] == d,
+            f"w must be [{d}, K], got {tuple(w.shape)}")
+    k = w.shape[1]
+    if on_cpu(x, idx, w, in_scale, in_bias, act_scale, act_bias):
+        return dbof_sampled_cluster_maxpool_plain(
+            x, idx, w, in_scale, in_bias, act_scale, act_bias)
+    require(s >= 1 and f >= 1, "S and F must be at least 1")
+    w = _bf16_on_card(w)
+    idx = idx.to(torch.int32).contiguous()
+    _check_bf16_operands(x, w, in_scale, in_bias, act_scale, act_bias)
+    out = torch.empty((b, k), dtype=torch.float32, device=x.device)
+    xa = torch.empty((b * s, d), dtype=torch.bfloat16, device=x.device)
+    code = _build.library().yt8m_dbof_sampled_cluster_maxpool(
+        _build.ptr(x), _build.ptr(idx), _build.ptr(in_scale),
+        _build.ptr(in_bias), _build.ptr(w), _build.ptr(act_scale),
+        _build.ptr(act_bias), _build.ptr(xa), _build.ptr(out), b, f, s, d,
+        k, _build.current_stream(x.device),
+    )
+    _build.check_launch("dbof_sampled_cluster_maxpool", code)
+    dbof_sampled_cluster_maxpool.launches += 1
+    return out
+
+
+def dbof_cluster_maxpool_int8(x, w8, a_col, b_col):
+    """--dbof_int8_serving: [B, K] f32 from raw uint8 frames x [B, S, D]
+    and the constants of `int8_serving_constants` (w8 [D, K] int8, a_col
+    and b_col [K] f32)."""
+    if x.dtype != torch.uint8:
+        raise ValueError("int8 serving path requires uint8 features")
+    _check_shapes(x, w8)
+    if on_cpu(x, w8, a_col, b_col):
+        return dbof_cluster_maxpool_int8_plain(x, w8, a_col, b_col)
+    b, s, d = x.shape
+    k = w8.shape[1]
+    require(s >= 1, "S must be at least 1")
+    require(d % 16 == 0, f"D={d} must be a multiple of 16")
+    # The kernel reads w8 cluster-major: no copy for the layout that
+    # int8_serving_constants returns.
+    w8t = w8.t().contiguous()
+    require_cuda_operand("x", x, torch.uint8, (b, s, d))
+    require_cuda_operand("w8t", w8t, torch.int8, (k, d))
+    require_cuda_operand("a_col", a_col, torch.float32, (k,))
+    require_cuda_operand("b_col", b_col, torch.float32, (k,))
+    return max_over_frame_chunks(_launch_int8, x, w8t, a_col, b_col)
+
+
+def max_over_frame_chunks(launch, x, *args):
+    """launch(x[:, s0:s0 + 32], *args) for each chunk of 32 frames,
+    reduced with an elementwise max."""
+    out = None
+    for s0 in range(0, x.shape[1], MAX_FRAMES_PER_VIDEO):
+        part = launch(x[:, s0:s0 + MAX_FRAMES_PER_VIDEO].contiguous(), *args)
+        out = part if out is None else torch.maximum(out, part)
+    return out
+
+
+def _check_shapes(x, w):
+    require(x.dim() == 3, f"x must be [B, S, D], got {tuple(x.shape)}")
+    d = x.shape[2]
+    require(w.dim() == 2 and w.shape[0] == d,
+            f"w must be [{d}, K], got {tuple(w.shape)}")
+
+
+def _bf16_on_card(w):
+    """w [D, K] as bf16: an f32 `w` rounded by csrc/dbof.cu's
+    yt8m_round_bf16 launch (the TPU kernels round W in their body)."""
+    if w.dtype == torch.bfloat16:
+        return w.contiguous()
+    d, k = w.shape
+    w = w.contiguous()
+    require_cuda_operand("w", w, torch.float32, (d, k))
+    w16 = torch.empty((d, k), dtype=torch.bfloat16, device=w.device)
+    code = _build.library().yt8m_round_bf16(
+        _build.ptr(w), _build.ptr(w16), d, k, k,
+        _build.current_stream(w.device))
+    _build.check_launch("yt8m_round_bf16", code)
+    return w16
+
+
+def _check_bf16_operands(x, w, in_scale, in_bias, act_scale, act_bias):
+    d, k = w.shape
     require(x.dtype in (torch.uint8, torch.float32),
             f"x: dtype {x.dtype}, want uint8 or float32")
     require(w.dtype == torch.bfloat16,
             "the CUDA kernel computes in bf16; w must be bfloat16")
-    require(s >= 1, "S must be at least 1")
     require(d % 32 == 0, f"D={d} must be a multiple of 32")
     require(k % 8 == 0, f"K={k} must be a multiple of 8")
-    require_cuda_operand("x", x, x.dtype, (b, s, d))
+    require_cuda_operand("x", x, x.dtype, tuple(x.shape))
     require_cuda_operand("w", w, torch.bfloat16, (d, k))
     for name, t, n in (("in_scale", in_scale, d), ("in_bias", in_bias, d),
                        ("act_scale", act_scale, k),
                        ("act_bias", act_bias, k)):
         require_cuda_operand(name, t, torch.float32, (n,))
-    out = None
-    for s0 in range(0, s, MAX_FRAMES_PER_VIDEO):
-        part = _launch(x[:, s0:s0 + MAX_FRAMES_PER_VIDEO].contiguous(), w,
-                       in_scale, in_bias, act_scale, act_bias)
-        out = part if out is None else torch.maximum(out, part)
-    return out
 
 
-def _launch(x, w, in_scale, in_bias, act_scale, act_bias):
-    """One launch over x [B, S <= 32, D]."""
+def _pooled_in_chunks(owner, x, w, in_scale, in_bias, act_scale, act_bias):
+    """csrc/dbof.cu over x in chunks of 32 frames, max of the chunks'
+    outputs; each launch counts on `owner`."""
+    require(x.shape[1] >= 1, "S must be at least 1")
+    _check_bf16_operands(x, w, in_scale, in_bias, act_scale, act_bias)
+    return max_over_frame_chunks(
+        lambda xs, *a: _launch(owner, xs, *a), x, w, in_scale, in_bias,
+        act_scale, act_bias)
+
+
+def _launch(owner, x, w, in_scale, in_bias, act_scale, act_bias):
+    """One launch of csrc/dbof.cu over x [B, S <= 32, D]."""
     b, s, d = x.shape
     k = w.shape[1]
     out = torch.empty((b, k), dtype=torch.float32, device=x.device)
@@ -95,9 +285,27 @@ def _launch(x, w, in_scale, in_bias, act_scale, act_bias):
         _build.ptr(xa), _build.ptr(out), b, s, d, k,
         _build.current_stream(x.device),
     )
-    _build.check_launch("dbof_cluster_maxpool_v2", code)
-    dbof_cluster_maxpool_v2.launches += 1
+    _build.check_launch(owner.__name__, code)
+    owner.launches += 1
     return out
 
 
-dbof_cluster_maxpool_v2.launches = 0
+def _launch_int8(x, w8t, a_col, b_col):
+    """One launch of csrc/dbof_int8.cu over x [B, S <= 32, D]."""
+    b, s, d = x.shape
+    k = w8t.shape[0]
+    out = torch.empty((b, k), dtype=torch.float32, device=x.device)
+    xi = torch.empty((b * s, d), dtype=torch.int8, device=x.device)
+    code = _build.library().yt8m_dbof_cluster_maxpool_int8(
+        _build.ptr(x), _build.ptr(w8t), _build.ptr(a_col),
+        _build.ptr(b_col), _build.ptr(xi), _build.ptr(out), b, s, d, k,
+        _build.current_stream(x.device),
+    )
+    _build.check_launch("dbof_cluster_maxpool_int8", code)
+    dbof_cluster_maxpool_int8.launches += 1
+    return out
+
+
+for _fn in (dbof_cluster_maxpool_v2, dbof_cluster_maxpool,
+            dbof_sampled_cluster_maxpool, dbof_cluster_maxpool_int8):
+    _fn.launches = 0

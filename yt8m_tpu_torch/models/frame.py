@@ -9,7 +9,11 @@ import torch
 from torch import nn
 
 from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
-from yt8m_tpu_torch.kernels.dbof import dbof_cluster_maxpool_v2
+from yt8m_tpu_torch.kernels.dbof import (
+    dbof_cluster_maxpool_int8,
+    dbof_cluster_maxpool_v2,
+    int8_serving_constants,
+)
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
     frame_pooling,
@@ -38,7 +42,11 @@ class DbofModel(ServingModule):
 
     With max pooling (the reference default) steps 2-3 are one fused
     kernel (kernels/dbof.py) with dequantization and both BatchNorms
-    folded into its two affines, as the JAX model folds them; average
+    folded into its two affines, as the JAX model folds them; with
+    --dbof_int8_serving (and --dbof_use_pallas, as in the JAX model) and
+    uint8 frames the kernel is the int8 one, its
+    weights quantized from the f32 cluster kernel and the folded affines
+    (float frames keep the bf16 kernel, as in the JAX model); average
     pooling runs the JAX model's unfused graph in plain PyTorch. Training
     runs that graph for either pooling, as the JAX model does (its
     kernel is serving-only), with both inline BatchNorms on batch
@@ -101,7 +109,7 @@ class DbofModel(ServingModule):
             b_in = torch.zeros(d, device=dev)
             s_act = torch.ones(k, device=dev)
             b_act = self.cluster_bias.detach().clone()
-        return {
+        c = {
             "cluster_w": self.cluster_kernel.to(hp.dtype).contiguous(),
             # uint8 input: dequantize folded into the input affine
             "affine_u8": ((DEQUANT_SCALE * s_in).contiguous(),
@@ -110,6 +118,11 @@ class DbofModel(ServingModule):
             "act_affine": (s_act.contiguous(), b_act.contiguous()),
             "hidden_w": rounded(self.hidden_kernel, hp.dtype),
         }
+        if hp.dbof_int8_serving and hp.dbof_use_pallas:
+            # From the f32 cluster kernel, not its bf16 copy.
+            c["int8"] = int8_serving_constants(
+                self.cluster_kernel, *c["affine_u8"], *c["act_affine"])
+        return c
 
     def _cluster_pool_plain(self, x_raw):
         """Steps 2-3 as the JAX model's unfused graph (BN unfolded; batch
@@ -144,11 +157,14 @@ class DbofModel(ServingModule):
                    else sample_random_sequence)
         x_raw = sampler(features, num_frames, hp.iterations,
                         generator=generator, u=u)
-        if hp.dbof_pooling_method == "max" and not self.training:
-            if hp.dbof_int8_serving and x_raw.dtype == torch.uint8:
-                raise NotImplementedError(
-                    "--dbof_int8_serving is not ported yet"
-                )
+        fused = hp.dbof_pooling_method == "max" and not self.training
+        # The JAX model takes the int8 kernel only with --dbof_use_pallas;
+        # without it, its unfused graph computes v2's function.
+        if (fused and hp.dbof_int8_serving and hp.dbof_use_pallas
+                and x_raw.dtype == torch.uint8):
+            pooled = dbof_cluster_maxpool_int8(
+                x_raw.contiguous(), *self.serving_constants()["int8"])
+        elif fused:
             c = self.serving_constants()
             s_in, b_in = c["affine_u8" if x_raw.dtype == torch.uint8
                            else "affine_float"]

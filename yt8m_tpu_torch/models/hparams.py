@@ -5,7 +5,9 @@ flags with the same names map 1:1 onto these fields.
 
 Fields that select a Pallas kernel in the JAX package
 (`*_use_pallas`, `moe_head_pallas`) are inert here: the port's serving
-path always runs its CUDA kernels. `netvlad_fused_train` (with
+path always runs its CUDA kernels. Where one changes the result they
+act as in the JAX package: `dbof_use_pallas` gates the int8 kernel of
+`dbof_int8_serving`, and `netvlad_fused_train` (with
 `netvlad_use_pallas`) selects the trainable VLAD core in training, as in
 the JAX package. Fields of model families not yet
 ported are kept so that recordings of any run load; they are inert too.
@@ -36,7 +38,7 @@ class ModelHParams:
     dbof_hidden_size: int = 1024
     dbof_pooling_method: str = "max"  # max | average
     dbof_use_pallas: bool = True
-    # int8 serving path of the JAX package; not ported yet (raises)
+    # int8 cluster product when serving uint8 frames (kernels/dbof.py)
     dbof_int8_serving: bool = False
     dbof_add_batch_norm: bool = True
     sample_random_frames: bool = True
