@@ -37,8 +37,9 @@ parameter's gradient norm within 2e-2 relative (the LSTM bound: the
 recurrence carries one-step bf16 rounding differences).
 The GRU, serving and trainable, has the LSTM's bound for the same cause
 (it rounds h and r * h before its two products, and dA before the
-backward's); its witness runs the serving kernel one step at a time and
-feeds the plain cell the kernel's own state: u and the f32 h meet 1e-3 *
+backward's); its witness runs the serving kernel one step at a time (every
+row taken as live, the freeze applied outside) and feeds the plain cell
+the kernel's own state: u and the f32 h meet 1e-3 *
 max|ref| + 1e-6, bf16(r * h) and the outputs differ only at bf16
 rounding boundaries, and so do the trainable forward's residuals and the
 backward's dA on their streams. Attention pooling: max|diff| <= 1e-3 *
@@ -827,7 +828,7 @@ def test_cuda_gru_matches_plain(cuda, reverse, f, b, h):
     args = _gru_args(f + b + h, f, b, h, cuda)
     before = tgru.gru_recurrence.launches
     outs, hs = tgru.gru_recurrence(*args, reverse=reverse)
-    assert tgru.gru_recurrence.launches == before + 2 * f
+    assert tgru.gru_recurrence.launches == before + 1
     w_outs, w_h = tgru.gru_recurrence_plain(*args, reverse=reverse)
     _lstm_close(outs, w_outs)
     _lstm_close(hs, w_h)
@@ -842,6 +843,74 @@ def test_cuda_gru_frozen_carry_ignores_steps_past_num_frames(cuda, reverse):
     a = tgru.gru_recurrence(*clean, reverse=reverse)
     b = tgru.gru_recurrence(*loud, reverse=reverse)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _set_frames(args, frames, seed):
+    """num_frames (args[2] for the GRU, args[1] for the LSTM) all 0, all
+    F, uniform in 0..F, or uniform in -F..2F (out of range both ways:
+    a row with num_frames <= 0 is dead, one past F live at every step)."""
+    nf = next(a for a in args if a.dtype == torch.int32)
+    f = args[0].shape[0]
+    if frames == "dead":
+        nf.zero_()
+    elif frames == "live":
+        nf.fill_(f)
+    else:
+        g = torch.Generator().manual_seed(seed)
+        low, high = (0, f + 1) if frames == "ragged" else (-f, 2 * f + 1)
+        nf.copy_(torch.randint(low, high, nf.shape, generator=g,
+                               dtype=torch.int32))
+    return args
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+@pytest.mark.parametrize("frames", ["dead", "live", "ragged", "outside"])
+@pytest.mark.parametrize("f,b,h", [(20, 70, 128), (12, 2048, 1024),
+                                   (7, 1, 64)])
+def test_cuda_recurrences_edge_rows(cuda, reverse, frames, f, b, h):
+    """Every row dead, every row live, ragged, num_frames out of range;
+    B = 1, B no multiple of the 32-row chunk, B = 2048: one launch a
+    call, the plain version's values, and a dead row's outputs and state
+    0."""
+    for mod, fn, plain, args in (
+            (tlstm, tlstm.lstm_recurrence, tlstm.lstm_recurrence_plain,
+             _lstm_args(f + b, f, b, h, cuda)),
+            (tgru, tgru.gru_recurrence, tgru.gru_recurrence_plain,
+             _gru_args(f + b, f, b, h, cuda))):
+        args = _set_frames(args, frames, f * b)
+        before = fn.launches
+        got = fn(*args, reverse=reverse)
+        assert fn.launches == before + 1, mod.__name__
+        want = plain(*args, reverse=reverse)
+        outs, state = got[0], got[1] if mod is tgru else got[1][1]
+        _lstm_close(outs, want[0])
+        _lstm_close(state, want[1] if mod is tgru else want[1][1])
+        dead = args[2 if mod is tgru else 1] <= 0
+        assert torch.all(outs[:, dead] == 0) and torch.all(state[dead] == 0)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fw", "bw"])
+def test_cuda_lstm_streams_weights_past_shared_memory(cuda, reverse):
+    """H = 2048: a unit tile's W_h columns (256 KB) do not fit the shared
+    weight area, and the same kernel streams them in K chunks."""
+    assert tlstm.plan(96, 2048)["resident"] == 0
+    args = _lstm_args(9, 20, 96, 2048, cuda)
+    before = tlstm.lstm_recurrence.launches
+    outs, (c, hs) = tlstm.lstm_recurrence(*args, reverse=reverse)
+    assert tlstm.lstm_recurrence.launches == before + 1
+    w_outs, (w_c, w_h) = tlstm.lstm_recurrence_plain(*args, reverse=reverse)
+    for g, w in ((outs, w_outs), (c, w_c), (hs, w_h)):
+        _lstm_close(g, w)
+
+
+def test_cuda_recurrences_keep_their_weights_resident_at_h1024(cuda):
+    """GruModel's and the flagship's H = 1024: one co-resident wave whose
+    blocks hold their weight tiles in shared memory for the whole call."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for mod in (tlstm, tgru):
+        p = mod.plan(512, 1024)
+        assert p["resident"] == 1 and p["lanes"] == 1024 // 16, mod.__name__
+        assert p["grid"] == p["lanes"] * p["groups"] <= sms, p
 
 
 def test_cuda_gru_wrappers_reject_what_the_kernels_cannot_take(cuda):

@@ -8,6 +8,12 @@ The same inputs, made with numpy from a seed, go to both. Tolerances:
     own bound for its kernel is 2e-2). Both sides round h, r * h, W_hg,
     W_hc, xg and xc to bf16 at the same points; only the f32 summation
     order and the transcendental functions' last bits differ.
+  * the live-row schedule of the persistent CUDA kernel: the plain
+    version run on the rows sorted by num_frames (whole, or one step's
+    live prefix at a time, as the kernel runs it) and put back in the
+    caller's order meets the recurrence's 1e-5 bound against the JAX
+    reference on the original rows (the schedule itself is held to a
+    numpy count in tests/test_torch_lstm.py).
   * stacked GRU and the models at float32 (the scan graph on both
     sides): 1e-5.
   * stacked GRU and the models at bf16 (the recurrence on both sides,
@@ -40,6 +46,7 @@ from yt8m_tpu.models import get_model as jax_get_model
 from yt8m_tpu.models import rnn as jrnn
 from yt8m_tpu_torch.convert import state_dict_from_jax
 from yt8m_tpu_torch.kernels import gru as tgru
+from yt8m_tpu_torch.kernels._schedule import live_schedule
 from yt8m_tpu_torch.models import ModelHParams, get_model
 from yt8m_tpu_torch.models import rnn as trnn
 
@@ -122,6 +129,66 @@ def test_gru_padded_units_stay_zero_and_change_nothing():
     _close(outs2[..., :h], outs)
     _close(fh2[:, :h], fh)
     assert torch.all(outs2[..., h:] == 0) and torch.all(fh2[:, h:] == 0)
+
+
+def _gru_live_prefix(xg, xc, nf, whg, whc, bg, bc, reverse):
+    """The plain cell as the kernel runs it on rows in schedule order:
+    both products of step t for the first live[t] rows only (the others
+    keep their carry). Inputs and outputs in schedule order."""
+    f, b, g2 = xg.shape
+    hd = g2 // 2
+    _, live = live_schedule(nf, f, reverse)
+    bf = tgru._bf
+    wg, wc, xgs, xcs = bf(whg), bf(whc), bf(xg), bf(xc)
+    h = torch.zeros((b, hd))
+    outs = []
+    for t in range(f):
+        n = int(live[t])
+        hn = h[:n]
+        r, u = tgru.gru_gates(torch.matmul(bf(hn), wg) + xgs[t, :n] + bg, hd)
+        c = torch.tanh(torch.matmul(bf(r * hn), wc) + xcs[t, :n] + bc)
+        h[:n] = u * hn + (1.0 - u) * c
+        outs.append(h.to(torch.bfloat16))
+    return torch.stack(outs).to(torch.float32), h
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("run", ["plain", "live_prefix"])
+def test_gru_in_schedule_order_matches_jax(run, reverse):
+    args = _recurrence_inputs(7 + reverse)
+    xg, xc, nf, *weights = map(torch.from_numpy, args)
+    order, _ = live_schedule(nf, F, reverse)
+    o = order.long()
+    fn = tgru.gru_recurrence_plain if run == "plain" else _gru_live_prefix
+    s_outs, s_h = fn(xg[:, o], xc[:, o], nf[o], *weights, reverse)
+    outs, h = torch.empty_like(s_outs), torch.empty_like(s_h)
+    outs[:, o], h[o] = s_outs, s_h  # back to the caller's order
+    w_outs, w_h = gru_recurrence_reference(*map(jnp.asarray, args),
+                                           reverse=reverse)
+    _close(outs.numpy(), np.asarray(w_outs))
+    _close(h.numpy(), np.asarray(w_h))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_gru_live_prefix_out_of_range_num_frames_matches_jax(reverse):
+    """num_frames past either end (a row at or below 0 dead at every step,
+    one past F live at every step) in the schedule's order."""
+    nf = np.array([-2, F + 4, 0, -7, 5], np.int32)
+    xg, xc, _, *weights = _recurrence_inputs(11 + reverse)
+    args = (xg, xc, nf, *weights)
+    t = list(map(torch.from_numpy, args))
+    order, _ = live_schedule(t[2], F, reverse)
+    o = order.long()
+    s_outs, s_h = _gru_live_prefix(t[0][:, o], t[1][:, o], t[2][o], *t[3:],
+                                   reverse)
+    outs, h = torch.empty_like(s_outs), torch.empty_like(s_h)
+    outs[:, o], h[o] = s_outs, s_h
+    w_outs, w_h = gru_recurrence_reference(*map(jnp.asarray, args),
+                                           reverse=reverse)
+    _close(outs.numpy(), np.asarray(w_outs))
+    _close(h.numpy(), np.asarray(w_h))
+    dead = nf <= 0
+    assert np.all(outs.numpy()[:, dead] == 0) and np.all(h.numpy()[dead] == 0)
 
 
 class _JaxStack(fnn.Module):

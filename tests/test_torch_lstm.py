@@ -31,6 +31,7 @@ from yt8m_tpu.kernels.lstm import (
 from yt8m_tpu.models import rnn as jrnn
 from yt8m_tpu_torch.convert import state_dict_from_jax
 from yt8m_tpu_torch.kernels import lstm as tlstm
+from yt8m_tpu_torch.kernels._schedule import live_schedule
 from yt8m_tpu_torch.models import rnn as trnn
 
 F, B, H, D = 13, 5, 16, 32
@@ -93,6 +94,97 @@ def test_lstm_frozen_carry_ignores_steps_past_num_frames(reverse):
     b = _port_recurrence((loud, nf, wh, bias), reverse)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+SCHEDULE_FRAMES = {
+    "none": [0, 0, 0, 0, 0],
+    "one": [1, 1, 1, 1, 1],
+    "all": [F, F, F, F, F],
+    "ragged": list(NUM_FRAMES),
+    "ties": [7, 3, 7, 0, 3],
+    "out_of_range": [-2, F + 4, 0, -7, 5],
+}
+
+# num_frames past either end: a row at or below 0 is dead at every step,
+# one past F live at every step.
+OUT_OF_RANGE = np.array(SCHEDULE_FRAMES["out_of_range"], np.int32)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("frames", sorted(SCHEDULE_FRAMES))
+def test_live_schedule_matches_a_numpy_count(frames, reverse):
+    nf = np.array(SCHEDULE_FRAMES[frames], np.int32)
+    order, live = live_schedule(torch.from_numpy(nf), F, reverse)
+    assert order.dtype == torch.int32 and live.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(-nf, kind="stable"))
+    orig = F - 1 - np.arange(F) if reverse else np.arange(F)
+    want = (nf[None, :] > orig[:, None]).sum(1)
+    np.testing.assert_array_equal(live.numpy(), want)
+    # The live rows of each step are a prefix of the order.
+    for t in range(F):
+        prefix = set(order.numpy()[:live[t]].tolist())
+        assert prefix == set(np.nonzero(nf > orig[t])[0].tolist())
+
+
+def _lstm_live_prefix(xp, nf, wh, bias, reverse):
+    """The plain cell as the kernel runs it on rows in schedule order:
+    step t updates the first live[t] rows only (the others keep their
+    carry). Inputs and outputs in schedule order."""
+    f, b, g = xp.shape
+    hd = g // 4
+    _, live = live_schedule(nf, f, reverse)
+    w = wh.to(torch.bfloat16).to(torch.float32)
+    xs = xp.to(torch.bfloat16).to(torch.float32)
+    h = torch.zeros((b, hd))
+    c = torch.zeros((b, hd))
+    outs = []
+    for t in range(f):
+        n = int(live[t])
+        z = torch.matmul(h[:n].to(torch.bfloat16).to(torch.float32), w) + xs[t, :n]
+        _, c[:n], h[:n] = tlstm.lstm_cell(z + bias, c[:n], hd)
+        outs.append(h.to(torch.bfloat16))
+    return torch.stack(outs).to(torch.float32), (c, h)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("run", ["plain", "live_prefix"])
+def test_lstm_in_schedule_order_matches_jax(run, reverse):
+    args = _recurrence_inputs(5 + reverse)
+    xp, nf, wh, bias = map(torch.from_numpy, args)
+    order, _ = live_schedule(nf, F, reverse)
+    o = order.long()
+    fn = tlstm.lstm_recurrence_plain if run == "plain" else _lstm_live_prefix
+    s_outs, (s_c, s_h) = fn(xp[:, o], nf[o], wh, bias, reverse)
+    outs, c, h = (torch.empty_like(s_outs), torch.empty_like(s_c),
+                  torch.empty_like(s_h))
+    outs[:, o], c[o], h[o] = s_outs, s_c, s_h  # back to the caller's order
+    w_outs, (w_c, w_h) = lstm_recurrence_reference(
+        *map(jnp.asarray, args), reverse=reverse)
+    _close(outs.numpy(), np.asarray(w_outs))
+    _close(c.numpy(), np.asarray(w_c))
+    _close(h.numpy(), np.asarray(w_h))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_lstm_live_prefix_out_of_range_num_frames_matches_jax(reverse):
+    xp, _, wh, bias = _recurrence_inputs(9 + reverse)
+    args = (xp, OUT_OF_RANGE, wh, bias)
+    t = list(map(torch.from_numpy, args))
+    order, _ = live_schedule(t[1], F, reverse)
+    o = order.long()
+    s_outs, (s_c, s_h) = _lstm_live_prefix(t[0][:, o], t[1][o], t[2], t[3],
+                                           reverse)
+    outs, c, h = (torch.empty_like(s_outs), torch.empty_like(s_c),
+                  torch.empty_like(s_h))
+    outs[:, o], c[o], h[o] = s_outs, s_c, s_h
+    w_outs, (w_c, w_h) = lstm_recurrence_reference(
+        *map(jnp.asarray, args), reverse=reverse)
+    _close(outs.numpy(), np.asarray(w_outs))
+    _close(c.numpy(), np.asarray(w_c))
+    _close(h.numpy(), np.asarray(w_h))
+    dead = OUT_OF_RANGE <= 0
+    assert np.all(outs.numpy()[:, dead] == 0) and np.all(h.numpy()[dead] == 0)
 
 
 class _JaxStack(fnn.Module):

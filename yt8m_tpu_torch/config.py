@@ -135,6 +135,10 @@ class EvalConfig(_Config):
     batch_size: int = 1024
     model: str = "LogisticModel"
     label_loss: str = "CrossEntropyLoss"
+    # accepted as the reference's eval.py accepts them; inert here (the
+    # checkpoint restores the model without the optimizer state)
+    optimizer: str = "AdamOptimizer"
+    adam_mu_dtype: str = "float32"
     # evaluate the EMA weights (requires training with --ema_decay > 0)
     use_ema_weights: bool = False
     ensemble_train_dirs: str = ""
@@ -168,6 +172,10 @@ class InferenceConfig(_Config):
     max_frames: int = 300
     batch_size: int = 8192
     model: str = "LogisticModel"
+    # accepted as the reference's inference.py accepts them; inert here
+    # (the checkpoint restores the model without the optimizer state)
+    optimizer: str = "AdamOptimizer"
+    adam_mu_dtype: str = "float32"
     # serve the EMA weights (requires training with --ema_decay > 0)
     use_ema_weights: bool = False
     train_dir: str = "/tmp/yt8m_model/"

@@ -1,7 +1,7 @@
-// One GRU time step for Hopper (sm_90a), shared by the serving
-// recurrence (gru.cu) and the trainable one's forward (gru_train.cu),
-// and the block product that the trainable backward (gru_train.cu)
-// shares with them.
+// One GRU time step for Hopper (sm_90a): the trainable recurrence's
+// forward (gru_train.cu), and the block product that the trainable
+// backward (gru_train.cu) shares with it. The serving recurrence (gru.cu)
+// is one persistent launch instead (recurrence_persist.cuh).
 //
 // Every step t runs (TF1 GRUCell)
 //
@@ -11,8 +11,8 @@
 //   h      = h' where num_frames > orig_t, else unchanged
 //   out[t] = bf16(h)
 //
-// and, with kResiduals, also writes the step's post-sigmoid gates
-// bf16([r, u]) [B, 2H] and the candidate bf16(c) [B, H] for the backward.
+// and also writes the step's post-sigmoid gates bf16([r, u]) [B, 2H] and
+// the candidate bf16(c) [B, H] for the backward.
 //
 // Design. The TPU kernel keeps W_hg and W_hc (6 MiB in bf16 at H=1024)
 // resident in VMEM and runs both products of a step back to back. On
@@ -35,7 +35,9 @@
 // state, u and bf16(r * h) is written by the one block that owns it. What
 // this simple design pays: 2F launches a layer, and L2 re-reads of the
 // weights (one per batch tile per step). A persistent kernel with a
-// grid-wide barrier between the two products can remove the launches.
+// grid-wide barrier between the two products can remove the launches; the
+// serving recurrence's does, and the trainable forward is the next to
+// follow it.
 
 #pragma once
 
@@ -199,8 +201,6 @@ __device__ __forceinline__ void block_product(const __nv_bfloat16* __restrict__ 
 }
 
 // (a) The gate product and its epilogue. Grid (H / 32, ceil(B / 64)).
-// gates_t is written only with kResiduals.
-template <bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
 gru_gate_kernel(const __nv_bfloat16* __restrict__ h_prev, const __nv_bfloat16* __restrict__ xg_t,
                 const __nv_bfloat16* __restrict__ whg, const float* __restrict__ bg,
@@ -230,16 +230,13 @@ gru_gate_kernel(const __nv_bfloat16* __restrict__ h_prev, const __nv_bfloat16* _
     const size_t o = static_cast<size_t>(b) * H + j;
     u_buf[o] = su;
     rh_buf[o] = f2bf(__fmul_rn(sr, h_state[o]));
-    if (kResiduals) {
-      gates_t[static_cast<size_t>(b) * G + j] = f2bf(sr);
-      gates_t[static_cast<size_t>(b) * G + H + j] = f2bf(su);
-    }
+    gates_t[static_cast<size_t>(b) * G + j] = f2bf(sr);
+    gates_t[static_cast<size_t>(b) * G + H + j] = f2bf(su);
   }
 }
 
 // (b) The candidate product and the state update. Grid (H / 64,
-// ceil(B / 64)). cand_t is written only with kResiduals.
-template <bool kResiduals>
+// ceil(B / 64)).
 __global__ void __launch_bounds__(kThreads)
 gru_cand_kernel(const __nv_bfloat16* __restrict__ rh, const __nv_bfloat16* __restrict__ xc_t,
                 const __nv_bfloat16* __restrict__ whc, const float* __restrict__ bc,
@@ -269,7 +266,7 @@ gru_cand_kernel(const __nv_bfloat16* __restrict__ rh, const __nv_bfloat16* __res
       if (!live) h1 = h0;  // past the video's last frame: freeze
       h_state[o] = h1;
       out_t[o] = f2bf(h1);
-      if (kResiduals) cand_t[o] = f2bf(c);
+      cand_t[o] = f2bf(c);
     }
   }
 }
@@ -278,19 +275,18 @@ gru_cand_kernel(const __nv_bfloat16* __restrict__ rh, const __nv_bfloat16* __res
 // bf16; h0 [B, H] bf16 (the first step's product operand); h [B, H] f32,
 // the initial state on entry and the final state on return; u [B, H]
 // f32 and rh [B, H] bf16 scratch (the last step's on return); out
-// [F, B, H] bf16; with kResiduals gates [F, B, 2H] and cand [F, B, H]
-// bf16. 2F launches.
-template <bool kResiduals>
-int run_forward(const void* xg, const void* xc, const void* num_frames, const void* whg,
+// [F, B, H] bf16; gates [F, B, 2H] and cand [F, B, H] bf16. 2F
+// launches.
+inline int run_forward(const void* xg, const void* xc, const void* num_frames, const void* whg,
                 const void* whc, const void* bg, const void* bc, const void* h0, void* h,
                 void* u, void* rh, void* out, void* gates, void* cand, int F, int B, int H,
                 int reverse, void* stream) {
   if (F <= 0 || B <= 0 || H <= 0 || H % kBK != 0 || (B + kRows - 1) / kRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(gru_gate_kernel<kResiduals>,
+  cudaError_t err = cudaFuncSetAttribute(gru_gate_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(gru_cand_kernel<kResiduals>,
+  err = cudaFuncSetAttribute(gru_cand_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -310,15 +306,15 @@ int run_forward(const void* xg, const void* xc, const void* num_frames, const vo
   for (int t = 0; t < F; ++t) {
     const __nv_bfloat16* h_prev =
         t == 0 ? static_cast<const __nv_bfloat16*>(h0) : o + (t - 1) * step_h;
-    gru_gate_kernel<kResiduals><<<grid_gate, kThreads, kSmem, st>>>(
+    gru_gate_kernel<<<grid_gate, kThreads, kSmem, st>>>(
         h_prev, xgp + t * step_g, static_cast<const __nv_bfloat16*>(whg),
-        static_cast<const float*>(bg), hs, us, rhs, kResiduals ? g + t * step_g : nullptr, B, H);
+        static_cast<const float*>(bg), hs, us, rhs, g + t * step_g, B, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    gru_cand_kernel<kResiduals><<<grid_cand, kThreads, kSmem, st>>>(
+    gru_cand_kernel<<<grid_cand, kThreads, kSmem, st>>>(
         rhs, xcp + t * step_h, static_cast<const __nv_bfloat16*>(whc),
         static_cast<const float*>(bc), static_cast<const int*>(num_frames), us, hs,
-        o + t * step_h, kResiduals ? c + t * step_h : nullptr, B, H, reverse ? F - 1 - t : t);
+        o + t * step_h, c + t * step_h, B, H, reverse ? F - 1 - t : t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -151,8 +151,8 @@ extern "C" int yt8m_gru_train_forward(const void* xg, const void* xc, const void
                                       const void* bc, const void* h0, void* h, void* u, void* rh,
                                       void* out, void* gates, void* cand, int F, int B, int H,
                                       int reverse, void* stream) {
-  return gru_step::run_forward<true>(xg, xc, num_frames, whg, whc, bg, bc, h0, h, u, rh, out,
-                                     gates, cand, F, B, H, reverse, stream);
+  return gru_step::run_forward(xg, xc, num_frames, whg, whc, bg, bc, h0, h, u, rh, out, gates,
+                               cand, F, B, H, reverse, stream);
 }
 
 // Backward: dout [F, B, H], gates [F, B, 2H], cand [F, B, H] and outs

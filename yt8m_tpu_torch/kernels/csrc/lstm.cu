@@ -1,26 +1,236 @@
 // LSTM recurrence serving kernel for Hopper (sm_90a).
 //
 // Replaces yt8m_tpu/kernels/lstm.py :: lstm_recurrence. Given the input
-// projection X' [F, B, 4H] (bf16, computed outside), every step runs the
-// cell of lstm_step.cuh (TF gate order i, j, f, o, forget bias 1, the
-// carry frozen past num_frames) and writes bf16(h); orig_t = F-1-t under
-// `reverse` (X' comes flipped in time).
+// projection X' [F, B, 4H] (bf16, computed outside), every step t runs
 //
-// What bounds it: per layer at B=512, F=300, H=1024 the products are
-// 1.29 TFLOP (1.30 ms at the bf16 peak) against 1.57 GB of X' and
-// outputs (0.47 ms at 3.35 TB/s): the tensor-core rate. The design (one
-// launch per step, a block per 128 rows x 32 units of all four gates) is
-// in lstm_step.cuh.
+//   z      = bf16(h) @ bf16(W_h) + X'_t + bias              (f32 sums)
+//   i,j,f,o = z[:, 0:H], z[:, H:2H], z[:, 2H:3H], z[:, 3H:4H]   (TF order)
+//   c'     = c * sigmoid(f + 1) + sigmoid(i) * tanh(j)
+//   h'     = tanh(c') * sigmoid(o)
+//   (c, h) = (c', h') where num_frames > orig_t, else unchanged
+//   out[t] = bf16(h)
+//
+// with orig_t = F-1-t under `reverse` (X' comes flipped in time).
+//
+// What bounds it: per layer at B=512, F=300, H=1024 the products of the
+// live (video, step) pairs are about 0.64 TFLOP (0.65 ms at the bf16
+// peak, half the pairs live with num_frames uniform in 1..300) against
+// about 0.95 GB of live X' and outputs (0.28 ms at 3.35 TB/s): the
+// tensor-core rate, behind the serial chain of F steps.
+//
+// Design: recurrence_persist.cuh, one launch a call. A unit tile is 16
+// units x 4 gates = 64 columns of W_h (128 KB at H=1024, resident); a warp
+// multiplies a 32-row chunk of the live prefix by them, and each thread
+// then updates the cells whose four gate sums it holds. One barrier a step
+// among a row group's blocks: the next step's product reads out[t]
+// of every unit.
 
-#include "lstm_step.cuh"
+#include "recurrence_persist.cuh"
 
-// xp [F, B, 4H] bf16; h0 [B, H] bf16 (the first step's h); c, h [B, H]
-// f32, the initial state on entry (zeros for a sequence) and the final
-// state on return; out [F, B, H] bf16. Launches F step kernels on
-// `stream`.
-extern "C" int yt8m_lstm_recurrence(const void* xp, const void* num_frames, const void* wh,
-                                    const void* bias, const void* h0, void* c, void* h,
-                                    void* out, int F, int B, int H, int reverse, void* stream) {
-  return lstm_step::run_forward<false>(xp, num_frames, wh, bias, h0, c, h, out, nullptr,
-                                       nullptr, F, B, H, reverse, stream);
+namespace {
+
+using namespace persist;
+
+constexpr int kGates = 4;
+constexpr int kCols = kGates * kUnits;  // a tile's columns
+
+struct LstmArgs {
+  const __nv_bfloat16* xp;  // [F, B, 4H]
+  const int* order;         // [B] rows by num_frames, descending
+  const int* live;          // [F] live rows at each step
+  const __nv_bfloat16* wh;  // [H, 4H]
+  const float* bias;        // [4H]
+  const __nv_bfloat16* h0;  // [B, H] the first step's product operand
+  float* c;                 // [B, H] state in, final state out
+  float* h;                 // [B, H]
+  __nv_bfloat16* out;       // [F, B, H]
+  const int* num_frames;    // [B]
+  unsigned int* barrier;    // a counter a row group, 0 at launch
+  int F, B, H;
+  int reverse;
+  Plan plan;
+  int skip_work;  // 1: barriers and schedule only (measures the barriers)
+};
+
+// One step of one unit tile (units j0 ..): the row group's live chunks,
+// a warp a chunk, in rounds of kWarps.
+__device__ __forceinline__ void lstm_tile_step(const LstmArgs& a, const __nv_bfloat16* hsrc,
+                                               const __nv_bfloat16* x_t,
+                                               __nv_bfloat16* out_t, int n, int mine, int j0,
+                                               int group, uint32_t w_tile, uint32_t ring,
+                                               int kw) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int H = a.H;
+  const size_t G = 4 * static_cast<size_t>(H);
+  for (int r0 = 0; r0 < mine; r0 += kWarps) {
+    const bool active = r0 + warp < mine;
+    const ChunkRows rows =
+        chunk_rows(a.order, group + a.plan.groups * (r0 + warp), active ? n : 0);
+    // X' of the thread's cells (rows j = 2 mi + hf, unit halves hq), from
+    // device memory: loaded before the product, used after it.
+    __nv_bfloat162 x[4][2][4];
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hq = 0; hq < 2; ++hq)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            if (rows.ok[j])
+              x[j][hq][g] = *reinterpret_cast<const __nv_bfloat162*>(
+                  x_t + static_cast<size_t>(rows.b[j]) * G + static_cast<size_t>(g) * H + j0 +
+                  hq * 8 + (lane & 3) * 2);
+    }
+    float acc[2][2 * kGates][4];
+    chunk_product<kGates>(acc, active, hsrc, rows, H, ring, w_tile, !a.plan.resident, kw,
+                               [&](int k0, int rows_k) {
+                                 load_w_tile<kGates>(w_tile, a.wh, 4 * H, H, j0, k0, rows_k);
+                               });
+    if (!active) continue;
+    // The cells' c, all loaded before any store; the four gates' sums of
+    // a cell are acc[mi][hq * 4 + g].
+    float2 c0[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hq = 0; hq < 2; ++hq)
+        if (rows.ok[j])
+          c0[j][hq] = *reinterpret_cast<const float2*>(
+              a.c + static_cast<size_t>(rows.b[j]) * H + j0 + hq * 8 + (lane & 3) * 2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!rows.ok[j]) continue;
+      const int mi = j >> 1;
+      const int hf = j & 1;
+#pragma unroll
+      for (int hq = 0; hq < 2; ++hq) {
+        const int unit = j0 + hq * 8 + (lane & 3) * 2;
+        float cn[2], hn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // (h @ W_h + X'_t) + bias, in the plain version's order.
+          float z[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float xv = e ? __high2float(x[j][hq][g]) : __low2float(x[j][hq][g]);
+            z[g] = __fadd_rn(__fadd_rn(acc[mi][hq * kGates + g][hf * 2 + e], xv),
+                             __ldg(a.bias + g * H + unit + e));
+          }
+          const float si = sigmoid(z[0]);
+          const float tj = tanhf(z[1]);
+          const float sf = sigmoid(__fadd_rn(z[2], 1.0f));
+          const float so = sigmoid(z[3]);
+          cn[e] = __fadd_rn(__fmul_rn(e ? c0[j][hq].y : c0[j][hq].x, sf), __fmul_rn(si, tj));
+          hn[e] = __fmul_rn(tanhf(cn[e]), so);
+        }
+        const size_t o = static_cast<size_t>(rows.b[j]) * H + unit;
+        *reinterpret_cast<float2*>(a.c + o) = make_float2(cn[0], cn[1]);
+        *reinterpret_cast<float2*>(a.h + o) = make_float2(hn[0], hn[1]);
+        *reinterpret_cast<__nv_bfloat162*>(out_t + o) = __floats2bfloat162_rn(hn[0], hn[1]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) lstm_persist_kernel(LstmArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t w_tile = smem_u32(smem);
+  const int w_bytes = a.plan.resident ? a.H * kCols * 2 : kWBytes;
+  const uint32_t ring = smem_u32(smem + w_bytes) + (threadIdx.x >> 5) * kWarpRingBytes;
+  const int lane_id = blockIdx.x % a.plan.lanes;
+  const int group = blockIdx.x / a.plan.lanes;
+  const int groups = a.plan.groups;
+  const int H = a.H;
+  const size_t step_h = static_cast<size_t>(a.B) * H;
+  const int tiles = H / kUnits;
+  const int kw = kWBytes / (kCols * 2) < H ? kWBytes / (kCols * 2) : H;
+
+  if (a.plan.resident && !a.skip_work) {
+    load_w_tile<kGates>(w_tile, a.wh, 4 * H, H, lane_id * kUnits, 0, H);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (a.reverse && !a.skip_work)
+    write_frozen_steps(a.order, a.num_frames, a.F, a.B, H, true, group, groups, lane_id,
+                       a.plan.lanes, a.h, a.out);
+  unsigned int* barrier = a.barrier + group;
+  unsigned int target = 0;
+  for (int t = 0; t < a.F; ++t) {
+    const int n = __ldg(a.live + t);
+    const __nv_bfloat16* hsrc = t == 0 ? a.h0 : a.out + (t - 1) * step_h;
+    __nv_bfloat16* out_t = a.out + t * step_h;
+    const __nv_bfloat16* x_t = a.xp + t * 4 * step_h;
+    const int chunks = (n + kChunk - 1) / kChunk;
+    const int mine = chunks > group ? (chunks - group + groups - 1) / groups : 0;
+    for (int u = lane_id; u < tiles && !a.skip_work; u += a.plan.lanes) {
+      lstm_tile_step(a, hsrc, x_t, out_t, n, mine, u * kUnits, group, w_tile, ring, kw);
+    }
+    if (t + 1 < a.F) group_barrier(barrier, target, a.plan.lanes);
+  }
+  __syncthreads();  // the last step's state, written by other threads
+  if (!a.reverse && !a.skip_work)
+    write_frozen_steps(a.order, a.num_frames, a.F, a.B, H, false, group, groups, lane_id,
+                       a.plan.lanes, a.h, a.out);
+}
+
+cudaError_t lstm_plan(int B, int H, Plan* plan) {
+  return make_plan(lstm_persist_kernel, B, H, kCols, plan);
+}
+
+}  // namespace
+
+// The launch plan at B rows and H units: [grid, lanes, groups, resident,
+// shared bytes a block] into plan[0..4].
+extern "C" int yt8m_lstm_plan(int B, int H, int* plan) {
+  if (B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  const cudaError_t err = lstm_plan(B, H, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = p.grid;
+  plan[1] = p.lanes;
+  plan[2] = p.groups;
+  plan[3] = p.resident;
+  plan[4] = p.smem;
+  return static_cast<int>(cudaSuccess);
+}
+
+// xp [F, B, 4H] bf16; num_frames [B], order [B] and live [F] int32 (the
+// live-row schedule); wh [H, 4H] bf16; bias [4H] f32; h0 [B, H] bf16 (the
+// first step's product operand); c, h [B, H] f32, the initial state on
+// entry (zeros for a sequence) and the final state on return; out
+// [F, B, H] bf16; barrier kMaxGroups uint32, 0. One cooperative launch on
+// `stream`; skip_work = 1 runs the schedule and the barriers alone.
+extern "C" int yt8m_lstm_recurrence(const void* xp, const void* num_frames, const void* order,
+                                    const void* live, const void* wh, const void* bias,
+                                    const void* h0, void* c, void* h, void* out, void* barrier,
+                                    int F, int B, int H, int reverse, int skip_work,
+                                    void* stream) {
+  if (F <= 0 || B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  LstmArgs a;
+  cudaError_t err = lstm_plan(B, H, &a.plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.xp = static_cast<const __nv_bfloat16*>(xp);
+  a.num_frames = static_cast<const int*>(num_frames);
+  a.order = static_cast<const int*>(order);
+  a.live = static_cast<const int*>(live);
+  a.wh = static_cast<const __nv_bfloat16*>(wh);
+  a.bias = static_cast<const float*>(bias);
+  a.h0 = static_cast<const __nv_bfloat16*>(h0);
+  a.c = static_cast<float*>(c);
+  a.h = static_cast<float*>(h);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.barrier = static_cast<unsigned int*>(barrier);
+  a.F = F;
+  a.B = B;
+  a.H = H;
+  a.reverse = reverse;
+  a.skip_work = skip_work;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_persist_kernel),
+                                    dim3(a.plan.grid), dim3(kThreads), args, a.plan.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

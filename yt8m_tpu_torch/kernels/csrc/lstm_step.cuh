@@ -1,5 +1,6 @@
-// One LSTM time step for Hopper (sm_90a), shared by the serving
-// recurrence (lstm.cu) and the trainable one's forward (lstm_train.cu).
+// One LSTM time step for Hopper (sm_90a): the trainable recurrence's
+// forward (lstm_train.cu). The serving recurrence (lstm.cu) is one
+// persistent launch instead (recurrence_persist.cuh).
 //
 // Every step t runs
 //
@@ -10,9 +11,9 @@
 //   (c, h) = (c', h') where num_frames > orig_t, else unchanged
 //   out[t] = bf16(h)
 //
-// and, with kResiduals, also writes the step's post-activation gates
-// (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o) [B, 4H] and bf16(c)
-// [B, H] for the backward.
+// and also writes the step's post-activation gates (sigmoid i, tanh j,
+// sigmoid(f + 1), sigmoid o) [B, 4H] and bf16(c) [B, H] for the
+// backward.
 //
 // Design. The TPU kernel keeps W_h (8 MiB in bf16 at H=1024) resident in
 // VMEM for the whole sequence; one Hopper SM has 227 KB of shared
@@ -29,7 +30,8 @@
 // that owns it. The step launches (F per layer) and the L2 re-reads of
 // W_h (one per batch tile per step) are what this simple design pays; a
 // persistent kernel with a grid-wide barrier between steps can remove
-// the launches.
+// the launches; the serving recurrence's persistent kernel does, and the
+// trainable forward is the next to follow it.
 
 #pragma once
 
@@ -76,9 +78,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One time step. Grid (H / 32, ceil(B / 128)). Warps 4 (rows) x 2
-// (columns), a 32 x 64 warp tile each. gates_t and cs_t are read only
-// with kResiduals.
-template <bool kResiduals>
+// (columns), a 32 x 64 warp tile each.
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const __nv_bfloat16* __restrict__ h_prev, const __nv_bfloat16* __restrict__ xp_t,
                  const __nv_bfloat16* __restrict__ wh, const float* __restrict__ bias,
@@ -240,28 +240,25 @@ lstm_step_kernel(const __nv_bfloat16* __restrict__ h_prev, const __nv_bfloat16* 
     c_state[o] = c1;
     h_state[o] = h1;
     out_t[o] = __float2bfloat16_rn(h1);
-    if (kResiduals) {
-      __nv_bfloat16* g = gates_t + static_cast<size_t>(b) * G + j;
-      g[0] = __float2bfloat16_rn(si);
-      g[H] = __float2bfloat16_rn(tj);
-      g[2 * static_cast<size_t>(H)] = __float2bfloat16_rn(sf);
-      g[3 * static_cast<size_t>(H)] = __float2bfloat16_rn(so);
-      cs_t[o] = __float2bfloat16_rn(c1);
-    }
+    __nv_bfloat16* g = gates_t + static_cast<size_t>(b) * G + j;
+    g[0] = __float2bfloat16_rn(si);
+    g[H] = __float2bfloat16_rn(tj);
+    g[2 * static_cast<size_t>(H)] = __float2bfloat16_rn(sf);
+    g[3 * static_cast<size_t>(H)] = __float2bfloat16_rn(so);
+    cs_t[o] = __float2bfloat16_rn(c1);
   }
 }
 
 // The forward over F steps on `stream`: xp [F, B, 4H] bf16; h0 [B, H]
 // bf16 (the first step's h); c, h [B, H] f32, the initial state on
-// entry and the final state on return; out [F, B, H] bf16; with
-// kResiduals gates [F, B, 4H] and cs [F, B, H] bf16.
-template <bool kResiduals>
-int run_forward(const void* xp, const void* num_frames, const void* wh, const void* bias,
+// entry and the final state on return; out [F, B, H] bf16; gates
+// [F, B, 4H] and cs [F, B, H] bf16.
+inline int run_forward(const void* xp, const void* num_frames, const void* wh, const void* bias,
                 const void* h0, void* c, void* h, void* out, void* gates, void* cs, int F, int B,
                 int H, int reverse, void* stream) {
   if (F <= 0 || B <= 0 || H <= 0 || H % kBK != 0 || (B + kRows - 1) / kRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(lstm_step_kernel<kResiduals>,
+  cudaError_t err = cudaFuncSetAttribute(lstm_step_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -275,11 +272,11 @@ int run_forward(const void* xp, const void* num_frames, const void* wh, const vo
   for (int t = 0; t < F; ++t) {
     const __nv_bfloat16* h_prev =
         t == 0 ? static_cast<const __nv_bfloat16*>(h0) : o + (t - 1) * step_out;
-    lstm_step_kernel<kResiduals><<<grid, kThreads, kSmem, st>>>(
+    lstm_step_kernel<<<grid, kThreads, kSmem, st>>>(
         h_prev, x + t * step_in, static_cast<const __nv_bfloat16*>(wh),
         static_cast<const float*>(bias), static_cast<const int*>(num_frames),
         static_cast<float*>(c), static_cast<float*>(h), o + t * step_out,
-        kResiduals ? g + t * step_in : nullptr, kResiduals ? s + t * step_out : nullptr, B, H,
+        g + t * step_in, s + t * step_out, B, H,
         reverse ? F - 1 - t : t);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

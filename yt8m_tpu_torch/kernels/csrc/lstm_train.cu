@@ -215,8 +215,8 @@ extern "C" int yt8m_lstm_train_forward(const void* xp, const void* num_frames, c
                                        const void* bias, const void* h0, void* c, void* h,
                                        void* out, void* gates, void* cs, int F, int B, int H,
                                        int reverse, void* stream) {
-  return lstm_step::run_forward<true>(xp, num_frames, wh, bias, h0, c, h, out, gates, cs, F, B,
-                                      H, reverse, stream);
+  return lstm_step::run_forward(xp, num_frames, wh, bias, h0, c, h, out, gates, cs, F, B, H,
+                                reverse, stream);
 }
 
 // Backward: dout [F, B, H], gates [F, B, 4H] and cs [F, B, H] bf16; wh

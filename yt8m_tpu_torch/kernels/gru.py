@@ -14,10 +14,13 @@ projections xg = X @ W_xg [F, B, 2H] and xc = X @ W_xc [F, B, H]
 r * h is formed in f32 before its rounding. orig_t = F-1-t when
 `reverse` (xg and xc come already flipped in time and the outputs keep
 that order, as in the JAX package). The CUDA kernel (csrc/gru.cu) is
-bound by the bf16 tensor-core rate. The candidate product needs r for
-all H units, which the gate product makes: so each step is two
-launches, all 2F from one C call, and `gru_recurrence.launches` counts
-the step kernels launched. H that is no multiple of 64 is padded with
+bound by the bf16 tensor-core rate; it is one persistent launch a call
+(csrc/recurrence_persist.cuh: W_hg and W_hc resident in shared memory,
+barriers between the gate and the candidate product, which needs r over
+all H units, and between steps; only the live rows of each step
+multiplied, by the schedule of kernels/_schedule.py), and
+`gru_recurrence.launches` counts those launches. H that is no multiple
+of 64 is padded with
 units whose W_h rows and columns, xg and xc columns and biases are
 zero: such a unit has u = 0.5, r * h = 0 and c = tanh(0) = 0, so its
 h stays 0, and the real units see nothing of it (its W_h rows are zero).
@@ -28,13 +31,18 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels._schedule import (
+    BARRIER_WORDS,
+    launch_plan,
+    live_schedule,
+)
 from yt8m_tpu_torch.kernels._checks import (
     on_cpu,
     require,
     require_cuda_operand,
 )
 
-H_MULTIPLE = 64  # the CUDA kernels' depth tile and candidate unit tile
+H_MULTIPLE = 64  # the units the CUDA kernels take a multiple of
 
 
 def _bf(t):
@@ -114,18 +122,21 @@ def gru_recurrence(xg, xc, num_frames, whg, whc, bg, bc, reverse=False):
         return out[..., :hd].contiguous(), h[:, :hd].contiguous()
     out, h, _, _, _, _ = forward_kernel(xg, xc, num_frames, whg, whc, bg, bc,
                                         reverse)
-    gru_recurrence.launches += 2 * f
+    gru_recurrence.launches += 1
     return out.to(torch.float32), h
 
 
 def forward_kernel(xg, xc, num_frames, whg, whc, bg, bc, reverse=False,
-                   h0=None, h=None, residuals=False):
-    """The C call of the CUDA forward, serving (csrc/gru.cu) or with
-    `residuals` (csrc/gru_train.cu), on CUDA tensors with H a multiple of
-    64: (out [F, B, H] bf16, h [B, H] f32, and the last step's u [B, H]
-    f32 and bf16(r * h) [B, H], gates [F, B, 2H] and cand [F, B, H] bf16
-    or None). h0 (bf16) and h (f32, updated in place) give the state
-    before the first step; zeros by default."""
+                   h0=None, h=None, residuals=False, skip_work=False):
+    """The C call of the CUDA forward, serving (csrc/gru.cu, one launch)
+    or with `residuals` (csrc/gru_train.cu, 2F step launches), on CUDA
+    tensors with H a multiple of 64: (out [F, B, H] bf16, h [B, H] f32,
+    and the last step's u [B, H] f32 and bf16(r * h) [B, H], gates
+    [F, B, 2H] and cand [F, B, H] bf16 or None). The serving kernel
+    writes u and bf16(r * h) of the live rows only. h0 (bf16) and h (f32,
+    updated in place) give the state before the first step; zeros by
+    default. skip_work runs the serving kernel's schedule and barriers
+    alone (their share of a call, for measurement)."""
     f, b, g2 = xg.shape
     hd = g2 // 2
     require(hd % H_MULTIPLE == 0, f"H={hd} must be a multiple of "
@@ -159,11 +170,28 @@ def forward_kernel(xg, xc, num_frames, whg, whc, bg, bc, reverse=False,
             *args, _build.ptr(gates), _build.ptr(cand), f, b, hd,
             int(bool(reverse)), _build.current_stream(dev))
     else:
-        code = lib.yt8m_gru_recurrence(*args, f, b, hd, int(bool(reverse)),
-                                       _build.current_stream(dev))
+        order, live = live_schedule(num_frames, f, reverse)
+        barrier = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
+        code = lib.yt8m_gru_recurrence(
+            *args[:3], _build.ptr(order), _build.ptr(live), *args[3:],
+            _build.ptr(barrier), f, b, hd, int(bool(reverse)),
+            int(skip_work), _build.current_stream(dev))
     _build.check_launch("gru_train_forward" if residuals else "gru_recurrence",
                         code)
     return out, h, u, rh, gates, cand
+
+
+def barriers_only(xg, xc, num_frames, whg, whc, bg, bc, reverse=False):
+    """The serving kernel with its products and cell updates skipped: its
+    schedule and 2F - 1 barriers alone (not counted in `launches`)."""
+    forward_kernel(xg, xc, num_frames, whg, whc, bg, bc, reverse,
+                   skip_work=True)
+
+
+def plan(b: int, hd: int) -> dict:
+    """The serving kernel's launch plan at B rows and H units (H a
+    multiple of 64): see kernels/_schedule.py :: launch_plan."""
+    return launch_plan(_build.library().yt8m_gru_plan, b, hd)
 
 
 gru_recurrence.launches = 0

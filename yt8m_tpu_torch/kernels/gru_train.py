@@ -285,14 +285,19 @@ def forward_steps_on_card(xg, xc, num_frames, whg, whc, bg, bc,
     CUDA tensors, the state carried from call to call) and, at each step,
     the plain cell fed the kernel's own state: the gate product from the
     kernel's bf16 h, the candidate product from the kernel's bf16(r * h),
-    the update from the kernel's u and f32 h. Stacked [F, B, H]: the
-    kernel's (u f32, bf16(r * h), h f32, out bf16) and the plain (u, r * h
-    before its rounding, h), all f32."""
+    the update from the kernel's u and f32 h. Each call takes every row
+    as live (the kernel computes no row past its live prefix, and the
+    witness reads u and bf16(r * h) of every row); the freeze past
+    num_frames is applied to the kernel's state here, as the plain cell
+    applies it. Stacked [F, B, H]: the kernel's (u f32, bf16(r * h), h
+    f32, out bf16) and the plain (u, r * h before its rounding, h), all
+    f32."""
     f, b, g2 = xg.shape
     hd = g2 // 2
     wg, wc = _bf(whg), _bf(whc)
     h0 = torch.zeros((b, hd), dtype=torch.bfloat16, device=xg.device)
     h = torch.zeros((b, hd), dtype=torch.float32, device=xg.device)
+    every_row = torch.ones_like(num_frames)
     kernel = {k: [] for k in ("u", "rh", "h", "out")}
     plain = {k: [] for k in ("u", "rh", "h")}
     for t in range(f):
@@ -300,8 +305,10 @@ def forward_steps_on_card(xg, xc, num_frames, whg, whc, bg, bc,
         live = (num_frames.to(torch.int64) > orig)[:, None]
         h_before = h.clone()
         out, h, u, rh, _, _ = forward_kernel(
-            xg[t:t + 1], xc[t:t + 1], (num_frames - orig).to(torch.int32),
-            whg, whc, bg, bc, h0=h0, h=h)
+            xg[t:t + 1], xc[t:t + 1], every_row, whg, whc, bg, bc, h0=h0,
+            h=h)
+        h = torch.where(live, h, h_before)
+        out = torch.where(live, out, h_before.to(torch.bfloat16))
         r_p, u_p = gru_gates(torch.matmul(h0.to(torch.float32), wg)
                              + _bf(xg[t]) + bg, hd)
         c_p = torch.tanh(torch.matmul(rh.to(torch.float32), wc) + _bf(xc[t])

@@ -13,9 +13,11 @@ every step t computes, in TF gate order i, j, f, o with forget bias 1:
 `round` is the cast to bf16; orig_t = F-1-t when `reverse` (x_proj comes
 already flipped in time and the outputs keep that order, as in the JAX
 package). The CUDA kernel (csrc/lstm.cu) is bound by the bf16
-tensor-core rate; it runs one launch per step, all F from one C call,
-and `lstm_recurrence.launches` counts calls of this wrapper. H that is
-no multiple of 64 is padded with units whose W_h columns and rows,
+tensor-core rate; it is one persistent launch a call
+(csrc/recurrence_persist.cuh: W_h resident in shared memory, a barrier
+between steps, only the live rows of each step multiplied, by the
+schedule of kernels/_schedule.py), and `lstm_recurrence.launches`
+counts those launches. H that is no multiple of 64 is padded with units whose W_h columns and rows,
 x_proj columns and bias are zero: such a unit keeps c = 0 and h = 0
 (z = 0 gives c' = c * sigmoid(1) + sigmoid(0) * tanh(0)), so the real
 units see nothing of it.
@@ -26,13 +28,18 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels._schedule import (
+    BARRIER_WORDS,
+    launch_plan,
+    live_schedule,
+)
 from yt8m_tpu_torch.kernels._checks import (
     on_cpu,
     require,
     require_cuda_operand,
 )
 
-H_MULTIPLE = 64  # the CUDA kernel's depth tile over H (a block owns 32 units)
+H_MULTIPLE = 64  # the units the CUDA kernels take a multiple of
 
 
 def pad_units(hp: int, x_proj, wh, bias):
@@ -100,25 +107,49 @@ def lstm_recurrence(x_proj, num_frames, wh, bias, reverse=False):
         xp, whp, bp = pad_units(hp, x_proj, wh, bias)
         out, (c, h) = lstm_recurrence(xp, num_frames, whp, bp, reverse)
         return out[..., :hd].contiguous(), (c[:, :hd], h[:, :hd])
+    out, c, h = _launch(x_proj, num_frames, wh, bias, reverse)
+    lstm_recurrence.launches += 1
+    return out.to(torch.float32), (c, h)
+
+
+def _launch(x_proj, num_frames, wh, bias, reverse, skip_work=False):
+    """The C call on CUDA tensors with H a multiple of 64: (out [F, B, H]
+    bf16, c, h [B, H] f32). skip_work runs the kernel's schedule and
+    barriers alone (their share of a call, for measurement)."""
+    f, b, g = x_proj.shape
+    hd = g // 4
     require(f >= 1, "F must be at least 1")
     require_cuda_operand("x_proj", x_proj, torch.bfloat16, (f, b, g))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
     require_cuda_operand("wh", wh, torch.bfloat16, (hd, g))
     require_cuda_operand("bias", bias, torch.float32, (g,))
     dev = x_proj.device
+    order, live = live_schedule(num_frames, f, reverse)
     h0 = torch.zeros((b, hd), dtype=torch.bfloat16, device=dev)
     c = torch.zeros((b, hd), dtype=torch.float32, device=dev)
     h = torch.zeros((b, hd), dtype=torch.float32, device=dev)
     out = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
+    barrier = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
     code = _build.library().yt8m_lstm_recurrence(
-        _build.ptr(x_proj), _build.ptr(num_frames), _build.ptr(wh),
-        _build.ptr(bias), _build.ptr(h0), _build.ptr(c), _build.ptr(h),
-        _build.ptr(out), f, b, hd, int(bool(reverse)),
+        *(_build.ptr(t) for t in (x_proj, num_frames, order, live, wh, bias,
+                                  h0, c, h, out, barrier)),
+        f, b, hd, int(bool(reverse)), int(skip_work),
         _build.current_stream(dev),
     )
     _build.check_launch("lstm_recurrence", code)
-    lstm_recurrence.launches += 1
-    return out.to(torch.float32), (c, h)
+    return out, c, h
+
+
+def barriers_only(x_proj, num_frames, wh, bias, reverse=False):
+    """The kernel with its products and cell updates skipped: its schedule
+    and F - 1 barriers alone (not counted in `launches`)."""
+    _launch(x_proj, num_frames, wh, bias, reverse, skip_work=True)
+
+
+def plan(b: int, hd: int) -> dict:
+    """The kernel's launch plan at B rows and H units (H a multiple of
+    64): see kernels/_schedule.py :: launch_plan."""
+    return launch_plan(_build.library().yt8m_lstm_plan, b, hd)
 
 
 lstm_recurrence.launches = 0
