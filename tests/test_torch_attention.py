@@ -118,6 +118,67 @@ def test_attention_pool_ignores_frames_past_num_frames(dtype):
                                   _port(loud, NUM_FRAMES, query))
 
 
+def _boundary_case():
+    """One video of two f32 frames whose first attention weight lies on
+    the bf16 rounding boundary between 0.75 and 0.75 + 2^-8: its score,
+    a sum of three exact bf16 products, hits logit(0.75 + 2^-9) to f32
+    precision; the second frame is orthogonal to the query (score 0), so
+    its weight is 1 - that, 0.248046875, a bf16 value far from any
+    boundary. (frames, num_frames, query, the kernel's weights with the
+    first weight rounded to the other side.)"""
+    target = float(np.log((0.75 + 2.0 ** -9) / (0.25 - 2.0 ** -9)))
+    parts, rest = [], target
+    for scale in (1.0, 2.0 ** -8, 2.0 ** -16):
+        v = torch.tensor(rest / scale).to(torch.bfloat16).item()
+        parts.append(v)
+        rest -= v * scale
+    frames = torch.tensor([[[*parts, 0.0], [0.0, 0.0, 0.0, 1.0]]])
+    query = torch.tensor([[1.0], [2.0 ** -8], [2.0 ** -16], [0.0]])
+    nf = torch.tensor([2], dtype=torch.int32)
+    attn = torch.softmax(frames @ query, dim=1)  # [1, 2, 1], exact operands
+    plain = attn.to(torch.bfloat16).to(torch.float32)
+    assert abs(attn[0, 0, 0].item() - (0.75 + 2.0 ** -9)) < 2.0 ** -20
+    kernel = plain.clone()
+    up = plain[0, 0, 0].item() > 0.75
+    kernel[0, 0, 0] = 0.75 if up else 0.75 + 2.0 ** -8
+    return frames, nf, query, kernel
+
+
+def test_rounding_limit_covers_a_weight_one_step_over_a_boundary():
+    """The card's attention limit (rounding_limit) on a hand-built draw: a
+    kernel whose weight at a rounding boundary landed one bf16 step from
+    the plain version's. The fixed 1e-3 * max|ref| + 1e-5 refuses it
+    (2^-8 * 1.109 against ~8.4e-4); the derived limit covers it, and
+    reads one flip, at the boundary."""
+    frames, nf, query, kernel = _boundary_case()
+    want = tap.attention_pool_plain(frames, nf, query)
+    got = torch.matmul(kernel.transpose(1, 2), frames)
+    err = (got - want).abs()
+    assert err.max().item() > 1e-3 * want.abs().max().item() + 1e-5
+    r = tap.rounding_limit(frames, nf, query, got, want)
+    assert r.explained and r.explain_err == 0.0
+    assert (r.flips, r.away, r.unresolved) == (1, 0, 0)
+    assert (r.near, r.weights) == (1, 2)
+    assert r.worst < 2.0 ** -14
+    assert torch.all(err <= r.limit)
+
+
+def test_rounding_limit_refuses_a_weight_off_away_from_a_boundary():
+    """The second weight (a bf16 value, far from any rounding boundary)
+    one bf16 step off: rounding explains no such move; the limit reads it
+    as a weight that differs away from a boundary, and does not cover
+    it."""
+    frames, nf, query, _ = _boundary_case()
+    want = tap.attention_pool_plain(frames, nf, query)
+    kernel = torch.softmax(frames @ query, dim=1).to(torch.bfloat16)
+    kernel[0, 1, 0] = torch.tensor(0.248046875 + 2.0 ** -10,
+                                   dtype=torch.bfloat16)
+    got = torch.matmul(kernel.to(torch.float32).transpose(1, 2), frames)
+    r = tap.rounding_limit(frames, nf, query, got, want)
+    assert r.explained and (r.flips, r.away) == (1, 1)
+    assert not torch.all((got - want).abs() <= r.limit)
+
+
 def test_attention_pool_wrapper_checks_shapes():
     frames, query = _inputs(4, "float32")
     with pytest.raises(ValueError):

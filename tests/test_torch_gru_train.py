@@ -49,6 +49,14 @@ from yt8m_tpu_torch.kernels.lstm_train import rounding_report
 F, B, H = 6, 8, 128
 NUM_FRAMES = np.array([6, 2, 1, 6, 4, 3, 5, 2], np.int32)
 BF16_REL = 2.0 ** -8
+# num_frames for the CUDA backward's schedule: 0, 1, F and out of range,
+# every row dead, every row live.
+SCHEDULE_FRAMES = {
+    "ragged": NUM_FRAMES,
+    "edges": np.array([6, 0, 1, -3, 9, 3, 12, 2], np.int32),
+    "dead": np.zeros(8, np.int32),
+    "live": np.full(8, 6, np.int32),
+}
 
 
 def _inputs(seed, h=H, f=F, b=B):
@@ -118,6 +126,38 @@ def test_plain_backward_matches_jax_kernel_on_the_same_residuals(reverse):
     assert got_g.shape == (F, B, 2 * H) and got_c.shape == (F, B, H)
     _close(_f32(got_g), _f32(dag), rel=BF16_REL, name="dA_g")
     _close(_f32(got_c), _f32(dac), rel=BF16_REL, name="dA_c")
+
+
+@pytest.mark.parametrize("frames", sorted(SCHEDULE_FRAMES))
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_backward_by_schedule_matches_plain_and_jax(frames, reverse):
+    """The CUDA backward's decomposition in plain PyTorch (the live prefix
+    of each step multiplied, the frozen steps' dout summed into the dh
+    carry in bulk) equals gru_train_backward_plain within 1e-6 *
+    max(1, max|ref|), and JAX's backward kernel (interpret mode) on the
+    same residuals within the file's bf16 bound."""
+    nf_np = SCHEDULE_FRAMES[frames]
+    w, wo, wf = _inputs(13 + reverse)
+    xg, xc, whg, whc, bg, bc = map(jnp.asarray, w)
+    nf = jnp.asarray(nf_np)
+    outs, gates, cand, _, _, _ = _run_fwd(xg, xc, nf, whg, whc, bg, bc,
+                                          reverse, 128, True)
+    hprev = jnp.concatenate([jnp.zeros_like(outs[:1]), outs[:-1]], axis=0)
+    dag, dac = _run_bwd(jnp.asarray(wo), jnp.asarray(wf), gates, cand, hprev,
+                        nf, whg, whc, reverse, 128, True)
+    def bf(a):
+        return _t(jnp.asarray(a, jnp.float32)).to(torch.bfloat16)
+
+    args = (torch.from_numpy(wo), torch.from_numpy(wf), bf(gates), bf(cand),
+            bf(outs), torch.from_numpy(nf_np), torch.from_numpy(w[2]),
+            torch.from_numpy(w[3]), reverse)
+    got = tg.gru_train_backward_by_schedule(*args)
+    plain = tg.gru_train_backward_plain(*args)
+    for name, g, p, j in (("dA_g", got[0], plain[0], dag),
+                          ("dA_c", got[1], plain[1], dac)):
+        assert g.dtype == torch.bfloat16
+        _close(_f32(g), _f32(p), rel=1e-6, abs_=1e-6, name=f"{name} vs plain")
+        _close(_f32(g), _f32(j), rel=BF16_REL, name=f"{name} vs JAX")
 
 
 NAMES = ("dxg", "dxc", "dwhg", "dwhc", "dbg", "dbc")

@@ -32,12 +32,22 @@ from yt8m_tpu.kernels.lstm_train import (
     lstm_recurrence_trainable as jax_trainable,
 )
 from yt8m_tpu_torch.kernels import lstm_train as tl
+from yt8m_tpu_torch.kernels._schedule import live_schedule, product_rows
 from yt8m_tpu_torch.kernels.lstm import lstm_recurrence_plain, pad_units
 
 F, B, H = 6, 8, 128
 G = 4 * H
 NUM_FRAMES = np.array([6, 2, 1, 6, 4, 3, 5, 2], np.int32)
 BF16_REL = 2.0 ** -8
+# num_frames for the CUDA backward's schedule: 0, 1, F and out of range
+# (below 0: never live; past F: live at every step), every row dead,
+# every row live.
+SCHEDULE_FRAMES = {
+    "ragged": NUM_FRAMES,
+    "edges": np.array([6, 0, 1, -3, 9, 3, 12, 2], np.int32),
+    "dead": np.zeros(8, np.int32),
+    "live": np.full(8, 6, np.int32),
+}
 
 
 def _inputs(seed):
@@ -221,3 +231,51 @@ def test_rounding_report_counts_what_the_witness_reads():
     assert r.excess == pytest.approx(2e-5 - 2.0 ** -8 * 1e-5, rel=1e-2)
     kernel[300] = kernel[300] + 1e-2
     assert tl.rounding_report(kernel, plain).excess > 5e-3
+
+
+@pytest.mark.parametrize("frames", sorted(SCHEDULE_FRAMES))
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_backward_by_schedule_matches_plain_and_jax(frames, reverse):
+    """The CUDA backward's decomposition in plain PyTorch (the live prefix
+    of each step multiplied, the frozen steps' dout summed into the dh
+    carry in bulk) equals lstm_train_backward_plain within 1e-6 *
+    max(1, max|ref|), and JAX's backward kernel (interpret mode) on the
+    same residuals within the file's bf16 bound."""
+    nf_np = SCHEDULE_FRAMES[frames]
+    xp, wh, bias, wo, wf = _inputs(13 + reverse)
+    nf = jnp.asarray(nf_np)
+    outs, gates, cs, _, _, _, _ = _run_fwd(
+        jnp.asarray(xp), nf, jnp.asarray(wh), jnp.asarray(bias), reverse,
+        128, True)
+    want = _run_bwd(jnp.asarray(wo), jnp.asarray(2.0 * wf),
+                    jnp.asarray(wf), gates, cs, nf, jnp.asarray(wh),
+                    reverse, 128, True)
+    to_bf = lambda a: torch.from_numpy(  # noqa: E731
+        np.array(jnp.asarray(a, jnp.float32))).to(torch.bfloat16)
+    args = (torch.from_numpy(wo), torch.from_numpy(wf),
+            torch.from_numpy(2.0 * wf), to_bf(gates), to_bf(cs),
+            torch.from_numpy(nf_np), torch.from_numpy(wh), reverse)
+    got = tl.lstm_train_backward_by_schedule(*args)
+    plain = _f32(tl.lstm_train_backward_plain(*args))
+    assert got.dtype == torch.bfloat16 and got.shape == (F, B, G)
+    _close(_f32(got), plain, rel=1e-6, abs_=1e-6, name="dZ vs plain")
+    _close(_f32(got), np.asarray(jnp.asarray(want, jnp.float32)),
+           rel=BF16_REL, name="dZ vs JAX")
+
+
+@pytest.mark.parametrize("frames", sorted(SCHEDULE_FRAMES))
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_schedule_counts_the_live_and_product_rows(frames, reverse):
+    """live[t] counts num_frames > orig_t; the order lists those rows
+    first; the backward multiplies at step t the rows live at both t and
+    t+1 (n > orig_t and n > orig_next), none at t = F-1."""
+    nf = SCHEDULE_FRAMES[frames]
+    order, live = live_schedule(torch.from_numpy(nf), F, reverse)
+    orig = [(F - 1 - t) if reverse else t for t in range(F + 1)]
+    want_live = [int(np.sum(nf > orig[t])) for t in range(F)]
+    want_prod = [int(np.sum((nf > orig[t]) & (nf > orig[t + 1])))
+                 if t + 1 < F else 0 for t in range(F)]
+    assert live.tolist() == want_live
+    assert product_rows(live).tolist() == want_prod
+    for t in range(F):
+        assert np.all(nf[order[:live[t]].numpy()] > orig[t])

@@ -56,14 +56,16 @@ SIGNATURES = {
     "yt8m_netvlad_aggregate_f32": [_P] * 11 + [_I] * 4 + [_P],
     "yt8m_lstm_recurrence": [_P] * 11 + [_I] * 5 + [_P],
     "yt8m_lstm_plan": [_I] * 2 + [_P],
-    "yt8m_lstm_train_forward": [_P] * 10 + [_I] * 4 + [_P],
-    "yt8m_lstm_train_backward": [_P] * 8 + [_I] * 4 + [_P],
+    "yt8m_lstm_train_forward": [_P] * 13 + [_I] * 5 + [_P],
+    "yt8m_lstm_train_backward": [_P] * 11 + [_I] * 5 + [_P],
+    "yt8m_lstm_train_plan": [_I] * 2 + [_P],
     "yt8m_netvlad_core_forward": [_P] * 6 + [_I] * 4 + [_P],
     "yt8m_netvlad_core_backward": [_P] * 8 + [_I] * 5 + [_P],
     "yt8m_gru_recurrence": [_P] * 15 + [_I] * 5 + [_P],
     "yt8m_gru_plan": [_I] * 2 + [_P],
-    "yt8m_gru_train_forward": [_P] * 14 + [_I] * 4 + [_P],
-    "yt8m_gru_train_backward": [_P] * 11 + [_I] * 4 + [_P],
+    "yt8m_gru_train_forward": [_P] * 17 + [_I] * 5 + [_P],
+    "yt8m_gru_train_backward": [_P] * 14 + [_I] * 5 + [_P],
+    "yt8m_gru_train_plan": [_I] * 2 + [_P],
     "yt8m_attention_pool_u8": [_P] * 4 + [_I] * 4 + [_P],
     "yt8m_attention_pool_f32": [_P] * 4 + [_I] * 4 + [_P],
     "yt8m_nextvlad_aggregate_u8": [_P] * 18 + [_I] * 6 + [_P],

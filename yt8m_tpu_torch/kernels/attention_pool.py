@@ -25,6 +25,8 @@ than 16 heads run 16 at a time: heads are independent.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from yt8m_tpu_torch.data.quantize import dequantize
@@ -108,3 +110,94 @@ def attention_pool(frames, num_frames, query):
 
 
 attention_pool.launches = 0
+
+
+class RoundingLimit(NamedTuple):
+    """What rounding_limit reads from one draw."""
+    limit: torch.Tensor  # [B, H, D] the limit of |kernel - plain|
+    explained: bool      # (a): the kernel's weights explain its output
+    explain_err: float   # max|plain product with those weights - kernel|
+    flips: int           # weights one bf16 step from the plain version's
+    away: int            # weights that differ away from a boundary: (b) fails
+    unresolved: int      # weights below the solve's resolution
+    near: int            # plain weights within 2^-14 of a boundary
+    weights: int         # positive weights of the frames read
+    worst: float         # the largest flip's distance from its boundary
+
+
+def rounding_limit(frames, num_frames, query, got, want) -> RoundingLimit:
+    """The limit of |kernel - plain| that the bf16 rounding of the
+    attention weights explains, for one draw, from the kernel's output
+    `got` and the plain version's `want` on the same inputs.
+
+    The kernel's own bf16 weights are recovered from its output (a
+    video's pooled rows are w^T x over its frames: a least-squares solve
+    in f64 over the frames it reads, rounded back to bf16) and held to
+    two facts: (a) the plain product with the kernel's weights gives the
+    kernel's output within the f32 sums' bound, 2 (n - 1) 2^-24 sum_t
+    |w_t x_t| over a video's n frames; (b) a weight differs from the
+    plain version's bf16(attn) only where the plain f32 attn lies within
+    2^-14 of its size of a bf16 rounding boundary, and then by one bf16
+    step (the two compute attn in f32 in different orders). Weights the
+    solve cannot resolve from the plain output either (16 times its
+    recovery error there) are counted apart. From (a) and (b), the limit
+    per element: one bf16 step times |x| summed over the weights at a
+    boundary, plus both sums' bound. A weight in [0.5, 1) one step apart
+    moves the output 2^-9 |x|, above a fixed 1e-3 max|ref|."""
+
+    def bf(t):
+        return t.to(torch.bfloat16).to(torch.float32)
+
+    def step(t, k):  # the bf16 value k steps from t (t > 0)
+        return (t.to(torch.bfloat16).view(torch.int16) + k).view(
+            torch.bfloat16).to(torch.float32)
+
+    x, nf = frames, num_frames
+    f = x.shape[1]
+    xb = x.to(torch.float32)
+    xb = bf(dequantize(xb) if x.dtype == torch.uint8 else xb)
+    live = torch.arange(f, device=x.device)[None, :] < nf[:, None]
+    scores = torch.where(live[..., None], torch.matmul(xb, bf(query)), -1e9)
+    attn = torch.softmax(scores, dim=1)  # the plain version's f32 weights
+    plain_w = bf(attn)
+    read = live | (nf <= 0)[:, None]  # the frames the kernel reads
+    xm = torch.where(read[..., None], xb, 0.0)
+    a64 = xm.double()
+    gram = a64 @ a64.transpose(1, 2) + torch.diag_embed((~read).double())
+
+    def recover(out):
+        return torch.linalg.solve(gram, a64 @ out.double().transpose(1, 2))
+
+    w = recover(got)
+    noise = 16 * (recover(want) - plain_w.double()).abs().amax(
+        dim=(1, 2), keepdim=True)
+    del a64, gram
+    kern_w = torch.where(read[..., None], bf(w.float()), 0.0)
+    rows = read.sum(1).to(torch.float32)[:, None, None]
+    # (a) the kernel's weights explain its output
+    sums = 2 * (rows - 1).clamp(min=0) * 2.0 ** -24
+    mine = torch.matmul(kern_w.transpose(1, 2), xm)
+    a_err = (mine - got).abs()
+    a_lim = sums * torch.matmul(kern_w.abs().transpose(1, 2), xm.abs())
+    # (b) the weights differ only at rounding boundaries, by one step
+    pos = read[..., None] & (attn > 0)
+    up, down = step(plain_w, 1), step(plain_w, -1)
+    to_up = (attn.double() - (plain_w.double() + up.double()) / 2).abs()
+    to_down = (attn.double() - (plain_w.double() + down.double()) / 2).abs()
+    near = pos & (torch.minimum(to_up, to_down) <= 2.0 ** -14 * attn.double())
+    differ = kern_w != plain_w
+    unresolved = differ & ((w - plain_w.double()).abs() <= noise)
+    flips = differ & ~unresolved
+    one_step = (kern_w == up) | (kern_w == down)
+    away = flips & ~(one_step & near)
+    across = torch.where(to_up < to_down, up, down)
+    steps = torch.where(near, (across - plain_w).abs(), 0.0)
+    limit = (torch.matmul(steps.transpose(1, 2), xm.abs())
+             + sums * torch.matmul(plain_w.abs().transpose(1, 2), xm.abs())
+             + a_lim)
+    worst = ((torch.minimum(to_up, to_down) / attn.double())[flips].max()
+             .item() if bool(flips.any()) else 0.0)
+    return RoundingLimit(limit, bool(torch.all(a_err <= a_lim)),
+                         a_err.max().item(), int(flips.sum()),
+                         int(away.sum()), int(unresolved.sum()),
+                         int(near.sum()), int(pos.sum()), worst)

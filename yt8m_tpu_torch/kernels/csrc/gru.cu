@@ -1,6 +1,9 @@
-// GRU recurrence serving kernel for Hopper (sm_90a).
+// GRU recurrence kernel for Hopper (sm_90a): serving, and the trainable
+// forward (its Residuals instance).
 //
-// Replaces yt8m_tpu/kernels/gru.py :: gru_recurrence. Given the input
+// Replaces yt8m_tpu/kernels/gru.py :: gru_recurrence, and the forward
+// pallas_call of yt8m_tpu/kernels/gru_train.py :: gru_recurrence_trainable
+// (:104; the backward is gru_train.cu). Given the input
 // projections xg [F, B, 2H] and xc [F, B, H] (bf16, computed outside),
 // every step t runs the TF1 GRUCell
 //
@@ -31,7 +34,10 @@
 //       W_hc columns; each thread updates h (f32) of the same cells and
 //       writes out[t] = bf16(h).
 // A (row, unit) is updated by the same thread in both phases of every
-// step, so u and the state need no barrier of their own.
+// step, so u and the state need no barrier of their own. The Residuals
+// instance (yt8m_gru_train_forward) also stores bf16(r), bf16(u) [F, B,
+// 2H] in (a) and the candidate bf16(c) [F, B, H] in (b) for the backward;
+// 0 at a row's frozen steps (write_frozen_steps).
 
 #include "recurrence_persist.cuh"
 
@@ -56,6 +62,8 @@ struct GruArgs {
   float* u;                  // [B, H] scratch (the last step's on return)
   __nv_bfloat16* rh;         // [B, H] scratch (the last step's on return)
   __nv_bfloat16* out;        // [F, B, H]
+  __nv_bfloat16* gates;      // [F, B, 2H] residuals (trainable forward), else null
+  __nv_bfloat16* cand;       // [F, B, H] residuals (trainable forward), else null
   const int* num_frames;     // [B]
   unsigned int* barrier;     // a counter a row group, 0 at launch
   int F, B, H;
@@ -65,11 +73,14 @@ struct GruArgs {
 };
 
 // (a) The gate phase of one step of one unit tile (units j0 ..): the row
-// group's live chunks, a warp a chunk, in rounds of kWarps.
+// group's live chunks, a warp a chunk, in rounds of kWarps. kResiduals:
+// also stores bf16(r) and bf16(u) of the step.
+template <bool kResiduals>
 __device__ __forceinline__ void gru_gate_step(const GruArgs& a, const __nv_bfloat16* hsrc,
-                                              const __nv_bfloat16* xg_t, int n, int mine,
-                                              int j0, int group, uint32_t gate_tile,
-                                              uint32_t ring, int kw) {
+                                              const __nv_bfloat16* xg_t,
+                                              __nv_bfloat16* gates_t, int n, int mine, int j0,
+                                              int group, uint32_t gate_tile, uint32_t ring,
+                                              int kw) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int H = a.H;
@@ -117,7 +128,7 @@ __device__ __forceinline__ void gru_gate_step(const GruArgs& a, const __nv_bfloa
 #pragma unroll
       for (int hq = 0; hq < 2; ++hq) {
         const int unit = j0 + hq * 8 + (lane & 3) * 2;
-        float su[2], rhv[2];
+        float su[2], sr[2], rhv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           // (h @ W_hg + xg_t) + bg, in the plain version's order.
@@ -128,21 +139,30 @@ __device__ __forceinline__ void gru_gate_step(const GruArgs& a, const __nv_bfloa
           const float zu = __fadd_rn(__fadd_rn(acc[mi][hq * 2 + 1][hf * 2 + e], xu),
                                      __ldg(a.bg + H + unit + e));
           su[e] = sigmoid(zu);
-          rhv[e] = __fmul_rn(sigmoid(zr), e ? h0[j][hq].y : h0[j][hq].x);
+          sr[e] = sigmoid(zr);
+          rhv[e] = __fmul_rn(sr[e], e ? h0[j][hq].y : h0[j][hq].x);
         }
         const size_t o = static_cast<size_t>(rows.b[j]) * H + unit;
         *reinterpret_cast<float2*>(a.u + o) = make_float2(su[0], su[1]);
         *reinterpret_cast<__nv_bfloat162*>(a.rh + o) = __floats2bfloat162_rn(rhv[0], rhv[1]);
+        if constexpr (kResiduals) {
+          const size_t og = static_cast<size_t>(rows.b[j]) * G2 + unit;
+          *reinterpret_cast<__nv_bfloat162*>(gates_t + og) = __floats2bfloat162_rn(sr[0], sr[1]);
+          *reinterpret_cast<__nv_bfloat162*>(gates_t + og + H) =
+              __floats2bfloat162_rn(su[0], su[1]);
+        }
       }
     }
   }
 }
 
 // (b) The candidate phase of one step of one unit tile, the same chunks.
+// kResiduals: also stores bf16(c) of the step.
+template <bool kResiduals>
 __device__ __forceinline__ void gru_cand_step(const GruArgs& a, const __nv_bfloat16* xc_t,
-                                              __nv_bfloat16* out_t, int n, int mine, int j0,
-                                              int group, uint32_t cand_tile, uint32_t ring,
-                                              int kw) {
+                                              __nv_bfloat16* out_t, __nv_bfloat16* cand_t,
+                                              int n, int mine, int j0, int group,
+                                              uint32_t cand_tile, uint32_t ring, int kw) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int H = a.H;
@@ -187,7 +207,7 @@ __device__ __forceinline__ void gru_cand_step(const GruArgs& a, const __nv_bfloa
 #pragma unroll
       for (int hq = 0; hq < 2; ++hq) {
         const int unit = j0 + hq * 8 + (lane & 3) * 2;
-        float hn[2];
+        float hn[2], cv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float xv = e ? __high2float(x[j][hq]) : __low2float(x[j][hq]);
@@ -196,15 +216,21 @@ __device__ __forceinline__ void gru_cand_step(const GruArgs& a, const __nv_bfloa
           const float hp = e ? h0[j][hq].y : h0[j][hq].x;
           const float uv = e ? uu[j][hq].y : uu[j][hq].x;
           hn[e] = __fadd_rn(__fmul_rn(uv, hp), __fmul_rn(__fsub_rn(1.0f, uv), c));
+          cv[e] = c;
         }
         const size_t o = static_cast<size_t>(rows.b[j]) * H + unit;
         *reinterpret_cast<float2*>(a.h + o) = make_float2(hn[0], hn[1]);
         *reinterpret_cast<__nv_bfloat162*>(out_t + o) = __floats2bfloat162_rn(hn[0], hn[1]);
+        if constexpr (kResiduals)
+          *reinterpret_cast<__nv_bfloat162*>(cand_t + o) = __floats2bfloat162_rn(cv[0], cv[1]);
       }
     }
   }
 }
 
+// kResiduals: the trainable forward (also the gates and the candidate of
+// every step; 0 at frozen steps).
+template <bool kResiduals>
 __global__ void __launch_bounds__(kThreads, 1) gru_persist_kernel(GruArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const int H = a.H;
@@ -231,9 +257,11 @@ __global__ void __launch_bounds__(kThreads, 1) gru_persist_kernel(GruArgs a) {
     cp_async_wait<0>();
     __syncthreads();
   }
+  FrozenResiduals res;
+  if constexpr (kResiduals) res = {nullptr, a.cand, a.gates, 2};
   if (a.reverse && !a.skip_work)
     write_frozen_steps(a.order, a.num_frames, a.F, a.B, H, true, group, groups, lane_id,
-                       a.plan.lanes, a.h, a.out);
+                       a.plan.lanes, a.h, a.out, res);
   unsigned int* barrier = a.barrier + group;
   unsigned int target = 0;
   for (int t = 0; t < a.F; ++t) {
@@ -244,23 +272,67 @@ __global__ void __launch_bounds__(kThreads, 1) gru_persist_kernel(GruArgs a) {
     const __nv_bfloat16* xc_t = a.xc + t * step_h;
     const int chunks = (n + kChunk - 1) / kChunk;
     const int mine = chunks > group ? (chunks - group + groups - 1) / groups : 0;
+    __nv_bfloat16* gates_t = kResiduals ? a.gates + t * 2 * step_h : nullptr;
+    __nv_bfloat16* cand_t = kResiduals ? a.cand + t * step_h : nullptr;
     for (int u = lane_id; u < tiles && !a.skip_work; u += a.plan.lanes) {
-      gru_gate_step(a, hsrc, xg_t, n, mine, u * kUnits, group, gate_tile, ring, kw_gate);
+      gru_gate_step<kResiduals>(a, hsrc, xg_t, gates_t, n, mine, u * kUnits, group, gate_tile,
+                                ring, kw_gate);
     }
     group_barrier(barrier, target, a.plan.lanes);
     for (int u = lane_id; u < tiles && !a.skip_work; u += a.plan.lanes) {
-      gru_cand_step(a, xc_t, out_t, n, mine, u * kUnits, group, cand_tile, ring, kw_cand);
+      gru_cand_step<kResiduals>(a, xc_t, out_t, cand_t, n, mine, u * kUnits, group, cand_tile,
+                                ring, kw_cand);
     }
     if (t + 1 < a.F) group_barrier(barrier, target, a.plan.lanes);
   }
   __syncthreads();  // the last step's state, written by other threads
   if (!a.reverse && !a.skip_work)
     write_frozen_steps(a.order, a.num_frames, a.F, a.B, H, false, group, groups, lane_id,
-                       a.plan.lanes, a.h, a.out);
+                       a.plan.lanes, a.h, a.out, res);
 }
 
+template <bool kResiduals>
 cudaError_t gru_plan(int B, int H, Plan* plan) {
-  return make_plan(gru_persist_kernel, B, H, kGateCols + kCandCols, plan);
+  return make_plan(gru_persist_kernel<kResiduals>, B, H, kGateCols + kCandCols, plan);
+}
+
+template <bool kResiduals>
+int launch(const void* xg, const void* xc, const void* num_frames, const void* order,
+           const void* live, const void* whg, const void* whc, const void* bg, const void* bc,
+           const void* h0, void* h, void* u, void* rh, void* out, void* gates, void* cand,
+           void* barrier, int F, int B, int H, int reverse, int skip_work, void* stream) {
+  if (F <= 0 || B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  GruArgs a;
+  cudaError_t err = gru_plan<kResiduals>(B, H, &a.plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.xg = static_cast<const __nv_bfloat16*>(xg);
+  a.xc = static_cast<const __nv_bfloat16*>(xc);
+  a.num_frames = static_cast<const int*>(num_frames);
+  a.order = static_cast<const int*>(order);
+  a.live = static_cast<const int*>(live);
+  a.whg = static_cast<const __nv_bfloat16*>(whg);
+  a.whc = static_cast<const __nv_bfloat16*>(whc);
+  a.bg = static_cast<const float*>(bg);
+  a.bc = static_cast<const float*>(bc);
+  a.h0 = static_cast<const __nv_bfloat16*>(h0);
+  a.h = static_cast<float*>(h);
+  a.u = static_cast<float*>(u);
+  a.rh = static_cast<__nv_bfloat16*>(rh);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.gates = static_cast<__nv_bfloat16*>(gates);
+  a.cand = static_cast<__nv_bfloat16*>(cand);
+  a.barrier = static_cast<unsigned int*>(barrier);
+  a.F = F;
+  a.B = B;
+  a.H = H;
+  a.reverse = reverse;
+  a.skip_work = skip_work;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gru_persist_kernel<kResiduals>),
+                                    dim3(a.plan.grid), dim3(kThreads), args, a.plan.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -270,7 +342,7 @@ cudaError_t gru_plan(int B, int H, Plan* plan) {
 extern "C" int yt8m_gru_plan(int B, int H, int* plan) {
   if (B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  const cudaError_t err = gru_plan(B, H, &p);
+  const cudaError_t err = gru_plan<false>(B, H, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   plan[0] = p.grid;
   plan[1] = p.lanes;
@@ -294,34 +366,19 @@ extern "C" int yt8m_gru_recurrence(const void* xg, const void* xc, const void* n
                                    const void* h0, void* h, void* u, void* rh, void* out,
                                    void* barrier, int F, int B, int H, int reverse,
                                    int skip_work, void* stream) {
-  if (F <= 0 || B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  GruArgs a;
-  cudaError_t err = gru_plan(B, H, &a.plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  a.xg = static_cast<const __nv_bfloat16*>(xg);
-  a.xc = static_cast<const __nv_bfloat16*>(xc);
-  a.num_frames = static_cast<const int*>(num_frames);
-  a.order = static_cast<const int*>(order);
-  a.live = static_cast<const int*>(live);
-  a.whg = static_cast<const __nv_bfloat16*>(whg);
-  a.whc = static_cast<const __nv_bfloat16*>(whc);
-  a.bg = static_cast<const float*>(bg);
-  a.bc = static_cast<const float*>(bc);
-  a.h0 = static_cast<const __nv_bfloat16*>(h0);
-  a.h = static_cast<float*>(h);
-  a.u = static_cast<float*>(u);
-  a.rh = static_cast<__nv_bfloat16*>(rh);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.barrier = static_cast<unsigned int*>(barrier);
-  a.F = F;
-  a.B = B;
-  a.H = H;
-  a.reverse = reverse;
-  a.skip_work = skip_work;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gru_persist_kernel),
-                                    dim3(a.plan.grid), dim3(kThreads), args, a.plan.smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(xg, xc, num_frames, order, live, whg, whc, bg, bc, h0, h, u, rh, out,
+                       nullptr, nullptr, barrier, F, B, H, reverse, skip_work, stream);
+}
+
+// The trainable forward: as yt8m_gru_recurrence, and also the residuals
+// gates [F, B, 2H] (bf16 of sigmoid r and u) and cand [F, B, H] (bf16 of
+// the candidate), both 0 at a row's frozen steps.
+extern "C" int yt8m_gru_train_forward(const void* xg, const void* xc, const void* num_frames,
+                                      const void* order, const void* live, const void* whg,
+                                      const void* whc, const void* bg, const void* bc,
+                                      const void* h0, void* h, void* u, void* rh, void* out,
+                                      void* gates, void* cand, void* barrier, int F, int B,
+                                      int H, int reverse, int skip_work, void* stream) {
+  return launch<true>(xg, xc, num_frames, order, live, whg, whc, bg, bc, h0, h, u, rh, out,
+                      gates, cand, barrier, F, B, H, reverse, skip_work, stream);
 }

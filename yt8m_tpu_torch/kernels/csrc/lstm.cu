@@ -1,6 +1,9 @@
-// LSTM recurrence serving kernel for Hopper (sm_90a).
+// LSTM recurrence kernel for Hopper (sm_90a): serving, and the trainable
+// forward (its Residuals instance).
 //
-// Replaces yt8m_tpu/kernels/lstm.py :: lstm_recurrence. Given the input
+// Replaces yt8m_tpu/kernels/lstm.py :: lstm_recurrence, and the forward
+// pallas_call of yt8m_tpu/kernels/lstm_train.py :: lstm_recurrence_trainable
+// (:119; the backward is lstm_train.cu). Given the input
 // projection X' [F, B, 4H] (bf16, computed outside), every step t runs
 //
 //   z      = bf16(h) @ bf16(W_h) + X'_t + bias              (f32 sums)
@@ -23,7 +26,11 @@
 // multiplies a 32-row chunk of the live prefix by them, and each thread
 // then updates the cells whose four gate sums it holds. One barrier a step
 // among a row group's blocks: the next step's product reads out[t]
-// of every unit.
+// of every unit. The Residuals instance (yt8m_lstm_train_forward) also
+// stores, from the same thread's registers, the step's post-activation
+// gates (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o) [F, B, 4H] and
+// bf16(c_t) [F, B, H] for the backward; at a row's frozen steps it writes
+// gates 0 and c_t the frozen carry (write_frozen_steps).
 
 #include "recurrence_persist.cuh"
 
@@ -44,6 +51,8 @@ struct LstmArgs {
   float* c;                 // [B, H] state in, final state out
   float* h;                 // [B, H]
   __nv_bfloat16* out;       // [F, B, H]
+  __nv_bfloat16* gates;     // [F, B, 4H] residuals (trainable forward), else null
+  __nv_bfloat16* cs;        // [F, B, H] residuals (trainable forward), else null
   const int* num_frames;    // [B]
   unsigned int* barrier;    // a counter a row group, 0 at launch
   int F, B, H;
@@ -53,10 +62,13 @@ struct LstmArgs {
 };
 
 // One step of one unit tile (units j0 ..): the row group's live chunks,
-// a warp a chunk, in rounds of kWarps.
+// a warp a chunk, in rounds of kWarps. kResiduals: the cell update also
+// stores the step's post-activation gates and bf16(c).
+template <bool kResiduals>
 __device__ __forceinline__ void lstm_tile_step(const LstmArgs& a, const __nv_bfloat16* hsrc,
                                                const __nv_bfloat16* x_t,
-                                               __nv_bfloat16* out_t, int n, int mine, int j0,
+                                               __nv_bfloat16* out_t, __nv_bfloat16* gates_t,
+                                               __nv_bfloat16* cs_t, int n, int mine, int j0,
                                                int group, uint32_t w_tile, uint32_t ring,
                                                int kw) {
   const int warp = threadIdx.x >> 5;
@@ -106,7 +118,7 @@ __device__ __forceinline__ void lstm_tile_step(const LstmArgs& a, const __nv_bfl
 #pragma unroll
       for (int hq = 0; hq < 2; ++hq) {
         const int unit = j0 + hq * 8 + (lane & 3) * 2;
-        float cn[2], hn[2];
+        float cn[2], hn[2], act[4][2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           // (h @ W_h + X'_t) + bias, in the plain version's order.
@@ -123,16 +135,31 @@ __device__ __forceinline__ void lstm_tile_step(const LstmArgs& a, const __nv_bfl
           const float so = sigmoid(z[3]);
           cn[e] = __fadd_rn(__fmul_rn(e ? c0[j][hq].y : c0[j][hq].x, sf), __fmul_rn(si, tj));
           hn[e] = __fmul_rn(tanhf(cn[e]), so);
+          act[0][e] = si;
+          act[1][e] = tj;
+          act[2][e] = sf;
+          act[3][e] = so;
         }
         const size_t o = static_cast<size_t>(rows.b[j]) * H + unit;
         *reinterpret_cast<float2*>(a.c + o) = make_float2(cn[0], cn[1]);
         *reinterpret_cast<float2*>(a.h + o) = make_float2(hn[0], hn[1]);
         *reinterpret_cast<__nv_bfloat162*>(out_t + o) = __floats2bfloat162_rn(hn[0], hn[1]);
+        if constexpr (kResiduals) {
+          const size_t og = static_cast<size_t>(rows.b[j]) * G + unit;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            *reinterpret_cast<__nv_bfloat162*>(gates_t + og + static_cast<size_t>(g) * H) =
+                __floats2bfloat162_rn(act[g][0], act[g][1]);
+          *reinterpret_cast<__nv_bfloat162*>(cs_t + o) = __floats2bfloat162_rn(cn[0], cn[1]);
+        }
       }
     }
   }
 }
 
+// kResiduals: the trainable forward (also the gates and bf16(c) of every
+// step; 0 gates and the frozen carry's c at frozen steps).
+template <bool kResiduals>
 __global__ void __launch_bounds__(kThreads, 1) lstm_persist_kernel(LstmArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t w_tile = smem_u32(smem);
@@ -152,9 +179,11 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_persist_kernel(LstmArgs a) {
     cp_async_wait<0>();
     __syncthreads();
   }
+  FrozenResiduals res;
+  if constexpr (kResiduals) res = {a.c, a.cs, a.gates, kGates};
   if (a.reverse && !a.skip_work)
     write_frozen_steps(a.order, a.num_frames, a.F, a.B, H, true, group, groups, lane_id,
-                       a.plan.lanes, a.h, a.out);
+                       a.plan.lanes, a.h, a.out, res);
   unsigned int* barrier = a.barrier + group;
   unsigned int target = 0;
   for (int t = 0; t < a.F; ++t) {
@@ -164,19 +193,58 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_persist_kernel(LstmArgs a) {
     const __nv_bfloat16* x_t = a.xp + t * 4 * step_h;
     const int chunks = (n + kChunk - 1) / kChunk;
     const int mine = chunks > group ? (chunks - group + groups - 1) / groups : 0;
+    __nv_bfloat16* gates_t = kResiduals ? a.gates + t * 4 * step_h : nullptr;
+    __nv_bfloat16* cs_t = kResiduals ? a.cs + t * step_h : nullptr;
     for (int u = lane_id; u < tiles && !a.skip_work; u += a.plan.lanes) {
-      lstm_tile_step(a, hsrc, x_t, out_t, n, mine, u * kUnits, group, w_tile, ring, kw);
+      lstm_tile_step<kResiduals>(a, hsrc, x_t, out_t, gates_t, cs_t, n, mine, u * kUnits,
+                                 group, w_tile, ring, kw);
     }
     if (t + 1 < a.F) group_barrier(barrier, target, a.plan.lanes);
   }
   __syncthreads();  // the last step's state, written by other threads
   if (!a.reverse && !a.skip_work)
     write_frozen_steps(a.order, a.num_frames, a.F, a.B, H, false, group, groups, lane_id,
-                       a.plan.lanes, a.h, a.out);
+                       a.plan.lanes, a.h, a.out, res);
 }
 
+template <bool kResiduals>
 cudaError_t lstm_plan(int B, int H, Plan* plan) {
-  return make_plan(lstm_persist_kernel, B, H, kCols, plan);
+  return make_plan(lstm_persist_kernel<kResiduals>, B, H, kCols, plan);
+}
+
+template <bool kResiduals>
+int launch(const void* xp, const void* num_frames, const void* order, const void* live,
+           const void* wh, const void* bias, const void* h0, void* c, void* h, void* out,
+           void* gates, void* cs, void* barrier, int F, int B, int H, int reverse,
+           int skip_work, void* stream) {
+  if (F <= 0 || B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  LstmArgs a;
+  cudaError_t err = lstm_plan<kResiduals>(B, H, &a.plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.xp = static_cast<const __nv_bfloat16*>(xp);
+  a.num_frames = static_cast<const int*>(num_frames);
+  a.order = static_cast<const int*>(order);
+  a.live = static_cast<const int*>(live);
+  a.wh = static_cast<const __nv_bfloat16*>(wh);
+  a.bias = static_cast<const float*>(bias);
+  a.h0 = static_cast<const __nv_bfloat16*>(h0);
+  a.c = static_cast<float*>(c);
+  a.h = static_cast<float*>(h);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.gates = static_cast<__nv_bfloat16*>(gates);
+  a.cs = static_cast<__nv_bfloat16*>(cs);
+  a.barrier = static_cast<unsigned int*>(barrier);
+  a.F = F;
+  a.B = B;
+  a.H = H;
+  a.reverse = reverse;
+  a.skip_work = skip_work;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_persist_kernel<kResiduals>),
+                                    dim3(a.plan.grid), dim3(kThreads), args, a.plan.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -186,7 +254,7 @@ cudaError_t lstm_plan(int B, int H, Plan* plan) {
 extern "C" int yt8m_lstm_plan(int B, int H, int* plan) {
   if (B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  const cudaError_t err = lstm_plan(B, H, &p);
+  const cudaError_t err = lstm_plan<false>(B, H, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   plan[0] = p.grid;
   plan[1] = p.lanes;
@@ -207,30 +275,20 @@ extern "C" int yt8m_lstm_recurrence(const void* xp, const void* num_frames, cons
                                     const void* h0, void* c, void* h, void* out, void* barrier,
                                     int F, int B, int H, int reverse, int skip_work,
                                     void* stream) {
-  if (F <= 0 || B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  LstmArgs a;
-  cudaError_t err = lstm_plan(B, H, &a.plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  a.xp = static_cast<const __nv_bfloat16*>(xp);
-  a.num_frames = static_cast<const int*>(num_frames);
-  a.order = static_cast<const int*>(order);
-  a.live = static_cast<const int*>(live);
-  a.wh = static_cast<const __nv_bfloat16*>(wh);
-  a.bias = static_cast<const float*>(bias);
-  a.h0 = static_cast<const __nv_bfloat16*>(h0);
-  a.c = static_cast<float*>(c);
-  a.h = static_cast<float*>(h);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.barrier = static_cast<unsigned int*>(barrier);
-  a.F = F;
-  a.B = B;
-  a.H = H;
-  a.reverse = reverse;
-  a.skip_work = skip_work;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_persist_kernel),
-                                    dim3(a.plan.grid), dim3(kThreads), args, a.plan.smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(xp, num_frames, order, live, wh, bias, h0, c, h, out, nullptr, nullptr,
+                       barrier, F, B, H, reverse, skip_work, stream);
+}
+
+// The trainable forward: as yt8m_lstm_recurrence, and also the residuals
+// gates [F, B, 4H] (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o; 0 at a
+// row's frozen steps) and cs [F, B, H] (bf16(c_t); the frozen carry at
+// frozen steps), both bf16.
+extern "C" int yt8m_lstm_train_forward(const void* xp, const void* num_frames,
+                                       const void* order, const void* live, const void* wh,
+                                       const void* bias, const void* h0, void* c, void* h,
+                                       void* out, void* gates, void* cs, void* barrier, int F,
+                                       int B, int H, int reverse, int skip_work,
+                                       void* stream) {
+  return launch<true>(xp, num_frames, order, live, wh, bias, h0, c, h, out, gates, cs,
+                      barrier, F, B, H, reverse, skip_work, stream);
 }

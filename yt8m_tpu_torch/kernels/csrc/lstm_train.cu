@@ -1,15 +1,12 @@
-// Trainable LSTM recurrence for Hopper (sm_90a): forward with residuals
-// and a reverse-time backward that emits dZ.
+// Trainable LSTM recurrence for Hopper (sm_90a): the reverse-time backward
+// that emits dZ. (The forward with residuals is lstm.cu's persistent
+// kernel with its Residuals flag: yt8m_lstm_train_forward.)
 //
 // Replaces yt8m_tpu/kernels/lstm_train.py :: lstm_recurrence_trainable
 // (its forward pallas_call at :119 and its backward at :272).
 //
-// Forward: the serving step of lstm_step.cuh, whose epilogue also writes
-// the post-activation gates (sigmoid i, tanh j, sigmoid(f + 1), sigmoid
-// o) as bf16 [F, B, 4H] and bf16(c_t) [F, B, H].
-//
-// Backward, one launch per step t = F-1 .. 0 (BPTT of the TF1
-// BasicLSTMCell, the forget bias folded into the saved sigmoid f):
+// Backward, steps t = F-1 .. 0 (BPTT of the TF1 BasicLSTMCell, the forget
+// bias folded into the saved sigmoid f):
 //
 //   dh   = (t < F-1 and live(t+1) ? dZ_{t+1} @ W_h^T : dh_carry) + dout_t
 //   dc   = dc_carry
@@ -25,230 +22,263 @@
 // dx_proj = dZ are plain products outside the kernel.
 //
 // What bounds it: the backward's products are those of the forward,
-// 2 F B H 4H (644 GFLOP a layer at B=256, F=300, H=1024, 0.65 ms at the
-// bf16 peak), against ~1.7 GB of residuals, dout and dZ (0.52 ms at
-// 3.35 TB/s): the tensor-core rate, as in the forward.
+// 2 H 4H a live (video, step) pair (322 GFLOP a layer at B=256, F=300,
+// H=1024 with half the pairs live, 0.33 ms at the bf16 peak), against
+// ~1.7 GB of residuals, dout and dZ (0.52 ms at 3.35 TB/s): the bytes,
+// behind the serial chain of F steps.
 //
-// Design. dZ_t of one batch row needs dh_t over all H units, which no
-// block holds, and W_h^T (8 MiB in bf16 at H=1024) does not fit a block:
-// so, as in the forward, the step boundary is a launch boundary, all F
-// launched from one C call. A block owns 128 batch rows x 32 hidden
-// units: it forms dh[rows, units] = dZ_{t+1}[rows, 0:4H] @ W_h^T[:, units]
-// (wmma bf16 products with f32 sums, depth 4H; the W_h rows of its units
-// are read as a column-major B operand, so nothing is transposed in
-// memory; the eight warps split the rows four ways and the depth two
-// ways), then computes its units' four gate columns of dZ_t in the
-// epilogue from the residuals. The dh and dc carries live in f32 [B, H]
-// buffers, each element updated by the one block that owns it.
+// Design: recurrence_persist.cuh, one cooperative launch a call, rows in
+// the forward's live-row order. A unit tile is W_h's rows of 16 units,
+// [16, 4H] bf16 (128 KB at H=1024, resident): the B operand of dh =
+// dZ_{t+1} @ W_h^T over the tile's units, read with plain ldmatrix. A warp
+// multiplies a 32-row chunk of dZ_{t+1} (depth 4H through its ring of
+// 64-deep stages) and each thread then computes the four gate columns of
+// dZ_t of the cells whose dh it holds. One barrier a step among a row
+// group's blocks: the next step's product reads dZ_t of every unit.
+//   * Rows: step t computes the rows live at t (the prefix live[t] of the
+//     order); of those, the rows also live at t+1 take dh from the
+//     product, the others (turning live at t, forward only) from the
+//     carry. A row live at t+1 but not at t (reverse only) would carry dh
+//     into the initial state alone, which no caller reads: it is skipped.
+//   * Frozen steps (backward_frozen_steps, before the first step): dZ = 0
+//     there, and, forward, the row's bf16(dout_t) of its frozen steps
+//     added to the dh carry one at a time, t = F-1 down, as the steps
+//     would add them; dc passes them unchanged.
+// The dh and dc carries live in f32 [B, H] buffers, each element read and
+// written by the one thread that owns its (row, unit) at every step.
 
-#include "lstm_step.cuh"
+#include "recurrence_persist.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using lstm_step::cp_async16;
-using lstm_step::cp_async_commit;
-using lstm_step::cp_async_wait;
+using namespace persist;
 
-constexpr int kThreads = 256;
-constexpr int kRows = 128;   // batch rows a block
-constexpr int kUnits = 32;   // hidden units a block
-constexpr int kBK = 64;      // depth tile over 4H
-constexpr int kStages = 4;
-constexpr int kLdA = kBK + 8;
-constexpr int kLdB = kBK + 8;  // W_h rows of the block's units, [32][kBK]
-constexpr int kStageA = kRows * kLdA;
-constexpr int kStageB = kUnits * kLdB;
-constexpr int kLdP = kUnits + 4;
-constexpr int kPipeBytes = kStages * (kStageA + kStageB) * 2;
-constexpr int kEpiBytes = 2 * kRows * kLdP * 4;  // one partial product per depth half
-constexpr int kSmem = kPipeBytes > kEpiBytes ? kPipeBytes : kEpiBytes;
+constexpr int kGates = 4;
+constexpr int kCols = kGates * kUnits;  // the forward's tile columns: the same bytes
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float one_minus(float a) { return __fsub_rn(1.0f, a); }
 
-// One reverse step. Grid (H / 32, ceil(B / 128)). Warps 4 (rows) x 2
-// (depth halves), a 32 x 32 warp tile each. dz_next is null at t = F-1,
-// cs_prev at t = 0.
-__global__ void __launch_bounds__(kThreads)
-lstm_bptt_step_kernel(const __nv_bfloat16* __restrict__ dz_next,
-                      const __nv_bfloat16* __restrict__ wh, const __nv_bfloat16* __restrict__ dout_t,
-                      const __nv_bfloat16* __restrict__ gates_t,
-                      const __nv_bfloat16* __restrict__ cs_t,
-                      const __nv_bfloat16* __restrict__ cs_prev,
-                      const int* __restrict__ num_frames, float* __restrict__ dh_state,
-                      float* __restrict__ dc_state, __nv_bfloat16* __restrict__ dz_t, int B, int H,
-                      int orig_t, int orig_next) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + kStages * kStageA;
-  float* P = reinterpret_cast<float*>(smem);
+struct LstmBwdArgs {
+  const __nv_bfloat16* dout;   // [F, B, H]
+  const __nv_bfloat16* gates;  // [F, B, 4H]
+  const __nv_bfloat16* cs;     // [F, B, H]
+  const int* num_frames;       // [B]
+  const int* order;            // [B] rows by num_frames, descending
+  const int* live;             // [F] live rows at each step
+  const __nv_bfloat16* wh;     // [H, 4H]
+  float* dh;                   // [B, H] final h's cotangent in, the carry
+  float* dc;                   // [B, H] final c's cotangent in, the carry
+  __nv_bfloat16* dz;           // [F, B, 4H]
+  unsigned int* barrier;       // a counter a row group, 0 at launch
+  int F, B, H;
+  int reverse;
+  BwdPlan plan;
+  int skip_work;  // 1: barriers and schedule only (measures the barriers)
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;
-  const int wk = warp & 1;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
+// One backward step t of one unit tile (units j0 ..): the row group's
+// chunks of the n rows live at t, a ring warp a chunk, in rounds of
+// ring_warps; the first np of them take dh from the product.
+__device__ __forceinline__ void lstm_bwd_tile_step(const LstmBwdArgs& a, int t, int n, int np,
+                                                   int mine, int j0, int group, uint32_t w_tile,
+                                                   uint32_t ring, int kw) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int H = a.H;
   const size_t G = 4 * static_cast<size_t>(H);
-
-  if (dz_next != nullptr) {
-    // A: 128 rows of dZ_{t+1} x 64 = 8 x 16 B a row, four copies a
-    // thread; B: 32 W_h rows x 64 = 8 x 16 B a row, one copy a thread.
-    const __nv_bfloat16* a_src[4];
-    int a_dst[4], a_bytes[4];
+  const size_t step_h = static_cast<size_t>(a.B) * H;
+  const __nv_bfloat16* dz_next = a.dz + (t + 1) * 4 * step_h;  // read only when np > 0
+  const __nv_bfloat16* dout_t = a.dout + t * step_h;
+  const __nv_bfloat16* gates_t = a.gates + t * 4 * step_h;
+  const __nv_bfloat16* cs_t = a.cs + t * step_h;
+  const __nv_bfloat16* cs_p = t > 0 ? a.cs + (t - 1) * step_h : nullptr;
+  __nv_bfloat16* dz_t = a.dz + t * 4 * step_h;
+  const int rw = a.plan.ring_warps;
+  for (int r0 = 0; r0 < mine; r0 += rw) {
+    const bool mine_chunk = warp < rw && r0 + warp < mine;
+    const int c = group + a.plan.p.groups * (r0 + warp);
+    const ChunkRows rows = chunk_rows(a.order, c, mine_chunk ? n : 0);
+    ChunkRows prow = rows;
+    bool prod[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int seg = tid + j * kThreads;
-      const int row = seg >> 3;
-      const int col = (seg & 7) * 8;
-      const bool ok = b0 + row < B;
-      a_src[j] = dz_next + static_cast<size_t>(ok ? b0 + row : 0) * G + col;
-      a_dst[j] = row * kLdA + col;
-      a_bytes[j] = ok ? 16 : 0;
+      prod[j] = c * kChunk + (lane >> 2) + 8 * j < np;
+      prow.ok[j] = rows.ok[j] && prod[j];
     }
-    const int brow = tid >> 3;
-    const int bcol = (tid & 7) * 8;
-    const __nv_bfloat16* b_src = wh + static_cast<size_t>(j0 + brow) * G + bcol;
-    const int b_dst = brow * kLdB + bcol;
-    auto load_stage = [&](int slot, int kt) {
-      const int k0 = kt * kBK;
+    // The cells' residuals, dout and carries, all loaded before the
+    // product (this thread alone reads and writes the carries).
+    __nv_bfloat162 dv[4][2], gv[4][2][4], cv[4][2], pv[4][2];
+    float2 dhv[4][2], dcv[4][2];
+    if (mine_chunk) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        cp_async16(sA + slot * kStageA + a_dst[j], a_src[j] + k0, a_bytes[j]);
-      cp_async16(sB + slot * kStageB + b_dst, b_src + k0, 16);
-    };
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+        for (int hq = 0; hq < 2; ++hq) {
+          if (!rows.ok[j]) continue;
+          const size_t o = static_cast<size_t>(rows.b[j]) * H + j0 + hq * 8 + (lane & 3) * 2;
+          const size_t og = static_cast<size_t>(rows.b[j]) * G + j0 + hq * 8 + (lane & 3) * 2;
+          dv[j][hq] = *reinterpret_cast<const __nv_bfloat162*>(dout_t + o);
 #pragma unroll
-      for (int n = 0; n < 2; ++n) wmma::fill_fragment(acc[i][n], 0.0f);
-
-    const int nk = static_cast<int>(G / kBK);
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nk) load_stage(s, s);
-      cp_async_commit();
+          for (int g = 0; g < 4; ++g)
+            gv[j][hq][g] = *reinterpret_cast<const __nv_bfloat162*>(gates_t + og +
+                                                                    static_cast<size_t>(g) * H);
+          cv[j][hq] = *reinterpret_cast<const __nv_bfloat162*>(cs_t + o);
+          pv[j][hq] = cs_p != nullptr ? *reinterpret_cast<const __nv_bfloat162*>(cs_p + o)
+                                      : __floats2bfloat162_rn(0.0f, 0.0f);
+          dcv[j][hq] = *reinterpret_cast<const float2*>(a.dc + o);
+          dhv[j][hq] = prod[j] ? make_float2(0.0f, 0.0f)
+                               : *reinterpret_cast<const float2*>(a.dh + o);
+        }
     }
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      const int next = kt + kStages - 1;
-      if (next < nk) load_stage(next % kStages, next);
-      cp_async_commit();
-      const int slot = kt % kStages;
-      const __nv_bfloat16* tA = sA + slot * kStageA;
-      const __nv_bfloat16* tB = sB + slot * kStageB;
+    float acc[2][2][4];
+    chunk_product_wt(acc, mine_chunk && c * kChunk < np, dz_next, static_cast<int>(G), prow,
+                     static_cast<int>(G), ring, a.plan.stages, w_tile, !a.plan.p.resident, kw,
+                     [&](int k0, int kn) { load_wt_tile(w_tile, a.wh, 4 * H, j0, k0, kn, kw); });
+    if (!mine_chunk) continue;
 #pragma unroll
-      for (int kk = wk * 32; kk < wk * 32 + 32; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        // B[k][u] = W_h[j0 + u][k]: the block's W_h rows read column-major.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
+    for (int j = 0; j < 4; ++j) {
+      if (!rows.ok[j]) continue;
+      const int mi = j >> 1;
+      const int hf = j & 1;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], tA + (wm * 32 + i * 16) * kLdA + kk, kLdA);
+      for (int hq = 0; hq < 2; ++hq) {
+        const int unit = j0 + hq * 8 + (lane & 3) * 2;
+        float dz[4][2], dhn[2], dcn[2];
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
-          wmma::load_matrix_sync(fb[n], tB + (n * 16) * kLdB + kk, kLdB);
+        for (int e = 0; e < 2; ++e) {
+          float dh = prod[j] ? acc[mi][hq][hf * 2 + e] : (e ? dhv[j][hq].y : dhv[j][hq].x);
+          dh = add(dh, e ? __high2float(dv[j][hq]) : __low2float(dv[j][hq]));
+          const float dc = e ? dcv[j][hq].y : dcv[j][hq].x;
+          const float si = e ? __high2float(gv[j][hq][0]) : __low2float(gv[j][hq][0]);
+          const float tj = e ? __high2float(gv[j][hq][1]) : __low2float(gv[j][hq][1]);
+          const float sf = e ? __high2float(gv[j][hq][2]) : __low2float(gv[j][hq][2]);
+          const float so = e ? __high2float(gv[j][hq][3]) : __low2float(gv[j][hq][3]);
+          const float c_t = e ? __high2float(cv[j][hq]) : __low2float(cv[j][hq]);
+          const float c_p = e ? __high2float(pv[j][hq]) : __low2float(pv[j][hq]);
+          const float tc = tanhf(c_t);
+          dz[3][e] = mul(mul(mul(dh, tc), so), one_minus(so));
+          const float dcf = add(dc, mul(mul(dh, so), one_minus(mul(tc, tc))));
+          dz[0][e] = mul(mul(mul(dcf, tj), si), one_minus(si));
+          dz[1][e] = mul(mul(dcf, si), one_minus(mul(tj, tj)));
+          dz[2][e] = mul(mul(mul(dcf, c_p), sf), one_minus(sf));
+          dhn[e] = dh;
+          dcn[e] = mul(dcf, sf);
+        }
+        const size_t o = static_cast<size_t>(rows.b[j]) * H + unit;
+        const size_t og = static_cast<size_t>(rows.b[j]) * G + unit;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int n = 0; n < 2; ++n) wmma::mma_sync(acc[i][n], fa[i], fb[n], acc[i][n]);
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<__nv_bfloat162*>(dz_t + og + static_cast<size_t>(g) * H) =
+              __floats2bfloat162_rn(dz[g][0], dz[g][1]);
+        *reinterpret_cast<float2*>(a.dh + o) = make_float2(dhn[0], dhn[1]);
+        *reinterpret_cast<float2*>(a.dc + o) = make_float2(dcn[0], dcn[1]);
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-        wmma::store_matrix_sync(P + wk * kRows * kLdP + (wm * 32 + i * 16) * kLdP + n * 16,
-                                acc[i][n], kLdP, wmma::mem_row_major);
-    __syncthreads();
   }
+}
 
-  // Epilogue: each warp takes rows warp, warp + 8, ...; lane = unit.
-  const int j = j0 + lane;
-  for (int r = warp; r < kRows; r += 8) {
-    const int b = b0 + r;
-    if (b >= B) break;
-    const size_t o = static_cast<size_t>(b) * H + j;
-    const int n = num_frames[b];
-    float dh = dh_state[o];
-    if (dz_next != nullptr && n > orig_next)
-      dh = __fadd_rn(P[r * kLdP + lane], P[kRows * kLdP + r * kLdP + lane]);
-    dh = add(dh, __bfloat162float(dout_t[o]));
-    const float dc = dc_state[o];
-    const __nv_bfloat16* g = gates_t + static_cast<size_t>(b) * G + j;
-    const float si = __bfloat162float(g[0]);
-    const float tj = __bfloat162float(g[H]);
-    const float sf = __bfloat162float(g[2 * static_cast<size_t>(H)]);
-    const float so = __bfloat162float(g[3 * static_cast<size_t>(H)]);
-    const float c_t = __bfloat162float(cs_t[o]);
-    const float c_p = cs_prev != nullptr ? __bfloat162float(cs_prev[o]) : 0.0f;
-    const float tc = tanhf(c_t);
-    const float d_o = mul(mul(mul(dh, tc), so), one_minus(so));
-    const float dcf = add(dc, mul(mul(dh, so), one_minus(mul(tc, tc))));
-    const float d_i = mul(mul(mul(dcf, tj), si), one_minus(si));
-    const float d_j = mul(mul(dcf, si), one_minus(mul(tj, tj)));
-    const float d_f = mul(mul(mul(dcf, c_p), sf), one_minus(sf));
-    const bool live = n > orig_t;
-    __nv_bfloat16* dz = dz_t + static_cast<size_t>(b) * G + j;
-    dz[0] = __float2bfloat16_rn(live ? d_i : 0.0f);
-    dz[H] = __float2bfloat16_rn(live ? d_j : 0.0f);
-    dz[2 * static_cast<size_t>(H)] = __float2bfloat16_rn(live ? d_f : 0.0f);
-    dz[3 * static_cast<size_t>(H)] = __float2bfloat16_rn(live ? d_o : 0.0f);
-    dh_state[o] = dh;
-    dc_state[o] = live ? mul(dcf, sf) : dc;
+__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_persist_kernel(LstmBwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t w_tile = smem_u32(smem);
+  const int H = a.H;
+  const int K = 4 * H;
+  const int w_bytes = a.plan.p.resident ? kUnits * K * 2 : kWBytes;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t ring = smem_u32(smem + w_bytes) +
+                        (warp < a.plan.ring_warps ? warp : 0) * a.plan.stages * kStageBytesT;
+  const int lanes = a.plan.p.lanes;
+  const int lane_id = blockIdx.x % lanes;
+  const int group = blockIdx.x / lanes;
+  const int groups = a.plan.p.groups;
+  const int tiles = H / kUnits;
+  const int kw = kWBytes / (kUnits * 2) < K ? kWBytes / (kUnits * 2) : K;
+
+  if (a.plan.p.resident && !a.skip_work) {
+    load_wt_tile(w_tile, a.wh, K, lane_id * kUnits, 0, K, K);
+    cp_async_commit();
+    cp_async_wait<0>();
   }
+  if (!a.skip_work)
+    backward_frozen_steps(a.order, a.num_frames, a.F, a.B, H, a.reverse, group, groups,
+                          lane_id, lanes, a.dout, a.dh, a.dz, kGates, nullptr);
+  __syncthreads();  // the weights, and the carries written by other threads
+  unsigned int* barrier = a.barrier + group;
+  unsigned int target = 0;
+  for (int t = a.F - 1; t >= 0; --t) {
+    const int n = __ldg(a.live + t);
+    const int n_next = t + 1 < a.F ? __ldg(a.live + t + 1) : 0;
+    const int np = n < n_next ? n : n_next;
+    const int chunks = (n + kChunk - 1) / kChunk;
+    const int mine = chunks > group ? (chunks - group + groups - 1) / groups : 0;
+    for (int u = lane_id; u < tiles && !a.skip_work; u += lanes) {
+      lstm_bwd_tile_step(a, t, n, np, mine, u * kUnits, group, w_tile, ring, kw);
+    }
+    if (t > 0) group_barrier(barrier, target, lanes);
+  }
+}
+
+cudaError_t lstm_bwd_plan(int B, int H, BwdPlan* plan) {
+  return make_bwd_plan(lstm_bwd_persist_kernel, B, H, kCols, plan);
 }
 
 }  // namespace
 
-// Forward: xp [F, B, 4H] bf16; h0 [B, H] bf16 (the first step's h); c, h
-// [B, H] f32, the initial state on entry and the final state on return;
-// out [F, B, H], gates [F, B, 4H] and cs [F, B, H] bf16.
-extern "C" int yt8m_lstm_train_forward(const void* xp, const void* num_frames, const void* wh,
-                                       const void* bias, const void* h0, void* c, void* h,
-                                       void* out, void* gates, void* cs, int F, int B, int H,
-                                       int reverse, void* stream) {
-  return lstm_step::run_forward(xp, num_frames, wh, bias, h0, c, h, out, gates, cs, F, B, H,
-                                reverse, stream);
+// The backward's launch plan at B rows and H units: [grid, lanes, groups,
+// resident, shared bytes a block, ring warps, ring stages] into
+// plan[0..6].
+extern "C" int yt8m_lstm_train_plan(int B, int H, int* plan) {
+  if (B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  BwdPlan p;
+  const cudaError_t err = lstm_bwd_plan(B, H, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = p.p.grid;
+  plan[1] = p.p.lanes;
+  plan[2] = p.p.groups;
+  plan[3] = p.p.resident;
+  plan[4] = p.p.smem;
+  plan[5] = p.ring_warps;
+  plan[6] = p.stages;
+  return static_cast<int>(cudaSuccess);
 }
 
-// Backward: dout [F, B, H], gates [F, B, 4H] and cs [F, B, H] bf16; wh
-// [H, 4H] bf16; dh, dc [B, H] f32 holding the cotangents of the final h
-// and c on entry (the carries after step 0 on return); dz [F, B, 4H]
-// bf16 out. Launches F step kernels on `stream`, t = F-1 first.
+// Backward: dout [F, B, H], gates [F, B, 4H] and cs [F, B, H] bf16 (the
+// forward's residuals); num_frames [B], order [B] and live [F] int32 (the
+// forward's live-row schedule); wh [H, 4H] bf16; dh, dc [B, H] f32
+// holding the cotangents of the final h and c on entry (the carries,
+// scratch, on return); dz [F, B, 4H] bf16 out; barrier kMaxGroups uint32,
+// 0. One cooperative launch on `stream`; skip_work = 1 runs the schedule
+// and the barriers alone.
 extern "C" int yt8m_lstm_train_backward(const void* dout, const void* gates, const void* cs,
-                                        const void* num_frames, const void* wh, void* dh,
-                                        void* dc, void* dz, int F, int B, int H, int reverse,
-                                        void* stream) {
-  if (F <= 0 || B <= 0 || H <= 0 || H % kUnits != 0 || (4 * H) % kBK != 0 ||
-      (B + kRows - 1) / kRows > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(lstm_bptt_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+                                        const void* num_frames, const void* order,
+                                        const void* live, const void* wh, void* dh, void* dc,
+                                        void* dz, void* barrier, int F, int B, int H,
+                                        int reverse, int skip_work, void* stream) {
+  if (F <= 0 || B <= 0 || H <= 0 || H % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  LstmBwdArgs a;
+  cudaError_t err = lstm_bwd_plan(B, H, &a.plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(H / kUnits, (B + kRows - 1) / kRows);
-  const size_t step_g = static_cast<size_t>(B) * 4 * H;
-  const size_t step_h = static_cast<size_t>(B) * H;
-  const __nv_bfloat16* d = static_cast<const __nv_bfloat16*>(dout);
-  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(gates);
-  const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(cs);
-  __nv_bfloat16* z = static_cast<__nv_bfloat16*>(dz);
-  for (int t = F - 1; t >= 0; --t) {
-    lstm_bptt_step_kernel<<<grid, kThreads, kSmem, st>>>(
-        t < F - 1 ? z + (t + 1) * step_g : nullptr, static_cast<const __nv_bfloat16*>(wh),
-        d + t * step_h, g + t * step_g, s + t * step_h, t > 0 ? s + (t - 1) * step_h : nullptr,
-        static_cast<const int*>(num_frames), static_cast<float*>(dh), static_cast<float*>(dc),
-        z + t * step_g, B, H, reverse ? F - 1 - t : t, reverse ? F - 2 - t : t + 1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.gates = static_cast<const __nv_bfloat16*>(gates);
+  a.cs = static_cast<const __nv_bfloat16*>(cs);
+  a.num_frames = static_cast<const int*>(num_frames);
+  a.order = static_cast<const int*>(order);
+  a.live = static_cast<const int*>(live);
+  a.wh = static_cast<const __nv_bfloat16*>(wh);
+  a.dh = static_cast<float*>(dh);
+  a.dc = static_cast<float*>(dc);
+  a.dz = static_cast<__nv_bfloat16*>(dz);
+  a.barrier = static_cast<unsigned int*>(barrier);
+  a.F = F;
+  a.B = B;
+  a.H = H;
+  a.reverse = reverse;
+  a.skip_work = skip_work;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_bwd_persist_kernel),
+                                    dim3(a.plan.p.grid), dim3(kThreads), args, a.plan.p.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

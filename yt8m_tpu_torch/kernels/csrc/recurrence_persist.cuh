@@ -1,10 +1,13 @@
-// The persistent design shared by the serving recurrences (lstm.cu,
-// gru.cu) for Hopper (sm_90a): one launch a call, weights resident in
+// The persistent design shared by the recurrences for Hopper (sm_90a):
+// the serving LSTM and GRU (lstm.cu, gru.cu), their trainable forwards
+// (the same kernels' Residuals instances) and the trainable backwards
+// (lstm_train.cu, gru_train.cu). One launch a call, weights resident in
 // shared memory, live rows only.
 //
 // A step of a recurrence is a short product, bf16(h) [B, H] times the
 // recurrent weights [H, G] (G = 4H for the LSTM; 2H and then H for the
-// GRU's two products), and an element-wise cell update. One launch a step
+// GRU's two products), and an element-wise cell update; a backward step
+// multiplies the next step's bf16 cotangents by W^T. One launch a step
 // pays a launch and re-reads the weights from L2 every step; a step that
 // multiplies every batch row pays for rows whose video has ended. Here:
 //
@@ -24,11 +27,13 @@
 //   the caller's row order; no input is copied. It multiplies 32-row
 //   chunks of the live prefix only; a row past it keeps its state, and
 //   its out[t] = bf16(h), the frozen carry, is written outside the steps
-//   (write_frozen_steps).
+//   (write_frozen_steps; the backward's counterpart is
+//   backward_frozen_steps).
 // * Weights resident. The hidden units are cut into tiles of 16 (kUnits):
 //   a tile's columns of every gate, [H, 16 x gates] bf16, are 128 KB for
 //   the LSTM at H=1024 (64 columns) and 96 KB for the GRU (32 gate and 16
-//   candidate columns). Block b owns unit tile b % lanes and the row
+//   candidate columns); the backward's tile, W's rows of the same units,
+//   holds the same bytes. Block b owns unit tile b % lanes and the row
 //   chunks c with c % groups == b / lanes; at H=1024 that is 64 tiles x 2
 //   row groups = 128 blocks, one an SM, each loading its weights once a
 //   call. Where a tile does not fit the 128 KB area (LSTM H=2048), or a
@@ -42,9 +47,9 @@
 //   larger shared-memory carve-out leaving less L1 to the epilogue) and
 //   reads the resident weights with ldmatrix.trans. Both shared tiles use
 //   the 128-byte XOR swizzle, so ldmatrix is free of bank conflicts
-//   without padding. The depth is
-//   summed in ascending 16-deep steps into one accumulator, as the wmma
-//   step kernels of lstm_step.cuh and gru_step.cuh sum it.
+//   without padding. The depth is summed in ascending 16-deep steps into
+//   one accumulator, as the wmma step kernels this design replaced summed
+//   it. (The backward's ring differs: chunk_product_wt.)
 // * The thread that holds a (row, unit)'s products of every gate in its
 //   accumulators updates that cell, so the epilogue needs no shared
 //   memory. It loads the step's X' / xg / xc (device memory) before the
@@ -54,9 +59,10 @@
 //
 // What this pays: each block reads its rows of h from L2 every step
 // (unit tiles x live rows x H x 2 bytes a product, 64 MiB a step at B=512,
-// H=1024 with every row live), a row group's barrier a step (two for the
-// GRU), and a round trip to L2 at the start of each round of rows. On the
-// card a step is latency-bound: one warp's chain of ring stages, mma and
+// H=1024 with every row live; the backward reads rows 4H deep, 2H and H
+// for the GRU), a row group's barrier a step (two for the GRU), and a
+// round trip to L2 at the start of each round of rows. On the card a
+// step is latency-bound: one warp's chain of ring stages, mma and
 // epilogue over its chunk, then the barrier.
 
 #pragma once
@@ -334,25 +340,30 @@ __device__ __forceinline__ void chunk_product(float (&acc)[2][2 * G][4], bool ac
   __syncwarp();
 }
 
-// The steps at which a row's video has no frame hold its carry: forward,
-// the steps from num_frames on hold the final state; reverse, the steps
-// before F - num_frames hold the initial one. For the block's rows (row
-// group `group`) and unit tiles, out[t] = bf16(h) at those steps: called
-// with the initial state before the first step under `reverse`, with the
-// final state after the last step otherwise. These writes need no step's
-// barrier: the block owns these rows and units.
-__device__ __forceinline__ void write_frozen_steps(const int* __restrict__ order,
-                                                   const int* __restrict__ num_frames, int F,
-                                                   int B, int H, bool reverse, int group,
-                                                   int groups, int lane_id, int lanes,
-                                                   const float* __restrict__ h,
-                                                   __nv_bfloat16* __restrict__ out) {
+// Residuals of the trainable forward at the steps where a row is frozen:
+// cs = bf16(c), the frozen cell carry (zeros where c is null), and zeros
+// for the `ngates` gate blocks of `gates`. All null for serving.
+struct FrozenResiduals {
+  const float* c = nullptr;        // [B, H] the carry's cell state
+  __nv_bfloat16* cs = nullptr;     // [F, B, H]
+  __nv_bfloat16* gates = nullptr;  // [F, B, ngates H]
+  int ngates = 0;
+};
+
+// Calls fn(b, o, nf) for each (caller row b, unit pair at offset o = b * H
+// + unit) that the block owns: row group `group`'s chunks of the order and
+// unit tiles lane_id, lane_id + lanes, ...; nf is the row's num_frames
+// clamped to 0..F (a caller input).
+template <typename Fn>
+__device__ __forceinline__ void for_owned_pairs(const int* __restrict__ order,
+                                                const int* __restrict__ num_frames, int F, int B,
+                                                int H, int group, int groups, int lane_id,
+                                                int lanes, Fn fn) {
   const int tiles = H / kUnits;
   const int my_tiles = lane_id < tiles ? (tiles - lane_id + lanes - 1) / lanes : 0;
   const int chunks = (B + kChunk - 1) / kChunk;
   const int my_chunks = chunks > group ? (chunks - group + groups - 1) / groups : 0;
   const int items = my_chunks * kChunk * my_tiles * (kUnits / 2);
-  const size_t step = static_cast<size_t>(B) * H;
   for (int idx = threadIdx.x; idx < items; idx += kThreads) {
     const int pair = idx % (kUnits / 2);
     const int tile = lane_id + lanes * ((idx / (kUnits / 2)) % my_tiles);
@@ -360,15 +371,284 @@ __device__ __forceinline__ void write_frozen_steps(const int* __restrict__ order
     const int p = (group + groups * (row / kChunk)) * kChunk + row % kChunk;
     if (p >= B) continue;
     const int b = __ldg(order + p);
-    const int nf = min(max(__ldg(num_frames + b), 0), F);  // caller input
+    const int nf = min(max(__ldg(num_frames + b), 0), F);
+    fn(b, static_cast<size_t>(b) * H + tile * kUnits + pair * 2, nf);
+  }
+}
+
+// The steps at which a row's video has no frame hold its carry: forward,
+// the steps from num_frames on hold the final state; reverse, the steps
+// before F - num_frames hold the initial one. For the block's rows (row
+// group `group`) and unit tiles, out[t] = bf16(h) at those steps, and the
+// residuals `res` (trainable forward): called with the initial state
+// before the first step under `reverse`, with the final state after the
+// last step otherwise. These writes need no step's barrier: the block owns
+// these rows and units.
+__device__ __forceinline__ void write_frozen_steps(const int* __restrict__ order,
+                                                   const int* __restrict__ num_frames, int F,
+                                                   int B, int H, bool reverse, int group,
+                                                   int groups, int lane_id, int lanes,
+                                                   const float* __restrict__ h,
+                                                   __nv_bfloat16* __restrict__ out,
+                                                   const FrozenResiduals& res = {}) {
+  const size_t step = static_cast<size_t>(B) * H;
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.0f, 0.0f);
+  for_owned_pairs(order, num_frames, F, B, H, group, groups, lane_id, lanes,
+                  [&](int b, size_t o, int nf) {
     const int t0 = reverse ? 0 : nf;
     const int t1 = reverse ? F - nf : F;
-    if (t0 >= t1) continue;
-    const size_t o = static_cast<size_t>(b) * H + tile * kUnits + pair * 2;
+    if (t0 >= t1) return;
     const float2 v = *reinterpret_cast<const float2*>(h + o);
     const __nv_bfloat162 hv = __floats2bfloat162_rn(v.x, v.y);
-    for (int t = t0; t < t1; ++t) *reinterpret_cast<__nv_bfloat162*>(out + t * step + o) = hv;
+    __nv_bfloat162 cv = zero;
+    if (res.c != nullptr) {
+      const float2 cc = *reinterpret_cast<const float2*>(res.c + o);
+      cv = __floats2bfloat162_rn(cc.x, cc.y);
+    }
+    const size_t og = static_cast<size_t>(b) * res.ngates * H + (o - static_cast<size_t>(b) * H);
+    for (int t = t0; t < t1; ++t) {
+      *reinterpret_cast<__nv_bfloat162*>(out + t * step + o) = hv;
+      if (res.cs != nullptr) *reinterpret_cast<__nv_bfloat162*>(res.cs + t * step + o) = cv;
+      for (int g = 0; g < res.ngates; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(res.gates + t * step * res.ngates + og +
+                                           static_cast<size_t>(g) * H) = zero;
+    }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The trainable backward: products with W^T.
+// ---------------------------------------------------------------------------
+//
+// A backward step multiplies bf16 cotangents [rows, K] (K = 4H for the
+// LSTM; 2H and H for the GRU's two products) by W^T, where W is [H, K]:
+// the B operand of a unit tile is W's rows of its 16 units, [16, K] bf16,
+// read with plain ldmatrix (W's rows are B's columns, contiguous in the
+// depth). A K four times the forward's makes a step's A stream four times
+// as long, so its ring takes 64-deep stages (4 KB for 32 rows) and as
+// many of them as the shared memory left beside the weights holds, given
+// to the warps that own row chunks (ring_warps; the other warps of the
+// block idle): at B=256 four warps own a chunk each.
+
+constexpr int kKcT = 64;                       // depth of a backward ring stage
+constexpr int kStageBytesT = kChunk * kKcT * 2;  // 4 KB
+constexpr int kMaxStagesT = 8;
+constexpr int kMaxSmem = 232448;               // a block's shared memory, at most
+
+// cp.async.wait_group takes an immediate: the ring's runtime depth picks one.
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
   }
+}
+
+// Copies depth k0 .. k0 + kw - 1 of W's rows j0 .. j0 + 15 (ldw columns a
+// row) into the tile [16][stride] at `tile`: row n is stride * 2 bytes
+// (stride >= kw, a multiple of 64), its 16-byte chunk ch stored at chunk
+// ch ^ (n % 8), so that the eight rows an ldmatrix reads at one depth land
+// in eight bank groups. Every thread of the block takes part; the caller
+// waits and synchronises.
+__device__ __forceinline__ void load_wt_tile(uint32_t tile, const __nv_bfloat16* __restrict__ W,
+                                             int ldw, int j0, int k0, int kw, int stride) {
+  const int per_row = kw / 8;
+  for (int idx = threadIdx.x; idx < kUnits * per_row; idx += kThreads) {
+    const int n = idx / per_row;
+    const int ch = idx % per_row;
+    cp_async16(tile + static_cast<uint32_t>(n * stride * 2 + ((ch ^ (n & 7)) << 4)),
+               W + static_cast<size_t>(j0 + n) * ldw + k0 + ch * 8, 16);
+  }
+}
+
+// acc[mi][q][e]: row mi * 16 + (lane / 4) + 8 (e / 2) of the chunk, unit
+// q * 8 + (lane % 4) * 2 + (e % 2) of the tile, of
+//
+//   acc = A[rows, 0:K] @ Wt[0:K, 0:16]     (Wt[k][n] = W[j0 + n][k])
+//
+// A's rows are `rows` (each lda bf16 apart; rows not ok read as zeros).
+// The depth runs through the warp's ring of `stages` 64-deep stages (at
+// `ring`), in ascending 16-deep steps into one accumulator. Resident: the
+// whole [16][K] tile lies at `w_tile`. Streamed: before each K chunk of kw
+// the block synchronises and load_w(k0, n) fills `w_tile` (depth k0 .. k0
+// + n - 1 as [16][kw]);
+// every warp of the block must call this then, `active` false for a warp
+// without a chunk.
+template <typename LoadW>
+__device__ __forceinline__ void chunk_product_wt(float (&acc)[2][2][4], bool active,
+                                                 const __nv_bfloat16* __restrict__ A, int lda,
+                                                 const ChunkRows& rows, int K, uint32_t ring,
+                                                 int stages, uint32_t w_tile, bool streamed,
+                                                 int kw, LoadW load_w) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][q][e] = 0.0f;
+
+  // The lane copies 32 bytes of each of its four rows a stage.
+  const __nv_bfloat16* src[4];
+  uint32_t dst[4][2];
+  int bytes[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int row = (lane >> 2) + 8 * j;
+    src[j] = A + static_cast<size_t>(rows.b[j]) * lda + (lane & 3) * 16;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      dst[j][h] = swz(static_cast<uint32_t>(row * kKcT * 2 + ((lane & 3) * 2 + h) * 16));
+    bytes[j] = rows.ok[j] ? 16 : 0;
+  }
+  auto load_a = [&](int slot, int kt) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        cp_async16(ring + slot * kStageBytesT + dst[j][h], src[j] + kt * kKcT + h * 8,
+                   bytes[j]);
+  };
+  constexpr int kK16 = kKcT / 16;
+  uint32_t a_off[2][kK16];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int kk = 0; kk < kK16; ++kk)
+      a_off[mi][kk] = swz(static_cast<uint32_t>((mi * 16 + (lane & 15)) * kKcT * 2 +
+                                                (kk * 2 + (lane >> 4)) * 16));
+  // ldmatrix.x4 of B: matrices (units 0-7, depth 0-7), (0-7, 8-15),
+  // (8-15, 0-7), (8-15, 8-15), one 8-unit row a lane.
+  const int b_n = (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int b_ch = (lane >> 3) & 1;
+
+  const int nk = K / kKcT;
+  if (active) {
+    for (int s = 0; s < stages - 1; ++s) {
+      if (s < nk) load_a(s, s);
+      cp_async_commit();
+    }
+  }
+  const int kwt = streamed ? kw / kKcT : nk;
+  const int row_bytes = (streamed ? kw : K) * 2;
+  for (int kc = 0; kc < nk; kc += kwt) {
+    const int kend = kc + kwt < nk ? kc + kwt : nk;
+    if (streamed) {
+      __syncthreads();  // every warp is done with the previous chunk
+      load_w(kc * kKcT, (kend - kc) * kKcT);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (!active) continue;
+    const uint32_t b_row = w_tile + static_cast<uint32_t>(b_n * row_bytes);
+    for (int kt = kc; kt < kend; ++kt) {
+      cp_async_wait_dyn(stages - 2);
+      __syncwarp();
+      const int next = kt + stages - 1;
+      if (next < nk) load_a(next % stages, next);
+      cp_async_commit();
+      const uint32_t stage = ring + (kt % stages) * kStageBytesT;
+#pragma unroll
+      for (int kk = 0; kk < kK16; ++kk) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) ldmatrix_x4(stage + a_off[mi][kk], a[mi]);
+        const int ch = ((kt - kc) * kKcT + kk * 16) / 8 + b_ch;
+        uint32_t b[4];
+        ldmatrix_x4(b_row + static_cast<uint32_t>((ch ^ (b_n & 7)) << 4), b);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][0], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  if (active) cp_async_wait<0>();
+  __syncwarp();
+}
+
+// The backward's plan: the forward's grid (make_plan), then its ring: the
+// warps that own a chunk of the largest live prefix (at most kWarps), and
+// the most 64-deep stages a warp (2 .. kMaxStagesT) that keep the grid
+// co-resident.
+struct BwdPlan {
+  Plan p;
+  int ring_warps;
+  int stages;
+};
+
+template <typename Kernel>
+cudaError_t make_bwd_plan(Kernel kernel, int B, int H, int cols, BwdPlan* plan) {
+  cudaError_t err = make_plan(kernel, B, H, cols, &plan->p);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int chunks = (B + kChunk - 1) / kChunk;
+  const int mine = (chunks + plan->p.groups - 1) / plan->p.groups;
+  plan->ring_warps = mine < kWarps ? mine : kWarps;
+  const int w_bytes = plan->p.smem - kRingBytes;
+  for (int stages = kMaxStagesT; stages >= 2; --stages) {
+    const int smem = w_bytes + plan->ring_warps * stages * kStageBytesT;
+    if (smem > kMaxSmem) continue;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm * sms < plan->p.grid) continue;
+    plan->stages = stages;
+    plan->p.smem = smem;
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+// The backward's frozen steps, before its first step: for the block's rows
+// and units, the cotangents of every frozen step (0 there: a frozen step
+// has no product) into `zero` ([F, B, nzero H], the gate cotangents of
+// the step) and, if given, `zero_h` ([F, B, H]). Forward, the frozen steps
+// (num_frames on) come first in the backward and pass dh through: dh
+// (f32 [B, H], the final h's cotangent on entry) takes their bf16(dout_t)
+// one at a time, t = F-1 down, as the steps would add them. Reverse, the
+// frozen steps come last and their carry reaches only the initial state,
+// which no caller reads: only the zeros.
+__device__ __forceinline__ void backward_frozen_steps(
+    const int* __restrict__ order, const int* __restrict__ num_frames, int F, int B, int H,
+    bool reverse, int group, int groups, int lane_id, int lanes,
+    const __nv_bfloat16* __restrict__ dout, float* __restrict__ dh, __nv_bfloat16* zero,
+    int nzero, __nv_bfloat16* zero_h) {
+  const size_t step = static_cast<size_t>(B) * H;
+  const __nv_bfloat162 z = __floats2bfloat162_rn(0.0f, 0.0f);
+  for_owned_pairs(order, num_frames, F, B, H, group, groups, lane_id, lanes,
+                  [&](int b, size_t o, int nf) {
+    const int t0 = reverse ? 0 : nf;
+    const int t1 = reverse ? F - nf : F;
+    if (t0 >= t1) return;
+    const size_t og = static_cast<size_t>(b) * nzero * H + (o - static_cast<size_t>(b) * H);
+    for (int t = t0; t < t1; ++t) {
+      for (int g = 0; g < nzero; ++g)
+        *reinterpret_cast<__nv_bfloat162*>(zero + t * step * nzero + og +
+                                           static_cast<size_t>(g) * H) = z;
+      if (zero_h != nullptr) *reinterpret_cast<__nv_bfloat162*>(zero_h + t * step + o) = z;
+    }
+    if (reverse) return;
+    float2 d = *reinterpret_cast<const float2*>(dh + o);
+    for (int t = F - 1; t >= nf; --t) {
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(dout + t * step + o);
+      d.x = __fadd_rn(d.x, __low2float(v));
+      d.y = __fadd_rn(d.y, __high2float(v));
+    }
+    *reinterpret_cast<float2*>(dh + o) = d;
+  });
 }
 
 }  // namespace persist

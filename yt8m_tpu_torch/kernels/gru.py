@@ -128,15 +128,15 @@ def gru_recurrence(xg, xc, num_frames, whg, whc, bg, bc, reverse=False):
 
 def forward_kernel(xg, xc, num_frames, whg, whc, bg, bc, reverse=False,
                    h0=None, h=None, residuals=False, skip_work=False):
-    """The C call of the CUDA forward, serving (csrc/gru.cu, one launch)
-    or with `residuals` (csrc/gru_train.cu, 2F step launches), on CUDA
-    tensors with H a multiple of 64: (out [F, B, H] bf16, h [B, H] f32,
-    and the last step's u [B, H] f32 and bf16(r * h) [B, H], gates
-    [F, B, 2H] and cand [F, B, H] bf16 or None). The serving kernel
-    writes u and bf16(r * h) of the live rows only. h0 (bf16) and h (f32,
-    updated in place) give the state before the first step; zeros by
-    default. skip_work runs the serving kernel's schedule and barriers
-    alone (their share of a call, for measurement)."""
+    """The C call of the CUDA forward (csrc/gru.cu, one launch), serving
+    or with `residuals` (the trainable forward, the same kernel's
+    Residuals instance), on CUDA tensors with H a multiple of 64: (out
+    [F, B, H] bf16, h [B, H] f32, and the last step's u [B, H] f32 and
+    bf16(r * h) [B, H], gates [F, B, 2H] and cand [F, B, H] bf16 or
+    None). The kernel writes u and bf16(r * h) of the live rows only. h0
+    (bf16) and h (f32, updated in place) give the state before the first
+    step; zeros by default. skip_work runs the kernel's schedule and
+    barriers alone (their share of a call, for measurement)."""
     f, b, g2 = xg.shape
     hd = g2 // 2
     require(hd % H_MULTIPLE == 0, f"H={hd} must be a multiple of "
@@ -159,33 +159,32 @@ def forward_kernel(xg, xc, num_frames, whg, whc, bg, bc, reverse=False,
     u = torch.empty((b, hd), dtype=torch.float32, device=dev)
     rh = torch.empty((b, hd), dtype=torch.bfloat16, device=dev)
     out = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
-    args = [_build.ptr(t) for t in (xg, xc, num_frames, whg, whc, bg, bc, h0,
-                                    h, u, rh, out)]
+    order, live = live_schedule(num_frames, f, reverse)
+    barrier = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
+    ts = [xg, xc, num_frames, order, live, whg, whc, bg, bc, h0, h, u, rh,
+          out]
     gates = cand = None
     lib = _build.library()
     if residuals:
         gates = torch.empty((f, b, g2), dtype=torch.bfloat16, device=dev)
         cand = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
-        code = lib.yt8m_gru_train_forward(
-            *args, _build.ptr(gates), _build.ptr(cand), f, b, hd,
-            int(bool(reverse)), _build.current_stream(dev))
+        fn, name, ts = (lib.yt8m_gru_train_forward, "gru_train_forward",
+                        ts + [gates, cand])
     else:
-        order, live = live_schedule(num_frames, f, reverse)
-        barrier = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
-        code = lib.yt8m_gru_recurrence(
-            *args[:3], _build.ptr(order), _build.ptr(live), *args[3:],
-            _build.ptr(barrier), f, b, hd, int(bool(reverse)),
-            int(skip_work), _build.current_stream(dev))
-    _build.check_launch("gru_train_forward" if residuals else "gru_recurrence",
-                        code)
+        fn, name = lib.yt8m_gru_recurrence, "gru_recurrence"
+    code = fn(*(_build.ptr(t) for t in ts + [barrier]), f, b, hd,
+              int(bool(reverse)), int(skip_work), _build.current_stream(dev))
+    _build.check_launch(name, code)
     return out, h, u, rh, gates, cand
 
 
-def barriers_only(xg, xc, num_frames, whg, whc, bg, bc, reverse=False):
-    """The serving kernel with its products and cell updates skipped: its
+def barriers_only(xg, xc, num_frames, whg, whc, bg, bc, reverse=False,
+                  residuals=False):
+    """The kernel (the serving instance, or with `residuals` the
+    trainable forward's) with its products and cell updates skipped: its
     schedule and 2F - 1 barriers alone (not counted in `launches`)."""
     forward_kernel(xg, xc, num_frames, whg, whc, bg, bc, reverse,
-                   skip_work=True)
+                   residuals=residuals, skip_work=True)
 
 
 def plan(b: int, hd: int) -> dict:

@@ -7,14 +7,16 @@ custom VJP over two pallas_calls (the forward at :104, the backward at
 :235), with its contract: the recurrence of kernels/gru.py, gradients
 for xg, xc, W_hg, W_hc, bg and bc (num_frames is integer data).
 
-Forward (csrc/gru_train.cu, through the step of csrc/gru_step.cuh): the
+Forward (csrc/gru.cu, the serving kernel's Residuals instance): the
 serving recurrence, which also writes the post-sigmoid gates bf16([r, u])
 [F, B, 2H] and the candidate bf16(c) [F, B, H]; the outputs are
-bf16(h_t).
+bf16(h_t). The kernel computes live rows only: at a row's frozen steps
+its gates and candidate are 0 (the plain version computes them there
+too; nothing reads them, every use is masked).
 
-Backward (csrc/gru_train.cu): two launches per step, t = F-1 first, with
-the dh carry in f32 and hprev = outs[t-1] (bf16, 0 at t = 0), emitting
-the gradients of the gate and candidate pre-activations in bf16:
+Backward (csrc/gru_train.cu), t = F-1 first, with the dh carry in f32
+and hprev = outs[t-1] (bf16, 0 at t = 0), emitting the gradients of the
+gate and candidate pre-activations in bf16:
 
     dh    = dh_carry + bf16(dout_t)
     da_u  = dh (hprev - c) u (1 - u);   da_c = dh (1 - u) (1 - c^2)
@@ -28,10 +30,13 @@ dA_g and dW_hc = bf16(bf16(r) hprev)^T dA_c as bf16 products with f32
 output, dbg and dbc the f32 sums of dA_g and dA_c, dxg = dA_g and dxc =
 dA_c.
 
-Both directions are bound by the bf16 tensor-core rate (2 F B H 3H
-operations each, against the residual bytes). `gru_train_forward.launches`
-and `gru_train_backward.launches` count the step kernels launched (2F a
-call each). H that is no multiple of 64 is padded as kernels/gru.py pads
+Both directions are one persistent launch a call
+(csrc/recurrence_persist.cuh: the weights resident in shared memory,
+barriers between each step's two dependent products, live rows only, by
+the schedule of kernels/_schedule.py); gru_train_backward_by_schedule is
+the backward's decomposition in plain PyTorch.
+`gru_train_forward.launches` and `gru_train_backward.launches` count the
+launches. H that is no multiple of 64 is padded as kernels/gru.py pads
 it; a padded unit's dA is 0.
 """
 
@@ -40,10 +45,17 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels import gru as _gru
 from yt8m_tpu_torch.kernels._checks import (
     on_cpu,
     require,
     require_cuda_operand,
+)
+from yt8m_tpu_torch.kernels._schedule import (
+    BARRIER_WORDS,
+    launch_plan,
+    live_schedule,
+    product_rows,
 )
 from yt8m_tpu_torch.kernels.gru import (
     H_MULTIPLE,
@@ -123,6 +135,54 @@ def gru_train_backward_plain(douts, dfh, gates, cand, outs, num_frames,
     return torch.stack(dag_all), torch.stack(dac_all)
 
 
+def gru_train_backward_by_schedule(douts, dfh, gates, cand, outs,
+                                   num_frames, whg, whc, reverse=False):
+    """gru_train_backward_plain as the CUDA backward decomposes it, in
+    plain PyTorch: the rows in the live-row order; step t computes only
+    the prefix of rows live at t, and takes the carry's product
+    (dA_g[t+1] @ W_hg^T) for only its first product_rows[t] (live at t+1
+    too); drh is formed from the masked dA_c of the live rows; a row's
+    frozen steps emit dA = 0 and, forward, add their bf16(dout_t) to its
+    dh carry one at a time, t = F-1 down. (dA_g [F, B, 2H], dA_c
+    [F, B, H]) bf16."""
+    f, b, g2 = gates.shape
+    hd = g2 // 2
+    order, live = live_schedule(num_frames, f, reverse)
+    prod = product_rows(live).tolist()
+    order, live = order.long(), live.tolist()
+    wgt, wct = _bf(whg).t(), _bf(whc).t()
+    dout = _bf(douts)
+    hprev = hprev_of(outs).to(torch.float32)
+    nf = num_frames.to(torch.int64)[:, None]
+    dh = dfh.to(torch.float32).clone()
+    drh = torch.zeros_like(dh)
+    dag = torch.zeros((f, b, g2), dtype=torch.bfloat16, device=gates.device)
+    dac = torch.zeros((f, b, hd), dtype=torch.bfloat16, device=gates.device)
+    if not reverse:  # the frozen steps come first in the backward
+        for t in range(f - 1, -1, -1):
+            dh = torch.where(nf <= t, dh + dout[t], dh)
+    for t in range(f - 1, -1, -1):
+        rows = order[:live[t]]
+        dh_t = dh[rows]
+        if prod[t]:
+            pr = rows[:prod[t]]
+            g1 = gates[t + 1, pr].to(torch.float32)
+            p_t = torch.matmul(dag[t + 1, pr].to(torch.float32), wgt)
+            dh_t[:prod[t]] = (dh_t[:prod[t]] * g1[:, hd:]
+                              + drh[pr] * g1[:, :hd] + p_t)
+        dh_t = dh_t + dout[t, rows]
+        da_u, da_c, r, _ = _bptt(dh_t, gates[t, rows].to(torch.float32),
+                                 cand[t, rows].to(torch.float32),
+                                 hprev[t, rows], hd)
+        dac[t, rows] = da_c.to(torch.bfloat16)
+        drh_t = torch.matmul(dac[t, rows].to(torch.float32), wct)
+        da_r = drh_t * hprev[t, rows] * r * (1.0 - r)
+        dag[t, rows] = torch.cat([da_r, da_u], -1).to(torch.bfloat16)
+        dh[rows] = dh_t
+        drh[rows] = drh_t
+    return dag, dac
+
+
 def gru_train_forward(xg, xc, num_frames, whg, whc, bg, bc, reverse=False):
     """(outs, gates, cand, h) as gru_train_forward_plain: the CUDA forward
     for CUDA tensors (xg, xc, whg, whc bf16, num_frames int32, bg, bc
@@ -134,7 +194,7 @@ def gru_train_forward(xg, xc, num_frames, whg, whc, bg, bc, reverse=False):
                                        reverse)
     out, h, _, _, gates, cand = forward_kernel(
         xg, xc, num_frames, whg, whc, bg, bc, reverse, residuals=True)
-    gru_train_forward.launches += 2 * xg.shape[0]
+    gru_train_forward.launches += 1
     return out, gates, cand, h
 
 
@@ -152,6 +212,18 @@ def gru_train_backward(douts, dfh, gates, cand, outs, num_frames, whg, whc,
                                         num_frames, whg, whc, reverse)
     require(hd % H_MULTIPLE == 0, f"H={hd} must be a multiple of "
             f"{H_MULTIPLE} (gru_recurrence_trainable pads it)")
+    dag, dac = _backward(douts, dfh, gates, cand, outs, num_frames, whg, whc,
+                         reverse)
+    gru_train_backward.launches += 1
+    return dag, dac
+
+
+def _backward(douts, dfh, gates, cand, outs, num_frames, whg, whc, reverse,
+              skip_work=False):
+    """The C call of the CUDA backward on CUDA tensors: (dA_g, dA_c)
+    bf16. skip_work runs the kernel's schedule and barriers alone."""
+    f, b, g2 = gates.shape
+    hd = g2 // 2
     dout = douts.to(torch.bfloat16).contiguous()
     require_cuda_operand("douts", dout, torch.bfloat16, (f, b, hd))
     require_cuda_operand("gates", gates, torch.bfloat16, (f, b, g2))
@@ -166,16 +238,41 @@ def gru_train_backward(douts, dfh, gates, cand, outs, num_frames, whg, whc,
     drh = torch.empty((b, hd), dtype=torch.float32, device=dev)
     dag = torch.empty((f, b, g2), dtype=torch.bfloat16, device=dev)
     dac = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
+    order, live = live_schedule(num_frames, f, reverse)
+    barrier = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
     code = _build.library().yt8m_gru_train_backward(
-        _build.ptr(dout), _build.ptr(gates), _build.ptr(cand),
-        _build.ptr(outs), _build.ptr(num_frames), _build.ptr(whg),
-        _build.ptr(whc), _build.ptr(dh), _build.ptr(drh), _build.ptr(dag),
-        _build.ptr(dac), f, b, hd, int(bool(reverse)),
+        *(_build.ptr(t) for t in (dout, gates, cand, outs, num_frames, order,
+                                  live, whg, whc, dh, drh, dag, dac,
+                                  barrier)),
+        f, b, hd, int(bool(reverse)), int(skip_work),
         _build.current_stream(dev),
     )
     _build.check_launch("gru_train_backward", code)
-    gru_train_backward.launches += 2 * f
     return dag, dac
+
+
+def barriers_only_forward(xg, xc, num_frames, whg, whc, bg, bc,
+                          reverse=False):
+    """The forward with its products and cell updates skipped: its
+    schedule and 2F - 1 barriers alone (not counted in `launches`)."""
+    _gru.barriers_only(xg, xc, num_frames, whg, whc, bg, bc, reverse,
+                       residuals=True)
+
+
+def barriers_only_backward(douts, dfh, gates, cand, outs, num_frames, whg,
+                           whc, reverse=False):
+    """The backward with its products and cell updates skipped: its
+    schedule and 2F - 1 barriers alone (not counted in `launches`)."""
+    _backward(douts, dfh, gates, cand, outs, num_frames, whg, whc, reverse,
+              skip_work=True)
+
+
+def plan(b: int, hd: int) -> dict:
+    """The backward's launch plan at B rows and H units (H a multiple of
+    64), its ring included: see kernels/_schedule.py :: launch_plan. The
+    forward's is kernels/gru.py :: plan."""
+    return launch_plan(_build.library().yt8m_gru_train_plan, b, hd,
+                       backward=True)
 
 
 gru_train_forward.launches = 0

@@ -112,10 +112,13 @@ def lstm_recurrence(x_proj, num_frames, wh, bias, reverse=False):
     return out.to(torch.float32), (c, h)
 
 
-def _launch(x_proj, num_frames, wh, bias, reverse, skip_work=False):
+def _launch(x_proj, num_frames, wh, bias, reverse, skip_work=False,
+            residuals=False):
     """The C call on CUDA tensors with H a multiple of 64: (out [F, B, H]
-    bf16, c, h [B, H] f32). skip_work runs the kernel's schedule and
-    barriers alone (their share of a call, for measurement)."""
+    bf16, c, h [B, H] f32) and, with `residuals` (the trainable forward,
+    the same kernel's Residuals instance), also (gates [F, B, 4H], cs
+    [F, B, H]) bf16. skip_work runs the kernel's schedule and barriers
+    alone (their share of a call, for measurement)."""
     f, b, g = x_proj.shape
     hd = g // 4
     require(f >= 1, "F must be at least 1")
@@ -130,20 +133,29 @@ def _launch(x_proj, num_frames, wh, bias, reverse, skip_work=False):
     h = torch.zeros((b, hd), dtype=torch.float32, device=dev)
     out = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
     barrier = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
-    code = _build.library().yt8m_lstm_recurrence(
-        *(_build.ptr(t) for t in (x_proj, num_frames, order, live, wh, bias,
-                                  h0, c, h, out, barrier)),
-        f, b, hd, int(bool(reverse)), int(skip_work),
-        _build.current_stream(dev),
-    )
-    _build.check_launch("lstm_recurrence", code)
-    return out, c, h
+    lib = _build.library()
+    head = [x_proj, num_frames, order, live, wh, bias, h0, c, h, out]
+    if residuals:
+        gates = torch.empty((f, b, g), dtype=torch.bfloat16, device=dev)
+        cs = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
+        fn, name, ts = (lib.yt8m_lstm_train_forward, "lstm_train_forward",
+                        head + [gates, cs, barrier])
+    else:
+        fn, name, ts = lib.yt8m_lstm_recurrence, "lstm_recurrence", head + [
+            barrier]
+    code = fn(*(_build.ptr(t) for t in ts), f, b, hd, int(bool(reverse)),
+              int(skip_work), _build.current_stream(dev))
+    _build.check_launch(name, code)
+    return (out, c, h, gates, cs) if residuals else (out, c, h)
 
 
-def barriers_only(x_proj, num_frames, wh, bias, reverse=False):
-    """The kernel with its products and cell updates skipped: its schedule
-    and F - 1 barriers alone (not counted in `launches`)."""
-    _launch(x_proj, num_frames, wh, bias, reverse, skip_work=True)
+def barriers_only(x_proj, num_frames, wh, bias, reverse=False,
+                  residuals=False):
+    """The kernel (the serving instance, or with `residuals` the
+    trainable forward's) with its products and cell updates skipped: its
+    schedule and F - 1 barriers alone (not counted in `launches`)."""
+    _launch(x_proj, num_frames, wh, bias, reverse, skip_work=True,
+            residuals=residuals)
 
 
 def plan(b: int, hd: int) -> dict:

@@ -6,13 +6,16 @@ custom VJP over two pallas_calls (the forward at :119, the backward at
 :272), with its contract: the recurrence of kernels/lstm.py, gradients
 for x_proj, W_h and the bias (num_frames is integer data).
 
-Forward (csrc/lstm_train.cu, through the step of csrc/lstm_step.cuh):
-the serving recurrence, which also writes the post-activation gates
+Forward (csrc/lstm.cu, the serving kernel's Residuals instance): the
+serving recurrence, which also writes the post-activation gates
 (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o) as bf16 [F, B, 4H] and
-the cell sequence bf16(c_t) [F, B, H]; the outputs are bf16(h_t).
+the cell sequence bf16(c_t) [F, B, H]; the outputs are bf16(h_t). The
+kernel computes live rows only: at a row's frozen steps its gates are 0
+and c_t is the frozen carry (the plain version computes gates there
+too; nothing reads them, every use is masked).
 
-Backward (csrc/lstm_train.cu): one launch per step, t = F-1 first, with
-the dh and dc carries in f32, emitting only dZ, bf16 [F, B, 4H]:
+Backward (csrc/lstm_train.cu), t = F-1 first, with the dh and dc carries
+in f32, emitting only dZ, bf16 [F, B, 4H]:
 
     dh   = dh_carry + bf16(dout_t)          dc = dc_carry
     do   = dh * tanh(c_t) * o (1 - o)
@@ -26,12 +29,14 @@ with c_{-1} = 0 and live = num_frames > orig_t (orig_t = F-1-t under
 dZ as one bf16 product with f32 output, db = sum dZ in f32, dx_proj =
 dZ.
 
-Both kernels are bound by the bf16 tensor-core rate (2 F B H 4H
-operations each, against the residual bytes). They run one launch per
-step, all F from one C call; `lstm_train_forward.launches` and
-`lstm_train_backward.launches` count the step kernels launched. H that
-is no multiple of 64 is padded as kernels/lstm.py pads it; a padded
-unit's dZ is 0.
+Both directions are one persistent launch a call
+(csrc/recurrence_persist.cuh: the weights resident in shared memory, a
+barrier between steps, live rows only, by the schedule of
+kernels/_schedule.py); lstm_train_backward_by_schedule is the backward's
+decomposition in plain PyTorch. `lstm_train_forward.launches` and
+`lstm_train_backward.launches` count the launches. H that is no
+multiple of 64 is padded as kernels/lstm.py pads it; a padded unit's dZ
+is 0.
 """
 
 from __future__ import annotations
@@ -41,10 +46,17 @@ from typing import NamedTuple
 import torch
 
 from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels import lstm as _lstm
 from yt8m_tpu_torch.kernels._checks import (
     on_cpu,
     require,
     require_cuda_operand,
+)
+from yt8m_tpu_torch.kernels._schedule import (
+    BARRIER_WORDS,
+    launch_plan,
+    live_schedule,
+    product_rows,
 )
 from yt8m_tpu_torch.kernels.lstm import H_MULTIPLE, lstm_cell, pad_units
 
@@ -122,6 +134,46 @@ def lstm_train_backward_plain(douts, dfc, dfh, gates, cs, num_frames, wh,
     return torch.stack(dz_all)
 
 
+def lstm_train_backward_by_schedule(douts, dfc, dfh, gates, cs, num_frames,
+                                    wh, reverse=False):
+    """lstm_train_backward_plain as the CUDA backward decomposes it, in
+    plain PyTorch: the rows in the live-row order; step t computes only
+    the prefix of rows live at t, and multiplies only its first
+    product_rows[t] (live at t+1 too); a row's frozen steps emit dZ = 0
+    and, forward, add their bf16(dout_t) to its dh carry one at a time,
+    t = F-1 down, before the row turns live. dZ [F, B, 4H] bf16."""
+    f, b, g = gates.shape
+    hd = g // 4
+    order, live = live_schedule(num_frames, f, reverse)
+    prod = product_rows(live).tolist()
+    order, live = order.long(), live.tolist()
+    wt = _bf(wh).t()
+    dout = _bf(douts)
+    nf = num_frames.to(torch.int64)[:, None]
+    dh = dfh.to(torch.float32).clone()
+    dc = dfc.to(torch.float32).clone()
+    dz = torch.zeros((f, b, g), dtype=torch.bfloat16, device=gates.device)
+    if not reverse:  # the frozen steps come first in the backward
+        for t in range(f - 1, -1, -1):
+            dh = torch.where(nf <= t, dh + dout[t], dh)
+    for t in range(f - 1, -1, -1):
+        rows = order[:live[t]]
+        dh_t = dh[rows]
+        if prod[t]:
+            dh_t[:prod[t]] = torch.matmul(
+                dz[t + 1, rows[:prod[t]]].to(torch.float32), wt)
+        dh_t = dh_t + dout[t, rows]
+        c_t = cs[t, rows].to(torch.float32)
+        c_p = (cs[t - 1, rows].to(torch.float32) if t > 0
+               else torch.zeros_like(c_t))
+        d, dcf, sf = _bptt(dh_t, dc[rows], gates[t, rows].to(torch.float32),
+                           c_t, c_p, hd)
+        dz[t, rows] = d.to(torch.bfloat16)
+        dh[rows] = dh_t
+        dc[rows] = dcf * sf
+    return dz
+
+
 def lstm_train_forward(x_proj, num_frames, wh, bias, reverse=False):
     """(outs, gates, cs, c, h) as lstm_train_forward_plain: the CUDA
     forward for CUDA tensors (x_proj, wh bf16, num_frames int32, bias
@@ -137,26 +189,10 @@ def lstm_train_forward(x_proj, num_frames, wh, bias, reverse=False):
     require(hd % H_MULTIPLE == 0, f"H={hd} must be a multiple of "
             f"{H_MULTIPLE} (lstm_recurrence_trainable pads it)")
     require(f >= 1, "F must be at least 1")
-    require_cuda_operand("x_proj", x_proj, torch.bfloat16, (f, b, g))
-    require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
-    require_cuda_operand("wh", wh, torch.bfloat16, (hd, g))
-    require_cuda_operand("bias", bias, torch.float32, (g,))
-    dev = x_proj.device
-    h0 = torch.zeros((b, hd), dtype=torch.bfloat16, device=dev)
-    c = torch.zeros((b, hd), dtype=torch.float32, device=dev)
-    h = torch.zeros((b, hd), dtype=torch.float32, device=dev)
-    outs = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
-    gates = torch.empty((f, b, g), dtype=torch.bfloat16, device=dev)
-    cs = torch.empty((f, b, hd), dtype=torch.bfloat16, device=dev)
-    code = _build.library().yt8m_lstm_train_forward(
-        _build.ptr(x_proj), _build.ptr(num_frames), _build.ptr(wh),
-        _build.ptr(bias), _build.ptr(h0), _build.ptr(c), _build.ptr(h),
-        _build.ptr(outs), _build.ptr(gates), _build.ptr(cs), f, b, hd,
-        int(bool(reverse)), _build.current_stream(dev),
-    )
-    _build.check_launch("lstm_train_forward", code)
-    lstm_train_forward.launches += f
-    return outs, gates, cs, c, h
+    out, c, h, gates, cs = _lstm._launch(x_proj, num_frames, wh, bias,
+                                         reverse, residuals=True)
+    lstm_train_forward.launches += 1
+    return out, gates, cs, c, h
 
 
 def lstm_train_backward(douts, dfc, dfh, gates, cs, num_frames, wh,
@@ -173,6 +209,17 @@ def lstm_train_backward(douts, dfc, dfh, gates, cs, num_frames, wh,
                                          num_frames, wh, reverse)
     require(hd % H_MULTIPLE == 0, f"H={hd} must be a multiple of "
             f"{H_MULTIPLE} (lstm_recurrence_trainable pads it)")
+    dz = _backward(douts, dfc, dfh, gates, cs, num_frames, wh, reverse)
+    lstm_train_backward.launches += 1
+    return dz
+
+
+def _backward(douts, dfc, dfh, gates, cs, num_frames, wh, reverse,
+              skip_work=False):
+    """The C call of the CUDA backward on CUDA tensors: dZ [F, B, 4H]
+    bf16. skip_work runs the kernel's schedule and barriers alone."""
+    f, b, g = gates.shape
+    hd = g // 4
     dout = douts.to(torch.bfloat16).contiguous()
     require_cuda_operand("douts", dout, torch.bfloat16, (f, b, hd))
     require_cuda_operand("gates", gates, torch.bfloat16, (f, b, g))
@@ -185,16 +232,40 @@ def lstm_train_backward(douts, dfc, dfh, gates, cs, num_frames, wh,
     dc = dfc.to(torch.float32).contiguous().clone()
     require_cuda_operand("dfh", dh, torch.float32, (b, hd))
     require_cuda_operand("dfc", dc, torch.float32, (b, hd))
+    order, live = live_schedule(num_frames, f, reverse)
     dz = torch.empty((f, b, g), dtype=torch.bfloat16, device=dev)
+    barrier = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
     code = _build.library().yt8m_lstm_train_backward(
-        _build.ptr(dout), _build.ptr(gates), _build.ptr(cs),
-        _build.ptr(num_frames), _build.ptr(wh), _build.ptr(dh),
-        _build.ptr(dc), _build.ptr(dz), f, b, hd, int(bool(reverse)),
+        *(_build.ptr(t) for t in (dout, gates, cs, num_frames, order, live,
+                                  wh, dh, dc, dz, barrier)),
+        f, b, hd, int(bool(reverse)), int(skip_work),
         _build.current_stream(dev),
     )
     _build.check_launch("lstm_train_backward", code)
-    lstm_train_backward.launches += f
     return dz
+
+
+def barriers_only_forward(x_proj, num_frames, wh, bias, reverse=False):
+    """The forward with its products and cell updates skipped: its
+    schedule and F - 1 barriers alone (not counted in `launches`)."""
+    _lstm.barriers_only(x_proj, num_frames, wh, bias, reverse,
+                        residuals=True)
+
+
+def barriers_only_backward(douts, dfc, dfh, gates, cs, num_frames, wh,
+                           reverse=False):
+    """The backward with its products and cell updates skipped: its
+    schedule and F - 1 barriers alone (not counted in `launches`)."""
+    _backward(douts, dfc, dfh, gates, cs, num_frames, wh, reverse,
+              skip_work=True)
+
+
+def plan(b: int, hd: int) -> dict:
+    """The backward's launch plan at B rows and H units (H a multiple of
+    64), its ring included: see kernels/_schedule.py :: launch_plan. The
+    forward's is kernels/lstm.py :: plan."""
+    return launch_plan(_build.library().yt8m_lstm_train_plan, b, hd,
+                       backward=True)
 
 
 lstm_train_forward.launches = 0
