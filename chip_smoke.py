@@ -20,7 +20,9 @@ Phases, one line each with the elapsed seconds:
      weights are streamed, each held to one launch a call); attention pooling at AttentionPoolingModel's
      B=512, F=300, D=1152, 8 heads, uint8 and f32 frames; NeXtVLAD at
      NeXtVladModel's B=512, F=300, D=1152, lambda=2, G=8, K=128, uint8 and
-     f32 frames) plus small, odd and ragged shapes and planted hazards,
+     f32 frames) plus small, odd and ragged shapes and planted hazards
+     (DBoF and the MoE head, on TMA + wgmma, at B, K, S, C and H that cut
+     their tiles, the MoE's weights as pitched views),
      with its median time (CUDA events; the profiler's device time for
      attention pooling and NeXtVLAD), the plain
      version's time, the time of one PyTorch yardstick for the same
@@ -335,27 +337,36 @@ def check_dbof(torch, gen, dev, flush) -> dict:
         dbof_cluster_maxpool_v2,
     )
 
-    # Edge cases: ragged B and K, S < 32, float input, and the padded-row
-    # hazard (every real row negative before the ReLU, a zero row would
-    # give relu(act_bias) = 3).
+    # Edge cases: ragged B and K, S < 32, float input; shapes that cut
+    # the TMA + wgmma tiles (B no multiple of 4 or 128, so a cluster's
+    # second video tile lies past B; K no multiple of 256; S in {1, 17,
+    # 31, 32}; D no multiple of 64); and the padded-row hazard (every
+    # real row negative before the ReLU, a zero row would give
+    # relu(act_bias) = 3) at S = 30, 1, 31, 32 and 40.
     for b, s, d, k, dt in ((7, 5, 64, 200, torch.uint8),
                            (9, 32, 96, 136, torch.float32),
-                           (5, 30, 1152, 8192, torch.uint8)):
+                           (5, 30, 1152, 8192, torch.uint8),
+                           (130, 31, 1152, 1000, torch.uint8),
+                           (133, 1, 64, 264, torch.float32),
+                           (3, 32, 96, 8, torch.uint8),
+                           (9, 17, 160, 2056, torch.float32)):
         args = dbof_inputs(torch, gen, b, s, d, k, dt, dev)
         rel_check(f"dbof edge B={b} S={s} D={d} K={k} {dt}",
                   dbof_cluster_maxpool_v2(*args),
                   dbof_cluster_maxpool_plain(*args))
-    x, w, s_in, b_in, s_act, b_act = dbof_inputs(
-        torch, gen, 6, 30, 64, 64, torch.uint8, dev)
-    w = torch.full_like(w, -1.0)
-    s_in = torch.ones_like(s_in)
-    b_in = torch.full_like(b_in, 1.0)
-    b_act = torch.full_like(b_act, 3.0)
-    got = dbof_cluster_maxpool_v2(x, w, s_in, b_in, s_act, b_act)
-    want = dbof_cluster_maxpool_plain(x, w, s_in, b_in, s_act, b_act)
-    check(bool(torch.all(want == 0)), "dbof hazard case: plain not all 0")
-    check(bool(torch.all(got == 0)),
-          "dbof: padded frame rows leaked into the max")
+    for s in (30, 1, 31, 32, 40):
+        x, w, s_in, b_in, s_act, b_act = dbof_inputs(
+            torch, gen, 6, s, 64, 264, torch.uint8, dev)
+        w = torch.full_like(w, -1.0)
+        s_in = torch.ones_like(s_in)
+        b_in = torch.full_like(b_in, 1.0)
+        b_act = torch.full_like(b_act, 3.0)
+        got = dbof_cluster_maxpool_v2(x, w, s_in, b_in, s_act, b_act)
+        want = dbof_cluster_maxpool_plain(x, w, s_in, b_in, s_act, b_act)
+        check(bool(torch.all(want == 0)),
+              f"dbof hazard case S={s}: plain not all 0")
+        check(bool(torch.all(got == 0)),
+              f"dbof S={s}: padded frame rows leaked into the max")
 
     args = dbof_inputs(torch, gen, BATCH, FRAMES, FEATURE_DIM, CLUSTERS,
                        torch.uint8, dev)
@@ -384,12 +395,16 @@ def check_dbof(torch, gen, dev, flush) -> dict:
 
 
 def moe_inputs(torch, gen, b, h, c, m, dev):
+    """The MoE head's inputs, the weights as the pitched views (row
+    stride a multiple of 8) that MoeHead's serving constants are."""
+    from yt8m_tpu_torch.kernels.moe_head import pitched
+
     x = torch.randn(b, h, generator=gen).abs()
     wg = (torch.randn(h, c * (m + 1), generator=gen) * h ** -0.5)
     we = (torch.randn(h, c * m, generator=gen) * h ** -0.5)
     be = 0.1 * torch.randn(c * m, generator=gen)
-    return [x.to(dev), wg.to(torch.bfloat16).to(dev),
-            we.to(torch.bfloat16).to(dev), be.to(dev)]
+    return [x.to(dev), pitched(wg.to(torch.bfloat16).to(dev)),
+            pitched(we.to(torch.bfloat16).to(dev)), be.to(dev)]
 
 
 def moe_at(torch, gen, dev, flush, b, h) -> dict:
@@ -451,15 +466,21 @@ def check_moe(torch, gen, dev, flush) -> dict:
         moe_head_serving,
     )
 
+    # Edge cases, the weights as pitched views (C*(M+1) no multiple of 8):
+    # B, C and H cutting the TMA + wgmma tiles (H a multiple of 32, not
+    # of 64), M of each compiled tile and of the run-time one.
     for b, h, c, m in ((37, 64, 83, 1), (70, 96, 45, 2), (5, 32, 33, 4),
+                       (131, 160, 83, 2), (129, 96, 4716, 5),
                        (E2E_BATCH, VLAD_HIDDEN + LSTM_CELLS, CLASSES,
                         MIXTURES)):
         args = moe_inputs(torch, gen, b, h, c, m, dev)
         rel_check(f"moe edge B={b} H={h} C={c} M={m}",
                   moe_head_serving(*args, m), moe_head_plain(*args, m))
     # Logits far outside [-80, 80]: the clamp must keep every ratio finite.
+    from yt8m_tpu_torch.kernels.moe_head import pitched
+
     x, wg, we, be = moe_inputs(torch, gen, 16, 64, 40, 2, dev)
-    wg = (wg.to(torch.float32) * 400).to(torch.bfloat16)
+    wg = pitched((wg.to(torch.float32) * 400).to(torch.bfloat16))
     got = moe_head_serving(x, wg, we, be, 2)
     check(bool(torch.isfinite(got).all()), "moe: non-finite with big logits")
     rel_check("moe clamp case", got, moe_head_plain(x, wg, we, be, 2))

@@ -159,7 +159,13 @@ def _dbof_args(seed, b, s, d, k, x_dtype, dev):
 
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("b,s,d,k", [(7, 5, 64, 200), (9, 32, 96, 136),
-                                     (5, 30, 1152, 8192), (1, 1, 32, 8)])
+                                     (5, 30, 1152, 8192), (1, 1, 32, 8),
+                                     # cutting the TMA + wgmma tiles: B no
+                                     # multiple of 4 or 128, K of 256, D
+                                     # of 64; S in {1, 17, 30, 31, 32}
+                                     (130, 31, 1152, 1000), (6, 1, 64, 264),
+                                     (3, 32, 96, 8), (133, 30, 1152, 520),
+                                     (9, 17, 160, 2056)])
 def test_cuda_dbof_matches_plain(cuda, x_dtype, b, s, d, k):
     args = _dbof_args(b + k, b, s, d, k, x_dtype, cuda)
     before = tdbof.dbof_cluster_maxpool_v2.launches
@@ -168,10 +174,12 @@ def test_cuda_dbof_matches_plain(cuda, x_dtype, b, s, d, k):
     _close(got, tdbof.dbof_cluster_maxpool_plain(*args))
 
 
-def test_cuda_dbof_masks_padded_frames(cuda):
+@pytest.mark.parametrize("s", [30, 1, 31, 32, 40])
+def test_cuda_dbof_masks_padded_frames(cuda, s):
     """Every real row is negative before the ReLU; an unmasked zero
-    padding row would give relu(act_bias) = 3."""
-    x, w, s_in, b_in, s_act, b_act = _dbof_args(0, 6, 30, 64, 64,
+    padding row would give relu(act_bias) = 3. S past 32 runs in chunks
+    of 32 frames, the last one short."""
+    x, w, s_in, b_in, s_act, b_act = _dbof_args(0, 6, s, 64, 64,
                                                 torch.uint8, cuda)
     w = torch.full_like(w, -1.0)
     got = tdbof.dbof_cluster_maxpool_v2(
@@ -181,13 +189,15 @@ def test_cuda_dbof_masks_padded_frames(cuda):
 
 
 def _moe_args(seed, b, h, c, m, dev):
+    """Inputs of the MoE head; the weights as the pitched views the card
+    path takes (MoeHead.make_serving_constants builds the same)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(b, h, generator=g).abs()
     wg = torch.randn(h, c * (m + 1), generator=g) * h ** -0.5
     we = torch.randn(h, c * m, generator=g) * h ** -0.5
     be = 0.1 * torch.randn(c * m, generator=g)
-    return [x.to(dev), wg.to(torch.bfloat16).to(dev),
-            we.to(torch.bfloat16).to(dev), be.to(dev)]
+    return [x.to(dev), tmoe.pitched(wg.to(torch.bfloat16).to(dev)),
+            tmoe.pitched(we.to(torch.bfloat16).to(dev)), be.to(dev)]
 
 
 @pytest.mark.parametrize("m", [1, 2, 4])
@@ -203,7 +213,7 @@ def test_cuda_moe_matches_plain(cuda, m, b, h, c):
 
 def test_cuda_moe_clamps_large_logits(cuda):
     x, wg, we, be = _moe_args(3, 16, 64, 40, 2, cuda)
-    wg = (wg.float() * 400).to(torch.bfloat16)
+    wg = tmoe.pitched((wg.float() * 400).to(torch.bfloat16))
     got = tmoe.moe_head_serving(x, wg, we, be, 2)
     assert torch.isfinite(got).all()
     _close(got, tmoe.moe_head_plain(x, wg, we, be, 2))
@@ -467,8 +477,9 @@ def test_cuda_netvlad_models_match_cpu(cuda, name, sampled):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("m", [3, 5, 8, 12, 16])
-@pytest.mark.parametrize("b,h,c", [(37, 64, 83), (130, 1024, 4716)])
+@pytest.mark.parametrize("m", range(1, 17))
+@pytest.mark.parametrize("b,h,c", [(37, 64, 83), (130, 1024, 4716),
+                                   (131, 96, 83)])
 def test_cuda_moe_more_mixtures(cuda, m, b, h, c):
     args = _moe_args(b + c + m, b, h, c, m, cuda)
     before = tmoe.moe_head_serving.launches
@@ -1543,3 +1554,62 @@ def test_cuda_dbof_int8_model_matches_cpu(cuda):
                     tdbof.dbof_cluster_maxpool_v2.launches - before[1])
         assert launched == ((0, 0) if dev.type == "cpu" else (1, 0))
     assert (out[1] - out[0]).abs().max().item() <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# The TMA + wgmma products (csrc/hopper_gemm.cuh): the mainloop itself,
+# DBoF and the MoE head at shapes that cut their tiles.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,n,k,bn", [(128, 256, 64, 256), (1, 8, 8, 256),
+                                      (200, 520, 1000, 256),
+                                      (37, 136, 96, 136),
+                                      (130, 272, 1152, 136),
+                                      (300, 392, 2048, 96), (65, 96, 40, 96),
+                                      (2048, 8192, 1152, 256)])
+def test_cuda_hopper_gemm_matches_matmul(cuda, m, n, k, bn):
+    """The mainloop's product (K-major A, MN-major B, the chains of the
+    kernels' widths, TMA's zero fill past M, N and K) against
+    torch.matmul in f32 on the same bf16 operands: only the summation
+    order differs."""
+    from yt8m_tpu_torch.kernels import _build
+
+    g = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
+    b = torch.randn(k, n, generator=g).to(torch.bfloat16).to(cuda)
+    c = torch.full((m, n), float("nan"), device=cuda)
+    code = _build.library().yt8m_hopper_gemm(
+        _build.ptr(a), _build.ptr(b), _build.ptr(c), m, n, k, bn,
+        _build.current_stream(cuda))
+    _build.check_launch("yt8m_hopper_gemm", code)
+    torch.cuda.synchronize()
+    _close(c, a.float() @ b.float(), rel=1e-5)
+
+
+def test_cuda_plans_match_the_kernels(cuda):
+    """The compiled kernels' tiles are the ones kernels/dbof.py ::
+    plan and kernels/moe_head.py :: plan describe."""
+    got = tdbof.kernel_plan()
+    p = tdbof.plan(2048, 30, 1152, 8192, sms=got["sms"])
+    assert (got["videos"], got["pitch"], got["tile_clusters"], got["stages"],
+            got["smem"]) == (tdbof.TILE_VIDEOS, tdbof.MAX_FRAMES_PER_VIDEO,
+                             p["chain"], p["stages"], p["smem"])
+    assert p["grid"] == min(p["tiles"], got["sms"])
+    for m in range(1, 17):
+        got = tmoe.kernel_plan(m)
+        p = tmoe.plan(512, 2048, 4716, m)
+        assert got == {key: p[key] for key in (
+            "classes", "gate", "expert", "stages", "smem", "stage_ld")}
+
+
+def test_cuda_moe_refuses_unpitched_weights(cuda):
+    """Weights whose row stride is no multiple of 8 raise (the wrapper
+    pads no copy); weights whose rows are a multiple of 8 columns run
+    contiguous."""
+    x, wg, we, be = _moe_args(0, 4, 32, 83, 1, cuda)
+    with pytest.raises(ValueError, match="pitched"):
+        tmoe.moe_head_serving(x, wg.contiguous(), we, be, 1)
+    x, wg, we, be = _moe_args(1, 70, 64, 40, 1, cuda)
+    got = tmoe.moe_head_serving(x, wg.contiguous(), we.contiguous(), be, 1)
+    _close(got, tmoe.moe_head_plain(x, wg, we, be, 1))

@@ -11,11 +11,14 @@ with a plain C interface,
 
 at first use, keyed on a hash of the sources (headers included) and
 flags, under the checkout's `build/` directory. No PyTorch headers are
-compiled, so the build takes seconds. Each C entry point launches on the stream it is
-given, allocates nothing and returns `cudaGetLastError()`; the Python
-wrappers allocate outputs with `torch.empty` and raise on a non-zero
-return. Nothing here runs at import time: the CPU tests import every
-module without nvcc.
+compiled, so the build takes seconds. The TMA kernels encode their
+tensor maps with the driver's cuTensorMapEncodeTiled, which
+csrc/hopper_gemm.cuh looks up through the runtime
+(cudaGetDriverEntryPointByVersion): the link needs no -lcuda. Each C
+entry point launches on the stream it is given, allocates nothing and
+returns `cudaGetLastError()`; the Python wrappers allocate outputs with
+`torch.empty` and raise on a non-zero return. Nothing here runs at
+import time: the CPU tests import every module without nvcc.
 """
 
 from __future__ import annotations
@@ -50,7 +53,10 @@ SIGNATURES = {
     "yt8m_round_bf16": [_P] * 2 + [_I] * 3 + [_P],
     "yt8m_dequant_matmul_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "yt8m_dequant_matmul_f32": [_P] * 5 + [_I] * 3 + [_P],
-    "yt8m_moe_head_serving": [_P] * 5 + [_I] * 4 + [_P],
+    "yt8m_dbof_plan": [_P],
+    "yt8m_moe_head_serving": [_P] * 6 + [_I] * 6 + [_P],
+    "yt8m_moe_plan": [_I, _P],
+    "yt8m_hopper_gemm": [_P] * 3 + [_I] * 4 + [_P],
     "yt8m_exact_topk": [_P] * 3 + [_I] * 3 + [_P],
     "yt8m_netvlad_aggregate_u8": [_P] * 11 + [_I] * 4 + [_P],
     "yt8m_netvlad_aggregate_f32": [_P] * 11 + [_I] * 4 + [_P],

@@ -1,11 +1,25 @@
-"""Compare the trainable recurrences of this checkout with another
-checkout's, on the card, bit for bit, on the same inputs.
+"""Compare kernels of this checkout with another checkout's, on the card,
+on the same inputs.
 
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR [--out DIR]
+    python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels dbof,moe
 
 DIR is the root of another checkout (e.g. a `git archive` of a parent
 commit unpacked under build/). Each checkout runs in its own process, with
-its own package and kernel build: the trainable LSTM's and GRU's forward
+its own package and kernel build.
+
+`--kernels dbof,moe`: the main path's two products at its shapes,
+dbof_cluster_maxpool_v2 at B=2048 (S=30, D=1152, K=8192) and
+moe_head_serving at B=512, H=2048 and B=2048, H=1024 (C=4716, M=2), on
+inputs made from a seed. The checkouts run in turns (other, this, this,
+other), each timing every call (median CUDA-event ms of 10, the L2
+flushed before each) and this checkout also the MoE's library yardstick
+(two bf16 matmuls, softmax, sigmoid, sum). Printed: each checkout's two
+medians, and max|diff| between the checkouts' outputs against the rows'
+bound 1e-3 * max|ref| + 1e-5 (the products sum in another order, so not
+bit for bit).
+
+Without `--kernels` (the recurrences): the trainable LSTM's and GRU's forward
 (outputs, final state, residuals) and backward (dZ; dA_g and dA_c) at the
 training shape (B=256, F=300, H=1024, num_frames uniform in 1..F with F,
 0 and 1 planted), both directions, on inputs made from a seed. Both
@@ -90,6 +104,107 @@ def run(out_path, residuals_path=None):
     torch.save({k: v.cpu() for k, v in res.items()}, out_path)
 
 
+PRODUCT_SHAPES = (("dbof", 2048, 0), ("moe", 512, 2048), ("moe", 2048, 1024))
+PRODUCT_REL, PRODUCT_ABS = 1e-3, 1e-5
+
+
+def _product_inputs(torch, kind, b, h):
+    g = torch.Generator().manual_seed(b + h)
+    if kind == "dbof":
+        s, d, k = 30, 1152, 8192
+        return [torch.randint(0, 256, (b, s, d), generator=g,
+                              dtype=torch.uint8),
+                (torch.randn(d, k, generator=g) * d ** -0.5).to(
+                    torch.bfloat16),
+                (4.0 / 255.0) * (0.5 + torch.rand(d, generator=g)),
+                0.1 * torch.randn(d, generator=g) - 2.0,
+                0.5 + torch.rand(k, generator=g),
+                0.1 * torch.randn(k, generator=g)]
+    c, m = 4716, 2
+    return [torch.randn(b, h, generator=g).abs(),
+            (torch.randn(h, c * (m + 1), generator=g) * h ** -0.5).to(
+                torch.bfloat16),
+            (torch.randn(h, c * m, generator=g) * h ** -0.5).to(
+                torch.bfloat16),
+            0.1 * torch.randn(c * m, generator=g)]
+
+
+def _median_ms(torch, fn, flush, reps=10):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def run_products(out_path, library="0"):
+    """The package on sys.path: DBoF v2 and the MoE head at the main
+    path's shapes, outputs and median ms saved to out_path; with library
+    = "1" also the MoE's library yardstick."""
+    import torch
+
+    from yt8m_tpu_torch.kernels import dbof, moe_head
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    for kind, b, h in PRODUCT_SHAPES:
+        args = [t.cuda() for t in _product_inputs(torch, kind, b, h)]
+        key = f"{kind} B={b}" + (f" H={h}" if h else "")
+        if kind == "dbof":
+            fn = lambda: dbof.dbof_cluster_maxpool_v2(*args)  # noqa: E731
+        else:
+            x, wg, we, be = args
+            if hasattr(moe_head, "pitched"):  # the row stride TMA takes
+                wg, we = moe_head.pitched(wg), moe_head.pitched(we)
+            fn = lambda: moe_head.moe_head_serving(  # noqa: E731
+                x, wg, we, be, 2)
+        res[f"{key} out"] = fn().cpu()
+        res[f"{key} ms"] = _median_ms(torch, fn, flush)
+        if kind == "moe" and library == "1":
+            x, wg, we, be = args
+
+            def lib():
+                xa = x.to(torch.bfloat16)
+                g = torch.matmul(xa, wg).float()
+                e = torch.matmul(xa, we).float() + be
+                gate = torch.softmax(g.reshape(b, 4716, 3), -1)
+                return torch.sum(gate[..., :2] * torch.sigmoid(
+                    e.reshape(b, 4716, 2)), -1)
+
+            res[f"{key} library ms"] = _median_ms(torch, lib, flush)
+    torch.save(res, out_path)
+
+
+def compare_products(torch, mine, other) -> list:
+    """Lines: each product's medians in both checkouts, the library's,
+    and max|diff| between the checkouts against the rows' bound."""
+    lines = []
+    for kind, b, h in PRODUCT_SHAPES:
+        key = f"{kind} B={b}" + (f" H={h}" if h else "")
+        x, y = mine[0][f"{key} out"], other[0][f"{key} out"]
+        diff = (x - y).abs().max().item()
+        limit = PRODUCT_REL * y.abs().max().item() + PRODUCT_ABS
+        ms = [r[f"{key} ms"] for r in mine]
+        ms_other = [r[f"{key} ms"] for r in other]
+        line = (f"{key}: this checkout {ms[0]:.4f}, {ms[1]:.4f} ms; other "
+                f"{ms_other[0]:.4f}, {ms_other[1]:.4f} ms; max|diff| "
+                f"{diff:.3e} (bound {limit:.3e}: "
+                f"{'within' if diff <= limit else 'OUTSIDE'})")
+        if f"{key} library ms" in mine[0]:
+            lib = [r[f"{key} library ms"] for r in mine]
+            line += f"; library {lib[0]:.4f}, {lib[1]:.4f} ms"
+        lines.append(line)
+    return lines
+
+
 def compare(torch, a, b):
     """Lines: each tensor's differing values against the other run's, the
     residuals on the live (step, row) pairs only."""
@@ -111,31 +226,52 @@ def compare(torch, a, b):
     return lines
 
 
+def _in_checkout(root, fn, *extra):
+    """fn of this file, run in its own process with the package of the
+    checkout at root first on the path (this file is loaded by path: the
+    other checkout need not have it)."""
+    code = ("import sys, importlib.util as u; sys.path.insert(0, sys.argv[1]);"
+            " s = u.spec_from_file_location('ab_compare', sys.argv[2]);"
+            " m = u.module_from_spec(s); s.loader.exec_module(m);"
+            f" m.{fn}(*sys.argv[3:])")
+    subprocess.run([sys.executable, "-c", code, root,
+                    os.path.abspath(__file__), *extra], cwd=root, check=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
+    ap.add_argument("--kernels", default="recurrences",
+                    choices=("recurrences", "dbof,moe"))
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_compare needs a CUDA device")
     os.makedirs(args.out, exist_ok=True)
+    if args.kernels == "dbof,moe":
+        return _main_products(torch, args)
     mine = os.path.join(args.out, "this.pt")
     other = os.path.join(args.out, "other.pt")
-    # Each checkout's package first on the path, in its own process; this
-    # file's run() loaded by path (the other checkout need not have it).
-    code = ("import sys, importlib.util as u; sys.path.insert(0, sys.argv[1]);"
-            " s = u.spec_from_file_location('ab_compare', sys.argv[2]);"
-            " m = u.module_from_spec(s); s.loader.exec_module(m);"
-            " m.run(*sys.argv[3:])")
-    for root, extra in ((ROOT, [mine]),
-                        (os.path.abspath(args.other), [other, mine])):
-        subprocess.run([sys.executable, "-c", code, root,
-                        os.path.abspath(__file__), *extra], cwd=root,
-                       check=True)
+    _in_checkout(ROOT, "run", mine)
+    _in_checkout(os.path.abspath(args.other), "run", other, mine)
     for line in compare(torch, torch.load(mine), torch.load(other)):
+        print(line, flush=True)
+    return 0
+
+
+def _main_products(torch, args) -> int:
+    other_root = os.path.abspath(args.other)
+    runs = {"this": [], "other": []}
+    for i, (name, root) in enumerate((("other", other_root), ("this", ROOT),
+                                      ("this", ROOT), ("other", other_root))):
+        path = os.path.join(args.out, f"products_{i}_{name}.pt")
+        _in_checkout(root, "run_products", path,
+                     "1" if name == "this" else "0")
+        runs[name].append(torch.load(path))
+    for line in compare_products(torch, runs["this"], runs["other"]):
         print(line, flush=True)
     return 0
 

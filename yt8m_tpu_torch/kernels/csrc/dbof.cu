@@ -12,56 +12,61 @@
 //
 // What bounds it: the product. At B=2048, S=30, D=1152, K=8192 it is
 // 1.16 TFLOP against ~90 MB of input, far above the card's ridge point,
-// so the bound is the bf16 tensor-core rate.
+// so the bound is the bf16 tensor-core rate (1.17 ms at 989 TFLOP/s).
 //
 // Design. Two launches on the caller's stream:
 //  1. input_affine (input_affine.cuh): xa = bf16(x * in_scale + in_bias)
 //     for every sampled frame, once, into a [B*S, D] bf16 buffer from the
 //     wrapper.
 //     This is the TPU kernel's "dequant + affine once per video block":
-//     fused into the product it would run once per 128-cluster tile, 64
+//     fused into the product it would run once per cluster tile, 32
 //     times over, and cost as many instructions as the tensor cores.
 //     The sampled variant (dbof_sampled_input_affine) reads row idx[b, s]
 //     of the full frames [B, F, D] of video b, and a zero frame for an
 //     index outside [0, F), as the TPU kernel's one-hot select does.
-//  2. dbof_cluster_maxpool: a bf16 GEMM whose epilogue is the BN affine,
-//     the ReLU and the max over frames. A block computes 8 videos x 128
-//     clusters; each warp holds two videos' 64 rows (S padded to 32 per
-//     video, the padding rows zero-filled) x 64 clusters in WMMA
-//     accumulators — a 64 x 64 warp tile, so each fragment read from
-//     shared memory feeds four products (shared-memory bandwidth, not the
-//     tensor cores, limited a 32 x 64 warp tile). The [B*S, K]
-//     activations never reach device memory: the block writes [8, 128]
-//     pooled values. Padded rows (s >= S) are masked out of the max: a
-//     zero row would give relu(act_bias), which can exceed every real
-//     row. Tiles of xa and W stream through a 3-stage cp.async ring.
-// This is the simple first kernel: wmma fragments, not wgmma/TMA.
+//  2. dbof_cluster_maxpool: a bf16 product on hopper_gemm.cuh's TMA +
+//     wgmma mainloop whose epilogue is the BN affine, the ReLU and the
+//     max over frames. A tile is 4 videos x 256 clusters. TMA reads xa as
+//     [B, S, D] in boxes of 4 videos x 32 frames x 64 deep: the frames
+//     past S and the videos past B arrive as zeros, so 4 videos land as
+//     128 rows at a pitch of 32 and device memory holds no padding. W
+//     comes in boxes of 64 deep x 64 clusters. Each consumer warpgroup
+//     runs m64n256k16 on its two videos. The grid is persistent (a block
+//     an SM walking the tiles, cluster tile fastest, so W's 18.9 MB stay
+//     in L2 while xa streams once); the producer fills the 4-stage ring
+//     with the next tile's stages while the consumers run the epilogue.
+//     The epilogue works in the accumulator registers: the affine, rows
+//     s >= S set to -inf (a zero row would give relu(act_bias), which can
+//     exceed every real row), the max over a warp's 16 rows by shuffles
+//     (each step halves the columns a lane keeps), the video's two warps
+//     joined through shared memory, the clamp at 0, one store per (video,
+//     cluster). The [B*S, K] activations never reach device memory.
+//     Rows 1, 4 and 6 of the kernel table all run this launch.
+//     Each fold step has a constant trip count: a trip count that depends
+//     on the step put the 64 partial maxima in local memory, and the
+//     product took 2.31 ms instead of 1.65 at B=2048 (an H100). A cluster
+//     of two blocks sharing W's stages by TMA multicast took 3.79 ms in
+//     the same call, and is not used.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
 #include "input_affine.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int kVideos = 8;           // videos per block (two per warp)
-constexpr int kRowsPerVideo = 32;    // S padded to 32
-constexpr int kBM = kVideos * kRowsPerVideo;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kLdA = kBK + 8;        // bf16 elements per smem row of A
-constexpr int kLdB = kBN + 8;        // bf16 elements per smem row of B
-constexpr int kLdS = 16 + 4;         // floats per row of the epilogue stage
-constexpr int kStageA = kBM * kLdA;  // elements per ring slot
-constexpr int kStageB = kBK * kLdB;
-constexpr int kSmemBytes = kStages * (kStageA + kStageB) * 2;
-static_assert(8 * 64 * kLdS * 4 <= kSmemBytes, "epilogue stage must fit");
+constexpr int kVideos = 4;                 // videos a tile
+constexpr int kPitch = 32;                 // rows a video: S <= 32, zero-filled past S
+constexpr int kBN = 256;                   // clusters a tile
+constexpr int kStages = 4;
+constexpr int kStageBytes = hgemm::kABytes + hgemm::boxes(kBN) * hgemm::kBoxBytes;  // 48 KB
+constexpr int kPoolFloats = 2 * kVideos * kBN;  // the warps' partial maxima, two tiles
+constexpr int kSmemBytes = kStages * kStageBytes + kPoolFloats * 4 + 2 * kStages * 8;
+constexpr int kSmemRequest = hgemm::smem_request(kSmemBytes);
+static_assert(kVideos * kPitch == hgemm::kRows, "a tile is the block's 128 A rows");
+static_assert(kSmemRequest <= 232448, "shared memory a block");
 
 using inaff::affine;
 
@@ -88,157 +93,177 @@ dbof_sampled_input_affine(const uint8_t* __restrict__ x, const int* __restrict__
   }
 }
 
-// 16-byte asynchronous copy global -> shared; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// One step of the epilogue's max over rows: lanes `bit` apart exchange
+// halves of v[0, 2 Half), each keeping the max of the half its lane bit
+// selects in v[0, Half). (A constant trip count: the array stays in
+// registers.)
+template <int Half, int Bit>
+__device__ __forceinline__ void fold(float* v, int lane) {
+  const bool upper = lane & Bit;
+#pragma unroll
+  for (int i = 0; i < Half; ++i) {
+    const float keep = hgemm::select(upper, v[Half + i], v[i]);
+    const float send = hgemm::select(upper, v[i], v[Half + i]);
+    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, Bit));
+  }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-dbof_cluster_maxpool_kernel(const __nv_bfloat16* __restrict__ xa,
-                            const __nv_bfloat16* __restrict__ w,
+// Tile t: video tile t / n_ct, cluster tile t % n_ct (the fastest).
+__device__ __forceinline__ void tile_coords(int t, int n_ct, int& rt, int& ct) {
+  rt = t / n_ct;
+  ct = t - rt * n_ct;
+}
+
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+dbof_cluster_maxpool_kernel(const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_w,
                             const float* __restrict__ act_scale,
-                            const float* __restrict__ act_bias, float* __restrict__ out,
-                            int B, int S, int D, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + kStages * kStageA;
+                            const float* __restrict__ act_bias, float* __restrict__ out, int B,
+                            int S, int D, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  float* pool = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(pool + kPoolFloats);
+  uint64_t* empty = full + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;  // videos 2*wm, 2*wm+1 of the block
-  const int wn = warp & 1;   // which 64 of the block's 128 clusters
-  const int n0 = blockIdx.x * kBN;
-  const int b0 = blockIdx.y * kVideos;
-
-  // A: 256 rows x 32 bf16 = 4 x 16 B per row; each thread copies 4.
-  // B: 32 rows x 128 bf16 = 16 x 16 B per row; each thread copies 2.
-  const __nv_bfloat16* a_src[4];
-  int a_dst[4], a_bytes[4];
-  const __nv_bfloat16* b_src[2];
-  int b_dst[2], b_bytes[2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int seg = tid + j * kThreads;
-    const int row = seg >> 2;
-    const int col = (seg & 3) * 8;
-    const int b = b0 + row / kRowsPerVideo;
-    const int s = row % kRowsPerVideo;
-    const bool ok = b < B && s < S;
-    a_src[j] = xa + (static_cast<size_t>(ok ? b : 0) * S + (ok ? s : 0)) * D + col;
-    a_dst[j] = row * kLdA + col;
-    a_bytes[j] = ok ? 16 : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int seg = tid + j * kThreads;
-    const int brow = seg >> 4;
-    const int bcol = (seg & 15) * 8;
-    const bool bok = n0 + bcol < K;
-    b_src[j] = w + static_cast<size_t>(brow) * K + (bok ? n0 + bcol : 0);
-    b_dst[j] = brow * kLdB + bcol;
-    b_bytes[j] = bok ? 16 : 0;
-  }
-  auto load_stage = [&](int slot, int kt) {
-    const int d0 = kt * kBK;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cp_async16(sA + slot * kStageA + a_dst[j], a_src[j] + d0, a_bytes[j]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      cp_async16(sB + slot * kStageB + b_dst[j], b_src[j] + static_cast<size_t>(d0) * K,
-                 b_bytes[j]);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = D / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < nk) load_stage(next % kStages, next);
-    cp_async_commit();
-    const int slot = kt % kStages;
-    const __nv_bfloat16* tA = sA + slot * kStageA;
-    const __nv_bfloat16* tB = sB + slot * kStageB;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], tA + (wm * 64 + i * 16) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], tB + kk * kLdB + wn * 64 + j * 16, kLdB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  const int nk = (D + hgemm::kDepth - 1) / hgemm::kDepth;
+  const int n_ct = (K + kBN - 1) / kBN;
+  const int tiles = n_ct * ((B + kVideos - 1) / kVideos);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
     }
+    hgemm::bar_init_fence();
   }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // Epilogue: per warp, one 64-row x 16-cluster strip at a time through
-  // shared memory; lanes 0-15 take the first video's 32 rows and lanes
-  // 16-31 the second's, one cluster per lane.
-  float* stage = reinterpret_cast<float*>(smem) + warp * 64 * kLdS;
-  const int col = lane & 15;
-  const int v = lane >> 4;
-  const int b = b0 + wm * 2 + v;
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;  // the parameter itself (TMA reads it there)
+  const CUtensorMap* wmap = &map_w;
+  if (wg == 2) {
+    // Producer: one thread walks the block's tiles and their k-steps.
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int rt, ct;
+        tile_coords(t, n_ct, rt, ct);
+        hgemm::produce<kStages>(
+            full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
+              unsigned char* st = smem + s * kStageBytes;
+              hgemm::tma_3d(st, xmap, bar, kt * hgemm::kDepth, 0, rt * kVideos);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      wmma::store_matrix_sync(stage + i * 16 * kLdS, acc[i][j], kLdS, wmma::mem_row_major);
-    __syncwarp();
-    const int n = n0 + wn * 64 + j * 16 + col;
-    if (n < K && b < B) {
-      const float sc = act_scale[n];
-      const float bi = act_bias[n];
-      const float* rows = stage + v * kRowsPerVideo * kLdS + col;
-      float m = -INFINITY;
-      for (int s = 0; s < S; ++s) m = fmaxf(m, affine(rows[s * kLdS], sc, bi));
-      out[static_cast<size_t>(b) * K + n] = fmaxf(m, 0.0f);
+              for (int i = 0; i < kBN / hgemm::kBoxCols; ++i)
+                hgemm::tma_2d(st + hgemm::kABytes + i * hgemm::kBoxBytes, wmap, bar,
+                              ct * kBN + i * hgemm::kBoxCols, kt * hgemm::kDepth);
+            });
+      }
     }
-    __syncwarp();
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;  // warp of the warpgroup
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int r = lane >> 2;
+    // Rows r and r + 8 of the warp's 16: frames s0 and s0 + 8 of video
+    // 2 wg + warp / 2 of the tile.
+    const int s0 = 16 * (warp & 1) + r;
+    const bool live0 = s0 < S;
+    const bool live1 = s0 + 8 < S;
+    const int video = 2 * wg + (warp >> 1);
+    const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+    float acc[kBN / 2];
+    int iter = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++iter) {
+      int rt, ct;
+      tile_coords(t, n_ct, rt, ct);
+      const int n0 = ct * kBN;
+      hgemm::zero<kBN / 2>(acc);
+      hgemm::consume<kStages, kBN / 2>(full, empty, ring, nk, acc, [&](int s) {
+        const uint32_t st = hgemm::smem_u32(smem + s * kStageBytes);
+#pragma unroll
+        for (int kk = 0; kk < hgemm::kDepth / 16; ++kk)
+          hgemm::chain<kBN>(acc, st + a_off, st + hgemm::kABytes, kk);
+      });
+
+      // Epilogue. The BN affine on every element, frames s >= S to -inf
+      // (a zero row would give relu(act_bias)), the max of the thread's
+      // two rows; columns 8j + 2q + e in v[2j + e].
+      float v[kBN / 4];
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * q;
+        float2 sc = make_float2(0.0f, 0.0f), bi = make_float2(0.0f, 0.0f);
+        if (n < K) {
+          sc = __ldg(reinterpret_cast<const float2*>(act_scale + n));
+          bi = __ldg(reinterpret_cast<const float2*>(act_bias + n));
+        }
+        v[2 * j] = fmaxf(live0 ? affine(acc[4 * j], sc.x, bi.x) : -INFINITY,
+                         live1 ? affine(acc[4 * j + 2], sc.x, bi.x) : -INFINITY);
+        v[2 * j + 1] = fmaxf(live0 ? affine(acc[4 * j + 1], sc.y, bi.y) : -INFINITY,
+                             live1 ? affine(acc[4 * j + 3], sc.y, bi.y) : -INFINITY);
+      }
+      // The max over the warp's 16 rows (lane bits 2-4), halving the
+      // columns a lane keeps at each step: lane l ends with columns
+      // 32 (l / 4) + 8 t + 2q + e in v[2t + e], t < 4.
+      fold<kBN / 8, 16>(v, lane);
+      fold<kBN / 16, 8>(v, lane);
+      fold<kBN / 32, 4>(v, lane);
+      // The video's two warps meet in shared memory (double-buffered by
+      // tile); the even warp clamps at 0 and stores.
+      float* slot = pool + ((iter & 1) * kVideos + video) * kBN + 32 * r + 2 * q;
+      if (warp & 1) {
+#pragma unroll
+        for (int t4 = 0; t4 < 4; ++t4)
+          *reinterpret_cast<float2*>(slot + 8 * t4) = make_float2(v[2 * t4], v[2 * t4 + 1]);
+      }
+      hgemm::named_sync(1 + video, 64);
+      const int b = rt * kVideos + video;
+      if (!(warp & 1) && b < B) {
+#pragma unroll
+        for (int t4 = 0; t4 < 4; ++t4) {
+          const int n = n0 + 32 * r + 8 * t4 + 2 * q;
+          const float2 o = *reinterpret_cast<const float2*>(slot + 8 * t4);
+          if (n < K)
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(b) * K + n) =
+                make_float2(fmaxf(fmaxf(v[2 * t4], o.x), 0.0f),
+                            fmaxf(fmaxf(v[2 * t4 + 1], o.y), 0.0f));
+        }
+      }
+    }
   }
 }
 
 bool bad_shape(int B, int S, int D, int K) {
-  return B <= 0 || S <= 0 || S > kRowsPerVideo || D <= 0 || D % kBK != 0 || K <= 0 || K % 8 != 0;
+  return B <= 0 || S <= 0 || S > kPitch || D <= 0 || D % 8 != 0 || K <= 0 || K % 8 != 0;
 }
 
-// Launch 2 over the affined rows xa [B*S, D].
+// Launch 2 over the affined rows xa [B*S, D]: as many blocks as SMs (or
+// tiles), each walking tiles blockIdx.x, + gridDim.x, ...
 int launch_gemm(const void* xa, const void* w, const void* act_scale, const void* act_bias,
                 void* out, int B, int S, int D, int K, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dbof_cluster_maxpool_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  CUtensorMap map_x, map_w;
+  // xa viewed as [B, S, D]: a box is 4 videos x 32 frames x 64 deep; the
+  // frames past S and the videos past B read as zeros.
+  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(D) * 2, static_cast<uint64_t>(S) * D * 2};
+  const uint32_t box[3] = {hgemm::kDepth, kPitch, kVideos};
+  err = hgemm::make_map(&map_x, xa, 3, dims, strides, box);
+  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_w, w, D, K, K, hgemm::kDepth);
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dbof_cluster_maxpool_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemRequest);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + kBN - 1) / kBN, (B + kVideos - 1) / kVideos);
-  dbof_cluster_maxpool_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(xa), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
+  const int tiles = ((K + kBN - 1) / kBN) * ((B + kVideos - 1) / kVideos);
+  const int grid = tiles < sms ? tiles : sms;
+  dbof_cluster_maxpool_kernel<<<grid, hgemm::kThreads, kSmemRequest, st>>>(
+      map_x, map_w, static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
       static_cast<float*>(out), B, S, D, K);
   return static_cast<int>(cudaGetLastError());
 }
@@ -304,4 +329,20 @@ extern "C" int yt8m_round_bf16(const void* w, void* w16, int rows, int cols, int
   return static_cast<int>(inaff::launch_round_bf16(
       static_cast<const float*>(w), static_cast<__nv_bfloat16*>(w16), static_cast<size_t>(rows),
       cols, ld, static_cast<cudaStream_t>(stream)));
+}
+
+// The product's tile: [videos a tile, rows a video, K clusters a tile,
+// stages, shared bytes requested a block, SMs (the persistent grid's
+// cap)].
+extern "C" int yt8m_dbof_plan(int* plan) {
+  int sms = 0;
+  const cudaError_t err = hgemm::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = kVideos;
+  plan[1] = kPitch;
+  plan[2] = kBN;
+  plan[3] = kStages;
+  plan[4] = kSmemRequest;
+  plan[5] = sms;
+  return static_cast<int>(cudaSuccess);
 }

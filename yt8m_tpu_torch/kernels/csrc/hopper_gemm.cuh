@@ -1,0 +1,449 @@
+// The shared TMA + wgmma mainloop of the port's Hopper products (sm_90a):
+// dbof.cu (the DBoF cluster product), moe_head.cu (the MoE head's gate and
+// expert products) and hopper_gemm.cu (a plain product for the card tests).
+//
+// A block is three warpgroups. Warpgroups 0 and 1 consume: each owns 64
+// rows of the block's 128-row A tile and runs wgmma.mma_async (bf16 in,
+// f32 accumulate in registers) on it against the stage's B tile.
+// Warpgroup 2 produces: one thread issues the TMA loads
+// (cp.async.bulk.tensor) of each stage against the stage's `full`
+// mbarrier, which counts the bytes in. setmaxnreg gives the consumers 232
+// registers a thread and leaves the producer 40.
+//
+// The ring. A stage is 64 deep (64 bf16 = 128 bytes, the 128-byte
+// swizzle's row): the A tile, [128 rows][64] K-major, then the B boxes,
+// each [64 deep][64 columns] MN-major (the weights are depth x columns
+// with the columns contiguous), every piece 1024-byte aligned. TMA writes
+// them with the 128-byte swizzle, which the wgmma descriptors name.
+// A consumer warp releases a stage (arrives on its `empty` mbarrier, 8
+// warps a phase) once the wgmma that read it has completed; one wgmma
+// group stays in flight across stages.
+//
+// Descriptors. A is K-major: rows 128 bytes apart, 8-row groups 1024
+// bytes apart (SBO); a 16-deep step moves the start 32 bytes. B is
+// MN-major (wgmma's transposed-B form): a box's 64 depth rows are 128
+// bytes apart, 8-deep groups 1024 bytes apart (SBO), the next 64
+// columns one box (8 KB) on (LBO); a 16-deep step moves the start 2 KB.
+// A chain of width N (a multiple of 8, up to 256) is one wgmma of the
+// largest power-of-two width <= N, then the rest: 144 = 128 + 16, 136 =
+// 128 + 8. Every piece starts at a multiple of 64 columns, a box edge,
+// and its accumulators follow the last piece's, so the chain's registers
+// are laid out as one wgmma of width N: thread (warp w, lane l) of a
+// warpgroup holds rows 16w + l/4 (h = 0) and 16w + l/4 + 8 (h = 1) of
+// columns 8j + 2(l%4) + e in d[4j + 2h + e].
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hgemm {
+namespace {
+
+constexpr int kDepth = 64;                    // bf16 a stage (128 bytes)
+constexpr int kBoxCols = 64;                  // columns of a B box
+constexpr int kBoxBytes = kDepth * kBoxCols * 2;  // 8 KB
+constexpr int kRows = 128;                    // A rows a block (two consumers)
+constexpr int kABytes = kRows * kDepth * 2;   // 16 KB
+constexpr int kThreads = 384;                 // two consumer warpgroups + the producer
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kAlign = 1024;                  // the 128-byte swizzle's atom
+
+__host__ __device__ constexpr int boxes(int cols) { return (cols + kBoxCols - 1) / kBoxCols; }
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps.
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no link
+// against libcuda), looked up once.
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                     : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map with the 128-byte swizzle. dims and box innermost
+// first; strides in bytes of dims 1.. (multiples of 16). Elements outside
+// the tensor read as zeros.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[3], s[2];
+  cuuint32_t b[3], e[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s,
+                            b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major [rows, cols] bf16 matrix with row stride ld elements, as
+// boxes of [box_rows][64 columns].
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, int rows, int cols, int ld,
+                               int box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(ld) * 2};
+  const uint32_t box[2] = {kBoxCols, static_cast<uint32_t>(box_rows)};
+  return make_map(map, base, 2, dims, strides, box);
+}
+
+// Dynamic shared memory a kernel asks for: its layout plus the slack to
+// align the base to 1024 bytes.
+constexpr int smem_request(int bytes) { return bytes + kAlign; }
+
+inline cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// ---------------------------------------------------------------------------
+// Device: barriers, TMA, wgmma.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
+}
+
+// The thread's warpgroup, broadcast from lane 0 so that the compiler sees
+// a warp-uniform value: the role branches (and setmaxnreg in them) are
+// then compiled per warpgroup.
+__device__ __forceinline__ int warpgroup() { return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0); }
+
+// p ? a : b on values in registers (a select the compiler cannot turn
+// into a select of addresses, which would put an array in local memory).
+__device__ __forceinline__ float select(bool p, float a, float b) {
+  float r;
+  asm("{\n.reg .pred q;\nsetp.ne.u32 q, %3, 0;\nselp.f32 %0, %1, %2, q;\n}\n"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"(static_cast<uint32_t>(p)));
+  return r;
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+constexpr uint64_t kWaitLimitNs = 10000000000ull;  // 10 s
+
+// Wait until the barrier's phase differs from `parity`. A wait that
+// lasts 10 s (a load that never lands, a lost arrival) traps, so the
+// launch fails with an error instead of holding the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (bar_try(a, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!bar_try(a, parity))
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+}
+
+// Named barrier over `threads` threads (ids 1..15; 0 is __syncthreads).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void set_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void set_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// A 128-byte-swizzle descriptor: start, leading and stride byte offsets.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// A: 64 rows from `addr`, K-major; 16-deep step kk.
+__device__ __forceinline__ uint64_t desc_a(uint32_t addr, int kk) {
+  return desc(addr + kk * 32, 16, 1024);
+}
+
+// B: boxes from `addr`, MN-major; 16-deep step kk.
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr, int kk) {
+  return desc(addr + kk * 2048, kBoxBytes, 1024);
+}
+
+__device__ __forceinline__ void mma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of d across the wgmma fences.
+template <int R>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.0f;
+}
+
+// d[0 .. N/2) += A(a) . B(b): one m64nNk16, B transposed (MN-major).
+template <int N>
+__device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void mma<256>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma<128>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma<64>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma<32>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma<16>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma<8>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__host__ __device__ constexpr int pow2_floor(int n) {
+  return n >= 256 ? 256 : n >= 128 ? 128 : n >= 64 ? 64 : n >= 32 ? 32 : n >= 16 ? 16 : 8;
+}
+
+// A chain of width N over B boxes from b_addr, 16-deep step kk.
+template <int N, int Col = 0>
+__device__ __forceinline__ void chain(float* d, uint32_t a_addr, uint32_t b_addr, int kk) {
+  constexpr int P = pow2_floor(N);
+  static_assert(N % 8 == 0 && N <= 256 && P >= 8, "chain width");
+  static_assert(Col % kBoxCols == 0, "a chain piece must start at a box edge");
+  mma<P>(d, desc_a(a_addr, kk), desc_b(b_addr + (Col / kBoxCols) * kBoxBytes, kk));
+  if constexpr (N > P) chain<N - P, Col + P>(d + P / 2, a_addr, b_addr, kk);
+}
+
+// The ring's stage and phase, as each role walks it.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  template <int S>
+  __device__ __forceinline__ void next() {
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Producer: for each of nk stages, wait for the slot, announce `bytes`
+// and issue load(slot, full barrier, k-step).
+template <int S, class Load>
+__device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty, Ring& r, int nk,
+                                        uint32_t bytes, Load load) {
+  for (int kt = 0; kt < nk; ++kt) {
+    bar_wait(&empty[r.stage], r.phase ^ 1);
+    bar_expect(&full[r.stage], bytes);
+    load(r.stage, &full[r.stage], kt);
+    r.template next<S>();
+  }
+}
+
+// Consumer warpgroup: for each of nk stages, wait for its bytes, issue
+// mma(slot) (the stage's wgmma chains), and release the previous slot once
+// its group has completed. Ends with every group complete and every slot
+// released. R accumulator registers in d.
+template <int S, int R, class Mma>
+__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty, Ring& r, int nk, float* d,
+                                        Mma mma_stage) {
+  const bool leader = (threadIdx.x & 31) == 0;
+  int prev = -1;
+  fence_regs<R>(d);
+  for (int kt = 0; kt < nk; ++kt) {
+    bar_wait(&full[r.stage], r.phase);
+    mma_fence();
+    mma_stage(r.stage);
+    mma_commit();
+    mma_wait<1>();
+    fence_regs<R>(d);
+    if (prev >= 0 && leader) bar_arrive(&empty[prev]);
+    prev = r.stage;
+    r.template next<S>();
+  }
+  mma_wait<0>();
+  fence_regs<R>(d);
+  if (prev >= 0 && leader) bar_arrive(&empty[prev]);
+}
+
+}  // namespace
+}  // namespace hgemm

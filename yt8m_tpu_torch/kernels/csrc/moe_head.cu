@@ -11,298 +11,268 @@
 // The softmax is in ratio form with clamped logits, as the TPU kernel
 // computes it; the dummy expert (m = M) adds to the denominator only.
 //
-// What bounds it: at B=2048, H=1024, C=4716, M=2 the two products are
-// ~99 GFLOP against ~58 MB of bf16 weights and activations, above the
-// ridge point, so the bf16 tensor-core rate. The design computes one
-// (128 videos x 32 classes) tile per block: the block's gate columns
-// (32*(M+1)) and expert columns (32*M) are one combined WMMA product,
-// and the per-class combine runs from a shared-memory copy of the
-// accumulators, so neither the [B, C, M+1] softmax nor the [B, C, M]
-// sigmoid reaches device memory. The TPU kernel's 0/1 selection matmul,
-// a workaround for strided VMEM access, is not needed here. C=4716 is
-// not a multiple of 32: the last tile masks its columns; the weights are
-// never padded. Weight tiles move 4 bf16 (8 bytes) per load where the
-// row strides allow it (C*(M+1) and C*M multiples of 4), else one by
-// one. Simple first kernel: wmma fragments, register double buffering.
+// What bounds it: the two products, 2 B H C (2M + 1) operations: 49.4
+// GFLOP at B=512, H=2048, C=4716, M=2 (0.050 ms at 989 TFLOP/s) against
+// 96.6 MB of bf16 weights (0.029 ms at 3.35 TB/s), and 98.9 GFLOP at
+// B=2048, H=1024. So the bf16 tensor-core rate, with the weights read
+// from device memory once.
+//
+// Design. Two launches on the caller's stream:
+//  1. A = bf16(x), round to nearest even, into a [B, H] buffer from the
+//     wrapper (input_affine.cuh's rounding launch).
+//  2. moe_head_kernel, on hopper_gemm.cuh's TMA + wgmma mainloop. A block
+//     takes 128 videos x NC classes: the gate chain (wgmma width NC*(M+1),
+//     columns c0*(M+1)..) and the expert chain (NC*M, columns c0*M..) run
+//     on the same A stage, from the boxes of 64 columns that cover each
+//     (M=2: NC=48, chains of 144 and 96 columns, 3 + 2 boxes). Blocks of one class tile are neighbours in launch order
+//     (the row tile is blockIdx.x), so each weight tile comes from device
+//     memory once and from L2 for the other row tiles: 96.6 MB at H=2048
+//     exceeds the 50 MB L2, and the class-fastest order read the weights
+//     once per row tile. The epilogue stages the accumulators over the
+//     ring in shared memory, then one thread per (video, class) combines
+//     its M+1 gates and M experts, so neither the [B, C, M+1] softmax nor
+//     the [B, C, M] sigmoid reaches device memory. The TPU kernel's 0/1
+//     selection matmul, a workaround for strided VMEM access, is not
+//     needed here. C=4716 is not a multiple of NC: the last tile masks its
+//     classes, and TMA reads the columns past the weights as zeros.
+//
+// TMA needs row strides that are multiples of 16 bytes: the weights come
+// as views whose row stride is padded to a multiple of 8 columns
+// (kernels/moe_head.py :: pitched), C*(M+1) = 14,148 being no multiple of 8.
 //
 // M in {1, 2, 4} is a template argument; any other M in 1..16 is taken
-// at run time by one more instantiation (M = 0), whose tile and loop
-// bounds come from M at run time and whose registers are sized for the
-// largest tile. The block's combined tile has NC * (2M + 1) columns; NC
-// is 32 classes for M <= 4 and halves as M grows (16 for M <= 8, 8 for
-// M <= 16), so the tile stays within 288 columns, and the columns are
-// padded up to a multiple of 32 (two warps of 16-column fragments).
-// Padded columns are computed from whatever the shared memory holds and
-// never read.
+// at run time by one more instantiation (M = 0) with NC = 8 and chains
+// of 136 and 128 columns, of which it combines 8(M+1) and 8M. Chain
+// widths are multiples of 8 up to 256 and split at box edges
+// (hopper_gemm.cuh :: chain). The accumulators of a tile stay near 128
+// registers a thread: with 160 (NC=64 at M=2) ptxas spilled them and
+// serialized the wgmma chains.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper_gemm.cuh"
+#include "input_affine.cuh"
 
 namespace {
 
-constexpr int kBM = 128;      // videos per block
-constexpr int kBK = 32;       // reduction chunk
 constexpr int kMaxMixtures = 16;
-constexpr int kThreads = 256;
-constexpr int kLdA = kBK + 8;
+constexpr int kStages = 4;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// The tile of M mixtures (M = 0: the run-time instantiation): classes a
+// block and the widths of its gate and expert chains. The chains' 2 B
+// accumulators a column stay under ~130 registers a thread (two
+// wgmma chains in flight beside them within the consumers' 232).
+struct Tile {
+  int nc, gate, expert;
+};
+__host__ __device__ constexpr Tile tile_of(int m) {
+  return m == 1 ? Tile{80, 160, 80}
+                : m == 2 ? Tile{48, 144, 96} : m == 4 ? Tile{16, 80, 64} : Tile{8, 136, 128};
 }
 
-// Weight elements moved per load: 4 (8 bytes) when every weight row
-// starts 8-byte aligned (C*(M+1) and C*M multiples of 4, as for C=4716),
-// else 1.
-template <int W>
-struct Vec;
-template <>
-struct Vec<4> {
-  using T = uint2;
-};
-template <>
-struct Vec<1> {
-  using T = unsigned short;
-};
+// Floats a row of the epilogue's stage: the chains' columns padded to 8
+// more than a multiple of 32 (the float2 stores of a warp hit 32 banks).
+__host__ __device__ constexpr int stage_ld(int cols) { return cols + (8 - cols % 32 + 32) % 32; }
 
-// The block's tile for M mixtures.
-struct Shape {
-  int m, nc, gate_cols, expert_cols, cols, pad_cols, warp_frags, ldb, lds;
-  __host__ __device__ constexpr explicit Shape(int m_)
-      : m(m_),
-        nc(m_ <= 4 ? 32 : (m_ <= 8 ? 16 : 8)),  // classes per block
-        gate_cols(nc * (m_ + 1)),
-        expert_cols(nc * m_),
-        cols(gate_cols + expert_cols),  // gate then expert columns
-        pad_cols((cols + 31) / 32 * 32),
-        warp_frags(pad_cols / 16 / 2),  // 16-col fragments per warp
-        ldb(pad_cols + 8),
-        lds(pad_cols + 4) {}
-  __host__ __device__ constexpr int stage_b() const { return kBK * ldb; }
-  __host__ __device__ constexpr size_t smem_bytes() const {
-    const size_t main = static_cast<size_t>(2) * (kBM * kLdA + stage_b()) * 2;
-    const size_t epilogue = static_cast<size_t>(kBM) * lds * 4;
-    return main > epilogue ? main : epilogue;
-  }
+// The ring and shared memory of M's tile: a stage holds the A tile, then
+// the gate chain's boxes, then the expert chain's.
+template <int M>
+struct Layout {
+  static constexpr Tile kTile = tile_of(M);
+  static constexpr int kGateBoxes = hgemm::boxes(kTile.gate);
+  static constexpr int kExpertBoxes = hgemm::boxes(kTile.expert);
+  static constexpr int kStageBytes =
+      hgemm::kABytes + (kGateBoxes + kExpertBoxes) * hgemm::kBoxBytes;
+  // The ring, its barriers, then the tile's expert bias (NC*M <= 128).
+  static constexpr int kSmemRequest =
+      hgemm::smem_request(kStages * kStageBytes + 2 * kStages * 8 + 128 * 4);
+  static constexpr int kLd = stage_ld(kTile.gate + kTile.expert);
+  static_assert(kSmemRequest <= 232448, "shared memory a block");
+  static_assert(hgemm::kRows * kLd * 4 <= kStages * kStageBytes, "the staged tile fits the ring");
+  static_assert(kTile.nc * (M > 0 ? M : kMaxMixtures) <= 128, "the bias fits its slot");
+  static_assert(M > 0 ? kTile.nc * (M + 1) <= kTile.gate && kTile.nc * M <= kTile.expert
+                      : kTile.nc * (kMaxMixtures + 1) <= kTile.gate &&
+                            kTile.nc * kMaxMixtures <= kTile.expert,
+                "the chains cover the tile's classes");
 };
 
-constexpr int kMaxCols = 288;  // Shape(m).pad_cols for every m in 1..16
-constexpr int kStageA = kBM * kLdA;
-
-// Per-thread register sizes: those of M's tile, or the largest (M = 0).
-template <int M, int W>
-struct Regs {
-  static constexpr int kCols = M > 0 ? Shape(M).pad_cols : kMaxCols;
-  static constexpr int kFrags = kCols / 16 / 2;
-  static constexpr int kPerThreadB = (kBK * kCols / W + kThreads - 1) / kThreads;
-  static_assert(M <= kMaxMixtures, "M above the supported range");
-};
-
-// Row and column (within the block's combined tile) of weight vector v.
-template <int W>
-__device__ __forceinline__ void vec_coords(const Shape& S, int v, int& row, int& col,
-                                           bool& gate) {
-  const int gate_vecs = kBK * S.gate_cols / W;
-  gate = v < gate_vecs;
-  if (gate) {
-    row = v / (S.gate_cols / W);
-    col = (v % (S.gate_cols / W)) * W;
-  } else {
-    const int e = v - gate_vecs;
-    row = e / (S.expert_cols / W);
-    col = S.gate_cols + (e % (S.expert_cols / W)) * W;
-  }
-}
-
-template <int M, int W>
-__global__ void __launch_bounds__(kThreads)
-moe_head_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
-                const __nv_bfloat16* __restrict__ we, const float* __restrict__ be,
+template <int M>
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                const __grid_constant__ CUtensorMap map_e, const float* __restrict__ be,
                 float* __restrict__ out, int B, int H, int C, int runtime_m) {
-  using R = Regs<M, W>;
-  using VT = typename Vec<W>::T;
-  constexpr Shape kS(M > 0 ? M : 1);
-  const Shape S = M > 0 ? kS : Shape(runtime_m);  // a constant when M > 0
-  const int m_ = S.m;
-  const int vecs_b = kBK * S.cols / W;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + 2 * kStageA;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;  // rows wm*32 .. +32
-  const int wn = warp & 1;   // fragments wn*warp_frags .. +warp_frags
-  const int nc = S.nc;
-  const int c0 = blockIdx.x * nc;
-  const int b0 = blockIdx.y * kBM;
-  const size_t gate_stride = static_cast<size_t>(C) * (m_ + 1);
-  const size_t expert_stride = static_cast<size_t>(C) * m_;
-
-  // A tile: 128 rows x 32 of x (f32 -> bf16); 16 per thread.
-  const int a_row = tid >> 1;
-  const int a_q = tid & 1;
-  const bool a_ok = b0 + a_row < B;
-  const float* a_src = x + static_cast<size_t>(a_ok ? b0 + a_row : 0) * H + a_q * 16;
-
-  float4 ra[4];
-  VT rb[R::kPerThreadB];
-  auto global_load = [&](int k0) {
-    if (a_ok) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ra[j] = __ldg(reinterpret_cast<const float4*>(a_src + k0) + j);
+  using L = Layout<M>;
+  constexpr Tile kT = L::kTile;
+  constexpr int kAcc = (kT.gate + kT.expert) / 2;
+  constexpr int kLd = L::kLd;
+  constexpr int kStageBytes = L::kStageBytes;
+  const int m_ = M > 0 ? M : runtime_m;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int nk = (H + hgemm::kDepth - 1) / hgemm::kDepth;
+  const int b0 = blockIdx.x * hgemm::kRows;
+  const int c0 = blockIdx.y * kT.nc;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
     }
-#pragma unroll
-    for (int i = 0; i < R::kPerThreadB; ++i) {
-      if (tid + i * kThreads >= vecs_b) break;
-      int row, col;
-      bool gate;
-      vec_coords<W>(S, tid + i * kThreads, row, col, gate);
-      const __nv_bfloat16* src;
-      bool ok;
-      if (gate) {
-        const int gc = c0 * (m_ + 1) + col;
-        ok = gc < C * (m_ + 1);
-        src = wg + (k0 + row) * gate_stride + gc;
-      } else {
-        const int ec = c0 * m_ + (col - S.gate_cols);
-        ok = ec < C * m_;
-        src = we + (k0 + row) * expert_stride + ec;
-      }
-      rb[i] = ok ? __ldg(reinterpret_cast<const VT*>(src)) : VT{};
-    }
-  };
-  auto shared_store = [&](int buf) {
-    uint4* dst = reinterpret_cast<uint4*>(sA + buf * kStageA + a_row * kLdA + a_q * 16);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      dst[j] = a_ok ? make_uint4(pack_bf16(ra[2 * j].x, ra[2 * j].y),
-                                 pack_bf16(ra[2 * j].z, ra[2 * j].w),
-                                 pack_bf16(ra[2 * j + 1].x, ra[2 * j + 1].y),
-                                 pack_bf16(ra[2 * j + 1].z, ra[2 * j + 1].w))
-                    : make_uint4(0, 0, 0, 0);
-    }
-    __nv_bfloat16* tb = sB + buf * S.stage_b();
-#pragma unroll
-    for (int i = 0; i < R::kPerThreadB; ++i) {
-      if (tid + i * kThreads >= vecs_b) break;
-      int row, col;
-      bool gate;
-      vec_coords<W>(S, tid + i * kThreads, row, col, gate);
-      *reinterpret_cast<VT*>(tb + row * S.ldb + col) = rb[i];
-    }
-  };
-
-  const int frags = S.warp_frags;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][R::kFrags];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int f = 0; f < R::kFrags; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
-
-  const int nk = H / kBK;
-  global_load(0);
-  shared_store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) global_load((kt + 1) * kBK);
-    const __nv_bfloat16* tA = sA + cur * kStageA;
-    const __nv_bfloat16* tB = sB + cur * S.stage_b();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], tA + (wm * 32 + i * 16) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int f = 0; f < R::kFrags; ++f) {
-        if (f >= frags) break;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, tB + kk * S.ldb + (wn * frags + f) * 16, S.ldb);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][f], fa[i], fb, acc[i][f]);
-      }
-    }
-    if (kt + 1 < nk) shared_store(cur ^ 1);
-    __syncthreads();
+    hgemm::bar_init_fence();
   }
-
-  // Epilogue: accumulators to shared memory, then one thread per
-  // (video, class) combines its M+1 gates and M experts.
-  float* stage = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int f = 0; f < R::kFrags; ++f) {
-      if (f >= frags) break;
-      wmma::store_matrix_sync(stage + (wm * 32 + i * 16) * S.lds + (wn * frags + f) * 16,
-                              acc[i][f], S.lds, wmma::mem_row_major);
-    }
   __syncthreads();
-  for (int p = tid; p < kBM * nc; p += kThreads) {
-    const int r = p / nc;
-    const int c = p % nc;
-    const int b = b0 + r;
-    const int cls = c0 + c;
-    if (b >= B || cls >= C) continue;
-    const float* g = stage + r * S.lds + c * (m_ + 1);
-    const float* e = stage + r * S.lds + S.gate_cols + c * m_;
-    float den = 0.0f;
-    float num = 0.0f;
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;  // the parameter itself (TMA reads it there)
+  const CUtensorMap* gmap = &map_g;
+  const CUtensorMap* emap = &map_e;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      hgemm::produce<kStages>(full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
+        unsigned char* st = smem + s * L::kStageBytes + hgemm::kABytes;
+        const int k0 = kt * hgemm::kDepth;
+        hgemm::tma_2d(st - hgemm::kABytes, xmap, bar, k0, b0);
 #pragma unroll
-    for (int m = 0; m <= (M > 0 ? M : kMaxMixtures); ++m) {
-      if (m > m_) break;
-      const float eg = expf(fminf(fmaxf(g[m], -80.0f), 80.0f));
-      den += eg;
-      if (m < m_) {
-        const float logit = e[m] + be[static_cast<size_t>(cls) * m_ + m];
-        num += eg * (1.0f / (1.0f + expf(-logit)));
-      }
+        for (int i = 0; i < L::kGateBoxes; ++i)
+          hgemm::tma_2d(st + i * hgemm::kBoxBytes, gmap, bar,
+                        c0 * (m_ + 1) + i * hgemm::kBoxCols, k0);
+#pragma unroll
+        for (int i = 0; i < L::kExpertBoxes; ++i)
+          hgemm::tma_2d(st + (L::kGateBoxes + i) * hgemm::kBoxBytes, emap, bar,
+                        c0 * m_ + i * hgemm::kBoxCols, k0);
+      });
     }
-    out[static_cast<size_t>(b) * C + cls] = num / den;
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    // The tile's expert bias, read once (the combine below reads it per
+    // (video, class)); the first named barrier orders it.
+    float* bias = reinterpret_cast<float*>(empty + kStages);
+    for (int i = threadIdx.x; i < kT.nc * m_; i += 256)
+      bias[i] = c0 * m_ + i < C * m_ ? be[static_cast<size_t>(c0) * m_ + i] : 0.0f;
+    // Gate columns in acc[0, gate/2), expert columns after them.
+    float acc[kAcc];
+    hgemm::zero<kAcc>(acc);
+    const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+    hgemm::consume<kStages, kAcc>(full, empty, ring, nk, acc, [&](int s) {
+      const uint32_t st = hgemm::smem_u32(smem + s * Layout<M>::kStageBytes);
+      const uint32_t gates = st + hgemm::kABytes;
+#pragma unroll
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+        hgemm::chain<Layout<M>::kTile.gate>(acc, st + a_off, gates, kk);
+        hgemm::chain<Layout<M>::kTile.expert>(acc + Layout<M>::kTile.gate / 2, st + a_off,
+                                              gates + Layout<M>::kGateBoxes * hgemm::kBoxBytes,
+                                              kk);
+      }
+    });
+
+    // Both warpgroups are past the ring and every load has landed: stage
+    // the accumulators over it, [128 rows][gate columns, expert columns].
+    hgemm::named_sync(1, 256);
+    float* stage = reinterpret_cast<float*>(smem);
+    const int lane = threadIdx.x & 31;
+    const int row = wg * 64 + 16 * ((threadIdx.x / 32) & 3) + (lane >> 2);
+    const int col = 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(stage + (row + 8 * h) * kLd + 8 * j + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    hgemm::named_sync(1, 256);
+
+    // One thread per (video, class) combines its M+1 gates and M experts,
+    // with the fast exponential and division (~1e-6 relative, well inside
+    // the 1e-3 * max|ref| bound).
+    for (int p = threadIdx.x; p < hgemm::kRows * kT.nc; p += 256) {
+      const int r = p / kT.nc;
+      const int c = p - r * kT.nc;
+      const int b = b0 + r;
+      const int cls = c0 + c;
+      if (b >= B || cls >= C) continue;
+      const float* g = stage + r * kLd + c * (m_ + 1);
+      const float* e = stage + r * kLd + kT.gate + c * m_;
+      float den = 0.0f;
+      float num = 0.0f;
+#pragma unroll
+      for (int m = 0; m <= (M > 0 ? M : kMaxMixtures); ++m) {
+        if (m > m_) break;
+        const float eg = __expf(fminf(fmaxf(g[m], -80.0f), 80.0f));
+        den += eg;
+        if (m < m_) {
+          const float logit = e[m] + bias[c * m_ + m];
+          num += eg * __frcp_rn(1.0f + __expf(-logit));
+        }
+      }
+      // den <= 17 exp(80) < 2^126, where __fdividef is within 2 ulp.
+      out[static_cast<size_t>(b) * C + cls] = __fdividef(num, den);
+    }
   }
 }
 
 // M > 0: the instantiation for that M; M = 0: the one taking m at run time.
-template <int M, int W>
-int launch(const void* x, const void* wg, const void* we, const void* be, void* out, int B,
-           int H, int C, int m, void* stream) {
-  const Shape S(m);
-  const size_t smem = S.smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(moe_head_kernel<M, W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int M>
+int launch(const void* x, const void* wg, const void* we, const void* be, void* xa, void* out,
+           int B, int H, int C, int m, int ldg, int lde, cudaStream_t st) {
+  using L = Layout<M>;
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = inaff::launch_round_bf16(static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xa),
+                                   static_cast<size_t>(B), H, H, st);
+  CUtensorMap map_x, map_g, map_e;
+  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_x, xa, B, H, H, hgemm::kRows);
+  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_g, wg, H, C * (m + 1), ldg, hgemm::kDepth);
+  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_e, we, H, C * m, lde, hgemm::kDepth);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(moe_head_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kSmemRequest);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((C + S.nc - 1) / S.nc, (B + kBM - 1) / kBM);
-  moe_head_kernel<M, W><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(wg),
-      static_cast<const __nv_bfloat16*>(we), static_cast<const float*>(be),
-      static_cast<float*>(out), B, H, C, m);
+  const dim3 grid((B + hgemm::kRows - 1) / hgemm::kRows, (C + L::kTile.nc - 1) / L::kTile.nc);
+  moe_head_kernel<M><<<grid, hgemm::kThreads, L::kSmemRequest, st>>>(
+      map_x, map_g, map_e, static_cast<const float*>(be), static_cast<float*>(out), B, H, C, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// x [B, H] f32; wg [H, C*(M+1)] and we [H, C*M] bf16 with row strides ldg
+// and lde (multiples of 8); be [C*M] f32; xa a [B, H] bf16 work buffer
+// from the caller; out [B, C] f32.
 extern "C" int yt8m_moe_head_serving(const void* x, const void* wg, const void* we,
-                                     const void* be, void* out, int B, int H, int C, int M,
-                                     void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || H % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 = (C * (M + 1)) % 4 == 0 && (C * M) % 4 == 0;
-  if (M < 1 || M > kMaxMixtures) return static_cast<int>(cudaErrorInvalidValue);
+                                     const void* be, void* xa, void* out, int B, int H, int C,
+                                     int M, int ldg, int lde, void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || H % 8 != 0 || M < 1 || M > kMaxMixtures ||
+      ldg < C * (M + 1) || ldg % 8 != 0 || lde < C * M || lde % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (M) {
-#define YT8M_MOE_CASE(m)                                                    \
-  case m:                                                                   \
-    return vec4 ? launch<m, 4>(x, wg, we, be, out, B, H, C, M, stream)      \
-                : launch<m, 1>(x, wg, we, be, out, B, H, C, M, stream);
-    YT8M_MOE_CASE(1) YT8M_MOE_CASE(2) YT8M_MOE_CASE(4)
-#undef YT8M_MOE_CASE
+    case 1:
+      return launch<1>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
+    case 2:
+      return launch<2>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
+    case 4:
+      return launch<4>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
     default:  // any other M, taken at run time
-      return vec4 ? launch<0, 4>(x, wg, we, be, out, B, H, C, M, stream)
-                  : launch<0, 1>(x, wg, we, be, out, B, H, C, M, stream);
+      return launch<0>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
   }
+}
+
+// The tile at M mixtures: [classes a block, gate chain width, expert chain
+// width, stages, shared bytes requested a block, floats a staged row].
+extern "C" int yt8m_moe_plan(int M, int* plan) {
+  if (M < 1 || M > kMaxMixtures) return static_cast<int>(cudaErrorInvalidValue);
+  const Tile t = tile_of(M == 1 || M == 2 || M == 4 ? M : 0);
+  const int smem[] = {Layout<0>::kSmemRequest, Layout<1>::kSmemRequest, Layout<2>::kSmemRequest, 0,
+                      Layout<4>::kSmemRequest};
+  plan[0] = t.nc;
+  plan[1] = t.gate;
+  plan[2] = t.expert;
+  plan[3] = kStages;
+  plan[4] = smem[M == 1 || M == 2 || M == 4 ? M : 0];
+  plan[5] = stage_ld(t.gate + t.expert);
+  return static_cast<int>(cudaSuccess);
 }

@@ -12,10 +12,12 @@ frames x [B, S, D] (uint8, or float32):
     is bound by the bf16 tensor-core rate at the serving shapes; it never
     writes the [B*S, K] activations to device memory. It applies the
     input affine once, into a [B*S, D] bf16 buffer this wrapper
-    allocates, then runs the product with the BN, ReLU and max over
-    frames in its epilogue (see the source for the design). The model
-    folds dequantization and both BatchNorms into the two affines, and
-    casts `w` to bf16 once.
+    allocates, then runs the product (TMA + wgmma, csrc/hopper_gemm.cuh)
+    with the BN, ReLU and max over frames in its epilogue: 4 videos at a
+    pitch of 32 rows x 256 clusters a tile, the rows past S read as
+    zeros and masked out of the max (`plan`; the source has the design).
+    The model folds dequantization and both BatchNorms into the two
+    affines, and casts `w` to bf16 once.
   * `dbof_cluster_maxpool` (the TPU package's v1): the same function
     with an f32 `w` rounded to bf16 on every call (csrc/dbof.cu's
     yt8m_round_bf16 launch), as the TPU kernel does in its body. The
@@ -51,7 +53,60 @@ from yt8m_tpu_torch.kernels._checks import (
     require_cuda_operand,
 )
 
-MAX_FRAMES_PER_VIDEO = 32  # S one launch takes (one warp per video)
+MAX_FRAMES_PER_VIDEO = 32  # S one launch takes (a video's pitch of rows)
+
+# csrc/dbof.cu's product tile (yt8m_dbof_plan reads the kernel's own).
+TILE_VIDEOS = 4      # videos a tile: 128 rows at a pitch of 32
+TILE_CLUSTERS = 256  # K clusters a tile: one m64n256k16 chain a warpgroup
+DEPTH = 64           # D a ring stage (64 bf16, the 128-byte swizzle's row)
+BOX_COLS = 64        # clusters of a W box
+STAGES = 4
+SMS = 132            # an H100's SMs: the persistent grid's cap
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(b: int, s: int, d: int, k: int, sms: int = SMS) -> dict:
+    """csrc/dbof.cu's product launch over xa [B, S <= 32, D] and W [D, K]:
+    the tiles (the K tile fastest), the persistent grid, the TMA boxes
+    (innermost first), the wgmma chain and the shared memory."""
+    row_tiles = _ceil(b, TILE_VIDEOS)
+    cluster_tiles = _ceil(k, TILE_CLUSTERS)
+    tiles = row_tiles * cluster_tiles
+    rows = TILE_VIDEOS * MAX_FRAMES_PER_VIDEO
+    w_boxes = _ceil(TILE_CLUSTERS, BOX_COLS)
+    stage = rows * DEPTH * 2 + w_boxes * DEPTH * BOX_COLS * 2
+    return {
+        "row_tiles": row_tiles, "cluster_tiles": cluster_tiles,
+        "tiles": tiles, "grid": min(tiles, sms), "k_steps": _ceil(d, DEPTH),
+        "rows": rows, "padded_rows": rows - TILE_VIDEOS * s,
+        "box_x": (DEPTH, MAX_FRAMES_PER_VIDEO, TILE_VIDEOS),
+        "box_w": (BOX_COLS, DEPTH), "chain": TILE_CLUSTERS,
+        "w_boxes": w_boxes, "stages": STAGES, "stage_bytes": stage,
+        "smem": STAGES * stage + 2 * TILE_VIDEOS * TILE_CLUSTERS * 4
+        + 2 * STAGES * 8 + 1024,
+    }
+
+
+def tile_of(t: int, p: dict):
+    """Tile t of a plan: (videos, K clusters) as ranges before clipping
+    to B and K."""
+    rt, ct = divmod(t, p["cluster_tiles"])
+    return (range(rt * TILE_VIDEOS, (rt + 1) * TILE_VIDEOS),
+            range(ct * TILE_CLUSTERS, (ct + 1) * TILE_CLUSTERS))
+
+
+def kernel_plan() -> dict:
+    """The compiled product's tile and the card's SMs (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    _build.check_launch("yt8m_dbof_plan",
+                        _build.library().yt8m_dbof_plan(out))
+    return dict(zip(("videos", "pitch", "tile_clusters", "stages", "smem",
+                     "sms"), out))
 
 
 def dbof_cluster_maxpool_plain(x, w, in_scale, in_bias, act_scale,

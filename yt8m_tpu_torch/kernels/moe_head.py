@@ -11,8 +11,16 @@ activations x [B, H] f32:
 `round` is the cast to the weights' dtype (bf16 on the card). The
 softmax is in the TPU kernel's ratio form with clamped logits, and the
 dummy expert m = M adds to the denominator only. The CUDA kernel
-(csrc/moe_head.cu) is bound by the bf16 tensor-core rate and keeps the
-[B, C, M+1] and [B, C, M] intermediates on chip.
+(csrc/moe_head.cu, on the TMA + wgmma mainloop of csrc/hopper_gemm.cuh)
+is bound by the bf16 tensor-core rate and keeps the [B, C, M+1] and
+[B, C, M] intermediates on chip.
+
+TMA reads the weights by rows whose stride must be a multiple of 16
+bytes, and C*(M+1) = 14,148 columns is not a multiple of 8 bf16. The
+card path therefore takes each weight as a `pitched` view: the JAX
+layout [H, cols] over a zero-padded buffer whose row stride is a
+multiple of 8. `MoeHead.make_serving_constants` builds the views once;
+the wrapper never pads a copy on a call.
 """
 
 from __future__ import annotations
@@ -27,6 +35,68 @@ from yt8m_tpu_torch.kernels._checks import (
 )
 
 CUDA_MIXTURES = range(1, 17)  # num_mixtures the CUDA kernel takes
+PITCH = 8  # row strides the card takes: a multiple of 8 bf16 (16 bytes)
+
+# csrc/moe_head.cu's tiles: M -> (classes a block, gate chain width,
+# expert chain width); any other M in 1..16 runs the run-time tile.
+TILES = {1: (80, 160, 80), 2: (48, 144, 96), 4: (16, 80, 64)}
+RUNTIME_TILE = (8, 136, 128)
+ROWS = 128         # videos a block (two consumer warpgroups of 64)
+DEPTH = 64         # H a ring stage (64 bf16, the 128-byte swizzle's row)
+BOX_COLS = 64      # columns of a weight box
+STAGES = 4
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(b: int, h: int, c: int, m: int) -> dict:
+    """csrc/moe_head.cu's launch at x [B, H] and C classes of M mixtures:
+    the tile, the grid (row tiles fastest), the TMA boxes and the shared
+    memory (yt8m_moe_plan reads the kernel's own on the card)."""
+    nc, gate, expert = TILES.get(m, RUNTIME_TILE)
+    boxes = _ceil(gate, BOX_COLS) + _ceil(expert, BOX_COLS)
+    stage = ROWS * DEPTH * 2 + boxes * DEPTH * BOX_COLS * 2
+    cols = gate + expert
+    ld = cols + (8 - cols % 32) % 32
+    return {
+        "classes": nc, "gate": gate, "expert": expert,
+        "gate_cols": nc * (m + 1), "expert_cols": nc * m,
+        "gate_boxes": _ceil(gate, BOX_COLS),
+        "expert_boxes": _ceil(expert, BOX_COLS),
+        "grid": (_ceil(b, ROWS), _ceil(c, nc)), "k_steps": _ceil(h, DEPTH),
+        "box_x": (DEPTH, ROWS), "box_w": (BOX_COLS, DEPTH),
+        "stages": STAGES, "ring_bytes": STAGES * stage,
+        "smem": STAGES * stage + 2 * STAGES * 8 + 128 * 4 + 1024,
+        "stage_ld": ld, "staged_bytes": ROWS * ld * 4,
+        "accumulators": cols // 2,
+    }
+
+
+def pitched(w):
+    """w [rows, cols] as a view of the same shape over a zero-padded
+    buffer whose row stride is cols rounded up to a multiple of 8: the
+    weight layout the card's kernel reads by TMA."""
+    rows, cols = w.shape
+    buf = torch.zeros((rows, _ceil(cols, PITCH) * PITCH), dtype=w.dtype,
+                      device=w.device)
+    buf[:, :cols] = w
+    return buf[:, :cols]
+
+
+def check_pitched(name, w, shape) -> None:
+    """The card's weight operand: bf16 of `shape`, unit column stride, a
+    row stride that is a multiple of 8 and 16-byte aligned rows."""
+    require(w.dtype == torch.bfloat16, f"{name}: dtype {w.dtype}, want "
+            "torch.bfloat16")
+    require(tuple(w.shape) == tuple(shape),
+            f"{name}: shape {tuple(w.shape)}, want {tuple(shape)}")
+    require(w.stride(1) == 1 and w.stride(0) % PITCH == 0
+            and w.stride(0) >= shape[1] and w.data_ptr() % 16 == 0,
+            f"{name}: strides {w.stride()}; the card reads rows by TMA at a "
+            f"stride that is a multiple of {PITCH}: pass "
+            f"kernels.moe_head.pitched({name})")
 
 
 def moe_head_plain(x, gate_kernel, expert_kernel, expert_bias,
@@ -48,7 +118,8 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
     """probs [B, C] f32.
 
     x [B, H] f32; gate_kernel [H, C*(M+1)] and expert_kernel [H, C*M] in
-    the compute dtype (bf16 on the card); expert_bias [C*M] f32.
+    the compute dtype (bf16 on the card, each with a row stride that is a
+    multiple of 8: see `pitched`); expert_bias [C*M] f32.
     """
     m = num_mixtures
     require(x.dim() == 2, f"x must be [B, H], got {tuple(x.shape)}")
@@ -64,15 +135,15 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
             f"num_mixtures={m}: the CUDA kernel takes 1..16")
     require(h % 32 == 0, f"H={h} must be a multiple of 32")
     require_cuda_operand("x", x, torch.float32, (b, h))
-    require_cuda_operand("gate_kernel", gate_kernel, torch.bfloat16,
-                         (h, c * (m + 1)))
-    require_cuda_operand("expert_kernel", expert_kernel, torch.bfloat16,
-                         (h, c * m))
+    check_pitched("gate_kernel", gate_kernel, (h, c * (m + 1)))
+    check_pitched("expert_kernel", expert_kernel, (h, c * m))
     require_cuda_operand("expert_bias", expert_bias, torch.float32, (c * m,))
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    xa = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
     code = _build.library().yt8m_moe_head_serving(
         _build.ptr(x), _build.ptr(gate_kernel), _build.ptr(expert_kernel),
-        _build.ptr(expert_bias), _build.ptr(out), b, h, c, m,
+        _build.ptr(expert_bias), _build.ptr(xa), _build.ptr(out), b, h, c,
+        m, gate_kernel.stride(0), expert_kernel.stride(0),
         _build.current_stream(x.device),
     )
     _build.check_launch("moe_head_serving", code)
@@ -81,3 +152,14 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
 
 
 moe_head_serving.launches = 0
+
+
+def kernel_plan(m: int) -> dict:
+    """The compiled kernel's tile at M mixtures (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    _build.check_launch("yt8m_moe_plan", _build.library().yt8m_moe_plan(
+        m, out))
+    return dict(zip(("classes", "gate", "expert", "stages", "smem",
+                     "stage_ld"), out))

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yt8m_tpu_torch.kernels.moe_head import moe_head_serving
+from yt8m_tpu_torch.kernels.moe_head import moe_head_serving, pitched
 from yt8m_tpu_torch.models.norm import BatchNorm
 from yt8m_tpu_torch.models.serving import ServingModule
 
@@ -72,9 +72,10 @@ class MoeHead(ServingModule):
         self._serving = None
 
     def make_serving_constants(self) -> dict:
+        # The kernel reads rows at a stride that is a multiple of 8.
         return {
-            "gates": self.gates_kernel.to(self.dtype).contiguous(),
-            "experts": self.experts_kernel.to(self.dtype).contiguous(),
+            "gates": pitched(self.gates_kernel.to(self.dtype)),
+            "experts": pitched(self.experts_kernel.to(self.dtype)),
         }
 
     def forward(self, x):
