@@ -33,7 +33,9 @@ Phases, one line each with the elapsed seconds:
      rounding witnesses, times, us a step and barrier shares, and bounds
      beside one cuDNN layer's forward and backward;
      netvlad_core at the flagship's training shape (B=256, F=300, K=256,
-     D=1152) and at small and odd shapes; the trainable NeXtVLAD (the
+     D=1152) and at small and odd shapes (K 8, 100, 256 and 512 x F 1,
+     63, 65 and 300, with and without dx, hazards bit for bit); the
+     trainable NeXtVLAD (the
      forward with residuals and the backward's five weight gradients) at
      NeXtVladModel's training shape (B=256) and at small and odd shapes,
      with a second run held bit for bit; NeXtVLAD's rounding witnesses,
@@ -43,7 +45,9 @@ Phases, one line each with the elapsed seconds:
      v2; timed route, fused, fused, route), and dequant_affine_matmul at the
      flagship's first LSTM input projection over raw frames (M=153,600,
      D=1152, N=4096, bf16) and over the audio features (D=128, N=1024,
-     f32), each with edge shapes and the DBoF ones with planted hazards;
+     f32), each with edge shapes (for dequant_affine_matmul M 1, 127, 129
+     x N 7, 255, 257 x D 512, 1000, 1152 in bf16 and 64, 128, 200 in
+     f32) and the DBoF ones with planted hazards;
   4. serving end to end through the inference CLI over synthetic
      frame-level TFRecords, for each path with the launch counts set to
      0 just before it and read just after: DbofModel at the reference
@@ -1430,6 +1434,43 @@ def check_netvlad_core(torch, gen, dev, flush) -> dict:
         err = compare(f"netvlad_core B={b} F={f} D={d} K={k}", args, dvlad)
         say("kernel", f"netvlad_core B={b} F={f} D={d} K={k}: forward, "
                       f"backward, dcenters max|diff| {err:.3e}")
+    # Shapes that cut the tiles (256 clusters x 128 columns forward, 64
+    # frames backward, Kh = 128 or 256): num_frames F, 0 and 1 planted,
+    # with and without dx, and the hazards bit for bit. Their own
+    # generator: the later phases keep their inputs.
+    edge_gen = torch.Generator().manual_seed(14)
+    worst = 0.0
+    for k in (8, 100, 256, 512):
+        for f in (1, 63, 65, 300):
+            args, dvlad = core_inputs(torch, edge_gen, 4, f, 264, k, dev)
+            name = f"netvlad_core edge F={f} K={k}"
+            worst = max(worst, compare(name, args, dvlad))
+            act, x, nf, centers = args
+            past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+            clean_a, loud_a = pad_hazard(torch, act, past, 3e4)
+            clean_x, loud_x = pad_hazard(torch, x, past, -1e5)
+            clean = [clean_a, clean_x, nf, centers]
+            loud = [loud_a, loud_x, nf, centers]
+            same = all(torch.equal(p, q) for p, q in zip(
+                tnt.netvlad_core_forward(*clean),
+                tnt.netvlad_core_forward(*loud)))
+            for need_dx in (True, False):
+                got = tnt.netvlad_core_backward(*loud, dvlad, need_dx)
+                want = tnt.netvlad_core_backward(*clean, dvlad, need_dx)
+                same = same and torch.equal(got[0], want[0])
+                check(bool(torch.all(got[0][past] == 0)),
+                      f"{name}: dact not 0 past num_frames")
+                if need_dx:
+                    same = same and torch.equal(got[1], want[1])
+                    check(bool(torch.all(got[1][past] == 0)),
+                          f"{name}: dx not 0 past num_frames")
+            check(same, f"{name}: frames past num_frames moved a result")
+            check(bool(torch.all(tnt.netvlad_core_forward(*loud)[0][1] == 0)),
+                  f"{name}: num_frames=0 is not 0")
+    say("kernel", f"netvlad_core edges K in (8, 100, 256, 512) x F in (1, 63, "
+                  f"65, 300): forward, backward with and without dx within "
+                  f"1e-3 * max|ref| + 1e-6 (max|diff| {worst:.3e}); hazards "
+                  f"bit-identical")
     b, f, d, k = TRAIN_BATCH, FLAG_FRAMES, FEATURE_DIM, VLAD_CLUSTERS
     args, dvlad = core_inputs(torch, gen, b, f, d, k, dev)
     err = compare("netvlad_core", args, dvlad)
@@ -1459,9 +1500,9 @@ def check_netvlad_core(torch, gen, dev, flush) -> dict:
     ms_bdx = time_ms(torch, lambda: tnt.netvlad_core_backward(
         *args, dvlad, True), 10, flush)
     us_f = device_us(torch, lambda: tnt.netvlad_core_forward(*args),
-                     "vlad_core_fwd")
+                     ("vlad_assign", "vlad_fwd"))
     us_b = device_us(torch, lambda: tnt.netvlad_core_backward(
-        *args, dvlad, False), "vlad_core_")
+        *args, dvlad, False), "vlad_bwd")
     plain_f = time_ms(torch, lambda: tnt.netvlad_core_plain_forward(*args), 3,
                       flush)
     plain_b = time_ms(torch, lambda: tnt.netvlad_core_plain_backward(
@@ -1496,8 +1537,8 @@ def check_netvlad_core(torch, gen, dev, flush) -> dict:
                                PEAK_BF16_FLOPS)
     say("kernel", f"netvlad_core B={b} F={f} K={k} D={d}: forward {ms_f:.4f} "
                   f"ms (profiler {us_f / 1e3:.4f} ms), backward without dx "
-                  f"{ms_b:.4f} ms (profiler {us_b / 1e3:.4f} ms, cdot "
-                  f"included), with dx {ms_bdx:.4f} ms; bounds for this "
+                  f"{ms_b:.4f} ms (profiler {us_b / 1e3:.4f} ms, the bf16(dvlad) "
+                  f"pass included), with dx {ms_bdx:.4f} ms; bounds for this "
                   f"run's {live} live frames {bound_f[0]:.4f} ms by "
                   f"{bound_f[1]}, {bound_b[0]:.4f} ms by {bound_b[1]}, "
                   f"{bound_bdx[0]:.4f} ms by {bound_bdx[1]} with dx; plain "
@@ -1514,6 +1555,7 @@ def check_netvlad_core(torch, gen, dev, flush) -> dict:
         "library_ms": library_ms, "ms_forward": ms_f, "ms_backward": ms_b,
         "ms_backward_with_dx": ms_bdx, "device_ms_forward": us_f / 1e3,
         "device_ms_backward": us_b / 1e3,
+        "device_ms": (us_f + us_b) / 1e3,
     }
 
 
@@ -2622,12 +2664,28 @@ def check_dequant_matmul(torch, gen, dev, flush) -> dict:
     def rel(d):  # bf16 operands from D = 512, f32 below
         return 1e-3 if compute_dtype(d) == torch.bfloat16 else 1e-5
 
-    for m, d, n in ((37, 128, 200), (5, 64, 7), (70, 512, 130),
-                    (9, 1000, 1000), (4097, 1152, 257)):
-        args = dequant_inputs(torch, gen, m, d, n, dev)
-        rel_check(f"dequant_affine_matmul edge M={m} D={d} N={n}",
-                  dequant_affine_matmul(*args),
-                  dequant_affine_matmul_plain(*args), rel=rel(d), abs_=1e-6)
+    # The old edge shapes, then M, N and D that cut the new tiles (128 x
+    # 256 and the TMA store in bf16; 128 x 128 and the 16-byte loads in
+    # f32), these from their own generator (the later phases keep their
+    # inputs).
+    edge_gen = torch.Generator().manual_seed(15)
+    edges = [(gen, m, d, n) for m, d, n in (
+        (37, 128, 200), (5, 64, 7), (70, 512, 130), (9, 1000, 1000),
+        (4097, 1152, 257))]
+    edges += [(edge_gen, m, d, n) for m in (1, 127, 129) for n in (7, 255, 257)
+              for d in (512, 1000, 1152, 64, 128, 200)]
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for g, m, d, n in edges:
+        args = dequant_inputs(torch, g, m, d, n, dev)
+        err = rel_check(f"dequant_affine_matmul edge M={m} D={d} N={n}",
+                        dequant_affine_matmul(*args),
+                        dequant_affine_matmul_plain(*args), rel=rel(d),
+                        abs_=1e-6)
+        worst[compute_dtype(d)] = max(worst[compute_dtype(d)], err)
+    say("kernel", f"dequant_affine_matmul {len(edges)} edge shapes: max|diff| "
+                  f"{worst[torch.bfloat16]:.3e} bf16 (1e-3 * max|ref| + "
+                  f"1e-6), {worst[torch.float32]:.3e} f32 (1e-5 * max|ref| "
+                  f"+ 1e-6)")
     # The flagship's first LSTM input projection over raw frames (bf16),
     # and the 128 audio features' (f32).
     row = {}
@@ -2651,7 +2709,7 @@ def check_dequant_matmul(torch, gen, dev, flush) -> dict:
 
         ms = time_ms(torch, lambda: dequant_affine_matmul(*args), 5, flush)
         us = whole_call_us(torch, lambda: dequant_affine_matmul(*args),
-                           ("dequant", SHARED_LAUNCHES),
+                           ("dequant", "product_kernel", SHARED_LAUNCHES),
                            f"dequant_affine_matmul {dt}")
         plain_ms = time_ms(
             torch, lambda: dequant_affine_matmul_plain(*args), 3, flush)

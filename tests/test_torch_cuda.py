@@ -68,7 +68,13 @@ sampled DBoF kernel equals v2 on the gathered frames bit for bit (the
 same affine rounding, the same product). DBoF v1 and dequant_affine_matmul
 in bf16 (D >= 512): max|diff| <= 1e-3 * max|ref| + 1e-6, the DBoF bound;
 dequant_affine_matmul in f32 (D < 512): <= 1e-5 * max|ref| + 1e-6 (f32
-operands, only the summation order differs).
+operands, only the summation order differs), at the old shapes and at
+M, N and D that cut the redesigned tiles. The header's product in its
+two added operand layouts (MN-major A, K-major B) and
+csrc/hopper_product.cuh's product with its TMA-store epilogue: <= 1e-5 *
+max|ref| + 1e-6 against torch.matmul in f32 on the same bf16 operands
+(only the summation order differs). netvlad_core at K and F that cut
+its tiles: the 1e-3 bound above, its hazards bit for bit.
 """
 
 import numpy as np
@@ -1497,10 +1503,16 @@ def test_cuda_dbof_sampled_out_of_range_indices(cuda):
     assert torch.equal(got, want)
 
 
+# M, N and D that cut the redesigned tiles: 128 x 256 and the TMA store
+# from D = 512, 128 x 128 and the 16-byte loads below.
+DEQUANT_TILE_EDGES = [(m, d, n) for m in (1, 127, 129) for n in (7, 255, 257)
+                      for d in (512, 1000, 1152, 64, 128, 200)]
+
+
 @pytest.mark.parametrize("m,d,n", [(37, 128, 200), (5, 64, 7),
                                    (1000, 384, 96), (70, 512, 130),
                                    (9, 1000, 1000), (300, 1152, 4096),
-                                   (4097, 1152, 257)])
+                                   (4097, 1152, 257)] + DEQUANT_TILE_EDGES)
 def test_cuda_dequant_matmul_matches_plain(cuda, m, d, n):
     g = torch.Generator().manual_seed(m + n)
     x = torch.randint(0, 256, (m, d), generator=g, dtype=torch.uint8)
@@ -1613,3 +1625,127 @@ def test_cuda_moe_refuses_unpitched_weights(cuda):
     x, wg, we, be = _moe_args(1, 70, 64, 40, 1, cuda)
     got = tmoe.moe_head_serving(x, wg.contiguous(), we.contiguous(), be, 1)
     _close(got, tmoe.moe_head_plain(x, wg, we, be, 1))
+
+
+# ---------------------------------------------------------------------------
+# The header's two new operand layouts and its TMA-store product; the
+# redesigned dequant_affine_matmul and netvlad_core at shapes that cut
+# their tiles.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("a_mn,b_k", [(1, 0), (0, 0), (1, 1), (0, 1)],
+                         ids=["a_mn", "b_k", "a_mn-b_k", "b_mn"])
+@pytest.mark.parametrize("m,n,k", [(128, 128, 64), (8, 8, 8), (200, 136, 1000),
+                                   (136, 296, 72), (64, 264, 520)])
+def test_cuda_hopper_gemm_layouts_match_matmul(cuda, a_mn, b_k, m, n, k):
+    """A MN-major (a stored [K, M], the VLAD forward's assignment) and B
+    K-major (b stored [N, K], the VLAD backward's dvlad) against
+    torch.matmul in f32 on the same bf16 operands, with TMA's zero fill
+    past M, N and K: only the summation order differs."""
+    from yt8m_tpu_torch.kernels import _build
+
+    g = torch.Generator().manual_seed(m + n + k + 2 * a_mn + b_k)
+    a = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
+    b = torch.randn(k, n, generator=g).to(torch.bfloat16).to(cuda)
+    a_arg = a.t().contiguous() if a_mn else a
+    b_arg = b.t().contiguous() if b_k else b
+    c = torch.full((m, n), float("nan"), device=cuda)
+    code = _build.library().yt8m_hopper_gemm_layouts(
+        _build.ptr(a_arg), _build.ptr(b_arg), _build.ptr(c), m, n, k, a_mn,
+        b_k, _build.current_stream(cuda))
+    _build.check_launch("yt8m_hopper_gemm_layouts", code)
+    torch.cuda.synchronize()
+    _close(c, a.float() @ b.float(), rel=1e-5)
+
+
+@pytest.mark.parametrize("batch,m,n,k", [(1, 128, 256, 64), (1, 1, 7, 8),
+                                         (1, 129, 257, 1000),
+                                         (1, 300, 4096, 1152),
+                                         (3, 300, 1000, 100),
+                                         (2, 65, 255, 72), (1, 4097, 260, 512)])
+def test_cuda_hopper_product_matches_matmul(cuda, batch, m, n, k):
+    """hopper_product.cuh's persistent product with the TMA-store epilogue
+    (the store from registers when N % 4 != 0), batched, with rows and
+    depth pitched to 8, against torch.matmul in f32 on the same bf16
+    operands; nothing past [batch, M, N] is written."""
+    from yt8m_tpu_torch.kernels import _build
+
+    lda, ldb = -(-k // 8) * 8, -(-n // 8) * 8
+    g = torch.Generator().manual_seed(batch + m + n + k)
+    a = torch.randn(batch, m, lda, generator=g).to(torch.bfloat16).to(cuda)
+    b = torch.randn(batch, k, ldb, generator=g).to(torch.bfloat16).to(cuda)
+    buf = torch.full((batch * m * n + 64,), float("nan"), device=cuda)
+    out = buf[:batch * m * n].view(batch, m, n)
+    code = _build.library().yt8m_hopper_product(
+        _build.ptr(a), _build.ptr(b), _build.ptr(out), batch, m, n, k, lda,
+        ldb, _build.current_stream(cuda))
+    _build.check_launch("yt8m_hopper_product", code)
+    torch.cuda.synchronize()
+    want = a[:, :, :k].float() @ b[:, :, :n].float()
+    _close(out, want, rel=1e-5)
+    assert torch.isnan(buf[batch * m * n:]).all()
+
+
+@pytest.mark.parametrize("f", [1, 63, 65, 300])
+@pytest.mark.parametrize("k", [8, 100, 256, 512])
+def test_cuda_netvlad_core_tile_edges(cuda, k, f):
+    """The forward and the backward (with and without dx) at K and F that
+    cut the new tiles, with num_frames F, 0 and 1 planted, against the
+    plain versions (1e-3 * max|ref| + 1e-6); frames past num_frames
+    planted at 3e4 (act) and -1e5 (x) give the bits of zeros there, dact
+    and dx are zeros past num_frames and num_frames = 0 gives vlad = 0."""
+    b, d = 4, 264
+    args, dvlad = _core_args(k + f, b, f, d, k, cuda)
+    act, x, nf, centers = args
+    past = torch.arange(f, device=cuda)[None, :] >= nf[:, None]
+    loud = [torch.where(past[..., None], 3e4, act),
+            torch.where(past[..., None], -1e5, x), nf, centers]
+    clean = [act.masked_fill(past[..., None], 0),
+             x.masked_fill(past[..., None], 0), nf, centers]
+    vlad, a_sum = tnt.netvlad_core_forward(*loud)
+    want_v, want_a = tnt.netvlad_core_plain_forward(*clean)
+    _close(vlad, want_v)
+    _close(a_sum, want_a)
+    assert torch.all(vlad[1] == 0) and torch.all(a_sum[1] == 0)
+    for got, want in zip((vlad, a_sum), tnt.netvlad_core_forward(*clean)):
+        assert torch.equal(got, want)
+    want_da, want_dx = tnt.netvlad_core_plain_backward(*clean, dvlad)
+    for need_dx in (True, False):
+        dact, dx = tnt.netvlad_core_backward(*loud, dvlad, need_dx)
+        _close(dact, want_da)
+        assert torch.all(dact[past] == 0)
+        c_dact, c_dx = tnt.netvlad_core_backward(*clean, dvlad, need_dx)
+        assert torch.equal(dact, c_dact)
+        if need_dx:
+            _close(dx, want_dx)
+            assert torch.all(dx[past] == 0) and torch.equal(dx, c_dx)
+        else:
+            assert dx is None
+
+
+def test_cuda_redesigned_plans_match_the_kernels(cuda):
+    """The compiled tiles are the ones kernels/dequant_matmul.py :: plan
+    and kernels/netvlad_train.py :: plan describe; D % 4 != 0 raises."""
+    got = tdq.kernel_plan()
+    p = tdq.plan(153600, 1152, 4096, sms=got["sms"])
+    assert (got["rows"], got["cols"], got["stages"], got["smem"]) == (
+        tdq.ROWS, tdq.COLS, p["stages"], p["smem"])
+    q = tdq.plan(153600, 128, 1024)
+    assert (got["f32_rows"], got["f32_cols"], got["f32_chunk"],
+            got["f32_smem"]) == (tdq.F32_ROWS, tdq.F32_COLS, tdq.F32_CHUNK,
+                                 q["smem"])
+    got = tnt.kernel_plan()
+    p128 = tnt.plan(256, 300, 256, 1152, sms=got["sms"])
+    p256 = tnt.plan(2, 300, 512, 256, sms=got["sms"])
+    assert (got["frames"], got["fwd_clusters"], got["fwd_cols"],
+            got["fwd_stages"], got["fwd_smem"], got["assign_rows"]) == (
+        tnt.FRAMES, tnt.FWD_CLUSTERS, tnt.FWD_COLS, tnt.FWD_STAGES,
+        p128["fwd_smem"], tnt.ASSIGN_ROWS)
+    assert (got["bwd_stages_128"], got["bwd_smem_128"]) == (
+        p128["bwd_stages"], p128["bwd_smem"])
+    assert (got["bwd_stages_256"], got["bwd_smem_256"]) == (
+        p256["bwd_stages"], p256["bwd_smem"])
+    args, _ = _core_args(1, 2, 5, 18, 8, cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tnt.netvlad_core_forward(*args)

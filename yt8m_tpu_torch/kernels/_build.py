@@ -53,10 +53,13 @@ SIGNATURES = {
     "yt8m_round_bf16": [_P] * 2 + [_I] * 3 + [_P],
     "yt8m_dequant_matmul_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "yt8m_dequant_matmul_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "yt8m_dequant_plan": [_P],
     "yt8m_dbof_plan": [_P],
     "yt8m_moe_head_serving": [_P] * 6 + [_I] * 6 + [_P],
     "yt8m_moe_plan": [_I, _P],
     "yt8m_hopper_gemm": [_P] * 3 + [_I] * 4 + [_P],
+    "yt8m_hopper_gemm_layouts": [_P] * 3 + [_I] * 5 + [_P],
+    "yt8m_hopper_product": [_P] * 3 + [_I] * 6 + [_P],
     "yt8m_exact_topk": [_P] * 3 + [_I] * 3 + [_P],
     "yt8m_netvlad_aggregate_u8": [_P] * 11 + [_I] * 4 + [_P],
     "yt8m_netvlad_aggregate_f32": [_P] * 11 + [_I] * 4 + [_P],
@@ -65,8 +68,9 @@ SIGNATURES = {
     "yt8m_lstm_train_forward": [_P] * 13 + [_I] * 5 + [_P],
     "yt8m_lstm_train_backward": [_P] * 11 + [_I] * 5 + [_P],
     "yt8m_lstm_train_plan": [_I] * 2 + [_P],
-    "yt8m_netvlad_core_forward": [_P] * 6 + [_I] * 4 + [_P],
-    "yt8m_netvlad_core_backward": [_P] * 8 + [_I] * 5 + [_P],
+    "yt8m_netvlad_core_forward": [_P] * 7 + [_I] * 4 + [_P],
+    "yt8m_netvlad_core_backward": [_P] * 10 + [_I] * 5 + [_P],
+    "yt8m_netvlad_core_plan": [_P],
     "yt8m_gru_recurrence": [_P] * 15 + [_I] * 5 + [_P],
     "yt8m_gru_plan": [_I] * 2 + [_P],
     "yt8m_gru_train_forward": [_P] * 17 + [_I] * 5 + [_P],

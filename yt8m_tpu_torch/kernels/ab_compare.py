@@ -3,6 +3,8 @@ on the same inputs.
 
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR [--out DIR]
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels dbof,moe
+    python -m yt8m_tpu_torch.kernels.ab_compare --other DIR \
+        --kernels dequant,netvlad_core
 
 DIR is the root of another checkout (e.g. a `git archive` of a parent
 commit unpacked under build/). Each checkout runs in its own process, with
@@ -18,6 +20,18 @@ flushed before each) and this checkout also the MoE's library yardstick
 medians, and max|diff| between the checkouts' outputs against the rows'
 bound 1e-3 * max|ref| + 1e-5 (the products sum in another order, so not
 bit for bit).
+
+`--kernels dequant,netvlad_core`: dequant_affine_matmul at M=153,600 in
+both routes (D=1152, N=4096 in bf16; D=128, N=1024 in f32) and
+netvlad_core at the flagship's training shape (B=256, F=300, K=256,
+D=1152), forward and backward without dx, on inputs made from a seed.
+The checkouts run in turns (other, this, this, other), each timing every
+call by the profiler's device time (the sum over the call's kernels,
+median of 7 windows, the L2 flushed before each), and this checkout also
+each row's library call (the affine and one torch.matmul; softmax, a
+bf16 bmm and autograd). Printed: each checkout's medians, the library's,
+and max|diff| between the checkouts' outputs against each row's
+tolerance (1e-3 * max|ref| + 1e-6; 1e-5 in f32).
 
 Without `--kernels` (the recurrences): the trainable LSTM's and GRU's forward
 (outputs, final state, residuals) and backward (dZ; dA_g and dA_c) at the
@@ -183,6 +197,146 @@ def run_products(out_path, library="0"):
     torch.save(res, out_path)
 
 
+CORE_CASES = (("dequant bf16", 1e-3), ("dequant f32", 1e-5),
+              ("netvlad_core forward", 1e-3),
+              ("netvlad_core backward", 1e-3))
+
+
+def _device_ms(torch, fn, flush, reps=7):
+    """Median over reps profiler windows of the summed device time of
+    fn's kernels (the window opens and closes on an idle card)."""
+    import statistics
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        # Kernels only: an aten op also carries its kernels' device time.
+        us = sum(e.self_device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        times.append(us / 1e3)
+    return statistics.median(times)
+
+
+def run_core(out_path, library="0"):
+    """The package on sys.path: dequant_affine_matmul in both routes and
+    netvlad_core forward and backward (no dx) at their main shapes,
+    outputs and device ms saved to out_path; with library = "1" also the
+    rows' library calls."""
+    import torch
+
+    from yt8m_tpu_torch.kernels import dequant_matmul as tdq
+    from yt8m_tpu_torch.kernels import netvlad_train as tnt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    m = 512 * 300
+    for name, d, n in (("dequant bf16", 1152, 4096), ("dequant f32", 128, 1024)):
+        g = torch.Generator().manual_seed(d + n)
+        x = torch.randint(0, 256, (m, d), generator=g, dtype=torch.uint8)
+        w = torch.randn(d, n, generator=g) * d ** -0.5
+        scale = (4.0 / 255.0) * (0.5 + torch.rand(d, generator=g))
+        bias = -2.0 + 0.1 * torch.randn(d, generator=g)
+        x, w, scale, bias = (t.cuda() for t in (x, w, scale, bias))
+        fn = lambda: tdq.dequant_affine_matmul(x, w, scale, bias)  # noqa: E731
+        res[f"{name} out"] = fn().cpu()
+        res[f"{name} ms"] = _device_ms(torch, fn, flush)
+        if library == "1":
+            dt = tdq.compute_dtype(d)
+            res[f"{name} library ms"] = _device_ms(
+                torch, lambda: torch.matmul(
+                    (x.float() * scale + bias).to(dt), w.to(dt)).float(),
+                flush)
+        del x, w, fn
+        torch.cuda.empty_cache()
+    b, f, k, d = B, F, 256, 1152
+    g = torch.Generator().manual_seed(b + f + k + d)
+    act = 1.5 * torch.randn(b, f, k, generator=g)
+    x = (torch.randint(0, 256, (b, f, d), generator=g).float() * (4.0 / 255.0)
+         + (4.0 / 512.0 - 2.0))
+    nf = torch.randint(1, f + 1, (b,), generator=g, dtype=torch.int32)
+    nf[:3] = torch.tensor([f, 0, 1], dtype=torch.int32)
+    centers = torch.randn(k, d, generator=g) * d ** -0.5
+    dvlad = torch.randn(b, k, d, generator=g)
+    act, x, nf, centers, dvlad = (t.cuda() for t in (act, x, nf, centers,
+                                                     dvlad))
+    args = (act, x, nf, centers)
+    vlad, a_sum = tnt.netvlad_core_forward(*args)
+    res["netvlad_core forward out"] = torch.cat(
+        [vlad.flatten(), a_sum.flatten()]).cpu()
+    res["netvlad_core forward ms"] = _device_ms(
+        torch, lambda: tnt.netvlad_core_forward(*args), flush)
+    res["netvlad_core backward out"] = tnt.netvlad_core_backward(
+        *args, dvlad, False)[0].cpu()
+    res["netvlad_core backward ms"] = _device_ms(
+        torch, lambda: tnt.netvlad_core_backward(*args, dvlad, False), flush)
+    if library == "1":
+        live = (torch.arange(f, device="cuda")[None, :]
+                < nf[:, None])[:, :, None]
+
+        def forward(a):
+            p = torch.softmax(a, -1) * live
+            v = torch.matmul(p.to(torch.bfloat16).transpose(1, 2),
+                             x.to(torch.bfloat16)).to(torch.float32)
+            return v - p.sum(1)[:, :, None] * centers
+
+        def both():
+            a = act.detach().requires_grad_()
+            forward(a).backward(dvlad)
+
+        with torch.no_grad():
+            res["netvlad_core forward library ms"] = _device_ms(
+                torch, lambda: forward(act), flush)
+        res["netvlad_core both library ms"] = _device_ms(torch, both, flush)
+    torch.save(res, out_path)
+
+
+def compare_core(torch, mine, other) -> list:
+    """Lines: each row's device ms in both checkouts, the library's, and
+    max|diff| between the checkouts against the row's tolerance."""
+    lines = []
+    for key, rel in CORE_CASES:
+        x, y = mine[0][f"{key} out"], other[0][f"{key} out"]
+        diff = (x - y).abs().max().item()
+        limit = rel * y.abs().max().item() + 1e-6
+        ms = [r[f"{key} ms"] for r in mine]
+        ms_other = [r[f"{key} ms"] for r in other]
+        line = (f"{key}: this checkout {ms[0]:.4f}, {ms[1]:.4f} ms; other "
+                f"{ms_other[0]:.4f}, {ms_other[1]:.4f} ms (device, median "
+                f"of 7); max|diff| {diff:.3e} (bound {limit:.3e}: "
+                f"{'within' if diff <= limit else 'OUTSIDE'})")
+        lib_key = (f"{key} library ms" if key.startswith("dequant")
+                   else "netvlad_core forward library ms"
+                   if key.endswith("forward") else None)
+        if lib_key and lib_key in mine[0]:
+            lib = [r[lib_key] for r in mine]
+            line += f"; library {lib[0]:.4f}, {lib[1]:.4f} ms"
+        lines.append(line)
+    both = [r["netvlad_core forward ms"] + r["netvlad_core backward ms"]
+            for r in mine]
+    both_other = [r["netvlad_core forward ms"] + r["netvlad_core backward ms"]
+                  for r in other]
+    lib = [r["netvlad_core both library ms"] for r in mine]
+    lines.append(f"netvlad_core forward + backward: this checkout "
+                 f"{both[0]:.4f}, {both[1]:.4f} ms; other {both_other[0]:.4f}"
+                 f", {both_other[1]:.4f} ms; library (forward + autograd "
+                 f"backward) {lib[0]:.4f}, {lib[1]:.4f} ms")
+    return lines
+
+
 def compare_products(torch, mine, other) -> list:
     """Lines: each product's medians in both checkouts, the library's,
     and max|diff| between the checkouts against the rows' bound."""
@@ -244,7 +398,8 @@ def main(argv=None) -> int:
                     help="root of the other checkout")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
     ap.add_argument("--kernels", default="recurrences",
-                    choices=("recurrences", "dbof,moe"))
+                    choices=("recurrences", "dbof,moe",
+                             "dequant,netvlad_core"))
     args = ap.parse_args(argv)
     import torch
 
@@ -252,7 +407,9 @@ def main(argv=None) -> int:
         raise SystemExit("ab_compare needs a CUDA device")
     os.makedirs(args.out, exist_ok=True)
     if args.kernels == "dbof,moe":
-        return _main_products(torch, args)
+        return _main_products(torch, args, "run_products", compare_products)
+    if args.kernels == "dequant,netvlad_core":
+        return _main_products(torch, args, "run_core", compare_core)
     mine = os.path.join(args.out, "this.pt")
     other = os.path.join(args.out, "other.pt")
     _in_checkout(ROOT, "run", mine)
@@ -262,16 +419,17 @@ def main(argv=None) -> int:
     return 0
 
 
-def _main_products(torch, args) -> int:
+def _main_products(torch, args, fn, compare_fn) -> int:
+    """fn of this file in each checkout, in turns (other, this, this,
+    other); compare_fn's lines."""
     other_root = os.path.abspath(args.other)
     runs = {"this": [], "other": []}
     for i, (name, root) in enumerate((("other", other_root), ("this", ROOT),
                                       ("this", ROOT), ("other", other_root))):
-        path = os.path.join(args.out, f"products_{i}_{name}.pt")
-        _in_checkout(root, "run_products", path,
-                     "1" if name == "this" else "0")
+        path = os.path.join(args.out, f"{fn}_{i}_{name}.pt")
+        _in_checkout(root, fn, path, "1" if name == "this" else "0")
         runs[name].append(torch.load(path))
-    for line in compare_products(torch, runs["this"], runs["other"]):
+    for line in compare_fn(torch, runs["this"], runs["other"]):
         print(line, flush=True)
     return 0
 

@@ -1,6 +1,9 @@
 // The shared TMA + wgmma mainloop of the port's Hopper products (sm_90a):
 // dbof.cu (the DBoF cluster product), moe_head.cu (the MoE head's gate and
-// expert products) and hopper_gemm.cu (a plain product for the card tests).
+// expert products), hopper_product.cuh (the plain product with a TMA-store
+// epilogue: dequant_matmul.cu, netvlad_train.cu's dx), netvlad_train.cu
+// (the VLAD core's forward and backward products) and hopper_gemm.cu (the
+// plain products of the card tests).
 //
 // A block is three warpgroups. Warpgroups 0 and 1 consume: each owns 64
 // rows of the block's 128-row A tile and runs wgmma.mma_async (bf16 in,
@@ -31,6 +34,24 @@
 // are laid out as one wgmma of width N: thread (warp w, lane l) of a
 // warpgroup holds rows 16w + l/4 (h = 0) and 16w + l/4 + 8 (h = 1) of
 // columns 8j + 2(l%4) + e in d[4j + 2h + e].
+//
+// The other two operand layouts (the instruction's transpose immediates,
+// mma<N, TA, TB>):
+//  * A MN-major (TA = 1; desc_a_mn): A[m][k] stored with m contiguous, a
+//    box of [64 deep][64 rows], 128-byte depth rows: SBO = 8 depth rows
+//    (1024 bytes), LBO = the next 64 rows (one 8 KB box; a warpgroup's
+//    m64 reads one box, so it is never followed); a 16-deep step moves
+//    the start 2 KB. The mirror of B MN-major.
+//  * B K-major (TB = 0; desc_b_k): B[k][n] stored as [n][64 deep],
+//    128-byte rows of depth: SBO = 8 rows (1024 bytes), LBO unused (16);
+//    a 16-deep step moves the start 32 bytes. The mirror of A K-major;
+//    a box of up to 256 rows is one piece of n256.
+//
+// The TMA store (tma_store_3d, bulk_commit, bulk_wait_read): threads
+// write a tile into shared memory, fence it to the async proxy
+// (fence_async_smem), and one thread stores it by a tensor map; it waits
+// for a group's reads (not its writes) before the buffer is written
+// again, so the stores drain while the next tile's mainloop runs.
 
 #pragma once
 
@@ -82,11 +103,14 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor map with the 128-byte swizzle. dims and box innermost
-// first; strides in bytes of dims 1.. (multiples of 16). Elements outside
-// the tensor read as zeros.
+// A tensor map (bf16 unless `type` says otherwise) with the 128-byte
+// swizzle: the box's inner extent must then be 128 bytes. dims and box
+// innermost first; strides in bytes of dims 1.. (multiples of 16).
+// Elements outside the tensor read as zeros and are not written by a
+// store.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                            const uint64_t* strides, const uint32_t* box) {
+                            const uint64_t* strides, const uint32_t* box,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[3], s[2];
@@ -96,7 +120,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const 
     b[i] = box[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, s,
                             b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -110,6 +134,34 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, int rows, int
   const uint64_t strides[1] = {static_cast<uint64_t>(ld) * 2};
   const uint32_t box[2] = {kBoxCols, static_cast<uint32_t>(box_rows)};
   return make_map(map, base, 2, dims, strides, box);
+}
+
+// A [batch][rows][cols] tensor whose rows are ld elements apart (the
+// batches rows * ld apart), as boxes of [1][box_rows][box_cols]; the
+// columns past cols read as zeros even where ld > cols.
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                               int ld, int elem_bytes, int box_rows, int box_cols,
+                               CUtensorMapDataType type) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(ld) * elem_bytes,
+                               static_cast<uint64_t>(rows) * ld * elem_bytes};
+  const uint32_t box[3] = {static_cast<uint32_t>(box_cols), static_cast<uint32_t>(box_rows), 1};
+  return make_map(map, base, 3, dims, strides, box, type);
+}
+
+inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                                 int ld, int box_rows) {
+  return make_map_3d(map, base, batch, rows, cols, ld, 2, box_rows, kBoxCols,
+                     CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+// f32 boxes of [box_rows][32 columns] (128 bytes).
+constexpr int kF32BoxCols = 32;
+inline cudaError_t make_map_f32(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                                int box_rows) {
+  return make_map_3d(map, base, batch, rows, cols, cols, 4, box_rows, kF32BoxCols,
+                     CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // Dynamic shared memory a kernel asks for: its layout plus the slack to
@@ -224,6 +276,61 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64
       : "memory");
 }
 
+// Shared -> global by a tensor map: the box at (c0, c1, c2) from src.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed store groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until every committed store group has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes before the async proxy's
+// reads (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cp.async of 16 bytes global -> shared, zero-filled past src_bytes (0
+// or 16), and its groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A 16-byte chunk's byte offset in a 128-byte-swizzled box: row `row`
+// (128 bytes), chunk `chunk` (0..7) of it.
+__device__ __forceinline__ int swizzled(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
 template <int R>
 __device__ __forceinline__ void set_regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -250,6 +357,16 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr, int kk) {
   return desc(addr + kk * 2048, kBoxBytes, 1024);
 }
 
+// A MN-major: a box of [64 deep][64 rows] from `addr`; 16-deep step kk.
+__device__ __forceinline__ uint64_t desc_a_mn(uint32_t addr, int kk) {
+  return desc(addr + kk * 2048, kBoxBytes, 1024);
+}
+
+// B K-major: rows of 64 deep from `addr`; 16-deep step kk.
+__device__ __forceinline__ uint64_t desc_b_k(uint32_t addr, int kk) {
+  return desc(addr + kk * 32, 16, 1024);
+}
+
 __device__ __forceinline__ void mma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void mma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -272,111 +389,101 @@ __device__ __forceinline__ void zero(float* d) {
   for (int i = 0; i < R; ++i) d[i] = 0.0f;
 }
 
-// d[0 .. N/2) += A(a) . B(b): one m64nNk16, B transposed (MN-major).
-template <int N>
-__device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void mma<256>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma<128>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma<64>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma<32>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma<16>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma<8>(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(1));
+// d[0 .. N/2) += A(a) . B(b): one m64nNk16. TA and TB are the
+// instruction's transpose immediates: TA = 0 reads A K-major (desc_a),
+// TA = 1 MN-major (desc_a_mn); TB = 1 reads B MN-major (desc_b), TB = 0
+// K-major (desc_b_k). DBoF and the MoE head use the defaults.
+template <int N, int TA = 0, int TB = 1>
+__device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
+  static_assert((TA == 0 || TA == 1) && (TB == 0 || TB == 1), "transpose immediates");
+  if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  } else {
+    static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 || N == 256, "wgmma width");
+  }
 }
 
 __host__ __device__ constexpr int pow2_floor(int n) {
@@ -419,20 +526,23 @@ __device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty, Ring& r
   }
 }
 
-// Consumer warpgroup: for each of nk stages, wait for its bytes, issue
-// mma(slot) (the stage's wgmma chains), and release the previous slot once
-// its group has completed. Ends with every group complete and every slot
+// Consumer warpgroup: for each of nk stages, wait for its bytes, run
+// prep(slot, kt) (a stage the consumers complete themselves: they write an
+// operand from it and fence it to the async proxy), issue mma_stage(slot,
+// kt) (the stage's wgmma chains), and release the previous slot once its
+// group has completed. Ends with every group complete and every slot
 // released. R accumulator registers in d.
-template <int S, int R, class Mma>
-__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty, Ring& r, int nk, float* d,
-                                        Mma mma_stage) {
+template <int S, int R, class Prep, class Mma>
+__device__ __forceinline__ void consume_prepared(uint64_t* full, uint64_t* empty, Ring& r, int nk,
+                                                 float* d, Prep prep, Mma mma_stage) {
   const bool leader = (threadIdx.x & 31) == 0;
   int prev = -1;
   fence_regs<R>(d);
   for (int kt = 0; kt < nk; ++kt) {
     bar_wait(&full[r.stage], r.phase);
+    prep(r.stage, kt);
     mma_fence();
-    mma_stage(r.stage);
+    mma_stage(r.stage, kt);
     mma_commit();
     mma_wait<1>();
     fence_regs<R>(d);
@@ -443,6 +553,14 @@ __device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty, Ring& r
   mma_wait<0>();
   fence_regs<R>(d);
   if (prev >= 0 && leader) bar_arrive(&empty[prev]);
+}
+
+// consume_prepared for stages that TMA fills whole: mma_stage(slot).
+template <int S, int R, class Mma>
+__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty, Ring& r, int nk, float* d,
+                                        Mma mma_stage) {
+  consume_prepared<S, R>(
+      full, empty, r, nk, d, [](int, int) {}, [&](int s, int) { mma_stage(s); });
 }
 
 }  // namespace

@@ -1,5 +1,4 @@
-// Trainable NetVLAD core for Hopper (sm_90a): a forward and a backward
-// kernel.
+// Trainable NetVLAD core for Hopper (sm_90a): a forward and a backward.
 //
 // Replaces yt8m_tpu/kernels/netvlad_train.py :: netvlad_core (its forward
 // pallas_call at :135, its backward at :189). Per video b, with
@@ -8,90 +7,95 @@
 //   assign[f, k] = softmax_k(act[f, :])   for f < n, else 0          (f32)
 //   forward:  vlad[k, d] = sum_f bf16(assign[f, k]) bf16(x[f, d])  (f32 sums)
 //                          - a_sum[k] centers[k, d]
-//             a_sum[k]   = sum_f assign[f, k]              (unrounded f32)
+//             a_sum[k]   = sum_f assign[f, k]    (unrounded f32, frame order)
 //   backward: dassign[f, k] = sum_d bf16(x[f, d]) bf16(dvlad[k, d]) - cdot[k]
 //             cdot[k]       = sum_d centers[k, d] dvlad[k, d]            (f32)
 //             dact[f, k]    = assign[f, k] (dassign[f, k] - sum_k' assign dassign)
 //             dx[f, d]      = sum_k bf16(assign[f, k]) bf16(dvlad[k, d])
 //
-// The operands of both products are rounded to bf16 whatever the model's
+// The operands of the products are rounded to bf16 whatever the model's
 // compute dtype, as in the TPU kernel; the softmax, a_sum, cdot and the
 // softmax VJP stay in f32. dcenters = -sum_b a_sum[b] (x) dvlad[b] is a
 // plain reduction outside (the wrapper).
 //
-// What bounds it: at B=256, F=300, K=256, D=1152 the forward reads act
-// (79 MB) and x (354 MB) and writes vlad (302 MB): 0.22 ms at 3.35 TB/s
-// against 0.05 ms of bf16 products; the backward also reads dvlad and
-// writes dact and dx (1.17 GB, 0.35 ms): device-memory bytes both ways.
+// What bounds it: at B=256, F=300, K=256, D=1152 the forward reads the
+// live rows of act and x and writes vlad (302 MB), the backward reads
+// dvlad (302 MB) and the live rows of act and x and writes dact: device-
+// memory bytes both ways (2 live K D FLOP a product is ~0.05 ms at the
+// bf16 peak). So the design reads each of those bytes from device memory
+// once, with TMA copies in flight, does each frame's softmax once in the
+// forward, and runs the products on wgmma (the tensor cores' only full-
+// rate path; mma.sync would also keep pace, but the shared header has the
+// pipeline and the layouts).
 //
-// Design. One video's [F, K] assignment (300 KB in f32) exceeds a block's
-// shared memory, and the softmax is per frame row, so both kernels tile
-// over F and recompute the softmax rows they need; the assignment never
-// reaches device memory (the TPU kernel keeps a whole video in VMEM
-// instead).
-//  * Forward, a block per (128 feature columns, video, 256 clusters):
-//    for each tile of 32 live frames, the rows' max and sum over all K
-//    (a warp a row), then bf16(assign) of the block's clusters and
-//    bf16(x) of its columns into shared memory, and assign^T @ x on the
-//    tensor cores (wmma, f32 fragments of a 256 x 128 tile in registers).
-//    Each thread owns one cluster's a_sum, summed in frame order. The
-//    blocks of one video run side by side, so their re-reads of act hit
-//    L2.
-//  * Backward, a cdot launch (a warp a cluster row), then a block per
-//    (64 frames, video): dassign = x @ dvlad^T for the block's rows over
-//    every cluster (K <= 512) into shared memory; then, a warp a row, the
-//    softmax row, the row sum of assign * dassign and dact, with
-//    bf16(assign) kept in shared memory; then dx = assign @ dvlad in
-//    tiles of 128 columns (skipped when the caller needs no dx).
-// Frames past n are never read: their tiles are zero-filled, and their
-// dact and dx rows are written as zeros. Loads are plain (no cp.async
-// pipeline), products wmma; TMA + wgmma are later work.
+// Forward, two launches:
+//  1. vlad_assign_kernel, a block a video: its live frames 32 at a time
+//     into shared memory (cp.async, double-buffered), each row's max and
+//     sum of exp (a warp a row),
+//     then a thread a cluster walks the rows in frame order: a_sum (the
+//     unrounded f32 sum) and bf16(assign) into a [B, F, Kp] buffer from
+//     the wrapper (Kp = K rounded up to 8: TMA's 16-byte rows), with zero
+//     rows from n to the next multiple of 64 (the product's last step).
+//  2. vlad_fwd_kernel, persistent TMA + wgmma over tiles of (video, 256
+//     clusters, 128 columns), the column tile fastest so a video's
+//     assignment is read from device memory once and hits L2 for its
+//     other column tiles. A stage is 64 frames: four assignment boxes
+//     [64 frames][64 clusters] (A MN-major: the product takes it
+//     transposed) and four f32 boxes of x [64 frames][32 columns]. Each
+//     consumer warpgroup rounds its 64 columns of x to bf16 into the
+//     swizzled MN-major B layout (frames past n as zeros), then runs four
+//     m64n64k16 a 16-deep step (its 64 columns x 256 clusters, 128
+//     accumulators). Only the live frames' steps are loaded. The epilogue
+//     subtracts a_sum * centers (multiply and subtract each rounded, as
+//     the plain version) and stores vlad in float2 from the registers
+//     while the producer loads the next tile's stages. n = 0 gives vlad
+//     = 0.
+// Backward, two launches (three with dx):
+//  1. vlad_bwd_prep_kernel, a warp a (video, cluster) row: dvlad read
+//     once, bf16(dvlad) into a [B, K, Dp] buffer from the wrapper, and
+//     cdot (f32). Every later read of dvlad is this bf16 copy.
+//  2. vlad_bwd_kernel, persistent over tiles of (video, 64 frames), the
+//     frame tile fastest (a video's bf16(dvlad) hits L2 after its first
+//     tile). A stage is 64 deep: two f32 boxes of x [64 frames][32] and
+//     bf16(dvlad) [2 Kh clusters][64 deep] (B K-major), a 4-stage ring at
+//     Kh = 128; the two consumers round x to bf16 together (32 frames
+//     each, K-major A, frames past n as zeros, three buffers so that a
+//     buffer is written again only after both warpgroups' products on it
+//     have completed) and each runs m64nKhk16 over its Kh = 128 (K <=
+//     256) or 256 (K <= 512) clusters:
+//     dassign for 64 frames x every cluster in the two warpgroups'
+//     registers. The epilogue is the softmax VJP in f32 on those
+//     registers: each row's max, sum of exp and sum of assign * dassign
+//     over the row's quad of lanes and across the two warpgroups (shared
+//     memory), dact = assign (dassign - cdot - t); frames past n get dact
+//     = 0 and are never read. Its loads are unconditional (clamped, the
+//     values selected away) and assign is exp(act - max) times the row's
+//     reciprocal sum (within an ulp of the plain version's quotient): a
+//     load or an IEEE division under a per-element branch ran the loads
+//     one at a time, 0.40 ms of epilogue instead of ~0.1 (an H100). With
+//     dx, bf16(assign) goes to a [B, F, Kp] buffer (zeros past n), and
+//  3. dx = bf16(assign) @ bf16(dvlad) runs on hopper_product.cuh, a batch
+//     a video (A K-major, dvlad MN-major, the TMA-store epilogue).
+// x reaches both products as f32 (the model's frames): TMA brings its
+// live rows in, the consumers round them once. D must be a multiple of 4
+// (x's rows must be 16-byte strides for TMA).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper_gemm.cuh"
+#include "hopper_product.cuh"
+#include "input_affine.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using bf16 = __nv_bfloat16;
+
 constexpr int kMaxClusters = 512;
-constexpr int kClusterTile = 256;
-
-// Forward tiles.
-constexpr int kFwdRows = 32;   // frames a tile
-constexpr int kFwdCols = 128;  // feature columns a block
-constexpr int kFwdLdA = kClusterTile + 8;  // As[f][k], bf16
-constexpr int kFwdLdX = kFwdCols + 8;      // Xs[f][d], bf16
-
-// Backward tiles.
-constexpr int kBwdRows = 64;  // frames a block
-constexpr int kBK = 32;       // depth step of both products
-constexpr int kLdXb = kBK + 8;   // Xs[f][d], 64 x 32 bf16
-constexpr int kLdVb = kBK + 8;   // Vs[k][d], 256 x 32 bf16 (read as a column-major B)
-constexpr int kDxCols = 128;
-constexpr int kLdV2 = kDxCols + 8;  // V2[k][d], 32 x 128 bf16
-constexpr int kXsBytes = kBwdRows * kLdXb * 2;
-constexpr int kVsBytes = kClusterTile * kLdVb * 2;
-constexpr int kV2Bytes = kBK * kLdV2 * 2;
-constexpr int kStageBytes = kWarps * 16 * 16 * 4;
-constexpr int kBufBytes = (kXsBytes + kVsBytes) > (kV2Bytes + kStageBytes)
-                              ? (kXsBytes + kVsBytes)
-                              : (kV2Bytes + kStageBytes);
-
-__host__ __device__ inline int bwd_ld_s(int ktiles) { return ktiles * kClusterTile + 4; }
-__host__ __device__ inline int bwd_ld_a(int ktiles) { return ktiles * kClusterTile + 8; }
-// Dynamic shared memory of the backward: S f32 [64][ld_s], As bf16
-// [64][ld_a], cdot f32 [ktiles * 256], then the product buffers.
-__host__ __device__ inline int bwd_s_bytes(int ktiles) { return kBwdRows * bwd_ld_s(ktiles) * 4; }
-__host__ __device__ inline int bwd_a_bytes(int ktiles) { return kBwdRows * bwd_ld_a(ktiles) * 2; }
-__host__ __device__ inline int bwd_cdot_bytes(int ktiles) { return ktiles * kClusterTile * 4; }
-inline int bwd_smem(int ktiles) {
-  return bwd_s_bytes(ktiles) + bwd_a_bytes(ktiles) + bwd_cdot_bytes(ktiles) + kBufBytes;
-}
+constexpr int kFrames = 64;  // frames a stage (forward) and a tile (backward)
+constexpr int kF32Box = kFrames * hgemm::kF32BoxCols * 4;  // [64][32] f32: 8 KB
+constexpr int kB16Box = kFrames * hgemm::kBoxCols * 2;     // [64][64] bf16: 8 KB
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -105,398 +109,668 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// max and sum of exp(a - max) over one act row, in the warp.
-__device__ __forceinline__ void softmax_row_stats(const float* row, int K, int lane, float& m,
-                                                  float& s) {
-  m = -INFINITY;
-  for (int k = lane; k < K; k += 32) m = fmaxf(m, row[k]);
-  m = warp_max(m);
-  s = 0.0f;
-  for (int k = lane; k < K; k += 32) s += expf(__fsub_rn(row[k], m));
-  s = warp_sum(s);
+// Over the four lanes of a quad (a row of the wgmma accumulators).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ float softmax_value(float a, float m, float s) {
-  return expf(__fsub_rn(a, m)) / s;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// Forward. Grid (ceil(D / 128), B, ceil(K / 256)). Warps 4 (clusters) x
-// 2 (columns), a 64 x 64 tile each.
-__global__ void __launch_bounds__(kThreads, 1)
-vlad_core_fwd_kernel(const float* __restrict__ act, const float* __restrict__ x,
-                     const int* __restrict__ num_frames, const float* __restrict__ centers,
-                     float* __restrict__ vlad, float* __restrict__ a_sum, int F, int D, int K) {
-  __shared__ __align__(128) __nv_bfloat16 As[kFwdRows * kFwdLdA];
-  __shared__ __align__(128) __nv_bfloat16 Xs[kFwdRows * kFwdLdX];
-  __shared__ __align__(128) float stage[kWarps][16 * 16];
-  __shared__ float s_max[kFwdRows];
-  __shared__ float s_sum[kFwdRows];
-  __shared__ float s_asum[kClusterTile];
+__device__ __forceinline__ int live_frames(const int* num_frames, int b, int F) {
+  return min(max(num_frames[b], 0), F);
+}
 
+// A consumer warpgroup rounds a [64 frames][64 columns] f32 tile, two
+// swizzled boxes [64][32] at src, into one swizzled bf16 box [64][64] at
+// dst (the layout of a K-major A and of an MN-major B alike). Frame rows
+// f with first + f >= live become zeros and are not read. Each thread
+// writes four 16-byte chunks (a frame's 8 columns); the reads and the
+// writes hit every bank once a quarter-warp.
+template <int Threads>
+__device__ __forceinline__ void round_tile(const unsigned char* src, unsigned char* dst, int first,
+                                          int live, int t) {
+#pragma unroll
+  for (int i = 0; i < 512 / Threads; ++i) {
+    const int idx = t + Threads * i;
+    const int f = idx >> 3;
+    const int c8 = idx & 7;  // columns 8 c8 .. 8 c8 + 7
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (first + f < live) {
+      const unsigned char* box = src + (c8 >> 2) * kF32Box;
+      const int j = 2 * (c8 & 3);  // the box's 16-byte chunks j, j + 1
+      const float4 lo = *reinterpret_cast<const float4*>(box + hgemm::swizzled(f, j));
+      const float4 hi = *reinterpret_cast<const float4*>(box + hgemm::swizzled(f, j + 1));
+      out.x = inaff::pack_bf16(lo.x, lo.y);
+      out.y = inaff::pack_bf16(lo.z, lo.w);
+      out.z = inaff::pack_bf16(hi.x, hi.y);
+      out.w = inaff::pack_bf16(hi.z, hi.w);
+    }
+    *reinterpret_cast<uint4*>(dst + hgemm::swizzled(f, c8)) = out;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward 1: the assignment, a_sum and bf16(assign).
+// ---------------------------------------------------------------------------
+
+constexpr int kAsgThreads = 256;
+constexpr int kAsgRows = 32;  // frames a chunk in shared memory
+
+// Two chunk buffers [kAsgRows][K] f32.
+inline int assign_smem(int K) { return 2 * kAsgRows * K * 4; }
+
+__global__ void __launch_bounds__(kAsgThreads)
+vlad_assign_kernel(const float* __restrict__ act, const int* __restrict__ num_frames,
+                   bf16* __restrict__ assign, float* __restrict__ a_sum, int F, int K, int Kp) {
+  extern __shared__ __align__(16) float s_act[];  // [2][kAsgRows][K]
+  __shared__ float s_max[kAsgRows];
+  __shared__ float s_rcp[kAsgRows];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int d0 = blockIdx.x * kFwdCols;
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.z * kClusterTile;
-  const int live = min(max(num_frames[b], 0), F);
+  const int b = blockIdx.x;
+  const int live = live_frames(num_frames, b, F);
   const float* act_v = act + static_cast<size_t>(b) * F * K;
-  const float* x_v = x + static_cast<size_t>(b) * F * D;
-  const int kc = k0 + tid;  // this thread's cluster of the a_sum
-  const bool k_ok = kc < K;
+  bf16* as_v = assign + static_cast<size_t>(b) * F * Kp;
+  float colsum[kMaxClusters / kAsgThreads] = {0.0f, 0.0f};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  float colsum = 0.0f;
+  // Rows f0 .. of the live frames into buffer buf: cp.async when the rows
+  // are 16-byte aligned (K % 4 == 0), so the next chunk arrives while
+  // this one is reduced; plain loads otherwise.
+  auto fetch = [&](int f0, int buf) {
+    const int n = min(kAsgRows, live - f0) * K;
+    const float* src = act_v + static_cast<size_t>(f0) * K;
+    float* dst = s_act + buf * kAsgRows * K;
+    if (K % 4 == 0) {
+      for (int i = 4 * tid; i < n; i += 4 * kAsgThreads) hgemm::cp_async16(dst + i, src + i, 16);
+    } else {
+      for (int i = tid; i < n; i += kAsgThreads) dst[i] = __ldg(src + i);
+    }
+    hgemm::cp_async_commit();
+  };
 
-  for (int f0 = 0; f0 < live; f0 += kFwdRows) {
-    // The tile's softmax rows over all K; rows past n are not read.
-    for (int r = warp; r < kFwdRows; r += kWarps) {
-      float m = 0.0f, s = 1.0f;
-      if (f0 + r < live) softmax_row_stats(act_v + static_cast<size_t>(f0 + r) * K, K, lane, m, s);
+  if (live > 0) fetch(0, 0);
+  for (int f0 = 0, c = 0; f0 < live; f0 += kAsgRows, ++c) {
+    const int rows = min(kAsgRows, live - f0);
+    const float* cur = s_act + (c & 1) * kAsgRows * K;
+    if (f0 + kAsgRows < live) {
+      fetch(f0 + kAsgRows, (c & 1) ^ 1);
+      hgemm::cp_async_wait<1>();
+    } else {
+      hgemm::cp_async_wait<0>();
+    }
+    __syncthreads();
+    for (int r = warp; r < rows; r += kAsgThreads / 32) {
+      const float* row = cur + r * K;
+      float m = -INFINITY;
+      for (int k = lane; k < K; k += 32) m = fmaxf(m, row[k]);
+      m = warp_max(m);
+      float s = 0.0f;
+      for (int k = lane; k < K; k += 32) s += expf(__fsub_rn(row[k], m));
+      s = warp_sum(s);
       if (lane == 0) {
         s_max[r] = m;
-        s_sum[r] = s;
+        s_rcp[r] = 1.0f / s;
       }
     }
     __syncthreads();
-    // bf16(assign) of the block's clusters; the f32 value into a_sum.
-#pragma unroll 8
-    for (int r = 0; r < kFwdRows; ++r) {
-      const int f = f0 + r;
-      float p = 0.0f;
-      if (k_ok && f < live) p = softmax_value(act_v[static_cast<size_t>(f) * K + kc], s_max[r], s_sum[r]);
-      colsum += p;
-      As[r * kFwdLdA + tid] = __float2bfloat16_rn(p);
-    }
-    // bf16(x) of the block's columns; zeros past n and past D.
-#pragma unroll 4
-    for (int i = tid; i < kFwdRows * kFwdCols; i += kThreads) {
-      const int r = i / kFwdCols;
-      const int c = i % kFwdCols;
-      const int f = f0 + r;
-      const int d = d0 + c;
-      float v = 0.0f;
-      if (f < live && d < D) v = x_v[static_cast<size_t>(f) * D + d];
-      Xs[r * kFwdLdX + c] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
+    // assign = exp(act - max) times the row's reciprocal sum (within an
+    // ulp of the quotient; a division a value is a branch to its slow
+    // path, and this loop is the launch's critical path).
 #pragma unroll
-    for (int kk = 0; kk < kFwdRows; kk += 16) {
-      // A[k, f] = As[f][k]: the assignment tile read column-major.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], As + kk * kFwdLdA + wm * 64 + i * 16, kFwdLdA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], Xs + kk * kFwdLdX + wn * 64 + j * 16, kFwdLdX);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  s_asum[tid] = colsum;
-  if (blockIdx.x == 0 && k_ok) a_sum[static_cast<size_t>(b) * K + kc] = colsum;
-  __syncthreads();
-
-  // Epilogue through a per-warp 16 x 16 stage: vlad = sum - a_sum * centers,
-  // multiply and subtract each rounded, as the plain version.
-  float* st = stage[warp];
-  const int sr = lane >> 1;
-  const int sc = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int kl = wm * 64 + i * 16 + sr;
-      const int k = k0 + kl;
+    for (int kk = 0; kk < kMaxClusters / kAsgThreads; ++kk) {
+      const int k = tid + kAsgThreads * kk;
       if (k < K) {
-        const float as = s_asum[kl];
-        const float* cen = centers + static_cast<size_t>(k) * D;
-        float* dst = vlad + (static_cast<size_t>(b) * K + k) * D;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int d = d0 + wn * 64 + j * 16 + sc + c;
-          if (d < D) dst[d] = __fsub_rn(st[sr * 16 + sc + c], __fmul_rn(as, cen[d]));
+#pragma unroll 8
+        for (int r = 0; r < rows; ++r) {
+          const float p = expf(__fsub_rn(cur[r * K + k], s_max[r])) * s_rcp[r];
+          colsum[kk] += p;
+          as_v[static_cast<size_t>(f0 + r) * Kp + k] = __float2bfloat16_rn(p);
         }
       }
-      __syncwarp();
     }
+    __syncthreads();
+  }
+  // Zero rows from n to the product's last frame step.
+  const int zend = min(F, (live + kFrames - 1) / kFrames * kFrames);
+  for (int i = tid; i < (zend - live) * K; i += kAsgThreads)
+    as_v[static_cast<size_t>(live + i / K) * Kp + i % K] = __float2bfloat16_rn(0.0f);
+#pragma unroll
+  for (int kk = 0; kk < kMaxClusters / kAsgThreads; ++kk) {
+    const int k = tid + kAsgThreads * kk;
+    if (k < K) a_sum[static_cast<size_t>(b) * K + k] = colsum[kk];
   }
 }
 
-// cdot[b, k] = sum_d centers[k, d] * dvlad[b, k, d]. Grid (B); a warp a
-// cluster row.
-__global__ void __launch_bounds__(kThreads)
-vlad_core_cdot_kernel(const float* __restrict__ centers, const float* __restrict__ dvlad,
-                      float* __restrict__ cdot, int D, int K) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x;
-  for (int k = warp; k < K; k += kWarps) {
-    const float* c = centers + static_cast<size_t>(k) * D;
-    const float* v = dvlad + (static_cast<size_t>(b) * K + k) * D;
-    float s = 0.0f;
-    for (int d = lane; d < D; d += 32) s = __fadd_rn(s, __fmul_rn(c[d], v[d]));
-    s = warp_sum(s);
-    if (lane == 0) cdot[static_cast<size_t>(b) * K + k] = s;
-  }
+// ---------------------------------------------------------------------------
+// Forward 2: vlad = bf16(assign)^T @ bf16(x) - a_sum (x) centers.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdClusters = 256;  // a tile: four m64 blocks
+constexpr int kFwdCols = 128;      // a tile: 64 columns a consumer warpgroup
+constexpr int kFwdStages = 3;
+constexpr int kFwdStageBytes = 4 * kB16Box + 4 * kF32Box;  // 64 KB
+constexpr int kFwdSmemBytes =
+    kFwdStages * kFwdStageBytes + 2 * 2 * kB16Box + 2 * kFwdStages * 8;
+constexpr int kFwdSmem = hgemm::smem_request(kFwdSmemBytes);
+static_assert(kFwdSmem <= 232448, "shared memory a block");
+
+__device__ __forceinline__ void fwd_coords(int t, int n_kt, int n_ct, int& b, int& kt, int& ct) {
+  ct = t % n_ct;
+  const int rest = t / n_ct;
+  kt = rest % n_kt;
+  b = rest / n_kt;
 }
 
-// Backward. Grid (ceil(F / 64), B).
-__global__ void __launch_bounds__(kThreads, 1)
-vlad_core_bwd_kernel(const float* __restrict__ act, const float* __restrict__ x,
-                     const int* __restrict__ num_frames, const float* __restrict__ dvlad,
-                     const float* __restrict__ cdot, float* __restrict__ dact,
-                     float* __restrict__ dx, int F, int D, int K, int need_dx) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ktiles = (K + kClusterTile - 1) / kClusterTile;
-  const int ld_s = bwd_ld_s(ktiles);
-  const int ld_a = bwd_ld_a(ktiles);
-  float* S = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem + bwd_s_bytes(ktiles));
-  float* s_cdot = reinterpret_cast<float*>(smem + bwd_s_bytes(ktiles) + bwd_a_bytes(ktiles));
-  unsigned char* buf = smem + bwd_s_bytes(ktiles) + bwd_a_bytes(ktiles) + bwd_cdot_bytes(ktiles);
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(buf);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(buf + kXsBytes);
-  __nv_bfloat16* V2 = reinterpret_cast<__nv_bfloat16*>(buf);
-  float* stage = reinterpret_cast<float*>(buf + kV2Bytes);
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+vlad_fwd_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_x,
+                const int* __restrict__ num_frames, const float* __restrict__ centers,
+                const float* __restrict__ a_sum, float* __restrict__ vlad, int B, int F, int D,
+                int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  unsigned char* b16 = smem + kFwdStages * kFwdStageBytes;  // [2 warpgroups][2][64][64] bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(b16 + 2 * 2 * kB16Box);
+  uint64_t* empty = full + kFwdStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 2;  // 2 warps along the 64 rows
-  const int wn = warp & 3;   // 4 along the columns
-  const int f0 = blockIdx.x * kBwdRows;
-  const int b = blockIdx.y;
-  const int live = min(max(num_frames[b], 0), F);
-  const int rows = min(kBwdRows, F - f0);
-  const float* act_v = act + static_cast<size_t>(b) * F * K;
-  const float* x_v = x + static_cast<size_t>(b) * F * D;
-  const float* dv_v = dvlad + static_cast<size_t>(b) * K * D;
-  float* dact_v = dact + static_cast<size_t>(b) * F * K;
-  float* dx_v = need_dx ? dx + static_cast<size_t>(b) * F * D : nullptr;
-
-  if (f0 >= live) {  // every row of the tile is past n: zeros, nothing read
-    for (int i = tid; i < rows * K; i += kThreads) dact_v[static_cast<size_t>(f0) * K + i] = 0.0f;
-    if (need_dx)
-      for (int i = tid; i < rows * D; i += kThreads) dx_v[static_cast<size_t>(f0) * D + i] = 0.0f;
-    return;
-  }
-
-  for (int k = tid; k < ktiles * kClusterTile; k += kThreads)
-    s_cdot[k] = k < K ? cdot[static_cast<size_t>(b) * K + k] : 0.0f;
-
-  // 1. dassign (before cdot) = bf16(x) @ bf16(dvlad)^T, 256 clusters at a
-  //    time, into S. Warps 2 (rows) x 4 (clusters), a 32 x 64 tile each.
-  for (int kt = 0; kt < ktiles; ++kt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int dd = 0; dd < D; dd += kBK) {
-#pragma unroll
-      for (int i = tid; i < kBwdRows * kBK; i += kThreads) {
-        const int r = i / kBK;
-        const int c = i % kBK;
-        const int f = f0 + r;
-        const int d = dd + c;
-        float v = 0.0f;
-        if (f < live && d < D) v = x_v[static_cast<size_t>(f) * D + d];
-        Xs[r * kLdXb + c] = __float2bfloat16_rn(v);
-      }
-#pragma unroll 8
-      for (int i = tid; i < kClusterTile * kBK; i += kThreads) {
-        const int r = i / kBK;
-        const int c = i % kBK;
-        const int k = kt * kClusterTile + r;
-        const int d = dd + c;
-        float v = 0.0f;
-        if (k < K && d < D) v = dv_v[static_cast<size_t>(k) * D + d];
-        Vs[r * kLdVb + c] = __float2bfloat16_rn(v);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        // B[d, k] = Vs[k][d]: the dvlad tile read column-major.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], Xs + (wm * 32 + i * 16) * kLdXb + kk, kLdXb);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], Vs + (wn * 64 + j * 16) * kLdVb + kk, kLdVb);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
+  const int n_ct = (D + kFwdCols - 1) / kFwdCols;
+  const int n_kt = (K + kFwdClusters - 1) / kFwdClusters;
+  const int tiles = B * n_kt * n_ct;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(S + (wm * 32 + i * 16) * ld_s + kt * kClusterTile + wn * 64 + j * 16,
-                                acc[i][j], ld_s, wmma::mem_row_major);
+    hgemm::bar_init_fence();
   }
   __syncthreads();
 
-  // 2. A warp a row: the softmax row, dassign -= cdot, the row sum of
-  //    assign * dassign, dact, and bf16(assign) into As (zeros past n and
-  //    past K, for the dx product).
-  const int kpad = ktiles * kClusterTile;
-  for (int r = warp; r < kBwdRows; r += kWarps) {
-    const int f = f0 + r;
-    __nv_bfloat16* arow = As + r * ld_a;
-    if (f >= live) {
-      for (int k = lane; k < kpad; k += 32) arow[k] = __float2bfloat16_rn(0.0f);
-      if (f < F)
-        for (int k = lane; k < K; k += 32) dact_v[static_cast<size_t>(f) * K + k] = 0.0f;
-      continue;
-    }
-    const float* row = act_v + static_cast<size_t>(f) * K;
-    float* srow = S + r * ld_s;
-    float m, s;
-    softmax_row_stats(row, K, lane, m, s);
-    float t = 0.0f;
-    for (int k = lane; k < K; k += 32) {
-      const float p = softmax_value(row[k], m, s);
-      const float da = __fsub_rn(srow[k], s_cdot[k]);
-      srow[k] = da;
-      arow[k] = __float2bfloat16_rn(p);
-      t = __fadd_rn(t, __fmul_rn(p, da));
-    }
-    for (int k = K + lane; k < kpad; k += 32) arow[k] = __float2bfloat16_rn(0.0f);
-    t = warp_sum(t);
-    for (int k = lane; k < K; k += 32) {
-      const float p = softmax_value(row[k], m, s);
-      dact_v[static_cast<size_t>(f) * K + k] = __fmul_rn(p, __fsub_rn(srow[k], t));
-    }
-  }
-  if (!need_dx) return;
-  __syncthreads();
-
-  // 3. dx = bf16(assign) @ bf16(dvlad), 128 columns at a time. Warps 2
-  //    (rows) x 4 (columns), a 32 x 32 tile each.
-  float* st = stage + warp * 256;
-  const int sr = lane >> 1;
-  const int sc = (lane & 1) * 8;
-  for (int dt = 0; dt < D; dt += kDxCols) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* amap = &map_a;
+  const CUtensorMap* xmap = &map_x;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int b, kt, ct;
+        fwd_coords(t, n_kt, n_ct, b, kt, ct);
+        const int nk = (live_frames(num_frames, b, F) + kFrames - 1) / kFrames;
+        hgemm::produce<kFwdStages>(
+            full, empty, ring, nk, kFwdStageBytes, [&](int s, uint64_t* bar, int ks) {
+              unsigned char* st = smem + s * kFwdStageBytes;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+              for (int i = 0; i < 4; ++i)
+                hgemm::tma_3d(st + i * kB16Box, amap, bar, kt * kFwdClusters + 64 * i,
+                              ks * kFrames, b);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int kb = 0; kb < K; kb += kBK) {
-#pragma unroll 4
-      for (int i = tid; i < kBK * kDxCols; i += kThreads) {
-        const int r = i / kDxCols;
-        const int c = i % kDxCols;
-        const int k = kb + r;
-        const int d = dt + c;
-        float v = 0.0f;
-        if (k < K && d < D) v = dv_v[static_cast<size_t>(k) * D + d];
-        V2[r * kLdV2 + c] = __float2bfloat16_rn(v);
+              for (int i = 0; i < 4; ++i)
+                hgemm::tma_3d(st + 4 * kB16Box + i * kF32Box, xmap, bar,
+                              ct * kFwdCols + hgemm::kF32BoxCols * i, ks * kFrames, b);
+            });
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * ld_a + kb + kk, ld_a);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], V2 + kk * kLdV2 + wn * 32 + j * 16, kLdV2);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
     }
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int r = lane >> 2;
+    const int t128 = threadIdx.x & 127;
+    unsigned char* mine = b16 + wg * 2 * kB16Box;
+    float acc[128];  // four m64n64 blocks: clusters 64 i + ..., acc[32 i + ...]
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int b, kt, ct;
+      fwd_coords(t, n_kt, n_ct, b, kt, ct);
+      const int live = live_frames(num_frames, b, F);
+      const int nk = (live + kFrames - 1) / kFrames;
+      hgemm::zero<128>(acc);
+      hgemm::consume_prepared<kFwdStages, 128>(
+          full, empty, ring, nk, acc,
+          [&](int s, int ks) {
+            const unsigned char* xs = smem + s * kFwdStageBytes + 4 * kB16Box + wg * 2 * kF32Box;
+            round_tile<128>(xs, mine + (ks & 1) * kB16Box, ks * kFrames, live, t128);
+            hgemm::fence_async_smem();
+            hgemm::named_sync(1 + wg, 128);
+          },
+          [&](int s, int ks) {
+            const uint32_t st = hgemm::smem_u32(smem + s * kFwdStageBytes);
+            const uint32_t bb = hgemm::smem_u32(mine + (ks & 1) * kB16Box);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+            for (int kk = 0; kk < kFrames / 16; ++kk)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int f = f0 + wm * 32 + i * 16 + sr;
-        if (f < F) {
-          float* dst = dx_v + static_cast<size_t>(f) * D;
+              for (int i = 0; i < 4; ++i)
+                hgemm::mma<64, 1, 1>(acc + 32 * i, hgemm::desc_a_mn(st + i * kB16Box, kk),
+                                     hgemm::desc_b(bb, kk));
+          });
+      // Epilogue: vlad[k, d] = acc - a_sum[k] * centers[k, d]. The loads
+      // are unconditional (clamped to cluster K - 1 and column D - 2), so
+      // they are all in flight at once; only the stores are masked.
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const int d = dt + wn * 32 + j * 16 + sc + c;
-            if (d < D) dst[d] = f < live ? st[sr * 16 + sc + c] : 0.0f;
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = kt * kFwdClusters + 64 * i + 16 * warp + r + 8 * h;
+          const int kk = min(k, K - 1);
+          const float as = __ldg(a_sum + static_cast<size_t>(b) * K + kk);
+          const float* cen = centers + static_cast<size_t>(kk) * D;
+          float* dst = vlad + (static_cast<size_t>(b) * K + k) * D;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int d = ct * kFwdCols + 64 * wg + 8 * j + 2 * q;
+            const float2 c = __ldg(reinterpret_cast<const float2*>(cen + min(d, D - 2)));
+            const int a = 32 * i + 4 * j + 2 * h;
+            if (k < K && d < D)
+              *reinterpret_cast<float2*>(dst + d) =
+                  make_float2(__fsub_rn(acc[a], __fmul_rn(as, c.x)),
+                              __fsub_rn(acc[a + 1], __fmul_rn(as, c.y)));
           }
         }
-        __syncwarp();
       }
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward 1: bf16(dvlad) and cdot.
+// ---------------------------------------------------------------------------
+
+constexpr int kPrepThreads = 256;
+
+__global__ void __launch_bounds__(kPrepThreads)
+vlad_bwd_prep_kernel(const float* __restrict__ centers, const float* __restrict__ dvlad,
+                     bf16* __restrict__ dv16, float* __restrict__ cdot, int rows, int D, int Dp,
+                     int K) {
+  const int row = blockIdx.x * (kPrepThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float4* v = reinterpret_cast<const float4*>(dvlad + static_cast<size_t>(row) * D);
+  const float4* c = reinterpret_cast<const float4*>(centers + static_cast<size_t>(row % K) * D);
+  uint2* o = reinterpret_cast<uint2*>(dv16 + static_cast<size_t>(row) * Dp);
+  float s = 0.0f;
+  for (int i = lane; i < D / 4; i += 32) {
+    const float4 a = __ldg(v + i);
+    const float4 cc = __ldg(c + i);
+    s = __fadd_rn(s, __fmul_rn(cc.x, a.x));
+    s = __fadd_rn(s, __fmul_rn(cc.y, a.y));
+    s = __fadd_rn(s, __fmul_rn(cc.z, a.z));
+    s = __fadd_rn(s, __fmul_rn(cc.w, a.w));
+    o[i] = make_uint2(inaff::pack_bf16(a.x, a.y), inaff::pack_bf16(a.z, a.w));
+  }
+  s = warp_sum(s);
+  if (lane == 0) cdot[row] = s;
+}
+
+// ---------------------------------------------------------------------------
+// Backward 2: dassign on wgmma, the softmax VJP, dact (and bf16(assign)).
+// ---------------------------------------------------------------------------
+
+template <int Kh>  // clusters a consumer warpgroup: 128 (K <= 256) or 256 (K <= 512)
+struct Bwd {
+  static constexpr int kStages = Kh == 128 ? 4 : 2;
+  static constexpr int kXBytes = 2 * kF32Box;       // [64 frames][64 deep] f32
+  static constexpr int kVRows = 2 * Kh;             // bf16(dvlad) rows a stage
+  static constexpr int kVBoxRows = 256;             // TMA's largest box
+  static constexpr int kVBytes = kVRows * 128;      // [2 Kh][64 deep] bf16
+  static constexpr int kStageBytes = kXBytes + kVBytes;
+  static constexpr int kA16Bytes = 3 * kB16Box;  // [3][64][64] bf16, both warpgroups
+  static constexpr int kRedFloats = 2 * 3 * 2 * kFrames;  // [tile parity][max, sum, t][warpgroup][row]
+  static constexpr int kSmemBytes =
+      kStages * kStageBytes + kA16Bytes + kRedFloats * 4 + 2 * kStages * 8;
+  static constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+  static_assert(kSmem <= 232448, "shared memory a block");
+  static_assert(kVRows % kVBoxRows == 0, "whole dvlad boxes");
+};
+
+template <int Kh>
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_v,
+                const float* __restrict__ act, const int* __restrict__ num_frames,
+                const float* __restrict__ cdot, float* __restrict__ dact, bf16* __restrict__ p16,
+                int B, int F, int D, int K, int Kp, int need_dx) {
+  using P = Bwd<Kh>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  unsigned char* a16 = smem + P::kStages * P::kStageBytes;
+  float* red = reinterpret_cast<float*>(a16 + P::kA16Bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + P::kRedFloats);
+  uint64_t* empty = full + P::kStages;
+
+  const int n_ft = (F + kFrames - 1) / kFrames;
+  const int tiles = B * n_ft;
+  const int nk = (D + hgemm::kDepth - 1) / hgemm::kDepth;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
+    }
+    hgemm::bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* vmap = &map_v;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int b = t / n_ft;
+        const int f0 = (t % n_ft) * kFrames;
+        const int steps = f0 < live_frames(num_frames, b, F) ? nk : 0;
+        hgemm::produce<P::kStages>(
+            full, empty, ring, steps, P::kStageBytes, [&](int s, uint64_t* bar, int ks) {
+              unsigned char* st = smem + s * P::kStageBytes;
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                hgemm::tma_3d(st + i * kF32Box, xmap, bar,
+                              ks * hgemm::kDepth + hgemm::kF32BoxCols * i, f0, b);
+#pragma unroll
+              for (int i = 0; i < P::kVRows / P::kVBoxRows; ++i)
+                hgemm::tma_3d(st + P::kXBytes + i * P::kVBoxRows * 128, vmap, bar,
+                              ks * hgemm::kDepth, i * P::kVBoxRows, b);
+            });
+      }
+    }
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int r = lane >> 2;
+    float acc[Kh / 2];
+    int iter = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++iter) {
+      const int b = t / n_ft;
+      const int f0 = (t % n_ft) * kFrames;
+      const int live = live_frames(num_frames, b, F);
+      const int steps = f0 < live ? nk : 0;
+      hgemm::zero<Kh / 2>(acc);
+      hgemm::consume_prepared<P::kStages, Kh / 2>(
+          full, empty, ring, steps, acc,
+          [&](int s, int ks) {
+            round_tile<256>(smem + s * P::kStageBytes, a16 + (ks % 3) * kB16Box, f0, live,
+                            threadIdx.x);
+            hgemm::fence_async_smem();
+            hgemm::named_sync(4, 256);
+          },
+          [&](int s, int ks) {
+            const uint32_t aa = hgemm::smem_u32(a16 + (ks % 3) * kB16Box);
+            const uint32_t vv =
+                hgemm::smem_u32(smem + s * P::kStageBytes + P::kXBytes) + wg * Kh * 128;
+#pragma unroll
+            for (int kk = 0; kk < hgemm::kDepth / 16; ++kk)
+              hgemm::mma<Kh, 0, 0>(acc, hgemm::desc_a(aa, kk), hgemm::desc_b_k(vv, kk));
+          });
+
+      // The softmax VJP. Thread rows ff = 16 warp + r + 8 h of the tile;
+      // clusters k = wg Kh + 8 j + 2 q + e in acc[4 j + 2 h + e]. Every
+      // load is unconditional (a dead row reads the video's frame 0, live
+      // in a live tile; a cluster past K reads cluster K - 1) and its
+      // value is selected away: loads under per-element branches ran one
+      // at a time. At Kh = 128 the thread's act values stay in registers
+      // (then exp(act - max), then assign); at Kh = 256 they are read
+      // again in each pass.
+      float* rd = red + (iter & 1) * 3 * 2 * kFrames;
+      const float* act_v = act + static_cast<size_t>(b) * F * K;
+      const float* cdot_v = cdot + static_cast<size_t>(b) * K;
+      bool lv[2];
+      int f[2];
+      const float* arow[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        f[h] = f0 + 16 * warp + r + 8 * h;
+        lv[h] = f[h] < live;
+        arow[h] = act_v + (lv[h] ? static_cast<size_t>(f[h]) * K : 0);
+      }
+      auto kc = [&](int j, int e) { return min(wg * Kh + 8 * j + 2 * q + e, K - 1); };
+      auto valid = [&](int h, int j, int e) { return lv[h] && wg * Kh + 8 * j + 2 * q + e < K; };
+      constexpr bool kCached = Kh == 128;
+      float av[kCached ? Kh / 2 : 1];
+      auto act_at = [&](int h, int j, int e) {
+        if constexpr (kCached) {
+          return av[4 * j + 2 * h + e];
+        } else {
+          return __ldg(arow[h] + kc(j, e));
+        }
+      };
+      // A tile past n reads nothing and writes zeros (both warpgroups
+      // take the same branch, so the barriers below still pair up).
+      // The loads sit in blocks with no branch inside (assign is exp
+      // times the row's reciprocal sum: an IEEE division a value would
+      // put a branch to its slow path between them), so they are in
+      // flight together.
+      const bool tile_live = f0 < live;
+      if constexpr (kCached) {
+        if (tile_live) {
+#pragma unroll
+          for (int j = 0; j < Kh / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) av[4 * j + 2 * h + e] = __ldg(arow[h] + kc(j, e));
+        } else {
+          hgemm::zero<Kh / 2>(av);
+        }
+      }
+      // Across the quad, then across the two warpgroups: quantity w of
+      // this tile (0 max, 1 sum, 2 t).
+      auto across = [&](float (&v)[2], int w, bool is_max) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = is_max ? quad_max(v[h]) : quad_sum(v[h]);
+          if (q == 0) rd[(w * 2 + wg) * kFrames + 16 * warp + r + 8 * h] = v[h];
+        }
+        hgemm::named_sync(3, 256);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float o = rd[(w * 2 + (wg ^ 1)) * kFrames + 16 * warp + r + 8 * h];
+          v[h] = is_max ? fmaxf(v[h], o) : v[h] + o;
+        }
+      };
+      float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.0f, 0.0f}, tt[2] = {0.0f, 0.0f};
+      if (tile_live) {
+#pragma unroll
+        for (int j = 0; j < Kh / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float a = act_at(h, j, e);
+              m[h] = valid(h, j, e) ? fmaxf(m[h], a) : m[h];
+            }
+        across(m, 0, true);
+#pragma unroll
+        for (int j = 0; j < Kh / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ex = valid(h, j, e) ? expf(__fsub_rn(act_at(h, j, e), m[h])) : 0.0f;
+              s[h] += ex;
+              if constexpr (kCached) av[4 * j + 2 * h + e] = ex;
+            }
+        across(s, 1, false);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) s[h] = 1.0f / s[h];  // now the reciprocal sum
+        // dassign = acc - cdot (kept in acc); t = sum_k assign * dassign;
+        // assign kept in av at Kh = 128.
+#pragma unroll
+        for (int j = 0; j < Kh / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              float p;
+              if constexpr (kCached) {
+                p = av[i] * s[h];
+              } else {
+                p = expf(__fsub_rn(act_at(h, j, e), m[h])) * s[h];
+              }
+              p = valid(h, j, e) ? p : 0.0f;
+              if constexpr (kCached) av[i] = p;
+              acc[i] = __fsub_rn(acc[i], __ldg(cdot_v + kc(j, e)));
+              tt[h] = __fadd_rn(tt[h], __fmul_rn(p, acc[i]));
+            }
+          }
+        across(tt, 2, false);
+      }
+      // dact = assign (dassign - t); zeros past n. bf16(assign) for dx.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (f[h] >= F) continue;
+        float* drow = dact + (static_cast<size_t>(b) * F + f[h]) * K;
+#pragma unroll
+        for (int j = 0; j < Kh / 8; ++j) {
+          const int k = wg * Kh + 8 * j + 2 * q;  // k and k + 1
+          float p[2], g[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            if constexpr (kCached) {
+              p[e] = av[i];
+            } else {
+              p[e] = valid(h, j, e) ? expf(__fsub_rn(act_at(h, j, e), m[h])) * s[h] : 0.0f;
+            }
+            g[e] = valid(h, j, e) ? __fmul_rn(p[e], __fsub_rn(acc[i], tt[h])) : 0.0f;
+          }
+          if (k >= K) continue;
+          if (K % 2 == 0) {
+            *reinterpret_cast<float2*>(drow + k) = make_float2(g[0], g[1]);
+          } else {
+            drow[k] = g[0];
+            if (k + 1 < K) drow[k + 1] = g[1];
+          }
+          // k + 1 < Kp: a pair always fits the padded row.
+          if (need_dx)
+            *reinterpret_cast<__nv_bfloat162*>(p16 + (static_cast<size_t>(b) * F + f[h]) * Kp + k) =
+                __floats2bfloat162_rn(p[0], p[1]);
+        }
+      }
+    }
+  }
+}
+
+template <int Kh>
+cudaError_t launch_bwd(const void* act, const void* x, const void* num_frames, const void* dv16,
+                       const void* cdot, void* dact, void* p16, int B, int F, int D, int K, int Kp,
+                       int Dp, int need_dx, int sms, cudaStream_t st) {
+  CUtensorMap map_x, map_v;
+  cudaError_t err = hgemm::make_map_f32(&map_x, x, B, F, D, kFrames);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_v, dv16, B, K, D, Dp, Bwd<Kh>::kVBoxRows);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(vlad_bwd_kernel<Kh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Bwd<Kh>::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = B * ((F + kFrames - 1) / kFrames);
+  vlad_bwd_kernel<Kh><<<tiles < sms ? tiles : sms, hgemm::kThreads, Bwd<Kh>::kSmem, st>>>(
+      map_x, map_v, static_cast<const float*>(act), static_cast<const int*>(num_frames),
+      static_cast<const float*>(cdot), static_cast<float*>(dact), static_cast<bf16*>(p16), B, F, D,
+      K, Kp, need_dx);
+  return cudaGetLastError();
+}
+
+int pad8(int n) { return (n + 7) / 8 * 8; }
+
 bool shapes_ok(int B, int F, int D, int K) {
-  return B > 0 && B <= 65535 && F > 0 && D > 0 && K > 0 && K <= kMaxClusters;
+  return B > 0 && B <= 65535 && F > 0 && D > 0 && D % 4 == 0 && K > 0 && K <= kMaxClusters &&
+         static_cast<long long>(B) * F * (D > K ? D : K) < (1LL << 40);
 }
 
 }  // namespace
 
 // vlad [B, K, D] f32 and a_sum [B, K] f32 from act [B, F, K] f32, x [B, F,
-// D] f32, num_frames [B] int32 and centers [K, D] f32.
+// D] f32 (D a multiple of 4), num_frames [B] int32 and centers [K, D] f32;
+// assign: a work buffer of B*F*Kp bf16 from the caller (Kp = K rounded up
+// to 8).
 extern "C" int yt8m_netvlad_core_forward(const void* act, const void* x, const void* num_frames,
-                                         const void* centers, void* vlad, void* a_sum, int B,
-                                         int F, int D, int K, void* stream) {
+                                         const void* centers, void* assign, void* vlad,
+                                         void* a_sum, int B, int F, int D, int K, void* stream) {
   if (!shapes_ok(B, F, D, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((D + kFwdCols - 1) / kFwdCols, B, (K + kClusterTile - 1) / kClusterTile);
-  vlad_core_fwd_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(act), static_cast<const float*>(x),
-      static_cast<const int*>(num_frames), static_cast<const float*>(centers),
-      static_cast<float*>(vlad), static_cast<float*>(a_sum), F, D, K);
+  const int Kp = pad8(K);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(vlad_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               assign_smem(K));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vlad_assign_kernel<<<B, kAsgThreads, assign_smem(K), st>>>(
+      static_cast<const float*>(act), static_cast<const int*>(num_frames), static_cast<bf16*>(assign),
+      static_cast<float*>(a_sum), F, K, Kp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_a, map_x;
+  err = hgemm::make_map_bf16(&map_a, assign, B, F, K, Kp, kFrames);
+  if (err == cudaSuccess) err = hgemm::make_map_f32(&map_x, x, B, F, D, kFrames);
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(vlad_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = B * ((K + kFwdClusters - 1) / kFwdClusters) * ((D + kFwdCols - 1) / kFwdCols);
+  vlad_fwd_kernel<<<tiles < sms ? tiles : sms, hgemm::kThreads, kFwdSmem, st>>>(
+      map_a, map_x, static_cast<const int*>(num_frames), static_cast<const float*>(centers),
+      static_cast<const float*>(a_sum), static_cast<float*>(vlad), B, F, D, K);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dact [B, F, K] f32 and, when need_dx, dx [B, F, D] f32 from the forward's
-// inputs and dvlad [B, K, D] f32; cdot [B, K] f32 is scratch from the
-// caller.
+// inputs and dvlad [B, K, D] f32. Work buffers from the caller: cdot [B, K]
+// f32, dv16 B*K*Dp bf16 (Dp = D rounded up to 8) and, when need_dx, p16
+// B*F*Kp bf16.
 extern "C" int yt8m_netvlad_core_backward(const void* act, const void* x, const void* num_frames,
                                           const void* centers, const void* dvlad, void* cdot,
-                                          void* dact, void* dx, int B, int F, int D, int K,
-                                          int need_dx, void* stream) {
-  if (!shapes_ok(B, F, D, K) || (need_dx && dx == nullptr))
+                                          void* dv16, void* p16, void* dact, void* dx, int B,
+                                          int F, int D, int K, int need_dx, void* stream) {
+  if (!shapes_ok(B, F, D, K) || (need_dx && (dx == nullptr || p16 == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  vlad_core_cdot_kernel<<<B, kThreads, 0, st>>>(static_cast<const float*>(centers),
-                                                static_cast<const float*>(dvlad),
-                                                static_cast<float*>(cdot), D, K);
+  const int Kp = pad8(K);
+  const int Dp = pad8(D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ktiles = (K + kClusterTile - 1) / kClusterTile;
-  const int bytes = bwd_smem(ktiles);
-  err = cudaFuncSetAttribute(vlad_core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+  const int rows = B * K;
+  const int per_block = kPrepThreads / 32;
+  vlad_bwd_prep_kernel<<<(rows + per_block - 1) / per_block, kPrepThreads, 0, st>>>(
+      static_cast<const float*>(centers), static_cast<const float*>(dvlad), static_cast<bf16*>(dv16),
+      static_cast<float*>(cdot), rows, D, Dp, K);
+  err = cudaGetLastError();
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vlad_core_bwd_kernel<<<dim3((F + kBwdRows - 1) / kBwdRows, B), kThreads, bytes, st>>>(
-      static_cast<const float*>(act), static_cast<const float*>(x),
-      static_cast<const int*>(num_frames), static_cast<const float*>(dvlad),
-      static_cast<const float*>(cdot), static_cast<float*>(dact), static_cast<float*>(dx), F, D,
-      K, need_dx);
-  return static_cast<int>(cudaGetLastError());
+  err = K <= 256 ? launch_bwd<128>(act, x, num_frames, dv16, cdot, dact, p16, B, F, D, K, Kp, Dp,
+                                   need_dx, sms, st)
+                 : launch_bwd<256>(act, x, num_frames, dv16, cdot, dact, p16, B, F, D, K, Kp, Dp,
+                                   need_dx, sms, st);
+  if (err != cudaSuccess || !need_dx) return static_cast<int>(err);
+  return static_cast<int>(
+      hprod::launch_product(p16, dv16, static_cast<float*>(dx), B, F, D, K, Kp, Dp, st));
+}
+
+// The tiles: [frames a stage, forward clusters a tile, forward columns a
+// tile, forward stages, forward shared bytes, backward stages and shared
+// bytes at Kh = 128, the same at Kh = 256, assign rows a chunk, SMs].
+extern "C" int yt8m_netvlad_core_plan(int* plan) {
+  int sms = 0;
+  const cudaError_t err = hgemm::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = kFrames;
+  plan[1] = kFwdClusters;
+  plan[2] = kFwdCols;
+  plan[3] = kFwdStages;
+  plan[4] = kFwdSmem;
+  plan[5] = Bwd<128>::kStages;
+  plan[6] = Bwd<128>::kSmem;
+  plan[7] = Bwd<256>::kStages;
+  plan[8] = Bwd<256>::kSmem;
+  plan[9] = kAsgRows;
+  plan[10] = sms;
+  return static_cast<int>(cudaSuccess);
 }

@@ -9,11 +9,14 @@ inference BatchNorm. The compute dtype is the TPU kernel's: bf16 operands
 with f32 sums when D >= 512, f32 otherwise. On the card csrc/dequant_matmul.cu
 runs it: for bf16, one launch rounds `w` to bf16 on every call (as the
 TPU kernel does in its body), a second applies the affine once into a
-[M, D] bf16 buffer, and a third runs the tensor-core product, both
-buffers allocated by this wrapper; for f32, one tiled FMA product applies
-the affine as it loads its tiles. No model of
-the JAX package calls it; it is a library op for uint8-input dense
-layers.
+[M, D] bf16 buffer, and a third runs the persistent TMA + wgmma product
+of csrc/hopper_product.cuh (128 x 256 tiles, the f32 output stored by
+TMA while the next tile's products run; from the registers when N is no
+multiple of 4), both buffers allocated by this wrapper; for f32, one
+register-tiled FMA product (128 x 128 a block, 8 x 8 a thread) that
+applies the affine once to each uint8 it loads (`plan` describes both
+launches). No model of the JAX package calls it; it is a library op for
+uint8-input dense layers.
 """
 
 from __future__ import annotations
@@ -29,9 +32,82 @@ from yt8m_tpu_torch.kernels._checks import (
 
 BF16_MIN_DEPTH = 512  # D from which the TPU kernel computes in bf16
 
+# csrc/hopper_product.cuh's tile (the bf16 route; yt8m_dequant_plan reads
+# the kernel's own).
+ROWS = 128           # rows a tile: two consumer warpgroups of 64
+COLS = 256           # columns a tile: one m64n256k16 chain a warpgroup
+DEPTH = 64           # D a ring stage (64 bf16, the 128-byte swizzle's row)
+BOX_COLS = 64        # columns of a W box
+STAGES = 3
+OUT_BOX = (32, 64)   # f32 output box (columns, rows): 128-byte rows
+SMS = 132            # an H100's SMs: the persistent grid's cap
+# csrc/dequant_matmul.cu's f32 tile.
+F32_ROWS = 128
+F32_COLS = 128
+F32_CHUNK = 32       # depth a shared-memory chunk
+F32_THREAD = 8       # outputs a thread along rows and columns
+
 
 def compute_dtype(d: int) -> torch.dtype:
     return torch.bfloat16 if d >= BF16_MIN_DEPTH else torch.float32
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(m: int, d: int, n: int, sms: int = SMS) -> dict:
+    """The card's launch for y [M, N] = affine(x [M, D]) @ w [D, N]: the
+    route, the tiles (the column tile fastest) and, for bf16, the
+    persistent grid, the TMA boxes (innermost first), each map's global
+    strides in bytes, the shared memory and whether the output is stored
+    by TMA (its row stride N * 4 must be a multiple of 16)."""
+    if compute_dtype(d) == torch.float32:
+        row_tiles, col_tiles = _ceil(m, F32_ROWS), _ceil(n, F32_COLS)
+        return {
+            "route": "f32", "row_tiles": row_tiles, "col_tiles": col_tiles,
+            "tiles": row_tiles * col_tiles, "grid": row_tiles * col_tiles,
+            "threads": (F32_ROWS // F32_THREAD) * (F32_COLS // F32_THREAD),
+            "chunks": _ceil(d, F32_CHUNK),
+            "vec_x": d % 16 == 0, "vec_w": n % 4 == 0,
+            "smem": 2 * 2 * F32_CHUNK * F32_ROWS * 4,
+        }
+    ldw = _ceil(n, 8) * 8
+    row_tiles, col_tiles = _ceil(m, ROWS), _ceil(n, COLS)
+    tiles = row_tiles * col_tiles
+    stage = ROWS * DEPTH * 2 + _ceil(COLS, BOX_COLS) * DEPTH * BOX_COLS * 2
+    staging = 2 * 2 * 64 * 64 * 4  # two consumers x two quarters of [64][64] f32
+    return {
+        "route": "bf16", "row_tiles": row_tiles, "col_tiles": col_tiles,
+        "tiles": tiles, "grid": min(tiles, sms), "k_steps": _ceil(d, DEPTH),
+        "ldw": ldw, "box_a": (DEPTH, ROWS, 1), "box_w": (BOX_COLS, DEPTH, 1),
+        "box_y": (*OUT_BOX, 1), "w_boxes": _ceil(COLS, BOX_COLS),
+        "strides_a": (d * 2, m * d * 2), "strides_w": (ldw * 2, d * ldw * 2),
+        "strides_y": (n * 4, m * n * 4), "tma_store": n % 4 == 0,
+        "stages": STAGES, "stage_bytes": stage, "staging_bytes": staging,
+        "smem": STAGES * stage + staging + 2 * STAGES * 8 + 1024,
+    }
+
+
+def tile_of(t: int, p: dict):
+    """Tile t of a plan: (rows, columns) as ranges before clipping to M
+    and N; the column tile runs fastest."""
+    rt, ct = divmod(t, p["col_tiles"])
+    rows, cols = (ROWS, COLS) if p["route"] == "bf16" else (F32_ROWS,
+                                                            F32_COLS)
+    return (range(rt * rows, (rt + 1) * rows),
+            range(ct * cols, (ct + 1) * cols))
+
+
+def kernel_plan() -> dict:
+    """The compiled kernels' tiles and the card's SMs (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 9)()
+    _build.check_launch("yt8m_dequant_plan",
+                        _build.library().yt8m_dequant_plan(out))
+    return dict(zip(("rows", "cols", "stages", "smem", "f32_rows",
+                     "f32_cols", "f32_chunk", "f32_smem", "sms"), out))
 
 
 def dequant_affine_matmul_plain(x_u8, w, scale, bias):

@@ -23,6 +23,16 @@ points, so the card and the CPU differ only in the order of f32 sums
 and a_sum, never the [B, F, K] assignment. dx is skipped when x needs no
 gradient (the flagship's frames come from data).
 
+On the card (csrc/netvlad_train.cu; `plan` describes the launches) the
+forward runs the softmax once per live frame into a bf16 assignment
+buffer and a_sum, then a persistent TMA + wgmma product over (video, 256
+clusters, 128 columns) tiles that rounds x to bf16 in shared memory; the
+backward rounds dvlad to bf16 once (with cdot), then a persistent TMA +
+wgmma product over (video, 64 frames) tiles whose epilogue is the
+softmax VJP, and, with dx, a batched product on
+csrc/hopper_product.cuh. The wrappers allocate the bf16 buffers. D must
+be a multiple of 4 on the card (TMA reads x's rows).
+
 `netvlad_core_forward.launches` and `netvlad_core_backward.launches`
 count the kernel calls (one each way a training step).
 """
@@ -39,6 +49,90 @@ from yt8m_tpu_torch.kernels._checks import (
 )
 
 MAX_CLUSTERS = 512
+
+# csrc/netvlad_train.cu's tiles (yt8m_netvlad_core_plan reads the
+# kernels' own).
+FRAMES = 64            # frames a forward stage and a backward tile
+FWD_CLUSTERS = 256     # clusters a forward tile (four m64 blocks)
+FWD_COLS = 128         # columns a forward tile (64 a consumer warpgroup)
+FWD_STAGES = 3
+DEPTH = 64             # D a backward stage (64 bf16: the swizzle's row)
+F32_BOX = (32, FRAMES, 1)   # x's boxes: [64 frames][32 columns] f32
+B16_BOX = (64, FRAMES, 1)   # the assignment's: [64 frames][64 clusters]
+V_BOX = (DEPTH, 256, 1)     # bf16(dvlad)'s: [256 clusters][64 deep]
+ASSIGN_ROWS = 32       # frames a chunk of the assignment launch
+SMS = 132              # an H100's SMs: the persistent grids' cap
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pad8(n: int) -> int:
+    return _ceil(n, 8) * 8
+
+
+def plan(b: int, f: int, k: int, d: int, sms: int = SMS) -> dict:
+    """The card's launches for act [B, F, K], x [B, F, D] (K <= 512): the
+    forward's tiles (video, cluster tile, column tile; the column tile
+    fastest) and the backward's (video, frame tile; the frame tile
+    fastest), their persistent grids, the TMA boxes (innermost first),
+    each map's global strides in bytes and the shared memory."""
+    kp, dp = _pad8(k), _pad8(d)
+    kh = 128 if k <= 256 else 256  # clusters a backward consumer warpgroup
+    col_tiles, cluster_tiles = _ceil(d, FWD_COLS), _ceil(k, FWD_CLUSTERS)
+    fwd_tiles = b * cluster_tiles * col_tiles
+    fwd_stage = 4 * 64 * FRAMES * 2 + 4 * 32 * FRAMES * 4
+    bwd_stages = 4 if kh == 128 else 2
+    bwd_stage = 2 * 32 * FRAMES * 4 + 2 * kh * DEPTH * 2
+    frame_tiles = _ceil(f, FRAMES)
+    bwd_tiles = b * frame_tiles
+    return {
+        "kp": kp, "dp": dp,
+        "assign_smem": 2 * ASSIGN_ROWS * k * 4,
+        "fwd_col_tiles": col_tiles, "fwd_cluster_tiles": cluster_tiles,
+        "fwd_tiles": fwd_tiles, "fwd_grid": min(fwd_tiles, sms),
+        "fwd_stage_bytes": fwd_stage,
+        "fwd_smem": FWD_STAGES * fwd_stage + 2 * 2 * 64 * FRAMES * 2
+        + 2 * FWD_STAGES * 8 + 1024,
+        "box_assign": B16_BOX, "box_x": F32_BOX, "box_v": V_BOX,
+        "strides_assign": (kp * 2, f * kp * 2),
+        "strides_x": (d * 4, f * d * 4), "strides_v": (dp * 2, k * dp * 2),
+        "kh": kh, "v_boxes": 2 * kh // V_BOX[1],
+        "bwd_frame_tiles": frame_tiles, "bwd_tiles": bwd_tiles,
+        "bwd_grid": min(bwd_tiles, sms), "bwd_k_steps": _ceil(d, DEPTH),
+        "bwd_stages": bwd_stages, "bwd_stage_bytes": bwd_stage,
+        "bwd_smem": bwd_stages * bwd_stage + 3 * 64 * FRAMES * 2
+        + 2 * 3 * 2 * FRAMES * 4 + 2 * bwd_stages * 8 + 1024,
+    }
+
+
+def fwd_tile_of(t: int, p: dict):
+    """Forward tile t: (video, clusters, columns), the ranges before
+    clipping to K and D."""
+    rest, ct = divmod(t, p["fwd_col_tiles"])
+    video, kt = divmod(rest, p["fwd_cluster_tiles"])
+    return (video, range(kt * FWD_CLUSTERS, (kt + 1) * FWD_CLUSTERS),
+            range(ct * FWD_COLS, (ct + 1) * FWD_COLS))
+
+
+def bwd_tile_of(t: int, p: dict):
+    """Backward tile t: (video, frames) before clipping to F."""
+    video, ft = divmod(t, p["bwd_frame_tiles"])
+    return video, range(ft * FRAMES, (ft + 1) * FRAMES)
+
+
+def kernel_plan() -> dict:
+    """The compiled kernels' tiles and the card's SMs (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 11)()
+    _build.check_launch("yt8m_netvlad_core_plan",
+                        _build.library().yt8m_netvlad_core_plan(out))
+    return dict(zip(("frames", "fwd_clusters", "fwd_cols", "fwd_stages",
+                     "fwd_smem", "bwd_stages_128", "bwd_smem_128",
+                     "bwd_stages_256", "bwd_smem_256", "assign_rows", "sms"),
+                    out))
 
 
 def _bf(t):
@@ -100,6 +194,7 @@ def _require_kernel_operands(act, x, num_frames, centers, b, f, k, d):
             f"netvlad_core takes 1 <= K <= {MAX_CLUSTERS}, got K={k}")
     require(1 <= b <= 65535 and f >= 1,
             f"B={b} must be in [1, 65535] and F={f} at least 1")
+    require(d % 4 == 0, f"D={d} must be a multiple of 4 (TMA reads x's rows)")
     require_cuda_operand("act", act, torch.float32, (b, f, k))
     require_cuda_operand("x", x, torch.float32, (b, f, d))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
@@ -108,18 +203,20 @@ def _require_kernel_operands(act, x, num_frames, centers, b, f, k, d):
 
 def netvlad_core_forward(act, x, num_frames, centers):
     """(vlad, a_sum) as netvlad_core_plain_forward: the CUDA forward for
-    CUDA tensors (act, x, centers f32, num_frames int32, K <= 512), the
-    plain version for CPU tensors."""
+    CUDA tensors (act, x, centers f32, num_frames int32, K <= 512, D a
+    multiple of 4), the plain version for CPU tensors."""
     b, f, k, d = _shapes(act, x, num_frames, centers)
     if on_cpu(act, x, num_frames, centers):
         return netvlad_core_plain_forward(act, x, num_frames, centers)
     _require_kernel_operands(act, x, num_frames, centers, b, f, k, d)
     vlad = torch.empty((b, k, d), dtype=torch.float32, device=act.device)
     a_sum = torch.empty((b, k), dtype=torch.float32, device=act.device)
+    assign = torch.empty((b, f, _pad8(k)), dtype=torch.bfloat16,
+                         device=act.device)
     code = _build.library().yt8m_netvlad_core_forward(
         _build.ptr(act), _build.ptr(x), _build.ptr(num_frames),
-        _build.ptr(centers), _build.ptr(vlad), _build.ptr(a_sum), b, f, d, k,
-        _build.current_stream(act.device),
+        _build.ptr(centers), _build.ptr(assign), _build.ptr(vlad),
+        _build.ptr(a_sum), b, f, d, k, _build.current_stream(act.device),
     )
     _build.check_launch("netvlad_core_forward", code)
     netvlad_core_forward.launches += 1
@@ -139,12 +236,16 @@ def netvlad_core_backward(act, x, num_frames, centers, dvlad,
     require_cuda_operand("dvlad", dvlad, torch.float32, (b, k, d))
     dev = act.device
     cdot = torch.empty((b, k), dtype=torch.float32, device=dev)
+    dv16 = torch.empty((b, k, _pad8(d)), dtype=torch.bfloat16, device=dev)
     dact = torch.empty((b, f, k), dtype=torch.float32, device=dev)
-    dx = (torch.empty((b, f, d), dtype=torch.float32, device=dev) if need_dx
-          else None)
+    dx = p16 = None
+    if need_dx:
+        dx = torch.empty((b, f, d), dtype=torch.float32, device=dev)
+        p16 = torch.empty((b, f, _pad8(k)), dtype=torch.bfloat16, device=dev)
     code = _build.library().yt8m_netvlad_core_backward(
         _build.ptr(act), _build.ptr(x), _build.ptr(num_frames),
         _build.ptr(centers), _build.ptr(dvlad), _build.ptr(cdot),
+        _build.ptr(dv16), _build.ptr(p16) if need_dx else None,
         _build.ptr(dact), _build.ptr(dx) if need_dx else None, b, f, d, k,
         int(bool(need_dx)), _build.current_stream(dev),
     )
