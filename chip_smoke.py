@@ -1173,6 +1173,16 @@ def device_kernels(torch, fn, needle) -> dict:
     return {f"{'|'.join(needles)} (CUDA events, not the profiler)": us}
 
 
+def launch_split(split: dict) -> str:
+    """device_kernels' times by kernel, in ms, the largest first, each
+    name cut to its kernel's (nxv_cluster_kernel<128>, ...)."""
+    def short(key):
+        m = re.search(r"(nxv_\w+(?:<[^>]*>)?)", key)
+        return m.group(1) if m else key[:60]
+    return "; ".join(f"{short(k)} {v / 1e3:.4f}" for k, v in
+                     sorted(split.items(), key=lambda kv: -kv[1]))
+
+
 def device_us(torch, fn, needle) -> float:
     """The summed device time (us) of device_kernels."""
     return sum(device_kernels(torch, fn, needle).values())
@@ -2175,11 +2185,12 @@ def nextvlad_train_witness(torch, args, g, dy) -> None:
 
 def check_nextvlad(torch, gen, dev, flush) -> dict:
     """nextvlad_aggregate at small and odd shapes (P=8, 2, 144, 251 and
-    K=12, 96, 130, 256, one group and sixteen, D not a multiple of 8),
-    then at NeXtVladModel's serving shape (B=512, F=300, D=1152, lambda=2,
-    G=8, K=128) with uint8 and f32 frames against its plain version, with
-    frames past num_frames set to 255 / 1e4, the num_frames = 0 video, the
-    rounding witness, times, bound and a library yardstick."""
+    K=12, 96, 130, 256, one group and sixteen, D not a multiple of 8; P=
+    320, wider than a column tile), then at NeXtVladModel's serving shape
+    (B=512, F=300, D=1152, lambda=2, G=8, K=128) with uint8 and f32 frames
+    against its plain version, with frames past num_frames set to 255 /
+    1e4, the num_frames = 0 video, the rounding witness, times (each
+    launch's by the profiler), bound and a library yardstick."""
     from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
     from yt8m_tpu_torch.kernels.nextvlad import (
         kernel_layout,
@@ -2199,6 +2210,15 @@ def check_nextvlad(torch, gen, dev, flush) -> dict:
                         rel=NEXTVLAD_REL, abs_=1e-6)
         say("kernel", f"nextvlad edge B={b} F={f} D={d} lambda={lam} G={g} "
                       f"K={k} {dt}: max|diff| {err:.3e}")
+    # P = 320, wider than the aggregation's 288-column tile: two column
+    # tiles and the norm pass (its own generator: the later draws stay).
+    args = nextvlad_inputs(torch, torch.Generator().manual_seed(15), 3, 9,
+                           64, 5, 1, 40, torch.uint8, dev)
+    err = rel_check("nextvlad edge P=320", nextvlad_aggregate(*args, 1),
+                    nextvlad_aggregate_plain(*args, 1), rel=NEXTVLAD_REL,
+                    abs_=1e-6)
+    say("kernel", f"nextvlad edge B=3 F=9 D=64 lambda=5 G=1 K=40 (P=320) "
+                  f"uint8: max|diff| {err:.3e}")
     b, f, d, lam, g, k = (FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM,
                           NEXTVLAD_LAMBDA, NEXTVLAD_GROUPS, NEXTVLAD_CLUSTERS)
     de, p = lam * d, lam * d // g
@@ -2226,9 +2246,13 @@ def check_nextvlad(torch, gen, dev, flush) -> dict:
         nextvlad_witness(torch, f"nextvlad_aggregate {dt}", args, g)
         times[dt] = time_ms(torch, lambda: nextvlad_aggregate(
             *args, g, layout=layout), 10, flush)
-    # The serving path feeds uint8 frames: time and bound that case.
-    us = device_us(torch, lambda: nextvlad_aggregate(*args, g, layout=layout),
-                   "nxv_")
+    # The serving path feeds uint8 frames: time and bound that case, launch
+    # by launch.
+    split = device_kernels(torch, lambda: nextvlad_aggregate(
+        *args, g, layout=layout), "nxv_")
+    us = sum(split.values())
+    say("kernel", "nextvlad_aggregate by launch (profiler ms): "
+        + launch_split(split))
     plain_ms = time_ms(torch, lambda: nextvlad_aggregate_plain(*args, g), 3,
                        flush)
     live = torch.arange(f, device=dev)[None, :] < nf[:, None]
@@ -2289,11 +2313,12 @@ def nextvlad_train_grads(torch, args, g, dy):
 
 
 def check_nextvlad_train(torch, gen, dev, flush) -> dict:
-    """nextvlad_aggregate_train at small and odd shapes and at
-    NeXtVladModel's training shape (B=256, F=300, uint8 frames): the
+    """nextvlad_aggregate_train at small and odd shapes (P=320 too) and
+    at NeXtVladModel's training shape (B=256, F=300, uint8 frames): the
     forward and the five weight gradients against the plain versions, a
     second run bit for bit, frames past num_frames set to 255, times by
-    the profiler, bound and the library yardstick under autograd."""
+    the profiler (each launch's too), bound and the library yardstick
+    under autograd."""
     from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
     from yt8m_tpu_torch.kernels import nextvlad_train as tnt
     from yt8m_tpu_torch.kernels.nextvlad import (
@@ -2328,6 +2353,12 @@ def check_nextvlad_train(torch, gen, dev, flush) -> dict:
                          args, g, dy)
         say("kernel", f"nextvlad_train B={b} F={f} D={d} lambda={lam} G={g} "
                       f"K={k}: forward and gradients max|diff| {err:.3e}")
+    edge = torch.Generator().manual_seed(16)  # P = 320: two column tiles
+    args = nextvlad_inputs(torch, edge, 3, 9, 64, 5, 1, 40, torch.uint8, dev)
+    err, _ = compare("nextvlad_train P=320", args, 1,
+                     torch.randn(3, 40, 320, generator=edge).to(dev))
+    say("kernel", f"nextvlad_train B=3 F=9 D=64 lambda=5 G=1 K=40 (P=320): "
+                  f"forward and gradients max|diff| {err:.3e}")
     b, f, d, lam, g, k = (TRAIN_BATCH, FLAG_FRAMES, FEATURE_DIM,
                           NEXTVLAD_LAMBDA, NEXTVLAD_GROUPS, NEXTVLAD_CLUSTERS)
     de, p = lam * d, lam * d // g
@@ -2357,10 +2388,15 @@ def check_nextvlad_train(torch, gen, dev, flush) -> dict:
                    5, flush)
     ms_b = time_ms(torch, lambda: tnt.nextvlad_train_backward(
         nf, scratch, layout, dy), 5, flush)
-    us_f = device_us(torch, lambda: tnt.nextvlad_train_forward(
+    split_f = device_kernels(torch, lambda: tnt.nextvlad_train_forward(
         x, nf, layout), "nxv_")
-    us_b = device_us(torch, lambda: tnt.nextvlad_train_backward(
+    split_b = device_kernels(torch, lambda: tnt.nextvlad_train_backward(
         nf, scratch, layout, dy), "nxv_")
+    us_f, us_b = sum(split_f.values()), sum(split_b.values())
+    say("kernel", "nextvlad_aggregate_train forward by launch (profiler ms): "
+        + launch_split(split_f))
+    say("kernel", "nextvlad_aggregate_train backward by launch (profiler "
+        "ms): " + launch_split(split_b))
     del out, scratch
 
     def plain():

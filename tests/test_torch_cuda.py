@@ -1251,7 +1251,8 @@ def _nextvlad_close(got, want):
 
 NEXTVLAD_SHAPES = [(3, 10, 16, 2, 4, 12), (4, 70, 64, 2, 1, 128),
                    (3, 13, 32, 1, 16, 96), (5, 300, 96, 3, 2, 130),
-                   (6, 300, 1152, 2, 8, 128), (2, 130, 1004, 2, 8, 256)]
+                   (6, 300, 1152, 2, 8, 128), (2, 130, 1004, 2, 8, 256),
+                   (3, 9, 64, 5, 1, 40)]  # P = 320: two column tiles
 
 
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
@@ -1749,3 +1750,60 @@ def test_cuda_redesigned_plans_match_the_kernels(cuda):
     args, _ = _core_args(1, 2, 5, 18, 8, cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
         tnt.netvlad_core_forward(*args)
+
+
+def test_cuda_nextvlad_plans_match_the_kernels(cuda):
+    """The compiled NeXtVLAD tiles are the ones kernels/nextvlad.py ::
+    plan describes, at every Kp."""
+    got = tnv.kernel_plan()
+    nf = torch.full((2,), 7, dtype=torch.int32)
+    assert (got["rows"], got["cols"], got["wide_cols"]) == (
+        tnv.TILE, tnv.COLS, tnv.WIDE_COLS)
+    assert (got["rowprod_stages"], got["cluster_stages"],
+            got["aggregate_stages"], got["dassign_stages"],
+            got["dxg_stages"], got["wgrad_stages"]) == (tnv.STAGES,) * 6
+    for k in (12, 96, 130, 256):  # Kp = 64, 128, 192, 256
+        p = tnv.plan(nf, 7, 64, 128, 4, k, sms=got["sms"])
+        kp = p["dims"]["Kp"]
+        assert got[f"cluster_smem_{kp}"] == p["cluster"]["smem"]
+        assert got[f"dassign_smem_{kp}"] == p["dassign"]["smem"]
+    assert (got["rowprod_smem"], got["aggregate_smem"], got["dxg_smem"],
+            got["wgrad_smem"]) == (p["expand"]["smem"],
+                                   p["aggregate"]["smem"], p["dxg"]["smem"],
+                                   p["wgrad_we"]["smem"])
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_nextvlad_packed_rows_hold_the_layout(cuda, x_dtype):
+    """The packed layout's hazards on the card: info is the layout's;
+    every pad row (a run's rows past num_frames, the rows past the packed
+    total to the tile's end) of xb, xe, the assignment, the softmax,
+    d_act and d_xe is an exact zero; loud frames past num_frames leave
+    every live row's streams bit for bit."""
+    b, f, g, k = 9, 37, 8, 128
+    x, nf, *w = _nextvlad_args(21, b, f, 64, 2, g, k, x_dtype, cuda)
+    nf[4] = f  # a full video beside the planted f, 0 and 1
+    past = torch.arange(f, device=cuda)[None, :] >= nf[:, None]
+    loud = 255 if x_dtype == torch.uint8 else 1e4
+    clean = x.masked_fill(past[..., None], 0)
+    noisy = torch.where(past[..., None],
+                        torch.as_tensor(loud, dtype=x.dtype, device=cuda), x)
+    layout = tnv.kernel_layout(*w, g, training=True)
+    dy = torch.randn(b, k, 16, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for frames in (clean, noisy):
+        _, res = tnvt.nextvlad_train_forward(frames, nf, layout)
+        *_, t = tnvt.nextvlad_train_backward_with_scratch(
+            nf, res, layout, dy.to(cuda))
+        runs.append((res, t))
+    (res, t), (res2, t2) = runs
+    want = tnv.packed_info(nf.cpu(), f, g)
+    end = want.numel()
+    assert torch.equal(res["info"][:end].cpu(), want)
+    pad = (want < 0).to(cuda)
+    for name, src, other in (("xb", res, res2), ("xe", res, res2),
+                             ("assign", res, res2), ("sm", res, res2),
+                             ("dact", t, t2), ("dxe", t, t2)):
+        rows = src[name][:end]
+        assert torch.all(rows[pad] == 0), name
+        assert torch.equal(rows, other[name][:end]), name

@@ -78,9 +78,11 @@ SIGNATURES = {
     "yt8m_gru_train_plan": [_I] * 2 + [_P],
     "yt8m_attention_pool_u8": [_P] * 4 + [_I] * 4 + [_P],
     "yt8m_attention_pool_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "yt8m_nextvlad_aggregate_u8": [_P] * 18 + [_I] * 6 + [_P],
-    "yt8m_nextvlad_aggregate_f32": [_P] * 18 + [_I] * 6 + [_P],
-    "yt8m_nextvlad_train_backward": [_P] * 25 + [_I] * 7 + [_P],
+    "yt8m_nextvlad_aggregate_u8": [_P] * 20 + [_I] * 7 + [_P],
+    "yt8m_nextvlad_aggregate_f32": [_P] * 20 + [_I] * 7 + [_P],
+    "yt8m_nextvlad_plan": [_P],
+    "yt8m_nextvlad_train_backward": [_P] * 26 + [_I] * 8 + [_P],
+    "yt8m_nextvlad_train_plan": [_P],
 }
 
 

@@ -5,6 +5,7 @@ on the same inputs.
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels dbof,moe
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR \
         --kernels dequant,netvlad_core
+    python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels nextvlad
 
 DIR is the root of another checkout (e.g. a `git archive` of a parent
 commit unpacked under build/). Each checkout runs in its own process, with
@@ -32,6 +33,20 @@ each row's library call (the affine and one torch.matmul; softmax, a
 bf16 bmm and autograd). Printed: each checkout's medians, the library's,
 and max|diff| between the checkouts' outputs against each row's
 tolerance (1e-3 * max|ref| + 1e-6; 1e-5 in f32).
+
+`--kernels nextvlad`: nextvlad_aggregate at NeXtVladModel's serving
+shape (B=512, F=300, D=1152, lambda=2, G=8, K=128, uint8 frames) and the
+trainable pair (the forward with residuals and the backward) at its
+training shape (B=256), on inputs made as chip_smoke.py makes them (a
+seeded generator; num_frames uniform in 1..F with F, 0 and 1 planted).
+The checkouts run in turns (other, this, this, other), each timing every
+call by the profiler's device time (the sum over the call's kernels and
+each kernel by name, median of 7 windows, the L2 flushed before each),
+and this checkout also each row's library yardstick (bf16 matmuls,
+softmax and bmm; under autograd for the pair). Printed: each checkout's
+medians with the per-launch split, the library's, and max|diff| between
+the checkouts' outputs and five weight gradients against the rows'
+bound 2^-7 * max|ref| + 1e-6 (chip_smoke.py's NEXTVLAD_REL).
 
 Without `--kernels` (the recurrences): the trainable LSTM's and GRU's forward
 (outputs, final state, residuals) and backward (dZ; dA_g and dA_c) at the
@@ -304,6 +319,178 @@ def run_core(out_path, library="0"):
     torch.save(res, out_path)
 
 
+NXV_REL = 2.0 ** -7  # chip_smoke.py's NEXTVLAD_REL
+NXV_CASES = ("nextvlad serving", "nextvlad train forward",
+             "nextvlad train backward")
+
+
+def _nextvlad_inputs(torch, b, seed):
+    """chip_smoke.py's NeXtVLAD inputs (uint8 frames) at B=b."""
+    f, d, lam, g, k = F, 1152, 2, 8, 128
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 256, (b, f, d), generator=gen, dtype=torch.uint8)
+    nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+    nf[:3] = torch.tensor([f, 0, 1], dtype=torch.int32)
+    de = lam * d
+    w = [torch.randn(d, de, generator=gen) * d ** -0.5,
+         torch.randn(de, g, generator=gen) * de ** -0.5,
+         0.5 * torch.randn(g, generator=gen),
+         torch.randn(de, g * k, generator=gen) * de ** -0.5,
+         torch.randn(k, de // g, generator=gen) * de ** -0.5]
+    dy = torch.randn(b, k, de // g, generator=gen)
+    return [t.cuda() for t in (x, nf, *w)], dy.cuda(), g
+
+
+def _device_split(torch, fn, flush, reps=7):
+    """Median over reps profiler windows of fn's summed device time (ms)
+    and of each kernel's by name."""
+    import statistics
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    totals, names = [], {}
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        by = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.self_device_time_total
+        totals.append(sum(by.values()) / 1e3)
+        for n, us in by.items():
+            names.setdefault(n, []).append(us / 1e3)
+    return statistics.median(totals), {
+        n: statistics.median(v + [0.0] * (reps - len(v)))
+        for n, v in names.items()}
+
+
+def run_nextvlad(out_path, library="0"):
+    """The package on sys.path: nextvlad_aggregate at B=512 and the
+    trainable forward and backward at B=256, outputs, gradients and
+    device ms (total and by kernel) saved to out_path; with library =
+    "1" also the library yardsticks."""
+    import torch
+
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels import nextvlad as tnv
+    from yt8m_tpu_torch.kernels import nextvlad_train as tnt
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    bf = torch.bfloat16
+
+    def library_fn(args, g, dy):
+        x, nf, *w = args
+        b, f, _ = x.shape
+        k = w[3].shape[1] // g
+        p = w[0].shape[1] // g
+        mask = (torch.arange(f, device="cuda")[None, :]
+                < nf[:, None])[:, :, None, None]
+
+        def fn():
+            ws = [t.detach().requires_grad_(dy is not None) for t in w]
+            xb = (x.to(torch.float32) * DEQUANT_SCALE + DEQUANT_BIAS).to(bf)
+            xe = torch.matmul(xb, ws[0].to(bf))
+            alpha = torch.sigmoid(torch.matmul(xe, ws[1].to(bf)).float()
+                                  + ws[2])
+            act = torch.matmul(xe, ws[3].to(bf)).float().reshape(b, f, g, k)
+            a = torch.softmax(act, -1) * alpha[..., None] * mask
+            vlad = torch.bmm(a.to(bf).reshape(b, f * g, k).transpose(1, 2),
+                             xe.reshape(b, f * g, p)).float()
+            vlad = vlad - a.sum((1, 2))[:, :, None] * ws[4]
+            out = torch.nn.functional.normalize(vlad, dim=2, eps=1e-6)
+            if dy is not None:
+                out.backward(dy)
+        return fn
+
+    args, _, g = _nextvlad_inputs(torch, 512, 17)
+    x, nf, *w = args
+    layout = tnv.kernel_layout(*w, g)
+    fn = lambda: tnv.nextvlad_aggregate(*args, g, layout=layout)  # noqa: E731
+    res["nextvlad serving out"] = fn().cpu()
+    res["nextvlad serving ms"], res["nextvlad serving split"] = _device_split(
+        torch, fn, flush)
+    if library == "1":
+        with torch.no_grad():
+            res["nextvlad serving library ms"] = _device_split(
+                torch, library_fn(args, g, None), flush)[0]
+    del args, x, w, layout, fn
+    torch.cuda.empty_cache()
+
+    args, dy, g = _nextvlad_inputs(torch, 256, 29)
+    x, nf, *w = args
+    layout = tnv.kernel_layout(*w, g, training=True)
+    out, scratch = tnt.nextvlad_train_forward(x, nf, layout)
+    res["nextvlad train forward out"] = out.cpu()
+    grads = tnt.nextvlad_train_backward(nf, scratch, layout, dy)
+    res["nextvlad train backward out"] = torch.cat(
+        [t.flatten() for t in grads]).cpu()
+    for i, t in enumerate(grads):
+        res[f"nextvlad train grad {i}"] = t.cpu()
+    del out, grads
+    res["nextvlad train forward ms"], res["nextvlad train forward split"] = (
+        _device_split(torch, lambda: tnt.nextvlad_train_forward(
+            x, nf, layout), flush))
+    res["nextvlad train backward ms"], res["nextvlad train backward split"] = (
+        _device_split(torch, lambda: tnt.nextvlad_train_backward(
+            nf, scratch, layout, dy), flush))
+    if library == "1":
+        res["nextvlad train library ms"] = _device_split(
+            torch, library_fn(args, g, dy), flush)[0]
+    torch.save(res, out_path)
+
+
+def compare_nextvlad(torch, mine, other) -> list:
+    """Lines: each call's device ms in both checkouts with the split by
+    kernel, the library's, and max|diff| between the checkouts against
+    the rows' bound; the five weight gradients one by one."""
+    lines = []
+    for key in NXV_CASES:
+        ms = [r[f"{key} ms"] for r in mine]
+        ms_other = [r[f"{key} ms"] for r in other]
+        line = (f"{key}: this checkout {ms[0]:.4f}, {ms[1]:.4f} ms; other "
+                f"{ms_other[0]:.4f}, {ms_other[1]:.4f} ms (device, median "
+                f"of 7)")
+        lib_key = ("nextvlad serving library ms" if key.endswith("serving")
+                   else "nextvlad train library ms"
+                   if key.endswith("backward") else None)
+        if lib_key in mine[0]:
+            lib = [r[lib_key] for r in mine]
+            line += (f"; library {lib[0]:.4f}, {lib[1]:.4f} ms"
+                     + (" (forward + autograd backward)"
+                        if key.endswith("backward") else ""))
+        x, y = mine[0][f"{key} out"], other[0][f"{key} out"]
+        if x.shape == y.shape:
+            diff = (x - y).abs().max().item()
+            limit = NXV_REL * y.abs().max().item() + 1e-6
+            line += (f"; max|diff| {diff:.3e} (bound {limit:.3e}: "
+                     f"{'within' if diff <= limit else 'OUTSIDE'})")
+        lines.append(line)
+        for name, r in (("this", mine[0]), ("other", other[0])):
+            split = sorted(r[f"{key} split"].items(), key=lambda kv: -kv[1])
+            lines.append(f"  {name} by kernel: " + "; ".join(
+                f"{n[:60]} {v:.4f}" for n, v in split))
+    for i, name in enumerate(("dWe", "dWa", "dab", "dWc", "dcenters")):
+        x = mine[0][f"nextvlad train grad {i}"]
+        y = other[0][f"nextvlad train grad {i}"]
+        diff = (x - y).abs().max().item()
+        limit = NXV_REL * y.abs().max().item() + 1e-6
+        lines.append(f"nextvlad train {name}: max|diff| {diff:.3e} (bound "
+                     f"{limit:.3e}: {'within' if diff <= limit else 'OUTSIDE'}"
+                     f")")
+    return lines
+
+
 def compare_core(torch, mine, other) -> list:
     """Lines: each row's device ms in both checkouts, the library's, and
     max|diff| between the checkouts against the row's tolerance."""
@@ -399,17 +586,20 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
     ap.add_argument("--kernels", default="recurrences",
                     choices=("recurrences", "dbof,moe",
-                             "dequant,netvlad_core"))
+                             "dequant,netvlad_core", "nextvlad"))
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_compare needs a CUDA device")
+    args.out = os.path.abspath(args.out)  # the checkouts run in their roots
     os.makedirs(args.out, exist_ok=True)
     if args.kernels == "dbof,moe":
         return _main_products(torch, args, "run_products", compare_products)
     if args.kernels == "dequant,netvlad_core":
         return _main_products(torch, args, "run_core", compare_core)
+    if args.kernels == "nextvlad":
+        return _main_products(torch, args, "run_nextvlad", compare_nextvlad)
     mine = os.path.join(args.out, "this.pt")
     other = os.path.join(args.out, "other.pt")
     _in_checkout(ROOT, "run", mine)

@@ -19,53 +19,63 @@
 // three products are 2 B F (D De + De G K + G K P) = 1.63 TFLOP over all
 // frames (1.65 ms at the bf16 peak; about half for the live frames when
 // num_frames is uniform in [1, 300]), against 177 MB of uint8 frames
-// (0.05 ms at 3.35 TB/s): operations.
-//
-// Design. The TPU kernel holds a video in VMEM (x, xe and the f32 logits,
-// ~3 MB); a Hopper block has 227 KB of shared memory, so the work is cut
-// into six launches on the caller's stream, every product a tiled
-// tensor-core product (nextvlad_gemm.cuh). The live frames of all videos
-// are packed one after another (row_off, the prefix sums of the live
-// counts): the frame-row products tile the packed rows, so a short video
-// wastes no tile and frames past n are neither read nor computed.
-//  0. nxv_frames_to_bf16: xb = bf16(dequant(x)) for the live frames.
-//  1. nxv_expand_kernel, a block per (128 columns of De, 128 packed
-//     rows): xe = xb @ We, rounded to bf16 once.
-//  2. nxv_alpha_kernel, a warp a packed row: the G attention dots
-//     xe . Wa[:, g] (length De, bf16 operands, f32 sums on the CUDA cores,
-//     Wa in shared memory) and alpha; bound by reading xe.
-//  3. nxv_cluster_kernel, a block per (group, 128 packed rows): the
-//     group's Kp cluster columns of xe @ Wc over all of De, so that the
-//     epilogue holds whole softmax rows: the softmax, bf16(assign), and
-//     the f32 column sums of the assignment of each video's run of rows
-//     in the tile (and, for training, the f32 softmax).
-//  4. nxv_aggregate_kernel, a block per (128 columns of P, 128 clusters,
-//     video): assign^T @ xg over the video's n G rows (xe seen as
-//     [F G, Pp] is row-major, the assignment tile is read column-major),
-//     minus a_sum (x) centers, with each row's partial sum of squares.
-//  5. nxv_norm_kernel: the intra-norm.
-// Scratch from the caller (B=512): xb 354 MB, xe 708 MB, the bf16
-// assignment 315 MB, vlad 75 MB (each written for the live frames only).
-// wgmma + TMA and keeping xe on chip are later work.
+// (0.05 ms at 3.35 TB/s): operations. So every product runs on the TMA +
+// wgmma mainloop of hopper_gemm.cuh (the tensor cores' full-rate path),
+// over the packed row layout of nextvlad_hopper.cuh (each video's live
+// frames contiguous, its run padded with zero rows to a multiple of R
+// frames): frames past n are neither read nor computed, and every product
+// reads its operands as plain 2-D TMA boxes. Launches, on the caller's
+// stream:
+//  0. nxv_pack_frames, a block per 32 rows of a video's run: xb = bf16(dequant(x)) into the
+//     packed rows (zeros for the run's pad rows and past the total to the
+//     last tile's end) and the rows' info.
+//  1. nxv_row_product (nextvlad_hopper.cuh): xe = bf16(xb @ We), tiles of
+//     128 packed rows x 256 columns, persistent, rounded once and stored
+//     by TMA.
+//  2. nxv_cluster_kernel, persistent over (128 packed rows, the groups of
+//     256 columns of Wc): the logits xe @ Wc over all of De in the two
+//     consumers' registers, and beside them the tile's attention dots
+//     xe @ Wa (one m64n8k16 a 16-deep step on a K-major box of wa's
+//     rows; a separate attention launch, a warp a row on the CUDA cores,
+//     took 0.42 of 5.70 ms on an H100 at B=512); the epilogue takes alpha
+//     and each row's softmax over a group's K columns with quad shuffles
+//     (a row's columns sit in the four lanes of a quad), writes
+//     bf16(assign) (and, for the backward, the f32 softmax and alpha),
+//     and sums each column over the rows of every 8-row block (a block is
+//     one video's: a reduce-scatter over the block's eight lanes) and then over
+//     the blocks of each video in a consumer's 64 rows (in order, in
+//     shared memory): one f32 partial a (video, 64-row half tile), no
+//     float atomics.
+//  3. nxv_aggregate_kernel, persistent over (video, 128 clusters, 288
+//     columns of P), the longest videos first: assign^T @ xg over the
+//     video's n_pad G (frame, group) rows in 64-deep stages (A MN-major:
+//     the assignment read as A[k][row]; B MN-major: xe seen as [rows G,
+//     Pp]; one m64n256k16 and one m64n32k16 a 16-deep step), a_sum from
+//     the partials in a fixed order, and an epilogue that subtracts a_sum
+//     (x) centers and, when one tile holds all of P, takes the intra-norm
+//     over each cluster row's quad: out directly, no pre-norm scratch.
+//  4. nxv_norm_kernel, only when P is wider than one column tile: the
+//     intra-norm from the tiles' partial sums of squares.
+// Scratch from the caller (B=512): xb 354 MB, xe 708 MB and the bf16
+// assignment 315 MB at most (written for the packed rows only), the a_sum
+// partials 12.6 MB.
 
-#include "nextvlad_gemm.cuh"
+#include <type_traits>
 
-using namespace nxv;
+#include "hopper_gemm.cuh"
+#include "nextvlad_hopper.cuh"
 
+// The file's kernels sit in nxv's anonymous namespace with the header's.
+namespace nxv {
 namespace {
 
 constexpr float kDeqScale = static_cast<float>(4.0 / 255.0);
 constexpr float kDeqBias = static_cast<float>(4.0 / 512.0 - 2.0);
 constexpr float kNormEpsSq = 1e-12f;
-constexpr int kTile = 128;  // rows and columns of a block tile
 constexpr int kMaxClusters = 256;
-constexpr int kAlphaRows = 64;  // packed rows a block of the attention launch
-constexpr int kMaxAlphaSmem = 200 * 1024;
-
-using Expand = BlockMma<kTile, kTile, false, false>;
-using Aggregate = BlockMma<kTile, kTile, true, false>;
-template <int FNW>
-using Cluster = BlockMma<kTile, 64 * FNW, false, false>;
+constexpr int kSimpleThreads = 256;  // the element-wise launches
+constexpr int kSimpleWarps = kSimpleThreads / 32;
+constexpr int kPackRows = 32;        // packed rows a block of the frames pass
 
 __device__ __forceinline__ void load8(const uint8_t* p, float (&v)[8]) {
   const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
@@ -83,413 +93,610 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// Launch 0: xb = bf16(dequant(x)) for the live rows, eight values a
-// thread (D8 % 8 == 0). Rows past n are not written.
+// Launch 0. Grid (B + 1, ceil(round_up(F, R) / 32)): block (b < B, y)
+// packs rows [32 y, 32 y + 32) of video b's run (its n live frames, then
+// zeros to n_pad), blocks (B, y) zero the rows from the packed total to
+// the end of its 128-row tile. D8 % 8 == 0.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nxv_frames_to_bf16(const T* __restrict__ x, const int* __restrict__ num_frames,
-                   bf16* __restrict__ xb, int B, int F, int D8) {
-  const size_t row_chunks = D8 / 8;
-  const size_t n8 = static_cast<size_t>(B) * F * row_chunks;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n8;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t row = i / row_chunks;
-    const int b = static_cast<int>(row / F);
-    const int f = static_cast<int>(row % F);
-    if (f >= live_frames(num_frames, b, F)) continue;
-    float v[8];
-    load8(x + i * 8, v);
-    if (std::is_same<T, uint8_t>::value) {
+__global__ void __launch_bounds__(kSimpleThreads)
+nxv_pack_frames(const T* __restrict__ x, const int* __restrict__ num_frames,
+                const int* __restrict__ poff, bf16* __restrict__ xb, int* __restrict__ info, int B,
+                int F, int D8) {
+  const int b = blockIdx.x;
+  const int r0 = poff[b];
+  const int run = b < B ? poff[b + 1] - r0 : round_up(r0, kRows) - r0;
+  const int f0 = blockIdx.y * kPackRows;
+  const int rows = min(run - f0, kPackRows);
+  if (rows <= 0) return;
+  const int n = b < B ? live_frames(num_frames, b, F) : 0;
+  const int chunks = D8 / 8;
+  const T* src = x + static_cast<size_t>(b < B ? b : 0) * F * D8;
+  for (int i = threadIdx.x; i < rows * chunks; i += kSimpleThreads) {
+    const int f = f0 + i / chunks;
+    const int c = i % chunks;
+    float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (f < n) {
+      load8(src + static_cast<size_t>(f) * D8 + 8 * c, v);
+      if (std::is_same<T, uint8_t>::value) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(__fmul_rn(v[j], kDeqScale), kDeqBias);
+        for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(__fmul_rn(v[j], kDeqScale), kDeqBias);
+      }
     }
-    store8_bf16(xb + i * 8, v);
+    uint4 q;
+    q.x = pack_bf16(v[0], v[1]);
+    q.y = pack_bf16(v[2], v[3]);
+    q.z = pack_bf16(v[4], v[5]);
+    q.w = pack_bf16(v[6], v[7]);
+    *reinterpret_cast<uint4*>(xb + static_cast<size_t>(r0 + f) * D8 + 8 * c) = q;
+  }
+  for (int f = f0 + threadIdx.x; f < f0 + rows; f += kSimpleThreads)
+    info[r0 + f] = b < B ? (f < n ? b : -1 - b) : -1 - B;
+}
+
+// ---------------------------------------------------------------------------
+// Launch 2: the cluster product, the attention, the softmax and the
+// column sums.
+// ---------------------------------------------------------------------------
+
+// One halving exchange of a reduce-scatter over the eight lanes r of a
+// quad column (lanes 4 << STEP apart): of acc[0, LEN), a lane keeps the
+// half its bit names (upper: [LEN / 2, LEN)) summed with its partner's,
+// in acc[0, LEN / 2).
+template <int LEN, int STEP>
+__device__ __forceinline__ void reduce_scatter_step(float* acc, bool upper) {
+#pragma unroll
+  for (int i = 0; i < LEN / 2; ++i) {
+    const float sent = hgemm::select(upper, acc[i], acc[i + LEN / 2]);
+    const float kept = hgemm::select(upper, acc[i + LEN / 2], acc[i]);
+    acc[i] = kept + __shfl_xor_sync(0xffffffffu, sent, 4 << STEP);
   }
 }
 
-// Launch 1. Grid (ceil(GP / 128), ceil(B F / 128)).
-__global__ void __launch_bounds__(kThreads, 2)
-nxv_expand_kernel(const bf16* __restrict__ xb, const int* __restrict__ row_off,
-                  const bf16* __restrict__ we, bf16* __restrict__ xe, int B, int F, int D8,
-                  int GP) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int s_row[kTile];
-  const int n0 = blockIdx.x * kTile;
-  const int r0 = blockIdx.y * kTile;
-  if (r0 >= row_off[B]) return;
-  packed_rows<kTile>(row_off, B, F, r0, s_row);
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + kStages * Expand::kStageA;
-  auto load = [&](int slot, int step) {
-    const int k0 = step * kBK;
-    Expand::load(
-        sA, sB, slot,
-        [&](int r, int c, bool& ok) {
-          ok = s_row[r] >= 0 && k0 + c < D8;
-          return ok ? xb + static_cast<size_t>(s_row[r]) * D8 + k0 + c : xb;
-        },
-        [&](int r, int c, bool& ok) {
-          ok = k0 + r < D8 && n0 + c < GP;
-          return ok ? we + static_cast<size_t>(k0 + r) * GP + n0 + c : we;
-        });
-  };
-  Expand::Acc acc[Expand::FM][Expand::FN];
-  Expand::run(acc, sA, sB, (D8 + kBK - 1) / kBK, load);
-  float* S = reinterpret_cast<float*>(smem);
-  Expand::store(acc, S);
-  __syncthreads();
-  for (int c = threadIdx.x; c < kTile * (kTile / 8); c += kThreads) {
-    const int r = c / (kTile / 8);
-    const int col = (c % (kTile / 8)) * 8;
-    const int n = n0 + col;
-    if (s_row[r] >= 0 && n < GP)
-      store8_bf16(xe + static_cast<size_t>(s_row[r]) * GP + n, S + r * Expand::kLdS + col);
-  }
-}
+template <int Kp>  // the padded clusters of a group: 64, 128, 192 or 256
+struct Clu {
+  static constexpr int kGroups = Kp == 64 ? 4 : Kp == 128 ? 2 : 1;  // groups a tile
+  static constexpr int kN = kGroups * Kp;                            // 256 or 192
+  static constexpr int kJ = Kp / 8;  // accumulator column blocks a group
+  static constexpr int kStages = 4;
+  static constexpr int kBBytes = hgemm::boxes(kN) * hgemm::kBoxBytes;
+  static constexpr int kWaBytes = 8 * hgemm::kDepth * 2;  // wa: [8 groups][64 deep], 1 KB
+  static constexpr int kStageBytes = hgemm::kABytes + kBBytes + kWaBytes;
+  static constexpr int kAcc = kN / 2 + 4;  // the logits, then the attention's m64n8
+  static constexpr int kRedBytes = 2 * 8 * kN * 4;  // [warpgroup][8 row blocks][kN] f32
+  static constexpr int kInfoBytes = 2 * kRows * 4;  // [tile parity][128] int
+  static constexpr int kSmemBytes = kStages * kStageBytes + kRedBytes + kInfoBytes + 2 * kStages * 8;
+  static constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+  static_assert(kSmem <= 232448, "shared memory a block");
+};
 
-// Launch 2. Grid (ceil(B F / 64)); dynamic shared memory G GP bf16.
-__global__ void __launch_bounds__(kThreads)
-nxv_alpha_kernel(const bf16* __restrict__ xe, const int* __restrict__ row_off,
-                 const bf16* __restrict__ wa, const float* __restrict__ ab,
-                 float* __restrict__ alpha, int B, int F, int G, int GP) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int total = row_off[B];
-  const int r0 = blockIdx.x * kAlphaRows;
-  if (r0 >= total) return;
-  const int chunks = GP / 8;
-  uint4* s_wa = reinterpret_cast<uint4*>(smem);
-  for (int i = threadIdx.x; i < G * chunks; i += kThreads)
-    s_wa[i] = __ldg(reinterpret_cast<const uint4*>(wa) + i);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r_end = min(total, r0 + kAlphaRows);
-  for (int r = r0 + warp; r < r_end; r += kWarps) {
-    const int b = video_of(row_off, B, r);
-    const size_t row = static_cast<size_t>(b) * F + (r - row_off[b]);
-    const uint4* xr = reinterpret_cast<const uint4*>(xe + row * GP);
-    for (int g0 = 0; g0 < G; g0 += 8) {
-      float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      for (int c = lane; c < chunks; c += 32) {
-        float xv[8];
-        unpack8_bf16(xr[c], xv);
+template <int Kp>
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nxv_cluster_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                   const __grid_constant__ CUtensorMap map_wa, const int* __restrict__ poff,
+                   const int* __restrict__ info, const float* __restrict__ ab,
+                   float* __restrict__ alpha, bf16* __restrict__ assign,
+                   float* __restrict__ sm_out, float* __restrict__ asum_part, int B, int G, int K,
+                   int GP, int J) {
+  using C = Clu<Kp>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  float* red = reinterpret_cast<float*>(smem + C::kStages * C::kStageBytes);
+  int* s_info = reinterpret_cast<int*>(red + 2 * 8 * C::kN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_info + 2 * kRows);
+  uint64_t* empty = full + C::kStages;
+  const int n_rt = ceil_div(poff[B], kRows);
+  const int n_gt = ceil_div(G, C::kGroups);
+  const int tiles = n_rt * n_gt;
+  const int nk = ceil_div(GP, hgemm::kDepth);
+  init_ring(full, empty, C::kStages);
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* wmap = &map_w;
+  const CUtensorMap* amap = &map_wa;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int rt = t / n_gt;
+        const int gt = t % n_gt;
+        hgemm::produce<C::kStages>(
+            full, empty, ring, nk, C::kStageBytes, [&](int s, uint64_t* bar, int kt) {
+              unsigned char* st = smem + s * C::kStageBytes;
+              hgemm::tma_3d(st, xmap, bar, kt * hgemm::kDepth, rt * kRows, 0);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (g0 + j < G) {
-            float wv[8];
-            unpack8_bf16(s_wa[(g0 + j) * chunks + c], wv);
+              for (int i = 0; i < hgemm::boxes(C::kN); ++i)
+                hgemm::tma_3d(st + hgemm::kABytes + i * hgemm::kBoxBytes, wmap, bar,
+                              gt * C::kN + i * hgemm::kBoxCols, kt * hgemm::kDepth, 0);
+              hgemm::tma_3d(st + hgemm::kABytes + C::kBBytes, amap, bar, kt * hgemm::kDepth,
+                            gt * C::kGroups, 0);
+            });
+      }
+    }
+    return;
+  }
+  hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+  const Lane ln;
+  const int t256 = threadIdx.x;  // 0..255: the consumers
+  const int t128 = threadIdx.x & 127;
+  const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+  float* my_red = red + wg * 8 * C::kN;
+  const int GKp = G * Kp;
+  float acc[C::kAcc];  // the logits in [0, kN / 2), the attention dots after
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+    const int rt = t / n_gt;
+    const int gt = t % n_gt;
+    int* si = s_info + (it & 1) * kRows;
+    if (t256 < kRows) si[t256] = info[rt * kRows + t256];
+    hgemm::zero<C::kAcc>(acc);
+    hgemm::consume<C::kStages, C::kAcc>(full, empty, ring, nk, acc, [&](int s) {
+      const uint32_t st = hgemm::smem_u32(smem + s * C::kStageBytes);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) acc[j] = fmaf(xv[i], wv[i], acc[j]);
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+        hgemm::chain<C::kN>(acc, st + a_off, st + hgemm::kABytes, kk);
+        // The attention dots xe . Wa[:, g] of the tile's groups: wa's rows
+        // as a K-major B of 8 columns.
+        hgemm::mma<8, 0, 0>(acc + C::kN / 2, hgemm::desc_a(st + a_off, kk),
+                            hgemm::desc_b_k(st + hgemm::kABytes + C::kBBytes, kk));
+      }
+    });
+    hgemm::named_sync(3, 256);  // si written
+
+    // The softmax of each (row, group): columns 8j + 2q + e of group gi
+    // are acc[4 j + 2 h + e] for j in [gi kJ, (gi + 1) kJ). Loads are
+    // unconditional (clamped), values selected.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = 64 * wg + ln.row(h);
+      const int row = rt * kRows + lr;
+      const bool live = si[lr] >= 0;
+#pragma unroll
+      for (int gi = 0; gi < C::kGroups; ++gi) {
+        const int g = gt * C::kGroups + gi;
+        // Group gi's dot is column gi of the m64n8: lane gi / 2 of the quad.
+        const float dot = __shfl_sync(0xffffffffu, acc[C::kN / 2 + 2 * h + (gi & 1)],
+                                      (threadIdx.x & 28) | (gi >> 1));
+        const float al = 1.0f / (1.0f + expf(-__fadd_rn(dot, __ldg(ab + min(g, G - 1)))));
+        if (alpha != nullptr && ln.q == 0 && g < G) alpha[static_cast<size_t>(row) * G + g] = al;
+        float m = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < C::kJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 8 * jj + 2 * ln.q + e;
+            const float v = acc[4 * (gi * C::kJ + jj) + 2 * h + e];
+            m = k < K ? fmaxf(m, v) : m;
+          }
+        m = quad_max(m);
+        float s = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < C::kJ; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 8 * jj + 2 * ln.q + e;
+            float& v = acc[4 * (gi * C::kJ + jj) + 2 * h + e];
+            v = k < K ? __expf(__fsub_rn(v, m)) : 0.0f;  // ex2.approx: within ~1e-6
+            s += v;
+          }
+        s = quad_sum(s);
+        const float rs = 1.0f / s;  // within an ulp of the quotient
+        const bool valid = live && g < G;
+        bf16* arow = assign + static_cast<size_t>(row) * GKp + min(g, G - 1) * Kp;
+        float* srow = sm_out + static_cast<size_t>(row) * GKp + min(g, G - 1) * Kp;
+#pragma unroll
+        for (int jj = 0; jj < C::kJ; ++jj) {
+          const int a = 4 * (gi * C::kJ + jj) + 2 * h;
+          const int k = 8 * jj + 2 * ln.q;
+          const float p0 = hgemm::select(valid, acc[a] * rs, 0.0f);
+          const float p1 = hgemm::select(valid, acc[a + 1] * rs, 0.0f);
+          acc[a] = __fmul_rn(p0, al);
+          acc[a + 1] = __fmul_rn(p1, al);
+          if (g < G) {
+            *reinterpret_cast<uint32_t*>(arow + k) = pack_bf16(acc[a], acc[a + 1]);
+            if (sm_out != nullptr) *reinterpret_cast<float2*>(srow + k) = make_float2(p0, p1);
           }
         }
       }
+    }
+
+    // Column sums: over each 8-row block (one video's), then over the
+    // blocks of this consumer's 64 rows, a video's run at a time, in order.
+    // A block's rows are the eight lanes r of a quad column: a
+    // reduce-scatter over them (three halving exchanges, lanes 4, 8 and 16
+    // apart) leaves each lane an eighth of the warp's sums, acc[i] for
+    // accumulator index i + off, in a fixed order.
+    constexpr int L = C::kN / 2;
+    reduce_scatter_step<L, 0>(acc, ln.r & 1);
+    reduce_scatter_step<L / 2, 1>(acc, (ln.r >> 1) & 1);
+    reduce_scatter_step<L / 4, 2>(acc, (ln.r >> 2) & 1);
+    const int off = (ln.r & 1) * (L / 2) + ((ln.r >> 1) & 1) * (L / 4) + ((ln.r >> 2) & 1) * (L / 8);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float s = warp_sum(acc[j]);
-        if (lane == 0 && g0 + j < G)
-          alpha[row * G + g0 + j] = 1.0f / (1.0f + expf(-__fadd_rn(s, ab[g0 + j])));
+    for (int i = 0; i < L / 8; ++i) {
+      const int a = i + off;  // acc[4 j + 2 h + e]: column 8 j + 2 q + e of block 2 warp + h
+      my_red[(2 * ln.warp + ((a >> 1) & 1)) * C::kN + 8 * (a >> 2) + 2 * ln.q + (a & 1)] = acc[i];
+    }
+    hgemm::named_sync(1 + wg, 128);
+    const int half = 2 * rt + wg;  // this consumer's 64-row half tile
+    for (int c = t128; c < C::kN; c += 128) {
+      const int g = gt * C::kGroups + c / Kp;
+      if (g >= G) break;
+      const int k = c % Kp;
+      int cur = -1;
+      float tsum = 0.0f;
+      auto flush = [&]() {
+        if (cur >= 0 && cur < B) {
+          const int slot = half - poff[cur] / 64;
+          asum_part[((static_cast<size_t>(cur) * J + slot) * G + g) * Kp + k] = tsum;
+        }
+      };
+#pragma unroll
+      for (int bi = 0; bi < 8; ++bi) {
+        const int v = info_video(si[64 * wg + 8 * bi]);
+        if (v != cur) {
+          flush();
+          cur = v;
+          tsum = 0.0f;
+        }
+        tsum += my_red[bi * C::kN + c];
       }
+      flush();
     }
   }
 }
 
-// Launch 3. Grid (G, ceil(B F / 128)). Kp = 64 FNW cluster columns;
-// asum_part [B, J, G, Kp] gets, for each video with rows in the tile, the
-// column sums of those rows at j = tile - row_off[b] / 128.
-template <int FNW>
-__global__ void __launch_bounds__(kThreads, FNW <= 2 ? 2 : 1)
-nxv_cluster_kernel(const bf16* __restrict__ xe, const int* __restrict__ row_off,
-                   const bf16* __restrict__ wc, const float* __restrict__ alpha,
-                   bf16* __restrict__ assign, float* __restrict__ asum_part,
-                   float* __restrict__ sm_out, int B, int F, int G, int K, int GP, int J) {
-  using M = Cluster<FNW>;
-  constexpr int Kp = 64 * FNW;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int s_row[kTile];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int r0 = tile * kTile;
-  if (r0 >= row_off[B]) return;
-  packed_rows<kTile>(row_off, B, F, r0, s_row);
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + kStages * M::kStageA;
-  const bf16* wcg = wc + g * Kp;
-  const int ldw = G * Kp;
-  auto load = [&](int slot, int step) {
-    const int k0 = step * kBK;
-    M::load(
-        sA, sB, slot,
-        [&](int r, int c, bool& ok) {
-          ok = s_row[r] >= 0 && k0 + c < GP;
-          return ok ? xe + static_cast<size_t>(s_row[r]) * GP + k0 + c : xe;
-        },
-        [&](int r, int c, bool& ok) {
-          ok = k0 + r < GP;
-          return ok ? wcg + static_cast<size_t>(k0 + r) * ldw + c : wc;
-        });
-  };
-  typename M::Acc acc[M::FM][M::FN];
-  M::run(acc, sA, sB, (GP + kBK - 1) / kBK, load);
-  float* S = reinterpret_cast<float*>(smem);
-  M::store(acc, S);
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// Launch 3: the aggregation, the centers term and the intra-norm.
+// ---------------------------------------------------------------------------
 
-  // A warp a row: the softmax over the K real clusters and the
-  // assignment sm * alpha (f32 back into S for the column sums).
-  for (int r = warp; r < kTile; r += kWarps) {
-    const int sr = s_row[r];
-    if (sr < 0) break;
-    float* row = S + r * M::kLdS;
-    float m = -INFINITY;
-    for (int k = lane; k < K; k += 32) m = fmaxf(m, row[k]);
-    m = warp_max(m);
-    float s = 0.0f;
-    for (int k = lane; k < K; k += 32) {
-      const float e = expf(__fsub_rn(row[k], m));
-      row[k] = e;
-      s += e;
-    }
-    s = warp_sum(s);
-    const float al = alpha[static_cast<size_t>(sr) * G + g];
-    const size_t o = (static_cast<size_t>(sr) * G + g) * Kp;
-    for (int k = lane; k < Kp; k += 32) {
-      const float p = k < K ? row[k] / s : 0.0f;
-      const float a = __fmul_rn(p, al);
-      row[k] = a;
-      assign[o + k] = __float2bfloat16_rn(a);
-      if (sm_out != nullptr) sm_out[o + k] = p;
-    }
-  }
-  __syncthreads();
-  // Column sums, a video's run of rows at a time, rows in order.
-  if (tid < Kp) {
-    int cur = -1;
-    float t = 0.0f;
-    for (int r = 0; r < kTile && s_row[r] >= 0; ++r) {
-      const int b = s_row[r] / F;
-      if (b != cur) {
-        if (cur >= 0)
-          asum_part[((static_cast<size_t>(cur) * J + tile - row_off[cur] / kTile) * G + g) * Kp +
-                    tid] = t;
-        cur = b;
-        t = 0.0f;
-      }
-      t += S[r * M::kLdS + tid];
-    }
-    if (cur >= 0)
-      asum_part[((static_cast<size_t>(cur) * J + tile - row_off[cur] / kTile) * G + g) * Kp + tid] =
-          t;
-  }
+// Tile `it` of a block's walk over `tiles` tiles, or -1 past the end:
+// blocks take rounds of gridDim.x tiles, every other round in reverse, so
+// that over tiles sorted longest first each block's sum is about even.
+__device__ __forceinline__ int snake_tile(int it, int tiles) {
+  const int t = it * gridDim.x + ((it & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  return t < tiles ? t : -1;
 }
 
-// Launch 4. Grid (ceil(Pp / 128), ceil(Kp / 128), B).
-__global__ void __launch_bounds__(kThreads, 2)
-nxv_aggregate_kernel(const bf16* __restrict__ assign, const bf16* __restrict__ xe,
-                     const int* __restrict__ row_off, const float* __restrict__ asum_part,
-                     const float* __restrict__ centers, float* __restrict__ vlad,
-                     float* __restrict__ sumsq, float* __restrict__ a_sum, int F, int G, int K,
+namespace agg {
+constexpr int kStages = 4;
+constexpr int kStageBytes = hgemm::kABytes + kWideBoxes * hgemm::kBoxBytes;  // 56 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kRows * 4 + 2 * kStages * 8;
+constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+static_assert(kSmem <= 232448, "shared memory a block");
+}  // namespace agg
+
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nxv_aggregate_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_x,
+                     const int* __restrict__ poff, const int* __restrict__ order,
+                     const float* __restrict__ asum_part, const float* __restrict__ centers,
+                     float* __restrict__ vlad, float* __restrict__ sumsq,
+                     float* __restrict__ a_sum, float* __restrict__ out, int B, int G, int K,
                      int P, int Pp, int Kp, int J) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float s_asum[kTile];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + kStages * Aggregate::kStageA;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n0 = blockIdx.x * kTile;
-  const int m0 = blockIdx.y * kTile;
-  const int b = blockIdx.z;
-  const int live = row_off[b + 1] - row_off[b];
-  const int rows = live * G;  // the (frame, group) rows to sum
-  const bf16* av = assign + static_cast<size_t>(b) * F * G * Kp;
-  const bf16* xv = xe + static_cast<size_t>(b) * F * G * Pp;
-  auto load = [&](int slot, int step) {
-    const int k0 = step * kBK;
-    Aggregate::load(
-        sA, sB, slot,
-        [&](int r, int c, bool& ok) {
-          ok = k0 + r < rows && m0 + c < Kp;
-          return ok ? av + static_cast<size_t>(k0 + r) * Kp + m0 + c : assign;
-        },
-        [&](int r, int c, bool& ok) {
-          ok = k0 + r < rows && n0 + c < Pp;
-          return ok ? xv + static_cast<size_t>(k0 + r) * Pp + n0 + c : xe;
+  using namespace agg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  float* s_asum = reinterpret_cast<float*>(smem + kStages * kStageBytes);  // [2][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_asum + 2 * kRows);
+  uint64_t* empty = full + kStages;
+  const int n_ct = ceil_div(Kp, kRows);
+  const int n_pt = ceil_div(Pp, kWideCols);
+  const int tiles = B * n_ct * n_pt;
+  init_ring(full, empty, kStages);
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* amap = &map_a;
+  const CUtensorMap* xmap = &map_x;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int it = 0, t; (t = snake_tile(it, tiles)) >= 0; ++it) {
+        const int b = order[t / (n_ct * n_pt)];
+        const int ct = (t / n_pt) % n_ct;
+        const int pt = t % n_pt;
+        const int d0 = poff[b] * G;
+        const int nk = (poff[b + 1] - poff[b]) * G / hgemm::kDepth;
+        hgemm::produce<kStages>(full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
+          unsigned char* st = smem + s * kStageBytes;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            hgemm::tma_3d(st + i * hgemm::kBoxBytes, amap, bar, ct * kRows + 64 * i,
+                          d0 + kt * hgemm::kDepth, 0);
+#pragma unroll
+          for (int i = 0; i < kWideBoxes; ++i)
+            hgemm::tma_3d(st + hgemm::kABytes + i * hgemm::kBoxBytes, xmap, bar,
+                          pt * kWideCols + i * hgemm::kBoxCols, d0 + kt * hgemm::kDepth, 0);
         });
-  };
-  Aggregate::Acc acc[Aggregate::FM][Aggregate::FN];
-  Aggregate::run(acc, sA, sB, (rows + kBK - 1) / kBK, load);
-  float* S = reinterpret_cast<float*>(smem);
-  Aggregate::store(acc, S);
-  // The tiles holding the video's rows, in order.
-  const int j_end = live > 0 ? (row_off[b + 1] - 1) / kTile - row_off[b] / kTile + 1 : 0;
-  for (int m = tid; m < kTile; m += kThreads) {
-    const int k = m0 + m;
-    float t = 0.0f;
-    if (k < Kp)
-      for (int j = 0; j < j_end; ++j)
-        for (int gg = 0; gg < G; ++gg)
-          t += asum_part[((static_cast<size_t>(b) * J + j) * G + gg) * Kp + k];
-    s_asum[m] = t;
-    if (blockIdx.x == 0 && k < Kp) a_sum[static_cast<size_t>(b) * Kp + k] = t;
-  }
-  __syncthreads();
-  // A warp a cluster row: vlad = sum - a_sum * centers (multiply and
-  // subtract each rounded, as the plain version), the row's partial sum
-  // of squares over the block's columns.
-  for (int m = warp; m < kTile; m += kWarps) {
-    const int k = m0 + m;
-    if (k >= K) break;
-    const float as = s_asum[m];
-    float ss = 0.0f;
-    for (int c = lane; c < kTile; c += 32) {
-      const int p = n0 + c;
-      if (p < P) {
-        const float v = __fsub_rn(S[m * Aggregate::kLdS + c],
-                                  __fmul_rn(as, centers[static_cast<size_t>(k) * P + p]));
-        vlad[(static_cast<size_t>(b) * K + k) * P + p] = v;
-        ss = fmaf(v, v, ss);
       }
     }
-    ss = warp_sum(ss);
-    if (lane == 0) sumsq[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * K + k] = ss;
+    return;
+  }
+  hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+  const Lane ln;
+  const int t256 = threadIdx.x;
+  float acc[kWideCols / 2];
+  int it = 0;
+  for (int t; (t = snake_tile(it, tiles)) >= 0; ++it) {
+    const int b = order[t / (n_ct * n_pt)];
+    const int ct = (t / n_pt) % n_ct;
+    const int pt = t % n_pt;
+    const int r0 = poff[b];
+    const int np = poff[b + 1] - r0;
+    const int nk = np * G / hgemm::kDepth;
+    // a_sum of the tile's clusters: the video's partials, slot by slot,
+    // group by group.
+    float* sa = s_asum + (it & 1) * kRows;
+    if (t256 < kRows) {
+      const int k = ct * kRows + t256;
+      const int slots = np > 0 ? (r0 + np - 1) / 64 - r0 / 64 + 1 : 0;
+      float tsum = 0.0f;
+      if (k < Kp)
+        for (int j = 0; j < slots; ++j)
+          for (int g0 = 0; g0 < G; g0 += 8) {  // eight loads in flight, added in order
+            const float* src = asum_part + ((static_cast<size_t>(b) * J + j) * G + g0) * Kp + k;
+            float v[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) v[u] = g0 + u < G ? __ldg(src + u * Kp) : 0.0f;
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (g0 + u < G) tsum += v[u];
+          }
+      sa[t256] = tsum;
+      if (a_sum != nullptr && pt == 0 && k < Kp) a_sum[static_cast<size_t>(b) * Kp + k] = tsum;
+    }
+    hgemm::zero<kWideCols / 2>(acc);
+    hgemm::consume<kStages, kWideCols / 2>(full, empty, ring, nk, acc, [&](int s) {
+      const uint32_t st = hgemm::smem_u32(smem + s * kStageBytes);
+      const uint32_t xs = st + hgemm::kABytes;
+#pragma unroll
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+        const uint64_t a = hgemm::desc_a_mn(st + wg * hgemm::kBoxBytes, kk);
+        hgemm::mma<256, 1, 1>(acc, a, hgemm::desc_b(xs, kk));
+        hgemm::mma<32, 1, 1>(acc + 128, a, hgemm::desc_b(xs + 4 * hgemm::kBoxBytes, kk));
+      }
+    });
+    hgemm::named_sync(3, 256);  // sa written
+
+    // vlad = acc - a_sum (x) centers (multiply and subtract each rounded,
+    // as the plain version); the row's sum of squares over its quad.
+    // Loads unconditional (clamped to cluster K - 1 and, in a tile past
+    // P's end, column P - 1).
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lk = 64 * wg + ln.row(h);
+      const int k = ct * kRows + lk;
+      const float as = sa[lk];
+      const float* cen = centers + static_cast<size_t>(min(k, K - 1)) * P;
+      float ss = 0.0f;
+      if ((pt + 1) * kWideCols <= P) {
+        // Every column of the tile is one of P's: loads at fixed offsets
+        // from the row's first column, no clamp.
+        const float* c0 = cen + pt * kWideCols + 2 * ln.q;
+#pragma unroll
+        for (int j = 0; j < kWideCols / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = acc[4 * j + 2 * h + e];
+            v = hgemm::select(k < K, __fsub_rn(v, __fmul_rn(as, __ldg(c0 + 8 * j + e))), 0.0f);
+            ss = fmaf(v, v, ss);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kWideCols / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = pt * kWideCols + 8 * j + 2 * ln.q + e;
+            const float c = __ldg(cen + min(p, P - 1));
+            float& v = acc[4 * j + 2 * h + e];
+            v = hgemm::select(k < K && p < P, __fsub_rn(v, __fmul_rn(as, c)), 0.0f);
+            ss = fmaf(v, v, ss);
+          }
+      }
+      ss = quad_sum(ss);
+      if (k >= K) continue;
+      const size_t o = (static_cast<size_t>(b) * K + k) * P;
+      const float rn = n_pt == 1 ? 1.0f / sqrtf(fmaxf(ss, kNormEpsSq)) : 0.0f;
+      if ((pt + 1) * kWideCols <= P && P % 2 == 0) {
+        const size_t o0 = o + pt * kWideCols + 2 * ln.q;
+#pragma unroll
+        for (int j = 0; j < kWideCols / 8; ++j) {
+          const int a = 4 * j + 2 * h;
+          if (n_pt == 1)
+            *reinterpret_cast<float2*>(out + o0 + 8 * j) = make_float2(acc[a] * rn, acc[a + 1] * rn);
+          if (vlad != nullptr)
+            *reinterpret_cast<float2*>(vlad + o0 + 8 * j) = make_float2(acc[a], acc[a + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kWideCols / 8; ++j) {
+          const int p = pt * kWideCols + 8 * j + 2 * ln.q;
+          const int a = 4 * j + 2 * h;
+          if (p >= P) continue;
+          if (P % 2 == 0) {
+            if (n_pt == 1)
+              *reinterpret_cast<float2*>(out + o + p) = make_float2(acc[a] * rn, acc[a + 1] * rn);
+            if (vlad != nullptr)
+              *reinterpret_cast<float2*>(vlad + o + p) = make_float2(acc[a], acc[a + 1]);
+          } else {
+            if (n_pt == 1) out[o + p] = acc[a] * rn;
+            if (vlad != nullptr) vlad[o + p] = acc[a];
+            if (p + 1 < P) {
+              if (n_pt == 1) out[o + p + 1] = acc[a + 1] * rn;
+              if (vlad != nullptr) vlad[o + p + 1] = acc[a + 1];
+            }
+          }
+        }
+      }
+      if (n_pt > 1 && ln.q == 0) sumsq[(static_cast<size_t>(b) * n_pt + pt) * K + k] = ss;
+    }
   }
 }
 
-// Launch 5. Grid (ceil(K / 8), B): a warp a row, out = vlad / n.
-__global__ void __launch_bounds__(kThreads)
+// Launch 4 (P wider than a column tile only). Grid (ceil(K / 8), B): a
+// warp a row, out = vlad / n.
+__global__ void __launch_bounds__(kSimpleThreads)
 nxv_norm_kernel(const float* __restrict__ vlad, const float* __restrict__ sumsq,
                 float* __restrict__ out, int K, int P, int ptiles) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  const int k = blockIdx.x * kWarps + warp;
+  const int k = blockIdx.x * kSimpleWarps + warp;
   if (k >= K) return;
   float ss = 0.0f;
   for (int t = 0; t < ptiles; ++t) ss += sumsq[(static_cast<size_t>(b) * ptiles + t) * K + k];
-  const float n = sqrtf(fmaxf(ss, kNormEpsSq));
+  const float rn = 1.0f / sqrtf(fmaxf(ss, kNormEpsSq));
   const size_t o = (static_cast<size_t>(b) * K + k) * P;
-  for (int p = lane; p < P; p += 32) out[o + p] = vlad[o + p] / n;
+  for (int p = lane; p < P; p += 32) out[o + p] = vlad[o + p] * rn;
 }
 
-template <int FNW>
-cudaError_t launch_cluster(dim3 grid, cudaStream_t st, const bf16* xe, const int* row_off,
-                           const bf16* wc, const float* alpha, bf16* assign, float* asum_part,
-                           float* sm, int B, int F, int G, int K, int GP, int J) {
-  constexpr int bytes = Cluster<FNW>::kBytes;
-  cudaError_t err = set_smem(nxv_cluster_kernel<FNW>, bytes);
+template <int Kp>
+cudaError_t launch_cluster(int sms, cudaStream_t st, const void* xe, const void* wc, const void* wa,
+                           const int* poff, const int* info, const float* ab, float* alpha,
+                           bf16* assign, float* sm, float* asum_part, int B, int G, int K, int GP,
+                           int cap, int J) {
+  using C = Clu<Kp>;
+  CUtensorMap map_x, map_w, map_wa;
+  cudaError_t err = hgemm::make_map_bf16(&map_x, xe, 1, cap, GP, GP, kRows);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_w, wc, 1, GP, G * Kp, G * Kp, hgemm::kDepth);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_wa, wa, 1, G, GP, GP, 8);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nxv_cluster_kernel<Kp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
   if (err != cudaSuccess) return err;
-  nxv_cluster_kernel<FNW><<<grid, kThreads, bytes, st>>>(xe, row_off, wc, alpha, assign,
-                                                          asum_part, sm, B, F, G, K, GP, J);
+  const int most = ceil_div(cap, kRows) * ceil_div(G, C::kGroups);
+  nxv_cluster_kernel<Kp><<<most < sms ? most : sms, hgemm::kThreads, C::kSmem, st>>>(
+      map_x, map_w, map_wa, poff, info, ab, alpha, assign, sm, asum_part, B, G, K, GP, J);
   return cudaGetLastError();
 }
 
+bool shapes_ok(int B, int F, int D8, int G, int K, int P, int cap) {
+  const int Pp = round_up(P, 8);
+  return B > 0 && B <= 65535 && F > 0 && D8 > 0 && D8 % 8 == 0 && G > 0 && G <= 65535 && K > 0 &&
+         K <= kMaxClusters && P > 0 &&
+         cap >= static_cast<long long>(B) * round_up(F, run_frames(G)) + kRows &&
+         static_cast<long long>(cap) * G * (Pp > 256 ? Pp : 256) < (1LL << 31);
+}
+
 template <typename T>
-int launch(const void* x, const void* num_frames, const void* row_off_v, const void* we,
-           const void* wc, const void* wa, const void* ab, const void* centers, void* xb,
-           void* xe, void* assign, void* asum_part, void* alpha, void* vlad, void* sumsq,
-           void* a_sum, void* sm, void* out, int B, int F, int D8, int G, int K, int P,
-           void* stream) {
+int launch(const void* x, const void* num_frames, const void* poff_v, const void* order_v,
+           const void* we, const void* wc, const void* wa, const void* ab, const void* centers,
+           void* xb, void* info_v, void* xe, void* alpha, void* assign, void* sm, void* asum_part,
+           void* a_sum, void* vlad, void* sumsq, void* out, int B, int F, int D8, int G, int K,
+           int P, int cap, void* stream) {
+  if (!shapes_ok(B, F, D8, G, K, P, cap)) return static_cast<int>(cudaErrorInvalidValue);
   const int Pp = round_up(P, 8);
   const int Kp = round_up(K, 64);
   const int GP = G * Pp;
-  const size_t alpha_smem = static_cast<size_t>(G) * GP * 2;
-  if (B <= 0 || B > 65535 || F <= 0 || D8 <= 0 || D8 % 8 != 0 || G <= 0 || K <= 0 ||
-      K > kMaxClusters || P <= 0 || alpha_smem > kMaxAlphaSmem ||
-      (static_cast<size_t>(B) * F + kTile - 1) / kTile > 65535)
+  const int J = ceil_div(round_up(F, run_frames(G)), 64) + 1;
+  const int n_pt = ceil_div(Pp, kWideCols);
+  if (n_pt > 1 && (vlad == nullptr || sumsq == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int J = (F + kTile - 1) / kTile + 1;
-  const int ptiles = (Pp + kTile - 1) / kTile;
-  const int row_tiles = static_cast<int>((static_cast<size_t>(B) * F + kTile - 1) / kTile);
-  const int* nf = static_cast<const int*>(num_frames);
-  const int* row_off = static_cast<const int*>(row_off_v);
-  bf16* xbp = static_cast<bf16*>(xb);
-  bf16* xep = static_cast<bf16*>(xe);
-  bf16* asg = static_cast<bf16*>(assign);
-  float* part = static_cast<float*>(asum_part);
-  float* alp = static_cast<float*>(alpha);
-
-  const size_t n8 = static_cast<size_t>(B) * F * D8 / 8;
-  const size_t want = (n8 + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  nxv_frames_to_bf16<T><<<blocks, kThreads, 0, st>>>(static_cast<const T*>(x), nf, xbp, B, F, D8);
+  const int* poff = static_cast<const int*>(poff_v);
+  int* info = static_cast<int*>(info_v);
   cudaError_t err = cudaGetLastError();
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = set_smem(nxv_expand_kernel, Expand::kBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nxv_expand_kernel<<<dim3((GP + kTile - 1) / kTile, row_tiles), kThreads, Expand::kBytes, st>>>(
-      xbp, row_off, static_cast<const bf16*>(we), xep, B, F, D8, GP);
+  const dim3 pack_grid(B + 1, ceil_div(max(round_up(F, run_frames(G)), kRows), kPackRows));
+  nxv_pack_frames<T><<<pack_grid, kSimpleThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const int*>(num_frames), poff, static_cast<bf16*>(xb),
+      info, B, F, D8);
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_row_product(xb, we, xe, nullptr, poff, info, B, cap, GP, D8, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = set_smem(nxv_alpha_kernel, static_cast<int>(alpha_smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nxv_alpha_kernel<<<static_cast<int>((static_cast<size_t>(B) * F + kAlphaRows - 1) / kAlphaRows),
-                     kThreads, alpha_smem, st>>>(xep, row_off, static_cast<const bf16*>(wa),
-                                                 static_cast<const float*>(ab), alp, B, F, G, GP);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 cgrid(G, row_tiles);
-  const bf16* wcp = static_cast<const bf16*>(wc);
+  const float* abp = static_cast<const float*>(ab);
+  float* alp = static_cast<float*>(alpha);
+  bf16* asg = static_cast<bf16*>(assign);
   float* smp = static_cast<float*>(sm);
+  float* part = static_cast<float*>(asum_part);
   switch (Kp / 64) {
-    case 1: err = launch_cluster<1>(cgrid, st, xep, row_off, wcp, alp, asg, part, smp, B, F, G, K, GP, J); break;
-    case 2: err = launch_cluster<2>(cgrid, st, xep, row_off, wcp, alp, asg, part, smp, B, F, G, K, GP, J); break;
-    case 3: err = launch_cluster<3>(cgrid, st, xep, row_off, wcp, alp, asg, part, smp, B, F, G, K, GP, J); break;
-    default: err = launch_cluster<4>(cgrid, st, xep, row_off, wcp, alp, asg, part, smp, B, F, G, K, GP, J); break;
+    case 1: err = launch_cluster<64>(sms, st, xe, wc, wa, poff, info, abp, alp, asg, smp, part, B, G, K, GP, cap, J); break;
+    case 2: err = launch_cluster<128>(sms, st, xe, wc, wa, poff, info, abp, alp, asg, smp, part, B, G, K, GP, cap, J); break;
+    case 3: err = launch_cluster<192>(sms, st, xe, wc, wa, poff, info, abp, alp, asg, smp, part, B, G, K, GP, cap, J); break;
+    default: err = launch_cluster<256>(sms, st, xe, wc, wa, poff, info, abp, alp, asg, smp, part, B, G, K, GP, cap, J); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = set_smem(nxv_aggregate_kernel, Aggregate::kBytes);
+  CUtensorMap map_a, map_x;
+  err = hgemm::make_map_bf16(&map_a, assign, 1, cap * G, Kp, Kp, hgemm::kDepth);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_x, xe, 1, cap * G, Pp, Pp, hgemm::kDepth);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nxv_aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               agg::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nxv_aggregate_kernel<<<dim3(ptiles, (Kp + kTile - 1) / kTile, B), kThreads, Aggregate::kBytes,
-                         st>>>(asg, xep, row_off, part, static_cast<const float*>(centers),
-                               static_cast<float*>(vlad), static_cast<float*>(sumsq),
-                               static_cast<float*>(a_sum), F, G, K, P, Pp, Kp, J);
+  const int tiles = B * ceil_div(Kp, kRows) * n_pt;
+  nxv_aggregate_kernel<<<tiles < sms ? tiles : sms, hgemm::kThreads, agg::kSmem, st>>>(
+      map_a, map_x, poff, static_cast<const int*>(order_v), part,
+      static_cast<const float*>(centers), static_cast<float*>(vlad), static_cast<float*>(sumsq),
+      static_cast<float*>(a_sum), static_cast<float*>(out), B, G, K, P, Pp, Kp, J);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  nxv_norm_kernel<<<dim3((K + kWarps - 1) / kWarps, B), kThreads, 0, st>>>(
-      static_cast<const float*>(vlad), static_cast<const float*>(sumsq),
-      static_cast<float*>(out), K, P, ptiles);
+  if (err != cudaSuccess || n_pt == 1) return static_cast<int>(err);
+  nxv_norm_kernel<<<dim3(ceil_div(K, kSimpleWarps), B), kSimpleThreads, 0, st>>>(
+      static_cast<const float*>(vlad), static_cast<const float*>(sumsq), static_cast<float*>(out),
+      K, P, n_pt);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+}  // namespace nxv
 
-// row_off [B + 1] int32: the prefix sums of min(max(num_frames, 0), F).
-// Weights in the wrapper's padded bf16 layout (kernels/nextvlad.py ::
-// kernel_layout): we [D8, G Pp], wc [G Pp, G Kp], wa [G, G Pp]; ab [G] and
-// centers [K, P] f32. Scratch: xb [B, F, D8], xe [B, F, G Pp], assign
-// [B, F, G, Kp] bf16; asum_part [B, ceil(F/128) + 1, G, Kp], alpha
-// [B, F, G], vlad [B, K, P], sumsq [B, ceil(Pp/128), K], a_sum [B, Kp]
-// f32. sm [B, F, G, Kp] f32 is written when not null (with alpha, the
-// backward's residuals). out [B, K, P] f32.
-extern "C" int yt8m_nextvlad_aggregate_u8(const void* x, const void* num_frames,
-                                          const void* row_off, const void* we, const void* wc,
-                                          const void* wa, const void* ab, const void* centers,
-                                          void* xb, void* xe, void* assign, void* asum_part,
-                                          void* alpha, void* vlad, void* sumsq, void* a_sum,
-                                          void* sm, void* out, int B, int F, int D8, int G,
-                                          int K, int P, void* stream) {
-  return launch<uint8_t>(x, num_frames, row_off, we, wc, wa, ab, centers, xb, xe, assign,
-                         asum_part, alpha, vlad, sumsq, a_sum, sm, out, B, F, D8, G, K, P,
+using namespace nxv;
+
+// poff [B + 1] int32: the packed offsets (nextvlad_hopper.cuh; poff[B] the
+// packed total); order [B] int32: the videos, longest first. Weights in
+// the wrapper's padded bf16 layout (kernels/nextvlad.py :: kernel_layout):
+// we [D8, G Pp], wc [G Pp, G Kp], wa [G, G Pp]; ab [G] and centers [K, P]
+// f32. Scratch over cap >= B round_up(F, R) + 128 packed rows: xb [cap,
+// D8], xe [cap, G Pp], assign [cap, G Kp] bf16; info [cap] int32; alpha
+// [cap, G] f32; asum_part [B, J, G, Kp] f32 (J = ceil(round_up(F, R) / 64)
+// + 1). When not null: sm [cap, G Kp] f32 (the backward's residual),
+// a_sum [B, Kp] and vlad [B, K, P] f32 (the pre-norm residual; needed,
+// with sumsq [B, ceil(Pp / 288), K], when Pp > 288). out [B, K, P] f32.
+extern "C" int yt8m_nextvlad_aggregate_u8(
+    const void* x, const void* num_frames, const void* poff, const void* order, const void* we,
+    const void* wc, const void* wa, const void* ab, const void* centers, void* xb, void* info,
+    void* xe, void* alpha, void* assign, void* sm, void* asum_part, void* a_sum, void* vlad,
+    void* sumsq, void* out, int B, int F, int D8, int G, int K, int P, int cap, void* stream) {
+  return launch<uint8_t>(x, num_frames, poff, order, we, wc, wa, ab, centers, xb, info, xe, alpha,
+                         assign, sm, asum_part, a_sum, vlad, sumsq, out, B, F, D8, G, K, P, cap,
                          stream);
 }
 
-extern "C" int yt8m_nextvlad_aggregate_f32(const void* x, const void* num_frames,
-                                           const void* row_off, const void* we, const void* wc,
-                                           const void* wa, const void* ab, const void* centers,
-                                           void* xb, void* xe, void* assign, void* asum_part,
-                                           void* alpha, void* vlad, void* sumsq, void* a_sum,
-                                           void* sm, void* out, int B, int F, int D8, int G,
-                                           int K, int P, void* stream) {
-  return launch<float>(x, num_frames, row_off, we, wc, wa, ab, centers, xb, xe, assign,
-                       asum_part, alpha, vlad, sumsq, a_sum, sm, out, B, F, D8, G, K, P,
+extern "C" int yt8m_nextvlad_aggregate_f32(
+    const void* x, const void* num_frames, const void* poff, const void* order, const void* we,
+    const void* wc, const void* wa, const void* ab, const void* centers, void* xb, void* info,
+    void* xe, void* alpha, void* assign, void* sm, void* asum_part, void* a_sum, void* vlad,
+    void* sumsq, void* out, int B, int F, int D8, int G, int K, int P, int cap, void* stream) {
+  return launch<float>(x, num_frames, poff, order, we, wc, wa, ab, centers, xb, info, xe, alpha,
+                       assign, sm, asum_part, a_sum, vlad, sumsq, out, B, F, D8, G, K, P, cap,
                        stream);
+}
+
+// The forward's tiles: [rows a tile, the row product's columns, the wide
+// column tile, the row product's stages and shared bytes, the cluster
+// product's stages, its shared bytes at Kp = 64, 128, 192, 256, the
+// aggregation's stages and shared bytes, SMs].
+extern "C" int yt8m_nextvlad_plan(int* plan) {
+  int sms = 0;
+  const cudaError_t err = hgemm::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = kRows;
+  plan[1] = kCols;
+  plan[2] = kWideCols;
+  plan[3] = rowprod::kStages;
+  plan[4] = rowprod::kSmem;
+  plan[5] = Clu<128>::kStages;
+  plan[6] = Clu<64>::kSmem;
+  plan[7] = Clu<128>::kSmem;
+  plan[8] = Clu<192>::kSmem;
+  plan[9] = Clu<256>::kSmem;
+  plan[10] = agg::kStages;
+  plan[11] = agg::kSmem;
+  plan[12] = sms;
+  return static_cast<int>(cudaSuccess);
 }

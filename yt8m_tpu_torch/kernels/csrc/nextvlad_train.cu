@@ -20,64 +20,75 @@
 // are 2 B F (2 G K P + De (G K + G) + 2 De (G K + G) / 2 + D De) ~ 1.26
 // TFLOP over all frames (1.3 ms at the bf16 peak; about half for the live
 // frames), against ~1.4 GB of residuals and cotangents (0.4 ms at 3.35
-// TB/s): operations.
+// TB/s): operations. So every product runs on the TMA + wgmma mainloop
+// of hopper_gemm.cuh, over the forward's packed row layout
+// (nextvlad_hopper.cuh: each video's run of live frames contiguous and
+// padded with zero rows, every row tensor a plain row-major matrix).
 //
 // Design. The TPU backward runs its grid in order and adds each video's
 // five weight gradients into resident VMEM accumulators; CUDA blocks run
 // at once, so the weight gradients here are split-K products: a split is
-// a run of videos, its block tiles write f32 partials, and a second pass
-// adds the partials in split order. No atomics: two runs give the same
-// bits. Launches, on the caller's stream:
+// an equal range of packed rows, its block tiles write f32 partials, and
+// a second pass adds the partials in split order. No atomics: two runs
+// give the same bits. Launches, on the caller's stream:
 //  1. nxv_dv_kernel (a warp a cluster row: dv, bf16(dv) padded to
-//     [Kp, Pp], cdot) and nxv_dcenters_kernel (a thread a (k, p), the
-//     videos in order);
-//  2. nxv_rows_kernel, a block per (128 (frame, group) rows, video):
-//     d_assign on the tensor cores (xe seen as [F G, Pp] against bf16(dv)
-//     read column-major), a warp a row for the softmax and sigmoid VJPs
-//     (bf16(d_act) and bf16(d_pre) into one [F, G Kp + KA] operand, f32
-//     d_pre), then d_xg = bf16(assign) @ bf16(dv), 128 columns at a time;
-//  3. nxv_dxe_kernel, a block per (128 columns of De, 128 packed live
-//     rows, as nextvlad.cu packs them): [d_act | d_pre] @ wext, plus
-//     d_xg, rounded to bf16 once;
-//  4. nxv_wgrad_kernel twice (xe^T [d_act | d_pre], then xb^T d_xe), a
-//     block per (128 x 128 output tile, split), over the split's live
-//     frames, and nxv_reduce_kernel for each;
-//  5. nxv_dab_kernel (a block a group, a fixed-order tree).
-// Rows past n are never read (zero-filled). Scratch from the caller
-// (B=256): dv, bf16(dv), d_act 159 MB, d_xg 708 MB, d_xe 354 MB, the
-// partials 16 x 19.6 MB.
+//     [Kp, Pp], cdot; one more row of blocks zeros d_act's rows past the
+//     packed total to the end of their 128-row tile) and
+//     nxv_dcenters_kernel (a thread a (k, p), the videos in order);
+//  2. nxv_dassign_kernel, persistent over (video, 128 of its (frame,
+//     group) rows): d_assign on wgmma (A K-major: xe seen as [rows G, Pp];
+//     B K-major: the video's bf16(dv) [Kp][64 deep] boxes), then the
+//     softmax and sigmoid VJPs in the registers (a row's clusters over
+//     its quad): bf16(d_act) and bf16(d_pre) into one [rows, G Kp + KA]
+//     operand, f32 d_pre;
+//  3. nxv_dxg_kernel, the same walk: d_xg = bf16(assign) @ bf16(dv) (A
+//     K-major: the assignment seen as [rows G, Kp]; B MN-major: bf16(dv)
+//     in [64][64] boxes; 288 columns a tile, one m64n256k16 and one
+//     m64n32k16 a 16-deep step), f32 into [rows G, Pp];
+//  4. nxv_row_product (nextvlad_hopper.cuh): d_xe = bf16(d_xg + [d_act |
+//     d_pre] @ wext) over the packed rows, rounded once, zeros on the pad
+//     rows;
+//  5. nxv_wgrad_kernel twice (xe^T [d_act | d_pre], then xb^T d_xe), a
+//     block per (split, 128 x 256 output tile), A and B both MN-major
+//     over the split's packed rows (pad rows are exact zeros), and
+//     nxv_reduce_kernel for each;
+//  6. nxv_dab_kernel (a block a group, a fixed-order tree).
+// Frames past n are never read. Scratch from the caller (B=256): dv,
+// bf16(dv), d_act 159 MB, d_xg 708 MB (f32), d_xe 354 MB at most, the
+// partials 8 x (9.5 + 10.6) MB (8 splits: 16 read 0.09 ms more on an H100).
 
-#include "nextvlad_gemm.cuh"
+#include "hopper_gemm.cuh"
+#include "nextvlad_hopper.cuh"
 
-using namespace nxv;
-
+// The file's kernels sit in nxv's anonymous namespace with the header's.
+namespace nxv {
 namespace {
 
 constexpr float kNormEpsSq = 1e-12f;
-constexpr int kTile = 128;
 constexpr int kMaxClusters = 256;
-
-template <int FNW>
-using Assign = BlockMma<kTile, 64 * FNW, false, true>;  // xg @ dv^T
-using Square = BlockMma<kTile, kTile, false, false>;    // d_xg, d_xe
-using Wgrad = BlockMma<kTile, kTile, true, false>;      // A^T B over frames
-
-template <int FNW>
-constexpr int rows_smem() {
-  constexpr int a = Assign<FNW>::kBytes;
-  return a > Square::kBytes ? a : Square::kBytes;
-}
+constexpr int kSimpleThreads = 256;
+constexpr int kSimpleWarps = kSimpleThreads / 32;
 
 // dv, its bf16 copy padded to [Kp, Pp] (zeros past K and P), cdot [B, Kp].
-// Grid (Kp / 8, B): a warp a cluster row.
-__global__ void __launch_bounds__(kThreads)
+// Grid (Kp / 8, B + 1): a warp a cluster row; the blocks at y = B zero
+// d_act's rows from the packed total to the end of their 128-row tile.
+__global__ void __launch_bounds__(kSimpleThreads)
 nxv_dv_kernel(const float* __restrict__ vlad, const float* __restrict__ dy,
-              const float* __restrict__ centers, float* __restrict__ dv,
-              bf16* __restrict__ dvb, float* __restrict__ cdot, int K, int P, int Pp, int Kp) {
+              const float* __restrict__ centers, const int* __restrict__ poff,
+              float* __restrict__ dv, bf16* __restrict__ dvb, float* __restrict__ cdot,
+              bf16* __restrict__ dact, int B, int K, int P, int Pp, int Kp, int Kx) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  const int k = blockIdx.x * kWarps + warp;
+  if (b == B) {
+    const int r0 = poff[B];
+    const int n = (round_up(r0, kRows) - r0) * Kx;
+    bf16* d = dact + static_cast<size_t>(r0) * Kx;
+    for (int i = blockIdx.x * kSimpleThreads + threadIdx.x; i < n; i += gridDim.x * kSimpleThreads)
+      d[i] = __float2bfloat16_rn(0.0f);
+    return;
+  }
+  const int k = blockIdx.x * kSimpleWarps + warp;
   if (k >= Kp) return;
   bf16* drow = dvb + (static_cast<size_t>(b) * Kp + k) * Pp;
   if (k >= K) {
@@ -109,10 +120,10 @@ nxv_dv_kernel(const float* __restrict__ vlad, const float* __restrict__ dy,
 }
 
 // dcenters[k, p] = sum_b -a_sum[b, k] dv[b, k, p], the videos in order.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSimpleThreads)
 nxv_dcenters_kernel(const float* __restrict__ a_sum, const float* __restrict__ dv,
                     float* __restrict__ dcenters, int B, int K, int P, int Kp) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kSimpleThreads + threadIdx.x;
   if (i >= K * P) return;
   const int k = i / P;
   float acc = 0.0f;
@@ -122,247 +133,328 @@ nxv_dcenters_kernel(const float* __restrict__ a_sum, const float* __restrict__ d
   dcenters[i] = acc;
 }
 
-// Grid (ceil(F G / 128), B). Kp = 64 FNW.
-template <int FNW>
-__global__ void __launch_bounds__(kThreads)
-nxv_rows_kernel(const bf16* __restrict__ xe, const bf16* __restrict__ assign,
-                const float* __restrict__ sm, const float* __restrict__ alpha,
-                const int* __restrict__ num_frames, const bf16* __restrict__ dvb,
-                const float* __restrict__ cdot, bf16* __restrict__ dact,
-                float* __restrict__ dpre, float* __restrict__ dxg, int F, int G, int K, int Pp,
-                int Kx) {
-  using M1 = Assign<FNW>;
-  constexpr int Kp = 64 * FNW;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r0 = blockIdx.x * kTile;
-  const int b = blockIdx.y;
-  const int live = live_frames(num_frames, b, F);
-  const int rows = live * G;
-  if (r0 >= rows) return;
-  const int all_rows = F * G;
-  const bf16* xv = xe + static_cast<size_t>(b) * all_rows * Pp;
-  const bf16* av = assign + static_cast<size_t>(b) * all_rows * Kp;
-  const bf16* dvv = dvb + static_cast<size_t>(b) * Kp * Pp;
-  const float* cd = cdot + static_cast<size_t>(b) * Kp;
-
-  // 1. d_assign (before cdot) = xg @ bf16(dv)^T over Pp.
-  {
-    bf16* sA = reinterpret_cast<bf16*>(smem);
-    bf16* sB = sA + kStages * M1::kStageA;
-    auto load = [&](int slot, int step) {
-      const int k0 = step * kBK;
-      M1::load(
-          sA, sB, slot,
-          [&](int r, int c, bool& ok) {
-            ok = r0 + r < rows && k0 + c < Pp;
-            return ok ? xv + static_cast<size_t>(r0 + r) * Pp + k0 + c : xe;
-          },
-          [&](int r, int c, bool& ok) {  // Bt[k][p] = bf16(dv)[k][p]
-            ok = k0 + c < Pp;
-            return ok ? dvv + static_cast<size_t>(r) * Pp + k0 + c : dvb;
-          });
-    };
-    typename M1::Acc acc[M1::FM][M1::FN];
-    M1::run(acc, sA, sB, (Pp + kBK - 1) / kBK, load);
-    M1::store(acc, reinterpret_cast<float*>(smem));
+// The video of per-video tile t: toff[b] <= t < toff[b + 1] (toff [B + 1],
+// the prefix sums of each video's tiles; a video with none is skipped).
+__device__ __forceinline__ int video_of(const int* toff, int B, int t) {
+  int lo = 0;
+  int hi = B;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (toff[mid] <= t) lo = mid;
+    else hi = mid;
   }
-  __syncthreads();
+  return lo;
+}
 
-  // 2. A warp a row (f, g): the softmax and sigmoid VJPs.
-  float* S = reinterpret_cast<float*>(smem);
-  const int nrows = min(kTile, all_rows - r0);
-  for (int m = warp; m < nrows; m += kWarps) {
-    const int r = r0 + m;
-    const int f = r / G;
-    const int g = r % G;
-    bf16* drow = dact + (static_cast<size_t>(b) * F + f) * Kx;
-    const size_t pre_at = (static_cast<size_t>(b) * F + f) * G + g;
-    if (g == 0)
-      for (int j = G * Kp + G + lane; j < Kx; j += 32) drow[j] = __float2bfloat16_rn(0.0f);
-    if (r >= rows) {  // a frame past n: zeros
-      for (int k = lane; k < Kp; k += 32) drow[g * Kp + k] = __float2bfloat16_rn(0.0f);
-      if (lane == 0) {
-        dpre[pre_at] = 0.0f;
-        drow[G * Kp + g] = __float2bfloat16_rn(0.0f);
+// ---------------------------------------------------------------------------
+// d_assign and the VJPs.
+// ---------------------------------------------------------------------------
+
+template <int Kp>
+struct Asg {
+  static constexpr int kStages = 4;
+  static constexpr int kStageBytes = hgemm::kABytes + Kp * hgemm::kDepth * 2;  // A + [Kp][64] dv
+  static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8;
+  static constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+  static_assert(kSmem <= 232448, "shared memory a block");
+};
+
+template <int Kp>
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nxv_dassign_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_v,
+                   const int* __restrict__ poff, const int* __restrict__ toff,
+                   const int* __restrict__ info, const float* __restrict__ sm,
+                   const float* __restrict__ alpha, const float* __restrict__ cdot,
+                   bf16* __restrict__ dact, float* __restrict__ dpre, int B, int G, int Pp,
+                   int Kx) {
+  using A = Asg<Kp>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + A::kStages * A::kStageBytes);
+  uint64_t* empty = full + A::kStages;
+  const int tiles = toff[B];
+  const int nk = ceil_div(Pp, hgemm::kDepth);
+  init_ring(full, empty, A::kStages);
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* vmap = &map_v;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int b = video_of(toff, B, t);
+        const int row0 = poff[b] * G + (t - toff[b]) * kRows;
+        hgemm::produce<A::kStages>(full, empty, ring, nk, A::kStageBytes, [&](int s, uint64_t* bar, int kt) {
+          unsigned char* st = smem + s * A::kStageBytes;
+          hgemm::tma_3d(st, xmap, bar, kt * hgemm::kDepth, row0, 0);
+          hgemm::tma_3d(st + hgemm::kABytes, vmap, bar, kt * hgemm::kDepth, 0, b);
+        });
       }
-      continue;
     }
-    float* srow = S + m * M1::kLdS;
-    const float* smr = sm + (static_cast<size_t>(b) * all_rows + r) * Kp;
-    const float al = alpha[pre_at];
-    float dal = 0.0f;
-    float t = 0.0f;
-    for (int k = lane; k < K; k += 32) {
-      const float s = smr[k];
-      const float da = __fsub_rn(srow[k], cd[k]);
-      const float dsm = __fmul_rn(da, al);
-      srow[k] = dsm;
-      dal = __fadd_rn(dal, __fmul_rn(da, s));
-      t = __fadd_rn(t, __fmul_rn(s, dsm));
-    }
-    dal = warp_sum(dal);
-    t = warp_sum(t);
-    for (int k = lane; k < Kp; k += 32) {
-      const float d = k < K ? __fmul_rn(smr[k], __fsub_rn(srow[k], t)) : 0.0f;
-      drow[g * Kp + k] = __float2bfloat16_rn(d);
-    }
-    if (lane == 0) {
-      const float d = __fmul_rn(__fmul_rn(dal, al), __fsub_rn(1.0f, al));
-      dpre[pre_at] = d;
-      drow[G * Kp + g] = __float2bfloat16_rn(d);
-    }
+    return;
   }
-  __syncthreads();
-
-  // 3. d_xg = bf16(assign) @ bf16(dv), 128 columns at a time.
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + kStages * Square::kStageA;
-  for (int n0 = 0; n0 < Pp; n0 += kTile) {
-    auto load = [&](int slot, int step) {
-      const int k0 = step * kBK;
-      Square::load(
-          sA, sB, slot,
-          [&](int r, int c, bool& ok) {
-            ok = r0 + r < rows;
-            return ok ? av + static_cast<size_t>(r0 + r) * Kp + k0 + c : assign;
-          },
-          [&](int r, int c, bool& ok) {
-            ok = n0 + c < Pp;
-            return ok ? dvv + static_cast<size_t>(k0 + r) * Pp + n0 + c : dvb;
-          });
-    };
-    Square::Acc acc[Square::FM][Square::FN];
-    Square::run(acc, sA, sB, Kp / kBK, load);
-    Square::store(acc, S);
-    __syncthreads();
-    for (int c = tid; c < kTile * (kTile / 4); c += kThreads) {
-      const int m = c / (kTile / 4);
-      const int col = (c % (kTile / 4)) * 4;
-      if (m < nrows && n0 + col < Pp) {
-        const float* s = S + m * Square::kLdS + col;
-        float* dst = dxg + (static_cast<size_t>(b) * all_rows + r0 + m) * Pp + n0 + col;
-        if (n0 + col + 4 <= Pp) {
-          *reinterpret_cast<float4*>(dst) = make_float4(s[0], s[1], s[2], s[3]);
+  hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+  const Lane ln;
+  const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+  const int GKp = G * Kp;
+  float acc[Kp / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int b = video_of(toff, B, t);
+    const int run0 = poff[b] * G;
+    const int run_end = poff[b + 1] * G;
+    const int row0 = run0 + (t - toff[b]) * kRows;
+    hgemm::zero<Kp / 2>(acc);
+    hgemm::consume<A::kStages, Kp / 2>(full, empty, ring, nk, acc, [&](int s) {
+      const uint32_t st = hgemm::smem_u32(smem + s * A::kStageBytes);
+      const uint32_t vv = st + hgemm::kABytes;
+#pragma unroll
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+        const uint64_t a = hgemm::desc_a(st + a_off, kk);
+        if constexpr (Kp == 192) {
+          hgemm::mma<128, 0, 0>(acc, a, hgemm::desc_b_k(vv, kk));
+          hgemm::mma<64, 0, 0>(acc + 64, a, hgemm::desc_b_k(vv + 128 * 128, kk));
         } else {
-          for (int i = 0; n0 + col + i < Pp; ++i) dst[i] = s[i];
+          hgemm::mma<Kp, 0, 0>(acc, a, hgemm::desc_b_k(vv, kk));
         }
       }
-    }
-    __syncthreads();
-  }
-}
-
-// d_xe = bf16(d_xg + [d_act | d_pre] @ wext) for the packed live rows.
-// Grid (ceil(GP / 128), ceil(B F / 128)).
-__global__ void __launch_bounds__(kThreads, 2)
-nxv_dxe_kernel(const bf16* __restrict__ dact, const bf16* __restrict__ wext,
-               const float* __restrict__ dxg, const int* __restrict__ row_off,
-               bf16* __restrict__ dxe, int B, int F, int GP, int Kx) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int s_row[kTile];
-  const int n0 = blockIdx.x * kTile;
-  const int r0 = blockIdx.y * kTile;
-  if (r0 >= row_off[B]) return;
-  packed_rows<kTile>(row_off, B, F, r0, s_row);
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + kStages * Square::kStageA;
-  auto load = [&](int slot, int step) {
-    const int k0 = step * kBK;
-    Square::load(
-        sA, sB, slot,
-        [&](int r, int c, bool& ok) {
-          ok = s_row[r] >= 0 && k0 + c < Kx;
-          return ok ? dact + static_cast<size_t>(s_row[r]) * Kx + k0 + c : dact;
-        },
-        [&](int r, int c, bool& ok) {
-          ok = k0 + r < Kx && n0 + c < GP;
-          return ok ? wext + static_cast<size_t>(k0 + r) * GP + n0 + c : wext;
-        });
-  };
-  Square::Acc acc[Square::FM][Square::FN];
-  Square::run(acc, sA, sB, (Kx + kBK - 1) / kBK, load);
-  float* S = reinterpret_cast<float*>(smem);
-  Square::store(acc, S);
-  __syncthreads();
-  for (int c = threadIdx.x; c < kTile * (kTile / 8); c += kThreads) {
-    const int r = c / (kTile / 8);
-    const int col = (c % (kTile / 8)) * 8;
-    const int n = n0 + col;
-    if (s_row[r] < 0 || n >= GP) continue;
-    const size_t o = static_cast<size_t>(s_row[r]) * GP + n;
-    float v[8];
+    });
+    // The VJPs of a (frame, group) row rr: clusters 8j + 2q + e in
+    // acc[4 j + 2 h + e]. sm and cdot are zeros past K (the forward's and
+    // dv's launches write them so), so the pairs load unmasked and add
+    // exact zeros there. A row past the run is another video's: its loads
+    // read the run's first row and it is not written.
+    const float* cd = cdot + static_cast<size_t>(b) * Kp + 2 * ln.q;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(dxg[o + i], S[r * Square::kLdS + col + i]);
-    store8_bf16(dxe + o, v);
+    for (int h = 0; h < 2; ++h) {
+      const int rr = row0 + 64 * wg + ln.row(h);
+      const bool in_run = rr < run_end;
+      const int rc = in_run ? rr : run0;
+      const int fp = rc / G;
+      const int g = rc - fp * G;
+      const bool live = in_run && __ldg(info + fp) >= 0;
+      const float al = __ldg(alpha + rc);
+      const float* smr = sm + static_cast<size_t>(rc) * Kp + 2 * ln.q;
+      float dal = 0.0f, tt = 0.0f;
+#pragma unroll
+      for (int j = 0; j < Kp / 8; ++j) {
+        const float2 s = __ldg(reinterpret_cast<const float2*>(smr + 8 * j));
+        const float2 c = __ldg(reinterpret_cast<const float2*>(cd + 8 * j));
+        float* d = acc + 4 * j + 2 * h;
+        const float da0 = __fsub_rn(d[0], c.x);
+        const float da1 = __fsub_rn(d[1], c.y);
+        d[0] = __fmul_rn(da0, al);
+        d[1] = __fmul_rn(da1, al);
+        dal = __fadd_rn(__fadd_rn(dal, __fmul_rn(da0, s.x)), __fmul_rn(da1, s.y));
+        tt = __fadd_rn(__fadd_rn(tt, __fmul_rn(s.x, d[0])), __fmul_rn(s.y, d[1]));
+      }
+      dal = quad_sum(dal);
+      tt = quad_sum(tt);
+      if (!in_run) continue;
+      bf16* drow = dact + static_cast<size_t>(fp) * Kx;
+#pragma unroll
+      for (int j = 0; j < Kp / 8; ++j) {
+        const float2 s = __ldg(reinterpret_cast<const float2*>(smr + 8 * j));
+        const float* d = acc + 4 * j + 2 * h;
+        const float d0 = hgemm::select(live, __fmul_rn(s.x, __fsub_rn(d[0], tt)), 0.0f);
+        const float d1 = hgemm::select(live, __fmul_rn(s.y, __fsub_rn(d[1], tt)), 0.0f);
+        *reinterpret_cast<uint32_t*>(drow + g * Kp + 8 * j + 2 * ln.q) = pack_bf16(d0, d1);
+      }
+      if (ln.q == 0) {
+        const float d = hgemm::select(live, __fmul_rn(__fmul_rn(dal, al), __fsub_rn(1.0f, al)), 0.0f);
+        dpre[rr] = d;
+        drow[GKp + g] = __float2bfloat16_rn(d);
+      }
+      if (g == 0)  // the operand's pad columns
+        for (int c = GKp + G + ln.q; c < Kx; c += 4) drow[c] = __float2bfloat16_rn(0.0f);
+    }
   }
 }
 
-// part[s] = sum over the live frames of videos [s per, (s + 1) per) of
-// A^T B: A [B, F, M] and Bm [B, F, N] bf16 row-major. Grid (ceil(M / 128),
-// ceil(N / 128), splits).
-__global__ void __launch_bounds__(kThreads, 2)
-nxv_wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bm,
-                 const int* __restrict__ num_frames, float* __restrict__ part, int B, int F,
-                 int M, int N, int per) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + kStages * Wgrad::kStageA;
-  const int m0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const int s = blockIdx.z;
-  const int b_begin = s * per;
-  const int b_end = min(B, b_begin + per);
-  int nsteps = 0;
-  for (int b = b_begin; b < b_end; ++b) nsteps += (live_frames(num_frames, b, F) + kBK - 1) / kBK;
-  // The (video, first frame) of the next stage to load; stages are loaded
-  // in step order.
-  int cb = b_begin;
-  int cf = 0;
-  while (cb < b_end && live_frames(num_frames, cb, F) == 0) ++cb;
-  auto load = [&](int slot, int) {
-    const int lb = live_frames(num_frames, cb, F);
-    const bf16* av = a + static_cast<size_t>(cb) * F * M;
-    const bf16* bv = bm + static_cast<size_t>(cb) * F * N;
-    const int f0 = cf;
-    Wgrad::load(
-        sA, sB, slot,
-        [&](int r, int c, bool& ok) {
-          ok = f0 + r < lb && m0 + c < M;
-          return ok ? av + static_cast<size_t>(f0 + r) * M + m0 + c : a;
-        },
-        [&](int r, int c, bool& ok) {
-          ok = f0 + r < lb && n0 + c < N;
-          return ok ? bv + static_cast<size_t>(f0 + r) * N + n0 + c : bm;
+// ---------------------------------------------------------------------------
+// d_xg = bf16(assign) @ bf16(dv).
+// ---------------------------------------------------------------------------
+
+namespace dxg {
+constexpr int kStages = 4;
+constexpr int kStageBytes = hgemm::kABytes + kWideBoxes * hgemm::kBoxBytes;  // 56 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8;
+constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+static_assert(kSmem <= 232448, "shared memory a block");
+}  // namespace dxg
+
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nxv_dxg_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_v,
+               const int* __restrict__ poff, const int* __restrict__ toff, float* __restrict__ out,
+               int B, int G, int Pp, int Kp) {
+  using namespace dxg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int n_pt = ceil_div(Pp, kWideCols);
+  const int tiles = toff[B] * n_pt;
+  const int nk = Kp / hgemm::kDepth;
+  init_ring(full, empty, kStages);
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* amap = &map_a;
+  const CUtensorMap* vmap = &map_v;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int vt = t / n_pt;
+        const int pt = t % n_pt;
+        const int b = video_of(toff, B, vt);
+        const int row0 = poff[b] * G + (vt - toff[b]) * kRows;
+        hgemm::produce<kStages>(full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
+          unsigned char* st = smem + s * kStageBytes;
+          hgemm::tma_3d(st, amap, bar, kt * hgemm::kDepth, row0, 0);
+#pragma unroll
+          for (int i = 0; i < kWideBoxes; ++i)
+            hgemm::tma_3d(st + hgemm::kABytes + i * hgemm::kBoxBytes, vmap, bar,
+                          pt * kWideCols + i * hgemm::kBoxCols, kt * hgemm::kDepth, b);
         });
-    cf += kBK;
-    if (cf >= lb) {
-      cf = 0;
-      ++cb;
-      while (cb < b_end && live_frames(num_frames, cb, F) == 0) ++cb;
+      }
     }
+    return;
+  }
+  hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+  const Lane ln;
+  const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+  float acc[kWideCols / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int vt = t / n_pt;
+    const int pt = t % n_pt;
+    const int b = video_of(toff, B, vt);
+    const int run_end = poff[b + 1] * G;
+    const int row0 = poff[b] * G + (vt - toff[b]) * kRows;
+    hgemm::zero<kWideCols / 2>(acc);
+    hgemm::consume<kStages, kWideCols / 2>(full, empty, ring, nk, acc, [&](int s) {
+      const uint32_t st = hgemm::smem_u32(smem + s * kStageBytes);
+      const uint32_t vv = st + hgemm::kABytes;
+#pragma unroll
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+        const uint64_t a = hgemm::desc_a(st + a_off, kk);
+        hgemm::mma<256, 0, 1>(acc, a, hgemm::desc_b(vv, kk));
+        hgemm::mma<32, 0, 1>(acc + 128, a, hgemm::desc_b(vv + 4 * hgemm::kBoxBytes, kk));
+      }
+    });
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = row0 + 64 * wg + ln.row(h);
+      if (rr >= run_end) continue;
+      float* orow = out + static_cast<size_t>(rr) * Pp;
+#pragma unroll
+      for (int j = 0; j < kWideCols / 8; ++j) {
+        const int p = pt * kWideCols + 8 * j + 2 * ln.q;
+        if (p < Pp)
+          *reinterpret_cast<float2*>(orow + p) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The weight gradients: part[s] = X^T Y over split s's packed rows.
+// ---------------------------------------------------------------------------
+
+namespace wgrad {
+constexpr int kStages = 4;
+constexpr int kStageBytes = hgemm::kABytes + hgemm::boxes(kCols) * hgemm::kBoxBytes;  // 48 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8;
+constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+static_assert(kSmem <= 232448, "shared memory a block");
+}  // namespace wgrad
+
+// X [cap, M] and Y [cap, N] bf16 row-major; part [splits, M, N] f32. A
+// split is an equal range of the packed rows below round_up(poff[B], 64),
+// a multiple of 64 of them.
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nxv_wgrad_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_y,
+                 const int* __restrict__ poff, float* __restrict__ part, int B, int M, int N,
+                 int splits) {
+  using namespace wgrad;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int rows = round_up(poff[B], hgemm::kDepth);
+  const int per = round_up(ceil_div(rows, splits), hgemm::kDepth);
+  const int n_mt = ceil_div(M, kRows);
+  const int n_nt = ceil_div(N, kCols);
+  const int tiles = splits * n_mt * n_nt;
+  init_ring(full, empty, kStages);
+
+  auto coords = [&](int t, int& s, int& mt, int& nt, int& d0, int& nk) {
+    nt = t % n_nt;
+    mt = (t / n_nt) % n_mt;
+    s = t / (n_nt * n_mt);
+    d0 = s * per;
+    const int d1 = min(rows, d0 + per);
+    nk = d1 > d0 ? (d1 - d0) / hgemm::kDepth : 0;
   };
-  Wgrad::Acc acc[Wgrad::FM][Wgrad::FN];
-  Wgrad::run(acc, sA, sB, nsteps, load);
-  float* S = reinterpret_cast<float*>(smem);
-  Wgrad::store(acc, S);
-  __syncthreads();
-  float* dst = part + static_cast<size_t>(s) * M * N;
-  for (int c = threadIdx.x; c < kTile * (kTile / 4); c += kThreads) {
-    const int r = c / (kTile / 4);
-    const int col = (c % (kTile / 4)) * 4;
-    if (m0 + r < M && n0 + col < N) {
-      const float* v = S + r * Wgrad::kLdS + col;
-      *reinterpret_cast<float4*>(dst + static_cast<size_t>(m0 + r) * N + n0 + col) =
-          make_float4(v[0], v[1], v[2], v[3]);
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* ymap = &map_y;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int s, mt, nt, d0, nk;
+        coords(t, s, mt, nt, d0, nk);
+        hgemm::produce<kStages>(full, empty, ring, nk, kStageBytes, [&](int sl, uint64_t* bar, int kt) {
+          unsigned char* st = smem + sl * kStageBytes;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            hgemm::tma_3d(st + i * hgemm::kBoxBytes, xmap, bar, mt * kRows + 64 * i,
+                          d0 + kt * hgemm::kDepth, 0);
+#pragma unroll
+          for (int i = 0; i < kCols / hgemm::kBoxCols; ++i)
+            hgemm::tma_3d(st + hgemm::kABytes + i * hgemm::kBoxBytes, ymap, bar,
+                          nt * kCols + i * hgemm::kBoxCols, d0 + kt * hgemm::kDepth, 0);
+        });
+      }
+    }
+    return;
+  }
+  hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+  const Lane ln;
+  float acc[kCols / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int s, mt, nt, d0, nk;
+    coords(t, s, mt, nt, d0, nk);
+    hgemm::zero<kCols / 2>(acc);
+    hgemm::consume<kStages, kCols / 2>(full, empty, ring, nk, acc, [&](int sl) {
+      const uint32_t st = hgemm::smem_u32(smem + sl * kStageBytes);
+#pragma unroll
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk)
+        hgemm::mma<256, 1, 1>(acc, hgemm::desc_a_mn(st + wg * hgemm::kBoxBytes, kk),
+                              hgemm::desc_b(st + hgemm::kABytes, kk));
+    });
+    float* dst = part + static_cast<size_t>(s) * M * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mt * kRows + 64 * wg + ln.row(h);
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j) {
+        const int n = nt * kCols + 8 * j + 2 * ln.q;
+        if (n < N)
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(m) * N + n) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
 // out[i] = sum_s part[s][i], the splits in order (n % 4 == 0).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSimpleThreads)
 nxv_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, size_t n, int splits) {
   const size_t n4 = n / 4;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n4;
@@ -379,131 +471,165 @@ nxv_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, size_
   }
 }
 
-// dab[g] = sum over videos and live frames of d_pre. Grid (G): each thread
-// a strided set of videos in order, then a fixed tree.
-__global__ void __launch_bounds__(kThreads)
-nxv_dab_kernel(const float* __restrict__ dpre, const int* __restrict__ num_frames,
-               float* __restrict__ dab, int B, int F, int G) {
-  __shared__ float s[kThreads];
+// dab[g] = sum over the packed rows of d_pre (zeros on the pad rows).
+// Grid (G): each thread a strided set of rows in order, then a fixed tree.
+__global__ void __launch_bounds__(kSimpleThreads)
+nxv_dab_kernel(const float* __restrict__ dpre, const int* __restrict__ poff,
+               float* __restrict__ dab, int B, int G) {
+  __shared__ float s[kSimpleThreads];
   const int g = blockIdx.x;
+  const int total = poff[B];
   float acc = 0.0f;
-  for (int b = threadIdx.x; b < B; b += kThreads) {
-    const int live = live_frames(num_frames, b, F);
-    for (int f = 0; f < live; ++f) acc += dpre[(static_cast<size_t>(b) * F + f) * G + g];
-  }
+  for (int r = threadIdx.x; r < total; r += kSimpleThreads)
+    acc += dpre[static_cast<size_t>(r) * G + g];
   s[threadIdx.x] = acc;
   __syncthreads();
-  for (int o = kThreads / 2; o > 0; o >>= 1) {
+  for (int o = kSimpleThreads / 2; o > 0; o >>= 1) {
     if (threadIdx.x < o) s[threadIdx.x] += s[threadIdx.x + o];
     __syncthreads();
   }
   if (threadIdx.x == 0) dab[g] = s[0];
 }
 
-template <int FNW>
-cudaError_t launch_rows(dim3 grid, cudaStream_t st, const bf16* xe, const bf16* assign,
-                        const float* sm, const float* alpha, const int* nf, const bf16* dvb,
-                        const float* cdot, bf16* dact, float* dpre, float* dxg, int F, int G,
-                        int K, int Pp, int Kx) {
-  constexpr int bytes = rows_smem<FNW>();
-  cudaError_t err = set_smem(nxv_rows_kernel<FNW>, bytes);
+template <int Kp>
+cudaError_t launch_dassign(int sms, cudaStream_t st, const void* xe, const void* dvb,
+                           const int* poff, const int* toff, const int* info, const float* sm,
+                           const float* alpha, const float* cdot, bf16* dact, float* dpre, int B,
+                           int G, int Pp, int Kx, int cap) {
+  CUtensorMap map_x, map_v;
+  cudaError_t err = hgemm::make_map_bf16(&map_x, xe, 1, cap * G, Pp, Pp, kRows);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_v, dvb, B, Kp, Pp, Pp, Kp);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nxv_dassign_kernel<Kp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Asg<Kp>::kSmem);
   if (err != cudaSuccess) return err;
-  nxv_rows_kernel<FNW><<<grid, kThreads, bytes, st>>>(xe, assign, sm, alpha, nf, dvb, cdot, dact,
-                                                       dpre, dxg, F, G, K, Pp, Kx);
+  nxv_dassign_kernel<Kp><<<sms, hgemm::kThreads, Asg<Kp>::kSmem, st>>>(
+      map_x, map_v, poff, toff, info, sm, alpha, cdot, dact, dpre, B, G, Pp, Kx);
   return cudaGetLastError();
 }
 
-cudaError_t launch_wgrad(cudaStream_t st, const bf16* a, const bf16* bm, const int* nf,
-                         float* part, float* out, int B, int F, int M, int N, int per,
-                         int splits) {
-  nxv_wgrad_kernel<<<dim3((M + kTile - 1) / kTile, (N + kTile - 1) / kTile, splits), kThreads,
-                     Wgrad::kBytes, st>>>(a, bm, nf, part, B, F, M, N, per);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch_wgrad(int sms, cudaStream_t st, const void* x, const void* y, const int* poff,
+                         float* part, float* out, int B, int M, int N, int cap, int splits) {
+  CUtensorMap map_x, map_y;
+  cudaError_t err = hgemm::make_map_bf16(&map_x, x, 1, cap, M, M, hgemm::kDepth);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_y, y, 1, cap, N, N, hgemm::kDepth);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nxv_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               wgrad::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = splits * ceil_div(M, kRows) * ceil_div(N, kCols);
+  nxv_wgrad_kernel<<<tiles < sms ? tiles : sms, hgemm::kThreads, wgrad::kSmem, st>>>(
+      map_x, map_y, poff, part, B, M, N, splits);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n = static_cast<size_t>(M) * N;
-  const size_t want = (n / 4 + kThreads - 1) / kThreads;
+  const size_t want = (n / 4 + kSimpleThreads - 1) / kSimpleThreads;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  nxv_reduce_kernel<<<blocks, kThreads, 0, st>>>(part, out, n, splits);
+  nxv_reduce_kernel<<<blocks, kSimpleThreads, 0, st>>>(part, out, n, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
+}  // namespace nxv
 
-// The backward from the forward's residuals (nextvlad.cu's scratch with
-// sm): row_off [B + 1] int32, xb [B, F, D8], xe [B, F, G Pp], assign [B, F, G, Kp]
-// bf16; sm [B, F, G, Kp], alpha [B, F, G], vlad [B, K, P], a_sum [B, Kp]
-// f32; dy [B, K, P] f32, centers [K, P] f32, wext [Kx, G Pp] bf16 (Kx =
-// G Kp + round_up(G, 8)). Scratch: dv [B, K, P] f32, dvb [B, Kp, Pp] bf16,
-// cdot [B, Kp] f32, dact [B, F, Kx] bf16, dpre [B, F, G] f32, dxg [B, F,
-// G Pp] f32, dxe [B, F, G Pp] bf16, part_ext [splits, G Pp, Kx] and
-// part_we [splits, D8, G Pp] f32 with splits = ceil(B / per). Outputs
-// (f32): dwe [D8, G Pp], dwext [G Pp, Kx], dab [G], dcenters [K, P].
+using namespace nxv;
+
+// The backward from the forward's residuals (nextvlad.cu's scratch with sm,
+// alpha, a_sum and vlad): poff [B + 1] and toff [B + 1] int32 (toff the
+// prefix sums of each video's ceil(n_pad G / 128) tiles), info [cap]
+// int32; xb [cap, D8], xe [cap, G Pp], assign [cap, G Kp] bf16; sm [cap,
+// G Kp], alpha [cap, G], vlad [B, K, P], a_sum [B, Kp] f32; dy [B, K, P]
+// f32, centers [K, P] f32, wext [Kx, G Pp] bf16 (Kx = G Kp + round_up(G,
+// 8)). Scratch: dv [B, K, P] f32, dvb [B, Kp, Pp] bf16, cdot [B, Kp] f32,
+// dact [cap, Kx] bf16, dpre [cap, G] f32, dxg [cap, G Pp] f32, dxe [cap, G
+// Pp] bf16, part_ext [splits, G Pp, Kx] and part_we [splits, D8, G Pp]
+// f32. Outputs (f32): dwe [D8, G Pp], dwext [G Pp, Kx], dab [G], dcenters
+// [K, P].
 extern "C" int yt8m_nextvlad_train_backward(
-    const void* num_frames, const void* row_off, const void* xb, const void* xe, const void* assign, const void* sm,
-    const void* alpha, const void* vlad, const void* a_sum, const void* dy, const void* centers,
-    const void* wext, void* dv, void* dvb, void* cdot, void* dact, void* dpre, void* dxg,
-    void* dxe, void* part_ext, void* part_we, void* dwe, void* dwext, void* dab, void* dcenters,
-    int B, int F, int D8, int G, int K, int P, int per, void* stream) {
+    const void* poff_v, const void* toff_v, const void* info_v, const void* xb, const void* xe,
+    const void* assign, const void* sm, const void* alpha, const void* vlad, const void* a_sum,
+    const void* dy, const void* centers, const void* wext, void* dv, void* dvb, void* cdot,
+    void* dact, void* dpre, void* dxg, void* dxe, void* part_ext, void* part_we, void* dwe,
+    void* dwext, void* dab, void* dcenters, int B, int F, int D8, int G, int K, int P, int cap,
+    int splits, void* stream) {
   if (B <= 0 || B > 65535 || F <= 0 || D8 <= 0 || D8 % 8 != 0 || G <= 0 || G > 65535 ||
-      K <= 0 || K > kMaxClusters || P <= 0 || per <= 0 ||
-      (static_cast<size_t>(B) * F + kTile - 1) / kTile > 65535)
+      K <= 0 || K > kMaxClusters || P <= 0 || splits <= 0 ||
+      cap < static_cast<long long>(B) * round_up(F, run_frames(G)) + kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int Pp = round_up(P, 8);
   const int Kp = round_up(K, 64);
   const int GP = G * Pp;
   const int Kx = G * Kp + round_up(G, 8);
-  const int splits = (B + per - 1) / per;
-  const int* nf = static_cast<const int*>(num_frames);
+  const int* poff = static_cast<const int*>(poff_v);
+  const int* toff = static_cast<const int*>(toff_v);
+  const int* info = static_cast<const int*>(info_v);
   float* dvp = static_cast<float*>(dv);
-  bf16* dvbp = static_cast<bf16*>(dvb);
-  float* cdotp = static_cast<float*>(cdot);
   bf16* dactp = static_cast<bf16*>(dact);
   float* dprep = static_cast<float*>(dpre);
-  float* dxgp = static_cast<float*>(dxg);
-  bf16* dxep = static_cast<bf16*>(dxe);
-
-  nxv_dv_kernel<<<dim3(Kp / kWarps, B), kThreads, 0, st>>>(
-      static_cast<const float*>(vlad), static_cast<const float*>(dy),
-      static_cast<const float*>(centers), dvp, dvbp, cdotp, K, P, Pp, Kp);
   cudaError_t err = cudaGetLastError();
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nxv_dcenters_kernel<<<(K * P + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+
+  nxv_dv_kernel<<<dim3(Kp / kSimpleWarps, B + 1), kSimpleThreads, 0, st>>>(
+      static_cast<const float*>(vlad), static_cast<const float*>(dy),
+      static_cast<const float*>(centers), poff, dvp, static_cast<bf16*>(dvb),
+      static_cast<float*>(cdot), dactp, B, K, P, Pp, Kp, Kx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nxv_dcenters_kernel<<<ceil_div(K * P, kSimpleThreads), kSimpleThreads, 0, st>>>(
       static_cast<const float*>(a_sum), dvp, static_cast<float*>(dcenters), B, K, P, Kp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const dim3 rgrid((F * G + kTile - 1) / kTile, B);
-  const bf16* xep = static_cast<const bf16*>(xe);
-  const bf16* asg = static_cast<const bf16*>(assign);
   const float* smp = static_cast<const float*>(sm);
   const float* alp = static_cast<const float*>(alpha);
+  const float* cdp = static_cast<const float*>(cdot);
   switch (Kp / 64) {
-    case 1: err = launch_rows<1>(rgrid, st, xep, asg, smp, alp, nf, dvbp, cdotp, dactp, dprep, dxgp, F, G, K, Pp, Kx); break;
-    case 2: err = launch_rows<2>(rgrid, st, xep, asg, smp, alp, nf, dvbp, cdotp, dactp, dprep, dxgp, F, G, K, Pp, Kx); break;
-    case 3: err = launch_rows<3>(rgrid, st, xep, asg, smp, alp, nf, dvbp, cdotp, dactp, dprep, dxgp, F, G, K, Pp, Kx); break;
-    default: err = launch_rows<4>(rgrid, st, xep, asg, smp, alp, nf, dvbp, cdotp, dactp, dprep, dxgp, F, G, K, Pp, Kx); break;
+    case 1: err = launch_dassign<64>(sms, st, xe, dvb, poff, toff, info, smp, alp, cdp, dactp, dprep, B, G, Pp, Kx, cap); break;
+    case 2: err = launch_dassign<128>(sms, st, xe, dvb, poff, toff, info, smp, alp, cdp, dactp, dprep, B, G, Pp, Kx, cap); break;
+    case 3: err = launch_dassign<192>(sms, st, xe, dvb, poff, toff, info, smp, alp, cdp, dactp, dprep, B, G, Pp, Kx, cap); break;
+    default: err = launch_dassign<256>(sms, st, xe, dvb, poff, toff, info, smp, alp, cdp, dactp, dprep, B, G, Pp, Kx, cap); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = set_smem(nxv_dxe_kernel, Square::kBytes);
+  CUtensorMap map_a, map_v;
+  err = hgemm::make_map_bf16(&map_a, assign, 1, cap * G, Kp, Kp, kRows);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_v, dvb, B, Kp, Pp, Pp, hgemm::kDepth);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nxv_dxg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dxg::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_tiles = static_cast<int>((static_cast<size_t>(B) * F + kTile - 1) / kTile);
-  nxv_dxe_kernel<<<dim3((GP + kTile - 1) / kTile, row_tiles), kThreads, Square::kBytes, st>>>(
-      dactp, static_cast<const bf16*>(wext), dxgp, static_cast<const int*>(row_off), dxep, B, F,
-      GP, Kx);
+  nxv_dxg_kernel<<<sms, hgemm::kThreads, dxg::kSmem, st>>>(map_a, map_v, poff, toff,
+                                                            static_cast<float*>(dxg), B, G, Pp, Kp);
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_row_product(dact, wext, dxe, static_cast<const float*>(dxg), poff, info, B, cap,
+                             GP, Kx, st);
+  if (err == cudaSuccess)
+    err = launch_wgrad(sms, st, xe, dact, poff, static_cast<float*>(part_ext),
+                       static_cast<float*>(dwext), B, GP, Kx, cap, splits);
+  if (err == cudaSuccess)
+    err = launch_wgrad(sms, st, xb, dxe, poff, static_cast<float*>(part_we),
+                       static_cast<float*>(dwe), B, D8, GP, cap, splits);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = set_smem(nxv_wgrad_kernel, Wgrad::kBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_wgrad(st, xep, dactp, nf, static_cast<float*>(part_ext),
-                     static_cast<float*>(dwext), B, F, GP, Kx, per, splits);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_wgrad(st, static_cast<const bf16*>(xb), dxep, nf, static_cast<float*>(part_we),
-                     static_cast<float*>(dwe), B, F, D8, GP, per, splits);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  nxv_dab_kernel<<<G, kThreads, 0, st>>>(dprep, nf, static_cast<float*>(dab), B, F, G);
+  nxv_dab_kernel<<<G, kSimpleThreads, 0, st>>>(dprep, poff, static_cast<float*>(dab), B, G);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's tiles: [stages and shared bytes of the d_assign launch at
+// Kp = 64, 128, 192, 256 (stages once), the d_xg launch's stages and
+// shared bytes, the weight gradients' stages and shared bytes].
+extern "C" int yt8m_nextvlad_train_plan(int* plan) {
+  plan[0] = Asg<128>::kStages;
+  plan[1] = Asg<64>::kSmem;
+  plan[2] = Asg<128>::kSmem;
+  plan[3] = Asg<192>::kSmem;
+  plan[4] = Asg<256>::kSmem;
+  plan[5] = dxg::kStages;
+  plan[6] = dxg::kSmem;
+  plan[7] = wgrad::kStages;
+  plan[8] = wgrad::kSmem;
+  return static_cast<int>(cudaSuccess);
 }

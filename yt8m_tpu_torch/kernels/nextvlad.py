@@ -19,19 +19,24 @@ with xg[f, g] = xe[f, g*P:(g+1)*P] and `r` the cast to the compute dtype
 version rounds at the same points as the JAX package's
 nextvlad_aggregate_reference.
 
-The CUDA kernel (csrc/nextvlad.cu) is six launches on the caller's
-stream, over the live frames of all videos packed one after another
-(`row_off`, the prefix sums of the live counts): the live frames to
-bf16; xe = xb @ We (a tiled tensor-core product, rounded to bf16 once);
-alpha (the G length-De attention dots of each frame, on the CUDA cores);
-xe @ Wc with one group's K clusters a column tile, whose epilogue takes
-the softmax, bf16(assign) and each video's column sums; the aggregation
-assign^T @ xg over each video's live F * G rows with the centers term;
-and the intra-norm. Frames past num_frames are neither read nor
-computed; a video with num_frames = 0 gives zeros. What it materialises
-(B = 512, F = 300 at the reference widths, written for the live frames
-only): xb 354 MB and xe 708 MB in bf16, the bf16 assignment 315 MB,
-alpha 5 MB and the pre-norm vlad 75 MB.
+The CUDA kernel (csrc/nextvlad.cu) runs every product on the TMA +
+wgmma mainloop of csrc/hopper_gemm.cuh, over a packed row layout
+(`packed_layout`; csrc/nextvlad_hopper.cuh): the live frames of all
+videos one after another, each video's run padded with zero rows to a
+multiple of R = max(8, 64 / gcd(G, 64)) frames, so that every row tensor
+is a plain [rows, width] matrix (one 2-D TMA map) and a video's (frame,
+group) rows are whole 64-deep stages. Its launches: the live frames to
+bf16 into the packed rows; xe = xb @ We (persistent, 128 packed rows x
+256 columns a tile, rounded to bf16 once, stored by TMA); xe @ Wc with
+the attention dots xe @ Wa beside it, whose epilogue takes alpha, each
+(row, group)'s softmax, bf16(assign) and each video's f32 column sums of
+the assignment in a fixed order; and the aggregation assign^T @ xg over
+each video's (frame, group) rows, longest videos first, with the centers
+term and the intra-norm in its epilogue (a norm pass only when P is
+wider than 288). Frames past num_frames are neither read nor computed; a
+video with num_frames = 0 gives zeros. What it materialises (B = 512, F
+= 300 at the reference widths, for the packed rows only): xb 354 MB and
+xe 708 MB in bf16, the bf16 assignment 315 MB at most.
 
 The kernel takes the weights in a group-major, padded bf16 layout
 (`kernel_layout`, made once per model as a serving constant): P padded
@@ -42,6 +47,8 @@ softmax by the kernel.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -55,9 +62,16 @@ from yt8m_tpu_torch.kernels._checks import (
 
 NORM_EPS_SQ = 1e-12
 MAX_CLUSTERS = 256   # K a block of the cluster product holds for its softmax
-TILE = 128           # rows and columns of a block tile (csrc/nextvlad.cu)
-MAX_ATTENTION_BYTES = 200 * 1024  # the attention weights in shared memory
-K_MULTIPLE = 64      # Kp: a warp's share of a cluster tile is whole fragments
+TILE = 128           # packed rows a tile (csrc/nextvlad_hopper.cuh)
+COLS = 256           # the row product's column tile
+WIDE_COLS = 288      # the aggregation's (and d_xg's) column tile: 256 + 32
+DEPTH = 64           # bf16 a 64-deep stage (128 bytes: the swizzle's row)
+K_MULTIPLE = 64      # Kp: a group's clusters are whole 64-column boxes
+SMS = 132            # an H100's SMs (the persistent grids' size)
+WGRAD_SPLITS = 8     # row ranges of the backward's split-K weight gradients
+STAGES = 4           # every product's ring
+A_BYTES = TILE * DEPTH * 2   # a stage's A tile, [128 rows][64 deep] bf16
+BOX_BYTES = DEPTH * 64 * 2   # a [64][64] bf16 box
 
 
 def _r(t, dtype):
@@ -78,6 +92,197 @@ def dims(d: int, de: int, groups: int, k: int) -> dict:
     return {"D": d, "D8": _up(d, 8), "G": g, "K": k, "P": p, "Pp": pp,
             "Kp": kp, "GP": g * pp, "KA": _up(g, 8),
             "Kx": g * kp + _up(g, 8)}
+
+
+def run_frames(groups: int) -> int:
+    """R: a video's run of packed rows is a multiple of R frames, so that
+    its R G (frame, group) rows are whole 64-deep stages and every 8-row
+    block is one video's."""
+    return max(8, 64 // math.gcd(groups, 64))
+
+
+def packed_capacity(b: int, f: int, groups: int) -> int:
+    """Packed rows to allocate: every video's padded run, then the last
+    128-row tile."""
+    return b * _up(f, run_frames(groups)) + TILE
+
+
+def asum_slots(f: int, groups: int) -> int:
+    """J: the 64-row half tiles a video's run can touch, each one f32
+    partial of its assignment's column sums."""
+    return -(-_up(f, run_frames(groups)) // 64) + 1
+
+
+def packed_layout(num_frames, f: int, groups: int) -> dict:
+    """The packed row layout: poff [B + 1] int32 (poff[b] video b's first
+    packed row, poff[B] the total), the padded run lengths, and order
+    [B] int32 (the videos, longest first: the aggregation's walk)."""
+    r = run_frames(groups)
+    n = num_frames.to(torch.int64).clamp(0, f)
+    runs = (n + r - 1) // r * r
+    poff = torch.zeros(n.numel() + 1, dtype=torch.int32, device=n.device)
+    torch.cumsum(runs, 0, dtype=torch.int32, out=poff[1:])
+    order = torch.argsort(n, descending=True, stable=True).to(torch.int32)
+    return {"poff": poff, "runs": runs, "order": order}
+
+
+def packed_info(num_frames, f: int, groups: int):
+    """info [round_up(total, 128)] as the kernel writes it: b for a live
+    frame of video b, -1 - b for a pad row of its run, -1 - B for the
+    rows past the total."""
+    lay = packed_layout(num_frames, f, groups)
+    b = num_frames.numel()
+    n = num_frames.to(torch.int64).clamp(0, f)
+    parts = []
+    for v in range(b):
+        run = int(lay["runs"][v])
+        live = int(n[v])
+        parts.append(torch.tensor([v] * live + [-1 - v] * (run - live),
+                                  dtype=torch.int32))
+    total = int(lay["poff"][-1])
+    parts.append(torch.full((_up(total, TILE) - total,), -1 - b,
+                            dtype=torch.int32))
+    return torch.cat(parts)
+
+
+def unpacked(t, scratch, b: int, f: int):
+    """A packed row tensor [cap, w] of the kernel's scratch as [B, F, w],
+    its live rows in place and zeros elsewhere."""
+    total = int(scratch["poff"][-1])
+    live = scratch["info"][:total] >= 0
+    out = torch.zeros(b * f, t.shape[1], dtype=t.dtype, device=t.device)
+    rows = (torch.arange(f, device=t.device)[None, :]
+            < scratch["num_frames"].to(torch.int64)[:, None]).reshape(-1)
+    out[rows] = t[:total][live]
+    return out.reshape(b, f, -1)
+
+
+def _smem(bytes_: int) -> int:
+    """A launch's dynamic shared memory: its layout plus the slack that
+    aligns the base to 1024 bytes (csrc/hopper_gemm.cuh ::
+    smem_request)."""
+    return bytes_ + 1024
+
+
+def _box2(rows: int, elem_bytes: int = 2):
+    """A 2-D box [rows][128 bytes], innermost first."""
+    return (128 // elem_bytes, rows)
+
+
+def cluster_groups(kp: int) -> int:
+    """Groups a tile of the cluster product: 256 columns (192 at Kp =
+    192)."""
+    return {64: 4, 128: 2}.get(kp, 1)
+
+
+def plan(num_frames, f: int, d: int, de: int, groups: int, k: int,
+         sms: int = SMS) -> dict:
+    """The card's launches for frames [B, F, D] with num_frames, De, G
+    and K: the packed layout, each product's TMA boxes (innermost first),
+    the row strides of its maps in bytes, its shared memory, its tiles
+    and persistent grid; the forward's and the backward's."""
+    n = dims(d, de, groups, k)
+    g, pp, kp, gp, kx, d8 = (n["G"], n["Pp"], n["Kp"], n["GP"], n["Kx"],
+                             n["D8"])
+    b = num_frames.numel()
+    lay = packed_layout(num_frames.cpu(), f, g)
+    total = int(lay["poff"][-1])
+    cap = packed_capacity(b, f, g)
+    row_tiles = -(-total // TILE)
+    kn = cluster_groups(kp) * kp
+    wide = -(-pp // WIDE_COLS)
+    video_tiles = [-(-int(r) * g // TILE) for r in lay["runs"]]
+    rowprod = {"box_a": _box2(TILE), "box_w": _box2(DEPTH),
+               "box_y": _box2(64), "stage": A_BYTES + 4 * BOX_BYTES,
+               "smem": _smem(STAGES * (A_BYTES + 4 * BOX_BYTES)
+                             + 4 * 64 * 64 * 2 + 2 * STAGES * 8)}
+    out = {
+        "dims": n, "R": run_frames(g), "cap": cap, "total": total,
+        "J": asum_slots(f, g), "poff": lay["poff"], "order": lay["order"],
+        "runs": lay["runs"], "row_tiles": row_tiles,
+        "pack_grid": (b + 1, -(-max(_up(f, run_frames(g)), TILE) // 32)),
+        "expand": {**rowprod, "strides": (d8 * 2, gp * 2, gp * 2),
+                   "depth": d8, "cols": gp,
+                   "tiles": row_tiles * -(-gp // COLS),
+                   "grid": min(-(-cap // TILE) * -(-gp // COLS), sms)},
+        "cluster": {"kp": kp, "groups": cluster_groups(kp), "cols": kn,
+                    "box_x": _box2(TILE), "box_w": _box2(DEPTH),
+                    "box_wa": _box2(8),
+                    "strides": (gp * 2, g * kp * 2, gp * 2),
+                    "stage": A_BYTES + -(-kn // 64) * BOX_BYTES + 1024,
+                    "smem": _smem(STAGES * (A_BYTES + -(-kn // 64)
+                                            * BOX_BYTES + 1024)
+                                  + 2 * 8 * kn * 4 + 2 * TILE * 4
+                                  + 2 * STAGES * 8),
+                    "tiles": row_tiles * -(-g // cluster_groups(kp)),
+                    "grid": min(-(-cap // TILE) * -(-g // cluster_groups(kp)),
+                                sms)},
+        "aggregate": {"box_a": _box2(DEPTH), "box_x": _box2(DEPTH),
+                      "strides": (kp * 2, pp * 2), "col_tiles": wide,
+                      "cluster_tiles": -(-kp // TILE),
+                      "stage": A_BYTES + 5 * BOX_BYTES,
+                      "smem": _smem(STAGES * (A_BYTES + 5 * BOX_BYTES)
+                                    + 2 * TILE * 4 + 2 * STAGES * 8),
+                      "steps": [int(r) * g // DEPTH for r in lay["runs"]],
+                      "tiles": b * -(-kp // TILE) * wide,
+                      "grid": min(b * -(-kp // TILE) * wide, sms),
+                      "norm_pass": wide > 1},
+        "video_tiles": video_tiles,
+        "dassign": {"box_x": _box2(TILE), "box_v": _box2(kp),
+                    "strides": (pp * 2, pp * 2),
+                    "stage": A_BYTES + kp * DEPTH * 2,
+                    "smem": _smem(STAGES * (A_BYTES + kp * DEPTH * 2)
+                                  + 2 * STAGES * 8),
+                    "tiles": sum(video_tiles), "grid": sms},
+        "dxg": {"box_a": _box2(TILE), "box_v": _box2(DEPTH),
+                "strides": (kp * 2, pp * 2), "stage": A_BYTES + 5 * BOX_BYTES,
+                "smem": _smem(STAGES * (A_BYTES + 5 * BOX_BYTES)
+                              + 2 * STAGES * 8),
+                "tiles": sum(video_tiles) * wide, "grid": sms},
+        "dxe": {**rowprod, "strides": (kx * 2, gp * 2, gp * 2), "depth": kx,
+                "cols": gp, "tiles": row_tiles * -(-gp // COLS),
+                "grid": min(-(-cap // TILE) * -(-gp // COLS), sms)},
+    }
+    for name, m, nn in (("wgrad_ext", gp, kx), ("wgrad_we", d8, gp)):
+        tiles = WGRAD_SPLITS * -(-m // TILE) * -(-nn // COLS)
+        out[name] = {"box_x": _box2(DEPTH), "box_y": _box2(DEPTH),
+                     "strides": (m * 2, nn * 2), "rows": m, "cols": nn,
+                     "stage": A_BYTES + 4 * BOX_BYTES,
+                     "smem": _smem(STAGES * (A_BYTES + 4 * BOX_BYTES)
+                                   + 2 * STAGES * 8),
+                     "tiles": tiles, "grid": min(tiles, sms)}
+    return out
+
+
+def split_rows(total: int, splits: int = None):
+    """The weight gradients' split s: packed rows [s per, min((s + 1)
+    per, round_up(total, 64)))."""
+    splits = splits or WGRAD_SPLITS
+    rows = _up(total, DEPTH)
+    per = _up(-(-rows // splits), DEPTH)
+    return [range(min(s * per, rows), min((s + 1) * per, rows))
+            for s in range(splits)]
+
+
+def kernel_plan() -> dict:
+    """The compiled kernels' tiles and the card's SMs (card only)."""
+    import ctypes
+
+    fwd = (ctypes.c_int * 13)()
+    _build.check_launch("yt8m_nextvlad_plan",
+                        _build.library().yt8m_nextvlad_plan(fwd))
+    bwd = (ctypes.c_int * 9)()
+    _build.check_launch("yt8m_nextvlad_train_plan",
+                        _build.library().yt8m_nextvlad_train_plan(bwd))
+    out = dict(zip(("rows", "cols", "wide_cols", "rowprod_stages",
+                    "rowprod_smem", "cluster_stages", "cluster_smem_64",
+                    "cluster_smem_128", "cluster_smem_192",
+                    "cluster_smem_256", "aggregate_stages",
+                    "aggregate_smem", "sms"), fwd))
+    out.update(zip(("dassign_stages", "dassign_smem_64", "dassign_smem_128",
+                    "dassign_smem_192", "dassign_smem_256", "dxg_stages",
+                    "dxg_smem", "wgrad_stages", "wgrad_smem"), bwd))
+    return out
 
 
 def dequantized(frames):
@@ -179,10 +384,11 @@ def _frames_for_kernel(frames, n):
 
 def launch_forward(frames, num_frames, layout, residuals: bool = False):
     """Launch the CUDA forward: (out [B, K, P] f32, scratch), where
-    scratch holds the kernel's intermediates (row_off, the prefix sums of
-    the live counts that pack the live frames; xb, xe, assign bf16;
-    alpha, a_sum and the pre-norm vlad f32; with `residuals` also the f32
-    softmax sm [B, F, G, Kp], which the backward reads)."""
+    scratch holds the kernel's packed layout (poff, order, info,
+    num_frames) and intermediates over cap packed rows (xb, xe, assign
+    bf16; the a_sum partials and a_sum f32; with `residuals` also alpha
+    [cap, G], the f32 softmax sm [cap, G * Kp] and the pre-norm vlad,
+    which the backward reads)."""
     n = layout["dims"]
     b, f, _ = frames.shape
     g, k, p, kp = n["G"], n["K"], n["P"], n["Kp"]
@@ -192,13 +398,10 @@ def launch_forward(frames, num_frames, layout, residuals: bool = False):
             f"B={b} must be in [1, 65535] and F={f} at least 1")
     require(k <= MAX_CLUSTERS,
             f"nextvlad_aggregate takes K <= {MAX_CLUSTERS}, got K={k}")
-    require(g * n["GP"] * 2 <= MAX_ATTENTION_BYTES,
-            f"nextvlad_aggregate holds the attention weights in shared "
-            f"memory: G * G * Pp * 2 = {g * n['GP'] * 2} bytes, at most "
-            f"{MAX_ATTENTION_BYTES}")
-    require(-(-b * f // TILE) <= 65535,
-            f"B * F = {b * f} frames is more than 65535 tiles of "
-            f"{TILE}")
+    cap = packed_capacity(b, f, g)
+    require(cap * g * max(n["Pp"], n["Kp"], 256) < 2 ** 31,
+            f"B * F = {b * f} frames of {g} groups is more packed rows "
+            f"than the kernel indexes")
     x = _frames_for_kernel(frames, n)
     require_cuda_operand("frames", x, frames.dtype, (b, f, n["D8"]))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
@@ -210,42 +413,47 @@ def launch_forward(frames, num_frames, layout, residuals: bool = False):
     require_cuda_operand("ab", layout["ab"], torch.float32, (g,))
     require_cuda_operand("centers", layout["centers"], torch.float32, (k, p))
     dev = frames.device
-    ftiles = -(-f // TILE)
-    ptiles = -(-n["Pp"] // TILE)
+    ptiles = -(-n["Pp"] // WIDE_COLS)
 
     def empty(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    row_off = torch.zeros(b + 1, dtype=torch.int32, device=dev)
-    torch.cumsum(num_frames.clamp(0, f), 0, dtype=torch.int32,
-                 out=row_off[1:])
-    s = {
-        "row_off": row_off,
-        "xb": empty((b, f, n["D8"]), torch.bfloat16),
-        "xe": empty((b, f, n["GP"]), torch.bfloat16),
-        "assign": empty((b, f, g, kp), torch.bfloat16),
-        "asum_part": empty((b, ftiles + 1, g, kp)),
-        "alpha": empty((b, f, g)),
-        "vlad": empty((b, k, p)),
-        "sumsq": empty((b, ptiles, k)),
+    s = packed_layout(num_frames, f, g)
+    del s["runs"]
+    s.update({
+        "num_frames": num_frames, "frames": f,
+        "info": empty((cap,), torch.int32),
+        "xb": empty((cap, n["D8"]), torch.bfloat16),
+        "xe": empty((cap, n["GP"]), torch.bfloat16),
+        "assign": empty((cap, g * kp), torch.bfloat16),
+        "asum_part": empty((b, asum_slots(f, g), g, kp)),
         "a_sum": empty((b, kp)),
-    }
+    })
     if residuals:
-        s["sm"] = empty((b, f, g, kp))
+        s["alpha"] = empty((cap, g))
+        s["sm"] = empty((cap, g * kp))
+    if residuals or ptiles > 1:
+        s["vlad"] = empty((b, k, p))
+    if ptiles > 1:
+        s["sumsq"] = empty((b, ptiles, k))
     out = empty((b, k, p))
     lib = _build.library()
     fn = (lib.yt8m_nextvlad_aggregate_u8 if frames.dtype == torch.uint8
           else lib.yt8m_nextvlad_aggregate_f32)
+
+    def opt(name):
+        return _build.ptr(s[name]) if name in s else None
+
     code = fn(
-        _build.ptr(x), _build.ptr(num_frames), _build.ptr(row_off),
-        _build.ptr(layout["we"]), _build.ptr(layout["wc"]),
-        _build.ptr(layout["wa"]), _build.ptr(layout["ab"]),
-        _build.ptr(layout["centers"]), _build.ptr(s["xb"]),
-        _build.ptr(s["xe"]), _build.ptr(s["assign"]),
-        _build.ptr(s["asum_part"]), _build.ptr(s["alpha"]),
-        _build.ptr(s["vlad"]), _build.ptr(s["sumsq"]), _build.ptr(s["a_sum"]),
-        _build.ptr(s["sm"]) if residuals else None, _build.ptr(out), b, f,
-        n["D8"], g, k, p, _build.current_stream(dev),
+        _build.ptr(x), _build.ptr(num_frames), _build.ptr(s["poff"]),
+        _build.ptr(s["order"]), _build.ptr(layout["we"]),
+        _build.ptr(layout["wc"]), _build.ptr(layout["wa"]),
+        _build.ptr(layout["ab"]), _build.ptr(layout["centers"]),
+        _build.ptr(s["xb"]), _build.ptr(s["info"]), _build.ptr(s["xe"]),
+        opt("alpha"), _build.ptr(s["assign"]), opt("sm"),
+        _build.ptr(s["asum_part"]), _build.ptr(s["a_sum"]), opt("vlad"),
+        opt("sumsq"), _build.ptr(out), b, f, n["D8"], g, k, p, cap,
+        _build.current_stream(dev),
     )
     _build.check_launch("nextvlad_aggregate", code)
     return out, s
@@ -322,21 +530,22 @@ def _live_rows(num_frames, f):
 
 def forward_on_stream(frames, num_frames, layout, scratch, out) -> dict:
     """The plain steps fed the kernel's own roundings (its bf16 operands
-    `layout`, frames xb and xe, assignment and a_sum), over the live
-    frames: {name: (kernel value, plain f32 value)} for the rounded
-    streams "xe" and "assign" and for "out", the plain aggregation and
-    norm on the kernel's xe, assignment and a_sum. Where a bf16 value
-    differs from bf16 of the plain one, the two sums ran in another
-    order; what is left in "out" is f32 order alone."""
+    `layout`, frames xb and xe, assignment and a_sum, unpacked from its
+    packed rows), over the live frames: {name: (kernel value, plain f32
+    value)} for the rounded streams "xe" and "assign" and for "out", the
+    plain aggregation and norm on the kernel's xe, assignment and a_sum.
+    Where a bf16 value differs from bf16 of the plain one, the two sums
+    ran in another order; what is left in "out" is f32 order alone."""
     n = layout["dims"]
     d, g, k, p, pp, kp = n["D"], n["G"], n["K"], n["P"], n["Pp"], n["Kp"]
     b, f, _ = frames.shape
     rows = _live_rows(num_frames, f)
-    xe = scratch["xe"].reshape(b * f, g, pp)[rows, :, :p].reshape(-1, g * p)
-    xb = scratch["xb"].reshape(b * f, -1)[rows, :d].float()
+    full_xe = unpacked(scratch["xe"], scratch, b, f).reshape(b * f, g, pp)
+    xe = full_xe[rows, :, :p].reshape(-1, g * p)
+    xb = unpacked(scratch["xb"], scratch, b, f).reshape(b * f, -1)[rows, :d]
     we = layout["we"][:d].reshape(d, g, pp)[:, :, :p].reshape(d, g * p)
-    pairs = {"xe": (xe, torch.matmul(xb, we.float()))}
-    del xb
+    pairs = {"xe": (xe, torch.matmul(xb.float(), we.float()))}
+    del xb, full_xe
     xef = xe.float()
     wc = layout["wc"].reshape(g, pp, g, kp)[:, :p, :, :k].reshape(g * p, -1)
     wa = layout["wa"].reshape(g, g, pp)[:, :, :p].reshape(g, g * p).t()
@@ -346,7 +555,8 @@ def forward_on_stream(frames, num_frames, layout, scratch, out) -> dict:
     del act
     assign = e / torch.sum(e, dim=-1, keepdim=True) * alpha[..., None]
     del e
-    ka = scratch["assign"].reshape(b * f, g, kp)[rows, :, :k]
+    ka = unpacked(scratch["assign"], scratch, b, f).reshape(
+        b * f, g, kp)[rows, :, :k]
     pairs["assign"] = (ka, assign)
     full = torch.zeros(b * f, g, k, device=frames.device)
     full[rows] = ka.float()

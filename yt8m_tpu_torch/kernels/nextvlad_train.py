@@ -28,22 +28,23 @@ summed in f32. `nextvlad_aggregate_train_plain_backward` recomputes the
 forward and computes these at the same rounding points.
 
 The CUDA backward (csrc/nextvlad_train.cu) reads residuals that the
-forward keeps (the JAX forward keeps none and recomputes): the bf16
+forward keeps in its packed row layout (kernels/nextvlad.py ::
+packed_layout; the JAX forward keeps none and recomputes): the bf16
 frames and xe, the bf16 assignment, the f32 softmax and alpha, the
 pre-norm v and a_sum; at B = 256, F = 300 and the reference widths that
-is 177 + 354 + 157 + 315 + 2.5 + 38 MB, about 1.04 GB, written for the
-live frames only. They are the
-forward's own values, so the gradients are those of a recomputation. Its
-launches: dv, cdot and dcenters; a pass over each video's F * G rows
-(d_assign on the tensor cores, the softmax and sigmoid VJPs, then d_xg);
-d_xe, one tensor-core product [r(d_act) | r(d_pre)] @ [Wc | Wa]^T over
-the packed live frames, plus d_xg, rounded to bf16 once; the
-weight-gradient products
-[xe^T (d_act | d_pre)] and xb^T d_xe as split-K products, each split a
-run of videos writing f32 partials that a second pass adds in a fixed
+is 177 + 354 + 157 + 315 + 2.5 + 38 MB, about 1.04 GB, for the packed
+rows only. They are the forward's own values, so the gradients are
+those of a recomputation. Every product runs on the TMA + wgmma mainloop
+of csrc/hopper_gemm.cuh. Its launches: dv, cdot and dcenters; d_assign
+over each video's (frame, group) rows with the softmax and sigmoid VJPs
+in its epilogue; d_xg = r(assign) @ r(dv) over the same rows; d_xe, one
+product [r(d_act) | r(d_pre)] @ [Wc | Wa]^T over the packed rows, plus
+d_xg, rounded to bf16 once; the weight-gradient products [xe^T (d_act |
+d_pre)] and xb^T d_xe as split-K products, each split an equal range of
+packed rows writing f32 partials that a second pass adds in a fixed
 order (no atomics: two runs give the same bits); and dab. It
-materialises at B = 256: d_act 159 MB, d_xg 708 MB (f32), d_xe 354 MB,
-the partials 16 x (10.6 + 9.5) MB.
+materialises at B = 256: d_act 159 MB, d_xg 708 MB (f32), d_xe 354 MB at
+most, the partials 8 x (9.5 + 10.6) MB.
 
 `nextvlad_train_forward.launches` and `nextvlad_train_backward.launches`
 count the kernel calls (one each way a training step).
@@ -57,6 +58,8 @@ from yt8m_tpu_torch.kernels import _build
 from yt8m_tpu_torch.kernels._checks import on_cpu, require, require_cuda_operand
 from yt8m_tpu_torch.kernels.nextvlad import (
     NORM_EPS_SQ,
+    TILE,
+    WGRAD_SPLITS,
     _live_rows,
     _r,
     _shapes,
@@ -64,19 +67,22 @@ from yt8m_tpu_torch.kernels.nextvlad import (
     kernel_layout,
     launch_forward,
     nextvlad_aggregate_plain,
+    packed_capacity,
+    unpacked,
 )
 
-MAX_SPLITS = 16  # runs of videos of the split-K weight-gradient products
 
-
-def nextvlad_aggregate_train_plain_backward(frames, num_frames, expand_w,
-                                            attn_w, attn_b, cluster_w,
-                                            centers, dy, groups,
-                                            dtype=torch.bfloat16):
-    """(dWe, dWa, dab, dWc, dcenters) f32 with the CUDA backward's
-    rounding points: the forward recomputed, then the VJP above."""
-    fw = forward_plain(frames, num_frames, expand_w, attn_w, attn_b,
-                       cluster_w, centers, groups, dtype)
+def plain_backward_steps(frames, num_frames, expand_w, attn_w, attn_b,
+                         cluster_w, centers, dy, groups, dtype=torch.bfloat16,
+                         fw=None) -> dict:
+    """The plain backward's steps with the CUDA backward's rounding points
+    (the forward recomputed, or `fw`, forward_plain's dict): dv, cdot,
+    dvb = r(dv) [B, K, P]; d_assign (cdot subtracted), d_act [B, F, G, K]
+    and d_pre [B, F, G] f32; d_xg and d_xe [B * F, De] f32 before the
+    rounding; and the five weight gradients."""
+    if fw is None:
+        fw = forward_plain(frames, num_frames, expand_w, attn_w, attn_b,
+                           cluster_w, centers, groups, dtype)
     b, f, d = frames.shape
     g = groups
     de = expand_w.shape[1]
@@ -107,12 +113,26 @@ def nextvlad_aggregate_train_plain_backward(frames, num_frames, expand_w,
             + torch.matmul(d_actb, _r(cluster_w, dtype).t())
             + torch.matmul(d_preb, _r(attn_w, dtype).t()))
     xe = fw["xe"].reshape(b * f, de)
-    dwc = torch.matmul(xe.t(), d_actb)
-    dwa = torch.matmul(xe.t(), d_preb)
-    dab = torch.sum(d_pre, dim=(0, 1))
-    dwe = torch.matmul(_r(fw["x"], dtype).reshape(b * f, d).t(),
-                       _r(d_xe, dtype))
-    return dwe, dwa, dab, dwc, dcenters
+    return {
+        "dv": dv, "cdot": cdot, "dvb": dvb, "d_assign": d_assign,
+        "d_act": d_act, "d_pre": d_pre, "d_xg": d_xg.reshape(b * f, de),
+        "d_xe": d_xe, "dWe": torch.matmul(_r(fw["x"], dtype).reshape(
+            b * f, d).t(), _r(d_xe, dtype)),
+        "dWa": torch.matmul(xe.t(), d_preb), "dab": torch.sum(d_pre, (0, 1)),
+        "dWc": torch.matmul(xe.t(), d_actb), "dcenters": dcenters,
+    }
+
+
+def nextvlad_aggregate_train_plain_backward(frames, num_frames, expand_w,
+                                            attn_w, attn_b, cluster_w,
+                                            centers, dy, groups,
+                                            dtype=torch.bfloat16):
+    """(dWe, dWa, dab, dWc, dcenters) f32 with the CUDA backward's
+    rounding points: the forward recomputed, then the VJP above."""
+    s = plain_backward_steps(frames, num_frames, expand_w, attn_w, attn_b,
+                             cluster_w, centers, dy, groups, dtype)
+    return tuple(s[name] for name in ("dWe", "dWa", "dab", "dWc",
+                                      "dcenters"))
 
 
 def nextvlad_train_forward(frames, num_frames, layout):
@@ -123,11 +143,14 @@ def nextvlad_train_forward(frames, num_frames, layout):
     return out, s
 
 
-def splits(b: int):
-    """(videos a split, splits) of the split-K products: at most
-    MAX_SPLITS runs of videos."""
-    per = -(-b // MAX_SPLITS)
-    return per, -(-b // per)
+def video_tiles(poff, groups: int):
+    """toff [B + 1] int32: the prefix sums of each video's tiles of 128
+    (frame, group) rows (the d_assign and d_xg launches' walk)."""
+    runs = (poff[1:] - poff[:-1]).to(torch.int64) * groups
+    toff = torch.zeros_like(poff)
+    torch.cumsum((runs + TILE - 1) // TILE, 0, dtype=torch.int32,
+                 out=toff[1:])
+    return toff
 
 
 def launch_backward(num_frames, scratch, layout, dy):
@@ -137,22 +160,26 @@ def launch_backward(num_frames, scratch, layout, dy):
     n = layout["dims"]
     g, k, p, pp, kp = n["G"], n["K"], n["P"], n["Pp"], n["Kp"]
     gp, kx, d8 = n["GP"], n["Kx"], n["D8"]
-    b, f, _ = scratch["xe"].shape
+    cap = scratch["xe"].shape[0]
+    b, f = scratch["a_sum"].shape[0], scratch["frames"]
+    require(cap == packed_capacity(b, f, g),
+            f"scratch of {cap} packed rows is not the forward's")
     require_cuda_operand("dy", dy, torch.float32, (b, k, p))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
     require_cuda_operand("wext", layout["wext"], torch.bfloat16, (kx, gp))
     dev = dy.device
-    per, s = splits(b)
 
     def empty(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     t = {
+        "toff": video_tiles(scratch["poff"], g),
         "dv": empty((b, k, p)), "dvb": empty((b, kp, pp), torch.bfloat16),
-        "cdot": empty((b, kp)), "dact": empty((b, f, kx), torch.bfloat16),
-        "dpre": empty((b, f, g)), "dxg": empty((b, f, gp)),
-        "dxe": empty((b, f, gp), torch.bfloat16),
-        "part_ext": empty((s, gp, kx)), "part_we": empty((s, d8, gp)),
+        "cdot": empty((b, kp)), "dact": empty((cap, kx), torch.bfloat16),
+        "dpre": empty((cap, g)), "dxg": empty((cap, gp)),
+        "dxe": empty((cap, gp), torch.bfloat16),
+        "part_ext": empty((WGRAD_SPLITS, gp, kx)),
+        "part_we": empty((WGRAD_SPLITS, d8, gp)),
     }
     dwe = empty((d8, gp))
     dwext = empty((gp, kx))
@@ -160,16 +187,17 @@ def launch_backward(num_frames, scratch, layout, dy):
     dce = empty((k, p))
     r = scratch
     code = _build.library().yt8m_nextvlad_train_backward(
-        _build.ptr(num_frames), _build.ptr(r["row_off"]), _build.ptr(r["xb"]),
-        _build.ptr(r["xe"]),
-        _build.ptr(r["assign"]), _build.ptr(r["sm"]), _build.ptr(r["alpha"]),
-        _build.ptr(r["vlad"]), _build.ptr(r["a_sum"]), _build.ptr(dy),
-        _build.ptr(layout["centers"]), _build.ptr(layout["wext"]),
+        _build.ptr(r["poff"]), _build.ptr(t["toff"]),
+        *(_build.ptr(r[name]) for name in (
+            "info", "xb", "xe", "assign", "sm", "alpha", "vlad", "a_sum")),
+        _build.ptr(dy), _build.ptr(layout["centers"]),
+        _build.ptr(layout["wext"]),
         *(_build.ptr(t[name]) for name in (
             "dv", "dvb", "cdot", "dact", "dpre", "dxg", "dxe", "part_ext",
             "part_we")),
         _build.ptr(dwe), _build.ptr(dwext), _build.ptr(dab),
-        _build.ptr(dce), b, f, d8, g, k, p, per, _build.current_stream(dev),
+        _build.ptr(dce), b, f, d8, g, k, p, cap, WGRAD_SPLITS,
+        _build.current_stream(dev),
     )
     _build.check_launch("nextvlad_train_backward", code)
     return dwe, dwext, dab, dce, t
@@ -213,8 +241,13 @@ def backward_on_stream(num_frames, res, layout, dy, dwe, dwext, t) -> dict:
     "dWe" on the kernel's bf16 operands."""
     n = layout["dims"]
     g, k, p, pp, kp = n["G"], n["K"], n["P"], n["Pp"], n["Kp"]
-    b, f, _ = res["xe"].shape
+    b, f = res["a_sum"].shape[0], res["frames"]
     rows = _live_rows(num_frames, f)
+    # The packed residuals and scratch as [B, F, ...] (zeros past n).
+    res = {**res, **{name: unpacked(res[name], res, b, f)
+                     for name in ("xb", "xe", "assign", "sm", "alpha")}}
+    t = {**t, **{name: unpacked(t[name], res, b, f)
+                 for name in ("dact", "dpre", "dxe")}}
     v = res["vlad"]
     ss = torch.sum(v * v, dim=2, keepdim=True)
     nrm = torch.sqrt(torch.clamp_min(ss, NORM_EPS_SQ))
