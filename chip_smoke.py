@@ -40,7 +40,9 @@ Phases, one line each with the elapsed seconds:
      NeXtVladModel's training shape (B=256) and at small and odd shapes,
      with a second run held bit for bit; NeXtVLAD's rounding witnesses,
      forward and backward; the int8 DBoF kernel at DbofModel's B=2048
-     with its int8-vs-bf16 deviation, DBoF v1 at B=2048 and the sampled
+     (columns with a_col < 0, 0 and -0.0 at the edges) with its
+     int8-vs-bf16 deviation and the bf16 path's time in the same phase,
+     DBoF v1 at B=2048 and the sampled
      DBoF at B=2048, F=300 beside DbofModel's own route (the gather, then
      v2; timed route, fused, fused, route), and dequant_affine_matmul at the
      flagship's first LSTM input projection over raw frames (M=153,600,
@@ -105,10 +107,13 @@ Tolerances, max|kernel - plain| on the same inputs:
   * top-k: exactly equal.
   * int8 DBoF: bit for bit. The integer sums are exact on both sides (the
     plain version multiplies in float64, exact below 2^53; float32 would
-    round sums above 2^24), each is converted to f32 once, and the
-    affine runs unfused on both. Its deviation from the bf16 plain
-    version, max|int8 - bf16| / mean|bf16|, is printed (the CPU tests
-    hold the port's int8 path to the JAX test's 0.10 at its shape).
+    round sums above 2^24); the plain version converts each to f32 and
+    applies the affine unfused, the kernel the same to the pooled sum
+    only (every step is monotone: a max, or a min where a_col < 0, of
+    the sums commutes with it exactly). Its deviation from the bf16
+    plain version, max|int8 - bf16| / mean|bf16|, is printed (the CPU
+    tests hold the port's int8 path to the JAX test's 0.10 at its
+    shape).
   * sampled DBoF: bit for bit with v2 on the gathered frames (the same
     affine rounding, the same product); DBoF v1 and dequant_affine_matmul
     in bf16 (D >= 512): the DBoF bound; dequant_affine_matmul in f32
@@ -630,15 +635,22 @@ def check_netvlad(torch, gen, dev, flush) -> dict:
         netvlad_aggregate_plain,
     )
 
+    # Edges, then the two warpgroups' split of K: K = 512, and K = 264
+    # (a second half of 8 clusters in a chain of 256).
     for b, f, d, k, dt in ((5, 13, 128, 8, torch.uint8),
                            (4, 70, 256, 136, torch.float32),
-                           (2, 1, 128, 64, torch.uint8)):
+                           (2, 1, 128, 64, torch.uint8),
+                           (8, FLAG_FRAMES, FEATURE_DIM, 512, torch.float32),
+                           (8, FLAG_FRAMES, 256, 264, torch.uint8)):
         args = vlad_inputs(torch, gen, b, f, d, k, dt, dev)
-        rel_check(f"netvlad edge B={b} F={f} D={d} K={k} {dt}",
-                  netvlad_aggregate(*args), netvlad_aggregate_plain(*args),
-                  rel=VLAD_REL, abs_=1e-6)
+        got = netvlad_aggregate(*args)
+        if b > 2:
+            check(bool(torch.all(got[1] == 0)),
+                  f"netvlad edge K={k}: num_frames=0 is not exact zeros")
+        rel_check(f"netvlad edge B={b} F={f} D={d} K={k} {dt}", got,
+                  netvlad_aggregate_plain(*args), rel=VLAD_REL, abs_=1e-6)
     shape = (FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM, VLAD_CLUSTERS)
-    errs, times = {}, {}
+    errs, times, split = {}, {}, {}
     for dt, loud in ((torch.uint8, 255), (torch.float32, 1e4)):
         x, nf, wc, scale, bias, centers = vlad_inputs(torch, gen, *shape, dt,
                                                       dev)
@@ -663,6 +675,14 @@ def check_netvlad(torch, gen, dev, flush) -> dict:
         vlad_rounding_witness(torch, f"netvlad_aggregate {dt}", args)
         times[dt] = time_ms(torch, lambda: netvlad_aggregate(*args), 10,
                             flush)
+        split[dt] = device_kernels(torch, lambda: netvlad_aggregate(*args),
+                                   "nv_serve")
+    for dt, seen in split.items():
+        say("kernel", f"netvlad_aggregate {dt} by launch (profiler): "
+                      f"{sum(seen.values()) / 1e3:.4f} ms = " + " + ".join(
+                          f"{us / 1e3:.4f} "
+                          f"{key[key.find('nv_serve'):].split('(')[0]}"
+                          for key, us in seen.items()))
     # The flagship feeds float32 frames: time and bound that case.
     plain_ms = time_ms(torch, lambda: netvlad_aggregate_plain(*args), 3, flush)
 
@@ -702,9 +722,10 @@ def check_netvlad(torch, gen, dev, flush) -> dict:
         "name": "netvlad_aggregate", "route": "cuda",
         "source": "yt8m_tpu_torch/kernels/csrc/netvlad.cu",
         "replaces": "yt8m_tpu/kernels/netvlad.py:91",
-        "max_abs_err": max(errs.values()), "ms": times[torch.float32],
+        "max_abs_err": max(errs.values()),
+        "ms": sum(split[torch.float32].values()) / 1e3,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "ms_events": times[torch.float32],
     }
 
 
@@ -2470,6 +2491,7 @@ def check_dbof_int8(torch, gen, dev, flush) -> dict:
         dbof_cluster_maxpool_int8,
         dbof_cluster_maxpool_int8_plain,
         dbof_cluster_maxpool_plain,
+        dbof_cluster_maxpool_v2,
     )
 
     # Edge cases, each bit for bit: ragged B and K, S < 32, S = 64 (two
@@ -2482,6 +2504,18 @@ def check_dbof_int8(torch, gen, dev, flush) -> dict:
         check(torch.equal(dbof_cluster_maxpool_int8(*args),
                           dbof_cluster_maxpool_int8_plain(*args)),
               f"dbof int8 edge B={b} S={s} D={d} K={k}: not bit for bit")
+        # Columns with a_col < 0 (the kernel pools the minimum integer sum
+        # there), a_col = 0 and a_col = -0.0.
+        x, w8, a_col, b_col = args
+        a_col = a_col.clone()
+        a_col[::3] *= -1.0
+        a_col[1::7] = 0.0
+        a_col[2::11] = -0.0
+        check(torch.equal(dbof_cluster_maxpool_int8(x, w8, a_col, b_col),
+                          dbof_cluster_maxpool_int8_plain(x, w8, a_col,
+                                                          b_col)),
+              f"dbof int8 signed a_col B={b} S={s} D={d} K={k}: not bit "
+              f"for bit")
     (x, w8, a_col, _), _ = int8_inputs(torch, gen, 6, 30, 64, 64, dev)
     # acc <= -72 * 127 a column: with a_col = 1 every real row is < 0.
     x, w8, a_col = torch.clamp(x, min=200), -w8.abs(), torch.ones_like(a_col)
@@ -2491,6 +2525,9 @@ def check_dbof_int8(torch, gen, dev, flush) -> dict:
     check(bool(torch.all(dbof_cluster_maxpool_int8(x, w8, a_col, b_col)
                          == 0)),
           "dbof int8: padded frame rows leaked into the max")
+    check(bool(torch.all(dbof_cluster_maxpool_int8(x, -w8, -a_col, b_col)
+                         == 0)),
+          "dbof int8: padded frame rows leaked into the min (a_col < 0)")
 
     args, bf16_args = int8_inputs(torch, gen, BATCH, FRAMES, FEATURE_DIM,
                                   CLUSTERS, dev)
@@ -2513,8 +2550,19 @@ def check_dbof_int8(torch, gen, dev, flush) -> dict:
 
     check(torch.equal(library(), got), "int8 library yardstick differs")
     ms = time_ms(torch, lambda: dbof_cluster_maxpool_int8(*args), 10, flush)
-    us = device_us(torch, lambda: dbof_cluster_maxpool_int8(*args),
-                   "dbof_int8")
+    # The whole call: the kernel and the wrapper's column sums of w8 (a
+    # PyTorch reduction).
+    us = whole_call_us(torch, lambda: dbof_cluster_maxpool_int8(*args),
+                       ("dbof_int8", "reduce_kernel"),
+                       "dbof_cluster_maxpool_int8")
+    # The path the int8 one replaces, in the same call: DBoF v2 (its input
+    # affine and bf16 product) on the same frames.
+    xq, w, s_in, b_in, s_act, b_act = bf16_args
+    w16 = w.to(torch.bfloat16)
+    bf16_us = whole_call_us(
+        torch, lambda: dbof_cluster_maxpool_v2(xq, w16, s_in, b_in, s_act,
+                                               b_act), WHOLE_DBOF,
+        "dbof bf16 path (v2)")
     plain_ms = time_ms(torch, lambda: dbof_cluster_maxpool_int8_plain(*args),
                        3, flush)
     library_ms = time_ms(torch, library, 5, flush)
@@ -2524,7 +2572,8 @@ def check_dbof_int8(torch, gen, dev, flush) -> dict:
     bound_ms, bound_by = bound(ops, nbytes, PEAK_INT8_OPS)
     say("kernel", f"dbof_cluster_maxpool_int8 B={BATCH}: bit for bit with "
                   f"its plain version (and the edge cases, the hazard); "
-                  f"{us / 1e3:.4f} ms (profiler; events {ms:.4f}); "
+                  f"{us / 1e3:.4f} ms (profiler; events {ms:.4f}) against "
+                  f"the bf16 path's {bf16_us / 1e3:.4f} ms (profiler); "
                   f"max|int8 - bf16 plain| / mean|bf16 plain| "
                   f"{deviation:.4f} (the JAX test bounds it at 0.10 on "
                   f"16 x 7 x 256 x 256)")
@@ -2535,7 +2584,7 @@ def check_dbof_int8(torch, gen, dev, flush) -> dict:
         "max_abs_err": 0.0, "ms": us / 1e3, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "ms_events": ms,
-        "int8_vs_bf16": deviation,
+        "bf16_path_ms": bf16_us / 1e3, "int8_vs_bf16": deviation,
     }
 
 

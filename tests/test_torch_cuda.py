@@ -62,8 +62,10 @@ bf16 streams differ only at rounding boundaries and that what follows
 them meets 1e-3 * max|ref| + 1e-6. The weight gradients are split-K sums
 added in a fixed order: a second run gives the same bits.
 The int8 DBoF kernel equals its plain version bit for bit: the integer
-sums are exact on both sides (the plain version sums in float64), and
-both convert each sum to f32 once and apply the affine unfused. The
+sums are exact on both sides (the plain version sums in float64); the
+plain version converts each to f32 and applies the affine unfused, the
+kernel the same to the sum it pools (a max, or a min where a_col < 0:
+every step is monotone, so the two commute exactly). The
 sampled DBoF kernel equals v2 on the gathered frames bit for bit (the
 same affine rounding, the same product). DBoF v1 and dequant_affine_matmul
 in bf16 (D >= 512): max|diff| <= 1e-3 * max|ref| + 1e-6, the DBoF bound;
@@ -333,7 +335,8 @@ def _vlad_args(seed, b, f, d, k, x_dtype, dev):
 
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("b,f,d,k", [(5, 13, 128, 8), (4, 70, 256, 136),
-                                     (3, 300, 1152, 256), (1, 1, 128, 64)])
+                                     (3, 300, 1152, 256), (1, 1, 128, 64),
+                                     (3, 130, 256, 512), (4, 70, 256, 264)])
 def test_cuda_netvlad_matches_plain(cuda, x_dtype, b, f, d, k):
     args = _vlad_args(b + f + k, b, f, d, k, x_dtype, cuda)
     before = tvlad.netvlad_aggregate.launches
@@ -383,6 +386,49 @@ def test_cuda_netvlad_differs_only_by_assignment_rounding(cuda, x_dtype):
     tail = tvlad.netvlad_residuals_plain(ka.float(), colsum.sum(1),
                                          xb.float(), args[5])
     _close(out, tail, rel=1e-3)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("k", [256, 512])
+def test_cuda_netvlad_touches_only_live_chunks(cuda, x_dtype, k):
+    """The kernel writes its bf16 frames, assignment and column sums on
+    the live 64-frame chunks only (scratch filled with NaN first stays
+    NaN on every other chunk), zeros from num_frames to the chunk's end,
+    and the same output as with zeroed scratch."""
+    args = _vlad_args(5, 9, 300, 256, k, x_dtype, cuda)
+    nf = args[1]
+    nan = float("nan")
+    out, xb, ka, colsum = tvlad._launch(
+        *args, lambda shape, dtype, device: torch.full(
+            shape, nan, dtype=dtype, device=device))
+    chunk = torch.arange(300, device=cuda) // 64
+    live_chunk = chunk[None, :] < (nf[:, None] + 63) // 64
+    written = ~torch.isnan(ka.float()).all(-1)
+    assert torch.equal(written, live_chunk)
+    assert torch.equal(~torch.isnan(xb.float()).all(-1), live_chunk)
+    past = torch.arange(300, device=cuda)[None, :] >= nf[:, None]
+    assert torch.all(ka[live_chunk & past] == 0)
+    assert torch.all(xb[live_chunk & past] == 0)
+    c = torch.arange(5, device=cuda)
+    assert torch.equal(~torch.isnan(colsum).all(-1),
+                       c[None, :] < (nf[:, None] + 63) // 64)
+    assert torch.equal(out, tvlad.netvlad_aggregate(*args))
+
+
+def test_cuda_netvlad_plans_match_the_kernel(cuda):
+    """The compiled launches' tiles are the ones kernels/netvlad.py ::
+    plan describes."""
+    got = tvlad.kernel_plan()
+    assert got["chunk"] == tvlad.FRAME_CHUNK
+    for k, key in ((128, "128"), (256, "256"), (512, "split")):
+        for dt, name in ((torch.float32, "f32"), (torch.uint8, "u8")):
+            p = tvlad.plan(512, 300, 1152, k, dt, sms=got["sms"])
+            assert got[f"smem_{name}_{key}"] == p["assign_smem"]
+    p = tvlad.plan(512, 300, 1152, 256, sms=got["sms"])
+    assert got["assign_stages"] == p["assign_stages"]
+    assert (got["agg_clusters"], got["agg_cols"], got["agg_stages"],
+            got["agg_smem"]) == (tvlad.AGG_CLUSTERS, tvlad.D_TILE,
+                                 p["agg_stages"], p["agg_smem"])
 
 
 def _lstm_args(seed, f, b, h, dev):
@@ -1440,9 +1486,36 @@ def test_cuda_dbof_int8_equals_plain_bit_for_bit(cuda, b, s, d, k):
     assert torch.equal(got, tdbof.dbof_cluster_maxpool_int8_plain(*args))
 
 
+@pytest.mark.parametrize("b,s,d,k", [(7, 5, 64, 200), (5, 30, 1152, 8192),
+                                     (3, 64, 128, 48)])
+def test_cuda_dbof_int8_signed_columns_bit_for_bit(cuda, b, s, d, k):
+    """Columns with a_col < 0 (the kernel pools the minimum sum there),
+    a_col = 0 and a_col = -0.0 equal the plain version bit for bit."""
+    x, w8, a_col, b_col = _int8_args(b + s + k, b, s, d, k, cuda)
+    a_col = a_col.clone()
+    a_col[::3] *= -1.0
+    a_col[1::7] = 0.0
+    a_col[2::11] = -0.0
+    got = tdbof.dbof_cluster_maxpool_int8(x, w8, a_col, b_col)
+    assert torch.equal(got, tdbof.dbof_cluster_maxpool_int8_plain(
+        x, w8, a_col, b_col))
+
+
+def test_cuda_dbof_int8_plan_matches_the_kernel(cuda):
+    """The compiled int8 product's tile is the one kernels/dbof.py ::
+    plan_int8 describes."""
+    got = tdbof.kernel_plan_int8()
+    p = tdbof.plan_int8(2048, 1152, 8192, sms=got["sms"])
+    assert (got["videos"], got["pitch"], got["tile_clusters"], got["depth"],
+            got["stages"], got["smem"]) == (
+        tdbof.TILE_VIDEOS, tdbof.MAX_FRAMES_PER_VIDEO, p["chain"],
+        tdbof.INT8_DEPTH, p["stages"], p["smem"])
+
+
 def test_cuda_dbof_int8_masks_padded_frames(cuda):
     """Every real row is negative before the ReLU; an unmasked padding row
-    (int8 zero, the raw byte 128) would give relu(b_col) = 3."""
+    (int8 zero, the raw byte 128) would give relu(b_col) = 3. The same
+    with a_col < 0 (the minimum sum pooled there)."""
     x, w8, a_col, _ = _int8_args(0, 6, 30, 64, 64, cuda)
     x = torch.clamp(x, min=200)
     w8 = -w8.abs()
@@ -1451,6 +1524,10 @@ def test_cuda_dbof_int8_masks_padded_frames(cuda):
     got = tdbof.dbof_cluster_maxpool_int8(x, w8, a_col, b_col)
     assert torch.all(tdbof.dbof_cluster_maxpool_int8_plain(
         x, w8, a_col, b_col) == 0)
+    assert torch.all(got == 0)
+    got = tdbof.dbof_cluster_maxpool_int8(x, -w8, -a_col, b_col)
+    assert torch.all(tdbof.dbof_cluster_maxpool_int8_plain(
+        x, -w8, -a_col, b_col) == 0)
     assert torch.all(got == 0)
 
 

@@ -55,14 +55,16 @@ SIGNATURES = {
     "yt8m_dequant_matmul_f32": [_P] * 5 + [_I] * 3 + [_P],
     "yt8m_dequant_plan": [_P],
     "yt8m_dbof_plan": [_P],
+    "yt8m_dbof_int8_plan": [_P],
     "yt8m_moe_head_serving": [_P] * 6 + [_I] * 6 + [_P],
     "yt8m_moe_plan": [_I, _P],
     "yt8m_hopper_gemm": [_P] * 3 + [_I] * 4 + [_P],
     "yt8m_hopper_gemm_layouts": [_P] * 3 + [_I] * 5 + [_P],
     "yt8m_hopper_product": [_P] * 3 + [_I] * 6 + [_P],
     "yt8m_exact_topk": [_P] * 3 + [_I] * 3 + [_P],
-    "yt8m_netvlad_aggregate_u8": [_P] * 11 + [_I] * 4 + [_P],
-    "yt8m_netvlad_aggregate_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "yt8m_netvlad_aggregate_u8": [_P] * 12 + [_I] * 4 + [_P],
+    "yt8m_netvlad_aggregate_f32": [_P] * 12 + [_I] * 4 + [_P],
+    "yt8m_netvlad_plan": [_P],
     "yt8m_lstm_recurrence": [_P] * 11 + [_I] * 5 + [_P],
     "yt8m_lstm_plan": [_I] * 2 + [_P],
     "yt8m_lstm_train_forward": [_P] * 13 + [_I] * 5 + [_P],

@@ -6,6 +6,7 @@ on the same inputs.
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR \
         --kernels dequant,netvlad_core
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels nextvlad
+    python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels vlad,int8
 
 DIR is the root of another checkout (e.g. a `git archive` of a parent
 commit unpacked under build/). Each checkout runs in its own process, with
@@ -47,6 +48,22 @@ softmax and bmm; under autograd for the pair). Printed: each checkout's
 medians with the per-launch split, the library's, and max|diff| between
 the checkouts' outputs and five weight gradients against the rows'
 bound 2^-7 * max|ref| + 1e-6 (chip_smoke.py's NEXTVLAD_REL).
+
+`--kernels vlad,int8`: netvlad_aggregate at the flagship's serving shape
+(B=512, F=300, D=1152, K=256) with float32 and with uint8 frames, and
+dbof_cluster_maxpool_int8 at B=2048 (S=30, D=1152, K=8192), on inputs
+made as chip_smoke.py makes them (a seeded generator; num_frames uniform
+in 1..F with F, 0 and 1 planted; the int8 constants from an f32 cluster
+kernel). The checkouts run in turns (other, this, this, other), each
+timing every call by the profiler's device time (the sum over the call's
+kernels and each kernel by name, median of 7 windows, the L2 flushed
+before each), and this checkout also each row's library yardstick (bf16
+matmuls, softmax and the norms; torch._int_mm and the epilogue). Printed:
+each checkout's medians with the per-launch split, the library's, and
+for NetVLAD max|diff| between the checkouts against 2^-8 * max|ref| +
+1e-6 (chip_smoke.py's VLAD_REL: the column sums and norms are summed in
+another order), for the int8 kernel whether the two outputs are equal
+bit for bit.
 
 Without `--kernels` (the recurrences): the trainable LSTM's and GRU's forward
 (outputs, final state, residuals) and backward (dZ; dA_g and dA_c) at the
@@ -450,6 +467,132 @@ def run_nextvlad(out_path, library="0"):
     torch.save(res, out_path)
 
 
+VLAD_REL = 2.0 ** -8  # chip_smoke.py's VLAD_REL
+VLAD_CASES = ("netvlad float32", "netvlad uint8", "dbof int8")
+
+
+def _vlad_inputs(torch, x_dtype, seed):
+    """chip_smoke.py's NetVLAD inputs at the flagship's serving shape."""
+    b, f, d, k = 512, F, 1152, 256
+    gen = torch.Generator().manual_seed(seed)
+    if x_dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, f, d), generator=gen, dtype=torch.uint8)
+    else:
+        x = torch.randn(b, f, d, generator=gen)
+    nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+    nf[:3] = torch.tensor([f, 0, 1], dtype=torch.int32)
+    wc = (torch.randn(d, k, generator=gen) * d ** -0.5).to(torch.bfloat16)
+    scale = 0.5 + torch.rand(k, generator=gen)
+    bias = 0.3 * torch.randn(k, generator=gen)
+    centers = torch.randn(k, d, generator=gen) * d ** -0.5
+    return [t.cuda() for t in (x, nf, wc, scale, bias, centers)]
+
+
+def _int8_inputs(torch, seed):
+    """chip_smoke.py's int8 DBoF inputs at B=2048: raw frames and the
+    constants of int8_serving_constants."""
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels.dbof import int8_serving_constants
+
+    b, s, d, k = 2048, 30, 1152, 8192
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 256, (b, s, d), generator=gen, dtype=torch.uint8)
+    s_in = DEQUANT_SCALE * (0.5 + torch.rand(d, generator=gen))
+    b_in = DEQUANT_BIAS * s_in + 0.1 * torch.randn(d, generator=gen)
+    w = (torch.randn(d, k, generator=gen) * d ** -0.5).to(torch.bfloat16)
+    s_act = 0.5 + torch.rand(k, generator=gen)
+    b_act = 0.1 * torch.randn(k, generator=gen)
+    consts = int8_serving_constants(w.float(), s_in, b_in, s_act, b_act)
+    return [t.cuda() for t in (x, *consts)]
+
+
+def run_vlad_int8(out_path, library="0"):
+    """The package on sys.path: netvlad_aggregate (float32 and uint8
+    frames) at B=512 and dbof_cluster_maxpool_int8 at B=2048, outputs and
+    device ms (total and by kernel) saved to out_path; with library =
+    "1" also the library yardsticks."""
+    import torch
+
+    from yt8m_tpu_torch.kernels.dbof import dbof_cluster_maxpool_int8
+    from yt8m_tpu_torch.kernels.netvlad import netvlad_aggregate
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    for dt, seed in ((torch.float32, 31), (torch.uint8, 37)):
+        args = _vlad_inputs(torch, dt, seed)
+        key = f"netvlad {str(dt).split('.')[-1]}"
+        fn = lambda: netvlad_aggregate(*args)  # noqa: E731
+        res[f"{key} out"] = fn().cpu()
+        res[f"{key} ms"], res[f"{key} split"] = _device_split(torch, fn,
+                                                              flush)
+        if library == "1":
+            x, nf, wc, scale, bias, centers = args
+
+            def lib():
+                xf = x.to(torch.float32)
+                if x.dtype == torch.uint8:
+                    xf = xf * (4.0 / 255.0) + (4.0 / 512.0 - 2.0)
+                xb = xf.to(torch.bfloat16)
+                act = torch.matmul(xb, wc).to(torch.float32) * scale + bias
+                mask = (torch.arange(x.shape[1], device="cuda")[None, :]
+                        < nf[:, None])[:, :, None]
+                a = torch.softmax(act, -1) * mask
+                vlad = torch.matmul(a.to(torch.bfloat16).transpose(1, 2),
+                                    xb).to(torch.float32)
+                vlad = vlad - a.sum(1)[:, :, None] * centers
+                vlad = torch.nn.functional.normalize(vlad, dim=2, eps=1e-6)
+                return torch.nn.functional.normalize(vlad.flatten(1), dim=1,
+                                                     eps=1e-6)
+            res[f"{key} library ms"] = _device_split(torch, lib, flush)[0]
+        del args, fn
+        torch.cuda.empty_cache()
+    args = _int8_inputs(torch, 41)
+    fn = lambda: dbof_cluster_maxpool_int8(*args)  # noqa: E731
+    res["dbof int8 out"] = fn().cpu()
+    res["dbof int8 ms"], res["dbof int8 split"] = _device_split(torch, fn,
+                                                                flush)
+    if library == "1":
+        x, w8, a_col, b_col = args
+
+        def lib():
+            xi = (x ^ 128).view(torch.int8).reshape(-1, x.shape[2])
+            acc = torch._int_mm(xi, w8).to(torch.float32)
+            act = torch.relu(acc * a_col + b_col)
+            return torch.amax(act.reshape(x.shape[0], x.shape[1], -1), dim=1)
+        res["dbof int8 library ms"] = _device_split(torch, lib, flush)[0]
+    torch.save(res, out_path)
+
+
+def compare_vlad_int8(torch, mine, other) -> list:
+    """Lines: each call's device ms in both checkouts with the split by
+    kernel, the library's, and the outputs against the parent's: NetVLAD
+    within 2^-8 * max|ref| + 1e-6, the int8 kernel bit for bit."""
+    lines = []
+    for key in VLAD_CASES:
+        ms = [r[f"{key} ms"] for r in mine]
+        ms_other = [r[f"{key} ms"] for r in other]
+        line = (f"{key}: this checkout {ms[0]:.4f}, {ms[1]:.4f} ms; other "
+                f"{ms_other[0]:.4f}, {ms_other[1]:.4f} ms (device, median "
+                f"of 7)")
+        if f"{key} library ms" in mine[0]:
+            lib = [r[f"{key} library ms"] for r in mine]
+            line += f"; library {lib[0]:.4f}, {lib[1]:.4f} ms"
+        x, y = mine[0][f"{key} out"], other[0][f"{key} out"]
+        if key.startswith("dbof"):
+            line += (f"; bit for bit with the other: {torch.equal(x, y)}")
+        else:
+            diff = (x - y).abs().max().item()
+            limit = VLAD_REL * y.abs().max().item() + 1e-6
+            line += (f"; max|diff| {diff:.3e} (bound {limit:.3e}: "
+                     f"{'within' if diff <= limit else 'OUTSIDE'})")
+        lines.append(line)
+        for name, r in (("this", mine[0]), ("other", other[0])):
+            split = sorted(r[f"{key} split"].items(), key=lambda kv: -kv[1])
+            lines.append(f"  {name} by kernel: " + "; ".join(
+                f"{n[:60]} {v:.4f}" for n, v in split))
+    return lines
+
+
 def compare_nextvlad(torch, mine, other) -> list:
     """Lines: each call's device ms in both checkouts with the split by
     kernel, the library's, and max|diff| between the checkouts against
@@ -586,7 +729,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
     ap.add_argument("--kernels", default="recurrences",
                     choices=("recurrences", "dbof,moe",
-                             "dequant,netvlad_core", "nextvlad"))
+                             "dequant,netvlad_core", "nextvlad",
+                             "vlad,int8"))
     args = ap.parse_args(argv)
     import torch
 
@@ -600,6 +744,8 @@ def main(argv=None) -> int:
         return _main_products(torch, args, "run_core", compare_core)
     if args.kernels == "nextvlad":
         return _main_products(torch, args, "run_nextvlad", compare_nextvlad)
+    if args.kernels == "vlad,int8":
+        return _main_products(torch, args, "run_vlad_int8", compare_vlad_int8)
     mine = os.path.join(args.out, "this.pt")
     other = os.path.join(args.out, "other.pt")
     _in_checkout(ROOT, "run", mine)

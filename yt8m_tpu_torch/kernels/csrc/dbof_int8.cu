@@ -7,8 +7,7 @@
 // folded affines (w8, per-column symmetric int8, here as its transpose
 // w8t [K, D]; a_col, b_col [K] f32):
 //
-//   xi   = x XOR 0x80, as int8                 (x - 128, exact)
-//   acc  = xi @ w8                             (int32, exact)
+//   acc  = (x - 128) @ w8                      (int32, exact)
 //   out  = max_s relu(f32(acc) * a_col + b_col)        [B, K] f32
 //
 // What bounds it: the product. At B=2048, S=30, D=1152, K=8192 it is
@@ -16,251 +15,264 @@
 // against 71 MB of frames, 9.4 MB of w8 and 67 MB of output (0.044 ms),
 // so the bound is the int8 tensor-core rate.
 //
-// Design: csrc/dbof.cu's two launches on the caller's stream.
-//  1. dbof_int8_shift: xi = x ^ 0x80 for every sampled frame, once, into
-//     a [B*S, D] int8 buffer from the wrapper (16 bytes a thread).
-//  2. dbof_int8_cluster_maxpool: an int8 GEMM on mma.sync m16n8k32
-//     (int8 operands, int32 sums in registers) whose epilogue converts
-//     each sum to f32 (round to nearest, as the plain version's single
-//     conversion), then multiplies by a_col and adds b_col unfused (the
-//     plain version's two roundings), and takes the ReLU and the max over
-//     the video's frames. Both operands lie k-contiguous (xi rows, w8t
-//     rows), the layout the int8 mma takes, so ldmatrix loads both
-//     fragments without a transpose. (A first design on wmma's 16 x 16 x
-//     16 int8 fragments with w8 [D, K] ran no faster than the bf16
-//     kernel: half the depth of the int8 mma an instruction, and a byte
-//     transpose of each B fragment.) A block computes 8 videos x 128
-//     clusters; each warp holds two videos' 64 rows (S padded to 32 a
-//     video, the padding rows zero-filled) x 64 clusters in 128 int32
-//     registers. Padded rows are masked out of the max: a zero int8 row
-//     is the raw byte 128 and gives relu(b_col), which can exceed every
-//     real row. The max over a video's 32 rows is taken in registers and
-//     across the 8 lanes that share a column (shuffles), so the sums
-//     never reach memory. Tiles of xi and w8t stream 128 bytes of depth a
-//     stage through a 3-stage cp.async ring; rows are padded to 144 bytes
-//     so that the 8 rows an ldmatrix reads fall in distinct banks.
-// This is the simple first kernel: mma.sync, not wgmma/TMA.
+// Design: one launch, csrc/dbof.cu's persistent TMA + wgmma product
+// (hopper_gemm.cuh) with the integer wgmma.
+//  * The raw bytes are the A operand. wgmma multiplies unsigned bytes by
+//    signed ones (m64n256k32.s32.u8.s8), so x needs no shifted copy:
+//    acc_u = x @ w8 = acc + 128 colsum8[k] exactly, colsum8[k] = sum_d
+//    w8[d, k] (the wrapper's int32 column sums; |acc_u| <= 255 * 127 * D
+//    < 2^31 for D < 66,000). The correction is applied once per (video,
+//    cluster), after the max.
+//  * A tile is 4 videos x 256 clusters. TMA reads x as [B, S, D] in boxes
+//    of 4 videos x 32 frames x 128 bytes (the frames past S and the
+//    videos past B arrive as zeros) and w8t in boxes of 256 clusters x
+//    128 bytes; both K-major (the only layout of the integer wgmma), a
+//    128-byte stage is four k32 steps. 48 KB a stage, 4 stages. Each
+//    consumer warpgroup runs m64n256k32 on its two videos, 128 int32
+//    accumulators a thread. The grid is persistent, the cluster tile
+//    fastest (w8t's 9.4 MB stay in L2), and the producer fills the next
+//    tile's stages while the consumers run the epilogue.
+//  * The epilogue converts once per (video, cluster), not once per frame.
+//    Every step of f32(acc) -> * a_col (rounded) -> + b_col (rounded) ->
+//    relu is monotone: non-decreasing where a_col >= 0, non-increasing
+//    where a_col < 0. So max_s relu(f32(acc_s) a + b) = relu(f32(max_s
+//    acc_s) a + b) for a >= 0 and relu(f32(min_s acc_s) a + b) for a < 0,
+//    exactly. The epilogue takes an integer max of acc (of -acc where
+//    a_col < 0) over the video's rows, frames s >= S set to INT_MIN (a
+//    zero row is a real value, the raw byte 0, and can exceed every real
+//    row), folded across the lanes as csrc/dbof.cu's epilogue folds its
+//    f32 maxima (constant trip counts), the video's two warps joined in
+//    shared memory; then the sign back, minus 128 colsum8, one
+//    conversion, the affine and the clamp at 0. The result equals the
+//    plain version's bit for bit. The epilogue does not overlap the
+//    products: 0.23 of the kernel's 1.04 ms at B=2048 on an H100
+//    (variants.py's int8_no_epilogue).
 
 #include <cuda_runtime.h>
-#include <math.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "input_affine.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
-constexpr int kVideos = 8;           // videos per block (two per warp)
-constexpr int kRowsPerVideo = 32;    // S padded to 32
-constexpr int kBM = kVideos * kRowsPerVideo;
-constexpr int kBN = 128;
-constexpr int kBK = 128;             // bytes of depth a stage
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kLd = kBK + 16;        // bytes per shared row (bank spread)
-constexpr int kStageA = kBM * kLd;   // bytes per ring slot
-constexpr int kStageB = kBN * kLd;
-constexpr int kSmemBytes = kStages * (kStageA + kStageB);
+constexpr int kVideos = 4;   // videos a tile
+constexpr int kPitch = 32;   // rows a video: S <= 32, zero-filled past S
+constexpr int kBN = 256;     // clusters a tile
+constexpr int kDepth = 128;  // bytes (int8 values) of depth a stage
+constexpr int kStages = 4;
+constexpr int kABytes = hgemm::kRows * kDepth;  // 16 KB
+constexpr int kBBytes = kBN * kDepth;           // 32 KB
+constexpr int kStageBytes = kABytes + kBBytes;  // 48 KB
+constexpr int kPoolInts = 2 * kVideos * kBN;    // the odd warps' partial maxima, two tiles
+constexpr int kSmemBytes = kStages * kStageBytes + kPoolInts * 4 + 2 * kStages * 8;
+constexpr int kSmemRequest = hgemm::smem_request(kSmemBytes);
+static_assert(kVideos * kPitch == hgemm::kRows, "a tile is the block's 128 A rows");
+static_assert(kStageBytes % hgemm::kAlign == 0, "stages 1024-byte aligned");
+static_assert(kSmemRequest <= 232448, "shared memory a block");
 
-// xi = x ^ 0x80 over n16 chunks of 16 bytes.
-__global__ void __launch_bounds__(256)
-dbof_int8_shift(const uint4* __restrict__ x, uint4* __restrict__ xi, size_t n16) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n16;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    uint4 q = __ldg(x + i);
-    q.x ^= 0x80808080u;
-    q.y ^= 0x80808080u;
-    q.z ^= 0x80808080u;
-    q.w ^= 0x80808080u;
-    xi[i] = q;
+// p ? a : b on registers (a select of addresses would put v in local
+// memory; hgemm::select's int32 twin).
+__device__ __forceinline__ int select_int(bool p, int a, int b) {
+  int r;
+  asm("{\n.reg .pred q;\nsetp.ne.u32 q, %3, 0;\nselp.b32 %0, %1, %2, q;\n}\n"
+      : "=r"(r)
+      : "r"(a), "r"(b), "r"(static_cast<uint32_t>(p)));
+  return r;
+}
+
+// One step of the max over rows: lanes `Bit` apart exchange halves of
+// v[0, 2 Half), each keeping the max of the half its lane bit selects in
+// v[0, Half) (dbof.cu's fold, on int32).
+template <int Half, int Bit>
+__device__ __forceinline__ void fold(int* v, int lane) {
+  const bool upper = lane & Bit;
+#pragma unroll
+  for (int i = 0; i < Half; ++i) {
+    const int keep = select_int(upper, v[Half + i], v[i]);
+    const int send = select_int(upper, v[i], v[Half + i]);
+    v[i] = max(keep, __shfl_xor_sync(0xffffffffu, send, Bit));
   }
 }
 
-// 16-byte asynchronous copy global -> shared; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// -1 where a_col < 0 (its sign bit), else 0: (v ^ m) - m is then -v or v.
+__device__ __forceinline__ int neg_mask(float a) { return __float_as_int(a) >> 31; }
 
-// Four 8 x 16-byte matrices from shared memory; lane l gives the address
-// of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ int signed_by(int v, int m) { return (v ^ m) - m; }
+
+// Tile t: video tile t / n_ct, cluster tile t % n_ct (the fastest).
+__device__ __forceinline__ void tile_coords(int t, int n_ct, int& rt, int& ct) {
+  rt = t / n_ct;
+  ct = t - rt * n_ct;
 }
 
-// c += a (16 x 32 int8, row) * b (32 x 8 int8, col), int32.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+dbof_int8_cluster_maxpool(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const int* __restrict__ colsum8, const float* __restrict__ a_col,
+                          const float* __restrict__ b_col, float* __restrict__ out, int B, int S,
+                          int D, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  int* pool = reinterpret_cast<int*>(smem + kStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(pool + kPoolInts);
+  uint64_t* empty = full + kStages;
 
-// Unfused multiply and add: the plain version's two roundings.
-__device__ __forceinline__ float affine(int acc, float s, float b) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
-}
-
-// xi [B*S, D] int8, w8t [K, D] int8, out [B, K] f32.
-__global__ void __launch_bounds__(kThreads, 1)
-dbof_int8_cluster_maxpool(const int8_t* __restrict__ xi, const int8_t* __restrict__ w8t,
-                          const float* __restrict__ a_col, const float* __restrict__ b_col,
-                          float* __restrict__ out, int B, int S, int D, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sA = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const uint32_t sB = sA + kStages * kStageA;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;  // videos 2*wm, 2*wm+1 of the block
-  const int wn = warp & 1;   // which 64 of the block's 128 clusters
-  const int n0 = blockIdx.x * kBN;
-  const int b0 = blockIdx.y * kVideos;
-
-  // A: 256 rows x 8 chunks of 16 bytes a stage; each thread copies 8.
-  // B: 128 rows x 8 chunks; each thread copies 4. Thread t takes chunk
-  // t % 8 of rows r + 32 j, r = t / 8: frame r of the block's video j,
-  // cluster n0 + r + 32 j.
-  const int chunk = (tid & 7) * 16;
-  const int r = tid >> 3;
-  const int8_t* a_src = xi + (static_cast<size_t>(b0) * S + r) * D + chunk;
-  const size_t a_step = static_cast<size_t>(S) * D;  // one video
-  const int8_t* b_src = w8t + static_cast<size_t>(n0 + r) * D + chunk;
-  const size_t b_step = static_cast<size_t>(32) * D;  // 32 clusters
-  const uint32_t dst = r * kLd + chunk;
-  auto load_stage = [&](int slot, int kt) {
-    const int d0 = kt * kBK;
-    const bool in_depth = d0 + chunk < D;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool ok = in_depth && r < S && b0 + j < B;
-      cp_async16(sA + slot * kStageA + dst + 32 * j * kLd, ok ? a_src + j * a_step + d0 : xi,
-                 ok ? 16 : 0);
+  const int nk = (D + kDepth - 1) / kDepth;
+  const int n_ct = (K + kBN - 1) / kBN;
+  const int tiles = n_ct * ((B + kVideos - 1) / kVideos);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = in_depth && n0 + r + 32 * j < K;
-      cp_async16(sB + slot * kStageB + dst + 32 * j * kLd, ok ? b_src + j * b_step + d0 : w8t,
-                 ok ? 16 : 0);
-    }
-  };
-
-  // ldmatrix lane addresses within a stage. A m-tile i: matrices (rows
-  // 0-7, k 0-15), (rows 8-15, k 0-15), (rows 0-7, k 16-31), (rows 8-15,
-  // k 16-31) = a0..a3. B n-tiles j, j+1: (n 0-7, k 0-15), (n 0-7, k
-  // 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31) = b0, b1 of j, of j+1.
-  const int lr = lane & 7;
-  const int lm = lane >> 3;
-  const uint32_t a_lane = (wm * 64 + lr + (lm & 1) * 8) * kLd + (lm >> 1) * 16;
-  const uint32_t b_lane = (wn * 64 + lr + (lm >> 1) * 8) * kLd + (lm & 1) * 16;
-
-  int acc[4][8][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  const int nk = (D + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+    hgemm::bar_init_fence();
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < nk) load_stage(next % kStages, next);
-    cp_async_commit();
-    const int slot = kt % kStages;
-    const uint32_t tA = sA + slot * kStageA + a_lane;
-    const uint32_t tB = sB + slot * kStageB + b_lane;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t a[4][4], b[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ldmatrix_x4(a[i], tA + i * 16 * kLd + ks);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ldmatrix_x4(b[j], tB + j * 16 * kLd + ks);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_s8(acc[i][2 * j], a[i], b[j][0], b[j][1]);
-          mma_s8(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
-        }
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // Epilogue. Lane (g = lane / 4, t = lane % 4) holds, in m-tile i and
-  // n-tile j, rows g and g + 8 of columns 2t and 2t + 1; m-tiles 0-1 are
-  // the warp's first video (rows 0-31), 2-3 its second. The max over a
-  // video's real rows (row < S) in registers, then across the 8 lanes of
-  // a column (xor 4, 8, 16); lanes 0-3 write.
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* wmap = &map_w;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int rt, ct;
+        tile_coords(t, n_ct, rt, ct);
+        hgemm::produce<kStages>(full, empty, ring, nk, kStageBytes,
+                                [&](int s, uint64_t* bar, int kt) {
+                                  unsigned char* st = smem + s * kStageBytes;
+                                  hgemm::tma_3d(st, xmap, bar, kt * kDepth, 0, rt * kVideos);
+                                  hgemm::tma_3d(st + kABytes, wmap, bar, kt * kDepth, ct * kBN, 0);
+                                });
+      }
+    }
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int r = lane >> 2;
+    // Rows r and r + 8 of the warp's 16: frames s0 and s0 + 8 of video
+    // 2 wg + warp / 2 of the tile.
+    const int s0 = 16 * (warp & 1) + r;
+    const bool live0 = s0 < S;
+    const bool live1 = s0 + 8 < S;
+    const int video = 2 * wg + (warp >> 1);
+    const uint32_t a_off = wg * 64 * kDepth;
+    int acc[kBN / 2];
+    int iter = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++iter) {
+      int rt, ct;
+      tile_coords(t, n_ct, rt, ct);
+      const int n0 = ct * kBN;
+      hgemm::zero<kBN / 2>(acc);
+      hgemm::consume<kStages, kBN / 2>(full, empty, ring, nk, acc, [&](int s) {
+        const uint32_t st = hgemm::smem_u32(smem + s * kStageBytes);
 #pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    const int b = b0 + wm * 2 + v;
+        for (int kk = 0; kk < kDepth / 32; ++kk)
+          hgemm::mma_u8s8_256(acc, hgemm::desc_a(st + a_off, kk), hgemm::desc_b_k(st + kABytes, kk));
+      });
+
+      // Epilogue. Each column's sums in the sign of its a_col (so that a
+      // max picks the row the affine ranks highest), frames s >= S to
+      // INT_MIN, the max of the thread's two rows; columns 8j + 2q + e
+      // in v[2j + e]. The loads of a_col are unconditional (clamped to
+      // column K - 1).
+      int v[kBN / 4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * q;
+        const int m0 = neg_mask(__ldg(a_col + min(n, K - 1)));
+        const int m1 = neg_mask(__ldg(a_col + min(n + 1, K - 1)));
+        v[2 * j] = max(live0 ? signed_by(acc[4 * j], m0) : INT_MIN,
+                       live1 ? signed_by(acc[4 * j + 2], m0) : INT_MIN);
+        v[2 * j + 1] = max(live0 ? signed_by(acc[4 * j + 1], m1) : INT_MIN,
+                           live1 ? signed_by(acc[4 * j + 3], m1) : INT_MIN);
+      }
+      // The max over the warp's 16 rows: lane l ends with columns
+      // 32 (l / 4) + 8 t + 2q + e in v[2t + e], t < 4.
+      fold<kBN / 8, 16>(v, lane);
+      fold<kBN / 16, 8>(v, lane);
+      fold<kBN / 32, 4>(v, lane);
+      int* slot = pool + ((iter & 1) * kVideos + video) * kBN + 32 * r + 2 * q;
+      if (warp & 1) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = n0 + wn * 64 + j * 8 + 2 * t + c;
-        const float sc = n < K ? __ldg(a_col + n) : 0.0f;
-        const float bi = n < K ? __ldg(b_col + n) : 0.0f;
-        float m = -INFINITY;
+        for (int t4 = 0; t4 < 4; ++t4)
+          *reinterpret_cast<int2*>(slot + 8 * t4) = make_int2(v[2 * t4], v[2 * t4 + 1]);
+      }
+      hgemm::named_sync(1 + video, 64);
+      const int b = rt * kVideos + video;
+      if (!(warp & 1) && b < B) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int t4 = 0; t4 < 4; ++t4) {
+          const int2 o = *reinterpret_cast<const int2*>(slot + 8 * t4);
+          const int pair[2] = {max(v[2 * t4], o.x), max(v[2 * t4 + 1], o.y)};
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int row = h * 16 + q * 8 + g;
-            if (row < S) m = fmaxf(m, affine(acc[2 * v + h][j][2 * q + c], sc, bi));
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + 32 * r + 8 * t4 + 2 * q + e;
+            const int nc = min(n, K - 1);
+            const float a = __ldg(a_col + nc);
+            const int x = signed_by(pair[e], neg_mask(a)) - 128 * __ldg(colsum8 + nc);
+            const float y = __fadd_rn(__fmul_rn(__int2float_rn(x), a), __ldg(b_col + nc));
+            if (n < K) out[static_cast<size_t>(b) * K + n] = fmaxf(y, 0.0f);
           }
         }
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
-        if (g == 0 && n < K && b < B) out[static_cast<size_t>(b) * K + n] = fmaxf(m, 0.0f);
       }
     }
   }
 }
 
+bool bad_shape(int B, int S, int D, int K) {
+  return B <= 0 || S <= 0 || S > kPitch || D <= 0 || D % 16 != 0 || K <= 0;
+}
+
 }  // namespace
 
 // x [B, S, D] uint8 (D a multiple of 16, S <= 32); w8t [K, D] int8;
-// xi: a work buffer of B*S*D bytes from the caller.
-extern "C" int yt8m_dbof_cluster_maxpool_int8(const void* x, const void* w8t, const void* a_col,
-                                              const void* b_col, void* xi, void* out, int B,
-                                              int S, int D, int K, void* stream) {
-  if (B <= 0 || S <= 0 || S > kRowsPerVideo || D <= 0 || D % 16 != 0 || K <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+// colsum8 [K] int32, the column sums of w8; a_col, b_col [K] f32; out
+// [B, K] f32.
+extern "C" int yt8m_dbof_cluster_maxpool_int8(const void* x, const void* w8t, const void* colsum8,
+                                              const void* a_col, const void* b_col, void* out,
+                                              int B, int S, int D, int K, void* stream) {
+  if (bad_shape(B, S, D, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n16 = static_cast<size_t>(B) * S * D / 16;
-  dbof_int8_shift<<<inaff::blocks(n16), inaff::kThreads, 0, st>>>(static_cast<const uint4*>(x), static_cast<uint4*>(xi),
-                                          n16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dbof_int8_cluster_maxpool,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  CUtensorMap map_x, map_w;
+  // x as [B, S, D]: a box is 4 videos x 32 frames x 128 bytes.
+  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S) * D};
+  const uint32_t box[3] = {kDepth, kPitch, kVideos};
+  err = hgemm::make_map(&map_x, x, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == cudaSuccess) err = hgemm::make_map_u8(&map_w, w8t, 1, K, D, D, kBN, kDepth);
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dbof_int8_cluster_maxpool,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemRequest);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + kBN - 1) / kBN, (B + kVideos - 1) / kVideos);
-  dbof_int8_cluster_maxpool<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const int8_t*>(xi), static_cast<const int8_t*>(w8t),
-      static_cast<const float*>(a_col), static_cast<const float*>(b_col),
-      static_cast<float*>(out), B, S, D, K);
+  const int tiles = ((K + kBN - 1) / kBN) * ((B + kVideos - 1) / kVideos);
+  dbof_int8_cluster_maxpool<<<tiles < sms ? tiles : sms, hgemm::kThreads, kSmemRequest, st>>>(
+      map_x, map_w, static_cast<const int*>(colsum8), static_cast<const float*>(a_col),
+      static_cast<const float*>(b_col), static_cast<float*>(out), B, S, D, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The product's tile: [videos a tile, rows a video, clusters a tile,
+// bytes of depth a stage, stages, shared bytes requested a block, SMs].
+extern "C" int yt8m_dbof_int8_plan(int* plan) {
+  int sms = 0;
+  const cudaError_t err = hgemm::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = kVideos;
+  plan[1] = kPitch;
+  plan[2] = kBN;
+  plan[3] = kDepth;
+  plan[4] = kStages;
+  plan[5] = kSmemRequest;
+  plan[6] = sms;
+  return static_cast<int>(cudaSuccess);
 }

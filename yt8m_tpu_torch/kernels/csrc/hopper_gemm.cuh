@@ -1,8 +1,11 @@
 // The shared TMA + wgmma mainloop of the port's Hopper products (sm_90a):
-// dbof.cu (the DBoF cluster product), moe_head.cu (the MoE head's gate and
-// expert products), hopper_product.cuh (the plain product with a TMA-store
-// epilogue: dequant_matmul.cu, netvlad_train.cu's dx), netvlad_train.cu
-// (the VLAD core's forward and backward products) and hopper_gemm.cu (the
+// dbof.cu (the DBoF cluster product), dbof_int8.cu (the same on the
+// integer wgmma: uint8 x int8, int32 sums, mma_u8s8_256), moe_head.cu
+// (the MoE head's gate and expert products), hopper_product.cuh (the
+// plain product with a TMA-store epilogue: dequant_matmul.cu,
+// netvlad_train.cu's dx), netvlad_train.cu (the VLAD core's forward and
+// backward products), netvlad.cu (the serving VLAD's assignment and
+// aggregation), nextvlad.cu, nextvlad_train.cu and hopper_gemm.cu (the
 // plain products of the card tests).
 //
 // A block is three warpgroups. Warpgroups 0 and 1 consume: each owns 64
@@ -104,13 +107,15 @@ inline EncodeTiled encoder() {
 }
 
 // A tensor map (bf16 unless `type` says otherwise) with the 128-byte
-// swizzle: the box's inner extent must then be 128 bytes. dims and box
+// swizzle unless `swizzle` says otherwise: the box's inner extent must
+// then be 128 bytes (unswizzled: a multiple of 16). dims and box
 // innermost first; strides in bytes of dims 1.. (multiples of 16).
 // Elements outside the tensor read as zeros and are not written by a
 // store.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                             const uint64_t* strides, const uint32_t* box,
-                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[3], s[2];
@@ -121,7 +126,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const 
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, s,
-                            b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -141,13 +146,14 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, int rows, int
 // columns past cols read as zeros even where ld > cols.
 inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, int batch, int rows, int cols,
                                int ld, int elem_bytes, int box_rows, int box_cols,
-                               CUtensorMapDataType type) {
+                               CUtensorMapDataType type,
+                               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const uint64_t dims[3] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows),
                             static_cast<uint64_t>(batch)};
   const uint64_t strides[2] = {static_cast<uint64_t>(ld) * elem_bytes,
                                static_cast<uint64_t>(rows) * ld * elem_bytes};
   const uint32_t box[3] = {static_cast<uint32_t>(box_cols), static_cast<uint32_t>(box_rows), 1};
-  return make_map(map, base, 3, dims, strides, box, type);
+  return make_map(map, base, 3, dims, strides, box, type, swizzle);
 }
 
 inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int batch, int rows, int cols,
@@ -162,6 +168,18 @@ inline cudaError_t make_map_f32(CUtensorMap* map, const void* base, int batch, i
                                 int box_rows) {
   return make_map_3d(map, base, batch, rows, cols, cols, 4, box_rows, kF32BoxCols,
                      CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// Bytes (uint8 frames, int8 weights): [batch][rows][cols] with rows ld
+// bytes apart, boxes of [1][box_rows][box_cols]. Swizzled boxes are 128
+// bytes wide (128 int8 = a k32 wgmma's four steps); an unswizzled box is
+// read by the consumers' own loads.
+// TMA has no signed byte type: int8 is copied as its bytes.
+inline cudaError_t make_map_u8(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                               int ld, int box_rows, int box_cols,
+                               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return make_map_3d(map, base, batch, rows, cols, ld, 1, box_rows, box_cols,
+                     CU_TENSOR_MAP_DATA_TYPE_UINT8, swizzle);
 }
 
 // Dynamic shared memory a kernel asks for: its layout plus the slack to
@@ -384,9 +402,15 @@ __device__ __forceinline__ void fence_regs(float* d) {
 }
 
 template <int R>
-__device__ __forceinline__ void zero(float* d) {
+__device__ __forceinline__ void fence_regs(int* d) {
 #pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.0f;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int R, class Acc>
+__device__ __forceinline__ void zero(Acc* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = Acc(0);
 }
 
 // d[0 .. N/2) += A(a) . B(b): one m64nNk16. TA and TB are the
@@ -486,6 +510,44 @@ __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
   }
 }
 
+// d[0 .. 128) += A(a) . B(b) in int32: one m64n256k32 of unsigned bytes
+// (A, the raw uint8 frames) against signed bytes (B, int8 weights). The
+// integer wgmma reads both operands K-major only (desc_a, desc_b_k): a
+// 128-byte swizzled row is 128 deep, and a k32 step moves the start 32
+// bytes, as a bf16 k16 step does. Exact: no saturation is reachable
+// below 2^31.
+__device__ __forceinline__ void mma_u8s8_256(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.u8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(a), "l"(b), "r"(1));
+}
+
 __host__ __device__ constexpr int pow2_floor(int n) {
   return n >= 256 ? 256 : n >= 128 ? 128 : n >= 64 ? 64 : n >= 32 ? 32 : n >= 16 ? 16 : 8;
 }
@@ -531,10 +593,11 @@ __device__ __forceinline__ void produce(uint64_t* full, uint64_t* empty, Ring& r
 // operand from it and fence it to the async proxy), issue mma_stage(slot,
 // kt) (the stage's wgmma chains), and release the previous slot once its
 // group has completed. Ends with every group complete and every slot
-// released. R accumulator registers in d.
-template <int S, int R, class Prep, class Mma>
+// released. R accumulator registers in d (f32, or int32 for the int8
+// product).
+template <int S, int R, class Acc, class Prep, class Mma>
 __device__ __forceinline__ void consume_prepared(uint64_t* full, uint64_t* empty, Ring& r, int nk,
-                                                 float* d, Prep prep, Mma mma_stage) {
+                                                 Acc* d, Prep prep, Mma mma_stage) {
   const bool leader = (threadIdx.x & 31) == 0;
   int prev = -1;
   fence_regs<R>(d);
@@ -556,8 +619,8 @@ __device__ __forceinline__ void consume_prepared(uint64_t* full, uint64_t* empty
 }
 
 // consume_prepared for stages that TMA fills whole: mma_stage(slot).
-template <int S, int R, class Mma>
-__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty, Ring& r, int nk, float* d,
+template <int S, int R, class Acc, class Mma>
+__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty, Ring& r, int nk, Acc* d,
                                         Mma mma_stage) {
   consume_prepared<S, R>(
       full, empty, r, nk, d, [](int, int) {}, [&](int s, int) { mma_stage(s); });

@@ -1,6 +1,6 @@
-// The element-wise launches shared by the DBoF kernels (dbof.cu,
-// dbof_int8.cu) and dequant_matmul.cu (netvlad_train.cu takes its
-// pack_bf16), for Hopper (sm_90a): the input
+// The element-wise launches shared by the DBoF kernels (dbof.cu) and
+// dequant_matmul.cu (netvlad_train.cu takes its pack_bf16, netvlad.cu
+// its pack_bf16 and affine), for Hopper (sm_90a): the input
 // affine xa = bf16(x * scale + bias) eight inputs a thread, the rounding
 // of an f32 weight matrix to bf16, and the grid of such a launch.
 //

@@ -1,125 +1,99 @@
 // Fused NetVLAD aggregation serving kernel for Hopper (sm_90a).
 //
 // Replaces yt8m_tpu/kernels/netvlad.py :: netvlad_aggregate. For frames
-// x [B, F, D] (uint8 or float32), per video:
+// x [B, F, D] (uint8 or float32), per video b with n = min(num_frames[b],
+// F) live frames:
 //
 //   xb     = bf16(dequant(x))                  (dequant only for uint8)
 //   act    = xb @ bf16(Wc) * act_scale + act_bias      [F, K] f32 sums
-//   assign = softmax_K(act - max) * (t < num_frames)   f32
+//   assign = softmax_K(act - max) * (t < n)            f32
 //   vlad   = bf16(assign)^T @ xb - colsum(assign) (x) centers   [K, D]
 //   vlad  /= max(||vlad||_D, 1e-6);  vlad /= max(||vlad||_KD, 1e-6)
 //
-// What bounds it: at B=512, F=300, D=1152, K=256 the two products are
-// 181 GFLOP (0.18 ms at the bf16 peak) while the f32 frames in and the
-// f32 [B, K, D] out are 1.3 GB (0.39 ms at 3.35 TB/s): device-memory
-// bytes.
+// What bounds it: device-memory bytes. At B=512, F=300, D=1152, K=256
+// with about half the frames live, the two products over the live frames
+// are ~93 GFLOP (~0.09 ms at the bf16 peak), while the live f32 frames in
+// (0.37 GB) and the f32 [B, K, D] out (0.60 GB) take ~0.29 ms at 3.35
+// TB/s.
 //
-// Design. The TPU kernel keeps a whole video in VMEM; on Hopper one
-// video's frames (690 KB in bf16), Wc (590 KB) and its [K, D] f32 sum
-// (1.18 MB) each exceed a block's 227 KB of shared memory, so the work
-// is cut into four launches on the caller's stream:
-//  0. vlad_frames_to_bf16: xb = bf16(dequant(x)) once, into a [B, F, D]
-//     buffer from the wrapper; both products read it.
-//  1. vlad_assign_kernel, a block per (video, 64 frames): the [64, K]
-//     assignment product on the tensor cores (wmma, 3-stage cp.async
-//     ring), one 256-cluster tile after another into a [64, K] f32 tile
-//     in shared memory (K <= 512), then per row the affine, the f32
-//     softmax with the max subtracted and the frame mask; writes
-//     bf16(assign) to a [B, F64, K] scratch (zeros past F) and the
-//     chunk's f32 column sums.
-//  2. vlad_aggregate_kernel, a block per (video, 128 feature columns,
-//     256 clusters):
-//     assign^T @ xb over all frames (the assignment tile is read as a
-//     column-major A operand, so nothing is transposed in memory), minus
-//     colsum (x) centers; writes the unnormalised rows and each row's
-//     partial sum of squares over the block's columns.
-//  3. vlad_norm_kernel, a block per (video, 32 clusters): every block of
-//     a video forms the same global norm from the partial sums, in one
-//     order; then both divisions in place.
-// The [B, F, K] assignment round trip (84 MB at B=512) and the output's
-// second pass are what this simple design pays; thread-block clusters
-// with distributed shared memory can remove both.
+// Design. A video's [K, D] f32 sum (1.18 MB) and its frames exceed a
+// block's shared memory, so the work is six launches on the caller's
+// stream, each touching only live rows: a 64-frame chunk of a video is
+// live when it holds a frame t < n, and no block or product step runs
+// for another chunk.
+//  0. nv_serve_scan, one block: the live chunks in video order, as a list
+//     of (video, chunk) items and its length.
+//  1. nv_serve_assign, persistent TMA + wgmma (hopper_gemm.cuh) over the
+//     items. A stage is 64 deep: the chunk's 64 frames of x (f32 boxes
+//     [64][32], or an unswizzled uint8 box [64][64 bytes]) and Wc [64
+//     deep][K] (MN-major, the header's B layout). The consumers round x
+//     to bf16 (uint8: the plain version's unfused dequant first) in place
+//     into the K-major A layout, rows t >= n as zeros, and store the same
+//     16 bytes to xb [B, F, D]: the live chunks' frames in bf16 for
+//     launches 2 and 4, with no pass of its own. For K <= 256 each
+//     consumer warpgroup owns one item (64 frames x K, one m64nK chain:
+//     two chunks a block); for 256 < K <= 512 the two warpgroups share
+//     one item and split K, joining each row's max and sum through
+//     shared memory. The epilogue works in the accumulator registers:
+//     the affine (multiply, then add, each rounded), the softmax (expf,
+//     and a correctly rounded division: the plain version's rounding),
+//     rows t >= n to 0, bf16(assign) to [B, F, K] (zeros from n to the
+//     chunk's end), and the chunk's f32 column sums (a fold across the
+//     lanes, then the four warps). nv_serve_asum then adds each video's
+//     live chunk sums into a_sum.
+//  2. nv_serve_aggregate<false>, persistent TMA + wgmma over tiles of
+//     (video, 256 clusters, 128 columns). A block keeps one (cluster
+//     tile, column tile), the column tile fastest across blocks, and
+//     walks videos: that tile's centers [256][128] f32 (128 KB) are read
+//     once into its shared memory instead of once a tile from L2 (0.6
+//     GB a pass at B=512), and the blocks on a video's other column
+//     tiles read its assignment at about the same time, from L2. A stage is 32 of the video's live frames: four
+//     assignment boxes [32 frames][64 clusters] (A MN-major: the product
+//     takes it transposed) and two xb boxes [32 frames][64 columns] (B
+//     MN-major), 24 KB, in the 4 stages the centers leave room for (two
+//     64-frame stages: 0.87 ms for the call against 0.81 at B=512 on an
+//     H100, variants.py's agg_f64);
+//     each consumer warpgroup runs two m64n128k16 a 16-frame step (its
+//     128 clusters x the tile's 128 columns). The epilogue forms v = acc
+//     - a_sum * centers (each rounded) and stores only each row's sum of
+//     squares over the tile's columns. Each video's step count is read a
+//     video ahead and a_sum before the mainloop, so neither load waits
+//     at a tile's start.
+//  3. nv_serve_norms, a block a video: the row norms and the global norm
+//     from those sums, in the parent kernel's formulas.
+//  4. nv_serve_aggregate<true>: launch 2 again, bit for bit the same v,
+//     stored once as (v / n_k) / g (each division correctly rounded).
+// Recomputing the product (one more ~47 GFLOP product over the live
+// frames and a second read of the bf16 frames) replaces a second pass
+// over the f32 output (1.2 GB read and written at B=512). A cluster of
+// the D / 128 column tiles exchanging the sums over distributed shared
+// memory would save that too, but it cannot span the two cluster tiles
+// of K > 256 (one global norm a video) and would leave SMs idle (a
+// cluster of 9 one-block SMs fits once or twice a GPC).
+// n = 0 gives an exact zero descriptor: no step runs, a_sum = 0, v = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-using namespace nvcuda;
+#include "hopper_gemm.cuh"
+#include "input_affine.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr float kDeqScale = static_cast<float>(4.0 / 255.0);
 constexpr float kDeqBias = static_cast<float>(4.0 / 512.0 - 2.0);
 constexpr float kNormEps = 1e-6f;
 
-constexpr int kThreads = 256;
-constexpr int kBK = 32;
-constexpr int kStages = 3;
-
-// Launch 1: 64 frames x 256 clusters a product tile, K <= 512 (two
-// tiles) a block.
-constexpr int kAsgRows = 64;
-constexpr int kAsgCols = 256;
-constexpr int kMaxClusters = 2 * kAsgCols;
-constexpr int kAsgLdA = kBK + 8;
-constexpr int kAsgLdB = kAsgCols + 8;
-constexpr int kAsgStageA = kAsgRows * kAsgLdA;
-constexpr int kAsgStageB = kBK * kAsgLdB;
-constexpr int kAsgPipeBytes = kStages * (kAsgStageA + kAsgStageB) * 2;
-
-// The [64, ktiles * 256] f32 activation tile, row stride ld_s: it shares
-// the pipeline's memory when one cluster tile covers K, else follows it.
-__host__ __device__ inline int asg_ld_s(int ktiles) { return ktiles * kAsgCols + 4; }
-__host__ __device__ inline int asg_s_offset(int ktiles) { return ktiles == 1 ? 0 : kAsgPipeBytes; }
-inline int asg_smem(int ktiles) {
-  const int s_bytes = kAsgRows * asg_ld_s(ktiles) * 4;
-  return ktiles == 1 ? (s_bytes > kAsgPipeBytes ? s_bytes : kAsgPipeBytes)
-                     : kAsgPipeBytes + s_bytes;
-}
-
-// Launch 2: 256 clusters (masked) x 128 feature columns a block.
-constexpr int kAggRows = 256;
-constexpr int kAggCols = 128;
-constexpr int kAggLdA = kAggRows + 8;  // assign tile As[f][k]
-constexpr int kAggLdB = kAggCols + 8;  // frame tile Xs[f][d]
-constexpr int kAggStageA = kBK * kAggLdA;
-constexpr int kAggStageB = kBK * kAggLdB;
-constexpr int kAggLdS = kAggCols + 4;
-constexpr int kAggPipeBytes = kStages * (kAggStageA + kAggStageB) * 2;
-constexpr int kAggEpiBytes = kAggRows * kAggLdS * 4;
-constexpr int kAggSmem = kAggPipeBytes > kAggEpiBytes ? kAggPipeBytes : kAggEpiBytes;
-
-// Launch 3: 32 clusters of one video a block.
-constexpr int kNormRows = 32;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Unfused multiply and add: the plain version's two roundings.
-__device__ __forceinline__ float affine(float x, float s, float b) {
-  return __fadd_rn(__fmul_rn(x, s), b);
-}
-
-__device__ __forceinline__ void load8(const uint8_t* p, float (&v)[8]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[i] = static_cast<float>((q.x >> (8 * i)) & 0xffu);
-    v[4 + i] = static_cast<float>((q.y >> (8 * i)) & 0xffu);
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
+constexpr int kMaxClusters = 512;
+constexpr int kChunk = 64;                   // frames a chunk (a warpgroup's m64; a step of launch 2)
+constexpr int kCols = 128;                   // columns of a launch-2 tile; D a multiple of it
+constexpr int kB16Box = 64 * 64 * 2;         // [64][64] bf16: 8 KB
+constexpr int kF32Box = kChunk * hgemm::kF32BoxCols * 4;  // [64 frames][32] f32: 8 KB
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -127,415 +101,785 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Over the four lanes of a quad (a row of the wgmma accumulators).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// 16-byte asynchronous copy global -> shared; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// Launch 0: xb = bf16(dequant(x)), eight inputs a thread (D % 8 == 0).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-vlad_frames_to_bf16(const T* __restrict__ x, __nv_bfloat16* __restrict__ xb, size_t n8) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n8;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v[8];
-    load8(x + i * 8, v);
-    if (std::is_same<T, uint8_t>::value) {
+__device__ __forceinline__ int live_frames(const int* num_frames, int b, int F) {
+  return min(max(num_frames[b], 0), F);
+}
+
+__device__ __forceinline__ int live_chunks(const int* num_frames, int b, int F) {
+  return (live_frames(num_frames, b, F) + kChunk - 1) / kChunk;
+}
+
+// One step of a sum over rows: lanes `Bit` apart exchange halves of
+// v[0, 2 Half), each keeping the sum of the half its lane bit selects in
+// v[0, Half) (the fold of dbof.cu's max, constant trip counts).
+template <int Half, int Bit>
+__device__ __forceinline__ void fold_sum(float* v, int lane) {
+  const bool upper = lane & Bit;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = affine(v[j], kDeqScale, kDeqBias);
-    }
-    uint4 out;
-    out.x = pack_bf16(v[0], v[1]);
-    out.y = pack_bf16(v[2], v[3]);
-    out.z = pack_bf16(v[4], v[5]);
-    out.w = pack_bf16(v[6], v[7]);
-    reinterpret_cast<uint4*>(xb)[i] = out;
+  for (int i = 0; i < Half; ++i) {
+    const float keep = hgemm::select(upper, v[Half + i], v[i]);
+    const float send = hgemm::select(upper, v[i], v[Half + i]);
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, Bit);
   }
 }
 
-// Launch 1. Grid (chunks, B). Warps 2 (rows) x 4 (columns), a 32 x 64
-// warp tile each.
-__global__ void __launch_bounds__(kThreads)
-vlad_assign_kernel(const __nv_bfloat16* __restrict__ xb, const int* __restrict__ num_frames,
-                   const __nv_bfloat16* __restrict__ wc, const float* __restrict__ act_scale,
-                   const float* __restrict__ act_bias, __nv_bfloat16* __restrict__ assign,
-                   float* __restrict__ colsum, int F, int D, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + kStages * kAsgStageA;
+// a / b rounded to nearest from rb = 1 / b, itself an IEEE division done
+// once for every quotient by b: q = a rb, then one correction by the
+// exact residual a - b q (an fma). With rb correctly rounded and q within
+// an ulp of a / b, the result is the correctly rounded quotient
+// (Markstein's theorem), away from overflow and underflow. Three
+// instructions: IEEE divisions a value cost 0.18 ms of the store pass
+// and 0.03 of the assignment at B=512 on an H100 (variants.py's
+// ieee_div).
+__device__ __forceinline__ float div_by(float a, float b, float rb) {
+  const float q = __fmul_rn(a, rb);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
+}
 
+// ---------------------------------------------------------------------------
+// Launch 0: the live chunks.
+// ---------------------------------------------------------------------------
+
+constexpr int kScanThreads = 1024;
+
+// items[0] = the number of live chunks; items[1 + i] = b * chunks + c for
+// the i-th live chunk (c < ceil(n_b / 64)), videos in order.
+__global__ void __launch_bounds__(kScanThreads)
+nv_serve_scan(const int* __restrict__ num_frames, int* __restrict__ items, int B, int F,
+              int chunks) {
+  __shared__ int totals[32];
+  __shared__ int carry;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-  const int chunk = blockIdx.x;
-  const int chunks = gridDim.x;
-  const int b = blockIdx.y;
-  const int f0 = chunk * kAsgRows;
-  const __nv_bfloat16* xv = xb + static_cast<size_t>(b) * F * D;
-
-  // A: 64 rows x 32 bf16 = 4 x 16 B a row, one copy a thread.
-  const int a_row = tid >> 2;
-  const int a_col = (tid & 3) * 8;
-  const bool a_ok = f0 + a_row < F;
-  const __nv_bfloat16* a_src = xv + static_cast<size_t>(a_ok ? f0 + a_row : 0) * D + a_col;
-  const int a_dst = a_row * kAsgLdA + a_col;
-  const int a_bytes = a_ok ? 16 : 0;
-  // B: 32 rows x 256 clusters = 32 x 16 B a row, four copies a thread.
-  const int ktiles = (K + kAsgCols - 1) / kAsgCols;
-  const int ld_s = asg_ld_s(ktiles);
-  float* S = reinterpret_cast<float*>(smem + asg_s_offset(ktiles));
-  for (int kc = 0; kc < ktiles; ++kc) {
-    const __nv_bfloat16* b_src[4];
-    int b_dst[4], b_bytes[4];
+  const int warp = tid >> 5;
+  if (tid == 0) carry = 0;
+  __syncthreads();
+  for (int b0 = 0; b0 < B; b0 += kScanThreads) {
+    const int b = b0 + tid;
+    const int n = b < B ? live_chunks(num_frames, b, F) : 0;
+    int v = n;  // inclusive scan over the warp, then over the warps
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int seg = tid + j * kThreads;
-      const int row = seg >> 5;
-      const int col = kc * kAsgCols + (seg & 31) * 8;
-      const bool ok = col < K;
-      b_src[j] = wc + static_cast<size_t>(row) * K + (ok ? col : 0);
-      b_dst[j] = row * kAsgLdB + (seg & 31) * 8;
-      b_bytes[j] = ok ? 16 : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
     }
-    auto load_stage = [&](int slot, int kt) {
-      const int d0 = kt * kBK;
-      cp_async16(sA + slot * kAsgStageA + a_dst, a_src + d0, a_bytes);
+    if (lane == 31) totals[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      int w = totals[lane];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        cp_async16(sB + slot * kAsgStageB + b_dst[j], b_src[j] + static_cast<size_t>(d0) * K,
-                   b_bytes[j]);
-    };
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    const int nk = D / kBK;
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nk) load_stage(s, s);
-      cp_async_commit();
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += u;
+      }
+      totals[lane] = w;
     }
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      const int next = kt + kStages - 1;
-      if (next < nk) load_stage(next % kStages, next);
-      cp_async_commit();
-      const int slot = kt % kStages;
-      const __nv_bfloat16* tA = sA + slot * kAsgStageA;
-      const __nv_bfloat16* tB = sB + slot * kAsgStageB;
+    __syncthreads();
+    const int start = carry + (warp > 0 ? totals[warp - 1] : 0) + v - n;
+    for (int c = 0; c < n; ++c) items[1 + start + c] = b * chunks + c;
+    __syncthreads();
+    if (tid == 0) carry += totals[31];
+    __syncthreads();
+  }
+  if (tid == 0) items[0] = carry;
+}
+
+// ---------------------------------------------------------------------------
+// Launch 1: the assignment.
+// ---------------------------------------------------------------------------
+
+// A consumer's share of a stage's x tile (64 frames x 64 features) in
+// registers: f32 from two swizzled boxes [64][32] at src, or uint8 from
+// an unswizzled box [64][64 bytes] through the plain version's dequant
+// (multiply, then add, each rounded). Item idx is frame idx / 8, features
+// 8 (idx % 8) ..; frames with first + f >= live are zeros and are not
+// read.
+template <typename T>
+__device__ __forceinline__ void load_frames(const unsigned char* src, int idx, int first, int live,
+                                            float (&v)[8]) {
+  const int f = idx >> 3;
+  const int c8 = idx & 7;
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
+  for (int k = 0; k < 8; ++k) v[k] = 0.0f;
+  if (first + f >= live) return;
+  if constexpr (std::is_same<T, float>::value) {
+    const unsigned char* box = src + (c8 >> 2) * kF32Box;
+    const int j = 2 * (c8 & 3);  // the box's 16-byte chunks j, j + 1
+    const float4 lo = *reinterpret_cast<const float4*>(box + hgemm::swizzled(f, j));
+    const float4 hi = *reinterpret_cast<const float4*>(box + hgemm::swizzled(f, j + 1));
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  } else {
+    const uint2 q = *reinterpret_cast<const uint2*>(src + f * 64 + c8 * 8);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], tA + (wm * 32 + i * 16) * kAsgLdA + kk, kAsgLdA);
+    for (int k = 0; k < 4; ++k) {
+      v[k] = inaff::affine(static_cast<float>((q.x >> (8 * k)) & 0xffu), kDeqScale, kDeqBias);
+      v[4 + k] = inaff::affine(static_cast<float>((q.y >> (8 * k)) & 0xffu), kDeqScale, kDeqBias);
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  return make_uint4(inaff::pack_bf16(v[0], v[1]), inaff::pack_bf16(v[2], v[3]),
+                    inaff::pack_bf16(v[4], v[5]), inaff::pack_bf16(v[6], v[7]));
+}
+
+// The assignment launch's shared memory for frames T, W clusters a
+// warpgroup (128 or 256), and Split (the two warpgroups share an item and
+// split K <= 512) or not (an item a warpgroup, K <= W). A stage's x tile
+// is rounded to bf16 in place (the K-major A layout, [64][64] bf16 over
+// the tile's first 8 KB), so a stage holds max(x bytes, 8 KB) for each
+// tile; as many stages as fit, up to 4.
+template <typename T, int W, bool Split>
+struct Asg {
+  static constexpr int kXLoad = std::is_same<T, float>::value ? 2 * kF32Box : kChunk * 64;
+  static constexpr int kXBytes = kXLoad > kB16Box ? kXLoad : kB16Box;
+  static constexpr int kXTiles = Split ? 1 : 2;                // x tiles a stage
+  static constexpr int kWBoxes = Split ? 2 * W / 64 : W / 64;  // Wc boxes a stage
+  static constexpr int kStageBytes = kXTiles * kXBytes + kWBoxes * kB16Box;
+  static constexpr int kColFloats = 2 * 4 * W;                      // [warpgroup][warp][W]
+  static constexpr int kRowFloats = Split ? 2 * 2 * 2 * kChunk : 0;  // [parity][max, sum][wg][row]
+  static constexpr int kVecFloats = 2 * kMaxClusters;               // act_scale, act_bias
+  static constexpr int kFixed = (kColFloats + kRowFloats + kVecFloats) * 4 + 2 * 4 * 8;
+  static constexpr int kFit = (232448 - hgemm::kAlign - kFixed) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmemBytes = kStages * kStageBytes + kFixed;
+  static constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+  static_assert(kStageBytes % hgemm::kAlign == 0, "stages 1024-byte aligned");
+  static_assert(kStages >= 2 && kSmem <= 232448, "shared memory a block");
+  static_assert(W == 128 || W == 256, "clusters a warpgroup");
+};
+
+template <typename T, int W, bool Split>
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                const int* __restrict__ items, const int* __restrict__ num_frames,
+                const float* __restrict__ act_scale, const float* __restrict__ act_bias,
+                bf16* __restrict__ xb, bf16* __restrict__ assign, float* __restrict__ colsum, int F,
+                int D, int K, int chunks) {
+  using P = Asg<T, W, Split>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  float* colred = reinterpret_cast<float*>(smem + P::kStages * P::kStageBytes);
+  float* rowred = colred + P::kColFloats;
+  float* s_scale = rowred + P::kRowFloats;
+  float* s_bias = s_scale + kMaxClusters;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_bias + kMaxClusters);
+  uint64_t* empty = full + P::kStages;
+
+  const int count = items[0];
+  const int tiles = Split ? count : (count + 1) / 2;
+  const int nk = D / hgemm::kDepth;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
+    }
+    hgemm::bar_init_fence();
+  }
+  for (int k = threadIdx.x; k < K; k += hgemm::kThreads) {
+    s_scale[k] = act_scale[k];
+    s_bias[k] = act_bias[k];
+  }
+  __syncthreads();
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* wmap = &map_w;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int vb[P::kXTiles], vf[P::kXTiles];
+        uint32_t bytes = P::kWBoxes * kB16Box;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], tB + kk * kAsgLdB + wn * 64 + j * 16, kAsgLdB);
+        for (int w2 = 0; w2 < P::kXTiles; ++w2) {
+          const int i = P::kXTiles * t + w2;
+          vb[w2] = -1;
+          vf[w2] = 0;
+          if (i < count) {
+            const int id = items[1 + i];
+            vb[w2] = id / chunks;
+            vf[w2] = (id - vb[w2] * chunks) * kChunk;
+            bytes += P::kXLoad;
+          }
+        }
+        hgemm::produce<P::kStages>(
+            full, empty, ring, nk, bytes, [&](int s, uint64_t* bar, int ks) {
+              unsigned char* st = smem + s * P::kStageBytes;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+              for (int w2 = 0; w2 < P::kXTiles; ++w2) {
+                if (vb[w2] < 0) continue;
+                unsigned char* xs = st + w2 * P::kXBytes;
+                hgemm::tma_3d(xs, xmap, bar, ks * hgemm::kDepth, vf[w2], vb[w2]);
+                if constexpr (std::is_same<T, float>::value)
+                  hgemm::tma_3d(xs + kF32Box, xmap, bar, ks * hgemm::kDepth + hgemm::kF32BoxCols,
+                                vf[w2], vb[w2]);
+              }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+              for (int i = 0; i < P::kWBoxes; ++i)
+                hgemm::tma_2d(st + P::kXTiles * P::kXBytes + i * kB16Box, wmap, bar,
+                              i * hgemm::kBoxCols, ks * hgemm::kDepth);
+            });
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int r = lane >> 2;
+    const int t128 = threadIdx.x & 127;
+    // Split: both warpgroups round the shared tile (barrier 3 over 256
+    // threads); else each its own (barrier 1 + wg).
+    constexpr int kPrepThreads = Split ? 256 : 128;
+    constexpr int kItems = 512 / kPrepThreads;  // 16-byte chunks of the bf16 tile a thread
+    const int prep_bar = Split ? 3 : 1 + wg;
+    const int prep_t = Split ? static_cast<int>(threadIdx.x) : t128;
+    const int col0 = Split ? W * wg : 0;  // the warpgroup's first cluster
+    float acc[W / 2];
+    int iter = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++iter) {
+      const int i = Split ? t : 2 * t + wg;
+      const bool have = i < count;
+      int b = 0, c = 0, live = 0;
+      if (have) {
+        const int id = items[1 + i];
+        b = id / chunks;
+        c = id - b * chunks;
+        live = live_frames(num_frames, b, F);
+      }
+      const int f0 = c * kChunk;
+      hgemm::zero<W / 2>(acc);
+      hgemm::consume_prepared<P::kStages, W / 2>(
+          full, empty, ring, nk, acc,
+          [&](int s, int ks) {
+            // Round the tile in place: every read before any write, then
+            // bf16 into the A layout and, for the rows inside F, to xb
+            // (16 bytes a thread, eight threads a 128-byte row).
+            unsigned char* xs = smem + s * P::kStageBytes + (Split ? 0 : wg * P::kXBytes);
+            float v[kItems][8];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+            for (int it = 0; it < kItems; ++it)
+              load_frames<T>(xs, prep_t + kPrepThreads * it, f0, live, v[it]);
+            hgemm::named_sync(prep_bar, kPrepThreads);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(S + (wm * 32 + i * 16) * ld_s + kc * kAsgCols + wn * 64 + j * 16,
-                                acc[i][j], ld_s, wmma::mem_row_major);
-    __syncthreads();
-  }
+            for (int it = 0; it < kItems; ++it) {
+              const int idx = prep_t + kPrepThreads * it;
+              const int f = idx >> 3;
+              const int c8 = idx & 7;
+              const uint4 o = pack8(v[it]);
+              *reinterpret_cast<uint4*>(xs + hgemm::swizzled(f, c8)) = o;
+              if (have && f0 + f < F)
+                *reinterpret_cast<uint4*>(xb + (static_cast<size_t>(b) * F + f0 + f) * D +
+                                          ks * hgemm::kDepth + 8 * c8) = o;
+            }
+            hgemm::fence_async_smem();
+            hgemm::named_sync(prep_bar, kPrepThreads);
+          },
+          [&](int s, int) {
+            const uint32_t st = hgemm::smem_u32(smem + s * P::kStageBytes);
+            const uint32_t aa = st + (Split ? 0 : wg * P::kXBytes);
+            const uint32_t ww =
+                st + P::kXTiles * P::kXBytes + (Split ? wg * (W / 64) * kB16Box : 0);
+#pragma unroll
+            for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) hgemm::chain<W>(acc, aa, ww, kk);
+          });
 
-  // Softmax: each warp takes 8 rows; lane l holds clusters l + 32c. The
-  // affine, then exp(a - max), then the probability go back into S.
-  const int live_rows = min(num_frames[b], F);
-  const size_t arow0 = static_cast<size_t>(b) * chunks * kAsgRows;
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    const int t = f0 + r;
-    float* row = S + r * ld_s;
-    float m = -INFINITY;
-    for (int col = lane; col < K; col += 32) {
-      const float a = affine(row[col], act_scale[col], act_bias[col]);
-      row[col] = a;
-      m = fmaxf(m, a);
+      // Epilogue. Thread rows ff = 16 warp + r + 8 h of the chunk;
+      // clusters col0 + 8 j + 2 q + e in acc[4 j + 2 h + e].
+      bool lv[2];
+      int f[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        f[h] = f0 + 16 * warp + r + 8 * h;
+        lv[h] = f[h] < live;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = col0 + 8 * j + 2 * q + e;
+          const int kc = min(k, K - 1);
+          const float sc = s_scale[kc];
+          const float bi = s_bias[kc];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float a = __fadd_rn(__fmul_rn(acc[4 * j + 2 * h + e], sc), bi);
+            acc[4 * j + 2 * h + e] = a;
+            mx[h] = k < K ? fmaxf(mx[h], a) : mx[h];
+          }
+        }
+      float* rd = rowred + (iter & 1) * 2 * 2 * kChunk;
+      // Split: a row's two halves meet in shared memory (quantity w).
+      auto across = [&](float (&v)[2], int w, bool is_max) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = is_max ? quad_max(v[h]) : quad_sum(v[h]);
+          if (Split && q == 0) rd[(w * 2 + wg) * kChunk + 16 * warp + r + 8 * h] = v[h];
+        }
+        if constexpr (Split) {
+          hgemm::named_sync(4, 256);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float o = rd[(w * 2 + (wg ^ 1)) * kChunk + 16 * warp + r + 8 * h];
+            v[h] = is_max ? fmaxf(v[h], o) : v[h] + o;
+          }
+        }
+      };
+      across(mx, 0, true);
+      float sm[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int a = 4 * j + 2 * h + e;
+            const float ex = col0 + 8 * j + 2 * q + e < K ? expf(__fsub_rn(acc[a], mx[h])) : 0.0f;
+            acc[a] = ex;
+            sm[h] += ex;
+          }
+      across(sm, 1, false);
+      // assign = exp / sum (correctly rounded, as the plain version's
+      // division), 0 past n; bf16(assign) for the rows of the chunk inside
+      // F.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf16* dst = assign + (static_cast<size_t>(b) * F + min(f[h], F - 1)) * K;
+        const float rs = 1.0f / sm[h];
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          const int k = col0 + 8 * j + 2 * q;
+          const float p0 = lv[h] ? div_by(acc[4 * j + 2 * h], sm[h], rs) : 0.0f;
+          const float p1 = lv[h] ? div_by(acc[4 * j + 2 * h + 1], sm[h], rs) : 0.0f;
+          acc[4 * j + 2 * h] = p0;
+          acc[4 * j + 2 * h + 1] = p1;
+          if (have && f[h] < F && k < K)
+            *reinterpret_cast<__nv_bfloat162*>(dst + k) = __floats2bfloat162_rn(p0, p1);
+        }
+      }
+      // The chunk's column sums of the unrounded assignment: the thread's
+      // two rows, the warp's 16 (lane l ends with clusters col0 + 8 (r
+      // W / 64 + t) + 2q + e in v[2t + e], t < W / 64), then the four
+      // warps in shared memory.
+      float v[W / 4];
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) v[2 * j + e] = acc[4 * j + e] + acc[4 * j + 2 + e];
+      fold_sum<W / 8, 16>(v, lane);
+      fold_sum<W / 16, 8>(v, lane);
+      fold_sum<W / 32, 4>(v, lane);
+      float* cr = colred + wg * 4 * W;
+#pragma unroll
+      for (int t4 = 0; t4 < W / 64; ++t4)
+        *reinterpret_cast<float2*>(cr + warp * W + 8 * (r * (W / 64) + t4) + 2 * q) =
+            make_float2(v[2 * t4], v[2 * t4 + 1]);
+      hgemm::named_sync(1 + wg, 128);
+      if (have) {
+#pragma unroll
+        for (int m = 0; m < W / 128; ++m) {
+          const int kl = t128 + 128 * m;
+          const float total = ((cr[kl] + cr[W + kl]) + cr[2 * W + kl]) + cr[3 * W + kl];
+          if (col0 + kl < K)
+            colsum[(static_cast<size_t>(b) * chunks + c) * K + col0 + kl] = total;
+        }
+      }
+      hgemm::named_sync(1 + wg, 128);
     }
-    m = warp_max(m);
-    float s = 0.0f;
-    for (int col = lane; col < K; col += 32) {
-      const float e = expf(__fsub_rn(row[col], m));
-      row[col] = e;
-      s += e;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch 1b: a_sum, the live chunks' column sums added in chunk order.
+// ---------------------------------------------------------------------------
+
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads)
+nv_serve_asum(const int* __restrict__ num_frames, const float* __restrict__ colsum,
+              float* __restrict__ a_sum, int F, int K, int chunks) {
+  const int b = blockIdx.x;
+  const int nch = live_chunks(num_frames, b, F);
+  const float* cs = colsum + static_cast<size_t>(b) * chunks * K;
+  for (int k = threadIdx.x; k < K; k += kSumThreads) {
+    float a = 0.0f;
+    for (int c = 0; c < nch; ++c) a += cs[static_cast<size_t>(c) * K + k];
+    a_sum[static_cast<size_t>(b) * K + k] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches 2 and 4: vlad = bf16(assign)^T @ xb - a_sum (x) centers, then
+// its sums of squares (Store = false) or (v / n_k) / g (Store = true).
+// ---------------------------------------------------------------------------
+
+constexpr int kAggClusters = 256;  // a tile: two m64 blocks a consumer warpgroup
+constexpr int kAggFrames = 32;     // frames a stage: [32][64] bf16 boxes of 4 KB
+constexpr int kAggBox = kAggFrames * 128;
+constexpr int kAggStages = 4;      // what the centers tile leaves of shared memory
+constexpr int kAggStageBytes = (kAggClusters / 64 + kCols / 64) * kAggBox;  // 24 KB
+constexpr int kCenBox = kAggClusters * hgemm::kF32BoxCols * 4;     // [256][32] f32: 32 KB
+constexpr int kCenBytes = (kCols / hgemm::kF32BoxCols) * kCenBox;  // the tile's centers: 128 KB
+constexpr int kAggSmem =
+    hgemm::smem_request(kAggStages * kAggStageBytes + kCenBytes + (2 * kAggStages + 1) * 8);
+static_assert(kAggSmem <= 232448, "shared memory a block");
+
+// The aggregation's steps for video b: its live frames in steps of 32
+// (rows from n to the step's end are zeros in both operands).
+__device__ __forceinline__ int agg_steps(const int* num_frames, int b, int F) {
+  return (live_frames(num_frames, b, F) + kAggFrames - 1) / kAggFrames;
+}
+
+// The walk: block j keeps combination j % C of (cluster tile kt, column
+// tile ct), the column tile fastest, C = n_kt n_ct, and takes the videos
+// j / C, j / C + P, ... with P blocks a combination. The combination's
+// centers [256][128] stay in shared memory for the block's life.
+__host__ __device__ inline int agg_blocks_per_combo(int B, int combos, int sms) {
+  const int p = sms / combos;
+  return p < 1 ? 1 : (p < B ? p : B);
+}
+
+template <bool Store>
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nv_serve_aggregate(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_xb,
+                   const __grid_constant__ CUtensorMap map_c, const int* __restrict__ num_frames,
+                   const float* __restrict__ a_sum, float* __restrict__ sumsq,
+                   const float* __restrict__ norms, const float* __restrict__ gnorm,
+                   float* __restrict__ out, int B, int F, int D, int K, int per_combo) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  unsigned char* cen = smem + kAggStages * kAggStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cen + kCenBytes);
+  uint64_t* empty = full + kAggStages;
+  uint64_t* cbar = empty + kAggStages;
+
+  const int n_ct = D / kCols;
+  const int combos = ((K + kAggClusters - 1) / kAggClusters) * n_ct;
+  const int combo = blockIdx.x % combos;
+  const int kt = combo / n_ct;
+  const int ct = combo % n_ct;
+  const int first = blockIdx.x / combos;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kAggStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
     }
-    s = warp_sum(s);
-    const bool live = t < live_rows;
-    __nv_bfloat16* dst = assign + (arow0 + t) * K;
-    for (int col = lane; col < K; col += 32) {
-      const float p = live ? row[col] / s : 0.0f;
-      row[col] = p;
-      dst[col] = __float2bfloat16_rn(p);
-    }
+    hgemm::bar_init(cbar, 1);
+    hgemm::bar_init_fence();
   }
   __syncthreads();
-  // Column sums over the 64 rows: each warp's 8 rows, then the 8 warps.
-  for (int col = tid; col < K; col += kThreads) {
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* amap = &map_a;
+  const CUtensorMap* xmap = &map_xb;
+  const CUtensorMap* cmap = &map_c;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      hgemm::bar_expect(cbar, kCenBytes);
+#pragma unroll
+      for (int i = 0; i < kCols / hgemm::kF32BoxCols; ++i)
+        hgemm::tma_3d(cen + i * kCenBox, cmap, cbar, ct * kCols + hgemm::kF32BoxCols * i,
+                      kt * kAggClusters, 0);
+      // Each video's step count is read a video ahead.
+      int nst = first < B ? agg_steps(num_frames, first, F) : 0;
+      for (int b = first; b < B; b += per_combo) {
+        const int nst_next = b + per_combo < B ? agg_steps(num_frames, b + per_combo, F) : 0;
+        hgemm::produce<kAggStages>(
+            full, empty, ring, nst, kAggStageBytes,
+            [&](int s, uint64_t* bar, int ks) {
+              unsigned char* st = smem + s * kAggStageBytes;
+#pragma unroll
+              for (int i = 0; i < kAggClusters / 64; ++i)
+                hgemm::tma_3d(st + i * kAggBox, amap, bar, kt * kAggClusters + 64 * i,
+                              ks * kAggFrames, b);
+#pragma unroll
+              for (int i = 0; i < kCols / 64; ++i)
+                hgemm::tma_3d(st + (kAggClusters / 64 + i) * kAggBox, xmap, bar,
+                              ct * kCols + 64 * i, ks * kAggFrames, b);
+            });
+        nst = nst_next;
+      }
+    }
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int r = lane >> 2;
+    hgemm::bar_wait(cbar, 0);
+    float acc[128];  // two m64n128 blocks: clusters 128 wg + 64 i + ..., acc[64 i + ...]
+    int nst = first < B ? agg_steps(num_frames, first, F) : 0;
+    for (int b = first; b < B; b += per_combo) {
+      const int nst_next = b + per_combo < B ? agg_steps(num_frames, b + per_combo, F) : 0;
+      // The thread's rows k = kt 256 + 128 wg + 64 i + 16 warp + r + 8 h
+      // (clamped to K - 1 for the loads) and their a_sum, loaded before
+      // the mainloop and first used after it.
+      int kc[2][2];
+      float as[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          kc[i][h] = min(kt * kAggClusters + 128 * wg + 64 * i + 16 * warp + r + 8 * h, K - 1);
+          as[i][h] = __ldg(a_sum + static_cast<size_t>(b) * K + kc[i][h]);
+        }
+      hgemm::zero<128>(acc);
+      hgemm::consume<kAggStages, 128>(full, empty, ring, nst, acc, [&](int s) {
+        const uint32_t st = hgemm::smem_u32(smem + s * kAggStageBytes);
+        const uint32_t xs = st + (kAggClusters / 64) * kAggBox;
+#pragma unroll
+        for (int kk = 0; kk < kAggFrames / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            // B MN-major over two [32][64] boxes: the next 64 columns one
+            // box (LBO) on; a 16-deep step moves the start 2 KB.
+            hgemm::mma<128, 1, 1>(acc + 64 * i, hgemm::desc_a_mn(st + (2 * wg + i) * kAggBox, kk),
+                                  hgemm::desc(xs + kk * 2048, kAggBox, 1024));
+      });
+      // Epilogue: v[k, d] = acc - a_sum[k] * centers[k, d] (multiply and
+      // subtract each rounded, as the plain version), the centers from
+      // the tile in shared memory (swizzled [256][32] boxes: the 8 rows of
+      // a quarter-warp's float2 reads fall in distinct banks). Only the
+      // stores are masked.
+      const float gn = Store ? __ldg(gnorm + b) : 1.0f;
+      const float rg = 1.0f / gn;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kl = 128 * wg + 64 * i + 16 * warp + r + 8 * h;  // row of the tile
+          const int k = kt * kAggClusters + kl;
+          const float nrm = Store ? __ldg(norms + static_cast<size_t>(b) * K + kc[i][h]) : 1.0f;
+          const float rn = 1.0f / nrm;
+          float* dst = out + (static_cast<size_t>(b) * K + k) * D + ct * kCols + 2 * q;
+          float ss = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kCols / 8; ++j) {
+            // Columns 8j + 2q, +1: box j / 4, 16-byte chunk 2 (j % 4) + q / 2.
+            const float2 cc = *reinterpret_cast<const float2*>(
+                cen + (j / 4) * kCenBox + hgemm::swizzled(kl, 2 * (j % 4) + q / 2) + (q & 1) * 8);
+            const int a = 64 * i + 4 * j + 2 * h;
+            const float v0 = __fsub_rn(acc[a], __fmul_rn(as[i][h], cc.x));
+            const float v1 = __fsub_rn(acc[a + 1], __fmul_rn(as[i][h], cc.y));
+            if constexpr (Store) {
+              if (k < K)
+                *reinterpret_cast<float2*>(dst + 8 * j) =
+                    make_float2(div_by(div_by(v0, nrm, rn), gn, rg),
+                                div_by(div_by(v1, nrm, rn), gn, rg));
+            } else {
+              ss += v0 * v0;
+              ss += v1 * v1;
+            }
+          }
+          if constexpr (!Store) {
+            ss = quad_sum(ss);
+            if (q == 0 && k < K) sumsq[(static_cast<size_t>(b) * n_ct + ct) * K + k] = ss;
+          }
+        }
+      }
+      nst = nst_next;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch 3: the norms of a video.
+// ---------------------------------------------------------------------------
+
+constexpr int kNormThreads = 256;
+
+// norms[b, k] = max(||vlad_k||, 1e-6) from the column tiles' sums of
+// squares (summed in tile order); gnorm[b] = max(sqrt(sum_k ss_k / n_k^2),
+// 1e-6), the norm of the intra-normalised rows.
+__global__ void __launch_bounds__(kNormThreads)
+nv_serve_norms(const float* __restrict__ sumsq, float* __restrict__ norms, float* __restrict__ gnorm,
+               int K, int n_ct) {
+  __shared__ float part[kNormThreads / 32];
+  const int b = blockIdx.x;
+  const float* sq = sumsq + static_cast<size_t>(b) * n_ct * K;
+  float g = 0.0f;
+  for (int k = threadIdx.x; k < K; k += kNormThreads) {
+    float ss = 0.0f;
+    for (int t = 0; t < n_ct; ++t) ss += sq[static_cast<size_t>(t) * K + k];
+    const float n = fmaxf(sqrtf(ss), kNormEps);
+    norms[static_cast<size_t>(b) * K + k] = n;
+    g += ss / (n * n);
+  }
+  g = warp_sum(g);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = g;
+  __syncthreads();
+  if (threadIdx.x == 0) {
     float total = 0.0f;
-    for (int w = 0; w < 8; ++w) {
-      float part = 0.0f;
-      for (int r = w * 8; r < w * 8 + 8; ++r) part += S[r * ld_s + col];
-      total += part;
-    }
-    colsum[(static_cast<size_t>(b) * chunks + chunk) * K + col] = total;
+    for (int w = 0; w < kNormThreads / 32; ++w) total += part[w];
+    gnorm[b] = fmaxf(sqrtf(total), kNormEps);
   }
 }
 
-// Launch 2. Grid (D / 128, B, ceil(K / 256)). Warps 4 (clusters) x 2
-// (columns), a 64 x 64 warp tile each.
-__global__ void __launch_bounds__(kThreads, 1)
-vlad_aggregate_kernel(const __nv_bfloat16* __restrict__ xb,
-                      const __nv_bfloat16* __restrict__ assign,
-                      const float* __restrict__ colsum, const float* __restrict__ centers,
-                      float* __restrict__ out, float* __restrict__ sumsq, int F, int D, int K,
-                      int chunks) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + kStages * kAggStageA;
+// ---------------------------------------------------------------------------
+// Host.
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int tile = blockIdx.x;
-  const int d0 = tile * kAggCols;
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.z * kAggRows;
-  const int fa_rows = chunks * kAsgRows;  // rows of the assign scratch
-  const __nv_bfloat16* av = assign + static_cast<size_t>(b) * fa_rows * K;
-  const __nv_bfloat16* xv = xb + static_cast<size_t>(b) * F * D + d0;
-
-  auto load_stage = [&](int slot, int kt) {
-    const int f0 = kt * kBK;
-    // A: 32 frames x 256 clusters, four 16-byte copies a thread.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int seg = tid + j * kThreads;
-      const int row = seg >> 5;
-      const int col = (seg & 31) * 8;
-      const bool ok = k0 + col < K;
-      cp_async16(sA + slot * kAggStageA + row * kAggLdA + col,
-                 av + static_cast<size_t>(f0 + row) * K + (ok ? k0 + col : 0), ok ? 16 : 0);
-    }
-    // B: 32 frames x 128 columns, two copies a thread; frames >= F are 0.
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int seg = tid + j * kThreads;
-      const int row = seg >> 4;
-      const int col = (seg & 15) * 8;
-      const bool ok = f0 + row < F;
-      cp_async16(sB + slot * kAggStageB + row * kAggLdB + col,
-                 xv + static_cast<size_t>(ok ? f0 + row : 0) * D + col, ok ? 16 : 0);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (F + kBK - 1) / kBK;  // assign rows up to F64 exist and are 0 past F
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < nk) load_stage(next % kStages, next);
-    cp_async_commit();
-    const int slot = kt % kStages;
-    const __nv_bfloat16* tA = sA + slot * kAggStageA;
-    const __nv_bfloat16* tB = sB + slot * kAggStageB;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      // A[k, f] = As[f][k]: the assignment tile read column-major.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], tA + kk * kAggLdA + wm * 64 + i * 16, kAggLdA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], tB + kk * kAggLdB + wn * 64 + j * 16, kAggLdB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  float* S = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(S + (wm * 64 + i * 16) * kAggLdS + wn * 64 + j * 16, acc[i][j],
-                              kAggLdS, wmma::mem_row_major);
-  __syncthreads();
-
-  // Each warp takes 32 clusters; lanes run along the 128 columns.
-  const int tiles = gridDim.x;
-  for (int r = warp * 32; r < warp * 32 + 32 && k0 + r < K; ++r) {
-    const int k = k0 + r;
-    float a_sum = 0.0f;
-    for (int c = 0; c < chunks; ++c) a_sum += colsum[(static_cast<size_t>(b) * chunks + c) * K + k];
-    const float* cen = centers + static_cast<size_t>(k) * D + d0;
-    float* dst = out + (static_cast<size_t>(b) * K + k) * D + d0;
-    float ss = 0.0f;
-#pragma unroll
-    for (int c = lane; c < kAggCols; c += 32) {
-      const float v = __fsub_rn(S[r * kAggLdS + c], __fmul_rn(a_sum, cen[c]));
-      dst[c] = v;
-      ss += v * v;
-    }
-    ss = warp_sum(ss);
-    if (lane == 0) sumsq[(static_cast<size_t>(b) * tiles + tile) * K + k] = ss;
-  }
-}
-
-// Launch 3. Grid (ceil(K / 32), B): intra-norm, then the global norm,
-// in place.
-__global__ void __launch_bounds__(kThreads)
-vlad_norm_kernel(float* __restrict__ out, const float* __restrict__ sumsq, int D, int K,
-                 int tiles) {
-  __shared__ float s_gnorm;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const float* sq = sumsq + static_cast<size_t>(b) * tiles * K;
-  auto row_norm = [&](int k) {
-    float ss = 0.0f;
-    for (int t = 0; t < tiles; ++t) ss += sq[static_cast<size_t>(t) * K + k];
-    return ss;
-  };
-  if (warp == 0) {
-    // ||v / n_k||^2 summed over the rows = sum_k ss_k / n_k^2.
-    float g = 0.0f;
-    for (int k = lane; k < K; k += 32) {
-      const float ss = row_norm(k);
-      const float n = fmaxf(sqrtf(ss), kNormEps);
-      g += ss / (n * n);
-    }
-    g = warp_sum(g);
-    if (lane == 0) s_gnorm = fmaxf(sqrtf(g), kNormEps);
-  }
-  __syncthreads();
-  const float gnorm = s_gnorm;
-  const int k0 = blockIdx.x * kNormRows + warp * (kNormRows / 8);
-  for (int k = k0; k < k0 + kNormRows / 8 && k < K; ++k) {
-    const float n = fmaxf(sqrtf(row_norm(k)), kNormEps);
-    float4* row = reinterpret_cast<float4*>(out + (static_cast<size_t>(b) * K + k) * D);
-    for (int i = lane; i < D / 4; i += 32) {
-      float4 v = row[i];
-      v.x = (v.x / n) / gnorm;
-      v.y = (v.y / n) / gnorm;
-      v.z = (v.z / n) / gnorm;
-      v.w = (v.w / n) / gnorm;
-      row[i] = v;
-    }
-  }
+template <typename T, int W, bool Split>
+cudaError_t launch_assign(const CUtensorMap& map_x, const CUtensorMap& map_w, const int* items,
+                          const int* num_frames, const float* act_scale, const float* act_bias,
+                          bf16* xb, bf16* assign, float* colsum, int B, int F, int D, int K,
+                          int chunks, int sms, cudaStream_t st) {
+  using P = Asg<T, W, Split>;
+  cudaError_t err = cudaFuncSetAttribute(nv_serve_assign<T, W, Split>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return err;
+  // The live chunks are counted on the card: the grid covers the most
+  // there can be, and a block past the count finds no tile.
+  const long long most = Split ? static_cast<long long>(B) * chunks
+                               : (static_cast<long long>(B) * chunks + 1) / 2;
+  const int grid = most < sms ? static_cast<int>(most) : sms;
+  nv_serve_assign<T, W, Split><<<grid, hgemm::kThreads, P::kSmem, st>>>(
+      map_x, map_w, items, num_frames, act_scale, act_bias, xb, assign, colsum, F, D, K, chunks);
+  return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* num_frames, const void* wc, const void* act_scale,
            const void* act_bias, const void* centers, void* xb, void* assign, void* colsum,
-           void* sumsq, void* out, int B, int F, int D, int K, void* stream) {
-  if (B <= 0 || B > 65535 || F <= 0 || D <= 0 || D % kAggCols != 0 || K < 8 || K % 8 != 0 ||
-      K > kMaxClusters)
+           void* items, void* work, void* out, int B, int F, int D, int K, void* stream) {
+  if (B <= 0 || F <= 0 || D <= 0 || D % kCols != 0 || K < 8 || K % 8 != 0 || K > kMaxClusters)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (F + kChunk - 1) / kChunk;
+  if (static_cast<long long>(B) * chunks >= (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunks = (F + kAsgRows - 1) / kAsgRows;
-  const int tiles = D / kAggCols;
-  const size_t n8 = static_cast<size_t>(B) * F * D / 8;
-  const size_t want = (n8 + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  __nv_bfloat16* xbp = static_cast<__nv_bfloat16*>(xb);
-  vlad_frames_to_bf16<T><<<blocks, kThreads, 0, st>>>(static_cast<const T*>(x), xbp, n8);
+  const int n_ct = D / kCols;
+  float* sumsq = static_cast<float*>(work);                     // [B, D / 128, K]
+  float* norms = sumsq + static_cast<size_t>(B) * n_ct * K;     // [B, K]
+  float* a_sum = norms + static_cast<size_t>(B) * K;            // [B, K]
+  float* gnorm = a_sum + static_cast<size_t>(B) * K;            // [B]
+  const int* nf = static_cast<const int*>(num_frames);
+  int* it = static_cast<int*>(items);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int ktiles = (K + kAsgCols - 1) / kAsgCols;
-  const int asg_bytes = asg_smem(ktiles);
-  err = cudaFuncSetAttribute(vlad_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             asg_bytes);
+  nv_serve_scan<<<1, kScanThreads, 0, st>>>(nf, it, B, F, chunks);
+  err = cudaGetLastError();
+  CUtensorMap map_x, map_w, map_xb, map_a;
+  if (err == cudaSuccess) {
+    if constexpr (std::is_same<T, float>::value)
+      err = hgemm::make_map_f32(&map_x, x, B, F, D, kChunk);
+    else
+      err = hgemm::make_map_u8(&map_x, x, B, F, D, D, kChunk, hgemm::kDepth,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_w, wc, D, K, K, hgemm::kDepth);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_xb, xb, B, F, D, D, kAggFrames);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_a, assign, B, F, K, K, kAggFrames);
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vlad_assign_kernel<<<dim3(chunks, B), kThreads, asg_bytes, st>>>(
-      xbp, static_cast<const int*>(num_frames), static_cast<const __nv_bfloat16*>(wc),
-      static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
-      static_cast<__nv_bfloat16*>(assign), static_cast<float*>(colsum), F, D, K);
+
+  const float* scale = static_cast<const float*>(act_scale);
+  const float* bias = static_cast<const float*>(act_bias);
+  bf16* asg = static_cast<bf16*>(assign);
+  bf16* x16 = static_cast<bf16*>(xb);
+  float* cs = static_cast<float*>(colsum);
+  if (K <= 128)
+    err = launch_assign<T, 128, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, B, F, D,
+                                       K, chunks, sms, st);
+  else if (K <= 256)
+    err = launch_assign<T, 256, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, B, F, D,
+                                       K, chunks, sms, st);
+  else
+    err = launch_assign<T, 256, true>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, B, F, D,
+                                      K, chunks, sms, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nv_serve_asum<<<B, kSumThreads, 0, st>>>(nf, cs, a_sum, F, K, chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(vlad_aggregate_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kAggSmem);
+  const int combos = ((K + kAggClusters - 1) / kAggClusters) * n_ct;
+  const int per_combo = agg_blocks_per_combo(B, combos, sms);
+  const int grid = per_combo * combos;
+  CUtensorMap map_c;
+  err = hgemm::make_map_f32(&map_c, centers, 1, K, D, kAggClusters);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vlad_aggregate_kernel<<<dim3(tiles, B, ktiles), kThreads, kAggSmem, st>>>(
-      xbp, static_cast<const __nv_bfloat16*>(assign), static_cast<const float*>(colsum),
-      static_cast<const float*>(centers), static_cast<float*>(out), static_cast<float*>(sumsq),
-      F, D, K, chunks);
+  float* o = static_cast<float*>(out);
+  err = cudaFuncSetAttribute(nv_serve_aggregate<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kAggSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nv_serve_aggregate<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kAggSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nv_serve_aggregate<false><<<grid, hgemm::kThreads, kAggSmem, st>>>(
+      map_a, map_xb, map_c, nf, a_sum, sumsq, norms, gnorm, o, B, F, D, K, per_combo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  vlad_norm_kernel<<<dim3((K + kNormRows - 1) / kNormRows, B), kThreads, 0, st>>>(
-      static_cast<float*>(out), static_cast<const float*>(sumsq), D, K, tiles);
+  nv_serve_norms<<<B, kNormThreads, 0, st>>>(sumsq, norms, gnorm, K, n_ct);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nv_serve_aggregate<true><<<grid, hgemm::kThreads, kAggSmem, st>>>(
+      map_a, map_xb, map_c, nf, a_sum, sumsq, norms, gnorm, o, B, F, D, K, per_combo);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Scratch from the caller: xb [B, F, D] bf16, assign [B, ceil(F/64)*64, K]
-// bf16, colsum [B, ceil(F/64), K] f32, sumsq [B, D/128, K] f32.
+// Scratch from the caller: xb [B, F, D] bf16 and assign [B, F, K] bf16
+// (written on the live chunks' rows), colsum [B, ceil(F/64), K] f32
+// (the live chunks' column sums), items 1 + B ceil(F/64) int32 and work
+// B (D/128 + 2) K + B f32.
 extern "C" int yt8m_netvlad_aggregate_u8(const void* x, const void* num_frames, const void* wc,
                                          const void* act_scale, const void* act_bias,
                                          const void* centers, void* xb, void* assign,
-                                         void* colsum, void* sumsq, void* out, int B, int F,
-                                         int D, int K, void* stream) {
+                                         void* colsum, void* items, void* work, void* out, int B,
+                                         int F, int D, int K, void* stream) {
   return launch<uint8_t>(x, num_frames, wc, act_scale, act_bias, centers, xb, assign, colsum,
-                         sumsq, out, B, F, D, K, stream);
+                         items, work, out, B, F, D, K, stream);
 }
 
 extern "C" int yt8m_netvlad_aggregate_f32(const void* x, const void* num_frames, const void* wc,
                                           const void* act_scale, const void* act_bias,
                                           const void* centers, void* xb, void* assign,
-                                          void* colsum, void* sumsq, void* out, int B, int F,
-                                          int D, int K, void* stream) {
+                                          void* colsum, void* items, void* work, void* out,
+                                          int B, int F, int D, int K, void* stream) {
   return launch<float>(x, num_frames, wc, act_scale, act_bias, centers, xb, assign, colsum,
-                       sumsq, out, B, F, D, K, stream);
+                       items, work, out, B, F, D, K, stream);
+}
+
+// The tiles: [frames a chunk, assignment stages, the assignment's shared
+// bytes for (f32, 128 clusters a warpgroup), (f32, 256), (f32, split
+// 512), (uint8, 128), (uint8, 256), (uint8, split 512), aggregation
+// clusters a tile, columns a tile, stages, shared bytes, SMs].
+extern "C" int yt8m_netvlad_plan(int* plan) {
+  int sms = 0;
+  const cudaError_t err = hgemm::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = kChunk;
+  plan[1] = Asg<float, 256, false>::kStages;
+  plan[2] = Asg<float, 128, false>::kSmem;
+  plan[3] = Asg<float, 256, false>::kSmem;
+  plan[4] = Asg<float, 256, true>::kSmem;
+  plan[5] = Asg<uint8_t, 128, false>::kSmem;
+  plan[6] = Asg<uint8_t, 256, false>::kSmem;
+  plan[7] = Asg<uint8_t, 256, true>::kSmem;
+  plan[8] = kAggClusters;
+  plan[9] = kCols;
+  plan[10] = kAggStages;
+  plan[11] = kAggSmem;
+  plan[12] = sms;
+  return static_cast<int>(cudaSuccess);
 }

@@ -33,9 +33,13 @@ frames x [B, S, D] (uint8, or float32):
     input affine into the weights,
         (x * s_in + b_in) @ W = (x - 128) @ (s_in . W) + 128 colsum + b_in @ W,
     and quantizes W' = s_in . W per column, symmetrically, to int8 (the
-    only approximation). csrc/dbof_int8.cu then computes (x XOR 0x80) as
-    int8 against w8 on the int8 tensor cores with exact int32 sums, and
-    its epilogue is f32(acc) * a_col + b_col, ReLU, max over frames.
+    only approximation). csrc/dbof_int8.cu multiplies the raw bytes by w8
+    on the int8 tensor cores (wgmma u8 x s8, exact int32 sums) and takes
+    128 * colsum(w8), which the wrapper sums, off once per (video,
+    cluster); its epilogue pools the integer sums first (a max, or a min
+    where a_col < 0: the affine and the ReLU are monotone) and applies
+    f32(acc) * a_col + b_col and the ReLU to the pooled value only
+    (`plan_int8`; the source has the design).
 
 The kernels pool at most 32 frames a video; more are pooled in chunks of
 32 frames, one launch each, whose outputs the wrapper reduces with an
@@ -88,6 +92,46 @@ def plan(b: int, s: int, d: int, k: int, sms: int = SMS) -> dict:
         "smem": STAGES * stage + 2 * TILE_VIDEOS * TILE_CLUSTERS * 4
         + 2 * STAGES * 8 + 1024,
     }
+
+
+# csrc/dbof_int8.cu's product tile (yt8m_dbof_int8_plan reads the
+# kernel's own): 4 videos x 256 clusters as DBoF v2's, 128 bytes of depth
+# a stage (four k32 steps of the integer wgmma).
+INT8_DEPTH = 128
+
+
+def plan_int8(b: int, d: int, k: int, sms: int = SMS) -> dict:
+    """csrc/dbof_int8.cu's launch over x [B, S <= 32, D] uint8 and w8t
+    [K, D] int8: the tiles (the K tile fastest), the persistent grid, the
+    TMA boxes (innermost first, both K-major: 128-byte rows), the stages
+    and the shared memory."""
+    row_tiles = _ceil(b, TILE_VIDEOS)
+    cluster_tiles = _ceil(k, TILE_CLUSTERS)
+    tiles = row_tiles * cluster_tiles
+    rows = TILE_VIDEOS * MAX_FRAMES_PER_VIDEO
+    stage = rows * INT8_DEPTH + TILE_CLUSTERS * INT8_DEPTH
+    return {
+        "row_tiles": row_tiles, "cluster_tiles": cluster_tiles,
+        "tiles": tiles, "grid": min(tiles, sms),
+        "k_steps": _ceil(d, INT8_DEPTH), "rows": rows,
+        "box_x": (INT8_DEPTH, MAX_FRAMES_PER_VIDEO, TILE_VIDEOS),
+        "box_w": (INT8_DEPTH, TILE_CLUSTERS), "chain": TILE_CLUSTERS,
+        "stages": STAGES, "stage_bytes": stage,
+        "a_bytes": rows * INT8_DEPTH,
+        "smem": STAGES * stage + 2 * TILE_VIDEOS * TILE_CLUSTERS * 4
+        + 2 * STAGES * 8 + 1024,
+    }
+
+
+def kernel_plan_int8() -> dict:
+    """The compiled int8 product's tile and the card's SMs (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 7)()
+    _build.check_launch("yt8m_dbof_int8_plan",
+                        _build.library().yt8m_dbof_int8_plan(out))
+    return dict(zip(("videos", "pitch", "tile_clusters", "depth", "stages",
+                     "smem", "sms"), out))
 
 
 def tile_of(t: int, p: dict):
@@ -263,7 +307,11 @@ def dbof_cluster_maxpool_int8(x, w8, a_col, b_col):
     require_cuda_operand("w8t", w8t, torch.int8, (k, d))
     require_cuda_operand("a_col", a_col, torch.float32, (k,))
     require_cuda_operand("b_col", b_col, torch.float32, (k,))
-    return max_over_frame_chunks(_launch_int8, x, w8t, a_col, b_col)
+    # The kernel multiplies the raw bytes: x @ w8 = (x - 128) @ w8 + 128
+    # colsum8, exact in int32.
+    colsum8 = torch.sum(w8t, dim=1, dtype=torch.int32)
+    return max_over_frame_chunks(_launch_int8, x, w8t, colsum8, a_col,
+                                 b_col)
 
 
 def max_over_frame_chunks(launch, x, *args):
@@ -345,15 +393,14 @@ def _launch(owner, x, w, in_scale, in_bias, act_scale, act_bias):
     return out
 
 
-def _launch_int8(x, w8t, a_col, b_col):
+def _launch_int8(x, w8t, colsum8, a_col, b_col):
     """One launch of csrc/dbof_int8.cu over x [B, S <= 32, D]."""
     b, s, d = x.shape
     k = w8t.shape[0]
     out = torch.empty((b, k), dtype=torch.float32, device=x.device)
-    xi = torch.empty((b * s, d), dtype=torch.int8, device=x.device)
     code = _build.library().yt8m_dbof_cluster_maxpool_int8(
-        _build.ptr(x), _build.ptr(w8t), _build.ptr(a_col),
-        _build.ptr(b_col), _build.ptr(xi), _build.ptr(out), b, s, d, k,
+        _build.ptr(x), _build.ptr(w8t), _build.ptr(colsum8),
+        _build.ptr(a_col), _build.ptr(b_col), _build.ptr(out), b, s, d, k,
         _build.current_stream(x.device),
     )
     _build.check_launch("dbof_cluster_maxpool_int8", code)

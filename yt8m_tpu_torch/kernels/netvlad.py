@@ -11,10 +11,15 @@ x [B, F, D] (uint8, dequantized on the fly, or float32), per video:
 
 `round` is the cast to Wc's dtype (bf16 on the card). The CUDA kernel
 (csrc/netvlad.cu) is bound by device-memory bytes at the serving shapes
-with float32 frames (the [B, K, D] f32 output alone is 604 MB at B=512);
-both products run on the tensor cores inside it. The wrapper allocates
-the kernel's scratch: the bf16 frames, the bf16 [B, F, K] assignment and
-the partial column sums and sums of squares.
+with float32 frames (the [B, K, D] f32 output alone is 604 MB at B=512).
+It touches only the live 64-frame chunks of each video (`live_items`):
+the assignment product on TMA + wgmma with the softmax in its registers,
+which also stores the chunks' frames in bf16, then the aggregation
+product twice, first for the norms and then to write the normalised
+output once (`plan`; the source has the design). The wrapper allocates
+the kernel's scratch: the bf16 frames and the bf16 [B, F, K] assignment
+(written on the live chunks' rows), the chunks' column sums, the list of
+live chunks, and the sums of squares and norms.
 
 The kernel takes D a multiple of 128 and K a multiple of 8 up to 512;
 `netvlad_aggregate` pads other shapes so that the result is exact.
@@ -39,11 +44,122 @@ from yt8m_tpu_torch.kernels._checks import (
 )
 
 NORM_EPS = 1e-6
-FRAME_CHUNK = 64   # frames per block of the assignment launch
-D_TILE = 128       # feature columns per block of the aggregation launch
+FRAME_CHUNK = 64   # frames a chunk: a warpgroup's rows, a product step
+D_TILE = 128       # feature columns a tile of the aggregation launches
 MAX_CLUSTERS = 512  # K one assignment block holds for its softmax
 K_MULTIPLE = 8      # clusters: 16-byte rows of Wc and the assignment
 PAD_CLUSTER_BIAS = -1e30
+
+# csrc/netvlad.cu's tiles (yt8m_netvlad_plan reads the kernel's own).
+DEPTH = 64            # features a stage of the assignment product
+BOX = 64              # rows and columns of a bf16 box (128-byte rows)
+B16_BOX = BOX * BOX * 2
+F32_BOX = FRAME_CHUNK * 32 * 4  # [64 frames][32] f32 (128-byte rows)
+U8_BOX = FRAME_CHUNK * DEPTH    # [64 frames][64 bytes], unswizzled
+SMEM_LIMIT = 232448   # shared memory a block can use on an H100
+MAX_STAGES = 4
+AGG_CLUSTERS = 256    # clusters a tile of the aggregation launches
+AGG_FRAMES = 32       # frames a stage of the aggregation launches
+AGG_STAGES = 4
+SMS = 132             # an H100's SMs: the persistent grids' cap
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def assign_split(k: int):
+    """(clusters a consumer warpgroup, split): an item a warpgroup for K
+    <= 256 (its 64 frames x K in one chain of 128 or 256), one item
+    shared by both warpgroups, K split in two halves of 256, above."""
+    if k <= 128:
+        return 128, False
+    return 256, k > 256
+
+
+def plan(b: int, f: int, d: int, k: int, x_dtype=torch.float32,
+         sms: int = SMS) -> dict:
+    """csrc/netvlad.cu's launches over frames [B, F, D] and K clusters
+    (D a multiple of 128, K of 8): the assignment's items, stage and
+    shared memory, the aggregation's tiles (the column tile fastest),
+    TMA boxes (innermost first) and shared memory, the scratch."""
+    chunks = _ceil(f, FRAME_CHUNK)
+    w, split = assign_split(k)
+    f32 = x_dtype == torch.float32
+    x_load = 2 * F32_BOX if f32 else U8_BOX
+    # A stage's x tile is rounded to bf16 in place: room for both.
+    x_bytes = max(x_load, B16_BOX)
+    x_tiles = 1 if split else 2
+    w_boxes = (2 if split else 1) * w // BOX
+    stage = x_tiles * x_bytes + w_boxes * B16_BOX
+    red_floats = 2 * 4 * w + (2 * 2 * 2 * FRAME_CHUNK if split else 0)
+    fixed = (red_floats + 2 * MAX_CLUSTERS) * 4 + 2 * MAX_STAGES * 8
+    stages = min(MAX_STAGES, (SMEM_LIMIT - 1024 - fixed) // stage)
+    most = b * chunks if split else _ceil(b * chunks, 2)
+    n_kt, n_ct = _ceil(k, AGG_CLUSTERS), d // D_TILE
+    agg_stage = (AGG_CLUSTERS // BOX + D_TILE // BOX) * AGG_FRAMES * BOX * 2
+    combos = n_kt * n_ct
+    per_combo = max(1, min(sms // combos, b))
+    centers_bytes = AGG_CLUSTERS * D_TILE * 4
+    return {
+        "chunks": chunks, "clusters_a_warpgroup": w, "split": split,
+        "items_a_tile": 1 if split else 2, "k_steps": d // DEPTH,
+        "assign_grid": min(most, sms), "assign_stage_bytes": stage,
+        "assign_stages": stages, "x_load_bytes": x_load,
+        "x_bytes": x_bytes, "x_tiles": x_tiles,
+        "assign_smem": stages * stage + fixed + 1024,
+        "box_x": (32, FRAME_CHUNK, 1) if f32 else (DEPTH, FRAME_CHUNK, 1),
+        "x_elem_bytes": 4 if f32 else 1, "x_swizzled": f32,
+        "box_w": (BOX, DEPTH), "w_boxes": w_boxes,
+        "box_xb": (BOX, AGG_FRAMES, 1), "box_assign": (BOX, AGG_FRAMES, 1),
+        "agg_cluster_tiles": n_kt, "agg_col_tiles": n_ct,
+        "agg_combos": combos, "agg_per_combo": per_combo,
+        "agg_tiles": b * combos, "agg_grid": per_combo * combos,
+        "agg_stage_bytes": agg_stage, "agg_stages": AGG_STAGES,
+        "box_centers": (32, AGG_CLUSTERS, 1), "centers_bytes": centers_bytes,
+        "agg_smem": AGG_STAGES * agg_stage + centers_bytes
+        + (2 * AGG_STAGES + 1) * 8 + 1024,
+        "items": 1 + b * chunks, "work": b * (n_ct + 2) * k + b,
+    }
+
+
+def agg_walk(blk: int, p: dict, b: int):
+    """The aggregation tiles block blk walks: it keeps combination blk %
+    C of (cluster tile, column tile), the column tile fastest, whose
+    centers stay in its shared memory, and takes the videos blk // C,
+    + P, ... (P blocks a combination). [(video, clusters, columns)] as
+    ranges before clipping to K and D."""
+    combos, per = p["agg_combos"], p["agg_per_combo"]
+    kt, ct = divmod(blk % combos, p["agg_col_tiles"])
+    return [(v, range(kt * AGG_CLUSTERS, (kt + 1) * AGG_CLUSTERS),
+             range(ct * D_TILE, (ct + 1) * D_TILE))
+            for v in range(blk // combos, b, per)]
+
+
+def live_items(num_frames, f: int):
+    """nv_serve_scan's list: b * ceil(F/64) + c for every chunk c of video
+    b that holds a live frame (c < ceil(min(num_frames[b], F) / 64)),
+    videos in order; int64 on num_frames' device."""
+    chunks = _ceil(f, FRAME_CHUNK)
+    n = torch.clamp(num_frames.to(torch.int64), 0, f)
+    per = (n + FRAME_CHUNK - 1) // FRAME_CHUNK
+    c = torch.arange(chunks, device=num_frames.device)
+    live = c[None, :] < per[:, None]
+    ids = torch.arange(num_frames.shape[0], device=num_frames.device)
+    return (ids[:, None] * chunks + c[None, :])[live]
+
+
+def kernel_plan() -> dict:
+    """The compiled launches' tiles and the card's SMs (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 13)()
+    _build.check_launch("yt8m_netvlad_plan",
+                        _build.library().yt8m_netvlad_plan(out))
+    return dict(zip(("chunk", "assign_stages", "smem_f32_128",
+                     "smem_f32_256", "smem_f32_split", "smem_u8_128",
+                     "smem_u8_256", "smem_u8_split", "agg_clusters",
+                     "agg_cols", "agg_stages", "agg_smem", "sms"), out))
 
 
 def netvlad_assign_plain(frames, num_frames, cluster_w, act_scale,
@@ -129,8 +245,7 @@ def netvlad_aggregate(frames, num_frames, cluster_w, act_scale, act_bias,
     k = cluster_w.shape[1]
     x, w, scale, bias, cen = pad_operands(frames, cluster_w, act_scale,
                                           act_bias, centers)
-    out = netvlad_aggregate_with_scratch(x, num_frames, w, scale, bias,
-                                         cen)[0]
+    out = _launch(x, num_frames, w, scale, bias, cen, torch.empty)[0]
     return out if out.shape[1:] == (k, d) else out[:, :k, :d].contiguous()
 
 
@@ -138,8 +253,17 @@ def netvlad_aggregate_with_scratch(frames, num_frames, cluster_w, act_scale,
                                    act_bias, centers):
     """Launch the CUDA kernel; (out, xb, assign, colsum): the descriptors
     [B, K, D] f32 and the kernel's intermediates, the bf16 frames
-    [B, F, D], the bf16 assignment [B, 64*ceil(F/64), K] (zeros past F)
-    and the f32 column sums of each 64-frame chunk [B, ceil(F/64), K]."""
+    [B, F, D], the bf16 assignment [B, F, K] (zeros past num_frames) and
+    the f32 column sums of each 64-frame chunk [B, ceil(F/64), K]. The
+    kernel writes these on the live chunks only; here they start as
+    zeros, so every row it skips reads as 0 (the main path allocates them
+    uninitialised)."""
+    return _launch(frames, num_frames, cluster_w, act_scale, act_bias,
+                   centers, torch.zeros)
+
+
+def _launch(frames, num_frames, cluster_w, act_scale, act_bias, centers,
+            alloc):
     b, f, d = frames.shape
     k = cluster_w.shape[1]
     require(frames.dtype in (torch.uint8, torch.float32),
@@ -157,13 +281,13 @@ def netvlad_aggregate_with_scratch(frames, num_frames, cluster_w, act_scale,
     require_cuda_operand("act_bias", act_bias, torch.float32, (k,))
     require_cuda_operand("centers", centers, torch.float32, (k, d))
     dev = frames.device
-    chunks = -(-f // FRAME_CHUNK)
+    p = plan(b, f, d, k, frames.dtype)
     out = torch.empty((b, k, d), dtype=torch.float32, device=dev)
-    xb = torch.empty((b, f, d), dtype=torch.bfloat16, device=dev)
-    assign = torch.empty((b, chunks * FRAME_CHUNK, k), dtype=torch.bfloat16,
-                         device=dev)
-    colsum = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
-    sumsq = torch.empty((b, d // D_TILE, k), dtype=torch.float32, device=dev)
+    xb = alloc((b, f, d), dtype=torch.bfloat16, device=dev)
+    assign = alloc((b, f, k), dtype=torch.bfloat16, device=dev)
+    colsum = alloc((b, p["chunks"], k), dtype=torch.float32, device=dev)
+    items = torch.empty(p["items"], dtype=torch.int32, device=dev)
+    work = torch.empty(p["work"], dtype=torch.float32, device=dev)
     lib = _build.library()
     fn = (lib.yt8m_netvlad_aggregate_u8 if frames.dtype == torch.uint8
           else lib.yt8m_netvlad_aggregate_f32)
@@ -171,7 +295,7 @@ def netvlad_aggregate_with_scratch(frames, num_frames, cluster_w, act_scale,
         _build.ptr(frames), _build.ptr(num_frames), _build.ptr(cluster_w),
         _build.ptr(act_scale), _build.ptr(act_bias), _build.ptr(centers),
         _build.ptr(xb), _build.ptr(assign), _build.ptr(colsum),
-        _build.ptr(sumsq), _build.ptr(out), b, f, d, k,
+        _build.ptr(items), _build.ptr(work), _build.ptr(out), b, f, d, k,
         _build.current_stream(dev),
     )
     _build.check_launch("netvlad_aggregate", code)

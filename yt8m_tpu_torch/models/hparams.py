@@ -4,13 +4,16 @@ surface, with the field names and defaults of the JAX package's
 flags with the same names map 1:1 onto these fields.
 
 Fields that select a Pallas kernel in the JAX package
-(`*_use_pallas`, `moe_head_pallas`) are inert here: the port's serving
-path always runs its CUDA kernels. Where one changes the result they
-act as in the JAX package: `dbof_use_pallas` gates the int8 kernel of
-`dbof_int8_serving`, and `netvlad_fused_train` (with
-`netvlad_use_pallas`) selects the trainable VLAD core in training, as in
-the JAX package. Fields of model families not yet
-ported are kept so that recordings of any run load; they are inert too.
+(`*_use_pallas`, `moe_head_pallas`) mostly do not select anything here:
+`moe_head_pallas`, `lstm_use_pallas`, `attention_use_pallas` and, in
+serving, `netvlad_use_pallas` are inert, and those paths always run the
+port's CUDA kernels. Three act as in the JAX package:
+`nextvlad_use_pallas` selects NeXtVladModel's serving kernel (off, the
+plain graph serves), `dbof_use_pallas` gates the int8 kernel of
+`dbof_int8_serving`, and `netvlad_use_pallas` with
+`netvlad_fused_train` selects the trainable VLAD core in training.
+Fields of model families not yet ported are kept so that recordings of
+any run load; they are inert.
 """
 
 from __future__ import annotations
