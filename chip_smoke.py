@@ -22,9 +22,13 @@ Phases, one line each with the elapsed seconds:
      NeXtVladModel's B=512, F=300, D=1152, lambda=2, G=8, K=128, uint8 and
      f32 frames) plus small, odd and ragged shapes and planted hazards
      (DBoF and the MoE head, on TMA + wgmma, at B, K, S, C and H that cut
-     their tiles, the MoE's weights as pitched views),
+     their tiles, the MoE's weights as pitched views; top-k also at eval's
+     k=64 and with a row of +-0.0 held to the plain version on the CPU;
+     attention pooling also at D=1001 with F=300, 16 heads and 300
+     videos),
      with its median time (CUDA events; the profiler's device time for
-     attention pooling and NeXtVLAD), the plain
+     attention pooling, top-k and NeXtVLAD, with CUDA events beside it),
+     the plain
      version's time, the time of one PyTorch yardstick for the same
      function, and the bound of the work; the trainable recurrences (the
      LSTM's and the GRU's, forward with residuals and the reverse-time
@@ -104,7 +108,9 @@ Tolerances, max|kernel - plain| on the same inputs:
   * DBoF, MoE: <= 1e-3 * max|ref| + 1e-5. Both round the same operands
     to bf16 at the same points (elementwise, in the same order); only the
     summation order of the products differs.
-  * top-k: exactly equal.
+  * top-k: exactly equal (a row of +-0.0 against the plain version on
+    the CPU, values by their bits: the card's sort may order the two
+    zeros by their bits).
   * int8 DBoF: bit for bit. The integer sums are exact on both sides (the
     plain version multiplies in float64, exact below 2^53; float32 would
     round sums above 2^24); the plain version converts each to f32 and
@@ -500,9 +506,13 @@ def check_moe(torch, gen, dev, flush) -> dict:
                   VLAD_HIDDEN + LSTM_CELLS)
 
 
-def topk_at(torch, gen, dev, flush, b) -> dict:
+def topk_at(torch, gen, dev, flush, b, k=TOP_K) -> dict:
     """exact_topk against its plain version on [B, 4716] scores with NaN,
-    -inf, ties and -3.4e38 rows planted: equality, times, bound."""
+    -inf, ties, -3.4e38 rows and a row of +-0.0 among negative scores
+    planted: equality (the +-0.0 row also against the plain version on
+    the CPU, values by their bits: the card's sort may order the two
+    zeros by their bits), times (the profiler's device time and CUDA
+    events), bound."""
     from yt8m_tpu_torch.kernels.topk import exact_topk, exact_topk_plain
 
     x = torch.rand(b, CLASSES, generator=gen)
@@ -516,44 +526,65 @@ def topk_at(torch, gen, dev, flush, b) -> dict:
     x[4] = 0.25
     x[5, :30] = float("-inf")
     x[5, 30:] = -3.0e38
+    x[6] = -torch.rand(CLASSES, generator=gen)
+    x[6, 1::5] = 0.0
+    x[6, ::5] = -0.0
+    zeros = x[6:7].clone()
     x = x.to(dev)
-    gv, gi = exact_topk(x, TOP_K)
-    pv, pi = exact_topk_plain(x, TOP_K)
+    gv, gi = exact_topk(x, k)
+    pv, pi = exact_topk_plain(x, k)
     torch.cuda.synchronize()
-    check(torch.equal(gv, pv), f"exact_topk B={b} values differ from plain")
-    check(torch.equal(gi, pi), f"exact_topk B={b} indices differ from plain")
+    rows = torch.arange(b, device=dev) != 6
+    check(torch.equal(gv[rows], pv[rows]),
+          f"exact_topk B={b} k={k} values differ from plain")
+    check(torch.equal(gi[rows], pi[rows]),
+          f"exact_topk B={b} k={k} indices differ from plain")
+    zv, zi = exact_topk_plain(zeros, k)
+    check(torch.equal(gv[6:7].cpu().view(torch.int32), zv.view(torch.int32))
+          and torch.equal(gi[6:7].cpu(), zi),
+          f"exact_topk B={b} k={k}: the +-0.0 row differs from the plain "
+          f"version on the CPU")
     check(int(gi.min()) >= 0 and int(gi.max()) < CLASSES,
           "exact_topk index out of range")
-    ms = time_ms(torch, lambda: exact_topk(x, TOP_K), 20, flush)
-    plain_ms = time_ms(torch, lambda: exact_topk_plain(x, TOP_K), 5, flush)
-    library_ms = time_ms(torch, lambda: torch.topk(x, TOP_K, dim=1), 20,
+    ms_events = time_ms(torch, lambda: exact_topk(x, k), 20, flush)
+    us = device_us(torch, lambda: exact_topk(x, k), "exact_topk")
+    plain_ms = time_ms(torch, lambda: exact_topk_plain(x, k), 5, flush)
+    library_ms = time_ms(torch, lambda: torch.topk(x, k, dim=1), 20,
                          flush)
-    nbytes = b * CLASSES * 4 + b * TOP_K * 8
+    nbytes = b * CLASSES * 4 + b * k * 8
     bound_ms, bound_by = bound(b * CLASSES, nbytes, PEAK_F32_FLOPS)
     return {
         "name": "exact_topk", "route": "cuda",
         "source": "yt8m_tpu_torch/kernels/csrc/topk.cu",
         "replaces": "yt8m_tpu/kernels/topk.py:75",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": 0.0, "ms": us / 1e3, "ms_events": ms_events,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
     }
 
 
 def check_topk(torch, gen, dev, flush) -> dict:
-    """Edge cases, then DbofModel's B=2048 (printed) and the flagship's
-    B=512 (the row), as for the MoE head."""
+    """Edge cases, then DbofModel's B=2048 and eval's k=64 at B=512
+    (printed) and the flagship's B=512, k=20 (the row), as for the MoE
+    head."""
     from yt8m_tpu_torch.kernels.topk import exact_topk, exact_topk_plain
 
-    for b, c, k in ((3, 20, 20), (37, 301, 20), (5, 4716, 128), (8, 7, 1)):
+    for b, c, k in ((3, 20, 20), (37, 301, 20), (5, 4716, 128), (8, 7, 1),
+                    (6, 4715, 20), (4, 128, 128), (6, 4716, 64)):
         xs = torch.rand(b, c, generator=gen).to(dev)
         xs[0, : c // 2] = xs[0, 0]
         gv, gi = exact_topk(xs, k)
         pv, pi = exact_topk_plain(xs, k)
         check(torch.equal(gv, pv) and torch.equal(gi, pi),
               f"exact_topk edge B={b} C={c} k={k} differs from plain")
-    say_row(f"DbofModel B={BATCH}", topk_at(torch, gen, dev, flush, BATCH))
-    return topk_at(torch, gen, dev, flush, FLAG_BATCH)
+    for b, k in ((BATCH, TOP_K), (FLAG_BATCH, 64)):
+        row = topk_at(torch, gen, dev, flush, b, k)
+        say_row(f"B={b} k={k} (events {row['ms_events']:.4f} ms)", row)
+    row = topk_at(torch, gen, dev, flush, FLAG_BATCH)
+    say("kernel", f"exact_topk B={FLAG_BATCH} k={TOP_K}: profiler "
+                  f"{row['ms']:.4f} ms, CUDA events {row['ms_events']:.4f} "
+                  f"ms")
+    return row
 
 
 def vlad_inputs(torch, gen, b, f, d, k, x_dtype, dev):
@@ -2018,29 +2049,47 @@ def attention_witness(torch, name, args, got, want) -> float:
 
 
 def check_attention_pool(torch, gen, dev, flush) -> dict:
-    """attention_pool at small and odd shapes (D not a multiple of 4, more
-    than 16 heads, one frame), then at AttentionPoolingModel's serving
-    shape (B=512, F=300, D=1152, H=8) with uint8 and f32 frames against
-    its plain version; frames past num_frames set to 255 / 1e4; the empty
-    video held to the plain version's mean; the rounding witness on those
-    draws and on two more; times, bound and a library yardstick."""
+    """attention_pool at small and odd shapes (D not a multiple of 4, D no
+    multiple of 16 at the serving shape's F, 16 and more than 16 heads,
+    one frame, more videos than SMs), then at AttentionPoolingModel's
+    serving shape (B=512, F=300, D=1152, H=8) with uint8 and f32 frames
+    against its plain version; frames past num_frames set to 255 / 1e4;
+    the empty video held to the plain version's mean; the rounding witness
+    on those draws and on two more; the launch's plan; times (the
+    profiler's device time and CUDA events), bounds and a library
+    yardstick."""
     from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
     from yt8m_tpu_torch.kernels.attention_pool import (
         attention_pool,
         attention_pool_plain,
+        kernel_plan,
     )
 
     for b, f, d, h, dt in ((5, 13, 32, 4, torch.uint8),
                            (3, 70, 1001, 3, torch.float32),
                            (4, 20, 64, 19, torch.uint8),
-                           (2, 1, 8, 1, torch.float32)):
+                           (2, 1, 8, 1, torch.float32),
+                           (9, FLAG_FRAMES, 1001, ATTN_HEADS, torch.uint8),
+                           (6, FLAG_FRAMES, 1001, ATTN_HEADS, torch.float32),
+                           (6, FLAG_FRAMES, FEATURE_DIM, 16, torch.uint8),
+                           (300, 24, 64, ATTN_HEADS, torch.uint8)):
         args = attention_inputs(torch, gen, b, f, d, h, dt, dev)
         rel_check(f"attention_pool edge B={b} F={f} D={d} H={h} {dt}",
                   attention_pool(*args), attention_pool_plain(*args))
     b, f, d, h = FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM, ATTN_HEADS
-    errs, times = {}, {}
+    for dt in (torch.uint8, torch.float32):
+        p = kernel_plan(f, d, h, dt)
+        say("kernel", f"attention_pool plan {dt}: {p['stages']} stages of "
+                      f"{p['rows']} frames ({p['stage_bytes']} B), "
+                      f"{p['smem']} B of shared memory, {p['warps']} "
+                      f"consumer warps and a producer, grid "
+                      f"{min(b, p['sms'])}")
+    errs, times, device = {}, {}, {}
     for dt, loud in ((torch.float32, 1e4), (torch.uint8, 255)):
         x, nf, q = attention_inputs(torch, gen, b, f, d, h, dt, dev)
+        if dt == torch.float32:
+            live_f32 = torch.arange(f, device=dev)[None, :] < nf[:, None]
+            live_f32[nf <= 0] = True
         past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
         past[2] = False  # the empty video averages all its rows
         clean, x = pad_hazard(torch, x, past, loud)
@@ -2067,9 +2116,11 @@ def check_attention_pool(torch, gen, dev, flush) -> dict:
                       f"{empty:.3e}; hazards bit-identical")
         attention_witness(torch, f"attention_pool {dt}", args, got, want)
         times[dt] = time_ms(torch, lambda: attention_pool(*args), 10, flush)
+        device[dt] = device_us(torch, lambda: attention_pool(*args),
+                               "attention_pool") / 1e3
         del got, want, clean
     # The serving path feeds uint8 frames: time and bound that case.
-    us = device_us(torch, lambda: attention_pool(*args), "attention_pool")
+    us = device[torch.uint8] * 1e3
     plain_ms = time_ms(torch, lambda: attention_pool_plain(*args), 3, flush)
     live = (torch.arange(f, device=dev)[None, :] < nf[:, None])
     live[nf == 0] = True
@@ -2087,13 +2138,20 @@ def check_attention_pool(torch, gen, dev, flush) -> dict:
     flops = 4.0 * rows * d * h
     nbytes = rows * d + d * h * 4 + b * h * d * 4 + 4 * b
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    # The f32 draw had its own num_frames: its bound from its own rows.
+    rows_f32 = int(live_f32.sum())
+    bound_f32, by_f32 = bound(4.0 * rows_f32 * d * h,
+                              4 * rows_f32 * d + d * h * 4 + b * h * d * 4
+                              + 4 * b, PEAK_BF16_FLOPS)
     say("kernel", f"attention_pool B={b} F={f} D={d} H={h}: uint8 "
-                  f"{times[torch.uint8]:.4f} ms (CUDA events; profiler "
-                  f"{us / 1e3:.4f} ms), f32 frames {times[torch.float32]:.4f}"
-                  f" ms; bound {bound_ms:.4f} ms by {bound_by} for this "
-                  f"run's {rows} frames read; plain {plain_ms:.4f} ms; "
-                  f"library (bf16 matmul + masked softmax + bmm) "
-                  f"{library_ms:.4f} ms")
+                  f"{us / 1e3:.4f} ms (profiler; CUDA events "
+                  f"{times[torch.uint8]:.4f} ms), f32 frames "
+                  f"{device[torch.float32]:.4f} ms (events "
+                  f"{times[torch.float32]:.4f}); bound {bound_ms:.4f} ms by "
+                  f"{bound_by} for this run's {rows} frames read (f32: "
+                  f"{bound_f32:.4f} by {by_f32} for {rows_f32}); plain "
+                  f"{plain_ms:.4f} ms; library (bf16 matmul + masked softmax "
+                  f"+ bmm) {library_ms:.4f} ms")
     # Two more draws of the serving shape, each held to the witness and
     # the limit it derives (a fixed 1e-3 check holds on some draws only:
     # seed 21 puts one weight in [0.5, 1) one bf16 step from the plain
@@ -2112,7 +2170,8 @@ def check_attention_pool(torch, gen, dev, flush) -> dict:
         "max_abs_err": max(errs.values()), "ms": us / 1e3,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "ms_events": times[torch.uint8],
-        "ms_events_f32": times[torch.float32],
+        "ms_f32": device[torch.float32], "ms_events_f32": times[torch.float32],
+        "bound_ms_f32": bound_f32, "bound_by_f32": by_f32,
     }
 
 

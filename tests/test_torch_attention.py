@@ -185,7 +185,8 @@ def test_attention_pool_wrapper_checks_shapes():
         tap.attention_pool(torch.from_numpy(frames),
                            torch.from_numpy(NUM_FRAMES),
                            torch.from_numpy(query[:-1]))
-    assert tap._heads_padded(1) == 1 and tap._heads_padded(5) == 8
+    assert tap._heads_padded(1) == 8 and tap._heads_padded(5) == 8
+    assert tap._heads_padded(9) == 16 and tap._heads_padded(16) == 16
 
 
 # ---------------------------------------------------------------------------

@@ -241,7 +241,9 @@ def _topk_rows(seed, b, c):
 
 @pytest.mark.parametrize("b,c,k", [(3, 20, 20), (37, 301, 20),
                                    (5, 4716, 128), (8, 7, 1),
-                                   (512, 4716, 20), (2048, 4716, 20)])
+                                   (512, 4716, 20), (2048, 4716, 20),
+                                   (512, 4716, 64), (6, 4715, 20),
+                                   (6, 128, 128), (6, 130, 128)])
 def test_cuda_topk_matches_plain_exactly(cuda, b, c, k):
     x = _topk_rows(b + c, b, c).to(cuda)
     before = ttopk.exact_topk.launches
@@ -263,6 +265,45 @@ def test_cuda_topk_above_the_kernel_bound(cuda):
     want_v, want_i = ttopk.exact_topk_plain(x.cpu(), 200)
     assert torch.equal(got_v.cpu(), want_v)
     assert torch.equal(got_i.cpu(), want_i)
+
+
+def _signed_zero_rows(seed, b, c):
+    """Rows of negative scores with +0.0 and -0.0 planted among them, in
+    turns and in runs, across the top-k threshold."""
+    g = torch.Generator().manual_seed(seed)
+    x = -torch.rand(b, c, generator=g)
+    x[0, ::2] = 0.0
+    x[0, 1::2] = -0.0
+    x[1, :40] = -0.0
+    x[1, 40:80] = 0.0
+    x[2, 100:] = -0.0
+    x[3, 7] = 0.0
+    x[3, 3] = -0.0
+    x[3, 9] = 0.5
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 20, 64, 128])
+def test_cuda_topk_ties_signed_zeros_by_index(cuda, k):
+    """-0.0 and +0.0 tie: the lower index first, each value with its own
+    sign, as the plain version's stable sort on the CPU (the card's sort
+    may order the two by their bits)."""
+    x = _signed_zero_rows(k, 4, 4716)
+    got_v, got_i = ttopk.exact_topk(x.to(cuda), k)
+    want_v, want_i = ttopk.exact_topk_plain(x, k)
+    assert torch.equal(got_v.cpu().view(torch.int32),
+                       want_v.view(torch.int32))
+    assert torch.equal(got_i.cpu(), want_i)
+
+
+@pytest.mark.parametrize("c", [4716, 4715, 301])
+def test_cuda_topk_plan_matches_the_kernel(cuda, c):
+    """The compiled block is the one kernels/topk.py :: plan describes."""
+    got = ttopk.kernel_plan(c)
+    p = ttopk.plan(c, 20)
+    assert got == {key: p[key] for key in ("threads", "span", "smem",
+                                           "bins", "loads", "cand",
+                                           "static_smem")}
 
 
 def test_cuda_wrappers_reject_what_the_kernels_cannot_take(cuda):
@@ -1218,7 +1259,9 @@ def _attention_args(seed, b, f, d, h, x_dtype, dev):
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("b,f,d,h", [(5, 13, 32, 4), (7, 300, 1152, 8),
                                      (3, 70, 1001, 3), (4, 20, 64, 19),
-                                     (2, 1, 8, 1)])
+                                     (2, 1, 8, 1), (9, 300, 1001, 8),
+                                     (6, 300, 1152, 16), (5, 37, 128, 2),
+                                     (140, 45, 64, 8)])
 def test_cuda_attention_pool_matches_plain(cuda, x_dtype, b, f, d, h):
     args = _attention_args(b + f + d + h, b, f, d, h, x_dtype, cuda)
     before = tap.attention_pool.launches
@@ -1265,6 +1308,56 @@ def test_cuda_attention_pool_ignores_frames_past_num_frames(cuda, x_dtype):
                         torch.as_tensor(loud, dtype=x.dtype, device=cuda), x)
     assert torch.equal(tap.attention_pool(clean, nf, q),
                        tap.attention_pool(noisy, nf, q))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("f,d,h", [(300, 1152, 8), (300, 1152, 16),
+                                   (300, 1024, 4), (13, 128, 1),
+                                   (301, 2048, 8)])
+def test_cuda_attention_pool_plan_matches_the_kernel(cuda, x_dtype, f, d, h):
+    """The compiled layout is the one kernels/attention_pool.py :: plan
+    describes."""
+    got = tap.kernel_plan(f, d, h, x_dtype)
+    p = tap.plan(f, d, h, x_dtype)
+    assert got["rows"] == tap.ROWS and got["warps"] == tap.WARPS
+    assert (got["max_groups"], got["max_stages"]) == (tap.MAX_GROUPS,
+                                                      tap.MAX_STAGES)
+    assert {key: got[key] for key in ("lines", "stage_bytes", "stages",
+                                      "smem", "f16", "attn_pitch",
+                                      "n_tiles")} == {
+        key: p[key] for key in ("lines", "stage_bytes", "stages", "smem",
+                                "f16", "attn_pitch", "n_tiles")}
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_attention_pool_walk_repeats_bit_for_bit(cuda, x_dtype):
+    """The persistent grid takes videos from a counter that each launch
+    leaves at zero: launches one after another, with fewer videos than
+    SMs, many more, and videos longer than the ring (read twice), give
+    the same bits each time; every video is pooled (none left as the
+    output's uninitialised memory)."""
+    for b, f in ((3, 300), (700, 40), (64, 300)):
+        args = _attention_args(b + f, b, f, 1152, 8, x_dtype, cuda)
+        first = tap.attention_pool(*args)
+        assert torch.isfinite(first).all()
+        for _ in range(2):
+            assert torch.equal(tap.attention_pool(*args), first)
+        want = tap.attention_pool_plain(*args)
+        if x_dtype == torch.uint8:
+            _within_rounding_limit(args, first, want)
+        else:
+            _close(first, want, rel=1e-3)
+
+
+def test_cuda_attention_pool_num_frames_out_of_range(cuda):
+    """num_frames above F reads F rows; negative ones take the mean over
+    the F rows, as 0 does."""
+    x, nf, q = _attention_args(5, 6, 40, 64, 8, torch.uint8, cuda)
+    nf = torch.tensor([41, 400, -3, 0, 40, 17], dtype=torch.int32,
+                      device=cuda)
+    got = tap.attention_pool(x, nf, q)
+    want = tap.attention_pool_plain(x, nf, q)
+    _close(got, want, rel=1e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,7 @@ SIGNATURES = {
     "yt8m_hopper_gemm_layouts": [_P] * 3 + [_I] * 5 + [_P],
     "yt8m_hopper_product": [_P] * 3 + [_I] * 6 + [_P],
     "yt8m_exact_topk": [_P] * 3 + [_I] * 3 + [_P],
+    "yt8m_exact_topk_plan": [_I, _P],
     "yt8m_netvlad_aggregate_u8": [_P] * 12 + [_I] * 4 + [_P],
     "yt8m_netvlad_aggregate_f32": [_P] * 12 + [_I] * 4 + [_P],
     "yt8m_netvlad_plan": [_P],
@@ -78,8 +79,9 @@ SIGNATURES = {
     "yt8m_gru_train_forward": [_P] * 17 + [_I] * 5 + [_P],
     "yt8m_gru_train_backward": [_P] * 14 + [_I] * 5 + [_P],
     "yt8m_gru_train_plan": [_I] * 2 + [_P],
-    "yt8m_attention_pool_u8": [_P] * 4 + [_I] * 4 + [_P],
-    "yt8m_attention_pool_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "yt8m_attention_pool_u8": [_P] * 5 + [_I] * 4 + [_P],
+    "yt8m_attention_pool_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "yt8m_attention_pool_plan": [_I] * 4 + [_P],
     "yt8m_nextvlad_aggregate_u8": [_P] * 20 + [_I] * 7 + [_P],
     "yt8m_nextvlad_aggregate_f32": [_P] * 20 + [_I] * 7 + [_P],
     "yt8m_nextvlad_plan": [_P],

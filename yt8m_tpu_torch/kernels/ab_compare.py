@@ -7,6 +7,8 @@ on the same inputs.
         --kernels dequant,netvlad_core
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels nextvlad
     python -m yt8m_tpu_torch.kernels.ab_compare --other DIR --kernels vlad,int8
+    python -m yt8m_tpu_torch.kernels.ab_compare --other DIR \
+        --kernels attention,topk
 
 DIR is the root of another checkout (e.g. a `git archive` of a parent
 commit unpacked under build/). Each checkout runs in its own process, with
@@ -64,6 +66,24 @@ for NetVLAD max|diff| between the checkouts against 2^-8 * max|ref| +
 1e-6 (chip_smoke.py's VLAD_REL: the column sums and norms are summed in
 another order), for the int8 kernel whether the two outputs are equal
 bit for bit.
+
+`--kernels attention,topk`: exact_topk at B=512 and B=2048 with k=20 and
+at B=512 with k=64 (eval's sorted_topk) over C=4716 scores (uniform in
+[0, 1), with NaN, -inf, ties, a row of equal values and a row of +-0.0
+planted), and attention_pool at AttentionPoolingModel's serving shape
+(B=512, F=300, D=1152, H=8) with uint8 and with float32 frames (num_frames
+uniform in 1..F with F, 1 and 0 planted), on inputs made from a seed. The
+checkouts run in turns (other, this, this, other), each timing every call
+by the profiler's device time (the sum over the call's kernels and each
+kernel by name, median of 7 windows, the L2 flushed before each), and
+this checkout also each row's library call (torch.topk; a bf16 matmul,
+the masked softmax and a bf16 bmm). Printed: each checkout's medians with
+the split by kernel, the library's, whether the top-k outputs (values by
+their bits, and indices) are equal across the checkouts, and for each
+checkout's attention output its rounding witness against its own plain
+version (kernels/attention_pool.py :: rounding_limit: the kernel's
+recovered weights explain its output, none differs away from a rounding
+boundary, |kernel - plain| within the derived limit).
 
 Without `--kernels` (the recurrences): the trainable LSTM's and GRU's forward
 (outputs, final state, residuals) and backward (dZ; dA_g and dA_c) at the
@@ -563,6 +583,136 @@ def run_vlad_int8(out_path, library="0"):
     torch.save(res, out_path)
 
 
+TOPK_CASES = ((512, 20), (2048, 20), (512, 64))
+ATTN_CASES = ("attention uint8", "attention float32")
+ATTN_SHAPE = (512, F, 1152, 8)  # AttentionPoolingModel serving: B, F, D, H
+
+
+def _topk_inputs(torch, b, seed):
+    """[b, 4716] scores uniform in [0, 1) with chip_smoke.py's planted
+    rows: repeated values, NaN, -inf, -3.4e38 with NaN, a row of equal
+    values, -inf and -3e38, and a row of +-0.0 among negative values."""
+    c = 4716
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(b, c, generator=gen)
+    x[0] = torch.repeat_interleave(torch.rand(c // 3 + 1, generator=gen),
+                                   3)[:c]
+    x[1, ::7] = float("nan")
+    x[2, ::3] = float("-inf")
+    x[3] = -3.4e38
+    x[3, 100:110] = float("nan")
+    x[4] = 0.25
+    x[5, :30] = float("-inf")
+    x[5, 30:] = -3.0e38
+    x[6] = -torch.rand(c, generator=gen)
+    x[6, 1::5] = 0.0
+    x[6, ::5] = -0.0
+    return x.cuda()
+
+
+def run_attn_topk(out_path, library="0"):
+    """The package on sys.path: exact_topk at TOPK_CASES and
+    attention_pool at B=512, F=300, D=1152, H=8 with uint8 and float32
+    frames; outputs, device ms (total and by kernel) and each attention
+    output's rounding witness against this checkout's plain version saved
+    to out_path; with library = "1" also the library calls."""
+    import torch
+
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels import attention_pool as tap
+    from yt8m_tpu_torch.kernels.topk import exact_topk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    for b, k in TOPK_CASES:
+        x = _topk_inputs(torch, b, 43 + b + k)
+        key = f"topk B={b} k={k}"
+        v, i = exact_topk(x, k)
+        res[f"{key} out"] = (v.cpu(), i.cpu())
+        res[f"{key} ms"], res[f"{key} split"] = _device_split(
+            torch, lambda: exact_topk(x, k), flush)
+        if library == "1":
+            res[f"{key} library ms"] = _device_split(
+                torch, lambda: torch.topk(x, k, dim=1), flush)[0]
+    b, f, d, h = ATTN_SHAPE
+    for dt, seed in ((torch.uint8, 47), (torch.float32, 53)):
+        gen = torch.Generator().manual_seed(seed)
+        if dt == torch.uint8:
+            x = torch.randint(0, 256, (b, f, d), generator=gen,
+                              dtype=torch.uint8)
+        else:
+            x = torch.randn(b, f, d, generator=gen)
+        nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
+        nf[:3] = torch.tensor([f, 1, 0], dtype=torch.int32)
+        q = torch.randn(d, h, generator=gen) * d ** -0.5
+        args = [t.cuda() for t in (x, nf, q)]
+        key = f"attention {str(dt).split('.')[-1]}"
+        got = tap.attention_pool(*args)
+        want = tap.attention_pool_plain(*args)
+        r = tap.rounding_limit(*args, got, want)
+        err = (got - want).abs()
+        res[f"{key} witness"] = (
+            r.explained, r.away, bool(torch.all(err <= r.limit)),
+            err.max().item(), r.flips)
+        res[f"{key} out"] = got.cpu()
+        del got, want, r, err
+        res[f"{key} ms"], res[f"{key} split"] = _device_split(
+            torch, lambda: tap.attention_pool(*args), flush)
+        if library == "1":
+            xs, nfs, qs = args
+            live = torch.arange(f, device="cuda")[None, :] < nfs[:, None]
+            live[nfs <= 0] = True
+
+            def lib():
+                xf = xs.to(torch.float32)
+                if xs.dtype == torch.uint8:
+                    xf = xf * DEQUANT_SCALE + DEQUANT_BIAS
+                xb = xf.to(torch.bfloat16)
+                s = torch.matmul(xb, qs.to(torch.bfloat16)).to(torch.float32)
+                s = s.masked_fill(~live[..., None], -1e9)
+                a = torch.softmax(s, dim=1).to(torch.bfloat16)
+                return torch.bmm(a.transpose(1, 2), xb).to(torch.float32)
+            res[f"{key} library ms"] = _device_split(torch, lib, flush)[0]
+        del args
+        torch.cuda.empty_cache()
+    torch.save(res, out_path)
+
+
+def compare_attn_topk(torch, mine, other) -> list:
+    """Lines: each call's device ms in both checkouts with the split by
+    kernel and the library's; top-k outputs across the checkouts (values
+    by their bits, and indices); each checkout's attention witness."""
+    lines = []
+    keys = [f"topk B={b} k={k}" for b, k in TOPK_CASES] + list(ATTN_CASES)
+    for key in keys:
+        ms = [r[f"{key} ms"] for r in mine]
+        ms_other = [r[f"{key} ms"] for r in other]
+        line = (f"{key}: this checkout {ms[0]:.4f}, {ms[1]:.4f} ms; other "
+                f"{ms_other[0]:.4f}, {ms_other[1]:.4f} ms (device, median "
+                f"of 7)")
+        if f"{key} library ms" in mine[0]:
+            lib = [r[f"{key} library ms"] for r in mine]
+            line += f"; library {lib[0]:.4f}, {lib[1]:.4f} ms"
+        if key.startswith("topk"):
+            (v, i), (w, j) = mine[0][f"{key} out"], other[0][f"{key} out"]
+            same = (torch.equal(v.view(torch.int32), w.view(torch.int32))
+                    and torch.equal(i, j))
+            line += f"; bit for bit with the other: {same}"
+        else:
+            for name, r in (("this", mine[0]), ("other", other[0])):
+                explained, away, within, err, flips = r[f"{key} witness"]
+                line += (f"; {name}: witness explained={explained} away="
+                         f"{away} within_limit={within} max|diff| "
+                         f"{err:.3e} flips {flips}")
+        lines.append(line)
+        for name, r in (("this", mine[0]), ("other", other[0])):
+            split = sorted(r[f"{key} split"].items(), key=lambda kv: -kv[1])
+            lines.append(f"  {name} by kernel: " + "; ".join(
+                f"{n[:60]} {v:.4f}" for n, v in split))
+    return lines
+
+
 def compare_vlad_int8(torch, mine, other) -> list:
     """Lines: each call's device ms in both checkouts with the split by
     kernel, the library's, and the outputs against the parent's: NetVLAD
@@ -730,7 +880,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="recurrences",
                     choices=("recurrences", "dbof,moe",
                              "dequant,netvlad_core", "nextvlad",
-                             "vlad,int8"))
+                             "vlad,int8", "attention,topk"))
     args = ap.parse_args(argv)
     import torch
 
@@ -746,6 +896,8 @@ def main(argv=None) -> int:
         return _main_products(torch, args, "run_nextvlad", compare_nextvlad)
     if args.kernels == "vlad,int8":
         return _main_products(torch, args, "run_vlad_int8", compare_vlad_int8)
+    if args.kernels == "attention,topk":
+        return _main_products(torch, args, "run_attn_topk", compare_attn_topk)
     mine = os.path.join(args.out, "this.pt")
     other = os.path.join(args.out, "other.pt")
     _in_checkout(ROOT, "run", mine)

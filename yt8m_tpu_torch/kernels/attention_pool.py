@@ -15,12 +15,19 @@ package's attention_pool_reference and its model's graph do; its TPU
 kernel pads F to a multiple of 8 and averages the padded rows as well.
 
 The CUDA kernel (csrc/attention_pool.cu) is bound by the bytes of the
-frames: a block a video, two passes over its live frames (the scores
-and the softmax, then the pooling). `attention_pool.launches` counts its
-launches. D that is no multiple of 4 is padded with zero columns of Q
-(the scores do not change; the padded output columns are dropped). H
-is padded to 1, 2, 4, 8 or 16 heads with zero columns of Q, and more
-than 16 heads run 16 at a time: heads are independent.
+frames. A persistent grid (a block an SM) takes videos from a counter in
+device memory; a producer thread streams a video's live rows into a ring
+of 16-frame stages (a TMA load a stage, the 128-byte swizzle); pass 1
+(the scores, a warp a tile) and pass 2 (the pooling, every warp its
+columns of every tile) run on the tensor cores (mma.sync m16n8k16, bf16
+in, f32 sums), the softmax between them in shared memory. The last tiles
+of pass 1 stay in the ring for pass 2, which reads the rest again from L2
+(`plan`, `video_loads`, `pass2_order`). `attention_pool.launches` counts
+the launches. D that is no multiple of 128 bytes and 64 columns
+(`padded_columns`) is padded with zero columns of Q (the scores do not
+change; the padded output columns are dropped); up to 16 heads run in one
+launch (8 a tile of the products), more than 16 heads 16 at a time: heads
+are independent.
 """
 
 from __future__ import annotations
@@ -37,8 +44,21 @@ from yt8m_tpu_torch.kernels._checks import (
     require_cuda_operand,
 )
 
-MAX_HEADS = 16  # heads a launch; H is padded to a power of two up to it
+MAX_HEADS = 16  # heads a launch (two n8 tiles of the products)
 SMEM_LIMIT = 232448
+
+# csrc/attention_pool.cu's block (yt8m_attention_pool_plan reads the
+# kernel's own).
+ROWS = 16          # frames a stage: pass 1's M, pass 2's K
+WARPS = 12         # consumer warps; one producer warp more
+CHUNK = 64         # columns a pass-1 step
+LINE = 128         # bytes a swizzled line: D * esize is padded to a multiple
+GROUP = 32         # columns a pass-2 group (two m16 tiles)
+MAX_GROUPS = 6     # groups a consumer warp pools
+MAX_STAGES = WARPS  # a stage's pass-1 tiles go to one warp
+BARRIER_BYTES = 24 * MAX_STAGES
+ALIGN = 1024       # the 128-byte swizzle's atom: the stages' alignment
+SMS = 132          # an H100's SMs: the persistent grid's cap
 
 
 def _bf(t):
@@ -62,10 +82,103 @@ def attention_pool_plain(frames, num_frames, query):
 
 
 def _heads_padded(h: int) -> int:
-    p = 1
-    while p < h:
-        p *= 2
-    return p
+    """The heads a launch computes for h <= 16: whole n8 tiles of the
+    products (the heads past h get zero columns of Q)."""
+    return 8 if h <= 8 else 16
+
+
+def padded_columns(d: int, x_dtype=torch.uint8) -> int:
+    """D as the kernel takes it: a multiple of 64 columns and of 128
+    bytes."""
+    unit = LINE if x_dtype == torch.uint8 else CHUNK
+    return -(-d // unit) * unit
+
+
+def plan(f: int, d: int, h: int, x_dtype=torch.uint8, b: int = 1,
+         sms: int = SMS) -> dict:
+    """csrc/attention_pool.cu's launch over frames [B, F, D] (D as
+    padded_columns gives it) and H <= 16 heads: the stages (16 rows of an
+    odd number of 128-byte swizzled lines, the TMA box), Q in fragment
+    order, the scores, the bf16 attention and the barriers in shared
+    memory, and the block's walk."""
+    esize = 1 if x_dtype == torch.uint8 else 4
+    heads = _heads_padded(h)
+    nt = heads // 8
+    lines = (d * esize // LINE) | 1
+    stage = ROWS * lines * LINE
+    f16 = -(-f // 16) * 16
+    attn_pitch = f16 + (8 - f16 % 64) % 64
+    q_bytes = 16 * d * nt
+    fixed = (q_bytes + 4 * heads * f16 + 2 * heads * attn_pitch + 8
+             + BARRIER_BYTES)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - fixed) // stage)
+    q_off = stages * stage
+    attn_off = q_off + q_bytes + 4 * heads * f16
+    bar_off = -(-(attn_off + 2 * heads * attn_pitch) // 8) * 8
+    return {
+        "rows": ROWS, "lines": lines, "stage_bytes": stage, "f16": f16,
+        "attn_pitch": attn_pitch, "q_bytes": q_bytes,
+        "scores_bytes": 4 * heads * f16, "attn_bytes": 2 * heads * attn_pitch,
+        "box": (LINE // esize, lines, ROWS, 1), "stages": stages,
+        "q_off": q_off, "bar_off": bar_off,
+        "smem": bar_off + BARRIER_BYTES + ALIGN, "n_tiles": nt,
+        "warps": WARPS, "threads": 32 * (WARPS + 1),
+        "groups_a_warp": -(-(d // GROUP) // WARPS),
+        "grid": min(b, sms), "resident_frames": ROWS * stages,
+    }
+
+
+def video_loads(n: int, f: int, stages: int):
+    """The producer's loads for one video with num_frames n: [(pass,
+    tile)] in order, pass 1's tiles and then the tiles pass 2 does not
+    find in the ring (the first ones). n <= 0 skips pass 1 and pools all
+    F rows."""
+    rows = f if n <= 0 else min(n, f)
+    tiles = -(-rows // ROWS)
+    p1 = tiles if n > 0 else 0
+    kept = min(tiles, stages) if n > 0 else 0
+    return ([(1, t) for t in range(p1)]
+            + [(2, t) for t in range(tiles - kept)])
+
+
+def pass2_order(n: int, f: int, stages: int):
+    """Pass 2's tiles in the order the consumers pool them, each with the
+    index of its load among video_loads': the kept tiles of pass 1 (the
+    last ones, still in their stages) first, then the reloaded ones."""
+    rows = f if n <= 0 else min(n, f)
+    tiles = -(-rows // ROWS)
+    p1 = tiles if n > 0 else 0
+    kept = min(tiles, stages) if n > 0 else 0
+    return ([(t, t) for t in range(tiles - kept, tiles)]
+            + [(t, p1 + t) for t in range(tiles - kept)])
+
+
+def kernel_plan(f: int, d: int, h: int, x_dtype=torch.uint8) -> dict:
+    """The compiled kernel's layout for frames [*, F, D] and H heads, and
+    the card's SMs (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 12)()
+    esize = 1 if x_dtype == torch.uint8 else 4
+    _build.check_launch("yt8m_attention_pool_plan",
+                        _build.library().yt8m_attention_pool_plan(
+                            f, d, h, esize, out))
+    return dict(zip(("rows", "lines", "stage_bytes", "stages", "smem",
+                     "f16", "attn_pitch", "warps", "max_groups",
+                     "max_stages", "n_tiles", "sms"), out))
+
+
+_counters = {}
+
+
+def _counter(device):
+    """Two zeros in device memory for the kernel's video counter, one
+    pair a (device, stream): each launch leaves them at zero."""
+    stream = torch.cuda.current_stream(device)
+    key = (device, stream.cuda_stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _counters[key]
 
 
 def attention_pool(frames, num_frames, query):
@@ -82,31 +195,33 @@ def attention_pool(frames, num_frames, query):
         return attention_pool_plain(frames, num_frames, query)
     require(frames.dtype in (torch.uint8, torch.float32),
             f"frames: dtype {frames.dtype}, want uint8 or float32")
-    if d % 4:
-        frames = torch.nn.functional.pad(frames, (0, 4 - d % 4))
-        query = torch.nn.functional.pad(query, (0, 0, 0, 4 - d % 4))
+    if padded_columns(d, frames.dtype) != d:
+        pad = padded_columns(d, frames.dtype) - d
+        frames = torch.nn.functional.pad(frames, (0, pad))
+        query = torch.nn.functional.pad(query, (0, 0, 0, pad))
         return attention_pool(frames, num_frames, query)[..., :d].contiguous()
     if h > MAX_HEADS:
         return torch.cat([attention_pool(frames, num_frames, q) for q in
                           torch.split(query, MAX_HEADS, dim=1)], dim=1)
-    hp = _heads_padded(h)
-    q = torch.nn.functional.pad(query, (0, hp - h)).to(
-        torch.bfloat16).contiguous()
+    q = query if query.dtype == torch.bfloat16 else query.to(torch.bfloat16)
+    q = q.contiguous()
     require(f >= 1, "F must be at least 1")
-    require((hp * d + f * hp) * 4 <= SMEM_LIMIT,
-            f"F={f} and D={d} do not fit the kernel's shared memory")
+    p = plan(f, d, h, frames.dtype)
+    require(p["stages"] >= 2 and p["groups_a_warp"] <= MAX_GROUPS,
+            f"F={f} and D={d} do not fit the kernel's shared memory and "
+            f"registers")
     require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
-    out = torch.empty((b, hp, d), dtype=torch.float32, device=frames.device)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=frames.device)
     entry = (_build.library().yt8m_attention_pool_u8
              if frames.dtype == torch.uint8
              else _build.library().yt8m_attention_pool_f32)
     code = entry(_build.ptr(frames), _build.ptr(num_frames), _build.ptr(q),
-                 _build.ptr(out), b, f, d, hp,
-                 _build.current_stream(frames.device))
+                 _build.ptr(out), _build.ptr(_counter(frames.device)), b, f,
+                 d, h, _build.current_stream(frames.device))
     _build.check_launch("attention_pool", code)
     attention_pool.launches += 1
-    return out[:, :h] if hp != h else out
+    return out
 
 
 attention_pool.launches = 0

@@ -8,8 +8,15 @@ with in-range indices; k <= 128. `torch.topk` documents no tie order, so
 the plain version is a stable descending sort instead.
 
 The CUDA kernel (csrc/topk.cu) is bound by one read of x from device
-memory; it copies each row to shared memory once and runs the k
-selection rounds there.
+memory and, at serving batches, by a row's latency. A block a row keeps
+the row's order-preserving 32-bit keys in shared memory (-0.0 and +0.0 on
+one key). Each thread takes the largest of the keys it loaded, each warp
+sorts its 32 maxima; the least of the warps' ceil(k / 8)-th largest is a
+threshold at least k keys reach, and those keys (~k + 15 at 4716 scores)
+are sorted by a bitonic network. Where more than 256 reach it (many equal
+values), the k-th key is the threshold itself (fewer than k above it) or
+found by a radix select on the row, and the keys above it and the first
+of its ties in index order are sorted instead (`plan`).
 
 serving_topk dispatches as yt8m_tpu/kernels/topk.py :: _dispatch_topk
 does: k <= 128 goes to exact_topk, larger k to a library op outside any
@@ -32,6 +39,41 @@ from yt8m_tpu_torch.kernels._checks import (
 
 TOPK_NEG = -3.0e38
 MAX_K = 128
+MAX_COLUMNS = 0xFFFF  # C a launch takes (tie counts share a 32-bit scan)
+
+# csrc/topk.cu's block (yt8m_exact_topk_plan reads the kernel's own).
+THREADS = 256
+BINS = 256     # a byte of the key a pass
+LOADS = 5      # loads a thread keeps in flight
+CAND = 256     # keys the maxima's threshold may pass and still be sorted
+SMEM_LIMIT = 232448
+STATIC_SMEM = BINS * 4 + CAND * 8 + (THREADS // 32) * 4 + 3 * 4
+
+
+def plan(c: int, k: int) -> dict:
+    """csrc/topk.cu's launch over rows of C columns: the columns a thread
+    owns where the radix select runs (an odd count, so that a warp's
+    threads sit on distinct banks), the row's and the block's shared
+    memory, the candidates the threshold may pass and still be sorted,
+    whether the loads are 16 bytes, and the bitonic network's width where
+    it sorts k (the next power of two >= k)."""
+    width = 1
+    while width < k:
+        width *= 2
+    return {"threads": THREADS, "span": -(-c // THREADS) | 1, "smem": 4 * c,
+            "static_smem": STATIC_SMEM, "bins": BINS, "loads": LOADS,
+            "cand": CAND, "vector": c % 4 == 0, "sort_width": width}
+
+
+def kernel_plan(c: int) -> dict:
+    """The compiled kernel's block for C columns (card only)."""
+    import ctypes
+
+    out = (ctypes.c_int * 7)()
+    _build.check_launch("yt8m_exact_topk_plan",
+                        _build.library().yt8m_exact_topk_plan(c, out))
+    return dict(zip(("threads", "span", "smem", "bins", "loads", "cand",
+                     "static_smem"), out))
 
 
 def stable_sort_topk(x, k: int):
@@ -58,6 +100,8 @@ def exact_topk(x, k: int = 20):
     require(x.dtype == torch.float32, f"x: dtype {x.dtype}, want float32")
     if on_cpu(x):
         return exact_topk_plain(x, k)
+    require(c <= MAX_COLUMNS and 4 * c + STATIC_SMEM <= SMEM_LIMIT,
+            f"C={c} does not fit the kernel's shared memory")
     require_cuda_operand("x", x, torch.float32, (b, c))
     vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=x.device)
