@@ -65,12 +65,23 @@ Phases, one line each with the elapsed seconds:
      classes, bf16), GruModel (GRU 2 x 1024, last pooling, MoE M=2, bf16),
      AttentionPoolingModel (8 heads, hidden 512 with BN, MoE M=2, bf16)
      and NeXtVladModel at the JAX defaults (lambda=2, G=8, K=128, hidden
-     1024 with BN and context gating, MoE M=2 over 4716, bf16); CSV
-     checks, and 8 videos compared with the same model on the CPU;
+     1024 with BN and context gating, MoE M=2 over 4716, bf16); then the
+     rest of the zoo at the JAX defaults (MoE M=2 over 4716, bf16):
+     LogisticModel, MoeModel and ChainMoeModel over video-level
+     mean_rgb + mean_audio records, FrameLevelLogisticModel,
+     GatedDbofModel, SoftDbofModel, LayerNormLstmModel, FrameCnnModel,
+     NetFVModel, ChainFrameModel, ChainNetVladModel and
+     DeepCombineChainModel over the frame-level ones, with the launches a
+     batch that PER_BATCH fixes (3 MoE launches on each chain, 1 DBoF v2
+     on GatedDbofModel, 1 netvlad_aggregate on ChainNetVladModel, no
+     recurrence launch on LayerNormLstmModel); CSV checks, and 8 videos
+     compared with the same model on the CPU;
   5. each serving step alone on frames already on the card (DbofModel at
-     B=2048 with and without --dbof_int8_serving, the others at B=512): median step time of 5, and device
-     time by kernel from torch.profiler; one recurrence launch a layer in
-     the flagship's and GruModel's steps;
+     B=2048 with and without --dbof_int8_serving, GatedDbofModel and
+     SoftDbofModel at B=2048, the others at B=512): median step time of
+     5, and device time by kernel from torch.profiler; one recurrence
+     launch a layer in the flagship's and GruModel's steps, PER_BATCH's
+     launches in the others';
   6. training through make_train_step (bf16, Adam at the config
      defaults, per-variable clip 1.0) with the launch counts set to 0
      just before and read just after: the flagship at full width (B=256
@@ -86,7 +97,10 @@ Phases, one line each with the elapsed seconds:
      through its plain training graph (no kernel, as in the JAX package);
      NeXtVladModel at B=256 the same way as GruModel (1 + 1 trainable
      NeXtVLAD launches a step) and one of its steps on 8 videos card vs
-     CPU;
+     CPU; ChainNetVladModel (plain, then --netvlad_fused_train: 1 + 1
+     netvlad_core launches a step), DeepCombineChainModel, NetFVModel and
+     FrameCnnModel at the JAX defaults, 8 steps each at B=256, a falling
+     loss and the step time;
   7. the reference workflow through the port's CLIs with the flagship at
      full width and --netvlad_fused_train, over synthetic frame-level
      TFRecords (256 train and 128 eval videos, 30-300 frames): cli.train
@@ -99,7 +113,11 @@ Phases, one line each with the elapsed seconds:
      on the CPU; then GruModel and NeXtVladModel each through cli.train
      (2 steps) -> cli.eval --run_once -> cli.inference on the same videos,
      and DbofModel the same way, served by eval and inference with
-     --dbof_int8_serving.
+     --dbof_int8_serving; the default workflow on video-level records
+     (cli.train with no flag but the data and the run directory:
+     LogisticModel over mean_rgb on the card, then cli.eval and
+     cli.inference); ChainNetVladModel with --netvlad_fused_train through
+     the three CLIs. A `phase:` line gives each phase's seconds.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -3022,6 +3040,64 @@ def make_nextvlad_model(torch, seed: int):
     return hp, model.eval()
 
 
+def make_zoo_model(name: str):
+    """A maker of `name` at the JAX package's default widths (MoE M=2 over
+    4716 classes, bf16; frame models over all 300 frames masked by
+    num_frames, video-level ones over mean_rgb + mean_audio, D=1152),
+    weights from a seed, every 1-D parameter and BN statistic drawn."""
+
+    def make(torch, seed: int):
+        from yt8m_tpu_torch.models import ModelHParams, get_model
+
+        hp = ModelHParams(vocab_size=CLASSES, feature_dim=FEATURE_DIM,
+                          max_frames=FLAG_FRAMES, moe_num_mixtures=MIXTURES,
+                          compute_dtype="bfloat16")
+        model = get_model(name, hp)
+        gen = torch.Generator().manual_seed(seed)
+        model.reset_parameters(gen)
+        perturb_vectors(torch, model, gen)
+        return hp, model.eval()
+
+    return make
+
+
+# The rest of the zoo: the kernels each model's serving path launches.
+ZOO_PATHS = {
+    "LogisticModel": ("exact_topk",),
+    "MoeModel": ("moe_head_serving", "exact_topk"),
+    "ChainMoeModel": ("moe_head_serving", "exact_topk"),
+    "FrameLevelLogisticModel": ("exact_topk",),
+    "GatedDbofModel": ("dbof_cluster_maxpool_v2", "moe_head_serving",
+                       "exact_topk"),
+    "SoftDbofModel": ("moe_head_serving", "exact_topk"),
+    "LayerNormLstmModel": ("moe_head_serving", "exact_topk"),
+    "FrameCnnModel": ("moe_head_serving", "exact_topk"),
+    "NetFVModel": ("moe_head_serving", "exact_topk"),
+    "ChainFrameModel": ("moe_head_serving", "exact_topk"),
+    "ChainNetVladModel": ("netvlad_aggregate", "moe_head_serving",
+                          "exact_topk"),
+    "DeepCombineChainModel": ("moe_head_serving", "exact_topk"),
+}
+VIDEO_LEVEL = ("LogisticModel", "MoeModel", "ChainMoeModel")
+CHAIN_STAGES = 3  # the JAX default --chain_stages
+# Exact launches a batch (a serving step) where a path's count is part of
+# its contract: a chain's stages each launch the MoE head, GatedDbofModel
+# keeps DbofModel's fused kernel, the layer-norm LSTM runs its scan graph
+# (no recurrence launch, as in the JAX package), SoftDbofModel the unfused
+# graph.
+PER_BATCH = {
+    "ChainMoeModel": {"moe_head_serving": CHAIN_STAGES},
+    "ChainFrameModel": {"moe_head_serving": CHAIN_STAGES},
+    "ChainNetVladModel": {"moe_head_serving": CHAIN_STAGES,
+                          "netvlad_aggregate": 1},
+    "DeepCombineChainModel": {"moe_head_serving": CHAIN_STAGES},
+    "GatedDbofModel": {"dbof_cluster_maxpool_v2": 1, "moe_head_serving": 1},
+    "SoftDbofModel": {"dbof_cluster_maxpool_v2": 0, "moe_head_serving": 1},
+    "LayerNormLstmModel": {"lstm_recurrence": 0, "moe_head_serving": 1},
+    "LogisticModel": {"moe_head_serving": 0},
+    "FrameLevelLogisticModel": {"moe_head_serving": 0},
+}
+
 # A path's name is the model's, then the CLI flags it runs with; the
 # kernels it must launch.
 PATHS = {
@@ -3042,7 +3118,20 @@ PATHS = {
     "NeXtVladModel": (make_nextvlad_model, ("nextvlad_aggregate",
                                             "moe_head_serving",
                                             "exact_topk")),
+    **{name: (make_zoo_model(name), names)
+       for name, names in ZOO_PATHS.items()},
 }
+
+
+def reader_flags(model_name: str) -> list:
+    """The reader flags of a path: video-level mean_rgb + mean_audio, or
+    the frame-level rgb + audio records."""
+    if model_name in VIDEO_LEVEL:
+        return ["--frame_features=false",
+                "--feature_names=mean_rgb,mean_audio",
+                "--feature_sizes=1024,128"]
+    return ["--frame_features=true", "--feature_names=rgb,audio",
+            "--feature_sizes=1024,128"]
 
 
 def kernel_wrappers():
@@ -3121,13 +3210,16 @@ def check_csv(path: str) -> int:
     return len(rows) - 1
 
 
-def compare_with_cpu(torch, model, make, data_pattern, dev) -> float:
+def compare_with_cpu(torch, model, make, data_pattern, dev,
+                     frame_level=True) -> float:
     """Probabilities of 8 videos on the card vs the same model on the CPU
     (with the same sampled frames where the model samples)."""
     from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
 
-    rc = ReaderConfig("rgb,audio", "1024,128", frame_features=True,
-                      num_classes=CLASSES)
+    rc = (ReaderConfig("rgb,audio", "1024,128", frame_features=True,
+                       num_classes=CLASSES) if frame_level else
+          ReaderConfig("mean_rgb,mean_audio", "1024,128",
+                       frame_features=False, num_classes=CLASSES))
     batch = next(iter(BatchIterator(data_pattern, rc, batch_size=8)))
     feats = torch.from_numpy(batch["features"])
     nf = torch.from_numpy(batch["num_frames"])
@@ -3150,29 +3242,35 @@ def compare_with_cpu(torch, model, make, data_pattern, dev) -> float:
 
 
 def end_to_end(torch, dev, data, path) -> dict:
-    """The inference CLI over `data` on `path` (a model and its flags),
-    its launch counts set to 0 just before and read just after."""
+    """The inference CLI over the records under `data` on `path` (a model
+    and its flags), its launch counts set to 0 just before and read just
+    after: frame-level `test-*` records, or video-level `video-*` ones
+    for a video-level model."""
     from yt8m_tpu_torch.cli import inference as inference_cli
     from yt8m_tpu_torch.convert import save_checkpoint
 
     make, names = PATHS[path]
     model_name, *flags = path.split()
+    frame_level = model_name not in VIDEO_LEVEL
+    split = "test" if frame_level else "video"
     hp, model = make(torch, seed=0)
     tag = "_".join(path.replace("-", "").split())
     run = os.path.join(os.path.dirname(data), f"run_{tag}")
-    save_checkpoint(run, model, model_name, hp, frame_features=True,
-                    feature_names="rgb,audio", feature_sizes="1024,128",
+    save_checkpoint(run, model, model_name, hp, frame_features=frame_level,
+                    feature_names=("rgb,audio" if frame_level
+                                   else "mean_rgb,mean_audio"),
+                    feature_sizes="1024,128",
                     num_classes=CLASSES, max_frames=300,
                     label_loss="CrossEntropyLoss")
     out_csv = os.path.join(os.path.dirname(data), f"{tag}.csv")
     argv = [
-        f"--input_data_pattern={data}/test-*.tfrecord",
+        f"--input_data_pattern={data}/{split}-*.tfrecord",
         f"--train_dir={run}", f"--output_file={out_csv}",
         f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
-        "--frame_features=true", "--feature_names=rgb,audio",
-        "--feature_sizes=1024,128", f"--model={model_name}",
+        *reader_flags(model_name), f"--model={model_name}",
         f"--device={dev.type}", *flags,
     ]
+    t0 = time.perf_counter()
     wrappers = zero_launches()
     stats = inference_cli.main(argv)
     launches = read_launches(torch, wrappers)
@@ -3182,8 +3280,12 @@ def end_to_end(torch, dev, data, path) -> dict:
     for name in names:
         check(launches[name] > 0,
               f"{name} was not launched on the {path} path")
+    batches = -(-E2E_VIDEOS // E2E_BATCH)
+    for name, per_batch in PER_BATCH.get(path, {}).items():
+        check(launches[name] == per_batch * batches,
+              f"{path}: {launches[name]} {name} launches in {batches} "
+              f"batches, want {per_batch} a batch")
     if "--dbof_int8_serving" in flags:
-        batches = -(-E2E_VIDEOS // E2E_BATCH)
         check(launches["dbof_cluster_maxpool_int8"] == batches
               and launches["dbof_cluster_maxpool_v2"] == 0,
               f"{path}: want {batches} int8 and 0 v2 launches")
@@ -3191,13 +3293,15 @@ def end_to_end(torch, dev, data, path) -> dict:
     check(stats["nonfinite_predictions"] == 0, "non-finite predictions")
     check(check_csv(out_csv) == E2E_VIDEOS, "CSV line count")
     say("e2e", f"{path} CSV ok: {E2E_VIDEOS} lines of {TOP_K} pairs")
+    cli_s = time.perf_counter() - t0
     err = compare_with_cpu(torch, model.to(dev), make,
-                           f"{data}/test-*.tfrecord", dev)
+                           f"{data}/{split}-*.tfrecord", dev, frame_level)
     say("e2e", f"{path} 8 videos card vs CPU: max|diff| {err:.3e} "
                f"<= 2e-3")
     del model
     shutil.rmtree(run, ignore_errors=True)
-    return {"launches": launches, "videos_per_sec": stats["videos_per_sec"]}
+    return {"launches": launches, "videos_per_sec": stats["videos_per_sec"],
+            "cli_s": cli_s, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -3215,8 +3319,11 @@ def profile_step(torch, dev, model_name, batch) -> dict:
     make, _ = PATHS[model_name]
     model = make(torch, seed=0)[1].to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    feats = torch.randint(0, 256, (batch, 300, FEATURE_DIM), device=dev,
-                          dtype=torch.uint8, generator=gen)
+    if model_name in VIDEO_LEVEL:
+        feats = torch.rand(batch, FEATURE_DIM, device=dev, generator=gen)
+    else:
+        feats = torch.randint(0, 256, (batch, 300, FEATURE_DIM), device=dev,
+                              dtype=torch.uint8, generator=gen)
     nf = torch.randint(FRAMES, 301, (batch,), device=dev, dtype=torch.int32,
                        generator=gen)
     step = make_topk_predict_step(model, TOP_K)
@@ -3226,6 +3333,10 @@ def profile_step(torch, dev, model_name, batch) -> dict:
     step(feats, nf, gen)
     launches = {k: v for k, v in read_launches(torch, wrappers).items() if v}
     say("step", f"{model_name} launches in one step: {launches}")
+    for name, want in PER_BATCH.get(model_name, {}).items():
+        check(launches.get(name, 0) == want,
+              f"{model_name} serving step: {launches.get(name, 0)} {name} "
+              f"launches, want {want}")
     if model_name.endswith("--dbof_int8_serving"):
         check(launches.get("dbof_cluster_maxpool_int8") == 1
               and "dbof_cluster_maxpool_v2" not in launches,
@@ -3255,8 +3366,11 @@ def profile_step(torch, dev, model_name, batch) -> dict:
                 f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
                 f" GiB")
 
+    # A step of ~100 ms or more fills a window alone (the profiler's
+    # processing of a slow step's many small launches takes a minute).
     idle = profile_window(torch, "step", f"{model_name} serving",
-                          lambda: step(feats, nf, gen), 3)
+                          lambda: step(feats, nf, gen),
+                          1 if step_ms > 100 else 3)
     del model, feats
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3549,6 +3663,66 @@ def train_nextvlad(torch, dev) -> dict:
             "peak_gib": peak}
 
 
+ZOO_TRAIN_STEPS = 8
+
+
+def train_zoo(torch, dev, name, fused=False) -> dict:
+    """`name` at the JAX defaults trained through make_train_step (B=256,
+    bf16, Adam at the config defaults) for ZOO_TRAIN_STEPS steps on one
+    batch, its launch counts set to 0 just before and read just after: a
+    falling loss, the median time of the last six steps, the peak memory;
+    `fused` is --netvlad_fused_train (1 + 1 netvlad_core launches a step,
+    else none). No serving kernel launches in training."""
+    from yt8m_tpu_torch.models import ModelHParams, get_model
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    label = name + (" --netvlad_fused_train" if fused else "")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hp = ModelHParams(vocab_size=CLASSES, feature_dim=FEATURE_DIM,
+                      max_frames=FLAG_FRAMES, moe_num_mixtures=MIXTURES,
+                      compute_dtype="bfloat16", netvlad_fused_train=fused)
+    model = get_model(name, hp)
+    gen = torch.Generator().manual_seed(0)
+    model.reset_parameters(gen)
+    perturb_vectors(torch, model, gen)
+    model = model.to(dev).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    state = TrainState(model, global_batch_size=TRAIN_BATCH)
+    step = make_train_step(get_loss("CrossEntropyLoss"),
+                           aux_loss_weight=hp.chain_aux_loss_weight)
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=1)
+    wrappers = zero_launches()
+    times, losses = timed_steps(torch, step, state, batch, ZOO_TRAIN_STEPS)
+    launches = read_launches(torch, wrappers)
+    step_ms = statistics.median(times[2:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("train", f"{label} B={TRAIN_BATCH} ({n_params} parameters, bf16, "
+                 f"Adam): {ZOO_TRAIN_STEPS} steps on one batch, losses "
+                 f"{[round(x, 4) for x in losses]}; step median "
+                 f"{step_ms:.3f} ms of the last {len(times) - 2} "
+                 f"{[round(t, 3) for t in times[2:]]} -> "
+                 f"{TRAIN_BATCH / step_ms * 1e3:.0f} videos/s; peak memory "
+                 f"{peak:.2f} GiB; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+    check(all(math.isfinite(x) for x in losses), f"{label} loss not finite")
+    check(losses[-1] < losses[0],
+          f"{label} loss did not fall over {ZOO_TRAIN_STEPS} steps")
+    want = ZOO_TRAIN_STEPS if fused else 0
+    for fn in ("netvlad_core_forward", "netvlad_core_backward"):
+        check(launches[fn] == want,
+              f"{label}: {launches[fn]} {fn} launches, want {want}")
+    for fn in ("moe_head_serving", "netvlad_aggregate",
+               "dbof_cluster_maxpool_v2", "exact_topk"):
+        check(launches[fn] == 0, f"{label} training launched {fn}")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak,
+            "losses": losses}
+
+
 def train_card_vs_cpu(torch, dev, make=None, name="flagship") -> None:
     """One training forward and backward of `make`'s model (the flagship
     by default) on 8 videos, on the card and on the CPU, from the same
@@ -3778,6 +3952,87 @@ def cli_workflow(torch, dev, work, data) -> dict:
             "save_s": [t for _, t in saves], "restore_s": restores}
 
 
+def default_workflow(torch, dev, work) -> dict:
+    """The starter workflow with the CLIs' defaults: cli.train with no
+    --model and no --frame_features (LogisticModel over mean_rgb, 4716
+    classes, batch 1024, 5 epochs, the card) on video-level records, then
+    cli.eval (--run_once is the default) and cli.inference; launch counts
+    set to 0 before each CLI and read after it. LogisticModel launches no
+    kernel but top-k (exact_topk: eval's sorted_topk, inference's
+    serving_topk)."""
+    from yt8m_tpu_torch.cli import eval as eval_cli
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.data.synthetic import write_dataset
+
+    data = os.path.join(work, "video_level")
+    write_dataset(data, "train", num_shards=2,
+                  videos_per_shard=WF_TRAIN_VIDEOS // 2, seed=7)
+    write_dataset(data, "validate", num_shards=2,
+                  videos_per_shard=WF_EVAL_VIDEOS // 2, seed=8)
+    run = os.path.join(work, "default_run")
+    launches, seconds = {}, {}
+    try:
+        wrappers = zero_launches()
+        t0 = time.perf_counter()
+        last = train_cli.main([f"--train_data_pattern={data}/train-*.tfrecord",
+                               f"--train_dir={run}"])
+        seconds["train"] = time.perf_counter() - t0
+        launches["train"] = read_launches(torch, wrappers)
+        with open(os.path.join(run, "model_flags.json")) as f:
+            recorded = json.load(f)
+        say("workflow", f"default cli.train: {recorded['model']} at step "
+                        f"{last} in {seconds['train']:.1f} s (frame_features "
+                        f"{recorded['frame_features']}, "
+                        f"{recorded['feature_names']}, batch 1024)")
+        check(recorded["model"] == "LogisticModel"
+              and recorded["frame_features"] is False and last >= 1,
+              f"default cli.train: {recorded['model']} at step {last}")
+
+        wrappers = zero_launches()
+        t0 = time.perf_counter()
+        out_eval = eval_cli.main([
+            f"--eval_data_pattern={data}/validate-*.tfrecord",
+            f"--train_dir={run}"])
+        seconds["eval"] = time.perf_counter() - t0
+        launches["eval"] = read_launches(torch, wrappers)
+        mean_ap = float(sum(out_eval["aps"]) / len(out_eval["aps"]))
+        say("workflow", f"default cli.eval: step {out_eval['step']}, GAP "
+                        f"{out_eval['gap']:.5f}, Hit@1 "
+                        f"{out_eval['avg_hit_at_one']:.5f}, mAP "
+                        f"{mean_ap:.5f}, {out_eval['videos_per_sec']:.1f} "
+                        f"videos/s in {seconds['eval']:.1f} s")
+        check(out_eval["step"] == last
+              and out_eval["nonfinite_predictions"] == 0,
+              "default cli.eval: step or non-finite predictions")
+        for key, value in (("GAP", out_eval["gap"]), ("mAP", mean_ap),
+                           ("Hit@1", out_eval["avg_hit_at_one"])):
+            check(math.isfinite(value) and 0.0 <= value <= 1.0,
+                  f"default cli.eval {key} = {value}")
+
+        wrappers = zero_launches()
+        out_csv = os.path.join(work, "default.csv")
+        t0 = time.perf_counter()
+        stats = inference_cli.main([
+            f"--input_data_pattern={data}/validate-*.tfrecord",
+            f"--train_dir={run}", f"--output_file={out_csv}"])
+        seconds["inference"] = time.perf_counter() - t0
+        launches["inference"] = read_launches(torch, wrappers)
+        check(stats["nonfinite_predictions"] == 0
+              and check_csv(out_csv) == WF_EVAL_VIDEOS,
+              "default cli.inference: CSV or non-finite predictions")
+        for cli in ("eval", "inference"):
+            check(launches[cli]["exact_topk"] > 0,
+                  f"default cli.{cli} did not launch exact_topk")
+        say("workflow", f"default cli.inference: {stats['num_videos']} "
+                        f"videos, {stats['videos_per_sec']:.1f} videos/s in "
+                        f"{seconds['inference']:.1f} s, CSV ok; launches "
+                        f"{ {k: v for k, v in launches['inference'].items() if v} }")
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def short_workflow(torch, dev, work, data, model, flags, train_want,
                    serve, serve_flags=(), serve_absent=()) -> dict:
     """train -> eval -> inference through the port's CLIs with `model` at
@@ -3896,6 +4151,16 @@ def main() -> int:
             say("ptxas", line.strip())
     _build.library()
 
+    phase_s = {"card and build": time.perf_counter() - T0}
+    mark = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal mark
+        now = time.perf_counter()
+        phase_s[name] = now - mark
+        mark = now
+        say("phase", f"{name}: {phase_s[name]:.1f} s")
+
     gen = torch.Generator().manual_seed(1234)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -3911,6 +4176,7 @@ def main() -> int:
     del flush
     check_repaired_shapes(torch, gen, dev)
     torch.cuda.empty_cache()
+    phase_done("3 kernels")
 
     from yt8m_tpu_torch.data.synthetic import write_dataset
 
@@ -3922,11 +4188,18 @@ def main() -> int:
         write_dataset(data, "test", num_shards=2,
                       videos_per_shard=E2E_VIDEOS // 2, frame_level=True,
                       num_classes=CLASSES, seed=3)
-        say("e2e", f"wrote {E2E_VIDEOS} frame-level videos in 2 shards")
+        write_dataset(data, "video", num_shards=2,
+                      videos_per_shard=E2E_VIDEOS // 2, frame_level=False,
+                      num_classes=CLASSES, seed=4)
+        say("e2e", f"wrote {E2E_VIDEOS} frame-level and {E2E_VIDEOS} "
+                   f"video-level videos, 2 shards each")
         e2e = {name: end_to_end(torch, dev, data, name) for name in PATHS}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    say("e2e", "the rest of the zoo through cli.inference, seconds a run: "
+               + ", ".join(f"{n} {e2e[n]['cli_s']:.1f}" for n in ZOO_PATHS))
+    phase_done("4 serving end to end")
     bf16_step = profile_step(torch, dev, "DbofModel", BATCH)
     int8_step = profile_step(torch, dev, "DbofModel --dbof_int8_serving",
                              BATCH)
@@ -3937,6 +4210,14 @@ def main() -> int:
         profile_step(torch, dev, name, FLAG_BATCH)
         for name in ("NetVladLstmModel", "GruModel", "AttentionPoolingModel",
                      "NeXtVladModel")]
+    zoo_steps = {name: profile_step(torch, dev, name,
+                                    BATCH if "Dbof" in name else FLAG_BATCH)
+                 for name in ZOO_PATHS}
+    say("step", "the rest of the zoo, serving step ms: " + ", ".join(
+        f"{n} (B={BATCH if 'Dbof' in n else FLAG_BATCH}) "
+        f"{r['step_ms']:.3f}" for n, r in zoo_steps.items()))
+    steps += list(zoo_steps.values())
+    phase_done("5 serving steps")
     training = train_flagship(torch, dev)
     fused = train_flagship(torch, dev, fused=True)
     say("train", f"NetVladLstmModel B={TRAIN_BATCH} training step in one "
@@ -3951,9 +4232,16 @@ def main() -> int:
     train_attention(torch, dev)
     nextvlad_training = train_nextvlad(torch, dev)
     train_card_vs_cpu(torch, dev, make_nextvlad_model, "NeXtVladModel")
+    zoo_training = [train_zoo(torch, dev, "ChainNetVladModel"),
+                    train_zoo(torch, dev, "ChainNetVladModel", fused=True),
+                    train_zoo(torch, dev, "DeepCombineChainModel"),
+                    train_zoo(torch, dev, "NetFVModel"),
+                    train_zoo(torch, dev, "FrameCnnModel")]
+    phase_done("6 training")
     work = tempfile.mkdtemp(prefix="chip_smoke_workflow_",
                             dir=os.path.join(REPO, "build"))
     try:
+        default = default_workflow(torch, dev, work)
         data = workflow_data(work)
         workflow = cli_workflow(torch, dev, work, data)
         gru_want = 2 * GRU_LAYERS  # 2 steps, one launch a layer each way
@@ -3981,9 +4269,17 @@ def main() -> int:
                             "moe_head_serving"),
                            serve_flags=("--dbof_int8_serving",),
                            serve_absent=("dbof_cluster_maxpool_v2",)),
+            short_workflow(torch, dev, work, data, "ChainNetVladModel",
+                           ["--netvlad_fused_train"],
+                           {"netvlad_core_forward": 2,
+                            "netvlad_core_backward": 2,
+                            "moe_head_serving": 0},
+                           ("exact_topk", "netvlad_aggregate",
+                            "moe_head_serving")),
         ]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    phase_done("7 workflows")
     # Launches on the main paths: DBoF's on the DbofModel serving path,
     # the int8 DBoF's on DbofModel's with --dbof_int8_serving (DBoF v1,
     # the sampled DBoF and dequant_affine_matmul lie on no model's path,
@@ -4008,8 +4304,8 @@ def main() -> int:
                                             "nextvlad_train")}
     path_runs = [r["launches"] for r in (*e2e.values(), *steps, training,
                                          fused, gru_training,
-                                         nextvlad_training)]
-    for run in (workflow, *short_runs):
+                                         nextvlad_training, *zoo_training)]
+    for run in (default, workflow, *short_runs):
         path_runs += list(run["launches"].values())
     for row in rows:
         if row["name"] in trained:
@@ -4035,6 +4331,11 @@ def main() -> int:
             continue
         path = serving_path.get(row["name"], "NetVladLstmModel")
         row["launches"] = e2e[path]["launches"][row["name"]]
+        # Each serving path's launches of this kernel in its CLI run
+        # (E2E_VIDEOS videos in batches of E2E_BATCH).
+        row["launches_by_path"] = {
+            p: r["launches"][row["name"]] for p, r in e2e.items()
+            if r["launches"][row["name"]]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_forward", "launches_backward", "ms_forward",
@@ -4045,7 +4346,10 @@ def main() -> int:
              "barrier_share_backward", "ms_events",
              "ms_events_f32", "on_main_path", "int8_vs_bf16",
              "ms_gather_then_v2", "max_abs_err_f32", "ms_f32", "plain_ms_f32",
-             "bound_ms_f32", "bound_by_f32", "library_ms_f32")
+             "bound_ms_f32", "bound_by_f32", "library_ms_f32",
+             "launches_by_path")
+    say("phase", "seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}))
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}),
         flush=True)

@@ -1977,3 +1977,54 @@ def test_cuda_nextvlad_packed_rows_hold_the_layout(cuda, x_dtype):
         rows = src[name][:end]
         assert torch.all(rows[pad] == 0), name
         assert torch.equal(rows, other[name][:end]), name
+
+
+# ---------------------------------------------------------------------------
+# The rest of the model zoo: each serving path on the card against the CPU,
+# with the launches it must make (MoE widths are multiples of 32, as the
+# card's MoE kernel needs).
+# ---------------------------------------------------------------------------
+
+ZOO = {  # name -> (MoE launches, DBoF v2, netvlad_aggregate) a batch
+    "LogisticModel": (0, 0, 0), "MoeModel": (1, 0, 0),
+    "FrameLevelLogisticModel": (0, 0, 0), "GatedDbofModel": (1, 1, 0),
+    "SoftDbofModel": (1, 0, 0), "LayerNormLstmModel": (1, 0, 0),
+    "FrameCnnModel": (1, 0, 0), "NetFVModel": (1, 0, 0),
+    "ChainMoeModel": (3, 0, 0), "ChainFrameModel": (3, 0, 0),
+    "ChainNetVladModel": (3, 0, 1), "DeepCombineChainModel": (3, 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_cuda_zoo_models_match_cpu(cuda, name):
+    from yt8m_tpu_torch.models import is_frame_level_model
+
+    hp = ModelHParams(vocab_size=40, feature_dim=128, max_frames=30,
+                      dbof_cluster_size=256, dbof_hidden_size=96,
+                      lstm_cells=128, lstm_layers=2,
+                      netvlad_cluster_size=64, netvlad_hidden_size=96,
+                      cnn_filters=96, cnn_kernel=4, chain_hidden_size=64)
+    model = get_model(name, hp)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    if is_frame_level_model(name):
+        feats = torch.randint(0, 256, (9, 30, 128), generator=g,
+                              dtype=torch.uint8)
+    else:
+        feats = torch.randn(9, 128, generator=g)
+    nf = torch.tensor([30, 1, 1, 7, 29, 30, 12, 3, 18], dtype=torch.int32)
+    u = torch.rand(9, hp.iterations, generator=g)
+    counters = (tmoe.moe_head_serving, tdbof.dbof_cluster_maxpool_v2,
+                tvlad.netvlad_aggregate)
+    before = [fn.launches for fn in counters]
+    rec = tlstm.lstm_recurrence.launches
+    with torch.inference_mode():
+        want = model.eval()(feats, nf, u=u)["predictions"]
+        got = model.to(cuda)(feats.to(cuda), nf.to(cuda),
+                             u=u.to(cuda))["predictions"]
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == list(
+        ZOO[name])
+    assert tlstm.lstm_recurrence.launches == rec
+    assert torch.isfinite(got).all()
+    _close(got, want, rel=2e-3)

@@ -219,15 +219,22 @@ def test_flagship_topk_step_matches_jax_order(monkeypatch):
 def test_flagship_training_mode_and_layer_norm_raise(name):
     """Training mode is ported (tests/test_torch_train.py holds it against
     the JAX model): a finite forward with a regularization loss whose
-    backward reaches every parameter. --lstm_layer_norm still raises."""
-    model = get_model(name, _hparams(ModelHParams)).train()
-    out = model(torch.from_numpy(_features()), torch.from_numpy(NUM_FRAMES))
-    assert torch.isfinite(out["predictions"]).all()
-    (out["predictions"].sum() + out["regularization_loss"]).backward()
-    assert all(p.grad is not None for p in model.parameters())
+    backward reaches every parameter. --lstm_layer_norm no longer raises:
+    the LSTM branch gets the layer-norm cells (tests/test_torch_zoo.py
+    holds them against JAX), with the same check."""
+    variants = [{}]
     if "Lstm" in name:
-        with pytest.raises(NotImplementedError):
-            get_model(name, _hparams(ModelHParams, lstm_layer_norm=True))
+        variants.append(dict(lstm_layer_norm=True))
+    for kw in variants:
+        model = get_model(name, _hparams(ModelHParams, **kw)).train()
+        out = model(torch.from_numpy(_features()),
+                    torch.from_numpy(NUM_FRAMES))
+        assert torch.isfinite(out["predictions"]).all()
+        (out["predictions"].sum() + out["regularization_loss"]).backward()
+        assert all(p.grad is not None for p in model.parameters())
+        if kw:
+            assert "fw_layer0.ln_scale" in model.state_dict()
+            assert "fw_layer0.bias" not in model.state_dict()
 
 
 def test_cli_serves_a_jax_recorded_flagship_run(tmp_path, monkeypatch):

@@ -254,5 +254,16 @@ def test_run_rnn_matches_jax(stack, dtype, monkeypatch):
 
 
 def test_lstm_layer_norm_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        trnn.LstmLayer(D, H, layer_norm=True)
+    """--lstm_layer_norm is ported: the layer builds with TF1's
+    LayerNormBasicLSTMCell parameters (no `bias`) and runs its scan graph,
+    never the recurrence kernel (tests/test_torch_zoo.py holds it against
+    the JAX layer)."""
+    layer = trnn.LstmLayer(D, H, layer_norm=True)
+    assert {n: tuple(t.shape) for n, t in layer.state_dict().items()} == {
+        "kernel": (D + H, 4 * H), "ln_scale": (5, H), "ln_bias": (5, H)}
+    launches = tlstm.lstm_recurrence.launches
+    xs = torch.randn(F, B, D, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out, (c, h) = layer.eval()(xs, torch.from_numpy(NUM_FRAMES))
+    assert out.shape == (F, B, H) and torch.isfinite(out).all()
+    assert tlstm.lstm_recurrence.launches == launches

@@ -180,7 +180,22 @@ def _chunk_frames(x, v, f0, n):
     return xs
 
 
-def tiled_serving(x, nf, wc, scale, bias, centers):
+def rounded_frames(x):
+    """The frames dequantized (uint8: multiply, then add) and rounded to
+    bf16, in f32."""
+    xr = x.to(torch.float32)
+    if x.dtype == torch.uint8:
+        xr = xr * DEQUANT_SCALE + DEQUANT_BIAS
+    return _bf(xr)
+
+
+def cluster_product(x, wc):
+    """The frames' cluster product [B, F, K] in f32: rounded_frames times
+    the bf16 cluster weights."""
+    return torch.matmul(rounded_frames(x), wc.to(torch.float32))
+
+
+def tiled_serving(x, nf, wc, scale, bias, centers, product=None):
     """csrc/netvlad.cu's five launches in plain PyTorch. (out, xb, assign
     (f32, unrounded), colsum). Launch 1, an item (a live 64-frame chunk)
     at a time: its rows rounded (zeros past n) and stored to xb, the
@@ -194,15 +209,15 @@ def tiled_serving(x, nf, wc, scale, bias, centers):
     step's end are zeros in both operands): v = acc - a_sum * centers,
     first its
     sums of squares a row, then (v / n_k) / g; launch 3 forms the norms
-    from those sums."""
+    from those sums. `product` (cluster_product's) is computed here when
+    not given."""
     b, f, d = x.shape
     k = wc.shape[1]
     p = tvlad.plan(b, f, d, k, x.dtype)
     chunks = p["chunks"]
-    xr = x.to(torch.float32)
-    if x.dtype == torch.uint8:
-        xr = xr * DEQUANT_SCALE + DEQUANT_BIAS
-    act = torch.matmul(_bf(xr), wc.to(torch.float32)) * scale + bias
+    if product is None:
+        product = cluster_product(x, wc)
+    act = product * scale + bias
     halves = ([slice(0, 256), slice(256, k)] if p["split"]
               else [slice(0, k)])
     m = torch.stack([torch.amax(act[..., h], -1) for h in halves]).amax(0)
@@ -273,11 +288,18 @@ VLAD_SHAPES = [(4, 70, 256, 136), (3, 300, 256, 256), (3, 130, 128, 512),
 def test_netvlad_serving_tiling_equals_the_plain_version(b, f, d, k,
                                                          x_dtype):
     args = _vlad_args(b + f + d + k, b, f, d, k, x_dtype)
-    out, xb, assign, colsum = tiled_serving(*args)
+    # Both assignments come from one product: two torch.matmul calls on
+    # the same operands need not sum in the same order (MKL may split a
+    # product differently from one call to the next), and the bit
+    # equality below is about the softmax and the masking.
+    product = cluster_product(args[0], args[2])
+    out, xb, assign, colsum = tiled_serving(*args, product=product)
     want = tvlad.netvlad_aggregate_plain(*args)
     if b > 2:
         assert torch.all(out[1] == 0)  # num_frames = 0
-    _, pa = tvlad.netvlad_assign_plain(*args[:5])
+    pa = tvlad.netvlad_softmax_plain(product, args[1], args[3], args[4])
+    x_plain, _ = tvlad.netvlad_assign_plain(*args[:5])
+    assert torch.equal(x_plain, rounded_frames(args[0]))
     live = torch.arange(f)[None, :] < args[1][:, None]
     if k <= 256:
         assert torch.equal(_bf(assign[live]), _bf(pa[live]))

@@ -6,7 +6,14 @@ The JAX package's variables are nested dicts, `{"params": {...},
 `video_classifier/gates_kernel`, ...) and the same [in, out] layout of
 every kernel, so the conversion only flattens the two trees into one
 `state_dict` with "." for "/": no tensor is transposed. Gate columns
-stay class-major, c*(M+1)+m. `variables_from_model` goes back: the
+stay class-major, c*(M+1)+m. The layouts that are not [in, out]
+matrices are kept as the JAX package holds them too: FrameCnnModel's
+`conv{i}.kernel` is flax's nn.Conv kernel [k, in, out] (the model
+permutes it to torch's [out, in, k] at use), the layer-norm LSTM's
+`ln_scale` and `ln_bias` are [5, H] (and it has no `bias`), NetVLAD's
+`cluster_weights2` is [1, D, K], NetFV's `cluster_centers` and
+`covar_weights` are [K, D], and the chains' `chain_proj{i}` and
+`pred_proj{i}` are [vocab, hidden]. `variables_from_model` goes back: the
 port's parameters and buffers to the JAX package's `params` and
 `batch_stats` trees of numpy arrays.
 

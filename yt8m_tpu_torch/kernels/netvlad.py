@@ -167,19 +167,24 @@ def netvlad_assign_plain(frames, num_frames, cluster_w, act_scale,
     """(x, assign): the frames rounded to cluster_w.dtype and widened to
     f32 [B, F, D], and the masked f32 softmax assignment [B, F, K] (exact
     products summed in f32)."""
-    f = frames.shape[1]
     x = frames.to(torch.float32)
     if frames.dtype == torch.uint8:
         x = x * DEQUANT_SCALE + DEQUANT_BIAS
     x = x.to(cluster_w.dtype).to(torch.float32)
-    act = torch.matmul(x, cluster_w.to(torch.float32))
-    act = act * act_scale + act_bias
+    product = torch.matmul(x, cluster_w.to(torch.float32))
+    return x, netvlad_softmax_plain(product, num_frames, act_scale, act_bias)
+
+
+def netvlad_softmax_plain(product, num_frames, act_scale, act_bias):
+    """The masked f32 softmax assignment [B, F, K] from the frames'
+    cluster product [B, F, K] (before the per-cluster affine)."""
+    act = product * act_scale + act_bias
     act = act - torch.amax(act, dim=-1, keepdim=True)
     e = torch.exp(act)
     assign = e / torch.sum(e, dim=-1, keepdim=True)
-    t = torch.arange(f, device=frames.device)[None, :]
+    t = torch.arange(product.shape[1], device=product.device)[None, :]
     live = t < num_frames.to(torch.int64)[:, None]
-    return x, torch.where(live[:, :, None], assign, torch.zeros_like(assign))
+    return torch.where(live[:, :, None], assign, torch.zeros_like(assign))
 
 
 def netvlad_residuals_plain(assign, a_sum, x, centers):

@@ -80,7 +80,7 @@ class AttentionPool(ServingModule):
         return pooled.reshape(b, -1)
 
 
-@register("AttentionPoolingModel")
+@register("AttentionPoolingModel", frame_level=True)
 class AttentionPoolingModel(ServingModule):
     """Reference: the JAX package's AttentionPoolingModel (the fork's
     attention pooling): pooled [B, H * D] -> FC --attention_hidden_size
@@ -130,7 +130,7 @@ class AttentionPoolingModel(ServingModule):
         return out
 
 
-@register("MultiHeadAttentionModel")
+@register("MultiHeadAttentionModel", frame_level=True)
 class MultiHeadAttentionModel(ServingModule):
     """Reference: the JAX package's MultiHeadAttentionModel: k = x @ W_k,
     v = x @ W_v, score_h = <k, q_h> / sqrt(dk), a masked softmax over

@@ -1,4 +1,6 @@
-"""Frame-level models: DBoF (reference: frame_level_models.py :: DbofModel).
+"""Frame-level models: the masked-mean logistic model and DBoF with its
+gated and soft variants (reference: frame_level_models.py ::
+FrameLevelLogisticModel, DbofModel; the JAX package's models/frame.py).
 
 Input: uint8 (or float) frame features [B, F, D] plus num_frames [B].
 """
@@ -17,18 +19,43 @@ from yt8m_tpu_torch.kernels.dbof import (
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
     frame_pooling,
+    masked_mean,
     sample_random_frames,
     sample_random_sequence,
 )
 from yt8m_tpu_torch.models.hparams import ModelHParams
-from yt8m_tpu_torch.models.heads import l2_loss, rounded
+from yt8m_tpu_torch.models.heads import ContextGate, l2_loss, rounded
 from yt8m_tpu_torch.models.norm import BN_EPS, BatchNorm, bn_fold, inline_bn
 from yt8m_tpu_torch.models.registry import register
 from yt8m_tpu_torch.models.serving import ServingModule
-from yt8m_tpu_torch.models.video import make_classifier_head
+from yt8m_tpu_torch.models.video import logistic_head, make_classifier_head
 
 
-@register("DbofModel")
+@register("FrameLevelLogisticModel", frame_level=True)
+class FrameLevelLogisticModel(ServingModule):
+    """Mask-weighted mean over frames, then a logistic head named `tower`
+    (reference: frame_level_models.py :: FrameLevelLogisticModel)."""
+
+    def __init__(self, hp: ModelHParams):
+        super().__init__()
+        self.hp = hp
+        self.tower = logistic_head(hp, hp.feature_dim)
+
+    def reset_parameters(self, generator=None):
+        self.tower.reset_parameters(generator)
+        self.invalidate_serving()
+
+    def forward(self, features, num_frames, generator=None, u=None):
+        return self.tower(masked_mean(features, num_frames))
+
+
+def soft_pooling(act):
+    """SoftDBoF's pooling (the JAX package's models/frame.py): a softmax
+    over clusters for each frame, summed over the sampled frames."""
+    return torch.sum(torch.softmax(act, dim=-1), dim=1)
+
+
+@register("DbofModel", frame_level=True)
 class DbofModel(ServingModule):
     """Deep Bag-of-Frames.
 
@@ -37,8 +64,13 @@ class DbofModel(ServingModule):
          --sample_random_frames else SampleRandomSequence);
       2. FC frames -> --dbof_cluster_size (+BN or bias, ReLU);
       3. max/average pool over sampled frames (--dbof_pooling_method);
-      4. FC -> --dbof_hidden_size (+BN or bias, ReLU);
+      4. FC -> --dbof_hidden_size (+BN or bias, ReLU), and in
+         GatedDbofModel a context gate (`context_gate`);
       5. video-level classifier (--dbof_video_level_classifier_model).
+
+    `pooling_override` (SoftDbofModel's "soft") takes the place of
+    --dbof_pooling_method; soft pooling (`soft_pooling`) runs the unfused
+    graph, as the JAX model fuses max pooling only.
 
     With max pooling (the reference default) steps 2-3 are one fused
     kernel (kernels/dbof.py) with dequantization and both BatchNorms
@@ -53,6 +85,9 @@ class DbofModel(ServingModule):
     moments, and adds `regularization_loss`. Parameter and buffer names
     are the JAX model's (`convert.py` carries them over).
     """
+
+    gated = False
+    pooling_override = ""
 
     def __init__(self, hp: ModelHParams):
         super().__init__()
@@ -75,8 +110,15 @@ class DbofModel(ServingModule):
             self.hidden_bn = BatchNorm(h)
         else:
             self.hidden_bias = nn.Parameter(torch.zeros(h))
+        if self.gated:
+            self.context_gate = ContextGate(h, hp.dbof_add_batch_norm,
+                                            hp.dtype)
         self.video_classifier = make_classifier_head(hp, h)
         self.reset_parameters()
+
+    @property
+    def pooling(self) -> str:
+        return self.pooling_override or self.hp.dbof_pooling_method
 
     def reset_parameters(self, generator=None):
         """The JAX model's initialisers, drawn from `generator`."""
@@ -89,6 +131,8 @@ class DbofModel(ServingModule):
             if not hp.dbof_add_batch_norm:
                 self.cluster_bias.normal_(0.0, 0.01, generator=generator)
                 self.hidden_bias.normal_(0.0, 0.01, generator=generator)
+        if self.gated:
+            self.context_gate.reset_parameters(generator)
         self.video_classifier.reset_parameters(generator)
         self.invalidate_serving()
 
@@ -143,7 +187,9 @@ class DbofModel(ServingModule):
         else:
             act = act + self.cluster_bias
         act = torch.relu(act).reshape(b, s, -1)
-        return frame_pooling(act, hp.dbof_pooling_method)
+        if self.pooling == "soft":
+            return soft_pooling(act)
+        return frame_pooling(act, self.pooling)
 
     def forward(self, features, num_frames, generator=None, u=None):
         """{"predictions": [B, vocab] f32}, and in training
@@ -157,7 +203,7 @@ class DbofModel(ServingModule):
                    else sample_random_sequence)
         x_raw = sampler(features, num_frames, hp.iterations,
                         generator=generator, u=u)
-        fused = hp.dbof_pooling_method == "max" and not self.training
+        fused = self.pooling == "max" and not self.training
         # The JAX model takes the int8 kernel only with --dbof_use_pallas;
         # without it, its unfused graph computes v2's function.
         if (fused and hp.dbof_int8_serving and hp.dbof_use_pallas
@@ -184,10 +230,28 @@ class DbofModel(ServingModule):
             hidden = self.hidden_bn(hidden)
         else:
             hidden = hidden + self.hidden_bias
-        out = self.video_classifier(torch.relu(hidden))
+        hidden = torch.relu(hidden)
+        if self.gated:
+            hidden = self.context_gate(hidden)
+        out = self.video_classifier(hidden)
         if self.training:
             out["regularization_loss"] = (
                 out["regularization_loss"]
                 + hp.l2_penalty * l2_loss(self.cluster_kernel,
                                           self.hidden_kernel))
         return out
+
+
+@register("GatedDbofModel", frame_level=True)
+class GatedDbofModel(DbofModel):
+    """DBoF with a context gate on the hidden representation; serves on
+    the DBoF kernels as DbofModel does."""
+
+    gated = True
+
+
+@register("SoftDbofModel", frame_level=True)
+class SoftDbofModel(DbofModel):
+    """DBoF with softmax-normalised (soft-count) pooling."""
+
+    pooling_override = "soft"

@@ -112,6 +112,14 @@ def frame_pooling(frames: torch.Tensor, method: str,
     raise ValueError(f"unknown pooling method {method!r}")
 
 
+def masked_mean(features: torch.Tensor, num_frames: torch.Tensor):
+    """[B, F, D] (uint8 or float) -> [B, D]: the mean of each video's
+    first num_frames frames (divided by at least 1)."""
+    features = ensure_float(features)
+    mask = frame_mask(num_frames, features.shape[1])
+    return frame_pooling(features, "average", mask)
+
+
 def l2_normalize(x: torch.Tensor, dim, eps: float = 1e-6):
     """x / sqrt(max(sum(x^2), eps^2)) over `dim`.
 

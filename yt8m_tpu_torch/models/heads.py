@@ -32,6 +32,47 @@ def lecun_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
         return w.normal_(0.0, w.shape[0] ** -0.5, generator=generator)
 
 
+class LogisticHead(ServingModule):
+    """Single sigmoid FC over the vocabulary.
+
+    Reference: video_level_models.py :: LogisticModel.create_model (the
+    JAX package's heads.py :: LogisticHead): `logistic_kernel` [in,
+    vocab] and `logistic_bias`, the product f32 on operands rounded to
+    the compute dtype. The JAX package has no kernel for it, so on the
+    card too it is one torch.matmul. Training adds
+    `regularization_loss` = l2_penalty * l2_loss(kernel).
+    """
+
+    def __init__(self, in_features: int, vocab_size: int = 4716,
+                 dtype=torch.float32, l2_penalty: float = 1e-8):
+        super().__init__()
+        self.dtype = dtype
+        self.l2_penalty = l2_penalty
+        self.logistic_kernel = nn.Parameter(
+            torch.empty(in_features, vocab_size))
+        self.logistic_bias = nn.Parameter(torch.zeros(vocab_size))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        lecun_normal_(self.logistic_kernel, generator)
+        with torch.no_grad():
+            self.logistic_bias.zero_()
+        self._serving = None
+
+    def make_serving_constants(self) -> dict:
+        return {"kernel": rounded(self.logistic_kernel, self.dtype)}
+
+    def forward(self, x):
+        kernel = (rounded(self.logistic_kernel, self.dtype) if self.training
+                  else self.serving_constants()["kernel"])
+        logits = torch.matmul(rounded(x, self.dtype), kernel)
+        out = {"predictions": torch.sigmoid(logits + self.logistic_bias)}
+        if self.training:
+            out["regularization_loss"] = self.l2_penalty * l2_loss(
+                self.logistic_kernel)
+        return out
+
+
 class MoeHead(ServingModule):
     """Per-class mixture-of-experts logistic head.
 

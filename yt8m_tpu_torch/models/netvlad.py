@@ -235,11 +235,11 @@ class _NetVladBase(ServingModule):
         return out
 
 
-@register("NetVladModel")
+@register("NetVladModel", frame_level=True)
 class NetVladModel(_NetVladBase):
     gating = False
 
 
-@register("GatedNetVladModel")
+@register("GatedNetVladModel", frame_level=True)
 class GatedNetVladModel(_NetVladBase):
     gating = True

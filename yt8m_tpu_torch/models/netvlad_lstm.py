@@ -95,11 +95,11 @@ class _NetVladLstmBase(ServingModule):
         return out
 
 
-@register("NetVladLstmModel")
+@register("NetVladLstmModel", frame_level=True)
 class NetVladLstmModel(_NetVladLstmBase):
     bidirectional = False
 
 
-@register("NetVladBiLstmModel")
+@register("NetVladBiLstmModel", frame_level=True)
 class NetVladBiLstmModel(_NetVladLstmBase):
     bidirectional = True

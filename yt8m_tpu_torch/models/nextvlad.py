@@ -40,7 +40,7 @@ from yt8m_tpu_torch.models.serving import ServingModule
 from yt8m_tpu_torch.models.video import make_classifier_head
 
 
-@register("NeXtVladModel")
+@register("NeXtVladModel", frame_level=True)
 class NeXtVladModel(ServingModule):
     def __init__(self, hp: ModelHParams):
         super().__init__()

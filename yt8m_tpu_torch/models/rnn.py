@@ -20,6 +20,12 @@ card and its plain version on the CPU; at float32 it runs the scan
 graph, concat([x, h]) @ kernel per step in float32 (the GRU's candidate
 concat([x, r * h]) @ candidate_kernel), under autograd in training (the
 CUDA kernels are bf16, so float32 runs on the CPU only).
+
+The layer-norm LSTM (--lstm_layer_norm, LayerNormLstmModel) is TF1's
+LayerNormBasicLSTMCell and runs the JAX layer's scan graph at either
+dtype, serving and training, on the card too: the JAX package never
+sends it to its recurrence kernel (`use_pallas=hp.lstm_use_pallas and
+not layer_norm`).
 """
 
 from __future__ import annotations
@@ -36,37 +42,59 @@ from yt8m_tpu_torch.models.frame_utils import (
     frame_mask,
     frame_pooling,
 )
+from yt8m_tpu_torch.models.heads import rounded
 from yt8m_tpu_torch.models.hparams import ModelHParams
 from yt8m_tpu_torch.models.registry import register
 from yt8m_tpu_torch.models.serving import ServingModule
 from yt8m_tpu_torch.models.video import make_classifier_head
 
 
+LN_EPS = 1e-6
+
+
+def layer_norm(x, scale, bias, eps: float = LN_EPS):
+    """Layer norm over the last axis with the population variance, in the
+    JAX layer's order: (x - mean) * rsqrt(var + eps) * scale + bias."""
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
 class LstmLayer(ServingModule):
     """One LSTM layer: `kernel` [D+H, 4H] (rows :D act on x, D: on h) and
-    `bias` [4H], as the JAX layer holds them."""
+    `bias` [4H], as the JAX layer holds them. With `layer_norm` there is
+    no `bias`: `ln_scale` and `ln_bias` [5, H] normalise the four gate
+    pre-activations and the new cell state."""
 
     def __init__(self, in_features: int, hidden: int, dtype=torch.float32,
                  reverse: bool = False, layer_norm: bool = False):
         super().__init__()
-        if layer_norm:
-            raise NotImplementedError("--lstm_layer_norm is not ported yet")
         self.in_features = in_features
         self.hidden = hidden
         self.dtype = dtype
         self.reverse = reverse
+        self.layer_norm = layer_norm
         self.kernel = nn.Parameter(torch.empty(in_features + hidden,
                                                4 * hidden))
-        self.bias = nn.Parameter(torch.zeros(4 * hidden))
+        if layer_norm:
+            self.ln_scale = nn.Parameter(torch.ones(5, hidden))
+            self.ln_bias = nn.Parameter(torch.zeros(5, hidden))
+        else:
+            self.bias = nn.Parameter(torch.zeros(4 * hidden))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
-        """glorot_uniform kernel and zero bias, as the JAX layer."""
+        """glorot_uniform kernel, zero bias (ones and zeros for the layer
+        norms), as the JAX layer."""
         fan_in, fan_out = self.kernel.shape
         limit = (6.0 / (fan_in + fan_out)) ** 0.5
         with torch.no_grad():
             self.kernel.uniform_(-limit, limit, generator=generator)
-            self.bias.zero_()
+            if self.layer_norm:
+                self.ln_scale.fill_(1.0)
+                self.ln_bias.zero_()
+            else:
+                self.bias.zero_()
         self._serving = None
 
     def make_serving_constants(self) -> dict:
@@ -79,6 +107,8 @@ class LstmLayer(ServingModule):
     def forward(self, xs, num_frames):
         """xs [F, B, D] float, time-major -> (outputs [F, B, H] f32,
         (final_c, final_h) [B, H] f32)."""
+        if self.layer_norm:
+            return self._ln_scan(xs, num_frames)
         if self.dtype == torch.bfloat16:
             return self._recurrence(xs, num_frames)
         return self._scan(xs, num_frames)
@@ -124,6 +154,39 @@ class LstmLayer(ServingModule):
             c1 = (c * torch.sigmoid(zf + 1.0)
                   + torch.sigmoid(zi) * torch.tanh(zj))
             h1 = torch.tanh(c1) * torch.sigmoid(zo)
+            live = nf > t
+            c = torch.where(live, c1, c)
+            h = torch.where(live, h1, h)
+            outputs[t] = h
+        return torch.stack(outputs), (c, h)
+
+    def _ln_scan(self, xs, num_frames):
+        """The JAX layer's layer-norm scan: concat([x, h]) @ kernel on
+        operands rounded to the compute dtype (f32 sums), each gate
+        layer-normed, the forget gate's +1, the new cell state
+        layer-normed before its tanh; masked steps carry (c, h). The
+        product is split as x @ kernel[:D], for all steps at once, plus
+        h @ kernel[D:] a step (the same sums in another order), and the
+        four gates are normalised as one [B, 4, H] tensor, so that a step
+        makes ~30 launches (the step is bound by them on the card)."""
+        f, b, _ = xs.shape
+        d, hid = self.in_features, self.hidden
+        nf = num_frames.to(torch.int64)[:, None]
+        kernel = rounded(self.kernel, self.dtype)
+        xp = torch.matmul(rounded(xs, self.dtype), kernel[:d])  # [F, B, 4H]
+        kh = kernel[d:]
+        gate_scale, gate_bias = self.ln_scale[:4], self.ln_bias[:4]
+        h = torch.zeros((b, hid), dtype=torch.float32, device=xs.device)
+        c = torch.zeros_like(h)
+        outputs = [None] * f
+        for t in (reversed(range(f)) if self.reverse else range(f)):
+            z = xp[t] + torch.matmul(rounded(h, self.dtype), kh)
+            zi, zj, zf, zo = layer_norm(z.view(b, 4, hid), gate_scale,
+                                        gate_bias).unbind(1)
+            c1 = (c * torch.sigmoid(zf + 1.0)
+                  + torch.sigmoid(zi) * torch.tanh(zj))
+            h1 = torch.tanh(layer_norm(c1, self.ln_scale[4],
+                                       self.ln_bias[4])) * torch.sigmoid(zo)
             live = nf > t
             c = torch.where(live, c1, c)
             h = torch.where(live, h1, h)
@@ -300,15 +363,17 @@ class _RnnModelBase(ServingModule):
 
     cell = "lstm"
     bidirectional = False
+    force_layer_norm = False  # LayerNormLstmModel: whatever the flag says
 
     def __init__(self, hp: ModelHParams):
         super().__init__()
         self.hp = hp
         if self.cell == "lstm":
             self.layers = hp.lstm_layers
-            width = add_lstm_stack(self, hp.feature_dim, hp.lstm_cells,
-                                   hp.lstm_layers, hp.dtype,
-                                   self.bidirectional, hp.lstm_layer_norm)
+            width = add_lstm_stack(
+                self, hp.feature_dim, hp.lstm_cells, hp.lstm_layers,
+                hp.dtype, self.bidirectional,
+                self.force_layer_norm or hp.lstm_layer_norm)
         else:
             self.layers = hp.gru_layers
             width = add_gru_stack(self, hp.feature_dim, hp.gru_cells,
@@ -334,25 +399,35 @@ class _RnnModelBase(ServingModule):
         return self.video_classifier(pooled)
 
 
-@register("LstmModel")
+@register("LstmModel", frame_level=True)
 class LstmModel(_RnnModelBase):
     cell = "lstm"
     bidirectional = False
 
 
-@register("BiLstmModel")
+@register("BiLstmModel", frame_level=True)
 class BiLstmModel(_RnnModelBase):
     cell = "lstm"
     bidirectional = True
 
 
-@register("GruModel")
+@register("GruModel", frame_level=True)
 class GruModel(_RnnModelBase):
     cell = "gru"
     bidirectional = False
 
 
-@register("BiGruModel")
+@register("BiGruModel", frame_level=True)
 class BiGruModel(_RnnModelBase):
     cell = "gru"
     bidirectional = True
+
+
+@register("LayerNormLstmModel", frame_level=True)
+class LayerNormLstmModel(_RnnModelBase):
+    """Stacked layer-norm LSTM (also reachable as --model=LstmModel
+    --lstm_layer_norm)."""
+
+    cell = "lstm"
+    bidirectional = False
+    force_layer_norm = True

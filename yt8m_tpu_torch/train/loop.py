@@ -32,7 +32,7 @@ from yt8m_tpu_torch.metrics import (
     calculate_hit_at_one,
     calculate_precision_at_equal_recall_rate,
 )
-from yt8m_tpu_torch.models import get_model
+from yt8m_tpu_torch.models import get_model, is_frame_level_model
 from yt8m_tpu_torch.train import losses as losses_lib
 from yt8m_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -103,6 +103,10 @@ class Trainer:
                 "--use_ema_weights requires training with --ema_decay > 0")
         self.device = resolve_device(cfg.device)
         self.model = get_model(cfg.model, self.hparams)
+        if is_frame_level_model(cfg.model) != cfg.frame_features:
+            log.warning("model %s frame-level=%s but --frame_features=%s",
+                        cfg.model, is_frame_level_model(cfg.model),
+                        cfg.frame_features)
         self.model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
         self.model.to(self.device).train()
         loss_kw = ({"alpha": cfg.distill_alpha}
