@@ -117,7 +117,28 @@ Phases, one line each with the elapsed seconds:
      (cli.train with no flag but the data and the run directory:
      LogisticModel over mean_rgb on the card, then cli.eval and
      cli.inference); ChainNetVladModel with --netvlad_fused_train through
-     the three CLIs. A `phase:` line gives each phase's seconds.
+     the three CLIs;
+  8. the readers: frame-level videos/s of the Python reader, the native
+     one, 4 parse threads and 4 spawned reader processes over 384 videos
+     in 8 shards (each video once, the reader that ran asserted), and
+     DbofModel at the reference width through cli.inference (batch 128)
+     with the Python reader and with the native one; then the ensemble
+     workflow on the workflow's records: two members (DbofModel at the
+     reference width, the flagship at the JAX defaults) trained 2 steps
+     through cli.train, their dense train-split dumps and DbofModel's
+     sparse top-64 through cli.inference, cli.ensemble --fit_weights to a
+     CSV, the two served together through cli.inference
+     --ensemble_train_dirs (launches a batch: 1 DBoF v2, 2 MoE, 1
+     netvlad_aggregate, 2 lstm_recurrence, 1 top-k), its dense dump
+     against the host average of the members' dumps, 8 videos against
+     the same ensemble on the CPU, its serving step against its members'
+     at B=512; a flagship student trained 4 steps with
+     --netvlad_fused_train on distill records written from the ensemble's
+     dump (MixedCrossEntropyDistillLoss, finite and falling losses, the
+     trainable LSTM's and netvlad_core's launches), DbofModel trained 4
+     steps with boost weights from its member's dump, and the mean of
+     DbofModel's last two checkpoints served. A `phase:` line gives each
+     phase's seconds.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -207,6 +228,11 @@ Tolerances, max|kernel - plain| on the same inputs:
     and what follows the roundings meets 1e-3 * max|ref| + 1e-6.
   * planted hazards: the kernel's output with large values in the frames
     or steps past num_frames equals its output with zeros there.
+  * the served ensemble's dense dump against the weighted average of its
+    members' dumps (numpy, float64 then f32): <= 1e-5 * max|ref|. The
+    members run the same kernels on the same batches with the same
+    frame draws (the flagship draws none), so only the f32 sum of the
+    two weighted terms differs.
   * card vs CPU end to end (8 videos): probabilities within 2e-3; the
     per-video eval loss from the workflow's checkpoint within 2e-3
     relative.
@@ -4124,6 +4150,439 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
     return {"launches": launches, "train_s": train_s, "checkpoint_gb": size}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the readers, and the ensemble -> distillation -> boosting
+# workflow through the CLIs
+# ---------------------------------------------------------------------------
+
+READER_SHARDS = 8
+READER_VIDEOS = 384
+READERS = 4  # --num_readers of the fan-out readers
+# The ensemble: DbofModel first, the flagship second; launches a batch of
+# each kernel when it serves (the MoE head once a member, the LSTM once a
+# layer).
+ENSEMBLE_PER_BATCH = {"dbof_cluster_maxpool_v2": 1, "moe_head_serving": 2,
+                      "netvlad_aggregate": 1, "lstm_recurrence": 2,
+                      "exact_topk": 1}
+ENSEMBLE_WEIGHTS = (1.0, 2.0)
+MEMBER_STEPS = 2
+# The members' widths (the JAX defaults, and DbofModel's reference width).
+DBOF_FLAGS = ("--model=DbofModel", f"--dbof_cluster_size={CLUSTERS}",
+              f"--dbof_hidden_size={HIDDEN}", f"--iterations={FRAMES}",
+              f"--moe_num_mixtures={MIXTURES}")
+FLAGSHIP_FLAGS = ("--model=NetVladLstmModel",
+                  f"--netvlad_cluster_size={VLAD_CLUSTERS}",
+                  f"--netvlad_hidden_size={VLAD_HIDDEN}",
+                  f"--lstm_cells={LSTM_CELLS}", f"--lstm_layers={LSTM_LAYERS}",
+                  f"--moe_num_mixtures={MIXTURES}")
+STUDENT_STEPS = 4
+STUDENT_BATCH = 64
+
+
+def reader_phase(torch, dev, work) -> dict:
+    """Frame-level videos/s of the Python reader, the native one, the
+    threaded fan-out and the process fan-out over READER_VIDEOS videos in
+    READER_SHARDS shards (30-300 frames, batch E2E_BATCH, every video once
+    asserted, the reader that ran asserted); then DbofModel at the
+    reference width through cli.inference at batch E2E_BATCH over the same
+    records with the Python reader and with the native one."""
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.convert import save_checkpoint
+    from yt8m_tpu_torch.data import pipeline
+    from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
+    from yt8m_tpu_torch.data.synthetic import write_dataset
+
+    data = os.path.join(work, "reader_data")
+    write_dataset(data, "test", num_shards=READER_SHARDS,
+                  videos_per_shard=READER_VIDEOS // READER_SHARDS,
+                  frame_level=True, num_classes=CLASSES, seed=9,
+                  min_frames=30)
+    pattern = f"{data}/test-*.tfrecord"
+    rc = ReaderConfig("rgb,audio", "1024,128", frame_features=True,
+                      num_classes=CLASSES)
+    makers = {
+        "python": lambda: BatchIterator(pattern, rc, E2E_BATCH),
+        "native": lambda: pipeline.make_batch_iterator(pattern, rc,
+                                                       E2E_BATCH),
+        "threaded": lambda: pipeline.make_batch_iterator(
+            pattern, rc, E2E_BATCH, num_readers=READERS),
+        "processes": lambda: pipeline.make_batch_iterator(
+            pattern, rc, E2E_BATCH, num_readers=READERS,
+            reader_processes=True),
+    }
+    rates, first = {}, {}
+    for kind, make in makers.items():
+        t0 = time.perf_counter()
+        it = make()
+        check(pipeline.reader_kind(it) == kind,
+              f"reader {kind}: got {pipeline.reader_kind(it)}")
+        ids = []
+        for b in it:
+            if not ids:
+                first[kind] = time.perf_counter() - t0
+                t1 = time.perf_counter()
+            ids += [v for v, m in zip(b["id"], b["batch_mask"]) if m]
+        rates[kind] = (len(ids) / (time.perf_counter() - t0),
+                       (len(ids) - E2E_BATCH) / (time.perf_counter() - t1))
+        check(len(ids) == READER_VIDEOS == len(set(ids)),
+              f"reader {kind}: {len(ids)} videos, {len(set(ids))} distinct")
+    say("reader", "frame-level videos/s (batch "
+                  f"{E2E_BATCH}, {READER_VIDEOS} videos in {READER_SHARDS} "
+                  f"shards, {READERS} readers for the fan-outs; all in, "
+                  "then after the first batch, and the first batch's "
+                  "seconds): " + ", ".join(
+                      f"{k} {v[0]:.1f}, {v[1]:.1f} ({first[k]:.2f} s)"
+                      for k, v in rates.items()))
+    hp, model = make_model(torch, seed=0)
+    run = os.path.join(work, "reader_run")
+    save_checkpoint(run, model, "DbofModel", hp, frame_features=True,
+                    feature_names="rgb,audio", feature_sizes="1024,128",
+                    num_classes=CLASSES, max_frames=300,
+                    label_loss="CrossEntropyLoss")
+    del model
+    cli = {}
+    real = pipeline.get_native_lib
+    for kind in ("python", "native"):
+        if kind == "python":  # the fallback, as where g++ is missing
+            pipeline.get_native_lib = lambda: None
+        try:
+            stats = inference_cli.main([
+                f"--input_data_pattern={pattern}", f"--train_dir={run}",
+                f"--output_file={work}/reader_{kind}.csv",
+                f"--batch_size={E2E_BATCH}", f"--device={dev.type}"])
+        finally:
+            pipeline.get_native_lib = real
+        check(stats["reader"] == kind and stats["num_videos"] == READER_VIDEOS
+              and stats["nonfinite_predictions"] == 0,
+              f"DbofModel cli.inference with the {kind} reader: {stats}")
+        check(check_csv(f"{work}/reader_{kind}.csv") == READER_VIDEOS,
+              "reader CSV")
+        cli[kind] = stats["videos_per_sec"]
+    say("reader", f"DbofModel cli.inference (batch {E2E_BATCH}, reference "
+                  f"width): {cli['python']:.1f} videos/s with the Python "
+                  f"reader, {cli['native']:.1f} with the native one")
+    shutil.rmtree(run, ignore_errors=True)
+    shutil.rmtree(data, ignore_errors=True)
+    return {"videos_per_sec": rates, "cli_videos_per_sec": cli}
+
+
+def losses_since(logs, n: int) -> list:
+    """The training losses logged after the first `n` messages."""
+    pattern = re.compile(r"training step (\d+) \| Loss: (\S+)")
+    return [float(m.group(2)) for m in map(pattern.search, logs.messages[n:])
+            if m]
+
+
+def ensemble_step_ms(torch, dev, runs) -> dict:
+    """The ensemble's serving step against its members' steps on the same
+    frames on the card (B=FLAG_BATCH, host clock around a synchronised
+    step, median of 5, members in turn with the ensemble)."""
+    from yt8m_tpu_torch.config import InferenceConfig
+    from yt8m_tpu_torch.infer.ensemble_serve import build_ensemble
+    from yt8m_tpu_torch.infer.predict import make_topk_predict_step
+
+    cfg = InferenceConfig(frame_features=True, feature_names="rgb,audio",
+                          feature_sizes="1024,128", num_classes=CLASSES,
+                          ensemble_train_dirs=",".join(runs),
+                          ensemble_weights=",".join(map(str,
+                                                        ENSEMBLE_WEIGHTS)))
+    ens = build_ensemble(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    feats = torch.randint(0, 256, (FLAG_BATCH, 300, FEATURE_DIM), device=dev,
+                          dtype=torch.uint8, generator=g)
+    nf = torch.randint(FRAMES, 301, (FLAG_BATCH,), device=dev,
+                       dtype=torch.int32, generator=g)
+    steps = {"DbofModel": make_topk_predict_step(ens.members[0], TOP_K),
+             "NetVladLstmModel": make_topk_predict_step(ens.members[1],
+                                                        TOP_K),
+             "ensemble": make_topk_predict_step(ens, TOP_K)}
+    times = {k: [] for k in steps}
+    for _ in range(2):  # warm-up
+        for step in steps.values():
+            step(feats, nf)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for k, step in steps.items():
+            t0 = time.perf_counter()
+            step(feats, nf)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    total = ms["DbofModel"] + ms["NetVladLstmModel"]
+    say("ensemble", f"serving step B={FLAG_BATCH} (median of 5): DbofModel "
+                    f"{ms['DbofModel']:.3f} ms, NetVladLstmModel "
+                    f"{ms['NetVladLstmModel']:.3f} ms, sum {total:.3f}; the "
+                    f"ensemble {ms['ensemble']:.3f} ms "
+                    f"({ms['ensemble'] / total:.3f} of the sum)")
+    del ens, feats
+    torch.cuda.empty_cache()
+    return {**ms, "ratio": ms["ensemble"] / total}
+
+
+def ensemble_workflow(torch, dev, work, data) -> dict:
+    """read -> dump -> ensemble -> distill / boost -> serve through the
+    port's CLIs on the workflow's records under `data`, with the launch
+    counts set to 0 before each CLI and read after it:
+    (i) cli.train of two members, DbofModel at the reference width and
+    the flagship at the JAX defaults (MEMBER_STEPS steps at batch
+    E2E_BATCH, a checkpoint a step); (ii) their dense probability dumps
+    on the train split through cli.inference, and DbofModel's sparse
+    top-64; (iii) cli.ensemble --fit_weights to a CSV; (iv) the ensemble
+    served on the card through cli.inference --ensemble_train_dirs with
+    the launches a batch of ENSEMBLE_PER_BATCH, its dense dump against
+    the host average of the members' dumps, 8 videos against the same
+    ensemble on the CPU, its step against its members' steps; (v) the
+    distill records from the ensemble's dump (top 64 kept) and a flagship
+    student with --netvlad_fused_train and MixedCrossEntropyDistillLoss;
+    (vi) boost weights from DbofModel's dump (ensemble.boosting) and
+    DbofModel trained with them; (vii) the mean of DbofModel's last two
+    checkpoints served."""
+    import numpy as np
+
+    from yt8m_tpu_torch.cli import ensemble as ensemble_cli
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.config import InferenceConfig
+    from yt8m_tpu_torch.ensemble import average, boosting, distill
+    from yt8m_tpu_torch.ensemble.checkpoints import (
+        average_checkpoint_weights,
+    )
+    from yt8m_tpu_torch.infer.ensemble_serve import build_ensemble
+    from yt8m_tpu_torch.infer.predict import inference
+    from yt8m_tpu_torch.models import ModelHParams, get_model
+    from yt8m_tpu_torch.train.checkpoint import step_dirs
+
+    reader = ["--frame_features=true", "--feature_names=rgb,audio",
+              "--feature_sizes=1024,128", f"--num_classes={CLASSES}"]
+    on_dev = [f"--device={dev.type}"]
+    # flags, and the checkpoints each member keeps: DbofModel's two serve
+    # averaged in (vii); the flagship's (~4.5 GB with Adam) is written once.
+    members = {"DbofModel": (["--save_checkpoint_every_n_steps=1",
+                              *DBOF_FLAGS],
+                             list(range(1, MEMBER_STEPS + 1))),
+               "NetVladLstmModel": (["--save_checkpoint_every_n_steps="
+                                     f"{MEMBER_STEPS}", *FLAGSHIP_FLAGS],
+                                    [MEMBER_STEPS])}
+    runs = {m: os.path.join(work, f"member_{m}") for m in members}
+    logs = LogLines()
+    logger = logging.getLogger("yt8m_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(logs)
+    launches, seconds = {}, {}
+
+    def cli_run(name, fn, argv):
+        wrappers = zero_launches()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = read_launches(torch, wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    try:
+        # (i) two members
+        for m, (flags, kept) in members.items():
+            n = len(logs.messages)
+            last = cli_run(f"train {m}", train_cli.main, [
+                f"--train_data_pattern={data}/train-*.tfrecord",
+                f"--train_dir={runs[m]}", f"--batch_size={E2E_BATCH}",
+                f"--max_steps={MEMBER_STEPS}", "--log_every_n_steps=1",
+                *flags, *reader, *on_dev])
+            losses = losses_since(logs, n)
+            check(last == MEMBER_STEPS and step_dirs(runs[m]) == kept
+                  and len(losses) == MEMBER_STEPS
+                  and all(map(math.isfinite, losses)),
+                  f"member {m}: step {last}, {step_dirs(runs[m])}, {losses}")
+            say("ensemble", f"member {m} cli.train: {MEMBER_STEPS} steps at "
+                            f"batch {E2E_BATCH} in "
+                            f"{seconds[f'train {m}']:.1f} s, losses {losses}")
+        check(launches["train NetVladLstmModel"]["lstm_train_forward"]
+              == MEMBER_STEPS * LSTM_LAYERS, "flagship member: LSTM launches")
+        # (ii) dumps on the train split
+        dumps = {m: os.path.join(work, f"dump_{m}") for m in members}
+        for m in members:
+            stats = cli_run(f"dump {m}", inference_cli.main, [
+                f"--input_data_pattern={data}/train-*.tfrecord",
+                f"--train_dir={runs[m]}", f"--output_probabilities_dir="
+                f"{dumps[m]}", "--output_file=", f"--batch_size={E2E_BATCH}",
+                *on_dev])
+            check(stats["num_videos"] == WF_TRAIN_VIDEOS
+                  and stats["nonfinite_predictions"] == 0
+                  and stats["reader"] == "native",
+                  f"dump of {m}: {stats}")
+        sparse = os.path.join(work, "dump_sparse")
+        cli_run("sparse dump", inference_cli.main, [
+            f"--input_data_pattern={data}/train-*.tfrecord",
+            f"--train_dir={runs['DbofModel']}",
+            f"--output_probabilities_dir={sparse}", "--output_file=",
+            "--output_probabilities_topk=64", f"--batch_size={E2E_BATCH}",
+            *on_dev])
+        batches = -(-WF_TRAIN_VIDEOS // E2E_BATCH)
+        check(launches["sparse dump"]["exact_topk"] == batches
+              and launches["dump DbofModel"]["exact_topk"] == 0,
+              "dumps: top-k launches")
+        ids, dense = average.load_prediction_dir(dumps["DbofModel"])
+        sids, sdense = average.load_prediction_dir(sparse)
+        # The sparse dump keeps each video's 64 largest of the dense
+        # dump's values (the same model, batches and frame draws).
+        top = np.sort(dense, axis=1)[:, -64:]
+        check(sids == ids and np.array_equal(
+            np.sort(sdense, axis=1)[:, -64:], top),
+            "sparse dump: not the top 64 of the dense dump")
+        say("ensemble", f"dumps: {len(ids)} videos a member, dense "
+                        f"{dense.shape}, sparse top-64; seconds "
+                        f"{[round(seconds[k], 1) for k in seconds if 'dump' in k]}")
+        # (iii) the host ensemble of the dumps
+        out_csv = os.path.join(work, "ensemble.csv")
+        res = cli_run("cli.ensemble", ensemble_cli.main, [
+            f"--member_dirs={dumps['DbofModel']},{dumps['NetVladLstmModel']}",
+            "--fit_weights", f"--eval_labels_pattern={data}/train-*.tfrecord",
+            "--frame_features", f"--num_classes={CLASSES}",
+            f"--output_file={out_csv}"])
+        check(check_csv(out_csv) == WF_TRAIN_VIDEOS
+              and 0.0 <= res["gap"] <= 1.0, "cli.ensemble CSV or GAP")
+        say("ensemble", f"cli.ensemble --fit_weights: weights "
+                        f"{res['weights']}, GAP {res['gap']:.5f}, CSV ok in "
+                        f"{seconds['cli.ensemble']:.1f} s")
+        # (iv) the ensemble served on the card
+        ens_flags = [f"--ensemble_train_dirs={runs['DbofModel']},"
+                     f"{runs['NetVladLstmModel']}",
+                     "--ensemble_weights=" + ",".join(map(str,
+                                                          ENSEMBLE_WEIGHTS))]
+        ens_dump = os.path.join(work, "dump_ensemble")
+        ens_csv = os.path.join(work, "ensemble_served.csv")
+        stats = cli_run("serve ensemble", inference_cli.main, [
+            f"--input_data_pattern={data}/train-*.tfrecord",
+            f"--output_probabilities_dir={ens_dump}",
+            f"--output_file={ens_csv}", f"--batch_size={E2E_BATCH}",
+            *ens_flags, *reader, *on_dev])
+        got = launches["serve ensemble"]
+        for fn, per in ENSEMBLE_PER_BATCH.items():
+            check(got[fn] == per * batches,
+                  f"ensemble: {got[fn]} {fn} launches in {batches} batches, "
+                  f"want {per} a batch")
+        check(stats["nonfinite_predictions"] == 0
+              and check_csv(ens_csv) == WF_TRAIN_VIDEOS,
+              "served ensemble: CSV or non-finite predictions")
+        eids, ens = average.load_prediction_dir(ens_dump)
+        _, aligned = average.align_members(
+            [(eids, ens)] + [average.load_prediction_dir(dumps[m])
+                             for m in members])
+        host = average.weighted_average(aligned[1:], ENSEMBLE_WEIGHTS)
+        dump_err = float(abs(ens - host).max())
+        scale = float(abs(host).max())
+        check(dump_err <= 1e-5 * scale,
+              f"served ensemble vs the host average of the member dumps: "
+              f"max|diff| {dump_err:.3e} > 1e-5 * {scale:.3e}")
+        say("ensemble", f"served on the card: {stats['num_videos']} videos, "
+                        f"{stats['videos_per_sec']:.1f} videos/s, launches a "
+                        f"batch { {k: got[k] // batches for k in ENSEMBLE_PER_BATCH} }; "
+                        f"dump vs the host average of the members' dumps: "
+                        f"max|diff| {dump_err:.3e} (bound 1e-5 * {scale:.3e})")
+        cfg = InferenceConfig(frame_features=True, feature_names="rgb,audio",
+                              feature_sizes="1024,128", num_classes=CLASSES,
+                              ensemble_train_dirs=ens_flags[0].split("=")[1],
+                              ensemble_weights=ens_flags[1].split("=")[1])
+        cpu_ens = build_ensemble(cfg, torch.device("cpu"))
+        gpu_ens = build_ensemble(cfg, dev)
+        err = compare_with_cpu(torch, gpu_ens,
+                               lambda torch, seed: (None, cpu_ens),
+                               f"{data}/validate-*.tfrecord", dev)
+        del cpu_ens, gpu_ens
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("ensemble", f"8 videos card vs CPU: max|diff| {err:.3e} <= 2e-3")
+        step = ensemble_step_ms(torch, dev, [runs[m] for m in members])
+        # (v) distillation from the ensemble's dump
+        teacher = distill.teacher_from_prediction_dir(ens_dump)
+        records = os.path.join(work, "distill_data")
+        n = distill.write_distill_dataset(f"{data}/train-*.tfrecord", teacher,
+                                          records, frame_level=True,
+                                          top_k_sparsify=64)
+        check(n == WF_TRAIN_VIDEOS, f"distill records: {n} annotated")
+        n = len(logs.messages)
+        student = os.path.join(work, "student")
+        cli_run("train student", train_cli.main, [
+            f"--train_data_pattern={records}/train-*.tfrecord",
+            f"--train_dir={student}", f"--batch_size={STUDENT_BATCH}",
+            f"--max_steps={STUDENT_STEPS}", "--log_every_n_steps=1",
+            f"--save_checkpoint_every_n_steps={STUDENT_STEPS}",
+            *FLAGSHIP_FLAGS, "--netvlad_fused_train",
+            "--distill_data_pattern=teacher",
+            "--label_loss=MixedCrossEntropyDistillLoss", *reader, *on_dev])
+        losses = losses_since(logs, n)
+        got = launches["train student"]
+        check(len(losses) == STUDENT_STEPS and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0],
+              f"distilled student: losses {losses}")
+        for fn, want in (("netvlad_core_forward", STUDENT_STEPS),
+                         ("netvlad_core_backward", STUDENT_STEPS),
+                         ("lstm_train_forward", STUDENT_STEPS * LSTM_LAYERS),
+                         ("lstm_train_backward",
+                          STUDENT_STEPS * LSTM_LAYERS)):
+            check(got[fn] == want, f"student: {fn} launched {got[fn]} "
+                                   f"times, want {want}")
+        say("ensemble", f"distilled flagship student (--netvlad_fused_train, "
+                        f"MixedCrossEntropyDistillLoss, batch "
+                        f"{STUDENT_BATCH}): losses {losses} in "
+                        f"{seconds['train student']:.1f} s")
+        shutil.rmtree(student, ignore_errors=True)
+        shutil.rmtree(records, ignore_errors=True)
+        # (vi) boosting from DbofModel's train dump
+        weights = os.path.join(work, "boost_weights.npz")
+        boosting.main([f"--predictions_dir={dumps['DbofModel']}",
+                       f"--train_data_pattern={data}/train-*.tfrecord",
+                       f"--output={weights}", f"--num_classes={CLASSES}"])
+        check(len(boosting.load_boost_weights(weights)) == WF_TRAIN_VIDEOS,
+              "boost weights")
+        n = len(logs.messages)
+        cli_run("train boosted", train_cli.main, [
+            f"--train_data_pattern={data}/train-*.tfrecord",
+            f"--train_dir={work}/boosted", f"--batch_size={STUDENT_BATCH}",
+            f"--max_steps={STUDENT_STEPS}", "--log_every_n_steps=1",
+            f"--save_checkpoint_every_n_steps={STUDENT_STEPS}",
+            *DBOF_FLAGS, f"--boost_weights_file={weights}",
+            *reader, *on_dev])
+        losses = losses_since(logs, n)
+        check(len(losses) == STUDENT_STEPS and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0], f"boosted DbofModel: {losses}")
+        say("ensemble", f"boosted DbofModel (--boost_weights_file): losses "
+                        f"{losses}")
+        shutil.rmtree(f"{work}/boosted", ignore_errors=True)
+        # (vii) the mean of DbofModel's last two checkpoints, served
+        hp = ModelHParams(vocab_size=CLASSES, feature_dim=FEATURE_DIM,
+                          max_frames=300, dbof_cluster_size=CLUSTERS,
+                          dbof_hidden_size=HIDDEN, iterations=FRAMES,
+                          moe_num_mixtures=MIXTURES)
+        model = average_checkpoint_weights(runs["DbofModel"],
+                                           get_model("DbofModel", hp),
+                                           last_n=2)
+        avg_csv = os.path.join(work, "averaged.csv")
+        wrappers = zero_launches()
+        stats = inference(InferenceConfig(
+            input_data_pattern=f"{data}/validate-*.tfrecord",
+            output_file=avg_csv, batch_size=E2E_BATCH,
+            frame_features=True, feature_names="rgb,audio",
+            feature_sizes="1024,128", num_classes=CLASSES,
+            device=dev.type), model=model.to(dev).eval())
+        launches["averaged checkpoints"] = read_launches(torch, wrappers)
+        check(stats["nonfinite_predictions"] == 0
+              and check_csv(avg_csv) == WF_EVAL_VIDEOS
+              and launches["averaged checkpoints"][
+                  "dbof_cluster_maxpool_v2"] == -(-WF_EVAL_VIDEOS // E2E_BATCH),
+              "the averaged checkpoints: CSV, non-finite or launches")
+        say("ensemble", f"DbofModel's last two checkpoints averaged and "
+                        f"served: {stats['num_videos']} videos, CSV ok")
+        del model
+    finally:
+        logger.removeHandler(logs)
+        for run in runs.values():
+            shutil.rmtree(run, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": seconds, "step": step}
+
+
 def main() -> int:
     import torch
 
@@ -4277,9 +4736,12 @@ def main() -> int:
                            ("exact_topk", "netvlad_aggregate",
                             "moe_head_serving")),
         ]
+        phase_done("7 workflows")
+        readers = reader_phase(torch, dev, work)
+        ensembles = ensemble_workflow(torch, dev, work, data)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    phase_done("7 workflows")
+    phase_done("8 readers and the ensemble workflow")
     # Launches on the main paths: DBoF's on the DbofModel serving path,
     # the int8 DBoF's on DbofModel's with --dbof_int8_serving (DBoF v1,
     # the sampled DBoF and dequant_affine_matmul lie on no model's path,
@@ -4305,8 +4767,10 @@ def main() -> int:
     path_runs = [r["launches"] for r in (*e2e.values(), *steps, training,
                                          fused, gru_training,
                                          nextvlad_training, *zoo_training)]
-    for run in (default, workflow, *short_runs):
+    for run in (default, workflow, *short_runs, ensembles):
         path_runs += list(run["launches"].values())
+    served = ensembles["launches"]["serve ensemble"]
+    student = ensembles["launches"]["train student"]
     for row in rows:
         if row["name"] in trained:
             run, prefix = trained[row["name"]]
@@ -4314,6 +4778,10 @@ def main() -> int:
             bwd = run["launches"][f"{prefix}_backward"]
             row.update(launches=fwd + bwd, launches_forward=fwd,
                        launches_backward=bwd)
+            if prefix == "lstm_train":
+                row["launches_by_path"] = {
+                    "distilled student": student["lstm_train_forward"]
+                    + student["lstm_train_backward"]}
             continue
         if row["name"] == "netvlad_core":
             runs = [v for k, v in workflow["launches"].items()
@@ -4321,7 +4789,9 @@ def main() -> int:
             fwd = sum(r["netvlad_core_forward"] for r in runs)
             bwd = sum(r["netvlad_core_backward"] for r in runs)
             row.update(launches=fwd + bwd, launches_forward=fwd,
-                       launches_backward=bwd)
+                       launches_backward=bwd, launches_by_path={
+                           "distilled student": student["netvlad_core_forward"]
+                           + student["netvlad_core_backward"]})
             continue
         if row.get("on_main_path") is False:
             row["launches"] = sum(r.get(row["name"], 0) for r in path_runs)
@@ -4336,6 +4806,9 @@ def main() -> int:
         row["launches_by_path"] = {
             p: r["launches"][row["name"]] for p, r in e2e.items()
             if r["launches"][row["name"]]}
+        if served.get(row["name"]):
+            row["launches_by_path"]["DbofModel + NetVladLstmModel "
+                                    "ensemble"] = served[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_forward", "launches_backward", "ms_forward",

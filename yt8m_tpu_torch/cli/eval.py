@@ -5,7 +5,8 @@
         --run_once
 
 The model is rebuilt from the run's recorded model_flags.json (explicit
-flags win) and runs on --device (default cuda).
+flags win) and runs on --device (default cuda); with
+--ensemble_train_dirs the members' weighted average is evaluated.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ def main(argv=None) -> dict:
     cfg, _ = parse_into(EvalConfig, argv, hparams_cls=ModelHParams)
     if not cfg.eval_data_pattern:
         raise SystemExit("--eval_data_pattern is required")
-    apply_recorded_model_flags(cfg, argv)
+    if not cfg.ensemble_train_dirs:
+        # An ensemble rebuilds each member from its own run's flags.
+        apply_recorded_model_flags(cfg, argv)
     return evaluation_loop(cfg)
 
 

@@ -16,26 +16,16 @@ from typing import Optional
 from yt8m_tpu_torch.data.features import get_feature_names_and_sizes
 from yt8m_tpu_torch.models.hparams import ModelHParams
 
-# flag -> why it raises. `num_devices` and `num_readers` raise above 1.
+# flag -> why it raises. `num_devices` raises above 1.
 UNPORTED = {
     "model_parallel": "tensor-parallel training (one device)",
     "fsdp_min_size": "FSDP (one device)",
     "num_devices": "multi-device training (one device)",
-    "distill_data_pattern": "distillation (no teacher reader)",
-    "boost_weights_file": "boosting weights",
     "export_model_steps": "serving export",
     "async_checkpoint": "asynchronous checkpoints",
-    "num_readers": "parallel readers (one pure-Python reader)",
-    "reader_processes": "reader processes (one pure-Python reader)",
     "adam_mu_dtype": "a bf16 Adam first moment",
-    "ensemble_train_dirs": "ensembles",
-    "ensemble_models": "ensembles",
-    "ensemble_weights": "ensembles",
-    "output_probabilities_dir": "probability dumps",
-    "output_probabilities_dtype": "probability dumps",
-    "output_probabilities_topk": "probability dumps",
 }
-_ALLOWED = {"num_devices": (None, 1), "num_readers": (0, 1)}
+_ALLOWED = {"num_devices": (None, 1)}
 
 
 class _Config:

@@ -1,7 +1,7 @@
 """YT-8M record -> batch readers (reference: readers.py).
 
 A copy of the JAX package's pure-Python reader (its shuffling, epochs,
-seed and remainder options; no distillation feature):
+seed and remainder options, and the distillation feature):
   * YT8MAggregatedFeatureReader: video-level tf.Example with float features
     (`mean_rgb`[1024], `mean_audio`[128]) concatenated per --feature_names,
     labels -> dense multi-hot over 4716 classes.
@@ -17,8 +17,12 @@ Output batch dict (numpy, host side):
     frame level: {"id": list[bytes], "features": u8 [B, F, D],
                   "labels": f32 [B, C], "num_frames": i32 [B],
                   "batch_mask": f32 [B]}
+With `distill_feature` set, a record's float feature of that name (the
+teacher's predictions, ensemble/distill.py) becomes the batch's
+"teacher" f32 [B, distill_dim], zeros for rows without it.
 `batch_mask` marks real rows in a padded final batch (eval and inference
-need every video exactly once).
+need every video exactly once). The native parser (data/pipeline.py)
+gives the same batches faster; this reader is its oracle and fallback.
 """
 
 from __future__ import annotations
@@ -44,6 +48,14 @@ class ReaderConfig:
     frame_features: bool
     num_classes: int = NUM_CLASSES
     max_frames: int = MAX_FRAMES
+    # The float feature carrying a teacher's predictions (distillation),
+    # read into batch["teacher"].
+    distill_feature: Optional[str] = None
+    distill_dim: int = NUM_CLASSES
+    # The native parser's TFRecord CRC checks: 0 off, 1 the length field's
+    # crc32c (the default), 2 also the data's. A failed check ends the
+    # shard. This reader does not check.
+    validate_crc: int = 1
 
     @property
     def names_and_sizes(self):
@@ -67,8 +79,16 @@ def _video_id(features) -> bytes:
     return vid[0] if vid else b""
 
 
+def _teacher(features, config: ReaderConfig):
+    if config.distill_feature and config.distill_feature in features:
+        return np.asarray(features[config.distill_feature][1],
+                          dtype=np.float32)
+    return None
+
+
 def parse_video_example(buf: bytes, config: ReaderConfig):
-    """One video-level tf.Example -> (id, features f32 [D], labels)."""
+    """One video-level tf.Example -> (id, features f32 [D], labels,
+    teacher f32 or None)."""
     feats = proto.decode_example(buf)
     names, sizes = config.names_and_sizes
     parts = []
@@ -81,11 +101,13 @@ def parse_video_example(buf: bytes, config: ReaderConfig):
             )
         parts.append(arr)
     labels = _labels_from_feature(feats.get("labels"))
-    return _video_id(feats), np.concatenate(parts), labels
+    return (_video_id(feats), np.concatenate(parts), labels,
+            _teacher(feats, config))
 
 
 def parse_frame_sequence_example(buf: bytes, config: ReaderConfig):
-    """One SequenceExample -> (id, u8 [max_frames, D], num_frames, labels).
+    """One SequenceExample -> (id, u8 [max_frames, D], num_frames, labels,
+    teacher f32 or None).
 
     Mirrors readers.py :: YT8MFrameFeatureReader.prepare_serialized_examples:
     decode_raw(uint8) per frame, resize_axis to max_frames (zero pad or
@@ -116,7 +138,8 @@ def parse_frame_sequence_example(buf: bytes, config: ReaderConfig):
     features = np.concatenate(per_feature, axis=1)
     num_frames = min(int(num_frames_raw or 0), max_frames)
     labels = _labels_from_feature(context.get("labels"))
-    return _video_id(context), features, num_frames, labels
+    return (_video_id(context), features, num_frames, labels,
+            _teacher(context, config))
 
 
 def _dense_labels(label_lists: Sequence[Sequence[int]], num_classes: int):
@@ -136,8 +159,8 @@ class BatchIterator:
     list is shuffled each epoch by numpy's default_rng(seed), and records
     pass through a reservoir of 4 * batch_size drawn by
     default_rng(seed + 1); the same seed gives the JAX iterator's batches
-    in its order. num_epochs=None repeats forever. The native C++ parser
-    of the JAX package is not ported.
+    in its order. num_epochs=None repeats forever. The native parser
+    (data/pipeline.py) shuffles the file list only.
     """
 
     def __init__(self, file_pattern, config: ReaderConfig, batch_size: int,
@@ -209,28 +232,35 @@ class BatchIterator:
         batch_mask[:n] = 1.0
         ids: List[bytes] = [b""] * bsz
         label_lists = []
+        teacher = None
         if cfg.frame_features:
             feats = np.zeros(
                 (bsz, cfg.max_frames, cfg.feature_dim), dtype=np.uint8
             )
             num_frames = np.zeros((bsz,), dtype=np.int32)
-            for i, (vid, x, nf, labels) in enumerate(rows):
-                ids[i] = vid
-                feats[i] = x
-                num_frames[i] = nf
-                label_lists.append(labels)
         else:
             feats = np.zeros((bsz, cfg.feature_dim), dtype=np.float32)
             num_frames = np.ones((bsz,), dtype=np.int32)
-            for i, (vid, x, labels) in enumerate(rows):
-                ids[i] = vid
-                feats[i] = x
-                label_lists.append(labels)
+        for i, row in enumerate(rows):
+            if cfg.frame_features:
+                vid, x, num_frames[i], labels, extra = row
+            else:
+                vid, x, labels, extra = row
+            ids[i] = vid
+            feats[i] = x
+            label_lists.append(labels)
+            if extra is not None:
+                if teacher is None:
+                    teacher = np.zeros((bsz, cfg.distill_dim), np.float32)
+                teacher[i] = extra
         label_lists += [[]] * (bsz - n)
-        return {
+        batch = {
             "id": ids,
             "features": feats,
             "labels": _dense_labels(label_lists, cfg.num_classes),
             "num_frames": num_frames,
             "batch_mask": batch_mask,
         }
+        if teacher is not None:
+            batch["teacher"] = teacher
+        return batch

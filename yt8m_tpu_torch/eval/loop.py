@@ -8,7 +8,9 @@ summaries under train_dir/eval, and logs the reference's line. With
 triplets cross to the host (make_sparse_eval_step); 0 is the dense path.
 Modes: one checkpoint (--run_once, or --checkpoint_step), polling for
 new checkpoints, or a sweep of every existing one (--max_evaluations=-1).
-Ensemble evaluation is not ported.
+With --ensemble_train_dirs the members' weighted average is evaluated
+(infer/ensemble_serve.py). The reader is make_batch_iterator's (the
+native parser where it builds; --num_readers, --reader_processes).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from yt8m_tpu_torch.config import EvalConfig
 from yt8m_tpu_torch.convert import load_model
-from yt8m_tpu_torch.data.readers import BatchIterator
+from yt8m_tpu_torch.data.pipeline import make_batch_iterator, reader_kind
 from yt8m_tpu_torch.device import resolve_device
 from yt8m_tpu_torch.metrics import EvaluationMetrics
 from yt8m_tpu_torch.train import losses as losses_lib
@@ -38,20 +40,29 @@ POLL_SECONDS = 10.0  # the reference eval.py's wait between polls
 def evaluate_checkpoint(config: EvalConfig,
                         step: Optional[int] = None) -> Dict:
     """Evaluate one checkpoint of config.train_dir (`step`, else
-    --checkpoint_step, else the latest); the metric dict of
-    EvaluationMetrics.get() plus videos_per_sec, step and
-    nonfinite_predictions."""
+    --checkpoint_step, else the latest), or the ensemble of
+    --ensemble_train_dirs (each member at that step, else its latest;
+    the step reported is None); the metric dict of
+    EvaluationMetrics.get() plus videos_per_sec, step,
+    nonfinite_predictions and reader (the reader that ran)."""
     cfg = config
     device = resolve_device(cfg.device)
-    model = load_model(
-        cfg.train_dir, cfg.model, cfg.resolved_hparams(), device,
-        checkpoint_step=step if step is not None else cfg.checkpoint_step,
-        use_ema_weights=cfg.use_ema_weights)
+    step = step if step is not None else cfg.checkpoint_step
+    if cfg.ensemble_train_dirs:
+        from yt8m_tpu_torch.infer.ensemble_serve import build_ensemble
+
+        model = build_ensemble(cfg, device, step=step)
+    else:
+        model = load_model(cfg.train_dir, cfg.model, cfg.resolved_hparams(),
+                           device, checkpoint_step=step,
+                           use_ema_weights=cfg.use_ema_weights)
     step = model.checkpoint_step
     loss_obj = losses_lib.get_loss(cfg.label_loss)
-    it = BatchIterator(cfg.eval_data_pattern, reader_config_from(cfg),
-                       batch_size=cfg.batch_size, shuffle=False, num_epochs=1,
-                       pad_final_batch=True)
+    it = make_batch_iterator(
+        cfg.eval_data_pattern, reader_config_from(cfg),
+        batch_size=cfg.batch_size, num_readers=cfg.num_readers,
+        reader_processes=cfg.reader_processes, shuffle=False, num_epochs=1,
+        pad_final_batch=True)
     sparse_k = int(cfg.device_metric_topk or 0)
     if sparse_k > 0:
         sparse_k = max(sparse_k, cfg.top_k)
@@ -84,6 +95,7 @@ def evaluate_checkpoint(config: EvalConfig,
     out["videos_per_sec"] = n_videos / max(time.time() - t0, 1e-9)
     out["step"] = step
     out["nonfinite_predictions"] = nonfinite
+    out["reader"] = reader_kind(it)
     if nonfinite:
         log.warning(
             "%d non-finite prediction values encountered during this "
@@ -91,7 +103,7 @@ def evaluate_checkpoint(config: EvalConfig,
             "metrics are not meaningful", nonfinite,
         )
     mean_ap = float(np.mean(out["aps"])) if out["aps"] else 0.0
-    if cfg.train_dir:
+    if cfg.train_dir and not cfg.ensemble_train_dirs:
         sw = SummaryWriter(cfg.train_dir + "/eval")
         sw.add_epoch_summary(step or 0, {
             "Avg_Hit@1": out["avg_hit_at_one"],

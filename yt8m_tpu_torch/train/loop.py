@@ -1,7 +1,10 @@
 """Training loop (reference: train.py :: Trainer; the JAX package's
 train/loop.py), on one device.
 
-Reader (shuffled, --num_epochs) -> batches on cfg.device -> make_train_step
+Reader (make_batch_iterator: the native parser, shuffled by file, with
+--num_readers threads or --reader_processes; --num_epochs; the teacher
+feature under --distill_data_pattern; example weights under
+--boost_weights_file) -> batches on cfg.device -> make_train_step
 -> a checkpoint every --save_checkpoint_every_n_steps (and at the end)
 -> every --log_every_n_steps the reference's log line (Loss, Examples/sec,
 and Hit@1, PERR and GAP of the training batch) and its summary scalars.
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from yt8m_tpu_torch.config import TrainConfig
-from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
+from yt8m_tpu_torch.data.pipeline import make_batch_iterator, reader_kind
+from yt8m_tpu_torch.data.readers import ReaderConfig
 from yt8m_tpu_torch.device import resolve_device
 from yt8m_tpu_torch.metrics import (
     calculate_gap,
@@ -45,6 +49,9 @@ from yt8m_tpu_torch.utils.summary import SummaryWriter
 log = logging.getLogger("yt8m_tpu_torch.train")
 
 BATCH_KEYS = ("features", "labels", "num_frames", "batch_mask")
+# Keys a batch carries only sometimes: the teacher's predictions
+# (distillation) and per-video loss weights (boosting).
+OPTIONAL_BATCH_KEYS = ("teacher", "example_weights")
 
 
 class NanLossDuringTrainingError(RuntimeError):
@@ -70,18 +77,26 @@ def check_loss_finite(loss: float, step: int, fail_on_nan: bool) -> None:
 
 
 def reader_config_from(cfg) -> ReaderConfig:
-    return ReaderConfig(
+    """The reader of a run's config; --distill_data_pattern reads the
+    records' "predictions" feature as the batch's teacher."""
+    rc = ReaderConfig(
         feature_names=cfg.feature_names,
         feature_sizes=cfg.feature_sizes,
         frame_features=cfg.frame_features,
         num_classes=cfg.num_classes,
         max_frames=cfg.max_frames,
     )
+    if getattr(cfg, "distill_data_pattern", ""):
+        rc.distill_feature = "predictions"
+        rc.distill_dim = cfg.num_classes
+    return rc
 
 
 def to_device(batch: dict, device) -> dict:
-    """The tensors of a reader batch on `device` (the ids stay behind)."""
-    return {k: torch.from_numpy(batch[k]).to(device) for k in BATCH_KEYS}
+    """The tensors of a reader batch on `device` (the ids stay behind),
+    with its teacher and example weights where it has them."""
+    keys = BATCH_KEYS + tuple(k for k in OPTIONAL_BATCH_KEYS if k in batch)
+    return {k: torch.from_numpy(batch[k]).to(device) for k in keys}
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -113,10 +128,22 @@ class Trainer:
                    if cfg.label_loss == "MixedCrossEntropyDistillLoss"
                    else {})
         self.loss_obj = losses_lib.get_loss(cfg.label_loss, **loss_kw)
-        self.data_iterator = BatchIterator(
+        self.data_iterator = make_batch_iterator(
             cfg.train_data_pattern, reader_config_from(cfg),
-            batch_size=cfg.batch_size, shuffle=True,
+            batch_size=cfg.batch_size, num_readers=cfg.num_readers,
+            reader_processes=cfg.reader_processes, shuffle=True,
             num_epochs=cfg.num_epochs, seed=cfg.seed, pad_final_batch=True)
+        if cfg.boost_weights_file:
+            from yt8m_tpu_torch.ensemble.boosting import (
+                BoostedIterator,
+                load_boost_weights,
+            )
+
+            self.data_iterator = BoostedIterator(
+                self.data_iterator, load_boost_weights(cfg.boost_weights_file))
+        self.reader = reader_kind(self.data_iterator)
+        log.info("reading %s with the %s reader", cfg.train_data_pattern,
+                 self.reader)
         self.state = TrainState(
             self.model, optimizer=cfg.optimizer,
             base_learning_rate=cfg.base_learning_rate,
