@@ -53,7 +53,16 @@ Phases, one line each with the elapsed seconds:
      D=1152, N=4096, bf16) and over the audio features (D=128, N=1024,
      f32), each with edge shapes (for dequant_affine_matmul M 1, 127, 129
      x N 7, 255, 257 x D 512, 1000, 1152 in bf16 and 64, 128, 200 in
-     f32) and the DBoF ones with planted hazards;
+     f32) and the DBoF ones with planted hazards; the f32 routes of
+     --compute_dtype=float32 (DBoF v2 at B=2048 with f32 W, the MoE head
+     at the flagship's B=512, H=2048 with f32 weights, netvlad_aggregate
+     at B=512 with f32 Wc, attention pooling at B=512 with an f32 query;
+     uint8 frames) and at small, odd and ragged shapes (DBoF S=40, the
+     MoE head at H = 999 and 1000 and M = 16, NetVLAD at D = 100 and
+     1001 and K = 37, attention pooling at D = 1001 and 19 heads), frames
+     past num_frames planted, each with its CUDA-event and profiler
+     times, the plain version's, the torch.matmul f32 graph's (TF32 off)
+     and its bound at the f32 rate outside the tensor cores;
   4. serving end to end through the inference CLI over synthetic
      frame-level TFRecords, for each path with the launch counts set to
      0 just before it and read just after: DbofModel at the reference
@@ -74,8 +83,13 @@ Phases, one line each with the elapsed seconds:
      DeepCombineChainModel over the frame-level ones, with the launches a
      batch that PER_BATCH fixes (3 MoE launches on each chain, 1 DBoF v2
      on GatedDbofModel, 1 netvlad_aggregate on ChainNetVladModel, no
-     recurrence launch on LayerNormLstmModel); CSV checks, and 8 videos
-     compared with the same model on the CPU;
+     recurrence launch on LayerNormLstmModel); then DbofModel, the
+     flagship, AttentionPoolingModel and NeXtVladModel at
+     --compute_dtype=float32 (a batch: 1 f32 DBoF v2 and 1 f32 MoE; 1 f32
+     netvlad_aggregate, 0 lstm_recurrence (the scan graph) and 1 f32 MoE;
+     1 f32 attention_pool and 1 f32 MoE; 0 NeXtVLAD (the plain graph) and
+     1 f32 MoE); CSV checks, and 8 videos compared with the same model on
+     the CPU;
   5. each serving step alone on frames already on the card (DbofModel at
      B=2048 with and without --dbof_int8_serving, GatedDbofModel and
      SoftDbofModel at B=2048, the others at B=512): median step time of
@@ -100,7 +114,12 @@ Phases, one line each with the elapsed seconds:
      CPU; ChainNetVladModel (plain, then --netvlad_fused_train: 1 + 1
      netvlad_core launches a step), DeepCombineChainModel, NetFVModel and
      FrameCnnModel at the JAX defaults, 8 steps each at B=256, a falling
-     loss and the step time;
+     loss and the step time; DbofModel at float32 (B=512, 7 steps, a
+     falling loss); the flagship at B=256 for 3 steps under Adam f32,
+     AdafactorOptimizer, RMSPropOptimizer, AdagradOptimizer and Adam with
+     a bf16 first moment (finite losses, step time, the optimizer state's
+     bytes beside Adam f32's), and one step of each new optimizer on 8
+     videos' gradients, card vs CPU;
   7. the reference workflow through the port's CLIs with the flagship at
      full width and --netvlad_fused_train, over synthetic frame-level
      TFRecords (256 train and 128 eval videos, 30-300 frames): cli.train
@@ -113,7 +132,11 @@ Phases, one line each with the elapsed seconds:
      on the CPU; then GruModel and NeXtVladModel each through cli.train
      (2 steps) -> cli.eval --run_once -> cli.inference on the same videos,
      and DbofModel the same way, served by eval and inference with
-     --dbof_int8_serving; the default workflow on video-level records
+     --dbof_int8_serving; DbofModel at float32 with
+     --optimizer=AdafactorOptimizer through cli.train to step 2, resumed
+     to step 4 (the step-4 checkpoint's optimizer state at step 4, its
+     moments factored), then served by cli.inference on the f32 routes;
+     the default workflow on video-level records
      (cli.train with no flag but the data and the run directory:
      LogisticModel over mean_rgb on the card, then cli.eval and
      cli.inference); ChainNetVladModel with --netvlad_fused_train through
@@ -233,9 +256,22 @@ Tolerances, max|kernel - plain| on the same inputs:
     members run the same kernels on the same batches with the same
     frame draws (the flagship draws none), so only the f32 sum of the
     two weighted terms differs.
-  * card vs CPU end to end (8 videos): probabilities within 2e-3; the
-    per-video eval loss from the workflow's checkpoint within 2e-3
-    relative.
+  * the f32 routes (DBoF v2, the MoE head, NetVLAD, attention pooling
+    with f32 weights): <= 1e-5 * max|ref| + 1e-5, NetVLAD's + 1e-8 (its
+    L2-normalised descriptor holds values near 1.8e-3 at the serving
+    shape, where + 1e-5 would let a bf16 rounding of x or Wc through).
+    Nothing is rounded on either side (TF32 is off); only the order of
+    the f32 sums differs.
+  * card vs CPU end to end (8 videos): probabilities within 2e-3, and
+    within 1e-5 * max|ref| at --compute_dtype=float32; the per-video
+    eval loss from the workflow's checkpoint within 2e-3 relative.
+  * the new optimizers' one step card vs CPU on the same gradients: each
+    parameter's move within 1e-5 * max|move on the CPU| + 2^-23 *
+    max|parameter| (f32 elementwise arithmetic; the clip's float64 norms
+    and Adafactor's means are summed in another order; the new weight is
+    rounded to f32, one step of itself where u differs in its last bits:
+    2.98e-8 on the VLAD hidden FC against a 1.9e-3 Adafactor move, read
+    on the card).
   * card vs CPU, one flagship training step (8 videos, bf16): the loss
     within 2e-3 relative, each parameter's gradient norm within 2e-2
     relative (the LSTM bound: the recurrence carries one-step bf16
@@ -2051,7 +2087,8 @@ def attention_inputs(torch, gen, b, f, d, h, x_dtype, dev):
     nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
     nf[: min(b, 3)] = torch.tensor([f, 1, 0], dtype=torch.int32)[: min(b, 3)]
     q = torch.randn(d, h, generator=gen) * d ** -0.5
-    return [t.to(dev) for t in (x, nf, q)]
+    # The bf16 route: the query in bf16, as the model's serving constant.
+    return [t.to(dev) for t in (x, nf, q.to(torch.bfloat16))]
 
 
 def attention_witness(torch, name, args, got, want) -> float:
@@ -2925,20 +2962,271 @@ def check_dequant_matmul(torch, gen, dev, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (cont.): the f32 routes (--compute_dtype=float32)
+# ---------------------------------------------------------------------------
+
+# Nothing is rounded on either side: max|kernel - plain| <= 1e-5 max|ref|
+# + 1e-5 (only the order of the f32 sums differs). NetVLAD's descriptor is
+# L2-normalised over K*D values (about 1.8e-3 each at the serving shape),
+# so its absolute term is 1e-8: a route that rounded x or Wc to bf16 would
+# exceed it.
+F32_REL = 1e-5
+NETVLAD_F32_ABS = 1e-8
+
+
+def f32_check(name, got, want, abs_=1e-5) -> float:
+    return rel_check(name, got, want, rel=F32_REL, abs_=abs_)
+
+
+def f32_timing(torch, fn, plain, library, needle, flush, reps, flops,
+               nbytes) -> dict:
+    """A route's times at its serving shape: CUDA events (median), the
+    profiler's device time, the plain version's and the library
+    yardstick's (the torch.matmul f32 graph, TF32 off), and the bound at
+    the card's f32 rate outside the tensor cores."""
+    ms = time_ms(torch, fn, reps, flush)
+    device_ms = device_us(torch, fn, needle) / 1e3
+    plain_ms = time_ms(torch, plain, 3, flush)
+    library_ms = time_ms(torch, library, 3, flush)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def say_f32(name, shape, r) -> None:
+    say("kernel", f"{name} f32 {shape}: ok, max|diff| {r['max_abs_err']:.3e}"
+                  f"; {r['ms']:.4f} ms events, {r['device_ms']:.4f} ms "
+                  f"profiler (plain {r['plain_ms']:.4f}, library "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']} at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s "
+                  f"f32)")
+
+
+def check_f32_dbof(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.dbof import (
+        dbof_cluster_maxpool_plain,
+        dbof_cluster_maxpool_v2,
+    )
+
+    def f32_inputs(b, s, d, k, dt):
+        args = dbof_inputs(torch, gen, b, s, d, k, dt, dev)
+        args[1] = args[1].float()
+        return args
+
+    for b, s, d, k, dt in ((7, 5, 64, 200, torch.uint8),
+                           (9, 32, 96, 136, torch.float32),
+                           (130, 31, 1152, 1000, torch.uint8),
+                           (1, 1, 32, 8, torch.float32),
+                           (9, 40, 160, 2056, torch.uint8)):
+        args = f32_inputs(b, s, d, k, dt)
+        f32_check(f"dbof f32 edge B={b} S={s} D={d} K={k} {dt}",
+                  dbof_cluster_maxpool_v2(*args),
+                  dbof_cluster_maxpool_plain(*args))
+    x, w, s_in, b_in, s_act, b_act = f32_inputs(6, 7, 64, 264, torch.uint8)
+    got = dbof_cluster_maxpool_v2(x, torch.full_like(w, -1.0),
+                                  torch.ones_like(s_in),
+                                  torch.full_like(b_in, 1.0), s_act,
+                                  torch.full_like(b_act, 3.0))
+    check(bool(torch.all(got == 0)),
+          "dbof f32: padded frame rows leaked into the max")
+    args = f32_inputs(BATCH, FRAMES, FEATURE_DIM, CLUSTERS, torch.uint8)
+    got = dbof_cluster_maxpool_v2(*args)
+    want = dbof_cluster_maxpool_plain(*args)
+    torch.cuda.synchronize()
+    err = f32_check("dbof_cluster_maxpool_v2 f32", got, want)
+    del got, want
+    x, w, s_in, b_in, s_act, b_act = args
+
+    def library():
+        act = torch.matmul(x.to(torch.float32) * s_in + b_in, w)
+        return torch.amax(torch.relu(act * s_act + b_act), dim=1)
+
+    r = f32_timing(
+        torch, lambda: dbof_cluster_maxpool_v2(*args),
+        lambda: dbof_cluster_maxpool_plain(*args), library, "dbof_f32",
+        flush, 5, 2.0 * BATCH * FRAMES * FEATURE_DIM * CLUSTERS,
+        BATCH * FRAMES * FEATURE_DIM + FEATURE_DIM * CLUSTERS * 4
+        + 4 * (2 * FEATURE_DIM + 2 * CLUSTERS) + BATCH * CLUSTERS * 4)
+    r["max_abs_err"] = err
+    say_f32("dbof_cluster_maxpool_v2",
+            f"B={BATCH} S={FRAMES} D={FEATURE_DIM} K={CLUSTERS}", r)
+    torch.cuda.empty_cache()
+    return r
+
+
+def check_f32_moe(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.moe_head import (
+        moe_head_plain,
+        moe_head_serving,
+        pitched,
+    )
+
+    def f32_inputs(b, h, c, m):
+        x, wg, we, be = moe_inputs(torch, gen, b, h, c, m, dev)
+        return [x, pitched(wg.float()), pitched(we.float()), be]
+
+    for b, h, c, m in ((37, 64, 83, 1), (70, 1000, 44, 2), (5, 999, 31, 16),
+                       (130, 1024, CLASSES, 4), (9, 40, 300, 3)):
+        args = f32_inputs(b, h, c, m)
+        f32_check(f"moe f32 edge B={b} H={h} C={c} M={m}",
+                  moe_head_serving(*args, m), moe_head_plain(*args, m))
+    b, h = FLAG_BATCH, VLAD_HIDDEN + LSTM_CELLS
+    args = f32_inputs(b, h, CLASSES, MIXTURES)
+    err = f32_check("moe_head_serving f32", moe_head_serving(*args, MIXTURES),
+                    moe_head_plain(*args, MIXTURES))
+    x, wg, we, be = args
+
+    def library():
+        g = torch.matmul(x, wg)
+        e = torch.matmul(x, we) + be
+        gating = torch.softmax(g.reshape(b, CLASSES, MIXTURES + 1), -1)
+        experts = torch.sigmoid(e.reshape(b, CLASSES, MIXTURES))
+        return torch.sum(gating[..., :MIXTURES] * experts, -1)
+
+    cols = CLASSES * (2 * MIXTURES + 1)
+    r = f32_timing(
+        torch, lambda: moe_head_serving(*args, MIXTURES),
+        lambda: moe_head_plain(*args, MIXTURES), library, "moe_f32", flush,
+        10, 2.0 * b * h * cols,
+        b * h * 4 + h * cols * 4 + CLASSES * MIXTURES * 4 + b * CLASSES * 4)
+    r["max_abs_err"] = err
+    say_f32("moe_head_serving", f"B={b} H={h} C={CLASSES} M={MIXTURES}", r)
+    return r
+
+
+def check_f32_netvlad(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.netvlad import (
+        netvlad_aggregate,
+        netvlad_aggregate_plain,
+    )
+    from yt8m_tpu_torch.models.frame_utils import l2_normalize
+
+    def f32_inputs(b, f, d, k, dt):
+        args = vlad_inputs(torch, gen, b, f, d, k, dt, dev)
+        args[2] = args[2].float()
+        return args
+
+    for b, f, d, k, dt in ((5, 13, 128, 8, torch.uint8),
+                           (4, 70, 100, 37, torch.float32),
+                           (3, 130, 256, 512, torch.uint8),
+                           (6, 65, 1001, 130, torch.float32),
+                           (1, 1, 128, 64, torch.uint8)):
+        args = f32_inputs(b, f, d, k, dt)
+        got = netvlad_aggregate(*args)
+        f32_check(f"netvlad f32 edge B={b} F={f} D={d} K={k} {dt}", got,
+                  netvlad_aggregate_plain(*args), abs_=NETVLAD_F32_ABS)
+        if b > 1:
+            check(bool(torch.all(got[1] == 0)),
+                  "netvlad f32: num_frames = 0 is not a zero descriptor")
+    b, f, d, k = FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM, VLAD_CLUSTERS
+    x, nf, wc, scale, bias, centers = f32_inputs(b, f, d, k, torch.uint8)
+    past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+    clean, x = pad_hazard(torch, x, past, 255)
+    args = (x, nf, wc, scale, bias, centers)
+    got = netvlad_aggregate(*args)
+    check(torch.equal(got, netvlad_aggregate(clean, *args[1:])),
+          "netvlad f32: frames past num_frames leaked")
+    err = f32_check("netvlad_aggregate f32", got,
+                    netvlad_aggregate_plain(*args), abs_=NETVLAD_F32_ABS)
+    del got, clean
+    live = torch.arange(f, device=dev)[None, :] < nf[:, None]
+
+    def library():
+        xf = x.to(torch.float32) * (4.0 / 255.0) + (4.0 / 512.0 - 2.0)
+        act = torch.matmul(xf, wc) * scale + bias
+        assign = torch.softmax(act, dim=-1) * live[..., None]
+        vlad = torch.bmm(assign.transpose(1, 2), xf)
+        vlad = vlad - assign.sum(1)[..., None] * centers
+        return l2_normalize(l2_normalize(vlad, dim=2), dim=(1, 2))
+
+    rows = int(live.sum())
+    r = f32_timing(
+        torch, lambda: netvlad_aggregate(*args),
+        lambda: netvlad_aggregate_plain(*args), library, "nv_",
+        flush, 10, 4.0 * rows * d * k,
+        rows * d + d * k * 4 + k * d * 4 + 8 * k + b * k * d * 4 + 4 * b)
+    r["max_abs_err"] = err
+    say_f32("netvlad_aggregate", f"B={b} F={f} D={d} K={k} uint8 ({rows} "
+                                 f"live frames)", r)
+    torch.cuda.empty_cache()
+    return r
+
+
+def check_f32_attention(torch, gen, dev, flush) -> dict:
+    from yt8m_tpu_torch.kernels.attention_pool import (
+        attention_pool,
+        attention_pool_plain,
+    )
+
+    def f32_inputs(b, f, d, h, dt):
+        x, nf, q = attention_inputs(torch, gen, b, f, d, h, dt, dev)
+        return [x, nf, q.float()]
+
+    for b, f, d, h, dt in ((5, 13, 32, 4, torch.uint8),
+                           (3, 70, 1001, 3, torch.float32),
+                           (4, 20, 64, 19, torch.uint8),
+                           (2, 1, 8, 1, torch.float32),
+                           (6, FLAG_FRAMES, FEATURE_DIM, 16, torch.uint8)):
+        args = f32_inputs(b, f, d, h, dt)
+        f32_check(f"attention f32 edge B={b} F={f} D={d} H={h} {dt}",
+                  attention_pool(*args), attention_pool_plain(*args))
+    b, f, d, h = FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM, ATTN_HEADS
+    x, nf, q = f32_inputs(b, f, d, h, torch.uint8)
+    past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+    past[nf <= 0] = False  # an empty video averages all its rows
+    clean, x = pad_hazard(torch, x, past, 255)
+    got = attention_pool(x, nf, q)
+    check(torch.equal(got, attention_pool(clean, nf, q)),
+          "attention_pool f32: frames past num_frames leaked")
+    err = f32_check("attention_pool f32", got, attention_pool_plain(x, nf, q))
+    del got, clean
+    live = torch.arange(f, device=dev)[None, :] < nf[:, None]
+    live[nf <= 0] = True
+
+    def library():
+        xf = x.to(torch.float32) * (4.0 / 255.0) + (4.0 / 512.0 - 2.0)
+        scores = torch.matmul(xf, q).masked_fill(~live[..., None], -1e9)
+        return torch.bmm(torch.softmax(scores, dim=1).transpose(1, 2), xf)
+
+    rows = int(live.sum())
+    r = f32_timing(
+        torch, lambda: attention_pool(x, nf, q),
+        lambda: attention_pool_plain(x, nf, q), library, "attention_f32",
+        flush, 10, 4.0 * rows * d * h,
+        rows * d + d * h * 4 + b * h * d * 4 + 4 * b)
+    r["max_abs_err"] = err
+    say_f32("attention_pool", f"B={b} F={f} D={d} H={h} uint8 ({rows} "
+                              f"frames read)", r)
+    return r
+
+
+def check_f32_routes(torch, gen, dev, flush) -> dict:
+    """The four f32 routes against their plain versions at small, odd and
+    ragged shapes and at their serving shapes, with their times: {row
+    name: the route's numbers}."""
+    return {"dbof_cluster_maxpool_v2": check_f32_dbof(torch, gen, dev, flush),
+            "moe_head_serving": check_f32_moe(torch, gen, dev, flush),
+            "netvlad_aggregate": check_f32_netvlad(torch, gen, dev, flush),
+            "attention_pool": check_f32_attention(torch, gen, dev, flush)}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving end to end, DbofModel and the flagship
 # ---------------------------------------------------------------------------
 
 
-def make_model(torch, seed: int, int8: bool = False):
+def make_model(torch, seed: int, int8: bool = False, dtype="bfloat16"):
     """DbofModel at the reference width, weights from a seed, BN
-    statistics and biases drawn; `int8` is --dbof_int8_serving."""
+    statistics and biases drawn; `int8` is --dbof_int8_serving, `dtype`
+    --compute_dtype."""
     from yt8m_tpu_torch.models import ModelHParams, get_model
 
     hp = ModelHParams(
         vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=300,
         dbof_cluster_size=CLUSTERS, dbof_hidden_size=HIDDEN,
         iterations=FRAMES, moe_num_mixtures=MIXTURES,
-        compute_dtype="bfloat16", dbof_int8_serving=int8,
+        compute_dtype=dtype, dbof_int8_serving=int8,
     )
     model = get_model("DbofModel", hp)
     gen = torch.Generator().manual_seed(seed)
@@ -2983,7 +3271,8 @@ def perturb_vectors(torch, model, gen) -> None:
     model.invalidate_serving()
 
 
-def make_flagship_model(torch, seed: int, fused_train: bool = False):
+def make_flagship_model(torch, seed: int, fused_train: bool = False,
+                        dtype="bfloat16"):
     """NetVladLstmModel at the JAX package's default widths, weights from
     a seed, non-trivial BatchNorm statistics and biases; `fused_train` is
     --netvlad_fused_train."""
@@ -2994,7 +3283,7 @@ def make_flagship_model(torch, seed: int, fused_train: bool = False):
         netvlad_cluster_size=VLAD_CLUSTERS, netvlad_hidden_size=VLAD_HIDDEN,
         netvlad_add_batch_norm=True, netvlad_gating=True,
         lstm_cells=LSTM_CELLS, lstm_layers=LSTM_LAYERS, lstm_pooling="last",
-        moe_num_mixtures=MIXTURES, compute_dtype="bfloat16",
+        moe_num_mixtures=MIXTURES, compute_dtype=dtype,
         netvlad_fused_train=fused_train,
     )
     model = get_model("NetVladLstmModel", hp)
@@ -3027,7 +3316,7 @@ def make_gru_model(torch, seed: int):
     return hp, model.eval()
 
 
-def make_attention_model(torch, seed: int):
+def make_attention_model(torch, seed: int, dtype="bfloat16"):
     """AttentionPoolingModel at the JAX package's defaults (8 heads over
     all 300 frames masked by num_frames, hidden 512 with BN, MoE M=2 over
     4716, bf16), weights from a seed, non-trivial BN statistics."""
@@ -3036,7 +3325,7 @@ def make_attention_model(torch, seed: int):
     hp = ModelHParams(
         vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=FLAG_FRAMES,
         attention_heads=ATTN_HEADS, attention_hidden_size=ATTN_HIDDEN,
-        moe_num_mixtures=MIXTURES, compute_dtype="bfloat16",
+        moe_num_mixtures=MIXTURES, compute_dtype=dtype,
     )
     model = get_model("AttentionPoolingModel", hp)
     gen = torch.Generator().manual_seed(seed)
@@ -3045,7 +3334,7 @@ def make_attention_model(torch, seed: int):
     return hp, model.eval()
 
 
-def make_nextvlad_model(torch, seed: int):
+def make_nextvlad_model(torch, seed: int, dtype="bfloat16"):
     """NeXtVladModel at the JAX package's defaults (lambda=2, G=8, K=128
     over all 300 frames masked by num_frames, hidden 1024 with BN and
     context gating, MoE M=2 over 4716, bf16), weights from a seed, BN
@@ -3057,7 +3346,7 @@ def make_nextvlad_model(torch, seed: int):
         nextvlad_expansion=NEXTVLAD_LAMBDA, nextvlad_groups=NEXTVLAD_GROUPS,
         nextvlad_cluster_size=NEXTVLAD_CLUSTERS,
         nextvlad_hidden_size=NEXTVLAD_HIDDEN, moe_num_mixtures=MIXTURES,
-        compute_dtype="bfloat16",
+        compute_dtype=dtype,
     )
     model = get_model("NeXtVladModel", hp)
     gen = torch.Generator().manual_seed(seed)
@@ -3123,6 +3412,24 @@ PER_BATCH = {
     "LogisticModel": {"moe_head_serving": 0},
     "FrameLevelLogisticModel": {"moe_head_serving": 0},
 }
+# --compute_dtype=float32: each path's launches a batch, all of the f32
+# routes where a kernel runs (the recurrence runs its scan graph and
+# NeXtVLAD the JAX model's plain graph at float32, as in the JAX package).
+F32 = "--compute_dtype=float32"
+# Card vs CPU at float32: max|diff| <= 1e-5 * max|ref| of the
+# probabilities (nothing is rounded to bf16; only the order of the f32
+# sums differs on the two devices).
+F32_CARD_VS_CPU = 1e-5
+F32_PER_BATCH = {
+    f"DbofModel {F32}": {"dbof_cluster_maxpool_v2": 1,
+                         "moe_head_serving": 1},
+    f"NetVladLstmModel {F32}": {"netvlad_aggregate": 1, "lstm_recurrence": 0,
+                                "moe_head_serving": 1},
+    f"AttentionPoolingModel {F32}": {"attention_pool": 1,
+                                     "moe_head_serving": 1},
+    f"NeXtVladModel {F32}": {"nextvlad_aggregate": 0, "moe_head_serving": 1},
+}
+PER_BATCH.update(F32_PER_BATCH)
 
 # A path's name is the model's, then the CLI flags it runs with; the
 # kernels it must launch.
@@ -3146,6 +3453,20 @@ PATHS = {
                                             "exact_topk")),
     **{name: (make_zoo_model(name), names)
        for name, names in ZOO_PATHS.items()},
+    f"DbofModel {F32}": (
+        lambda torch, seed: make_model(torch, seed, dtype="float32"),
+        ("dbof_cluster_maxpool_v2", "moe_head_serving", "exact_topk")),
+    f"NetVladLstmModel {F32}": (
+        lambda torch, seed: make_flagship_model(torch, seed,
+                                                dtype="float32"),
+        ("netvlad_aggregate", "moe_head_serving", "exact_topk")),
+    f"AttentionPoolingModel {F32}": (
+        lambda torch, seed: make_attention_model(torch, seed,
+                                                 dtype="float32"),
+        ("attention_pool", "moe_head_serving", "exact_topk")),
+    f"NeXtVladModel {F32}": (
+        lambda torch, seed: make_nextvlad_model(torch, seed, dtype="float32"),
+        ("moe_head_serving", "exact_topk")),
 }
 
 
@@ -3207,12 +3528,20 @@ def zero_launches():
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+        if hasattr(fn, "launches_f32"):
+            fn.launches_f32 = 0
     return wrappers
 
 
 def read_launches(torch, wrappers) -> dict:
+    """Each wrapper's launches, and under "<name>:f32" those of its f32
+    route (--compute_dtype=float32), which `launches` counts too."""
     torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in wrappers.items()}
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out.update({f"{name}:f32": fn.launches_f32
+                for name, fn in wrappers.items()
+                if hasattr(fn, "launches_f32")})
+    return out
 
 
 def check_csv(path: str) -> int:
@@ -3237,9 +3566,10 @@ def check_csv(path: str) -> int:
 
 
 def compare_with_cpu(torch, model, make, data_pattern, dev,
-                     frame_level=True) -> float:
+                     frame_level=True, rel=None) -> float:
     """Probabilities of 8 videos on the card vs the same model on the CPU
-    (with the same sampled frames where the model samples)."""
+    (with the same sampled frames where the model samples): within 2e-3,
+    or with `rel` (the f32 paths) within rel * max|ref|."""
     from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
 
     rc = (ReaderConfig("rgb,audio", "1024,128", frame_features=True,
@@ -3257,7 +3587,9 @@ def compare_with_cpu(torch, model, make, data_pattern, dev,
     del cpu_model
     gpu = gpu.cpu()
     err = (gpu - cpu).abs().max().item()
-    check(err <= 2e-3, f"card vs CPU probabilities: max|diff| {err:.3e}")
+    limit = 2e-3 if rel is None else rel * cpu.abs().max().item()
+    check(err <= limit, f"card vs CPU probabilities: max|diff| {err:.3e} > "
+                        f"{limit:.3e}")
     top = torch.sort(cpu, dim=1, descending=True).values
     for i in range(8):
         if top[i, TOP_K - 1] - top[i, TOP_K] > 2e-3:
@@ -3315,15 +3647,26 @@ def end_to_end(torch, dev, data, path) -> dict:
         check(launches["dbof_cluster_maxpool_int8"] == batches
               and launches["dbof_cluster_maxpool_v2"] == 0,
               f"{path}: want {batches} int8 and 0 v2 launches")
+    f32 = F32 in flags
+    for name in ("dbof_cluster_maxpool_v2", "moe_head_serving",
+                 "netvlad_aggregate", "attention_pool"):
+        # Every launch of these is of the f32 route at float32, and of
+        # the bf16 one else.
+        want = launches[name] if f32 else 0
+        check(launches[f"{name}:f32"] == want,
+              f"{path}: {launches[f'{name}:f32']} of {launches[name]} "
+              f"{name} launches took the f32 route, want {want}")
     check(stats["num_videos"] == E2E_VIDEOS, "video count")
     check(stats["nonfinite_predictions"] == 0, "non-finite predictions")
     check(check_csv(out_csv) == E2E_VIDEOS, "CSV line count")
     say("e2e", f"{path} CSV ok: {E2E_VIDEOS} lines of {TOP_K} pairs")
     cli_s = time.perf_counter() - t0
+    rel = F32_CARD_VS_CPU if f32 else None
     err = compare_with_cpu(torch, model.to(dev), make,
-                           f"{data}/{split}-*.tfrecord", dev, frame_level)
+                           f"{data}/{split}-*.tfrecord", dev, frame_level,
+                           rel)
     say("e2e", f"{path} 8 videos card vs CPU: max|diff| {err:.3e} "
-               f"<= 2e-3")
+               + (f"<= {rel} * max|ref|" if f32 else "<= 2e-3"))
     del model
     shutil.rmtree(run, ignore_errors=True)
     return {"launches": launches, "videos_per_sec": stats["videos_per_sec"],
@@ -3541,28 +3884,153 @@ def train_flagship(torch, dev, fused: bool = False) -> dict:
             "peak_gib": peak}
 
 
-def train_dbof(torch, dev) -> None:
+def train_dbof(torch, dev, dtype="bfloat16") -> dict:
     """DbofModel at bench_train.py's B=512, K=8192: no kernel in training
-    (the plain graph), a few steps, a finite loss and the step time."""
+    (the plain graph), a few steps, a finite loss and the step time; at
+    float32 (true f32: TF32 off) also a falling loss."""
     from yt8m_tpu_torch.train.losses import get_loss
     from yt8m_tpu_torch.train.state import TrainState
     from yt8m_tpu_torch.train.step import make_train_step
 
-    model = make_model(torch, seed=0)[1].to(dev).train()
+    model = make_model(torch, seed=0, dtype=dtype)[1].to(dev).train()
     state = TrainState(model, global_batch_size=DBOF_TRAIN_BATCH)
     step = make_train_step(get_loss("CrossEntropyLoss"))
     batch = train_batch(torch, dev, DBOF_TRAIN_BATCH, seed=2)
     gen = torch.Generator(device=dev).manual_seed(3)
-    timed_steps(torch, step, state, batch, 2, gen)
+    warm = timed_steps(torch, step, state, batch, 2, gen)[1]
     times, losses = timed_steps(torch, step, state, batch, 5, gen)
     check(all(math.isfinite(x) for x in losses), "DbofModel loss not finite")
+    if dtype == "float32":
+        check(losses[-1] < warm[0], f"DbofModel f32 loss did not fall: "
+                                    f"{warm + losses}")
     step_ms = statistics.median(times)
-    say("train", f"DbofModel B={DBOF_TRAIN_BATCH} K={CLUSTERS} training step: "
-                 f"median {step_ms:.3f} ms of {[round(t, 3) for t in times]} "
-                 f"-> {DBOF_TRAIN_BATCH / step_ms * 1e3:.0f} videos/s; "
-                 f"losses {[round(x, 4) for x in losses]}")
+    say("train", f"DbofModel {dtype} B={DBOF_TRAIN_BATCH} K={CLUSTERS} "
+                 f"training step: median {step_ms:.3f} ms of "
+                 f"{[round(t, 3) for t in times]} -> "
+                 f"{DBOF_TRAIN_BATCH / step_ms * 1e3:.0f} videos/s; losses "
+                 f"{[round(x, 4) for x in warm + losses]}")
     del state, model, batch
     torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "losses": warm + losses}
+
+
+# The optimizers of the JAX package's make_optimizer beyond Adam with an
+# f32 moment and SGD: (--optimizer, --adam_mu_dtype); Adam with the f32
+# moment is the baseline of their state's bytes.
+NEW_OPTIMIZERS = (("AdafactorOptimizer", "float32"),
+                  ("RMSPropOptimizer", "float32"),
+                  ("AdagradOptimizer", "float32"),
+                  ("AdamOptimizer", "bfloat16"))
+OPTIMIZER_STEPS = 3
+
+
+def state_bytes(optimizer) -> int:
+    """The bytes of an optimizer's state tensors (the step counts too)."""
+    return sum(t.numel() * t.element_size()
+               for st in optimizer.state.values() for t in st.values()
+               if hasattr(t, "numel"))
+
+
+def train_optimizers(torch, dev) -> dict:
+    """The flagship at full width (B=256) for 3 steps under each new
+    optimizer and under Adam f32 from the same weights and batch: finite
+    losses, the step time (median of the last two) and the optimizer
+    state's bytes beside Adam f32's."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    model = make_flagship_model(torch, seed=0)[1].to(dev).train()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=2)
+    out = {}
+    for name, mu in (("AdamOptimizer", "float32"), *NEW_OPTIMIZERS):
+        model.load_state_dict(init)
+        state = TrainState(model, optimizer=name, adam_mu_dtype=mu,
+                           global_batch_size=TRAIN_BATCH)
+        times, losses = timed_steps(torch, step, state, batch,
+                                    OPTIMIZER_STEPS)
+        check(all(math.isfinite(x) for x in losses),
+              f"flagship under {name} ({mu}): loss not finite: {losses}")
+        key = name if mu == "float32" else f"{name} mu={mu}"
+        out[key] = {"step_ms": statistics.median(times[1:]),
+                    "state_bytes": state_bytes(state.optimizer),
+                    "losses": losses}
+        del state
+        torch.cuda.empty_cache()
+    base = out["AdamOptimizer"]["state_bytes"]
+    for key, r in out.items():
+        r["state_vs_adam"] = r["state_bytes"] / base
+        say("train", f"flagship B={TRAIN_BATCH} under {key}: step "
+                     f"{r['step_ms']:.3f} ms (median of the last "
+                     f"{OPTIMIZER_STEPS - 1}), state {r['state_bytes'] / 1e9:.4f}"
+                     f" GB = {r['state_vs_adam']:.4f} x Adam f32's; losses "
+                     f"{[round(x, 4) for x in r['losses']]}")
+    for key in ("AdafactorOptimizer", "AdamOptimizer mu=bfloat16"):
+        check(out[key]["state_bytes"] < base,
+              f"{key}: state {out[key]['state_bytes']} B not below Adam "
+              f"f32's {base} B")
+    del model, init, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def optimizers_card_vs_cpu(torch, dev) -> dict:
+    """One training step of the flagship on 8 videos: its gradients from
+    one backward on the card, then each new optimizer's update of the same
+    weights with the same gradients on the card and on the CPU. Each
+    parameter's move within 1e-5 * max|move on the CPU| + 2^-23 *
+    max|parameter|: the same f32 elementwise arithmetic (the clip's
+    float64 norms and the factored means are summed in another order),
+    and the new weight w + u rounded to f32, where a last-bit difference
+    in u can move the rounded weight one f32 step of itself (2.98e-8
+    read on a weight near 0.3 whose Adafactor move was 1.9e-3 at most,
+    above 1e-5 of the move)."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import compute_loss
+
+    batch = train_batch(torch, dev, 8, seed=4)
+    card = make_flagship_model(torch, seed=0)[1].to(dev).train()
+    total, _, _, _ = compute_loss(card, batch, get_loss("CrossEntropyLoss"))
+    total.backward()
+    init = {n: p.detach().cpu().clone() for n, p in card.named_parameters()}
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in card.named_parameters()}
+    host = make_flagship_model(torch, seed=0)[1].train()
+    worst = {}
+    for name, mu in NEW_OPTIMIZERS:
+        moves = []
+        for model, d in ((card, dev), (host, torch.device("cpu"))):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+                    p.grad = grads[n].to(d).clone()
+            state = TrainState(model, optimizer=name, adam_mu_dtype=mu,
+                               global_batch_size=TRAIN_BATCH)
+            state.apply_gradients()
+            moves.append({n: p.detach().cpu().double() - init[n].double()
+                          for n, p in model.named_parameters()})
+            del state
+        key = name if mu == "float32" else f"{name} mu={mu}"
+        err = 0.0
+        for n, want in moves[1].items():
+            got = moves[0][n]
+            e = (got - want).abs().max().item()
+            limit = (1e-5 * want.abs().max().item() + 2.0 ** -23 * (
+                init[n].abs().max().item() + want.abs().max().item()))
+            check(e <= limit, f"{key} card vs CPU: {n} moved {e:.3e} apart "
+                              f"> {limit:.3e}")
+            err = max(err, e / max(want.abs().max().item(), 1e-30))
+        worst[key] = err
+        say("train", f"flagship one step under {key}, 8 videos, card vs "
+                     f"CPU on the same gradients: every parameter's move "
+                     f"within {err:.3e} of its largest (bound 1e-5 of it "
+                     f"plus one f32 step of the weights)")
+    del card, host, init, grads, batch
+    torch.cuda.empty_cache()
+    return worst
 
 
 def train_gru(torch, dev) -> dict:
@@ -4150,6 +4618,86 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
     return {"launches": launches, "train_s": train_s, "checkpoint_gb": size}
 
 
+def optimizer_workflow(torch, dev, work, data) -> dict:
+    """cli.train with --optimizer=AdafactorOptimizer
+    --compute_dtype=float32 (DbofModel at the reference width, B=256) to
+    step 2, then again to step 4, resumed at step 2: the optimizer's
+    factored state round-trips (the step-4 checkpoint's state counts 4
+    steps a parameter and holds the factored moments); then
+    cli.inference serves the run at --compute_dtype=float32 (a serving
+    knob, not taken from the recorded flags, as in the JAX package) on
+    the f32 routes."""
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.train.checkpoint import OPTIMIZER_FILE, step_dirs
+
+    run = os.path.join(work, "adafactor_f32_run")
+    reader = ["--frame_features=true", "--feature_names=rgb,audio",
+              "--feature_sizes=1024,128", f"--num_classes={CLASSES}",
+              f"--device={dev.type}"]
+    train = [f"--train_data_pattern={data}/train-*.tfrecord",
+             f"--train_dir={run}", f"--batch_size={TRAIN_BATCH}",
+             "--save_checkpoint_every_n_steps=2",
+             "--max_checkpoints_to_keep=1", "--log_every_n_steps=1",
+             "--optimizer=AdafactorOptimizer", F32, *DBOF_FLAGS] + reader
+    logs = LogLines()
+    logger = logging.getLogger("yt8m_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(logs)
+    try:
+        t0 = time.perf_counter()
+        for steps in (2, 4):
+            last = train_cli.main(train + [f"--max_steps={steps}"])
+            check(last == steps and step_dirs(run) == [steps],
+                  f"Adafactor f32 cli.train --max_steps={steps}: step "
+                  f"{last}, checkpoints {step_dirs(run)}")
+        train_s = time.perf_counter() - t0
+        check([int(m.group(1)) for m in logs.find(
+            r"restoring checkpoint at step (\d+)")] == [2],
+            "Adafactor f32: the second cli.train did not resume at step 2")
+        losses = [float(m.group(2)) for m in logs.find(
+            r"training step (\d+) \| Loss: (\S+)")]
+        check(len(losses) == 4 and all(map(math.isfinite, losses)),
+              f"Adafactor f32 training log lines: {losses}")
+        saved = torch.load(os.path.join(run, "4", OPTIMIZER_FILE),
+                           map_location="cpu", weights_only=False)["state"]
+        steps_seen = {int(st["step"]) for st in saved.values()}
+        factored = sum("v_row" in st for st in saved.values())
+        check(steps_seen == {4} and factored > 0,
+              f"Adafactor f32: the step-4 optimizer state counts steps "
+              f"{steps_seen}, {factored} factored moments")
+        gc.collect()
+        torch.cuda.empty_cache()
+        wrappers = zero_launches()
+        out_csv = os.path.join(work, "adafactor_f32.csv")
+        stats = inference_cli.main([
+            f"--input_data_pattern={data}/validate-*.tfrecord",
+            f"--train_dir={run}", f"--output_file={out_csv}",
+            f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
+            f"--device={dev.type}", F32])
+        launches = read_launches(torch, wrappers)
+        check(stats["nonfinite_predictions"] == 0
+              and check_csv(out_csv) == WF_EVAL_VIDEOS,
+              "Adafactor f32 cli.inference: CSV or non-finite predictions")
+        for name in ("dbof_cluster_maxpool_v2", "moe_head_serving"):
+            check(launches[name] > 0
+                  and launches[f"{name}:f32"] == launches[name],
+                  f"Adafactor f32 cli.inference: {name} launches "
+                  f"{launches[name]}, f32 route {launches[f'{name}:f32']}")
+        say("workflow", f"DbofModel {F32} --optimizer=AdafactorOptimizer: "
+                        f"cli.train to 2, resumed to 4 in {train_s:.1f} s, "
+                        f"losses {losses}; the step-4 optimizer state: "
+                        f"{len(saved)} parameters at step 4, {factored} "
+                        f"factored; cli.inference {stats['num_videos']} "
+                        f"videos, {stats['videos_per_sec']:.1f} videos/s "
+                        f"on the f32 routes")
+    finally:
+        logger.removeHandler(logs)
+        shutil.rmtree(run, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": {"inference": launches}, "losses": losses}
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the readers, and the ensemble -> distillation -> boosting
 # workflow through the CLIs
@@ -4632,6 +5180,11 @@ def main() -> int:
         say_row("(kernels line)", row)
         rows.append(row)
         torch.cuda.empty_cache()
+    # The f32 routes draw from their own generator: the phases after them
+    # keep their inputs.
+    f32_rows = check_f32_routes(torch, torch.Generator().manual_seed(2020),
+                                dev, flush)
+    torch.cuda.empty_cache()
     del flush
     check_repaired_shapes(torch, gen, dev)
     torch.cuda.empty_cache()
@@ -4685,6 +5238,7 @@ def main() -> int:
                  f"{fused['step_ms']:.3f} ms, peak {fused['peak_gib']:.2f} "
                  f"GiB")
     train_dbof(torch, dev)
+    dbof_f32 = train_dbof(torch, dev, "float32")
     train_card_vs_cpu(torch, dev)
     gru_training = train_gru(torch, dev)
     train_card_vs_cpu(torch, dev, make_gru_model, "GruModel")
@@ -4696,6 +5250,13 @@ def main() -> int:
                     train_zoo(torch, dev, "DeepCombineChainModel"),
                     train_zoo(torch, dev, "NetFVModel"),
                     train_zoo(torch, dev, "FrameCnnModel")]
+    optimizers = train_optimizers(torch, dev)
+    optimizers_cmp = optimizers_card_vs_cpu(torch, dev)
+    say("train", f"DbofModel f32 step {dbof_f32['step_ms']:.3f} ms; "
+                 "optimizers, step ms and state x Adam f32's: " + ", ".join(
+                     f"{k} {r['step_ms']:.3f} / {r['state_vs_adam']:.4f}"
+                     for k, r in optimizers.items())
+        + f"; card vs CPU moves within {max(optimizers_cmp.values()):.3e}")
     phase_done("6 training")
     work = tempfile.mkdtemp(prefix="chip_smoke_workflow_",
                             dir=os.path.join(REPO, "build"))
@@ -4736,6 +5297,7 @@ def main() -> int:
                            ("exact_topk", "netvlad_aggregate",
                             "moe_head_serving")),
         ]
+        adafactor = optimizer_workflow(torch, dev, work, data)
         phase_done("7 workflows")
         readers = reader_phase(torch, dev, work)
         ensembles = ensemble_workflow(torch, dev, work, data)
@@ -4767,7 +5329,7 @@ def main() -> int:
     path_runs = [r["launches"] for r in (*e2e.values(), *steps, training,
                                          fused, gru_training,
                                          nextvlad_training, *zoo_training)]
-    for run in (default, workflow, *short_runs, ensembles):
+    for run in (default, workflow, *short_runs, adafactor, ensembles):
         path_runs += list(run["launches"].values())
     served = ensembles["launches"]["serve ensemble"]
     student = ensembles["launches"]["train student"]
@@ -4809,6 +5371,25 @@ def main() -> int:
         if served.get(row["name"]):
             row["launches_by_path"]["DbofModel + NetVladLstmModel "
                                     "ensemble"] = served[row["name"]]
+    # The f32 routes (--compute_dtype=float32): their numbers from phase 3
+    # and their launches on the f32 serving paths of phase 4 (the f32
+    # DbofModel's for DBoF v2 and the MoE head, the f32 flagship's for
+    # NetVLAD, the f32 AttentionPoolingModel's for attention pooling).
+    f32_main = {"dbof_cluster_maxpool_v2": f"DbofModel {F32}",
+                "moe_head_serving": f"DbofModel {F32}",
+                "netvlad_aggregate": f"NetVladLstmModel {F32}",
+                "attention_pool": f"AttentionPoolingModel {F32}"}
+    for row in rows:
+        if row["name"] in f32_rows:
+            key = f"{row['name']}:f32"
+            r = dict(f32_rows[row["name"]])
+            r["launches"] = e2e[f32_main[row["name"]]]["launches"][key]
+            r["launches_by_path"] = {p: e2e[p]["launches"][key]
+                                     for p in F32_PER_BATCH
+                                     if e2e[p]["launches"][key]}
+            check(r["launches"] > 0, f"{row['name']}: its f32 route was not "
+                                     f"launched on {f32_main[row['name']]}")
+            row["compute_f32"] = r
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_forward", "launches_backward", "ms_forward",
@@ -4820,7 +5401,7 @@ def main() -> int:
              "ms_events_f32", "on_main_path", "int8_vs_bf16",
              "ms_gather_then_v2", "max_abs_err_f32", "ms_f32", "plain_ms_f32",
              "bound_ms_f32", "bound_by_f32", "library_ms_f32",
-             "launches_by_path")
+             "launches_by_path", "compute_f32")
     say("phase", "seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
     print(json.dumps({"kernels": [

@@ -58,9 +58,12 @@ def _inputs(seed, dtype, b=B, f=F, d=D, h=H):
 
 
 def _port(frames, num_frames, query):
+    """The bf16 route (the JAX kernel's and reference's default dtype):
+    the query in bf16, as the model's serving constant."""
     return tap.attention_pool(torch.from_numpy(frames),
                               torch.from_numpy(num_frames),
-                              torch.from_numpy(query)).numpy()
+                              torch.from_numpy(query).to(torch.bfloat16)
+                              ).numpy()
 
 
 def _rel_err(got, want):
@@ -151,7 +154,7 @@ def test_rounding_limit_covers_a_weight_one_step_over_a_boundary():
     (2^-8 * 1.109 against ~8.4e-4); the derived limit covers it, and
     reads one flip, at the boundary."""
     frames, nf, query, kernel = _boundary_case()
-    want = tap.attention_pool_plain(frames, nf, query)
+    want = tap.attention_pool_plain(frames, nf, query.to(torch.bfloat16))
     got = torch.matmul(kernel.transpose(1, 2), frames)
     err = (got - want).abs()
     assert err.max().item() > 1e-3 * want.abs().max().item() + 1e-5
@@ -169,7 +172,7 @@ def test_rounding_limit_refuses_a_weight_off_away_from_a_boundary():
     as a weight that differs away from a boundary, and does not cover
     it."""
     frames, nf, query, _ = _boundary_case()
-    want = tap.attention_pool_plain(frames, nf, query)
+    want = tap.attention_pool_plain(frames, nf, query.to(torch.bfloat16))
     kernel = torch.softmax(frames @ query, dim=1).to(torch.bfloat16)
     kernel[0, 1, 0] = torch.tensor(0.248046875 + 2.0 ** -10,
                                    dtype=torch.bfloat16)

@@ -563,7 +563,7 @@ def _attention_args(seed, b, f, d, h, x_dtype):
         x = torch.randn(b, f, d, generator=g)
     nf = torch.randint(1, f + 1, (b,), generator=g, dtype=torch.int32)
     nf[: min(b, 3)] = torch.tensor([f, 1, 0], dtype=torch.int32)[: min(b, 3)]
-    q = torch.randn(d, h, generator=g) * d ** -0.5
+    q = (torch.randn(d, h, generator=g) * d ** -0.5).to(torch.bfloat16)
     return x, nf, q
 
 
@@ -618,7 +618,8 @@ def test_attention_tiling_matches_jax_kernel(x_dtype):
     x, nf, q = _attention_args(11, 4, 37, 96, 8, x_dtype)
     got, _ = tiled_attention(x, nf, q, 2)
     want = np.asarray(jax_pool(jnp.asarray(x.numpy()), jnp.asarray(nf.numpy()),
-                               jnp.asarray(q.numpy()), interpret=True))
+                               jnp.asarray(q.float().numpy()),
+                               interpret=True))
     for v in range(4):
         if int(nf[v]) < 1:
             continue

@@ -77,6 +77,13 @@ csrc/hopper_product.cuh's product with its TMA-store epilogue: <= 1e-5 *
 max|ref| + 1e-6 against torch.matmul in f32 on the same bf16 operands
 (only the summation order differs). netvlad_core at K and F that cut
 its tiles: the 1e-3 bound above, its hazards bit for bit.
+The f32 routes (--compute_dtype=float32: DBoF v2, the MoE head, NetVLAD
+and attention pooling with f32 weights) against their plain versions in
+true f32 (TF32 off): max|diff| <= 1e-5 * max|ref| + 1e-5 (nothing is
+rounded on either side; only the order of the f32 sums differs), at
+the serving shapes and at small, odd and ragged ones; frames past
+num_frames change nothing. The bf16 MoE head at any H (zero fill past
+H): the DBoF bound.
 """
 
 import numpy as np
@@ -87,6 +94,7 @@ from yt8m_tpu_torch.cli import inference as cli
 from yt8m_tpu_torch.convert import load_model, save_checkpoint
 from yt8m_tpu_torch.data.readers import BatchIterator, ReaderConfig
 from yt8m_tpu_torch.data.synthetic import write_dataset
+from yt8m_tpu_torch.device import resolve_device
 from yt8m_tpu_torch.kernels import attention_pool as tap
 from yt8m_tpu_torch.kernels import dbof as tdbof
 from yt8m_tpu_torch.kernels import dequant_matmul as tdq
@@ -110,8 +118,7 @@ from yt8m_tpu_torch.train.step import compute_loss
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    return resolve_device("cuda")  # TF32 off for cuBLAS and cuDNN
 
 
 def _close(got, want, rel=1e-3):
@@ -315,8 +322,8 @@ def test_cuda_wrappers_reject_what_the_kernels_cannot_take(cuda):
         tdbof.dbof_cluster_maxpool_v2(
             torch.zeros(2, 8, 48, dtype=torch.uint8, device=cuda), w[:48],
             v[:48], v[:48], a, a)
-    with pytest.raises(ValueError):  # f32 weights: the kernel is bf16
-        tdbof.dbof_cluster_maxpool_v2(x[:, :8].contiguous(), w.float(), v,
+    with pytest.raises(ValueError):  # f16 weights: the kernels are bf16 or f32
+        tdbof.dbof_cluster_maxpool_v2(x[:, :8].contiguous(), w.half(), v,
                                       v, a, a)
     with pytest.raises(ValueError):  # M = 17 is not built
         tmoe.moe_head_serving(*_moe_args(0, 4, 32, 8, 17, cuda), 17)
@@ -521,8 +528,8 @@ def test_cuda_lstm_frozen_carry_ignores_steps_past_num_frames(cuda,
 def test_cuda_new_wrappers_reject_what_the_kernels_cannot_take(cuda):
     x, nf, wc, scale, bias, centers = _vlad_args(0, 2, 8, 128, 64,
                                                  torch.float32, cuda)
-    with pytest.raises(ValueError):  # f32 weights: the kernel is bf16
-        tvlad.netvlad_aggregate(x, nf, wc.float(), scale, bias, centers)
+    with pytest.raises(ValueError):  # f16 weights: the kernels are bf16 or f32
+        tvlad.netvlad_aggregate(x, nf, wc.half(), scale, bias, centers)
     with pytest.raises(ValueError):  # int64 frame counts
         tvlad.netvlad_aggregate(x, nf.long(), wc, scale, bias, centers)
     with pytest.raises(ValueError):  # K = 520 > 512
@@ -1252,7 +1259,7 @@ def _attention_args(seed, b, f, d, h, x_dtype, dev):
     if b > 2:
         nf[1] = 0
         nf[2] = 1
-    q = torch.randn(d, h, generator=g) * d ** -0.5
+    q = (torch.randn(d, h, generator=g) * d ** -0.5).to(torch.bfloat16)
     return [t.to(dev) for t in (x, nf, q)]
 
 
@@ -2028,3 +2035,271 @@ def test_cuda_zoo_models_match_cpu(cuda, name):
     assert tlstm.lstm_recurrence.launches == rec
     assert torch.isfinite(got).all()
     _close(got, want, rel=2e-3)
+
+
+# name -> (MoE, DBoF v2, netvlad_aggregate, attention_pool) launches a batch
+# at --compute_dtype=float32, every one on the f32 route; the recurrences
+# and NeXtVLAD take their plain graphs at f32, as the JAX models do.
+F32_ZOO = {
+    **{name: (*launches, 0) for name, launches in ZOO.items()},
+    "AttentionPoolingModel": (1, 0, 0, 1), "MultiHeadAttentionModel":
+    (1, 0, 0, 0), "DbofModel": (1, 1, 0, 0), "NeXtVladModel": (1, 0, 0, 0),
+    **{name: (1, 0, 0, 0) for name in ("LstmModel", "BiLstmModel",
+                                       "GruModel", "BiGruModel")},
+    **{name: (1, 0, 1, 0) for name in ("NetVladModel", "GatedNetVladModel",
+                                       "NetVladLstmModel",
+                                       "NetVladBiLstmModel")},
+}
+
+
+def test_f32_zoo_lists_every_model():
+    from yt8m_tpu_torch.models import list_models
+
+    assert sorted(F32_ZOO) == list_models()
+
+
+@pytest.mark.parametrize("name", sorted(F32_ZOO))
+def test_cuda_every_model_at_f32_matches_cpu(cuda, name):
+    """Each model of the zoo served at --compute_dtype=float32 on the card
+    (none raises), every launch of the four f32-capable wrappers on their
+    f32 route, none of the recurrences' or NeXtVLAD's kernels; held to
+    the CPU at f32 to 1e-5 max|ref|: only the order of the sums
+    differs."""
+    from yt8m_tpu_torch.models import is_frame_level_model
+
+    hp = ModelHParams(vocab_size=40, feature_dim=128, max_frames=30,
+                      dbof_cluster_size=256, dbof_hidden_size=96,
+                      lstm_cells=128, lstm_layers=2,
+                      netvlad_cluster_size=64, netvlad_hidden_size=96,
+                      nextvlad_cluster_size=64, nextvlad_hidden_size=96,
+                      nextvlad_groups=4, cnn_filters=96, cnn_kernel=4,
+                      chain_hidden_size=64, compute_dtype="float32")
+    model = get_model(name, hp)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    if is_frame_level_model(name):
+        feats = torch.randint(0, 256, (9, 30, 128), generator=g,
+                              dtype=torch.uint8)
+    else:
+        feats = torch.randn(9, 128, generator=g)
+    nf = torch.tensor([30, 0, 1, 7, 29, 30, 12, 3, 18], dtype=torch.int32)
+    u = torch.rand(9, hp.iterations, generator=g)
+    f32 = (tmoe.moe_head_serving, tdbof.dbof_cluster_maxpool_v2,
+           tvlad.netvlad_aggregate, tap.attention_pool)
+    others = (tlstm.lstm_recurrence, tgru.gru_recurrence,
+              tnv.nextvlad_aggregate)
+    before = [(fn.launches, fn.launches_f32) for fn in f32]
+    rest = [fn.launches for fn in others]
+    with torch.inference_mode():
+        want = model.eval()(feats, nf, u=u)["predictions"]
+        got = model.to(cuda)(feats.to(cuda), nf.to(cuda),
+                             u=u.to(cuda))["predictions"]
+    torch.cuda.synchronize()
+    counts = [(fn.launches - n, fn.launches_f32 - n32)
+              for fn, (n, n32) in zip(f32, before)]
+    assert counts == [(n, n) for n in F32_ZOO[name]]
+    assert [fn.launches for fn in others] == rest
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    got, want = got.cpu().double(), want.double()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("name", sorted(F32_ZOO))
+def test_cuda_every_model_at_f32_serves_at_the_defaults(cuda, name):
+    """Each model at the JAX package's default widths (ModelHParams())
+    and --compute_dtype=float32 serves 4 videos on the card: finite
+    probabilities, the launches of the small-width test above, all on
+    the f32 routes."""
+    from yt8m_tpu_torch.models import is_frame_level_model
+
+    hp = ModelHParams(compute_dtype="float32")
+    model = get_model(name, hp)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    if is_frame_level_model(name):
+        feats = torch.randint(0, 256, (4, hp.max_frames, hp.feature_dim),
+                              generator=g, dtype=torch.uint8)
+    else:
+        feats = torch.randn(4, hp.feature_dim, generator=g)
+    nf = torch.tensor([hp.max_frames, 0, 1, 157], dtype=torch.int32)
+    u = torch.rand(4, hp.iterations, generator=g)
+    f32 = (tmoe.moe_head_serving, tdbof.dbof_cluster_maxpool_v2,
+           tvlad.netvlad_aggregate, tap.attention_pool)
+    others = (tlstm.lstm_recurrence, tgru.gru_recurrence,
+              tnv.nextvlad_aggregate)
+    before = [(fn.launches, fn.launches_f32) for fn in f32]
+    rest = [fn.launches for fn in others]
+    with torch.inference_mode():
+        got = model.to(cuda).eval()(feats.to(cuda), nf.to(cuda),
+                                    u=u.to(cuda))["predictions"]
+    torch.cuda.synchronize()
+    counts = [(fn.launches - n, fn.launches_f32 - n32)
+              for fn, (n, n32) in zip(f32, before)]
+    assert counts == [(n, n) for n in F32_ZOO[name]]
+    assert [fn.launches for fn in others] == rest
+    assert got.shape == (4, hp.vocab_size) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+
+
+# ---------------------------------------------------------------------------
+# The f32 routes (--compute_dtype=float32)
+# ---------------------------------------------------------------------------
+
+
+def _f32_close(got, want, abs_=1e-5):
+    got = got.detach().cpu().double()
+    want = want.detach().cpu().double()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + abs_, err
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,s,d,k", [(7, 5, 64, 200), (5, 30, 1152, 8192),
+                                     (1, 1, 32, 8), (130, 31, 1152, 1000),
+                                     (9, 40, 160, 2056), (6, 32, 96, 136)])
+def test_cuda_f32_dbof_matches_plain(cuda, x_dtype, b, s, d, k):
+    args = _dbof_args(b + k, b, s, d, k, x_dtype, cuda)
+    args[1] = args[1].float()
+    before = tdbof.dbof_cluster_maxpool_v2.launches
+    got = tdbof.dbof_cluster_maxpool_v2(*args)
+    assert tdbof.dbof_cluster_maxpool_v2.launches == before + -(-s // 32)
+    _f32_close(got, tdbof.dbof_cluster_maxpool_plain(*args))
+
+
+def test_cuda_f32_dbof_masks_padded_frames(cuda):
+    x, w, s_in, b_in, s_act, b_act = _dbof_args(0, 6, 7, 64, 64,
+                                                torch.uint8, cuda)
+    got = tdbof.dbof_cluster_maxpool_v2(
+        x, torch.full(w.shape, -1.0, device=cuda), torch.ones_like(s_in),
+        torch.ones_like(b_in), s_act, torch.full_like(b_act, 3.0))
+    assert torch.all(got == 0)
+
+
+def _f32_moe_args(seed, b, h, c, m, dev):
+    x, wg, we, be = _moe_args(seed, b, h, c, m, "cpu")
+    return [x.to(dev), tmoe.pitched(wg.float().to(dev)),
+            tmoe.pitched(we.float().to(dev)), be.to(dev)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 16])
+@pytest.mark.parametrize("b,h,c", [(37, 64, 83), (130, 1024, 4716),
+                                   (512, 2048, 4716), (70, 1000, 44),
+                                   (5, 999, 31)])
+def test_cuda_f32_moe_matches_plain(cuda, m, b, h, c):
+    args = _f32_moe_args(b + c + m, b, h, c, m, cuda)
+    before = tmoe.moe_head_serving.launches
+    got = tmoe.moe_head_serving(*args, m)
+    assert tmoe.moe_head_serving.launches == before + 1
+    _f32_close(got, tmoe.moe_head_plain(*args, m))
+
+
+@pytest.mark.parametrize("h", [1000, 999, 40, 8])
+def test_cuda_moe_takes_any_hidden_size(cuda, h):
+    """The bf16 kernel at H no multiple of 32 (or of 8): x rounded at a
+    pitch of H rounded up to 8, the depth past H read as TMA's zeros."""
+    args = _moe_args(h, 70, h, 300, 2, cuda)
+    _close(tmoe.moe_head_serving(*args, 2), tmoe.moe_head_plain(*args, 2))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,f,d,k", [(5, 13, 128, 8), (3, 300, 1152, 256),
+                                     (1, 1, 128, 64), (3, 130, 256, 512),
+                                     (4, 70, 100, 37), (6, 65, 1001, 130)])
+def test_cuda_f32_netvlad_matches_plain(cuda, x_dtype, b, f, d, k):
+    args = _vlad_args(b + f + k, b, f, d, k, x_dtype, cuda)
+    args[2] = args[2].float()
+    before = tvlad.netvlad_aggregate.launches
+    got = tvlad.netvlad_aggregate(*args)
+    assert tvlad.netvlad_aggregate.launches == before + 1
+    # The L2-normalised descriptor's values are small (1/sqrt(K*D) on
+    # average): an absolute term of 1e-8 keeps a bf16 rounding out.
+    _f32_close(got, tvlad.netvlad_aggregate_plain(*args), abs_=1e-8)
+    if b > 2:
+        assert torch.all(got[1] == 0)  # num_frames = 0
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_f32_netvlad_ignores_frames_past_num_frames(cuda, x_dtype):
+    x, nf, wc, scale, bias, centers = _vlad_args(7, 6, 150, 256, 64,
+                                                 x_dtype, cuda)
+    past = torch.arange(150, device=cuda)[None, :] >= nf[:, None]
+    loud = torch.where(past[..., None], torch.as_tensor(
+        255 if x_dtype == torch.uint8 else 1e4, dtype=x.dtype, device=cuda),
+        x)
+    clean = x.masked_fill(past[..., None], 0)
+    wc = wc.float()
+    assert torch.equal(tvlad.netvlad_aggregate(loud, nf, wc, scale, bias,
+                                               centers),
+                       tvlad.netvlad_aggregate(clean, nf, wc, scale, bias,
+                                               centers))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,f,d,h", [(5, 13, 32, 4), (3, 70, 1001, 3),
+                                     (4, 20, 64, 19), (2, 1, 8, 1),
+                                     (7, 300, 1152, 8), (6, 300, 1152, 16)])
+def test_cuda_f32_attention_matches_plain(cuda, x_dtype, b, f, d, h):
+    x, nf, q = _attention_args(b + f + d + h, b, f, d, h, x_dtype, cuda)
+    q = q.float()
+    before = tap.attention_pool.launches
+    got = tap.attention_pool(x, nf, q)
+    assert tap.attention_pool.launches == before + -(-h // tap.MAX_HEADS)
+    _f32_close(got, tap.attention_pool_plain(x, nf, q))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_f32_attention_ignores_frames_past_num_frames(cuda, x_dtype):
+    x, nf, q = _attention_args(3, 64, 300, 1152, 8, x_dtype, cuda)
+    q = q.float()
+    past = torch.arange(300, device=cuda)[None, :] >= nf[:, None]
+    past[nf <= 0] = False  # an empty video averages all its rows
+    loud = torch.where(past[..., None], torch.as_tensor(
+        255 if x_dtype == torch.uint8 else 1e4, dtype=x.dtype, device=cuda),
+        x)
+    clean = x.masked_fill(past[..., None], 0)
+    assert torch.equal(tap.attention_pool(loud, nf, q),
+                       tap.attention_pool(clean, nf, q))
+
+
+def test_cuda_f32_fused_netvlad_training_matches_cpu(cuda):
+    """NetVladModel at --compute_dtype=float32 with --netvlad_fused_train:
+    netvlad_core takes the f32 act and frames (it rounds its operands to
+    bf16 at either dtype, as the JAX kernel does); one training forward
+    and backward on the card and on the CPU: the loss within 2e-3
+    relative, each gradient norm within 2e-2 (the bounds of the bf16
+    training step above: the core's bf16 operands)."""
+    hp = ModelHParams(vocab_size=40, feature_dim=128, max_frames=30,
+                      netvlad_cluster_size=64, netvlad_hidden_size=96,
+                      compute_dtype="float32", netvlad_fused_train=True)
+    g = torch.Generator().manual_seed(3)
+    batch = {
+        "features": torch.randint(0, 256, (9, 30, 128), generator=g,
+                                  dtype=torch.uint8),
+        "num_frames": torch.tensor([30, 0, 1, 7, 29, 30, 12, 3, 18],
+                                   dtype=torch.int32),
+        "labels": (torch.rand(9, 40, generator=g) < 0.1).float(),
+        "batch_mask": torch.ones(9),
+    }
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        model = get_model("NetVladModel", hp)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev).train()
+        before = (tnt.netvlad_core_forward.launches,
+                  tnt.netvlad_core_backward.launches)
+        total, _, _, _ = compute_loss(
+            model, {k: v.to(dev) for k, v in batch.items()},
+            get_loss("CrossEntropyLoss"))
+        total.backward()
+        if dev.type == "cuda":
+            assert (tnt.netvlad_core_forward.launches,
+                    tnt.netvlad_core_backward.launches) == (
+                        before[0] + 1, before[1] + 1)
+        results.append((total.item(), {
+            n: p.grad.double().norm().item()
+            for n, p in model.named_parameters()}))
+    (cpu_loss, cpu_norms), (gpu_loss, gpu_norms) = results
+    assert abs(gpu_loss - cpu_loss) <= 2e-3 * abs(cpu_loss)
+    for n, v in cpu_norms.items():
+        assert abs(gpu_norms[n] - v) <= 2e-2 * max(v, 1e-6), n

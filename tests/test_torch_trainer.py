@@ -54,12 +54,13 @@ def data(tmp_path_factory):
     return str(root / "train-*.tfrecord")
 
 
-def _jax_cfg(data, train_dir, steps, optimizer):
+def _jax_cfg(data, train_dir, steps, optimizer, adam_mu_dtype="float32"):
     return JaxTrainConfig(
         train_data_pattern=data, batch_size=8, model="NetVladModel",
         train_dir=train_dir, max_steps=steps, log_every_n_steps=1,
         num_devices=1, optimizer=optimizer, base_learning_rate=0.01,
-        learning_rate_decay_examples=16, hparams=JaxHParams(**HP), **READER)
+        learning_rate_decay_examples=16, hparams=JaxHParams(**HP),
+        adam_mu_dtype=adam_mu_dtype, **READER)
 
 
 def _port_cfg(data, train_dir, **kw):
@@ -111,22 +112,34 @@ def test_shuffled_reader_yields_the_jax_batches(data):
                 np.testing.assert_array_equal(g[key], w[key])
 
 
+# "name+bfloat16" is --optimizer=name --adam_mu_dtype=bfloat16. The
+# optimizers that follow optax's arithmetic (train/optimizers.py) take
+# SGD's bound (read: <= 9e-8); Adam with the bf16 moment takes Adam's
+# (4.9e-6 read: the clip's float64 norm can move a moment across a bf16
+# rounding boundary, tests/test_torch_optimizers.py).
 @pytest.mark.parametrize("optimizer,rtol", [("SgdOptimizer", 1e-5),
-                                            ("AdamOptimizer", 1e-3)])
+                                            ("AdamOptimizer", 1e-3),
+                                            ("AdafactorOptimizer", 1e-5),
+                                            ("RMSPropOptimizer", 1e-5),
+                                            ("AdagradOptimizer", 1e-5),
+                                            ("AdamOptimizer+bfloat16", 1e-3)])
 def test_trainer_losses_match_the_jax_trainer(data, tmp_path, optimizer,
                                               rtol):
+    optimizer, _, mu = optimizer.partition("+")
+    mu = mu or "float32"
     jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
-    assert _jax_run(_jax_cfg(data, jdir, 0, optimizer)) == 0
+    assert _jax_run(_jax_cfg(data, jdir, 0, optimizer, mu)) == 0
     variables = read_orbax(jdir, 0)
     # The port's step-0 checkpoint: JAX's initial weights, a fresh
     # optimizer (JAX's step-0 moments are zeros).
     model = get_model("NetVladModel", _port_cfg(data, pdir).resolved_hparams())
     model.load_state_dict(state_dict_from_jax(variables))
-    CheckpointManager(pdir).force_save(0, TrainState(model,
-                                                     optimizer=optimizer))
-    assert _jax_run(_jax_cfg(data, jdir, 6, optimizer)) == 6
+    CheckpointManager(pdir).force_save(0, TrainState(
+        model, optimizer=optimizer, adam_mu_dtype=mu))
+    assert _jax_run(_jax_cfg(data, jdir, 6, optimizer, mu)) == 6
     trainer = tloop.Trainer(_port_cfg(data, pdir, max_steps=6,
-                                      optimizer=optimizer))
+                                      optimizer=optimizer,
+                                      adam_mu_dtype=mu))
     assert trainer.run() == 6
     want, got = _losses(jdir), _losses(pdir)
     assert sorted(got) == sorted(want) == [1, 2, 3, 4, 5, 6]
@@ -278,9 +291,12 @@ def test_use_ema_weights_without_decay_and_unported_flags_fail_fast(
         tloop.Trainer(_port_cfg(data, str(tmp_path), use_ema_weights=True))
     for kw in (dict(model_parallel=2), dict(fsdp_min_size=1000),
                dict(num_devices=4), dict(export_model_steps=10),
-               dict(async_checkpoint=True), dict(adam_mu_dtype="bfloat16")):
+               dict(async_checkpoint=True)):
         with pytest.raises(ValueError, match="not ported"):
             _port_cfg(data, str(tmp_path), **kw)
+    # --adam_mu_dtype=bfloat16 is ported (train/optimizers.py).
+    assert _port_cfg(data, str(tmp_path),
+                     adam_mu_dtype="bfloat16").adam_mu_dtype == "bfloat16"
     from yt8m_tpu_torch.config import EvalConfig, InferenceConfig
 
     # The reader, distillation, boosting, ensemble and dump flags are

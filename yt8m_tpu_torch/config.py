@@ -23,7 +23,6 @@ UNPORTED = {
     "num_devices": "multi-device training (one device)",
     "export_model_steps": "serving export",
     "async_checkpoint": "asynchronous checkpoints",
-    "adam_mu_dtype": "a bf16 Adam first moment",
 }
 _ALLOWED = {"num_devices": (None, 1)}
 

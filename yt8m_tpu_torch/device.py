@@ -2,6 +2,13 @@
 
 Entry points run on the card unless the caller asks for the CPU. Asking
 for CUDA where there is none raises: nothing falls back silently.
+
+On the card every entry point computes float32 as float32: resolving a
+CUDA device turns TF32 off for matrix products and for cuDNN's
+convolutions (cuDNN allows it by default, so FrameCnnModel's f32 conv1d
+would keep about three decimal digits). At --compute_dtype=float32 that
+is the reference's arithmetic; at bf16 nothing changes, since operands
+rounded to bf16 are exact in TF32.
 """
 
 from __future__ import annotations
@@ -17,4 +24,7 @@ def resolve_device(device=None) -> torch.device:
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -645,7 +645,7 @@ def run_attn_topk(out_path, library="0"):
             x = torch.randn(b, f, d, generator=gen)
         nf = torch.randint(1, f + 1, (b,), generator=gen, dtype=torch.int32)
         nf[:3] = torch.tensor([f, 1, 0], dtype=torch.int32)
-        q = torch.randn(d, h, generator=gen) * d ** -0.5
+        q = (torch.randn(d, h, generator=gen) * d ** -0.5).to(torch.bfloat16)
         args = [t.cuda() for t in (x, nf, q)]
         key = f"attention {str(dt).split('.')[-1]}"
         got = tap.attention_pool(*args)

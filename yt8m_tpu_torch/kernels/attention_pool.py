@@ -9,12 +9,18 @@ float32 as they are):
     attn   = softmax over t of scores            (f32)
     pooled = round(attn)^T @ round(x)            [H, D]  (f32 sums)
 
-`round` is the cast to bf16. A video with num_frames = 0 takes the mean
-over its F rows (every score -1e9, a uniform softmax), as the JAX
+`round` is the cast to the compute dtype, Q's dtype (an f32 Q selects
+the f32 route, any other is rounded to bf16). A video with num_frames =
+0 takes the mean over its F rows (every score -1e9, a uniform softmax), as the JAX
 package's attention_pool_reference and its model's graph do; its TPU
 kernel pads F to a multiple of 8 and averages the padded rows as well.
 
-The CUDA kernel (csrc/attention_pool.cu) is bound by the bytes of the
+At f32 (--compute_dtype=float32) nothing is rounded, as in the TPU
+kernel at dtype=float32: csrc/attention_pool.cu's f32 kernel (a block a
+video, both products and the softmax in plain f32, no TF32) takes any D
+and up to 16 heads a launch.
+
+The bf16 CUDA kernel (csrc/attention_pool.cu) is bound by the bytes of the
 frames. A persistent grid (a block an SM) takes videos from a counter in
 device memory; a producer thread streams a video's live rows into a ring
 of 16-frame stages (a TMA load a stage, the 128-byte swizzle); pass 1
@@ -61,24 +67,31 @@ ALIGN = 1024       # the 128-byte swizzle's atom: the stages' alignment
 SMS = 132          # an H100's SMs: the persistent grid's cap
 
 
-def _bf(t):
-    return t.to(torch.bfloat16).to(torch.float32)
+def compute_dtype(query):
+    """The route's compute dtype: float32 for an f32 query, else bf16."""
+    return torch.float32 if query.dtype == torch.float32 else torch.bfloat16
+
+
+def _round(t, dtype):
+    return t.to(dtype).to(torch.float32)
 
 
 def attention_pool_plain(frames, num_frames, query):
     """Plain PyTorch version with the kernel's rounding points (those of
-    the JAX package's attention_pool_reference): [B, H, D] f32."""
+    the JAX package's attention_pool_reference at the compute dtype,
+    `compute_dtype(query)`): [B, H, D] f32."""
+    dtype = compute_dtype(query)
     x = frames.to(torch.float32)
     if frames.dtype == torch.uint8:
         x = dequantize(x)
-    xb = _bf(x)
-    scores = torch.matmul(xb, _bf(query))  # [B, F, H]
+    xb = _round(x, dtype)
+    scores = torch.matmul(xb, _round(query, dtype))  # [B, F, H]
     f = frames.shape[1]
     live = (torch.arange(f, device=frames.device)[None, :]
             < num_frames.to(torch.int64)[:, None])
     scores = torch.where(live[:, :, None], scores, -1e9)
     attn = torch.softmax(scores, dim=1)
-    return torch.matmul(_bf(attn).transpose(1, 2), xb)
+    return torch.matmul(_round(attn, dtype).transpose(1, 2), xb)
 
 
 def _heads_padded(h: int) -> int:
@@ -183,8 +196,9 @@ def _counter(device):
 
 def attention_pool(frames, num_frames, query):
     """[B, H, D] f32: the CUDA kernel for CUDA tensors (frames uint8 or
-    float32 [B, F, D], num_frames int32 [B], query [D, H] float), the
-    plain version for CPU tensors."""
+    float32 [B, F, D], num_frames int32 [B], query [D, H] float: f32 for
+    the f32 route, bf16 (or another dtype, rounded to bf16) for the bf16
+    one), the plain version for CPU tensors."""
     require(frames.dim() == 3, f"frames must be [B, F, D], got "
             f"{tuple(frames.shape)}")
     b, f, d = frames.shape
@@ -195,6 +209,8 @@ def attention_pool(frames, num_frames, query):
         return attention_pool_plain(frames, num_frames, query)
     require(frames.dtype in (torch.uint8, torch.float32),
             f"frames: dtype {frames.dtype}, want uint8 or float32")
+    if query.dtype == torch.float32:
+        return _launch_f32(frames, num_frames, query)
     if padded_columns(d, frames.dtype) != d:
         pad = padded_columns(d, frames.dtype) - d
         frames = torch.nn.functional.pad(frames, (0, pad))
@@ -224,7 +240,43 @@ def attention_pool(frames, num_frames, query):
     return out
 
 
+def f32_smem(f: int, d: int, h: int) -> int:
+    """Shared bytes of the f32 kernel's block: Q [8 or 16 heads][D rounded
+    up to 4] and the attention [F][8 or 16]."""
+    heads = _heads_padded(h)
+    return 4 * (heads * (-(-d // 4) * 4) + f * heads)
+
+
+def _launch_f32(frames, num_frames, query):
+    """The f32 route: csrc/attention_pool.cu's f32 kernel, up to 16 heads a
+    launch."""
+    b, f, d = frames.shape
+    h = query.shape[1]
+    if h > MAX_HEADS:
+        return torch.cat([_launch_f32(frames, num_frames, q) for q in
+                          torch.split(query, MAX_HEADS, dim=1)], dim=1)
+    require(f >= 1, "F must be at least 1")
+    require(f32_smem(f, d, h) <= SMEM_LIMIT,
+            f"F={f} and D={d} do not fit the f32 kernel's shared memory")
+    query = query.contiguous()
+    require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
+    require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
+    require_cuda_operand("query", query, torch.float32, (d, h))
+    out = torch.empty((b, h, d), dtype=torch.float32, device=frames.device)
+    entry = (_build.library().yt8m_attention_pool_f32q_u8
+             if frames.dtype == torch.uint8
+             else _build.library().yt8m_attention_pool_f32q_f32)
+    code = entry(_build.ptr(frames), _build.ptr(num_frames),
+                 _build.ptr(query), _build.ptr(out), b, f, d, h,
+                 _build.current_stream(frames.device))
+    _build.check_launch("attention_pool", code)
+    attention_pool.launches += 1
+    attention_pool.launches_f32 += 1
+    return out
+
+
 attention_pool.launches = 0
+attention_pool.launches_f32 = 0  # the f32 route's, counted in both
 
 
 class RoundingLimit(NamedTuple):

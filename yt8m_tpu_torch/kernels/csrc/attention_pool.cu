@@ -62,11 +62,28 @@
 //    video's rows into L2 when it is taken made the kernel slower on the
 //    same card: uint8 0.1130 ms against 0.1071, f32 0.3668 against
 //    0.2637.)
+//
+// The f32 route (--compute_dtype=float32, Q f32): the same function with
+// nothing rounded, as the TPU kernel computes it at dtype=float32, in
+// plain f32 FMAs (no TF32, no bf16). Bound by the f32 rate outside the
+// tensor cores at the serving shape: 5.7 GFLOP, 0.085 ms at 67 TFLOP/s,
+// against 0.05 ms for the uint8 frames' bytes. attention_f32_kernel, a
+// block a video and a thread per 4 columns (288 at D=1152): Q, transposed
+// to [heads][D] so that a lane's float4 of it is conflict-free, and the
+// video's scores stay in shared memory. Pass 1: a warp scores 4 live
+// frames at a time (Q read once for the 4), a lane 4 columns of every
+// 128, the heads' sums joined by shuffles. The softmax, a warp a head,
+// in shared memory (expf, a correctly rounded division). Pass 2: a thread
+// its 4 columns of every head over the rows (the live ones; all F for n
+// <= 0), the frames' second read from L2. A simple kernel: a video's
+// passes run in series on one block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_gemm.cuh"
 
@@ -552,6 +569,220 @@ int dispatch(const void* frames, const void* num_frames, const void* query, void
   return launch<T, 2>(frames, num_frames, query, out, counter, B, F, D, H, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The f32 route.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Frames = 4;      // frames a warp scores at once (Q read once for them)
+constexpr int kF32MaxThreads = 512;
+
+// Columns d .. d + 3 of a frame row as f32 (uint8 dequantized with the
+// plain version's two rounding points), zeros past D. Vec: D % 4 == 0
+// (one 4- or 16-byte load).
+template <typename T, bool Vec>
+__device__ __forceinline__ void load4(const T* row, int d, int D, float (&v)[4]) {
+  if constexpr (std::is_same<T, uint8_t>::value) {
+    if (Vec) {
+      const uint32_t w = d < D ? __ldg(reinterpret_cast<const uint32_t*>(row + d)) : 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = d < D ? __fadd_rn(__fmul_rn(static_cast<float>((w >> (8 * e)) & 0xffu), kScale),
+                                 kBias)
+                     : 0.0f;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = d + e < D ? __fadd_rn(__fmul_rn(static_cast<float>(__ldg(row + d + e)), kScale),
+                                     kBias)
+                         : 0.0f;
+    }
+  } else {
+    if (Vec) {
+      const float4 q = d < D ? __ldg(reinterpret_cast<const float4*>(row + d))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = d + e < D ? __ldg(row + d + e) : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ float f32_warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A block a video, blockDim a multiple of 32 (a thread per 4 columns in
+// pass 2). Shared memory: Q head-major [NH][Dp] (Dp = D rounded up to 4,
+// zeros past H and D), then the scores and the attention [F][NH].
+template <typename T, int NH, bool Vec>
+__global__ void __launch_bounds__(kF32MaxThreads)
+attention_f32_kernel(const T* __restrict__ frames, const int* __restrict__ num_frames,
+                     const float* __restrict__ query, float* __restrict__ out, int F, int D,
+                     int H) {
+  extern __shared__ __align__(16) float fs[];
+  const int dp = (D + 3) / 4 * 4;
+  float* q = fs;
+  float* attn = fs + NH * dp;
+  const int b = blockIdx.x;
+  const int n = num_frames[b];
+  const int live = min(max(n, 0), F);
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < NH * dp; i += blockDim.x) {
+    const int h = i / dp;
+    const int d = i - h * dp;
+    q[i] = h < H && d < D ? __ldg(query + static_cast<size_t>(d) * H + h) : 0.0f;
+  }
+  __syncthreads();
+  const T* video = frames + static_cast<size_t>(b) * F * D;
+  if (n > 0) {
+    // Pass 1: a warp 4 frames at a time, a lane columns 4 lane + 128 j.
+    for (int t0 = kF32Frames * warp; t0 < live; t0 += kF32Frames * warps) {
+      float s[kF32Frames][NH];
+#pragma unroll
+      for (int f = 0; f < kF32Frames; ++f)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) s[f][h] = 0.0f;
+      for (int d = 4 * lane; d < D; d += 128) {
+        float x[kF32Frames][4];
+#pragma unroll
+        for (int f = 0; f < kF32Frames; ++f) {
+          if (t0 + f < live) {
+            load4<T, Vec>(video + static_cast<size_t>(t0 + f) * D, d, D, x[f]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[f][e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const float4 qv = *reinterpret_cast<const float4*>(q + h * dp + d);
+#pragma unroll
+          for (int f = 0; f < kF32Frames; ++f) {
+            float a = s[f][h];
+            a = fmaf(x[f][0], qv.x, a);
+            a = fmaf(x[f][1], qv.y, a);
+            a = fmaf(x[f][2], qv.z, a);
+            s[f][h] = fmaf(x[f][3], qv.w, a);
+          }
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < kF32Frames; ++f)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const float v = f32_warp_sum(s[f][h]);
+          if (lane == 0 && t0 + f < live) attn[(t0 + f) * NH + h] = v;
+        }
+    }
+    __syncthreads();
+    // The softmax over t < live, a warp a head (the frames past n have
+    // weight exp(-1e9 - max) = 0 exactly).
+    for (int h = warp; h < NH; h += warps) {
+      float m = -INFINITY;
+      for (int t = lane; t < live; t += 32) m = fmaxf(m, attn[t * NH + h]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sum = 0.0f;
+      for (int t = lane; t < live; t += 32) {
+        const float e = expf(attn[t * NH + h] - m);
+        attn[t * NH + h] = e;
+        sum += e;
+      }
+      sum = f32_warp_sum(sum);
+      for (int t = lane; t < live; t += 32) attn[t * NH + h] = attn[t * NH + h] / sum;
+    }
+  } else {
+    // Every score -1e9: the uniform softmax over all F frames.
+    const float u = 1.0f / static_cast<float>(F);
+    for (int i = threadIdx.x; i < F * NH; i += blockDim.x) attn[i] = u;
+  }
+  __syncthreads();
+  // Pass 2: a thread 4 columns, pooled[h][d] = sum_t attn[t][h] x[t][d].
+  const int rows = n > 0 ? live : F;
+  for (int d = 4 * threadIdx.x; d < D; d += 4 * blockDim.x) {
+    float acc[NH][4];
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][e] = 0.0f;
+    for (int t = 0; t < rows; ++t) {
+      float x[4];
+      load4<T, Vec>(video + static_cast<size_t>(t) * D, d, D, x);
+#pragma unroll
+      for (int h4 = 0; h4 < NH / 4; ++h4) {
+        const float4 a = *reinterpret_cast<const float4*>(attn + t * NH + 4 * h4);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * h4 + hh][e] = fmaf(av[hh], x[e], acc[4 * h4 + hh][e]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      if (h >= H) break;
+      float* o = out + (static_cast<size_t>(b) * H + h) * D + d;
+      if (Vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d + e < D) o[e] = acc[h][e];
+      }
+    }
+  }
+}
+
+// Shared bytes of the f32 route: Q [NH][D rounded up to 4] and the
+// attention [F][NH].
+inline size_t f32_smem(int F, int D, int nh) {
+  return (static_cast<size_t>(nh) * ((D + 3) / 4 * 4) + static_cast<size_t>(F) * nh) * 4;
+}
+
+// Threads a block: a thread per 4 columns, a multiple of 32 in [128, 512].
+inline int f32_threads(int D) {
+  const int t = ((D + 3) / 4 + 31) / 32 * 32;
+  return t < 128 ? 128 : t > kF32MaxThreads ? kF32MaxThreads : t;
+}
+
+template <typename T, int NH, bool Vec>
+int launch_f32(const void* frames, const void* num_frames, const void* query, void* out, int B,
+               int F, int D, int H, cudaStream_t st) {
+  const size_t smem = f32_smem(F, D, NH);
+  auto kernel = attention_f32_kernel<T, NH, Vec>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, f32_threads(D), smem, st>>>(static_cast<const T*>(frames),
+                                           static_cast<const int*>(num_frames),
+                                           static_cast<const float*>(query),
+                                           static_cast<float*>(out), F, D, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_f32(const void* frames, const void* num_frames, const void* query, void* out, int B,
+                 int F, int D, int H, void* stream) {
+  if (B <= 0 || F <= 0 || D <= 0 || H < 1 || H > 16 ||
+      f32_smem(F, D, H <= 8 ? 8 : 16) > static_cast<size_t>(kSmemLimit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = D % 4 == 0;
+  if (H <= 8)
+    return vec ? launch_f32<T, 8, true>(frames, num_frames, query, out, B, F, D, H, st)
+               : launch_f32<T, 8, false>(frames, num_frames, query, out, B, F, D, H, st);
+  return vec ? launch_f32<T, 16, true>(frames, num_frames, query, out, B, F, D, H, st)
+             : launch_f32<T, 16, false>(frames, num_frames, query, out, B, F, D, H, st);
+}
+
 }  // namespace
 
 // frames [B, F, D] uint8 with D a multiple of 128 (or f32, of 64), num_frames [B]
@@ -568,6 +799,21 @@ extern "C" int yt8m_attention_pool_f32(const void* frames, const void* num_frame
                                        const void* query, void* out, void* counter, int B, int F,
                                        int D, int H, void* stream) {
   return dispatch<float>(frames, num_frames, query, out, counter, B, F, D, H, stream);
+}
+
+// The f32 route (query f32): frames [B, F, D] uint8 or f32 with any D,
+// num_frames [B] int32, query [D, H] f32 with H <= 16, out [B, H, D] f32;
+// one launch on `stream`, a block a video.
+extern "C" int yt8m_attention_pool_f32q_u8(const void* frames, const void* num_frames,
+                                          const void* query, void* out, int B, int F, int D,
+                                          int H, void* stream) {
+  return dispatch_f32<uint8_t>(frames, num_frames, query, out, B, F, D, H, stream);
+}
+
+extern "C" int yt8m_attention_pool_f32q_f32(const void* frames, const void* num_frames,
+                                           const void* query, void* out, int B, int F, int D,
+                                           int H, void* stream) {
+  return dispatch_f32<float>(frames, num_frames, query, out, B, F, D, H, stream);
 }
 
 // The compiled kernel's plan for frames [*, F, D] of `esize` bytes and H

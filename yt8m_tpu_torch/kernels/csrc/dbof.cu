@@ -47,11 +47,32 @@
 //     product took 2.31 ms instead of 1.65 at B=2048 (an H100). A cluster
 //     of two blocks sharing W's stages by TMA multicast took 3.79 ms in
 //     the same call, and is not used.
+//
+// The f32 route (--compute_dtype=float32, W f32), one launch:
+// dbof_f32_kernel, the same function with nothing rounded, as the TPU
+// kernel computes it at dtype=float32: xa = x * in_scale + in_bias in
+// f32 (multiply, then add, each rounded), act = xa @ W in plain f32 FMAs
+// (f32_product.cuh: no TF32, no bf16 split), the affine, ReLU and max
+// over frames in the epilogue. At B=2048, S=30, D=1152, K=8192 it is the
+// same 1.16 TFLOP, now against the 67 TFLOP/s f32 rate: 17.3 ms at the
+// bound. A block takes 4 videos x 128 clusters: the 128 rows of its A
+// panel are 4 videos at a pitch of 32 frames (rows s >= S are zeros and
+// stay out of the max), the affine is applied as the frames are written
+// to shared memory (each sampled frame once a cluster tile: 64 times at
+// K=8192, against 64 FMAs a float loaded), W's panels arrive by cp.async.
+// The column tile runs fastest, so a video's frames are read from device
+// memory about once and W (37.7 MB in f32) is read from L2. The epilogue
+// takes each thread's max over its 4 rows of a video, then the 8 threads
+// of a video through shared memory; the relu'd values are >= 0, so the
+// max starts from 0. Two blocks an SM (128 registers a thread: ptxas
+// spills 44-68 bytes) ran 30.35 ms against 33.67 with one block an SM
+// and no spill (an H100 at 700 W, the same call).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_product.cuh"
 #include "hopper_gemm.cuh"
 #include "input_affine.cuh"
 
@@ -282,6 +303,112 @@ int launch(const void* x, const void* in_scale, const void* in_bias, const void*
   return launch_gemm(xa, w, act_scale, act_bias, out, B, S, D, K, st);
 }
 
+// ---------------------------------------------------------------------------
+// The f32 route.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Videos = 4;  // videos a tile: 128 rows at a pitch of 32
+
+template <typename T>
+struct F32Frames;
+template <>
+struct F32Frames<uint8_t> {
+  using Load = f32p::BytesA<true, f32p::Affine>;
+};
+template <>
+struct F32Frames<float> {
+  using Load = f32p::RowsA<true, f32p::Affine>;
+};
+
+// out [B, K] = max_s relu((x * in_scale + in_bias) @ w * act_scale +
+// act_bias) over x [B, S <= 32, D] (D % 32 == 0), w [D, K] f32 (K % 8 ==
+// 0), all in f32.
+template <typename T>
+__global__ void __launch_bounds__(f32p::kThreads, 2)
+dbof_f32_kernel(const T* __restrict__ x, const float* __restrict__ in_scale,
+                const float* __restrict__ in_bias, const float* __restrict__ w,
+                const float* __restrict__ act_scale, const float* __restrict__ act_bias,
+                float* __restrict__ out, int B, int S, int D, int K) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int n_ct = (K + f32p::kCols - 1) / f32p::kCols;
+  const int v0 = (blockIdx.x / n_ct) * kF32Videos;
+  const int k0 = (blockIdx.x % n_ct) * f32p::kCols;
+  const int r = threadIdx.x & (f32p::kRows - 1);
+  const int v = v0 + r / kPitch;
+  const int s = r % kPitch;
+  typename F32Frames<T>::Load la;
+  la.row = v < B && s < S ? x + (static_cast<size_t>(v) * S + s) * D : nullptr;
+  la.depth = D;
+  la.f = f32p::Affine{in_scale, in_bias};
+  f32p::PanelB<true> lb;
+  lb.base = w;
+  lb.depth = D;
+  lb.cols = K;
+  lb.ld = K;
+  lb.n0 = k0;
+  float acc[8][8];
+  f32p::product(la, lb, D, fsmem, acc);
+
+  // Each thread's max over its 4 rows of a video (rows 4 ty + i: video
+  // ty / 8; rows 64 + 4 ty + i: video 2 + ty / 8), then the video's 8
+  // threads through shared memory: red[ty][half][column].
+  const int ty = threadIdx.x >> 4;
+  float* red = fsmem;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = f32p::col_of(j);
+      const int k = k0 + col;
+      float m = 0.0f;
+      if (k < K) {
+        const float as = __ldg(act_scale + k);
+        const float ab = __ldg(act_bias + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = f32p::row_of(4 * half + i);
+          if (row % kPitch < S && v0 + row / kPitch < B)
+            m = fmaxf(m, __fadd_rn(__fmul_rn(acc[4 * half + i][j], as), ab));
+        }
+      }
+      red[(ty * 2 + half) * f32p::kCols + col] = m;
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < kF32Videos * f32p::kCols; o += f32p::kThreads) {
+    const int vv = o / f32p::kCols;
+    const int col = o % f32p::kCols;
+    const int half = vv / 2;
+    const int ty0 = (vv % 2) * 8;
+    float m = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) m = fmaxf(m, red[((ty0 + q) * 2 + half) * f32p::kCols + col]);
+    if (v0 + vv < B && k0 + col < K) out[static_cast<size_t>(v0 + vv) * K + k0 + col] = m;
+  }
+}
+
+template <typename T>
+int launch_f32(const void* x, const void* in_scale, const void* in_bias, const void* w,
+               const void* act_scale, const void* act_bias, void* out, int B, int S, int D, int K,
+               void* stream) {
+  if (bad_shape(B, S, D, K) || D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dbof_f32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               f32p::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>((B + kF32Videos - 1) / kF32Videos) *
+                           ((K + f32p::kCols - 1) / f32p::kCols);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  dbof_f32_kernel<T><<<static_cast<unsigned>(blocks), f32p::kThreads, f32p::kSmemBytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(in_scale),
+      static_cast<const float*>(in_bias), static_cast<const float*>(w),
+      static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
+      static_cast<float*>(out), B, S, D, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // xa: a work buffer of B*S*D bf16 from the caller.
@@ -301,6 +428,25 @@ extern "C" int yt8m_dbof_cluster_maxpool_f32(const void* x, const void* in_scale
                                              void* stream) {
   return launch<float>(x, in_scale, in_bias, w, act_scale, act_bias, xa, out, B, S, D, K,
                        stream);
+}
+
+// The f32 route: x [B, S <= 32, D] uint8 or f32, w [D, K] f32, out [B, K].
+extern "C" int yt8m_dbof_cluster_maxpool_f32w_u8(const void* x, const void* in_scale,
+                                                const void* in_bias, const void* w,
+                                                const void* act_scale, const void* act_bias,
+                                                void* out, int B, int S, int D, int K,
+                                                void* stream) {
+  return launch_f32<uint8_t>(x, in_scale, in_bias, w, act_scale, act_bias, out, B, S, D, K,
+                             stream);
+}
+
+extern "C" int yt8m_dbof_cluster_maxpool_f32w_f32(const void* x, const void* in_scale,
+                                                 const void* in_bias, const void* w,
+                                                 const void* act_scale, const void* act_bias,
+                                                 void* out, int B, int S, int D, int K,
+                                                 void* stream) {
+  return launch_f32<float>(x, in_scale, in_bias, w, act_scale, act_bias, out, B, S, D, K,
+                           stream);
 }
 
 // x: the full frames [B, F, D] uint8; idx: [B, S] int32 sampled indices;

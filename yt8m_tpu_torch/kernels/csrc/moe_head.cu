@@ -36,6 +36,28 @@
 //     needed here. C=4716 is not a multiple of NC: the last tile masks its
 //     classes, and TMA reads the columns past the weights as zeros.
 //
+// Any H: the rounded x is stored at a row pitch of H rounded up to 8 (a
+// TMA row stride is a multiple of 16 bytes), and the mainloop's last
+// 64-deep stage reads the columns of x and the rows of the weights past H
+// as TMA's zero fill; zero terms leave the sums exact.
+//
+// The f32 route (--compute_dtype=float32, f32 weights), one launch:
+// moe_f32_kernel, the same function with nothing rounded, as the TPU
+// kernel computes it at dtype=float32, the products in plain f32 FMAs
+// (f32_product.cuh: no TF32). Bound by the f32 rate outside the tensor
+// cores: 49.4 GFLOP at B=512, H=2048, C=4716, M=2, 0.74 ms at 67
+// TFLOP/s, against 193 MB of f32 weights (0.06 ms). A block takes 128
+// videos x NC = floor(128 / (2M + 1)) classes (M=2: 25): the 128 columns
+// of its B panel are the NC classes' gate columns, then their expert
+// columns, loaded from the two weights by scalar loads (a warp's 32
+// neighbouring columns are neighbours in device memory). The row tile
+// runs fastest, so the blocks of a class tile read its weights about at
+// once, from device memory once. The epilogue stages the sums in shared
+// memory and one thread a (video, class) combines them with expf and
+// true divisions. One block an SM: with two (128 registers a thread)
+// ptxas spilled 104-256 bytes and the call took 2.26 ms against 1.59 (an
+// H100 at 700 W, the same call).
+//
 // TMA needs row strides that are multiples of 16 bytes: the weights come
 // as views whose row stride is padded to a multiple of 8 columns
 // (kernels/moe_head.py :: pitched), C*(M+1) = 14,148 being no multiple of 8.
@@ -52,6 +74,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_product.cuh"
 #include "hopper_gemm.cuh"
 #include "input_affine.cuh"
 
@@ -215,6 +238,9 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
 }
 
 // M > 0: the instantiation for that M; M = 0: the one taking m at run time.
+// The row pitch of the rounded x: H rounded up to 8 (16-byte rows).
+inline int x_pitch(int H) { return (H + 7) / 8 * 8; }
+
 template <int M>
 int launch(const void* x, const void* wg, const void* we, const void* be, void* xa, void* out,
            int B, int H, int C, int m, int ldg, int lde, cudaStream_t st) {
@@ -222,9 +248,10 @@ int launch(const void* x, const void* wg, const void* we, const void* be, void* 
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
     err = inaff::launch_round_bf16(static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xa),
-                                   static_cast<size_t>(B), H, H, st);
+                                   static_cast<size_t>(B), H, x_pitch(H), st);
   CUtensorMap map_x, map_g, map_e;
-  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_x, xa, B, H, H, hgemm::kRows);
+  if (err == cudaSuccess)
+    err = hgemm::make_map_2d(&map_x, xa, B, H, x_pitch(H), hgemm::kRows);
   if (err == cudaSuccess) err = hgemm::make_map_2d(&map_g, wg, H, C * (m + 1), ldg, hgemm::kDepth);
   if (err == cudaSuccess) err = hgemm::make_map_2d(&map_e, we, H, C * m, lde, hgemm::kDepth);
   if (err == cudaSuccess)
@@ -237,15 +264,132 @@ int launch(const void* x, const void* wg, const void* we, const void* be, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The f32 route.
+// ---------------------------------------------------------------------------
+
+// Classes a tile of the f32 route: their gate and expert columns fill at
+// most the 128 columns of the product's B panel.
+__host__ __device__ constexpr int f32_classes(int m) { return f32p::kCols / (2 * m + 1); }
+
+// The B panel of a class tile: column j < NC (M+1) is gate column
+// c0 (M+1) + j, the next NC M columns are expert columns c0 M + ..., the
+// rest (and the columns of classes past C, and the depth past H) zeros.
+struct MoeColumns {
+  const float* wg;
+  const float* we;
+  int ldg, lde, H;
+  int gate_cols, expert_cols;  // NC (M+1), NC M
+  int g0, e0;                  // c0 (M+1), c0 M
+  int g_end, e_end;            // C (M+1), C M
+  float v[16];
+
+  __device__ __forceinline__ const float* column(int* ld) const {
+    const int c = threadIdx.x & (f32p::kCols - 1);
+    if (c < gate_cols) {
+      *ld = ldg;
+      return g0 + c < g_end ? wg + g0 + c : nullptr;
+    }
+    const int e = c - gate_cols;
+    *ld = lde;
+    return e < expert_cols && e0 + e < e_end ? we + e0 + e : nullptr;
+  }
+
+  __device__ __forceinline__ void fetch(int d0, float*) {
+    int ld = 0;
+    const float* p = column(&ld);
+    const int r0 = d0 + (threadIdx.x >> 7) * 16;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      v[i] = p != nullptr && r0 + i < H ? __ldg(p + static_cast<size_t>(r0 + i) * ld) : 0.0f;
+  }
+
+  __device__ __forceinline__ void store(float* panel) {
+    const int c = threadIdx.x & (f32p::kCols - 1);
+    const int r0 = (threadIdx.x >> 7) * 16;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) panel[(r0 + i) * f32p::kCols + c] = v[i];
+  }
+};
+
+// probs [B, C] from x [B, H] f32, wg [H, C*(M+1)] and we [H, C*M] f32 at
+// row strides ldg and lde, be [C*M] f32; all in f32.
+template <bool VecX>
+__global__ void __launch_bounds__(f32p::kThreads)
+moe_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
+               const float* __restrict__ we, const float* __restrict__ be,
+               float* __restrict__ out, int B, int H, int C, int m, int ldg, int lde) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int nc = f32_classes(m);
+  const int b0 = blockIdx.x * f32p::kRows;
+  const int c0 = blockIdx.y * nc;
+  const int r = threadIdx.x & (f32p::kRows - 1);
+  f32p::RowsA<VecX, f32p::Same> la;
+  la.row = b0 + r < B ? x + static_cast<size_t>(b0 + r) * H : nullptr;
+  la.depth = H;
+  MoeColumns lb;
+  lb.wg = wg;
+  lb.we = we;
+  lb.ldg = ldg;
+  lb.lde = lde;
+  lb.H = H;
+  lb.gate_cols = nc * (m + 1);
+  lb.expert_cols = nc * m;
+  lb.g0 = c0 * (m + 1);
+  lb.e0 = c0 * m;
+  lb.g_end = C * (m + 1);
+  lb.e_end = C * m;
+  float acc[8][8];
+  f32p::product(la, lb, H, fsmem, acc);
+  float* stage = fsmem;
+  f32p::stage_tile(acc, stage);
+  __syncthreads();
+  for (int p = threadIdx.x; p < f32p::kRows * nc; p += f32p::kThreads) {
+    const int row = p / nc;
+    const int c = p - row * nc;
+    const int b = b0 + row;
+    const int cls = c0 + c;
+    if (b >= B || cls >= C) continue;
+    const float* g = stage + row * f32p::kCols + c * (m + 1);
+    const float* e = stage + row * f32p::kCols + nc * (m + 1) + c * m;
+    float den = 0.0f;
+    float num = 0.0f;
+    for (int k = 0; k <= m; ++k) {
+      const float eg = expf(fminf(fmaxf(g[k], -80.0f), 80.0f));
+      den += eg;
+      if (k < m) {
+        const float logit = e[k] + __ldg(be + static_cast<size_t>(cls) * m + k);
+        num += eg * (1.0f / (1.0f + expf(-logit)));
+      }
+    }
+    out[static_cast<size_t>(b) * C + cls] = num / den;
+  }
+}
+
+template <bool VecX>
+int launch_f32(const void* x, const void* wg, const void* we, const void* be, void* out, int B,
+               int H, int C, int m, int ldg, int lde, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(moe_f32_kernel<VecX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               f32p::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + f32p::kRows - 1) / f32p::kRows, (C + f32_classes(m) - 1) / f32_classes(m));
+  moe_f32_kernel<VecX><<<grid, f32p::kThreads, f32p::kSmemBytes, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wg), static_cast<const float*>(we),
+      static_cast<const float*>(be), static_cast<float*>(out), B, H, C, m, ldg, lde);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x [B, H] f32; wg [H, C*(M+1)] and we [H, C*M] bf16 with row strides ldg
-// and lde (multiples of 8); be [C*M] f32; xa a [B, H] bf16 work buffer
-// from the caller; out [B, C] f32.
+// and lde (multiples of 8); be [C*M] f32; xa a [B, H rounded up to 8]
+// bf16 work buffer from the caller; out [B, C] f32.
 extern "C" int yt8m_moe_head_serving(const void* x, const void* wg, const void* we,
                                      const void* be, void* xa, void* out, int B, int H, int C,
                                      int M, int ldg, int lde, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || H % 8 != 0 || M < 1 || M > kMaxMixtures ||
+  if (B <= 0 || C <= 0 || H <= 0 || M < 1 || M > kMaxMixtures ||
       ldg < C * (M + 1) || ldg % 8 != 0 || lde < C * M || lde % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -259,6 +403,20 @@ extern "C" int yt8m_moe_head_serving(const void* x, const void* wg, const void* 
     default:  // any other M, taken at run time
       return launch<0>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
   }
+}
+
+// The f32 route: x [B, H] f32; wg [H, C*(M+1)] and we [H, C*M] f32 with
+// row strides ldg and lde; be [C*M] f32; out [B, C] f32. vec_x: H % 4 ==
+// 0 and x 16-byte aligned (float4 loads of x).
+extern "C" int yt8m_moe_head_serving_f32(const void* x, const void* wg, const void* we,
+                                         const void* be, void* out, int B, int H, int C, int M,
+                                         int ldg, int lde, int vec_x, void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || M < 1 || M > kMaxMixtures || ldg < C * (M + 1) ||
+      lde < C * M || (C + f32_classes(M) - 1) / f32_classes(M) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vec_x ? launch_f32<true>(x, wg, we, be, out, B, H, C, M, ldg, lde, st)
+               : launch_f32<false>(x, wg, we, be, out, B, H, C, M, ldg, lde, st);
 }
 
 // The tile at M mixtures: [classes a block, gate chain width, expert chain

@@ -71,6 +71,33 @@
 // of K > 256 (one global norm a video) and would leave SMs idle (a
 // cluster of 9 one-block SMs fits once or twice a GPC).
 // n = 0 gives an exact zero descriptor: no step runs, a_sum = 0, v = 0.
+//
+// The f32 route (--compute_dtype=float32, Wc f32): the same function with
+// nothing rounded, as the TPU kernel computes it at dtype=float32, both
+// products in plain f32 FMAs (f32_product.cuh: no TF32), any D and K <=
+// 512 with no padding. Bound by the f32 rate outside the tensor cores:
+// twice 2 B F D K, 0.18 TFLOP at B=512, F=300, D=1152, K=256 (2.7 ms at
+// 67 TFLOP/s on live frames). Five launches after launch 0 above (the
+// live chunks), each on live rows only:
+//  1. nv_f32_assign: act = x @ Wc * act_scale + act_bias (uint8: the
+//     unfused dequant first) into an f32 scratch [B, F, K], a block per
+//     two live 64-frame chunks of the list (the 128 rows of the
+//     product's tile) and 128 clusters.
+//  2. nv_f32_softmax: a warp per live row t < n, the softmax over K in
+//     place (expf, a correctly rounded division): the assignment.
+//  3. nv_f32_asum: a thread per (video, cluster), a_sum over t < n.
+//  4. nv_f32_aggregate: v = assign^T x - a_sum (x) centers, a block per
+//     (video, 128 clusters, 128 columns) over the video's t < n: the
+//     assignment rows are the A panel as they lie (depth-major), the
+//     frames the B panel. The epilogue stores v and each row's sum of
+//     squares over the tile's columns.
+//  5. nv_f32_normalize: a block a video, the row norms and the global
+//     norm from those sums, then each element (v / n_k) / g in place
+//     (the global sum of squares as sum_k ss_k / n_k^2, not from the
+//     rounded quotients: a difference in the last bits).
+// The two products run two blocks an SM (128 registers a thread, a few
+// spills): 4.11-4.14 ms for the call against 4.33 with one block an SM
+// (an H100 at 700 W, the same call).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +105,7 @@
 
 #include <type_traits>
 
+#include "f32_product.cuh"
 #include "hopper_gemm.cuh"
 #include "input_affine.cuh"
 
@@ -836,6 +864,351 @@ int launch(const void* x, const void* num_frames, const void* wc, const void* ac
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The f32 route.
+// ---------------------------------------------------------------------------
+
+template <typename T, bool Vec>
+struct F32Rows;
+template <bool Vec>
+struct F32Rows<uint8_t, Vec> {
+  using Load = f32p::BytesA<Vec, f32p::ConstAffine>;
+};
+template <bool Vec>
+struct F32Rows<float, Vec> {
+  using Load = f32p::RowsA<Vec, f32p::Same>;
+};
+
+template <typename T, bool Vec>
+__device__ __forceinline__ void set_elem(typename F32Rows<T, Vec>::Load& l) {
+  if constexpr (std::is_same<T, uint8_t>::value) l.f = f32p::ConstAffine{kDeqScale, kDeqBias};
+}
+
+// Launch 1. Block (i, j): live chunks 2 i and 2 i + 1 of the list (rows
+// 0..63 and 64..127 of the tile) x clusters 128 j ..; act [B, F, K].
+// VecX: D allows the operand's vector loads; VecK: K % 4 == 0 (cp.async
+// of Wc, float4 stores of act).
+template <typename T, bool VecX, bool VecK>
+__global__ void __launch_bounds__(f32p::kThreads, 2)
+nv_f32_assign(const T* __restrict__ x, const int* __restrict__ items,
+              const float* __restrict__ wc, const float* __restrict__ act_scale,
+              const float* __restrict__ act_bias, float* __restrict__ act, int F, int D, int K,
+              int chunks) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int count = items[0];
+  const int i0 = 2 * blockIdx.x;
+  if (i0 >= count) return;
+  const int k0 = blockIdx.y * f32p::kCols;
+  const int r = threadIdx.x & (f32p::kRows - 1);
+  const int it = i0 + r / kChunk < count ? items[1 + i0 + r / kChunk] : -1;
+  const int t = it < 0 ? F : (it % chunks) * kChunk + r % kChunk;
+  typename F32Rows<T, VecX>::Load la;
+  la.row = t < F ? x + (static_cast<size_t>(it / chunks) * F + t) * D : nullptr;
+  la.depth = D;
+  set_elem<T, VecX>(la);
+  f32p::PanelB<VecK> lb;
+  lb.base = wc;
+  lb.depth = D;
+  lb.cols = K;
+  lb.ld = K;
+  lb.n0 = k0;
+  float acc[8][8];
+  f32p::product(la, lb, D, fsmem, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = f32p::row_of(i);
+    const int item = i0 + row / kChunk;
+    if (item >= count) continue;
+    const int id = items[1 + item];
+    const int tt = (id % chunks) * kChunk + row % kChunk;
+    if (tt >= F) continue;
+    float* dst = act + (static_cast<size_t>(id / chunks) * F + tt) * K;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + f32p::col_of(4 * h);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = k + e < K ? __fadd_rn(__fmul_rn(acc[i][4 * h + e], __ldg(act_scale + k + e)),
+                                     __ldg(act_bias + k + e))
+                         : 0.0f;
+      if (VecK) {
+        if (k < K) *reinterpret_cast<float4*>(dst + k) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < K) dst[k + e] = v[e];
+      }
+    }
+  }
+}
+
+// Launch 2: a warp a row (b, t) of act, t < n: the softmax over K in
+// place.
+__global__ void __launch_bounds__(256)
+nv_f32_softmax(const int* __restrict__ num_frames, float* __restrict__ act, int B, int F, int K) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  if (row >= static_cast<long long>(B) * F) return;
+  const int b = static_cast<int>(row / F);
+  const int t = static_cast<int>(row % F);
+  if (t >= live_frames(num_frames, b, F)) return;
+  const int lane = threadIdx.x & 31;
+  float* a = act + row * K;
+  float m = -INFINITY;
+  for (int k = lane; k < K; k += 32) m = fmaxf(m, a[k]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float sum = 0.0f;
+  for (int k = lane; k < K; k += 32) {
+    const float e = expf(a[k] - m);
+    a[k] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  for (int k = lane; k < K; k += 32) a[k] = a[k] / sum;
+}
+
+// Launch 3: a_sum [B, K] over each video's rows t < n.
+__global__ void __launch_bounds__(256)
+nv_f32_asum(const int* __restrict__ num_frames, const float* __restrict__ assign,
+            float* __restrict__ a_sum, int B, int F, int K) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(B) * K) return;
+  const int b = static_cast<int>(i / K);
+  const int k = static_cast<int>(i % K);
+  const int n = live_frames(num_frames, b, F);
+  const float* a = assign + static_cast<size_t>(b) * F * K + k;
+  float s = 0.0f;
+  for (int t = 0; t < n; ++t) s += a[static_cast<size_t>(t) * K];
+  a_sum[i] = s;
+}
+
+// The uint8 frames as the B panel: rows t of [depth = n][D] bytes,
+// columns n0 .. n0 + 127, dequantized as they are stored; thread t takes
+// 16 bytes of panel row t / 8 (one 16-byte load when Vec: D % 16 == 0).
+template <bool Vec>
+struct BytesPanel {
+  const uint8_t* base;
+  int depth, cols, n0;
+  uint32_t w[4];
+  int d_row;
+
+  __device__ __forceinline__ void fetch(int d0, float*) {
+    const int rr = threadIdx.x >> 3;
+    const int c = n0 + (threadIdx.x & 7) * 16;
+    d_row = d0 + rr;
+    const uint8_t* p = base + static_cast<size_t>(d_row) * cols;
+    const bool row_ok = d_row < depth;
+    if (Vec) {
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (row_ok && c < cols) q = __ldg(reinterpret_cast<const uint4*>(p + c));
+      w[0] = q.x;
+      w[1] = q.y;
+      w[2] = q.z;
+      w[3] = q.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cc = c + 4 * i + e;
+          if (row_ok && cc < cols) word |= static_cast<uint32_t>(__ldg(p + cc)) << (8 * e);
+        }
+        w[i] = word;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* panel) {
+    const int rr = threadIdx.x >> 3;
+    const int cl = (threadIdx.x & 7) * 16;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float u = static_cast<float>((w[e >> 2] >> (8 * (e & 3))) & 0xffu);
+      panel[rr * f32p::kCols + cl + e] = d_row < depth && n0 + cl + e < cols
+                                             ? __fadd_rn(__fmul_rn(u, kDeqScale), kDeqBias)
+                                             : 0.0f;
+    }
+  }
+};
+
+template <typename T, bool VecX>
+struct FramePanel;
+template <bool VecX>
+struct FramePanel<uint8_t, VecX> {
+  using Load = BytesPanel<VecX>;
+};
+template <bool VecX>
+struct FramePanel<float, VecX> {
+  using Load = f32p::PanelB<VecX>;
+};
+
+// Launch 4. Block: video b, clusters 128 kt .., columns 128 dt .. (the
+// column tile fastest, then the cluster tile); out [B, K, D] gets v,
+// sumsq [B, ceil(D / 128), K] each row's sum of squares over the tile.
+template <typename T, bool VecX, bool VecK>
+__global__ void __launch_bounds__(f32p::kThreads, 2)
+nv_f32_aggregate(const T* __restrict__ x, const int* __restrict__ num_frames,
+                 const float* __restrict__ assign, const float* __restrict__ a_sum,
+                 const float* __restrict__ centers, float* __restrict__ out,
+                 float* __restrict__ sumsq, int F, int D, int K) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int n_dt = (D + f32p::kCols - 1) / f32p::kCols;
+  const int n_kt = (K + f32p::kRows - 1) / f32p::kRows;
+  const int dt = blockIdx.x % n_dt;
+  const int kt = (blockIdx.x / n_dt) % n_kt;
+  const int b = blockIdx.x / (n_dt * n_kt);
+  const int d0 = dt * f32p::kCols;
+  const int k0 = kt * f32p::kRows;
+  const int n = live_frames(num_frames, b, F);
+  f32p::PanelB<VecK> la;  // assign^T: the rows t of [n][K] as they lie
+  la.base = assign + static_cast<size_t>(b) * F * K;
+  la.depth = n;
+  la.cols = K;
+  la.ld = K;
+  la.n0 = k0;
+  typename FramePanel<T, VecX>::Load lb;
+  lb.base = x + static_cast<size_t>(b) * F * D;
+  lb.depth = n;
+  lb.cols = D;
+  if constexpr (std::is_same<T, float>::value) lb.ld = D;
+  lb.n0 = d0;
+  float acc[8][8];
+  f32p::product(la, lb, n, fsmem, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + f32p::row_of(i);
+    const bool row_ok = k < K;
+    const float as = row_ok ? a_sum[static_cast<size_t>(b) * K + k] : 0.0f;
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = d0 + f32p::col_of(j);
+      if (row_ok && d < D) {
+        const float v =
+            __fsub_rn(acc[i][j], __fmul_rn(as, centers[static_cast<size_t>(k) * D + d]));
+        out[(static_cast<size_t>(b) * K + k) * D + d] = v;
+        ss += __fmul_rn(v, v);
+      }
+    }
+    // The row's 16 threads are lanes tx of one half-warp.
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if ((threadIdx.x & 15) == 0 && row_ok)
+      sumsq[(static_cast<size_t>(b) * n_dt + dt) * K + k] = ss;
+  }
+}
+
+// Launch 5: a block a video: n_k = sqrt(max(sum_d v^2, eps^2)), g =
+// sqrt(max(sum_k sum_d (v / n_k)^2, eps^2)) from the rows' sums, then
+// out = (v / n_k) / g in place.
+__global__ void __launch_bounds__(256)
+nv_f32_normalize(const float* __restrict__ sumsq, float* __restrict__ out, int D, int K) {
+  __shared__ float norms[kMaxClusters];
+  __shared__ float part[8];
+  const int b = blockIdx.x;
+  const int n_dt = (D + f32p::kCols - 1) / f32p::kCols;
+  float g = 0.0f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    float ss = 0.0f;
+    for (int dt = 0; dt < n_dt; ++dt) ss += sumsq[(static_cast<size_t>(b) * n_dt + dt) * K + k];
+    const float nk = sqrtf(fmaxf(ss, kNormEps * kNormEps));
+    norms[k] = nk;
+    g += ss / (nk * nk);
+  }
+  g = warp_sum(g);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = g;
+  __syncthreads();
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) total += part[w];
+  const float gn = sqrtf(fmaxf(total, kNormEps * kNormEps));
+  float* o = out + static_cast<size_t>(b) * K * D;
+  const size_t n = static_cast<size_t>(K) * D;
+  for (size_t e = threadIdx.x; e < n; e += blockDim.x) o[e] = (o[e] / norms[e / D]) / gn;
+}
+
+template <typename T, bool VecX, bool VecK>
+cudaError_t launch_f32_products(const T* x, const int* nf, const int* items, const float* wc,
+                                const float* scale, const float* bias, const float* centers,
+                                float* act, float* a_sum, float* sumsq, float* out, int B, int F,
+                                int D, int K, int chunks, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(nv_f32_assign<T, VecX, VecK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         f32p::kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nv_f32_aggregate<T, VecX, VecK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, f32p::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const long long pairs = (static_cast<long long>(B) * chunks + 1) / 2;
+  const dim3 grid_a(static_cast<unsigned>(pairs), (K + f32p::kCols - 1) / f32p::kCols);
+  nv_f32_assign<T, VecX, VecK><<<grid_a, f32p::kThreads, f32p::kSmemBytes, st>>>(
+      x, items, wc, scale, bias, act, F, D, K, chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(B) * F;
+  nv_f32_softmax<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(nf, act, B, F, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long bk = static_cast<long long>(B) * K;
+  nv_f32_asum<<<static_cast<unsigned>((bk + 255) / 256), 256, 0, st>>>(nf, act, a_sum, B, F, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(B) * ((K + f32p::kRows - 1) / f32p::kRows) *
+                          ((D + f32p::kCols - 1) / f32p::kCols);
+  nv_f32_aggregate<T, VecX, VecK><<<static_cast<unsigned>(tiles), f32p::kThreads,
+                                    f32p::kSmemBytes, st>>>(x, nf, act, a_sum, centers, out,
+                                                            sumsq, F, D, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  nv_f32_normalize<<<B, 256, 0, st>>>(sumsq, out, D, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_f32(const void* x, const void* num_frames, const void* wc, const void* act_scale,
+               const void* act_bias, const void* centers, void* items, void* act, void* a_sum,
+               void* sumsq, void* out, int B, int F, int D, int K, void* stream) {
+  if (B <= 0 || F <= 0 || D <= 0 || K < 1 || K > kMaxClusters)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (F + kChunk - 1) / kChunk;
+  if (static_cast<long long>(B) * chunks >= (1LL << 31) - 1 ||
+      static_cast<long long>(B) * F >= (1LL << 34) ||
+      static_cast<long long>(B) * ((K + 127) / 128) * ((D + 127) / 128) >= (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* nf = static_cast<const int*>(num_frames);
+  int* it = static_cast<int*>(items);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nv_serve_scan<<<1, kScanThreads, 0, st>>>(nf, it, B, F, chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec_x = std::is_same<T, float>::value ? D % 4 == 0 : D % 16 == 0;
+  const bool vec_k = K % 4 == 0;
+  const T* xt = static_cast<const T*>(x);
+  const float* w = static_cast<const float*>(wc);
+  const float* sc = static_cast<const float*>(act_scale);
+  const float* bi = static_cast<const float*>(act_bias);
+  const float* cen = static_cast<const float*>(centers);
+  float* ac = static_cast<float*>(act);
+  float* as = static_cast<float*>(a_sum);
+  float* ss = static_cast<float*>(sumsq);
+  float* o = static_cast<float*>(out);
+  if (vec_x)
+    err = vec_k ? launch_f32_products<T, true, true>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o, B,
+                                                     F, D, K, chunks, st)
+                : launch_f32_products<T, true, false>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o,
+                                                      B, F, D, K, chunks, st);
+  else
+    err = vec_k ? launch_f32_products<T, false, true>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o,
+                                                      B, F, D, K, chunks, st)
+                : launch_f32_products<T, false, false>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o,
+                                                       B, F, D, K, chunks, st);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // Scratch from the caller: xb [B, F, D] bf16 and assign [B, F, K] bf16
@@ -858,6 +1231,29 @@ extern "C" int yt8m_netvlad_aggregate_f32(const void* x, const void* num_frames,
                                           int B, int F, int D, int K, void* stream) {
   return launch<float>(x, num_frames, wc, act_scale, act_bias, centers, xb, assign, colsum,
                        items, work, out, B, F, D, K, stream);
+}
+
+// The f32 route: x [B, F, D] uint8 or f32, wc [D, K] f32 (K <= 512, any
+// D); items: 1 + B * ceil(F / 64) ints; act: B * F * K floats; a_sum: B *
+// K floats; sumsq: B * ceil(D / 128) * K floats; out [B, K, D].
+extern "C" int yt8m_netvlad_aggregate_f32w_u8(const void* x, const void* num_frames,
+                                             const void* wc, const void* act_scale,
+                                             const void* act_bias, const void* centers,
+                                             void* items, void* act, void* a_sum, void* sumsq,
+                                             void* out, int B, int F, int D, int K,
+                                             void* stream) {
+  return launch_f32<uint8_t>(x, num_frames, wc, act_scale, act_bias, centers, items, act, a_sum,
+                             sumsq, out, B, F, D, K, stream);
+}
+
+extern "C" int yt8m_netvlad_aggregate_f32w_f32(const void* x, const void* num_frames,
+                                              const void* wc, const void* act_scale,
+                                              const void* act_bias, const void* centers,
+                                              void* items, void* act, void* a_sum, void* sumsq,
+                                              void* out, int B, int F, int D, int K,
+                                              void* stream) {
+  return launch_f32<float>(x, num_frames, wc, act_scale, act_bias, centers, items, act, a_sum,
+                           sumsq, out, B, F, D, K, stream);
 }
 
 // The tiles: [frames a chunk, assignment stages, the assignment's shared

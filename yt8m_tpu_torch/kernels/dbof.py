@@ -8,7 +8,8 @@ frames x [B, S, D] (uint8, or float32):
     out  = max_s relu(act * act_scale + act_bias)      [B, K] f32
 
   * `dbof_cluster_maxpool_v2` (DbofModel's serving path): `w` already in
-    the compute dtype (bf16 on the card). The CUDA kernel (csrc/dbof.cu)
+    the compute dtype, which selects the route on the card. At bf16 the
+    CUDA kernel (csrc/dbof.cu)
     is bound by the bf16 tensor-core rate at the serving shapes; it never
     writes the [B*S, K] activations to device memory. It applies the
     input affine once, into a [B*S, D] bf16 buffer this wrapper
@@ -17,8 +18,13 @@ frames x [B, S, D] (uint8, or float32):
     pitch of 32 rows x 256 clusters a tile, the rows past S read as
     zeros and masked out of the max (`plan`; the source has the design).
     The model folds dequantization and both BatchNorms into the two
-    affines, and casts `w` to bf16 once.
-  * `dbof_cluster_maxpool` (the TPU package's v1): the same function
+    affines, and casts `w` to bf16 once. At f32 (--compute_dtype=float32)
+    nothing is rounded, as in the TPU kernel at dtype=float32: one launch
+    of csrc/dbof.cu's f32 kernel, the affine, the product in plain f32
+    FMAs (csrc/f32_product.cuh: no TF32) and the pooling epilogue, bound
+    by the card's f32 rate outside the tensor cores.
+  * `dbof_cluster_maxpool` (the TPU package's v1, which has no dtype: it
+    computes in bf16 whatever the model's): the same function
     with an f32 `w` rounded to bf16 on every call (csrc/dbof.cu's
     yt8m_round_bf16 launch), as the TPU kernel does in its body. The
     TPU's two versions differ only in grid order and VMEM scratch, so on
@@ -222,8 +228,9 @@ def dbof_cluster_maxpool_int8_plain(x, w8, a_col, b_col):
 def dbof_cluster_maxpool_v2(x, w, in_scale, in_bias, act_scale, act_bias):
     """relu-activated cluster activations max-pooled over S: [B, K] f32.
 
-    x [B, S, D] uint8 or float32; w [D, K] in the compute dtype (bf16 on
-    the card); the affines are f32 vectors of D and K.
+    x [B, S, D] uint8 or float32; w [D, K] in the compute dtype (bf16 or
+    float32: the route on the card); the affines are f32 vectors of D and
+    K.
     """
     _check_shapes(x, w)
     if on_cpu(x, w, in_scale, in_bias, act_scale, act_bias):
@@ -273,7 +280,7 @@ def dbof_sampled_cluster_maxpool(x, idx, w, in_scale, in_bias, act_scale,
     require(s >= 1 and f >= 1, "S and F must be at least 1")
     w = _bf16_on_card(w)
     idx = idx.to(torch.int32).contiguous()
-    _check_bf16_operands(x, w, in_scale, in_bias, act_scale, act_bias)
+    _check_operands(x, w, in_scale, in_bias, act_scale, act_bias)
     out = torch.empty((b, k), dtype=torch.float32, device=x.device)
     xa = torch.empty((b * s, d), dtype=torch.bfloat16, device=x.device)
     code = _build.library().yt8m_dbof_sampled_cluster_maxpool(
@@ -347,16 +354,17 @@ def _bf16_on_card(w):
     return w16
 
 
-def _check_bf16_operands(x, w, in_scale, in_bias, act_scale, act_bias):
+def _check_operands(x, w, in_scale, in_bias, act_scale, act_bias):
     d, k = w.shape
     require(x.dtype in (torch.uint8, torch.float32),
             f"x: dtype {x.dtype}, want uint8 or float32")
-    require(w.dtype == torch.bfloat16,
-            "the CUDA kernel computes in bf16; w must be bfloat16")
+    require(w.dtype in (torch.bfloat16, torch.float32),
+            f"w: dtype {w.dtype}; the CUDA kernels compute in bfloat16 or "
+            "float32")
     require(d % 32 == 0, f"D={d} must be a multiple of 32")
     require(k % 8 == 0, f"K={k} must be a multiple of 8")
     require_cuda_operand("x", x, x.dtype, tuple(x.shape))
-    require_cuda_operand("w", w, torch.bfloat16, (d, k))
+    require_cuda_operand("w", w, w.dtype, (d, k))
     for name, t, n in (("in_scale", in_scale, d), ("in_bias", in_bias, d),
                        ("act_scale", act_scale, k),
                        ("act_bias", act_bias, k)):
@@ -367,29 +375,37 @@ def _pooled_in_chunks(owner, x, w, in_scale, in_bias, act_scale, act_bias):
     """csrc/dbof.cu over x in chunks of 32 frames, max of the chunks'
     outputs; each launch counts on `owner`."""
     require(x.shape[1] >= 1, "S must be at least 1")
-    _check_bf16_operands(x, w, in_scale, in_bias, act_scale, act_bias)
+    _check_operands(x, w, in_scale, in_bias, act_scale, act_bias)
     return max_over_frame_chunks(
         lambda xs, *a: _launch(owner, xs, *a), x, w, in_scale, in_bias,
         act_scale, act_bias)
 
 
 def _launch(owner, x, w, in_scale, in_bias, act_scale, act_bias):
-    """One launch of csrc/dbof.cu over x [B, S <= 32, D]."""
+    """One launch of csrc/dbof.cu over x [B, S <= 32, D]: the bf16 route
+    (the affine into a bf16 buffer, then the product) or, for an f32 `w`,
+    the f32 kernel."""
     b, s, d = x.shape
     k = w.shape[1]
     out = torch.empty((b, k), dtype=torch.float32, device=x.device)
-    xa = torch.empty((b * s, d), dtype=torch.bfloat16, device=x.device)
     lib = _build.library()
-    fn = (lib.yt8m_dbof_cluster_maxpool_u8 if x.dtype == torch.uint8
-          else lib.yt8m_dbof_cluster_maxpool_f32)
-    code = fn(
-        _build.ptr(x), _build.ptr(in_scale), _build.ptr(in_bias),
-        _build.ptr(w), _build.ptr(act_scale), _build.ptr(act_bias),
-        _build.ptr(xa), _build.ptr(out), b, s, d, k,
-        _build.current_stream(x.device),
-    )
+    u8 = x.dtype == torch.uint8
+    args = [_build.ptr(x), _build.ptr(in_scale), _build.ptr(in_bias),
+            _build.ptr(w), _build.ptr(act_scale), _build.ptr(act_bias)]
+    if w.dtype == torch.float32:
+        fn = (lib.yt8m_dbof_cluster_maxpool_f32w_u8 if u8
+              else lib.yt8m_dbof_cluster_maxpool_f32w_f32)
+    else:
+        fn = (lib.yt8m_dbof_cluster_maxpool_u8 if u8
+              else lib.yt8m_dbof_cluster_maxpool_f32)
+        args.append(_build.ptr(torch.empty((b * s, d), dtype=torch.bfloat16,
+                                           device=x.device)))
+    code = fn(*args, _build.ptr(out), b, s, d, k,
+              _build.current_stream(x.device))
     _build.check_launch(owner.__name__, code)
     owner.launches += 1
+    if w.dtype == torch.float32:
+        owner.launches_f32 += 1
     return out
 
 
@@ -411,3 +427,6 @@ def _launch_int8(x, w8t, colsum8, a_col, b_col):
 for _fn in (dbof_cluster_maxpool_v2, dbof_cluster_maxpool,
             dbof_sampled_cluster_maxpool, dbof_cluster_maxpool_int8):
     _fn.launches = 0
+# The f32 route's launches (--compute_dtype=float32), counted in
+# `launches` too.
+dbof_cluster_maxpool_v2.launches_f32 = 0

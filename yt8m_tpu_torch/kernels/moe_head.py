@@ -8,12 +8,18 @@ activations x [B, H] f32:
     eg = exp(clamp(G, -80, 80))
     probs = sum_{m<M} eg[..., m] * sigmoid(E[..., m]) / sum_{m<=M} eg[..., m]
 
-`round` is the cast to the weights' dtype (bf16 on the card). The
-softmax is in the TPU kernel's ratio form with clamped logits, and the
-dummy expert m = M adds to the denominator only. The CUDA kernel
-(csrc/moe_head.cu, on the TMA + wgmma mainloop of csrc/hopper_gemm.cuh)
-is bound by the bf16 tensor-core rate and keeps the [B, C, M+1] and
-[B, C, M] intermediates on chip.
+`round` is the cast to the weights' dtype, which selects the route on
+the card. The softmax is in the TPU kernel's ratio form with clamped
+logits, and the dummy expert m = M adds to the denominator only. At bf16
+the CUDA kernel (csrc/moe_head.cu, on the TMA + wgmma mainloop of
+csrc/hopper_gemm.cuh) is bound by the bf16 tensor-core rate and keeps
+the [B, C, M+1] and [B, C, M] intermediates on chip; it takes any H (the
+rounded x is stored at a pitch of H rounded up to 8, and the last
+64-deep stage reads the columns of x and the rows of the weights past H
+as TMA's zero fill, zero terms in exact sums). At f32
+(--compute_dtype=float32) nothing is rounded, as in the TPU kernel at dtype=float32: csrc/moe_head.cu's
+f32 kernel runs both products in plain f32 FMAs (csrc/f32_product.cuh:
+no TF32) with the same combine in its epilogue.
 
 TMA reads the weights by rows whose stride must be a multiple of 16
 bytes, and C*(M+1) = 14,148 columns is not a multiple of 8 bf16. The
@@ -85,11 +91,11 @@ def pitched(w):
     return buf[:, :cols]
 
 
-def check_pitched(name, w, shape) -> None:
-    """The card's weight operand: bf16 of `shape`, unit column stride, a
-    row stride that is a multiple of 8 and 16-byte aligned rows."""
-    require(w.dtype == torch.bfloat16, f"{name}: dtype {w.dtype}, want "
-            "torch.bfloat16")
+def check_pitched(name, w, shape, dtype=torch.bfloat16) -> None:
+    """The card's weight operand: `dtype` (the route's) of `shape`, unit
+    column stride, a row stride that is a multiple of 8 and 16-byte
+    aligned rows."""
+    require(w.dtype == dtype, f"{name}: dtype {w.dtype}, want {dtype}")
     require(tuple(w.shape) == tuple(shape),
             f"{name}: shape {tuple(w.shape)}, want {tuple(shape)}")
     require(w.stride(1) == 1 and w.stride(0) % PITCH == 0
@@ -118,8 +124,9 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
     """probs [B, C] f32.
 
     x [B, H] f32; gate_kernel [H, C*(M+1)] and expert_kernel [H, C*M] in
-    the compute dtype (bf16 on the card, each with a row stride that is a
-    multiple of 8: see `pitched`); expert_bias [C*M] f32.
+    the compute dtype (bf16 or f32: the route on the card, each with a
+    row stride that is a multiple of 8: see `pitched`); expert_bias [C*M]
+    f32.
     """
     m = num_mixtures
     require(x.dim() == 2, f"x must be [B, H], got {tuple(x.shape)}")
@@ -133,25 +140,40 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
         return moe_head_plain(x, gate_kernel, expert_kernel, expert_bias, m)
     require(m in CUDA_MIXTURES,
             f"num_mixtures={m}: the CUDA kernel takes 1..16")
-    require(h % 32 == 0, f"H={h} must be a multiple of 32")
+    dtype = gate_kernel.dtype
+    require(dtype in (torch.bfloat16, torch.float32),
+            f"gate_kernel: dtype {dtype}; the CUDA kernels compute in "
+            "bfloat16 or float32")
     require_cuda_operand("x", x, torch.float32, (b, h))
-    check_pitched("gate_kernel", gate_kernel, (h, c * (m + 1)))
-    check_pitched("expert_kernel", expert_kernel, (h, c * m))
+    check_pitched("gate_kernel", gate_kernel, (h, c * (m + 1)), dtype)
+    check_pitched("expert_kernel", expert_kernel, (h, c * m), dtype)
     require_cuda_operand("expert_bias", expert_bias, torch.float32, (c * m,))
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    xa = torch.empty((b, h), dtype=torch.bfloat16, device=x.device)
-    code = _build.library().yt8m_moe_head_serving(
-        _build.ptr(x), _build.ptr(gate_kernel), _build.ptr(expert_kernel),
-        _build.ptr(expert_bias), _build.ptr(xa), _build.ptr(out), b, h, c,
-        m, gate_kernel.stride(0), expert_kernel.stride(0),
-        _build.current_stream(x.device),
-    )
+    lib = _build.library()
+    weights = (_build.ptr(x), _build.ptr(gate_kernel),
+               _build.ptr(expert_kernel), _build.ptr(expert_bias))
+    strides = (gate_kernel.stride(0), expert_kernel.stride(0))
+    if dtype == torch.float32:
+        vec_x = int(h % 4 == 0 and x.data_ptr() % 16 == 0)
+        code = lib.yt8m_moe_head_serving_f32(
+            *weights, _build.ptr(out), b, h, c, m, *strides, vec_x,
+            _build.current_stream(x.device))
+    else:
+        # The rounded x at a row pitch of H rounded up to 8 (TMA's rows).
+        xa = torch.empty((b, _ceil(h, PITCH) * PITCH), dtype=torch.bfloat16,
+                         device=x.device)
+        code = lib.yt8m_moe_head_serving(
+            *weights, _build.ptr(xa), _build.ptr(out), b, h, c, m, *strides,
+            _build.current_stream(x.device))
     _build.check_launch("moe_head_serving", code)
     moe_head_serving.launches += 1
+    if dtype == torch.float32:
+        moe_head_serving.launches_f32 += 1
     return out
 
 
 moe_head_serving.launches = 0
+moe_head_serving.launches_f32 = 0  # the f32 route's, counted in both
 
 
 def kernel_plan(m: int) -> dict:

@@ -9,8 +9,9 @@ x [B, F, D] (uint8, dequantized on the fly, or float32), per video:
     vlad   = vlad / max(||vlad||_D, 1e-6)        (intra-normalisation)
     vlad   = vlad / max(||vlad||_KD, 1e-6)       (global L2)   [K, D] f32
 
-`round` is the cast to Wc's dtype (bf16 on the card). The CUDA kernel
-(csrc/netvlad.cu) is bound by device-memory bytes at the serving shapes
+`round` is the cast to Wc's dtype, which selects the route on the card.
+At bf16 the CUDA kernel (csrc/netvlad.cu) is bound by device-memory
+bytes at the serving shapes
 with float32 frames (the [B, K, D] f32 output alone is 604 MB at B=512).
 It touches only the live 64-frame chunks of each video (`live_items`):
 the assignment product on TMA + wgmma with the softmax in its registers,
@@ -21,8 +22,14 @@ the kernel's scratch: the bf16 frames and the bf16 [B, F, K] assignment
 (written on the live chunks' rows), the chunks' column sums, the list of
 live chunks, and the sums of squares and norms.
 
-The kernel takes D a multiple of 128 and K a multiple of 8 up to 512;
-`netvlad_aggregate` pads other shapes so that the result is exact.
+At f32 (--compute_dtype=float32) nothing is rounded, as in the TPU
+kernel at dtype=float32: csrc/netvlad.cu's f32 launches run both
+products in plain f32 FMAs (csrc/f32_product.cuh: no TF32) over the same
+live chunks, with an f32 assignment scratch [B, F, K] that this wrapper
+allocates, and take any D and K up to 512 as they are.
+
+The bf16 kernel takes D a multiple of 128 and K a multiple of 8 up to
+512; `netvlad_aggregate` pads other shapes so that the result is exact.
 Padded features are zero columns of the frames (uint8 frames are first
 dequantized to float32, as the plain version does, since no byte
 dequantizes to 0), of Wc and of the centers: their residual is 0 and
@@ -235,7 +242,8 @@ def netvlad_aggregate(frames, num_frames, cluster_w, act_scale, act_bias,
     """Normalised VLAD descriptors [B, K, D] f32.
 
     frames [B, F, D] uint8 or float32; num_frames [B] (int32 on the
-    card); cluster_w [D, K] in the compute dtype (bf16 on the card);
+    card); cluster_w [D, K] in the compute dtype (bf16 or float32: the
+    route on the card);
     act_scale, act_bias [K] f32 (the folded BN, or ones and the cluster
     biases); centers [K, D] f32.
     """
@@ -248,6 +256,9 @@ def netvlad_aggregate(frames, num_frames, cluster_w, act_scale, act_bias,
         return netvlad_aggregate_plain(frames, num_frames, cluster_w,
                                        act_scale, act_bias, centers)
     k = cluster_w.shape[1]
+    if cluster_w.dtype == torch.float32:
+        return _launch_f32(frames, num_frames, cluster_w, act_scale, act_bias,
+                           centers)
     x, w, scale, bias, cen = pad_operands(frames, cluster_w, act_scale,
                                           act_bias, centers)
     out = _launch(x, num_frames, w, scale, bias, cen, torch.empty)[0]
@@ -308,4 +319,45 @@ def _launch(frames, num_frames, cluster_w, act_scale, act_bias, centers,
     return out, xb, assign, colsum
 
 
+def _launch_f32(frames, num_frames, cluster_w, act_scale, act_bias,
+                centers):
+    """The f32 route: csrc/netvlad.cu's f32 launches over the live chunks,
+    any D, K <= 512."""
+    b, f, d = frames.shape
+    k = cluster_w.shape[1]
+    require(frames.dtype in (torch.uint8, torch.float32),
+            f"frames: dtype {frames.dtype}, want uint8 or float32")
+    require(f >= 1, "F must be at least 1")
+    require(1 <= k <= MAX_CLUSTERS, f"K={k} must be in [1, {MAX_CLUSTERS}]")
+    require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
+    require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
+    require_cuda_operand("cluster_w", cluster_w, torch.float32, (d, k))
+    require_cuda_operand("act_scale", act_scale, torch.float32, (k,))
+    require_cuda_operand("act_bias", act_bias, torch.float32, (k,))
+    require_cuda_operand("centers", centers, torch.float32, (k, d))
+    dev = frames.device
+    out = torch.empty((b, k, d), dtype=torch.float32, device=dev)
+    items = torch.empty(1 + b * _ceil(f, FRAME_CHUNK), dtype=torch.int32,
+                        device=dev)
+    act = torch.empty((b, f, k), dtype=torch.float32, device=dev)
+    a_sum = torch.empty((b, k), dtype=torch.float32, device=dev)
+    sumsq = torch.empty((b, _ceil(d, D_TILE), k), dtype=torch.float32,
+                        device=dev)
+    lib = _build.library()
+    fn = (lib.yt8m_netvlad_aggregate_f32w_u8 if frames.dtype == torch.uint8
+          else lib.yt8m_netvlad_aggregate_f32w_f32)
+    code = fn(
+        _build.ptr(frames), _build.ptr(num_frames), _build.ptr(cluster_w),
+        _build.ptr(act_scale), _build.ptr(act_bias), _build.ptr(centers),
+        _build.ptr(items), _build.ptr(act), _build.ptr(a_sum),
+        _build.ptr(sumsq), _build.ptr(out), b, f, d, k,
+        _build.current_stream(dev),
+    )
+    _build.check_launch("netvlad_aggregate", code)
+    netvlad_aggregate.launches += 1
+    netvlad_aggregate.launches_f32 += 1
+    return out
+
+
 netvlad_aggregate.launches = 0
+netvlad_aggregate.launches_f32 = 0  # the f32 route's, counted in both

@@ -5,11 +5,13 @@ MultiHeadAttentionModel).
 AttentionPoolingModel: learned per-head frame scores x @ Q, a softmax over
 the video's frames (masked past num_frames), each head's weighted sum of
 the frames, concatenated [B, H * D] -> FC (proj_weights) + BN + ReLU ->
-the video-level head. At compute dtype bf16 in eval mode the pooling is
-the fused kernel (kernels/attention_pool.py: the CUDA kernel on the card,
-its plain version on the CPU), which takes the uint8 frames as they are
-and dequantizes them itself, as the JAX package's TPU path does. In
-training, and at float32, the pooling is the JAX model's graph in plain
+the video-level head. In eval mode the pooling is the fused kernel
+(kernels/attention_pool.py: the CUDA kernel on the card, its plain
+version on the CPU) at either compute dtype, as the JAX package's TPU
+path takes its kernel with dtype=hp.dtype: the bf16 kernel, or at
+float32 the f32 one (the query, a serving constant in the compute dtype,
+selects it). Both take the uint8 frames as they are and dequantize them
+themselves. In training the pooling is the JAX model's graph in plain
 PyTorch on the dequantized frames (the JAX kernel is serving-only). The
 products are f32 on operands rounded to the compute dtype, as the JAX
 model's products in that dtype with f32 accumulation.
@@ -62,11 +64,12 @@ class AttentionPool(ServingModule):
         self._serving = None
 
     def make_serving_constants(self) -> dict:
-        return {"query": self.attention_query.to(torch.bfloat16)}
+        # The kernel's route follows the query's dtype (bf16 or f32).
+        return {"query": self.attention_query.detach().to(self.dtype)}
 
     def forward(self, frames, num_frames):
         b = frames.shape[0]
-        if not self.training and self.dtype == torch.bfloat16:
+        if not self.training:
             pooled = attention_pool(frames.contiguous(),
                                     num_frames.to(torch.int32).contiguous(),
                                     self.serving_constants()["query"])

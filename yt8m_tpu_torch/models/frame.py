@@ -74,7 +74,9 @@ class DbofModel(ServingModule):
 
     With max pooling (the reference default) steps 2-3 are one fused
     kernel (kernels/dbof.py) with dequantization and both BatchNorms
-    folded into its two affines, as the JAX model folds them; with
+    folded into its two affines, as the JAX model folds them (its cluster
+    weights in the compute dtype: the bf16 kernel, or at float32 the f32
+    one, as the JAX model passes dtype=hp.dtype); with
     --dbof_int8_serving (and --dbof_use_pallas, as in the JAX model) and
     uint8 frames the kernel is the int8 one, its
     weights quantized from the f32 cluster kernel and the folded affines

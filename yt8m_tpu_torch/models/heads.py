@@ -83,7 +83,9 @@ class MoeHead(ServingModule):
     c*(M+1)+m; expert columns c*M+m.
 
     Serving runs the fused head (kernels/moe_head.py): its ratio-form
-    softmax with clamped logits is the TPU kernel's. Training runs the
+    softmax with clamped logits is the TPU kernel's, and its weights, a
+    serving constant in the compute dtype, select the bf16 or the f32
+    kernel on the card, as the JAX head passes dtype=hp.dtype. Training runs the
     JAX model's plain graph (the JAX kernel is serving-only), an f32
     softmax over the M + 1 gate logits, and adds `regularization_loss`
     = l2_penalty * l2_loss(gates, experts).

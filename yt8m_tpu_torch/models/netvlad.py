@@ -8,13 +8,17 @@ models/netvlad.py).
 
 Serving runs the fused kernel (kernels/netvlad.py) with the assignment
 BatchNorm folded into its per-cluster affine, as the JAX model folds it
-for its kernel. Training computes the assignment product and its
+for its kernel; the cluster weights, a serving constant in the compute
+dtype, select the bf16 or the f32 kernel on the card (the JAX model
+passes dtype=hp.dtype). Training computes the assignment product and its
 BatchNorm on batch moments over every frame row in plain PyTorch; then,
 with --netvlad_fused_train (and --netvlad_use_pallas, as the JAX model's
 condition has it), the trainable core kernels/netvlad_train.py ::
 netvlad_core (the masked softmax, `a_sum` and the residual product, the
-assignment recomputed in the backward), else the JAX model's plain graph
-for the same steps. Every BatchNorm after it runs in training mode.
+assignment recomputed in the backward; it rounds its products' operands
+to bf16 at either compute dtype, as the JAX kernel does, and takes the
+f32 act and frames of either), else the JAX model's plain graph for the
+same steps. Every BatchNorm after it runs in training mode.
 Parameter names are the JAX model's.
 """
 

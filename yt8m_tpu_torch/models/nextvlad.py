@@ -9,12 +9,14 @@ arXiv:1811.05014).
     context gating -> the video-level head.
 
 Three aggregation paths, chosen by the JAX model's condition without its
-TPU-only terms: in eval mode with --nextvlad_use_pallas the fused
+TPU-only terms (yt8m_tpu/models/nextvlad.py: `kernel_ok` needs bf16): at
+compute dtype bf16, in eval mode with --nextvlad_use_pallas the fused
 aggregation (kernels/nextvlad.py, on the raw uint8 or float frames,
-with its bf16 weight layout made once as a serving constant); in
+with its bf16 weight layout made once as a serving constant), and in
 training with --nextvlad_train_fused (the default) the trainable
 aggregation (kernels/nextvlad_train.py, gradients for the five weights
-only); otherwise the JAX model's plain graph under autograd. Each product
+only); otherwise, and at float32 in both modes, the JAX model's plain
+graph (under autograd in training), as the JAX model runs f32. Each product
 is f32 on operands rounded to the compute dtype, as the JAX model's
 products in that dtype with f32 accumulation. Parameter names, shapes
 and initialisers are the JAX model's.
@@ -86,17 +88,25 @@ class NeXtVladModel(ServingModule):
     def make_serving_constants(self) -> dict:
         hp = self.hp
         layout = None
-        if hp.nextvlad_use_pallas and self.expand_weights.is_cuda:
+        if (hp.nextvlad_use_pallas and self.expand_weights.is_cuda
+                and self.kernel_dtype()):
             layout = kernel_layout(*self._weights(), hp.nextvlad_groups)
         return {"layout": layout,
                 "hidden1_weights": rounded(self.hidden1_weights, hp.dtype)}
+
+    def kernel_dtype(self) -> bool:
+        """The JAX model's dtype term of `kernel_ok`: the kernels run at
+        compute dtype bf16 only."""
+        return self.hp.dtype == torch.bfloat16
 
     def aggregate(self, features, num_frames):
         """The intra-normalised descriptors [B, K * P] f32."""
         hp = self.hp
         b = features.shape[0]
         g = hp.nextvlad_groups
-        if self.training and hp.nextvlad_train_fused:
+        if not self.kernel_dtype():
+            vlad = self._plain_aggregate(features, num_frames)
+        elif self.training and hp.nextvlad_train_fused:
             vlad = nextvlad_aggregate_train(
                 features, num_frames, *self._weights(), g, hp.dtype)
         elif not self.training and hp.nextvlad_use_pallas:

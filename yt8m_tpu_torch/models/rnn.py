@@ -18,8 +18,9 @@ LSTM; X @ W_xg and X @ W_xc for the GRU), the serving one
 whose backward is a kernel too) in training, each the CUDA kernel on the
 card and its plain version on the CPU; at float32 it runs the scan
 graph, concat([x, h]) @ kernel per step in float32 (the GRU's candidate
-concat([x, r * h]) @ candidate_kernel), under autograd in training (the
-CUDA kernels are bf16, so float32 runs on the CPU only).
+concat([x, r * h]) @ candidate_kernel), under autograd in training, on
+the CPU and on the card alike (the JAX model runs its scan graph at
+float32 too; the recurrence kernels are bf16).
 
 The layer-norm LSTM (--lstm_layer_norm, LayerNormLstmModel) is TF1's
 LayerNormBasicLSTMCell and runs the JAX layer's scan graph at either

@@ -151,7 +151,7 @@ class Trainer:
             learning_rate_decay_examples=cfg.learning_rate_decay_examples,
             global_batch_size=cfg.batch_size,
             clip_gradient_norm=cfg.clip_gradient_norm,
-            ema=cfg.ema_decay > 0)
+            ema=cfg.ema_decay > 0, adam_mu_dtype=cfg.adam_mu_dtype)
         self.train_step = make_train_step(
             self.loss_obj, regularization_penalty=cfg.regularization_penalty,
             aux_loss_weight=self.hparams.chain_aux_loss_weight,

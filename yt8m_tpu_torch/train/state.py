@@ -5,8 +5,10 @@ The reference trains with Adam (eps 1e-8) under an exponential learning
 rate decay staircased on examples seen, after clipping each gradient by
 its own norm (utils.py :: clip_gradient_norms, not a global-norm clip).
 optax's Adam and torch.optim.Adam place eps the same way, outside the
-square root of the bias-corrected second moment. An optional EMA keeps a
-Polyak average of the parameters.
+square root of the bias-corrected second moment. The JAX package's other
+optimizers, and Adam with a bf16 first moment (--adam_mu_dtype), follow
+optax in train/optimizers.py. An optional EMA keeps a Polyak average of
+the parameters.
 """
 
 from __future__ import annotations
@@ -16,7 +18,17 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-OPTIMIZERS = ("AdamOptimizer", "SgdOptimizer", "GradientDescentOptimizer")
+from yt8m_tpu_torch.train.optimizers import (
+    Adafactor,
+    Adagrad,
+    AdamBf16Mu,
+    RMSProp,
+)
+
+OPTIMIZERS = ("AdamOptimizer", "AdafactorOptimizer", "SgdOptimizer",
+              "GradientDescentOptimizer", "RMSPropOptimizer",
+              "AdagradOptimizer")
+ADAM_MU_DTYPES = ("float32", "bfloat16")
 
 
 def make_lr_schedule(base_learning_rate: float, learning_rate_decay: float,
@@ -47,15 +59,26 @@ def clip_gradient_norms(params, max_norm: float) -> None:
 
 
 def make_optimizer(params, optimizer: str = "AdamOptimizer",
-                   fused: Optional[bool] = None) -> torch.optim.Optimizer:
+                   fused: Optional[bool] = None,
+                   adam_mu_dtype: str = "float32") -> torch.optim.Optimizer:
     """The optimizer with a placeholder learning rate (the train state
-    sets each step's from the schedule)."""
+    sets each step's from the schedule), as the JAX package's
+    make_optimizer builds it with optax."""
+    if adam_mu_dtype not in ADAM_MU_DTYPES:
+        raise ValueError(f"--adam_mu_dtype={adam_mu_dtype!r}; available "
+                         f"{list(ADAM_MU_DTYPES)}")
     if optimizer == "AdamOptimizer":
+        if adam_mu_dtype == "bfloat16":
+            return AdamBf16Mu(params, lr=0.0)
         return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                                 fused=fused)
     if optimizer in ("SgdOptimizer", "GradientDescentOptimizer"):
         return torch.optim.SGD(params, lr=0.0)
-    raise ValueError(f"unknown or unported optimizer {optimizer!r}; "
+    makers = {"AdafactorOptimizer": Adafactor, "RMSPropOptimizer": RMSProp,
+              "AdagradOptimizer": Adagrad}
+    if optimizer in makers:
+        return makers[optimizer](params, lr=0.0)
+    raise ValueError(f"unknown optimizer {optimizer!r}; "
                      f"available {sorted(OPTIMIZERS)}")
 
 
@@ -68,13 +91,15 @@ class TrainState:
                  learning_rate_decay: float = 0.95,
                  learning_rate_decay_examples: int = 4_000_000,
                  global_batch_size: int = 1024,
-                 clip_gradient_norm: float = 1.0, ema: bool = False):
+                 clip_gradient_norm: float = 1.0, ema: bool = False,
+                 adam_mu_dtype: str = "float32"):
         self.model = model
         self.params = [p for p in model.parameters() if p.requires_grad]
         on_card = all(p.is_cuda for p in self.params)
         self.optimizer = make_optimizer(
             self.params, optimizer,
-            fused=True if on_card and optimizer == "AdamOptimizer" else None)
+            fused=True if on_card and optimizer == "AdamOptimizer" else None,
+            adam_mu_dtype=adam_mu_dtype)
         self.schedule = make_lr_schedule(base_learning_rate,
                                          learning_rate_decay,
                                          learning_rate_decay_examples,
