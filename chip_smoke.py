@@ -62,7 +62,17 @@ Phases, one line each with the elapsed seconds:
      1001 and K = 37, attention pooling at D = 1001 and 19 heads), frames
      past num_frames planted, each with its CUDA-event and profiler
      times, the plain version's, the torch.matmul f32 graph's (TF32 off)
-     and its bound at the f32 rate outside the tensor cores;
+     and its bound at the f32 rate outside the tensor cores; the shapes
+     past the kernels' old limits, bf16 and f32 routes: the MoE head at
+     M = 17 (the run-time tile), 32 and 200 (chunks of 120 mixtures) at
+     B=512, H=2048, C=4716, with chunk edges (M = 122, 240, 241) and gate
+     logits past +-80; netvlad_aggregate at K = 520, 1024 and 2048 at
+     B=512, F=300, D=1152 with uint8 frames (frames past num_frames,
+     an empty video and an unassigned cluster planted; padded clusters
+     at K = 1020; the rounding witness at K = 1024); netvlad_core at K =
+     520 and 1024 at the training shape (hazards and a second run bit for
+     bit); each with CUDA-event and profiler times, the plain version's,
+     the torch.matmul graph's and its bound;
   4. serving end to end through the inference CLI over synthetic
      frame-level TFRecords, for each path with the launch counts set to
      0 just before it and read just after: DbofModel at the reference
@@ -88,8 +98,12 @@ Phases, one line each with the elapsed seconds:
      --compute_dtype=float32 (a batch: 1 f32 DBoF v2 and 1 f32 MoE; 1 f32
      netvlad_aggregate, 0 lstm_recurrence (the scan graph) and 1 f32 MoE;
      1 f32 attention_pool and 1 f32 MoE; 0 NeXtVLAD (the plain graph) and
-     1 f32 MoE); CSV checks, and 8 videos compared with the same model on
-     the CPU;
+     1 f32 MoE); the flagship at --netvlad_cluster_size=1024
+     --moe_num_mixtures=32 (1 netvlad_aggregate, 2 lstm_recurrence and 1
+     MoE a batch), ChainMoeModel at --moe_num_mixtures=32 (3 MoE a
+     batch) and MoeModel with --moe_head_pallas=false (no MoE launch: the
+     plain head); CSV checks, and 8 videos compared with the same model
+     on the CPU;
   5. each serving step alone on frames already on the card (DbofModel at
      B=2048 with and without --dbof_int8_serving, GatedDbofModel and
      SoftDbofModel at B=2048, the others at B=512): median step time of
@@ -119,7 +133,9 @@ Phases, one line each with the elapsed seconds:
      AdafactorOptimizer, RMSPropOptimizer, AdagradOptimizer and Adam with
      a bf16 first moment (finite losses, step time, the optimizer state's
      bytes beside Adam f32's), and one step of each new optimizer on 8
-     videos' gradients, card vs CPU;
+     videos' gradients, card vs CPU; the flagship at K=1024 and M=32 with
+     --netvlad_fused_train, 3 steps at B=256 (finite losses, the step
+     time, 1 + 1 netvlad_core launches a step);
   7. the reference workflow through the port's CLIs with the flagship at
      full width and --netvlad_fused_train, over synthetic frame-level
      TFRecords (256 train and 128 eval videos, 30-300 frames): cli.train
@@ -140,7 +156,10 @@ Phases, one line each with the elapsed seconds:
      (cli.train with no flag but the data and the run directory:
      LogisticModel over mean_rgb on the card, then cli.eval and
      cli.inference); ChainNetVladModel with --netvlad_fused_train through
-     the three CLIs;
+     the three CLIs; DbofModel at the reference width through cli.train
+     with a checkpoint a step, to step 3 and resumed to 4, synchronously
+     and with --async_checkpoint (resumed at step 3, no hidden directory
+     left), the seconds each save held the training thread;
   8. the readers: frame-level videos/s of the Python reader, the native
      one, 4 parse threads and 4 spawned reader processes over 384 videos
      in 8 shards (each video once, the reader that ran asserted), and
@@ -186,7 +205,7 @@ Tolerances, max|kernel - plain| on the same inputs:
     affine rounding, the same product); DBoF v1 and dequant_affine_matmul
     in bf16 (D >= 512): the DBoF bound; dequant_affine_matmul in f32
     (D < 512): <= 1e-5 * max|ref| + 1e-6.
-  * NetVLAD: <= 2^-8 * max|ref| + 1e-6. The assignment is rounded to
+  * NetVLAD (every K): <= 2^-8 * max|ref| + 1e-6. The assignment is rounded to
     bf16 after a softmax whose f32 max and sum run in another order in
     the two versions; where a value lies within their last-bit
     difference of a bf16 rounding boundary, the two round one bf16 step
@@ -3212,6 +3231,288 @@ def check_f32_routes(torch, gen, dev, flush) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (cont.): the shapes past the kernels' old limits
+# ---------------------------------------------------------------------------
+
+# The MoE head at M > 16, NetVLAD serving and netvlad_core at K > 512, at
+# the serving shape B=512 (the flagship's H=2048 for the MoE, F=300,
+# D=1152 with uint8 frames for NetVLAD) and the training shape B=256.
+NEW_MIXTURES = (17, 32, 200)
+NEW_VLAD_CLUSTERS = (520, 1024, 2048)
+NEW_CORE_CLUSTERS = (520, 1024)
+
+
+def shape_row(shape, route, err, fn, plain, library, needle, flush, reps,
+              flops, nbytes, peak) -> dict:
+    """A new shape's numbers: the max error, CUDA-event and profiler
+    times, the plain version's and the torch.matmul graph's, the bound."""
+    import torch
+
+    ms = time_ms(torch, fn, reps, flush)
+    device_ms = device_us(torch, fn, needle) / 1e3
+    plain_ms = time_ms(torch, plain, 3, flush)
+    library_ms = time_ms(torch, library, 3, flush)
+    bound_ms, bound_by = bound(flops, nbytes, peak)
+    row = {"shape": shape, "route": route, "max_abs_err": err, "ms": ms,
+           "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    say("kernel", f"{shape} {route}: ok, max|diff| {err:.3e}; {ms:.4f} ms "
+                  f"events, {device_ms:.4f} ms profiler (plain {plain_ms:.4f},"
+                  f" torch.matmul graph {library_ms:.4f}, bound "
+                  f"{bound_ms:.4f} by {bound_by})")
+    return row
+
+
+def check_new_moe(torch, g, dev, flush) -> list:
+    """moe_head_serving at M = 17 (the run-time tile), 32 and 200 (chunks
+    of 120 mixtures), bf16 and f32 routes, at the flagship's B=512,
+    H=2048, C=4716, against the plain version; gate logits past +-80 in
+    an edge case of each route."""
+    from yt8m_tpu_torch.kernels.moe_head import (
+        moe_head_plain,
+        moe_head_serving,
+    )
+
+    def normal_pitched(rows, cols, std, dtype):
+        # pitched()'s layout drawn in place: no full-size temporaries (the
+        # f32 gates alone are 7.8 GB at M=200).
+        buf = torch.zeros(rows, -(-cols // 8) * 8, dtype=dtype, device=dev)
+        return buf[:, :cols].normal_(0.0, std, generator=g)
+
+    def inputs(b, h, c, m, dtype, scale=1.0):
+        x = torch.randn(b, h, device=dev, generator=g).abs()
+        wg = normal_pitched(h, c * (m + 1), scale * h ** -0.5, dtype)
+        we = normal_pitched(h, c * m, h ** -0.5, dtype)
+        be = 0.1 * torch.randn(c * m, device=dev, generator=g)
+        return [x, wg, we, be]
+
+    rows = []
+    for dtype, route in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        rel, abs_ = (1e-3, 1e-5) if route == "bf16" else (F32_REL, 1e-5)
+        for m in (122, 240, 241):  # a chunk's edges, the dummy alone
+            args = inputs(37, 96, 83, m, dtype)
+            rel_check(f"moe {route} edge M={m}", moe_head_serving(*args, m),
+                      moe_head_plain(*args, m), rel, abs_)
+        args = inputs(16, 64, 40, 200, dtype, scale=400.0)
+        got = moe_head_serving(*args, 200)
+        check(bool(torch.isfinite(got).all()),
+              f"moe {route} M=200: non-finite with gate logits past 80")
+        rel_check(f"moe {route} M=200 clamp case", got,
+                  moe_head_plain(*args, 200), rel, abs_)
+        b, h, c = FLAG_BATCH, VLAD_HIDDEN + LSTM_CELLS, CLASSES
+        for m in NEW_MIXTURES:
+            args = inputs(b, h, c, m, dtype)
+            err = rel_check(f"moe_head_serving {route} M={m}",
+                            moe_head_serving(*args, m),
+                            moe_head_plain(*args, m), rel, abs_)
+            x, wg, we, be = args
+
+            def library(x=x, wg=wg, we=we, be=be, m=m):
+                xa = x.to(dtype)
+                gl = torch.matmul(xa, wg).to(torch.float32)
+                el = torch.matmul(xa, we).to(torch.float32) + be
+                gating = torch.softmax(gl.reshape(b, c, m + 1), -1)
+                experts = torch.sigmoid(el.reshape(b, c, m))
+                return torch.sum(gating[..., :m] * experts, -1)
+
+            cols = c * (2 * m + 1)
+            wbytes = 2 if route == "bf16" else 4
+            rows.append(shape_row(
+                f"moe_head_serving B={b} H={h} C={c} M={m}", route, err,
+                lambda args=args, m=m: moe_head_serving(*args, m),
+                lambda args=args, m=m: moe_head_plain(*args, m), library,
+                "moe_", flush, 5, 2.0 * b * h * cols,
+                b * h * 4 + h * cols * wbytes + c * m * 4 + b * c * 4,
+                PEAK_BF16_FLOPS if route == "bf16" else PEAK_F32_FLOPS))
+            del args, x, wg, we, be, library
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_new_netvlad(torch, g, dev, flush) -> list:
+    """netvlad_aggregate at K = 520, 1024 and 2048 (the logits tiled over
+    K, the softmax in a second launch), bf16 and f32 routes, at B=512,
+    F=300, D=1152 with uint8 frames: frames past num_frames planted
+    (255; the result bit for bit that of zeros there), a video with no
+    frame, a cluster no frame is assigned to; padded clusters (K = 1020,
+    bias -1e30) at a small batch; the bf16 rounding witness at K=1024."""
+    from yt8m_tpu_torch.kernels.netvlad import (
+        netvlad_aggregate,
+        netvlad_aggregate_plain,
+    )
+    from yt8m_tpu_torch.models.frame_utils import l2_normalize
+
+    def inputs(b, f, d, k, wdtype):
+        x = torch.randint(0, 256, (b, f, d), device=dev, dtype=torch.uint8,
+                          generator=g)
+        nf = torch.randint(1, f + 1, (b,), device=dev, dtype=torch.int32,
+                           generator=g)
+        nf[:3] = torch.tensor([f, 0, 1], dtype=torch.int32, device=dev)
+        wc = (torch.randn(d, k, device=dev, generator=g) * d ** -0.5).to(
+            wdtype)
+        scale = 0.5 + torch.rand(k, device=dev, generator=g)
+        bias = 0.3 * torch.randn(k, device=dev, generator=g)
+        centers = torch.randn(k, d, device=dev, generator=g) * d ** -0.5
+        return [x, nf, wc, scale, bias, centers]
+
+    rows = []
+    for wdtype, route in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        rel, abs_ = ((VLAD_REL, 1e-6) if route == "bf16"
+                     else (F32_REL, NETVLAD_F32_ABS))
+        # Padded clusters: K = 1020 runs as 1024 at bf16, 4 of bias -1e30.
+        args = inputs(16, 130, 256, 1020, wdtype)
+        got = netvlad_aggregate(*args)
+        check(got.shape == (16, 1020, 256), f"netvlad {route} K=1020 shape")
+        rel_check(f"netvlad {route} K=1020 (padded clusters)", got,
+                  netvlad_aggregate_plain(*args), rel, abs_)
+        b, f, d = FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM
+        for k in NEW_VLAD_CLUSTERS:
+            x, nf, wc, scale, bias, centers = inputs(b, f, d, k, wdtype)
+            bias[7] = -1e4  # cluster 7: no frame is assigned to it
+            past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+            clean, x = pad_hazard(torch, x, past, 255)
+            args = (x, nf, wc, scale, bias, centers)
+            got = netvlad_aggregate(*args)
+            check(torch.equal(got, netvlad_aggregate(clean, *args[1:])),
+                  f"netvlad {route} K={k}: frames past num_frames leaked")
+            check(bool(torch.isfinite(got).all())
+                  and bool(torch.all(got[1] == 0))
+                  and bool(torch.all(got[:, 7] == 0)),
+                  f"netvlad {route} K={k}: non-finite, or a video with no "
+                  f"frame or an unassigned cluster not zeros")
+            err = rel_check(f"netvlad_aggregate {route} K={k}", got,
+                            netvlad_aggregate_plain(*args), rel, abs_)
+            del got, clean
+            if route == "bf16" and k == 1024:
+                vlad_rounding_witness(torch, f"netvlad_aggregate K={k}",
+                                      args)
+            live = torch.arange(f, device=dev)[None, :] < nf[:, None]
+
+            def library(args=args, live=live):
+                x, _, wc, scale, bias, centers = args
+                xf = x.to(torch.float32) * (4.0 / 255.0) + (4.0 / 512.0 - 2.0)
+                xw = xf.to(wc.dtype)
+                act = torch.matmul(xw, wc).to(torch.float32) * scale + bias
+                a = torch.softmax(act, -1) * live[..., None]
+                vlad = torch.matmul(a.to(wc.dtype).transpose(1, 2),
+                                    xw).to(torch.float32)
+                vlad = vlad - a.sum(1)[..., None] * centers
+                return l2_normalize(l2_normalize(vlad, dim=2), dim=(1, 2))
+
+            rows_live = int(nf.clamp(0, f).sum())
+            wbytes = 2 if route == "bf16" else 4
+            rows.append(shape_row(
+                f"netvlad_aggregate B={b} F={f} D={d} K={k} uint8 "
+                f"({rows_live} live frames)", route, err,
+                lambda args=args: netvlad_aggregate(*args),
+                lambda args=args: netvlad_aggregate_plain(*args), library,
+                "nv_", flush, 5, 4.0 * rows_live * d * k,
+                rows_live * d + d * k * wbytes + k * d * 4 + 8 * k
+                + b * k * d * 4 + 4 * b,
+                PEAK_BF16_FLOPS if route == "bf16" else PEAK_F32_FLOPS))
+            del args, x, wc, centers, library
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_new_core(torch, g, dev, flush) -> list:
+    """netvlad_core (--netvlad_fused_train) at K = 520 and 1024 at the
+    training shape B=256, F=300, D=1152: the forward (fewer staged rows a
+    chunk) and the backward (tiles of 512 clusters, then the row launch's
+    softmax VJP) against the plain versions, the hazards past num_frames
+    bit for bit, a second run bit for bit."""
+    from yt8m_tpu_torch.kernels import netvlad_train as tnt
+
+    rows = []
+    b, f, d = TRAIN_BATCH, FLAG_FRAMES, FEATURE_DIM
+    for k in NEW_CORE_CLUSTERS:
+        act = 1.5 * torch.randn(b, f, k, device=dev, generator=g)
+        x = (torch.randint(0, 256, (b, f, d), device=dev, generator=g)
+             .to(torch.float32) * (4.0 / 255.0) + (4.0 / 512.0 - 2.0))
+        nf = torch.randint(1, f + 1, (b,), device=dev, dtype=torch.int32,
+                           generator=g)
+        nf[:3] = torch.tensor([f, 0, 1], dtype=torch.int32, device=dev)
+        centers = torch.randn(k, d, device=dev, generator=g) * d ** -0.5
+        dvlad = torch.randn(b, k, d, device=dev, generator=g)
+        past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+        clean_a, act = pad_hazard(torch, act, past, 3e4)
+        clean_x, x = pad_hazard(torch, x, past, -1e5)
+        args = [act, x, nf, centers]
+        vlad, a_sum = tnt.netvlad_core_forward(*args)
+        dact, dx = tnt.netvlad_core_backward(*args, dvlad)
+        pv, pa = tnt.netvlad_core_plain_forward(*args)
+        pda, pdx = tnt.netvlad_core_plain_backward(*args, dvlad)
+        name = f"netvlad_core B={b} F={f} D={d} K={k}"
+        err = max(rel_check(f"{name} {what}", got, want, rel=1e-3, abs_=1e-6)
+                  for what, got, want in (("vlad", vlad, pv),
+                                          ("a_sum", a_sum, pa),
+                                          ("dact", dact, pda),
+                                          ("dx", dx, pdx)))
+        del pv, pa, pda, pdx
+        clean = [clean_a, clean_x, nf, centers]
+        again = tnt.netvlad_core_forward(*args)
+        check(torch.equal(again[0], vlad) and torch.equal(again[1], a_sum)
+              and torch.equal(tnt.netvlad_core_backward(*args, dvlad)[0],
+                              dact),
+              f"{name}: a second run is not bit for bit the first")
+        check(all(torch.equal(p, q) for p, q in zip(
+            tnt.netvlad_core_forward(*clean), (vlad, a_sum)))
+            and torch.equal(tnt.netvlad_core_backward(*clean, dvlad)[0],
+                            dact)
+            and bool(torch.all(dact[past] == 0))
+            and bool(torch.all(dx[past] == 0))
+            and bool(torch.all(vlad[1] == 0)),
+            f"{name}: frames past num_frames moved a result")
+        del vlad, a_sum, dact, dx, again, clean, clean_a, clean_x
+        mask = past.logical_not()[:, :, None]
+
+        def library(act=act, x=x, centers=centers, dvlad=dvlad, mask=mask):
+            a = act.detach().requires_grad_()
+            p = torch.softmax(a, -1) * mask
+            v = torch.matmul(p.to(torch.bfloat16).transpose(1, 2),
+                             x.to(torch.bfloat16)).to(torch.float32)
+            (v - p.sum(1)[:, :, None] * centers).backward(dvlad)
+
+        def kernel(args=args, dvlad=dvlad):
+            tnt.netvlad_core_forward(*args)
+            tnt.netvlad_core_backward(*args, dvlad, False)
+
+        def plain(args=args, dvlad=dvlad):
+            tnt.netvlad_core_plain_forward(*args)
+            tnt.netvlad_core_plain_backward(*args, dvlad, False)
+
+        live = int(nf.clamp(0, f).sum())
+        flops = 4.0 * live * k * d
+        nbytes = (2 * (live * (k + d) * 4 + 4 * b + k * d * 4
+                       + b * k * d * 4) + b * k * 4 + b * f * k * 4)
+        row = shape_row(f"{name} ({live} live frames) forward + backward",
+                        "bf16", err, kernel, plain, library, "vlad_", flush,
+                        5, flops, nbytes, PEAK_BF16_FLOPS)
+        row["ms_forward"] = time_ms(
+            torch, lambda args=args: tnt.netvlad_core_forward(*args), 5,
+            flush)
+        row["ms_backward"] = time_ms(
+            torch, lambda args=args, dvlad=dvlad: tnt.netvlad_core_backward(
+                *args, dvlad, False), 5, flush)
+        say("kernel", f"{name}: forward {row['ms_forward']:.4f} ms, "
+                      f"backward without dx {row['ms_backward']:.4f} ms")
+        rows.append(row)
+        del args, act, x, centers, dvlad, library, kernel, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_new_shapes(torch, dev, flush) -> dict:
+    """Rows 2, 8 and 9 past their old limits (their own generator on the
+    card: the other phases keep their inputs): {row name: [shape rows]}."""
+    g = torch.Generator(device=dev).manual_seed(2121)
+    return {"moe_head_serving": check_new_moe(torch, g, dev, flush),
+            "netvlad_aggregate": check_new_netvlad(torch, g, dev, flush),
+            "netvlad_core": check_new_core(torch, g, dev, flush)}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving end to end, DbofModel and the flagship
 # ---------------------------------------------------------------------------
 
@@ -3272,25 +3573,41 @@ def perturb_vectors(torch, model, gen) -> None:
 
 
 def make_flagship_model(torch, seed: int, fused_train: bool = False,
-                        dtype="bfloat16"):
-    """NetVladLstmModel at the JAX package's default widths, weights from
-    a seed, non-trivial BatchNorm statistics and biases; `fused_train` is
+                        dtype="bfloat16", clusters=VLAD_CLUSTERS,
+                        mixtures=MIXTURES, on_card=False):
+    """NetVladLstmModel at the JAX package's default widths (or at
+    `clusters` and `mixtures`), weights from a seed drawn on the card
+    (card_init), non-trivial BatchNorm statistics and biases, on the CPU
+    (`on_card`: left on the card); `fused_train` is
     --netvlad_fused_train."""
-    from yt8m_tpu_torch.models import ModelHParams, get_model
+    from yt8m_tpu_torch.models import ModelHParams
 
     hp = ModelHParams(
         vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=FLAG_FRAMES,
-        netvlad_cluster_size=VLAD_CLUSTERS, netvlad_hidden_size=VLAD_HIDDEN,
+        netvlad_cluster_size=clusters, netvlad_hidden_size=VLAD_HIDDEN,
         netvlad_add_batch_norm=True, netvlad_gating=True,
         lstm_cells=LSTM_CELLS, lstm_layers=LSTM_LAYERS, lstm_pooling="last",
-        moe_num_mixtures=MIXTURES, compute_dtype=dtype,
+        moe_num_mixtures=mixtures, compute_dtype=dtype,
         netvlad_fused_train=fused_train,
     )
-    model = get_model("NetVladLstmModel", hp)
-    gen = torch.Generator().manual_seed(seed)
-    model.reset_parameters(gen)
-    perturb_vectors(torch, model, gen)
-    return hp, model.eval()
+    model = card_init(torch, "NetVladLstmModel", hp, seed)
+    return hp, model if on_card else model.cpu()
+
+
+def card_init(torch, name, hp, seed):
+    """`name` built and its weights drawn on the card from a seed (a
+    card generator), its 1-D parameters and BN statistics from a CPU
+    generator of the same seed, in eval mode on the card (on the CPU
+    where there is none): a CPU draw takes ~18 s a billion parameters,
+    and the makers run for every path, both sides of each comparison."""
+    from yt8m_tpu_torch.models import get_model
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    with torch.device(dev):
+        model = get_model(name, hp)
+        model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    perturb_vectors(torch, model, torch.Generator().manual_seed(seed))
+    return model.eval()
 
 
 def make_gru_model(torch, seed: int):
@@ -3355,23 +3672,22 @@ def make_nextvlad_model(torch, seed: int, dtype="bfloat16"):
     return hp, model.eval()
 
 
-def make_zoo_model(name: str):
+def make_zoo_model(name: str, **hparams):
     """A maker of `name` at the JAX package's default widths (MoE M=2 over
     4716 classes, bf16; frame models over all 300 frames masked by
-    num_frames, video-level ones over mean_rgb + mean_audio, D=1152),
-    weights from a seed, every 1-D parameter and BN statistic drawn."""
+    num_frames, video-level ones over mean_rgb + mean_audio, D=1152; other
+    `hparams` where given), weights from a seed drawn on the card
+    (card_init), every 1-D parameter and BN statistic drawn; on the
+    CPU."""
 
     def make(torch, seed: int):
-        from yt8m_tpu_torch.models import ModelHParams, get_model
+        from yt8m_tpu_torch.models import ModelHParams
 
-        hp = ModelHParams(vocab_size=CLASSES, feature_dim=FEATURE_DIM,
-                          max_frames=FLAG_FRAMES, moe_num_mixtures=MIXTURES,
-                          compute_dtype="bfloat16")
-        model = get_model(name, hp)
-        gen = torch.Generator().manual_seed(seed)
-        model.reset_parameters(gen)
-        perturb_vectors(torch, model, gen)
-        return hp, model.eval()
+        hp = ModelHParams(**{
+            **dict(vocab_size=CLASSES, feature_dim=FEATURE_DIM,
+                   max_frames=FLAG_FRAMES, moe_num_mixtures=MIXTURES,
+                   compute_dtype="bfloat16"), **hparams})
+        return hp, card_init(torch, name, hp, seed).cpu()
 
     return make
 
@@ -3430,6 +3746,19 @@ F32_PER_BATCH = {
     f"NeXtVladModel {F32}": {"nextvlad_aggregate": 0, "moe_head_serving": 1},
 }
 PER_BATCH.update(F32_PER_BATCH)
+# The shapes past the kernels' old limits, and --moe_head_pallas=false
+# (the plain head serves: no MoE launch).
+WIDE_CLUSTERS, WIDE_MIXTURES = 1024, 32
+WIDE_FLAGSHIP = (f"NetVladLstmModel --netvlad_cluster_size={WIDE_CLUSTERS} "
+                 f"--moe_num_mixtures={WIDE_MIXTURES}")
+WIDE_CHAIN = f"ChainMoeModel --moe_num_mixtures={WIDE_MIXTURES}"
+PLAIN_MOE = "MoeModel --moe_head_pallas=false"
+PER_BATCH.update({
+    WIDE_FLAGSHIP: {"netvlad_aggregate": 1, "lstm_recurrence": LSTM_LAYERS,
+                    "moe_head_serving": 1},
+    WIDE_CHAIN: {"moe_head_serving": CHAIN_STAGES},
+    PLAIN_MOE: {"moe_head_serving": 0},
+})
 
 # A path's name is the model's, then the CLI flags it runs with; the
 # kernels it must launch.
@@ -3467,6 +3796,16 @@ PATHS = {
     f"NeXtVladModel {F32}": (
         lambda torch, seed: make_nextvlad_model(torch, seed, dtype="float32"),
         ("moe_head_serving", "exact_topk")),
+    WIDE_FLAGSHIP: (
+        lambda torch, seed: make_flagship_model(
+            torch, seed, clusters=WIDE_CLUSTERS, mixtures=WIDE_MIXTURES),
+        ("netvlad_aggregate", "lstm_recurrence", "moe_head_serving",
+         "exact_topk")),
+    WIDE_CHAIN: (make_zoo_model("ChainMoeModel",
+                                moe_num_mixtures=WIDE_MIXTURES),
+                 ("moe_head_serving", "exact_topk")),
+    PLAIN_MOE: (make_zoo_model("MoeModel", moe_head_pallas=False),
+                ("exact_topk",)),
 }
 
 
@@ -3882,6 +4221,54 @@ def train_flagship(torch, dev, fused: bool = False) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "idle_share": idle,
             "peak_gib": peak}
+
+
+WIDE_TRAIN_STEPS = 3
+
+
+def train_wide_flagship(torch, dev) -> dict:
+    """The flagship at K=1024 and M=32 with --netvlad_fused_train (the
+    assignment past one block of netvlad_core, the MoE head through its
+    plain training graph) trained through make_train_step at B=256, its
+    launch counts set to 0 just before the steps and read just after: a
+    finite loss, the step time, one netvlad_core launch each way a
+    step."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_flagship_model(torch, seed=0, fused_train=True,
+                                clusters=WIDE_CLUSTERS,
+                                mixtures=WIDE_MIXTURES,
+                                on_card=True)[1].train()
+    n_params = sum(p.numel() for p in model.parameters())
+    state = TrainState(model, global_batch_size=TRAIN_BATCH)
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=5)
+    wrappers = zero_launches()
+    times, losses = timed_steps(torch, step, state, batch, WIDE_TRAIN_STEPS)
+    launches = read_launches(torch, wrappers)
+    check(all(math.isfinite(x) for x in losses),
+          f"{WIDE_FLAGSHIP} training loss not finite: {losses}")
+    for fn in ("netvlad_core_forward", "netvlad_core_backward"):
+        check(launches[fn] == WIDE_TRAIN_STEPS,
+              f"{fn}: {launches[fn]} launches in {WIDE_TRAIN_STEPS} steps, "
+              f"want one a step")
+    step_ms = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("train", f"{WIDE_FLAGSHIP} --netvlad_fused_train B={TRAIN_BATCH} "
+                 f"({n_params} parameters, bf16, Adam): losses "
+                 f"{[round(x, 4) for x in losses]}, step "
+                 f"{[round(t, 3) for t in times]} ms (median of the last "
+                 f"{WIDE_TRAIN_STEPS - 1}: {step_ms:.3f}); peak memory "
+                 f"{peak:.2f} GiB; netvlad_core launches "
+                 f"{launches['netvlad_core_forward']} + "
+                 f"{launches['netvlad_core_backward']}")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak}
 
 
 def train_dbof(torch, dev, dtype="bfloat16") -> dict:
@@ -4444,6 +4831,80 @@ def cli_workflow(torch, dev, work, data) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "checkpoint_gb": size,
             "save_s": [t for _, t in saves], "restore_s": restores}
+
+
+ASYNC_STEPS = (3, 4)  # trained to 3, a checkpoint a step; resumed to 4
+
+
+def async_workflow(torch, dev, work, data) -> dict:
+    """--async_checkpoint against synchronous saves: DbofModel at the
+    reference width (B=256) through cli.train, a checkpoint every step, to
+    step 3, then resumed to step 4, once with each; the seconds each save
+    held the training thread (the Trainer's log line): a mid-run async
+    save holds it for the host copy, the run's last save until it is on
+    disk, as in orbax."""
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.train.checkpoint import step_dirs
+
+    out = {}
+    logs = LogLines()
+    logger = logging.getLogger("yt8m_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(logs)
+    try:
+        for mode in ("sync", "async"):
+            run = os.path.join(work, f"{mode}_run")
+            train = [
+                f"--train_data_pattern={data}/train-*.tfrecord",
+                f"--train_dir={run}", f"--batch_size={TRAIN_BATCH}",
+                "--save_checkpoint_every_n_steps=1",
+                "--max_checkpoints_to_keep=1", "--log_every_n_steps=1",
+                *DBOF_FLAGS, "--compute_dtype=bfloat16",
+                "--frame_features=true", "--feature_names=rgb,audio",
+                "--feature_sizes=1024,128", f"--num_classes={CLASSES}",
+                f"--device={dev.type}"]
+            if mode == "async":
+                train.append("--async_checkpoint")
+            logs.messages.clear()
+            for steps in ASYNC_STEPS:
+                last = train_cli.main(train + [f"--max_steps={steps}"])
+                check(last == steps and step_dirs(run) == [steps]
+                      and not [n for n in os.listdir(run)
+                               if n.startswith(".")],
+                      f"cli.train {mode} --max_steps={steps}: step {last}, "
+                      f"{sorted(os.listdir(run))}")
+            check([int(m.group(1)) for m in logs.find(
+                r"restoring checkpoint at step (\d+)")] == [ASYNC_STEPS[0]],
+                f"cli.train {mode} did not resume at step {ASYNC_STEPS[0]}")
+            losses = [float(m.group(2)) for m in logs.find(
+                r"training step (\d+) \| Loss: (\S+)")]
+            check(len(losses) == ASYNC_STEPS[-1]
+                  and all(map(math.isfinite, losses)),
+                  f"cli.train {mode} log lines: {losses}")
+            held = [[float(t) for t in m.group(1).split(", ")]
+                    for m in logs.find(r"\(([\d., ]+) s a save\)")]
+            writes = [float(m.group(1)) for m in logs.find(
+                r"saved checkpoint step \d+ \([\d.]+ GB\) in ([\d.]+) s")]
+            out[mode] = {"held_s": held, "write_s": writes, "losses": losses}
+            shutil.rmtree(run, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        logger.removeHandler(logs)
+    # Each run's saves but its last (force_save's, durable before return).
+    mid = {mode: [t for run in r["held_s"] for t in run[:-1]]
+           for mode, r in out.items()}
+    say("workflow", f"DbofModel cli.train to {ASYNC_STEPS[0]}, resumed to "
+                    f"{ASYNC_STEPS[1]}, a checkpoint a step: the saves held "
+                    f"the training thread {out['async']['held_s']} s with "
+                    f"--async_checkpoint (the writer took "
+                    f"{out['async']['write_s']} s on its thread), "
+                    f"{out['sync']['held_s']} s synchronously; mid-run saves "
+                    f"median {statistics.median(mid['async']):.3f} s against "
+                    f"{statistics.median(mid['sync']):.3f} s; losses "
+                    f"{out['async']['losses']} and {out['sync']['losses']}")
+    out["mid_run_median_s"] = {k: statistics.median(v) for k, v in mid.items()}
+    return out
 
 
 def default_workflow(torch, dev, work) -> dict:
@@ -5185,6 +5646,8 @@ def main() -> int:
     f32_rows = check_f32_routes(torch, torch.Generator().manual_seed(2020),
                                 dev, flush)
     torch.cuda.empty_cache()
+    new_shapes = check_new_shapes(torch, dev, flush)
+    torch.cuda.empty_cache()
     del flush
     check_repaired_shapes(torch, gen, dev)
     torch.cuda.empty_cache()
@@ -5250,6 +5713,7 @@ def main() -> int:
                     train_zoo(torch, dev, "DeepCombineChainModel"),
                     train_zoo(torch, dev, "NetFVModel"),
                     train_zoo(torch, dev, "FrameCnnModel")]
+    wide_training = train_wide_flagship(torch, dev)
     optimizers = train_optimizers(torch, dev)
     optimizers_cmp = optimizers_card_vs_cpu(torch, dev)
     say("train", f"DbofModel f32 step {dbof_f32['step_ms']:.3f} ms; "
@@ -5298,6 +5762,7 @@ def main() -> int:
                             "moe_head_serving")),
         ]
         adafactor = optimizer_workflow(torch, dev, work, data)
+        async_run = async_workflow(torch, dev, work, data)
         phase_done("7 workflows")
         readers = reader_phase(torch, dev, work)
         ensembles = ensemble_workflow(torch, dev, work, data)
@@ -5328,7 +5793,8 @@ def main() -> int:
                                             "nextvlad_train")}
     path_runs = [r["launches"] for r in (*e2e.values(), *steps, training,
                                          fused, gru_training,
-                                         nextvlad_training, *zoo_training)]
+                                         nextvlad_training, *zoo_training,
+                                         wide_training)]
     for run in (default, workflow, *short_runs, adafactor, ensembles):
         path_runs += list(run["launches"].values())
     served = ensembles["launches"]["serve ensemble"]
@@ -5350,10 +5816,14 @@ def main() -> int:
                     if k.startswith("train")]
             fwd = sum(r["netvlad_core_forward"] for r in runs)
             bwd = sum(r["netvlad_core_backward"] for r in runs)
+            wide = wide_training["launches"]
             row.update(launches=fwd + bwd, launches_forward=fwd,
                        launches_backward=bwd, launches_by_path={
                            "distilled student": student["netvlad_core_forward"]
-                           + student["netvlad_core_backward"]})
+                           + student["netvlad_core_backward"],
+                           f"{WIDE_FLAGSHIP} training":
+                               wide["netvlad_core_forward"]
+                               + wide["netvlad_core_backward"]})
             continue
         if row.get("on_main_path") is False:
             row["launches"] = sum(r.get(row["name"], 0) for r in path_runs)
@@ -5390,6 +5860,14 @@ def main() -> int:
             check(r["launches"] > 0, f"{row['name']}: its f32 route was not "
                                      f"launched on {f32_main[row['name']]}")
             row["compute_f32"] = r
+    # The shapes past the old limits (phase 3), each with its numbers.
+    for row in rows:
+        if row["name"] in new_shapes:
+            row["new_shapes"] = new_shapes[row["name"]]
+    say("workflow", f"--async_checkpoint: mid-run saves held the training "
+                    f"thread {async_run['mid_run_median_s']['async']:.3f} s "
+                    f"(median), synchronous "
+                    f"{async_run['mid_run_median_s']['sync']:.3f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_forward", "launches_backward", "ms_forward",
@@ -5401,7 +5879,7 @@ def main() -> int:
              "ms_events_f32", "on_main_path", "int8_vs_bf16",
              "ms_gather_then_v2", "max_abs_err_f32", "ms_f32", "plain_ms_f32",
              "bound_ms_f32", "bound_by_f32", "library_ms_f32",
-             "launches_by_path", "compute_f32")
+             "launches_by_path", "compute_f32", "new_shapes")
     say("phase", "seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))
     print(json.dumps({"kernels": [

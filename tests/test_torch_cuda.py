@@ -325,8 +325,9 @@ def test_cuda_wrappers_reject_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError):  # f16 weights: the kernels are bf16 or f32
         tdbof.dbof_cluster_maxpool_v2(x[:, :8].contiguous(), w.half(), v,
                                       v, a, a)
-    with pytest.raises(ValueError):  # M = 17 is not built
-        tmoe.moe_head_serving(*_moe_args(0, 4, 32, 8, 17, cuda), 17)
+    with pytest.raises(ValueError):  # M = 0: no mixture
+        tmoe.moe_head_serving(*_moe_args(0, 4, 32, 8, 1, cuda)[:3],
+                              torch.zeros(0, device=cuda), 0)
 
 
 def test_cuda_inference_matches_cpu(cuda, tmp_path):
@@ -532,9 +533,8 @@ def test_cuda_new_wrappers_reject_what_the_kernels_cannot_take(cuda):
         tvlad.netvlad_aggregate(x, nf, wc.half(), scale, bias, centers)
     with pytest.raises(ValueError):  # int64 frame counts
         tvlad.netvlad_aggregate(x, nf.long(), wc, scale, bias, centers)
-    with pytest.raises(ValueError):  # K = 520 > 512
-        args = _vlad_args(0, 2, 8, 128, 520, torch.float32, cuda)
-        tvlad.netvlad_aggregate(*args)
+    with pytest.raises(ValueError):  # f64 centers
+        tvlad.netvlad_aggregate(x, nf, wc, scale, bias, centers.double())
     xp, nf, wh, bias = _lstm_args(0, 4, 3, 64, cuda)
     with pytest.raises(ValueError):  # non-contiguous x_proj
         tlstm.lstm_recurrence(xp.transpose(0, 1), nf, wh, bias)
@@ -882,8 +882,9 @@ def test_cuda_netvlad_core_ignores_frames_past_num_frames(cuda):
 
 
 def test_cuda_netvlad_core_rejects_what_the_kernel_cannot_take(cuda):
-    args, _ = _core_args(1, 2, 5, 64, 600, cuda)
-    with pytest.raises(ValueError, match="K <= 512"):
+    k = tnt.max_clusters() + 1  # two softmax rows no longer fit a block
+    args, _ = _core_args(1, 2, 5, 64, k, cuda)
+    with pytest.raises(ValueError, match=f"K <= {k - 1}"):
         tnt.netvlad_core_forward(*args)
     args, _ = _core_args(1, 2, 5, 64, 8, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -1786,11 +1787,12 @@ def test_cuda_plans_match_the_kernels(cuda):
             got["smem"]) == (tdbof.TILE_VIDEOS, tdbof.MAX_FRAMES_PER_VIDEO,
                              p["chain"], p["stages"], p["smem"])
     assert p["grid"] == min(p["tiles"], got["sms"])
-    for m in range(1, 17):
+    for m in [*range(1, 18), 32, 63, 64, 121, 122, 200, 240]:
         got = tmoe.kernel_plan(m)
         p = tmoe.plan(512, 2048, 4716, m)
         assert got == {key: p[key] for key in (
-            "classes", "gate", "expert", "stages", "smem", "stage_ld")}
+            "classes", "gate", "expert", "stages", "smem", "stage_ld",
+            "chunks", "f32_classes")}
 
 
 def test_cuda_moe_refuses_unpitched_weights(cuda):
@@ -2303,3 +2305,119 @@ def test_cuda_f32_fused_netvlad_training_matches_cpu(cuda):
     assert abs(gpu_loss - cpu_loss) <= 2e-3 * abs(cpu_loss)
     for n, v in cpu_norms.items():
         assert abs(gpu_norms[n] - v) <= 2e-2 * max(v, 1e-6), n
+
+
+# ---------------------------------------------------------------------------
+# Past the old limits: the MoE head at any M, NetVLAD serving and
+# netvlad_core at any K, through their kernels (bf16 and f32 routes).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [17, 32, 63, 64, 121, 122, 200, 240, 241])
+@pytest.mark.parametrize("b,h,c", [(37, 64, 83), (130, 96, 9)])
+def test_cuda_moe_any_mixtures(cuda, m, b, h, c):
+    """The run-time tile up to M = 121 (every start offset), chunks of
+    120 mixtures above (the dummy gate alone in the last chunk at M =
+    240), and the f32 route's chunks of 63 from M = 64, against the plain
+    version with each route's bound."""
+    for route, close in (("bf16", _close), ("f32", _f32_close)):
+        args = (_moe_args if route == "bf16" else _f32_moe_args)(
+            b + c + m, b, h, c, m, cuda)
+        before = tmoe.moe_head_serving.launches
+        got = tmoe.moe_head_serving(*args, m)
+        assert tmoe.moe_head_serving.launches == before + 1
+        close(got, tmoe.moe_head_plain(*args, m))
+
+
+@pytest.mark.parametrize("m", [32, 200])
+def test_cuda_moe_any_mixtures_clamps_large_logits(cuda, m):
+    """Gate logits far past +-80 in every chunk: finite, the plain
+    version's clamped ratio."""
+    x, wg, we, be = _moe_args(m, 16, 64, 7, m, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        g = tmoe.pitched((wg.float() * 400).to(dtype))
+        e = tmoe.pitched(we.to(dtype))
+        got = tmoe.moe_head_serving(x, g, e, be, m)
+        assert torch.isfinite(got).all()
+        _close(got, tmoe.moe_head_plain(x, g, e, be, m))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,f,d,k", [(4, 70, 256, 520), (3, 300, 128, 1024),
+                                     (2, 130, 256, 2048), (5, 13, 128, 1000)])
+def test_cuda_netvlad_any_clusters(cuda, x_dtype, b, f, d, k):
+    """K past one assignment block: the logits tiled over K, the softmax
+    over all K in a second launch; bf16 and f32 routes against the plain
+    version (num_frames F, and from B = 3 also 0 and 1, planted)."""
+    args = _vlad_args(b + f + k, b, f, d, k, x_dtype, cuda)
+    before = tvlad.netvlad_aggregate.launches
+    got = tvlad.netvlad_aggregate(*args)
+    assert tvlad.netvlad_aggregate.launches == before + 1
+    _vlad_close(got, tvlad.netvlad_aggregate_plain(*args))
+    assert b < 3 or torch.all(got[1] == 0)  # num_frames 0 from B = 3
+    args[2] = args[2].float()
+    got = tvlad.netvlad_aggregate(*args)
+    _f32_close(got, tvlad.netvlad_aggregate_plain(*args), abs_=1e-8)
+    assert b < 3 or torch.all(got[1] == 0)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_netvlad_any_clusters_hazards(cuda, x_dtype):
+    """At K = 1024: frames past num_frames do not leak, a padded cluster
+    (bias -1e30) and a cluster no frame is assigned to give zero rows;
+    the scratch is written on the live chunks only."""
+    x, nf, wc, scale, bias, centers = _vlad_args(9, 6, 300, 256, 1024,
+                                                 x_dtype, cuda)
+    bias[5] = -1e4
+    bias[1023] = tvlad.PAD_CLUSTER_BIAS
+    clean, loud = x.clone(), x.clone()
+    for i, n in enumerate(nf.tolist()):
+        clean[i, n:] = 0
+        loud[i, n:] = 255 if x_dtype == torch.uint8 else 1e4
+    got = tvlad.netvlad_aggregate(loud, nf, wc, scale, bias, centers)
+    assert torch.equal(
+        got, tvlad.netvlad_aggregate(clean, nf, wc, scale, bias, centers))
+    assert torch.all(got[:, 5] == 0) and torch.all(got[:, 1023] == 0)
+    assert torch.isfinite(got).all()
+    _vlad_close(got, tvlad.netvlad_aggregate_plain(loud, nf, wc, scale,
+                                                   bias, centers))
+    nan = float("nan")
+    out, xb, ka, colsum = tvlad._launch(
+        loud, nf, wc, scale, bias, centers,
+        lambda shape, dtype, device: torch.full(shape, nan, dtype=dtype,
+                                                device=device))
+    chunk = torch.arange(300, device=cuda) // 64
+    live_chunk = chunk[None, :] < (nf[:, None] + 63) // 64
+    assert torch.equal(~torch.isnan(ka.float()).all(-1), live_chunk)
+    assert torch.equal(~torch.isnan(xb.float()).all(-1), live_chunk)
+    past = torch.arange(300, device=cuda)[None, :] >= nf[:, None]
+    assert torch.all(ka[live_chunk & past] == 0)
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("b,f,d,k", [(3, 70, 256, 520), (2, 300, 128, 1024),
+                                     (4, 65, 64, 1001), (2, 40, 32, 2048)])
+def test_cuda_netvlad_core_any_clusters(cuda, b, f, d, k):
+    """K past the backward's registers: the forward's softmax over fewer
+    staged rows, the backward's Wide tiles and its row launch; forward,
+    backward with and without dx, and a second run bit for bit."""
+    args, dvlad = _core_args(b + f + d + k, b, f, d, k, cuda)
+    vlad, a_sum = tnt.netvlad_core_forward(*args)
+    want_v, want_a = tnt.netvlad_core_plain_forward(*args)
+    _close(vlad, want_v)
+    _close(a_sum, want_a)
+    want_da, want_dx = tnt.netvlad_core_plain_backward(*args, dvlad)
+    for need_dx in (True, False):
+        dact, dx = tnt.netvlad_core_backward(*args, dvlad, need_dx)
+        _close(dact, want_da)
+        if need_dx:
+            _close(dx, want_dx)
+    again = tnt.netvlad_core_forward(*args)
+    assert torch.equal(again[0], vlad) and torch.equal(again[1], a_sum)
+    assert torch.equal(tnt.netvlad_core_backward(*args, dvlad)[0],
+                       tnt.netvlad_core_backward(*args, dvlad)[0])
+    got = _core_grads(args, dvlad)
+    _close(got[1], want_da)
+    nf = args[2]
+    past = torch.arange(f, device=cuda)[None, :] >= nf[:, None]
+    assert torch.all(got[1][past] == 0) and torch.all(got[2][past] == 0)

@@ -22,7 +22,6 @@ UNPORTED = {
     "fsdp_min_size": "FSDP (one device)",
     "num_devices": "multi-device training (one device)",
     "export_model_steps": "serving export",
-    "async_checkpoint": "asynchronous checkpoints",
 }
 _ALLOWED = {"num_devices": (None, 1)}
 

@@ -22,8 +22,15 @@ trainer's format, so either package's recording rebuilds the model) and
 the trainer's step directories (train/checkpoint.py), or a flat
 `model.pt` (the `state_dict`, saved with `torch.save`) as
 `save_checkpoint` writes it. An orbax checkpoint of the JAX package is
-read with orbax outside the port and converted with
-`state_dict_from_jax`.
+read with orbax outside the port (scripts/convert_jax_checkpoint.py) and
+converted here: `write_step_from_jax` turns a JAX trainer's step (its
+`params`, `batch_stats`, `ema_params` and `opt_state`, numpy leaves)
+into a step directory of the port's trainer. Adam's state (optax's `mu`,
+`nu` and `count`) becomes torch.optim.Adam's `exp_avg`, `exp_avg_sq` and
+`step` (or, with a bf16 `mu`, the port's AdamBf16Mu state), so the run
+resumes in the port's trainer; any other optimizer's state is not
+converted, and the step then holds no optimizer.pt (the trainer refuses
+to resume from it; eval and inference serve it).
 """
 
 from __future__ import annotations
@@ -37,7 +44,13 @@ import numpy as np
 import torch
 
 from yt8m_tpu_torch.models import ModelHParams, get_model
-from yt8m_tpu_torch.train.checkpoint import MODEL_FILE, restore_model
+from yt8m_tpu_torch.train.checkpoint import (
+    EMA_FILE,
+    MODEL_FILE,
+    OPTIMIZER_FILE,
+    restore_model,
+    write_step,
+)
 
 FLAGS_FILE = "model_flags.json"
 
@@ -53,6 +66,15 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _tensor(value) -> torch.Tensor:
+    """A numpy leaf as a torch tensor of its float dtype (bf16 leaves,
+    ml_dtypes' bfloat16, through f32, which holds them exactly)."""
+    a = np.asarray(value)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX variables (numpy leaves) -> the port's state_dict."""
     flat = _flatten(variables.get("params", {}))
@@ -64,6 +86,92 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         name: torch.from_numpy(np.array(value, dtype=np.float32))
         for name, value in flat.items()
     }
+
+
+def _find_adam(tree):
+    """optax's ScaleByAdamState ({"count", "mu", "nu"}) in an opt_state
+    as orbax restores it without a target (lists and dicts), or None."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for node in tree:
+            found = _find_adam(node)
+            if found is not None:
+                return found
+    return None
+
+
+def _adam_state(model, adam: Mapping) -> tuple:
+    """(optimizer state_dict, adam_mu_dtype) of the port's Adam over
+    `model`'s trainable parameters, from optax's Adam state."""
+    from yt8m_tpu_torch.train.state import TrainState
+
+    mu, nu = _flatten(adam["mu"]), _flatten(adam["nu"])
+    mu_dtype = ("bfloat16" if str(np.asarray(next(iter(mu.values()))).dtype)
+                == "bfloat16" else "float32")
+    count = int(np.asarray(adam["count"]))
+    optimizer = TrainState(model, optimizer="AdamOptimizer",
+                           adam_mu_dtype=mu_dtype).optimizer
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    if set(names) != set(mu) or set(names) != set(nu):
+        raise ValueError("Adam's moments do not name the model's parameters: "
+                         f"{sorted(set(names) ^ set(mu))}")
+    state = {}
+    for i, name in enumerate(names):
+        if mu_dtype == "bfloat16":  # train/optimizers.py :: AdamBf16Mu
+            state[i] = {"step": torch.tensor(count, dtype=torch.int64),
+                        "mu": _tensor(mu[name]).to(torch.bfloat16),
+                        "nu": _tensor(nu[name])}
+        else:  # torch.optim.Adam: optax's count is its step
+            state[i] = {"step": torch.tensor(float(count)),
+                        "exp_avg": _tensor(mu[name]),
+                        "exp_avg_sq": _tensor(nu[name])}
+    saved = optimizer.state_dict()
+    saved["state"] = state
+    optimizer.load_state_dict(saved)  # checks every shape
+    return optimizer.state_dict(), mu_dtype
+
+
+def write_step_from_jax(train_dir: str, restored: Mapping, flags: Mapping,
+                        step: Optional[int] = None) -> dict:
+    """Write a JAX trainer's step as the port's step directory.
+
+    `restored` is the step as orbax restores it (numpy leaves): `params`,
+    `batch_stats`, `opt_state`, `ema_params` (None without an EMA) and
+    `step`; `flags` is the JAX run's model_flags.json, written into
+    train_dir beside train_dir/<step>/ (model.pt, ema.pt with an EMA,
+    optimizer.pt for Adam, step.json last). Returns what was written:
+    {"step", "path", "optimizer" ("AdamOptimizer" or None),
+    "adam_mu_dtype", "ema"}.
+    """
+    fields = {f.name for f in dataclasses.fields(ModelHParams)}
+    hparams = ModelHParams(**{k: v for k, v in flags["hparams"].items()
+                              if k in fields})
+    model = get_model(flags["model"], hparams)
+    model.load_state_dict(state_dict_from_jax(restored))
+    step = int(np.asarray(restored["step"])) if step is None else int(step)
+    files = {MODEL_FILE: {k: v.detach().clone()
+                          for k, v in model.state_dict().items()}}
+    ema = restored.get("ema_params")
+    if ema:
+        params = dict(model.named_parameters())
+        flat = {name: _tensor(value) for name, value in _flatten(ema).items()}
+        if set(flat) != set(params):
+            raise ValueError("ema_params do not name the model's parameters")
+        files[EMA_FILE] = {n: flat[n].to(torch.float32) for n in params}
+    adam = _find_adam(restored.get("opt_state"))
+    mu_dtype = None
+    if adam is not None:
+        files[OPTIMIZER_FILE], mu_dtype = _adam_state(model, adam)
+    os.makedirs(train_dir, exist_ok=True)
+    with open(os.path.join(train_dir, FLAGS_FILE), "w") as f:
+        json.dump(dict(flags), f, indent=1)
+    path = write_step(os.path.abspath(train_dir), step, files)
+    return {"step": step, "path": path,
+            "optimizer": "AdamOptimizer" if adam is not None else None,
+            "adam_mu_dtype": mu_dtype, "ema": EMA_FILE in files}
 
 
 def _nest(flat: Mapping[str, np.ndarray]) -> dict:

@@ -5,8 +5,9 @@ TFRecord framing (reference delegates to TF's C++ RecordReader/RecordWriter):
     uint32 masked_crc32c(data)
 
 A dependency-free implementation used by the fixture writer and the
-pure-Python reader. A copy of the JAX package's codec, so that the port
-imports nothing of that package; the native parser is not ported yet.
+pure-Python reader (the oracle and fallback of the native parser,
+data/pipeline.py, which checks the same CRCs in C++). A copy of the JAX
+package's codec, so that the port imports nothing of that package.
 """
 
 from __future__ import annotations

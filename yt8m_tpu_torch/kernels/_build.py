@@ -66,8 +66,8 @@ SIGNATURES = {
     "yt8m_hopper_product": [_P] * 3 + [_I] * 6 + [_P],
     "yt8m_exact_topk": [_P] * 3 + [_I] * 3 + [_P],
     "yt8m_exact_topk_plan": [_I, _P],
-    "yt8m_netvlad_aggregate_u8": [_P] * 12 + [_I] * 4 + [_P],
-    "yt8m_netvlad_aggregate_f32": [_P] * 12 + [_I] * 4 + [_P],
+    "yt8m_netvlad_aggregate_u8": [_P] * 13 + [_I] * 4 + [_P],
+    "yt8m_netvlad_aggregate_f32": [_P] * 13 + [_I] * 4 + [_P],
     "yt8m_netvlad_aggregate_f32w_u8": [_P] * 11 + [_I] * 4 + [_P],
     "yt8m_netvlad_aggregate_f32w_f32": [_P] * 11 + [_I] * 4 + [_P],
     "yt8m_netvlad_plan": [_P],

@@ -62,13 +62,40 @@
 // as views whose row stride is padded to a multiple of 8 columns
 // (kernels/moe_head.py :: pitched), C*(M+1) = 14,148 being no multiple of 8.
 //
-// M in {1, 2, 4} is a template argument; any other M in 1..16 is taken
-// at run time by one more instantiation (M = 0) with NC = 8 and chains
-// of 136 and 128 columns, of which it combines 8(M+1) and 8M. Chain
-// widths are multiples of 8 up to 256 and split at box edges
+// M in {1, 2, 4} is a template argument; any other M up to 121 is taken
+// at run time by one more instantiation (M = 0) with chains of 136 and
+// 128 columns. TMA starts a box only at a column that is a multiple of 8
+// (16 bytes): a box whose start is not hangs the stage's barrier (found on
+// the card: the bf16 kernel trapped at its 10 s wait from M = 3 with 34
+// classes a block, whose expert columns start at 102). The M = 0 tile
+// therefore loads from the tile's first gate and expert columns rounded
+// down to 8 and reads its columns r = start % 8 further on, which leaves
+// room for NC = min(129 / (M + 1), 121 / M) classes (M = 32: 3 classes,
+// 99 and 96 columns). The template tiles' starts are multiples of 8.
+// Chain widths are multiples of 8 up to 256 and split at box edges
 // (hopper_gemm.cuh :: chain). The accumulators of a tile stay near 128
 // registers a thread: with 160 (NC=64 at M=2) ptxas spilled them and
 // serialized the wgmma chains.
+//
+// M > 121 (the M = -1 instantiation): a block takes 128 videos x one
+// class and loops over chunks of 120 mixtures, a whole mainloop over H a
+// chunk on the same ring (3 stages): gates 120 j .. of the class (and the
+// last chunk's dummy gate M) in the 136-column chain, experts 120 j .. in
+// the 128-column one, each from its start rounded down to 8. The clamp
+// keeps every exp finite, so the ratio form's numerator and denominator
+// are plain sums across chunks, kept in registers for the thread's two
+// rows. A gate and the expert of the same mixture sit r_e - r_g columns
+// apart in the two chains, so each warp stages its 8 rows' exp(gate)
+// values in a slot of its own beside the ring, [8][136] f32, read back by
+// the thread holding the expert; the quad's four lanes join the sums, and
+// one lane divides after the last chunk (a true division: (M + 1) e^80
+// passes 2^126 at M > 1542, where the fast division gives 0). The slots
+// lie outside the ring, so the next chunk loads while a chunk is combined.
+//
+// The f32 route takes NC = floor(128 / (2M + 1)) classes up to M = 63;
+// above, a block takes one class and loops over chunks of 63 mixtures (at
+// most 64 gate and 63 expert columns of the 128-column B panel), the
+// combine of each chunk added into the row's sums in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,19 +107,50 @@
 
 namespace {
 
-constexpr int kMaxMixtures = 16;
-constexpr int kStages = 4;
+constexpr int kRingStages = 4;  // ring stages of the M >= 0 tiles
+constexpr int kRuntimeGate = 136;   // the run-time tiles' chain widths
+constexpr int kRuntimeExpert = 128;
+constexpr int kChunkMixtures = 120;  // mixtures a chunk of M > 128: 120 + 7 <= 128 columns
+constexpr int kAlignCols = 8;  // TMA box starts: multiples of 16 bytes
+// M = 0 takes M <= 121 (one class past a 7-column offset); M = -1 above.
+constexpr int kMaxRuntimeMixtures = kRuntimeExpert - kAlignCols + 1;
 
-// The tile of M mixtures (M = 0: the run-time instantiation): classes a
-// block and the widths of its gate and expert chains. The chains' 2 B
-// accumulators a column stay under ~130 registers a thread (two
-// wgmma chains in flight beside them within the consumers' 232).
+// The tile of M mixtures (M = 0: the run-time instantiation, M = -1: the
+// chunked one): classes a block and the widths of its gate and expert
+// chains. The chains' 2 B accumulators a column stay under ~130
+// registers a thread (two wgmma chains in flight beside them within the
+// consumers' 232). The run-time tiles' classes are runtime_classes(m).
 struct Tile {
   int nc, gate, expert;
 };
 __host__ __device__ constexpr Tile tile_of(int m) {
   return m == 1 ? Tile{80, 160, 80}
-                : m == 2 ? Tile{48, 144, 96} : m == 4 ? Tile{16, 80, 64} : Tile{8, 136, 128};
+                : m == 2 ? Tile{48, 144, 96}
+                         : m == 4 ? Tile{16, 80, 64} : Tile{1, kRuntimeGate, kRuntimeExpert};
+}
+
+// Classes a block of the run-time tile at m <= 121 mixtures: as many as
+// both chains cover past an offset of up to 7 columns (so the bias slot's
+// NC m <= 128 floats).
+__host__ __device__ constexpr int runtime_classes(int m) {
+  return (kRuntimeGate - kAlignCols + 1) / (m + 1) < (kRuntimeExpert - kAlignCols + 1) / m
+             ? (kRuntimeGate - kAlignCols + 1) / (m + 1)
+             : (kRuntimeExpert - kAlignCols + 1) / m;
+}
+
+// The instantiation that takes m mixtures.
+__host__ __device__ constexpr int instance_of(int m) {
+  return m == 1 || m == 2 || m == 4 ? m : m <= kMaxRuntimeMixtures ? 0 : -1;
+}
+
+// Classes a block at m mixtures (1 for the chunked instantiation).
+__host__ __device__ constexpr int classes_of(int m) {
+  return instance_of(m) > 0 ? tile_of(m).nc : instance_of(m) == 0 ? runtime_classes(m) : 1;
+}
+
+// Mixture chunks a block walks at m mixtures.
+__host__ __device__ constexpr int chunks_of(int m) {
+  return instance_of(m) < 0 ? (m + kChunkMixtures - 1) / kChunkMixtures : 1;
 }
 
 // Floats a row of the epilogue's stage: the chains' columns padded to 8
@@ -104,21 +162,28 @@ __host__ __device__ constexpr int stage_ld(int cols) { return cols + (8 - cols %
 template <int M>
 struct Layout {
   static constexpr Tile kTile = tile_of(M);
+  static constexpr int kStages = M < 0 ? 3 : kRingStages;  // the chunks' slots take a stage's room
   static constexpr int kGateBoxes = hgemm::boxes(kTile.gate);
   static constexpr int kExpertBoxes = hgemm::boxes(kTile.expert);
   static constexpr int kStageBytes =
       hgemm::kABytes + (kGateBoxes + kExpertBoxes) * hgemm::kBoxBytes;
-  // The ring, its barriers, then the tile's expert bias (NC*M <= 128).
-  static constexpr int kSmemRequest =
-      hgemm::smem_request(kStages * kStageBytes + 2 * kStages * 8 + 128 * 4);
+  // The chunks' per-warp slots of exp(gate), [8 warps][8 rows][gate].
+  static constexpr int kSlotFloats = M < 0 ? hgemm::kConsumerWarps * 8 * kTile.gate : 0;
+  // The ring, its barriers, then the tile's expert bias (NC*M <= 128), then
+  // the slots.
+  static constexpr int kSmemRequest = hgemm::smem_request(kStages * kStageBytes + 2 * kStages * 8 +
+                                                          128 * 4 + kSlotFloats * 4);
   static constexpr int kLd = stage_ld(kTile.gate + kTile.expert);
   static_assert(kSmemRequest <= 232448, "shared memory a block");
   static_assert(hgemm::kRows * kLd * 4 <= kStages * kStageBytes, "the staged tile fits the ring");
-  static_assert(kTile.nc * (M > 0 ? M : kMaxMixtures) <= 128, "the bias fits its slot");
-  static_assert(M > 0 ? kTile.nc * (M + 1) <= kTile.gate && kTile.nc * M <= kTile.expert
-                      : kTile.nc * (kMaxMixtures + 1) <= kTile.gate &&
-                            kTile.nc * kMaxMixtures <= kTile.expert,
+  static_assert(M <= 0 || kTile.nc * M <= 128, "the bias fits its slot");
+  static_assert(M <= 0 || (kTile.nc * (M + 1) <= kTile.gate && kTile.nc * M <= kTile.expert),
                 "the chains cover the tile's classes");
+  static_assert(M > 0 || (kTile.gate == kRuntimeGate && kTile.expert == kRuntimeExpert),
+                "the run-time tiles");
+  static_assert(kChunkMixtures + 1 + kAlignCols - 1 <= kRuntimeGate &&
+                    kChunkMixtures + kAlignCols - 1 <= kRuntimeExpert,
+                "a chunk's gates (and the dummy) and experts fit the chains past an offset");
 };
 
 template <int M>
@@ -131,67 +196,82 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   constexpr int kAcc = (kT.gate + kT.expert) / 2;
   constexpr int kLd = L::kLd;
   constexpr int kStageBytes = L::kStageBytes;
+  constexpr int kS = L::kStages;
   const int m_ = M > 0 ? M : runtime_m;
+  const int nc = M > 0 ? kT.nc : M == 0 ? runtime_classes(m_) : 1;
+  const int n_chunks = M < 0 ? (m_ + kChunkMixtures - 1) / kChunkMixtures : 1;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hgemm::aligned_smem(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
-  uint64_t* empty = full + kStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kS * kStageBytes);
+  uint64_t* empty = full + kS;
   const int nk = (H + hgemm::kDepth - 1) / hgemm::kDepth;
   const int b0 = blockIdx.x * hgemm::kRows;
-  const int c0 = blockIdx.y * kT.nc;
+  const int c0 = blockIdx.y * nc;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       hgemm::bar_init(&full[s], 1);
       hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
     }
     hgemm::bar_init_fence();
   }
   __syncthreads();
+  // The first gate and expert columns of chunk j of the tile, and their
+  // TMA starts (rounded down to 8; the template tiles' are multiples of 8).
+  auto gate0 = [&](int j) { return c0 * (m_ + 1) + j * kChunkMixtures; };
+  auto expert0 = [&](int j) { return c0 * m_ + j * kChunkMixtures; };
+  auto start = [](int col) { return M > 0 ? col : col & ~(kAlignCols - 1); };
 
   const int wg = hgemm::warpgroup();
   hgemm::Ring ring;
   const CUtensorMap* xmap = &map_x;  // the parameter itself (TMA reads it there)
   const CUtensorMap* gmap = &map_g;
   const CUtensorMap* emap = &map_e;
+  // The stage's gate and expert chains into acc.
+  auto mma_stage = [&](int s, float* acc) {
+    const uint32_t st = hgemm::smem_u32(smem + s * Layout<M>::kStageBytes);
+    const uint32_t gates = st + hgemm::kABytes;
+    const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+#pragma unroll
+    for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+      hgemm::chain<Layout<M>::kTile.gate>(acc, st + a_off, gates, kk);
+      hgemm::chain<Layout<M>::kTile.expert>(acc + Layout<M>::kTile.gate / 2, st + a_off,
+                                            gates + Layout<M>::kGateBoxes * hgemm::kBoxBytes, kk);
+    }
+  };
   if (wg == 2) {
     hgemm::set_regs_dec<hgemm::kProducerRegs>();
     if (threadIdx.x == 256) {
-      hgemm::produce<kStages>(full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
-        unsigned char* st = smem + s * L::kStageBytes + hgemm::kABytes;
-        const int k0 = kt * hgemm::kDepth;
-        hgemm::tma_2d(st - hgemm::kABytes, xmap, bar, k0, b0);
+      for (int j = 0; j < n_chunks; ++j) {
+        const int g0 = start(gate0(j));
+        const int e0 = start(expert0(j));
+        hgemm::produce<kS>(full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
+          unsigned char* st = smem + s * L::kStageBytes + hgemm::kABytes;
+          const int k0 = kt * hgemm::kDepth;
+          hgemm::tma_2d(st - hgemm::kABytes, xmap, bar, k0, b0);
 #pragma unroll
-        for (int i = 0; i < L::kGateBoxes; ++i)
-          hgemm::tma_2d(st + i * hgemm::kBoxBytes, gmap, bar,
-                        c0 * (m_ + 1) + i * hgemm::kBoxCols, k0);
+          for (int i = 0; i < L::kGateBoxes; ++i)
+            hgemm::tma_2d(st + i * hgemm::kBoxBytes, gmap, bar, g0 + i * hgemm::kBoxCols, k0);
 #pragma unroll
-        for (int i = 0; i < L::kExpertBoxes; ++i)
-          hgemm::tma_2d(st + (L::kGateBoxes + i) * hgemm::kBoxBytes, emap, bar,
-                        c0 * m_ + i * hgemm::kBoxCols, k0);
-      });
+          for (int i = 0; i < L::kExpertBoxes; ++i)
+            hgemm::tma_2d(st + (L::kGateBoxes + i) * hgemm::kBoxBytes, emap, bar,
+                          e0 + i * hgemm::kBoxCols, k0);
+        });
+      }
     }
-  } else {
+  } else if constexpr (M >= 0) {
     hgemm::set_regs_inc<hgemm::kConsumerRegs>();
     // The tile's expert bias, read once (the combine below reads it per
     // (video, class)); the first named barrier orders it.
-    float* bias = reinterpret_cast<float*>(empty + kStages);
-    for (int i = threadIdx.x; i < kT.nc * m_; i += 256)
+    float* bias = reinterpret_cast<float*>(empty + kS);
+    for (int i = threadIdx.x; i < nc * m_; i += 256)
       bias[i] = c0 * m_ + i < C * m_ ? be[static_cast<size_t>(c0) * m_ + i] : 0.0f;
     // Gate columns in acc[0, gate/2), expert columns after them.
     float acc[kAcc];
     hgemm::zero<kAcc>(acc);
-    const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
-    hgemm::consume<kStages, kAcc>(full, empty, ring, nk, acc, [&](int s) {
-      const uint32_t st = hgemm::smem_u32(smem + s * Layout<M>::kStageBytes);
-      const uint32_t gates = st + hgemm::kABytes;
-#pragma unroll
-      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
-        hgemm::chain<Layout<M>::kTile.gate>(acc, st + a_off, gates, kk);
-        hgemm::chain<Layout<M>::kTile.expert>(acc + Layout<M>::kTile.gate / 2, st + a_off,
-                                              gates + Layout<M>::kGateBoxes * hgemm::kBoxBytes,
-                                              kk);
-      }
-    });
+    hgemm::consume<kS, kAcc>(full, empty, ring, nk, acc, [&](int s) { mma_stage(s, acc); });
+    // Where the tile's first gate and expert columns sit in the chains.
+    const int r_g = gate0(0) - start(gate0(0));
+    const int r_e = expert0(0) - start(expert0(0));
 
     // Both warpgroups are past the ring and every load has landed: stage
     // the accumulators over it, [128 rows][gate columns, expert columns].
@@ -211,28 +291,94 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
     // One thread per (video, class) combines its M+1 gates and M experts,
     // with the fast exponential and division (~1e-6 relative, well inside
     // the 1e-3 * max|ref| bound).
-    for (int p = threadIdx.x; p < hgemm::kRows * kT.nc; p += 256) {
-      const int r = p / kT.nc;
-      const int c = p - r * kT.nc;
+    for (int p = threadIdx.x; p < hgemm::kRows * nc; p += 256) {
+      const int r = p / nc;
+      const int c = p - r * nc;
       const int b = b0 + r;
       const int cls = c0 + c;
       if (b >= B || cls >= C) continue;
-      const float* g = stage + r * kLd + c * (m_ + 1);
-      const float* e = stage + r * kLd + kT.gate + c * m_;
+      const float* g = stage + r * kLd + r_g + c * (m_ + 1);
+      const float* e = stage + r * kLd + kT.gate + r_e + c * m_;
       float den = 0.0f;
       float num = 0.0f;
-#pragma unroll
-      for (int m = 0; m <= (M > 0 ? M : kMaxMixtures); ++m) {
-        if (m > m_) break;
+      auto term = [&](int m) {
         const float eg = __expf(fminf(fmaxf(g[m], -80.0f), 80.0f));
         den += eg;
         if (m < m_) {
           const float logit = e[m] + bias[c * m_ + m];
           num += eg * __frcp_rn(1.0f + __expf(-logit));
         }
+      };
+      if constexpr (M > 0) {
+#pragma unroll
+        for (int m = 0; m <= M; ++m) term(m);
+      } else {
+        for (int m = 0; m <= m_; ++m) term(m);
       }
-      // den <= 17 exp(80) < 2^126, where __fdividef is within 2 ulp.
+      // den <= 129 exp(80) < 2^126, where __fdividef is within 2 ulp.
       out[static_cast<size_t>(b) * C + cls] = __fdividef(num, den);
+    }
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    // M > 128: one class, chunks of 120 mixtures. Thread rows wg 64 + 16
+    // warp + lane / 4 + 8 h; chain column t = 8 j + 2 (lane % 4) + e holds
+    // gate column start(gate0) + t in acc[4 j + 2 h + e] and expert column
+    // start(expert0) + t in acc[kT.gate / 2 + ...].
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int rl = lane >> 2;  // the row's place among the warp's 8
+    const float* be_c = be + static_cast<size_t>(c0) * m_;
+    float* slot = reinterpret_cast<float*>(empty + kS) + 128 + (threadIdx.x / 32) * 8 * kT.gate;
+    float num[2] = {0.0f, 0.0f};
+    float den[2] = {0.0f, 0.0f};
+    float acc[kAcc];
+    for (int j = 0; j < n_chunks; ++j) {
+      hgemm::zero<kAcc>(acc);
+      hgemm::consume<kS, kAcc>(full, empty, ring, nk, acc, [&](int s) { mma_stage(s, acc); });
+      const int mix0 = j * kChunkMixtures;
+      const bool last = j == n_chunks - 1;
+      const int r_g = gate0(j) - start(gate0(j));
+      const int r_e = expert0(j) - start(expert0(j));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // The chunk's gates are mixtures mix0 + u, u < 120, and the dummy
+        // (u = 120 on the last chunk); exp(clamped gate) to the row's slot.
+#pragma unroll
+        for (int jj = 0; jj < kT.gate / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = 8 * jj + 2 * q + e;
+            const int u = t - r_g;
+            const bool ok = u >= 0 && mix0 + u <= m_ && (u < kChunkMixtures || last);
+            const float eg =
+                ok ? __expf(fminf(fmaxf(acc[4 * jj + 2 * h + e], -80.0f), 80.0f)) : 0.0f;
+            den[h] += eg;
+            slot[rl * kT.gate + t] = eg;
+          }
+        __syncwarp();
+        // Expert mixture mix0 + u at column t = u + r_e, its gate at u + r_g.
+#pragma unroll
+        for (int jj = 0; jj < kT.expert / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = 8 * jj + 2 * q + e;
+            const int u = t - r_e;
+            if (u >= 0 && u < kChunkMixtures && mix0 + u < m_) {
+              const float logit = acc[kT.gate / 2 + 4 * jj + 2 * h + e] + __ldg(be_c + mix0 + u);
+              num[h] += slot[rl * kT.gate + u + r_g] * __frcp_rn(1.0f + __expf(-logit));
+            }
+          }
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      num[h] += __shfl_xor_sync(0xffffffffu, num[h], 1);
+      num[h] += __shfl_xor_sync(0xffffffffu, num[h], 2);
+      den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+      den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+      const int b = b0 + wg * 64 + 16 * ((threadIdx.x / 32) & 3) + (lane >> 2) + 8 * h;
+      if (q == 0 && b < B) out[static_cast<size_t>(b) * C + c0] = num[h] / den[h];
     }
   }
 }
@@ -258,7 +404,8 @@ int launch(const void* x, const void* wg, const void* we, const void* be, void* 
     err = cudaFuncSetAttribute(moe_head_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::kSmemRequest);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + hgemm::kRows - 1) / hgemm::kRows, (C + L::kTile.nc - 1) / L::kTile.nc);
+  const int nc = classes_of(m);
+  const dim3 grid((B + hgemm::kRows - 1) / hgemm::kRows, (C + nc - 1) / nc);
   moe_head_kernel<M><<<grid, hgemm::kThreads, L::kSmemRequest, st>>>(
       map_x, map_g, map_e, static_cast<const float*>(be), static_cast<float*>(out), B, H, C, m);
   return static_cast<int>(cudaGetLastError());
@@ -269,8 +416,14 @@ int launch(const void* x, const void* wg, const void* we, const void* be, void* 
 // ---------------------------------------------------------------------------
 
 // Classes a tile of the f32 route: their gate and expert columns fill at
-// most the 128 columns of the product's B panel.
+// most the 128 columns of the product's B panel; 0 (M >= 64): a block
+// takes one class in chunks of kF32ChunkMixtures mixtures, whose gates
+// (and the last chunk's dummy) and experts fill at most 64 + 63 columns.
 __host__ __device__ constexpr int f32_classes(int m) { return f32p::kCols / (2 * m + 1); }
+constexpr int kF32ChunkMixtures = (f32p::kCols - 1) / 2;  // 63
+__host__ __device__ constexpr int f32_class_tiles(int C, int m) {
+  return f32_classes(m) > 0 ? (C + f32_classes(m) - 1) / f32_classes(m) : C;
+}
 
 // The B panel of a class tile: column j < NC (M+1) is gate column
 // c0 (M+1) + j, the next NC M columns are expert columns c0 M + ..., the
@@ -322,7 +475,7 @@ moe_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
   extern __shared__ __align__(16) float fsmem[];
   const int nc = f32_classes(m);
   const int b0 = blockIdx.x * f32p::kRows;
-  const int c0 = blockIdx.y * nc;
+  const int c0 = blockIdx.y * (nc > 0 ? nc : 1);
   const int r = threadIdx.x & (f32p::kRows - 1);
   f32p::RowsA<VecX, f32p::Same> la;
   la.row = b0 + r < B ? x + static_cast<size_t>(b0 + r) * H : nullptr;
@@ -333,15 +486,48 @@ moe_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
   lb.ldg = ldg;
   lb.lde = lde;
   lb.H = H;
+  lb.g_end = C * (m + 1);
+  lb.e_end = C * m;
+  float acc[8][8];
+  float* stage = fsmem;
+  if (nc == 0) {
+    // M >= 64: class c0, chunks of kF32ChunkMixtures mixtures; thread r <
+    // 128 keeps its row's sums across chunks.
+    float num = 0.0f;
+    float den = 0.0f;
+    const int n_chunks = (m + kF32ChunkMixtures - 1) / kF32ChunkMixtures;
+    for (int j = 0; j < n_chunks; ++j) {
+      const int mix0 = j * kF32ChunkMixtures;
+      const int ne = min(kF32ChunkMixtures, m - mix0);
+      const int ng = j == n_chunks - 1 ? m + 1 - mix0 : kF32ChunkMixtures;
+      lb.gate_cols = ng;
+      lb.expert_cols = ne;
+      lb.g0 = c0 * (m + 1) + mix0;
+      lb.e0 = c0 * m + mix0;
+      f32p::product(la, lb, H, fsmem, acc);
+      f32p::stage_tile(acc, stage);
+      __syncthreads();
+      if (threadIdx.x < f32p::kRows) {
+        const float* g = stage + threadIdx.x * f32p::kCols;
+        const float* e = g + ng;
+        const float* bias = be + static_cast<size_t>(c0) * m + mix0;
+        for (int k = 0; k < ng; ++k) {
+          const float eg = expf(fminf(fmaxf(g[k], -80.0f), 80.0f));
+          den += eg;
+          if (k < ne) num += eg * (1.0f / (1.0f + expf(-(e[k] + __ldg(bias + k)))));
+        }
+      }
+      __syncthreads();  // the stage is read before the next chunk's product
+    }
+    if (threadIdx.x < f32p::kRows && b0 + static_cast<int>(threadIdx.x) < B)
+      out[static_cast<size_t>(b0 + threadIdx.x) * C + c0] = num / den;
+    return;
+  }
   lb.gate_cols = nc * (m + 1);
   lb.expert_cols = nc * m;
   lb.g0 = c0 * (m + 1);
   lb.e0 = c0 * m;
-  lb.g_end = C * (m + 1);
-  lb.e_end = C * m;
-  float acc[8][8];
   f32p::product(la, lb, H, fsmem, acc);
-  float* stage = fsmem;
   f32p::stage_tile(acc, stage);
   __syncthreads();
   for (int p = threadIdx.x; p < f32p::kRows * nc; p += f32p::kThreads) {
@@ -374,7 +560,7 @@ int launch_f32(const void* x, const void* wg, const void* we, const void* be, vo
     err = cudaFuncSetAttribute(moe_f32_kernel<VecX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                f32p::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + f32p::kRows - 1) / f32p::kRows, (C + f32_classes(m) - 1) / f32_classes(m));
+  const dim3 grid((B + f32p::kRows - 1) / f32p::kRows, f32_class_tiles(C, m));
   moe_f32_kernel<VecX><<<grid, f32p::kThreads, f32p::kSmemBytes, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(wg), static_cast<const float*>(we),
       static_cast<const float*>(be), static_cast<float*>(out), B, H, C, m, ldg, lde);
@@ -389,19 +575,22 @@ int launch_f32(const void* x, const void* wg, const void* we, const void* be, vo
 extern "C" int yt8m_moe_head_serving(const void* x, const void* wg, const void* we,
                                      const void* be, void* xa, void* out, int B, int H, int C,
                                      int M, int ldg, int lde, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || M < 1 || M > kMaxMixtures ||
-      ldg < C * (M + 1) || ldg % 8 != 0 || lde < C * M || lde % 8 != 0)
+  if (B <= 0 || C <= 0 || H <= 0 || M < 1 || static_cast<long long>(C) * (M + 1) > 0x7fffffff ||
+      ldg < C * (M + 1) || ldg % 8 != 0 || lde < C * M || lde % 8 != 0 ||
+      (C + classes_of(M) - 1) / classes_of(M) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (M) {
+  switch (instance_of(M)) {
     case 1:
       return launch<1>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
     case 2:
       return launch<2>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
     case 4:
       return launch<4>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
-    default:  // any other M, taken at run time
+    case 0:  // M <= 128, taken at run time
       return launch<0>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
+    default:  // M > 128: chunks of 128 mixtures
+      return launch<-1>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
   }
 }
 
@@ -411,8 +600,8 @@ extern "C" int yt8m_moe_head_serving(const void* x, const void* wg, const void* 
 extern "C" int yt8m_moe_head_serving_f32(const void* x, const void* wg, const void* we,
                                          const void* be, void* out, int B, int H, int C, int M,
                                          int ldg, int lde, int vec_x, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || M < 1 || M > kMaxMixtures || ldg < C * (M + 1) ||
-      lde < C * M || (C + f32_classes(M) - 1) / f32_classes(M) > 65535)
+  if (B <= 0 || C <= 0 || H <= 0 || M < 1 || static_cast<long long>(C) * (M + 1) > 0x7fffffff ||
+      ldg < C * (M + 1) || lde < C * M || f32_class_tiles(C, M) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return vec_x ? launch_f32<true>(x, wg, we, be, out, B, H, C, M, ldg, lde, st)
@@ -420,17 +609,24 @@ extern "C" int yt8m_moe_head_serving_f32(const void* x, const void* wg, const vo
 }
 
 // The tile at M mixtures: [classes a block, gate chain width, expert chain
-// width, stages, shared bytes requested a block, floats a staged row].
+// width, stages, shared bytes requested a block, floats a staged row,
+// mixture chunks a block, the f32 route's classes a block (0: chunks of
+// 63 mixtures)].
 extern "C" int yt8m_moe_plan(int M, int* plan) {
-  if (M < 1 || M > kMaxMixtures) return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = tile_of(M == 1 || M == 2 || M == 4 ? M : 0);
-  const int smem[] = {Layout<0>::kSmemRequest, Layout<1>::kSmemRequest, Layout<2>::kSmemRequest, 0,
-                      Layout<4>::kSmemRequest};
-  plan[0] = t.nc;
+  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int inst = instance_of(M);
+  const Tile t = tile_of(inst);
+  const int smem[] = {Layout<-1>::kSmemRequest, Layout<0>::kSmemRequest, Layout<1>::kSmemRequest,
+                      Layout<2>::kSmemRequest, 0, Layout<4>::kSmemRequest};
+  const int stages[] = {Layout<-1>::kStages, Layout<0>::kStages, Layout<1>::kStages,
+                        Layout<2>::kStages, 0, Layout<4>::kStages};
+  plan[0] = classes_of(M);
   plan[1] = t.gate;
   plan[2] = t.expert;
-  plan[3] = kStages;
-  plan[4] = smem[M == 1 || M == 2 || M == 4 ? M : 0];
+  plan[3] = stages[inst + 1];
+  plan[4] = smem[inst + 1];
   plan[5] = stage_ld(t.gate + t.expert);
+  plan[6] = chunks_of(M);
+  plan[7] = f32_classes(M);
   return static_cast<int>(cudaSuccess);
 }

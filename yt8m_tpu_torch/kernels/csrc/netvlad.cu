@@ -72,10 +72,25 @@
 // cluster of 9 one-block SMs fits once or twice a GPC).
 // n = 0 gives an exact zero descriptor: no step runs, a_sum = 0, v = 0.
 //
+// K > 512 (any K, a multiple of 8): one block no longer holds a row's K
+// logits for its softmax, so launch 1 splits in two. 1a is
+// nv_serve_assign's Logits instance: its tiles are (two live chunks, 256
+// clusters), the cluster tile fastest so that a chunk pair's frames come
+// from L2 for its other cluster tiles; the epilogue stores the affine
+// logits of the live rows into an f32 scratch [B, F, K] (and the first
+// cluster tile the frames to xb). 1b, nv_serve_softmax_wide, a block a
+// live chunk: each row's max and sum of exp over all K (a warp a row),
+// then a thread a cluster walks the chunk's rows: the same assignment
+// (expf, the correctly rounded division), bf16(assign) with zeros from n
+// to the chunk's end, and the chunk's column sum. Launches 2-4 already
+// tile K by 256. The scratch costs a write and two reads of the live
+// rows' logits (0.33 GB each at B=512, K=1024 and 80,819 live frames)
+// beside the 2.4 GB f32 output.
+//
 // The f32 route (--compute_dtype=float32, Wc f32): the same function with
 // nothing rounded, as the TPU kernel computes it at dtype=float32, both
-// products in plain f32 FMAs (f32_product.cuh: no TF32), any D and K <=
-// 512 with no padding. Bound by the f32 rate outside the tensor cores:
+// products in plain f32 FMAs (f32_product.cuh: no TF32), any D and any K
+// with no padding. Bound by the f32 rate outside the tensor cores:
 // twice 2 B F D K, 0.18 TFLOP at B=512, F=300, D=1152, K=256 (2.7 ms at
 // 67 TFLOP/s on live frames). Five launches after launch 0 above (the
 // live chunks), each on live rows only:
@@ -94,7 +109,9 @@
 //  5. nv_f32_normalize: a block a video, the row norms and the global
 //     norm from those sums, then each element (v / n_k) / g in place
 //     (the global sum of squares as sum_k ss_k / n_k^2, not from the
-//     rounded quotients: a difference in the last bits).
+//     rounded quotients: a difference in the last bits). The norms stay
+//     in shared memory up to K = 512 and above it in the video's a_sum
+//     row, which launch 4 has finished with.
 // The two products run two blocks an SM (128 registers a thread, a few
 // spills): 4.11-4.14 ms for the call against 4.33 with one block an SM
 // (an H100 at 700 W, the same call).
@@ -117,7 +134,7 @@ constexpr float kDeqScale = static_cast<float>(4.0 / 255.0);
 constexpr float kDeqBias = static_cast<float>(4.0 / 512.0 - 2.0);
 constexpr float kNormEps = 1e-6f;
 
-constexpr int kMaxClusters = 512;
+constexpr int kMaxClusters = 512;  // K one assignment block holds (launch 1); wider K: 1a + 1b
 constexpr int kChunk = 64;                   // frames a chunk (a warpgroup's m64; a step of launch 2)
 constexpr int kCols = 128;                   // columns of a launch-2 tile; D a multiple of it
 constexpr int kB16Box = 64 * 64 * 2;         // [64][64] bf16: 8 KB
@@ -289,13 +306,17 @@ struct Asg {
   static_assert(W == 128 || W == 256, "clusters a warpgroup");
 };
 
-template <typename T, int W, bool Split>
+// Logits (W = 256, not Split): tiles of (two live chunks, 256 clusters),
+// the affine logits of the live rows into `logits` [B, F, K] f32 and
+// nothing else (launch 1a of K > 512).
+template <typename T, int W, bool Split, bool Logits = false>
 __global__ void __launch_bounds__(hgemm::kThreads, 1)
 nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
                 const int* __restrict__ items, const int* __restrict__ num_frames,
                 const float* __restrict__ act_scale, const float* __restrict__ act_bias,
-                bf16* __restrict__ xb, bf16* __restrict__ assign, float* __restrict__ colsum, int F,
-                int D, int K, int chunks) {
+                bf16* __restrict__ xb, bf16* __restrict__ assign, float* __restrict__ colsum,
+                float* __restrict__ logits, int F, int D, int K, int chunks) {
+  static_assert(!Logits || (W == 256 && !Split), "the logits tiles");
   using P = Asg<T, W, Split>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hgemm::aligned_smem(smem_raw);
@@ -307,7 +328,8 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   uint64_t* empty = full + P::kStages;
 
   const int count = items[0];
-  const int tiles = Split ? count : (count + 1) / 2;
+  const int n_kt = Logits ? (K + W - 1) / W : 1;  // cluster tiles, the fastest
+  const int tiles = (Split ? count : (count + 1) / 2) * n_kt;
   const int nk = D / hgemm::kDepth;
   if (threadIdx.x == 0) {
     for (int s = 0; s < P::kStages; ++s) {
@@ -316,9 +338,11 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
     }
     hgemm::bar_init_fence();
   }
-  for (int k = threadIdx.x; k < K; k += hgemm::kThreads) {
-    s_scale[k] = act_scale[k];
-    s_bias[k] = act_bias[k];
+  if (!Logits) {
+    for (int k = threadIdx.x; k < K; k += hgemm::kThreads) {
+      s_scale[k] = act_scale[k];
+      s_bias[k] = act_bias[k];
+    }
   }
   __syncthreads();
 
@@ -330,11 +354,12 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
     hgemm::set_regs_dec<hgemm::kProducerRegs>();
     if (threadIdx.x == 256) {
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int kt = t % n_kt;
         int vb[P::kXTiles], vf[P::kXTiles];
         uint32_t bytes = P::kWBoxes * kB16Box;
 #pragma unroll
         for (int w2 = 0; w2 < P::kXTiles; ++w2) {
-          const int i = P::kXTiles * t + w2;
+          const int i = P::kXTiles * (t / n_kt) + w2;
           vb[w2] = -1;
           vf[w2] = 0;
           if (i < count) {
@@ -359,7 +384,7 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
 #pragma unroll
               for (int i = 0; i < P::kWBoxes; ++i)
                 hgemm::tma_2d(st + P::kXTiles * P::kXBytes + i * kB16Box, wmap, bar,
-                              i * hgemm::kBoxCols, ks * hgemm::kDepth);
+                              kt * W + i * hgemm::kBoxCols, ks * hgemm::kDepth);
             });
       }
     }
@@ -380,7 +405,8 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
     float acc[W / 2];
     int iter = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++iter) {
-      const int i = Split ? t : 2 * t + wg;
+      const int kt = t % n_kt;
+      const int i = Split ? t : 2 * (t / n_kt) + wg;
       const bool have = i < count;
       int b = 0, c = 0, live = 0;
       if (have) {
@@ -410,7 +436,7 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
               const int c8 = idx & 7;
               const uint4 o = pack8(v[it]);
               *reinterpret_cast<uint4*>(xs + hgemm::swizzled(f, c8)) = o;
-              if (have && f0 + f < F)
+              if (have && f0 + f < F && kt == 0)
                 *reinterpret_cast<uint4*>(xb + (static_cast<size_t>(b) * F + f0 + f) * D +
                                           ks * hgemm::kDepth + 8 * c8) = o;
             }
@@ -434,6 +460,24 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
       for (int h = 0; h < 2; ++h) {
         f[h] = f0 + 16 * warp + r + 8 * h;
         lv[h] = f[h] < live;
+      }
+      if constexpr (Logits) {
+        // The affine (multiply, then add, each rounded) of the live rows,
+        // clusters kt W + 8 j + 2 q + e.
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          const int k = kt * W + 8 * j + 2 * q;  // k + 1 < K with k: K % 8 == 0
+          const int kc = min(k, K - 2);
+          const float2 sc = __ldg(reinterpret_cast<const float2*>(act_scale + kc));
+          const float2 bi = __ldg(reinterpret_cast<const float2*>(act_bias + kc));
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (have && lv[h] && k < K)
+              *reinterpret_cast<float2*>(logits + (static_cast<size_t>(b) * F + f[h]) * K + k) =
+                  make_float2(__fadd_rn(__fmul_rn(acc[4 * j + 2 * h], sc.x), bi.x),
+                              __fadd_rn(__fmul_rn(acc[4 * j + 2 * h + 1], sc.y), bi.y));
+        }
+        continue;
       }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -548,6 +592,68 @@ nv_serve_asum(const int* __restrict__ num_frames, const float* __restrict__ cols
     float a = 0.0f;
     for (int c = 0; c < nch; ++c) a += cs[static_cast<size_t>(c) * K + k];
     a_sum[static_cast<size_t>(b) * K + k] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch 1b (K > 512): the assignment of each live chunk from its logits.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 256;
+
+// A block a live chunk (grid-stride over the list): each live row's max
+// and sum of exp over K (a warp a row), then a thread a cluster walks the
+// chunk's rows inside F: assign = exp(l - max) / sum (correctly rounded)
+// on rows t < n, 0 after; bf16(assign) to [B, F, K] and the unrounded
+// column sum to colsum, as launch 1's epilogue writes them.
+__global__ void __launch_bounds__(kWideThreads)
+nv_serve_softmax_wide(const int* __restrict__ items, const int* __restrict__ num_frames,
+                      const float* __restrict__ logits, bf16* __restrict__ assign,
+                      float* __restrict__ colsum, int F, int K, int chunks) {
+  __shared__ float s_max[kChunk];
+  __shared__ float s_sum[kChunk];
+  __shared__ float s_rcp[kChunk];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int count = items[0];
+  for (int i = blockIdx.x; i < count; i += gridDim.x) {
+    const int id = items[1 + i];
+    const int b = id / chunks;
+    const int c = id - b * chunks;
+    const int f0 = c * kChunk;
+    const int rows = min(kChunk, live_frames(num_frames, b, F) - f0);  // live rows, > 0
+    const int end = min(kChunk, F - f0);                                // rows inside F
+    const float* lg = logits + (static_cast<size_t>(b) * F + f0) * K;
+    for (int r = warp; r < rows; r += kWideThreads / 32) {
+      const float* row = lg + static_cast<size_t>(r) * K;
+      float m = -INFINITY;
+      for (int k = lane; k < K; k += 32) m = fmaxf(m, row[k]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float sm = 0.0f;
+      for (int k = lane; k < K; k += 32) sm += expf(__fsub_rn(row[k], m));
+      sm = warp_sum(sm);
+      if (lane == 0) {
+        s_max[r] = m;
+        s_sum[r] = sm;
+        s_rcp[r] = 1.0f / sm;
+      }
+    }
+    __syncthreads();
+    bf16* dst = assign + (static_cast<size_t>(b) * F + f0) * K;
+    for (int k = threadIdx.x; k < K; k += kWideThreads) {
+      float total = 0.0f;
+      for (int r = 0; r < end; ++r) {
+        const float p =
+            r < rows ? div_by(expf(__fsub_rn(lg[static_cast<size_t>(r) * K + k], s_max[r])),
+                              s_sum[r], s_rcp[r])
+                     : 0.0f;
+        dst[static_cast<size_t>(r) * K + k] = __float2bfloat16_rn(p);
+        total += p;
+      }
+      colsum[(static_cast<size_t>(b) * chunks + c) * K + k] = total;
+    }
+    __syncthreads();
   }
 }
 
@@ -764,33 +870,37 @@ nv_serve_norms(const float* __restrict__ sumsq, float* __restrict__ norms, float
 // Host.
 // ---------------------------------------------------------------------------
 
-template <typename T, int W, bool Split>
+template <typename T, int W, bool Split, bool Logits = false>
 cudaError_t launch_assign(const CUtensorMap& map_x, const CUtensorMap& map_w, const int* items,
                           const int* num_frames, const float* act_scale, const float* act_bias,
-                          bf16* xb, bf16* assign, float* colsum, int B, int F, int D, int K,
-                          int chunks, int sms, cudaStream_t st) {
+                          bf16* xb, bf16* assign, float* colsum, float* logits, int B, int F,
+                          int D, int K, int chunks, int sms, cudaStream_t st) {
   using P = Asg<T, W, Split>;
-  cudaError_t err = cudaFuncSetAttribute(nv_serve_assign<T, W, Split>,
+  cudaError_t err = cudaFuncSetAttribute(nv_serve_assign<T, W, Split, Logits>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
   // The live chunks are counted on the card: the grid covers the most
   // there can be, and a block past the count finds no tile.
-  const long long most = Split ? static_cast<long long>(B) * chunks
-                               : (static_cast<long long>(B) * chunks + 1) / 2;
+  const long long most = (Split ? static_cast<long long>(B) * chunks
+                                : (static_cast<long long>(B) * chunks + 1) / 2) *
+                         (Logits ? (K + W - 1) / W : 1);
   const int grid = most < sms ? static_cast<int>(most) : sms;
-  nv_serve_assign<T, W, Split><<<grid, hgemm::kThreads, P::kSmem, st>>>(
-      map_x, map_w, items, num_frames, act_scale, act_bias, xb, assign, colsum, F, D, K, chunks);
+  nv_serve_assign<T, W, Split, Logits><<<grid, hgemm::kThreads, P::kSmem, st>>>(
+      map_x, map_w, items, num_frames, act_scale, act_bias, xb, assign, colsum, logits, F, D, K,
+      chunks);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* num_frames, const void* wc, const void* act_scale,
            const void* act_bias, const void* centers, void* xb, void* assign, void* colsum,
-           void* items, void* work, void* out, int B, int F, int D, int K, void* stream) {
-  if (B <= 0 || F <= 0 || D <= 0 || D % kCols != 0 || K < 8 || K % 8 != 0 || K > kMaxClusters)
+           void* items, void* work, void* logits, void* out, int B, int F, int D, int K,
+           void* stream) {
+  if (B <= 0 || F <= 0 || D <= 0 || D % kCols != 0 || K < 8 || K % 8 != 0 ||
+      (K > kMaxClusters && logits == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (F + kChunk - 1) / kChunk;
-  if (static_cast<long long>(B) * chunks >= (1LL << 31) - 1)
+  if (static_cast<long long>(B) * chunks * ((K + 255) / 256) >= (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_ct = D / kCols;
@@ -825,15 +935,26 @@ int launch(const void* x, const void* num_frames, const void* wc, const void* ac
   bf16* asg = static_cast<bf16*>(assign);
   bf16* x16 = static_cast<bf16*>(xb);
   float* cs = static_cast<float*>(colsum);
-  if (K <= 128)
-    err = launch_assign<T, 128, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, B, F, D,
-                                       K, chunks, sms, st);
-  else if (K <= 256)
-    err = launch_assign<T, 256, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, B, F, D,
-                                       K, chunks, sms, st);
-  else
-    err = launch_assign<T, 256, true>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, B, F, D,
-                                      K, chunks, sms, st);
+  float* lg = static_cast<float*>(logits);
+  if (K <= 128) {
+    err = launch_assign<T, 128, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg, B, F,
+                                       D, K, chunks, sms, st);
+  } else if (K <= 256) {
+    err = launch_assign<T, 256, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg, B, F,
+                                       D, K, chunks, sms, st);
+  } else if (K <= kMaxClusters) {
+    err = launch_assign<T, 256, true>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg, B, F,
+                                      D, K, chunks, sms, st);
+  } else {
+    err = launch_assign<T, 256, false, true>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg,
+                                             B, F, D, K, chunks, sms, st);
+    if (err == cudaSuccess) {
+      const long long most = static_cast<long long>(B) * chunks;
+      nv_serve_softmax_wide<<<static_cast<unsigned>(most < 65535 ? most : 65535), kWideThreads, 0,
+                              st>>>(it, nf, lg, asg, cs, F, K, chunks);
+      err = cudaGetLastError();
+    }
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   nv_serve_asum<<<B, kSumThreads, 0, st>>>(nf, cs, a_sum, F, K, chunks);
   err = cudaGetLastError();
@@ -1104,10 +1225,14 @@ nv_f32_aggregate(const T* __restrict__ x, const int* __restrict__ num_frames,
 // sqrt(max(sum_k sum_d (v / n_k)^2, eps^2)) from the rows' sums, then
 // out = (v / n_k) / g in place.
 __global__ void __launch_bounds__(256)
-nv_f32_normalize(const float* __restrict__ sumsq, float* __restrict__ out, int D, int K) {
-  __shared__ float norms[kMaxClusters];
+nv_f32_normalize(const float* __restrict__ sumsq, float* a_sum, float* __restrict__ out, int D,
+                 int K) {
+  __shared__ float s_norms[kMaxClusters];
   __shared__ float part[8];
   const int b = blockIdx.x;
+  // Above 512 clusters the norms go to the video's a_sum row (launch 4 is
+  // done with it); __syncthreads orders the block's writes and reads.
+  float* norms = K <= kMaxClusters ? s_norms : a_sum + static_cast<size_t>(b) * K;
   const int n_dt = (D + f32p::kCols - 1) / f32p::kCols;
   float g = 0.0f;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
@@ -1162,7 +1287,7 @@ cudaError_t launch_f32_products(const T* x, const int* nf, const int* items, con
                                                             sumsq, F, D, K);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nv_f32_normalize<<<B, 256, 0, st>>>(sumsq, out, D, K);
+  nv_f32_normalize<<<B, 256, 0, st>>>(sumsq, a_sum, out, D, K);
   return cudaGetLastError();
 }
 
@@ -1170,10 +1295,11 @@ template <typename T>
 int launch_f32(const void* x, const void* num_frames, const void* wc, const void* act_scale,
                const void* act_bias, const void* centers, void* items, void* act, void* a_sum,
                void* sumsq, void* out, int B, int F, int D, int K, void* stream) {
-  if (B <= 0 || F <= 0 || D <= 0 || K < 1 || K > kMaxClusters)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || F <= 0 || D <= 0 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (F + kChunk - 1) / kChunk;
   if (static_cast<long long>(B) * chunks >= (1LL << 31) - 1 ||
+      static_cast<long long>(B) * K * (D > 1 ? D : 1) >= (1LL << 40) ||
+      (K + f32p::kCols - 1) / f32p::kCols > 65535 ||
       static_cast<long long>(B) * F >= (1LL << 34) ||
       static_cast<long long>(B) * ((K + 127) / 128) * ((D + 127) / 128) >= (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1213,28 +1339,28 @@ int launch_f32(const void* x, const void* num_frames, const void* wc, const void
 
 // Scratch from the caller: xb [B, F, D] bf16 and assign [B, F, K] bf16
 // (written on the live chunks' rows), colsum [B, ceil(F/64), K] f32
-// (the live chunks' column sums), items 1 + B ceil(F/64) int32 and work
-// B (D/128 + 2) K + B f32.
+// (the live chunks' column sums), items 1 + B ceil(F/64) int32, work
+// B (D/128 + 2) K + B f32 and, for K > 512, logits [B, F, K] f32 (else
+// null).
 extern "C" int yt8m_netvlad_aggregate_u8(const void* x, const void* num_frames, const void* wc,
                                          const void* act_scale, const void* act_bias,
                                          const void* centers, void* xb, void* assign,
-                                         void* colsum, void* items, void* work, void* out, int B,
-                                         int F, int D, int K, void* stream) {
+                                         void* colsum, void* items, void* work, void* logits,
+                                         void* out, int B, int F, int D, int K, void* stream) {
   return launch<uint8_t>(x, num_frames, wc, act_scale, act_bias, centers, xb, assign, colsum,
-                         items, work, out, B, F, D, K, stream);
+                         items, work, logits, out, B, F, D, K, stream);
 }
 
 extern "C" int yt8m_netvlad_aggregate_f32(const void* x, const void* num_frames, const void* wc,
                                           const void* act_scale, const void* act_bias,
                                           const void* centers, void* xb, void* assign,
-                                          void* colsum, void* items, void* work, void* out,
-                                          int B, int F, int D, int K, void* stream) {
+                                          void* colsum, void* items, void* work, void* logits,
+                                          void* out, int B, int F, int D, int K, void* stream) {
   return launch<float>(x, num_frames, wc, act_scale, act_bias, centers, xb, assign, colsum,
-                       items, work, out, B, F, D, K, stream);
+                       items, work, logits, out, B, F, D, K, stream);
 }
 
-// The f32 route: x [B, F, D] uint8 or f32, wc [D, K] f32 (K <= 512, any
-// D); items: 1 + B * ceil(F / 64) ints; act: B * F * K floats; a_sum: B *
+// The f32 route: x [B, F, D] uint8 or f32, wc [D, K] f32 (any K and D); items: 1 + B * ceil(F / 64) ints; act: B * F * K floats; a_sum: B *
 // K floats; sumsq: B * ceil(D / 128) * K floats; out [B, K, D].
 extern "C" int yt8m_netvlad_aggregate_f32w_u8(const void* x, const void* num_frames,
                                              const void* wc, const void* act_scale,

@@ -29,11 +29,13 @@
 // pipeline and the layouts).
 //
 // Forward, two launches:
-//  1. vlad_assign_kernel, a block a video: its live frames 32 at a time
-//     into shared memory (cp.async, double-buffered), each row's max and
-//     sum of exp (a warp a row),
+//  1. vlad_assign_kernel, a block a video: its live frames R at a time
+//     into shared memory (cp.async, double-buffered; R = 32, or as many
+//     rows of K floats as two buffers fit above K = 890: 27 at K = 1024),
+//     each row's max and sum of exp over all K (a warp a row),
 //     then a thread a cluster walks the rows in frame order: a_sum (the
-//     unrounded f32 sum) and bf16(assign) into a [B, F, Kp] buffer from
+//     unrounded f32 sum, kept in shared memory across the chunks) and
+//     bf16(assign) into a [B, F, Kp] buffer from
 //     the wrapper (Kp = K rounded up to 8: TMA's 16-byte rows), with zero
 //     rows from n to the next multiple of 64 (the product's last step).
 //  2. vlad_fwd_kernel, persistent TMA + wgmma over tiles of (video, 256
@@ -76,6 +78,17 @@
 //     dx, bf16(assign) goes to a [B, F, Kp] buffer (zeros past n), and
 //  3. dx = bf16(assign) @ bf16(dvlad) runs on hopper_product.cuh, a batch
 //     a video (A K-major, dvlad MN-major, the TMA-store epilogue).
+// K > 512: the two warpgroups' registers no longer hold a row's K
+// clusters, and the softmax VJP needs the row's max, sum of exp and
+// sum_k assign * dassign over all of them. So launch 2 becomes
+// vlad_bwd_kernel's Wide instance, tiles of (video, 64 frames, 512
+// clusters) with the cluster tile fastest (a frame tile's x comes from L2
+// for its other cluster tiles), whose epilogue stores dassign = acc - cdot
+// of the live rows into dact itself; then vlad_bwd_softmax_wide, a warp a
+// row, recomputes the row's assignment from act over all K, forms t and
+// dact = assign (dassign - t) in place (zeros past n), and bf16(assign)
+// for dx. The extra traffic is a write and two reads of the live rows'
+// [F, K] f32 rows beside the act reads the kernel already makes.
 // x reaches both products as f32 (the model's frames): TMA brings its
 // live rows in, the consumers round them once. D must be a multiple of 4
 // (x's rows must be 16-byte strides for TMA).
@@ -92,7 +105,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxClusters = 512;
+constexpr int kMaxClusters = 512;  // K the backward's registers hold; above: the Wide pair
 constexpr int kFrames = 64;  // frames a stage (forward) and a tile (backward)
 constexpr int kF32Box = kFrames * hgemm::kF32BoxCols * 4;  // [64][32] f32: 8 KB
 constexpr int kB16Box = kFrames * hgemm::kBoxCols * 2;     // [64][64] bf16: 8 KB
@@ -158,17 +171,27 @@ __device__ __forceinline__ void round_tile(const unsigned char* src, unsigned ch
 // ---------------------------------------------------------------------------
 
 constexpr int kAsgThreads = 256;
-constexpr int kAsgRows = 32;  // frames a chunk in shared memory
+constexpr int kAsgRows = 32;  // frames a chunk in shared memory, at most
+constexpr int kAsgSmemLimit = 232448 - hgemm::kAlign;  // beside the static row stats
 
-// Two chunk buffers [kAsgRows][K] f32.
-inline int assign_smem(int K) { return 2 * kAsgRows * K * 4; }
+// Rows a chunk at K clusters: 32, or as many as two buffers of K floats
+// leave room for beside the column sums; 0: K too large for a block.
+inline int assign_rows(int K) {
+  const long long r = (kAsgSmemLimit - 4LL * K) / (8LL * K);
+  return r < kAsgRows ? static_cast<int>(r < 0 ? 0 : r) : kAsgRows;
+}
+
+// Two chunk buffers [R][K] f32, then the column sums [K].
+inline int assign_smem(int K) { return (2 * assign_rows(K) + 1) * K * 4; }
 
 __global__ void __launch_bounds__(kAsgThreads)
 vlad_assign_kernel(const float* __restrict__ act, const int* __restrict__ num_frames,
-                   bf16* __restrict__ assign, float* __restrict__ a_sum, int F, int K, int Kp) {
-  extern __shared__ __align__(16) float s_act[];  // [2][kAsgRows][K]
+                   bf16* __restrict__ assign, float* __restrict__ a_sum, int F, int K, int Kp,
+                   int R) {
+  extern __shared__ __align__(16) float s_act[];  // [2][R][K], then the column sums [K]
   __shared__ float s_max[kAsgRows];
   __shared__ float s_rcp[kAsgRows];
+  float* s_col = s_act + 2 * R * K;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -176,15 +199,17 @@ vlad_assign_kernel(const float* __restrict__ act, const int* __restrict__ num_fr
   const int live = live_frames(num_frames, b, F);
   const float* act_v = act + static_cast<size_t>(b) * F * K;
   bf16* as_v = assign + static_cast<size_t>(b) * F * Kp;
-  float colsum[kMaxClusters / kAsgThreads] = {0.0f, 0.0f};
+  // A thread owns the column sums of its clusters k = tid + 256 i: it alone
+  // writes and reads them, so they need no barrier.
+  for (int k = tid; k < K; k += kAsgThreads) s_col[k] = 0.0f;
 
   // Rows f0 .. of the live frames into buffer buf: cp.async when the rows
   // are 16-byte aligned (K % 4 == 0), so the next chunk arrives while
   // this one is reduced; plain loads otherwise.
   auto fetch = [&](int f0, int buf) {
-    const int n = min(kAsgRows, live - f0) * K;
+    const int n = min(R, live - f0) * K;
     const float* src = act_v + static_cast<size_t>(f0) * K;
-    float* dst = s_act + buf * kAsgRows * K;
+    float* dst = s_act + buf * R * K;
     if (K % 4 == 0) {
       for (int i = 4 * tid; i < n; i += 4 * kAsgThreads) hgemm::cp_async16(dst + i, src + i, 16);
     } else {
@@ -194,11 +219,11 @@ vlad_assign_kernel(const float* __restrict__ act, const int* __restrict__ num_fr
   };
 
   if (live > 0) fetch(0, 0);
-  for (int f0 = 0, c = 0; f0 < live; f0 += kAsgRows, ++c) {
-    const int rows = min(kAsgRows, live - f0);
-    const float* cur = s_act + (c & 1) * kAsgRows * K;
-    if (f0 + kAsgRows < live) {
-      fetch(f0 + kAsgRows, (c & 1) ^ 1);
+  for (int f0 = 0, c = 0; f0 < live; f0 += R, ++c) {
+    const int rows = min(R, live - f0);
+    const float* cur = s_act + (c & 1) * R * K;
+    if (f0 + R < live) {
+      fetch(f0 + R, (c & 1) ^ 1);
       hgemm::cp_async_wait<1>();
     } else {
       hgemm::cp_async_wait<0>();
@@ -221,17 +246,15 @@ vlad_assign_kernel(const float* __restrict__ act, const int* __restrict__ num_fr
     // assign = exp(act - max) times the row's reciprocal sum (within an
     // ulp of the quotient; a division a value is a branch to its slow
     // path, and this loop is the launch's critical path).
-#pragma unroll
-    for (int kk = 0; kk < kMaxClusters / kAsgThreads; ++kk) {
-      const int k = tid + kAsgThreads * kk;
-      if (k < K) {
+    for (int k = tid; k < K; k += kAsgThreads) {
+      float col = s_col[k];
 #pragma unroll 8
-        for (int r = 0; r < rows; ++r) {
-          const float p = expf(__fsub_rn(cur[r * K + k], s_max[r])) * s_rcp[r];
-          colsum[kk] += p;
-          as_v[static_cast<size_t>(f0 + r) * Kp + k] = __float2bfloat16_rn(p);
-        }
+      for (int r = 0; r < rows; ++r) {
+        const float p = expf(__fsub_rn(cur[r * K + k], s_max[r])) * s_rcp[r];
+        col += p;
+        as_v[static_cast<size_t>(f0 + r) * Kp + k] = __float2bfloat16_rn(p);
       }
+      s_col[k] = col;
     }
     __syncthreads();
   }
@@ -239,11 +262,7 @@ vlad_assign_kernel(const float* __restrict__ act, const int* __restrict__ num_fr
   const int zend = min(F, (live + kFrames - 1) / kFrames * kFrames);
   for (int i = tid; i < (zend - live) * K; i += kAsgThreads)
     as_v[static_cast<size_t>(live + i / K) * Kp + i % K] = __float2bfloat16_rn(0.0f);
-#pragma unroll
-  for (int kk = 0; kk < kMaxClusters / kAsgThreads; ++kk) {
-    const int k = tid + kAsgThreads * kk;
-    if (k < K) a_sum[static_cast<size_t>(b) * K + k] = colsum[kk];
-  }
+  for (int k = tid; k < K; k += kAsgThreads) a_sum[static_cast<size_t>(b) * K + k] = s_col[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -426,12 +445,16 @@ struct Bwd {
   static_assert(kVRows % kVBoxRows == 0, "whole dvlad boxes");
 };
 
-template <int Kh>
+// Wide (Kh = 256, K > 512): tiles of (video, 64 frames, 2 Kh clusters),
+// the epilogue stores dassign = acc - cdot of the live rows into dact and
+// vlad_bwd_softmax_wide finishes the rows.
+template <int Kh, bool Wide = false>
 __global__ void __launch_bounds__(hgemm::kThreads, 1)
 vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_v,
                 const float* __restrict__ act, const int* __restrict__ num_frames,
                 const float* __restrict__ cdot, float* __restrict__ dact, bf16* __restrict__ p16,
                 int B, int F, int D, int K, int Kp, int need_dx) {
+  static_assert(!Wide || Kh == 256, "the wide tiles");
   using P = Bwd<Kh>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hgemm::aligned_smem(smem_raw);
@@ -441,7 +464,8 @@ vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   uint64_t* empty = full + P::kStages;
 
   const int n_ft = (F + kFrames - 1) / kFrames;
-  const int tiles = B * n_ft;
+  const int n_kt = Wide ? (K + 2 * Kh - 1) / (2 * Kh) : 1;  // cluster tiles, the fastest
+  const int tiles = B * n_ft * n_kt;
   const int nk = (D + hgemm::kDepth - 1) / hgemm::kDepth;
   if (threadIdx.x == 0) {
     for (int s = 0; s < P::kStages; ++s) {
@@ -460,8 +484,9 @@ vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
     hgemm::set_regs_dec<hgemm::kProducerRegs>();
     if (threadIdx.x == 256) {
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int b = t / n_ft;
-        const int f0 = (t % n_ft) * kFrames;
+        const int kt = t % n_kt;
+        const int b = t / n_kt / n_ft;
+        const int f0 = (t / n_kt % n_ft) * kFrames;
         const int steps = f0 < live_frames(num_frames, b, F) ? nk : 0;
         hgemm::produce<P::kStages>(
             full, empty, ring, steps, P::kStageBytes, [&](int s, uint64_t* bar, int ks) {
@@ -473,7 +498,7 @@ vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
 #pragma unroll
               for (int i = 0; i < P::kVRows / P::kVBoxRows; ++i)
                 hgemm::tma_3d(st + P::kXBytes + i * P::kVBoxRows * 128, vmap, bar,
-                              ks * hgemm::kDepth, i * P::kVBoxRows, b);
+                              ks * hgemm::kDepth, kt * P::kVRows + i * P::kVBoxRows, b);
             });
       }
     }
@@ -486,8 +511,9 @@ vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
     float acc[Kh / 2];
     int iter = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++iter) {
-      const int b = t / n_ft;
-      const int f0 = (t % n_ft) * kFrames;
+      const int kt = t % n_kt;
+      const int b = t / n_kt / n_ft;
+      const int f0 = (t / n_kt % n_ft) * kFrames;
       const int live = live_frames(num_frames, b, F);
       const int steps = f0 < live ? nk : 0;
       hgemm::zero<Kh / 2>(acc);
@@ -508,6 +534,30 @@ vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
               hgemm::mma<Kh, 0, 0>(acc, hgemm::desc_a(aa, kk), hgemm::desc_b_k(vv, kk));
           });
 
+      if constexpr (Wide) {
+        // dassign = acc - cdot of the live rows, clusters kt 2 Kh + wg Kh +
+        // 8 j + 2 q + e (loads clamped to K - 1, stores masked).
+        const float* cdot_v = cdot + static_cast<size_t>(b) * K;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int f = f0 + 16 * warp + r + 8 * h;
+          if (f >= live) continue;
+          float* drow = dact + (static_cast<size_t>(b) * F + f) * K;
+#pragma unroll
+          for (int j = 0; j < Kh / 8; ++j) {
+            const int k = kt * 2 * Kh + wg * Kh + 8 * j + 2 * q;
+            const float g0 = __fsub_rn(acc[4 * j + 2 * h], __ldg(cdot_v + min(k, K - 1)));
+            const float g1 = __fsub_rn(acc[4 * j + 2 * h + 1], __ldg(cdot_v + min(k + 1, K - 1)));
+            if (k + 1 < K && K % 2 == 0) {
+              *reinterpret_cast<float2*>(drow + k) = make_float2(g0, g1);
+            } else {
+              if (k < K) drow[k] = g0;
+              if (k + 1 < K) drow[k + 1] = g1;
+            }
+          }
+        }
+        continue;
+      }
       // The softmax VJP. Thread rows ff = 16 warp + r + 8 h of the tile;
       // clusters k = wg Kh + 8 j + 2 q + e in acc[4 j + 2 h + e]. Every
       // load is unconditional (a dead row reads the video's frame 0, live
@@ -657,7 +707,53 @@ vlad_bwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   }
 }
 
-template <int Kh>
+// ---------------------------------------------------------------------------
+// Backward 2b (K > 512): the softmax VJP over a row's K clusters.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 256;
+
+// A warp a row (b, f): past n, dact = 0 (and bf16(assign) = 0); else the
+// row's assignment from act (its max, sum of exp and reciprocal sum, as
+// launch 2 computes them), t = sum_k assign * dassign with dassign the
+// Wide tiles' dact, then dact = assign (dassign - t) in place.
+__global__ void __launch_bounds__(kWideThreads)
+vlad_bwd_softmax_wide(const float* __restrict__ act, const int* __restrict__ num_frames,
+                      float* __restrict__ dact, bf16* __restrict__ p16, int B, int F, int K, int Kp,
+                      int need_dx) {
+  const long long row = static_cast<long long>(blockIdx.x) * (kWideThreads / 32) + (threadIdx.x >> 5);
+  if (row >= static_cast<long long>(B) * F) return;
+  const int lane = threadIdx.x & 31;
+  const int b = static_cast<int>(row / F);
+  const int f = static_cast<int>(row % F);
+  float* d = dact + row * K;
+  bf16* pp = need_dx ? p16 + row * Kp : nullptr;
+  if (f >= live_frames(num_frames, b, F)) {
+    for (int k = lane; k < K; k += 32) {
+      d[k] = 0.0f;
+      if (need_dx) pp[k] = __float2bfloat16_rn(0.0f);
+    }
+    return;
+  }
+  const float* a = act + row * K;
+  float m = -INFINITY;
+  for (int k = lane; k < K; k += 32) m = fmaxf(m, __ldg(a + k));
+  m = warp_max(m);
+  float s = 0.0f;
+  for (int k = lane; k < K; k += 32) s += expf(__fsub_rn(__ldg(a + k), m));
+  const float rs = 1.0f / warp_sum(s);
+  float t = 0.0f;
+  for (int k = lane; k < K; k += 32)
+    t = __fadd_rn(t, __fmul_rn(expf(__fsub_rn(__ldg(a + k), m)) * rs, d[k]));
+  t = warp_sum(t);
+  for (int k = lane; k < K; k += 32) {
+    const float p = expf(__fsub_rn(__ldg(a + k), m)) * rs;
+    d[k] = __fmul_rn(p, __fsub_rn(d[k], t));
+    if (need_dx) pp[k] = __float2bfloat16_rn(p);
+  }
+}
+
+template <int Kh, bool Wide = false>
 cudaError_t launch_bwd(const void* act, const void* x, const void* num_frames, const void* dv16,
                        const void* cdot, void* dact, void* p16, int B, int F, int D, int K, int Kp,
                        int Dp, int need_dx, int sms, cudaStream_t st) {
@@ -665,22 +761,34 @@ cudaError_t launch_bwd(const void* act, const void* x, const void* num_frames, c
   cudaError_t err = hgemm::make_map_f32(&map_x, x, B, F, D, kFrames);
   if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_v, dv16, B, K, D, Dp, Bwd<Kh>::kVBoxRows);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(vlad_bwd_kernel<Kh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Bwd<Kh>::kSmem);
+    err = cudaFuncSetAttribute(vlad_bwd_kernel<Kh, Wide>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd<Kh>::kSmem);
   if (err != cudaSuccess) return err;
-  const int tiles = B * ((F + kFrames - 1) / kFrames);
-  vlad_bwd_kernel<Kh><<<tiles < sms ? tiles : sms, hgemm::kThreads, Bwd<Kh>::kSmem, st>>>(
+  const long long tiles = static_cast<long long>(B) * ((F + kFrames - 1) / kFrames) *
+                          (Wide ? (K + 2 * Kh - 1) / (2 * Kh) : 1);
+  vlad_bwd_kernel<Kh, Wide><<<static_cast<int>(tiles < sms ? tiles : sms), hgemm::kThreads,
+                              Bwd<Kh>::kSmem, st>>>(
       map_x, map_v, static_cast<const float*>(act), static_cast<const int*>(num_frames),
       static_cast<const float*>(cdot), static_cast<float*>(dact), static_cast<bf16*>(p16), B, F, D,
       K, Kp, need_dx);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !Wide) return err;
+  const long long rows = static_cast<long long>(B) * F;
+  constexpr int kRowsABlock = kWideThreads / 32;
+  vlad_bwd_softmax_wide<<<static_cast<unsigned>((rows + kRowsABlock - 1) / kRowsABlock),
+                          kWideThreads, 0, st>>>(
+      static_cast<const float*>(act), static_cast<const int*>(num_frames), static_cast<float*>(dact),
+      static_cast<bf16*>(p16), B, F, K, Kp, need_dx);
   return cudaGetLastError();
 }
 
 int pad8(int n) { return (n + 7) / 8 * 8; }
 
 bool shapes_ok(int B, int F, int D, int K) {
-  return B > 0 && B <= 65535 && F > 0 && D > 0 && D % 4 == 0 && K > 0 && K <= kMaxClusters &&
-         static_cast<long long>(B) * F * (D > K ? D : K) < (1LL << 40);
+  return B > 0 && B <= 65535 && F > 0 && D > 0 && D % 4 == 0 && K > 0 && assign_rows(K) > 0 &&
+         static_cast<long long>(B) * F * (D > K ? D : K) < (1LL << 40) &&
+         static_cast<long long>(B) * ((F + kFrames - 1) / kFrames) * ((K + 511) / 512) <
+             (1LL << 31);
 }
 
 }  // namespace
@@ -702,7 +810,7 @@ extern "C" int yt8m_netvlad_core_forward(const void* act, const void* x, const v
   if (err != cudaSuccess) return static_cast<int>(err);
   vlad_assign_kernel<<<B, kAsgThreads, assign_smem(K), st>>>(
       static_cast<const float*>(act), static_cast<const int*>(num_frames), static_cast<bf16*>(assign),
-      static_cast<float*>(a_sum), F, K, Kp);
+      static_cast<float*>(a_sum), F, K, Kp, assign_rows(K));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map_a, map_x;
@@ -745,10 +853,15 @@ extern "C" int yt8m_netvlad_core_backward(const void* act, const void* x, const 
   int sms = 0;
   if (err == cudaSuccess) err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = K <= 256 ? launch_bwd<128>(act, x, num_frames, dv16, cdot, dact, p16, B, F, D, K, Kp, Dp,
-                                   need_dx, sms, st)
-                 : launch_bwd<256>(act, x, num_frames, dv16, cdot, dact, p16, B, F, D, K, Kp, Dp,
-                                   need_dx, sms, st);
+  if (K <= 256)
+    err = launch_bwd<128>(act, x, num_frames, dv16, cdot, dact, p16, B, F, D, K, Kp, Dp, need_dx,
+                          sms, st);
+  else if (K <= kMaxClusters)
+    err = launch_bwd<256>(act, x, num_frames, dv16, cdot, dact, p16, B, F, D, K, Kp, Dp, need_dx,
+                          sms, st);
+  else
+    err = launch_bwd<256, true>(act, x, num_frames, dv16, cdot, dact, p16, B, F, D, K, Kp, Dp,
+                                need_dx, sms, st);
   if (err != cudaSuccess || !need_dx) return static_cast<int>(err);
   return static_cast<int>(
       hprod::launch_product(p16, dv16, static_cast<float*>(dx), B, F, D, K, Kp, Dp, st));

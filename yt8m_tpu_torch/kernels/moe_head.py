@@ -9,8 +9,9 @@ activations x [B, H] f32:
     probs = sum_{m<M} eg[..., m] * sigmoid(E[..., m]) / sum_{m<=M} eg[..., m]
 
 `round` is the cast to the weights' dtype, which selects the route on
-the card. The softmax is in the TPU kernel's ratio form with clamped
-logits, and the dummy expert m = M adds to the denominator only. At bf16
+the card; any M >= 1 runs there, as the TPU kernel takes any M. The
+softmax is in the TPU kernel's ratio form with clamped logits, and the
+dummy expert m = M adds to the denominator only. At bf16
 the CUDA kernel (csrc/moe_head.cu, on the TMA + wgmma mainloop of
 csrc/hopper_gemm.cuh) is bound by the bf16 tensor-core rate and keeps
 the [B, C, M+1] and [B, C, M] intermediates on chip; it takes any H (the
@@ -20,6 +21,17 @@ as TMA's zero fill, zero terms in exact sums). At f32
 (--compute_dtype=float32) nothing is rounded, as in the TPU kernel at dtype=float32: csrc/moe_head.cu's
 f32 kernel runs both products in plain f32 FMAs (csrc/f32_product.cuh:
 no TF32) with the same combine in its epilogue.
+
+A block of the bf16 kernel covers 128 videos x NC classes. M in {1, 2,
+4} has a tile of its own (`TILES`); any other M up to 121 takes the
+run-time tile, NC = min(129 / (M + 1), 121 / M) classes in chains of 136
+and 128 columns (M = 32: 3 classes; TMA starts a box at a multiple of 8
+columns, so a tile reads from its first columns rounded down to 8, up to
+7 columns on); above 121 a block takes one class and loops over chunks
+of 120 mixtures, adding each chunk's ratio-form terms to the row's
+numerator and denominator (the clamp keeps them finite, so no running
+maximum is needed). The f32 route takes floor(128 / (2M + 1)) classes a
+block up to M = 63, and one class in chunks of 63 mixtures above.
 
 TMA reads the weights by rows whose stride must be a multiple of 16
 bytes, and C*(M+1) = 14,148 columns is not a multiple of 8 bf16. The
@@ -40,13 +52,22 @@ from yt8m_tpu_torch.kernels._checks import (
     require_cuda_operand,
 )
 
-CUDA_MIXTURES = range(1, 17)  # num_mixtures the CUDA kernel takes
 PITCH = 8  # row strides the card takes: a multiple of 8 bf16 (16 bytes)
 
 # csrc/moe_head.cu's tiles: M -> (classes a block, gate chain width,
-# expert chain width); any other M in 1..16 runs the run-time tile.
+# expert chain width); any other M runs the run-time chains, with
+# runtime_classes(M) classes up to M = RUNTIME_MIXTURES and chunks of
+# CHUNK_MIXTURES mixtures of one class above.
 TILES = {1: (80, 160, 80), 2: (48, 144, 96), 4: (16, 80, 64)}
-RUNTIME_TILE = (8, 136, 128)
+RUNTIME_CHAINS = (136, 128)
+ALIGN_COLS = 8         # TMA box starts: multiples of 16 bytes
+# 121: one class still fits the expert chain past the offset.
+RUNTIME_MIXTURES = RUNTIME_CHAINS[1] - ALIGN_COLS + 1
+# A chunk's gates, the dummy and 7 columns fit 136; its experts and 7, 128.
+CHUNK_MIXTURES = 120
+CHUNK_STAGES = 3       # the chunked tile's ring beside its exp(gate) slots
+F32_COLS = 128          # the f32 route's B panel
+F32_CHUNK_MIXTURES = 63  # its mixtures a chunk above M = 63
 ROWS = 128         # videos a block (two consumer warpgroups of 64)
 DEPTH = 64         # H a ring stage (64 bf16, the 128-byte swizzle's row)
 BOX_COLS = 64      # columns of a weight box
@@ -57,24 +78,53 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def runtime_classes(m: int) -> int:
+    """Classes a block of the run-time tile at M <= 121 mixtures: both
+    chains hold them past an offset of up to ALIGN_COLS - 1 columns."""
+    gate, expert = RUNTIME_CHAINS
+    return min((gate - ALIGN_COLS + 1) // (m + 1),
+               (expert - ALIGN_COLS + 1) // m)
+
+
 def plan(b: int, h: int, c: int, m: int) -> dict:
     """csrc/moe_head.cu's launch at x [B, H] and C classes of M mixtures:
-    the tile, the grid (row tiles fastest), the TMA boxes and the shared
-    memory (yt8m_moe_plan reads the kernel's own on the card)."""
-    nc, gate, expert = TILES.get(m, RUNTIME_TILE)
+    the tile, the mixture chunks a block walks, the grid (row tiles
+    fastest), the TMA boxes and the shared memory, and the f32 route's
+    classes a block (0: one class in chunks of F32_CHUNK_MIXTURES)
+    (yt8m_moe_plan reads the kernel's own on the card)."""
+    stages, slots = STAGES, 0
+    if m in TILES:
+        nc, gate, expert = TILES[m]
+        chunks = 1
+    elif m <= RUNTIME_MIXTURES:
+        gate, expert = RUNTIME_CHAINS
+        nc, chunks = runtime_classes(m), 1
+    else:
+        gate, expert = RUNTIME_CHAINS
+        nc, chunks = 1, _ceil(m, CHUNK_MIXTURES)
+        stages, slots = CHUNK_STAGES, 8 * 8 * gate  # [warp][row][gate] f32
     boxes = _ceil(gate, BOX_COLS) + _ceil(expert, BOX_COLS)
     stage = ROWS * DEPTH * 2 + boxes * DEPTH * BOX_COLS * 2
     cols = gate + expert
     ld = cols + (8 - cols % 32) % 32
+    # A block's gate and expert columns (a chunk's, when it walks chunks:
+    # the last chunk's gates also hold the dummy), before the offset of up
+    # to 7 columns of the run-time tiles.
+    chunk = m if chunks == 1 else CHUNK_MIXTURES
+    gate_cols = nc * (m + 1) if chunks == 1 else chunk + 1
+    f32_nc = F32_COLS // (2 * m + 1)
     return {
-        "classes": nc, "gate": gate, "expert": expert,
-        "gate_cols": nc * (m + 1), "expert_cols": nc * m,
+        "classes": nc, "gate": gate, "expert": expert, "chunks": chunks,
+        "gate_cols": gate_cols, "expert_cols": nc * chunk,
+        "f32_classes": f32_nc,
+        "f32_chunks": 1 if f32_nc else _ceil(m, F32_CHUNK_MIXTURES),
         "gate_boxes": _ceil(gate, BOX_COLS),
         "expert_boxes": _ceil(expert, BOX_COLS),
         "grid": (_ceil(b, ROWS), _ceil(c, nc)), "k_steps": _ceil(h, DEPTH),
         "box_x": (DEPTH, ROWS), "box_w": (BOX_COLS, DEPTH),
-        "stages": STAGES, "ring_bytes": STAGES * stage,
-        "smem": STAGES * stage + 2 * STAGES * 8 + 128 * 4 + 1024,
+        "stages": stages, "ring_bytes": stages * stage,
+        "offset": 0 if m in TILES else ALIGN_COLS - 1,
+        "smem": stages * stage + 2 * stages * 8 + 128 * 4 + slots * 4 + 1024,
         "stage_ld": ld, "staged_bytes": ROWS * ld * 4,
         "accumulators": cols // 2,
     }
@@ -138,8 +188,7 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
     c = gate_kernel.shape[1] // (m + 1)
     if on_cpu(x, gate_kernel, expert_kernel, expert_bias):
         return moe_head_plain(x, gate_kernel, expert_kernel, expert_bias, m)
-    require(m in CUDA_MIXTURES,
-            f"num_mixtures={m}: the CUDA kernel takes 1..16")
+    require(m >= 1, f"num_mixtures={m}: want at least 1")
     dtype = gate_kernel.dtype
     require(dtype in (torch.bfloat16, torch.float32),
             f"gate_kernel: dtype {dtype}; the CUDA kernels compute in "
@@ -180,8 +229,8 @@ def kernel_plan(m: int) -> dict:
     """The compiled kernel's tile at M mixtures (card only)."""
     import ctypes
 
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     _build.check_launch("yt8m_moe_plan", _build.library().yt8m_moe_plan(
         m, out))
     return dict(zip(("classes", "gate", "expert", "stages", "smem",
-                     "stage_ld"), out))
+                     "stage_ld", "chunks", "f32_classes"), out))

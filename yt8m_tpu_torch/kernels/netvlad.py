@@ -17,19 +17,23 @@ It touches only the live 64-frame chunks of each video (`live_items`):
 the assignment product on TMA + wgmma with the softmax in its registers,
 which also stores the chunks' frames in bf16, then the aggregation
 product twice, first for the norms and then to write the normalised
-output once (`plan`; the source has the design). The wrapper allocates
-the kernel's scratch: the bf16 frames and the bf16 [B, F, K] assignment
-(written on the live chunks' rows), the chunks' column sums, the list of
-live chunks, and the sums of squares and norms.
+output once (`plan`; the source has the design). Above MAX_CLUSTERS
+clusters one block no longer holds a row's softmax: the assignment
+product then stores the f32 logits of the live rows, tiled over K, and a
+second launch normalises each live chunk's rows over all K (`plan`'s
+"wide"). The wrapper allocates the kernel's scratch: the bf16 frames and
+the bf16 [B, F, K] assignment (written on the live chunks' rows), the
+chunks' column sums, the list of live chunks, the sums of squares and
+norms, and above MAX_CLUSTERS the f32 [B, F, K] logits.
 
 At f32 (--compute_dtype=float32) nothing is rounded, as in the TPU
 kernel at dtype=float32: csrc/netvlad.cu's f32 launches run both
 products in plain f32 FMAs (csrc/f32_product.cuh: no TF32) over the same
 live chunks, with an f32 assignment scratch [B, F, K] that this wrapper
-allocates, and take any D and K up to 512 as they are.
+allocates, and take any D and K as they are.
 
-The bf16 kernel takes D a multiple of 128 and K a multiple of 8 up to
-512; `netvlad_aggregate` pads other shapes so that the result is exact.
+The bf16 kernel takes D a multiple of 128 and K a multiple of 8;
+`netvlad_aggregate` pads other shapes so that the result is exact.
 Padded features are zero columns of the frames (uint8 frames are first
 dequantized to float32, as the plain version does, since no byte
 dequantizes to 0), of Wc and of the centers: their residual is 0 and
@@ -53,7 +57,7 @@ from yt8m_tpu_torch.kernels._checks import (
 NORM_EPS = 1e-6
 FRAME_CHUNK = 64   # frames a chunk: a warpgroup's rows, a product step
 D_TILE = 128       # feature columns a tile of the aggregation launches
-MAX_CLUSTERS = 512  # K one assignment block holds for its softmax
+MAX_CLUSTERS = 512  # K one assignment block's softmax holds; above: "wide"
 K_MULTIPLE = 8      # clusters: 16-byte rows of Wc and the assignment
 PAD_CLUSTER_BIAS = -1e30
 
@@ -91,7 +95,8 @@ def plan(b: int, f: int, d: int, k: int, x_dtype=torch.float32,
     shared memory, the aggregation's tiles (the column tile fastest),
     TMA boxes (innermost first) and shared memory, the scratch."""
     chunks = _ceil(f, FRAME_CHUNK)
-    w, split = assign_split(k)
+    wide = k > MAX_CLUSTERS
+    w, split = (256, False) if wide else assign_split(k)
     f32 = x_dtype == torch.float32
     x_load = 2 * F32_BOX if f32 else U8_BOX
     # A stage's x tile is rounded to bf16 in place: room for both.
@@ -103,6 +108,8 @@ def plan(b: int, f: int, d: int, k: int, x_dtype=torch.float32,
     fixed = (red_floats + 2 * MAX_CLUSTERS) * 4 + 2 * MAX_STAGES * 8
     stages = min(MAX_STAGES, (SMEM_LIMIT - 1024 - fixed) // stage)
     most = b * chunks if split else _ceil(b * chunks, 2)
+    assign_kt = _ceil(k, w) if wide else 1  # the logits' cluster tiles
+    most *= assign_kt
     n_kt, n_ct = _ceil(k, AGG_CLUSTERS), d // D_TILE
     agg_stage = (AGG_CLUSTERS // BOX + D_TILE // BOX) * AGG_FRAMES * BOX * 2
     combos = n_kt * n_ct
@@ -110,6 +117,9 @@ def plan(b: int, f: int, d: int, k: int, x_dtype=torch.float32,
     centers_bytes = AGG_CLUSTERS * D_TILE * 4
     return {
         "chunks": chunks, "clusters_a_warpgroup": w, "split": split,
+        "wide": wide, "assign_cluster_tiles": assign_kt,
+        "logits_floats": b * f * k if wide else 0,
+        "softmax_grid": min(b * chunks, 65535) if wide else 0,
         "items_a_tile": 1 if split else 2, "k_steps": d // DEPTH,
         "assign_grid": min(most, sms), "assign_stage_bytes": stage,
         "assign_stages": stages, "x_load_bytes": x_load,
@@ -288,8 +298,7 @@ def _launch(frames, num_frames, cluster_w, act_scale, act_bias, centers,
             "the CUDA kernel computes in bf16; cluster_w must be bfloat16")
     require(f >= 1, "F must be at least 1")
     require(d % D_TILE == 0, f"D={d} must be a multiple of {D_TILE}")
-    require(k % 8 == 0 and 8 <= k <= MAX_CLUSTERS,
-            f"K={k} must be a multiple of 8 in [8, {MAX_CLUSTERS}]")
+    require(k % 8 == 0 and k >= 8, f"K={k} must be a multiple of 8, >= 8")
     require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
     require_cuda_operand("cluster_w", cluster_w, torch.bfloat16, (d, k))
@@ -304,6 +313,8 @@ def _launch(frames, num_frames, cluster_w, act_scale, act_bias, centers,
     colsum = alloc((b, p["chunks"], k), dtype=torch.float32, device=dev)
     items = torch.empty(p["items"], dtype=torch.int32, device=dev)
     work = torch.empty(p["work"], dtype=torch.float32, device=dev)
+    logits = (torch.empty(p["logits_floats"], dtype=torch.float32, device=dev)
+              if p["wide"] else None)
     lib = _build.library()
     fn = (lib.yt8m_netvlad_aggregate_u8 if frames.dtype == torch.uint8
           else lib.yt8m_netvlad_aggregate_f32)
@@ -311,8 +322,9 @@ def _launch(frames, num_frames, cluster_w, act_scale, act_bias, centers,
         _build.ptr(frames), _build.ptr(num_frames), _build.ptr(cluster_w),
         _build.ptr(act_scale), _build.ptr(act_bias), _build.ptr(centers),
         _build.ptr(xb), _build.ptr(assign), _build.ptr(colsum),
-        _build.ptr(items), _build.ptr(work), _build.ptr(out), b, f, d, k,
-        _build.current_stream(dev),
+        _build.ptr(items), _build.ptr(work),
+        _build.ptr(logits) if logits is not None else None,
+        _build.ptr(out), b, f, d, k, _build.current_stream(dev),
     )
     _build.check_launch("netvlad_aggregate", code)
     netvlad_aggregate.launches += 1
@@ -322,13 +334,13 @@ def _launch(frames, num_frames, cluster_w, act_scale, act_bias, centers,
 def _launch_f32(frames, num_frames, cluster_w, act_scale, act_bias,
                 centers):
     """The f32 route: csrc/netvlad.cu's f32 launches over the live chunks,
-    any D, K <= 512."""
+    any D and K."""
     b, f, d = frames.shape
     k = cluster_w.shape[1]
     require(frames.dtype in (torch.uint8, torch.float32),
             f"frames: dtype {frames.dtype}, want uint8 or float32")
     require(f >= 1, "F must be at least 1")
-    require(1 <= k <= MAX_CLUSTERS, f"K={k} must be in [1, {MAX_CLUSTERS}]")
+    require(k >= 1, f"K={k} must be at least 1")
     require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
     require_cuda_operand("cluster_w", cluster_w, torch.float32, (d, k))

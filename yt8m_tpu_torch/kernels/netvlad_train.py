@@ -31,7 +31,12 @@ backward rounds dvlad to bf16 once (with cdot), then a persistent TMA +
 wgmma product over (video, 64 frames) tiles whose epilogue is the
 softmax VJP, and, with dx, a batched product on
 csrc/hopper_product.cuh. The wrappers allocate the bf16 buffers. D must
-be a multiple of 4 on the card (TMA reads x's rows).
+be a multiple of 4 on the card (TMA reads x's rows). Any K runs on the
+card up to what one block's shared memory holds of the forward's softmax
+rows (`max_clusters()`: 19,285): above MAX_CLUSTERS the forward stages
+fewer frames a chunk (`assign_rows`), and the backward's product stores
+dassign into dact over tiles of 512 clusters while a second launch, a
+warp a row, does the softmax VJP over the row's K (`plan`'s "wide").
 
 `netvlad_core_forward.launches` and `netvlad_core_backward.launches`
 count the kernel calls (one each way a training step).
@@ -48,7 +53,7 @@ from yt8m_tpu_torch.kernels._checks import (
     require_cuda_operand,
 )
 
-MAX_CLUSTERS = 512
+MAX_CLUSTERS = 512  # K the backward's registers hold; above: "wide"
 
 # csrc/netvlad_train.cu's tiles (yt8m_netvlad_core_plan reads the
 # kernels' own).
@@ -60,7 +65,8 @@ DEPTH = 64             # D a backward stage (64 bf16: the swizzle's row)
 F32_BOX = (32, FRAMES, 1)   # x's boxes: [64 frames][32 columns] f32
 B16_BOX = (64, FRAMES, 1)   # the assignment's: [64 frames][64 clusters]
 V_BOX = (DEPTH, 256, 1)     # bf16(dvlad)'s: [256 clusters][64 deep]
-ASSIGN_ROWS = 32       # frames a chunk of the assignment launch
+ASSIGN_ROWS = 32       # frames a chunk of the assignment launch, at most
+ASSIGN_SMEM = 232448 - 1024  # the assignment launch's dynamic shared memory
 SMS = 132              # an H100's SMs: the persistent grids' cap
 
 
@@ -72,24 +78,43 @@ def _pad8(n: int) -> int:
     return _ceil(n, 8) * 8
 
 
+def assign_rows(k: int) -> int:
+    """Frames a chunk of the assignment launch at K clusters: two chunk
+    buffers of K floats and the column sums fit its shared memory (0: K
+    is too wide for a block)."""
+    return max(0, min(ASSIGN_ROWS, (ASSIGN_SMEM - 4 * k) // (8 * k)))
+
+
+def max_clusters() -> int:
+    """The widest K the card takes: assign_rows(K) >= 1, two rows and
+    the column sums of K floats each."""
+    return ASSIGN_SMEM // 12
+
+
 def plan(b: int, f: int, k: int, d: int, sms: int = SMS) -> dict:
-    """The card's launches for act [B, F, K], x [B, F, D] (K <= 512): the
-    forward's tiles (video, cluster tile, column tile; the column tile
-    fastest) and the backward's (video, frame tile; the frame tile
-    fastest), their persistent grids, the TMA boxes (innermost first),
-    each map's global strides in bytes and the shared memory."""
+    """The card's launches for act [B, F, K], x [B, F, D]: the forward's
+    tiles (video, cluster tile, column tile; the column tile fastest) and
+    the backward's (video, frame tile and, above MAX_CLUSTERS, cluster
+    tile of 512; the cluster tile fastest, then the frame tile), their
+    persistent grids, the TMA boxes (innermost first), each map's global
+    strides in bytes and the shared memory."""
     kp, dp = _pad8(k), _pad8(d)
     kh = 128 if k <= 256 else 256  # clusters a backward consumer warpgroup
+    wide = k > MAX_CLUSTERS
+    bwd_kt = _ceil(k, 2 * kh) if wide else 1
+    rows = assign_rows(k)
     col_tiles, cluster_tiles = _ceil(d, FWD_COLS), _ceil(k, FWD_CLUSTERS)
     fwd_tiles = b * cluster_tiles * col_tiles
     fwd_stage = 4 * 64 * FRAMES * 2 + 4 * 32 * FRAMES * 4
     bwd_stages = 4 if kh == 128 else 2
     bwd_stage = 2 * 32 * FRAMES * 4 + 2 * kh * DEPTH * 2
     frame_tiles = _ceil(f, FRAMES)
-    bwd_tiles = b * frame_tiles
+    bwd_tiles = b * frame_tiles * bwd_kt
     return {
-        "kp": kp, "dp": dp,
-        "assign_smem": 2 * ASSIGN_ROWS * k * 4,
+        "kp": kp, "dp": dp, "wide": wide, "assign_rows": rows,
+        "assign_smem": (2 * rows + 1) * k * 4,
+        "bwd_cluster_tiles": bwd_kt,
+        "softmax_blocks": _ceil(b * f, 8) if wide else 0,
         "fwd_col_tiles": col_tiles, "fwd_cluster_tiles": cluster_tiles,
         "fwd_tiles": fwd_tiles, "fwd_grid": min(fwd_tiles, sms),
         "fwd_stage_bytes": fwd_stage,
@@ -118,8 +143,18 @@ def fwd_tile_of(t: int, p: dict):
 
 def bwd_tile_of(t: int, p: dict):
     """Backward tile t: (video, frames) before clipping to F."""
-    video, ft = divmod(t, p["bwd_frame_tiles"])
+    video, ft = divmod(t // p["bwd_cluster_tiles"], p["bwd_frame_tiles"])
     return video, range(ft * FRAMES, (ft + 1) * FRAMES)
+
+
+def bwd_clusters_of(t: int, p: dict):
+    """Backward tile t's clusters before clipping to K: all of them, or
+    above MAX_CLUSTERS its tile of 2 Kh (the tile index's fastest part)."""
+    if not p["wide"]:
+        return range(p["kp"])
+    span = 2 * p["kh"]
+    kt = t % p["bwd_cluster_tiles"]
+    return range(kt * span, (kt + 1) * span)
 
 
 def kernel_plan() -> dict:
@@ -190,8 +225,10 @@ def _shapes(act, x, num_frames, centers):
 
 
 def _require_kernel_operands(act, x, num_frames, centers, b, f, k, d):
-    require(1 <= k <= MAX_CLUSTERS,
-            f"netvlad_core takes 1 <= K <= {MAX_CLUSTERS}, got K={k}")
+    require(k >= 1 and assign_rows(k) >= 1,
+            f"netvlad_core takes 1 <= K <= {max_clusters()} on the card "
+            f"(a block's shared memory holds two of its softmax rows), "
+            f"got K={k}")
     require(1 <= b <= 65535 and f >= 1,
             f"B={b} must be in [1, 65535] and F={f} at least 1")
     require(d % 4 == 0, f"D={d} must be a multiple of 4 (TMA reads x's rows)")
@@ -203,8 +240,8 @@ def _require_kernel_operands(act, x, num_frames, centers, b, f, k, d):
 
 def netvlad_core_forward(act, x, num_frames, centers):
     """(vlad, a_sum) as netvlad_core_plain_forward: the CUDA forward for
-    CUDA tensors (act, x, centers f32, num_frames int32, K <= 512, D a
-    multiple of 4), the plain version for CPU tensors."""
+    CUDA tensors (act, x, centers f32, num_frames int32, D a multiple of
+    4), the plain version for CPU tensors."""
     b, f, k, d = _shapes(act, x, num_frames, centers)
     if on_cpu(act, x, num_frames, centers):
         return netvlad_core_plain_forward(act, x, num_frames, centers)

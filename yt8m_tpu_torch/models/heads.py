@@ -85,21 +85,25 @@ class MoeHead(ServingModule):
     Serving runs the fused head (kernels/moe_head.py): its ratio-form
     softmax with clamped logits is the TPU kernel's, and its weights, a
     serving constant in the compute dtype, select the bf16 or the f32
-    kernel on the card, as the JAX head passes dtype=hp.dtype. Training runs the
-    JAX model's plain graph (the JAX kernel is serving-only), an f32
-    softmax over the M + 1 gate logits, and adds `regularization_loss`
-    = l2_penalty * l2_loss(gates, experts).
+    kernel on the card, as the JAX head passes dtype=hp.dtype. With
+    `use_pallas` off (--moe_head_pallas=false) serving runs the JAX
+    head's plain graph instead, as the JAX model does: an exact f32
+    softmax over the M + 1 gate logits, with no clamp, on the CPU and on
+    the card alike. Training always runs that plain graph (the JAX kernel
+    is serving-only) and adds `regularization_loss` = l2_penalty *
+    l2_loss(gates, experts).
     """
 
     def __init__(self, in_features: int, vocab_size: int = 4716,
                  num_mixtures: int = 2, dtype=torch.float32,
-                 l2_penalty: float = 1e-8):
+                 l2_penalty: float = 1e-8, use_pallas: bool = True):
         super().__init__()
         m = num_mixtures
         self.vocab_size = vocab_size
         self.num_mixtures = m
         self.dtype = dtype
         self.l2_penalty = l2_penalty
+        self.use_pallas = use_pallas
         self.gates_kernel = nn.Parameter(
             torch.empty(in_features, vocab_size * (m + 1)))
         self.experts_kernel = nn.Parameter(
@@ -115,6 +119,9 @@ class MoeHead(ServingModule):
         self._serving = None
 
     def make_serving_constants(self) -> dict:
+        if not self.use_pallas:
+            return {"gates": rounded(self.gates_kernel, self.dtype),
+                    "experts": rounded(self.experts_kernel, self.dtype)}
         # The kernel reads rows at a stride that is a multiple of 8.
         return {
             "gates": pitched(self.gates_kernel.to(self.dtype)),
@@ -123,28 +130,33 @@ class MoeHead(ServingModule):
 
     def forward(self, x):
         if self.training:
-            return self._train_forward(x)
+            return {
+                "predictions": self._plain(x, rounded(
+                    self.gates_kernel, self.dtype), rounded(
+                        self.experts_kernel, self.dtype)),
+                "regularization_loss": self.l2_penalty * l2_loss(
+                    self.gates_kernel, self.experts_kernel),
+            }
         c = self.serving_constants()
+        if not self.use_pallas:
+            return {"predictions": self._plain(x, c["gates"], c["experts"])}
         probs = moe_head_serving(
             x.to(torch.float32).contiguous(), c["gates"], c["experts"],
             self.experts_bias.detach(), self.num_mixtures,
         )
         return {"predictions": probs}
 
-    def _train_forward(self, x):
+    def _plain(self, x, gates, experts):
+        """The JAX head's plain graph on the kernels rounded to the compute
+        dtype (f32 products of rounded operands, an exact f32 softmax)."""
         m, c = self.num_mixtures, self.vocab_size
         b = x.shape[0]
         xa = rounded(x, self.dtype)
-        gate_logits = torch.matmul(xa, rounded(self.gates_kernel, self.dtype))
-        expert_logits = torch.matmul(
-            xa, rounded(self.experts_kernel, self.dtype)) + self.experts_bias
+        gate_logits = torch.matmul(xa, gates)
+        expert_logits = torch.matmul(xa, experts) + self.experts_bias
         gating = torch.softmax(gate_logits.reshape(b, c, m + 1), dim=-1)
         experts = torch.sigmoid(expert_logits.reshape(b, c, m))
-        return {
-            "predictions": torch.sum(gating[..., :m] * experts, dim=-1),
-            "regularization_loss": self.l2_penalty * l2_loss(
-                self.gates_kernel, self.experts_kernel),
-        }
+        return torch.sum(gating[..., :m] * experts, dim=-1)
 
 
 class ContextGate(ServingModule):

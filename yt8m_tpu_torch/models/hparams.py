@@ -5,15 +5,16 @@ flags with the same names map 1:1 onto these fields.
 
 Fields that select a Pallas kernel in the JAX package
 (`*_use_pallas`, `moe_head_pallas`) mostly do not select anything here:
-`moe_head_pallas`, `lstm_use_pallas`, `attention_use_pallas` and, in
-serving, `netvlad_use_pallas` are inert, and those paths always run the
-port's CUDA kernels. Three act as in the JAX package:
-`nextvlad_use_pallas` selects NeXtVladModel's serving kernel (off, the
-plain graph serves), `dbof_use_pallas` gates the int8 kernel of
-`dbof_int8_serving`, and `netvlad_use_pallas` with
-`netvlad_fused_train` selects the trainable VLAD core in training.
-Fields of model families not yet ported are kept so that recordings of
-any run load; they are inert.
+`lstm_use_pallas`, `attention_use_pallas` and, in serving,
+`netvlad_use_pallas` are inert, and those paths always run the port's
+CUDA kernels. Four act as in the JAX package: `moe_head_pallas` selects
+every MoE head's serving kernel (off, the plain head serves: an exact
+softmax with no clamp), `nextvlad_use_pallas` selects NeXtVladModel's
+serving kernel (off, the plain graph serves), `dbof_use_pallas` gates
+the int8 kernel of `dbof_int8_serving`, and `netvlad_use_pallas` with
+`netvlad_fused_train` selects the trainable VLAD core in training. Every
+field of the JAX package's `ModelHParams` is here, so that a recording
+of any run loads.
 """
 
 from __future__ import annotations

@@ -20,9 +20,13 @@ def logistic_head(hp: ModelHParams, in_features: int) -> LogisticHead:
 
 
 def moe_head(hp: ModelHParams, in_features: int) -> MoeHead:
+    """Every MoE head of the zoo (MoeModel, the frame models' classifier,
+    the chains' stages), with --moe_head_pallas as each JAX call site
+    passes it."""
     return MoeHead(in_features, vocab_size=hp.vocab_size,
                    num_mixtures=hp.moe_num_mixtures, dtype=hp.dtype,
-                   l2_penalty=hp.moe_l2_penalty)
+                   l2_penalty=hp.moe_l2_penalty,
+                   use_pallas=hp.moe_head_pallas)
 
 
 def make_classifier_head(hp: ModelHParams, in_features: int):
@@ -61,7 +65,8 @@ class LogisticModel(_VideoModel):
 
 @register("MoeModel", frame_level=False)
 class MoeModel(_VideoModel):
-    """Serves on moe_head_serving (kernels/moe_head.py), as MoeHead does."""
+    """Serves on moe_head_serving (kernels/moe_head.py), as MoeHead does
+    (the plain head with --moe_head_pallas=false)."""
 
     def __init__(self, hp: ModelHParams):
         super().__init__(hp, moe_head(hp, hp.feature_dim))

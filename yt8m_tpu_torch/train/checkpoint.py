@@ -16,7 +16,20 @@ renames into place, so a crash leaves the previous step as the latest.
 Restarting resumes from the latest step, as Supervisor's auto-recovery
 did. `save` writes every `save_interval_steps` steps (orbax's rule: the
 step is a multiple of the interval and later than the latest), and
-rotation keeps the newest `max_to_keep`.
+rotation keeps the newest `max_to_keep`. A step converted from a JAX
+run may hold no optimizer.pt (convert.py converts Adam's state only):
+the trainer then refuses to resume from it.
+
+With `async_save` (--async_checkpoint; the JAX package passes it to
+orbax as `async_save`), `save` copies the state to host tensors before
+it returns, and one background writer serialises and writes the step
+while training goes on. A save issued while one is in flight waits for
+it, so steps are written in order; `force_save` and `close` drain the
+writer, so a run's last step is on disk when the trainer returns. An
+exception of the writer is raised on the caller's thread at the next
+save, force_save or close. `held_seconds` lists the time each save and
+force_save held the caller (the copy, any wait for the writer, and the
+write itself when it is synchronous); `blocking_seconds` is their sum.
 """
 
 from __future__ import annotations
@@ -26,7 +39,8 @@ import logging
 import os
 import shutil
 import time
-from typing import List, Optional
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
@@ -39,14 +53,46 @@ log = logging.getLogger("yt8m_tpu_torch.checkpoint")
 
 
 def _to_host(obj):
-    """A copy of a (nested) state dict with every tensor on the CPU."""
+    """A copy of a (nested) state dict with every tensor copied to the
+    CPU (CPU tensors too: the copy does not change when training goes on
+    writing the originals)."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().to("cpu")
+        return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_host(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_host(v) for v in obj)
     return obj
+
+
+def snapshot(state) -> Dict[str, object]:
+    """The files of a step from a TrainState: host copies of the model's
+    and the optimizer's state dicts and of the EMA."""
+    files = {MODEL_FILE: _to_host(state.model.state_dict()),
+             OPTIMIZER_FILE: _to_host(state.optimizer.state_dict())}
+    if state.ema is not None:
+        files[EMA_FILE] = _to_host(state.ema)
+    return files
+
+
+def write_step(directory: str, step: int, files: Mapping[str, object]) -> str:
+    """Write `files` ({name: object for torch.save}) and step.json, last,
+    as directory/<step>/ through a hidden temporary directory that
+    os.replace renames into place; the step's path."""
+    path = os.path.join(directory, str(step))
+    tmp = os.path.join(directory, f".tmp-{step}-{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        for name, obj in files.items():
+            torch.save(obj, os.path.join(tmp, name))
+        with open(os.path.join(tmp, STEP_FILE), "w") as f:
+            json.dump({"step": int(step)}, f)
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return path
 
 
 def dir_bytes(path: str) -> int:
@@ -67,10 +113,14 @@ def step_dirs(directory: str) -> List[int]:
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 5,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1, async_save: bool = False):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(int(save_interval_steps), 1)
+        self.async_save = async_save
+        self.held_seconds: List[float] = []
+        self._writer: Optional[ThreadPoolExecutor] = None
+        self._pending: Optional[Future] = None
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> List[int]:
@@ -89,40 +139,74 @@ class CheckpointManager:
             return False
         return step % self.save_interval_steps == 0
 
+    @property
+    def blocking_seconds(self) -> float:
+        return sum(self.held_seconds)
+
     def save(self, step: int, state) -> bool:
         """Write `state` (a TrainState) at `step` if the interval says so."""
         if not self.should_save(step):
             return False
-        self._write(step, state)
+        t0 = time.perf_counter()
+        try:
+            self._write(step, state)
+        finally:
+            self.held_seconds.append(time.perf_counter() - t0)
         return True
 
     def force_save(self, step: int, state) -> bool:
-        """Write `state` at `step` unless that step is already written."""
-        if step in self.all_steps():
-            return False
-        self._write(step, state)
-        return True
+        """Write `state` at `step` unless that step is already written; in
+        either case every write has finished when it returns."""
+        t0 = time.perf_counter()
+        try:
+            self.wait()
+            if step in self.all_steps():
+                return False
+            self._write(step, state)
+            self.wait()
+            return True
+        finally:
+            self.held_seconds.append(time.perf_counter() - t0)
+
+    def wait(self) -> None:
+        """Wait for the write in flight, if any, and raise its exception."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self, raise_errors: bool = True) -> None:
+        """Drain the writer and stop its thread. With raise_errors False a
+        failed write is logged, not raised (the caller is already
+        unwinding from another exception). The manager stays usable: a
+        later async save starts a new writer."""
+        try:
+            self.wait()
+        except Exception:
+            if raise_errors:
+                raise
+            log.exception("the checkpoint writer failed")
+        finally:
+            if self._writer is not None:
+                self._writer.shutdown(wait=True)
+                self._writer = None
 
     def _write(self, step: int, state) -> None:
+        self.wait()  # a save waits for the one in flight: steps in order
         t0 = time.perf_counter()
-        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        try:
-            torch.save(_to_host(state.model.state_dict()),
-                       os.path.join(tmp, MODEL_FILE))
-            torch.save(_to_host(state.optimizer.state_dict()),
-                       os.path.join(tmp, OPTIMIZER_FILE))
-            if state.ema is not None:
-                torch.save(_to_host(state.ema), os.path.join(tmp, EMA_FILE))
-            with open(os.path.join(tmp, STEP_FILE), "w") as f:
-                json.dump({"step": int(step)}, f)
-            os.replace(tmp, self.path(step))
-        except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
-            raise
+        files = snapshot(state)
+        if self.async_save:
+            if self._writer is None:
+                self._writer = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="checkpoint-writer")
+            self._pending = self._writer.submit(self._commit, step, files,
+                                                time.perf_counter())
+        else:
+            self._commit(step, files, t0)
+
+    def _commit(self, step: int, files, t0: float) -> None:
+        path = write_step(self.directory, step, files)
         log.info("saved checkpoint step %d (%.3f GB) in %.2f s", step,
-                 dir_bytes(self.path(step)) / 1e9, time.perf_counter() - t0)
+                 dir_bytes(path) / 1e9, time.perf_counter() - t0)
         if self.max_to_keep > 0:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(self.path(old), ignore_errors=True)
@@ -146,8 +230,23 @@ class CheckpointManager:
         if not os.path.exists(os.path.join(path, STEP_FILE)):
             raise FileNotFoundError(f"no checkpoint at step {step} in "
                                     f"{self.directory}")
+        if not os.path.exists(os.path.join(path, OPTIMIZER_FILE)):
+            raise FileNotFoundError(
+                f"step {step} in {self.directory} holds no {OPTIMIZER_FILE}: "
+                f"its weights were converted from a JAX run without their "
+                f"optimizer state (scripts/convert_jax_checkpoint.py converts "
+                f"Adam's only), and a fresh optimizer would not resume that "
+                f"run; serve the step with cli.eval or cli.inference")
         state.model.load_state_dict(_load(path, MODEL_FILE))
-        state.optimizer.load_state_dict(_load(path, OPTIMIZER_FILE))
+        opt = _load(path, OPTIMIZER_FILE)
+        # Which implementation runs the update (fused on the card) is the
+        # live optimizer's, not part of the saved state.
+        for saved, live in zip(opt["param_groups"],
+                               state.optimizer.param_groups):
+            for key in ("fused", "foreach", "capturable"):
+                if key in live:
+                    saved[key] = live[key]
+        state.optimizer.load_state_dict(opt)
         state.step = int(step)
         has_ema = os.path.exists(os.path.join(path, EMA_FILE))
         if not has_ema:

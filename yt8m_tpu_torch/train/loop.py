@@ -5,7 +5,8 @@ Reader (make_batch_iterator: the native parser, shuffled by file, with
 --num_readers threads or --reader_processes; --num_epochs; the teacher
 feature under --distill_data_pattern; example weights under
 --boost_weights_file) -> batches on cfg.device -> make_train_step
--> a checkpoint every --save_checkpoint_every_n_steps (and at the end)
+-> a checkpoint every --save_checkpoint_every_n_steps (and at the end;
+written by a background thread with --async_checkpoint)
 -> every --log_every_n_steps the reference's log line (Loss, Examples/sec,
 and Hit@1, PERR and GAP of the training batch) and its summary scalars.
 
@@ -158,7 +159,8 @@ class Trainer:
             ema_decay=cfg.ema_decay)
         self.ckpt = CheckpointManager(
             cfg.train_dir, max_to_keep=cfg.max_checkpoints_to_keep,
-            save_interval_steps=cfg.save_checkpoint_every_n_steps)
+            save_interval_steps=cfg.save_checkpoint_every_n_steps,
+            async_save=cfg.async_checkpoint)
         self.summary = SummaryWriter(cfg.train_dir)
         self._write_model_flags()
 
@@ -224,7 +226,10 @@ class Trainer:
         examples_since_log = 0
         profiler = None
         # A final checkpoint is written only when the loop ends normally:
-        # a diverged state must not be persisted.
+        # a diverged state must not be persisted. The writer of
+        # --async_checkpoint is drained either way; its failure is raised
+        # unless another exception is already on its way out.
+        finished = False
         try:
             for batch in self.data_iterator:
                 if step is None:
@@ -249,11 +254,16 @@ class Trainer:
                 self.ckpt.save(step, state)
             if step is not None:
                 self.ckpt.force_save(step, state)
+            finished = True
         finally:
+            self.ckpt.close(raise_errors=finished)
             if profiler is not None:
                 self._stop_profiler(profiler)
             self.summary.close()
-        log.info("training complete at step %s", step)
+        log.info("training complete at step %s; checkpoint saves held the "
+                 "training thread %.3f s (%s s a save)", step,
+                 self.ckpt.blocking_seconds,
+                 ", ".join(f"{t:.3f}" for t in self.ckpt.held_seconds))
         return step if step is not None else 0
 
     def _start_profiler(self):
