@@ -100,10 +100,10 @@ Phases, one line each with the elapsed seconds:
      1 f32 attention_pool and 1 f32 MoE; 0 NeXtVLAD (the plain graph) and
      1 f32 MoE); the flagship at --netvlad_cluster_size=1024
      --moe_num_mixtures=32 (1 netvlad_aggregate, 2 lstm_recurrence and 1
-     MoE a batch), ChainMoeModel at --moe_num_mixtures=32 (3 MoE a
-     batch) and MoeModel with --moe_head_pallas=false (no MoE launch: the
-     plain head); CSV checks, and 8 videos compared with the same model
-     on the CPU;
+     MoE a batch), ChainMoeModel at --moe_num_mixtures=32 cut to one
+     chain stage (1 MoE a batch) and MoeModel with
+     --moe_head_pallas=false (no MoE launch: the plain head); CSV
+     checks, and 8 videos compared with the same model on the CPU;
   5. each serving step alone on frames already on the card (DbofModel at
      B=2048 with and without --dbof_int8_serving, GatedDbofModel and
      SoftDbofModel at B=2048, the others at B=512): median step time of
@@ -179,8 +179,27 @@ Phases, one line each with the elapsed seconds:
      dump (MixedCrossEntropyDistillLoss, finite and falling losses, the
      trainable LSTM's and netvlad_core's launches), DbofModel trained 4
      steps with boost weights from its member's dump, and the mean of
-     DbofModel's last two checkpoints served. A `phase:` line gives each
-     phase's seconds.
+     DbofModel's last two checkpoints served;
+  9. the serving export: DbofModel at the reference config (K=8192,
+     H=1024, 30 sampled frames, M=2 over 4716), with
+     --dbof_int8_serving, the flagship and NeXtVladModel at the JAX
+     defaults exported with a dynamic batch (infer/export.py), the rest
+     of the zoo (and the f32 flagship, its LSTM an unrolled scan) at one
+     recurrent layer, and DbofModel's cli.train --export_model_steps=2
+     directory; a fresh python3 process loads each program and serves it
+     (B=2048 and 128 for the DBoF paths, 512 and 128 for the flagship and
+     NeXtVLAD, 8 videos for the rest): its top-20 equal to the eager
+     serving step's with a generator seeded 0, bit for bit, two calls
+     equal, and on the four first paths the same launches a batch and,
+     the eager step rebuilt in that process from the same seed, the same
+     kernels a batch by the profiler, with eager and exported videos/s,
+     the export seconds and program.pt2's size against the state dict's;
+     then cli.parity on the workflow's inference CSV against itself with
+     the eval labels (every delta 0, exit 0). Phase 3 also runs NeXtVLAD
+     at K = 264 and 520 (serving B=512, trainable B=256; the wide
+     launches), phase 4 NeXtVladModel at K=520 through cli.inference and
+     phase 6 trains it 3 fused steps. A `phase:` line gives each phase's
+     seconds.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -1272,37 +1291,61 @@ def lstm_witness(torch, name, args, reverse) -> None:
                                                      wh, reverse))
 
 
+def bracketed_window(torch, fn, pad: float):
+    """(prof, whole): a torch.profiler window around one call of fn, with
+    `pad` seconds of idle card either side, and whether it is known to
+    hold all of fn's kernels.
+
+    A window can lose kernels, never add one: on the card, windows lost a
+    run of a call's kernels (the first ~6 ms of a 12 ms serving step, in
+    three windows in a row, late in a long process; a one-kernel call, in
+    five). So fn sits between two sentinel kernels (torch.cuda._sleep's
+    spin_kernel), each on an idle card: a window that holds both is
+    whole at its edges. Where a window is not, the callers read another
+    (a wider idle did not bring the sentinels back where they were lost
+    mid-run, so the idle grows only a little)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(pad)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(pad)
+    sentinels = sum(e.count for e in prof.key_averages()
+                    if "spin_kernel" in e.key
+                    and e.self_device_time_total > 0)
+    return prof, sentinels == 2
+
+
 def device_kernels(torch, fn, needle) -> dict:
     """Device time (us) by kernel name of the kernels whose name holds
     `needle` (or one of a tuple of needles) in one call of fn
-    (torch.profiler); where five profiler windows see none of them, the
+    (torch.profiler): the first whole window that saw them (see
+    bracketed_window), else the fullest of five; where none saw them, the
     call's CUDA-event time under one key that says so."""
-    from torch.profiler import ProfilerActivity, profile
-
     needles = (needle,) if isinstance(needle, str) else needle
-    # A window can lose a kernel (a one-kernel call read 0 us on the card,
-    # twice; the sampled DBoF's and the f32 dequant_affine_matmul's
-    # kernels were lost in three windows in a row). The profiler drops an
-    # activity whose timestamps fall outside its window on the host clock,
-    # and the device's timestamps need not agree with that clock: so the
-    # window opens and closes on an idle card with 20 ms to spare on
-    # either side of fn, a small kernel of no interest goes first, and a
-    # window that saw none of fn's is run again.
-    for _ in range(5):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.ones(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
-            time.sleep(0.02)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(0.02)
+    best = {}
+    for attempt in range(5):
+        prof, whole = bracketed_window(torch, fn, 0.02 * (attempt + 1))
         seen = {e.key: e.self_device_time_total for e in prof.key_averages()
                 if e.self_device_time_total > 0
                 and any(n in e.key for n in needles)}
-        if seen:
+        if seen and whole:
             return seen
+        if sum(seen.values()) > sum(best.values()):
+            best = seen
+    if best:
+        say("profile", f"no window of 5 around the {needles} call was whole "
+                       f"at its edges: the fullest")
+        return best
     # Where the profiler shows no device time, CUDA events instead (they
     # include the wrapper's host work): the f32 dequant_affine_matmul's
     # one kernel was lost in 5 windows in a row on the card.
@@ -1318,9 +1361,9 @@ def device_kernels(torch, fn, needle) -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
     us = statistics.median(times) * 1e3
-    say("kernel", f"the profiler saw no kernel named {needles} in 5 windows: "
-                  f"CUDA events instead, {us / 1e3:.4f} ms a call (host work "
-                  f"included)")
+    say("kernel", f"the profiler saw no kernel named {needles} in 5 "
+                  f"windows: CUDA events instead, {us / 1e3:.4f} ms a call "
+                  f"(host work included)")
     return {f"{'|'.join(needles)} (CUDA events, not the profiler)": us}
 
 
@@ -3503,13 +3546,193 @@ def check_new_core(torch, g, dev, flush) -> list:
     return rows
 
 
+NEW_NEXTVLAD_CLUSTERS = (264, 520)
+
+
+def nan_scratch(torch, fn):
+    """fn() with every f32 tensor that torch.empty makes (the kernels'
+    scratch and outputs) filled with NaN first."""
+    real = torch.empty
+
+    def empty(*args, **kwargs):
+        t = real(*args, **kwargs)
+        return t.fill_(float("nan")) if t.dtype == torch.float32 else t
+
+    torch.empty = empty
+    try:
+        return fn()
+    finally:
+        torch.empty = real
+
+
+def check_new_nextvlad(torch, g, dev, flush) -> list:
+    """nextvlad_aggregate at K = 264 and 520 (above 256: the Logits launch
+    and the wide softmax) at B=512, F=300, D=1152, G=8, lambda=2 with
+    uint8 frames: frames past num_frames planted (255; the result bit for
+    bit that of zeros there), a video with no frame, a padded cluster (K
+    = 264 runs as Kp = 320; K = 520 as 576), a NaN-filled scratch giving
+    the same bits; within 2^-7 * max|ref| of the plain version."""
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels import nextvlad as tnv
+
+    b, f, d, lam, gr = (FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM, NEXTVLAD_LAMBDA,
+                        NEXTVLAD_GROUPS)
+    de, p = lam * d, lam * d // gr
+    rows = []
+    for k in NEW_NEXTVLAD_CLUSTERS:
+        gen = torch.Generator().manual_seed(k)
+        x, nf, *w = nextvlad_inputs(torch, gen, b, f, d, lam, gr, k,
+                                    torch.uint8, dev)
+        past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+        clean, x = pad_hazard(torch, x, past, 255)
+        layout = tnv.kernel_layout(*w, gr)
+        got = tnv.nextvlad_aggregate(x, nf, *w, gr, layout=layout)
+        check(torch.equal(got, tnv.nextvlad_aggregate(clean, nf, *w, gr,
+                                                      layout=layout)),
+              f"nextvlad K={k}: frames past num_frames leaked")
+        check(bool(torch.isfinite(got).all()) and bool(torch.all(got[1] == 0)),
+              f"nextvlad K={k}: non-finite, or num_frames=0 not zeros")
+        nan_run = nan_scratch(torch, lambda: tnv.launch_forward(
+            x, nf, layout)[0])
+        check(torch.equal(nan_run, got),
+              f"nextvlad K={k}: a NaN-filled scratch changed the output")
+        del nan_run, clean
+        err = rel_check(f"nextvlad_aggregate K={k}", got,
+                        tnv.nextvlad_aggregate_plain(x, nf, *w, gr),
+                        NEXTVLAD_REL, 1e-6)
+        del got
+        live = torch.arange(f, device=dev)[None, :] < nf[:, None]
+        mask = live[:, :, None, None]
+        bf = torch.bfloat16
+        we_b, wa_b, wc_b = w[0].to(bf), w[1].to(bf), w[3].to(bf)
+
+        def library(x=x, w=w, mask=mask, we_b=we_b, wa_b=wa_b, wc_b=wc_b,
+                    k=k):
+            xb = (x.to(torch.float32) * DEQUANT_SCALE + DEQUANT_BIAS).to(bf)
+            xe = torch.matmul(xb, we_b)
+            alpha = torch.sigmoid(torch.matmul(xe, wa_b).float() + w[2])
+            act = torch.matmul(xe, wc_b).float().reshape(b, f, gr, k)
+            a = torch.softmax(act, -1) * alpha[..., None] * mask
+            vlad = torch.bmm(a.to(bf).reshape(b, f * gr, k).transpose(1, 2),
+                             xe.reshape(b, f * gr, p)).float()
+            vlad = vlad - a.sum((1, 2))[:, :, None] * w[4]
+            return torch.nn.functional.normalize(vlad, dim=2, eps=1e-6)
+
+        real = int(live.sum())
+        kp = -(-k // 64) * 64
+        # Inputs once, the output once; the bound counts no scratch.
+        nbytes = (real * d + 4 * b + (d * de + de * gr + de * gr * k) * 2
+                  + 4 * gr + k * p * 4 + b * k * p * 4)
+        row = shape_row(
+            f"nextvlad_aggregate B={b} F={f} D={d} G={gr} K={k} (Kp={kp}) "
+            f"uint8 ({real} live frames)", "bf16", err,
+            lambda x=x, nf=nf, w=w, layout=layout: tnv.nextvlad_aggregate(
+                x, nf, *w, gr, layout=layout),
+            lambda x=x, nf=nf, w=w: tnv.nextvlad_aggregate_plain(x, nf, *w,
+                                                                 gr),
+            library, "nxv_", flush, 5, nextvlad_flops(real, d, de, gr, k),
+            nbytes, PEAK_BF16_FLOPS)
+        split = device_kernels(torch, lambda x=x, nf=nf, w=w, layout=layout:
+                               tnv.nextvlad_aggregate(x, nf, *w, gr,
+                                                      layout=layout), "nxv_")
+        row["device_ms_by_launch"] = {n: us / 1e3 for n, us in split.items()}
+        say("kernel", f"nextvlad_aggregate K={k} by launch (profiler ms): "
+            + launch_split(split))
+        rows.append(row)
+        del x, nf, w, layout, library, mask, live
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_new_nextvlad_train(torch, g, dev, flush) -> list:
+    """nextvlad_aggregate_train at K = 264 and 520 (above 256: the wide
+    d_assign and its row VJP) at the training shape B=256, F=300: the
+    forward and the five weight gradients within 2^-7 * max|ref| of the
+    plain versions, a second run bit for bit, frames past num_frames
+    leave every gradient bit for bit."""
+    from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
+    from yt8m_tpu_torch.kernels import nextvlad_train as tnt
+    from yt8m_tpu_torch.kernels.nextvlad import nextvlad_aggregate_plain
+
+    b, f, d, lam, gr = (TRAIN_BATCH, FLAG_FRAMES, FEATURE_DIM,
+                        NEXTVLAD_LAMBDA, NEXTVLAD_GROUPS)
+    de, p = lam * d, lam * d // gr
+    rows = []
+    for k in NEW_NEXTVLAD_CLUSTERS:
+        gen = torch.Generator().manual_seed(k + 1)
+        args = nextvlad_inputs(torch, gen, b, f, d, lam, gr, k, torch.uint8,
+                               dev)
+        x, nf, *w = args
+        dy = torch.randn(b, k, p, generator=gen).to(dev)
+        out, grads = nextvlad_train_grads(torch, args, gr, dy)
+        errs = [rel_check(f"nextvlad_train K={k} forward", out,
+                          nextvlad_aggregate_plain(*args, gr), NEXTVLAD_REL,
+                          1e-6)]
+        want = tnt.nextvlad_aggregate_train_plain_backward(*args, dy, gr)
+        for name, got, ref in zip(("dWe", "dWa", "dab", "dWc", "dcenters"),
+                                  grads, want):
+            errs.append(rel_check(f"nextvlad_train K={k} {name}", got, ref,
+                                  NEXTVLAD_REL, 1e-6))
+        del want
+        again = nextvlad_train_grads(torch, args, gr, dy)[1]
+        check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+              f"nextvlad_train K={k}: a second run gave other gradient bits")
+        past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
+        clean, loud = pad_hazard(torch, x, past, 255)
+        a = nextvlad_train_grads(torch, [clean, nf, *w], gr, dy)[1]
+        c = nextvlad_train_grads(torch, [loud, nf, *w], gr, dy)[1]
+        check(all(torch.equal(p_, q_) for p_, q_ in zip(a, c)),
+              f"nextvlad_train K={k}: frames past num_frames moved a "
+              f"gradient")
+        del a, c, again, clean, loud, out, grads
+        live = past.logical_not()
+        mask = live[:, :, None, None]
+        bf = torch.bfloat16
+
+        def library(x=x, w=w, mask=mask, dy=dy, k=k):
+            ws = [t.detach().requires_grad_() for t in w]
+            xb = (x.to(torch.float32) * DEQUANT_SCALE + DEQUANT_BIAS).to(bf)
+            xe = torch.matmul(xb, ws[0].to(bf))
+            alpha = torch.sigmoid(torch.matmul(xe, ws[1].to(bf)).float()
+                                  + ws[2])
+            act = torch.matmul(xe, ws[3].to(bf)).float().reshape(b, f, gr, k)
+            a = torch.softmax(act, -1) * alpha[..., None] * mask
+            vlad = torch.bmm(a.to(bf).reshape(b, f * gr, k).transpose(1, 2),
+                             xe.reshape(b, f * gr, p)).float()
+            vlad = vlad - a.sum((1, 2))[:, :, None] * ws[4]
+            torch.nn.functional.normalize(vlad, dim=2, eps=1e-6).backward(dy)
+
+        real = int(live.sum())
+        f_flops = nextvlad_flops(real, d, de, gr, k)
+        b_flops = 2.0 * real * (2 * gr * k * p + 2 * de * (gr * k + gr)
+                                + d * de)
+        nbytes = (real * d + 4 * b + (d * de + de * gr + de * gr * k) * 2 * 2
+                  + 4 * gr + k * p * 4 + 2 * b * k * p * 4)
+        row = shape_row(
+            f"nextvlad_aggregate_train B={b} F={f} G={gr} K={k} ({real} live "
+            f"frames) forward + backward", "bf16", max(errs),
+            lambda args=args, dy=dy: nextvlad_train_grads(torch, args, gr, dy),
+            lambda args=args, dy=dy: tnt.nextvlad_aggregate_train_plain_backward(
+                *args, dy, gr),
+            library, "nxv_", flush, 5, f_flops + b_flops, nbytes,
+            PEAK_BF16_FLOPS)
+        rows.append(row)
+        del args, x, nf, w, dy, library, mask, live
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_new_shapes(torch, dev, flush) -> dict:
-    """Rows 2, 8 and 9 past their old limits (their own generator on the
-    card: the other phases keep their inputs): {row name: [shape rows]}."""
+    """Rows 2, 8, 9, 15 and 16 past their old limits (their own generator
+    on the card: the other phases keep their inputs): {row name: [shape
+    rows]}."""
     g = torch.Generator(device=dev).manual_seed(2121)
     return {"moe_head_serving": check_new_moe(torch, g, dev, flush),
             "netvlad_aggregate": check_new_netvlad(torch, g, dev, flush),
-            "netvlad_core": check_new_core(torch, g, dev, flush)}
+            "netvlad_core": check_new_core(torch, g, dev, flush),
+            "nextvlad_aggregate": check_new_nextvlad(torch, g, dev, flush),
+            "nextvlad_aggregate_train": check_new_nextvlad_train(
+                torch, g, dev, flush)}
 
 
 # ---------------------------------------------------------------------------
@@ -3651,17 +3874,18 @@ def make_attention_model(torch, seed: int, dtype="bfloat16"):
     return hp, model.eval()
 
 
-def make_nextvlad_model(torch, seed: int, dtype="bfloat16"):
+def make_nextvlad_model(torch, seed: int, dtype="bfloat16",
+                        clusters=NEXTVLAD_CLUSTERS):
     """NeXtVladModel at the JAX package's defaults (lambda=2, G=8, K=128
-    over all 300 frames masked by num_frames, hidden 1024 with BN and
-    context gating, MoE M=2 over 4716, bf16), weights from a seed, BN
-    statistics and biases drawn."""
+    (or `clusters`) over all 300 frames masked by num_frames, hidden 1024
+    with BN and context gating, MoE M=2 over 4716, bf16), weights from a
+    seed, BN statistics and biases drawn."""
     from yt8m_tpu_torch.models import ModelHParams, get_model
 
     hp = ModelHParams(
         vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=FLAG_FRAMES,
         nextvlad_expansion=NEXTVLAD_LAMBDA, nextvlad_groups=NEXTVLAD_GROUPS,
-        nextvlad_cluster_size=NEXTVLAD_CLUSTERS,
+        nextvlad_cluster_size=clusters,
         nextvlad_hidden_size=NEXTVLAD_HIDDEN, moe_num_mixtures=MIXTURES,
         compute_dtype=dtype,
     )
@@ -3751,12 +3975,17 @@ PER_BATCH.update(F32_PER_BATCH)
 WIDE_CLUSTERS, WIDE_MIXTURES = 1024, 32
 WIDE_FLAGSHIP = (f"NetVladLstmModel --netvlad_cluster_size={WIDE_CLUSTERS} "
                  f"--moe_num_mixtures={WIDE_MIXTURES}")
-WIDE_CHAIN = f"ChainMoeModel --moe_num_mixtures={WIDE_MIXTURES}"
+# One chain stage (the default's depth, 3, cut): M=32 is what it holds.
+WIDE_CHAIN = (f"ChainMoeModel --moe_num_mixtures={WIDE_MIXTURES} "
+              f"--chain_stages=1")
 PLAIN_MOE = "MoeModel --moe_head_pallas=false"
+WIDE_NEXTVLAD_CLUSTERS = 520
+WIDE_NEXTVLAD = f"NeXtVladModel --nextvlad_cluster_size={WIDE_NEXTVLAD_CLUSTERS}"
 PER_BATCH.update({
+    WIDE_NEXTVLAD: {"nextvlad_aggregate": 1, "moe_head_serving": 1},
     WIDE_FLAGSHIP: {"netvlad_aggregate": 1, "lstm_recurrence": LSTM_LAYERS,
                     "moe_head_serving": 1},
-    WIDE_CHAIN: {"moe_head_serving": CHAIN_STAGES},
+    WIDE_CHAIN: {"moe_head_serving": 1},
     PLAIN_MOE: {"moe_head_serving": 0},
 })
 
@@ -3802,10 +4031,15 @@ PATHS = {
         ("netvlad_aggregate", "lstm_recurrence", "moe_head_serving",
          "exact_topk")),
     WIDE_CHAIN: (make_zoo_model("ChainMoeModel",
-                                moe_num_mixtures=WIDE_MIXTURES),
+                                moe_num_mixtures=WIDE_MIXTURES,
+                                chain_stages=1),
                  ("moe_head_serving", "exact_topk")),
     PLAIN_MOE: (make_zoo_model("MoeModel", moe_head_pallas=False),
                 ("exact_topk",)),
+    WIDE_NEXTVLAD: (
+        lambda torch, seed: make_nextvlad_model(
+            torch, seed, clusters=WIDE_NEXTVLAD_CLUSTERS),
+        ("nextvlad_aggregate", "moe_head_serving", "exact_topk")),
 }
 
 
@@ -4271,6 +4505,46 @@ def train_wide_flagship(torch, dev) -> dict:
     return {"launches": launches, "step_ms": step_ms, "peak_gib": peak}
 
 
+def train_wide_nextvlad(torch, dev) -> dict:
+    """NeXtVladModel at K=520 (the wide trainable kernels) trained fused
+    (the default --nextvlad_train_fused) through make_train_step at B=256,
+    its launch counts set to 0 just before the steps and read just after:
+    a finite loss, the step time, one launch each way a step."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_nextvlad_model(torch, seed=0,
+                                clusters=WIDE_NEXTVLAD_CLUSTERS)[1]
+    model = model.to(dev).train()
+    state = TrainState(model, global_batch_size=TRAIN_BATCH)
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=6)
+    wrappers = zero_launches()
+    times, losses = timed_steps(torch, step, state, batch, WIDE_TRAIN_STEPS)
+    launches = read_launches(torch, wrappers)
+    check(all(math.isfinite(x) for x in losses),
+          f"{WIDE_NEXTVLAD} training loss not finite: {losses}")
+    for fn in ("nextvlad_train_forward", "nextvlad_train_backward"):
+        check(launches[fn] == WIDE_TRAIN_STEPS,
+              f"{fn}: {launches[fn]} launches in {WIDE_TRAIN_STEPS} steps, "
+              f"want one a step")
+    step_ms = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("train", f"{WIDE_NEXTVLAD} fused B={TRAIN_BATCH} (bf16, Adam): "
+                 f"losses {[round(x, 4) for x in losses]}, step "
+                 f"{[round(t, 3) for t in times]} ms (median of the last "
+                 f"{WIDE_TRAIN_STEPS - 1}: {step_ms:.3f}); peak memory "
+                 f"{peak:.2f} GiB; launches "
+                 f"{launches['nextvlad_train_forward']} + "
+                 f"{launches['nextvlad_train_backward']}")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak}
+
+
 def train_dbof(torch, dev, dtype="bfloat16") -> dict:
     """DbofModel at bench_train.py's B=512, K=8192: no kernel in training
     (the plain graph), a few steps, a finite loss and the step time; at
@@ -4382,9 +4656,10 @@ def optimizers_card_vs_cpu(torch, dev) -> dict:
     card = make_flagship_model(torch, seed=0)[1].to(dev).train()
     total, _, _, _ = compute_loss(card, batch, get_loss("CrossEntropyLoss"))
     total.backward()
-    init = {n: p.detach().cpu().clone() for n, p in card.named_parameters()}
-    grads = {n: p.grad.detach().cpu().clone()
-             for n, p in card.named_parameters()}
+    # The moves and their differences are taken in float64 on the card:
+    # the same arithmetic as on the host, without its copies.
+    init = {n: p.detach().clone() for n, p in card.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in card.named_parameters()}
     host = make_flagship_model(torch, seed=0)[1].train()
     worst = {}
     for name, mu in NEW_OPTIMIZERS:
@@ -4393,11 +4668,11 @@ def optimizers_card_vs_cpu(torch, dev) -> dict:
             with torch.no_grad():
                 for n, p in model.named_parameters():
                     p.copy_(init[n])
-                    p.grad = grads[n].to(d).clone()
+                    p.grad = grads[n].to(d, copy=True)
             state = TrainState(model, optimizer=name, adam_mu_dtype=mu,
                                global_batch_size=TRAIN_BATCH)
             state.apply_gradients()
-            moves.append({n: p.detach().cpu().double() - init[n].double()
+            moves.append({n: p.detach().to(dev).double() - init[n].double()
                           for n, p in model.named_parameters()})
             del state
         key = name if mu == "float32" else f"{name} mu={mu}"
@@ -4415,6 +4690,7 @@ def optimizers_card_vs_cpu(torch, dev) -> dict:
                      f"CPU on the same gradients: every parameter's move "
                      f"within {err:.3e} of its largest (bound 1e-5 of it "
                      f"plus one f32 step of the weights)")
+        del moves
     del card, host, init, grads, batch
     torch.cuda.empty_cache()
     return worst
@@ -5592,6 +5868,386 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
     return {"launches": launches, "seconds": seconds, "step": step}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving export (infer/export.py) and cli.parity
+# ---------------------------------------------------------------------------
+
+# The paths exported at their serving widths and held, in a fresh process,
+# to the eager serving step at two batch sizes; the rest of the zoo cut to
+# fit the run's time (one recurrent and convolutional layer, 30 frames,
+# 32 VLAD/FV clusters: at the JAX defaults the 27 programs took 19.8 s to
+# export at most (LayerNormLstmModel's unrolled 300-step scan 198.0 s),
+# up to 5.0 GB each, and 133.1 s to load and serve) serving 8 videos.
+EXPORT_PATHS = {
+    "DbofModel": (BATCH, 128),
+    "DbofModel --dbof_int8_serving": (BATCH, 128),
+    "NetVladLstmModel": (FLAG_BATCH, 128),
+    "NeXtVladModel": (FLAG_BATCH, 128),
+}
+EXPORT_ZOO_VIDEOS = 8
+EXPORT_ZOO_CUT = dict(lstm_layers=1, gru_layers=1, cnn_layers=1,
+                      max_frames=30, netvlad_cluster_size=32)
+
+
+def export_zoo_paths() -> dict:
+    """{path: maker} of every registry model not in EXPORT_PATHS at the
+    JAX defaults cut by EXPORT_ZOO_CUT, and the f32 flagship (its LSTM a
+    Python scan the program unrolls)."""
+    from yt8m_tpu_torch.models.registry import list_models
+
+    out = {name: make_zoo_model(name, **EXPORT_ZOO_CUT)
+           for name in list_models() if name not in EXPORT_PATHS}
+    out[f"NetVladLstmModel {F32}"] = make_zoo_model(
+        "NetVladLstmModel", compute_dtype="float32", **EXPORT_ZOO_CUT)
+    return out
+
+
+def our_kernel_names() -> tuple:
+    """The __global__ kernels of the port's CUDA sources."""
+    names = set()
+    csrc = os.path.join(REPO, "yt8m_tpu_torch", "kernels", "csrc")
+    for fname in os.listdir(csrc):
+        with open(os.path.join(csrc, fname)) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", f.read()))
+    return tuple(sorted(names))
+
+
+def kernel_counts(torch, fn) -> dict:
+    """{kernel: launches} of the port's kernels in one call of fn, by the
+    profiler: each kernel's most over windows (a window can lose a kernel,
+    never add one) until two were whole (see bracketed_window), eight at
+    most."""
+    names = our_kernel_names()
+    best, whole_windows = {}, 0
+    for attempt in range(8):
+        prof, whole = bracketed_window(torch, fn, 0.02 * (attempt % 4 + 1))
+        seen = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total <= 0:
+                continue
+            hit = [n for n in names if re.search(rf"\b{n}\b", e.key)]
+            if hit:
+                # Two instances of one template are two keys of a name.
+                key = max(hit, key=len)
+                seen[key] = seen.get(key, 0) + e.count
+        for key, n in seen.items():
+            best[key] = max(best.get(key, 0), n)
+        whole_windows += whole
+        if whole_windows == 2:
+            break
+    return best
+
+
+def export_inputs(torch, path: str, b: int, seed: int, frames: int = 300):
+    """A path's serving inputs at batch b, drawn on the card from a seed
+    (the same tensors in any process)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model_name = path.split()[0]
+    if model_name in VIDEO_LEVEL:
+        feats = torch.rand(b, FEATURE_DIM, device="cuda", generator=g)
+    else:
+        feats = torch.randint(0, 256, (b, frames, FEATURE_DIM), device="cuda",
+                              dtype=torch.uint8, generator=g)
+    nf = torch.randint(1, frames + 1, (b,), device="cuda", dtype=torch.int32,
+                       generator=g)
+    return feats, nf
+
+
+def step_ms(torch, fn, reps=5) -> float:
+    """Median CUDA-event time of fn (a serving call) over reps runs."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def export_path(torch, dev, work, path, make, batches, timed) -> dict:
+    """Export `path` (batch_size=0) and record the eager serving step's
+    top-20 (a generator seeded 0 a call) and launches at each batch size,
+    for the fresh process to hold the program to."""
+    from yt8m_tpu_torch.infer.export import PROGRAM, export_model
+    from yt8m_tpu_torch.infer.predict import make_serving_step
+
+    model_name, *flags = path.split()
+    hp, model = make(torch, seed=0)
+    model = model.to(dev).eval()
+    tag = "_".join(path.replace("-", "").replace("=", "").split())
+    out_dir = os.path.join(work, "export", tag)
+    step = make_serving_step(model, csv_top_k=TOP_K)
+    entry = {"path": path, "dir": out_dir, "batches": list(batches),
+             "timed": timed, "eager": {}, "frames": hp.max_frames}
+    for b in batches:
+        feats, nf = export_inputs(torch, path, b, seed=b,
+                                  frames=hp.max_frames)
+
+        def eager(feats=feats, nf=nf):
+            return step(feats, nf, torch.Generator(device=dev).manual_seed(
+                0))["csv"]
+
+        values, indices = eager()
+        wrappers = zero_launches()
+        eager()
+        launches = {k: v for k, v in read_launches(torch, wrappers).items()
+                    if v}
+        ref = os.path.join(work, "export", f"{tag}_{b}.pt")
+        torch.save({"values": values.cpu(), "indices": indices.cpu()}, ref)
+        entry["eager"][str(b)] = {"ref": ref, "launches": launches}
+        del feats, nf, values, indices
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in model.state_dict().values())
+    t0 = time.perf_counter()
+    export_model(out_dir, model_name, hp, model, batch_size=0, top_k=TOP_K)
+    entry["export_s"] = time.perf_counter() - t0
+    entry["program_bytes"] = os.path.getsize(os.path.join(out_dir, PROGRAM))
+    entry["state_dict_bytes"] = state_bytes
+    say("export", f"{path}: exported in {entry['export_s']:.1f} s (trace "
+                  f"and save), program.pt2 {entry['program_bytes'] / 1e6:.1f}"
+                  f" MB, state dict {state_bytes / 1e6:.1f} MB (x"
+                  f"{entry['program_bytes'] / state_bytes:.3f})")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
+def serve_exports(manifest: str) -> int:
+    """In a fresh process: load each exported program (load_serving),
+    serve its batches, and write beside the manifest each program's top-20
+    equality with the eager step's and its launches a batch; on the timed
+    paths, the eager step rebuilt here from the same seed (its top-20
+    equal to the first process's), and both steps' kernels a batch by the
+    profiler and times (the entry point of the subprocess of
+    export_phase)."""
+    import torch
+
+    from yt8m_tpu_torch.infer.export import load_serving
+    from yt8m_tpu_torch.infer.predict import make_serving_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(manifest) as f:
+        entries = json.load(f)
+    results = []
+    for entry in entries:
+        t0 = time.perf_counter()
+        serve, meta = load_serving(entry["dir"], device="cuda")
+        res = {"path": entry["path"], "load_s": time.perf_counter() - t0,
+               "batch_size": meta["batch_size"], "by_batch": {}}
+        if entry["timed"]:
+            # The eager step again, from the same seed: its kernels and
+            # time are read beside the program's in this young process
+            # (in the long-lived one, the profiler's windows lost the
+            # flagship's NetVLAD launches, eight windows in a row).
+            model = PATHS[entry["path"]][0](torch, seed=0)[1]
+            eager_step = make_serving_step(model.to("cuda").eval(),
+                                           csv_top_k=TOP_K)
+        for b in entry["batches"]:
+            feats, nf = export_inputs(torch, entry["path"], b, seed=b,
+                                      frames=entry["frames"])
+
+            def call(feats=feats, nf=nf):
+                return serve(feats, nf)
+
+            values, indices = call()
+            again = call()
+            ref = torch.load(entry["eager"][str(b)]["ref"])
+            rec = {
+                "equal": bool(torch.equal(values.cpu(), ref["values"])
+                              and torch.equal(indices.cpu(),
+                                              ref["indices"])),
+                "deterministic": bool(torch.equal(values, again[0])
+                                      and torch.equal(indices, again[1])),
+                "max_abs_diff": float((values.cpu() - ref["values"]).abs()
+                                      .max()),
+                "indices_equal": float((indices.cpu() == ref["indices"])
+                                       .float().mean()),
+            }
+            wrappers = zero_launches()
+            call()
+            rec["launches"] = {k: v for k, v in
+                               read_launches(torch, wrappers).items() if v}
+            if entry["timed"]:
+                def eager(feats=feats, nf=nf):
+                    return eager_step(feats, nf, torch.Generator(
+                        device="cuda").manual_seed(0))["csv"]
+
+                ev, ei = eager()
+                rec["eager_equal"] = bool(
+                    torch.equal(ev.cpu(), ref["values"])
+                    and torch.equal(ei.cpu(), ref["indices"]))
+                rec["kernels"] = kernel_counts(torch, call)
+                rec["eager_kernels"] = kernel_counts(torch, eager)
+                rec["ms"] = step_ms(torch, call)
+                rec["eager_ms"] = step_ms(torch, eager)
+                del ev, ei
+            res["by_batch"][str(b)] = rec
+            del feats, nf, values, indices, again
+        results.append(res)
+        if entry["timed"]:
+            del model, eager_step
+        del serve
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(manifest + ".out", "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def trainer_export(torch, dev, work, data) -> dict:
+    """cli.train of DbofModel with --export_model_steps=2 for 2 steps:
+    train_dir/export/step_2 must exist; its eager reference is the step-2
+    checkpoint served by the eager step (8 videos)."""
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.convert import load_model
+    from yt8m_tpu_torch.infer.predict import make_serving_step
+
+    run = os.path.join(work, "export_run")
+    t0 = time.perf_counter()
+    last = train_cli.main([
+        f"--train_data_pattern={data}/train-*.tfrecord", f"--train_dir={run}",
+        "--batch_size=64", "--max_steps=2", "--export_model_steps=2",
+        "--model=DbofModel", "--frame_features=true",
+        "--feature_names=rgb,audio", "--feature_sizes=1024,128",
+        f"--num_classes={CLASSES}", f"--device={dev.type}"])
+    out_dir = os.path.join(run, "export", "step_2")
+    check(last == 2 and os.path.isdir(out_dir),
+          f"cli.train --export_model_steps=2: no {out_dir}")
+    say("export", f"cli.train DbofModel --export_model_steps=2: "
+                  f"{out_dir} written, {time.perf_counter() - t0:.1f} s "
+                  f"with the 2 steps")
+    with open(os.path.join(run, "model_flags.json")) as f:
+        flags = json.load(f)
+    from yt8m_tpu_torch.models import ModelHParams
+
+    hp = ModelHParams(**{k: v for k, v in flags["hparams"].items()})
+    model = load_model(run, "DbofModel", hp, dev)
+    step = make_serving_step(model, csv_top_k=TOP_K)
+    feats, nf = export_inputs(torch, "DbofModel", EXPORT_ZOO_VIDEOS,
+                              seed=EXPORT_ZOO_VIDEOS)
+    values, indices = step(feats, nf, torch.Generator(device=dev).manual_seed(
+        0))["csv"]
+    ref = os.path.join(work, "export", "trainer_step_2.pt")
+    torch.save({"values": values.cpu(), "indices": indices.cpu()}, ref)
+    del model, step
+    torch.cuda.empty_cache()
+    return {"path": "DbofModel", "dir": out_dir, "frames": 300,
+            "batches": [EXPORT_ZOO_VIDEOS], "timed": False,
+            "eager": {str(EXPORT_ZOO_VIDEOS): {"ref": ref, "launches": {}}}}
+
+
+def export_phase(torch, dev, work, data) -> dict:
+    """Phase 9's export half: the EXPORT_PATHS at their serving widths,
+    the zoo at a small depth and the trainer's periodic export, all
+    served by a fresh python3 process; each program's top-20 must equal
+    the eager step's (a generator seeded 0), bit for bit, with the same
+    launches a batch (and, on the timed paths, the same kernels a batch
+    by the profiler); eager and exported videos/s beside each other."""
+    os.makedirs(os.path.join(work, "export"), exist_ok=True)
+    entries = [export_path(torch, dev, work, path, PATHS[path][0], batches,
+                           True)
+               for path, batches in EXPORT_PATHS.items()]
+    for path, make in export_zoo_paths().items():
+        entries.append(export_path(torch, dev, work, path, make,
+                                   (EXPORT_ZOO_VIDEOS,), False))
+    entries.append(trainer_export(torch, dev, work, data))
+    manifest = os.path.join(work, "export", "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump(entries, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.serve_exports(sys.argv[1]))", manifest],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the fresh serving process failed "
+                                f"({proc.returncode}): {proc.stderr[-3000:]}")
+    with open(manifest + ".out") as f:
+        results = json.load(f)
+    say("export", f"the fresh process loaded and served {len(results)} "
+                  f"programs in {time.perf_counter() - t0:.1f} s")
+    summary = {}
+    for entry, res in zip(entries, results):
+        path = entry["path"]
+        for b, rec in res["by_batch"].items():
+            eager = entry["eager"][b]
+            check(rec["equal"], f"exported {path} B={b}: top-20 differs from "
+                                f"the eager step's (max|diff| "
+                                f"{rec['max_abs_diff']:.3e}, indices equal "
+                                f"{rec['indices_equal']:.4f})")
+            check(rec["deterministic"], f"exported {path} B={b}: two calls "
+                                        f"differ")
+            if entry["timed"]:
+                check(rec["launches"] == eager["launches"],
+                      f"exported {path} B={b}: launches {rec['launches']}, "
+                      f"eager {eager['launches']}")
+                check(rec["eager_equal"],
+                      f"{path} B={b}: the eager step rebuilt in the fresh "
+                      f"process gives another top-20")
+                check(rec["kernels"] == rec["eager_kernels"],
+                      f"exported {path} B={b}: kernels {rec['kernels']}, "
+                      f"eager {rec['eager_kernels']}")
+                eager_ms = rec["eager_ms"]
+                say("export", f"{path} B={b}: exported = eager bit for bit; "
+                              f"launches {rec['launches']}; kernels "
+                              f"{rec['kernels']}; eager {eager_ms:.3f} ms "
+                              f"({int(b) / eager_ms * 1e3:.0f} videos/s), "
+                              f"exported {rec['ms']:.3f} ms "
+                              f"({int(b) / rec['ms'] * 1e3:.0f} videos/s)")
+                summary.setdefault(path, {
+                    "export_s": entry["export_s"],
+                    "program_mb": entry["program_bytes"] / 1e6,
+                    "state_dict_mb": entry["state_dict_bytes"] / 1e6,
+                    "load_s": res["load_s"]})[f"B={b}"] = {
+                        "eager_ms": eager_ms, "exported_ms": rec["ms"],
+                        "launches": rec["launches"]}
+        if not entry["timed"]:
+            summary.setdefault("zoo", {})[path] = {
+                "export_s": entry.get("export_s"),
+                "program_mb": entry.get("program_bytes", 0) / 1e6}
+    say("export", "the rest of the zoo (one recurrent layer), "
+                  f"{EXPORT_ZOO_VIDEOS} videos each, exported = eager bit "
+                  "for bit; export seconds: " + ", ".join(
+                      f"{p} {r['export_s']:.1f}"
+                      for p, r in summary["zoo"].items()
+                      if r["export_s"] is not None))
+    say("export", "summary " + json.dumps(summary))
+    shutil.rmtree(os.path.join(work, "export"), ignore_errors=True)
+    return summary
+
+
+def parity_phase(work, data) -> dict:
+    """cli.parity on the workflow's inference CSV against itself, with the
+    eval labels from the TFRecords: every delta 0, pass, exit 0."""
+    import io
+    from contextlib import redirect_stdout
+
+    from yt8m_tpu_torch.cli import parity
+
+    csv_path = os.path.join(work, "workflow.csv")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = parity.main([f"--reference_predictions={csv_path}",
+                          f"--our_predictions={csv_path}",
+                          f"--labels={data}/validate-*.tfrecord",
+                          f"--num_classes={CLASSES}", f"--top_k={TOP_K}"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and report["pass"] and report["videos_compared"]
+          == WF_EVAL_VIDEOS and all(v == 0 for v in report["delta"].values()),
+          f"cli.parity of the workflow CSV against itself: rc {rc}, {report}")
+    say("parity", f"cli.parity workflow.csv vs itself over "
+                  f"{report['videos_compared']} videos: GAP "
+                  f"{report['ours']['gap']:.6f}, every delta 0, exit {rc}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -5714,6 +6370,7 @@ def main() -> int:
                     train_zoo(torch, dev, "NetFVModel"),
                     train_zoo(torch, dev, "FrameCnnModel")]
     wide_training = train_wide_flagship(torch, dev)
+    wide_nextvlad = train_wide_nextvlad(torch, dev)
     optimizers = train_optimizers(torch, dev)
     optimizers_cmp = optimizers_card_vs_cpu(torch, dev)
     say("train", f"DbofModel f32 step {dbof_f32['step_ms']:.3f} ms; "
@@ -5766,9 +6423,12 @@ def main() -> int:
         phase_done("7 workflows")
         readers = reader_phase(torch, dev, work)
         ensembles = ensemble_workflow(torch, dev, work, data)
+        phase_done("8 readers and the ensemble workflow")
+        exports = export_phase(torch, dev, work, data)
+        parity_phase(work, data)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    phase_done("8 readers and the ensemble workflow")
+    phase_done("9 export and parity")
     # Launches on the main paths: DBoF's on the DbofModel serving path,
     # the int8 DBoF's on DbofModel's with --dbof_int8_serving (DBoF v1,
     # the sampled DBoF and dequant_affine_matmul lie on no model's path,
@@ -5794,7 +6454,7 @@ def main() -> int:
     path_runs = [r["launches"] for r in (*e2e.values(), *steps, training,
                                          fused, gru_training,
                                          nextvlad_training, *zoo_training,
-                                         wide_training)]
+                                         wide_training, wide_nextvlad)]
     for run in (default, workflow, *short_runs, adafactor, ensembles):
         path_runs += list(run["launches"].values())
     served = ensembles["launches"]["serve ensemble"]

@@ -1518,15 +1518,66 @@ def test_cuda_nextvlad_train_differs_only_by_bf16_rounding(cuda):
         _close(got, ref)
 
 
-def test_cuda_nextvlad_rejects_what_the_kernel_cannot_take(cuda):
+def test_cuda_nextvlad_rejects_what_the_kernel_cannot_take(cuda,
+                                                         monkeypatch):
+    """K = 300 serves (the refusal moved from K = 257 to above
+    max_clusters(), here lowered to 299 to reach it); packed rows that
+    overflow the index, a bad dtype and f32 compute raise."""
     args = _nextvlad_args(1, 2, 5, 16, 2, 1, 300, torch.uint8, cuda)
-    with pytest.raises(ValueError, match="K <= 256"):
+    assert tnv.nextvlad_aggregate(*args, 1).shape == (2, 300, 32)
+    monkeypatch.setattr(tnv, "max_clusters", lambda: 299)
+    with pytest.raises(ValueError, match="K <= 299"):
         tnv.nextvlad_aggregate(*args, 1)
+    monkeypatch.undo()
+    x, nf, *w = _nextvlad_args(1, 2, 5, 8, 2, 1, 300, torch.uint8, cuda)
+    big = torch.zeros(65535, 103, 8, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="more packed rows"):
+        tnv.nextvlad_aggregate(big, nf.new_ones(65535), *w, 1)
     args = _nextvlad_args(1, 2, 5, 16, 2, 4, 12, torch.uint8, cuda)
     with pytest.raises(ValueError, match="dtype"):
         tnv.nextvlad_aggregate(args[0].double(), *args[1:], 4)
     with pytest.raises(ValueError, match="bfloat16"):
         tnv.nextvlad_aggregate(*args, 4, torch.float32)
+
+
+@pytest.mark.parametrize("k", [264, 520, 1000])
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_cuda_nextvlad_any_clusters(cuda, x_dtype, k):
+    """K > 256 (the Logits launch, the wide softmax, the wide d_assign
+    and its row VJP): serving and the trainable pair against the plain
+    versions within 2^-7 * max|ref|, one launch each way, a second run
+    bit for bit; a NaN-filled logits scratch leaves no NaN (the pads and
+    the rows that are not live are written, never read)."""
+    b, f, d, lam, g = 6, 70, 64, 2, 8
+    args = _nextvlad_args(k, b, f, d, lam, g, k, x_dtype, cuda)
+    p = lam * d // g
+    before = tnv.nextvlad_aggregate.launches
+    got = tnv.nextvlad_aggregate(*args, g)
+    assert tnv.nextvlad_aggregate.launches == before + 1
+    assert got.shape == (b, k, p) and torch.all(got[1] == 0)
+    _nextvlad_close(got, tnv.nextvlad_aggregate_plain(*args, g))
+    x, nf, *w = args
+    layout = tnv.kernel_layout(*w, g)
+    real_empty = torch.empty
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(torch, "empty", lambda *a, **kw: real_empty(
+        *a, **kw).fill_(float("nan")) if kw.get("dtype", torch.float32)
+        == torch.float32 else real_empty(*a, **kw))
+    try:
+        nan_run, _ = tnv.launch_forward(x, nf, layout)
+    finally:
+        monkey.undo()
+    assert torch.equal(nan_run, got)
+    dy = torch.randn(b, k, p, generator=torch.Generator().manual_seed(k)).to(
+        cuda)
+    out, grads = _nextvlad_train_grads(args, g, dy)
+    _nextvlad_close(out, tnv.nextvlad_aggregate_plain(*args, g))
+    want = tnvt.nextvlad_aggregate_train_plain_backward(*args, dy, g)
+    for a, ref in zip(grads, want):
+        assert a.shape == ref.shape and torch.isfinite(a).all()
+        _nextvlad_close(a, ref)
+    for a, c in zip(grads, _nextvlad_train_grads(args, g, dy)[1]):
+        assert torch.equal(a, c)
 
 
 def test_cuda_nextvlad_model_matches_cpu(cuda):
@@ -1950,6 +2001,11 @@ def test_cuda_nextvlad_plans_match_the_kernels(cuda):
             got["wgrad_smem"]) == (p["expand"]["smem"],
                                    p["aggregate"]["smem"], p["dxg"]["smem"],
                                    p["wgrad_we"]["smem"])
+    wide = tnv.plan(nf, 7, 64, 128, 4, 520, sms=got["sms"])  # Kp = 576
+    assert got["wide_clusters"] == wide["cluster"]["cols"] == 256
+    assert got["logits_stages"] == tnv.STAGES
+    assert got["logits_smem"] == wide["cluster"]["smem"]
+    assert got["dassign_smem_256"] == wide["dassign"]["smem"]
 
 
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
@@ -2421,3 +2477,105 @@ def test_cuda_netvlad_core_any_clusters(cuda, b, f, d, k):
     nf = args[2]
     past = torch.arange(f, device=cuda)[None, :] >= nf[:, None]
     assert torch.all(got[1][past] == 0) and torch.all(got[2][past] == 0)
+
+
+# ---------------------------------------------------------------------------
+# The serving kernels as custom operators (kernels/ops.py) and the export.
+# ---------------------------------------------------------------------------
+
+
+def _op_args(name, dev):
+    """Each operator's arguments at a small shape its kernel takes, on the
+    card (bf16 weights: the bf16 routes; `f32` names the f32 routes)."""
+    from yt8m_tpu_torch.kernels import ops  # noqa: F401  (registers)
+
+    if name == "dbof_maxpool":
+        return _dbof_args(1, 6, 5, 64, 64, torch.uint8, dev)
+    if name == "dbof_maxpool:f32":
+        x, w, *vec = _dbof_args(1, 6, 5, 64, 64, torch.uint8, dev)
+        return [x, w.float(), *vec]
+    if name == "dbof_maxpool_int8":
+        return _int8_args(2, 7, 5, 64, 200, dev)
+    if name == "moe_head":
+        return [*_moe_args(3, 16, 64, 40, 2, dev), 2]
+    if name == "moe_head:f32":
+        return [*_f32_moe_args(3, 16, 64, 40, 2, dev), 2]
+    if name == "topk":
+        return [torch.randn(9, 4716, generator=torch.Generator().manual_seed(
+            4)).to(dev), 20]
+    if name in ("netvlad", "netvlad:f32"):
+        x, nf, wc, *rest = _vlad_args(5, 6, 70, 256, 64, torch.uint8, dev)
+        return [x, nf, wc.float() if name.endswith("f32") else wc, *rest]
+    if name == "lstm":
+        return [*_lstm_args(6, 12, 5, 128, dev), False]
+    if name == "gru":
+        return [*_gru_args(7, 12, 5, 128, dev), True]
+    if name in ("attention_pool", "attention_pool:f32"):
+        x, nf, q = _attention_args(8, 5, 40, 128, 4, torch.uint8, dev)
+        return [x, nf, q.float() if name.endswith("f32") else q]
+    if name == "nextvlad":
+        x, nf, *w = _nextvlad_args(9, 3, 10, 16, 2, 4, 12, torch.uint8, dev)
+        lay = tnv.kernel_layout(*w, 4)
+        return [x, nf, *w, 4, torch.bfloat16,
+                [lay["we"], lay["wc"], lay["wa"]]]
+    if name == "frame_uniform":
+        return [torch.zeros(6, 300, 8, dtype=torch.uint8, device=dev), 30, 0]
+    raise KeyError(name)
+
+
+OP_CASES = ["dbof_maxpool", "dbof_maxpool:f32", "dbof_maxpool_int8",
+            "moe_head", "moe_head:f32", "topk", "netvlad", "netvlad:f32",
+            "lstm", "gru", "attention_pool", "attention_pool:f32",
+            "nextvlad", "frame_uniform"]
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+def test_cuda_opcheck_serving_ops(cuda, case):
+    """torch.library.opcheck on each serving operator with card tensors:
+    its schema, its autograd registration, its fake implementation
+    against the kernel's outputs, and its trace under a dynamic shape."""
+    from yt8m_tpu_torch.kernels import ops
+
+    op = ops.SERVING_OPS[case.split(":")[0]]
+    args = _op_args(case, cuda)
+    torch.library.opcheck(op, args)
+
+
+def test_cuda_exported_dbof_model_serves_as_eager(cuda, tmp_path):
+    """DbofModel at small widths exported with a dynamic batch on the
+    card, loaded back, serving B = 5 and 64: the top-k of the eager step
+    with a generator seeded 0, bit for bit, with the same launches a
+    batch; two calls give the same bits."""
+    from yt8m_tpu_torch.infer.export import export_model, load_serving
+    from yt8m_tpu_torch.infer.predict import make_serving_step
+
+    hp = ModelHParams(vocab_size=300, feature_dim=64, max_frames=40,
+                      dbof_cluster_size=256, dbof_hidden_size=64,
+                      iterations=12, moe_num_mixtures=2)
+    model = get_model("DbofModel", hp)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    export_model(str(tmp_path / "dbof"), "DbofModel", hp, model)
+    serve, meta = load_serving(str(tmp_path / "dbof"), cuda)
+    assert meta["batch_size"] == 0 and meta["device"].startswith("cuda")
+    step = make_serving_step(model, csv_top_k=20)
+    g = torch.Generator().manual_seed(1)
+    for b in (5, 64):
+        x = torch.randint(0, 256, (b, 40, 64), generator=g,
+                          dtype=torch.uint8).to(cuda)
+        nf = torch.randint(1, 41, (b,), generator=g,
+                           dtype=torch.int32).to(cuda)
+        before = (tdbof.dbof_cluster_maxpool_v2.launches,
+                  tmoe.moe_head_serving.launches, ttopk.exact_topk.launches)
+        got = serve(x, nf)
+        mid = (tdbof.dbof_cluster_maxpool_v2.launches,
+               tmoe.moe_head_serving.launches, ttopk.exact_topk.launches)
+        want = step(x, nf, torch.Generator(device=cuda).manual_seed(0))["csv"]
+        after = (tdbof.dbof_cluster_maxpool_v2.launches,
+                 tmoe.moe_head_serving.launches, ttopk.exact_topk.launches)
+        assert [m - a for m, a in zip(mid, before)] == [1, 1, 1]
+        assert [c - m for c, m in zip(after, mid)] == [1, 1, 1]
+        assert got[0].is_cuda and torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        again = serve(x, nf)
+        assert torch.equal(again[0], got[0])

@@ -538,3 +538,344 @@ def test_flagship_at_520_clusters_and_17_mixtures_matches_jax(dtype,
 
     zoo._compare("NetVladLstmModel", dtype, monkeypatch,
                  netvlad_cluster_size=520, moe_num_mixtures=17)
+
+
+# ---------------------------------------------------------------------------
+# NeXtVLAD at K > 256 (rows 15 and 16).
+# ---------------------------------------------------------------------------
+
+from yt8m_tpu.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE  # noqa: E402
+from yt8m_tpu.kernels.nextvlad import (  # noqa: E402
+    nextvlad_aggregate as jax_nextvlad,
+)
+from yt8m_tpu.kernels.nextvlad_train import (  # noqa: E402
+    nextvlad_aggregate_train as jax_nextvlad_train,
+)
+from yt8m_tpu_torch.kernels import nextvlad as tnv  # noqa: E402
+from yt8m_tpu_torch.kernels import nextvlad_train as tnvt  # noqa: E402
+
+NXV_B, NXV_F, NXV_D, NXV_LAM, NXV_G = 4, 10, 16, 2, 4
+NXV_FRAMES = np.array([10, 4, 1, 0], np.int32)
+NXV_BF16 = 3e-3  # tests/test_torch_nextvlad*.py's bound
+
+
+def _nxv_inputs(seed, x_dtype, k):
+    rng = np.random.default_rng(seed)
+    d, g = NXV_D, NXV_G
+    de = NXV_LAM * d
+    if x_dtype == "uint8":
+        x = rng.integers(0, 256, size=(NXV_B, NXV_F, d), dtype=np.uint8)
+    else:
+        x = rng.normal(size=(NXV_B, NXV_F, d)).astype(np.float32)
+    w = [rng.normal(0, 0.1, shape).astype(np.float32) for shape in
+         ((d, de), (de, g), (g,), (de, g * k), (k, de // g))]
+    return x, NXV_FRAMES, w
+
+
+@pytest.mark.parametrize("x_dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("k", [264, 520])
+def test_nextvlad_plain_matches_jax_kernel_at_many_clusters(k, x_dtype):
+    """The plain serving version against JAX's kernel in interpret mode:
+    3e-3 * max(1, max|ref|), the bound of tests/test_torch_nextvlad.py,
+    on the rows whose pre-norm length is not tiny (its angular check on
+    those)."""
+    import test_torch_nextvlad as serving
+
+    x, nf, w = _nxv_inputs(k + len(x_dtype), x_dtype, k)
+    jargs = [jnp.asarray(v) for v in (x, nf, *w)]
+    want = np.asarray(jax_nextvlad(*jargs, groups=NXV_G, interpret=True))
+    prenorm = np.linalg.norm(np.asarray(
+        serving.nextvlad_aggregate_reference(*jargs, groups=NXV_G,
+                                             normalize=False)), axis=2)
+    got = tnv.nextvlad_aggregate(*map(torch.from_numpy, (x, nf, *w)),
+                                 NXV_G).numpy()
+    assert got.shape == want.shape == (NXV_B, k, NXV_LAM * NXV_D // NXV_G)
+    serving._hold(got, want, prenorm)
+    assert np.all(got[3] == 0)
+
+
+@pytest.mark.parametrize("x_dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("k", [264, 520])
+def test_nextvlad_train_plain_matches_jax_at_many_clusters(k, x_dtype):
+    """The trainable forward and the plain VJP against JAX's
+    nextvlad_aggregate_train (its kernels in interpret mode): the forward
+    and the five weight gradients within 3e-3 * max(1, max|ref|). Both
+    get the frames the port dequantized (the interpret kernel contracts
+    the dequantization into one FMA; tests/test_torch_nextvlad_train.py
+    holds the port's uint8 path to its path on those frames)."""
+    x, nf, w = _nxv_inputs(k + 7, x_dtype, k)
+    p = NXV_LAM * NXV_D // NXV_G
+    dy = np.random.default_rng(k).normal(size=(NXV_B, k, p)).astype(
+        np.float32)
+    xj = x if x_dtype == "float32" else tnv.dequantized(
+        torch.from_numpy(x)).numpy()
+    fwd, vjp = jax.vjp(
+        lambda *ws: jax_nextvlad_train(jnp.asarray(xj), jnp.asarray(nf), *ws,
+                                       NXV_G, DEQUANT_SCALE, DEQUANT_BIAS,
+                                       True, jnp.bfloat16),
+        *map(jnp.asarray, w))
+    want = [np.asarray(v) for v in vjp(jnp.asarray(dy))]
+    t = [torch.from_numpy(v) for v in (xj, nf, *w)]
+    ws = [v.clone().requires_grad_() for v in t[2:]]
+    out = tnvt.nextvlad_aggregate_train(t[0], t[1], *ws, NXV_G)
+    (out * torch.from_numpy(dy)).sum().backward()
+    _close(out.detach().numpy(), np.asarray(fwd), NXV_BF16, 0)
+    for got, ref, v in zip((v.grad for v in ws), want, w):
+        assert got.shape == v.shape
+        err, top = _err(got.numpy(), ref)
+        assert err <= NXV_BF16 * max(1.0, top), err
+
+
+def nextvlad_wide_forward(args, g):
+    """csrc/nextvlad.cu's K > 256 launches 2a and 2b in plain PyTorch over
+    the packed rows: the logits of each (128-row tile, group, 256
+    clusters) tile in 64-deep stages (columns past K not written), alpha
+    in each group's first cluster tile; then a (64-row half tile, group)
+    at a time: each live row's max and sum of exponentials over K, the
+    softmax, bf16(assign), zeros past K and on rows that are not live,
+    and one column-sum partial a (video, half tile). -> (sm, assign,
+    partials, a_sum from the partials, the plan)."""
+    import test_torch_nextvlad_tiles as tiles
+
+    x, nf, *w = args
+    b, f, d = x.shape
+    k = w[3].shape[1] // g
+    fw = tnv.forward_plain(*args, g)
+    lay = tnv.kernel_layout(*w, g)
+    n = lay["dims"]
+    kp, pp, p_ = n["Kp"], n["Pp"], n["P"]
+    p = tnv.plan(nf, f, d, w[0].shape[1], g, k)
+    assert p["wide"] and p["cluster"]["cluster_tiles"] == -(-kp // 256)
+    info = tnv.packed_info(nf, f, g)
+    xe = tiles._pack(torch.nn.functional.pad(
+        fw["xe"].reshape(b, f, g, p_), (0, pp - p_)).reshape(b, f, -1),
+        nf, p)
+    wc, wa = lay["wc"].float(), lay["wa"].float()
+    logits = torch.full((p["cap"], g * kp), float("nan"))
+    alpha = torch.full((p["cap"], g), float("nan"))
+    for t in range(p["cluster"]["tiles"]):
+        nkt = p["cluster"]["cluster_tiles"]
+        rt, gg, ct = t // (g * nkt), (t // nkt) % g, t % nkt
+        rows = slice(rt * tnv.TILE, (rt + 1) * tnv.TILE)
+        c0 = gg * kp + ct * 256
+        cols = slice(c0, c0 + min(256, k - ct * 256))
+        acc = torch.zeros(tnv.TILE, cols.stop - cols.start)
+        dots = torch.zeros(tnv.TILE)
+        for d0 in range(0, g * pp, tnv.DEPTH):
+            acc += xe[rows, d0:d0 + tnv.DEPTH] @ wc[d0:d0 + tnv.DEPTH, cols]
+            dots += xe[rows, d0:d0 + tnv.DEPTH] @ wa[gg, d0:d0 + tnv.DEPTH]
+        logits[rows, cols] = acc
+        if ct == 0:
+            alpha[rows, gg] = torch.sigmoid(dots + lay["ab"][gg])
+    sm = torch.full_like(logits, float("nan"))
+    assign = torch.full_like(logits, float("nan"))
+    part = torch.full((b, p["J"], g, kp), float("nan"))
+    for hf in range(p["softmax"]["grid"][0]):
+        if hf >= p["softmax"]["blocks"] // g:
+            continue
+        rows = slice(hf * tnv.HALF, (hf + 1) * tnv.HALF)
+        live = info[rows] >= 0
+        for gg in range(g):
+            cols = slice(gg * kp, gg * kp + k)
+            lg = torch.where(live[:, None], logits[rows, cols], 0.0)
+            e = torch.exp(lg - lg.amax(1, keepdim=True))
+            s = torch.where(live[:, None], e / e.sum(1, keepdim=True), 0.0)
+            a = s * torch.where(live, alpha[rows, gg], 0.0)[:, None]
+            st, at = torch.zeros(tnv.HALF, kp), torch.zeros(tnv.HALF, kp)
+            st[:, :k], at[:, :k] = s, a
+            sm[rows, gg * kp:(gg + 1) * kp] = st
+            assign[rows, gg * kp:(gg + 1) * kp] = at.to(torch.bfloat16).float()
+            videos = [int(v) if v >= 0 else -1 - int(v) for v in info[rows]]
+            for v in sorted(set(videos)):
+                if v < b:
+                    mask = torch.tensor([u == v for u in videos])
+                    slot = hf - int(p["poff"][v]) // tnv.HALF
+                    part[v, slot, gg] = at[mask].sum(0)
+    a_sum = torch.zeros(b, kp)
+    for v in range(b):
+        r0, r1 = int(p["poff"][v]), int(p["poff"][v + 1])
+        for j in range((r1 - 1) // 64 - r0 // 64 + 1 if r1 > r0 else 0):
+            a_sum[v] += part[v, j].sum(0)
+    return {"sm": sm, "assign": assign, "a_sum": a_sum[:, :k], "info": info,
+            "plan": p, "fw": fw, "alpha": alpha}
+
+
+def _nxv_live(t, info, g, width, k):
+    end = info.numel()
+    return t[:end].reshape(end, g, width)[info >= 0][..., :k]
+
+
+@pytest.mark.parametrize("g,k", [(4, 264), (2, 520), (1, 300)])
+def test_nextvlad_wide_forward_tiling_equals_the_plain_version(g, k):
+    """The wide launches against forward_plain: the f32 softmax and a_sum
+    within 1e-5 * max|ref| + 1e-6 (f32 sums in another order: the inputs
+    are tests/test_torch_nextvlad_tiles.py's exact ones, so xe and the
+    logits are exact), the bf16 assignment within one bf16 step, pads and
+    rows that are not live exactly zero."""
+    import test_torch_nextvlad_tiles as tiles
+
+    b, f, d, lam = 3, 11, 16, 2
+    args = tiles._exact_args(g + k, b, f, d, lam, g, k)
+    out = nextvlad_wide_forward(args, g)
+    fw, info = out["fw"], out["info"]
+    kp = tnv.dims(d, lam * d, g, k)["Kp"]
+    live = fw["live"].reshape(-1)
+    want_sm = fw["sm"].reshape(b * f, g, k)[live]
+    _close(_nxv_live(out["sm"], info, g, kp, k).numpy(), want_sm.numpy(),
+           1e-5, 1e-6)
+    _close(out["a_sum"].numpy(), fw["a_sum"].numpy(), 1e-5, 1e-6)
+    got = _nxv_live(out["assign"], info, g, kp, k)
+    want = fw["assign"].reshape(b * f, g, k)[live].to(torch.bfloat16).float()
+    assert torch.all((got - want).abs() <= 2.0 ** -7 * torch.maximum(
+        got.abs(), want.abs()))
+    end = info.numel()
+    dead = info < 0
+    assert torch.all(out["assign"][:end][dead] == 0)
+    pads = out["sm"][:end].reshape(end, g, kp)[..., k:]
+    assert torch.all(pads == 0)
+
+
+def nextvlad_wide_backward(args, g, dy):
+    """csrc/nextvlad_train.cu's K > 256 launches 2a and 2b in plain
+    PyTorch: d_assign - cdot over (video tile of 128 (frame, group) rows,
+    256 clusters) tiles in 64-deep stages into a [rows G, Kp] f32
+    scratch, then a row at a time the softmax and sigmoid VJPs over the
+    row's Kp clusters. -> (d_act [rows G, Kp], d_pre [rows G], steps)."""
+    import test_torch_nextvlad_tiles as tiles
+
+    x, nf, *w = args
+    b, f, d = x.shape
+    k = w[3].shape[1] // g
+    fw = tnv.forward_plain(*args, g)
+    st = tnvt.plain_backward_steps(*args, dy, g, fw=fw)
+    n = tnv.dims(d, w[0].shape[1], g, k)
+    kp, pp, p_ = n["Kp"], n["Pp"], n["P"]
+    p = tnv.plan(nf, f, d, w[0].shape[1], g, k)
+    assert p["wide"] and p["dassign"]["cluster_tiles"] == -(-kp // 256)
+    info = tnv.packed_info(nf, f, g)
+
+    def padded(t, width, inner):
+        t = t.reshape(b, f, g, inner)
+        return torch.nn.functional.pad(t, (0, width - inner)).reshape(
+            b, f, g * width)
+
+    xg = tiles._pack(padded(fw["xe"], pp, p_), nf, p).reshape(-1, pp)
+    sm = tiles._pack(padded(torch.where(fw["live"][..., None, None],
+                                        fw["sm"], 0.0), kp, k),
+                     nf, p).reshape(-1, kp)
+    alpha = tiles._pack(fw["alpha"], nf, p).reshape(-1)
+    dvb = torch.zeros(b, kp, pp)
+    dvb[:, :k, :p_] = st["dvb"]
+    cdot = torch.zeros(b, kp)
+    cdot[:, :k] = st["cdot"]
+    toff = tnvt.video_tiles(p["poff"], g)
+    nkt = p["dassign"]["cluster_tiles"]
+    assert p["dassign"]["tiles"] == int(toff[-1]) * nkt
+    dasg = torch.full((p["cap"] * g, kp), float("nan"))
+    for t in range(p["dassign"]["tiles"]):
+        vt, ct = divmod(t, nkt)
+        v = int(torch.searchsorted(toff, torch.tensor(vt, dtype=torch.int32),
+                                   right=True)) - 1
+        run_end = int(p["poff"][v + 1]) * g
+        r0 = int(p["poff"][v]) * g + (vt - int(toff[v])) * tnv.TILE
+        r1 = min(r0 + tnv.TILE, run_end)
+        cols = slice(ct * 256, min((ct + 1) * 256, kp))
+        acc = torch.zeros(r1 - r0, cols.stop - cols.start)
+        for d0 in range(0, pp, tnv.DEPTH):
+            acc += xg[r0:r1, d0:d0 + tnv.DEPTH] @ dvb[v, cols,
+                                                       d0:d0 + tnv.DEPTH].T
+        dasg[r0:r1, cols] = acc - cdot[v, cols]
+    rows = p["total"] * g
+    assert p["dassign"]["vjp_blocks"] * 8 >= rows
+    da, s = dasg[:rows], sm[:rows]
+    al = alpha[:rows, None]
+    live = (info[torch.arange(rows) // g] >= 0)[:, None]
+    dal = torch.sum(da * s, 1, keepdim=True)
+    tt = torch.sum(s * (da * al), 1, keepdim=True)
+    d_act = torch.where(live, s * (da * al - tt), 0.0)
+    d_pre = torch.where(live, dal * al * (1.0 - al), 0.0)[:, 0]
+    return d_act, d_pre, st, info
+
+
+@pytest.mark.parametrize("g,k", [(4, 264), (2, 520)])
+def test_nextvlad_wide_backward_tiling_equals_the_plain_steps(g, k):
+    """The wide d_assign tiles and the row VJP against
+    plain_backward_steps on the live rows: 1e-5 * max|ref| + 1e-6 (f32
+    order); pad rows exactly zero."""
+    import test_torch_nextvlad_tiles as tiles
+
+    b, f, d, lam = 3, 11, 16, 2
+    args = tiles._exact_args(g + k + 1, b, f, d, lam, g, k)
+    dy = torch.randn(b, k, lam * d // g,
+                     generator=torch.Generator().manual_seed(k))
+    d_act, d_pre, st, info = nextvlad_wide_backward(args, g, dy)
+    kp = tnv.dims(d, lam * d, g, k)["Kp"]
+    end = d_act.shape[0] // g  # the packed total
+    info = info[:end]
+    got = d_act.reshape(end, g, kp)
+    live = st["d_act"].reshape(b * f, g, k)[
+        (torch.arange(f)[None, :] < args[1][:, None]).reshape(-1)]
+    _close(got[info >= 0][..., :k].numpy(), live.numpy(), 1e-5, 1e-6)
+    assert torch.all(got[info >= 0][..., k:] == 0)
+    assert torch.all(got[info < 0] == 0)
+    want_pre = st["d_pre"].reshape(b * f, g)[
+        (torch.arange(f)[None, :] < args[1][:, None]).reshape(-1)]
+    _close(d_pre.reshape(end, g)[info >= 0].numpy(),
+           want_pre.numpy(), 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("k", [257, 264, 520, 1000, 1600])
+def test_nextvlad_plan_at_many_clusters(k):
+    """The wide plan at the serving (B = 512) and training (B = 256)
+    shapes: the logits launch's tiles and shared memory, the softmax and
+    VJP grids, the dassign tiles; K <= 256 keeps its launches."""
+    for b in (512, 256):
+        nf = torch.from_numpy(np.random.default_rng(b).integers(
+            1, 301, size=b).astype(np.int32))
+        p = tnv.plan(nf, 300, 1152, 2304, 8, k)
+        kp = -(-k // 64) * 64
+        assert p["wide"] and p["cluster"]["groups"] == 1
+        assert p["cluster"]["cols"] == 256
+        assert p["cluster"]["cluster_tiles"] == -(-kp // 256)
+        assert p["cluster"]["tiles"] == p["row_tiles"] * 8 * -(-kp // 256)
+        assert p["cluster"]["smem"] <= SMEM_LIMIT
+        assert 0 < p["cluster"]["grid"] <= tnv.SMS
+        assert p["softmax"]["grid"] == (-(-p["cap"] // 64), 8)
+        assert p["softmax"]["blocks"] <= p["softmax"]["grid"][0] * 8
+        assert p["softmax"]["logits_floats"] == p["cap"] * 8 * kp
+        assert p["dassign"]["smem"] <= SMEM_LIMIT
+        assert p["dassign"]["box_v"] == (64, 256)
+        assert p["dassign"]["vjp_blocks"] * 8 >= p["cap"] * 8
+        assert tnv.indexable(b, 300, 8, 288, kp)
+    narrow = tnv.plan(nf, 300, 1152, 2304, 8, 256)
+    assert not narrow["wide"] and narrow["softmax"] is None
+
+
+def test_nextvlad_plan_at_264_clusters():
+    """K = 264 at the reference widths: the plan the card refused before
+    (the wrapper raised at K > 256). Kp = 320, two cluster tiles a group,
+    three aggregation cluster tiles of 128."""
+    nf = torch.full((512,), 300, dtype=torch.int32)
+    p = tnv.plan(nf, 300, 1152, 2304, 8, 264)
+    assert p["wide"] and p["dims"]["Kp"] == 320
+    assert p["cluster"]["cluster_tiles"] == 2
+    assert p["aggregate"]["cluster_tiles"] == 3
+    assert p["dassign"]["tiles"] == sum(p["video_tiles"]) * 2
+
+
+def test_nextvlad_max_clusters_is_the_index_limit(monkeypatch):
+    """max_clusters() is the widest Kp (a multiple of 64) with cap * G *
+    Kp < 2^31 at the smallest capacity; the wrapper refuses above it and
+    where a call's own B, F, G and K overflow the packed rows' index."""
+    m = tnv.max_clusters()
+    cap = tnv.packed_capacity(1, 1, 1)
+    assert m == 11184768 and m % 64 == 0
+    assert cap * m < 2 ** 31 <= cap * (m + 64)
+    assert tnv.indexable(1, 1, 1, 8, m) and not tnv.indexable(1, 1, 1, 8,
+                                                              m + 64)
+    assert not tnv.indexable(65535, 300, 8, 288, 576)
+    monkeypatch.setattr(tnv, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(tnv, "max_clusters", lambda: 300)
+    x, nf, w = _nxv_inputs(1, "uint8", 320)
+    with pytest.raises(ValueError, match="K <= 300"):
+        tnv.nextvlad_aggregate(*map(torch.from_numpy, (x, nf, *w)), NXV_G)

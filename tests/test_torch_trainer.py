@@ -290,11 +290,14 @@ def test_use_ema_weights_without_decay_and_unported_flags_fail_fast(
     with pytest.raises(SystemExit, match="ema_decay"):
         tloop.Trainer(_port_cfg(data, str(tmp_path), use_ema_weights=True))
     for kw in (dict(model_parallel=2), dict(fsdp_min_size=1000),
-               dict(num_devices=4), dict(export_model_steps=10)):
+               dict(num_devices=4)):
         with pytest.raises(ValueError, match="not ported"):
             _port_cfg(data, str(tmp_path), **kw)
-    # --adam_mu_dtype=bfloat16 is ported (train/optimizers.py), and so is
-    # --async_checkpoint (train/checkpoint.py).
+    # --adam_mu_dtype=bfloat16 is ported (train/optimizers.py), and so are
+    # --async_checkpoint (train/checkpoint.py) and --export_model_steps
+    # (infer/export.py).
+    assert _port_cfg(data, str(tmp_path),
+                     export_model_steps=10).export_model_steps == 10
     assert _port_cfg(data, str(tmp_path),
                      adam_mu_dtype="bfloat16").adam_mu_dtype == "bfloat16"
     assert _port_cfg(data, str(tmp_path),

@@ -21,7 +21,6 @@ UNPORTED = {
     "model_parallel": "tensor-parallel training (one device)",
     "fsdp_min_size": "FSDP (one device)",
     "num_devices": "multi-device training (one device)",
-    "export_model_steps": "serving export",
 }
 _ALLOWED = {"num_devices": (None, 1)}
 

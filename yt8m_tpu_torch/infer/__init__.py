@@ -1,1 +1,2 @@
-"""Serving: the top-k predict step and the inference loop."""
+"""Serving: the top-k predict step, the inference loop and the serving
+export."""

@@ -37,7 +37,8 @@ from yt8m_tpu_torch.data.pipeline import (  # noqa: F401  (format_lines)
     reader_kind,
 )
 from yt8m_tpu_torch.device import resolve_device
-from yt8m_tpu_torch.kernels.topk import TOPK_NEG, serving_topk
+from yt8m_tpu_torch.kernels.ops import topk as serving_topk
+from yt8m_tpu_torch.kernels.topk import TOPK_NEG
 from yt8m_tpu_torch.train.loop import reader_config_from
 
 log = logging.getLogger("yt8m_tpu_torch.infer")

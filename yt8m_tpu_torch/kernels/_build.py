@@ -89,10 +89,10 @@ SIGNATURES = {
     "yt8m_attention_pool_f32q_u8": [_P] * 4 + [_I] * 4 + [_P],
     "yt8m_attention_pool_f32q_f32": [_P] * 4 + [_I] * 4 + [_P],
     "yt8m_attention_pool_plan": [_I] * 4 + [_P],
-    "yt8m_nextvlad_aggregate_u8": [_P] * 20 + [_I] * 7 + [_P],
-    "yt8m_nextvlad_aggregate_f32": [_P] * 20 + [_I] * 7 + [_P],
+    "yt8m_nextvlad_aggregate_u8": [_P] * 21 + [_I] * 7 + [_P],
+    "yt8m_nextvlad_aggregate_f32": [_P] * 21 + [_I] * 7 + [_P],
     "yt8m_nextvlad_plan": [_P],
-    "yt8m_nextvlad_train_backward": [_P] * 26 + [_I] * 8 + [_P],
+    "yt8m_nextvlad_train_backward": [_P] * 27 + [_I] * 8 + [_P],
     "yt8m_nextvlad_train_plan": [_P],
 }
 

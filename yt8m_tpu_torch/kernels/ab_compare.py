@@ -734,7 +734,8 @@ def compare_vlad_int8(torch, mine, other) -> list:
             diff = (x - y).abs().max().item()
             limit = VLAD_REL * y.abs().max().item() + 1e-6
             line += (f"; max|diff| {diff:.3e} (bound {limit:.3e}: "
-                     f"{'within' if diff <= limit else 'OUTSIDE'})")
+                     f"{'within' if diff <= limit else 'OUTSIDE'}; "
+                     f"{'' if torch.equal(x, y) else 'not '}bit for bit)")
         lines.append(line)
         for name, r in (("this", mine[0]), ("other", other[0])):
             split = sorted(r[f"{key} split"].items(), key=lambda kv: -kv[1])
@@ -767,7 +768,8 @@ def compare_nextvlad(torch, mine, other) -> list:
             diff = (x - y).abs().max().item()
             limit = NXV_REL * y.abs().max().item() + 1e-6
             line += (f"; max|diff| {diff:.3e} (bound {limit:.3e}: "
-                     f"{'within' if diff <= limit else 'OUTSIDE'})")
+                     f"{'within' if diff <= limit else 'OUTSIDE'}; "
+                     f"{'' if torch.equal(x, y) else 'not '}bit for bit)")
         lines.append(line)
         for name, r in (("this", mine[0]), ("other", other[0])):
             split = sorted(r[f"{key} split"].items(), key=lambda kv: -kv[1])
@@ -780,7 +782,7 @@ def compare_nextvlad(torch, mine, other) -> list:
         limit = NXV_REL * y.abs().max().item() + 1e-6
         lines.append(f"nextvlad train {name}: max|diff| {diff:.3e} (bound "
                      f"{limit:.3e}: {'within' if diff <= limit else 'OUTSIDE'}"
-                     f")")
+                     f"; {'' if torch.equal(x, y) else 'not '}bit for bit)")
     return lines
 
 

@@ -56,6 +56,23 @@
 //     over each cluster row's quad: out directly, no pre-norm scratch.
 //  4. nxv_norm_kernel, only when P is wider than one column tile: the
 //     intra-norm from the tiles' partial sums of squares.
+// Above 256 clusters (Kp > 256, "wide") a block's registers no longer
+// hold a group's logits, so launch 2 is two launches:
+//  2a. nxv_logits_kernel, persistent over (128 packed rows, a group, 256
+//      of its clusters), the cluster tile fastest: the logits xe @ Wc in
+//      the consumers' registers, written as f32 into a [cap, G Kp]
+//      scratch (the training forward's sm, normalised there in place),
+//      and in the first cluster tile of each group the attention dots
+//      and alpha, as launch 2's;
+//  2b. nxv_softmax_wide, a block a (64-row half tile, group): each row's
+//      max and sum of exponentials over all K (a warp a row), then a
+//      thread a cluster down the 64 rows in order: sm, bf16(assign),
+//      zeros past K and on the rows that are not live, and the column
+//      sums of each video's rows, one partial a (video, half tile) as
+//      launch 2 writes them.
+//  Launches 3 and 4 tile K already (128 clusters a tile). What this costs
+//  beyond launch 2: the f32 logits written once and read twice, ~9 bytes
+//  a (live row, group, cluster) (3.1 GB at B=512, F=300, G=8, K=520).
 // Scratch from the caller (B=512): xb 354 MB, xe 708 MB and the bf16
 // assignment 315 MB at most (written for the packed rows only), the a_sum
 // partials 12.6 MB.
@@ -72,10 +89,16 @@ namespace {
 constexpr float kDeqScale = static_cast<float>(4.0 / 255.0);
 constexpr float kDeqBias = static_cast<float>(4.0 / 512.0 - 2.0);
 constexpr float kNormEpsSq = 1e-12f;
-constexpr int kMaxClusters = 256;
+constexpr int kMaxClusters = 256;   // K launch 2's registers hold; above: 2a + 2b
 constexpr int kSimpleThreads = 256;  // the element-wise launches
 constexpr int kSimpleWarps = kSimpleThreads / 32;
 constexpr int kPackRows = 32;        // packed rows a block of the frames pass
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
 __device__ __forceinline__ void load8(const uint8_t* p, float (&v)[8]) {
   const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
@@ -347,6 +370,170 @@ nxv_cluster_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_const
 }
 
 // ---------------------------------------------------------------------------
+// Launches 2a and 2b (Kp > 256): the logits, then the softmax over all K.
+// ---------------------------------------------------------------------------
+
+namespace wide {
+constexpr int kN = 256;  // clusters a tile of 2a
+constexpr int kStages = 4;
+constexpr int kBBytes = hgemm::boxes(kN) * hgemm::kBoxBytes;
+constexpr int kWaBytes = 8 * hgemm::kDepth * 2;
+constexpr int kStageBytes = hgemm::kABytes + kBBytes + kWaBytes;
+constexpr int kAcc = kN / 2 + 4;
+constexpr int kSmem = hgemm::smem_request(kStages * kStageBytes + 2 * kStages * 8);
+static_assert(kSmem <= 232448, "shared memory a block");
+constexpr int kHalf = 64;  // packed rows a block of 2b
+}  // namespace wide
+
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nxv_logits_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                  const __grid_constant__ CUtensorMap map_wa, const int* __restrict__ poff,
+                  const float* __restrict__ ab, float* __restrict__ alpha,
+                  float* __restrict__ logits, int B, int G, int K, int Kp, int GP) {
+  using namespace wide;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int n_kt = ceil_div(Kp, kN);
+  const int tiles = ceil_div(poff[B], kRows) * G * n_kt;
+  const int nk = ceil_div(GP, hgemm::kDepth);
+  init_ring(full, empty, kStages);
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* wmap = &map_w;
+  const CUtensorMap* amap = &map_wa;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int rt = t / (G * n_kt);
+        const int g = (t / n_kt) % G;
+        const int ct = t % n_kt;
+        hgemm::produce<kStages>(full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
+          unsigned char* st = smem + s * kStageBytes;
+          hgemm::tma_3d(st, xmap, bar, kt * hgemm::kDepth, rt * kRows, 0);
+#pragma unroll
+          for (int i = 0; i < hgemm::boxes(kN); ++i)
+            hgemm::tma_3d(st + hgemm::kABytes + i * hgemm::kBoxBytes, wmap, bar,
+                          g * Kp + ct * kN + i * hgemm::kBoxCols, kt * hgemm::kDepth, 0);
+          hgemm::tma_3d(st + hgemm::kABytes + kBBytes, amap, bar, kt * hgemm::kDepth, g, 0);
+        });
+      }
+    }
+    return;
+  }
+  hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+  const Lane ln;
+  const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+  const size_t GKp = static_cast<size_t>(G) * Kp;
+  float acc[kAcc];  // the logits in [0, kN / 2), the attention dots after
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int rt = t / (G * n_kt);
+    const int g = (t / n_kt) % G;
+    const int ct = t % n_kt;
+    hgemm::zero<kAcc>(acc);
+    hgemm::consume<kStages, kAcc>(full, empty, ring, nk, acc, [&](int s) {
+      const uint32_t st = hgemm::smem_u32(smem + s * kStageBytes);
+#pragma unroll
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+        hgemm::chain<kN>(acc, st + a_off, st + hgemm::kABytes, kk);
+        hgemm::mma<8, 0, 0>(acc + kN / 2, hgemm::desc_a(st + a_off, kk),
+                            hgemm::desc_b_k(st + hgemm::kABytes + kBBytes, kk));
+      }
+    });
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rt * kRows + 64 * wg + ln.row(h);
+      if (ct == 0) {
+        // Group g's dot is column 0 of the m64n8: lane 0 of the quad.
+        const float dot = __shfl_sync(0xffffffffu, acc[kN / 2 + 2 * h], threadIdx.x & 28);
+        if (ln.q == 0)
+          alpha[static_cast<size_t>(row) * G + g] =
+              1.0f / (1.0f + expf(-__fadd_rn(dot, __ldg(ab + g))));
+      }
+      float* lrow = logits + row * GKp + g * Kp + ct * kN;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int c = 8 * j + 2 * ln.q;
+        const int k = ct * kN + c;
+        if (k + 1 < K)
+          *reinterpret_cast<float2*>(lrow + c) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        else if (k < K)
+          lrow[c] = acc[4 * j + 2 * h];
+      }
+    }
+  }
+}
+
+// Launch 2b. Grid (ceil(cap / 64), G); blocks past the last row tile
+// return. logits and sm may be one buffer (each value is read, then
+// overwritten, by the same thread); sm may be null (serving).
+__global__ void __launch_bounds__(kSimpleThreads)
+nxv_softmax_wide(const int* __restrict__ poff, const int* __restrict__ info,
+                 const float* __restrict__ alpha, const float* logits, float* sm_out,
+                 bf16* __restrict__ assign, float* __restrict__ asum_part, int B, int G, int K,
+                 int Kp, int J) {
+  using wide::kHalf;
+  __shared__ float s_max[kHalf], s_rs[kHalf], s_al[kHalf];
+  __shared__ int s_info[kHalf];
+  const int hf = blockIdx.x;
+  const int g = blockIdx.y;
+  if (hf >= 2 * ceil_div(poff[B], kRows)) return;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t GKp = static_cast<size_t>(G) * Kp;
+  const size_t base = static_cast<size_t>(hf) * kHalf * GKp + static_cast<size_t>(g) * Kp;
+  for (int r = warp; r < kHalf; r += kSimpleWarps) {
+    const int row = hf * kHalf + r;
+    const int in = info[row];
+    float m = -INFINITY, s = 0.0f;
+    if (in >= 0) {  // the logits of rows that are not live are not read
+      const float* lr = logits + base + r * GKp;
+      for (int k = lane; k < K; k += 32) m = fmaxf(m, lr[k]);
+      m = warp_max(m);
+      for (int k = lane; k < K; k += 32) s += __expf(__fsub_rn(lr[k], m));
+      s = warp_sum(s);
+    }
+    if (lane == 0) {
+      s_info[r] = in;
+      s_max[r] = m;
+      s_rs[r] = in >= 0 ? 1.0f / s : 0.0f;
+      s_al[r] = in >= 0 ? alpha[static_cast<size_t>(row) * G + g] : 0.0f;
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < Kp; k += kSimpleThreads) {
+    int cur = -1;
+    float tsum = 0.0f;
+    auto flush = [&]() {
+      if (cur >= 0 && cur < B) {
+        const int slot = hf - poff[cur] / kHalf;
+        asum_part[((static_cast<size_t>(cur) * J + slot) * G + g) * Kp + k] = tsum;
+      }
+    };
+    for (int r = 0; r < kHalf; ++r) {
+      const int v = info_video(s_info[r]);
+      if (v != cur) {
+        flush();
+        cur = v;
+        tsum = 0.0f;
+      }
+      const size_t o = base + r * GKp + k;
+      float p = 0.0f;
+      if (s_info[r] >= 0 && k < K) p = __expf(__fsub_rn(logits[o], s_max[r])) * s_rs[r];
+      const float a = __fmul_rn(p, s_al[r]);
+      assign[o] = __float2bfloat16_rn(a);
+      if (sm_out != nullptr) sm_out[o] = p;
+      tsum += a;
+    }
+    flush();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch 3: the aggregation, the centers term and the intra-norm.
 // ---------------------------------------------------------------------------
 
@@ -570,20 +757,40 @@ cudaError_t launch_cluster(int sms, cudaStream_t st, const void* xe, const void*
   return cudaGetLastError();
 }
 
+cudaError_t launch_logits(int sms, cudaStream_t st, const void* xe, const void* wc, const void* wa,
+                          const int* poff, const float* ab, float* alpha, float* logits, int B,
+                          int G, int K, int Kp, int GP, int cap) {
+  CUtensorMap map_x, map_w, map_wa;
+  cudaError_t err = hgemm::make_map_bf16(&map_x, xe, 1, cap, GP, GP, kRows);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_w, wc, 1, GP, G * Kp, G * Kp, hgemm::kDepth);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_wa, wa, 1, G, GP, GP, 8);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nxv_logits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               wide::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long most = static_cast<long long>(ceil_div(cap, kRows)) * G * ceil_div(Kp, wide::kN);
+  nxv_logits_kernel<<<most < sms ? static_cast<int>(most) : sms, hgemm::kThreads, wide::kSmem, st>>>(
+      map_x, map_w, map_wa, poff, ab, alpha, logits, B, G, K, Kp, GP);
+  return cudaGetLastError();
+}
+
+// cap G max(Pp, Kp, 256) < 2^31: the packed rows' widest row tensor
+// indexes in int (kernels/nextvlad.py :: max_clusters).
 bool shapes_ok(int B, int F, int D8, int G, int K, int P, int cap) {
-  const int Pp = round_up(P, 8);
+  const long long Pp = round_up(P, 8);
+  const long long Kp = round_up(K, 64);
+  const long long widest = Pp > Kp ? (Pp > 256 ? Pp : 256) : (Kp > 256 ? Kp : 256);
   return B > 0 && B <= 65535 && F > 0 && D8 > 0 && D8 % 8 == 0 && G > 0 && G <= 65535 && K > 0 &&
-         K <= kMaxClusters && P > 0 &&
-         cap >= static_cast<long long>(B) * round_up(F, run_frames(G)) + kRows &&
-         static_cast<long long>(cap) * G * (Pp > 256 ? Pp : 256) < (1LL << 31);
+         P > 0 && cap >= static_cast<long long>(B) * round_up(F, run_frames(G)) + kRows &&
+         static_cast<long long>(cap) * G * widest < (1LL << 31);
 }
 
 template <typename T>
 int launch(const void* x, const void* num_frames, const void* poff_v, const void* order_v,
            const void* we, const void* wc, const void* wa, const void* ab, const void* centers,
-           void* xb, void* info_v, void* xe, void* alpha, void* assign, void* sm, void* asum_part,
-           void* a_sum, void* vlad, void* sumsq, void* out, int B, int F, int D8, int G, int K,
-           int P, int cap, void* stream) {
+           void* xb, void* info_v, void* xe, void* alpha, void* assign, void* sm, void* logits,
+           void* asum_part, void* a_sum, void* vlad, void* sumsq, void* out, int B, int F, int D8,
+           int G, int K, int P, int cap, void* stream) {
   if (!shapes_ok(B, F, D8, G, K, P, cap)) return static_cast<int>(cudaErrorInvalidValue);
   const int Pp = round_up(P, 8);
   const int Kp = round_up(K, 64);
@@ -614,7 +821,17 @@ int launch(const void* x, const void* num_frames, const void* poff_v, const void
   bf16* asg = static_cast<bf16*>(assign);
   float* smp = static_cast<float*>(sm);
   float* part = static_cast<float*>(asum_part);
-  switch (Kp / 64) {
+  if (Kp > kMaxClusters) {
+    // The training forward normalises its logits in place into sm.
+    float* lg = smp != nullptr ? smp : static_cast<float*>(logits);
+    if (lg == nullptr || alp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_logits(sms, st, xe, wc, wa, poff, abp, alp, lg, B, G, K, Kp, GP, cap);
+    if (err == cudaSuccess) {
+      nxv_softmax_wide<<<dim3(ceil_div(cap, wide::kHalf), G), kSimpleThreads, 0, st>>>(
+          poff, info, alp, lg, smp, asg, part, B, G, K, Kp, J);
+      err = cudaGetLastError();
+    }
+  } else switch (Kp / 64) {
     case 1: err = launch_cluster<64>(sms, st, xe, wc, wa, poff, info, abp, alp, asg, smp, part, B, G, K, GP, cap, J); break;
     case 2: err = launch_cluster<128>(sms, st, xe, wc, wa, poff, info, abp, alp, asg, smp, part, B, G, K, GP, cap, J); break;
     case 3: err = launch_cluster<192>(sms, st, xe, wc, wa, poff, info, abp, alp, asg, smp, part, B, G, K, GP, cap, J); break;
@@ -653,34 +870,40 @@ using namespace nxv;
 // we [D8, G Pp], wc [G Pp, G Kp], wa [G, G Pp]; ab [G] and centers [K, P]
 // f32. Scratch over cap >= B round_up(F, R) + 128 packed rows: xb [cap,
 // D8], xe [cap, G Pp], assign [cap, G Kp] bf16; info [cap] int32; alpha
-// [cap, G] f32; asum_part [B, J, G, Kp] f32 (J = ceil(round_up(F, R) / 64)
+// [cap, G] f32 (needed for the backward and when Kp > 256);
+// asum_part [B, J, G, Kp] f32 (J = ceil(round_up(F, R) / 64)
 // + 1). When not null: sm [cap, G Kp] f32 (the backward's residual),
 // a_sum [B, Kp] and vlad [B, K, P] f32 (the pre-norm residual; needed,
-// with sumsq [B, ceil(Pp / 288), K], when Pp > 288). out [B, K, P] f32.
+// with sumsq [B, ceil(Pp / 288), K], when Pp > 288). logits [cap, G Kp]
+// f32, the wide path's scratch when Kp > 256 and sm is null (with sm, sm
+// holds the logits). out [B, K, P] f32.
 extern "C" int yt8m_nextvlad_aggregate_u8(
     const void* x, const void* num_frames, const void* poff, const void* order, const void* we,
     const void* wc, const void* wa, const void* ab, const void* centers, void* xb, void* info,
-    void* xe, void* alpha, void* assign, void* sm, void* asum_part, void* a_sum, void* vlad,
-    void* sumsq, void* out, int B, int F, int D8, int G, int K, int P, int cap, void* stream) {
+    void* xe, void* alpha, void* assign, void* sm, void* logits, void* asum_part, void* a_sum,
+    void* vlad, void* sumsq, void* out, int B, int F, int D8, int G, int K, int P, int cap,
+    void* stream) {
   return launch<uint8_t>(x, num_frames, poff, order, we, wc, wa, ab, centers, xb, info, xe, alpha,
-                         assign, sm, asum_part, a_sum, vlad, sumsq, out, B, F, D8, G, K, P, cap,
-                         stream);
+                         assign, sm, logits, asum_part, a_sum, vlad, sumsq, out, B, F, D8, G, K,
+                         P, cap, stream);
 }
 
 extern "C" int yt8m_nextvlad_aggregate_f32(
     const void* x, const void* num_frames, const void* poff, const void* order, const void* we,
     const void* wc, const void* wa, const void* ab, const void* centers, void* xb, void* info,
-    void* xe, void* alpha, void* assign, void* sm, void* asum_part, void* a_sum, void* vlad,
-    void* sumsq, void* out, int B, int F, int D8, int G, int K, int P, int cap, void* stream) {
+    void* xe, void* alpha, void* assign, void* sm, void* logits, void* asum_part, void* a_sum,
+    void* vlad, void* sumsq, void* out, int B, int F, int D8, int G, int K, int P, int cap,
+    void* stream) {
   return launch<float>(x, num_frames, poff, order, we, wc, wa, ab, centers, xb, info, xe, alpha,
-                       assign, sm, asum_part, a_sum, vlad, sumsq, out, B, F, D8, G, K, P, cap,
-                       stream);
+                       assign, sm, logits, asum_part, a_sum, vlad, sumsq, out, B, F, D8, G, K, P,
+                       cap, stream);
 }
 
 // The forward's tiles: [rows a tile, the row product's columns, the wide
 // column tile, the row product's stages and shared bytes, the cluster
 // product's stages, its shared bytes at Kp = 64, 128, 192, 256, the
-// aggregation's stages and shared bytes, SMs].
+// aggregation's stages and shared bytes, SMs, the logits launch's (Kp >
+// 256) clusters a tile, stages and shared bytes].
 extern "C" int yt8m_nextvlad_plan(int* plan) {
   int sms = 0;
   const cudaError_t err = hgemm::sm_count(&sms);
@@ -698,5 +921,8 @@ extern "C" int yt8m_nextvlad_plan(int* plan) {
   plan[10] = agg::kStages;
   plan[11] = agg::kSmem;
   plan[12] = sms;
+  plan[13] = wide::kN;
+  plan[14] = wide::kStages;
+  plan[15] = wide::kSmem;
   return static_cast<int>(cudaSuccess);
 }

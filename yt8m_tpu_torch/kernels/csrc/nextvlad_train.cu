@@ -53,6 +53,13 @@
 //     over the split's packed rows (pad rows are exact zeros), and
 //     nxv_reduce_kernel for each;
 //  6. nxv_dab_kernel (a block a group, a fixed-order tree).
+// Above 256 clusters (Kp > 256) a row's d_assign no longer fits the
+// registers of launch 2, which becomes two launches: 2a,
+// nxv_dassign_wide_kernel, the same walk over (128 rows, 256 clusters)
+// tiles, the cluster tile fastest, writing f32 d_assign - cdot into a
+// [rows G, Kp] scratch; 2b, nxv_vjp_wide_kernel, a warp a (frame, group)
+// row: the softmax and sigmoid VJPs over the row's K, into the same
+// operand and d_pre as launch 2. Launches 3-6 tile K already.
 // Frames past n are never read. Scratch from the caller (B=256): dv,
 // bf16(dv), d_act 159 MB, d_xg 708 MB (f32), d_xe 354 MB at most, the
 // partials 8 x (9.5 + 10.6) MB (8 splits: 16 read 0.09 ms more on an H100).
@@ -65,7 +72,7 @@ namespace nxv {
 namespace {
 
 constexpr float kNormEpsSq = 1e-12f;
-constexpr int kMaxClusters = 256;
+constexpr int kMaxClusters = 256;  // K launch 2's registers hold; above: 2a + 2b
 constexpr int kSimpleThreads = 256;
 constexpr int kSimpleWarps = kSimpleThreads / 32;
 
@@ -123,9 +130,9 @@ nxv_dv_kernel(const float* __restrict__ vlad, const float* __restrict__ dy,
 __global__ void __launch_bounds__(kSimpleThreads)
 nxv_dcenters_kernel(const float* __restrict__ a_sum, const float* __restrict__ dv,
                     float* __restrict__ dcenters, int B, int K, int P, int Kp) {
-  const int i = blockIdx.x * kSimpleThreads + threadIdx.x;
-  if (i >= K * P) return;
-  const int k = i / P;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kSimpleThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(K) * P) return;
+  const int k = static_cast<int>(i / P);
   float acc = 0.0f;
   for (int b = 0; b < B; ++b)
     acc = __fadd_rn(acc, __fmul_rn(-a_sum[static_cast<size_t>(b) * Kp + k],
@@ -270,6 +277,122 @@ nxv_dassign_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_const
         for (int c = GKp + G + ln.q; c < Kx; c += 4) drow[c] = __float2bfloat16_rn(0.0f);
     }
   }
+}
+
+// Launch 2a (Kp > 256): d_assign - cdot, f32, into dasg [rows G, Kp] on
+// each run's rows, tiles of (128 rows, 256 clusters).
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nxv_dassign_wide_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_v, const int* __restrict__ poff,
+                        const int* __restrict__ toff, const float* __restrict__ cdot,
+                        float* __restrict__ dasg, int B, int G, int Pp, int Kp) {
+  using A = Asg<256>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + A::kStages * A::kStageBytes);
+  uint64_t* empty = full + A::kStages;
+  const int n_kt = ceil_div(Kp, 256);
+  const int tiles = toff[B] * n_kt;
+  const int nk = ceil_div(Pp, hgemm::kDepth);
+  init_ring(full, empty, A::kStages);
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* xmap = &map_x;
+  const CUtensorMap* vmap = &map_v;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int vt = t / n_kt;
+        const int ct = t % n_kt;
+        const int b = video_of(toff, B, vt);
+        const int row0 = poff[b] * G + (vt - toff[b]) * kRows;
+        hgemm::produce<A::kStages>(full, empty, ring, nk, A::kStageBytes, [&](int s, uint64_t* bar, int kt) {
+          unsigned char* st = smem + s * A::kStageBytes;
+          hgemm::tma_3d(st, xmap, bar, kt * hgemm::kDepth, row0, 0);
+          hgemm::tma_3d(st + hgemm::kABytes, vmap, bar, kt * hgemm::kDepth, ct * 256, b);
+        });
+      }
+    }
+    return;
+  }
+  hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+  const Lane ln;
+  const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+  float acc[128];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int vt = t / n_kt;
+    const int ct = t % n_kt;
+    const int b = video_of(toff, B, vt);
+    const int run_end = poff[b + 1] * G;
+    const int row0 = poff[b] * G + (vt - toff[b]) * kRows;
+    hgemm::zero<128>(acc);
+    hgemm::consume<A::kStages, 128>(full, empty, ring, nk, acc, [&](int s) {
+      const uint32_t st = hgemm::smem_u32(smem + s * A::kStageBytes);
+#pragma unroll
+      for (int kk = 0; kk < hgemm::kDepth / 16; ++kk)
+        hgemm::mma<256, 0, 0>(acc, hgemm::desc_a(st + a_off, kk),
+                              hgemm::desc_b_k(st + hgemm::kABytes, kk));
+    });
+    const float* cd = cdot + static_cast<size_t>(b) * Kp + ct * 256;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = row0 + 64 * wg + ln.row(h);
+      if (rr >= run_end) continue;
+      float* drow = dasg + static_cast<size_t>(rr) * Kp + ct * 256;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int c = 8 * j + 2 * ln.q;
+        if (ct * 256 + c >= Kp) continue;
+        const float2 cc = __ldg(reinterpret_cast<const float2*>(cd + c));
+        *reinterpret_cast<float2*>(drow + c) = make_float2(__fsub_rn(acc[4 * j + 2 * h], cc.x),
+                                                           __fsub_rn(acc[4 * j + 2 * h + 1], cc.y));
+      }
+    }
+  }
+}
+
+// Launch 2b (Kp > 256). Grid (ceil(cap G / 8)): a warp a (frame, group)
+// row below poff[B] G, launch 2's VJPs over the row's Kp clusters (sm and
+// d_assign are zeros past K).
+__global__ void __launch_bounds__(kSimpleThreads)
+nxv_vjp_wide_kernel(const int* __restrict__ poff, const int* __restrict__ info,
+                    const float* __restrict__ sm, const float* __restrict__ alpha,
+                    const float* __restrict__ dasg, bf16* __restrict__ dact,
+                    float* __restrict__ dpre, int B, int G, int Kp, int Kx) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rr = blockIdx.x * kSimpleWarps + warp;
+  if (rr >= poff[B] * G) return;
+  const int fp = rr / G;
+  const int g = rr - fp * G;
+  const bool live = __ldg(info + fp) >= 0;
+  const float al = __ldg(alpha + rr);
+  const float* da = dasg + static_cast<size_t>(rr) * Kp;
+  const float* s = sm + static_cast<size_t>(rr) * Kp;
+  float dal = 0.0f, tt = 0.0f;
+  for (int k = lane; k < Kp; k += 32) {
+    const float a = __ldg(da + k);
+    const float sv = __ldg(s + k);
+    dal = __fadd_rn(dal, __fmul_rn(a, sv));
+    tt = __fadd_rn(tt, __fmul_rn(sv, __fmul_rn(a, al)));
+  }
+  dal = warp_sum(dal);
+  tt = warp_sum(tt);
+  bf16* drow = dact + static_cast<size_t>(fp) * Kx;
+  for (int k = lane; k < Kp; k += 32) {
+    const float d = __fmul_rn(__ldg(da + k), al);
+    const float v = hgemm::select(live, __fmul_rn(__ldg(s + k), __fsub_rn(d, tt)), 0.0f);
+    drow[g * Kp + k] = __float2bfloat16_rn(v);
+  }
+  if (lane == 0) {
+    const float d = hgemm::select(live, __fmul_rn(__fmul_rn(dal, al), __fsub_rn(1.0f, al)), 0.0f);
+    dpre[rr] = d;
+    drow[G * Kp + g] = __float2bfloat16_rn(d);
+  }
+  if (g == 0)  // the operand's pad columns
+    for (int c = G * Kp + G + lane; c < Kx; c += 32) drow[c] = __float2bfloat16_rn(0.0f);
 }
 
 // ---------------------------------------------------------------------------
@@ -508,6 +631,21 @@ cudaError_t launch_dassign(int sms, cudaStream_t st, const void* xe, const void*
   return cudaGetLastError();
 }
 
+cudaError_t launch_dassign_wide(int sms, cudaStream_t st, const void* xe, const void* dvb,
+                                const int* poff, const int* toff, const float* cdot, float* dasg,
+                                int B, int G, int Pp, int Kp, int cap) {
+  CUtensorMap map_x, map_v;
+  cudaError_t err = hgemm::make_map_bf16(&map_x, xe, 1, cap * G, Pp, Pp, kRows);
+  if (err == cudaSuccess) err = hgemm::make_map_bf16(&map_v, dvb, B, Kp, Pp, Pp, 256);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nxv_dassign_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Asg<256>::kSmem);
+  if (err != cudaSuccess) return err;
+  nxv_dassign_wide_kernel<<<sms, hgemm::kThreads, Asg<256>::kSmem, st>>>(
+      map_x, map_v, poff, toff, cdot, dasg, B, G, Pp, Kp);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_wgrad(int sms, cudaStream_t st, const void* x, const void* y, const int* poff,
                          float* part, float* out, int B, int M, int N, int cap, int splits) {
   CUtensorMap map_x, map_y;
@@ -543,18 +681,22 @@ using namespace nxv;
 // 8)). Scratch: dv [B, K, P] f32, dvb [B, Kp, Pp] bf16, cdot [B, Kp] f32,
 // dact [cap, Kx] bf16, dpre [cap, G] f32, dxg [cap, G Pp] f32, dxe [cap, G
 // Pp] bf16, part_ext [splits, G Pp, Kx] and part_we [splits, D8, G Pp]
-// f32. Outputs (f32): dwe [D8, G Pp], dwext [G Pp, Kx], dab [G], dcenters
-// [K, P].
+// f32; dasg [cap G, Kp] f32 when Kp > 256 (else may be null). Outputs
+// (f32): dwe [D8, G Pp], dwext [G Pp, Kx], dab [G], dcenters [K, P].
 extern "C" int yt8m_nextvlad_train_backward(
     const void* poff_v, const void* toff_v, const void* info_v, const void* xb, const void* xe,
     const void* assign, const void* sm, const void* alpha, const void* vlad, const void* a_sum,
     const void* dy, const void* centers, const void* wext, void* dv, void* dvb, void* cdot,
-    void* dact, void* dpre, void* dxg, void* dxe, void* part_ext, void* part_we, void* dwe,
-    void* dwext, void* dab, void* dcenters, int B, int F, int D8, int G, int K, int P, int cap,
-    int splits, void* stream) {
+    void* dact, void* dpre, void* dxg, void* dxe, void* part_ext, void* part_we, void* dasg,
+    void* dwe, void* dwext, void* dab, void* dcenters, int B, int F, int D8, int G, int K, int P,
+    int cap, int splits, void* stream) {
+  const long long Pp_ = round_up(P, 8), Kp_ = round_up(K, 64);
+  const long long widest = Pp_ > Kp_ ? (Pp_ > 256 ? Pp_ : 256) : (Kp_ > 256 ? Kp_ : 256);
   if (B <= 0 || B > 65535 || F <= 0 || D8 <= 0 || D8 % 8 != 0 || G <= 0 || G > 65535 ||
-      K <= 0 || K > kMaxClusters || P <= 0 || splits <= 0 ||
-      cap < static_cast<long long>(B) * round_up(F, run_frames(G)) + kRows)
+      K <= 0 || P <= 0 || splits <= 0 ||
+      cap < static_cast<long long>(B) * round_up(F, run_frames(G)) + kRows ||
+      static_cast<long long>(cap) * G * widest >= (1LL << 31) ||
+      (Kp_ > kMaxClusters && dasg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int Pp = round_up(P, 8);
@@ -578,7 +720,9 @@ extern "C" int yt8m_nextvlad_train_backward(
       static_cast<float*>(cdot), dactp, B, K, P, Pp, Kp, Kx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nxv_dcenters_kernel<<<ceil_div(K * P, kSimpleThreads), kSimpleThreads, 0, st>>>(
+  nxv_dcenters_kernel<<<static_cast<unsigned>((static_cast<size_t>(K) * P + kSimpleThreads - 1) /
+                                               kSimpleThreads),
+                        kSimpleThreads, 0, st>>>(
       static_cast<const float*>(a_sum), dvp, static_cast<float*>(dcenters), B, K, P, Kp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -586,7 +730,17 @@ extern "C" int yt8m_nextvlad_train_backward(
   const float* smp = static_cast<const float*>(sm);
   const float* alp = static_cast<const float*>(alpha);
   const float* cdp = static_cast<const float*>(cdot);
-  switch (Kp / 64) {
+  if (Kp > kMaxClusters) {
+    float* dasgp = static_cast<float*>(dasg);
+    err = launch_dassign_wide(sms, st, xe, dvb, poff, toff, cdp, dasgp, B, G, Pp, Kp, cap);
+    if (err == cudaSuccess) {
+      const long long rows = static_cast<long long>(cap) * G;
+      nxv_vjp_wide_kernel<<<static_cast<unsigned>((rows + kSimpleWarps - 1) / kSimpleWarps),
+                            kSimpleThreads, 0, st>>>(poff, info, smp, alp, dasgp, dactp, dprep, B,
+                                                     G, Kp, Kx);
+      err = cudaGetLastError();
+    }
+  } else switch (Kp / 64) {
     case 1: err = launch_dassign<64>(sms, st, xe, dvb, poff, toff, info, smp, alp, cdp, dactp, dprep, B, G, Pp, Kx, cap); break;
     case 2: err = launch_dassign<128>(sms, st, xe, dvb, poff, toff, info, smp, alp, cdp, dactp, dprep, B, G, Pp, Kx, cap); break;
     case 3: err = launch_dassign<192>(sms, st, xe, dvb, poff, toff, info, smp, alp, cdp, dactp, dprep, B, G, Pp, Kx, cap); break;
@@ -619,8 +773,9 @@ extern "C" int yt8m_nextvlad_train_backward(
 }
 
 // The backward's tiles: [stages and shared bytes of the d_assign launch at
-// Kp = 64, 128, 192, 256 (stages once), the d_xg launch's stages and
-// shared bytes, the weight gradients' stages and shared bytes].
+// Kp = 64, 128, 192, 256 (stages once; its wide instance, Kp > 256, is
+// the one of 256), the d_xg launch's stages and shared bytes, the weight
+// gradients' stages and shared bytes].
 extern "C" int yt8m_nextvlad_train_plan(int* plan) {
   plan[0] = Asg<128>::kStages;
   plan[1] = Asg<64>::kSmem;

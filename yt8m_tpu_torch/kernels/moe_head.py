@@ -130,15 +130,22 @@ def plan(b: int, h: int, c: int, m: int) -> dict:
     }
 
 
-def pitched(w):
-    """w [rows, cols] as a view of the same shape over a zero-padded
-    buffer whose row stride is cols rounded up to a multiple of 8: the
-    weight layout the card's kernel reads by TMA."""
+def pitched_buffer(w):
+    """w [rows, cols] in a zero-padded buffer [rows, cols rounded up to a
+    multiple of 8]: `pitched`'s storage, a plain contiguous tensor (what
+    an exported program carries; it slices the view itself)."""
     rows, cols = w.shape
     buf = torch.zeros((rows, _ceil(cols, PITCH) * PITCH), dtype=w.dtype,
                       device=w.device)
     buf[:, :cols] = w
-    return buf[:, :cols]
+    return buf
+
+
+def pitched(w):
+    """w [rows, cols] as a view of the same shape over a zero-padded
+    buffer whose row stride is cols rounded up to a multiple of 8: the
+    weight layout the card's kernel reads by TMA."""
+    return pitched_buffer(w)[:, :w.shape[1]]
 
 
 def check_pitched(name, w, shape, dtype=torch.bfloat16) -> None:

@@ -38,12 +38,22 @@ video with num_frames = 0 gives zeros. What it materialises (B = 512, F
 = 300 at the reference widths, for the packed rows only): xb 354 MB and
 xe 708 MB in bf16, the bf16 assignment 315 MB at most.
 
+Above MAX_CLUSTERS (Kp > 256, `plan`'s "wide") a group's logits no
+longer fit the cluster product's registers: its Logits launch writes
+them, tiles of 256 clusters, as f32 into a [cap, G * Kp] scratch that
+the wrapper allocates (the training forward's sm, normalised there in
+place), and a softmax launch (a block a (64-row half tile, group))
+normalises each row over all K and writes bf16(assign), sm and the
+column sums as the cluster product does. The card refuses only what the
+index arithmetic cannot hold: cap * G * max(Pp, Kp, 256) < 2^31
+(`max_clusters()`: 11,184,768 at the smallest capacity).
+
 The kernel takes the weights in a group-major, padded bf16 layout
 (`kernel_layout`, made once per model as a serving constant): P padded
-to Pp (a multiple of 8) inside each group, K to Kp (a multiple of 64, at
-most 256), D to a multiple of 8; the pads are zeros, so padded features
-are exact zeros end to end and padded clusters are left out of the
-softmax by the kernel.
+to Pp (a multiple of 8) inside each group, K to Kp (a multiple of 64),
+D to a multiple of 8; the pads are zeros, so padded features are exact
+zeros end to end and padded clusters are left out of the softmax by the
+kernel.
 """
 
 from __future__ import annotations
@@ -61,7 +71,10 @@ from yt8m_tpu_torch.kernels._checks import (
 )
 
 NORM_EPS_SQ = 1e-12
-MAX_CLUSTERS = 256   # K a block of the cluster product holds for its softmax
+MAX_CLUSTERS = 256   # Kp the cluster product's registers hold; above: "wide"
+WIDE_CLUSTERS = 256  # clusters a tile of the wide Logits launch
+HALF = 64            # packed rows a block of the wide softmax launch
+INDEX_LIMIT = 2 ** 31  # the packed rows' widest row tensor indexes in int
 TILE = 128           # packed rows a tile (csrc/nextvlad_hopper.cuh)
 COLS = 256           # the row product's column tile
 WIDE_COLS = 288      # the aggregation's (and d_xg's) column tile: 256 + 32
@@ -92,6 +105,20 @@ def dims(d: int, de: int, groups: int, k: int) -> dict:
     return {"D": d, "D8": _up(d, 8), "G": g, "K": k, "P": p, "Pp": pp,
             "Kp": kp, "GP": g * pp, "KA": _up(g, 8),
             "Kx": g * kp + _up(g, 8)}
+
+
+def max_clusters() -> int:
+    """The widest K the card takes: cap * G * max(Pp, Kp, 256) < 2^31 at
+    the smallest capacity (B = F = G = 1: cap = 64 + 128 rows), with Kp a
+    multiple of 64; a call's own limit comes from its B, F and G."""
+    cap = packed_capacity(1, 1, 1)
+    return (INDEX_LIMIT - 1) // cap // K_MULTIPLE * K_MULTIPLE
+
+
+def indexable(b: int, f: int, groups: int, pp: int, kp: int) -> bool:
+    """Whether the packed rows' widest row tensor indexes in int."""
+    return packed_capacity(b, f, groups) * groups * max(pp, kp, 256) \
+        < INDEX_LIMIT
 
 
 def run_frames(groups: int) -> int:
@@ -189,7 +216,8 @@ def plan(num_frames, f: int, d: int, de: int, groups: int, k: int,
     total = int(lay["poff"][-1])
     cap = packed_capacity(b, f, g)
     row_tiles = -(-total // TILE)
-    kn = cluster_groups(kp) * kp
+    wide_k = kp > MAX_CLUSTERS
+    kn = WIDE_CLUSTERS if wide_k else cluster_groups(kp) * kp
     wide = -(-pp // WIDE_COLS)
     video_tiles = [-(-int(r) * g // TILE) for r in lay["runs"]]
     rowprod = {"box_a": _box2(TILE), "box_w": _box2(DEPTH),
@@ -205,18 +233,27 @@ def plan(num_frames, f: int, d: int, de: int, groups: int, k: int,
                    "depth": d8, "cols": gp,
                    "tiles": row_tiles * -(-gp // COLS),
                    "grid": min(-(-cap // TILE) * -(-gp // COLS), sms)},
-        "cluster": {"kp": kp, "groups": cluster_groups(kp), "cols": kn,
+        "wide": wide_k,
+        "cluster": {"kp": kp, "groups": 1 if wide_k else cluster_groups(kp),
+                    "cols": kn,
                     "box_x": _box2(TILE), "box_w": _box2(DEPTH),
                     "box_wa": _box2(8),
                     "strides": (gp * 2, g * kp * 2, gp * 2),
                     "stage": A_BYTES + -(-kn // 64) * BOX_BYTES + 1024,
                     "smem": _smem(STAGES * (A_BYTES + -(-kn // 64)
                                             * BOX_BYTES + 1024)
-                                  + 2 * 8 * kn * 4 + 2 * TILE * 4
+                                  + (0 if wide_k else 2 * 8 * kn * 4
+                                     + 2 * TILE * 4)
                                   + 2 * STAGES * 8),
-                    "tiles": row_tiles * -(-g // cluster_groups(kp)),
-                    "grid": min(-(-cap // TILE) * -(-g // cluster_groups(kp)),
-                                sms)},
+                    "tiles": row_tiles * (g * -(-kp // kn) if wide_k
+                                          else -(-g // cluster_groups(kp))),
+                    "grid": min(-(-cap // TILE) * (
+                        g * -(-kp // kn) if wide_k
+                        else -(-g // cluster_groups(kp))), sms),
+                    "cluster_tiles": -(-kp // kn) if wide_k else 1},
+        "softmax": ({"grid": (-(-cap // HALF), g),
+                     "blocks": 2 * row_tiles * g,
+                     "logits_floats": cap * g * kp} if wide_k else None),
         "aggregate": {"box_a": _box2(DEPTH), "box_x": _box2(DEPTH),
                       "strides": (kp * 2, pp * 2), "col_tiles": wide,
                       "cluster_tiles": -(-kp // TILE),
@@ -228,12 +265,18 @@ def plan(num_frames, f: int, d: int, de: int, groups: int, k: int,
                       "grid": min(b * -(-kp // TILE) * wide, sms),
                       "norm_pass": wide > 1},
         "video_tiles": video_tiles,
-        "dassign": {"box_x": _box2(TILE), "box_v": _box2(kp),
+        "dassign": {"box_x": _box2(TILE), "box_v": _box2(min(kp, kn)),
                     "strides": (pp * 2, pp * 2),
-                    "stage": A_BYTES + kp * DEPTH * 2,
-                    "smem": _smem(STAGES * (A_BYTES + kp * DEPTH * 2)
+                    "stage": A_BYTES + min(kp, kn) * DEPTH * 2,
+                    "smem": _smem(STAGES * (A_BYTES + min(kp, kn) * DEPTH * 2)
                                   + 2 * STAGES * 8),
-                    "tiles": sum(video_tiles), "grid": sms},
+                    "cluster_tiles": -(-kp // kn) if wide_k else 1,
+                    "tiles": sum(video_tiles) * (-(-kp // kn) if wide_k
+                                                 else 1),
+                    "grid": sms,
+                    # the wide VJP launch: a warp a (frame, group) row
+                    "vjp_blocks": -(-cap * g // 8) if wide_k else 0,
+                    "dasg_floats": cap * g * kp if wide_k else 0},
         "dxg": {"box_a": _box2(TILE), "box_v": _box2(DEPTH),
                 "strides": (kp * 2, pp * 2), "stage": A_BYTES + 5 * BOX_BYTES,
                 "smem": _smem(STAGES * (A_BYTES + 5 * BOX_BYTES)
@@ -268,7 +311,7 @@ def kernel_plan() -> dict:
     """The compiled kernels' tiles and the card's SMs (card only)."""
     import ctypes
 
-    fwd = (ctypes.c_int * 13)()
+    fwd = (ctypes.c_int * 16)()
     _build.check_launch("yt8m_nextvlad_plan",
                         _build.library().yt8m_nextvlad_plan(fwd))
     bwd = (ctypes.c_int * 9)()
@@ -278,7 +321,8 @@ def kernel_plan() -> dict:
                     "rowprod_smem", "cluster_stages", "cluster_smem_64",
                     "cluster_smem_128", "cluster_smem_192",
                     "cluster_smem_256", "aggregate_stages",
-                    "aggregate_smem", "sms"), fwd))
+                    "aggregate_smem", "sms", "wide_clusters",
+                    "logits_stages", "logits_smem"), fwd))
     out.update(zip(("dassign_stages", "dassign_smem_64", "dassign_smem_128",
                     "dassign_smem_192", "dassign_smem_256", "dxg_stages",
                     "dxg_smem", "wgrad_stages", "wgrad_smem"), bwd))
@@ -396,12 +440,13 @@ def launch_forward(frames, num_frames, layout, residuals: bool = False):
             f"frames: dtype {frames.dtype}, want uint8 or float32")
     require(1 <= b <= 65535 and f >= 1,
             f"B={b} must be in [1, 65535] and F={f} at least 1")
-    require(k <= MAX_CLUSTERS,
-            f"nextvlad_aggregate takes K <= {MAX_CLUSTERS}, got K={k}")
+    require(k <= max_clusters(),
+            f"nextvlad_aggregate takes K <= {max_clusters()} on the card, "
+            f"got K={k}")
     cap = packed_capacity(b, f, g)
-    require(cap * g * max(n["Pp"], n["Kp"], 256) < 2 ** 31,
-            f"B * F = {b * f} frames of {g} groups is more packed rows "
-            f"than the kernel indexes")
+    require(indexable(b, f, g, n["Pp"], n["Kp"]),
+            f"B * F = {b * f} frames of {g} groups and K={k} is more "
+            f"packed rows than the kernel indexes")
     x = _frames_for_kernel(frames, n)
     require_cuda_operand("frames", x, frames.dtype, (b, f, n["D8"]))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
@@ -429,9 +474,13 @@ def launch_forward(frames, num_frames, layout, residuals: bool = False):
         "asum_part": empty((b, asum_slots(f, g), g, kp)),
         "a_sum": empty((b, kp)),
     })
-    if residuals:
+    wide = kp > MAX_CLUSTERS
+    if residuals or wide:
         s["alpha"] = empty((cap, g))
+    if residuals:
         s["sm"] = empty((cap, g * kp))
+    elif wide:
+        s["logits"] = empty((cap, g * kp))
     if residuals or ptiles > 1:
         s["vlad"] = empty((b, k, p))
     if ptiles > 1:
@@ -450,7 +499,7 @@ def launch_forward(frames, num_frames, layout, residuals: bool = False):
         _build.ptr(layout["wc"]), _build.ptr(layout["wa"]),
         _build.ptr(layout["ab"]), _build.ptr(layout["centers"]),
         _build.ptr(s["xb"]), _build.ptr(s["info"]), _build.ptr(s["xe"]),
-        opt("alpha"), _build.ptr(s["assign"]), opt("sm"),
+        opt("alpha"), _build.ptr(s["assign"]), opt("sm"), opt("logits"),
         _build.ptr(s["asum_part"]), _build.ptr(s["a_sum"]), opt("vlad"),
         opt("sumsq"), _build.ptr(out), b, f, n["D8"], g, k, p, cap,
         _build.current_stream(dev),

@@ -57,6 +57,7 @@ import torch
 from yt8m_tpu_torch.kernels import _build
 from yt8m_tpu_torch.kernels._checks import on_cpu, require, require_cuda_operand
 from yt8m_tpu_torch.kernels.nextvlad import (
+    MAX_CLUSTERS,
     NORM_EPS_SQ,
     TILE,
     WGRAD_SPLITS,
@@ -181,6 +182,8 @@ def launch_backward(num_frames, scratch, layout, dy):
         "part_ext": empty((WGRAD_SPLITS, gp, kx)),
         "part_we": empty((WGRAD_SPLITS, d8, gp)),
     }
+    if kp > MAX_CLUSTERS:
+        t["dasg"] = empty((cap * g, kp))
     dwe = empty((d8, gp))
     dwext = empty((gp, kx))
     dab = empty((g,))
@@ -195,6 +198,7 @@ def launch_backward(num_frames, scratch, layout, dy):
         *(_build.ptr(t[name]) for name in (
             "dv", "dvb", "cdot", "dact", "dpre", "dxg", "dxe", "part_ext",
             "part_we")),
+        _build.ptr(t["dasg"]) if "dasg" in t else None,
         _build.ptr(dwe), _build.ptr(dwext), _build.ptr(dab),
         _build.ptr(dce), b, f, d8, g, k, p, cap, WGRAD_SPLITS,
         _build.current_stream(dev),

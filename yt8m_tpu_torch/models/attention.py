@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yt8m_tpu_torch.kernels.attention_pool import attention_pool
+from yt8m_tpu_torch.kernels.ops import attention_pool
 from yt8m_tpu_torch.models.frame_utils import ensure_float, frame_mask
 from yt8m_tpu_torch.models.heads import l2_loss, rounded
 from yt8m_tpu_torch.models.hparams import ModelHParams

@@ -11,10 +11,10 @@ import torch
 from torch import nn
 
 from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
-from yt8m_tpu_torch.kernels.dbof import (
-    dbof_cluster_maxpool_int8,
-    dbof_cluster_maxpool_v2,
-    int8_serving_constants,
+from yt8m_tpu_torch.kernels.dbof import int8_serving_constants
+from yt8m_tpu_torch.kernels.ops import dbof_maxpool as dbof_cluster_maxpool_v2
+from yt8m_tpu_torch.kernels.ops import (
+    dbof_maxpool_int8 as dbof_cluster_maxpool_int8,
 )
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
@@ -168,6 +168,9 @@ class DbofModel(ServingModule):
             # From the f32 cluster kernel, not its bf16 copy.
             c["int8"] = int8_serving_constants(
                 self.cluster_kernel, *c["affine_u8"], *c["act_affine"])
+            # w8's cluster-major storage [K, D] as a plain tensor (what an
+            # exported program carries; the forward transposes the view).
+            c["int8_w8t"] = c["int8"][0].t()
         return c
 
     def _cluster_pool_plain(self, x_raw):
@@ -210,8 +213,9 @@ class DbofModel(ServingModule):
         # without it, its unfused graph computes v2's function.
         if (fused and hp.dbof_int8_serving and hp.dbof_use_pallas
                 and x_raw.dtype == torch.uint8):
+            c = self.serving_constants()
             pooled = dbof_cluster_maxpool_int8(
-                x_raw.contiguous(), *self.serving_constants()["int8"])
+                x_raw.contiguous(), c["int8_w8t"].t(), *c["int8"][1:])
         elif fused:
             c = self.serving_constants()
             s_in, b_in = c["affine_u8" if x_raw.dtype == torch.uint8

@@ -3,7 +3,12 @@
 The JAX package draws its uniforms from `jax.random`, whose stream torch
 cannot reproduce. So each sampler takes either a `torch.Generator` or the
 uniforms `u` themselves: the tests feed the port the JAX draws and
-compare the gathered frames exactly.
+compare the gathered frames exactly. A generator given as an int seed
+draws through the `frame_uniform` operator (kernels/ops.py), a fresh
+generator with that seed on every call: the serving export's baked draw,
+as the JAX export's PRNGKey(0). Under `torch.export` a sampler without a
+seed, a generator or `u` raises, so that no export bakes a per-call
+random draw.
 """
 
 from __future__ import annotations
@@ -30,6 +35,15 @@ def frame_mask(num_frames: torch.Tensor, max_frames: int,
 
 
 def _uniform(shape, like: torch.Tensor, generator, u):
+    if isinstance(generator, int) and not isinstance(generator, bool):
+        from yt8m_tpu_torch.kernels import ops
+
+        return ops.frame_uniform(like, shape[1], generator)
+    if u is None and torch.compiler.is_exporting():
+        raise ValueError("a frame sampler under torch.export needs a seed "
+                         "(generator=<int>) or u: torch.export keeps no "
+                         "generator, and its draw would change on every "
+                         "call")
     if u is not None:
         u = torch.as_tensor(u, dtype=torch.float32, device=like.device)
         if tuple(u.shape) != tuple(shape):

@@ -8,7 +8,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yt8m_tpu_torch.kernels.moe_head import moe_head_serving, pitched
+from yt8m_tpu_torch.kernels.moe_head import pitched_buffer
+from yt8m_tpu_torch.kernels.ops import moe_head as moe_head_serving
 from yt8m_tpu_torch.models.norm import BatchNorm
 from yt8m_tpu_torch.models.serving import ServingModule
 
@@ -122,11 +123,14 @@ class MoeHead(ServingModule):
         if not self.use_pallas:
             return {"gates": rounded(self.gates_kernel, self.dtype),
                     "experts": rounded(self.experts_kernel, self.dtype)}
-        # The kernel reads rows at a stride that is a multiple of 8.
-        return {
-            "gates": pitched(self.gates_kernel.to(self.dtype)),
-            "experts": pitched(self.experts_kernel.to(self.dtype)),
-        }
+        # The kernel reads rows at a stride that is a multiple of 8: views
+        # of padded buffers, which the forward slices itself, so that an
+        # exported program carries the plain buffers.
+        buffers = (pitched_buffer(self.gates_kernel.to(self.dtype)),
+                   pitched_buffer(self.experts_kernel.to(self.dtype)))
+        m, c = self.num_mixtures, self.vocab_size
+        return {"gates": buffers[0][:, :c * (m + 1)],
+                "experts": buffers[1][:, :c * m], "buffers": buffers}
 
     def forward(self, x):
         if self.training:
@@ -140,8 +144,11 @@ class MoeHead(ServingModule):
         c = self.serving_constants()
         if not self.use_pallas:
             return {"predictions": self._plain(x, c["gates"], c["experts"])}
+        m, v = self.num_mixtures, self.vocab_size
+        gates, experts = c["buffers"]
         probs = moe_head_serving(
-            x.to(torch.float32).contiguous(), c["gates"], c["experts"],
+            x.to(torch.float32).contiguous(), gates[:, :v * (m + 1)],
+            experts[:, :v * m],
             self.experts_bias.detach(), self.num_mixtures,
         )
         return {"predictions": probs}

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yt8m_tpu_torch.kernels.netvlad import netvlad_aggregate
+from yt8m_tpu_torch.kernels.ops import netvlad as netvlad_aggregate
 from yt8m_tpu_torch.kernels.netvlad_train import netvlad_core
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yt8m_tpu_torch.kernels.nextvlad import kernel_layout, nextvlad_aggregate
+from yt8m_tpu_torch.kernels.nextvlad import kernel_layout
+from yt8m_tpu_torch.kernels.ops import nextvlad as nextvlad_aggregate
 from yt8m_tpu_torch.kernels.nextvlad_train import nextvlad_aggregate_train
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
@@ -110,9 +111,12 @@ class NeXtVladModel(ServingModule):
             vlad = nextvlad_aggregate_train(
                 features, num_frames, *self._weights(), g, hp.dtype)
         elif not self.training and hp.nextvlad_use_pallas:
+            layout = self.serving_constants()["layout"]
             vlad = nextvlad_aggregate(
-                features.contiguous(), num_frames, *self._weights(), g,
-                hp.dtype, layout=self.serving_constants()["layout"])
+                features.contiguous(), num_frames,
+                *(w.detach() for w in self._weights()), g, hp.dtype,
+                [] if layout is None else
+                [layout["we"], layout["wc"], layout["wa"]])
         else:
             vlad = self._plain_aggregate(features, num_frames)
         return vlad.reshape(b, -1)

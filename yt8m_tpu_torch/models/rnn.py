@@ -34,10 +34,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yt8m_tpu_torch.kernels.gru import gru_recurrence
 from yt8m_tpu_torch.kernels.gru_train import gru_recurrence_trainable
-from yt8m_tpu_torch.kernels.lstm import lstm_recurrence
 from yt8m_tpu_torch.kernels.lstm_train import lstm_recurrence_trainable
+from yt8m_tpu_torch.kernels.ops import gru as gru_recurrence
+from yt8m_tpu_torch.kernels.ops import lstm as lstm_recurrence
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
     frame_mask,
@@ -132,10 +132,10 @@ class LstmLayer(ServingModule):
             xp = torch.matmul(xs.to(torch.bfloat16), c["wx"])  # [F, B, 4H]
             if self.reverse:
                 xp = torch.flip(xp, dims=(0,))
-            outputs, state = lstm_recurrence(
+            outputs, *state = lstm_recurrence(
                 xp.contiguous(), nf, c["wh"], self.bias.detach(),
-                reverse=self.reverse,
-            )
+                self.reverse)
+            state = tuple(state)
         if self.reverse:
             outputs = torch.flip(outputs, dims=(0,))
         return outputs, state
@@ -282,7 +282,7 @@ class GruLayer(ServingModule):
             outputs, h = gru_recurrence(
                 xg.contiguous(), xc.contiguous(), nf, c["whg"], c["whc"],
                 self.gate_bias.detach(), self.candidate_bias.detach(),
-                reverse=self.reverse)
+                self.reverse)
         if self.reverse:
             outputs = torch.flip(outputs, dims=(0,))
         return outputs, h

@@ -162,6 +162,7 @@ class Trainer:
             save_interval_steps=cfg.save_checkpoint_every_n_steps,
             async_save=cfg.async_checkpoint)
         self.summary = SummaryWriter(cfg.train_dir)
+        self._warned_raw_export = False
         self._write_model_flags()
 
     def _write_model_flags(self) -> None:
@@ -252,6 +253,9 @@ class Trainer:
                     t_log = time.time()
                     examples_since_log = 0
                 self.ckpt.save(step, state)
+                if (cfg.export_model_steps
+                        and step % cfg.export_model_steps == 0):
+                    self._export_serving(step)
             if step is not None:
                 self.ckpt.force_save(step, state)
             finished = True
@@ -265,6 +269,41 @@ class Trainer:
                  self.ckpt.blocking_seconds,
                  ", ".join(f"{t:.3f}" for t in self.ckpt.held_seconds))
         return step if step is not None else 0
+
+    def _export_serving(self, step: int) -> None:
+        """Periodic serving export (reference: export_model.py called from
+        the train loop every --export_model_steps) to
+        train_dir/export/step_<n>: a serving copy of the model with the
+        EMA weights under --use_ema_weights (an --ema_decay run without
+        it exports the raw weights and warns once). A failed export is
+        logged and training goes on."""
+        from yt8m_tpu_torch.infer.export import export_model
+
+        cfg = self.config
+        export_dir = os.path.join(cfg.train_dir, "export", f"step_{step}")
+        ema = False
+        weights = self.model.state_dict()
+        if cfg.ema_decay > 0:
+            if cfg.use_ema_weights and self.state.ema is not None:
+                weights = {**weights, **{
+                    name: value.to(weights[name].dtype)
+                    for name, value in self.state.ema.items()}}
+                ema = True
+            elif not self._warned_raw_export:
+                log.warning("--ema_decay=%g run exports RAW weights (pass "
+                            "--use_ema_weights to export the Polyak "
+                            "average)", cfg.ema_decay)
+                self._warned_raw_export = True
+        try:
+            serving = get_model(cfg.model, self.hparams)
+            serving.load_state_dict(weights)
+            serving.to(self.device).eval()
+            export_model(export_dir, cfg.model, self.hparams, serving,
+                         ema=ema)
+            log.info("exported serving model to %s (ema=%s)", export_dir,
+                     ema)
+        except Exception:  # an export never stops training
+            log.exception("serving export failed at step %d", step)
 
     def _start_profiler(self):
         from torch.profiler import ProfilerActivity, profile
