@@ -198,8 +198,24 @@ Phases, one line each with the elapsed seconds:
      the eval labels (every delta 0, exit 0). Phase 3 also runs NeXtVLAD
      at K = 264 and 520 (serving B=512, trainable B=256; the wide
      launches), phase 4 NeXtVladModel at K=520 through cli.inference and
-     phase 6 trains it 3 fused steps. A `phase:` line gives each phase's
-     seconds.
+     phase 6 trains it 3 fused steps;
+ 10. multi-GPU (parallel/): (a) the flagship at full width with
+     --netvlad_fused_train on torch.cuda.device_count() ranks over NCCL,
+     one a card (1 here), 3 data-parallel steps at global B=256 and 3
+     with --fsdp_min_size=1e8 (the VLAD hidden FC sharded where there are
+     several ranks), Adam: finite, falling losses, 1 + 1 netvlad_core and
+     2 + 2 trainable LSTM launches a step on every rank, each rank's step
+     time, peak memory and NCCL's device ms in one step; at one rank the
+     first data-parallel step bit for bit make_train_step's; (b) two
+     ranks sharing one card over gloo, one data-parallel and one FSDP
+     SGD step from the same weights on the same global batch (B=256)
+     against the one-device step, with a witness (the one-device step
+     from weights one float32 step off); (c) cli.train --num_devices=W
+     --fsdp_min_size=1e8 (W the cards: one rank here) to step 2, resumed
+     to 4, cli.eval --run_once and cli.inference at W ranks (with
+     several, the CSV byte for byte cli.inference's at one rank at the
+     ranks' batch from the same checkpoint). Phases 1-9 run the CLIs at
+     --num_devices=1. A `phase:` line gives each phase's seconds.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -331,6 +347,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -4203,7 +4220,7 @@ def end_to_end(torch, dev, data, path) -> dict:
     ]
     t0 = time.perf_counter()
     wrappers = zero_launches()
-    stats = inference_cli.main(argv)
+    stats = one_card(inference_cli)(argv)
     launches = read_launches(torch, wrappers)
     say("e2e", f"{path} inference CLI: {stats['num_videos']} videos, "
                f"{stats['videos_per_sec']:.1f} videos/s (batch {E2E_BATCH}, "
@@ -5025,7 +5042,7 @@ def cli_workflow(torch, dev, work, data) -> dict:
         for steps in (2, 4):
             wrappers = zero_launches()
             t0 = time.perf_counter()
-            last = train_cli.main(train + [f"--max_steps={steps}"])
+            last = one_card(train_cli)(train + [f"--max_steps={steps}"])
             launches[f"train to {steps}"] = read_launches(torch, wrappers)
             gc.collect()
             torch.cuda.empty_cache()
@@ -5059,7 +5076,7 @@ def cli_workflow(torch, dev, work, data) -> dict:
                         f"{restores} s")
 
         wrappers = zero_launches()
-        out_eval = eval_cli.main([
+        out_eval = one_card(eval_cli)([
             f"--eval_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", "--run_once", f"--batch_size={E2E_BATCH}",
             f"--device={dev.type}"])
@@ -5084,7 +5101,7 @@ def cli_workflow(torch, dev, work, data) -> dict:
 
         wrappers = zero_launches()
         out_csv = os.path.join(work, "workflow.csv")
-        stats = inference_cli.main([
+        stats = one_card(inference_cli)([
             f"--input_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", f"--output_file={out_csv}",
             f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
@@ -5143,7 +5160,7 @@ def async_workflow(torch, dev, work, data) -> dict:
                 train.append("--async_checkpoint")
             logs.messages.clear()
             for steps in ASYNC_STEPS:
-                last = train_cli.main(train + [f"--max_steps={steps}"])
+                last = one_card(train_cli)(train + [f"--max_steps={steps}"])
                 check(last == steps and step_dirs(run) == [steps]
                       and not [n for n in os.listdir(run)
                                if n.startswith(".")],
@@ -5206,8 +5223,9 @@ def default_workflow(torch, dev, work) -> dict:
     try:
         wrappers = zero_launches()
         t0 = time.perf_counter()
-        last = train_cli.main([f"--train_data_pattern={data}/train-*.tfrecord",
-                               f"--train_dir={run}"])
+        last = one_card(train_cli)([
+            f"--train_data_pattern={data}/train-*.tfrecord",
+            f"--train_dir={run}"])
         seconds["train"] = time.perf_counter() - t0
         launches["train"] = read_launches(torch, wrappers)
         with open(os.path.join(run, "model_flags.json")) as f:
@@ -5222,7 +5240,7 @@ def default_workflow(torch, dev, work) -> dict:
 
         wrappers = zero_launches()
         t0 = time.perf_counter()
-        out_eval = eval_cli.main([
+        out_eval = one_card(eval_cli)([
             f"--eval_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}"])
         seconds["eval"] = time.perf_counter() - t0
@@ -5244,7 +5262,7 @@ def default_workflow(torch, dev, work) -> dict:
         wrappers = zero_launches()
         out_csv = os.path.join(work, "default.csv")
         t0 = time.perf_counter()
-        stats = inference_cli.main([
+        stats = one_card(inference_cli)([
             f"--input_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", f"--output_file={out_csv}"])
         seconds["inference"] = time.perf_counter() - t0
@@ -5286,7 +5304,7 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
     try:
         wrappers = zero_launches()
         t0 = time.perf_counter()
-        last = train_cli.main([
+        last = one_card(train_cli)([
             f"--train_data_pattern={data}/train-*.tfrecord",
             f"--train_dir={run}", f"--batch_size={TRAIN_BATCH}",
             "--max_steps=2", "--save_checkpoint_every_n_steps=2",
@@ -5310,7 +5328,7 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
                   f"{launches['train'][fn]} times, want {want}")
 
         wrappers = zero_launches()
-        out_eval = eval_cli.main([
+        out_eval = one_card(eval_cli)([
             f"--eval_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", "--run_once", f"--batch_size={E2E_BATCH}",
             f"--device={dev.type}", *serve_flags])
@@ -5330,7 +5348,7 @@ def short_workflow(torch, dev, work, data, model, flags, train_want,
 
         wrappers = zero_launches()
         out_csv = os.path.join(work, f"{model}_workflow.csv")
-        stats = inference_cli.main([
+        stats = one_card(inference_cli)([
             f"--input_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", f"--output_file={out_csv}",
             f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
@@ -5384,7 +5402,7 @@ def optimizer_workflow(torch, dev, work, data) -> dict:
     try:
         t0 = time.perf_counter()
         for steps in (2, 4):
-            last = train_cli.main(train + [f"--max_steps={steps}"])
+            last = one_card(train_cli)(train + [f"--max_steps={steps}"])
             check(last == steps and step_dirs(run) == [steps],
                   f"Adafactor f32 cli.train --max_steps={steps}: step "
                   f"{last}, checkpoints {step_dirs(run)}")
@@ -5407,7 +5425,7 @@ def optimizer_workflow(torch, dev, work, data) -> dict:
         torch.cuda.empty_cache()
         wrappers = zero_launches()
         out_csv = os.path.join(work, "adafactor_f32.csv")
-        stats = inference_cli.main([
+        stats = one_card(inference_cli)([
             f"--input_data_pattern={data}/validate-*.tfrecord",
             f"--train_dir={run}", f"--output_file={out_csv}",
             f"--batch_size={E2E_BATCH}", f"--top_k={TOP_K}",
@@ -5531,7 +5549,7 @@ def reader_phase(torch, dev, work) -> dict:
         if kind == "python":  # the fallback, as where g++ is missing
             pipeline.get_native_lib = lambda: None
         try:
-            stats = inference_cli.main([
+            stats = one_card(inference_cli)([
                 f"--input_data_pattern={pattern}", f"--train_dir={run}",
                 f"--output_file={work}/reader_{kind}.csv",
                 f"--batch_size={E2E_BATCH}", f"--device={dev.type}"])
@@ -5669,7 +5687,7 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
         # (i) two members
         for m, (flags, kept) in members.items():
             n = len(logs.messages)
-            last = cli_run(f"train {m}", train_cli.main, [
+            last = cli_run(f"train {m}", one_card(train_cli), [
                 f"--train_data_pattern={data}/train-*.tfrecord",
                 f"--train_dir={runs[m]}", f"--batch_size={E2E_BATCH}",
                 f"--max_steps={MEMBER_STEPS}", "--log_every_n_steps=1",
@@ -5687,7 +5705,7 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
         # (ii) dumps on the train split
         dumps = {m: os.path.join(work, f"dump_{m}") for m in members}
         for m in members:
-            stats = cli_run(f"dump {m}", inference_cli.main, [
+            stats = cli_run(f"dump {m}", one_card(inference_cli), [
                 f"--input_data_pattern={data}/train-*.tfrecord",
                 f"--train_dir={runs[m]}", f"--output_probabilities_dir="
                 f"{dumps[m]}", "--output_file=", f"--batch_size={E2E_BATCH}",
@@ -5697,7 +5715,7 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
                   and stats["reader"] == "native",
                   f"dump of {m}: {stats}")
         sparse = os.path.join(work, "dump_sparse")
-        cli_run("sparse dump", inference_cli.main, [
+        cli_run("sparse dump", one_card(inference_cli), [
             f"--input_data_pattern={data}/train-*.tfrecord",
             f"--train_dir={runs['DbofModel']}",
             f"--output_probabilities_dir={sparse}", "--output_file=",
@@ -5737,7 +5755,7 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
                                                           ENSEMBLE_WEIGHTS))]
         ens_dump = os.path.join(work, "dump_ensemble")
         ens_csv = os.path.join(work, "ensemble_served.csv")
-        stats = cli_run("serve ensemble", inference_cli.main, [
+        stats = cli_run("serve ensemble", one_card(inference_cli), [
             f"--input_data_pattern={data}/train-*.tfrecord",
             f"--output_probabilities_dir={ens_dump}",
             f"--output_file={ens_csv}", f"--batch_size={E2E_BATCH}",
@@ -5788,7 +5806,7 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
         check(n == WF_TRAIN_VIDEOS, f"distill records: {n} annotated")
         n = len(logs.messages)
         student = os.path.join(work, "student")
-        cli_run("train student", train_cli.main, [
+        cli_run("train student", one_card(train_cli), [
             f"--train_data_pattern={records}/train-*.tfrecord",
             f"--train_dir={student}", f"--batch_size={STUDENT_BATCH}",
             f"--max_steps={STUDENT_STEPS}", "--log_every_n_steps=1",
@@ -5822,7 +5840,7 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
         check(len(boosting.load_boost_weights(weights)) == WF_TRAIN_VIDEOS,
               "boost weights")
         n = len(logs.messages)
-        cli_run("train boosted", train_cli.main, [
+        cli_run("train boosted", one_card(train_cli), [
             f"--train_data_pattern={data}/train-*.tfrecord",
             f"--train_dir={work}/boosted", f"--batch_size={STUDENT_BATCH}",
             f"--max_steps={STUDENT_STEPS}", "--log_every_n_steps=1",
@@ -5874,10 +5892,11 @@ def ensemble_workflow(torch, dev, work, data) -> dict:
 
 # The paths exported at their serving widths and held, in a fresh process,
 # to the eager serving step at two batch sizes; the rest of the zoo cut to
-# fit the run's time (one recurrent and convolutional layer, 30 frames,
+# fit the run's time (one recurrent and convolutional layer, 10 frames,
 # 32 VLAD/FV clusters: at the JAX defaults the 27 programs took 19.8 s to
 # export at most (LayerNormLstmModel's unrolled 300-step scan 198.0 s),
-# up to 5.0 GB each, and 133.1 s to load and serve) serving 8 videos.
+# up to 5.0 GB each, and 133.1 s to load and serve; at 30 frames its scan
+# took 19.0 s, the f32 flagship's 16.0) serving 8 videos.
 EXPORT_PATHS = {
     "DbofModel": (BATCH, 128),
     "DbofModel --dbof_int8_serving": (BATCH, 128),
@@ -5886,7 +5905,7 @@ EXPORT_PATHS = {
 }
 EXPORT_ZOO_VIDEOS = 8
 EXPORT_ZOO_CUT = dict(lstm_layers=1, gru_layers=1, cnn_layers=1,
-                      max_frames=30, netvlad_cluster_size=32)
+                      max_frames=10, netvlad_cluster_size=32)
 
 
 def export_zoo_paths() -> dict:
@@ -6112,7 +6131,7 @@ def trainer_export(torch, dev, work, data) -> dict:
 
     run = os.path.join(work, "export_run")
     t0 = time.perf_counter()
-    last = train_cli.main([
+    last = one_card(train_cli)([
         f"--train_data_pattern={data}/train-*.tfrecord", f"--train_dir={run}",
         "--batch_size=64", "--max_steps=2", "--export_model_steps=2",
         "--model=DbofModel", "--frame_features=true",
@@ -6246,6 +6265,519 @@ def parity_phase(work, data) -> dict:
                   f"{report['videos_compared']} videos: GAP "
                   f"{report['ours']['gap']:.6f}, every delta 0, exit {rc}")
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 10: multi-GPU training, eval and inference (parallel/)
+# ---------------------------------------------------------------------------
+
+PARALLEL_BATCH = TRAIN_BATCH  # the global batch of (a) and (b)
+PARALLEL_STEPS = 3
+# Shards the VLAD hidden FC (K*D x hidden = 294,912 x 1024 = 3.02e8
+# elements; dim 0 divides by 2 and 4) and nothing else: the next largest
+# variable, the MoE gates, holds 2.9e7.
+FSDP_MIN_SIZE = 100_000_000
+SHARED_RANKS = 2      # (b): ranks that share one card over gloo
+SHARED_STEPS = 1
+# (b)'s bounds against the one-device step, from the same weights on the
+# same global batches (SGD): the loss within 2e-3 relative; each
+# variable's (and BN statistic's) move, as a norm, within 2e-2
+# relative of the one-device move's, the flagship's bf16 bound
+# (tests/test_torch_train.py; the card-vs-CPU gradient norms below); and
+# its largest element deviation within max(2e-2, 2 x the witness's) of
+# its largest element move. The ranks' half batches run the kernels'
+# batch reductions (netvlad_core's dcenters, the LSTM's dW_h), the
+# gradient sums and the BN moments in another order (and the inline BN's
+# variance as max(E[x^2] - E[x]^2, 0), as the JAX manual step does); a
+# last-bit difference before a bf16 rounding moves an operand one bf16
+# step. The witness is the one-device step from the same weights moved
+# one float32 step each, up or down at random: float32 noise of the size
+# of another summation order. At the seed's saturated start (loss
+# ~1.9e3) it moved elements of two steps' moves by up to 0.12 of their
+# variable's largest (the VLAD hidden FC, read on the card), so the
+# element bound follows the witness. (b) takes one step of each kind,
+# its depth cut for the script's time.
+SHARED_LOSS_REL = 2e-3
+SHARED_MOVE_REL = 2e-2
+PARALLEL_TRAIN_VIDEOS = 32
+PARALLEL_EVAL_VIDEOS = 16
+PARALLEL_CLI_BATCH = 16
+PARALLEL_DEADLINE_S = 600.0  # each spawned group of phase 10
+
+
+def one_card(cli):
+    """`cli`'s main at one rank (--num_devices=1): phases 1-9 measure one
+    card, and on a machine with several the CLIs' default would start a
+    rank on each."""
+    def main(argv):
+        return cli.main([*argv, "--num_devices=1"])
+
+    return main
+
+
+def flagship_hparams(fused: bool = True) -> dict:
+    """The flagship's ModelHParams fields at the JAX defaults (bf16)."""
+    return dict(
+        vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=FLAG_FRAMES,
+        netvlad_cluster_size=VLAD_CLUSTERS, netvlad_hidden_size=VLAD_HIDDEN,
+        netvlad_add_batch_norm=True, netvlad_gating=True,
+        lstm_cells=LSTM_CELLS, lstm_layers=LSTM_LAYERS, lstm_pooling="last",
+        moe_num_mixtures=MIXTURES, compute_dtype="bfloat16",
+        netvlad_fused_train=fused)
+
+
+def seeded_flagship(torch, dev, seed: int, bn_axis: str = ""):
+    """The flagship drawn on `dev` from a seed, as the replay harness
+    (parallel/replay.py) draws it on each rank, in training mode."""
+    from yt8m_tpu_torch.models import ModelHParams, get_model
+
+    with torch.device(dev):
+        model = get_model("NetVladLstmModel", ModelHParams(
+            **flagship_hparams(), bn_axis=bn_axis))
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    return model.train()
+
+
+def comm_share(torch, fn) -> tuple:
+    """(NCCL kernels' device ms, all kernels' device ms) of one fn() by
+    the profiler; (None, None) where it saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.is_user_annotation]
+    if not kernels:
+        return None, None
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    comm = sum(e.self_device_time_total for e in kernels
+               if "nccl" in e.key.lower()) / 1e3
+    return comm, total
+
+
+def parallel_rank(steps: int, device_type: str) -> dict:
+    """One rank of phase 10 (a), over NCCL: the flagship at full width
+    with --netvlad_fused_train, `steps` data-parallel steps (every
+    variable replicated), then `steps` with --fsdp_min_size=FSDP_MIN_SIZE,
+    each from the seed-0 weights, on this rank's block of one repeated
+    global batch (Adam, the config defaults). At one rank the first
+    data-parallel step is held bit for bit to make_train_step's."""
+    import torch
+
+    from yt8m_tpu_torch.parallel import distributed
+    from yt8m_tpu_torch.parallel.mesh import DATA_AXIS, shard_batch
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import ParallelTrainState, TrainState
+    from yt8m_tpu_torch.train.step import (
+        make_parallel_train_step,
+        make_train_step,
+    )
+
+    world, rank = distributed.process_count(), distributed.process_index()
+    dev = distributed.rank_device(device_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    local = shard_batch(train_batch(torch, dev, PARALLEL_BATCH, seed=1),
+                        rank, world)
+    axis = DATA_AXIS if world > 1 else ""
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "name": torch.cuda.get_device_name(dev)}
+    if world == 1:
+        model = seeded_flagship(torch, dev, 0)
+        state = TrainState(model, global_batch_size=PARALLEL_BATCH)
+        # Only the metrics are kept: the returned state would hold the
+        # reference's model, gradients and Adam moments (5.55 GiB) in
+        # the peak of the steps below.
+        metrics = make_train_step(get_loss("CrossEntropyLoss"))(state,
+                                                                local)[1]
+        ref = {"loss": metrics["loss"].item(),
+               "params": {n: p.detach().cpu()
+                          for n, p in model.named_parameters()}}
+        del state, model, metrics
+        torch.cuda.empty_cache()
+    for mode, fsdp in (("ddp", 0), ("fsdp", FSDP_MIN_SIZE)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = seeded_flagship(torch, dev, 0, axis)
+        state = ParallelTrainState(model, fsdp_min_size=fsdp,
+                                   global_batch_size=PARALLEL_BATCH)
+        step = make_parallel_train_step(get_loss("CrossEntropyLoss"))
+        wrappers = zero_launches()
+        times, losses = timed_steps(torch, step, state, local, steps)
+        launches = read_launches(torch, wrappers)
+        r = {"losses": losses, "step_ms": statistics.median(times[1:]),
+             "times_ms": times, "launches": launches,
+             "sharded": sorted(state.shards),
+             "sharded_elements": sum(s.numel() * world
+                                     for s in state.shards.values()),
+             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        if mode == "ddp" and world == 1:
+            # Step 1 again from the seed, held to make_train_step's bits.
+            model1 = seeded_flagship(torch, dev, 0)
+            state1 = ParallelTrainState(model1,
+                                        global_batch_size=PARALLEL_BATCH)
+            m1 = step(state1, local)[1]  # (the state is state1)
+            r["bitwise_loss"] = m1["loss"].item() == ref["loss"]
+            r["bitwise_params"] = [n for n, p in model1.named_parameters()
+                                   if not torch.equal(p.cpu(),
+                                                      ref["params"][n])]
+            del state1, model1, m1, ref
+            torch.cuda.empty_cache()
+        r["comm_ms"], r["device_ms"] = comm_share(
+            torch, lambda: step(state, local))
+        out[mode] = r
+        del state, model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_one_rank_a_card(torch, dev) -> dict:
+    """(a): torch.cuda.device_count() ranks over NCCL; checks and prints."""
+    from yt8m_tpu_torch.parallel.distributed import launch
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = launch(parallel_rank, (PARALLEL_STEPS, dev.type), nprocs=world,
+                   device=dev.type, timeout_s=PARALLEL_DEADLINE_S)
+    seconds = time.perf_counter() - t0
+    fwd_want = PARALLEL_STEPS * LSTM_LAYERS
+    for r in ranks:
+        for mode in ("ddp", "fsdp"):
+            m = r[mode]
+            say("parallel", f"(a) rank {r['rank']}/{world} on {r['device']} "
+                            f"{mode}: global B={PARALLEL_BATCH} "
+                            f"({PARALLEL_BATCH // world} a rank), losses "
+                            f"{[round(x, 4) for x in m['losses']]}, step ms "
+                            f"{[round(t, 3) for t in m['times_ms']]} (median "
+                            f"of the last {PARALLEL_STEPS - 1}: "
+                            f"{m['step_ms']:.3f}), peak "
+                            f"{m['peak_gib']:.2f} GiB, sharded "
+                            f"{m['sharded']} ({m['sharded_elements']} "
+                            f"elements), NCCL {m['comm_ms']} of "
+                            f"{m['device_ms']} device ms in one step")
+            check(all(math.isfinite(x) for x in m["losses"])
+                  and m["losses"][-1] < m["losses"][0],
+                  f"(a) {mode} rank {r['rank']}: losses not finite and "
+                  f"falling: {m['losses']}")
+            for fn, want in (("netvlad_core_forward", PARALLEL_STEPS),
+                             ("netvlad_core_backward", PARALLEL_STEPS),
+                             ("lstm_train_forward", fwd_want),
+                             ("lstm_train_backward", fwd_want)):
+                check(m["launches"][fn] == want,
+                      f"(a) {mode} rank {r['rank']}: {fn} launched "
+                      f"{m['launches'][fn]} times in {PARALLEL_STEPS} steps,"
+                      f" want {want}")
+        sharded = r["fsdp"]["sharded"]
+        check(sharded == (["vlad_hidden_weights"] if world > 1 else []),
+              f"(a) FSDP at {world} ranks sharded {sharded}")
+        if world == 1:
+            m = r["ddp"]
+            say("parallel", f"(a) one rank: the data-parallel step against "
+                            f"make_train_step's, bit for bit: loss "
+                            f"{m['bitwise_loss']}, parameters that differ "
+                            f"{m['bitwise_params']}")
+            check(m["bitwise_loss"] and not m["bitwise_params"],
+                  "(a) the one-rank data-parallel step is not "
+                  "make_train_step's bit for bit")
+    say("parallel", f"(a) {world} rank(s) over NCCL in {seconds:.1f} s")
+    return {"world": world, "ranks": ranks, "seconds": seconds}
+
+
+def shared_batches(seed: int, steps: int) -> list:
+    """(b)'s global batches as numpy (they travel to the ranks)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"features": rng.integers(0, 256, (PARALLEL_BATCH, 300,
+                                               FEATURE_DIM), dtype=np.uint8),
+             "num_frames": rng.integers(FRAMES, 301, PARALLEL_BATCH)
+             .astype(np.int32),
+             "labels": (rng.random((PARALLEL_BATCH, CLASSES)) < 0.002)
+             .astype(np.float32),
+             "batch_mask": np.ones(PARALLEL_BATCH, np.float32)}
+            for _ in range(steps)]
+
+
+def one_device_replay(torch, dev, batches, nudge: bool = False) -> dict:
+    """make_train_step (SGD) from the seed-0 weights on `batches` (the
+    witness, `nudge`: each weight moved one float32 step up or down);
+    losses, the state after, the initial state (float32, on the
+    host)."""
+    from yt8m_tpu_torch.train.losses import get_loss
+    from yt8m_tpu_torch.train.state import TrainState
+    from yt8m_tpu_torch.train.step import make_train_step
+
+    model = seeded_flagship(torch, dev, 0)
+    start = {k: v.detach().to("cpu", torch.float32, copy=True)
+             for k, v in model.state_dict().items()}
+    if nudge:
+        g = torch.Generator(device=dev).manual_seed(5)
+        with torch.no_grad():
+            for p in model.parameters():
+                up = torch.rand(p.shape, generator=g, device=dev) < 0.5
+                p.copy_(torch.nextafter(p, torch.where(
+                    up, torch.full_like(p, math.inf),
+                    torch.full_like(p, -math.inf))))
+    state = TrainState(model, optimizer="SgdOptimizer",
+                       global_batch_size=PARALLEL_BATCH)
+    step = make_train_step(get_loss("CrossEntropyLoss"))
+    losses = []
+    for b in batches:
+        _, metrics = step(state, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in b.items()})
+        losses.append(metrics["loss"].item())
+    out = {"losses": losses, "start": start,
+           "state": {k: v.detach().to("cpu", torch.float32, copy=True)
+                     for k, v in model.state_dict().items()}}
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moves(torch, got, want, start) -> dict:
+    """{variable: (|move_got| / |move_want| - 1, max|got - want| /
+    max|want - start|)} (a variable that did not move counts its
+    difference alone)."""
+    out = {}
+    for k, w in want.items():
+        move, other = w - start[k], got[k] - start[k]
+        norm = float(torch.linalg.vector_norm(move, dtype=torch.float64))
+        top = float(torch.max(torch.abs(move)))
+        diff = float(torch.max(torch.abs(got[k] - w)))
+        out[k] = (float(torch.linalg.vector_norm(other, dtype=torch.float64))
+                  / norm - 1.0 if norm > 0 else 0.0,
+                  diff / top if top > 0 else diff)
+    return out
+
+
+def parallel_shared_card(torch, dev, work) -> dict:
+    """(b): SHARED_RANKS ranks on one card over gloo (NCCL refuses two
+    ranks on one card; gloo carries card tensors through host memory),
+    SHARED_STEPS data-parallel and SHARED_STEPS FSDP steps (SGD), against
+    the one-device step on the same global batches from the same
+    weights, with the witness of SHARED_LOSS_REL's comment."""
+    from yt8m_tpu_torch.parallel.distributed import launch
+    from yt8m_tpu_torch.parallel.replay import replay_all
+
+    batches = shared_batches(7, SHARED_STEPS)
+    specs = [dict(model="NetVladLstmModel", hparams=flagship_hparams(),
+                  seed=0, batches=batches, optimizer="SgdOptimizer",
+                  fsdp_min_size=fsdp, device=dev.type, state_ranks=[0],
+                  state_file=os.path.join(work, f"shared-{fsdp}-{{rank}}.pt"),
+                  train=dict(global_batch_size=PARALLEL_BATCH))
+             for fsdp in (0, FSDP_MIN_SIZE)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # The one-device replays run beside the ranks, on the same card.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = pool.submit(launch, replay_all, (specs,),
+                              nprocs=SHARED_RANKS, device=dev.type,
+                              backend="gloo",
+                              timeout_s=PARALLEL_DEADLINE_S)
+        ref = one_device_replay(torch, dev, batches)
+        nudged = one_device_replay(torch, dev, batches, nudge=True)
+        ranks = pending.result()
+    seconds = time.perf_counter() - t0
+    witness = moves(torch, nudged["state"], ref["state"], ref["start"])
+    w_loss = max(abs(a - b) / abs(b) for a, b in zip(nudged["losses"],
+                                                     ref["losses"]))
+    out = {"seconds": seconds, "witness_loss": w_loss,
+           "witness_top": max(w for _, w in witness.values())}
+    for i, mode in enumerate(("ddp", "fsdp")):
+        r = ranks[0][i]
+        got = moves(torch, torch.load(r["state"], weights_only=True),
+                    ref["state"], ref["start"])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                           ref["losses"]))
+        norm_name = max(got, key=lambda k: abs(got[k][0]))
+        excess = {k: got[k][1] / max(SHARED_MOVE_REL, 2 * witness[k][1])
+                  for k in got}
+        top_name = max(excess, key=excess.get)
+        say("parallel", f"(b) {SHARED_RANKS} ranks sharing one card over "
+                        f"gloo, {mode} ({SHARED_STEPS} SGD steps, sharded "
+                        f"{r['sharded']}): losses "
+                        f"{[round(x, 5) for x in r['losses']]} against the "
+                        f"one-device {[round(x, 5) for x in ref['losses']]}"
+                        f" ({loss_rel:.3e} relative, bound "
+                        f"{SHARED_LOSS_REL}); move norms within "
+                        f"{abs(got[norm_name][0]):.3e} ({norm_name}, bound "
+                        f"{SHARED_MOVE_REL}); element deviations, of the "
+                        f"largest move, {top_name} {got[top_name][1]:.3e} "
+                        f"against the witness's {witness[top_name][1]:.3e}"
+                        f" (bound max({SHARED_MOVE_REL}, 2 x witness)); the "
+                        f"witness's largest {out['witness_top']:.3e}, its "
+                        f"loss {w_loss:.3e}")
+        check(loss_rel <= SHARED_LOSS_REL
+              and abs(got[norm_name][0]) <= SHARED_MOVE_REL
+              and excess[top_name] <= 1.0,
+              f"(b) {mode}: the ranks sharing the card are not the "
+              f"one-device step (loss {loss_rel:.3e}, norm "
+              f"{got[norm_name][0]:.3e} on {norm_name}, element "
+              f"{got[top_name][1]:.3e} on {top_name})")
+        check(r["sharded"] == (["vlad_hidden_weights"] if mode == "fsdp"
+                               else []), f"(b) {mode} sharded {r['sharded']}")
+        check(r["digest"] == ranks[1][i]["digest"],
+              f"(b) {mode}: the ranks' models differ")
+        out[mode] = {"loss_rel": loss_rel,
+                     "norm_rel": abs(got[norm_name][0]),
+                     "element": (top_name, got[top_name][1])}
+    say("parallel", f"(b) the ranks and the replays in {seconds:.1f} s "
+                    f"(rank 0: "
+                    + json.dumps([{k: (round(v, 1) if isinstance(v, float)
+                                       else [round(x, 1) for x in v])
+                                   for k, v in r["seconds"].items()}
+                                  for r in ranks[0]])
+                    + ")")
+    return out
+
+
+def link_or_copy(src: str, dst: str) -> None:
+    """A checkpoint's large files hard-linked (a later step never rewrites
+    them), the rest copied (model_flags.json is rewritten in place)."""
+    if os.path.getsize(src) >= 1 << 20:
+        os.link(src, dst)
+    else:
+        shutil.copy2(src, dst)
+
+
+def parallel_workflow(torch, dev, work) -> dict:
+    """(c): cli.train --num_devices=W --fsdp_min_size=FSDP_MIN_SIZE to step
+    1; then, together, its resume to step 2 in new processes, cli.eval
+    --run_once and cli.inference at W ranks of the step-1 checkpoint (a
+    copy of the run), and cli.inference at one rank of that checkpoint at
+    the ranks' batch: the CSV byte for byte; last, the resumed step-2
+    checkpoint served on one rank. W is the card count over NCCL, or on
+    one card SHARED_RANKS ranks sharing it over gloo, so the multi-rank
+    Trainer (its padded batches, rank 0's gathered checkpoint, the
+    re-sharding restore) and the serving gathers run on the card either
+    way; its depth is cut for the script's time."""
+    from yt8m_tpu_torch.cli import eval as eval_cli
+    from yt8m_tpu_torch.cli import inference as inference_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.data.synthetic import write_dataset
+    from yt8m_tpu_torch.train.checkpoint import step_dirs
+
+    cards = torch.cuda.device_count()
+    world = cards if cards > 1 else SHARED_RANKS
+    spawn = dict(timeout_s=PARALLEL_DEADLINE_S,
+                 **({} if cards > 1 else {"backend": "gloo"}))
+    data = os.path.join(work, "parallel_data")
+    write_dataset(data, "train", num_shards=4,
+                  videos_per_shard=PARALLEL_TRAIN_VIDEOS // 4,
+                  frame_level=True, num_classes=CLASSES, seed=11)
+    write_dataset(data, "validate", num_shards=2,
+                  videos_per_shard=PARALLEL_EVAL_VIDEOS // 2,
+                  frame_level=True, num_classes=CLASSES, seed=12)
+    run = os.path.join(work, "parallel_run")
+    served = os.path.join(work, "parallel_served")
+    flags = [f"--train_data_pattern={data}/train-*.tfrecord",
+             f"--train_dir={run}", f"--batch_size={PARALLEL_CLI_BATCH}",
+             *FLAGSHIP_FLAGS, *reader_flags("NetVladLstmModel"),
+             f"--num_classes={CLASSES}", "--compute_dtype=bfloat16",
+             "--netvlad_fused_train", "--log_every_n_steps=1",
+             "--save_checkpoint_every_n_steps=1000",
+             # SGD: a step of its checkpoint is the model's 1.49 GB alone
+             "--optimizer=SgdOptimizer",
+             f"--num_devices={world}", f"--fsdp_min_size={FSDP_MIN_SIZE}",
+             f"--device={dev.type}"]
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return name, time.perf_counter() - t0, out
+
+    def serve(train_dir, n, batch, path):
+        return inference_cli.main([
+            f"--input_data_pattern={data}/validate-*",
+            f"--train_dir={train_dir}", f"--device={dev.type}",
+            f"--output_file={path}", f"--batch_size={batch}",
+            f"--num_devices={n}"], **(spawn if n > 1 else {}))
+
+    _, first_s, last = timed("train to 1", train_cli.main,
+                             flags + ["--max_steps=1"], **spawn)
+    check(last == 1 and step_dirs(run) == [1],
+          f"(c) cli.train --max_steps=1: step {last}, checkpoints "
+          f"{step_dirs(run)}")
+    shutil.copytree(run, served, copy_function=link_or_copy)
+    # At W ranks each serves PARALLEL_CLI_BATCH / W rows of a batch; the
+    # one-rank run at that batch serves the same rows together.
+    paths = {n: os.path.join(work, f"parallel-{n}.csv") for n in (world, 1)}
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        runs = [pool.submit(timed, "resume to 2", train_cli.main,
+                            flags + ["--max_steps=2"], **spawn),
+                pool.submit(timed, "eval", eval_cli.main, [
+                    f"--eval_data_pattern={data}/validate-*",
+                    f"--train_dir={served}", f"--device={dev.type}",
+                    "--run_once", f"--num_devices={world}",
+                    f"--batch_size={PARALLEL_CLI_BATCH}"], **spawn)]
+        runs += [pool.submit(timed, f"inference {n} x {batch}", serve,
+                             served, n, batch, paths[n])
+                 for n, batch in ((world, PARALLEL_CLI_BATCH),
+                                  (1, PARALLEL_CLI_BATCH // world))]
+        done = [r.result() for r in runs]
+    seconds = {"train to 1": first_s}
+    seconds.update((name, s) for name, s, _ in done)
+    check(done[0][2] == 2 and step_dirs(run) == [1, 2],
+          f"(c) cli.train --max_steps=2: step {done[0][2]}, checkpoints "
+          f"{step_dirs(run)}")
+    with open(os.path.join(run, "events.jsonl")) as f:
+        losses = [json.loads(line)["GlobalStep/Loss"] for line in f
+                  if "GlobalStep/Loss" in line]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"(c) the two runs logged {losses}")
+    metrics = done[1][2]
+    mean_ap = sum(metrics["aps"]) / len(metrics["aps"])
+    check(metrics["step"] == 1 and all(0 <= v <= 1 for v in (
+        metrics["gap"], metrics["avg_hit_at_one"], mean_ap)),
+        f"(c) cli.eval: {metrics}")
+    csv = {}
+    for (name, _, stats), n in zip(done[2:], (world, 1)):
+        check(stats["num_videos"] == PARALLEL_EVAL_VIDEOS
+              and check_csv(paths[n]) == PARALLEL_EVAL_VIDEOS,
+              f"(c) cli.{name}: {stats}")
+        with open(paths[n], "rb") as f:
+            csv[n] = f.read()
+    same = csv[world] == csv[1]
+    # The resumed step-2 checkpoint, written by the ranks, serves on one.
+    path = os.path.join(work, "parallel-resumed.csv")
+    _, seconds["inference 1 of step 2"], stats = timed(
+        "", serve, run, 1, PARALLEL_CLI_BATCH, path)
+    check(stats["num_videos"] == PARALLEL_EVAL_VIDEOS
+          and check_csv(path) == PARALLEL_EVAL_VIDEOS,
+          f"(c) cli.inference of step 2 at one rank: {stats}")
+    say("parallel", f"(c) the flagship through the CLIs at {world} ranks "
+                    + ("over NCCL" if cards > 1 else "sharing the card over "
+                       "gloo")
+                    + f" (--fsdp_min_size={FSDP_MIN_SIZE}): losses "
+                    f"{[round(x, 4) for x in losses]}; eval of step 1 GAP "
+                    f"{metrics['gap']:.5f} Hit@1 "
+                    f"{metrics['avg_hit_at_one']:.5f} mAP {mean_ap:.5f}; "
+                    f"the CSV byte for byte the one-rank run's at "
+                    f"{PARALLEL_CLI_BATCH // world} a batch: {same}; step 2 "
+                    f"served on one rank; seconds " + json.dumps(
+                        {k: round(v, 1) for k, v in seconds.items()}))
+    check(same, "(c) the CSV at several ranks is not the one-rank CSV")
+    return {"world": world, "seconds": seconds, "losses": losses}
+
+
+def parallel_phase(torch, dev, work) -> dict:
+    """Phase 10: (a) alone (its step times and peaks), then (b) and (c)
+    together: their ranks share the card."""
+    out = {"one_rank_a_card": parallel_one_rank_a_card(torch, dev)}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        workflow = pool.submit(parallel_workflow, torch, dev, work)
+        out["shared_card"] = parallel_shared_card(torch, dev, work)
+        out["workflow"] = workflow.result()
+    say("parallel", f"(b) and (c) together in "
+                    f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -6429,6 +6961,14 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_done("9 export and parity")
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        parallel = parallel_phase(torch, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_done("10 multi-GPU")
     # Launches on the main paths: DBoF's on the DbofModel serving path,
     # the int8 DBoF's on DbofModel's with --dbof_int8_serving (DBoF v1,
     # the sampled DBoF and dequant_affine_matmul lie on no model's path,
@@ -6520,6 +7060,18 @@ def main() -> int:
             check(r["launches"] > 0, f"{row['name']}: its f32 route was not "
                                      f"launched on {f32_main[row['name']]}")
             row["compute_f32"] = r
+    # Phase 10's data-parallel and FSDP steps launch the trainable LSTM
+    # and netvlad_core on every rank (rank 0's counts here).
+    rank0 = parallel["one_rank_a_card"]["ranks"][0]
+    for row in rows:
+        prefix = {"netvlad_core": "netvlad_core",
+                  "lstm_recurrence_trainable": "lstm_train"}.get(row["name"])
+        if prefix:
+            row["launches_by_path"][
+                f"data-parallel + FSDP training, rank 0 of "
+                f"{rank0['world']}"] = sum(
+                    rank0[m]["launches"][f"{prefix}_{d}"]
+                    for m in ("ddp", "fsdp") for d in ("forward", "backward"))
     # The shapes past the old limits (phase 3), each with its numbers.
     for row in rows:
         if row["name"] in new_shapes:

@@ -289,10 +289,16 @@ def test_use_ema_weights_without_decay_and_unported_flags_fail_fast(
         data, tmp_path):
     with pytest.raises(SystemExit, match="ema_decay"):
         tloop.Trainer(_port_cfg(data, str(tmp_path), use_ema_weights=True))
-    for kw in (dict(model_parallel=2), dict(fsdp_min_size=1000),
-               dict(num_devices=4)):
-        with pytest.raises(ValueError, match="not ported"):
-            _port_cfg(data, str(tmp_path), **kw)
+    # --model_parallel stays refused, with the JAX package's reason (TP
+    # training is deprecated there in favour of --fsdp_min_size).
+    with pytest.raises(ValueError,
+                       match="not ported.*deprecated.*--fsdp_min_size"):
+        _port_cfg(data, str(tmp_path), model_parallel=2)
+    # Multi-GPU training is ported (parallel/): --fsdp_min_size and
+    # --num_devices configure.
+    assert _port_cfg(data, str(tmp_path),
+                     fsdp_min_size=1000).fsdp_min_size == 1000
+    assert _port_cfg(data, str(tmp_path), num_devices=4).num_devices == 4
     # --adam_mu_dtype=bfloat16 is ported (train/optimizers.py), and so are
     # --async_checkpoint (train/checkpoint.py) and --export_model_steps
     # (infer/export.py).

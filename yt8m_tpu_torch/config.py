@@ -2,10 +2,14 @@
 reference's flag names and the JAX package's defaults (reference:
 train.py, eval.py, inference.py flags), plus `device` (default "cuda").
 
-Flags of features the port does not have yet are kept under their names
-and raise ValueError when set to anything but their default, so that no
-such flag is silently ignored (UNPORTED lists them, with what they would
-need).
+Flags of features the port does not have are kept under their names and
+raise ValueError when set to anything but their default, so that no such
+flag is silently ignored (UNPORTED lists them, with the reason).
+
+--num_devices is the number of ranks of a multi-GPU run (None: every
+visible card on the card, one rank on the CPU; parallel/distributed.py),
+for training, eval and inference; --fsdp_min_size shards the training
+state's large variables over them (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -16,13 +20,15 @@ from typing import Optional
 from yt8m_tpu_torch.data.features import get_feature_names_and_sizes
 from yt8m_tpu_torch.models.hparams import ModelHParams
 
-# flag -> why it raises. `num_devices` raises above 1.
+# flag -> why it raises.
 UNPORTED = {
-    "model_parallel": "tensor-parallel training (one device)",
-    "fsdp_min_size": "FSDP (one device)",
-    "num_devices": "multi-device training (one device)",
+    "model_parallel": (
+        "tensor-parallel training is deprecated in the JAX package (it "
+        "falls back to the GSPMD step with the fused train kernels off and "
+        "keeps the whole optimizer state on every chip; docs/FLAGS.md "
+        "--model_parallel); use --fsdp_min_size instead, which shards the "
+        "large variables and their optimizer state and keeps the kernels"),
 }
-_ALLOWED = {"num_devices": (None, 1)}
 
 
 class _Config:
@@ -34,11 +40,10 @@ class _Config:
             if field.name not in UNPORTED:
                 continue
             value = getattr(self, field.name)
-            ok = _ALLOWED.get(field.name, (field.default,))
-            if value not in ok:
+            if value != field.default:
                 raise ValueError(
-                    f"--{field.name}={value!r}: {UNPORTED[field.name]} is not "
-                    f"ported to the PyTorch package yet (see ROADMAP.md)")
+                    f"--{field.name}={value!r} is not ported to the PyTorch "
+                    f"package: {UNPORTED[field.name]} (see ROADMAP.md)")
 
     def resolved_hparams(self) -> ModelHParams:
         """feature_dim follows --feature_sizes, vocab_size --num_classes."""
@@ -99,7 +104,8 @@ class TrainConfig(_Config):
     distill_alpha: float = 0.5
     boost_weights_file: str = ""
 
-    # parallelism
+    # parallelism: ranks (None: every card), the FSDP threshold in
+    # elements (0: everything replicated)
     model_parallel: int = 1
     fsdp_min_size: int = 0
     num_devices: Optional[int] = None
@@ -146,6 +152,8 @@ class EvalConfig(_Config):
     device_metric_topk: int = 64
     seed: int = 0
     device: str = "cuda"
+    # ranks serving the batches (None: every card; one on the CPU)
+    num_devices: Optional[int] = None
     hparams: ModelHParams = dataclasses.field(default_factory=ModelHParams)
 
 
@@ -179,4 +187,6 @@ class InferenceConfig(_Config):
     output_probabilities_topk: int = 0
     seed: int = 0
     device: str = "cuda"
+    # ranks serving the batches (None: every card; one on the CPU)
+    num_devices: Optional[int] = None
     hparams: ModelHParams = dataclasses.field(default_factory=ModelHParams)

@@ -1,5 +1,5 @@
 """Evaluation loop (reference: eval.py :: evaluation_loop; the JAX
-package's eval/loop.py), on one device.
+package's eval/loop.py), on one device or one rank a card.
 
 Streams the eval split through the model's serving forward, accumulates
 GAP@20, Hit@1, PERR, mAP and the average loss, writes them as epoch
@@ -11,6 +11,16 @@ new checkpoints, or a sweep of every existing one (--max_evaluations=-1).
 With --ensemble_train_dirs the members' weighted average is evaluated
 (infer/ensemble_serve.py). The reader is make_batch_iterator's (the
 native parser where it builds; --num_readers, --reader_processes).
+
+Data-parallel (--num_devices, or torchrun; the JAX package's shard_map
+serving wrapper, train/step.py :: _jit_serving): every rank reads the
+whole stream and serves its dim-0 block of each padded global batch with
+the whole model. The per-video outputs are gathered to every rank in
+rank order, the two cross-batch sums (class_positives,
+nonfinite_predictions) summed over the ranks, and rank 0 alone
+accumulates the metrics, writes the summaries and logs, so its metrics
+are the one-card run's. A frame-sampling model draws per rank from the
+same seed, as the JAX wrapper's replicated key does.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from yt8m_tpu_torch.convert import load_model
 from yt8m_tpu_torch.data.pipeline import make_batch_iterator, reader_kind
 from yt8m_tpu_torch.device import resolve_device
 from yt8m_tpu_torch.metrics import EvaluationMetrics
+from yt8m_tpu_torch.parallel import distributed
+from yt8m_tpu_torch.parallel.mesh import shard_batch
 from yt8m_tpu_torch.train import losses as losses_lib
 from yt8m_tpu_torch.train.checkpoint import step_dirs
 from yt8m_tpu_torch.train.loop import reader_config_from, to_device
@@ -46,7 +58,9 @@ def evaluate_checkpoint(config: EvalConfig,
     EvaluationMetrics.get() plus videos_per_sec, step,
     nonfinite_predictions and reader (the reader that ran)."""
     cfg = config
-    device = resolve_device(cfg.device)
+    device = distributed.rank_device(resolve_device(cfg.device))
+    world, rank = distributed.process_count(), distributed.process_index()
+    distributed.per_host_batch(cfg.batch_size)  # divides over the ranks
     step = step if step is not None else cfg.checkpoint_step
     if cfg.ensemble_train_dirs:
         from yt8m_tpu_torch.infer.ensemble_serve import build_ensemble
@@ -77,7 +91,12 @@ def evaluate_checkpoint(config: EvalConfig,
     t0 = time.time()
     for batch in it:
         mask = batch["batch_mask"]
-        outs = eval_step(to_device(batch, device), generator)
+        local = shard_batch(batch, rank, world) if world > 1 else batch
+        outs = eval_step(to_device(local, device), generator)
+        if world > 1:
+            outs = _gathered(outs)
+        if rank != 0:
+            continue
         if sparse_k > 0:
             h = {k: v.cpu().numpy() for k, v in outs.items()}
             nonfinite += int(h["nonfinite_predictions"])
@@ -91,6 +110,8 @@ def evaluate_checkpoint(config: EvalConfig,
                                mask)
         n_videos += int(mask.sum())
 
+    if rank != 0:
+        return {"step": step}
     out = metrics.get()
     out["videos_per_sec"] = n_videos / max(time.time() - t0, 1e-9)
     out["step"] = step
@@ -122,6 +143,18 @@ def evaluate_checkpoint(config: EvalConfig,
     return out
 
 
+_SUMMED = ("class_positives", "nonfinite_predictions")
+
+
+def _gathered(outs):
+    """A rank's eval step outputs as the whole batch's: the per-video
+    ones gathered in rank order, the cross-batch ones summed."""
+    if isinstance(outs, tuple):
+        return tuple(distributed.all_gather_rows(t) for t in outs)
+    return {k: distributed.all_reduce_(v.clone()) if k in _SUMMED
+            else distributed.all_gather_rows(v) for k, v in outs.items()}
+
+
 def evaluation_loop(config: EvalConfig,
                     max_evaluations: Optional[int] = None) -> Dict:
     """--run_once (or --checkpoint_step): one evaluation. Otherwise poll
@@ -140,7 +173,8 @@ def evaluation_loop(config: EvalConfig,
     seen = set()
     last: Dict = {}
     while True:
-        steps = [s for s in step_dirs(config.train_dir) if s not in seen]
+        steps = distributed.agreed(lambda: [
+            s for s in step_dirs(config.train_dir) if s not in seen])
         if not steps:
             if sweep_only:
                 if not seen:

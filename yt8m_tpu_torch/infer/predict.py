@@ -16,6 +16,12 @@ One-deep pipeline: batch n is launched and its outputs' copies to the
 host queued before batch n-1 is written out, so the host formats and
 compresses while the device computes; the reader parses ahead in its own
 thread.
+
+Data-parallel (--num_devices, or torchrun; the JAX package's shard_map
+serving wrapper): every rank reads the whole stream and serves its dim-0
+block of each padded global batch; the outputs are gathered in rank
+order and rank 0 alone writes the CSV and the dumps, in the one-card
+run's order.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from yt8m_tpu_torch.data.pipeline import (  # noqa: F401  (format_lines)
 from yt8m_tpu_torch.device import resolve_device
 from yt8m_tpu_torch.kernels.ops import topk as serving_topk
 from yt8m_tpu_torch.kernels.topk import TOPK_NEG
+from yt8m_tpu_torch.parallel import distributed
+from yt8m_tpu_torch.parallel.mesh import shard_rows
 from yt8m_tpu_torch.train.loop import reader_config_from
 
 log = logging.getLogger("yt8m_tpu_torch.infer")
@@ -112,7 +120,9 @@ def inference(cfg: InferenceConfig, model=None) -> dict:
     --use_ema_weights. Returns num_videos, videos_per_sec,
     nonfinite_predictions, device and reader (the reader that ran).
     """
-    device = resolve_device(cfg.device)
+    device = distributed.rank_device(resolve_device(cfg.device))
+    world, rank = distributed.process_count(), distributed.process_index()
+    distributed.per_host_batch(cfg.batch_size)  # divides over the ranks
     if model is None and cfg.ensemble_train_dirs:
         from yt8m_tpu_torch.infer.ensemble_serve import build_ensemble
 
@@ -125,7 +135,8 @@ def inference(cfg: InferenceConfig, model=None) -> dict:
     dump_dir = cfg.output_probabilities_dir
     dump_topk = int(cfg.output_probabilities_topk or 0) if dump_dir else 0
     if dump_dir:
-        os.makedirs(dump_dir, exist_ok=True)
+        if rank == 0:
+            os.makedirs(dump_dir, exist_ok=True)
         try:
             dump_dtype = np.dtype(cfg.output_probabilities_dtype)
         except TypeError:
@@ -175,16 +186,26 @@ def inference(cfg: InferenceConfig, model=None) -> dict:
     out_file = cfg.output_file
     opener = gzip.open if out_file.endswith(".gz") else open
     t0 = time.perf_counter()
-    f = opener(out_file, "wt") if out_file else None
+    f = opener(out_file, "wt") if out_file and rank == 0 else None
     try:
         if f:
             f.write("VideoId,LabelConfidencePairs\n")
         pending = None
         for batch in it:
             keep = batch["batch_mask"] > 0
-            features = torch.from_numpy(batch["features"]).to(device)
-            num_frames = torch.from_numpy(batch["num_frames"]).to(device)
-            copy = _HostCopy(step(features, num_frames, generator), device)
+            rows = shard_rows(len(keep), rank, world)
+            features = torch.from_numpy(batch["features"][rows]).to(device)
+            num_frames = torch.from_numpy(batch["num_frames"][rows]).to(
+                device)
+            outs = step(features, num_frames, generator)
+            if world > 1:
+                outs = {k: tuple(map(distributed.all_gather_rows, v))
+                        if isinstance(v, tuple)
+                        else distributed.all_gather_rows(v)
+                        for k, v in outs.items()}
+            if rank != 0:
+                continue
+            copy = _HostCopy(outs, device)
             if pending is not None:
                 drain(pending, f)
             pending = (copy, batch["id"], keep)

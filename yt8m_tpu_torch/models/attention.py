@@ -98,7 +98,7 @@ class AttentionPoolingModel(ServingModule):
         self.attention = AttentionPool(d, h, hp.dtype)
         self.proj_weights = nn.Parameter(
             torch.empty(h * d, hp.attention_hidden_size))
-        self.proj_bn = BatchNorm(hp.attention_hidden_size)
+        self.proj_bn = BatchNorm(hp.attention_hidden_size, axis=hp.bn_axis)
         self.video_classifier = make_classifier_head(
             hp, hp.attention_hidden_size)
         self.reset_parameters()

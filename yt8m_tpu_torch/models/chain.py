@@ -125,10 +125,10 @@ class ChainNetVladModel(_ChainModel):
         self.hp = hp
         d, k = hp.feature_dim, hp.netvlad_cluster_size
         self.vlad = NetVladAggregation(d, k, hp.netvlad_add_batch_norm,
-                                       hp.dtype, fused_train(hp))
+                                       hp.dtype, fused_train(hp), hp.bn_axis)
         self.hidden1_weights = nn.Parameter(
             torch.empty(k * d, hp.netvlad_hidden_size))
-        self.hidden1_bn = BatchNorm(hp.netvlad_hidden_size)
+        self.hidden1_bn = BatchNorm(hp.netvlad_hidden_size, axis=hp.bn_axis)
         self.chain = ChainStack(hp, hp.netvlad_hidden_size)
         self.reset_parameters()
 

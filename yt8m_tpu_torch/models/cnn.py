@@ -75,7 +75,8 @@ class FrameCnnModel(ServingModule):
         for i in range(hp.cnn_layers):
             setattr(self, f"conv{i}", Conv1d(width, hp.cnn_filters,
                                              hp.cnn_kernel, hp.dtype))
-            setattr(self, f"conv{i}_bn", BatchNorm(hp.cnn_filters))
+            setattr(self, f"conv{i}_bn", BatchNorm(hp.cnn_filters,
+                                                   axis=hp.bn_axis))
             width = hp.cnn_filters
         self.video_classifier = make_classifier_head(hp, width)
         self.reset_parameters()

@@ -40,7 +40,7 @@ class DeepCombineChainModel(ServingModule):
                 width += h + half
             setattr(self, f"mix{i}_weights",
                     nn.Parameter(torch.empty(width, h)))
-            setattr(self, f"mix{i}_bn", BatchNorm(h))
+            setattr(self, f"mix{i}_bn", BatchNorm(h, axis=hp.bn_axis))
             setattr(self, f"stage{i}", moe_head(hp, h))
         self.reset_parameters()
 

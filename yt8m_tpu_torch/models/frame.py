@@ -109,12 +109,12 @@ class DbofModel(ServingModule):
             self.cluster_bias = nn.Parameter(torch.zeros(k))
         self.hidden_kernel = nn.Parameter(torch.empty(k, h))
         if hp.dbof_add_batch_norm:
-            self.hidden_bn = BatchNorm(h)
+            self.hidden_bn = BatchNorm(h, axis=hp.bn_axis)
         else:
             self.hidden_bias = nn.Parameter(torch.zeros(h))
         if self.gated:
             self.context_gate = ContextGate(h, hp.dbof_add_batch_norm,
-                                            hp.dtype)
+                                            hp.dtype, hp.bn_axis)
         self.video_classifier = make_classifier_head(hp, h)
         self.reset_parameters()
 
@@ -182,13 +182,13 @@ class DbofModel(ServingModule):
         if hp.dbof_add_batch_norm:
             x = inline_bn(x, self.input_bn_scale, self.input_bn_bias,
                           self.input_bn_mean, self.input_bn_var,
-                          self.training)
+                          self.training, hp.bn_axis)
         act = torch.matmul(rounded(x, hp.dtype),
                            rounded(self.cluster_kernel, hp.dtype))
         if hp.dbof_add_batch_norm:
             act = inline_bn(act, self.cluster_bn_scale, self.cluster_bn_bias,
                             self.cluster_bn_mean, self.cluster_bn_var,
-                            self.training)
+                            self.training, hp.bn_axis)
         else:
             act = act + self.cluster_bias
         act = torch.relu(act).reshape(b, s, -1)

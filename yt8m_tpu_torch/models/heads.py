@@ -176,12 +176,12 @@ class ContextGate(ServingModule):
     """
 
     def __init__(self, dim: int, add_batch_norm: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bn_axis: str = ""):
         super().__init__()
         self.dtype = dtype
         self.gating_kernel = nn.Parameter(torch.empty(dim, dim))
         if add_batch_norm:
-            self.gating_bn = BatchNorm(dim)
+            self.gating_bn = BatchNorm(dim, axis=bn_axis)
         else:
             self.gating_bias = nn.Parameter(torch.zeros(dim))
         self.reset_parameters()

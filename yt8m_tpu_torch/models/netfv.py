@@ -52,10 +52,10 @@ class NetFVModel(ServingModule):
         self.cluster_centers = nn.Parameter(torch.empty(k, d))
         self.covar_weights = nn.Parameter(torch.ones(k, d))
         if hp.netvlad_add_batch_norm:
-            self.cluster_bn = BatchNorm(k)
+            self.cluster_bn = BatchNorm(k, axis=hp.bn_axis)
         self.hidden1_weights = nn.Parameter(
             torch.empty(2 * k * d, hp.netvlad_hidden_size))
-        self.hidden1_bn = BatchNorm(hp.netvlad_hidden_size)
+        self.hidden1_bn = BatchNorm(hp.netvlad_hidden_size, axis=hp.bn_axis)
         self.video_classifier = make_classifier_head(
             hp, hp.netvlad_hidden_size)
         self.reset_parameters()

@@ -52,10 +52,11 @@ class NetVladAggregation(ServingModule):
 
     def __init__(self, feature_dim: int, cluster_size: int,
                  add_batch_norm: bool = True, dtype=torch.float32,
-                 fused_train: bool = False):
+                 fused_train: bool = False, bn_axis: str = ""):
         super().__init__()
         d, k = feature_dim, cluster_size
         self.dtype = dtype
+        self.bn_axis = bn_axis
         self.fused_train = fused_train
         self.add_batch_norm = add_batch_norm
         self.cluster_weights = nn.Parameter(torch.empty(d, k))
@@ -115,7 +116,8 @@ class NetVladAggregation(ServingModule):
                            rounded(self.cluster_weights, self.dtype))
         if self.add_batch_norm:
             act = inline_bn(act, self.cluster_bn_scale, self.cluster_bn_bias,
-                            self.cluster_bn_mean, self.cluster_bn_var, True)
+                            self.cluster_bn_mean, self.cluster_bn_var, True,
+                            self.bn_axis)
         else:
             act = act + self.cluster_biases
         mask = frame_mask(num_frames, f)
@@ -164,7 +166,8 @@ def add_hidden_fc(model, prefix: str, in_features: int, hidden: int,
     setattr(model, f"{prefix}_weights",
             nn.Parameter(torch.empty(in_features, hidden)))
     if add_batch_norm:
-        setattr(model, f"{prefix}_bn", BatchNorm(hidden))
+        setattr(model, f"{prefix}_bn", BatchNorm(hidden,
+                                                 axis=model.hp.bn_axis))
     else:
         setattr(model, f"{prefix}_biases", nn.Parameter(torch.empty(hidden)))
 
@@ -194,11 +197,11 @@ class _NetVladBase(ServingModule):
         d, k = hp.feature_dim, hp.netvlad_cluster_size
         h = hp.netvlad_hidden_size
         self.vlad = NetVladAggregation(d, k, hp.netvlad_add_batch_norm,
-                                       hp.dtype, fused_train(hp))
+                                       hp.dtype, fused_train(hp), hp.bn_axis)
         add_hidden_fc(self, "hidden1", k * d, h, hp.netvlad_add_batch_norm)
         if self.gating:
             self.context_gate = ContextGate(h, hp.netvlad_add_batch_norm,
-                                            hp.dtype)
+                                            hp.dtype, hp.bn_axis)
         self.video_classifier = make_classifier_head(hp, h)
         self.reset_parameters()
 

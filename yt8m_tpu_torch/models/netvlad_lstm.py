@@ -44,14 +44,15 @@ class _NetVladLstmBase(ServingModule):
         self.hp = hp
         d, k = hp.feature_dim, hp.netvlad_cluster_size
         bn = hp.netvlad_add_batch_norm
-        self.vlad = NetVladAggregation(d, k, bn, hp.dtype, fused_train(hp))
+        self.vlad = NetVladAggregation(d, k, bn, hp.dtype, fused_train(hp),
+                                       hp.bn_axis)
         add_hidden_fc(self, "vlad_hidden", k * d, hp.netvlad_hidden_size, bn)
         rnn_width = add_lstm_stack(self, d, hp.lstm_cells, hp.lstm_layers,
                                    hp.dtype, self.bidirectional,
                                    hp.lstm_layer_norm)
         fused = hp.netvlad_hidden_size + rnn_width
         if hp.netvlad_gating:
-            self.context_gate = ContextGate(fused, bn, hp.dtype)
+            self.context_gate = ContextGate(fused, bn, hp.dtype, hp.bn_axis)
         self.video_classifier = make_classifier_head(hp, fused)
         self.reset_parameters()
 

@@ -60,10 +60,10 @@ class NeXtVladModel(ServingModule):
         self.group_attention_bias = nn.Parameter(torch.zeros(g))
         self.cluster_weights = nn.Parameter(torch.empty(de, g * k))
         self.cluster_weights2 = nn.Parameter(torch.empty(k, p))
-        self.vlad_bn = BatchNorm(k * p)
+        self.vlad_bn = BatchNorm(k * p, axis=hp.bn_axis)
         self.hidden1_weights = nn.Parameter(torch.empty(k * p, h))
-        self.hidden1_bn = BatchNorm(h)
-        self.context_gate = ContextGate(h, True, hp.dtype)
+        self.hidden1_bn = BatchNorm(h, axis=hp.bn_axis)
+        self.context_gate = ContextGate(h, True, hp.dtype, hp.bn_axis)
         self.video_classifier = make_classifier_head(hp, h)
         self.reset_parameters()
 

@@ -17,6 +17,16 @@ port keeps its own. Two kinds, as in the JAX package:
 Training mode normalises with the batch moments (biased variance) and
 moves the running statistics once per forward, ra = 0.99 ra + 0.01 batch,
 outside autograd.
+
+Cross-replica moments: where the training model's `hparams.bn_axis` is
+set (the trainer of a multi-GPU run sets it, and never records it), both
+kinds average the first and second moments over the ranks of the process
+group, one all-reduce a site whose backward all-reduces the cotangents,
+and the variance is max(E[x^2] - E[x]^2, 0) for both (the JAX package's
+bn_moments with an axis; for the inline BN this differs from the
+single-device E[(x - mean)^2], as it does there). The ranks' batches are
+of equal size, so these are the global batch's moments. Without an axis
+nothing changes.
 """
 
 from __future__ import annotations
@@ -24,8 +34,34 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from yt8m_tpu_torch.parallel.distributed import all_reduce_, process_count
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks; the backward sums the cotangents likewise."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce_(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone())
+
+
+def replica_moments(x):
+    """(E[x], max(E[x^2] - E[x]^2, 0)) over axis 0 and over the ranks of
+    the process group (one rank where there is none)."""
+    world = process_count()
+    moments = torch.stack([torch.mean(x, dim=0),
+                           torch.mean(torch.square(x), dim=0)])
+    if world > 1:
+        moments = _AllReduceSum.apply(moments) / world
+    mean, mean2 = moments[0], moments[1]
+    return mean, torch.clamp_min(mean2 - torch.square(mean), 0.0)
 
 
 def bn_fold(scale, bias, mean, var, eps: float = BN_EPS):
@@ -39,9 +75,12 @@ def bn_apply(x, scale, bias, mean, var, eps: float = BN_EPS):
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-def bn_moments(x):
+def bn_moments(x, axis: str = ""):
     """Batch mean and biased variance E[(x - mean)^2] over axis 0 (the
-    JAX package's models/norm.py :: bn_moments, jnp.var)."""
+    JAX package's models/norm.py :: bn_moments, jnp.var); cross-replica
+    moments where `axis` is set."""
+    if axis:
+        return replica_moments(x)
     mean = torch.mean(x, dim=0)
     return mean, torch.mean(torch.square(x - mean), dim=0)
 
@@ -53,11 +92,12 @@ def update_running(ra_mean, ra_var, mean, var) -> None:
         ra_var.copy_(BN_MOMENTUM * ra_var + (1.0 - BN_MOMENTUM) * var)
 
 
-def inline_bn(x, scale, bias, ra_mean, ra_var, training: bool):
+def inline_bn(x, scale, bias, ra_mean, ra_var, training: bool,
+              axis: str = ""):
     """The inline BN of DBoF and NetVLAD: batch moments (and a running
     statistics update) in training, the running statistics otherwise."""
     if training:
-        mean, var = bn_moments(x)
+        mean, var = bn_moments(x, axis)
         update_running(ra_mean, ra_var, mean, var)
     else:
         mean, var = ra_mean, ra_var
@@ -67,18 +107,23 @@ def inline_bn(x, scale, bias, ra_mean, ra_var, training: bool):
 class BatchNorm(nn.Module):
     """flax's nn.BatchNorm over the last axis, with flax's parameter names
     (`scale`, `bias`; running `mean`, `var`) and arithmetic order:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias. `axis` (the
+    model's hparams.bn_axis) makes the training moments cross-replica."""
 
-    def __init__(self, features: int, eps: float = BN_EPS):
+    def __init__(self, features: int, eps: float = BN_EPS, axis: str = ""):
         super().__init__()
         self.eps = eps
+        self.axis = axis
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x):
-        if self.training:
+        if self.training and self.axis:
+            mean, var = replica_moments(x)
+            update_running(self.mean, self.var, mean, var)
+        elif self.training:
             mean = torch.mean(x, dim=0)
             var = torch.clamp_min(
                 torch.mean(torch.square(x), dim=0) - torch.square(mean), 0.0)

@@ -30,6 +30,15 @@ exception of the writer is raised on the caller's thread at the next
 save, force_save or close. `held_seconds` lists the time each save and
 force_save held the caller (the copy, any wait for the writer, and the
 write itself when it is synchronous); `blocking_seconds` is their sum.
+
+In a multi-GPU run every rank holds a TrainState and makes the same
+saves; rank 0 alone writes, in the format a one-card run writes: the
+model (every rank holds it whole), and the optimizer state and EMA
+gathered from the sharded variables' blocks (ParallelTrainState).
+Whether a step is due is rank 0's decision, sent to the others, and
+every rank waits at a barrier after each save. A restore reads the same
+files on every rank and re-shards them, so a checkpoint moves between
+one card and N ranks either way.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional
 
 import torch
+
+from yt8m_tpu_torch.parallel import distributed
 
 MODEL_FILE = "model.pt"
 OPTIMIZER_FILE = "optimizer.pt"
@@ -65,13 +76,19 @@ def _to_host(obj):
     return obj
 
 
-def snapshot(state) -> Dict[str, object]:
+def snapshot(state, keep: bool = True) -> Optional[Dict[str, object]]:
     """The files of a step from a TrainState: host copies of the model's
-    and the optimizer's state dicts and of the EMA."""
+    and the optimizer's state dicts and of the EMA. In a multi-GPU run
+    every rank takes part in the gathers and only rank 0 keeps the
+    copies (`keep`); the others get None."""
+    optimizer = state.optimizer_state()
+    ema = state.ema_state()
+    if not keep:
+        return None
     files = {MODEL_FILE: _to_host(state.model.state_dict()),
-             OPTIMIZER_FILE: _to_host(state.optimizer.state_dict())}
-    if state.ema is not None:
-        files[EMA_FILE] = _to_host(state.ema)
+             OPTIMIZER_FILE: _to_host(optimizer)}
+    if ema is not None:
+        files[EMA_FILE] = _to_host(ema)
     return files
 
 
@@ -114,6 +131,8 @@ def step_dirs(directory: str) -> List[int]:
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 5,
                  save_interval_steps: int = 1, async_save: bool = False):
+        self.world = distributed.process_count()
+        self.writer = distributed.process_index() == 0
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(int(save_interval_steps), 1)
@@ -134,10 +153,17 @@ class CheckpointManager:
         return os.path.join(self.directory, str(step))
 
     def should_save(self, step: int) -> bool:
-        latest = self.latest_step()
-        if latest is not None and latest >= step:
+        if step % self.save_interval_steps:
             return False
-        return step % self.save_interval_steps == 0
+        return distributed.agreed(lambda: self._later_than_latest(step))
+
+    def _later_than_latest(self, step: int) -> bool:
+        latest = self.latest_step()
+        return latest is None or latest < step
+
+    def _barrier(self) -> None:
+        if self.world > 1:
+            distributed.barrier()
 
     @property
     def blocking_seconds(self) -> float:
@@ -160,10 +186,11 @@ class CheckpointManager:
         t0 = time.perf_counter()
         try:
             self.wait()
-            if step in self.all_steps():
+            if distributed.agreed(lambda: step in self.all_steps()):
                 return False
             self._write(step, state)
             self.wait()
+            self._barrier()
             return True
         finally:
             self.held_seconds.append(time.perf_counter() - t0)
@@ -193,8 +220,10 @@ class CheckpointManager:
     def _write(self, step: int, state) -> None:
         self.wait()  # a save waits for the one in flight: steps in order
         t0 = time.perf_counter()
-        files = snapshot(state)
-        if self.async_save:
+        files = snapshot(state, keep=self.writer)
+        if not self.writer:
+            pass
+        elif self.async_save:
             if self._writer is None:
                 self._writer = ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="checkpoint-writer")
@@ -202,6 +231,7 @@ class CheckpointManager:
                                                 time.perf_counter())
         else:
             self._commit(step, files, t0)
+        self._barrier()
 
     def _commit(self, step: int, files, t0: float) -> None:
         path = write_step(self.directory, step, files)
@@ -238,23 +268,14 @@ class CheckpointManager:
                 f"Adam's only), and a fresh optimizer would not resume that "
                 f"run; serve the step with cli.eval or cli.inference")
         state.model.load_state_dict(_load(path, MODEL_FILE))
-        opt = _load(path, OPTIMIZER_FILE)
-        # Which implementation runs the update (fused on the card) is the
-        # live optimizer's, not part of the saved state.
-        for saved, live in zip(opt["param_groups"],
-                               state.optimizer.param_groups):
-            for key in ("fused", "foreach", "capturable"):
-                if key in live:
-                    saved[key] = live[key]
-        state.optimizer.load_state_dict(opt)
+        state.model_loaded()
+        state.load_optimizer_state(_load(path, OPTIMIZER_FILE))
         state.step = int(step)
         has_ema = os.path.exists(os.path.join(path, EMA_FILE))
         if not has_ema:
             state.ema = None
         elif state.ema is not None:
-            device = next(iter(state.ema.values())).device
-            for name, value in _load(path, EMA_FILE).items():
-                state.ema[name].copy_(value.to(device))
+            state.load_ema(_load(path, EMA_FILE))
         else:
             if for_write:
                 log.warning(

@@ -1,5 +1,5 @@
 """Training loop (reference: train.py :: Trainer; the JAX package's
-train/loop.py), on one device.
+train/loop.py), on one device or one rank a card.
 
 Reader (make_batch_iterator: the native parser, shuffled by file, with
 --num_readers threads or --reader_processes; --num_epochs; the teacher
@@ -15,6 +15,21 @@ Restarting in the same train_dir resumes from the latest checkpoint
 Trainer's does. The frame-sampling generator of a step is seeded from
 (seed + 1, step), as the JAX Trainer folds the step into its key, so a
 resumed run samples the frames the uninterrupted run would have.
+
+In a multi-GPU run (parallel/distributed.py: torchrun, or --num_devices
+through the CLI's launcher) each rank reads its files
+(shard_files(files, rank, world)) at batch_size // world with seed
+cfg.seed + rank, and steps with make_parallel_train_step on a
+ParallelTrainState (--fsdp_min_size shards the large variables). The
+training model's BatchNorm moments are cross-replica (hparams.bn_axis,
+set on the training model only and never recorded). The frame-sampling
+generator is seeded from (seed + 1, step, rank), as the JAX manual step
+folds in the axis index. The run goes on while any rank has data; a rank
+whose files are done (or that got none) steps on batches of padding,
+which contribute nothing. Only rank 0 logs, writes the summaries and
+model_flags.json, checkpoints (the one-card format) and exports; the
+loss is global and Examples/sec counts the global batch; the training
+batch's Hit@1, PERR and GAP are rank 0's rows'.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import torch
 from yt8m_tpu_torch.config import TrainConfig
 from yt8m_tpu_torch.data.pipeline import make_batch_iterator, reader_kind
 from yt8m_tpu_torch.data.readers import ReaderConfig
+from yt8m_tpu_torch.data.tfrecord import glob_files, shard_files
 from yt8m_tpu_torch.device import resolve_device
 from yt8m_tpu_torch.metrics import (
     calculate_gap,
@@ -38,13 +54,18 @@ from yt8m_tpu_torch.metrics import (
     calculate_precision_at_equal_recall_rate,
 )
 from yt8m_tpu_torch.models import get_model, is_frame_level_model
+from yt8m_tpu_torch.parallel import distributed
+from yt8m_tpu_torch.parallel.mesh import DATA_AXIS
 from yt8m_tpu_torch.train import losses as losses_lib
 from yt8m_tpu_torch.train.checkpoint import (
     CheckpointManager,
     maybe_wipe_train_dir,
 )
-from yt8m_tpu_torch.train.state import TrainState
-from yt8m_tpu_torch.train.step import make_train_step
+from yt8m_tpu_torch.train.state import ParallelTrainState, TrainState
+from yt8m_tpu_torch.train.step import (
+    make_parallel_train_step,
+    make_train_step,
+)
 from yt8m_tpu_torch.utils.summary import SummaryWriter
 
 log = logging.getLogger("yt8m_tpu_torch.train")
@@ -100,25 +121,58 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(batch[k]).to(device) for k in keys}
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The frame-sampling generator of `step`, seeded from (seed, step)."""
-    value = np.random.SeedSequence([seed, step]).generate_state(
-        1, np.uint64)[0]
+def step_generator(seed: int, step: int, device,
+                   rank=None) -> torch.Generator:
+    """The frame-sampling generator of `step`, seeded from (seed, step),
+    or from (seed, step, rank) for one rank of a multi-GPU run."""
+    entropy = [seed, step] + ([] if rank is None else [rank])
+    value = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(value))
+
+
+def padding_batch(rc: ReaderConfig, batch_size: int, boosted: bool) -> dict:
+    """A batch of padding rows as the reader pads a final batch (zero
+    features, labels and teacher, no frames, mask 0; weights 1 where the
+    run is boosted)."""
+    if rc.frame_features:
+        feats = np.zeros((batch_size, rc.max_frames, rc.feature_dim),
+                         np.uint8)
+        num_frames = np.zeros((batch_size,), np.int32)
+    else:
+        feats = np.zeros((batch_size, rc.feature_dim), np.float32)
+        num_frames = np.ones((batch_size,), np.int32)
+    batch = {"id": [b""] * batch_size, "features": feats,
+             "labels": np.zeros((batch_size, rc.num_classes), np.float32),
+             "num_frames": num_frames,
+             "batch_mask": np.zeros((batch_size,), np.float32)}
+    if rc.distill_feature:
+        batch["teacher"] = np.zeros((batch_size, rc.distill_dim), np.float32)
+    if boosted:
+        batch["example_weights"] = np.ones((batch_size,), np.float32)
+    return batch
 
 
 class Trainer:
     def __init__(self, config: TrainConfig):
         self.config = cfg = config
-        maybe_wipe_train_dir(cfg.train_dir, cfg.start_new_model)
         self.hparams = cfg.resolved_hparams()
         if cfg.use_ema_weights and cfg.ema_decay <= 0:
             # Without --ema_decay no EMA is kept, so --use_ema_weights
             # would serve raw weights (the serving restore raises the same).
             raise SystemExit(
                 "--use_ema_weights requires training with --ema_decay > 0")
-        self.device = resolve_device(cfg.device)
-        self.model = get_model(cfg.model, self.hparams)
+        self.world = distributed.process_count()
+        self.rank = distributed.process_index()
+        self.device = distributed.rank_device(resolve_device(cfg.device))
+        if self.rank == 0:
+            maybe_wipe_train_dir(cfg.train_dir, cfg.start_new_model)
+        if self.world > 1:
+            distributed.barrier()
+        # The training model's BatchNorm moments span the ranks; the
+        # recorded hparams (model_flags.json, exports) keep the user's.
+        train_hparams = (self.hparams.replace(bn_axis=DATA_AXIS)
+                         if self.world > 1 else self.hparams)
+        self.model = get_model(cfg.model, train_hparams)
         if is_frame_level_model(cfg.model) != cfg.frame_features:
             log.warning("model %s frame-level=%s but --frame_features=%s",
                         cfg.model, is_frame_level_model(cfg.model),
@@ -129,11 +183,20 @@ class Trainer:
                    if cfg.label_loss == "MixedCrossEntropyDistillLoss"
                    else {})
         self.loss_obj = losses_lib.get_loss(cfg.label_loss, **loss_kw)
+        files, self.rank_batch, seed = (cfg.train_data_pattern,
+                                        cfg.batch_size, cfg.seed)
+        if self.world > 1:
+            # Each rank reads its own files at its share of the batch; a
+            # rank without a file steps on padding (_batches).
+            files = shard_files(glob_files(files), self.rank, self.world)
+            self.rank_batch = distributed.per_host_batch(cfg.batch_size)
+            seed += self.rank
         self.data_iterator = make_batch_iterator(
-            cfg.train_data_pattern, reader_config_from(cfg),
-            batch_size=cfg.batch_size, num_readers=cfg.num_readers,
+            files, reader_config_from(cfg), batch_size=self.rank_batch,
+            num_readers=cfg.num_readers,
             reader_processes=cfg.reader_processes, shuffle=True,
-            num_epochs=cfg.num_epochs, seed=cfg.seed, pad_final_batch=True)
+            num_epochs=cfg.num_epochs, seed=seed,
+            pad_final_batch=True) if files else []
         if cfg.boost_weights_file:
             from yt8m_tpu_torch.ensemble.boosting import (
                 BoostedIterator,
@@ -145,15 +208,19 @@ class Trainer:
         self.reader = reader_kind(self.data_iterator)
         log.info("reading %s with the %s reader", cfg.train_data_pattern,
                  self.reader)
-        self.state = TrainState(
-            self.model, optimizer=cfg.optimizer,
+        state_cls, make_step, sharding = TrainState, make_train_step, {}
+        if self.world > 1:
+            state_cls, make_step = ParallelTrainState, make_parallel_train_step
+            sharding = {"fsdp_min_size": cfg.fsdp_min_size}
+        self.state = state_cls(
+            self.model, **sharding, optimizer=cfg.optimizer,
             base_learning_rate=cfg.base_learning_rate,
             learning_rate_decay=cfg.learning_rate_decay,
             learning_rate_decay_examples=cfg.learning_rate_decay_examples,
             global_batch_size=cfg.batch_size,
             clip_gradient_norm=cfg.clip_gradient_norm,
             ema=cfg.ema_decay > 0, adam_mu_dtype=cfg.adam_mu_dtype)
-        self.train_step = make_train_step(
+        self.train_step = make_step(
             self.loss_obj, regularization_penalty=cfg.regularization_penalty,
             aux_loss_weight=self.hparams.chain_aux_loss_weight,
             ema_decay=cfg.ema_decay)
@@ -161,9 +228,11 @@ class Trainer:
             cfg.train_dir, max_to_keep=cfg.max_checkpoints_to_keep,
             save_interval_steps=cfg.save_checkpoint_every_n_steps,
             async_save=cfg.async_checkpoint)
-        self.summary = SummaryWriter(cfg.train_dir)
+        self.summary = (SummaryWriter(cfg.train_dir) if self.rank == 0
+                        else None)
         self._warned_raw_export = False
-        self._write_model_flags()
+        if self.rank == 0:
+            self._write_model_flags()
 
     def _write_model_flags(self) -> None:
         """model_flags.json in the JAX trainer's format, from which eval
@@ -193,14 +262,17 @@ class Trainer:
             if self.config.ema_decay > 0 and state.ema is None:
                 # A pre-EMA checkpoint with EMA newly enabled: seed the
                 # average from the restored parameters.
-                state.ema = {n: p.detach().to(torch.float32).clone()
-                             for n, p in self.model.named_parameters()}
+                state.ema = state.fresh_ema()
         return state.step
 
     def _log(self, step, metrics, batch, examples, seconds) -> None:
         cfg = self.config
         loss = float(metrics["loss"].item())
         check_loss_finite(loss, step, cfg.fail_on_nan_loss)
+        if self.world > 1:
+            examples = int(distributed.host_all_reduce([examples])[0])
+        if self.rank != 0:
+            return
         eps = examples / max(seconds, 1e-9)
         mask = batch["batch_mask"] > 0
         preds = metrics["predictions"].float().cpu().numpy()[mask]
@@ -218,6 +290,24 @@ class Trainer:
             "PERR": perr, "GAP": gap,
         })
 
+    def _batches(self):
+        """The reader's batches; in a multi-GPU run, while any rank has
+        one, with padding where this rank has none."""
+        if self.world == 1:
+            yield from self.data_iterator
+            return
+        it = iter(self.data_iterator)
+        while True:
+            batch = next(it, None)
+            if not distributed.host_all_reduce(
+                    [batch is not None], op=torch.distributed.ReduceOp.MAX)[0]:
+                return
+            if batch is None:
+                batch = padding_batch(reader_config_from(self.config),
+                                      self.rank_batch,
+                                      bool(self.config.boost_weights_file))
+            yield batch
+
     def run(self) -> int:
         """Train to --max_steps or the end of the data; the last step."""
         cfg = self.config
@@ -232,14 +322,17 @@ class Trainer:
         # unless another exception is already on its way out.
         finished = False
         try:
-            for batch in self.data_iterator:
+            for batch in self._batches():
                 if step is None:
                     step = self.restore()
                 if cfg.max_steps is not None and step >= cfg.max_steps:
                     break
-                if cfg.profile_dir and step == 10 and profiler is None:
+                if (cfg.profile_dir and step == 10 and profiler is None
+                        and self.rank == 0):
                     profiler = self._start_profiler()
-                generator = step_generator(cfg.seed + 1, step, self.device)
+                generator = step_generator(
+                    cfg.seed + 1, step, self.device,
+                    self.rank if self.world > 1 else None)
                 state, metrics = self.train_step(
                     state, to_device(batch, self.device), generator)
                 step += 1
@@ -263,7 +356,8 @@ class Trainer:
             self.ckpt.close(raise_errors=finished)
             if profiler is not None:
                 self._stop_profiler(profiler)
-            self.summary.close()
+            if self.summary is not None:
+                self.summary.close()
         log.info("training complete at step %s; checkpoint saves held the "
                  "training thread %.3f s (%s s a save)", step,
                  self.ckpt.blocking_seconds,
@@ -283,11 +377,16 @@ class Trainer:
         export_dir = os.path.join(cfg.train_dir, "export", f"step_{step}")
         ema = False
         weights = self.model.state_dict()
+        # Every rank takes part in gathering a sharded EMA; rank 0 exports.
+        averaged = (self.state.ema_state()
+                    if cfg.ema_decay > 0 and cfg.use_ema_weights else None)
+        if self.rank != 0:
+            return
         if cfg.ema_decay > 0:
-            if cfg.use_ema_weights and self.state.ema is not None:
+            if averaged is not None:
                 weights = {**weights, **{
                     name: value.to(weights[name].dtype)
-                    for name, value in self.state.ema.items()}}
+                    for name, value in averaged.items()}}
                 ema = True
             elif not self._warned_raw_export:
                 log.warning("--ema_decay=%g run exports RAW weights (pass "

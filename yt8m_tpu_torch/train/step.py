@@ -1,6 +1,6 @@
 """The train and eval steps (reference: the JAX package's train/step.py
-:: make_train_step, make_eval_step, make_sparse_eval_step; single
-device).
+:: make_train_step, make_eval_step, make_sparse_eval_step, and the
+manual multi-device train step, _make_manual_train_step).
 
 One step: the model's training forward (BatchNorm running statistics
 move once), the label loss as a masked mean over `batch_mask` (times
@@ -16,6 +16,20 @@ label) triplets through sorted_topk, its count of positive labels, the
 batch's positives per class over real rows and the count of non-finite
 predictions over real rows: all that EvaluationMetrics.accumulate_topk
 needs, and all that crosses to the host.
+
+make_parallel_train_step is one rank's step of a multi-GPU run, on a
+ParallelTrainState and this rank's rows of the global batch. It keeps the
+JAX manual step's semantics: the label and aux losses divide by the
+global sum of mask * example_weights (one all-reduce before the forward),
+so each rank's objective is its contribution to the global loss and the
+contributions' gradients sum to the global gradient; the regularization
+loss is divided by the number of ranks, so it counts once; replicated
+gradients are summed, sharded ones reduce-scattered (the transpose of the
+gather on use); the reported loss and label loss are the global ones,
+summed with the gradients; the BatchNorm moments are the global batch's
+(the trainer builds the training model with hparams.bn_axis set). A rank
+without a real row contributes exactly 0. At one rank it computes what
+make_train_step computes, bit for bit.
 """
 
 from __future__ import annotations
@@ -23,35 +37,45 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.kernels.topk import sorted_topk
+from yt8m_tpu_torch.parallel.distributed import all_reduce_
 from yt8m_tpu_torch.train.losses import BaseLoss
 from yt8m_tpu_torch.train.state import TrainState
 
 
-def masked_mean(per_example, mask):
-    return torch.sum(per_example * mask) / torch.clamp_min(torch.sum(mask),
-                                                          1.0)
+def masked_mean(per_example, mask, den=None):
+    """sum(per_example * mask) / den, by default max(sum(mask), 1)."""
+    if den is None:
+        den = torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(per_example * mask) / den
+
+
+def loss_mask(batch: dict) -> torch.Tensor:
+    """The batch's mask times its example weights, where it has them."""
+    mask = batch["batch_mask"].to(torch.float32)
+    weights = batch.get("example_weights")
+    return mask if weights is None else mask * weights
 
 
 def compute_loss(model, batch: dict, loss_obj: BaseLoss,
                  regularization_penalty: float = 1.0,
-                 aux_loss_weight: float = 0.5, generator=None, u=None):
+                 aux_loss_weight: float = 0.5, generator=None, u=None,
+                 den=None):
     """The model's forward on `batch` in its current mode and the step's
-    objective: (total, label_loss, regularization_loss, model outputs)."""
+    objective: (total, label_loss, regularization_loss, model outputs).
+    The masked means divide by `den` where it is given (a data-parallel
+    rank's global mask sum), else by this batch's."""
     labels = batch["labels"]
-    mask = batch["batch_mask"].to(torch.float32)
+    mask = loss_mask(batch)
     teacher = batch.get("teacher")
-    weights = batch.get("example_weights")
-    if weights is not None:
-        mask = mask * weights
     out = model(batch["features"], batch["num_frames"], generator=generator,
                 u=u)
     label_loss = masked_mean(
         loss_obj.calculate_loss(out["predictions"], labels, teacher=teacher),
-        mask)
+        mask, den)
     total = label_loss
     for aux in out.get("aux_predictions", []):
         total = total + aux_loss_weight * masked_mean(
-            loss_obj.calculate_loss(aux, labels, teacher=teacher), mask)
+            loss_obj.calculate_loss(aux, labels, teacher=teacher), mask, den)
     reg = out.get("regularization_loss",
                   torch.zeros((), device=label_loss.device))
     return total + regularization_penalty * reg, label_loss, reg, out
@@ -80,6 +104,42 @@ def make_train_step(loss_obj: BaseLoss, regularization_penalty: float = 1.0,
         metrics = {
             "loss": total.detach(),
             "label_loss": label_loss.detach(),
+            "reg_loss": torch.as_tensor(reg).detach(),
+            "predictions": out["predictions"].detach(),
+        }
+        return state, metrics
+
+    return train_step
+
+
+def make_parallel_train_step(loss_obj: BaseLoss,
+                             regularization_penalty: float = 1.0,
+                             aux_loss_weight: float = 0.5,
+                             ema_decay: float = 0.0):
+    """train_step(state, batch, generator=None, u=None) -> (state,
+    metrics) for a ParallelTrainState and this rank's rows: the metrics of
+    make_train_step, the loss and label loss global, the predictions this
+    rank's."""
+
+    def train_step(state, batch: dict, generator=None, u=None):
+        state.model.train()
+        den = torch.clamp_min(all_reduce_(torch.sum(loss_mask(batch))), 1.0)
+        total, label_part, reg, out = compute_loss(
+            state.model, batch, loss_obj,
+            regularization_penalty / state.world, aux_loss_weight,
+            generator, u, den)
+        state.optimizer.zero_grad(set_to_none=True)
+        for p in state.params:
+            p.grad = None
+        total.backward()
+        sums = state.reduce_gradients(
+            torch.stack([total.detach(), label_part.detach()]))
+        state.apply_gradients()
+        if ema_decay > 0.0 and state.ema is not None:
+            state.update_ema(ema_decay)
+        metrics = {
+            "loss": sums[0],
+            "label_loss": sums[1],
             "reg_loss": torch.as_tensor(reg).detach(),
             "predictions": out["predictions"].detach(),
         }
