@@ -62,7 +62,12 @@ Phases, one line each with the elapsed seconds:
      1001 and K = 37, attention pooling at D = 1001 and 19 heads), frames
      past num_frames planted, each with its CUDA-event and profiler
      times, the plain version's, the torch.matmul f32 graph's (TF32 off)
-     and its bound at the f32 rate outside the tensor cores; the shapes
+     and its bound at the f32 rate outside the tensor cores (DBoF v2 and
+     the MoE head, 3xTF32 routes on the weights' split copies: their
+     bound is three TF32 products at the TF32 rate, the FMA units' bound
+     beside it, and each route's and the f32 graph's error against a
+     float64 product at the serving shapes; DBoF's at depths
+     D = 256 .. 16384 too); the shapes
      past the kernels' old limits, bf16 and f32 routes: the MoE head at
      M = 17 (the run-time tile), 32 and 200 (chunks of 120 mixtures) at
      B=512, H=2048, C=4716, with chunk edges (M = 122, 240, 241) and gate
@@ -105,7 +110,8 @@ Phases, one line each with the elapsed seconds:
      --moe_head_pallas=false (no MoE launch: the plain head); CSV
      checks, and 8 videos compared with the same model on the CPU;
   5. each serving step alone on frames already on the card (DbofModel at
-     B=2048 with and without --dbof_int8_serving, GatedDbofModel and
+     B=2048 with and without --dbof_int8_serving and at
+     --compute_dtype=float32 (the 3xTF32 routes), GatedDbofModel and
      SoftDbofModel at B=2048, the others at B=512): median step time of
      5, and device time by kernel from torch.profiler; one recurrence
      launch a layer in the flagship's and GruModel's steps, PER_BATCH's
@@ -314,8 +320,11 @@ Tolerances, max|kernel - plain| on the same inputs:
     with f32 weights): <= 1e-5 * max|ref| + 1e-5, NetVLAD's + 1e-8 (its
     L2-normalised descriptor holds values near 1.8e-3 at the serving
     shape, where + 1e-5 would let a bf16 rounding of x or Wc through).
-    Nothing is rounded on either side (TF32 is off); only the order of
-    the f32 sums differs.
+    Nothing is rounded to bf16 on either side (the plain versions run
+    with TF32 off); NetVLAD's and attention pooling's kernels differ from
+    them in the order of the f32 sums only, DBoF v2's and the MoE head's
+    also by their 3xTF32 split (about 2^-21 of each product; the float64
+    witness prints its distance beside the f32 graph's).
   * card vs CPU end to end (8 videos): probabilities within 2e-3, and
     within 1e-5 * max|ref| at --compute_dtype=float32; the per-video
     eval loss from the workflow's checkpoint within 2e-3 relative.
@@ -353,10 +362,12 @@ T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM datasheet peaks (dense): bf16 and int8 tensor cores, f32
-# outside them, device memory rate.
+# outside them, TF32 tensor cores (the f32 routes of DBoF v2 and the MoE
+# head: three TF32 products an f32 product), device memory rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 
 BATCH = 2048          # bench.py's serving batch (DbofModel)
@@ -3057,84 +3068,194 @@ def f32_check(name, got, want, abs_=1e-5) -> float:
     return rel_check(name, got, want, rel=F32_REL, abs_=abs_)
 
 
+def route_bound(flops, nbytes, peak, split_bytes=0) -> dict:
+    """A route's bound_ms and bound_by at the peak rate of its operands'
+    type. A 3xTF32 route (split_bytes > 0: the weights' split copies, read
+    in place of the f32 weights) does three TF32 products at the TF32
+    rate: that is its bound, and the bound at the card's f32 rate outside
+    the tensor cores, which the route no longer uses, is kept as
+    bound_fma_ms and bound_fma_by."""
+    if not split_bytes:
+        ms, by = bound(flops, nbytes, peak)
+        return {"bound_ms": ms, "bound_by": by}
+    ms, by = bound(3 * flops, nbytes + split_bytes, PEAK_TF32_FLOPS)
+    fma_ms, fma_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by, "bound_fma_ms": fma_ms,
+            "bound_fma_by": fma_by}
+
+
+def say_bound(r) -> str:
+    fma = (f"; the FMA units' bound {r['bound_fma_ms']:.4f} by "
+           f"{r['bound_fma_by']} at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s"
+           if "bound_fma_ms" in r else "")
+    return f"bound {r['bound_ms']:.4f} by {r['bound_by']}{fma}"
+
+
 def f32_timing(torch, fn, plain, library, needle, flush, reps, flops,
-               nbytes) -> dict:
+               nbytes, split_bytes=0) -> dict:
     """A route's times at its serving shape: CUDA events (median), the
     profiler's device time, the plain version's and the library
-    yardstick's (the torch.matmul f32 graph, TF32 off), and the bound at
-    the card's f32 rate outside the tensor cores."""
+    yardstick's (the torch.matmul f32 graph, TF32 off), and its bound
+    (route_bound: the card's f32 rate outside the tensor cores, or three
+    TF32 products at the TF32 rate for a 3xTF32 route)."""
     ms = time_ms(torch, fn, reps, flush)
     device_ms = device_us(torch, fn, needle) / 1e3
     plain_ms = time_ms(torch, plain, 3, flush)
     library_ms = time_ms(torch, library, 3, flush)
-    bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "library_ms": library_ms,
+            **route_bound(flops, nbytes, PEAK_F32_FLOPS, split_bytes)}
 
 
 def say_f32(name, shape, r) -> None:
     say("kernel", f"{name} f32 {shape}: ok, max|diff| {r['max_abs_err']:.3e}"
                   f"; {r['ms']:.4f} ms events, {r['device_ms']:.4f} ms "
                   f"profiler (plain {r['plain_ms']:.4f}, library "
-                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']} at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s "
-                  f"f32)")
+                  f"{r['library_ms']:.4f}, {say_bound(r)})")
 
 
-def check_f32_dbof(torch, gen, dev, flush) -> dict:
+def f64_witness(torch, name, got, graph, want64) -> dict:
+    """The 3xTF32 route's and the f32 torch.matmul graph's max error
+    against the same function with its products in float64, and the
+    largest |value|: each f32 computation's own distance from the exact
+    product."""
+    top = want64.abs().max().item()
+    r = {"route_vs_f64": (got.double() - want64).abs().max().item(),
+         "graph_vs_f64": (graph.double() - want64).abs().max().item(),
+         "max_abs_f64": top}
+    say("witness", f"{name}: max|route - f64| {r['route_vs_f64']:.3e}, "
+                   f"max|f32 graph - f64| {r['graph_vs_f64']:.3e} "
+                   f"(max|f64| {top:.3e}; the check's bound "
+                   f"{F32_REL * top + 1e-5:.3e})")
+    return r
+
+
+def depth_witness(torch, gen, dev) -> list:
+    """The 3xTF32 product's error against depth: DBoF v2's f32 route at
+    S = 1 with the identity affines, whose output is relu(x W) (each
+    positive value one product of D terms), against float64 and beside
+    the f32 graph, at D = 256 .. 16384, B=512, K=1024, f32 frames: the
+    stages' sums on the FMA units keep it near the graph's at every D
+    (one chain of wgmmas over D drifted linearly in D)."""
     from yt8m_tpu_torch.kernels.dbof import (
         dbof_cluster_maxpool_plain,
         dbof_cluster_maxpool_v2,
     )
+    from yt8m_tpu_torch.kernels.tf32 import split_weights
+
+    rows = []
+    b, k = 512, 1024
+    for d in (256, 1152, 4096, 16384):
+        x = torch.randn(b, 1, d, generator=gen).to(dev)
+        w = (torch.randn(d, k, generator=gen) * d ** -0.5).to(dev)
+        one, zero = torch.ones(d, device=dev), torch.zeros(d, device=dev)
+        ak, bk = torch.ones(k, device=dev), torch.zeros(k, device=dev)
+        got = dbof_cluster_maxpool_v2(x, w, one, zero, ak, bk,
+                                      split_weights(w))
+        graph = dbof_cluster_maxpool_plain(x, w, one, zero, ak, bk)
+        want64 = torch.relu(x[:, 0].double() @ w.double())
+        r = f64_witness(torch, f"3xTF32 depth D={d}", got, graph, want64)
+        r["depth"] = d
+        rows.append(r)
+    return rows
+
+
+def check_f32_dbof(torch, gen, dev, flush) -> dict:
+    """DBoF v2's 3xTF32 route (W's split copy, as DbofModel's serving
+    constants hold it) against the plain version at edge shapes, the
+    padded-row hazard and the serving shape, its float64 witness there and
+    the depth study."""
+    from yt8m_tpu_torch.kernels.dbof import (
+        dbof_cluster_maxpool_plain,
+        dbof_cluster_maxpool_v2,
+    )
+    from yt8m_tpu_torch.kernels.tf32 import split_weights
 
     def f32_inputs(b, s, d, k, dt):
         args = dbof_inputs(torch, gen, b, s, d, k, dt, dev)
         args[1] = args[1].float()
         return args
 
+    def serve(x, w, *vec):
+        return dbof_cluster_maxpool_v2(x, w, *vec, split_weights(w))
+
     for b, s, d, k, dt in ((7, 5, 64, 200, torch.uint8),
                            (9, 32, 96, 136, torch.float32),
                            (130, 31, 1152, 1000, torch.uint8),
                            (1, 1, 32, 8, torch.float32),
-                           (9, 40, 160, 2056, torch.uint8)):
+                           (9, 40, 160, 2056, torch.uint8),
+                           (133, 17, 1152, 2056, torch.float32)):
         args = f32_inputs(b, s, d, k, dt)
         f32_check(f"dbof f32 edge B={b} S={s} D={d} K={k} {dt}",
-                  dbof_cluster_maxpool_v2(*args),
-                  dbof_cluster_maxpool_plain(*args))
+                  serve(*args), dbof_cluster_maxpool_plain(*args))
     x, w, s_in, b_in, s_act, b_act = f32_inputs(6, 7, 64, 264, torch.uint8)
-    got = dbof_cluster_maxpool_v2(x, torch.full_like(w, -1.0),
-                                  torch.ones_like(s_in),
-                                  torch.full_like(b_in, 1.0), s_act,
-                                  torch.full_like(b_act, 3.0))
+    got = serve(x, torch.full_like(w, -1.0), torch.ones_like(s_in),
+                torch.full_like(b_in, 1.0), s_act,
+                torch.full_like(b_act, 3.0))
     check(bool(torch.all(got == 0)),
           "dbof f32: padded frame rows leaked into the max")
     args = f32_inputs(BATCH, FRAMES, FEATURE_DIM, CLUSTERS, torch.uint8)
-    got = dbof_cluster_maxpool_v2(*args)
+    x, w, s_in, b_in, s_act, b_act = args
+    w_split = split_weights(w)
+    got = dbof_cluster_maxpool_v2(*args, w_split)
     want = dbof_cluster_maxpool_plain(*args)
     torch.cuda.synchronize()
     err = f32_check("dbof_cluster_maxpool_v2 f32", got, want)
-    del got, want
-    x, w, s_in, b_in, s_act, b_act = args
+    # The same function with its product in float64, 256 videos at a time.
+    want64 = torch.empty(BATCH, CLUSTERS, dtype=torch.float64, device=dev)
+    for v0 in range(0, BATCH, 256):
+        xa = x[v0:v0 + 256].to(torch.float32) * s_in + b_in
+        act = torch.matmul(xa.double(), w.double())
+        want64[v0:v0 + 256] = torch.amax(torch.relu(
+            act * s_act.double() + b_act.double()), dim=1)
+    witness = f64_witness(torch, f"dbof_cluster_maxpool_v2 f32 B={BATCH}",
+                          got, want, want64)
+    del got, want, want64
 
     def library():
         act = torch.matmul(x.to(torch.float32) * s_in + b_in, w)
         return torch.amax(torch.relu(act * s_act + b_act), dim=1)
 
     r = f32_timing(
-        torch, lambda: dbof_cluster_maxpool_v2(*args),
-        lambda: dbof_cluster_maxpool_plain(*args), library, "dbof_f32",
+        torch, lambda: dbof_cluster_maxpool_v2(*args, w_split),
+        lambda: dbof_cluster_maxpool_plain(*args), library,
+        ("input_affine_split", "dbof_cluster_maxpool_kernel"),
         flush, 5, 2.0 * BATCH * FRAMES * FEATURE_DIM * CLUSTERS,
         BATCH * FRAMES * FEATURE_DIM + FEATURE_DIM * CLUSTERS * 4
-        + 4 * (2 * FEATURE_DIM + 2 * CLUSTERS) + BATCH * CLUSTERS * 4)
+        + 4 * (2 * FEATURE_DIM + 2 * CLUSTERS) + BATCH * CLUSTERS * 4,
+        split_bytes=FEATURE_DIM * CLUSTERS * 4)
     r["max_abs_err"] = err
+    r["witness_f64"] = witness
+    r["depth_witness"] = depth_witness(torch, gen, dev)
     say_f32("dbof_cluster_maxpool_v2",
             f"B={BATCH} S={FRAMES} D={FEATURE_DIM} K={CLUSTERS}", r)
+    del args, x, w, w_split
     torch.cuda.empty_cache()
     return r
 
 
+def moe_split(torch, wg, we):
+    """The MoE head's f32 weights' split copies (MoeHead's f32 serving
+    constants)."""
+    from yt8m_tpu_torch.kernels.tf32 import split_weights
+
+    return split_weights(wg), split_weights(we)
+
+
+def moe_f64(torch, x, wg, we, be, m):
+    """The MoE head's function with its products in float64."""
+    b, c = x.shape[0], we.shape[1] // m
+    g = torch.matmul(x.double(), wg.double())
+    e = torch.matmul(x.double(), we.double()) + be.double()
+    eg = torch.exp(torch.clamp(g, -80.0, 80.0)).reshape(b, c, m + 1)
+    num = torch.sum(eg[..., :m] * torch.sigmoid(e.reshape(b, c, m)), -1)
+    return num / torch.sum(eg, -1)
+
+
 def check_f32_moe(torch, gen, dev, flush) -> dict:
+    """The MoE head's 3xTF32 route (the weights' split copies) against
+    the plain version at edge shapes and the flagship's serving shape,
+    with its float64 witness there."""
     from yt8m_tpu_torch.kernels.moe_head import (
         moe_head_plain,
         moe_head_serving,
@@ -3146,14 +3267,21 @@ def check_f32_moe(torch, gen, dev, flush) -> dict:
         return [x, pitched(wg.float()), pitched(we.float()), be]
 
     for b, h, c, m in ((37, 64, 83, 1), (70, 1000, 44, 2), (5, 999, 31, 16),
-                       (130, 1024, CLASSES, 4), (9, 40, 300, 3)):
+                       (130, 1024, CLASSES, 4), (9, 40, 300, 3),
+                       (129, 37, 83, 5), (3, 2048, 4716, 17)):
         args = f32_inputs(b, h, c, m)
         f32_check(f"moe f32 edge B={b} H={h} C={c} M={m}",
-                  moe_head_serving(*args, m), moe_head_plain(*args, m))
+                  moe_head_serving(*args, m, moe_split(torch, *args[1:3])),
+                  moe_head_plain(*args, m))
     b, h = FLAG_BATCH, VLAD_HIDDEN + LSTM_CELLS
     args = f32_inputs(b, h, CLASSES, MIXTURES)
-    err = f32_check("moe_head_serving f32", moe_head_serving(*args, MIXTURES),
-                    moe_head_plain(*args, MIXTURES))
+    split = moe_split(torch, *args[1:3])
+    got = moe_head_serving(*args, MIXTURES, split)
+    want = moe_head_plain(*args, MIXTURES)
+    err = f32_check("moe_head_serving f32", got, want)
+    witness = f64_witness(torch, f"moe_head_serving f32 B={b} H={h}", got,
+                          want, moe_f64(torch, *args, MIXTURES))
+    del got, want
     x, wg, we, be = args
 
     def library():
@@ -3165,11 +3293,13 @@ def check_f32_moe(torch, gen, dev, flush) -> dict:
 
     cols = CLASSES * (2 * MIXTURES + 1)
     r = f32_timing(
-        torch, lambda: moe_head_serving(*args, MIXTURES),
-        lambda: moe_head_plain(*args, MIXTURES), library, "moe_f32", flush,
-        10, 2.0 * b * h * cols,
-        b * h * 4 + h * cols * 4 + CLASSES * MIXTURES * 4 + b * CLASSES * 4)
+        torch, lambda: moe_head_serving(*args, MIXTURES, split),
+        lambda: moe_head_plain(*args, MIXTURES), library,
+        ("split_tf32", "moe_head_kernel"), flush, 10, 2.0 * b * h * cols,
+        b * h * 4 + h * cols * 4 + CLASSES * MIXTURES * 4 + b * CLASSES * 4,
+        split_bytes=h * cols * 4)
     r["max_abs_err"] = err
+    r["witness_f64"] = witness
     say_f32("moe_head_serving", f"B={b} H={h} C={CLASSES} M={MIXTURES}", r)
     return r
 
@@ -3303,24 +3433,23 @@ NEW_CORE_CLUSTERS = (520, 1024)
 
 
 def shape_row(shape, route, err, fn, plain, library, needle, flush, reps,
-              flops, nbytes, peak) -> dict:
+              flops, nbytes, peak, split_bytes=0) -> dict:
     """A new shape's numbers: the max error, CUDA-event and profiler
-    times, the plain version's and the torch.matmul graph's, the bound."""
+    times, the plain version's and the torch.matmul graph's, the bound
+    (route_bound)."""
     import torch
 
     ms = time_ms(torch, fn, reps, flush)
     device_ms = device_us(torch, fn, needle) / 1e3
     plain_ms = time_ms(torch, plain, 3, flush)
     library_ms = time_ms(torch, library, 3, flush)
-    bound_ms, bound_by = bound(flops, nbytes, peak)
     row = {"shape": shape, "route": route, "max_abs_err": err, "ms": ms,
            "device_ms": device_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "library_ms": library_ms,
+           **route_bound(flops, nbytes, peak, split_bytes)}
     say("kernel", f"{shape} {route}: ok, max|diff| {err:.3e}; {ms:.4f} ms "
                   f"events, {device_ms:.4f} ms profiler (plain {plain_ms:.4f},"
-                  f" torch.matmul graph {library_ms:.4f}, bound "
-                  f"{bound_ms:.4f} by {bound_by})")
+                  f" torch.matmul graph {library_ms:.4f}, {say_bound(row)})")
     return row
 
 
@@ -3347,15 +3476,22 @@ def check_new_moe(torch, g, dev, flush) -> list:
         be = 0.1 * torch.randn(c * m, device=dev, generator=g)
         return [x, wg, we, be]
 
+    def serve(x, wg, we, be, m, split=None):
+        # The f32 route reads the weights' split copies (the model's
+        # serving constants); made here where the call does not pass them.
+        if wg.dtype == torch.float32 and split is None:
+            split = moe_split(torch, wg, we)
+        return moe_head_serving(x, wg, we, be, m, split)
+
     rows = []
     for dtype, route in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         rel, abs_ = (1e-3, 1e-5) if route == "bf16" else (F32_REL, 1e-5)
         for m in (122, 240, 241):  # a chunk's edges, the dummy alone
             args = inputs(37, 96, 83, m, dtype)
-            rel_check(f"moe {route} edge M={m}", moe_head_serving(*args, m),
+            rel_check(f"moe {route} edge M={m}", serve(*args, m),
                       moe_head_plain(*args, m), rel, abs_)
         args = inputs(16, 64, 40, 200, dtype, scale=400.0)
-        got = moe_head_serving(*args, 200)
+        got = serve(*args, 200)
         check(bool(torch.isfinite(got).all()),
               f"moe {route} M=200: non-finite with gate logits past 80")
         rel_check(f"moe {route} M=200 clamp case", got,
@@ -3363,8 +3499,9 @@ def check_new_moe(torch, g, dev, flush) -> list:
         b, h, c = FLAG_BATCH, VLAD_HIDDEN + LSTM_CELLS, CLASSES
         for m in NEW_MIXTURES:
             args = inputs(b, h, c, m, dtype)
+            split = moe_split(torch, *args[1:3]) if route == "f32" else None
             err = rel_check(f"moe_head_serving {route} M={m}",
-                            moe_head_serving(*args, m),
+                            serve(*args, m, split),
                             moe_head_plain(*args, m), rel, abs_)
             x, wg, we, be = args
 
@@ -3380,12 +3517,15 @@ def check_new_moe(torch, g, dev, flush) -> list:
             wbytes = 2 if route == "bf16" else 4
             rows.append(shape_row(
                 f"moe_head_serving B={b} H={h} C={c} M={m}", route, err,
-                lambda args=args, m=m: moe_head_serving(*args, m),
+                lambda args=args, m=m, split=split: serve(*args, m, split),
                 lambda args=args, m=m: moe_head_plain(*args, m), library,
-                "moe_", flush, 5, 2.0 * b * h * cols,
+                "moe_" if route == "bf16" else ("split_tf32",
+                                                "moe_head_kernel"),
+                flush, 5, 2.0 * b * h * cols,
                 b * h * 4 + h * cols * wbytes + c * m * 4 + b * c * 4,
-                PEAK_BF16_FLOPS if route == "bf16" else PEAK_F32_FLOPS))
-            del args, x, wg, we, be, library
+                PEAK_BF16_FLOPS if route == "bf16" else PEAK_F32_FLOPS,
+                split_bytes=0 if route == "bf16" else h * cols * 4))
+            del args, x, wg, we, be, library, split
             torch.cuda.empty_cache()
     return rows
 
@@ -6803,7 +6943,8 @@ def main() -> int:
                  f" -> {res.path}"
         if res.built else f"already built -> {res.path}")
     for line in res.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             say("ptxas", line.strip())
     _build.library()
 
@@ -6866,10 +7007,12 @@ def main() -> int:
     bf16_step = profile_step(torch, dev, "DbofModel", BATCH)
     int8_step = profile_step(torch, dev, "DbofModel --dbof_int8_serving",
                              BATCH)
+    f32_step = profile_step(torch, dev, f"DbofModel {F32}", BATCH)
     say("step", f"DbofModel B={BATCH} serving step in one call: bf16 "
                 f"{bf16_step['step_ms']:.3f} ms, --dbof_int8_serving "
-                f"{int8_step['step_ms']:.3f} ms")
-    steps = [bf16_step, int8_step] + [
+                f"{int8_step['step_ms']:.3f} ms, {F32} "
+                f"{f32_step['step_ms']:.3f} ms")
+    steps = [bf16_step, int8_step, f32_step] + [
         profile_step(torch, dev, name, FLAG_BATCH)
         for name in ("NetVladLstmModel", "GruModel", "AttentionPoolingModel",
                      "NeXtVladModel")]

@@ -108,6 +108,7 @@ from yt8m_tpu_torch.kernels import netvlad_train as tnt
 from yt8m_tpu_torch.kernels import nextvlad as tnv
 from yt8m_tpu_torch.kernels import nextvlad_train as tnvt
 from yt8m_tpu_torch.kernels import topk as ttopk
+from yt8m_tpu_torch.kernels.tf32 import split_weights
 from yt8m_tpu_torch.kernels._schedule import live_pairs
 from yt8m_tpu_torch.models import ModelHParams, get_model
 from yt8m_tpu_torch.train.losses import get_loss
@@ -1831,19 +1832,23 @@ def test_cuda_hopper_gemm_matches_matmul(cuda, m, n, k, bn):
 
 def test_cuda_plans_match_the_kernels(cuda):
     """The compiled kernels' tiles are the ones kernels/dbof.py ::
-    plan and kernels/moe_head.py :: plan describe."""
+    plan and kernels/moe_head.py :: plan describe, on both routes."""
     got = tdbof.kernel_plan()
     p = tdbof.plan(2048, 30, 1152, 8192, sms=got["sms"])
     assert (got["videos"], got["pitch"], got["tile_clusters"], got["stages"],
             got["smem"]) == (tdbof.TILE_VIDEOS, tdbof.MAX_FRAMES_PER_VIDEO,
                              p["chain"], p["stages"], p["smem"])
     assert p["grid"] == min(p["tiles"], got["sms"])
+    p = tdbof.plan(2048, 30, 1152, 8192, sms=got["sms"], f32=True)
+    assert (got["f32_stages"], got["f32_smem"], got["f32_group"]) == (
+        p["stages"], p["smem"], p["group"])
     for m in [*range(1, 18), 32, 63, 64, 121, 122, 200, 240]:
-        got = tmoe.kernel_plan(m)
-        p = tmoe.plan(512, 2048, 4716, m)
-        assert got == {key: p[key] for key in (
-            "classes", "gate", "expert", "stages", "smem", "stage_ld",
-            "chunks", "f32_classes")}
+        for f32 in (False, True):
+            got = tmoe.kernel_plan(m, f32)
+            p = tmoe.plan(512, 2048, 4716, m, f32)
+            assert got == {key: p[key] for key in (
+                "classes", "gate", "expert", "stages", "smem", "stage_ld",
+                "chunks")}, (m, f32)
 
 
 def test_cuda_moe_refuses_unpitched_weights(cuda):
@@ -2212,6 +2217,20 @@ def _f32_close(got, want, abs_=1e-5):
     assert err <= 1e-5 * want.abs().max().item() + abs_, err
 
 
+def _dbof_serve(x, w, *vec):
+    """dbof_cluster_maxpool_v2 with W's split copy on the f32 route."""
+    split = split_weights(w) if w.dtype == torch.float32 else None
+    return tdbof.dbof_cluster_maxpool_v2(x, w, *vec, split)
+
+
+def _moe_serve(x, wg, we, be, m):
+    """moe_head_serving with the weights' split copies on the f32
+    route."""
+    split = ((split_weights(wg), split_weights(we))
+             if wg.dtype == torch.float32 else None)
+    return tmoe.moe_head_serving(x, wg, we, be, m, split)
+
+
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("b,s,d,k", [(7, 5, 64, 200), (5, 30, 1152, 8192),
                                      (1, 1, 32, 8), (130, 31, 1152, 1000),
@@ -2220,7 +2239,7 @@ def test_cuda_f32_dbof_matches_plain(cuda, x_dtype, b, s, d, k):
     args = _dbof_args(b + k, b, s, d, k, x_dtype, cuda)
     args[1] = args[1].float()
     before = tdbof.dbof_cluster_maxpool_v2.launches
-    got = tdbof.dbof_cluster_maxpool_v2(*args)
+    got = _dbof_serve(*args)
     assert tdbof.dbof_cluster_maxpool_v2.launches == before + -(-s // 32)
     _f32_close(got, tdbof.dbof_cluster_maxpool_plain(*args))
 
@@ -2228,10 +2247,22 @@ def test_cuda_f32_dbof_matches_plain(cuda, x_dtype, b, s, d, k):
 def test_cuda_f32_dbof_masks_padded_frames(cuda):
     x, w, s_in, b_in, s_act, b_act = _dbof_args(0, 6, 7, 64, 64,
                                                 torch.uint8, cuda)
-    got = tdbof.dbof_cluster_maxpool_v2(
+    got = _dbof_serve(
         x, torch.full(w.shape, -1.0, device=cuda), torch.ones_like(s_in),
         torch.ones_like(b_in), s_act, torch.full_like(b_act, 3.0))
     assert torch.all(got == 0)
+
+
+def test_cuda_f32_routes_refuse_a_missing_split(cuda):
+    """The f32 routes on the card read the weights' split copies and
+    raise, naming the helper, without them; no other route runs."""
+    args = _dbof_args(0, 3, 5, 64, 64, torch.uint8, cuda)
+    args[1] = args[1].float()
+    with pytest.raises(ValueError, match="split_weights"):
+        tdbof.dbof_cluster_maxpool_v2(*args)
+    x, wg, we, be = _f32_moe_args(0, 5, 64, 9, 2, cuda)
+    with pytest.raises(ValueError, match="split_weights"):
+        tmoe.moe_head_serving(x, wg, we, be, 2)
 
 
 def _f32_moe_args(seed, b, h, c, m, dev):
@@ -2247,7 +2278,7 @@ def _f32_moe_args(seed, b, h, c, m, dev):
 def test_cuda_f32_moe_matches_plain(cuda, m, b, h, c):
     args = _f32_moe_args(b + c + m, b, h, c, m, cuda)
     before = tmoe.moe_head_serving.launches
-    got = tmoe.moe_head_serving(*args, m)
+    got = _moe_serve(*args, m)
     assert tmoe.moe_head_serving.launches == before + 1
     _f32_close(got, tmoe.moe_head_plain(*args, m))
 
@@ -2372,15 +2403,15 @@ def test_cuda_f32_fused_netvlad_training_matches_cpu(cuda):
 @pytest.mark.parametrize("m", [17, 32, 63, 64, 121, 122, 200, 240, 241])
 @pytest.mark.parametrize("b,h,c", [(37, 64, 83), (130, 96, 9)])
 def test_cuda_moe_any_mixtures(cuda, m, b, h, c):
-    """The run-time tile up to M = 121 (every start offset), chunks of
-    120 mixtures above (the dummy gate alone in the last chunk at M =
-    240), and the f32 route's chunks of 63 from M = 64, against the plain
-    version with each route's bound."""
+    """The run-time tile up to M = 121 (every start offset of the bf16
+    route), chunks of 120 mixtures above (the dummy gate alone in the
+    last chunk at M = 240), on both routes, against the plain version
+    with each route's bound."""
     for route, close in (("bf16", _close), ("f32", _f32_close)):
         args = (_moe_args if route == "bf16" else _f32_moe_args)(
             b + c + m, b, h, c, m, cuda)
         before = tmoe.moe_head_serving.launches
-        got = tmoe.moe_head_serving(*args, m)
+        got = _moe_serve(*args, m)
         assert tmoe.moe_head_serving.launches == before + 1
         close(got, tmoe.moe_head_plain(*args, m))
 
@@ -2393,7 +2424,7 @@ def test_cuda_moe_any_mixtures_clamps_large_logits(cuda, m):
     for dtype in (torch.bfloat16, torch.float32):
         g = tmoe.pitched((wg.float() * 400).to(dtype))
         e = tmoe.pitched(we.to(dtype))
-        got = tmoe.moe_head_serving(x, g, e, be, m)
+        got = _moe_serve(x, g, e, be, m)
         assert torch.isfinite(got).all()
         _close(got, tmoe.moe_head_plain(x, g, e, be, m))
 
@@ -2490,16 +2521,17 @@ def _op_args(name, dev):
     from yt8m_tpu_torch.kernels import ops  # noqa: F401  (registers)
 
     if name == "dbof_maxpool":
-        return _dbof_args(1, 6, 5, 64, 64, torch.uint8, dev)
+        return [*_dbof_args(1, 6, 5, 64, 64, torch.uint8, dev), []]
     if name == "dbof_maxpool:f32":
         x, w, *vec = _dbof_args(1, 6, 5, 64, 64, torch.uint8, dev)
-        return [x, w.float(), *vec]
+        return [x, w.float(), *vec, [split_weights(w.float())]]
     if name == "dbof_maxpool_int8":
         return _int8_args(2, 7, 5, 64, 200, dev)
     if name == "moe_head":
-        return [*_moe_args(3, 16, 64, 40, 2, dev), 2]
+        return [*_moe_args(3, 16, 64, 40, 2, dev), 2, []]
     if name == "moe_head:f32":
-        return [*_f32_moe_args(3, 16, 64, 40, 2, dev), 2]
+        x, wg, we, be = _f32_moe_args(3, 16, 64, 40, 2, dev)
+        return [x, wg, we, be, 2, [split_weights(wg), split_weights(we)]]
     if name == "topk":
         return [torch.randn(9, 4716, generator=torch.Generator().manual_seed(
             4)).to(dev), 20]

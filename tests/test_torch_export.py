@@ -310,6 +310,7 @@ def _op_cases():
     operator, small shapes, CPU tensors."""
     from yt8m_tpu_torch.kernels.dbof import int8_serving_constants
     from yt8m_tpu_torch.kernels.nextvlad import kernel_layout
+    from yt8m_tpu_torch.kernels.tf32 import split_weights
 
     gen = torch.Generator().manual_seed(0)
 
@@ -329,12 +330,20 @@ def _op_cases():
     nxw = [rn(16, 32) * 0.2, rn(32, 4) * 0.2, rn(4), rn(32, 4 * 12) * 0.2,
            rn(12, 8)]
     lay = kernel_layout(*nxw, 4)
+    # The f32 routes' split copies (kernels/tf32.py), serving constants.
+    w, wg, we = rn(16, 12), rn(10, 7 * 3), rn(10, 7 * 2)
+    w_split = [split_weights(w)]
+    moe_split = [split_weights(wg), split_weights(we)]
     return [
         ("dbof_maxpool", lambda b: (frames(b), rn(16, 12), rn(16), rn(16),
-                                    rn(12), rn(12))),
+                                    rn(12), rn(12), [])),
+        ("dbof_maxpool:f32", lambda b: (frames(b), w, rn(16), rn(16),
+                                        rn(12), rn(12), w_split)),
         ("dbof_maxpool_int8", lambda b: (frames(b), *w8)),
         ("moe_head", lambda b: (rn(b, 10), rn(10, 7 * 3), rn(10, 7 * 2),
-                                rn(14), 2)),
+                                rn(14), 2, [])),
+        ("moe_head:f32", lambda b: (rn(b, 10), wg, we, rn(14), 2,
+                                    moe_split)),
         ("topk", lambda b: (rn(b, 30), 5)),
         ("netvlad", lambda b: (frames(b), nf(b), rn(16, 5), rn(5), rn(5),
                                rn(5, 16))),
@@ -356,7 +365,7 @@ def test_op_fake_gives_the_plain_shapes_under_a_symbolic_batch(name, make):
     outputs carry the symbolic batch and the shapes and dtypes of the real
     (plain) outputs; the program then serves batch 5 as the operator
     does, bit for bit."""
-    op = ops.SERVING_OPS[name]
+    op = ops.SERVING_OPS[name.split(":")[0]]
     args3 = make(3)
     batch_axes = [next((i for i, n in enumerate(a.shape) if n == 3), None)
                   if isinstance(a, torch.Tensor) else None for a in args3]

@@ -151,42 +151,50 @@ def moe_runtime_tile(x, wg, we, be, m):
 
 
 def moe_f32_tiles(x, wg, we, be, m):
-    """The f32 route in plain PyTorch: floor(128 / (2M + 1)) classes a
-    block (their gate columns, then their expert columns, in the 128
-    columns of the B panel), or from M = 64 one class in chunks of 63
-    mixtures (at most 64 gate and 63 expert columns)."""
-    b, c = x.shape[0], wg.shape[1] // (m + 1)
+    """The f32 route's tiling in plain PyTorch: the bf16 route's tiles
+    (tmoe.plan(..., f32=True)), each chain loaded from the block's exact
+    first gate and expert columns (K-major rows: no rounded start), the
+    run-time tile at min(136 / (M + 1), 128 / M) classes, above M = 121
+    one class in chunks of 120 mixtures in chains of 128 and 120 columns,
+    with the kernel's masks."""
+    b, h = x.shape
+    c = wg.shape[1] // (m + 1)
+    p = tmoe.plan(b, h, c, m, f32=True)
+    gate, expert = p["gate"], p["expert"]
     out = torch.empty(b, c)
-    nc = tmoe.F32_COLS // (2 * m + 1)
-    if nc:
+    if p["chunks"] == 1:
+        nc = p["classes"]
         for c0 in range(0, c, nc):
-            n = min(nc, c - c0)
-            g = x @ _gather_cols(wg, c0 * (m + 1), n * (m + 1))
-            e = x @ _gather_cols(we, c0 * m, n * m)
-            for k in range(n):
+            g = x @ _gather_cols(wg, c0 * (m + 1), gate)
+            e = x @ _gather_cols(we, c0 * m, expert)
+            assert nc * (m + 1) <= gate and nc * m <= expert
+            for k in range(min(nc, c - c0)):
                 gk = g[:, k * (m + 1):(k + 1) * (m + 1)]
-                lo = (c0 + k) * m
-                ek = e[:, k * m:(k + 1) * m] + be[lo:lo + m]
+                ek = (e[:, k * m:(k + 1) * m]
+                      + be[(c0 + k) * m:(c0 + k + 1) * m])
                 eg = torch.exp(torch.clamp(gk, -80, 80))
                 out[:, c0 + k] = (torch.sum(eg[:, :m] * torch.sigmoid(ek), 1)
                                   / torch.sum(eg, 1))
         return out
-    step = tmoe.F32_CHUNK_MIXTURES
-    chunks = -(-m // step)
+    step = tmoe.CHUNK_MIXTURES
+    chunks = p["chunks"]
+    assert step + 1 <= gate and step <= expert
     for cls in range(c):
         num = torch.zeros(b)
         den = torch.zeros(b)
         for j in range(chunks):
             mix0 = j * step
-            ne = min(step, m - mix0)
-            ng = m + 1 - mix0 if j == chunks - 1 else step
-            assert ng + ne <= tmoe.F32_COLS
-            g = x @ _gather_cols(wg, cls * (m + 1) + mix0, ng)
-            e = x @ _gather_cols(we, cls * m + mix0, ne)
-            eg = torch.exp(torch.clamp(g, -80, 80))
+            g = x @ _gather_cols(wg, cls * (m + 1) + mix0, gate)
+            e = x @ _gather_cols(we, cls * m + mix0, expert)
+            u = torch.arange(gate)  # the chunk's gate u at column u
+            ok = (mix0 + u <= m) & ((u < step) | (j == chunks - 1))
+            eg = torch.where(ok, torch.exp(torch.clamp(g, -80, 80)), 0.0)
             den += eg.sum(1)
-            num += (eg[:, :ne] * torch.sigmoid(
-                e + be[cls * m + mix0:cls * m + mix0 + ne])).sum(1)
+            u = torch.arange(expert)  # expert u at column u, its gate too
+            ok = mix0 + u < m
+            bias = be[cls * m + torch.clamp(mix0 + u, max=m - 1)]
+            num += torch.where(ok, eg[:, :expert] * torch.sigmoid(e + bias),
+                               0.0).sum(1)
         out[:, cls] = num / den
     return out
 
@@ -194,9 +202,9 @@ def moe_f32_tiles(x, wg, we, be, m):
 @pytest.mark.parametrize("m", [3, 16, 17, 32, 63, 64, 121, 122, 128, 200,
                                240, 241])
 def test_moe_tilings_match_the_plain_version(m):
-    """Both routes' tilings: every offset of a start rounded down to 8,
-    the dummy gate alone in the last chunk (M = 240), and the f32 chunks
-    of 63."""
+    """Both routes' tilings: every offset of a start rounded down to 8 on
+    the bf16 route, exact starts on the f32 route, and the dummy gate
+    alone in the last chunk (M = 240)."""
     b, h, c = 5, 16, 7
     x, wg, we, be = map(torch.from_numpy, _moe_inputs(m + 1, b, h, c, m))
     wg = wg * 40  # gate logits past +-80 on some columns: the clamp acts
@@ -226,11 +234,16 @@ def test_moe_plan_at_many_mixtures(m):
                 p["chunks"] * tmoe.CHUNK_MIXTURES
         gb, gc = p["grid"]
         assert (gc - 1) * p["classes"] < c <= gc * p["classes"] <= 65535 * 128
-        if p["f32_classes"]:
-            assert p["f32_classes"] * (2 * m + 1) <= tmoe.F32_COLS
-        else:
-            assert m >= 64 and p["f32_chunks"] * tmoe.F32_CHUNK_MIXTURES >= m
+        # The f32 route: the same tiles from exact starts, as many classes
+        # a block or more, its ring within the card's shared memory.
+        f = tmoe.plan(b, h, c, m, f32=True)
+        assert f["smem"] <= SMEM_LIMIT and f["stages"] >= 2
+        assert f["offset"] == 0 and f["chunks"] == p["chunks"]
+        assert f["gate_cols"] <= f["gate"] and f["expert_cols"] <= f["expert"]
+        assert f["classes"] >= p["classes"]
+        assert f["staged_bytes"] <= f["ring_bytes"]
     assert tmoe.plan(512, 2048, 4716, 32)["classes"] == 3
+    assert tmoe.plan(512, 2048, 4716, 32, f32=True)["classes"] == 4
 
 
 # ---------------------------------------------------------------------------

@@ -48,8 +48,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "yt8m_dbof_cluster_maxpool_u8": [_P] * 8 + [_I] * 4 + [_P],
     "yt8m_dbof_cluster_maxpool_f32": [_P] * 8 + [_I] * 4 + [_P],
-    "yt8m_dbof_cluster_maxpool_f32w_u8": [_P] * 7 + [_I] * 4 + [_P],
-    "yt8m_dbof_cluster_maxpool_f32w_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "yt8m_dbof_cluster_maxpool_f32w_u8": [_P] * 8 + [_I] * 4 + [_P],
+    "yt8m_dbof_cluster_maxpool_f32w_f32": [_P] * 8 + [_I] * 4 + [_P],
     "yt8m_dbof_sampled_cluster_maxpool": [_P] * 9 + [_I] * 5 + [_P],
     "yt8m_dbof_cluster_maxpool_int8": [_P] * 6 + [_I] * 4 + [_P],
     "yt8m_round_bf16": [_P] * 2 + [_I] * 3 + [_P],
@@ -59,8 +59,8 @@ SIGNATURES = {
     "yt8m_dbof_plan": [_P],
     "yt8m_dbof_int8_plan": [_P],
     "yt8m_moe_head_serving": [_P] * 6 + [_I] * 6 + [_P],
-    "yt8m_moe_head_serving_f32": [_P] * 5 + [_I] * 7 + [_P],
-    "yt8m_moe_plan": [_I, _P],
+    "yt8m_moe_head_serving_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "yt8m_moe_plan": [_I, _I, _P],
     "yt8m_hopper_gemm": [_P] * 3 + [_I] * 4 + [_P],
     "yt8m_hopper_gemm_layouts": [_P] * 3 + [_I] * 5 + [_P],
     "yt8m_hopper_product": [_P] * 3 + [_I] * 6 + [_P],

@@ -48,31 +48,44 @@
 //     of two blocks sharing W's stages by TMA multicast took 3.79 ms in
 //     the same call, and is not used.
 //
-// The f32 route (--compute_dtype=float32, W f32), one launch:
-// dbof_f32_kernel, the same function with nothing rounded, as the TPU
-// kernel computes it at dtype=float32: xa = x * in_scale + in_bias in
-// f32 (multiply, then add, each rounded), act = xa @ W in plain f32 FMAs
-// (f32_product.cuh: no TF32, no bf16 split), the affine, ReLU and max
-// over frames in the epilogue. At B=2048, S=30, D=1152, K=8192 it is the
-// same 1.16 TFLOP, now against the 67 TFLOP/s f32 rate: 17.3 ms at the
-// bound. A block takes 4 videos x 128 clusters: the 128 rows of its A
-// panel are 4 videos at a pitch of 32 frames (rows s >= S are zeros and
-// stay out of the max), the affine is applied as the frames are written
-// to shared memory (each sampled frame once a cluster tile: 64 times at
-// K=8192, against 64 FMAs a float loaded), W's panels arrive by cp.async.
-// The column tile runs fastest, so a video's frames are read from device
-// memory about once and W (37.7 MB in f32) is read from L2. The epilogue
-// takes each thread's max over its 4 rows of a video, then the 8 threads
-// of a video through shared memory; the relu'd values are >= 0, so the
-// max starts from 0. Two blocks an SM (128 registers a thread: ptxas
-// spills 44-68 bytes) ran 30.35 ms against 33.67 with one block an SM
-// and no spill (an H100 at 700 W, the same call).
+// The f32 route (--compute_dtype=float32, W f32): the same function with
+// nothing rounded to bf16, as the TPU kernel computes it at
+// dtype=float32, on the tensor cores as a 3xTF32 product
+// (hopper_gemm.cuh :: consume3): both operands split into tf32 halves,
+// big = tf32(v) and small = tf32(v - big), and act = A_small W_big +
+// A_big W_small + A_big W_big, about 2^-21 of each product from the f32
+// product. The tensor core sums one 32-deep stage at a time, in windows
+// of 128 clusters; the stages' sums add up in registers on the FMA
+// units, so the wgmmas' rounding toward zero never accumulates over D
+// (one chain of wgmmas over D drifted linearly in D on the card: 3.8e-5
+// at D = 1152 and 6.3e-4 at D = 16384, where the f32 matmul's error was
+// 1.4e-6 and 4.9e-6; PERF.md §6). At B=2048, S=30, D=1152, K=8192 it
+// is 3 x 1.16 TFLOP at the TF32 rate (494.7 TFLOP/s): 7.03 ms at the
+// bound, against 17.3 ms for one f32 product at the 67 TFLOP/s outside
+// the tensor cores.
+// Two launches, as the bf16 route:
+//  1. input_affine_split (input_affine.cuh): xa = x * in_scale + in_bias
+//     in f32 (multiply, then add, each rounded, as the plain version),
+//     split into its halves, into a [2][B*S][D] f32 buffer from the
+//     wrapper (566 MB at the serving shape, read about four times: the
+//     split is done once, not once per cluster tile).
+//  2. the product launch's F32 instance: the same tiles (4 videos x 256
+//     clusters, rows s >= S zero-filled and kept out of the max), a
+//     persistent walk, the same epilogue, on a ring of 32-deep
+//     stages: A's two halves [2][128 rows][32] from a 4-D tensor map over
+//     [2][B][S][D], W's two halves [2][256 clusters][32] from the split
+//     copy [2][K][D] that the model builds once per weight version
+//     (kernels/tf32.py :: split_weights: K-major, since TF32's wgmma
+//     reads B K-major only). A stage is 96 KB: two stages. W's halves are
+//     75.5 MB, past the 50 MB L2, so the tiles walk in groups of 8
+//     cluster tiles (18.9 MB of W), the video tiles of a group before the
+//     next group, the cluster tile fastest within it: each group's W stays
+//     in L2 while xa's halves stream once a group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "f32_product.cuh"
 #include "hopper_gemm.cuh"
 #include "input_affine.cuh"
 
@@ -81,13 +94,24 @@ namespace {
 constexpr int kVideos = 4;                 // videos a tile
 constexpr int kPitch = 32;                 // rows a video: S <= 32, zero-filled past S
 constexpr int kBN = 256;                   // clusters a tile
-constexpr int kStages = 4;
-constexpr int kStageBytes = hgemm::kABytes + hgemm::boxes(kBN) * hgemm::kBoxBytes;  // 48 KB
 constexpr int kPoolFloats = 2 * kVideos * kBN;  // the warps' partial maxima, two tiles
-constexpr int kSmemBytes = kStages * kStageBytes + kPoolFloats * 4 + 2 * kStages * 8;
-constexpr int kSmemRequest = hgemm::smem_request(kSmemBytes);
+constexpr int kF32Group = 8;               // cluster tiles a group of the f32 walk
 static_assert(kVideos * kPitch == hgemm::kRows, "a tile is the block's 128 A rows");
-static_assert(kSmemRequest <= 232448, "shared memory a block");
+
+// The ring of each route: bf16, 64-deep stages of the A tile and W's four
+// MN-major boxes (48 KB); F32, 32-deep stages of both halves of the A
+// tile and of W's K-major rows (96 KB).
+template <bool F32>
+struct Layout {
+  static constexpr int kDepth = F32 ? hgemm::kTf32Depth : hgemm::kDepth;
+  static constexpr int kStages = F32 ? 2 : 4;
+  static constexpr int kBBytes = F32 ? 2 * kBN * hgemm::kTf32RowBytes
+                                     : hgemm::boxes(kBN) * hgemm::kBoxBytes;
+  static constexpr int kStageBytes = (F32 ? 2 * hgemm::kTf32ABytes : hgemm::kABytes) + kBBytes;
+  static constexpr int kSmemRequest =
+      hgemm::smem_request(kStages * kStageBytes + kPoolFloats * 4 + 2 * kStages * 8);
+  static_assert(kSmemRequest <= 232448, "shared memory a block");
+};
 
 using inaff::affine;
 
@@ -129,27 +153,42 @@ __device__ __forceinline__ void fold(float* v, int lane) {
   }
 }
 
-// Tile t: video tile t / n_ct, cluster tile t % n_ct (the fastest).
-__device__ __forceinline__ void tile_coords(int t, int n_ct, int& rt, int& ct) {
-  rt = t / n_ct;
-  ct = t - rt * n_ct;
+// Tile t of the walk in groups of `group` cluster tiles (the last group
+// may be narrower): each group's video tiles in order, the cluster tile
+// fastest within a group. group >= n_ct is one group: video tile t / n_ct,
+// cluster tile t % n_ct.
+__host__ __device__ __forceinline__ void tile_coords(int t, int n_ct, int n_rt, int group,
+                                                     int& rt, int& ct) {
+  const int g = t / (group * n_rt);
+  const int rest = t - g * group * n_rt;
+  const int width = n_ct - g * group < group ? n_ct - g * group : group;
+  rt = rest / width;
+  ct = g * group + rest - rt * width;
 }
 
+// The product over xa [B, S, D] (bf16; F32: its tf32 halves [2][B][S][D])
+// and W [D, K] (bf16 MN-major boxes; F32: its K-major halves [2][K][D]).
+template <bool F32>
 __global__ void __launch_bounds__(hgemm::kThreads, 1)
 dbof_cluster_maxpool_kernel(const __grid_constant__ CUtensorMap map_x,
                             const __grid_constant__ CUtensorMap map_w,
                             const float* __restrict__ act_scale,
                             const float* __restrict__ act_bias, float* __restrict__ out, int B,
                             int S, int D, int K) {
+  using R = Layout<F32>;
+  constexpr int kStages = R::kStages;
+  constexpr int kStageBytes = R::kStageBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hgemm::aligned_smem(smem_raw);
   float* pool = reinterpret_cast<float*>(smem + kStages * kStageBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(pool + kPoolFloats);
   uint64_t* empty = full + kStages;
 
-  const int nk = (D + hgemm::kDepth - 1) / hgemm::kDepth;
+  const int nk = (D + R::kDepth - 1) / R::kDepth;
   const int n_ct = (K + kBN - 1) / kBN;
-  const int tiles = n_ct * ((B + kVideos - 1) / kVideos);
+  const int n_rt = (B + kVideos - 1) / kVideos;
+  const int group = F32 ? kF32Group : n_ct;
+  const int tiles = n_ct * n_rt;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hgemm::bar_init(&full[s], 1);
@@ -169,15 +208,25 @@ dbof_cluster_maxpool_kernel(const __grid_constant__ CUtensorMap map_x,
     if (threadIdx.x == 256) {
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         int rt, ct;
-        tile_coords(t, n_ct, rt, ct);
+        tile_coords(t, n_ct, n_rt, group, rt, ct);
         hgemm::produce<kStages>(
             full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
               unsigned char* st = smem + s * kStageBytes;
-              hgemm::tma_3d(st, xmap, bar, kt * hgemm::kDepth, 0, rt * kVideos);
+              const int k0 = kt * R::kDepth;
+              if constexpr (F32) {
+                unsigned char* wb = st + 2 * hgemm::kTf32ABytes;
 #pragma unroll
-              for (int i = 0; i < kBN / hgemm::kBoxCols; ++i)
-                hgemm::tma_2d(st + hgemm::kABytes + i * hgemm::kBoxBytes, wmap, bar,
-                              ct * kBN + i * hgemm::kBoxCols, kt * hgemm::kDepth);
+                for (int h = 0; h < 2; ++h) {
+                  hgemm::tma_4d(st + h * hgemm::kTf32ABytes, xmap, bar, k0, 0, rt * kVideos, h);
+                  hgemm::tma_3d(wb + h * kBN * hgemm::kTf32RowBytes, wmap, bar, k0, ct * kBN, h);
+                }
+              } else {
+                hgemm::tma_3d(st, xmap, bar, k0, 0, rt * kVideos);
+#pragma unroll
+                for (int i = 0; i < kBN / hgemm::kBoxCols; ++i)
+                  hgemm::tma_2d(st + hgemm::kABytes + i * hgemm::kBoxBytes, wmap, bar,
+                                ct * kBN + i * hgemm::kBoxCols, k0);
+              }
             });
       }
     }
@@ -193,20 +242,28 @@ dbof_cluster_maxpool_kernel(const __grid_constant__ CUtensorMap map_x,
     const bool live0 = s0 < S;
     const bool live1 = s0 + 8 < S;
     const int video = 2 * wg + (warp >> 1);
-    const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+    const uint32_t a_off = wg * 64 * 128;  // the warpgroup's 64 rows of 128 bytes
     float acc[kBN / 2];
     int iter = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++iter) {
       int rt, ct;
-      tile_coords(t, n_ct, rt, ct);
+      tile_coords(t, n_ct, n_rt, group, rt, ct);
       const int n0 = ct * kBN;
       hgemm::zero<kBN / 2>(acc);
-      hgemm::consume<kStages, kBN / 2>(full, empty, ring, nk, acc, [&](int s) {
-        const uint32_t st = hgemm::smem_u32(smem + s * kStageBytes);
+      if constexpr (F32) {
+        // acc holds the stages' sums, added on the FMA units; win one
+        // window's products of a stage.
+        float win[hgemm::kWindow / 2];
+        hgemm::consume3<kStages, kBN, 0>(full, empty, ring, nk, acc, win,
+                                         hgemm::smem_u32(smem), kStageBytes, a_off);
+      } else {
+        hgemm::consume<kStages, kBN / 2>(full, empty, ring, nk, acc, [&](int s) {
+          const uint32_t st = hgemm::smem_u32(smem + s * kStageBytes);
 #pragma unroll
-        for (int kk = 0; kk < hgemm::kDepth / 16; ++kk)
-          hgemm::chain<kBN>(acc, st + a_off, st + hgemm::kABytes, kk);
-      });
+          for (int kk = 0; kk < hgemm::kDepth / 16; ++kk)
+            hgemm::chain<kBN>(acc, st + a_off, st + hgemm::kABytes, kk);
+        });
+      }
 
       // Epilogue. The BN affine on every element, frames s >= S to -inf
       // (a zero row would give relu(act_bias)), the max of the thread's
@@ -260,30 +317,41 @@ bool bad_shape(int B, int S, int D, int K) {
   return B <= 0 || S <= 0 || S > kPitch || D <= 0 || D % 8 != 0 || K <= 0 || K % 8 != 0;
 }
 
-// Launch 2 over the affined rows xa [B*S, D]: as many blocks as SMs (or
-// tiles), each walking tiles blockIdx.x, + gridDim.x, ...
+// Launch 2 over the affined rows xa [B*S, D] (F32: their halves [2][B*S][D]
+// and W's [2][K][D]): as many blocks as SMs (or tiles), each walking tiles
+// blockIdx.x, + gridDim.x, ...
+template <bool F32>
 int launch_gemm(const void* xa, const void* w, const void* act_scale, const void* act_bias,
                 void* out, int B, int S, int D, int K, cudaStream_t st) {
+  using R = Layout<F32>;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map_x, map_w;
-  // xa viewed as [B, S, D]: a box is 4 videos x 32 frames x 64 deep; the
-  // frames past S and the videos past B read as zeros.
-  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(B)};
-  const uint64_t strides[2] = {static_cast<uint64_t>(D) * 2, static_cast<uint64_t>(S) * D * 2};
-  const uint32_t box[3] = {hgemm::kDepth, kPitch, kVideos};
-  err = hgemm::make_map(&map_x, xa, 3, dims, strides, box);
-  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_w, w, D, K, K, hgemm::kDepth);
+  // xa viewed as [B, S, D] (F32: [2][B][S][D]): a box is 4 videos x 32
+  // frames x 128 bytes of depth (of one half); the frames past S and the
+  // videos past B read as zeros.
+  const uint64_t e = F32 ? 4 : 2;
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B), 2};
+  const uint64_t strides[3] = {D * e, static_cast<uint64_t>(S) * D * e,
+                               static_cast<uint64_t>(B) * S * D * e};
+  const uint32_t box[4] = {static_cast<uint32_t>(R::kDepth), kPitch, kVideos, 1};
+  if constexpr (F32) {
+    err = hgemm::make_map(&map_x, xa, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    if (err == cudaSuccess) err = hgemm::make_map_split(&map_w, w, K, D, kBN);
+  } else {
+    err = hgemm::make_map(&map_x, xa, 3, dims, strides, box);
+    if (err == cudaSuccess) err = hgemm::make_map_2d(&map_w, w, D, K, K, hgemm::kDepth);
+  }
   int sms = 0;
   if (err == cudaSuccess) err = hgemm::sm_count(&sms);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dbof_cluster_maxpool_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemRequest);
+    err = cudaFuncSetAttribute(dbof_cluster_maxpool_kernel<F32>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmemRequest);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = ((K + kBN - 1) / kBN) * ((B + kVideos - 1) / kVideos);
   const int grid = tiles < sms ? tiles : sms;
-  dbof_cluster_maxpool_kernel<<<grid, hgemm::kThreads, kSmemRequest, st>>>(
+  dbof_cluster_maxpool_kernel<F32><<<grid, hgemm::kThreads, R::kSmemRequest, st>>>(
       map_x, map_w, static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
       static_cast<float*>(out), B, S, D, K);
   return static_cast<int>(cudaGetLastError());
@@ -300,113 +368,23 @@ int launch(const void* x, const void* in_scale, const void* in_bias, const void*
       static_cast<const float*>(in_bias), static_cast<__nv_bfloat16*>(xa),
       static_cast<size_t>(B) * S, D, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_gemm(xa, w, act_scale, act_bias, out, B, S, D, K, st);
+  return launch_gemm<false>(xa, w, act_scale, act_bias, out, B, S, D, K, st);
 }
 
-// ---------------------------------------------------------------------------
-// The f32 route.
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Videos = 4;  // videos a tile: 128 rows at a pitch of 32
-
+// The f32 route: xs [2][B*S][D] f32 from the caller, w_split [2][K][D].
 template <typename T>
-struct F32Frames;
-template <>
-struct F32Frames<uint8_t> {
-  using Load = f32p::BytesA<true, f32p::Affine>;
-};
-template <>
-struct F32Frames<float> {
-  using Load = f32p::RowsA<true, f32p::Affine>;
-};
-
-// out [B, K] = max_s relu((x * in_scale + in_bias) @ w * act_scale +
-// act_bias) over x [B, S <= 32, D] (D % 32 == 0), w [D, K] f32 (K % 8 ==
-// 0), all in f32.
-template <typename T>
-__global__ void __launch_bounds__(f32p::kThreads, 2)
-dbof_f32_kernel(const T* __restrict__ x, const float* __restrict__ in_scale,
-                const float* __restrict__ in_bias, const float* __restrict__ w,
-                const float* __restrict__ act_scale, const float* __restrict__ act_bias,
-                float* __restrict__ out, int B, int S, int D, int K) {
-  extern __shared__ __align__(16) float fsmem[];
-  const int n_ct = (K + f32p::kCols - 1) / f32p::kCols;
-  const int v0 = (blockIdx.x / n_ct) * kF32Videos;
-  const int k0 = (blockIdx.x % n_ct) * f32p::kCols;
-  const int r = threadIdx.x & (f32p::kRows - 1);
-  const int v = v0 + r / kPitch;
-  const int s = r % kPitch;
-  typename F32Frames<T>::Load la;
-  la.row = v < B && s < S ? x + (static_cast<size_t>(v) * S + s) * D : nullptr;
-  la.depth = D;
-  la.f = f32p::Affine{in_scale, in_bias};
-  f32p::PanelB<true> lb;
-  lb.base = w;
-  lb.depth = D;
-  lb.cols = K;
-  lb.ld = K;
-  lb.n0 = k0;
-  float acc[8][8];
-  f32p::product(la, lb, D, fsmem, acc);
-
-  // Each thread's max over its 4 rows of a video (rows 4 ty + i: video
-  // ty / 8; rows 64 + 4 ty + i: video 2 + ty / 8), then the video's 8
-  // threads through shared memory: red[ty][half][column].
-  const int ty = threadIdx.x >> 4;
-  float* red = fsmem;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = f32p::col_of(j);
-      const int k = k0 + col;
-      float m = 0.0f;
-      if (k < K) {
-        const float as = __ldg(act_scale + k);
-        const float ab = __ldg(act_bias + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = f32p::row_of(4 * half + i);
-          if (row % kPitch < S && v0 + row / kPitch < B)
-            m = fmaxf(m, __fadd_rn(__fmul_rn(acc[4 * half + i][j], as), ab));
-        }
-      }
-      red[(ty * 2 + half) * f32p::kCols + col] = m;
-    }
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < kF32Videos * f32p::kCols; o += f32p::kThreads) {
-    const int vv = o / f32p::kCols;
-    const int col = o % f32p::kCols;
-    const int half = vv / 2;
-    const int ty0 = (vv % 2) * 8;
-    float m = 0.0f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) m = fmaxf(m, red[((ty0 + q) * 2 + half) * f32p::kCols + col]);
-    if (v0 + vv < B && k0 + col < K) out[static_cast<size_t>(v0 + vv) * K + k0 + col] = m;
-  }
-}
-
-template <typename T>
-int launch_f32(const void* x, const void* in_scale, const void* in_bias, const void* w,
-               const void* act_scale, const void* act_bias, void* out, int B, int S, int D, int K,
-               void* stream) {
-  if (bad_shape(B, S, D, K) || D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dbof_f32_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               f32p::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>((B + kF32Videos - 1) / kF32Videos) *
-                           ((K + f32p::kCols - 1) / f32p::kCols);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  dbof_f32_kernel<T><<<static_cast<unsigned>(blocks), f32p::kThreads, f32p::kSmemBytes,
-                       static_cast<cudaStream_t>(stream)>>>(
+int launch_f32(const void* x, const void* in_scale, const void* in_bias, const void* w_split,
+               const void* act_scale, const void* act_bias, void* xs, void* out, int B, int S,
+               int D, int K, void* stream) {
+  if (bad_shape(B, S, D, K) || D % hgemm::kTf32Depth != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = inaff::launch_input_affine_split(
       static_cast<const T*>(x), static_cast<const float*>(in_scale),
-      static_cast<const float*>(in_bias), static_cast<const float*>(w),
-      static_cast<const float*>(act_scale), static_cast<const float*>(act_bias),
-      static_cast<float*>(out), B, S, D, K);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(in_bias), static_cast<float*>(xs), static_cast<size_t>(B) * S, D,
+      st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_gemm<true>(xs, w_split, act_scale, act_bias, out, B, S, D, K, st);
 }
 
 }  // namespace
@@ -430,23 +408,25 @@ extern "C" int yt8m_dbof_cluster_maxpool_f32(const void* x, const void* in_scale
                        stream);
 }
 
-// The f32 route: x [B, S <= 32, D] uint8 or f32, w [D, K] f32, out [B, K].
+// The f32 route: x [B, S <= 32, D] uint8 or f32 (D % 32 == 0), w_split
+// [2][K][D] f32 (kernels/tf32.py :: split_weights), xs a work buffer of
+// 2 * B*S*D f32 from the caller, out [B, K].
 extern "C" int yt8m_dbof_cluster_maxpool_f32w_u8(const void* x, const void* in_scale,
-                                                const void* in_bias, const void* w,
+                                                const void* in_bias, const void* w_split,
                                                 const void* act_scale, const void* act_bias,
-                                                void* out, int B, int S, int D, int K,
+                                                void* xs, void* out, int B, int S, int D, int K,
                                                 void* stream) {
-  return launch_f32<uint8_t>(x, in_scale, in_bias, w, act_scale, act_bias, out, B, S, D, K,
-                             stream);
+  return launch_f32<uint8_t>(x, in_scale, in_bias, w_split, act_scale, act_bias, xs, out, B, S,
+                             D, K, stream);
 }
 
 extern "C" int yt8m_dbof_cluster_maxpool_f32w_f32(const void* x, const void* in_scale,
-                                                 const void* in_bias, const void* w,
+                                                 const void* in_bias, const void* w_split,
                                                  const void* act_scale, const void* act_bias,
-                                                 void* out, int B, int S, int D, int K,
+                                                 void* xs, void* out, int B, int S, int D, int K,
                                                  void* stream) {
-  return launch_f32<float>(x, in_scale, in_bias, w, act_scale, act_bias, out, B, S, D, K,
-                           stream);
+  return launch_f32<float>(x, in_scale, in_bias, w_split, act_scale, act_bias, xs, out, B, S, D,
+                           K, stream);
 }
 
 // x: the full frames [B, F, D] uint8; idx: [B, S] int32 sampled indices;
@@ -464,7 +444,7 @@ extern "C" int yt8m_dbof_sampled_cluster_maxpool(const void* x, const void* idx,
       static_cast<const uint8_t*>(x), static_cast<const int*>(idx),
       static_cast<const float*>(in_scale), static_cast<const float*>(in_bias),
       static_cast<__nv_bfloat16*>(xa), n8, D / 8, S, F);
-  return launch_gemm(xa, w, act_scale, act_bias, out, B, S, D, K, st);
+  return launch_gemm<false>(xa, w, act_scale, act_bias, out, B, S, D, K, st);
 }
 
 // w [rows, cols] f32 -> w16 [rows, ld] bf16 (round to nearest even), the
@@ -479,7 +459,8 @@ extern "C" int yt8m_round_bf16(const void* w, void* w16, int rows, int cols, int
 
 // The product's tile: [videos a tile, rows a video, K clusters a tile,
 // stages, shared bytes requested a block, SMs (the persistent grid's
-// cap)].
+// cap), the f32 route's stages, its shared bytes, its cluster tiles a
+// group].
 extern "C" int yt8m_dbof_plan(int* plan) {
   int sms = 0;
   const cudaError_t err = hgemm::sm_count(&sms);
@@ -487,8 +468,11 @@ extern "C" int yt8m_dbof_plan(int* plan) {
   plan[0] = kVideos;
   plan[1] = kPitch;
   plan[2] = kBN;
-  plan[3] = kStages;
-  plan[4] = kSmemRequest;
+  plan[3] = Layout<false>::kStages;
+  plan[4] = Layout<false>::kSmemRequest;
   plan[5] = sms;
+  plan[6] = Layout<true>::kStages;
+  plan[7] = Layout<true>::kSmemRequest;
+  plan[8] = kF32Group;
   return static_cast<int>(cudaSuccess);
 }

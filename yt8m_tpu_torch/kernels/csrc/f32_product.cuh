@@ -1,15 +1,16 @@
-// The f32 product of the --compute_dtype=float32 routes, for Hopper
-// (sm_90a): a block's [128 x 128] tile of A [M, depth] @ B [depth, N] in
-// plain f32 FMAs with f32 sums.
+// The f32 product of netvlad.cu's --compute_dtype=float32 route, for
+// Hopper (sm_90a): a block's [128 x 128] tile of A [M, depth] @ B
+// [depth, N] in plain f32 FMAs with f32 sums.
 //
-// At --compute_dtype=float32 the TPU kernels that take a `dtype`
-// (dbof_cluster_maxpool_v2, moe_head_serving, netvlad_aggregate,
-// attention_pool) round nothing: every product is f32 x f32 with f32
-// accumulation. So the card's f32 routes multiply on the FMA units,
-// neither TF32 nor a bf16 split on the tensor cores: the result is the
-// f32 product up to the order of the sums. dbof.cu, moe_head.cu and
-// netvlad.cu build their f32 kernels from this header (attention_pool.cu's
-// products are [F, D] x [D, <= 16] and take their own loop).
+// At --compute_dtype=float32 the TPU kernels that take a `dtype` round
+// nothing: every product is f32 x f32 with f32 accumulation. NetVLAD's
+// f32 route (row 8 of the kernel table) multiplies on the FMA units with
+// this header, neither TF32 nor a bf16 split: the result is the f32
+// product up to the order of the sums. The f32 routes of DBoF v2 and the
+// MoE head (rows 1 and 2) moved to the tensor cores as a 3xTF32 product
+// (hopper_gemm.cuh :: consume3), where this product lost to the f32 matmul
+// graph; attention_pool.cu's products are [F, D] x [D, <= 16] and take
+// their own loop.
 //
 // What bounds it: the card's f32 rate outside the tensor cores (67
 // TFLOP/s on an H100 SXM). A chunk of 32 deep brings 2 x 128 x 32 floats
@@ -144,8 +145,8 @@ __device__ __forceinline__ void product(LoadA& la, LoadB& lb, int depth, float* 
 // thread t fetches 16 features of tile row t % 128 into registers
 // (float4 loads when Vec: depth % 4 == 0 and 16-byte aligned rows) and
 // stores them transposed, each through `f` (the element's affine, or
-// none); features past the depth and zero rows store 0. Used for DBoF's
-// sampled frames, the MoE head's x and NetVLAD's frames.
+// none); features past the depth and zero rows store 0. Used for
+// NetVLAD's frames.
 template <bool Vec, class Elem>
 struct RowsA {
   const float* row;  // this thread's row, or nullptr
@@ -241,17 +242,9 @@ struct Same {
   __device__ __forceinline__ float operator()(float x, int) const { return x; }
 };
 
-// x * scale[d] + bias[d], the multiply and the add each rounded (the
-// plain versions' two rounding points).
-struct Affine {
-  const float* scale;
-  const float* bias;
-  __device__ __forceinline__ float operator()(float x, int d) const {
-    return __fadd_rn(__fmul_rn(x, __ldg(scale + d)), __ldg(bias + d));
-  }
-};
-
-// The affine with one constant pair (the frames' dequantization).
+// x * scale + bias with one constant pair (the frames' dequantization),
+// the multiply and the add each rounded (the plain version's two
+// rounding points).
 struct ConstAffine {
   float scale, bias;
   __device__ __forceinline__ float operator()(float x, int) const {

@@ -1,7 +1,8 @@
 // The shared TMA + wgmma mainloop of the port's Hopper products (sm_90a):
-// dbof.cu (the DBoF cluster product), dbof_int8.cu (the same on the
-// integer wgmma: uint8 x int8, int32 sums, mma_u8s8_256), moe_head.cu
-// (the MoE head's gate and expert products), hopper_product.cuh (the
+// dbof.cu (the DBoF cluster product, bf16 and 3xTF32), dbof_int8.cu (the
+// same on the integer wgmma: uint8 x int8, int32 sums, mma_u8s8_256),
+// moe_head.cu (the MoE head's gate and expert products, bf16 and 3xTF32),
+// hopper_product.cuh (the
 // plain product with a TMA-store epilogue: dequant_matmul.cu,
 // netvlad_train.cu's dx), netvlad_train.cu (the VLAD core's forward and
 // backward products), netvlad.cu (the serving VLAD's assignment and
@@ -49,6 +50,22 @@
 //    128-byte rows of depth: SBO = 8 rows (1024 bytes), LBO unused (16);
 //    a 16-deep step moves the start 32 bytes. The mirror of A K-major;
 //    a box of up to 256 rows is one piece of n256.
+//
+// The 3xTF32 product (mma_tf32, window3, stage3, consume3; the f32 routes
+// of dbof.cu and moe_head.cu): f32 operands on the TF32 tensor cores.
+// Each operand x is split into big = tf32(x) and small = tf32(x - big)
+// (tf32_round: cvt.rna, to nearest, ties away, a 10-bit mantissa), and a
+// tile sums A_small B_big + A_big B_small + A_big B_big, the small terms
+// first; the dropped A_small B_small and the rounding of the small parts
+// are about 2^-21 of each product. A stage is 32 deep (32 f32 = the
+// 128-byte swizzle's row): both halves of the A tile, [2][128 rows][32]
+// K-major, then both halves of each chain's B rows, [2][N rows][32]
+// K-major (B arrives K-major, as a [2][columns][depth] split copy of the
+// weights: TF32's wgmma has no transpose immediate). The descriptors are
+// desc_a and desc_b_k; a k8 step moves the start 32 bytes, as a bf16 k16
+// step does, so a stage is four k8 steps. The tensor core's sums stay
+// within one stage (a window of at most 128 columns at a time); the
+// stages' sums add up on the FMA units (stage3's note says why).
 //
 // The TMA store (tma_store_3d, bulk_commit, bulk_wait_read): threads
 // write a tile into shared memory, fence it to the async proxy
@@ -117,9 +134,9 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const 
                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  cuuint64_t d[3], s[2];
-  cuuint32_t b[3], e[3] = {1, 1, 1};
+  if (encode == nullptr || rank > 4) return cudaErrorNotSupported;
+  cuuint64_t d[4], s[3];
+  cuuint32_t b[4], e[4] = {1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
@@ -167,6 +184,15 @@ constexpr int kF32BoxCols = 32;
 inline cudaError_t make_map_f32(CUtensorMap* map, const void* base, int batch, int rows, int cols,
                                 int box_rows) {
   return make_map_3d(map, base, batch, rows, cols, cols, 4, box_rows, kF32BoxCols,
+                     CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// A 3xTF32 operand: [2][rows][depth_p] f32 (the big half, then the small
+// one), as boxes of [1][box_rows][32 deep] (128-byte rows, K-major); the
+// depth past depth_p and the rows past `rows` read as zeros.
+inline cudaError_t make_map_split(CUtensorMap* map, const void* base, int rows, int depth_p,
+                                  int box_rows) {
+  return make_map_3d(map, base, 2, rows, depth_p, depth_p, 4, box_rows, kF32BoxCols,
                      CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
@@ -291,6 +317,15 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -548,6 +583,125 @@ __device__ __forceinline__ void mma_u8s8_256(int* d, uint64_t a, uint64_t b) {
         : "l"(a), "l"(b), "r"(1));
 }
 
+// d[0 .. N/2) = A(a) . B(b) + (scale_d ? d : 0) with tf32 operands: one
+// m64nNk8. TF32 takes no transpose immediate: both operands are K-major
+// (desc_a, desc_b_k), a 128-byte swizzled row 32 deep, a k8 step moving
+// the start 32 bytes as a bf16 k16 step does. The tensor core reads the
+// upper 19 bits of each 32-bit element; the operands come rounded
+// (tf32_round).
+template <int N>
+__device__ __forceinline__ void mma_tf32(float* d, uint64_t a, uint64_t b, int scale_d = 1) {
+  if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else {
+    static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 || N == 256, "wgmma width");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The 3xTF32 product.
+// ---------------------------------------------------------------------------
+
+constexpr int kTf32Depth = 32;                      // f32 a stage (128 bytes)
+constexpr int kTf32RowBytes = kTf32Depth * 4;       // a K-major row of a stage
+constexpr int kTf32ABytes = kRows * kTf32RowBytes;  // one half of the A tile: 16 KB
+
+// x rounded to tf32 (to nearest, ties away from zero; the low 13 bits 0).
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// x = big + small, both tf32 (x - big is exact in f32).
+__device__ __forceinline__ void tf32_split(float x, float& big, float& small) {
+  big = tf32_round(x);
+  small = tf32_round(__fsub_rn(x, big));
+}
+
 __host__ __device__ constexpr int pow2_floor(int n) {
   return n >= 256 ? 256 : n >= 128 ? 128 : n >= 64 ? 64 : n >= 32 ? 32 : n >= 16 ? 16 : 8;
 }
@@ -560,6 +714,71 @@ __device__ __forceinline__ void chain(float* d, uint32_t a_addr, uint32_t b_addr
   static_assert(Col % kBoxCols == 0, "a chain piece must start at a box edge");
   mma<P>(d, desc_a(a_addr, kk), desc_b(b_addr + (Col / kBoxCols) * kBoxBytes, kk));
   if constexpr (N > P) chain<N - P, Col + P>(d + P / 2, a_addr, b_addr, kk);
+}
+
+// The 3xTF32 consumer keeps its sums out of the tensor core. A wgmma
+// adds its products to its f32 accumulators rounding toward zero, so a
+// chain of 3 D / 8 of them drifts toward zero by about half an ulp of the
+// running sum a wgmma, linear in D (on the card, values up to ~4.4:
+// 3.8e-5 at D = 1152, 6.3e-4 at 16384, against the f32 matmul's 1.4e-6
+// and 4.9e-6). So each stage's products go into fresh accumulators
+// (scale-d 0 on a register's first wgmma) and are added to running sums
+// on the FMA units, rounded to nearest: accumulators of at most kWindow
+// columns (64 registers) a window, and the sums of the whole tile, laid
+// out as one chain's registers.
+constexpr int kWindow = 128;  // columns a window (its accumulators: 64 registers)
+
+// A tile's columns are its G gate-chain columns, then E expert-chain
+// columns (DBoF: G = 256, E = 0), each chain's K-major rows 128 bytes
+// apart from big and small. window3 issues, for k8 step kk, the three
+// products of columns [Lo, Hi) of the window starting at Base into d,
+// cut into widths of wgmma (the largest power of two first); scale-d is
+// 0 on a register's first product of the stage (kk = 0).
+template <int G, int E, int Lo, int Hi, int Base>
+__device__ __forceinline__ void window3(float* d, uint32_t a_big, uint32_t a_small, uint32_t g_big,
+                                        uint32_t g_small, uint32_t e_big, uint32_t e_small,
+                                        int kk) {
+  if constexpr (Lo < Hi) {
+    constexpr bool kGate = Lo < G;
+    constexpr int kEnd = kGate && Hi > G ? G : Hi;
+    constexpr int P = pow2_floor(kEnd - Lo);
+    static_assert(Lo % 8 == 0 && (kEnd - Lo) % 8 == 0 && P <= kEnd - Lo, "wgmma widths");
+    constexpr uint32_t kOff = (kGate ? Lo : Lo - G) * kTf32RowBytes;  // 1024-byte aligned
+    const uint32_t bb = (kGate ? g_big : e_big) + kOff;
+    const uint32_t bs = (kGate ? g_small : e_small) + kOff;
+    float* dd = d + (Lo - Base) / 2;
+    mma_tf32<P>(dd, desc_a(a_small, kk), desc_b_k(bb, kk), kk > 0);
+    mma_tf32<P>(dd, desc_a(a_big, kk), desc_b_k(bs, kk));
+    mma_tf32<P>(dd, desc_a(a_big, kk), desc_b_k(bb, kk));
+    window3<G, E, Lo + P, Hi, Base>(d, a_big, a_small, g_big, g_small, e_big, e_small, kk);
+  }
+}
+
+// One stage of a 3xTF32 tile, window by window from window W: its
+// products into acc (waited for), then added to sum. The stage at `st`:
+// A's halves [2][128 rows][128 bytes] (this warpgroup's rows at a_off),
+// then the gate rows' halves [2][G][128 bytes], then the expert rows'
+// [2][E][128 bytes].
+template <int G, int E, int W = 0>
+__device__ __forceinline__ void stage3(float* sum, float* acc, uint32_t st, uint32_t a_off) {
+  constexpr int kLo = W * kWindow;
+  if constexpr (kLo < G + E) {
+    constexpr int kHi = kLo + kWindow < G + E ? kLo + kWindow : G + E;
+    const uint32_t g = st + 2 * kTf32ABytes;
+    const uint32_t e = g + 2 * G * kTf32RowBytes;
+    fence_regs<kWindow / 2>(acc);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTf32Depth / 8; ++kk)
+      window3<G, E, kLo, kHi, kLo>(acc, st + a_off, st + kTf32ABytes + a_off, g,
+                                   g + G * kTf32RowBytes, e, e + E * kTf32RowBytes, kk);
+    mma_commit();
+    mma_wait<0>();
+    fence_regs<kWindow / 2>(acc);
+#pragma unroll
+    for (int j = 0; j < (kHi - kLo) / 2; ++j) sum[kLo / 2 + j] += acc[j];
+    stage3<G, E, W + 1>(sum, acc, st, a_off);
+  }
 }
 
 // The ring's stage and phase, as each role walks it.
@@ -624,6 +843,23 @@ __device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty, Ring& r
                                         Mma mma_stage) {
   consume_prepared<S, R>(
       full, empty, r, nk, d, [](int, int) {}, [&](int s, int) { mma_stage(s); });
+}
+
+// Consumer warpgroup of a 3xTF32 tile: for each of nk stages, wait for its
+// bytes, run stage3 on it, release it. sum[(G + E) / 2] (zeroed by the
+// caller) ends as the tile's products, laid out as one chain's
+// accumulators; acc is the window's scratch (kWindow / 2 registers).
+template <int S, int G, int E>
+__device__ __forceinline__ void consume3(uint64_t* full, uint64_t* empty, Ring& r, int nk,
+                                         float* sum, float* acc, uint32_t ring_base,
+                                         int stage_bytes, uint32_t a_off) {
+  const bool leader = (threadIdx.x & 31) == 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    bar_wait(&full[r.stage], r.phase);
+    stage3<G, E>(sum, acc, ring_base + r.stage * stage_bytes, a_off);
+    if (leader) bar_arrive(&empty[r.stage]);
+    r.template next<S>();
+  }
 }
 
 }  // namespace

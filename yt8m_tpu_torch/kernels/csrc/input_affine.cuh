@@ -2,16 +2,22 @@
 // dequant_matmul.cu (netvlad_train.cu takes its pack_bf16, netvlad.cu
 // its pack_bf16 and affine), for Hopper (sm_90a): the input
 // affine xa = bf16(x * scale + bias) eight inputs a thread, the rounding
-// of an f32 weight matrix to bf16, and the grid of such a launch.
+// of an f32 weight matrix to bf16, and the grid of such a launch; for
+// the 3xTF32 routes (dbof.cu, moe_head.cu), the same affine in f32 split
+// into its tf32 halves (input_affine_split) and the split of an f32
+// matrix (split_tf32), each into a [2][rows][ld] buffer: big, then small.
 //
 // The affine multiplies and adds unfused (__fmul_rn, __fadd_rn): the
-// plain versions' two roundings, so both round the same float to bf16.
+// plain versions' two roundings, so both round the same float to bf16
+// (or split the same float).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace inaff {
 namespace {
@@ -93,12 +99,75 @@ round_bf16(const float* __restrict__ w, bf16* __restrict__ w16, size_t n, int co
   }
 }
 
+// xs[0][r, d] and xs[1][r, d]: the tf32 halves of x[r, d] * scale[d] +
+// bias[d] (rows * D inputs, `half` apart); eight consecutive inputs a
+// thread (D % 8 == 0).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+input_affine_split(const T* __restrict__ x, const float* __restrict__ scale,
+                   const float* __restrict__ bias, float* __restrict__ xs, size_t n8, int d8,
+                   size_t half) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n8;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float v[8];
+    load8(x + i * 8, v);
+    const int d0 = static_cast<int>(i % d8) * 8;
+    float big[8], small[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      hgemm::tf32_split(affine(v[j], __ldg(scale + d0 + j), __ldg(bias + d0 + j)), big[j],
+                        small[j]);
+    float4* b4 = reinterpret_cast<float4*>(xs + i * 8);
+    float4* s4 = reinterpret_cast<float4*>(xs + half + i * 8);
+    b4[0] = make_float4(big[0], big[1], big[2], big[3]);
+    b4[1] = make_float4(big[4], big[5], big[6], big[7]);
+    s4[0] = make_float4(small[0], small[1], small[2], small[3]);
+    s4[1] = make_float4(small[4], small[5], small[6], small[7]);
+  }
+}
+
+// xs[0][r, c] and xs[1][r, c]: the tf32 halves of x[r, c] (x [rows, cols]
+// f32) for c < cols, 0 for cols <= c < ld (n = rows * ld elements a
+// half).
+__global__ void __launch_bounds__(kThreads)
+split_tf32(const float* __restrict__ x, float* __restrict__ xs, size_t n, int cols, int ld) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / ld;
+    const int c = static_cast<int>(i % ld);
+    float big = 0.0f, small = 0.0f;
+    if (c < cols) hgemm::tf32_split(x[r * cols + c], big, small);
+    xs[i] = big;
+    xs[n + i] = small;
+  }
+}
+
 // The affine over x [rows, D] into xa [rows, D] bf16.
 template <typename T>
 inline cudaError_t launch_input_affine(const T* x, const float* scale, const float* bias, bf16* xa,
                                        size_t rows, int D, cudaStream_t st) {
   const size_t n8 = rows * D / 8;
   input_affine<T><<<blocks(n8), kThreads, 0, st>>>(x, scale, bias, xa, n8, D / 8);
+  return cudaGetLastError();
+}
+
+// The affine over x [rows, D] (D % 8 == 0) into its tf32 halves xs
+// [2][rows][D] f32.
+template <typename T>
+inline cudaError_t launch_input_affine_split(const T* x, const float* scale, const float* bias,
+                                             float* xs, size_t rows, int D, cudaStream_t st) {
+  const size_t n8 = rows * D / 8;
+  input_affine_split<T><<<blocks(n8), kThreads, 0, st>>>(x, scale, bias, xs, n8, D / 8,
+                                                         rows * D);
+  return cudaGetLastError();
+}
+
+// x [rows, cols] f32 -> its tf32 halves xs [2][rows][ld], the columns
+// past cols zero.
+inline cudaError_t launch_split_tf32(const float* x, float* xs, size_t rows, int cols, int ld,
+                                     cudaStream_t st) {
+  const size_t n = rows * ld;
+  split_tf32<<<blocks(n), kThreads, 0, st>>>(x, xs, n, cols, ld);
   return cudaGetLastError();
 }
 

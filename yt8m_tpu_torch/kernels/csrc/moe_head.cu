@@ -41,23 +41,28 @@
 // 64-deep stage reads the columns of x and the rows of the weights past H
 // as TMA's zero fill; zero terms leave the sums exact.
 //
-// The f32 route (--compute_dtype=float32, f32 weights), one launch:
-// moe_f32_kernel, the same function with nothing rounded, as the TPU
-// kernel computes it at dtype=float32, the products in plain f32 FMAs
-// (f32_product.cuh: no TF32). Bound by the f32 rate outside the tensor
-// cores: 49.4 GFLOP at B=512, H=2048, C=4716, M=2, 0.74 ms at 67
-// TFLOP/s, against 193 MB of f32 weights (0.06 ms). A block takes 128
-// videos x NC = floor(128 / (2M + 1)) classes (M=2: 25): the 128 columns
-// of its B panel are the NC classes' gate columns, then their expert
-// columns, loaded from the two weights by scalar loads (a warp's 32
-// neighbouring columns are neighbours in device memory). The row tile
-// runs fastest, so the blocks of a class tile read its weights about at
-// once, from device memory once. The epilogue stages the sums in shared
-// memory and one thread a (video, class) combines them with expf and
-// true divisions. One block an SM: with two (128 registers a thread)
-// ptxas spilled 104-256 bytes and the call took 2.26 ms against 1.59 (an
-// H100 at 700 W, the same call).
-//
+// The f32 route (--compute_dtype=float32, f32 weights): the same function
+// with nothing rounded to bf16, as the TPU kernel computes it at
+// dtype=float32, on the tensor cores as a 3xTF32 product (hopper_gemm.cuh
+// :: consume3): x and the weights split into tf32 halves, big = tf32(v)
+// and small = tf32(v - big), each logit summed as x_small W_big + x_big
+// W_small + x_big W_big (about 2^-21 of each product from the f32
+// product), the tensor core's sums one 32-deep stage at a time and the
+// stages' added on the FMA units, rounded to nearest. 3 x 49.4 GFLOP at
+// B=512, H=2048, C=4716, M=2 against the TF32 rate (494.7 TFLOP/s): 0.30
+// ms at the bound, where one f32 product outside the tensor cores is
+// 0.74 ms.
+// Two launches, as the bf16 route: the split of x into a [2][B][H
+// rounded up to 4] f32 buffer from the wrapper (input_affine.cuh ::
+// split_tf32), then moe_head_kernel's F32 instance on the same tiles as
+// the bf16 route (below), on a ring of 32-deep stages of both halves of
+// the x tile and of each chain's weight rows. The weights arrive as split
+// copies [2][C(M+1)][Hp] and [2][CM][Hp], K-major (TF32's wgmma reads B
+// K-major only), which the model builds once per weight version
+// (kernels/tf32.py :: split_weights): 2 x 193 MB at M=2. A K-major box
+// may start at any column, so the F32 tiles load their exact first
+// columns, with no offset.
+
 // TMA needs row strides that are multiples of 16 bytes: the weights come
 // as views whose row stride is padded to a multiple of 8 columns
 // (kernels/moe_head.py :: pitched), C*(M+1) = 14,148 being no multiple of 8.
@@ -92,16 +97,19 @@
 // passes 2^126 at M > 1542, where the fast division gives 0). The slots
 // lie outside the ring, so the next chunk loads while a chunk is combined.
 //
-// The f32 route takes NC = floor(128 / (2M + 1)) classes up to M = 63;
-// above, a block takes one class and loops over chunks of 63 mixtures (at
-// most 64 gate and 63 expert columns of the 128-column B panel), the
-// combine of each chunk added into the row's sums in registers.
+// The F32 instances run the same tiles on 32-deep stages of 3xTF32 chains:
+// M in {1, 2, 4} the template tiles, M <= 121 the run-time chains of 136
+// and 128 columns, min(136 / (M + 1), 128 / M) classes a block (no offset
+// to leave room for), above it chunks of 120 mixtures in chains of 128
+// (the chunk's gates and the dummy) and 120 columns, on two stages beside
+// the exp(gate) slots. A stage holds 2 x (128 + gate + expert) rows of 128
+// bytes (92-98 KB at M = 1, 2, the run-time and the chunked tiles: two
+// stages; 68 KB at M = 4: three).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "f32_product.cuh"
 #include "hopper_gemm.cuh"
 #include "input_affine.cuh"
 
@@ -120,22 +128,31 @@ constexpr int kMaxRuntimeMixtures = kRuntimeExpert - kAlignCols + 1;
 // chains. The chains' 2 B accumulators a column stay under ~130
 // registers a thread (two wgmma chains in flight beside them within the
 // consumers' 232). The run-time tiles' classes are runtime_classes(m).
+// The F32 chunked tile starts its chains at the chunk's own columns: 121
+// gates (the last chunk's dummy among them) in 128, 120 experts in 120.
 struct Tile {
   int nc, gate, expert;
 };
-__host__ __device__ constexpr Tile tile_of(int m) {
+__host__ __device__ constexpr Tile tile_of(int m, bool f32 = false) {
   return m == 1 ? Tile{80, 160, 80}
                 : m == 2 ? Tile{48, 144, 96}
-                         : m == 4 ? Tile{16, 80, 64} : Tile{1, kRuntimeGate, kRuntimeExpert};
+                         : m == 4 ? Tile{16, 80, 64}
+                                  : m < 0 && f32 ? Tile{1, 128, kChunkMixtures}
+                                                 : Tile{1, kRuntimeGate, kRuntimeExpert};
 }
 
+// Columns a run-time tile's chains lose to the offset of a start rounded
+// down to 8 (bf16: TMA starts a box of MN-major columns at a multiple of
+// 16 bytes; F32 loads K-major rows from any column).
+__host__ __device__ constexpr int lost_cols(bool f32) { return f32 ? 0 : kAlignCols - 1; }
+
 // Classes a block of the run-time tile at m <= 121 mixtures: as many as
-// both chains cover past an offset of up to 7 columns (so the bias slot's
-// NC m <= 128 floats).
-__host__ __device__ constexpr int runtime_classes(int m) {
-  return (kRuntimeGate - kAlignCols + 1) / (m + 1) < (kRuntimeExpert - kAlignCols + 1) / m
-             ? (kRuntimeGate - kAlignCols + 1) / (m + 1)
-             : (kRuntimeExpert - kAlignCols + 1) / m;
+// both chains cover past the offset (so the bias slot's NC m <= 128
+// floats).
+__host__ __device__ constexpr int runtime_classes(int m, bool f32 = false) {
+  return (kRuntimeGate - lost_cols(f32)) / (m + 1) < (kRuntimeExpert - lost_cols(f32)) / m
+             ? (kRuntimeGate - lost_cols(f32)) / (m + 1)
+             : (kRuntimeExpert - lost_cols(f32)) / m;
 }
 
 // The instantiation that takes m mixtures.
@@ -144,8 +161,10 @@ __host__ __device__ constexpr int instance_of(int m) {
 }
 
 // Classes a block at m mixtures (1 for the chunked instantiation).
-__host__ __device__ constexpr int classes_of(int m) {
-  return instance_of(m) > 0 ? tile_of(m).nc : instance_of(m) == 0 ? runtime_classes(m) : 1;
+__host__ __device__ constexpr int classes_of(int m, bool f32 = false) {
+  return instance_of(m) > 0    ? tile_of(m).nc
+         : instance_of(m) == 0 ? runtime_classes(m, f32)
+                               : 1;
 }
 
 // Mixture chunks a block walks at m mixtures.
@@ -158,53 +177,65 @@ __host__ __device__ constexpr int chunks_of(int m) {
 __host__ __device__ constexpr int stage_ld(int cols) { return cols + (8 - cols % 32 + 32) % 32; }
 
 // The ring and shared memory of M's tile: a stage holds the A tile, then
-// the gate chain's boxes, then the expert chain's.
-template <int M>
+// the gate chain's boxes, then the expert chain's (F32: both halves of the
+// A tile, of the gate rows, then of the expert rows; as many stages as
+// fit, up to 4).
+template <int M, bool F32>
 struct Layout {
-  static constexpr Tile kTile = tile_of(M);
-  static constexpr int kStages = M < 0 ? 3 : kRingStages;  // the chunks' slots take a stage's room
+  static constexpr Tile kTile = tile_of(M, F32);
+  static constexpr int kDepth = F32 ? hgemm::kTf32Depth : hgemm::kDepth;
   static constexpr int kGateBoxes = hgemm::boxes(kTile.gate);
   static constexpr int kExpertBoxes = hgemm::boxes(kTile.expert);
   static constexpr int kStageBytes =
-      hgemm::kABytes + (kGateBoxes + kExpertBoxes) * hgemm::kBoxBytes;
+      F32 ? 2 * (hgemm::kTf32ABytes + (kTile.gate + kTile.expert) * hgemm::kTf32RowBytes)
+          : hgemm::kABytes + (kGateBoxes + kExpertBoxes) * hgemm::kBoxBytes;
   // The chunks' per-warp slots of exp(gate), [8 warps][8 rows][gate].
   static constexpr int kSlotFloats = M < 0 ? hgemm::kConsumerWarps * 8 * kTile.gate : 0;
+  static constexpr int kFixedBytes = 128 * 4 + kSlotFloats * 4 + 2 * 4 * 8 + hgemm::kAlign;
+  static constexpr int kFit = (232448 - kFixedBytes) / kStageBytes;
+  static constexpr int kStages =
+      F32 ? (kFit < kRingStages ? kFit : kRingStages)
+          : (M < 0 ? 3 : kRingStages);  // the chunks' slots take a stage's room
   // The ring, its barriers, then the tile's expert bias (NC*M <= 128), then
   // the slots.
   static constexpr int kSmemRequest = hgemm::smem_request(kStages * kStageBytes + 2 * kStages * 8 +
                                                           128 * 4 + kSlotFloats * 4);
   static constexpr int kLd = stage_ld(kTile.gate + kTile.expert);
+  static_assert(kStages >= 2, "a ring of two stages at least");
   static_assert(kSmemRequest <= 232448, "shared memory a block");
   static_assert(hgemm::kRows * kLd * 4 <= kStages * kStageBytes, "the staged tile fits the ring");
   static_assert(M <= 0 || kTile.nc * M <= 128, "the bias fits its slot");
   static_assert(M <= 0 || (kTile.nc * (M + 1) <= kTile.gate && kTile.nc * M <= kTile.expert),
                 "the chains cover the tile's classes");
-  static_assert(M > 0 || (kTile.gate == kRuntimeGate && kTile.expert == kRuntimeExpert),
+  static_assert(M != 0 || (kTile.gate == kRuntimeGate && kTile.expert == kRuntimeExpert),
                 "the run-time tiles");
-  static_assert(kChunkMixtures + 1 + kAlignCols - 1 <= kRuntimeGate &&
-                    kChunkMixtures + kAlignCols - 1 <= kRuntimeExpert,
+  static_assert(M >= 0 || (kChunkMixtures + 1 + lost_cols(F32) <= kTile.gate &&
+                           kChunkMixtures + lost_cols(F32) <= kTile.expert),
                 "a chunk's gates (and the dummy) and experts fit the chains past an offset");
+  static_assert(kTile.gate % 8 == 0 && kTile.expert % 8 == 0, "chain widths");
 };
 
-template <int M>
+// F32: x, wg and we are the maps of the split operands ([2][B][Hp],
+// [2][C(M+1)][Hp], [2][CM][Hp]); H is Hp.
+template <int M, bool F32>
 __global__ void __launch_bounds__(hgemm::kThreads, 1)
 moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
                 const __grid_constant__ CUtensorMap map_e, const float* __restrict__ be,
                 float* __restrict__ out, int B, int H, int C, int runtime_m) {
-  using L = Layout<M>;
+  using L = Layout<M, F32>;
   constexpr Tile kT = L::kTile;
   constexpr int kAcc = (kT.gate + kT.expert) / 2;
   constexpr int kLd = L::kLd;
   constexpr int kStageBytes = L::kStageBytes;
   constexpr int kS = L::kStages;
   const int m_ = M > 0 ? M : runtime_m;
-  const int nc = M > 0 ? kT.nc : M == 0 ? runtime_classes(m_) : 1;
+  const int nc = M > 0 ? kT.nc : M == 0 ? runtime_classes(m_, F32) : 1;
   const int n_chunks = M < 0 ? (m_ + kChunkMixtures - 1) / kChunkMixtures : 1;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hgemm::aligned_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kS * kStageBytes);
   uint64_t* empty = full + kS;
-  const int nk = (H + hgemm::kDepth - 1) / hgemm::kDepth;
+  const int nk = (H + L::kDepth - 1) / L::kDepth;
   const int b0 = blockIdx.x * hgemm::kRows;
   const int c0 = blockIdx.y * nc;
   if (threadIdx.x == 0) {
@@ -216,26 +247,39 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   }
   __syncthreads();
   // The first gate and expert columns of chunk j of the tile, and their
-  // TMA starts (rounded down to 8; the template tiles' are multiples of 8).
+  // TMA starts (rounded down to 8; the template tiles' are multiples of 8;
+  // F32 starts at them).
   auto gate0 = [&](int j) { return c0 * (m_ + 1) + j * kChunkMixtures; };
   auto expert0 = [&](int j) { return c0 * m_ + j * kChunkMixtures; };
-  auto start = [](int col) { return M > 0 ? col : col & ~(kAlignCols - 1); };
+  auto start = [](int col) { return M > 0 || F32 ? col : col & ~(kAlignCols - 1); };
 
   const int wg = hgemm::warpgroup();
   hgemm::Ring ring;
   const CUtensorMap* xmap = &map_x;  // the parameter itself (TMA reads it there)
   const CUtensorMap* gmap = &map_g;
   const CUtensorMap* emap = &map_e;
-  // The stage's gate and expert chains into acc.
-  auto mma_stage = [&](int s, float* acc) {
-    const uint32_t st = hgemm::smem_u32(smem + s * Layout<M>::kStageBytes);
-    const uint32_t gates = st + hgemm::kABytes;
-    const uint32_t a_off = wg * 64 * hgemm::kDepth * 2;
+  const uint32_t a_off = wg * 64 * 128;  // the warpgroup's 64 rows of 128 bytes
+  // The tile's products over H into acc: bf16, the stage's gate and expert
+  // chains; F32, consume3 on stages of [x big, x small, gate big, gate
+  // small, expert big, expert small] rows of 128 bytes, acc the stages'
+  // sums.
+  auto product = [&](float* acc) {
+    hgemm::zero<kAcc>(acc);
+    if constexpr (F32) {
+      float win[hgemm::kWindow / 2];
+      hgemm::consume3<kS, L::kTile.gate, L::kTile.expert>(
+          full, empty, ring, nk, acc, win, hgemm::smem_u32(smem), kStageBytes, a_off);
+    } else {
+      hgemm::consume<kS, kAcc>(full, empty, ring, nk, acc, [&](int s) {
+        const uint32_t st = hgemm::smem_u32(smem + s * L::kStageBytes);
+        const uint32_t gates = st + hgemm::kABytes;
 #pragma unroll
-    for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
-      hgemm::chain<Layout<M>::kTile.gate>(acc, st + a_off, gates, kk);
-      hgemm::chain<Layout<M>::kTile.expert>(acc + Layout<M>::kTile.gate / 2, st + a_off,
-                                            gates + Layout<M>::kGateBoxes * hgemm::kBoxBytes, kk);
+        for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) {
+          hgemm::chain<L::kTile.gate>(acc, st + a_off, gates, kk);
+          hgemm::chain<L::kTile.expert>(acc + L::kTile.gate / 2, st + a_off,
+                                        gates + L::kGateBoxes * hgemm::kBoxBytes, kk);
+        }
+      });
     }
   };
   if (wg == 2) {
@@ -245,16 +289,30 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
         const int g0 = start(gate0(j));
         const int e0 = start(expert0(j));
         hgemm::produce<kS>(full, empty, ring, nk, kStageBytes, [&](int s, uint64_t* bar, int kt) {
-          unsigned char* st = smem + s * L::kStageBytes + hgemm::kABytes;
-          const int k0 = kt * hgemm::kDepth;
-          hgemm::tma_2d(st - hgemm::kABytes, xmap, bar, k0, b0);
+          unsigned char* st = smem + s * L::kStageBytes;
+          const int k0 = kt * L::kDepth;
+          if constexpr (F32) {
+            unsigned char* gates = st + 2 * hgemm::kTf32ABytes;
+            unsigned char* experts = gates + 2 * L::kTile.gate * hgemm::kTf32RowBytes;
 #pragma unroll
-          for (int i = 0; i < L::kGateBoxes; ++i)
-            hgemm::tma_2d(st + i * hgemm::kBoxBytes, gmap, bar, g0 + i * hgemm::kBoxCols, k0);
+            for (int h = 0; h < 2; ++h) {
+              hgemm::tma_3d(st + h * hgemm::kTf32ABytes, xmap, bar, k0, b0, h);
+              hgemm::tma_3d(gates + h * L::kTile.gate * hgemm::kTf32RowBytes, gmap, bar, k0, g0,
+                            h);
+              hgemm::tma_3d(experts + h * L::kTile.expert * hgemm::kTf32RowBytes, emap, bar, k0,
+                            e0, h);
+            }
+          } else {
+            st += hgemm::kABytes;
+            hgemm::tma_2d(st - hgemm::kABytes, xmap, bar, k0, b0);
 #pragma unroll
-          for (int i = 0; i < L::kExpertBoxes; ++i)
-            hgemm::tma_2d(st + (L::kGateBoxes + i) * hgemm::kBoxBytes, emap, bar,
-                          e0 + i * hgemm::kBoxCols, k0);
+            for (int i = 0; i < L::kGateBoxes; ++i)
+              hgemm::tma_2d(st + i * hgemm::kBoxBytes, gmap, bar, g0 + i * hgemm::kBoxCols, k0);
+#pragma unroll
+            for (int i = 0; i < L::kExpertBoxes; ++i)
+              hgemm::tma_2d(st + (L::kGateBoxes + i) * hgemm::kBoxBytes, emap, bar,
+                            e0 + i * hgemm::kBoxCols, k0);
+          }
         });
       }
     }
@@ -267,8 +325,7 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
       bias[i] = c0 * m_ + i < C * m_ ? be[static_cast<size_t>(c0) * m_ + i] : 0.0f;
     // Gate columns in acc[0, gate/2), expert columns after them.
     float acc[kAcc];
-    hgemm::zero<kAcc>(acc);
-    hgemm::consume<kS, kAcc>(full, empty, ring, nk, acc, [&](int s) { mma_stage(s, acc); });
+    product(acc);
     // Where the tile's first gate and expert columns sit in the chains.
     const int r_g = gate0(0) - start(gate0(0));
     const int r_e = expert0(0) - start(expert0(0));
@@ -333,8 +390,7 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
     float den[2] = {0.0f, 0.0f};
     float acc[kAcc];
     for (int j = 0; j < n_chunks; ++j) {
-      hgemm::zero<kAcc>(acc);
-      hgemm::consume<kS, kAcc>(full, empty, ring, nk, acc, [&](int s) { mma_stage(s, acc); });
+      product(acc);
       const int mix0 = j * kChunkMixtures;
       const bool last = j == n_chunks - 1;
       const int r_g = gate0(j) - start(gate0(j));
@@ -384,187 +440,65 @@ moe_head_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
 }
 
 // M > 0: the instantiation for that M; M = 0: the one taking m at run time.
-// The row pitch of the rounded x: H rounded up to 8 (16-byte rows).
+// The row pitch of the rounded x: H rounded up to 8 (16-byte rows); of
+// the split x and weights: H rounded up to 4.
 inline int x_pitch(int H) { return (H + 7) / 8 * 8; }
+inline int split_pitch(int H) { return (H + 3) / 4 * 4; }
 
-template <int M>
+// bf16: wg, we [H, cols] at row strides ldg, lde; xa a [B, x_pitch(H)]
+// bf16 buffer. F32: wg, we the split weights [2][cols][split_pitch(H)];
+// xa a [2][B][split_pitch(H)] f32 buffer.
+template <int M, bool F32>
 int launch(const void* x, const void* wg, const void* we, const void* be, void* xa, void* out,
            int B, int H, int C, int m, int ldg, int lde, cudaStream_t st) {
-  using L = Layout<M>;
+  using L = Layout<M, F32>;
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = inaff::launch_round_bf16(static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xa),
-                                   static_cast<size_t>(B), H, x_pitch(H), st);
   CUtensorMap map_x, map_g, map_e;
+  const int hp = split_pitch(H);
+  if constexpr (F32) {
+    if (err == cudaSuccess)
+      err = inaff::launch_split_tf32(static_cast<const float*>(x), static_cast<float*>(xa),
+                                     static_cast<size_t>(B), H, hp, st);
+    if (err == cudaSuccess) err = hgemm::make_map_split(&map_x, xa, B, hp, hgemm::kRows);
+    if (err == cudaSuccess) err = hgemm::make_map_split(&map_g, wg, C * (m + 1), hp, L::kTile.gate);
+    if (err == cudaSuccess) err = hgemm::make_map_split(&map_e, we, C * m, hp, L::kTile.expert);
+  } else {
+    if (err == cudaSuccess)
+      err = inaff::launch_round_bf16(static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xa),
+                                     static_cast<size_t>(B), H, x_pitch(H), st);
+    if (err == cudaSuccess)
+      err = hgemm::make_map_2d(&map_x, xa, B, H, x_pitch(H), hgemm::kRows);
+    if (err == cudaSuccess)
+      err = hgemm::make_map_2d(&map_g, wg, H, C * (m + 1), ldg, hgemm::kDepth);
+    if (err == cudaSuccess) err = hgemm::make_map_2d(&map_e, we, H, C * m, lde, hgemm::kDepth);
+  }
   if (err == cudaSuccess)
-    err = hgemm::make_map_2d(&map_x, xa, B, H, x_pitch(H), hgemm::kRows);
-  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_g, wg, H, C * (m + 1), ldg, hgemm::kDepth);
-  if (err == cudaSuccess) err = hgemm::make_map_2d(&map_e, we, H, C * m, lde, hgemm::kDepth);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(moe_head_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::kSmemRequest);
+    err = cudaFuncSetAttribute(moe_head_kernel<M, F32>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemRequest);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nc = classes_of(m);
+  const int nc = classes_of(m, F32);
   const dim3 grid((B + hgemm::kRows - 1) / hgemm::kRows, (C + nc - 1) / nc);
-  moe_head_kernel<M><<<grid, hgemm::kThreads, L::kSmemRequest, st>>>(
-      map_x, map_g, map_e, static_cast<const float*>(be), static_cast<float*>(out), B, H, C, m);
+  moe_head_kernel<M, F32><<<grid, hgemm::kThreads, L::kSmemRequest, st>>>(
+      map_x, map_g, map_e, static_cast<const float*>(be), static_cast<float*>(out), B,
+      F32 ? hp : H, C, m);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// The f32 route.
-// ---------------------------------------------------------------------------
-
-// Classes a tile of the f32 route: their gate and expert columns fill at
-// most the 128 columns of the product's B panel; 0 (M >= 64): a block
-// takes one class in chunks of kF32ChunkMixtures mixtures, whose gates
-// (and the last chunk's dummy) and experts fill at most 64 + 63 columns.
-__host__ __device__ constexpr int f32_classes(int m) { return f32p::kCols / (2 * m + 1); }
-constexpr int kF32ChunkMixtures = (f32p::kCols - 1) / 2;  // 63
-__host__ __device__ constexpr int f32_class_tiles(int C, int m) {
-  return f32_classes(m) > 0 ? (C + f32_classes(m) - 1) / f32_classes(m) : C;
-}
-
-// The B panel of a class tile: column j < NC (M+1) is gate column
-// c0 (M+1) + j, the next NC M columns are expert columns c0 M + ..., the
-// rest (and the columns of classes past C, and the depth past H) zeros.
-struct MoeColumns {
-  const float* wg;
-  const float* we;
-  int ldg, lde, H;
-  int gate_cols, expert_cols;  // NC (M+1), NC M
-  int g0, e0;                  // c0 (M+1), c0 M
-  int g_end, e_end;            // C (M+1), C M
-  float v[16];
-
-  __device__ __forceinline__ const float* column(int* ld) const {
-    const int c = threadIdx.x & (f32p::kCols - 1);
-    if (c < gate_cols) {
-      *ld = ldg;
-      return g0 + c < g_end ? wg + g0 + c : nullptr;
-    }
-    const int e = c - gate_cols;
-    *ld = lde;
-    return e < expert_cols && e0 + e < e_end ? we + e0 + e : nullptr;
+template <bool F32>
+int launch_any(const void* x, const void* wg, const void* we, const void* be, void* xa, void* out,
+               int B, int H, int C, int M, int ldg, int lde, cudaStream_t st) {
+  switch (instance_of(M)) {
+    case 1:
+      return launch<1, F32>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
+    case 2:
+      return launch<2, F32>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
+    case 4:
+      return launch<4, F32>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
+    case 0:  // M <= 121, taken at run time
+      return launch<0, F32>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
+    default:  // M > 121: chunks of 120 mixtures
+      return launch<-1, F32>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
   }
-
-  __device__ __forceinline__ void fetch(int d0, float*) {
-    int ld = 0;
-    const float* p = column(&ld);
-    const int r0 = d0 + (threadIdx.x >> 7) * 16;
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      v[i] = p != nullptr && r0 + i < H ? __ldg(p + static_cast<size_t>(r0 + i) * ld) : 0.0f;
-  }
-
-  __device__ __forceinline__ void store(float* panel) {
-    const int c = threadIdx.x & (f32p::kCols - 1);
-    const int r0 = (threadIdx.x >> 7) * 16;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) panel[(r0 + i) * f32p::kCols + c] = v[i];
-  }
-};
-
-// probs [B, C] from x [B, H] f32, wg [H, C*(M+1)] and we [H, C*M] f32 at
-// row strides ldg and lde, be [C*M] f32; all in f32.
-template <bool VecX>
-__global__ void __launch_bounds__(f32p::kThreads)
-moe_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
-               const float* __restrict__ we, const float* __restrict__ be,
-               float* __restrict__ out, int B, int H, int C, int m, int ldg, int lde) {
-  extern __shared__ __align__(16) float fsmem[];
-  const int nc = f32_classes(m);
-  const int b0 = blockIdx.x * f32p::kRows;
-  const int c0 = blockIdx.y * (nc > 0 ? nc : 1);
-  const int r = threadIdx.x & (f32p::kRows - 1);
-  f32p::RowsA<VecX, f32p::Same> la;
-  la.row = b0 + r < B ? x + static_cast<size_t>(b0 + r) * H : nullptr;
-  la.depth = H;
-  MoeColumns lb;
-  lb.wg = wg;
-  lb.we = we;
-  lb.ldg = ldg;
-  lb.lde = lde;
-  lb.H = H;
-  lb.g_end = C * (m + 1);
-  lb.e_end = C * m;
-  float acc[8][8];
-  float* stage = fsmem;
-  if (nc == 0) {
-    // M >= 64: class c0, chunks of kF32ChunkMixtures mixtures; thread r <
-    // 128 keeps its row's sums across chunks.
-    float num = 0.0f;
-    float den = 0.0f;
-    const int n_chunks = (m + kF32ChunkMixtures - 1) / kF32ChunkMixtures;
-    for (int j = 0; j < n_chunks; ++j) {
-      const int mix0 = j * kF32ChunkMixtures;
-      const int ne = min(kF32ChunkMixtures, m - mix0);
-      const int ng = j == n_chunks - 1 ? m + 1 - mix0 : kF32ChunkMixtures;
-      lb.gate_cols = ng;
-      lb.expert_cols = ne;
-      lb.g0 = c0 * (m + 1) + mix0;
-      lb.e0 = c0 * m + mix0;
-      f32p::product(la, lb, H, fsmem, acc);
-      f32p::stage_tile(acc, stage);
-      __syncthreads();
-      if (threadIdx.x < f32p::kRows) {
-        const float* g = stage + threadIdx.x * f32p::kCols;
-        const float* e = g + ng;
-        const float* bias = be + static_cast<size_t>(c0) * m + mix0;
-        for (int k = 0; k < ng; ++k) {
-          const float eg = expf(fminf(fmaxf(g[k], -80.0f), 80.0f));
-          den += eg;
-          if (k < ne) num += eg * (1.0f / (1.0f + expf(-(e[k] + __ldg(bias + k)))));
-        }
-      }
-      __syncthreads();  // the stage is read before the next chunk's product
-    }
-    if (threadIdx.x < f32p::kRows && b0 + static_cast<int>(threadIdx.x) < B)
-      out[static_cast<size_t>(b0 + threadIdx.x) * C + c0] = num / den;
-    return;
-  }
-  lb.gate_cols = nc * (m + 1);
-  lb.expert_cols = nc * m;
-  lb.g0 = c0 * (m + 1);
-  lb.e0 = c0 * m;
-  f32p::product(la, lb, H, fsmem, acc);
-  f32p::stage_tile(acc, stage);
-  __syncthreads();
-  for (int p = threadIdx.x; p < f32p::kRows * nc; p += f32p::kThreads) {
-    const int row = p / nc;
-    const int c = p - row * nc;
-    const int b = b0 + row;
-    const int cls = c0 + c;
-    if (b >= B || cls >= C) continue;
-    const float* g = stage + row * f32p::kCols + c * (m + 1);
-    const float* e = stage + row * f32p::kCols + nc * (m + 1) + c * m;
-    float den = 0.0f;
-    float num = 0.0f;
-    for (int k = 0; k <= m; ++k) {
-      const float eg = expf(fminf(fmaxf(g[k], -80.0f), 80.0f));
-      den += eg;
-      if (k < m) {
-        const float logit = e[k] + __ldg(be + static_cast<size_t>(cls) * m + k);
-        num += eg * (1.0f / (1.0f + expf(-logit)));
-      }
-    }
-    out[static_cast<size_t>(b) * C + cls] = num / den;
-  }
-}
-
-template <bool VecX>
-int launch_f32(const void* x, const void* wg, const void* we, const void* be, void* out, int B,
-               int H, int C, int m, int ldg, int lde, cudaStream_t st) {
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(moe_f32_kernel<VecX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               f32p::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + f32p::kRows - 1) / f32p::kRows, f32_class_tiles(C, m));
-  moe_f32_kernel<VecX><<<grid, f32p::kThreads, f32p::kSmemBytes, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wg), static_cast<const float*>(we),
-      static_cast<const float*>(be), static_cast<float*>(out), B, H, C, m, ldg, lde);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -579,54 +513,50 @@ extern "C" int yt8m_moe_head_serving(const void* x, const void* wg, const void* 
       ldg < C * (M + 1) || ldg % 8 != 0 || lde < C * M || lde % 8 != 0 ||
       (C + classes_of(M) - 1) / classes_of(M) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (instance_of(M)) {
-    case 1:
-      return launch<1>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
-    case 2:
-      return launch<2>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
-    case 4:
-      return launch<4>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
-    case 0:  // M <= 128, taken at run time
-      return launch<0>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
-    default:  // M > 128: chunks of 128 mixtures
-      return launch<-1>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde, st);
-  }
+  return launch_any<false>(x, wg, we, be, xa, out, B, H, C, M, ldg, lde,
+                           static_cast<cudaStream_t>(stream));
 }
 
-// The f32 route: x [B, H] f32; wg [H, C*(M+1)] and we [H, C*M] f32 with
-// row strides ldg and lde; be [C*M] f32; out [B, C] f32. vec_x: H % 4 ==
-// 0 and x 16-byte aligned (float4 loads of x).
-extern "C" int yt8m_moe_head_serving_f32(const void* x, const void* wg, const void* we,
-                                         const void* be, void* out, int B, int H, int C, int M,
-                                         int ldg, int lde, int vec_x, void* stream) {
+// The f32 route: x [B, H] f32; wg_split [2][C*(M+1)][Hp] and we_split
+// [2][C*M][Hp] f32 (Hp = H rounded up to 4; kernels/tf32.py ::
+// split_weights); be [C*M] f32; xs a [2][B][Hp] f32 work buffer from the
+// caller; out [B, C] f32.
+extern "C" int yt8m_moe_head_serving_f32(const void* x, const void* wg_split,
+                                         const void* we_split, const void* be, void* xs,
+                                         void* out, int B, int H, int C, int M, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || M < 1 || static_cast<long long>(C) * (M + 1) > 0x7fffffff ||
-      ldg < C * (M + 1) || lde < C * M || f32_class_tiles(C, M) > 65535)
+      (C + classes_of(M, true) - 1) / classes_of(M, true) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return vec_x ? launch_f32<true>(x, wg, we, be, out, B, H, C, M, ldg, lde, st)
-               : launch_f32<false>(x, wg, we, be, out, B, H, C, M, ldg, lde, st);
+  return launch_any<true>(x, wg_split, we_split, be, xs, out, B, H, C, M, 0, 0,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// The tile at M mixtures: [classes a block, gate chain width, expert chain
-// width, stages, shared bytes requested a block, floats a staged row,
-// mixture chunks a block, the f32 route's classes a block (0: chunks of
-// 63 mixtures)].
-extern "C" int yt8m_moe_plan(int M, int* plan) {
+// The tile of a route at M mixtures: [classes a block, gate chain width,
+// expert chain width, stages, shared bytes requested a block, floats a
+// staged row, mixture chunks a block].
+extern "C" int yt8m_moe_plan(int M, int f32, int* plan) {
   if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int inst = instance_of(M);
-  const Tile t = tile_of(inst);
-  const int smem[] = {Layout<-1>::kSmemRequest, Layout<0>::kSmemRequest, Layout<1>::kSmemRequest,
-                      Layout<2>::kSmemRequest, 0, Layout<4>::kSmemRequest};
-  const int stages[] = {Layout<-1>::kStages, Layout<0>::kStages, Layout<1>::kStages,
-                        Layout<2>::kStages, 0, Layout<4>::kStages};
-  plan[0] = classes_of(M);
+  const Tile t = tile_of(inst, f32 != 0);
+  const int smem[2][6] = {
+      {Layout<-1, false>::kSmemRequest, Layout<0, false>::kSmemRequest,
+       Layout<1, false>::kSmemRequest, Layout<2, false>::kSmemRequest, 0,
+       Layout<4, false>::kSmemRequest},
+      {Layout<-1, true>::kSmemRequest, Layout<0, true>::kSmemRequest,
+       Layout<1, true>::kSmemRequest, Layout<2, true>::kSmemRequest, 0,
+       Layout<4, true>::kSmemRequest}};
+  const int stages[2][6] = {
+      {Layout<-1, false>::kStages, Layout<0, false>::kStages, Layout<1, false>::kStages,
+       Layout<2, false>::kStages, 0, Layout<4, false>::kStages},
+      {Layout<-1, true>::kStages, Layout<0, true>::kStages, Layout<1, true>::kStages,
+       Layout<2, true>::kStages, 0, Layout<4, true>::kStages}};
+  const int r = f32 != 0;
+  plan[0] = classes_of(M, r);
   plan[1] = t.gate;
   plan[2] = t.expert;
-  plan[3] = stages[inst + 1];
-  plan[4] = smem[inst + 1];
+  plan[3] = stages[r][inst + 1];
+  plan[4] = smem[r][inst + 1];
   plan[5] = stage_ld(t.gate + t.expert);
   plan[6] = chunks_of(M);
-  plan[7] = f32_classes(M);
   return static_cast<int>(cudaSuccess);
 }

@@ -19,10 +19,16 @@ frames x [B, S, D] (uint8, or float32):
     zeros and masked out of the max (`plan`; the source has the design).
     The model folds dequantization and both BatchNorms into the two
     affines, and casts `w` to bf16 once. At f32 (--compute_dtype=float32)
-    nothing is rounded, as in the TPU kernel at dtype=float32: one launch
-    of csrc/dbof.cu's f32 kernel, the affine, the product in plain f32
-    FMAs (csrc/f32_product.cuh: no TF32) and the pooling epilogue, bound
-    by the card's f32 rate outside the tensor cores.
+    nothing is rounded to bf16, as in the TPU kernel at dtype=float32:
+    the affine in f32 split into two TF32 halves (one launch, into a [2,
+    B*S, D] buffer this wrapper allocates), then the same product launch
+    on the TF32 tensor cores as a 3xTF32 product (kernels/tf32.py: three
+    products of the halves summed in f32, about 2^-21 of each product
+    from the f32 one; the tensor core sums one 32-deep stage, the stages
+    add up on the FMA units) with the same pooling epilogue (`plan(...,
+    f32=True)`). It reads W's split copy, [2, K, D] K-major
+    (`tf32.split_weights`), which DbofModel builds once with its serving
+    constants and passes as `w_split`.
   * `dbof_cluster_maxpool` (the TPU package's v1, which has no dtype: it
     computes in bf16 whatever the model's): the same function
     with an f32 `w` rounded to bf16 on every call (csrc/dbof.cu's
@@ -57,6 +63,7 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels import tf32
 from yt8m_tpu_torch.kernels._checks import (
     on_cpu,
     require,
@@ -72,32 +79,62 @@ DEPTH = 64           # D a ring stage (64 bf16, the 128-byte swizzle's row)
 BOX_COLS = 64        # clusters of a W box
 STAGES = 4
 SMS = 132            # an H100's SMs: the persistent grid's cap
+# The f32 route's ring: 32-deep stages (32 f32, the 128-byte swizzle's
+# row) of both TF32 halves of the A tile and of W's 256 K-major rows.
+F32_DEPTH = 32
+F32_STAGES = 2
+F32_GROUP = 8        # cluster tiles a group of the f32 walk (W's L2 share)
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(b: int, s: int, d: int, k: int, sms: int = SMS) -> dict:
-    """csrc/dbof.cu's product launch over xa [B, S <= 32, D] and W [D, K]:
-    the tiles (the K tile fastest), the persistent grid, the TMA boxes
+def plan(b: int, s: int, d: int, k: int, sms: int = SMS,
+         f32: bool = False) -> dict:
+    """csrc/dbof.cu's product launch over xa [B, S <= 32, D] and W [D, K]
+    (f32: their TF32 halves, [2, B, S, D] and W's K-major [2, K, D]): the
+    tiles and their walk (`walk`), the persistent grid, the TMA boxes
     (innermost first), the wgmma chain and the shared memory."""
     row_tiles = _ceil(b, TILE_VIDEOS)
     cluster_tiles = _ceil(k, TILE_CLUSTERS)
     tiles = row_tiles * cluster_tiles
     rows = TILE_VIDEOS * MAX_FRAMES_PER_VIDEO
-    w_boxes = _ceil(TILE_CLUSTERS, BOX_COLS)
-    stage = rows * DEPTH * 2 + w_boxes * DEPTH * BOX_COLS * 2
+    if f32:
+        depth, stages, group = F32_DEPTH, F32_STAGES, F32_GROUP
+        w_boxes = 2
+        stage = 2 * (rows + TILE_CLUSTERS) * F32_DEPTH * 4
+        box_x = (F32_DEPTH, MAX_FRAMES_PER_VIDEO, TILE_VIDEOS, 1)
+        box_w = (F32_DEPTH, TILE_CLUSTERS, 1)
+    else:
+        depth, stages, group = DEPTH, STAGES, cluster_tiles
+        w_boxes = _ceil(TILE_CLUSTERS, BOX_COLS)
+        stage = rows * DEPTH * 2 + w_boxes * DEPTH * BOX_COLS * 2
+        box_x = (DEPTH, MAX_FRAMES_PER_VIDEO, TILE_VIDEOS)
+        box_w = (BOX_COLS, DEPTH)
     return {
         "row_tiles": row_tiles, "cluster_tiles": cluster_tiles,
-        "tiles": tiles, "grid": min(tiles, sms), "k_steps": _ceil(d, DEPTH),
+        "tiles": tiles, "grid": min(tiles, sms), "k_steps": _ceil(d, depth),
+        "group": group,
         "rows": rows, "padded_rows": rows - TILE_VIDEOS * s,
-        "box_x": (DEPTH, MAX_FRAMES_PER_VIDEO, TILE_VIDEOS),
-        "box_w": (BOX_COLS, DEPTH), "chain": TILE_CLUSTERS,
-        "w_boxes": w_boxes, "stages": STAGES, "stage_bytes": stage,
-        "smem": STAGES * stage + 2 * TILE_VIDEOS * TILE_CLUSTERS * 4
-        + 2 * STAGES * 8 + 1024,
+        "box_x": box_x, "box_w": box_w, "chain": TILE_CLUSTERS,
+        "w_boxes": w_boxes, "stages": stages, "stage_bytes": stage,
+        "smem": stages * stage + 2 * TILE_VIDEOS * TILE_CLUSTERS * 4
+        + 2 * stages * 8 + 1024,
     }
+
+
+def walk(t: int, p: dict) -> tuple:
+    """Tile t's (video tile, cluster tile) in the kernel's walk: groups of
+    p["group"] cluster tiles, each group's video tiles in order, the
+    cluster tile fastest within a group (csrc/dbof.cu :: tile_coords)."""
+    n_ct, n_rt, group = p["cluster_tiles"], p["row_tiles"], p["group"]
+    if group >= n_ct:  # one group
+        return divmod(t, n_ct)
+    g, rest = divmod(t, group * n_rt)
+    width = min(group, n_ct - g * group)
+    rt, c = divmod(rest, width)
+    return rt, g * group + c
 
 
 # csrc/dbof_int8.cu's product tile (yt8m_dbof_int8_plan reads the
@@ -118,7 +155,7 @@ def plan_int8(b: int, d: int, k: int, sms: int = SMS) -> dict:
     stage = rows * INT8_DEPTH + TILE_CLUSTERS * INT8_DEPTH
     return {
         "row_tiles": row_tiles, "cluster_tiles": cluster_tiles,
-        "tiles": tiles, "grid": min(tiles, sms),
+        "tiles": tiles, "grid": min(tiles, sms), "group": cluster_tiles,
         "k_steps": _ceil(d, INT8_DEPTH), "rows": rows,
         "box_x": (INT8_DEPTH, MAX_FRAMES_PER_VIDEO, TILE_VIDEOS),
         "box_w": (INT8_DEPTH, TILE_CLUSTERS), "chain": TILE_CLUSTERS,
@@ -143,20 +180,21 @@ def kernel_plan_int8() -> dict:
 def tile_of(t: int, p: dict):
     """Tile t of a plan: (videos, K clusters) as ranges before clipping
     to B and K."""
-    rt, ct = divmod(t, p["cluster_tiles"])
+    rt, ct = walk(t, p)
     return (range(rt * TILE_VIDEOS, (rt + 1) * TILE_VIDEOS),
             range(ct * TILE_CLUSTERS, (ct + 1) * TILE_CLUSTERS))
 
 
 def kernel_plan() -> dict:
-    """The compiled product's tile and the card's SMs (card only)."""
+    """The compiled product's tile and the card's SMs, and the f32
+    route's ring and walk (card only)."""
     import ctypes
 
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 9)()
     _build.check_launch("yt8m_dbof_plan",
                         _build.library().yt8m_dbof_plan(out))
     return dict(zip(("videos", "pitch", "tile_clusters", "stages", "smem",
-                     "sms"), out))
+                     "sms", "f32_stages", "f32_smem", "f32_group"), out))
 
 
 def dbof_cluster_maxpool_plain(x, w, in_scale, in_bias, act_scale,
@@ -225,18 +263,23 @@ def dbof_cluster_maxpool_int8_plain(x, w8, a_col, b_col):
     return torch.amax(torch.relu(acc * a_col + b_col), dim=1)
 
 
-def dbof_cluster_maxpool_v2(x, w, in_scale, in_bias, act_scale, act_bias):
+def dbof_cluster_maxpool_v2(x, w, in_scale, in_bias, act_scale, act_bias,
+                            w_split=None):
     """relu-activated cluster activations max-pooled over S: [B, K] f32.
 
     x [B, S, D] uint8 or float32; w [D, K] in the compute dtype (bf16 or
     float32: the route on the card); the affines are f32 vectors of D and
-    K.
+    K. `w_split`: on the card's f32 route, tf32.split_weights(w), made
+    once per weight version; the CPU and the bf16 route ignore it.
     """
     _check_shapes(x, w)
     if on_cpu(x, w, in_scale, in_bias, act_scale, act_bias):
         return dbof_cluster_maxpool_plain(
             x, w, in_scale, in_bias, act_scale, act_bias
         )
+    if w.dtype == torch.float32:
+        tf32.check_split("w_split", w_split, *w.shape)
+        w = w_split
     return _pooled_in_chunks(dbof_cluster_maxpool_v2, x, w, in_scale,
                              in_bias, act_scale, act_bias)
 
@@ -355,16 +398,20 @@ def _bf16_on_card(w):
 
 
 def _check_operands(x, w, in_scale, in_bias, act_scale, act_bias):
-    d, k = w.shape
+    """The card's operands; `w` is [D, K] bf16 or, on the f32 route, W's
+    split copy [2, K, D] f32."""
+    split = w.dim() == 3
+    d, k = (w.shape[2], w.shape[1]) if split else w.shape
     require(x.dtype in (torch.uint8, torch.float32),
             f"x: dtype {x.dtype}, want uint8 or float32")
-    require(w.dtype in (torch.bfloat16, torch.float32),
+    require(w.dtype == (torch.float32 if split else torch.bfloat16),
             f"w: dtype {w.dtype}; the CUDA kernels compute in bfloat16 or "
             "float32")
     require(d % 32 == 0, f"D={d} must be a multiple of 32")
     require(k % 8 == 0, f"K={k} must be a multiple of 8")
     require_cuda_operand("x", x, x.dtype, tuple(x.shape))
-    require_cuda_operand("w", w, w.dtype, (d, k))
+    if not split:
+        require_cuda_operand("w", w, w.dtype, (d, k))
     for name, t, n in (("in_scale", in_scale, d), ("in_bias", in_bias, d),
                        ("act_scale", act_scale, k),
                        ("act_bias", act_bias, k)):
@@ -382,29 +429,32 @@ def _pooled_in_chunks(owner, x, w, in_scale, in_bias, act_scale, act_bias):
 
 
 def _launch(owner, x, w, in_scale, in_bias, act_scale, act_bias):
-    """One launch of csrc/dbof.cu over x [B, S <= 32, D]: the bf16 route
-    (the affine into a bf16 buffer, then the product) or, for an f32 `w`,
-    the f32 kernel."""
+    """One launch of csrc/dbof.cu over x [B, S <= 32, D]: the affine into a
+    work buffer, then the product; bf16 (w [D, K] bf16, the buffer bf16
+    [B*S, D]) or, for W's split copy [2, K, D], the 3xTF32 route (the
+    buffer the affine's two halves, [2, B*S, D] f32)."""
     b, s, d = x.shape
-    k = w.shape[1]
+    f32 = w.dtype == torch.float32
+    k = w.shape[1]  # [D, K] bf16 or [2, K, D] split
     out = torch.empty((b, k), dtype=torch.float32, device=x.device)
     lib = _build.library()
     u8 = x.dtype == torch.uint8
-    args = [_build.ptr(x), _build.ptr(in_scale), _build.ptr(in_bias),
-            _build.ptr(w), _build.ptr(act_scale), _build.ptr(act_bias)]
-    if w.dtype == torch.float32:
+    if f32:
         fn = (lib.yt8m_dbof_cluster_maxpool_f32w_u8 if u8
               else lib.yt8m_dbof_cluster_maxpool_f32w_f32)
+        work = torch.empty((2, b * s, d), dtype=torch.float32,
+                           device=x.device)
     else:
         fn = (lib.yt8m_dbof_cluster_maxpool_u8 if u8
               else lib.yt8m_dbof_cluster_maxpool_f32)
-        args.append(_build.ptr(torch.empty((b * s, d), dtype=torch.bfloat16,
-                                           device=x.device)))
-    code = fn(*args, _build.ptr(out), b, s, d, k,
+        work = torch.empty((b * s, d), dtype=torch.bfloat16, device=x.device)
+    code = fn(_build.ptr(x), _build.ptr(in_scale), _build.ptr(in_bias),
+              _build.ptr(w), _build.ptr(act_scale), _build.ptr(act_bias),
+              _build.ptr(work), _build.ptr(out), b, s, d, k,
               _build.current_stream(x.device))
     _build.check_launch(owner.__name__, code)
     owner.launches += 1
-    if w.dtype == torch.float32:
+    if f32:
         owner.launches_f32 += 1
     return out
 

@@ -18,20 +18,29 @@ the [B, C, M+1] and [B, C, M] intermediates on chip; it takes any H (the
 rounded x is stored at a pitch of H rounded up to 8, and the last
 64-deep stage reads the columns of x and the rows of the weights past H
 as TMA's zero fill, zero terms in exact sums). At f32
-(--compute_dtype=float32) nothing is rounded, as in the TPU kernel at dtype=float32: csrc/moe_head.cu's
-f32 kernel runs both products in plain f32 FMAs (csrc/f32_product.cuh:
-no TF32) with the same combine in its epilogue.
+(--compute_dtype=float32) nothing is rounded to bf16, as in the TPU
+kernel at dtype=float32: the same kernel's F32 instances multiply on the
+TF32 tensor cores as a 3xTF32 product (kernels/tf32.py: x and the
+weights split into two TF32 halves, three products summed in f32, about
+2^-21 of each product from the f32 one; the tensor core sums one 32-deep
+stage, the stages add up on the FMA units), with the same combine in the
+epilogue. They read the weights' split copies, [2, cols, H rounded up
+to 4] K-major (`tf32.split_weights`), which MoeHead builds with its
+serving constants (`split`), and split x on each call.
 
-A block of the bf16 kernel covers 128 videos x NC classes. M in {1, 2,
-4} has a tile of its own (`TILES`); any other M up to 121 takes the
+A block covers 128 videos x NC classes on both routes. M in {1, 2, 4}
+has a tile of its own (`TILES`); any other M up to 121 takes the
 run-time tile, NC = min(129 / (M + 1), 121 / M) classes in chains of 136
-and 128 columns (M = 32: 3 classes; TMA starts a box at a multiple of 8
-columns, so a tile reads from its first columns rounded down to 8, up to
-7 columns on); above 121 a block takes one class and loops over chunks
-of 120 mixtures, adding each chunk's ratio-form terms to the row's
-numerator and denominator (the clamp keeps them finite, so no running
-maximum is needed). The f32 route takes floor(128 / (2M + 1)) classes a
-block up to M = 63, and one class in chunks of 63 mixtures above.
+and 128 columns (M = 32: 3 classes; TMA starts a box of the bf16
+weights' MN-major columns at a multiple of 8 columns, so a tile reads
+from its first columns rounded down to 8, up to 7 columns on; the f32
+route reads K-major rows from any column: min(136 / (M + 1), 128 / M)
+classes, M = 32: 4); above 121 a block takes one class and loops over
+chunks of 120 mixtures (chains of 136 and 128 columns; f32 128 and
+120), adding each chunk's ratio-form terms to the row's numerator and
+denominator (the clamp keeps them finite, so no running maximum is
+needed). Gate and expert columns have chains of their own on both
+routes.
 
 TMA reads the weights by rows whose stride must be a multiple of 16
 bytes, and C*(M+1) = 14,148 columns is not a multiple of 8 bf16. The
@@ -46,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.kernels import _build
+from yt8m_tpu_torch.kernels import tf32
 from yt8m_tpu_torch.kernels._checks import (
     on_cpu,
     require,
@@ -66,64 +76,78 @@ RUNTIME_MIXTURES = RUNTIME_CHAINS[1] - ALIGN_COLS + 1
 # A chunk's gates, the dummy and 7 columns fit 136; its experts and 7, 128.
 CHUNK_MIXTURES = 120
 CHUNK_STAGES = 3       # the chunked tile's ring beside its exp(gate) slots
-F32_COLS = 128          # the f32 route's B panel
-F32_CHUNK_MIXTURES = 63  # its mixtures a chunk above M = 63
+# The f32 route's chunked chains: 121 gates (the dummy among them) and
+# 120 experts from their own columns, no offset.
+F32_CHUNK_CHAINS = (128, 120)
 ROWS = 128         # videos a block (two consumer warpgroups of 64)
 DEPTH = 64         # H a ring stage (64 bf16, the 128-byte swizzle's row)
-BOX_COLS = 64      # columns of a weight box
+F32_DEPTH = 32     # H a stage of the f32 route (32 f32, 128 bytes)
+BOX_COLS = 64      # columns of a bf16 weight box
 STAGES = 4
+SMEM_LIMIT = 232448  # shared bytes a block can ask for
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def runtime_classes(m: int) -> int:
+def runtime_classes(m: int, f32: bool = False) -> int:
     """Classes a block of the run-time tile at M <= 121 mixtures: both
-    chains hold them past an offset of up to ALIGN_COLS - 1 columns."""
+    chains hold them past an offset of up to ALIGN_COLS - 1 columns (the
+    f32 route's none)."""
     gate, expert = RUNTIME_CHAINS
-    return min((gate - ALIGN_COLS + 1) // (m + 1),
-               (expert - ALIGN_COLS + 1) // m)
+    lost = 0 if f32 else ALIGN_COLS - 1
+    return min((gate - lost) // (m + 1), (expert - lost) // m)
 
 
-def plan(b: int, h: int, c: int, m: int) -> dict:
-    """csrc/moe_head.cu's launch at x [B, H] and C classes of M mixtures:
-    the tile, the mixture chunks a block walks, the grid (row tiles
-    fastest), the TMA boxes and the shared memory, and the f32 route's
-    classes a block (0: one class in chunks of F32_CHUNK_MIXTURES)
-    (yt8m_moe_plan reads the kernel's own on the card)."""
-    stages, slots = STAGES, 0
+def plan(b: int, h: int, c: int, m: int, f32: bool = False) -> dict:
+    """csrc/moe_head.cu's launch at x [B, H] and C classes of M mixtures,
+    on the bf16 route or (f32) the 3xTF32 one: the tile, the mixture
+    chunks a block walks, the grid (row tiles fastest), the TMA boxes
+    (innermost first) and the shared memory (yt8m_moe_plan reads the
+    kernel's own on the card)."""
+    slots = 0
     if m in TILES:
         nc, gate, expert = TILES[m]
         chunks = 1
     elif m <= RUNTIME_MIXTURES:
         gate, expert = RUNTIME_CHAINS
-        nc, chunks = runtime_classes(m), 1
+        nc, chunks = runtime_classes(m, f32), 1
     else:
-        gate, expert = RUNTIME_CHAINS
+        gate, expert = F32_CHUNK_CHAINS if f32 else RUNTIME_CHAINS
         nc, chunks = 1, _ceil(m, CHUNK_MIXTURES)
-        stages, slots = CHUNK_STAGES, 8 * 8 * gate  # [warp][row][gate] f32
-    boxes = _ceil(gate, BOX_COLS) + _ceil(expert, BOX_COLS)
-    stage = ROWS * DEPTH * 2 + boxes * DEPTH * BOX_COLS * 2
+        slots = 8 * 8 * gate  # [warp][row][gate] f32
+    if f32:
+        # Both halves of the x tile and of each chain's K-major rows.
+        depth, hp = F32_DEPTH, _ceil(h, tf32.PITCH) * tf32.PITCH
+        stage = 2 * (ROWS + gate + expert) * F32_DEPTH * 4
+        fixed = 128 * 4 + slots * 4 + 2 * STAGES * 8 + 1024
+        stages = min(STAGES, (SMEM_LIMIT - fixed) // stage)
+        gate_boxes = expert_boxes = 2
+        box_x, box_w = (F32_DEPTH, ROWS, 1), (F32_DEPTH, gate, 1)
+    else:
+        depth, hp = DEPTH, h
+        gate_boxes, expert_boxes = _ceil(gate, BOX_COLS), _ceil(expert,
+                                                                BOX_COLS)
+        stage = ROWS * DEPTH * 2 + (gate_boxes + expert_boxes) * DEPTH * \
+            BOX_COLS * 2
+        stages = CHUNK_STAGES if chunks > 1 else STAGES
+        box_x, box_w = (DEPTH, ROWS), (BOX_COLS, DEPTH)
     cols = gate + expert
     ld = cols + (8 - cols % 32) % 32
     # A block's gate and expert columns (a chunk's, when it walks chunks:
     # the last chunk's gates also hold the dummy), before the offset of up
-    # to 7 columns of the run-time tiles.
+    # to 7 columns of the bf16 run-time tiles.
     chunk = m if chunks == 1 else CHUNK_MIXTURES
     gate_cols = nc * (m + 1) if chunks == 1 else chunk + 1
-    f32_nc = F32_COLS // (2 * m + 1)
     return {
         "classes": nc, "gate": gate, "expert": expert, "chunks": chunks,
         "gate_cols": gate_cols, "expert_cols": nc * chunk,
-        "f32_classes": f32_nc,
-        "f32_chunks": 1 if f32_nc else _ceil(m, F32_CHUNK_MIXTURES),
-        "gate_boxes": _ceil(gate, BOX_COLS),
-        "expert_boxes": _ceil(expert, BOX_COLS),
-        "grid": (_ceil(b, ROWS), _ceil(c, nc)), "k_steps": _ceil(h, DEPTH),
-        "box_x": (DEPTH, ROWS), "box_w": (BOX_COLS, DEPTH),
+        "gate_boxes": gate_boxes, "expert_boxes": expert_boxes,
+        "grid": (_ceil(b, ROWS), _ceil(c, nc)), "k_steps": _ceil(hp, depth),
+        "box_x": box_x, "box_w": box_w,
         "stages": stages, "ring_bytes": stages * stage,
-        "offset": 0 if m in TILES else ALIGN_COLS - 1,
+        "offset": 0 if m in TILES or f32 else ALIGN_COLS - 1,
         "smem": stages * stage + 2 * stages * 8 + 128 * 4 + slots * 4 + 1024,
         "stage_ld": ld, "staged_bytes": ROWS * ld * 4,
         "accumulators": cols // 2,
@@ -177,13 +201,15 @@ def moe_head_plain(x, gate_kernel, expert_kernel, expert_bias,
 
 
 def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
-                     num_mixtures: int):
+                     num_mixtures: int, split=None):
     """probs [B, C] f32.
 
     x [B, H] f32; gate_kernel [H, C*(M+1)] and expert_kernel [H, C*M] in
-    the compute dtype (bf16 or f32: the route on the card, each with a
-    row stride that is a multiple of 8: see `pitched`); expert_bias [C*M]
-    f32.
+    the compute dtype (bf16 or f32: the route on the card; bf16 with a row
+    stride that is a multiple of 8: see `pitched`); expert_bias [C*M]
+    f32. `split`: on the card's f32 route, the weights' split copies
+    (tf32.split_weights(gate_kernel), tf32.split_weights(expert_kernel)),
+    made once per weight version; the CPU and the bf16 route ignore it.
     """
     m = num_mixtures
     require(x.dim() == 2, f"x must be [B, H], got {tuple(x.shape)}")
@@ -201,29 +227,41 @@ def moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
             f"gate_kernel: dtype {dtype}; the CUDA kernels compute in "
             "bfloat16 or float32")
     require_cuda_operand("x", x, torch.float32, (b, h))
-    check_pitched("gate_kernel", gate_kernel, (h, c * (m + 1)), dtype)
-    check_pitched("expert_kernel", expert_kernel, (h, c * m), dtype)
     require_cuda_operand("expert_bias", expert_bias, torch.float32, (c * m,))
+    f32 = dtype == torch.float32
+    if f32:
+        require(tuple(expert_kernel.shape) == (h, c * m)
+                and expert_kernel.dtype == dtype,
+                f"expert_kernel: {expert_kernel.dtype} "
+                f"{tuple(expert_kernel.shape)}, want {dtype} {(h, c * m)}")
+        gate_split, expert_split = split if split else (None, None)
+        tf32.check_split("gate split", gate_split, h, c * (m + 1))
+        tf32.check_split("expert split", expert_split, h, c * m)
+    else:
+        check_pitched("gate_kernel", gate_kernel, (h, c * (m + 1)), dtype)
+        check_pitched("expert_kernel", expert_kernel, (h, c * m), dtype)
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     lib = _build.library()
-    weights = (_build.ptr(x), _build.ptr(gate_kernel),
-               _build.ptr(expert_kernel), _build.ptr(expert_bias))
-    strides = (gate_kernel.stride(0), expert_kernel.stride(0))
-    if dtype == torch.float32:
-        vec_x = int(h % 4 == 0 and x.data_ptr() % 16 == 0)
+    stream = _build.current_stream(x.device)
+    if f32:
+        # x's halves at a row pitch of H rounded up to 4 (TMA's rows).
+        xs = torch.empty((2, b, _ceil(h, tf32.PITCH) * tf32.PITCH),
+                         dtype=torch.float32, device=x.device)
         code = lib.yt8m_moe_head_serving_f32(
-            *weights, _build.ptr(out), b, h, c, m, *strides, vec_x,
-            _build.current_stream(x.device))
+            _build.ptr(x), _build.ptr(gate_split), _build.ptr(expert_split),
+            _build.ptr(expert_bias), _build.ptr(xs), _build.ptr(out), b, h,
+            c, m, stream)
     else:
         # The rounded x at a row pitch of H rounded up to 8 (TMA's rows).
         xa = torch.empty((b, _ceil(h, PITCH) * PITCH), dtype=torch.bfloat16,
                          device=x.device)
         code = lib.yt8m_moe_head_serving(
-            *weights, _build.ptr(xa), _build.ptr(out), b, h, c, m, *strides,
-            _build.current_stream(x.device))
+            _build.ptr(x), _build.ptr(gate_kernel), _build.ptr(expert_kernel),
+            _build.ptr(expert_bias), _build.ptr(xa), _build.ptr(out), b, h, c,
+            m, gate_kernel.stride(0), expert_kernel.stride(0), stream)
     _build.check_launch("moe_head_serving", code)
     moe_head_serving.launches += 1
-    if dtype == torch.float32:
+    if f32:
         moe_head_serving.launches_f32 += 1
     return out
 
@@ -232,12 +270,12 @@ moe_head_serving.launches = 0
 moe_head_serving.launches_f32 = 0  # the f32 route's, counted in both
 
 
-def kernel_plan(m: int) -> dict:
-    """The compiled kernel's tile at M mixtures (card only)."""
+def kernel_plan(m: int, f32: bool = False) -> dict:
+    """The compiled kernel's tile of a route at M mixtures (card only)."""
     import ctypes
 
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 7)()
     _build.check_launch("yt8m_moe_plan", _build.library().yt8m_moe_plan(
-        m, out))
+        m, int(f32), out))
     return dict(zip(("classes", "gate", "expert", "stages", "smem",
-                     "stage_ld", "chunks", "f32_classes"), out))
+                     "stage_ld", "chunks"), out))

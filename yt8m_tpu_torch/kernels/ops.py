@@ -45,15 +45,19 @@ def _op(name: str):
 
 @_op("dbof_maxpool")
 def dbof_maxpool(x: Tensor, w: Tensor, in_scale: Tensor, in_bias: Tensor,
-                 act_scale: Tensor, act_bias: Tensor) -> Tensor:
+                 act_scale: Tensor, act_bias: Tensor,
+                 split: List[Tensor]) -> Tensor:
     """Row 1 (bf16 and f32 routes): kernels/dbof.py ::
-    dbof_cluster_maxpool_v2, [B, K] f32."""
+    dbof_cluster_maxpool_v2, [B, K] f32. `split` is [W's split copy]
+    (kernels/tf32.py :: split_weights, a serving constant of the f32
+    route), or []."""
     return _dbof.dbof_cluster_maxpool_v2(x, w, in_scale, in_bias, act_scale,
-                                         act_bias)
+                                         act_bias,
+                                         split[0] if split else None)
 
 
 @dbof_maxpool.register_fake
-def _(x, w, in_scale, in_bias, act_scale, act_bias):
+def _(x, w, in_scale, in_bias, act_scale, act_bias, split):
     return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.float32)
 
 
@@ -71,15 +75,18 @@ def _(x, w8, a_col, b_col):
 
 @_op("moe_head")
 def moe_head(x: Tensor, gate_kernel: Tensor, expert_kernel: Tensor,
-             expert_bias: Tensor, num_mixtures: int) -> Tensor:
+             expert_bias: Tensor, num_mixtures: int,
+             split: List[Tensor]) -> Tensor:
     """Row 2 (bf16 and f32): kernels/moe_head.py :: moe_head_serving,
-    [B, C] f32."""
+    [B, C] f32. `split` is [the gate split, the expert split]
+    (kernels/tf32.py :: split_weights, serving constants of the f32
+    route), or []."""
     return _moe.moe_head_serving(x, gate_kernel, expert_kernel, expert_bias,
-                                 num_mixtures)
+                                 num_mixtures, split or None)
 
 
 @moe_head.register_fake
-def _(x, gate_kernel, expert_kernel, expert_bias, num_mixtures):
+def _(x, gate_kernel, expert_kernel, expert_bias, num_mixtures, split):
     c = gate_kernel.shape[1] // (num_mixtures + 1)
     return x.new_empty((x.shape[0], c), dtype=torch.float32)
 

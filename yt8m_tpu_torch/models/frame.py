@@ -16,6 +16,7 @@ from yt8m_tpu_torch.kernels.ops import dbof_maxpool as dbof_cluster_maxpool_v2
 from yt8m_tpu_torch.kernels.ops import (
     dbof_maxpool_int8 as dbof_cluster_maxpool_int8,
 )
+from yt8m_tpu_torch.kernels.tf32 import split_weights
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
     frame_pooling,
@@ -76,7 +77,8 @@ class DbofModel(ServingModule):
     kernel (kernels/dbof.py) with dequantization and both BatchNorms
     folded into its two affines, as the JAX model folds them (its cluster
     weights in the compute dtype: the bf16 kernel, or at float32 the f32
-    one, as the JAX model passes dtype=hp.dtype); with
+    one, as the JAX model passes dtype=hp.dtype, which reads the cluster
+    weights' TF32 split copy, a serving constant); with
     --dbof_int8_serving (and --dbof_use_pallas, as in the JAX model) and
     uint8 frames the kernel is the int8 one, its
     weights quantized from the f32 cluster kernel and the folded affines
@@ -157,6 +159,10 @@ class DbofModel(ServingModule):
             b_act = self.cluster_bias.detach().clone()
         c = {
             "cluster_w": self.cluster_kernel.to(hp.dtype).contiguous(),
+            # The f32 kernel reads W's TF32 split copy, made once here.
+            "cluster_w_split": ([split_weights(self.cluster_kernel)]
+                                if hp.dtype == torch.float32
+                                and self.pooling == "max" else []),
             # uint8 input: dequantize folded into the input affine
             "affine_u8": ((DEQUANT_SCALE * s_in).contiguous(),
                           (DEQUANT_BIAS * s_in + b_in).contiguous()),
@@ -224,7 +230,7 @@ class DbofModel(ServingModule):
                 x_raw = x_raw.to(torch.float32)
             pooled = dbof_cluster_maxpool_v2(
                 x_raw.contiguous(), c["cluster_w"], s_in, b_in,
-                *c["act_affine"],
+                *c["act_affine"], c["cluster_w_split"],
             )
         else:
             pooled = self._cluster_pool_plain(x_raw)

@@ -10,6 +10,7 @@ from torch import nn
 
 from yt8m_tpu_torch.kernels.moe_head import pitched_buffer
 from yt8m_tpu_torch.kernels.ops import moe_head as moe_head_serving
+from yt8m_tpu_torch.kernels.tf32 import split_weights
 from yt8m_tpu_torch.models.norm import BatchNorm
 from yt8m_tpu_torch.models.serving import ServingModule
 
@@ -84,9 +85,11 @@ class MoeHead(ServingModule):
     c*(M+1)+m; expert columns c*M+m.
 
     Serving runs the fused head (kernels/moe_head.py): its ratio-form
-    softmax with clamped logits is the TPU kernel's, and its weights, a
-    serving constant in the compute dtype, select the bf16 or the f32
-    kernel on the card, as the JAX head passes dtype=hp.dtype. With
+    softmax with clamped logits is the TPU kernel's, and its weights in
+    the compute dtype select the bf16 or the f32 kernel on the card, as
+    the JAX head passes dtype=hp.dtype. The serving constants are the
+    bf16 weights as pitched views or, at f32, the weights' TF32 split
+    copies that the f32 kernel reads (kernels/tf32.py). With
     `use_pallas` off (--moe_head_pallas=false) serving runs the JAX
     head's plain graph instead, as the JAX model does: an exact f32
     softmax over the M + 1 gate logits, with no clamp, on the CPU and on
@@ -123,6 +126,11 @@ class MoeHead(ServingModule):
         if not self.use_pallas:
             return {"gates": rounded(self.gates_kernel, self.dtype),
                     "experts": rounded(self.experts_kernel, self.dtype)}
+        if self.dtype == torch.float32:
+            # The f32 kernel reads the weights' split copies, made once per
+            # weight version; the weights themselves serve the CPU.
+            return {"split": [split_weights(self.gates_kernel),
+                              split_weights(self.experts_kernel)]}
         # The kernel reads rows at a stride that is a multiple of 8: views
         # of padded buffers, which the forward slices itself, so that an
         # exported program carries the plain buffers.
@@ -145,11 +153,16 @@ class MoeHead(ServingModule):
         if not self.use_pallas:
             return {"predictions": self._plain(x, c["gates"], c["experts"])}
         m, v = self.num_mixtures, self.vocab_size
-        gates, experts = c["buffers"]
+        if self.dtype == torch.float32:
+            gates, experts = (self.gates_kernel.detach(),
+                              self.experts_kernel.detach())
+        else:
+            gates, experts = c["buffers"]
         probs = moe_head_serving(
             x.to(torch.float32).contiguous(), gates[:, :v * (m + 1)],
             experts[:, :v * m],
             self.experts_bias.detach(), self.num_mixtures,
+            c.get("split", []),
         )
         return {"predictions": probs}
 
