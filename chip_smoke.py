@@ -62,12 +62,12 @@ Phases, one line each with the elapsed seconds:
      1001 and K = 37, attention pooling at D = 1001 and 19 heads), frames
      past num_frames planted, each with its CUDA-event and profiler
      times, the plain version's, the torch.matmul f32 graph's (TF32 off)
-     and its bound at the f32 rate outside the tensor cores (DBoF v2 and
-     the MoE head, 3xTF32 routes on the weights' split copies: their
-     bound is three TF32 products at the TF32 rate, the FMA units' bound
-     beside it, and each route's and the f32 graph's error against a
-     float64 product at the serving shapes; DBoF's at depths
-     D = 256 .. 16384 too); the shapes
+     and its bound (all four 3xTF32 routes, DBoF v2, the MoE head and
+     NetVLAD on the weights' split copies, attention pooling splitting
+     Q on chip: three TF32 products at the TF32 rate, the FMA units'
+     bound beside it), and each route's and the f32 graph's error
+     against the function in float64 at the serving shapes (DBoF's at
+     depths D = 256 .. 16384 too); the shapes
      past the kernels' old limits, bf16 and f32 routes: the MoE head at
      M = 17 (the run-time tile), 32 and 200 (chunks of 120 mixtures) at
      B=512, H=2048, C=4716, with chunk edges (M = 122, 240, 241) and gate
@@ -112,7 +112,8 @@ Phases, one line each with the elapsed seconds:
   5. each serving step alone on frames already on the card (DbofModel at
      B=2048 with and without --dbof_int8_serving and at
      --compute_dtype=float32 (the 3xTF32 routes), GatedDbofModel and
-     SoftDbofModel at B=2048, the others at B=512): median step time of
+     SoftDbofModel at B=2048, the others at B=512, the flagship and
+     AttentionPoolingModel also at --compute_dtype=float32): median step time of
      5, and device time by kernel from torch.profiler; one recurrence
      launch a layer in the flagship's and GruModel's steps, PER_BATCH's
      launches in the others';
@@ -321,10 +322,9 @@ Tolerances, max|kernel - plain| on the same inputs:
     L2-normalised descriptor holds values near 1.8e-3 at the serving
     shape, where + 1e-5 would let a bf16 rounding of x or Wc through).
     Nothing is rounded to bf16 on either side (the plain versions run
-    with TF32 off); NetVLAD's and attention pooling's kernels differ from
-    them in the order of the f32 sums only, DBoF v2's and the MoE head's
-    also by their 3xTF32 split (about 2^-21 of each product; the float64
-    witness prints its distance beside the f32 graph's).
+    with TF32 off); the kernels differ from them in the order of the f32
+    sums and by their 3xTF32 split (about 2^-21 of each product; the
+    float64 witness prints its distance beside the f32 graph's).
   * card vs CPU end to end (8 videos): probabilities within 2e-3, and
     within 1e-5 * max|ref| at --compute_dtype=float32; the per-video
     eval loss from the workflow's checkpoint within 2e-3 relative.
@@ -3068,14 +3068,15 @@ def f32_check(name, got, want, abs_=1e-5) -> float:
     return rel_check(name, got, want, rel=F32_REL, abs_=abs_)
 
 
-def route_bound(flops, nbytes, peak, split_bytes=0) -> dict:
+def route_bound(flops, nbytes, peak, split_bytes=0, tf32x3=False) -> dict:
     """A route's bound_ms and bound_by at the peak rate of its operands'
     type. A 3xTF32 route (split_bytes > 0: the weights' split copies, read
-    in place of the f32 weights) does three TF32 products at the TF32
-    rate: that is its bound, and the bound at the card's f32 rate outside
-    the tensor cores, which the route no longer uses, is kept as
-    bound_fma_ms and bound_fma_by."""
-    if not split_bytes:
+    in place of the f32 weights; or tf32x3, a route that splits its
+    operands on chip) does three TF32 products at the TF32 rate: that is
+    its bound, and the bound at the card's f32 rate outside the tensor
+    cores, which the route no longer uses, is kept as bound_fma_ms and
+    bound_fma_by."""
+    if not (split_bytes or tf32x3):
         ms, by = bound(flops, nbytes, peak)
         return {"bound_ms": ms, "bound_by": by}
     ms, by = bound(3 * flops, nbytes + split_bytes, PEAK_TF32_FLOPS)
@@ -3093,18 +3094,19 @@ def say_bound(r) -> str:
 
 def f32_timing(torch, fn, plain, library, needle, flush, reps, flops,
                nbytes, split_bytes=0) -> dict:
-    """A route's times at its serving shape: CUDA events (median), the
-    profiler's device time, the plain version's and the library
+    """A 3xTF32 route's times at its serving shape: CUDA events (median),
+    the profiler's device time, the plain version's and the library
     yardstick's (the torch.matmul f32 graph, TF32 off), and its bound
-    (route_bound: the card's f32 rate outside the tensor cores, or three
-    TF32 products at the TF32 rate for a 3xTF32 route)."""
+    (route_bound: three TF32 products at the TF32 rate, the card's f32
+    rate outside the tensor cores beside it)."""
     ms = time_ms(torch, fn, reps, flush)
     device_ms = device_us(torch, fn, needle) / 1e3
     plain_ms = time_ms(torch, plain, 3, flush)
     library_ms = time_ms(torch, library, 3, flush)
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            **route_bound(flops, nbytes, PEAK_F32_FLOPS, split_bytes)}
+            "library_ms": library_ms, "arithmetic": "3xTF32",
+            **route_bound(flops, nbytes, PEAK_F32_FLOPS, split_bytes,
+                          tf32x3=True)}
 
 
 def say_f32(name, shape, r) -> None:
@@ -3114,7 +3116,7 @@ def say_f32(name, shape, r) -> None:
                   f"{r['library_ms']:.4f}, {say_bound(r)})")
 
 
-def f64_witness(torch, name, got, graph, want64) -> dict:
+def f64_witness(torch, name, got, graph, want64, abs_=1e-5) -> dict:
     """The 3xTF32 route's and the f32 torch.matmul graph's max error
     against the same function with its products in float64, and the
     largest |value|: each f32 computation's own distance from the exact
@@ -3126,7 +3128,7 @@ def f64_witness(torch, name, got, graph, want64) -> dict:
     say("witness", f"{name}: max|route - f64| {r['route_vs_f64']:.3e}, "
                    f"max|f32 graph - f64| {r['graph_vs_f64']:.3e} "
                    f"(max|f64| {top:.3e}; the check's bound "
-                   f"{F32_REL * top + 1e-5:.3e})")
+                   f"{F32_REL * top + abs_:.3e})")
     return r
 
 
@@ -3304,11 +3306,38 @@ def check_f32_moe(torch, gen, dev, flush) -> dict:
     return r
 
 
+def vlad_f64(torch, x, nf, wc, scale, bias, centers):
+    """NetVLAD's function in float64 from the plain version's f32 frames
+    (uint8 dequantized in f32), 128 videos at a time."""
+    from yt8m_tpu_torch.models.frame_utils import l2_normalize
+
+    f = x.shape[1]
+    outs = []
+    for v0 in range(0, x.shape[0], 128):
+        xf = x[v0:v0 + 128].to(torch.float32)
+        if x.dtype == torch.uint8:
+            xf = xf * (4.0 / 255.0) + (4.0 / 512.0 - 2.0)
+        x64 = xf.double()
+        act = torch.matmul(x64, wc.double()) * scale.double() + bias.double()
+        live = (torch.arange(f, device=x.device)[None, :]
+                < nf[v0:v0 + 128, None])
+        assign = torch.softmax(act, dim=-1) * live[..., None]
+        vlad = torch.matmul(assign.transpose(1, 2), x64)
+        vlad = vlad - assign.sum(1)[..., None] * centers.double()
+        outs.append(l2_normalize(l2_normalize(vlad, dim=2), dim=(1, 2)))
+    return torch.cat(outs)
+
+
 def check_f32_netvlad(torch, gen, dev, flush) -> dict:
+    """NetVLAD's 3xTF32 route (Wc's split copy, as the models' serving
+    constants hold it) against the plain version at edge shapes, the
+    planted hazard and the serving shape, with its float64 witness
+    there."""
     from yt8m_tpu_torch.kernels.netvlad import (
         netvlad_aggregate,
         netvlad_aggregate_plain,
     )
+    from yt8m_tpu_torch.kernels.tf32 import split_weights
     from yt8m_tpu_torch.models.frame_utils import l2_normalize
 
     def f32_inputs(b, f, d, k, dt):
@@ -3316,13 +3345,16 @@ def check_f32_netvlad(torch, gen, dev, flush) -> dict:
         args[2] = args[2].float()
         return args
 
+    def serve(*args):
+        return netvlad_aggregate(*args, split_weights(args[2]))
+
     for b, f, d, k, dt in ((5, 13, 128, 8, torch.uint8),
                            (4, 70, 100, 37, torch.float32),
                            (3, 130, 256, 512, torch.uint8),
                            (6, 65, 1001, 130, torch.float32),
                            (1, 1, 128, 64, torch.uint8)):
         args = f32_inputs(b, f, d, k, dt)
-        got = netvlad_aggregate(*args)
+        got = serve(*args)
         f32_check(f"netvlad f32 edge B={b} F={f} D={d} K={k} {dt}", got,
                   netvlad_aggregate_plain(*args), abs_=NETVLAD_F32_ABS)
         if b > 1:
@@ -3330,15 +3362,18 @@ def check_f32_netvlad(torch, gen, dev, flush) -> dict:
                   "netvlad f32: num_frames = 0 is not a zero descriptor")
     b, f, d, k = FLAG_BATCH, FLAG_FRAMES, FEATURE_DIM, VLAD_CLUSTERS
     x, nf, wc, scale, bias, centers = f32_inputs(b, f, d, k, torch.uint8)
+    w_split = split_weights(wc)
     past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
     clean, x = pad_hazard(torch, x, past, 255)
     args = (x, nf, wc, scale, bias, centers)
-    got = netvlad_aggregate(*args)
-    check(torch.equal(got, netvlad_aggregate(clean, *args[1:])),
+    got = netvlad_aggregate(*args, w_split)
+    check(torch.equal(got, netvlad_aggregate(clean, *args[1:], w_split)),
           "netvlad f32: frames past num_frames leaked")
-    err = f32_check("netvlad_aggregate f32", got,
-                    netvlad_aggregate_plain(*args), abs_=NETVLAD_F32_ABS)
-    del got, clean
+    want = netvlad_aggregate_plain(*args)
+    err = f32_check("netvlad_aggregate f32", got, want, abs_=NETVLAD_F32_ABS)
+    witness = f64_witness(torch, f"netvlad_aggregate f32 B={b}", got, want,
+                          vlad_f64(torch, *args), abs_=NETVLAD_F32_ABS)
+    del got, want, clean
     live = torch.arange(f, device=dev)[None, :] < nf[:, None]
 
     def library():
@@ -3351,18 +3386,37 @@ def check_f32_netvlad(torch, gen, dev, flush) -> dict:
 
     rows = int(live.sum())
     r = f32_timing(
-        torch, lambda: netvlad_aggregate(*args),
+        torch, lambda: netvlad_aggregate(*args, w_split),
         lambda: netvlad_aggregate_plain(*args), library, "nv_",
         flush, 10, 4.0 * rows * d * k,
-        rows * d + d * k * 4 + k * d * 4 + 8 * k + b * k * d * 4 + 4 * b)
+        rows * d + d * k * 4 + k * d * 4 + 8 * k + b * k * d * 4 + 4 * b,
+        split_bytes=d * k * 4)
     r["max_abs_err"] = err
+    r["witness_f64"] = witness
     say_f32("netvlad_aggregate", f"B={b} F={f} D={d} K={k} uint8 ({rows} "
                                  f"live frames)", r)
     torch.cuda.empty_cache()
     return r
 
 
+def attention_f64(torch, x, nf, q):
+    """Attention pooling's function in float64 from the plain version's
+    f32 frames (uint8 dequantized in f32)."""
+    xf = x.to(torch.float32)
+    if x.dtype == torch.uint8:
+        xf = xf * (4.0 / 255.0) + (4.0 / 512.0 - 2.0)
+    x64 = xf.double()
+    f = x.shape[1]
+    live = torch.arange(f, device=x.device)[None, :] < nf.long()[:, None]
+    scores = torch.where(live[..., None], torch.matmul(x64, q.double()),
+                         -1e9)
+    return torch.matmul(torch.softmax(scores, dim=1).transpose(1, 2), x64)
+
+
 def check_f32_attention(torch, gen, dev, flush) -> dict:
+    """Attention pooling's 3xTF32 route against the plain version at edge
+    shapes, the planted hazard and the serving shape, with its float64
+    witness there."""
     from yt8m_tpu_torch.kernels.attention_pool import (
         attention_pool,
         attention_pool_plain,
@@ -3376,7 +3430,8 @@ def check_f32_attention(torch, gen, dev, flush) -> dict:
                            (3, 70, 1001, 3, torch.float32),
                            (4, 20, 64, 19, torch.uint8),
                            (2, 1, 8, 1, torch.float32),
-                           (6, FLAG_FRAMES, FEATURE_DIM, 16, torch.uint8)):
+                           (6, FLAG_FRAMES, FEATURE_DIM, 16, torch.uint8),
+                           (6, FLAG_FRAMES, FEATURE_DIM, 16, torch.float32)):
         args = f32_inputs(b, f, d, h, dt)
         f32_check(f"attention f32 edge B={b} F={f} D={d} H={h} {dt}",
                   attention_pool(*args), attention_pool_plain(*args))
@@ -3388,8 +3443,11 @@ def check_f32_attention(torch, gen, dev, flush) -> dict:
     got = attention_pool(x, nf, q)
     check(torch.equal(got, attention_pool(clean, nf, q)),
           "attention_pool f32: frames past num_frames leaked")
-    err = f32_check("attention_pool f32", got, attention_pool_plain(x, nf, q))
-    del got, clean
+    want = attention_pool_plain(x, nf, q)
+    err = f32_check("attention_pool f32", got, want)
+    witness = f64_witness(torch, f"attention_pool f32 B={b}", got, want,
+                          attention_f64(torch, x, nf, q))
+    del got, want, clean
     live = torch.arange(f, device=dev)[None, :] < nf[:, None]
     live[nf <= 0] = True
 
@@ -3398,13 +3456,16 @@ def check_f32_attention(torch, gen, dev, flush) -> dict:
         scores = torch.matmul(xf, q).masked_fill(~live[..., None], -1e9)
         return torch.bmm(torch.softmax(scores, dim=1).transpose(1, 2), xf)
 
+    # The frames the kernel reads (live ones; all F of an empty video),
+    # the count of the bound's bytes and operations.
     rows = int(live.sum())
     r = f32_timing(
         torch, lambda: attention_pool(x, nf, q),
-        lambda: attention_pool_plain(x, nf, q), library, "attention_f32",
-        flush, 10, 4.0 * rows * d * h,
+        lambda: attention_pool_plain(x, nf, q), library,
+        "attention_pool_kernel", flush, 10, 4.0 * rows * d * h,
         rows * d + d * h * 4 + b * h * d * 4 + 4 * b)
     r["max_abs_err"] = err
+    r["witness_f64"] = witness
     say_f32("attention_pool", f"B={b} F={f} D={d} H={h} uint8 ({rows} "
                               f"frames read)", r)
     return r
@@ -3536,11 +3597,14 @@ def check_new_netvlad(torch, g, dev, flush) -> list:
     F=300, D=1152 with uint8 frames: frames past num_frames planted
     (255; the result bit for bit that of zeros there), a video with no
     frame, a cluster no frame is assigned to; padded clusters (K = 1020,
-    bias -1e30) at a small batch; the bf16 rounding witness at K=1024."""
+    bias -1e30) at a small batch; the bf16 rounding witness at K=1024.
+    The f32 route reads Wc's split copy (3xTF32: the logits tiled over K
+    above 256)."""
     from yt8m_tpu_torch.kernels.netvlad import (
         netvlad_aggregate,
         netvlad_aggregate_plain,
     )
+    from yt8m_tpu_torch.kernels.tf32 import split_weights
     from yt8m_tpu_torch.models.frame_utils import l2_normalize
 
     def inputs(b, f, d, k, wdtype):
@@ -3556,13 +3620,20 @@ def check_new_netvlad(torch, g, dev, flush) -> list:
         centers = torch.randn(k, d, device=dev, generator=g) * d ** -0.5
         return [x, nf, wc, scale, bias, centers]
 
+    def serve(*args):
+        # The f32 route reads Wc's split copy (the models' serving
+        # constant).
+        wc = args[2]
+        return netvlad_aggregate(*args, split_weights(wc)
+                                 if wc.dtype == torch.float32 else None)
+
     rows = []
     for wdtype, route in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         rel, abs_ = ((VLAD_REL, 1e-6) if route == "bf16"
                      else (F32_REL, NETVLAD_F32_ABS))
-        # Padded clusters: K = 1020 runs as 1024 at bf16, 4 of bias -1e30.
+        # Padded clusters: K = 1020 runs as 1024, 4 of bias -1e30.
         args = inputs(16, 130, 256, 1020, wdtype)
-        got = netvlad_aggregate(*args)
+        got = serve(*args)
         check(got.shape == (16, 1020, 256), f"netvlad {route} K=1020 shape")
         rel_check(f"netvlad {route} K=1020 (padded clusters)", got,
                   netvlad_aggregate_plain(*args), rel, abs_)
@@ -3573,8 +3644,8 @@ def check_new_netvlad(torch, g, dev, flush) -> list:
             past = torch.arange(f, device=dev)[None, :] >= nf[:, None]
             clean, x = pad_hazard(torch, x, past, 255)
             args = (x, nf, wc, scale, bias, centers)
-            got = netvlad_aggregate(*args)
-            check(torch.equal(got, netvlad_aggregate(clean, *args[1:])),
+            got = serve(*args)
+            check(torch.equal(got, serve(clean, *args[1:])),
                   f"netvlad {route} K={k}: frames past num_frames leaked")
             check(bool(torch.isfinite(got).all())
                   and bool(torch.all(got[1] == 0))
@@ -3602,16 +3673,19 @@ def check_new_netvlad(torch, g, dev, flush) -> list:
 
             rows_live = int(nf.clamp(0, f).sum())
             wbytes = 2 if route == "bf16" else 4
+            split = split_weights(wc) if route == "f32" else None
             rows.append(shape_row(
                 f"netvlad_aggregate B={b} F={f} D={d} K={k} uint8 "
                 f"({rows_live} live frames)", route, err,
-                lambda args=args: netvlad_aggregate(*args),
+                lambda args=args, split=split: netvlad_aggregate(*args,
+                                                                 split),
                 lambda args=args: netvlad_aggregate_plain(*args), library,
                 "nv_", flush, 5, 4.0 * rows_live * d * k,
                 rows_live * d + d * k * wbytes + k * d * 4 + 8 * k
                 + b * k * d * 4 + 4 * b,
-                PEAK_BF16_FLOPS if route == "bf16" else PEAK_F32_FLOPS))
-            del args, x, wc, centers, library
+                PEAK_BF16_FLOPS if route == "bf16" else PEAK_F32_FLOPS,
+                split_bytes=0 if route == "bf16" else d * k * 4))
+            del args, x, wc, centers, library, split
             torch.cuda.empty_cache()
     return rows
 
@@ -4125,6 +4199,8 @@ F32_PER_BATCH = {
     f"AttentionPoolingModel {F32}": {"attention_pool": 1,
                                      "moe_head_serving": 1},
     f"NeXtVladModel {F32}": {"nextvlad_aggregate": 0, "moe_head_serving": 1},
+    f"ChainNetVladModel {F32}": {"netvlad_aggregate": 1,
+                                 "moe_head_serving": CHAIN_STAGES},
 }
 PER_BATCH.update(F32_PER_BATCH)
 # The shapes past the kernels' old limits, and --moe_head_pallas=false
@@ -4182,6 +4258,9 @@ PATHS = {
     f"NeXtVladModel {F32}": (
         lambda torch, seed: make_nextvlad_model(torch, seed, dtype="float32"),
         ("moe_head_serving", "exact_topk")),
+    f"ChainNetVladModel {F32}": (
+        make_zoo_model("ChainNetVladModel", compute_dtype="float32"),
+        ("netvlad_aggregate", "moe_head_serving", "exact_topk")),
     WIDE_FLAGSHIP: (
         lambda torch, seed: make_flagship_model(
             torch, seed, clusters=WIDE_CLUSTERS, mixtures=WIDE_MIXTURES),
@@ -6051,13 +6130,16 @@ EXPORT_ZOO_CUT = dict(lstm_layers=1, gru_layers=1, cnn_layers=1,
 def export_zoo_paths() -> dict:
     """{path: maker} of every registry model not in EXPORT_PATHS at the
     JAX defaults cut by EXPORT_ZOO_CUT, and the f32 flagship (its LSTM a
-    Python scan the program unrolls)."""
+    Python scan the program unrolls), ChainNetVladModel and
+    AttentionPoolingModel at f32 (the 3xTF32 routes of rows 8 and 14)."""
     from yt8m_tpu_torch.models.registry import list_models
 
     out = {name: make_zoo_model(name, **EXPORT_ZOO_CUT)
            for name in list_models() if name not in EXPORT_PATHS}
-    out[f"NetVladLstmModel {F32}"] = make_zoo_model(
-        "NetVladLstmModel", compute_dtype="float32", **EXPORT_ZOO_CUT)
+    for name in ("NetVladLstmModel", "ChainNetVladModel",
+                 "AttentionPoolingModel"):
+        out[f"{name} {F32}"] = make_zoo_model(
+            name, compute_dtype="float32", **EXPORT_ZOO_CUT)
     return out
 
 
@@ -7016,6 +7098,13 @@ def main() -> int:
         profile_step(torch, dev, name, FLAG_BATCH)
         for name in ("NetVladLstmModel", "GruModel", "AttentionPoolingModel",
                      "NeXtVladModel")]
+    # The f32 steps of rows 8 and 14's 3xTF32 routes (the flagship's LSTM
+    # on its scan graph, as the JAX model at f32).
+    f32_steps = {name: profile_step(torch, dev, f"{name} {F32}", FLAG_BATCH)
+                 for name in ("NetVladLstmModel", "AttentionPoolingModel")}
+    say("step", f"{F32} serving steps at B={FLAG_BATCH}: " + ", ".join(
+        f"{n} {r['step_ms']:.3f} ms" for n, r in f32_steps.items()))
+    steps += list(f32_steps.values())
     zoo_steps = {name: profile_step(torch, dev, name,
                                     BATCH if "Dbof" in name else FLAG_BATCH)
                  for name in ZOO_PATHS}

@@ -79,10 +79,12 @@ max|ref| + 1e-6 against torch.matmul in f32 on the same bf16 operands
 its tiles: the 1e-3 bound above, its hazards bit for bit.
 The f32 routes (--compute_dtype=float32: DBoF v2, the MoE head, NetVLAD
 and attention pooling with f32 weights) against their plain versions in
-true f32 (TF32 off): max|diff| <= 1e-5 * max|ref| + 1e-5 (nothing is
-rounded on either side; only the order of the f32 sums differs), at
-the serving shapes and at small, odd and ragged ones; frames past
-num_frames change nothing. The bf16 MoE head at any H (zero fill past
+true f32 (TF32 off): max|diff| <= 1e-5 * max|ref| + 1e-5 (NetVLAD's
++ 1e-8; nothing is rounded to bf16 on either side: the kernels' 3xTF32
+products split each operand in two TF32 halves, about 2^-21 of each
+product, and sum in another order), at the serving shapes and at small,
+odd and ragged ones; frames past num_frames change nothing; without the
+weights' split copies the f32 routes refuse. The bf16 MoE head at any H (zero fill past
 H): the DBoF bound.
 """
 
@@ -479,6 +481,16 @@ def test_cuda_netvlad_plans_match_the_kernel(cuda):
     assert (got["agg_clusters"], got["agg_cols"], got["agg_stages"],
             got["agg_smem"]) == (tvlad.AGG_CLUSTERS, tvlad.D_TILE,
                                  p["agg_stages"], p["agg_smem"])
+    # The f32 route's.
+    for k in (128, 256):
+        for dt, name in ((torch.float32, "f32"), (torch.uint8, "u8")):
+            p = tvlad.plan(512, 300, 1152, k, dt, sms=got["sms"], f32=True)
+            assert got[f"f32_smem_{name}_{k}"] == p["assign_smem"]
+    p = tvlad.plan(512, 300, 1152, 256, sms=got["sms"], f32=True)
+    assert got["f32_assign_stages"] == p["assign_stages"]
+    assert (got["f32_clusters"], got["f32_agg_frames"],
+            got["f32_agg_smem"]) == (tvlad.F32_CLUSTERS, p["agg_frames"],
+                                     p["agg_smem"])
 
 
 def _lstm_args(seed, f, b, h, dev):
@@ -1326,16 +1338,17 @@ def test_cuda_attention_pool_ignores_frames_past_num_frames(cuda, x_dtype):
 def test_cuda_attention_pool_plan_matches_the_kernel(cuda, x_dtype, f, d, h):
     """The compiled layout is the one kernels/attention_pool.py :: plan
     describes."""
-    got = tap.kernel_plan(f, d, h, x_dtype)
-    p = tap.plan(f, d, h, x_dtype)
-    assert got["rows"] == tap.ROWS and got["warps"] == tap.WARPS
-    assert (got["max_groups"], got["max_stages"]) == (tap.MAX_GROUPS,
-                                                      tap.MAX_STAGES)
-    assert {key: got[key] for key in ("lines", "stage_bytes", "stages",
-                                      "smem", "f16", "attn_pitch",
-                                      "n_tiles")} == {
-        key: p[key] for key in ("lines", "stage_bytes", "stages", "smem",
-                                "f16", "attn_pitch", "n_tiles")}
+    for f32 in (False, True):
+        got = tap.kernel_plan(f, d, h, x_dtype, f32)
+        p = tap.plan(f, d, h, x_dtype, f32=f32)
+        assert got["rows"] == tap.ROWS and got["warps"] == tap.WARPS
+        assert (got["max_groups"], got["max_stages"]) == (tap.MAX_GROUPS,
+                                                          tap.MAX_STAGES)
+        assert {key: got[key] for key in ("lines", "stage_bytes", "stages",
+                                          "smem", "f16", "attn_pitch",
+                                          "n_tiles")} == {
+            key: p[key] for key in ("lines", "stage_bytes", "stages", "smem",
+                                    "f16", "attn_pitch", "n_tiles")}
 
 
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
@@ -2223,6 +2236,12 @@ def _dbof_serve(x, w, *vec):
     return tdbof.dbof_cluster_maxpool_v2(x, w, *vec, split)
 
 
+def _vlad_serve(x, nf, wc, *rest):
+    """netvlad_aggregate with Wc's split copy on the f32 route."""
+    split = split_weights(wc) if wc.dtype == torch.float32 else None
+    return tvlad.netvlad_aggregate(x, nf, wc, *rest, split)
+
+
 def _moe_serve(x, wg, we, be, m):
     """moe_head_serving with the weights' split copies on the f32
     route."""
@@ -2263,6 +2282,11 @@ def test_cuda_f32_routes_refuse_a_missing_split(cuda):
     x, wg, we, be = _f32_moe_args(0, 5, 64, 9, 2, cuda)
     with pytest.raises(ValueError, match="split_weights"):
         tmoe.moe_head_serving(x, wg, we, be, 2)
+    x, nf, wc, *rest = _vlad_args(0, 3, 20, 128, 16, torch.uint8, cuda)
+    before = tvlad.netvlad_aggregate.launches
+    with pytest.raises(ValueError, match="split_weights"):
+        tvlad.netvlad_aggregate(x, nf, wc.float(), *rest)
+    assert tvlad.netvlad_aggregate.launches == before
 
 
 def _f32_moe_args(seed, b, h, c, m, dev):
@@ -2299,7 +2323,7 @@ def test_cuda_f32_netvlad_matches_plain(cuda, x_dtype, b, f, d, k):
     args = _vlad_args(b + f + k, b, f, d, k, x_dtype, cuda)
     args[2] = args[2].float()
     before = tvlad.netvlad_aggregate.launches
-    got = tvlad.netvlad_aggregate(*args)
+    got = _vlad_serve(*args)
     assert tvlad.netvlad_aggregate.launches == before + 1
     # The L2-normalised descriptor's values are small (1/sqrt(K*D) on
     # average): an absolute term of 1e-8 keeps a bf16 rounding out.
@@ -2318,10 +2342,8 @@ def test_cuda_f32_netvlad_ignores_frames_past_num_frames(cuda, x_dtype):
         x)
     clean = x.masked_fill(past[..., None], 0)
     wc = wc.float()
-    assert torch.equal(tvlad.netvlad_aggregate(loud, nf, wc, scale, bias,
-                                               centers),
-                       tvlad.netvlad_aggregate(clean, nf, wc, scale, bias,
-                                               centers))
+    assert torch.equal(_vlad_serve(loud, nf, wc, scale, bias, centers),
+                       _vlad_serve(clean, nf, wc, scale, bias, centers))
 
 
 @pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
@@ -2443,7 +2465,7 @@ def test_cuda_netvlad_any_clusters(cuda, x_dtype, b, f, d, k):
     _vlad_close(got, tvlad.netvlad_aggregate_plain(*args))
     assert b < 3 or torch.all(got[1] == 0)  # num_frames 0 from B = 3
     args[2] = args[2].float()
-    got = tvlad.netvlad_aggregate(*args)
+    got = _vlad_serve(*args)
     _f32_close(got, tvlad.netvlad_aggregate_plain(*args), abs_=1e-8)
     assert b < 3 or torch.all(got[1] == 0)
 
@@ -2535,9 +2557,11 @@ def _op_args(name, dev):
     if name == "topk":
         return [torch.randn(9, 4716, generator=torch.Generator().manual_seed(
             4)).to(dev), 20]
-    if name in ("netvlad", "netvlad:f32"):
+    if name == "netvlad":
+        return [*_vlad_args(5, 6, 70, 256, 64, torch.uint8, dev), []]
+    if name == "netvlad:f32":
         x, nf, wc, *rest = _vlad_args(5, 6, 70, 256, 64, torch.uint8, dev)
-        return [x, nf, wc.float() if name.endswith("f32") else wc, *rest]
+        return [x, nf, wc.float(), *rest, [split_weights(wc.float())]]
     if name == "lstm":
         return [*_lstm_args(6, 12, 5, 128, dev), False]
     if name == "gru":

@@ -334,6 +334,8 @@ def _op_cases():
     w, wg, we = rn(16, 12), rn(10, 7 * 3), rn(10, 7 * 2)
     w_split = [split_weights(w)]
     moe_split = [split_weights(wg), split_weights(we)]
+    wc = rn(16, 5)
+    wc_split = [split_weights(wc)]
     return [
         ("dbof_maxpool", lambda b: (frames(b), rn(16, 12), rn(16), rn(16),
                                     rn(12), rn(12), [])),
@@ -346,7 +348,9 @@ def _op_cases():
                                     moe_split)),
         ("topk", lambda b: (rn(b, 30), 5)),
         ("netvlad", lambda b: (frames(b), nf(b), rn(16, 5), rn(5), rn(5),
-                               rn(5, 16))),
+                               rn(5, 16), [])),
+        ("netvlad:f32", lambda b: (frames(b), nf(b), wc, rn(5), rn(5),
+                                   rn(5, 16), wc_split)),
         ("lstm", lambda b: (rn(6, b, 4 * 8), nf(b), rn(8, 32), rn(32),
                             True)),
         ("gru", lambda b: (rn(6, b, 16), rn(6, b, 8), nf(b), rn(8, 16),

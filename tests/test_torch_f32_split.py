@@ -1,4 +1,5 @@
-"""The 3xTF32 product of the f32 routes of DBoF v2 and the MoE head.
+"""The 3xTF32 product of the f32 routes of DBoF v2, the MoE head,
+NetVLAD and attention pooling.
 
 At --compute_dtype=float32 the card multiplies f32 operands on the TF32
 tensor cores: each operand v split into big = tf32(v) and small =
@@ -15,7 +16,13 @@ Then the split weight constants (big + small rebuilds each weight within
 2^-21 relative, the K-major layout, the zero pad), the models' f32
 serving constants and their export, the f32 MoE tiling at M = 1..200
 (no class past its tile, a fill no worse than the bf16 route's) and the
-f32 DBoF walk (every tile once, W's groups in order).
+f32 DBoF walk (every tile once, W's groups in order). NetVLAD's and
+attention pooling's routes, emulated the same way (both products split,
+the softmax in f32), are held against their JAX kernels at f32 at
+tests/test_torch_f32.py's shapes (NetVLAD within 1e-5 * max|ref| + 1e-8,
+the card's NetVLAD tolerance); the aggregation's 32-frame stage sums are
+modelled over 300 frames; the four NetVLAD models carry Wc's split copy
+at f32 and the f32 flagship's export carries it.
 """
 
 import jax.numpy as jnp
@@ -23,12 +30,16 @@ import numpy as np
 import pytest
 import torch
 
+from yt8m_tpu.kernels.attention_pool import attention_pool as jax_attention
 from yt8m_tpu.kernels.dbof import dbof_cluster_maxpool_v2 as jax_dbof_v2
 from yt8m_tpu.kernels.moe_head import moe_head_serving as jax_moe
+from yt8m_tpu.kernels.netvlad import netvlad_aggregate as jax_netvlad
+from yt8m_tpu_torch.data.quantize import DEQUANT_BIAS, DEQUANT_SCALE
 from yt8m_tpu_torch.kernels import dbof as tdbof
 from yt8m_tpu_torch.kernels import moe_head as tmoe
 from yt8m_tpu_torch.kernels import tf32
 from yt8m_tpu_torch.models import ModelHParams, get_model
+from yt8m_tpu_torch.models.frame_utils import l2_normalize
 
 F32 = jnp.float32
 REL, ABS = 1e-5, 1e-5  # the card's f32 tolerance (chip_smoke.py F32_REL)
@@ -190,6 +201,90 @@ def test_moe_3xtf32_matches_jax(b, h, c, m):
     _close(got.numpy(), want)
 
 
+def _num_frames(rng, b, f):
+    """Ragged counts with F, 0 and 1 planted."""
+    nf = rng.integers(1, f + 1, size=b).astype(np.int32)
+    nf[: min(b, 3)] = np.array([f, 0, 1], np.int32)[: min(b, 3)]
+    return nf
+
+
+def _frames_f32(frames):
+    """The frames as the card's routes read them: uint8 dequantized in
+    f32 with the plain version's two roundings."""
+    x = frames.to(torch.float32)
+    if frames.dtype == torch.uint8:
+        x = x * DEQUANT_SCALE + DEQUANT_BIAS
+    return x
+
+
+def _vlad_3xtf32(frames, nf, wc, scale, bias, centers):
+    """NetVLAD as the card's f32 route computes it: both products split
+    (x @ Wc, then assign^T @ x with frames past num_frames zero), the
+    softmax, the column sums and the norms in f32."""
+    x = _frames_f32(frames)
+    f = x.shape[1]
+    live = torch.arange(f)[None, :] < nf.to(torch.int64)[:, None]
+    act = _product_3xtf32(x, wc) * scale + bias
+    act = act - torch.amax(act, dim=-1, keepdim=True)
+    e = torch.exp(act)
+    assign = torch.where(live[..., None], e / torch.sum(e, -1, keepdim=True),
+                         torch.zeros_like(e))
+    xm = torch.where(live[..., None], x, torch.zeros_like(x))
+    vlad = _product_3xtf32(assign.transpose(1, 2), xm)
+    vlad = vlad - assign.sum(1)[..., None] * centers
+    return l2_normalize(l2_normalize(vlad, dim=2), dim=(1, 2))
+
+
+def _attention_3xtf32(frames, nf, query):
+    """Attention pooling as the card's f32 route computes it: both
+    products split, the masked softmax over the frames in f32."""
+    x = _frames_f32(frames)
+    f = x.shape[1]
+    live = torch.arange(f)[None, :] < nf.to(torch.int64)[:, None]
+    scores = torch.where(live[..., None], _product_3xtf32(x, query),
+                         torch.tensor(-1e9))
+    attn = torch.softmax(scores, dim=1)
+    return _product_3xtf32(attn.transpose(1, 2), x)
+
+
+# tests/test_torch_f32.py's shapes.
+VLAD_SHAPES = [(4, 13, 24, 8), (3, 70, 37, 100), (4, 16, 64, 17),
+               (5, 65, 33, 256)]
+ATTN_SHAPES = [(4, 16, 32, 4), (3, 24, 37, 3), (4, 8, 64, 16),
+               (3, 16, 8, 19), (4, 40, 1152, 8)]
+
+
+@pytest.mark.parametrize("x_dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("b,f,d,k", VLAD_SHAPES)
+def test_netvlad_3xtf32_matches_jax(b, f, d, k, x_dtype):
+    rng = np.random.default_rng(b + f + d + k)
+    frames = _frames(rng, (b, f, d), x_dtype)
+    nf = _num_frames(rng, b, f)
+    wc = rng.normal(0, d ** -0.5, (d, k)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, k).astype(np.float32)
+    bias = rng.normal(0, 0.3, k).astype(np.float32)
+    centers = rng.normal(0, 0.5, (k, d)).astype(np.float32)
+    args = (frames, nf, wc, scale, bias, centers)
+    got = _vlad_3xtf32(*(torch.from_numpy(a) for a in args))
+    want = jax_netvlad(*map(jnp.asarray, args), interpret=True, dtype=F32)
+    _close(got.numpy(), want, abs_=1e-8)
+    assert np.all(got[1].numpy() == 0)  # num_frames = 0: a zero descriptor
+
+
+@pytest.mark.parametrize("x_dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("b,f,d,h", ATTN_SHAPES)
+def test_attention_3xtf32_matches_jax(b, f, d, h, x_dtype):
+    rng = np.random.default_rng(b + f + d + h)
+    frames = _frames(rng, (b, f, d), x_dtype)
+    nf = _num_frames(rng, b, f)
+    query = rng.normal(0, d ** -0.5, (d, h)).astype(np.float32)
+    got = _attention_3xtf32(*(torch.from_numpy(a)
+                              for a in (frames, nf, query)))
+    want = jax_attention(*map(jnp.asarray, (frames, nf, query)),
+                         interpret=True, dtype=F32)
+    _close(got.numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # The models' f32 serving constants
 # ---------------------------------------------------------------------------
@@ -223,6 +318,22 @@ def test_models_build_the_split_at_float32_only(dtype):
     else:
         assert consts["cluster_w_split"] == []
         assert "split" not in head and "buffers" in head
+    # The four NetVLAD models share NetVladAggregation: Wc's split copy at
+    # float32 only.
+    for name in ("NetVladModel", "GatedNetVladModel", "NetVladLstmModel",
+                 "ChainNetVladModel"):
+        model = get_model(name, _hp(compute_dtype=dtype,
+                                    netvlad_cluster_size=8,
+                                    netvlad_hidden_size=16, lstm_cells=16))
+        model.reset_parameters(torch.Generator().manual_seed(1))
+        model.eval()
+        split = model.vlad.serving_constants()["cluster_w_split"]
+        if dtype == "float32":
+            assert len(split) == 1, name
+            assert torch.equal(split[0], tf32.split_weights(
+                model.vlad.cluster_weights)), name
+        else:
+            assert split == [], name
 
 
 def test_f32_export_carries_the_split_and_serves_as_eager(tmp_path):
@@ -252,6 +363,37 @@ def test_f32_export_carries_the_split_and_serves_as_eager(tmp_path):
     g = torch.Generator().manual_seed(4)
     x = torch.randint(0, 256, (5, 12, 64), generator=g, dtype=torch.uint8)
     nf = torch.randint(1, 13, (5,), generator=g, dtype=torch.int32)
+    got = serve(x, nf)
+    eager = step(x, nf, generator=torch.Generator().manual_seed(0))["csv"]
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+
+
+def test_f32_flagship_export_carries_the_split_and_serves_as_eager(
+        tmp_path):
+    """The f32 flagship (NetVladLstmModel, its LSTM the scan graph)
+    exported on the CPU carries Wc's split copy among its constants and
+    serves the eager step's top-k bit for bit."""
+    from yt8m_tpu_torch.infer.export import export_model, load_serving
+    from yt8m_tpu_torch.infer.predict import make_serving_step
+
+    hp = _hp(compute_dtype="float32", netvlad_cluster_size=8,
+             netvlad_hidden_size=16, lstm_cells=16, lstm_layers=2)
+    model = get_model("NetVladLstmModel", hp)
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    model.eval()
+    export_model(str(tmp_path), "NetVladLstmModel", hp, model)
+    program = torch.export.load(str(tmp_path / "program.pt2"))
+    consts = list(program.constants.values()) + list(
+        program.state_dict.values())
+    want = tf32.split_weights(model.vlad.cluster_weights)
+    assert any(c.shape == want.shape and torch.equal(c, want)
+               for c in consts)
+    serve, _ = load_serving(str(tmp_path), device="cpu")
+    step = make_serving_step(model, csv_top_k=20)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(0, 256, (5, 12, 64), generator=g, dtype=torch.uint8)
+    nf = torch.tensor([12, 0, 1, 7, 3], dtype=torch.int32)
     got = serve(x, nf)
     eager = step(x, nf, generator=torch.Generator().manual_seed(0))["csv"]
     for a, b in zip(got, eager):
@@ -372,3 +514,61 @@ def test_stage_sums_keep_the_product_at_the_f32_error(d):
     assert chain > 8 * stages, (chain, stages)
     if d == 4096:
         assert chain > REL * top, (chain, top)
+
+
+def test_aggregation_stage_sums_over_300_frames():
+    """NetVLAD's f32 aggregation, assign^T x over a video's frames, on
+    the wgmma in 3xTF32: each 32-frame stage (four k8 steps, twelve
+    tensor core sums rounding toward zero) summed afresh and the stages
+    added in f32. Over 300 frames the stage sums stay within 4x the f32
+    graph's own error here (numpy's f32 sum, pairwise: more accurate
+    than the card's), where one chain over all the frames drifts to more
+    than 5x the stage sums' error; the card's float64 witness holds the
+    whole route."""
+    rng = np.random.default_rng(300)
+    f, k = 300, 256
+    logits = rng.normal(size=(f, k))
+    assign = np.exp(logits - logits.max(1, keepdims=True))
+    assign = (assign / assign.sum(1, keepdims=True)).astype(np.float32)
+    x = (rng.integers(0, 256, size=f).astype(np.float32)
+         * np.float32(DEQUANT_SCALE) + np.float32(DEQUANT_BIAS))
+    a = np.ascontiguousarray(assign.T)  # [K, frames]
+    exact = a.astype(np.float64) @ x.astype(np.float64)
+    graph = np.max(np.abs((a @ x).astype(np.float64) - exact))
+    chain = np.max(np.abs(_wgmma_3xtf32(a, x, 0) - exact))
+    stages = np.max(np.abs(_wgmma_3xtf32(a, x, 32) - exact))
+    assert stages <= 4 * graph + 1e-8, (stages, graph)
+    assert chain > 5 * stages, (chain, stages)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.uint8, torch.float32])
+def test_f32_vlad_and_attention_plans_fit_the_card(x_dtype):
+    """The f32 routes' launches fit an H100's shared memory with at least
+    two stages: NetVLAD's assignment (32-deep stages of both halves of
+    the x tiles and the split Wc rows; the registers' softmax up to K =
+    256, the wide path above) at every K of the card checks, and
+    attention pooling's f32 instance (eight heads a launch) at the
+    serving shape. Both halves of Q kept in shared memory would leave
+    f32 frames at D = 1152 one stage: the kernel splits Q as it loads
+    it."""
+    from yt8m_tpu_torch.kernels import attention_pool as tap
+    from yt8m_tpu_torch.kernels import netvlad as tvlad
+
+    for k in (8, 64, 128, 136, 256, 264, 512, 1024, 2048):
+        p = tvlad.plan(512, 300, 1152, k, x_dtype, f32=True)
+        assert p["assign_smem"] <= tvlad.SMEM_LIMIT, k
+        assert p["assign_stages"] >= 2 and not p["split"], k
+        assert p["wide"] == (k > tvlad.F32_CLUSTERS), k
+        assert p["k_steps"] == 1152 // tvlad.F32_DEPTH
+        assert p["agg_frames"] == tvlad.F32_AGG_FRAMES
+        assert p["agg_smem"] <= tvlad.SMEM_LIMIT
+    for h in (1, 8, 16):
+        p = tap.plan(300, 1152, h, x_dtype, b=512, f32=True)
+        assert p["stages"] >= 2 and p["smem"] <= tap.SMEM_LIMIT, h
+        assert p["n_tiles"] == 1 and p["launches"] == -(-h // 8)
+        assert p["q_bytes"] == 32 * 1152
+    if x_dtype == torch.float32:
+        p = tap.plan(300, 1152, 8, x_dtype, f32=True)
+        room = (tap.SMEM_LIMIT - tap.ALIGN - (p["smem"] - tap.ALIGN
+                - p["stages"] * p["stage_bytes"]) - p["q_bytes"])
+        assert room // p["stage_bytes"] < 2  # a split Q's second half

@@ -68,8 +68,8 @@ SIGNATURES = {
     "yt8m_exact_topk_plan": [_I, _P],
     "yt8m_netvlad_aggregate_u8": [_P] * 13 + [_I] * 4 + [_P],
     "yt8m_netvlad_aggregate_f32": [_P] * 13 + [_I] * 4 + [_P],
-    "yt8m_netvlad_aggregate_f32w_u8": [_P] * 11 + [_I] * 4 + [_P],
-    "yt8m_netvlad_aggregate_f32w_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "yt8m_netvlad_aggregate_f32w_u8": [_P] * 12 + [_I] * 6 + [_P],
+    "yt8m_netvlad_aggregate_f32w_f32": [_P] * 12 + [_I] * 6 + [_P],
     "yt8m_netvlad_plan": [_P],
     "yt8m_lstm_recurrence": [_P] * 11 + [_I] * 5 + [_P],
     "yt8m_lstm_plan": [_I] * 2 + [_P],
@@ -86,9 +86,9 @@ SIGNATURES = {
     "yt8m_gru_train_plan": [_I] * 2 + [_P],
     "yt8m_attention_pool_u8": [_P] * 5 + [_I] * 4 + [_P],
     "yt8m_attention_pool_f32": [_P] * 5 + [_I] * 4 + [_P],
-    "yt8m_attention_pool_f32q_u8": [_P] * 4 + [_I] * 4 + [_P],
-    "yt8m_attention_pool_f32q_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "yt8m_attention_pool_plan": [_I] * 4 + [_P],
+    "yt8m_attention_pool_f32q_u8": [_P] * 5 + [_I] * 4 + [_P],
+    "yt8m_attention_pool_f32q_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "yt8m_attention_pool_plan": [_I] * 5 + [_P],
     "yt8m_nextvlad_aggregate_u8": [_P] * 21 + [_I] * 7 + [_P],
     "yt8m_nextvlad_aggregate_f32": [_P] * 21 + [_I] * 7 + [_P],
     "yt8m_nextvlad_plan": [_P],

@@ -85,6 +85,13 @@ version (kernels/attention_pool.py :: rounding_limit: the kernel's
 recovered weights explain its output, none differs away from a rounding
 boundary, |kernel - plain| within the derived limit).
 
+`--kernels steps`: chip_smoke.py's `profile_step` (this checkout's) for
+each serving path of `--paths` (';'-separated chip_smoke.py PATHS names;
+B=2048 for the DBoF paths, else 512) on each checkout's package, in
+turns (other, this, this, other), each run in a fresh process: the
+step's median ms of 5 by CUDA events, and the profiler's device time by
+kernel, which profile_step prints. Printed: each checkout's step ms.
+
 Without `--kernels` (the recurrences): the trainable LSTM's and GRU's forward
 (outputs, final state, residuals) and backward (dZ; dA_g and dA_c) at the
 training shape (B=256, F=300, H=1024, num_frames uniform in 1..F with F,
@@ -862,6 +869,28 @@ def compare(torch, a, b):
     return lines
 
 
+def run_steps(out_path, paths):
+    """chip_smoke.py :: profile_step of this file's checkout for each of
+    `paths` (';'-separated) on the package first on sys.path; {path: step
+    ms} saved to out_path."""
+    import importlib.util
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device("cuda")
+    steps = {}
+    for path in (p.strip() for p in paths.split(";")):
+        b = smoke.BATCH if "Dbof" in path else smoke.FLAG_BATCH
+        steps[path] = smoke.profile_step(torch, dev, path, b)["step_ms"]
+    torch.save(steps, out_path)
+
+
 def _in_checkout(root, fn, *extra):
     """fn of this file, run in its own process with the package of the
     checkout at root first on the path (this file is loaded by path: the
@@ -882,7 +911,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="recurrences",
                     choices=("recurrences", "dbof,moe",
                              "dequant,netvlad_core", "nextvlad",
-                             "vlad,int8", "attention,topk"))
+                             "vlad,int8", "attention,topk", "steps"))
+    ap.add_argument("--paths", default="",
+                    help="--kernels steps: ';'-separated serving paths")
     args = ap.parse_args(argv)
     import torch
 
@@ -900,6 +931,8 @@ def main(argv=None) -> int:
         return _main_products(torch, args, "run_vlad_int8", compare_vlad_int8)
     if args.kernels == "attention,topk":
         return _main_products(torch, args, "run_attn_topk", compare_attn_topk)
+    if args.kernels == "steps":
+        return _main_steps(torch, args)
     mine = os.path.join(args.out, "this.pt")
     other = os.path.join(args.out, "other.pt")
     _in_checkout(ROOT, "run", mine)
@@ -921,6 +954,23 @@ def _main_products(torch, args, fn, compare_fn) -> int:
         runs[name].append(torch.load(path))
     for line in compare_fn(torch, runs["this"], runs["other"]):
         print(line, flush=True)
+    return 0
+
+
+def _main_steps(torch, args) -> int:
+    """run_steps in each checkout, in turns (other, this, this, other)."""
+    if not args.paths:
+        raise SystemExit("--kernels steps needs --paths")
+    other_root = os.path.abspath(args.other)
+    runs = {"this": [], "other": []}
+    for i, (name, root) in enumerate((("other", other_root), ("this", ROOT),
+                                      ("this", ROOT), ("other", other_root))):
+        path = os.path.join(args.out, f"steps_{i}_{name}.pt")
+        _in_checkout(root, "run_steps", path, args.paths)
+        runs[name].append(torch.load(path))
+    for p in (p.strip() for p in args.paths.split(";")):
+        print(f"{p}: step ms this {[round(r[p], 3) for r in runs['this']]}, "
+              f"other {[round(r[p], 3) for r in runs['other']]}", flush=True)
     return 0
 
 

@@ -16,9 +16,11 @@ package's attention_pool_reference and its model's graph do; its TPU
 kernel pads F to a multiple of 8 and averages the padded rows as well.
 
 At f32 (--compute_dtype=float32) nothing is rounded, as in the TPU
-kernel at dtype=float32: csrc/attention_pool.cu's f32 kernel (a block a
-video, both products and the softmax in plain f32, no TF32) takes any D
-and up to 16 heads a launch.
+kernel at dtype=float32: the same kernel's f32 instance (the same grid,
+ring and walk) runs both products on the TF32 tensor cores as 3xTF32
+(mma.sync; each operand split into two TF32 halves, kernels/tf32.py) and
+the softmax in f32, eight heads a launch, with the same padding of D and
+the same split of heads past 16 a call.
 
 The bf16 CUDA kernel (csrc/attention_pool.cu) is bound by the bytes of the
 frames. A persistent grid (a block an SM) takes videos from a counter in
@@ -94,10 +96,11 @@ def attention_pool_plain(frames, num_frames, query):
     return torch.matmul(_round(attn, dtype).transpose(1, 2), xb)
 
 
-def _heads_padded(h: int) -> int:
+def _heads_padded(h: int, f32: bool = False) -> int:
     """The heads a launch computes for h <= 16: whole n8 tiles of the
-    products (the heads past h get zero columns of Q)."""
-    return 8 if h <= 8 else 16
+    products (the heads past h get zero columns of Q); the f32 route
+    computes 8 a launch."""
+    return 8 if h <= 8 or f32 else 16
 
 
 def padded_columns(d: int, x_dtype=torch.uint8) -> int:
@@ -108,33 +111,39 @@ def padded_columns(d: int, x_dtype=torch.uint8) -> int:
 
 
 def plan(f: int, d: int, h: int, x_dtype=torch.uint8, b: int = 1,
-         sms: int = SMS) -> dict:
+         sms: int = SMS, f32: bool = False) -> dict:
     """csrc/attention_pool.cu's launch over frames [B, F, D] (D as
     padded_columns gives it) and H <= 16 heads: the stages (16 rows of an
     odd number of 128-byte swizzled lines, the TMA box), Q in fragment
-    order, the scores, the bf16 attention and the barriers in shared
-    memory, and the block's walk."""
+    order, the scores, the attention (bf16; f32: its two f32 halves) and
+    the barriers in shared memory, and the block's walk. f32: the f32
+    route's launches, 8 heads each (Q f32, 32 bytes a column and head
+    tile)."""
     esize = 1 if x_dtype == torch.uint8 else 4
-    heads = _heads_padded(h)
+    heads = _heads_padded(h, f32)
     nt = heads // 8
     lines = (d * esize // LINE) | 1
     stage = ROWS * lines * LINE
     f16 = -(-f // 16) * 16
-    attn_pitch = f16 + (8 - f16 % 64) % 64
-    q_bytes = 16 * d * nt
-    fixed = (q_bytes + 4 * heads * f16 + 2 * heads * attn_pitch + 8
-             + BARRIER_BYTES)
+    if f32:
+        attn_pitch = f16 + (4 - f16 % 32) % 32
+        q_bytes, attn_bytes = 32 * d * nt, 8 * heads * attn_pitch
+    else:
+        attn_pitch = f16 + (8 - f16 % 64) % 64
+        q_bytes, attn_bytes = 16 * d * nt, 2 * heads * attn_pitch
+    fixed = q_bytes + 4 * heads * f16 + attn_bytes + 8 + BARRIER_BYTES
     stages = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - fixed) // stage)
     q_off = stages * stage
     attn_off = q_off + q_bytes + 4 * heads * f16
-    bar_off = -(-(attn_off + 2 * heads * attn_pitch) // 8) * 8
+    bar_off = -(-(attn_off + attn_bytes) // 8) * 8
     return {
         "rows": ROWS, "lines": lines, "stage_bytes": stage, "f16": f16,
         "attn_pitch": attn_pitch, "q_bytes": q_bytes,
-        "scores_bytes": 4 * heads * f16, "attn_bytes": 2 * heads * attn_pitch,
+        "scores_bytes": 4 * heads * f16, "attn_bytes": attn_bytes,
         "box": (LINE // esize, lines, ROWS, 1), "stages": stages,
         "q_off": q_off, "bar_off": bar_off,
         "smem": bar_off + BARRIER_BYTES + ALIGN, "n_tiles": nt,
+        "launches": -(-h // 8) if f32 else 1,
         "warps": WARPS, "threads": 32 * (WARPS + 1),
         "groups_a_warp": -(-(d // GROUP) // WARPS),
         "grid": min(b, sms), "resident_frames": ROWS * stages,
@@ -166,16 +175,17 @@ def pass2_order(n: int, f: int, stages: int):
             + [(t, p1 + t) for t in range(tiles - kept)])
 
 
-def kernel_plan(f: int, d: int, h: int, x_dtype=torch.uint8) -> dict:
-    """The compiled kernel's layout for frames [*, F, D] and H heads, and
-    the card's SMs (card only)."""
+def kernel_plan(f: int, d: int, h: int, x_dtype=torch.uint8,
+                f32: bool = False) -> dict:
+    """The compiled kernel's layout for frames [*, F, D] and H heads (f32:
+    the f32 route's), and the card's SMs (card only)."""
     import ctypes
 
     out = (ctypes.c_int * 12)()
     esize = 1 if x_dtype == torch.uint8 else 4
     _build.check_launch("yt8m_attention_pool_plan",
                         _build.library().yt8m_attention_pool_plan(
-                            f, d, h, esize, out))
+                            f, d, h, esize, int(f32), out))
     return dict(zip(("rows", "lines", "stage_bytes", "stages", "smem",
                      "f16", "attn_pitch", "warps", "max_groups",
                      "max_stages", "n_tiles", "sms"), out))
@@ -209,8 +219,6 @@ def attention_pool(frames, num_frames, query):
         return attention_pool_plain(frames, num_frames, query)
     require(frames.dtype in (torch.uint8, torch.float32),
             f"frames: dtype {frames.dtype}, want uint8 or float32")
-    if query.dtype == torch.float32:
-        return _launch_f32(frames, num_frames, query)
     if padded_columns(d, frames.dtype) != d:
         pad = padded_columns(d, frames.dtype) - d
         frames = torch.nn.functional.pad(frames, (0, pad))
@@ -219,59 +227,33 @@ def attention_pool(frames, num_frames, query):
     if h > MAX_HEADS:
         return torch.cat([attention_pool(frames, num_frames, q) for q in
                           torch.split(query, MAX_HEADS, dim=1)], dim=1)
-    q = query if query.dtype == torch.bfloat16 else query.to(torch.bfloat16)
+    f32 = query.dtype == torch.float32
+    q = query if f32 or query.dtype == torch.bfloat16 else query.to(
+        torch.bfloat16)
     q = q.contiguous()
     require(f >= 1, "F must be at least 1")
-    p = plan(f, d, h, frames.dtype)
+    p = plan(f, d, h, frames.dtype, f32=f32)
     require(p["stages"] >= 2 and p["groups_a_warp"] <= MAX_GROUPS,
             f"F={f} and D={d} do not fit the kernel's shared memory and "
             f"registers")
     require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
     require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
     out = torch.empty((b, h, d), dtype=torch.float32, device=frames.device)
-    entry = (_build.library().yt8m_attention_pool_u8
-             if frames.dtype == torch.uint8
-             else _build.library().yt8m_attention_pool_f32)
+    lib = _build.library()
+    u8 = frames.dtype == torch.uint8
+    if f32:
+        entry = (lib.yt8m_attention_pool_f32q_u8 if u8
+                 else lib.yt8m_attention_pool_f32q_f32)
+    else:
+        entry = (lib.yt8m_attention_pool_u8 if u8
+                 else lib.yt8m_attention_pool_f32)
     code = entry(_build.ptr(frames), _build.ptr(num_frames), _build.ptr(q),
                  _build.ptr(out), _build.ptr(_counter(frames.device)), b, f,
                  d, h, _build.current_stream(frames.device))
     _build.check_launch("attention_pool", code)
     attention_pool.launches += 1
-    return out
-
-
-def f32_smem(f: int, d: int, h: int) -> int:
-    """Shared bytes of the f32 kernel's block: Q [8 or 16 heads][D rounded
-    up to 4] and the attention [F][8 or 16]."""
-    heads = _heads_padded(h)
-    return 4 * (heads * (-(-d // 4) * 4) + f * heads)
-
-
-def _launch_f32(frames, num_frames, query):
-    """The f32 route: csrc/attention_pool.cu's f32 kernel, up to 16 heads a
-    launch."""
-    b, f, d = frames.shape
-    h = query.shape[1]
-    if h > MAX_HEADS:
-        return torch.cat([_launch_f32(frames, num_frames, q) for q in
-                          torch.split(query, MAX_HEADS, dim=1)], dim=1)
-    require(f >= 1, "F must be at least 1")
-    require(f32_smem(f, d, h) <= SMEM_LIMIT,
-            f"F={f} and D={d} do not fit the f32 kernel's shared memory")
-    query = query.contiguous()
-    require_cuda_operand("frames", frames, frames.dtype, (b, f, d))
-    require_cuda_operand("num_frames", num_frames, torch.int32, (b,))
-    require_cuda_operand("query", query, torch.float32, (d, h))
-    out = torch.empty((b, h, d), dtype=torch.float32, device=frames.device)
-    entry = (_build.library().yt8m_attention_pool_f32q_u8
-             if frames.dtype == torch.uint8
-             else _build.library().yt8m_attention_pool_f32q_f32)
-    code = entry(_build.ptr(frames), _build.ptr(num_frames),
-                 _build.ptr(query), _build.ptr(out), b, f, d, h,
-                 _build.current_stream(frames.device))
-    _build.check_launch("attention_pool", code)
-    attention_pool.launches += 1
-    attention_pool.launches_f32 += 1
+    if f32:
+        attention_pool.launches_f32 += 1
     return out
 
 

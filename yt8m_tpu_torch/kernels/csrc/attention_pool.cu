@@ -64,26 +64,35 @@
 //    0.2637.)
 //
 // The f32 route (--compute_dtype=float32, Q f32): the same function with
-// nothing rounded, as the TPU kernel computes it at dtype=float32, in
-// plain f32 FMAs (no TF32, no bf16). Bound by the f32 rate outside the
-// tensor cores at the serving shape: 5.7 GFLOP, 0.085 ms at 67 TFLOP/s,
-// against 0.05 ms for the uint8 frames' bytes. attention_f32_kernel, a
-// block a video and a thread per 4 columns (288 at D=1152): Q, transposed
-// to [heads][D] so that a lane's float4 of it is conflict-free, and the
-// video's scores stay in shared memory. Pass 1: a warp scores 4 live
-// frames at a time (Q read once for the 4), a lane 4 columns of every
-// 128, the heads' sums joined by shuffles. The softmax, a warp a head,
-// in shared memory (expf, a correctly rounded division). Pass 2: a thread
-// its 4 columns of every head over the rows (the live ones; all F for n
-// <= 0), the frames' second read from L2. A simple kernel: a video's
-// passes run in series on one block.
+// nothing rounded to bf16, as the TPU kernel computes it at dtype=float32,
+// in the same kernel (its F32 instance: the persistent grid, the ring,
+// the walk, the kept tiles), both products on the TF32 tensor cores as
+// 3xTF32 (mma.sync.m16n8k8; each operand v split into big = tf32(v) and
+// small = tf32(v - big), a product summed as a_small b_big + a_big b_small
+// + a_big b_big, about 2^-21 of each product from the f32 product).
+// Bound by the bytes at the serving shape (B=512, D=1152, 8 heads): 4 x 8
+// x 1152 FLOP a frame read, 3.0 GFLOP for 80,000 frames, three TF32
+// products 0.018 ms at 494.7 TFLOP/s (one f32 product 0.044 ms at the 67
+// TFLOP/s outside the tensor cores), the uint8 frames and the output
+// 0.033 ms at 3.35 TB/s. What differs from the bf16 instance:
+//  * Q f32 in fragment order (36 KB at D=1152, 8 heads), split into its
+//    halves as a fragment is loaded (three instructions a value): both
+//    halves would leave one stage of f32 frames at D=1152. Eight heads a
+//    launch (a launch a group of 8 heads): two n8 tiles in f32 leave pass
+//    2 short of registers and f32 frames at D=1152 one stage.
+//  * Pass 1: a thread's 8 contiguous columns of a 32-column chunk (four
+//    k8 steps) of its two rows, split in registers; each chunk summed in
+//    fresh registers and added on the FMA units.
+//  * The softmax in f32 (expf, a correctly rounded division), the
+//    attention stored split, both halves f32 [heads][frames].
+//  * Pass 2: a thread's 4 contiguous columns of four frames (two k8
+//    steps) give both m16 tiles' fragments, each 16-frame tile summed in
+//    fresh registers and added on the FMA units.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper_gemm.cuh"
 
@@ -121,7 +130,7 @@ struct Layout {
   int lines;        // 128-byte lines a stage row: D * esize / 128, made odd
   int stage_bytes;
   int f16;          // F rounded up to 16: the scores' pitch (floats)
-  int attn_pitch;   // bf16 a head's attention row: >= f16, 8 mod 64
+  int attn_pitch;   // a head's attention row: >= f16; bf16: 8 mod 64, f32: 4 mod 32
   int q_off;
   int scores_off;
   int attn_off;
@@ -130,20 +139,23 @@ struct Layout {
   int smem;         // the request: the layout and the alignment's slack
 };
 
-__host__ __device__ inline Layout layout(int F, int D, int esize, int nt) {
+// f32: the f32 route's layout (Q f32, the attention's two f32 halves).
+__host__ __device__ inline Layout layout(int F, int D, int esize, int nt, bool f32) {
   Layout p;
   const int heads = 8 * nt;
   p.lines = (D * esize / kLine) | 1;
   p.stage_bytes = kRows * p.lines * kLine;
   p.f16 = (F + 15) / 16 * 16;
-  p.attn_pitch = p.f16 + ((8 - p.f16 % 64) + 64) % 64;
-  const int fixed = 16 * D * nt + 4 * heads * p.f16 + 2 * heads * p.attn_pitch + 8 + kBarrierBytes;
+  p.attn_pitch = f32 ? p.f16 + ((4 - p.f16 % 32) + 32) % 32 : p.f16 + ((8 - p.f16 % 64) + 64) % 64;
+  const int q_bytes = (f32 ? 32 : 16) * D * nt;
+  const int attn_bytes = (f32 ? 8 : 2) * heads * p.attn_pitch;
+  const int fixed = q_bytes + 4 * heads * p.f16 + attn_bytes + 8 + kBarrierBytes;
   const int room = (kSmemLimit - kAlign - fixed) / p.stage_bytes;
   p.stages = room < kMaxStages ? room : kMaxStages;
   p.q_off = p.stages * p.stage_bytes;
-  p.scores_off = p.q_off + 16 * D * nt;
+  p.scores_off = p.q_off + q_bytes;
   p.attn_off = p.scores_off + 4 * heads * p.f16;
-  p.bar_off = (p.attn_off + 2 * heads * p.attn_pitch + 7) / 8 * 8;
+  p.bar_off = (p.attn_off + attn_bytes + 7) / 8 * 8;
   p.smem = p.bar_off + kBarrierBytes + kAlign;
   return p;
 }
@@ -233,6 +245,27 @@ __device__ __forceinline__ void cols4(const float*, const unsigned char* st, int
   x[3] = v.w;
 }
 
+// Columns 32 j + 8 q .. 32 j + 8 q + 7 of stage row r (the f32 route's
+// pass 1), as f32 values.
+__device__ __forceinline__ void cols8(const uint8_t*, const unsigned char* st, int r, int j,
+                                      int q, int lines, float* x) {
+  const uint2 w = *reinterpret_cast<const uint2*>(st + swizzled(r, 32 * j + 8 * q, lines));
+  dequant4(w.x, x);
+  dequant4(w.y, x + 4);
+}
+__device__ __forceinline__ void cols8(const float*, const unsigned char* st, int r, int j, int q,
+                                      int lines, float* x) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(st + swizzled(r, 128 * j + 32 * q + 16 * i, lines));
+    x[4 * i] = v.x;
+    x[4 * i + 1] = v.y;
+    x[4 * i + 2] = v.z;
+    x[4 * i + 3] = v.w;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -245,23 +278,27 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 // Grid: min(B, SMs) persistent blocks of kThreads. frames: the 4-D map
-// (D * sizeof(T) a multiple of 128), H <= 8 * NT; out [B, H, D].
-// counter: two zeros, left at zero.
-template <typename T, int NT>
+// (D * sizeof(T) a multiple of 128); heads h0 .. h0 + H - 1 (H <= 8 * NT)
+// of a query [D, hq] (bf16; F32: f32) and of out [B, hq, D]. counter: two
+// zeros, left at zero.
+template <typename T, int NT, bool F32>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_pool_kernel(const __grid_constant__ CUtensorMap frames,
-                      const int* __restrict__ num_frames,
-                      const __nv_bfloat16* __restrict__ query, float* __restrict__ out,
-                      unsigned* __restrict__ counter, int B, int F, int D, int H) {
+                      const int* __restrict__ num_frames, const void* __restrict__ query,
+                      float* __restrict__ out, unsigned* __restrict__ counter, int B, int F, int D,
+                      int H, int h0, int hq) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hgemm::aligned_smem(smem_raw);
   constexpr int kHeads = 8 * NT;
-  const Layout p = layout(F, D, static_cast<int>(sizeof(T)), NT);
+  const Layout p = layout(F, D, static_cast<int>(sizeof(T)), NT, F32);
   const int S = p.stages;
   unsigned char* stages = smem;
-  const uint4* qf = reinterpret_cast<const uint4*>(smem + p.q_off);
+  const uint4* qf = reinterpret_cast<const uint4*>(smem + p.q_off);      // bf16
+  const float4* qf32 = reinterpret_cast<const float4*>(smem + p.q_off);  // F32
   float* scores = reinterpret_cast<float*>(smem + p.scores_off);  // [kHeads][f16]
   __nv_bfloat16* attn = reinterpret_cast<__nv_bfloat16*>(smem + p.attn_off);
+  float* attn_big = reinterpret_cast<float*>(smem + p.attn_off);  // F32: [kHeads][pitch] each
+  float* attn_small = attn_big + kHeads * p.attn_pitch;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
   uint64_t* empty = full + kMaxStages;
   int2* header = reinterpret_cast<int2*>(empty + kMaxStages);  // the stage's video, its num_frames
@@ -277,11 +314,28 @@ attention_pool_kernel(const __grid_constant__ CUtensorMap frames,
     }
     bar_init_fence();
   }
-  // Q in fragment order: word r of thread l's uint4 `half` of (chunk j,
-  // n tile nt) holds the pair of Q rows (columns of x) that its k step
-  // 2 half + r / 2 reads as b0 (r even) or b1, for head 8 nt + l / 4.
-  {
+  if constexpr (F32) {
+    // Q in fragment order: float r of thread l's float4 `half` of (chunk
+    // j, n tile nt) is Q row (column of x) 32 j + 8 (l % 4) + 4 half + r,
+    // which k8 step (4 half + r) / 2 reads as b0 (r even) or b1, for head
+    // 8 nt + l / 4.
+    float* qw = reinterpret_cast<float*>(smem + p.q_off);
+    const float* qv = static_cast<const float*>(query);
+    const int words = D / 32 * NT * 256;
+    for (int i = threadIdx.x; i < words; i += kThreads) {
+      const int r = i & 3, l = (i >> 2) & 31, half = (i >> 7) & 1, rest = i >> 8;
+      const int j = rest / NT, nt = rest - j * NT;
+      const int col = 32 * j + 8 * (l & 3) + 4 * half + r;
+      const int h = 8 * nt + (l >> 2);
+      qw[i] = h < H ? qv[static_cast<size_t>(col) * hq + h0 + h] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < 2 * kHeads * p.attn_pitch; i += kThreads) attn_big[i] = 0.0f;
+  } else {
+    // Q in fragment order: word r of thread l's uint4 `half` of (chunk j,
+    // n tile nt) holds the pair of Q rows (columns of x) that its k step
+    // 2 half + r / 2 reads as b0 (r even) or b1, for head 8 nt + l / 4.
     uint32_t* qw = reinterpret_cast<uint32_t*>(smem + p.q_off);
+    const __nv_bfloat16* qv = static_cast<const __nv_bfloat16*>(query);
     const int words = D / kChunk * NT * 256;
     for (int i = threadIdx.x; i < words; i += kThreads) {
       const int r = i & 3, l = (i >> 2) & 31, half = (i >> 7) & 1, rest = i >> 8;
@@ -290,8 +344,8 @@ attention_pool_kernel(const __grid_constant__ CUtensorMap frames,
       const int h = 8 * nt + (l >> 2);
       uint32_t lo = 0, hi = 0;
       if (h < H) {
-        lo = __bfloat16_as_ushort(query[static_cast<size_t>(col) * H + h]);
-        hi = __bfloat16_as_ushort(query[static_cast<size_t>(col + 1) * H + h]);
+        lo = __bfloat16_as_ushort(qv[static_cast<size_t>(col) * hq + h0 + h]);
+        hi = __bfloat16_as_ushort(qv[static_cast<size_t>(col + 1) * hq + h0 + h]);
       }
       qw[i] = lo | (hi << 16);
     }
@@ -363,35 +417,87 @@ attention_pool_kernel(const __grid_constant__ CUtensorMap frames,
       if (slot != warp) continue;
       bar_wait(&full[slot], (lt / S) & 1);
       const unsigned char* st = stages + slot * p.stage_bytes;
-      float acc[4][NT][4];
+      float sc[NT][4];  // the scores: (frame g (+8), heads 2q, 2q + 1)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = 0.0f;
+      if constexpr (F32) {
+        // A 32-column chunk (four k8 steps) summed in fresh registers,
+        // added to sc on the FMA units. k8 step s reads the thread's
+        // columns 2s (k = q) and 2s + 1 (k = q + 4) of its eight.
+        for (int j = 0; j < D / 32; ++j) {
+          float xa[8], xb[8];
+          cols8(none, st, g, j, q, p.lines, xa);
+          cols8(none, st, g + 8, j, q, p.lines, xb);
+          float qv[NT][8];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float4 lo = qf32[((j * NT + nt) * 2) * 32 + lane];
+            const float4 hi = qf32[((j * NT + nt) * 2 + 1) * 32 + lane];
+            qv[nt][0] = lo.x; qv[nt][1] = lo.y; qv[nt][2] = lo.z; qv[nt][3] = lo.w;
+            qv[nt][4] = hi.x; qv[nt][5] = hi.y; qv[nt][6] = hi.z; qv[nt][7] = hi.w;
+          }
+          float part[NT][4];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[nt][e] = 0.0f;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const float a[4] = {xa[2 * s], xb[2 * s], xa[2 * s + 1], xb[2 * s + 1]};
+            float ab[4], as[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hgemm::tf32_split(a[e], ab[e], as[e]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              float bb[2], bs[2];
+              hgemm::tf32_split(qv[nt][2 * s], bb[0], bs[0]);
+              hgemm::tf32_split(qv[nt][2 * s + 1], bb[1], bs[1]);
+              hgemm::mma16x8_3xtf32(part[nt], ab, as, bb, bs);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[nt][e] += part[nt][e];
+        }
+      } else {
+        float acc[4][NT][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.0f;
+        for (int j = 0; j < D / kChunk; ++j) {
+          float xa[16], xb[16];
+          cols16(none, st, g, j, q, p.lines, xa);
+          cols16(none, st, g + 8, j, q, p.lines, xb);
+          uint4 bq[NT][2];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            bq[nt][0] = qf[((j * NT + nt) * 2) * 32 + lane];
+            bq[nt][1] = qf[((j * NT + nt) * 2 + 1) * 32 + lane];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t a0 = pack_bf16(xa[4 * i], xa[4 * i + 1]);
+            const uint32_t a1 = pack_bf16(xb[4 * i], xb[4 * i + 1]);
+            const uint32_t a2 = pack_bf16(xa[4 * i + 2], xa[4 * i + 3]);
+            const uint32_t a3 = pack_bf16(xb[4 * i + 2], xb[4 * i + 3]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const uint4 b = bq[nt][i >> 1];
+              mma(acc[i][nt], a0, a1, a2, a3, (i & 1) ? b.z : b.x, (i & 1) ? b.w : b.y);
+            }
+          }
+        }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.0f;
-      for (int j = 0; j < D / kChunk; ++j) {
-        float xa[16], xb[16];
-        cols16(none, st, g, j, q, p.lines, xa);
-        cols16(none, st, g + 8, j, q, p.lines, xb);
-        uint4 bq[NT][2];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          bq[nt][0] = qf[((j * NT + nt) * 2) * 32 + lane];
-          bq[nt][1] = qf[((j * NT + nt) * 2 + 1) * 32 + lane];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t a0 = pack_bf16(xa[4 * i], xa[4 * i + 1]);
-          const uint32_t a1 = pack_bf16(xb[4 * i], xb[4 * i + 1]);
-          const uint32_t a2 = pack_bf16(xa[4 * i + 2], xa[4 * i + 3]);
-          const uint32_t a3 = pack_bf16(xb[4 * i + 2], xb[4 * i + 3]);
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const uint4 b = bq[nt][i >> 1];
-            mma(acc[i][nt], a0, a1, a2, a3, (i & 1) ? b.z : b.x, (i & 1) ? b.w : b.y);
-          }
-        }
+          for (int e = 0; e < 4; ++e)
+            sc[nt][e] = (acc[0][nt][e] + acc[1][nt][e]) + (acc[2][nt][e] + acc[3][nt][e]);
       }
       __syncwarp();
       if (t < tiles - kept && lane < kWarps) bar_arrive(&empty[slot]);  // all kWarps arrivals
@@ -401,22 +507,32 @@ attention_pool_kernel(const __grid_constant__ CUtensorMap frames,
         for (int e = 0; e < 4; ++e) {
           const int h = 8 * nt + 2 * q + (e & 1);
           const int f = kRows * t + g + 8 * (e >> 1);
-          const float s = (acc[0][nt][e] + acc[1][nt][e]) + (acc[2][nt][e] + acc[3][nt][e]);
-          if (h < H && f < rows) scores[h * p.f16 + f] = s;
+          if (h < H && f < rows) scores[h * p.f16 + f] = sc[nt][e];
         }
       }
     }
     named_sync(1, kWarps * 32);
 
     // The softmax over the live frames, a warp a head; attn rounded to
-    // bf16, zero from `rows` to the last tile's end.
+    // bf16 (F32: split into its tf32 halves), zero from `rows` to the last
+    // tile's end.
     for (int h = warp; h < H; h += kWarps) {
       float* sc = scores + h * p.f16;
       __nv_bfloat16* at = attn + h * p.attn_pitch;
+      float* ab = attn_big + h * p.attn_pitch;
+      float* as = attn_small + h * p.attn_pitch;
       if (n <= 0) {  // every score -1e9: exp(0) / F
-        const __nv_bfloat16 a = __float2bfloat16_rn(__fdiv_rn(1.0f, static_cast<float>(F)));
-        for (int f = lane; f < kRows * tiles; f += 32)
-          at[f] = f < F ? a : __float2bfloat16_rn(0.0f);
+        const float u = __fdiv_rn(1.0f, static_cast<float>(F));
+        float ub, us;
+        hgemm::tf32_split(u, ub, us);
+        for (int f = lane; f < kRows * tiles; f += 32) {
+          if constexpr (F32) {
+            ab[f] = f < F ? ub : 0.0f;
+            as[f] = f < F ? us : 0.0f;
+          } else {
+            at[f] = __float2bfloat16_rn(f < F ? u : 0.0f);
+          }
+        }
         continue;
       }
       float m = -INFINITY;
@@ -429,8 +545,13 @@ attention_pool_kernel(const __grid_constant__ CUtensorMap frames,
         s += e;
       }
       s = warp_sum(s);
-      for (int f = lane; f < kRows * tiles; f += 32)
-        at[f] = __float2bfloat16_rn(f < rows ? __fdiv_rn(sc[f], s) : 0.0f);
+      for (int f = lane; f < kRows * tiles; f += 32) {
+        const float a = f < rows ? __fdiv_rn(sc[f], s) : 0.0f;
+        if constexpr (F32)
+          hgemm::tf32_split(a, ab[f], as[f]);
+        else
+          at[f] = __float2bfloat16_rn(a);
+      }
     }
     named_sync(1, kWarps * 32);
 
@@ -452,47 +573,106 @@ attention_pool_kernel(const __grid_constant__ CUtensorMap frames,
       slot = lt % S;
       bar_wait(&full[slot], (lt / S) & 1);
       const unsigned char* st = stages + slot * p.stage_bytes;
-      uint32_t b0[NT], b1[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* at = attn + (8 * nt + g) * p.attn_pitch + kRows * t + 2 * q;
-        b0[nt] = *reinterpret_cast<const uint32_t*>(at);
-        b1[nt] = *reinterpret_cast<const uint32_t*>(at + 8);
-      }
-      const int f0 = kRows * t + 2 * q;  // this thread's frames: f0, +1, +8, +9
       const bool partial = kRows * (t + 1) > rows;
+      if constexpr (F32) {
+        // B: the attention's halves at (frame 8 s + q (+4), head 8 nt + g);
+        // A: x^T, the thread's columns col .. col + 3 of stage rows q + 4 m
+        // (m = 2 s + frame half), the m16 tiles' rows g (columns + 2 mi)
+        // and g + 8 (+ 2 mi + 1).
+        float bb[2][NT][2], bs[2][NT][2];
 #pragma unroll
-      for (int gi = 0; gi < kMaxGroups; ++gi) {
-        if (gi >= ngroups) break;
-        const int col = kGroup * (warp + kWarps * gi) + 4 * g;
-        float x0[4], x1[4], x2[4], x3[4];
-        cols4(none, st, 2 * q, col, p.lines, x0);
-        cols4(none, st, 2 * q + 1, col, p.lines, x1);
-        cols4(none, st, 2 * q + 8, col, p.lines, x2);
-        cols4(none, st, 2 * q + 9, col, p.lines, x3);
-        if (partial) {  // rows past the video's end: zeros
+        for (int s2 = 0; s2 < 2; ++s2)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            x0[e] = f0 < rows ? x0[e] : 0.0f;
-            x1[e] = f0 + 1 < rows ? x1[e] : 0.0f;
-            x2[e] = f0 + 8 < rows ? x2[e] : 0.0f;
-            x3[e] = f0 + 9 < rows ? x3[e] : 0.0f;
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int at_i = (8 * nt + g) * p.attn_pitch + kRows * t + 8 * s2 + q + 4 * e;
+              bb[s2][nt][e] = attn_big[at_i];
+              bs[s2][nt][e] = attn_small[at_i];
+            }
+        const int f0 = kRows * t + q;  // this thread's frames: f0 + 4 m
+#pragma unroll
+        for (int gi = 0; gi < kMaxGroups; ++gi) {
+          if (gi >= ngroups) break;
+          const int col = kGroup * (warp + kWarps * gi) + 4 * g;
+          float x[4][4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            cols4(none, st, q + 4 * m, col, p.lines, x[m]);
+            if (partial && f0 + 4 * m >= rows) {  // rows past the video's end: zeros
+#pragma unroll
+              for (int e = 0; e < 4; ++e) x[m][e] = 0.0f;
+            }
           }
+          float part[2][NT][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[mi][nt][e] = 0.0f;
+#pragma unroll
+          for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              const float a[4] = {x[2 * s2][2 * mi], x[2 * s2][2 * mi + 1], x[2 * s2 + 1][2 * mi],
+                                  x[2 * s2 + 1][2 * mi + 1]};
+              float ab[4], as[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) hgemm::tf32_split(a[e], ab[e], as[e]);
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+                hgemm::mma16x8_3xtf32(part[mi][nt], ab, as, bb[s2][nt], bs[s2][nt]);
+            }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[gi][mi][nt][e] += part[mi][nt][e];
         }
+      } else {
+        uint32_t b0[NT], b1[NT];
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const uint32_t a0 = pack_bf16(x0[2 * m], x1[2 * m]);
-          const uint32_t a1 = pack_bf16(x0[2 * m + 1], x1[2 * m + 1]);
-          const uint32_t a2 = pack_bf16(x2[2 * m], x3[2 * m]);
-          const uint32_t a3 = pack_bf16(x2[2 * m + 1], x3[2 * m + 1]);
+        for (int nt = 0; nt < NT; ++nt) {
+          const __nv_bfloat16* at = attn + (8 * nt + g) * p.attn_pitch + kRows * t + 2 * q;
+          b0[nt] = *reinterpret_cast<const uint32_t*>(at);
+          b1[nt] = *reinterpret_cast<const uint32_t*>(at + 8);
+        }
+        const int f0 = kRows * t + 2 * q;  // this thread's frames: f0, +1, +8, +9
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma(acc[gi][m][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
+        for (int gi = 0; gi < kMaxGroups; ++gi) {
+          if (gi >= ngroups) break;
+          const int col = kGroup * (warp + kWarps * gi) + 4 * g;
+          float x0[4], x1[4], x2[4], x3[4];
+          cols4(none, st, 2 * q, col, p.lines, x0);
+          cols4(none, st, 2 * q + 1, col, p.lines, x1);
+          cols4(none, st, 2 * q + 8, col, p.lines, x2);
+          cols4(none, st, 2 * q + 9, col, p.lines, x3);
+          if (partial) {  // rows past the video's end: zeros
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              x0[e] = f0 < rows ? x0[e] : 0.0f;
+              x1[e] = f0 + 1 < rows ? x1[e] : 0.0f;
+              x2[e] = f0 + 8 < rows ? x2[e] : 0.0f;
+              x3[e] = f0 + 9 < rows ? x3[e] : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const uint32_t a0 = pack_bf16(x0[2 * m], x1[2 * m]);
+            const uint32_t a1 = pack_bf16(x0[2 * m + 1], x1[2 * m + 1]);
+            const uint32_t a2 = pack_bf16(x2[2 * m], x3[2 * m]);
+            const uint32_t a3 = pack_bf16(x2[2 * m + 1], x3[2 * m + 1]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma(acc[gi][m][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
+          }
         }
       }
       __syncwarp();
       if (lane == 0) bar_arrive(&empty[slot]);
     }
-    float* ov = out + static_cast<size_t>(v) * H * D;
+    float* ov = out + (static_cast<size_t>(v) * hq + h0) * D;
 #pragma unroll
     for (int gi = 0; gi < kMaxGroups; ++gi) {
       if (gi >= ngroups) break;
@@ -535,23 +715,24 @@ cudaError_t frames_map(CUtensorMap* map, const void* frames, int B, int F, int D
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, int NT>
+// Heads h0 .. h0 + H - 1 of hq in one launch.
+template <typename T, int NT, bool F32>
 int launch(const void* frames, const void* num_frames, const void* query, void* out,
-           void* counter, int B, int F, int D, int H, void* stream) {
-  const Layout p = layout(F, D, static_cast<int>(sizeof(T)), NT);
+           void* counter, int B, int F, int D, int H, int h0, int hq, void* stream) {
+  const Layout p = layout(F, D, static_cast<int>(sizeof(T)), NT, F32);
   if (p.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
   cudaError_t err = frames_map<T>(&map, frames, B, F, D, p.lines);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = attention_pool_kernel<T, NT>;
+  auto kernel = attention_pool_kernel<T, NT, F32>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
   err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<B < sms ? B : sms, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<const int*>(num_frames), static_cast<const __nv_bfloat16*>(query),
-      static_cast<float*>(out), static_cast<unsigned*>(counter), B, F, D, H);
+      map, static_cast<const int*>(num_frames), query, static_cast<float*>(out),
+      static_cast<unsigned*>(counter), B, F, D, H, h0, hq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -565,222 +746,24 @@ int dispatch(const void* frames, const void* num_frames, const void* query, void
              void* counter, int B, int F, int D, int H, void* stream) {
   if (!takes(B, F, D, static_cast<int>(sizeof(T)), H))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (H <= 8) return launch<T, 1>(frames, num_frames, query, out, counter, B, F, D, H, stream);
-  return launch<T, 2>(frames, num_frames, query, out, counter, B, F, D, H, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The f32 route.
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Frames = 4;      // frames a warp scores at once (Q read once for them)
-constexpr int kF32MaxThreads = 512;
-
-// Columns d .. d + 3 of a frame row as f32 (uint8 dequantized with the
-// plain version's two rounding points), zeros past D. Vec: D % 4 == 0
-// (one 4- or 16-byte load).
-template <typename T, bool Vec>
-__device__ __forceinline__ void load4(const T* row, int d, int D, float (&v)[4]) {
-  if constexpr (std::is_same<T, uint8_t>::value) {
-    if (Vec) {
-      const uint32_t w = d < D ? __ldg(reinterpret_cast<const uint32_t*>(row + d)) : 0u;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[e] = d < D ? __fadd_rn(__fmul_rn(static_cast<float>((w >> (8 * e)) & 0xffu), kScale),
-                                 kBias)
-                     : 0.0f;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[e] = d + e < D ? __fadd_rn(__fmul_rn(static_cast<float>(__ldg(row + d + e)), kScale),
-                                     kBias)
-                         : 0.0f;
-    }
-  } else {
-    if (Vec) {
-      const float4 q = d < D ? __ldg(reinterpret_cast<const float4*>(row + d))
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      v[0] = q.x;
-      v[1] = q.y;
-      v[2] = q.z;
-      v[3] = q.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = d + e < D ? __ldg(row + d + e) : 0.0f;
-    }
-  }
-}
-
-__device__ __forceinline__ float f32_warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// A block a video, blockDim a multiple of 32 (a thread per 4 columns in
-// pass 2). Shared memory: Q head-major [NH][Dp] (Dp = D rounded up to 4,
-// zeros past H and D), then the scores and the attention [F][NH].
-template <typename T, int NH, bool Vec>
-__global__ void __launch_bounds__(kF32MaxThreads)
-attention_f32_kernel(const T* __restrict__ frames, const int* __restrict__ num_frames,
-                     const float* __restrict__ query, float* __restrict__ out, int F, int D,
-                     int H) {
-  extern __shared__ __align__(16) float fs[];
-  const int dp = (D + 3) / 4 * 4;
-  float* q = fs;
-  float* attn = fs + NH * dp;
-  const int b = blockIdx.x;
-  const int n = num_frames[b];
-  const int live = min(max(n, 0), F);
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < NH * dp; i += blockDim.x) {
-    const int h = i / dp;
-    const int d = i - h * dp;
-    q[i] = h < H && d < D ? __ldg(query + static_cast<size_t>(d) * H + h) : 0.0f;
-  }
-  __syncthreads();
-  const T* video = frames + static_cast<size_t>(b) * F * D;
-  if (n > 0) {
-    // Pass 1: a warp 4 frames at a time, a lane columns 4 lane + 128 j.
-    for (int t0 = kF32Frames * warp; t0 < live; t0 += kF32Frames * warps) {
-      float s[kF32Frames][NH];
-#pragma unroll
-      for (int f = 0; f < kF32Frames; ++f)
-#pragma unroll
-        for (int h = 0; h < NH; ++h) s[f][h] = 0.0f;
-      for (int d = 4 * lane; d < D; d += 128) {
-        float x[kF32Frames][4];
-#pragma unroll
-        for (int f = 0; f < kF32Frames; ++f) {
-          if (t0 + f < live) {
-            load4<T, Vec>(video + static_cast<size_t>(t0 + f) * D, d, D, x[f]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) x[f][e] = 0.0f;
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const float4 qv = *reinterpret_cast<const float4*>(q + h * dp + d);
-#pragma unroll
-          for (int f = 0; f < kF32Frames; ++f) {
-            float a = s[f][h];
-            a = fmaf(x[f][0], qv.x, a);
-            a = fmaf(x[f][1], qv.y, a);
-            a = fmaf(x[f][2], qv.z, a);
-            s[f][h] = fmaf(x[f][3], qv.w, a);
-          }
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < kF32Frames; ++f)
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const float v = f32_warp_sum(s[f][h]);
-          if (lane == 0 && t0 + f < live) attn[(t0 + f) * NH + h] = v;
-        }
-    }
-    __syncthreads();
-    // The softmax over t < live, a warp a head (the frames past n have
-    // weight exp(-1e9 - max) = 0 exactly).
-    for (int h = warp; h < NH; h += warps) {
-      float m = -INFINITY;
-      for (int t = lane; t < live; t += 32) m = fmaxf(m, attn[t * NH + h]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.0f;
-      for (int t = lane; t < live; t += 32) {
-        const float e = expf(attn[t * NH + h] - m);
-        attn[t * NH + h] = e;
-        sum += e;
-      }
-      sum = f32_warp_sum(sum);
-      for (int t = lane; t < live; t += 32) attn[t * NH + h] = attn[t * NH + h] / sum;
-    }
-  } else {
-    // Every score -1e9: the uniform softmax over all F frames.
-    const float u = 1.0f / static_cast<float>(F);
-    for (int i = threadIdx.x; i < F * NH; i += blockDim.x) attn[i] = u;
-  }
-  __syncthreads();
-  // Pass 2: a thread 4 columns, pooled[h][d] = sum_t attn[t][h] x[t][d].
-  const int rows = n > 0 ? live : F;
-  for (int d = 4 * threadIdx.x; d < D; d += 4 * blockDim.x) {
-    float acc[NH][4];
-#pragma unroll
-    for (int h = 0; h < NH; ++h)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[h][e] = 0.0f;
-    for (int t = 0; t < rows; ++t) {
-      float x[4];
-      load4<T, Vec>(video + static_cast<size_t>(t) * D, d, D, x);
-#pragma unroll
-      for (int h4 = 0; h4 < NH / 4; ++h4) {
-        const float4 a = *reinterpret_cast<const float4*>(attn + t * NH + 4 * h4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int hh = 0; hh < 4; ++hh)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[4 * h4 + hh][e] = fmaf(av[hh], x[e], acc[4 * h4 + hh][e]);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      if (h >= H) break;
-      float* o = out + (static_cast<size_t>(b) * H + h) * D + d;
-      if (Vec) {
-        *reinterpret_cast<float4*>(o) = make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (d + e < D) o[e] = acc[h][e];
-      }
-    }
-  }
-}
-
-// Shared bytes of the f32 route: Q [NH][D rounded up to 4] and the
-// attention [F][NH].
-inline size_t f32_smem(int F, int D, int nh) {
-  return (static_cast<size_t>(nh) * ((D + 3) / 4 * 4) + static_cast<size_t>(F) * nh) * 4;
-}
-
-// Threads a block: a thread per 4 columns, a multiple of 32 in [128, 512].
-inline int f32_threads(int D) {
-  const int t = ((D + 3) / 4 + 31) / 32 * 32;
-  return t < 128 ? 128 : t > kF32MaxThreads ? kF32MaxThreads : t;
-}
-
-template <typename T, int NH, bool Vec>
-int launch_f32(const void* frames, const void* num_frames, const void* query, void* out, int B,
-               int F, int D, int H, cudaStream_t st) {
-  const size_t smem = f32_smem(F, D, NH);
-  auto kernel = attention_f32_kernel<T, NH, Vec>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, f32_threads(D), smem, st>>>(static_cast<const T*>(frames),
-                                           static_cast<const int*>(num_frames),
-                                           static_cast<const float*>(query),
-                                           static_cast<float*>(out), F, D, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_f32(const void* frames, const void* num_frames, const void* query, void* out, int B,
-                 int F, int D, int H, void* stream) {
-  if (B <= 0 || F <= 0 || D <= 0 || H < 1 || H > 16 ||
-      f32_smem(F, D, H <= 8 ? 8 : 16) > static_cast<size_t>(kSmemLimit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = D % 4 == 0;
   if (H <= 8)
-    return vec ? launch_f32<T, 8, true>(frames, num_frames, query, out, B, F, D, H, st)
-               : launch_f32<T, 8, false>(frames, num_frames, query, out, B, F, D, H, st);
-  return vec ? launch_f32<T, 16, true>(frames, num_frames, query, out, B, F, D, H, st)
-             : launch_f32<T, 16, false>(frames, num_frames, query, out, B, F, D, H, st);
+    return launch<T, 1, false>(frames, num_frames, query, out, counter, B, F, D, H, 0, H, stream);
+  return launch<T, 2, false>(frames, num_frames, query, out, counter, B, F, D, H, 0, H, stream);
+}
+
+// The f32 route: eight heads a launch, the launches one after another on
+// the stream (each leaves the counter at zero).
+template <typename T>
+int dispatch_f32(const void* frames, const void* num_frames, const void* query, void* out,
+                 void* counter, int B, int F, int D, int H, void* stream) {
+  if (!takes(B, F, D, static_cast<int>(sizeof(T)), H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int h0 = 0; h0 < H; h0 += 8) {
+    const int code = launch<T, 1, true>(frames, num_frames, query, out, counter, B, F, D,
+                                        H - h0 < 8 ? H - h0 : 8, h0, H, stream);
+    if (code != 0) return code;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -801,26 +784,25 @@ extern "C" int yt8m_attention_pool_f32(const void* frames, const void* num_frame
   return dispatch<float>(frames, num_frames, query, out, counter, B, F, D, H, stream);
 }
 
-// The f32 route (query f32): frames [B, F, D] uint8 or f32 with any D,
-// num_frames [B] int32, query [D, H] f32 with H <= 16, out [B, H, D] f32;
-// one launch on `stream`, a block a video.
+// The f32 route (query [D, H] f32, H <= 16): the same operands, a launch a
+// group of 8 heads on `stream`.
 extern "C" int yt8m_attention_pool_f32q_u8(const void* frames, const void* num_frames,
-                                          const void* query, void* out, int B, int F, int D,
-                                          int H, void* stream) {
-  return dispatch_f32<uint8_t>(frames, num_frames, query, out, B, F, D, H, stream);
+                                          const void* query, void* out, void* counter, int B,
+                                          int F, int D, int H, void* stream) {
+  return dispatch_f32<uint8_t>(frames, num_frames, query, out, counter, B, F, D, H, stream);
 }
 
 extern "C" int yt8m_attention_pool_f32q_f32(const void* frames, const void* num_frames,
-                                           const void* query, void* out, int B, int F, int D,
-                                           int H, void* stream) {
-  return dispatch_f32<float>(frames, num_frames, query, out, B, F, D, H, stream);
+                                           const void* query, void* out, void* counter, int B,
+                                           int F, int D, int H, void* stream) {
+  return dispatch_f32<float>(frames, num_frames, query, out, counter, B, F, D, H, stream);
 }
 
 // The compiled kernel's plan for frames [*, F, D] of `esize` bytes and H
-// heads: the layout, the block and the card's SMs.
-extern "C" int yt8m_attention_pool_plan(int F, int D, int H, int esize, int* plan) {
-  const int nt = H <= 8 ? 1 : 2;
-  const Layout p = layout(F, D, esize, nt);
+// heads (f32: the f32 route's): the layout, the block and the card's SMs.
+extern "C" int yt8m_attention_pool_plan(int F, int D, int H, int esize, int f32, int* plan) {
+  const int nt = f32 || H <= 8 ? 1 : 2;
+  const Layout p = layout(F, D, esize, nt, f32 != 0);
   int sms = 0;
   const cudaError_t err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);

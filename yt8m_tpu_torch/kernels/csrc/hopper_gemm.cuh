@@ -6,8 +6,9 @@
 // plain product with a TMA-store epilogue: dequant_matmul.cu,
 // netvlad_train.cu's dx), netvlad_train.cu (the VLAD core's forward and
 // backward products), netvlad.cu (the serving VLAD's assignment and
-// aggregation), nextvlad.cu, nextvlad_train.cu and hopper_gemm.cu (the
-// plain products of the card tests).
+// aggregation, and its f32 route's assignment), nextvlad.cu,
+// nextvlad_train.cu and hopper_gemm.cu (the plain products of the card
+// tests).
 //
 // A block is three warpgroups. Warpgroups 0 and 1 consume: each owns 64
 // rows of the block's 128-row A tile and runs wgmma.mma_async (bf16 in,
@@ -52,7 +53,9 @@
 //    a box of up to 256 rows is one piece of n256.
 //
 // The 3xTF32 product (mma_tf32, window3, stage3, consume3; the f32 routes
-// of dbof.cu and moe_head.cu): f32 operands on the TF32 tensor cores.
+// of dbof.cu, moe_head.cu and netvlad.cu's assignment; mma16x8_3xtf32 on
+// mma.sync for netvlad.cu's aggregation and attention_pool.cu, whose
+// operands lie depth-major): f32 operands on the TF32 tensor cores.
 // Each operand x is split into big = tf32(x) and small = tf32(x - big)
 // (tf32_round: cvt.rna, to nearest, ties away, a 10-bit mantissa), and a
 // tile sums A_small B_big + A_big B_small + A_big B_big, the small terms
@@ -681,6 +684,28 @@ __device__ __forceinline__ void mma_tf32(float* d, uint64_t a, uint64_t b, int s
   }
 }
 
+// d[0 .. 32) = A B + (scale_d ? d : 0): one m64n64k8 with tf32 operands,
+// A from registers (a[4]: warp w of the warpgroup holds rows 16w + g and
+// + 8, k q and q + 4, as mma16x8_tf32's A, for lane 4g + q), B K-major
+// from shared memory (desc_b_k). netvlad.cu's f32 aggregation, whose A
+// (the frames, transposed) lies depth-major in shared memory. The
+// registers of a stay unchanged until the wgmma has completed.
+__device__ __forceinline__ void mma_tf32_rs64(float* d, const float (&a)[4], uint64_t b,
+                                              int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "l"(b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // The 3xTF32 product.
 // ---------------------------------------------------------------------------
@@ -779,6 +804,30 @@ __device__ __forceinline__ void stage3(float* sum, float* acc, uint32_t st, uint
     for (int j = 0; j < (kHi - kLo) / 2; ++j) sum[kLo / 2 + j] += acc[j];
     stage3<G, E, W + 1>(sum, acc, st, a_off);
   }
+}
+
+// d += A B on mma.sync.m16n8k8 with tf32 operands in registers (the f32
+// routes of netvlad.cu's aggregation and attention_pool.cu, whose
+// fragments the threads load themselves): a[4] holds A (16 x 8) at (row
+// g, col q), (g + 8, q), (g, q + 4), (g + 8, q + 4), b0 and b1 B (8 x 8)
+// at (row q, col g) and (q + 4, g), d the sums at (g, 2q), (g, 2q + 1),
+// (g + 8, 2q), (g + 8, 2q + 1), for lane 4g + q.
+__device__ __forceinline__ void mma16x8_tf32(float* d, const float (&a)[4], float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// d += A B as the 3xTF32 product: A_small B_big + A_big B_small + A_big
+// B_big, the small terms first, from the operands' halves (tf32_split).
+__device__ __forceinline__ void mma16x8_3xtf32(float* d, const float (&a_big)[4],
+                                               const float (&a_small)[4], const float (&b_big)[2],
+                                               const float (&b_small)[2]) {
+  mma16x8_tf32(d, a_small, b_big[0], b_big[1]);
+  mma16x8_tf32(d, a_big, b_small[0], b_small[1]);
+  mma16x8_tf32(d, a_big, b_big[0], b_big[1]);
 }
 
 // The ring's stage and phase, as each role walks it.

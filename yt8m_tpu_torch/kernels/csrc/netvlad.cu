@@ -88,33 +88,54 @@
 // beside the 2.4 GB f32 output.
 //
 // The f32 route (--compute_dtype=float32, Wc f32): the same function with
-// nothing rounded, as the TPU kernel computes it at dtype=float32, both
-// products in plain f32 FMAs (f32_product.cuh: no TF32), any D and any K
-// with no padding. Bound by the f32 rate outside the tensor cores:
-// twice 2 B F D K, 0.18 TFLOP at B=512, F=300, D=1152, K=256 (2.7 ms at
-// 67 TFLOP/s on live frames). Five launches after launch 0 above (the
-// live chunks), each on live rows only:
-//  1. nv_f32_assign: act = x @ Wc * act_scale + act_bias (uint8: the
-//     unfused dequant first) into an f32 scratch [B, F, K], a block per
-//     two live 64-frame chunks of the list (the 128 rows of the
-//     product's tile) and 128 clusters.
-//  2. nv_f32_softmax: a warp per live row t < n, the softmax over K in
-//     place (expf, a correctly rounded division): the assignment.
-//  3. nv_f32_asum: a thread per (video, cluster), a_sum over t < n.
-//  4. nv_f32_aggregate: v = assign^T x - a_sum (x) centers, a block per
-//     (video, 128 clusters, 128 columns) over the video's t < n: the
-//     assignment rows are the A panel as they lie (depth-major), the
-//     frames the B panel. The epilogue stores v and each row's sum of
-//     squares over the tile's columns.
-//  5. nv_f32_normalize: a block a video, the row norms and the global
-//     norm from those sums, then each element (v / n_k) / g in place
-//     (the global sum of squares as sum_k ss_k / n_k^2, not from the
-//     rounded quotients: a difference in the last bits). The norms stay
-//     in shared memory up to K = 512 and above it in the video's a_sum
-//     row, which launch 4 has finished with.
-// The two products run two blocks an SM (128 registers a thread, a few
-// spills): 4.11-4.14 ms for the call against 4.33 with one block an SM
-// (an H100 at 700 W, the same call).
+// nothing rounded to bf16, as the TPU kernel computes it at dtype=float32,
+// on the TF32 tensor cores as 3xTF32 products (hopper_gemm.cuh): each
+// operand v split into big = tf32(v) and small = tf32(v - big), a product
+// summed as a_small b_big + a_big b_small + a_big b_big, about 2^-21 of
+// each product from the f32 product. At B=512, F=300, D=1152, K=256 over
+// 80,819 live frames both products are 2 x 47.7 GFLOP: three TF32
+// products each at 494.7 TFLOP/s take 0.58 ms, one f32 product each at
+// the 67 TFLOP/s outside the tensor cores 1.42 ms. The same live chunks
+// (launch 0), then:
+//  1. nv_serve_assign's F32 instances: the bf16 launch's tiles, walk and
+//     epilogue on a ring of 32-deep stages. A stage holds each
+//     warpgroup's x tile [64 frames][32] (f32 by TMA straight into the
+//     K-major A layout, or a raw uint8 tile [64][32 bytes] through the
+//     plain version's dequant), which the consumers split into its two
+//     tf32 halves (rows t >= n as zeros), and both halves of the rows of
+//     Wc's split copy [2][K][D] (kernels/tf32.py :: split_weights, a
+//     serving constant of the model: TF32's wgmma reads B K-major only).
+//     hgemm::stage3 multiplies them, each stage summed in fresh
+//     accumulators and the stages added on the FMA units (one chain of
+//     wgmma sums over D rounds toward zero and drifts: PERF.md §6). Up to
+//     K = 256 the softmax runs in the registers, as on the bf16 route,
+//     and writes the assignment's tf32 halves cluster-major, [2][B][K][fp]
+//     (fp: F rounded up to 4; zeros from n to the chunk's end), and the
+//     chunks' column sums; above 256 (a stage of 512 clusters' halves
+//     leaves room for no second stage) the Logits instance and
+//     nv_serve_softmax_wide<float> do. nv_serve_asum adds the column sums
+//     into a_sum.
+//  2. nv_f32_aggregate: the bf16 route's tiles (video, 256 clusters, 128
+//     columns) and walk, on stages of 32 frames: both halves of the
+//     tile's clusters' rows of the split assignment ([256][32] f32 each,
+//     K-major: TF32's wgmma reads shared memory K-major only) and the
+//     frames' boxes, 80 KB, two stages (the centers stay in device
+//     memory). The product contracts over frames, and the frames lie
+//     depth-major, so each warpgroup computes v^T, its 64 columns x 256
+//     clusters: A = x^T from registers (each thread loads its fragments
+//     from the frames' boxes and splits them; frames t >= n as zeros), B
+//     the assignment's halves, wgmma m64n64k8 in 3xTF32 over windows of 64
+//     clusters, each stage summed in fresh registers and added on the FMA
+//     units. The epilogue stores v = acc - a_sum * centers (each rounded)
+//     and each cluster's sum of squares over the tile's columns.
+//  3. nv_serve_norms, as on the bf16 route.
+//  4. nv_f32_scale: each element (v / n_k) / g in place, a warp a row.
+// One product pass and the scale (0.6 GB read and written at B=512) in
+// place of the bf16 route's second product pass: at 3xTF32 the product is
+// three times the bf16 route's work. (A first design ran the aggregation
+// on mma.sync m16n8k8 with the threads' fragments of the assignment and
+// the frames: 1.68 ms at B=512 with f32 frames on an H100 at 700 W,
+// against 1.47 for the FMA kernel it replaced, in the same serving step.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,7 +143,6 @@
 
 #include <type_traits>
 
-#include "f32_product.cuh"
 #include "hopper_gemm.cuh"
 #include "input_affine.cuh"
 
@@ -301,23 +321,99 @@ struct Asg {
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kSmemBytes = kStages * kStageBytes + kFixed;
   static constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+  static constexpr int kWLoad = kWBoxes * kB16Box;  // Wc's bytes a stage
   static_assert(kStageBytes % hgemm::kAlign == 0, "stages 1024-byte aligned");
   static_assert(kStages >= 2 && kSmem <= 232448, "shared memory a block");
   static_assert(W == 128 || W == 256, "clusters a warpgroup");
 };
 
+constexpr int kF32Clusters = 256;  // K the f32 assignment's registers hold; wider: logits
+constexpr int kU8Tile = kChunk * hgemm::kTf32Depth;  // a raw uint8 x tile [64][32 bytes]
+
+// The f32 route's assignment (F32, never Split): 32-deep stages of both
+// tf32 halves of the two x tiles in the K-major A layout ([2][128 rows][128
+// bytes]: the big halves, then the small ones, the warpgroups' 64 rows
+// each), both halves of the W rows of Wc's split copy ([2][W][128 bytes]),
+// and for uint8 frames the two raw tiles; as many stages as fit, up to 4.
+template <typename T, int W>
+struct AsgF32 {
+  static constexpr bool kU8 = std::is_same<T, uint8_t>::value;
+  static constexpr int kXTiles = 2;                        // a warpgroup's each
+  static constexpr int kXLoad = kU8 ? kU8Tile : kF32Box;  // an x tile's TMA bytes
+  static constexpr int kWLoad = 2 * W * hgemm::kTf32RowBytes;
+  static constexpr int kU8Off = 2 * hgemm::kTf32ABytes + kWLoad;
+  static constexpr int kStageBytes =
+      (kU8Off + (kU8 ? 2 * kU8Tile : 0) + hgemm::kAlign - 1) / hgemm::kAlign * hgemm::kAlign;
+  static constexpr int kColFloats = 2 * 4 * W;
+  static constexpr int kRowFloats = 0;
+  static constexpr int kVecFloats = 2 * kMaxClusters;
+  static constexpr int kFixed = (kColFloats + kRowFloats + kVecFloats) * 4 + 2 * 4 * 8;
+  static constexpr int kFit = (232448 - hgemm::kAlign - kFixed) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmemBytes = kStages * kStageBytes + kFixed;
+  static constexpr int kSmem = hgemm::smem_request(kSmemBytes);
+  static_assert(kStages >= 2 && kSmem <= 232448, "shared memory a block");
+  static_assert(W == 128 || W == 256, "clusters a warpgroup");
+};
+
+// The f32 route: the warpgroup's x tile of a 32-deep stage (its 64 frames
+// from `first`) split into its tf32 halves in the A layout, the big half
+// at st + wg * 8 KB and the small one 16 KB on: f32 frames in place (TMA
+// wrote them there, swizzled as the layout is), uint8 frames from their
+// raw tile at st + U8Off + wg * 2 KB through the plain version's dequant
+// (multiply, then add, each rounded). Frames first + f >= live are zeros.
+template <typename T, int U8Off>
+__device__ __forceinline__ void split_tile(unsigned char* st, int wg, int t128, int first,
+                                           int live) {
+  unsigned char* big = st + wg * kF32Box;
+  unsigned char* small = big + hgemm::kTf32ABytes;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int idx = t128 + 128 * it;  // 16-byte chunk c of row f
+    const int f = idx >> 3;
+    const int c = idx & 7;
+    const int off = hgemm::swizzled(f, c);
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (first + f < live) {
+      if constexpr (std::is_same<T, float>::value) {
+        const float4 q = *reinterpret_cast<const float4*>(big + off);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else {
+        const uint32_t w =
+            *reinterpret_cast<const uint32_t*>(st + U8Off + wg * kU8Tile + f * 32 + 4 * c);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v[k] = inaff::affine(static_cast<float>((w >> (8 * k)) & 0xffu), kDeqScale, kDeqBias);
+      }
+    }
+    float b[4], s[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hgemm::tf32_split(v[k], b[k], s[k]);
+    *reinterpret_cast<float4*>(big + off) = make_float4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<float4*>(small + off) = make_float4(s[0], s[1], s[2], s[3]);
+  }
+}
+
 // Logits (W = 256, not Split): tiles of (two live chunks, 256 clusters),
 // the affine logits of the live rows into `logits` [B, F, K] f32 and
-// nothing else (launch 1a of K > 512).
-template <typename T, int W, bool Split, bool Logits = false>
+// nothing else (launch 1a of K > 512; of K > 256 on the f32 route). F32:
+// the f32 route (3xTF32 on Wc's split copy; no xb; the assignment's tf32
+// halves to assign32 [2][B][K][fp], cluster-major, the small half `half`
+// floats on).
+template <typename T, int W, bool Split, bool Logits = false, bool F32 = false>
 __global__ void __launch_bounds__(hgemm::kThreads, 1)
 nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
                 const int* __restrict__ items, const int* __restrict__ num_frames,
                 const float* __restrict__ act_scale, const float* __restrict__ act_bias,
-                bf16* __restrict__ xb, bf16* __restrict__ assign, float* __restrict__ colsum,
-                float* __restrict__ logits, int F, int D, int K, int chunks) {
+                bf16* __restrict__ xb, bf16* __restrict__ assign, float* __restrict__ assign32,
+                float* __restrict__ colsum, float* __restrict__ logits, int F, int D, int K,
+                int chunks, int fp, long long half) {
   static_assert(!Logits || (W == 256 && !Split), "the logits tiles");
-  using P = Asg<T, W, Split>;
+  static_assert(!F32 || !Split, "the f32 route's tiles");
+  using P = std::conditional_t<F32, AsgF32<T, W>, Asg<T, W, Split>>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hgemm::aligned_smem(smem_raw);
   float* colred = reinterpret_cast<float*>(smem + P::kStages * P::kStageBytes);
@@ -330,7 +426,7 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   const int count = items[0];
   const int n_kt = Logits ? (K + W - 1) / W : 1;  // cluster tiles, the fastest
   const int tiles = (Split ? count : (count + 1) / 2) * n_kt;
-  const int nk = D / hgemm::kDepth;
+  const int nk = D / (F32 ? hgemm::kTf32Depth : hgemm::kDepth);
   if (threadIdx.x == 0) {
     for (int s = 0; s < P::kStages; ++s) {
       hgemm::bar_init(&full[s], 1);
@@ -356,7 +452,7 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int kt = t % n_kt;
         int vb[P::kXTiles], vf[P::kXTiles];
-        uint32_t bytes = P::kWBoxes * kB16Box;
+        uint32_t bytes = P::kWLoad;
 #pragma unroll
         for (int w2 = 0; w2 < P::kXTiles; ++w2) {
           const int i = P::kXTiles * (t / n_kt) + w2;
@@ -372,19 +468,36 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
         hgemm::produce<P::kStages>(
             full, empty, ring, nk, bytes, [&](int s, uint64_t* bar, int ks) {
               unsigned char* st = smem + s * P::kStageBytes;
+              if constexpr (F32) {
+                // x tiles (f32 into the big halves' rows; uint8 raw), then
+                // both halves of W rows of the split copy.
 #pragma unroll
-              for (int w2 = 0; w2 < P::kXTiles; ++w2) {
-                if (vb[w2] < 0) continue;
-                unsigned char* xs = st + w2 * P::kXBytes;
-                hgemm::tma_3d(xs, xmap, bar, ks * hgemm::kDepth, vf[w2], vb[w2]);
-                if constexpr (std::is_same<T, float>::value)
-                  hgemm::tma_3d(xs + kF32Box, xmap, bar, ks * hgemm::kDepth + hgemm::kF32BoxCols,
-                                vf[w2], vb[w2]);
+                for (int w2 = 0; w2 < P::kXTiles; ++w2) {
+                  if (vb[w2] < 0) continue;
+                  unsigned char* xs = std::is_same<T, float>::value
+                                          ? st + w2 * kF32Box
+                                          : st + P::kU8Off + w2 * kU8Tile;
+                  hgemm::tma_3d(xs, xmap, bar, ks * hgemm::kTf32Depth, vf[w2], vb[w2]);
+                }
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  hgemm::tma_3d(st + 2 * hgemm::kTf32ABytes + h * W * hgemm::kTf32RowBytes, wmap,
+                                bar, ks * hgemm::kTf32Depth, kt * W, h);
+              } else {
+#pragma unroll
+                for (int w2 = 0; w2 < P::kXTiles; ++w2) {
+                  if (vb[w2] < 0) continue;
+                  unsigned char* xs = st + w2 * P::kXBytes;
+                  hgemm::tma_3d(xs, xmap, bar, ks * hgemm::kDepth, vf[w2], vb[w2]);
+                  if constexpr (std::is_same<T, float>::value)
+                    hgemm::tma_3d(xs + kF32Box, xmap, bar,
+                                  ks * hgemm::kDepth + hgemm::kF32BoxCols, vf[w2], vb[w2]);
+                }
+#pragma unroll
+                for (int i = 0; i < P::kWBoxes; ++i)
+                  hgemm::tma_2d(st + P::kXTiles * P::kXBytes + i * kB16Box, wmap, bar,
+                                kt * W + i * hgemm::kBoxCols, ks * hgemm::kDepth);
               }
-#pragma unroll
-              for (int i = 0; i < P::kWBoxes; ++i)
-                hgemm::tma_2d(st + P::kXTiles * P::kXBytes + i * kB16Box, wmap, bar,
-                              kt * W + i * hgemm::kBoxCols, ks * hgemm::kDepth);
             });
       }
     }
@@ -417,40 +530,56 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
       }
       const int f0 = c * kChunk;
       hgemm::zero<W / 2>(acc);
-      hgemm::consume_prepared<P::kStages, W / 2>(
-          full, empty, ring, nk, acc,
-          [&](int s, int ks) {
-            // Round the tile in place: every read before any write, then
-            // bf16 into the A layout and, for the rows inside F, to xb
-            // (16 bytes a thread, eight threads a 128-byte row).
-            unsigned char* xs = smem + s * P::kStageBytes + (Split ? 0 : wg * P::kXBytes);
-            float v[kItems][8];
+      if constexpr (F32) {
+        // acc: the stages' sums (hgemm::stage3), laid out as the bf16
+        // chain's accumulators; win: a window's products of one stage.
+        float win[hgemm::kWindow / 2];
+        for (int ks = 0; ks < nk; ++ks) {
+          hgemm::bar_wait(&full[ring.stage], ring.phase);
+          unsigned char* st = smem + ring.stage * P::kStageBytes;
+          split_tile<T, P::kU8Off>(st, wg, t128, f0, live);
+          hgemm::fence_async_smem();
+          hgemm::named_sync(1 + wg, 128);
+          hgemm::stage3<W, 0>(acc, win, hgemm::smem_u32(st), wg * kF32Box);
+          if (lane == 0) hgemm::bar_arrive(&empty[ring.stage]);
+          ring.template next<P::kStages>();
+        }
+      } else {
+        hgemm::consume_prepared<P::kStages, W / 2>(
+            full, empty, ring, nk, acc,
+            [&](int s, int ks) {
+              // Round the tile in place: every read before any write, then
+              // bf16 into the A layout and, for the rows inside F, to xb
+              // (16 bytes a thread, eight threads a 128-byte row).
+              unsigned char* xs = smem + s * P::kStageBytes + (Split ? 0 : wg * P::kXBytes);
+              float v[kItems][8];
 #pragma unroll
-            for (int it = 0; it < kItems; ++it)
-              load_frames<T>(xs, prep_t + kPrepThreads * it, f0, live, v[it]);
-            hgemm::named_sync(prep_bar, kPrepThreads);
+              for (int it = 0; it < kItems; ++it)
+                load_frames<T>(xs, prep_t + kPrepThreads * it, f0, live, v[it]);
+              hgemm::named_sync(prep_bar, kPrepThreads);
 #pragma unroll
-            for (int it = 0; it < kItems; ++it) {
-              const int idx = prep_t + kPrepThreads * it;
-              const int f = idx >> 3;
-              const int c8 = idx & 7;
-              const uint4 o = pack8(v[it]);
-              *reinterpret_cast<uint4*>(xs + hgemm::swizzled(f, c8)) = o;
-              if (have && f0 + f < F && kt == 0)
-                *reinterpret_cast<uint4*>(xb + (static_cast<size_t>(b) * F + f0 + f) * D +
-                                          ks * hgemm::kDepth + 8 * c8) = o;
-            }
-            hgemm::fence_async_smem();
-            hgemm::named_sync(prep_bar, kPrepThreads);
-          },
-          [&](int s, int) {
-            const uint32_t st = hgemm::smem_u32(smem + s * P::kStageBytes);
-            const uint32_t aa = st + (Split ? 0 : wg * P::kXBytes);
-            const uint32_t ww =
-                st + P::kXTiles * P::kXBytes + (Split ? wg * (W / 64) * kB16Box : 0);
+              for (int it = 0; it < kItems; ++it) {
+                const int idx = prep_t + kPrepThreads * it;
+                const int f = idx >> 3;
+                const int c8 = idx & 7;
+                const uint4 o = pack8(v[it]);
+                *reinterpret_cast<uint4*>(xs + hgemm::swizzled(f, c8)) = o;
+                if (have && f0 + f < F && kt == 0)
+                  *reinterpret_cast<uint4*>(xb + (static_cast<size_t>(b) * F + f0 + f) * D +
+                                            ks * hgemm::kDepth + 8 * c8) = o;
+              }
+              hgemm::fence_async_smem();
+              hgemm::named_sync(prep_bar, kPrepThreads);
+            },
+            [&](int s, int) {
+              const uint32_t st = hgemm::smem_u32(smem + s * P::kStageBytes);
+              const uint32_t aa = st + (Split ? 0 : wg * P::kXBytes);
+              const uint32_t ww =
+                  st + P::kXTiles * P::kXBytes + (Split ? wg * (W / 64) * kB16Box : 0);
 #pragma unroll
-            for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) hgemm::chain<W>(acc, aa, ww, kk);
-          });
+              for (int kk = 0; kk < hgemm::kDepth / 16; ++kk) hgemm::chain<W>(acc, aa, ww, kk);
+            });
+      }
 
       // Epilogue. Thread rows ff = 16 warp + r + 8 h of the chunk;
       // clusters col0 + 8 j + 2 q + e in acc[4 j + 2 h + e].
@@ -527,11 +656,11 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
           }
       across(sm, 1, false);
       // assign = exp / sum (correctly rounded, as the plain version's
-      // division), 0 past n; bf16(assign) for the rows of the chunk inside
-      // F.
+      // division), 0 past n; bf16(assign) (F32: its tf32 halves) for the
+      // rows of the chunk inside F.
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        bf16* dst = assign + (static_cast<size_t>(b) * F + min(f[h], F - 1)) * K;
+        const size_t row = (static_cast<size_t>(b) * F + min(f[h], F - 1)) * K;
         const float rs = 1.0f / sm[h];
 #pragma unroll
         for (int j = 0; j < W / 8; ++j) {
@@ -540,8 +669,20 @@ nv_serve_assign(const __grid_constant__ CUtensorMap map_x, const __grid_constant
           const float p1 = lv[h] ? div_by(acc[4 * j + 2 * h + 1], sm[h], rs) : 0.0f;
           acc[4 * j + 2 * h] = p0;
           acc[4 * j + 2 * h + 1] = p1;
-          if (have && f[h] < F && k < K)
-            *reinterpret_cast<__nv_bfloat162*>(dst + k) = __floats2bfloat162_rn(p0, p1);
+          if (have && f[h] < F && k < K) {
+            if constexpr (F32) {
+              float b0, s0, b1, s1;
+              hgemm::tf32_split(p0, b0, s0);
+              hgemm::tf32_split(p1, b1, s1);
+              float* dst = assign32 + (static_cast<size_t>(b) * K + k) * fp + f[h];
+              dst[0] = b0;
+              dst[fp] = b1;
+              dst[half] = s0;
+              dst[half + fp] = s1;
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(assign + row + k) = __floats2bfloat162_rn(p0, p1);
+            }
+          }
         }
       }
       // The chunk's column sums of the unrounded assignment: the thread's
@@ -604,15 +745,20 @@ constexpr int kWideThreads = 256;
 // A block a live chunk (grid-stride over the list): each live row's max
 // and sum of exp over K (a warp a row), then a thread a cluster walks the
 // chunk's rows inside F: assign = exp(l - max) / sum (correctly rounded)
-// on rows t < n, 0 after; bf16(assign) to [B, F, K] and the unrounded
-// column sum to colsum, as launch 1's epilogue writes them.
+// on rows t < n, 0 after; bf16(assign) to [B, F, K] (A = float, the f32
+// route: its tf32 halves to [2][B][K][fp], `half` floats apart, through a
+// transposing tile of 32 clusters) and the unrounded column sum to colsum,
+// as launch 1's epilogue writes them.
+template <typename A>
 __global__ void __launch_bounds__(kWideThreads)
 nv_serve_softmax_wide(const int* __restrict__ items, const int* __restrict__ num_frames,
-                      const float* __restrict__ logits, bf16* __restrict__ assign,
-                      float* __restrict__ colsum, int F, int K, int chunks) {
+                      const float* __restrict__ logits, A* __restrict__ assign,
+                      float* __restrict__ colsum, int F, int K, int chunks, int fp,
+                      long long half) {
   __shared__ float s_max[kChunk];
   __shared__ float s_sum[kChunk];
   __shared__ float s_rcp[kChunk];
+  __shared__ float tile[std::is_same<A, float>::value ? kChunk : 1][33];  // f32: [rows][32 + 1]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int count = items[0];
@@ -640,18 +786,51 @@ nv_serve_softmax_wide(const int* __restrict__ items, const int* __restrict__ num
       }
     }
     __syncthreads();
-    bf16* dst = assign + (static_cast<size_t>(b) * F + f0) * K;
-    for (int k = threadIdx.x; k < K; k += kWideThreads) {
-      float total = 0.0f;
-      for (int r = 0; r < end; ++r) {
-        const float p =
-            r < rows ? div_by(expf(__fsub_rn(lg[static_cast<size_t>(r) * K + k], s_max[r])),
-                              s_sum[r], s_rcp[r])
-                     : 0.0f;
-        dst[static_cast<size_t>(r) * K + k] = __float2bfloat16_rn(p);
-        total += p;
+    if constexpr (std::is_same<A, float>::value) {
+      // Tiles of 32 clusters through shared memory: read along the
+      // logits' rows, written along the cluster-major halves' rows.
+      for (int k0 = 0; k0 < K; k0 += 32) {
+        for (int idx = threadIdx.x; idx < kChunk * 32; idx += kWideThreads) {
+          const int r = idx >> 5;
+          const int k = k0 + (idx & 31);
+          tile[r][idx & 31] =
+              r < rows && k < K
+                  ? div_by(expf(__fsub_rn(lg[static_cast<size_t>(r) * K + k], s_max[r])),
+                           s_sum[r], s_rcp[r])
+                  : 0.0f;
+        }
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < kChunk * 32; idx += kWideThreads) {
+          const int r = idx & (kChunk - 1);
+          const int k = k0 + idx / kChunk;
+          if (r < end && k < K) {
+            float big, small;
+            hgemm::tf32_split(tile[r][idx / kChunk], big, small);
+            float* dst = assign + (static_cast<size_t>(b) * K + k) * fp + f0 + r;
+            dst[0] = big;
+            dst[half] = small;
+          }
+        }
+        if (threadIdx.x < 32 && k0 + static_cast<int>(threadIdx.x) < K) {
+          float total = 0.0f;
+          for (int r = 0; r < end; ++r) total += tile[r][threadIdx.x];
+          colsum[(static_cast<size_t>(b) * chunks + c) * K + k0 + threadIdx.x] = total;
+        }
+        __syncthreads();
       }
-      colsum[(static_cast<size_t>(b) * chunks + c) * K + k] = total;
+    } else {
+      for (int k = threadIdx.x; k < K; k += kWideThreads) {
+        float total = 0.0f;
+        for (int r = 0; r < end; ++r) {
+          const float p =
+              r < rows ? div_by(expf(__fsub_rn(lg[static_cast<size_t>(r) * K + k], s_max[r])),
+                                s_sum[r], s_rcp[r])
+                       : 0.0f;
+          assign[(static_cast<size_t>(b) * F + f0 + r) * K + k] = __float2bfloat16_rn(p);
+          total += p;
+        }
+        colsum[(static_cast<size_t>(b) * chunks + c) * K + k] = total;
+      }
     }
     __syncthreads();
   }
@@ -870,14 +1049,16 @@ nv_serve_norms(const float* __restrict__ sumsq, float* __restrict__ norms, float
 // Host.
 // ---------------------------------------------------------------------------
 
-template <typename T, int W, bool Split, bool Logits = false>
+template <typename T, int W, bool Split, bool Logits = false, bool F32 = false>
 cudaError_t launch_assign(const CUtensorMap& map_x, const CUtensorMap& map_w, const int* items,
                           const int* num_frames, const float* act_scale, const float* act_bias,
-                          bf16* xb, bf16* assign, float* colsum, float* logits, int B, int F,
-                          int D, int K, int chunks, int sms, cudaStream_t st) {
-  using P = Asg<T, W, Split>;
-  cudaError_t err = cudaFuncSetAttribute(nv_serve_assign<T, W, Split, Logits>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+                          bf16* xb, bf16* assign, float* assign32, float* colsum, float* logits,
+                          int B, int F, int D, int K, int chunks, int sms, cudaStream_t st,
+                          int fp = 0, long long half = 0) {
+  using P = std::conditional_t<F32, AsgF32<T, W>, Asg<T, W, Split>>;
+  auto kernel = nv_serve_assign<T, W, Split, Logits, F32>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
   // The live chunks are counted on the card: the grid covers the most
   // there can be, and a block past the count finds no tile.
@@ -885,9 +1066,9 @@ cudaError_t launch_assign(const CUtensorMap& map_x, const CUtensorMap& map_w, co
                                 : (static_cast<long long>(B) * chunks + 1) / 2) *
                          (Logits ? (K + W - 1) / W : 1);
   const int grid = most < sms ? static_cast<int>(most) : sms;
-  nv_serve_assign<T, W, Split, Logits><<<grid, hgemm::kThreads, P::kSmem, st>>>(
-      map_x, map_w, items, num_frames, act_scale, act_bias, xb, assign, colsum, logits, F, D, K,
-      chunks);
+  kernel<<<grid, hgemm::kThreads, P::kSmem, st>>>(map_x, map_w, items, num_frames, act_scale,
+                                                   act_bias, xb, assign, assign32, colsum, logits,
+                                                   F, D, K, chunks, fp, half);
   return cudaGetLastError();
 }
 
@@ -937,21 +1118,21 @@ int launch(const void* x, const void* num_frames, const void* wc, const void* ac
   float* cs = static_cast<float*>(colsum);
   float* lg = static_cast<float*>(logits);
   if (K <= 128) {
-    err = launch_assign<T, 128, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg, B, F,
-                                       D, K, chunks, sms, st);
+    err = launch_assign<T, 128, false>(map_x, map_w, it, nf, scale, bias, x16, asg, nullptr, cs, lg,
+                                       B, F, D, K, chunks, sms, st);
   } else if (K <= 256) {
-    err = launch_assign<T, 256, false>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg, B, F,
-                                       D, K, chunks, sms, st);
+    err = launch_assign<T, 256, false>(map_x, map_w, it, nf, scale, bias, x16, asg, nullptr, cs, lg,
+                                       B, F, D, K, chunks, sms, st);
   } else if (K <= kMaxClusters) {
-    err = launch_assign<T, 256, true>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg, B, F,
-                                      D, K, chunks, sms, st);
+    err = launch_assign<T, 256, true>(map_x, map_w, it, nf, scale, bias, x16, asg, nullptr, cs, lg,
+                                      B, F, D, K, chunks, sms, st);
   } else {
-    err = launch_assign<T, 256, false, true>(map_x, map_w, it, nf, scale, bias, x16, asg, cs, lg,
-                                             B, F, D, K, chunks, sms, st);
+    err = launch_assign<T, 256, false, true>(map_x, map_w, it, nf, scale, bias, x16, asg, nullptr,
+                                             cs, lg, B, F, D, K, chunks, sms, st);
     if (err == cudaSuccess) {
       const long long most = static_cast<long long>(B) * chunks;
-      nv_serve_softmax_wide<<<static_cast<unsigned>(most < 65535 ? most : 65535), kWideThreads, 0,
-                              st>>>(it, nf, lg, asg, cs, F, K, chunks);
+      nv_serve_softmax_wide<bf16><<<static_cast<unsigned>(most < 65535 ? most : 65535), kWideThreads, 0,
+                              st>>>(it, nf, lg, asg, cs, F, K, chunks, 0, 0);
       err = cudaGetLastError();
     }
   }
@@ -986,353 +1167,357 @@ int launch(const void* x, const void* num_frames, const void* wc, const void* ac
 }
 
 // ---------------------------------------------------------------------------
-// The f32 route.
+// The f32 route (3xTF32).
 // ---------------------------------------------------------------------------
 
-template <typename T, bool Vec>
-struct F32Rows;
-template <bool Vec>
-struct F32Rows<uint8_t, Vec> {
-  using Load = f32p::BytesA<Vec, f32p::ConstAffine>;
-};
-template <bool Vec>
-struct F32Rows<float, Vec> {
-  using Load = f32p::RowsA<Vec, f32p::Same>;
-};
+// Launch 2 of the f32 route: v = assign^T x - a_sum (x) centers over
+// tiles (video, 256 clusters, 128 columns), the walk of the bf16 route's
+// launch 2 (agg_blocks_per_combo), on stages of 32 frames: both tf32
+// halves of the tile's clusters' rows of the split assignment [2][B][K]
+// [fp] (K-major: B of the wgmma, [256][32] f32 each, 32 KB), then the
+// frames' [32][32] f32 boxes (4) or [32][128 bytes] uint8 box, swizzled;
+// 80 KB, two stages. Each consumer warpgroup computes v^T for its 64
+// columns x 256 clusters: A = x^T from registers (a thread's fragments of
+// the stage's four k8 steps, loaded from the frames' boxes, frames t >= n
+// zeroed, split), B the assignment's halves, wgmma m64n64k8 in 3xTF32 over
+// four windows of 64 clusters, each stage summed in fresh registers and
+// added on the FMA units. The epilogue reads a_sum and the centers from
+// device memory (L2), stores v itself and each cluster's sum of squares
+// over the tile's columns (the rows of v^T: a fold over the lanes, then
+// the 8 warps in shared memory).
+constexpr int kF32AggFrames = 32;  // frames a stage: 4 k8 steps
+constexpr int kF32AggStages = 2;
+constexpr int kF32AggHalf = kAggClusters * hgemm::kTf32RowBytes;  // [256][32] f32: 32 KB
+constexpr int kF32AggXBox = kF32AggFrames * 128;                  // [32][32] f32: 4 KB
+constexpr int kF32AggStageBytes = 2 * kF32AggHalf + (kCols / 32) * kF32AggXBox;  // 80 KB
+constexpr int kF32AggRed = 8 * kAggClusters;  // the warps' sums of squares: [8][256] f32
+constexpr int kF32AggSmem = hgemm::smem_request(kF32AggStages * kF32AggStageBytes +
+                                                kF32AggRed * 4 + 2 * kF32AggStages * 8);
+static_assert(kF32AggSmem <= 232448, "shared memory a block");
 
-template <typename T, bool Vec>
-__device__ __forceinline__ void set_elem(typename F32Rows<T, Vec>::Load& l) {
-  if constexpr (std::is_same<T, uint8_t>::value) l.f = f32p::ConstAffine{kDeqScale, kDeqBias};
-}
-
-// Launch 1. Block (i, j): live chunks 2 i and 2 i + 1 of the list (rows
-// 0..63 and 64..127 of the tile) x clusters 128 j ..; act [B, F, K].
-// VecX: D allows the operand's vector loads; VecK: K % 4 == 0 (cp.async
-// of Wc, float4 stores of act).
-template <typename T, bool VecX, bool VecK>
-__global__ void __launch_bounds__(f32p::kThreads, 2)
-nv_f32_assign(const T* __restrict__ x, const int* __restrict__ items,
-              const float* __restrict__ wc, const float* __restrict__ act_scale,
-              const float* __restrict__ act_bias, float* __restrict__ act, int F, int D, int K,
-              int chunks) {
-  extern __shared__ __align__(16) float fsmem[];
-  const int count = items[0];
-  const int i0 = 2 * blockIdx.x;
-  if (i0 >= count) return;
-  const int k0 = blockIdx.y * f32p::kCols;
-  const int r = threadIdx.x & (f32p::kRows - 1);
-  const int it = i0 + r / kChunk < count ? items[1 + i0 + r / kChunk] : -1;
-  const int t = it < 0 ? F : (it % chunks) * kChunk + r % kChunk;
-  typename F32Rows<T, VecX>::Load la;
-  la.row = t < F ? x + (static_cast<size_t>(it / chunks) * F + t) * D : nullptr;
-  la.depth = D;
-  set_elem<T, VecX>(la);
-  f32p::PanelB<VecK> lb;
-  lb.base = wc;
-  lb.depth = D;
-  lb.cols = K;
-  lb.ld = K;
-  lb.n0 = k0;
-  float acc[8][8];
-  f32p::product(la, lb, D, fsmem, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = f32p::row_of(i);
-    const int item = i0 + row / kChunk;
-    if (item >= count) continue;
-    const int id = items[1 + item];
-    const int tt = (id % chunks) * kChunk + row % kChunk;
-    if (tt >= F) continue;
-    float* dst = act + (static_cast<size_t>(id / chunks) * F + tt) * K;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = k0 + f32p::col_of(4 * h);
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[e] = k + e < K ? __fadd_rn(__fmul_rn(acc[i][4 * h + e], __ldg(act_scale + k + e)),
-                                     __ldg(act_bias + k + e))
-                         : 0.0f;
-      if (VecK) {
-        if (k < K) *reinterpret_cast<float4*>(dst + k) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k + e < K) dst[k + e] = v[e];
-      }
-    }
+// Frame t, column c of a stage's frames as f32 (uint8: the plain
+// version's dequant).
+template <typename T>
+__device__ __forceinline__ float agg_frame(const unsigned char* xs, int t, int c) {
+  if constexpr (std::is_same<T, float>::value) {
+    return *reinterpret_cast<const float*>(xs + (c >> 5) * kF32AggXBox + t * 128 +
+                                           ((((c >> 2) & 7) ^ (t & 7)) << 4) + (c & 3) * 4);
+  } else {
+    const unsigned char u = xs[t * 128 + (((c >> 4) ^ (t & 7)) << 4) + (c & 15)];
+    return inaff::affine(static_cast<float>(u), kDeqScale, kDeqBias);
   }
-}
-
-// Launch 2: a warp a row (b, t) of act, t < n: the softmax over K in
-// place.
-__global__ void __launch_bounds__(256)
-nv_f32_softmax(const int* __restrict__ num_frames, float* __restrict__ act, int B, int F, int K) {
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  if (row >= static_cast<long long>(B) * F) return;
-  const int b = static_cast<int>(row / F);
-  const int t = static_cast<int>(row % F);
-  if (t >= live_frames(num_frames, b, F)) return;
-  const int lane = threadIdx.x & 31;
-  float* a = act + row * K;
-  float m = -INFINITY;
-  for (int k = lane; k < K; k += 32) m = fmaxf(m, a[k]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  float sum = 0.0f;
-  for (int k = lane; k < K; k += 32) {
-    const float e = expf(a[k] - m);
-    a[k] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  for (int k = lane; k < K; k += 32) a[k] = a[k] / sum;
-}
-
-// Launch 3: a_sum [B, K] over each video's rows t < n.
-__global__ void __launch_bounds__(256)
-nv_f32_asum(const int* __restrict__ num_frames, const float* __restrict__ assign,
-            float* __restrict__ a_sum, int B, int F, int K) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(B) * K) return;
-  const int b = static_cast<int>(i / K);
-  const int k = static_cast<int>(i % K);
-  const int n = live_frames(num_frames, b, F);
-  const float* a = assign + static_cast<size_t>(b) * F * K + k;
-  float s = 0.0f;
-  for (int t = 0; t < n; ++t) s += a[static_cast<size_t>(t) * K];
-  a_sum[i] = s;
-}
-
-// The uint8 frames as the B panel: rows t of [depth = n][D] bytes,
-// columns n0 .. n0 + 127, dequantized as they are stored; thread t takes
-// 16 bytes of panel row t / 8 (one 16-byte load when Vec: D % 16 == 0).
-template <bool Vec>
-struct BytesPanel {
-  const uint8_t* base;
-  int depth, cols, n0;
-  uint32_t w[4];
-  int d_row;
-
-  __device__ __forceinline__ void fetch(int d0, float*) {
-    const int rr = threadIdx.x >> 3;
-    const int c = n0 + (threadIdx.x & 7) * 16;
-    d_row = d0 + rr;
-    const uint8_t* p = base + static_cast<size_t>(d_row) * cols;
-    const bool row_ok = d_row < depth;
-    if (Vec) {
-      uint4 q = make_uint4(0u, 0u, 0u, 0u);
-      if (row_ok && c < cols) q = __ldg(reinterpret_cast<const uint4*>(p + c));
-      w[0] = q.x;
-      w[1] = q.y;
-      w[2] = q.z;
-      w[3] = q.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t word = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int cc = c + 4 * i + e;
-          if (row_ok && cc < cols) word |= static_cast<uint32_t>(__ldg(p + cc)) << (8 * e);
-        }
-        w[i] = word;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* panel) {
-    const int rr = threadIdx.x >> 3;
-    const int cl = (threadIdx.x & 7) * 16;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const float u = static_cast<float>((w[e >> 2] >> (8 * (e & 3))) & 0xffu);
-      panel[rr * f32p::kCols + cl + e] = d_row < depth && n0 + cl + e < cols
-                                             ? __fadd_rn(__fmul_rn(u, kDeqScale), kDeqBias)
-                                             : 0.0f;
-    }
-  }
-};
-
-template <typename T, bool VecX>
-struct FramePanel;
-template <bool VecX>
-struct FramePanel<uint8_t, VecX> {
-  using Load = BytesPanel<VecX>;
-};
-template <bool VecX>
-struct FramePanel<float, VecX> {
-  using Load = f32p::PanelB<VecX>;
-};
-
-// Launch 4. Block: video b, clusters 128 kt .., columns 128 dt .. (the
-// column tile fastest, then the cluster tile); out [B, K, D] gets v,
-// sumsq [B, ceil(D / 128), K] each row's sum of squares over the tile.
-template <typename T, bool VecX, bool VecK>
-__global__ void __launch_bounds__(f32p::kThreads, 2)
-nv_f32_aggregate(const T* __restrict__ x, const int* __restrict__ num_frames,
-                 const float* __restrict__ assign, const float* __restrict__ a_sum,
-                 const float* __restrict__ centers, float* __restrict__ out,
-                 float* __restrict__ sumsq, int F, int D, int K) {
-  extern __shared__ __align__(16) float fsmem[];
-  const int n_dt = (D + f32p::kCols - 1) / f32p::kCols;
-  const int n_kt = (K + f32p::kRows - 1) / f32p::kRows;
-  const int dt = blockIdx.x % n_dt;
-  const int kt = (blockIdx.x / n_dt) % n_kt;
-  const int b = blockIdx.x / (n_dt * n_kt);
-  const int d0 = dt * f32p::kCols;
-  const int k0 = kt * f32p::kRows;
-  const int n = live_frames(num_frames, b, F);
-  f32p::PanelB<VecK> la;  // assign^T: the rows t of [n][K] as they lie
-  la.base = assign + static_cast<size_t>(b) * F * K;
-  la.depth = n;
-  la.cols = K;
-  la.ld = K;
-  la.n0 = k0;
-  typename FramePanel<T, VecX>::Load lb;
-  lb.base = x + static_cast<size_t>(b) * F * D;
-  lb.depth = n;
-  lb.cols = D;
-  if constexpr (std::is_same<T, float>::value) lb.ld = D;
-  lb.n0 = d0;
-  float acc[8][8];
-  f32p::product(la, lb, n, fsmem, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = k0 + f32p::row_of(i);
-    const bool row_ok = k < K;
-    const float as = row_ok ? a_sum[static_cast<size_t>(b) * K + k] : 0.0f;
-    float ss = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = d0 + f32p::col_of(j);
-      if (row_ok && d < D) {
-        const float v =
-            __fsub_rn(acc[i][j], __fmul_rn(as, centers[static_cast<size_t>(k) * D + d]));
-        out[(static_cast<size_t>(b) * K + k) * D + d] = v;
-        ss += __fmul_rn(v, v);
-      }
-    }
-    // The row's 16 threads are lanes tx of one half-warp.
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    if ((threadIdx.x & 15) == 0 && row_ok)
-      sumsq[(static_cast<size_t>(b) * n_dt + dt) * K + k] = ss;
-  }
-}
-
-// Launch 5: a block a video: n_k = sqrt(max(sum_d v^2, eps^2)), g =
-// sqrt(max(sum_k sum_d (v / n_k)^2, eps^2)) from the rows' sums, then
-// out = (v / n_k) / g in place.
-__global__ void __launch_bounds__(256)
-nv_f32_normalize(const float* __restrict__ sumsq, float* a_sum, float* __restrict__ out, int D,
-                 int K) {
-  __shared__ float s_norms[kMaxClusters];
-  __shared__ float part[8];
-  const int b = blockIdx.x;
-  // Above 512 clusters the norms go to the video's a_sum row (launch 4 is
-  // done with it); __syncthreads orders the block's writes and reads.
-  float* norms = K <= kMaxClusters ? s_norms : a_sum + static_cast<size_t>(b) * K;
-  const int n_dt = (D + f32p::kCols - 1) / f32p::kCols;
-  float g = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float ss = 0.0f;
-    for (int dt = 0; dt < n_dt; ++dt) ss += sumsq[(static_cast<size_t>(b) * n_dt + dt) * K + k];
-    const float nk = sqrtf(fmaxf(ss, kNormEps * kNormEps));
-    norms[k] = nk;
-    g += ss / (nk * nk);
-  }
-  g = warp_sum(g);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = g;
-  __syncthreads();
-  float total = 0.0f;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) total += part[w];
-  const float gn = sqrtf(fmaxf(total, kNormEps * kNormEps));
-  float* o = out + static_cast<size_t>(b) * K * D;
-  const size_t n = static_cast<size_t>(K) * D;
-  for (size_t e = threadIdx.x; e < n; e += blockDim.x) o[e] = (o[e] / norms[e / D]) / gn;
-}
-
-template <typename T, bool VecX, bool VecK>
-cudaError_t launch_f32_products(const T* x, const int* nf, const int* items, const float* wc,
-                                const float* scale, const float* bias, const float* centers,
-                                float* act, float* a_sum, float* sumsq, float* out, int B, int F,
-                                int D, int K, int chunks, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(nv_f32_assign<T, VecX, VecK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         f32p::kSmemBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(nv_f32_aggregate<T, VecX, VecK>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, f32p::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const long long pairs = (static_cast<long long>(B) * chunks + 1) / 2;
-  const dim3 grid_a(static_cast<unsigned>(pairs), (K + f32p::kCols - 1) / f32p::kCols);
-  nv_f32_assign<T, VecX, VecK><<<grid_a, f32p::kThreads, f32p::kSmemBytes, st>>>(
-      x, items, wc, scale, bias, act, F, D, K, chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long rows = static_cast<long long>(B) * F;
-  nv_f32_softmax<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(nf, act, B, F, K);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long bk = static_cast<long long>(B) * K;
-  nv_f32_asum<<<static_cast<unsigned>((bk + 255) / 256), 256, 0, st>>>(nf, act, a_sum, B, F, K);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long tiles = static_cast<long long>(B) * ((K + f32p::kRows - 1) / f32p::kRows) *
-                          ((D + f32p::kCols - 1) / f32p::kCols);
-  nv_f32_aggregate<T, VecX, VecK><<<static_cast<unsigned>(tiles), f32p::kThreads,
-                                    f32p::kSmemBytes, st>>>(x, nf, act, a_sum, centers, out,
-                                                            sumsq, F, D, K);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  nv_f32_normalize<<<B, 256, 0, st>>>(sumsq, a_sum, out, D, K);
-  return cudaGetLastError();
 }
 
 template <typename T>
-int launch_f32(const void* x, const void* num_frames, const void* wc, const void* act_scale,
-               const void* act_bias, const void* centers, void* items, void* act, void* a_sum,
-               void* sumsq, void* out, int B, int F, int D, int K, void* stream) {
-  if (B <= 0 || F <= 0 || D <= 0 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+__global__ void __launch_bounds__(hgemm::kThreads, 1)
+nv_f32_aggregate(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_x,
+                 const int* __restrict__ num_frames, const float* __restrict__ a_sum,
+                 const float* __restrict__ centers, float* __restrict__ sumsq,
+                 float* __restrict__ out, int B, int F, int D, int K, int per_combo) {
+  constexpr bool kF32X = std::is_same<T, float>::value;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hgemm::aligned_smem(smem_raw);
+  float* red = reinterpret_cast<float*>(smem + kF32AggStages * kF32AggStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + kF32AggRed);
+  uint64_t* empty = full + kF32AggStages;
+
+  const int n_ct = D / kCols;
+  const int combos = ((K + kAggClusters - 1) / kAggClusters) * n_ct;
+  const int combo = blockIdx.x % combos;
+  const int kt = combo / n_ct;
+  const int ct = combo % n_ct;
+  const int first = blockIdx.x / combos;
+  auto steps = [&](int v) {
+    return (live_frames(num_frames, v, F) + kF32AggFrames - 1) / kF32AggFrames;
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32AggStages; ++s) {
+      hgemm::bar_init(&full[s], 1);
+      hgemm::bar_init(&empty[s], hgemm::kConsumerWarps);
+    }
+    hgemm::bar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = hgemm::warpgroup();
+  hgemm::Ring ring;
+  const CUtensorMap* amap = &map_a;
+  const CUtensorMap* xmap = &map_x;
+  if (wg == 2) {
+    hgemm::set_regs_dec<hgemm::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      constexpr uint32_t kBytes = 2 * kF32AggHalf + (kF32X ? kCols / 32 : 1) * kF32AggXBox;
+      for (int b = first; b < B; b += per_combo) {
+        hgemm::produce<kF32AggStages>(
+            full, empty, ring, steps(b), kBytes, [&](int s, uint64_t* bar, int ks) {
+              unsigned char* st = smem + s * kF32AggStageBytes;
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                hgemm::tma_4d(st + h * kF32AggHalf, amap, bar, ks * kF32AggFrames,
+                              kt * kAggClusters, b, h);
+#pragma unroll
+              for (int i = 0; i < (kF32X ? kCols / 32 : 1); ++i)
+                hgemm::tma_3d(st + 2 * kF32AggHalf + i * kF32AggXBox, xmap, bar,
+                              ct * kCols + 32 * i, ks * kF32AggFrames, b);
+            });
+      }
+    }
+  } else {
+    hgemm::set_regs_inc<hgemm::kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) & 3;
+    const int lane = threadIdx.x & 31;
+    const int q = lane & 3;
+    const int r = lane >> 2;
+    const int cl = 64 * wg + 16 * warp + r;  // the thread's tile columns cl, cl + 8
+    // acc: v^T's sums, rows (columns of v) cl + 8 h, clusters 8 j + 2 q + e
+    // in acc[4 j + 2 h + e]; win: a window's products of one stage.
+    float acc[kAggClusters / 2];
+    float win[32];
+    for (int b = first; b < B; b += per_combo) {
+      const int live = live_frames(num_frames, b, F);
+      const int nst = steps(b);
+      hgemm::zero<kAggClusters / 2>(acc);
+      for (int ks = 0; ks < nst; ++ks) {
+        hgemm::bar_wait(&full[ring.stage], ring.phase);
+        const unsigned char* st = smem + ring.stage * kF32AggStageBytes;
+        const uint32_t sb = hgemm::smem_u32(st);
+        // A = x^T for the four k8 steps: (column cl (+8), frame 8 kk + q
+        // (+4)) in a[kk][e], e = 2 (frame half) + (column half).
+        float ab[4][4], as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = 8 * kk + q + 4 * (e >> 1);
+            const float v = ks * kF32AggFrames + t < live
+                                ? agg_frame<T>(st + 2 * kF32AggHalf, t, cl + 8 * (e & 1))
+                                : 0.0f;
+            hgemm::tf32_split(v, ab[kk][e], as[kk][e]);
+          }
+#pragma unroll
+        for (int w = 0; w < kAggClusters / 64; ++w) {
+          hgemm::fence_regs<32>(win);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            hgemm::fence_regs<4>(ab[kk]);
+            hgemm::fence_regs<4>(as[kk]);
+          }
+          hgemm::mma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t bb = hgemm::desc_b_k(sb + w * 64 * hgemm::kTf32RowBytes, kk);
+            const uint64_t bs =
+                hgemm::desc_b_k(sb + kF32AggHalf + w * 64 * hgemm::kTf32RowBytes, kk);
+            hgemm::mma_tf32_rs64(win, as[kk], bb, kk > 0);
+            hgemm::mma_tf32_rs64(win, ab[kk], bs);
+            hgemm::mma_tf32_rs64(win, ab[kk], bb);
+          }
+          hgemm::mma_commit();
+          hgemm::mma_wait<0>();
+          hgemm::fence_regs<32>(win);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) acc[32 * w + j] += win[j];
+        }
+        if (lane == 0) hgemm::bar_arrive(&empty[ring.stage]);
+        ring.template next<kF32AggStages>();
+      }
+
+      // Epilogue: v[k, d] = acc - a_sum[k] * centers[k, d] (multiply and
+      // subtract each rounded, as the plain version), stored; each
+      // cluster's sum of squares over the thread's two columns, then the
+      // tile's (lane l ends with clusters 8 (4 r + t) + 2 q + e in ss[2 t
+      // + e], t < 4), then the 8 warps'.
+      // Eight clusters' columns (32 loads of the centers) at a time: all
+      // 128 in flight at once spilled registers.
+      float ss[kAggClusters / 4];
+      const int d = ct * kCols + cl;
+#pragma unroll
+      for (int j0 = 0; j0 < kAggClusters / 8; j0 += 8) {
+        float c[8][2][2];
+        float2 a2[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int kc = min(kt * kAggClusters + 8 * (j0 + jj) + 2 * q, K - 2);
+          a2[jj] = __ldg(reinterpret_cast<const float2*>(a_sum + static_cast<size_t>(b) * K + kc));
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              c[jj][e][h] = __ldg(centers + static_cast<size_t>(kc + e) * D + d + 8 * h);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = j0 + jj;
+          const int k = kt * kAggClusters + 8 * j + 2 * q;  // k + 1 < K with k: K % 8 == 0
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float sq = 0.0f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float v = __fsub_rn(acc[4 * j + 2 * h + e],
+                                        __fmul_rn(e ? a2[jj].y : a2[jj].x, c[jj][e][h]));
+              if (k < K) out[(static_cast<size_t>(b) * K + k + e) * D + d + 8 * h] = v;
+              sq += v * v;
+            }
+            ss[2 * j + e] = sq;
+          }
+        }
+        __syncwarp();
+      }
+      fold_sum<kAggClusters / 8, 16>(ss, lane);
+      fold_sum<kAggClusters / 16, 8>(ss, lane);
+      fold_sum<kAggClusters / 32, 4>(ss, lane);
+      float* rw = red + (4 * wg + warp) * kAggClusters;
+#pragma unroll
+      for (int t4 = 0; t4 < kAggClusters / 64; ++t4)
+        *reinterpret_cast<float2*>(rw + 8 * (r * (kAggClusters / 64) + t4) + 2 * q) =
+            make_float2(ss[2 * t4], ss[2 * t4 + 1]);
+      hgemm::named_sync(1, 256);
+      {
+        const int kl = threadIdx.x;  // 0 .. 255: a cluster of the tile
+        float total = 0.0f;
+#pragma unroll
+        for (int w8 = 0; w8 < 8; ++w8) total += red[w8 * kAggClusters + kl];
+        const int k = kt * kAggClusters + kl;
+        if (k < K) sumsq[(static_cast<size_t>(b) * n_ct + ct) * K + k] = total;
+      }
+      hgemm::named_sync(1, 256);
+    }
+  }
+}
+
+constexpr int kScaleThreads = 256;
+
+// Launch 4 of the f32 route: out = (v / n_k) / g in place over [B, K, D]
+// (D % 4 == 0), a warp a row (b, k): both quotients correctly rounded, as
+// the bf16 route's store pass divides.
+__global__ void __launch_bounds__(kScaleThreads)
+nv_f32_scale(const float* __restrict__ norms, const float* __restrict__ gnorm,
+             float* __restrict__ out, int K, int D, long long rows) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (kScaleThreads / 32);
+  for (long long row = (static_cast<long long>(blockIdx.x) * kScaleThreads + threadIdx.x) / 32;
+       row < rows; row += warps) {
+    const float nrm = norms[row];
+    const float gn = gnorm[row / K];
+    const float rn = 1.0f / nrm;
+    const float rg = 1.0f / gn;
+    float4* o = reinterpret_cast<float4*>(out + row * D);
+    for (int c = lane; c < D / 4; c += 32) {
+      float4 v = o[c];
+      v.x = div_by(div_by(v.x, nrm, rn), gn, rg);
+      v.y = div_by(div_by(v.y, nrm, rn), gn, rg);
+      v.z = div_by(div_by(v.z, nrm, rn), gn, rg);
+      v.w = div_by(div_by(v.w, nrm, rn), gn, rg);
+      o[c] = v;
+    }
+  }
+}
+
+template <typename T>
+int launch_f32(const void* x, const void* num_frames, const void* w_split, const void* act_scale,
+               const void* act_bias, const void* centers, void* assign, void* colsum, void* items,
+               void* work, void* logits, void* out, int B, int F, int D, int K, int split_rows,
+               int split_depth, void* stream) {
+  if (B <= 0 || F <= 0 || D <= 0 || D % kCols != 0 || K < 8 || K % 8 != 0 || split_rows < 1 ||
+      split_rows > K || split_depth < 1 || split_depth > D || split_depth % 4 != 0 ||
+      (K > kF32Clusters && logits == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (F + kChunk - 1) / kChunk;
-  if (static_cast<long long>(B) * chunks >= (1LL << 31) - 1 ||
-      static_cast<long long>(B) * K * (D > 1 ? D : 1) >= (1LL << 40) ||
-      (K + f32p::kCols - 1) / f32p::kCols > 65535 ||
-      static_cast<long long>(B) * F >= (1LL << 34) ||
-      static_cast<long long>(B) * ((K + 127) / 128) * ((D + 127) / 128) >= (1LL << 31) - 1)
+  if (static_cast<long long>(B) * chunks * ((K + 255) / 256) >= (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_ct = D / kCols;
+  float* sumsq = static_cast<float*>(work);                  // [B, D / 128, K]
+  float* norms = sumsq + static_cast<size_t>(B) * n_ct * K;  // [B, K]
+  float* a_sum = norms + static_cast<size_t>(B) * K;         // [B, K]
+  float* gnorm = a_sum + static_cast<size_t>(B) * K;         // [B]
   const int* nf = static_cast<const int*>(num_frames);
   int* it = static_cast<int*>(items);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+
   nv_serve_scan<<<1, kScanThreads, 0, st>>>(nf, it, B, F, chunks);
   err = cudaGetLastError();
+  // Launch 1 reads x in tiles [64 frames][32] and Wc's split copy in rows
+  // of 32 deep; launch 2 the assignment's halves [2][B][K][fp] (frames
+  // past F read as zeros) in rows of 32 frames and x in tiles of 32 frames.
+  constexpr bool kF32X = std::is_same<T, float>::value;
+  const int w_rows = K <= 128 ? 128 : 256;
+  const int fp = (F + 3) / 4 * 4;
+  const long long half = static_cast<long long>(B) * K * fp;
+  CUtensorMap map_x, map_w, map_a, map_x2;
+  if (err == cudaSuccess)
+    err = kF32X ? hgemm::make_map_f32(&map_x, x, B, F, D, kChunk)
+                : hgemm::make_map_u8(&map_x, x, B, F, D, D, kChunk, hgemm::kTf32Depth,
+                                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess) err = hgemm::make_map_split(&map_w, w_split, split_rows, split_depth, w_rows);
+  if (err == cudaSuccess) {
+    const uint64_t dims[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(B), 2};
+    const uint64_t strides[3] = {static_cast<uint64_t>(fp) * 4,
+                                 static_cast<uint64_t>(K) * fp * 4,
+                                 static_cast<uint64_t>(half) * 4};
+    const uint32_t box[4] = {static_cast<uint32_t>(kF32AggFrames), kAggClusters, 1, 1};
+    err = hgemm::make_map(&map_a, assign, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  }
+  if (err == cudaSuccess)
+    err = kF32X ? hgemm::make_map_3d(&map_x2, x, B, F, D, D, 4, kF32AggFrames,
+                                     hgemm::kF32BoxCols, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
+                : hgemm::make_map_u8(&map_x2, x, B, F, D, D, kF32AggFrames, 128);
+  int sms = 0;
+  if (err == cudaSuccess) err = hgemm::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec_x = std::is_same<T, float>::value ? D % 4 == 0 : D % 16 == 0;
-  const bool vec_k = K % 4 == 0;
-  const T* xt = static_cast<const T*>(x);
-  const float* w = static_cast<const float*>(wc);
-  const float* sc = static_cast<const float*>(act_scale);
-  const float* bi = static_cast<const float*>(act_bias);
-  const float* cen = static_cast<const float*>(centers);
-  float* ac = static_cast<float*>(act);
-  float* as = static_cast<float*>(a_sum);
-  float* ss = static_cast<float*>(sumsq);
+
+  const float* scale = static_cast<const float*>(act_scale);
+  const float* bias = static_cast<const float*>(act_bias);
+  float* asg = static_cast<float*>(assign);
+  float* cs = static_cast<float*>(colsum);
+  float* lg = static_cast<float*>(logits);
+  if (K <= 128) {
+    err = launch_assign<T, 128, false, false, true>(map_x, map_w, it, nf, scale, bias, nullptr,
+                                                    nullptr, asg, cs, lg, B, F, D, K, chunks,
+                                                    sms, st, fp, half);
+  } else if (K <= kF32Clusters) {
+    err = launch_assign<T, 256, false, false, true>(map_x, map_w, it, nf, scale, bias, nullptr,
+                                                    nullptr, asg, cs, lg, B, F, D, K, chunks,
+                                                    sms, st, fp, half);
+  } else {
+    err = launch_assign<T, 256, false, true, true>(map_x, map_w, it, nf, scale, bias, nullptr,
+                                                   nullptr, asg, cs, lg, B, F, D, K, chunks, sms,
+                                                   st);
+    if (err == cudaSuccess) {
+      const long long most = static_cast<long long>(B) * chunks;
+      nv_serve_softmax_wide<float><<<static_cast<unsigned>(most < 65535 ? most : 65535),
+                                     kWideThreads, 0, st>>>(it, nf, lg, asg, cs, F, K, chunks, fp,
+                                                            half);
+      err = cudaGetLastError();
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nv_serve_asum<<<B, kSumThreads, 0, st>>>(nf, cs, a_sum, F, K, chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int combos = ((K + kAggClusters - 1) / kAggClusters) * n_ct;
+  const int per_combo = agg_blocks_per_combo(B, combos, sms);
+  auto aggregate = nv_f32_aggregate<T>;
+  err = cudaFuncSetAttribute(aggregate, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32AggSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   float* o = static_cast<float*>(out);
-  if (vec_x)
-    err = vec_k ? launch_f32_products<T, true, true>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o, B,
-                                                     F, D, K, chunks, st)
-                : launch_f32_products<T, true, false>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o,
-                                                      B, F, D, K, chunks, st);
-  else
-    err = vec_k ? launch_f32_products<T, false, true>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o,
-                                                      B, F, D, K, chunks, st)
-                : launch_f32_products<T, false, false>(xt, nf, it, w, sc, bi, cen, ac, as, ss, o,
-                                                       B, F, D, K, chunks, st);
-  return static_cast<int>(err);
+  aggregate<<<per_combo * combos, hgemm::kThreads, kF32AggSmem, st>>>(
+      map_a, map_x2, nf, a_sum, static_cast<const float*>(centers), sumsq, o, B, F, D, K,
+      per_combo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nv_serve_norms<<<B, kNormThreads, 0, st>>>(sumsq, norms, gnorm, K, n_ct);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(B) * K;
+  const long long blocks = (rows + kScaleThreads / 32 - 1) / (kScaleThreads / 32);
+  nv_f32_scale<<<static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), kScaleThreads, 0,
+                 st>>>(norms, gnorm, o, K, D, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1360,32 +1545,43 @@ extern "C" int yt8m_netvlad_aggregate_f32(const void* x, const void* num_frames,
                        items, work, logits, out, B, F, D, K, stream);
 }
 
-// The f32 route: x [B, F, D] uint8 or f32, wc [D, K] f32 (any K and D); items: 1 + B * ceil(F / 64) ints; act: B * F * K floats; a_sum: B *
-// K floats; sumsq: B * ceil(D / 128) * K floats; out [B, K, D].
+// The f32 route: x [B, F, D] uint8 or f32 (D a multiple of 128), w_split
+// [2][split_rows][split_depth] f32 (kernels/tf32.py :: split_weights of Wc
+// [split_depth rounded down, split_rows]: split_rows <= K, split_depth a
+// multiple of 4 <= D; the rows and depth past them read as zeros), K a
+// multiple of 8; scratch from the caller: assign [B, F, K] f32 (written on
+// the live chunks' rows), colsum [B, ceil(F/64), K] f32, items 1 + B
+// ceil(F/64) int32, work B (D/128 + 2) K + B f32 and, for K > 256, logits
+// [B, F, K] f32 (else null); out [B, K, D].
 extern "C" int yt8m_netvlad_aggregate_f32w_u8(const void* x, const void* num_frames,
-                                             const void* wc, const void* act_scale,
+                                             const void* w_split, const void* act_scale,
                                              const void* act_bias, const void* centers,
-                                             void* items, void* act, void* a_sum, void* sumsq,
-                                             void* out, int B, int F, int D, int K,
-                                             void* stream) {
-  return launch_f32<uint8_t>(x, num_frames, wc, act_scale, act_bias, centers, items, act, a_sum,
-                             sumsq, out, B, F, D, K, stream);
+                                             void* assign, void* colsum, void* items, void* work,
+                                             void* logits, void* out, int B, int F, int D, int K,
+                                             int split_rows, int split_depth, void* stream) {
+  return launch_f32<uint8_t>(x, num_frames, w_split, act_scale, act_bias, centers, assign, colsum,
+                             items, work, logits, out, B, F, D, K, split_rows, split_depth,
+                             stream);
 }
 
 extern "C" int yt8m_netvlad_aggregate_f32w_f32(const void* x, const void* num_frames,
-                                              const void* wc, const void* act_scale,
+                                              const void* w_split, const void* act_scale,
                                               const void* act_bias, const void* centers,
-                                              void* items, void* act, void* a_sum, void* sumsq,
-                                              void* out, int B, int F, int D, int K,
-                                              void* stream) {
-  return launch_f32<float>(x, num_frames, wc, act_scale, act_bias, centers, items, act, a_sum,
-                           sumsq, out, B, F, D, K, stream);
+                                              void* assign, void* colsum, void* items, void* work,
+                                              void* logits, void* out, int B, int F, int D, int K,
+                                              int split_rows, int split_depth, void* stream) {
+  return launch_f32<float>(x, num_frames, w_split, act_scale, act_bias, centers, assign, colsum,
+                           items, work, logits, out, B, F, D, K, split_rows, split_depth, stream);
 }
 
 // The tiles: [frames a chunk, assignment stages, the assignment's shared
 // bytes for (f32, 128 clusters a warpgroup), (f32, 256), (f32, split
 // 512), (uint8, 128), (uint8, 256), (uint8, split 512), aggregation
-// clusters a tile, columns a tile, stages, shared bytes, SMs].
+// clusters a tile, columns a tile, stages, shared bytes, SMs, then the
+// f32 route's: the assignment's stages (f32 frames, 256) and shared bytes
+// for (f32, 128), (f32, 256), (uint8, 128), (uint8, 256), the clusters
+// its registers hold, frames a stage of the aggregation, its shared
+// bytes].
 extern "C" int yt8m_netvlad_plan(int* plan) {
   int sms = 0;
   const cudaError_t err = hgemm::sm_count(&sms);
@@ -1403,5 +1599,13 @@ extern "C" int yt8m_netvlad_plan(int* plan) {
   plan[10] = kAggStages;
   plan[11] = kAggSmem;
   plan[12] = sms;
+  plan[13] = AsgF32<float, 256>::kStages;
+  plan[14] = AsgF32<float, 128>::kSmem;
+  plan[15] = AsgF32<float, 256>::kSmem;
+  plan[16] = AsgF32<uint8_t, 128>::kSmem;
+  plan[17] = AsgF32<uint8_t, 256>::kSmem;
+  plan[18] = kF32Clusters;
+  plan[19] = kF32AggFrames;
+  plan[20] = kF32AggSmem;
   return static_cast<int>(cudaSuccess);
 }

@@ -107,15 +107,18 @@ def _(x, k):
 
 @_op("netvlad")
 def netvlad(frames: Tensor, num_frames: Tensor, cluster_w: Tensor,
-            act_scale: Tensor, act_bias: Tensor, centers: Tensor) -> Tensor:
+            act_scale: Tensor, act_bias: Tensor, centers: Tensor,
+            split: List[Tensor]) -> Tensor:
     """Row 8 (bf16 and f32): kernels/netvlad.py :: netvlad_aggregate,
-    [B, K, D] f32."""
+    [B, K, D] f32. `split` is [Wc's split copy] (kernels/tf32.py ::
+    split_weights, a serving constant of the f32 route), or []."""
     return _netvlad.netvlad_aggregate(frames, num_frames, cluster_w,
-                                      act_scale, act_bias, centers)
+                                      act_scale, act_bias, centers,
+                                      split[0] if split else None)
 
 
 @netvlad.register_fake
-def _(frames, num_frames, cluster_w, act_scale, act_bias, centers):
+def _(frames, num_frames, cluster_w, act_scale, act_bias, centers, split):
     return frames.new_empty((frames.shape[0], cluster_w.shape[1],
                              frames.shape[2]), dtype=torch.float32)
 

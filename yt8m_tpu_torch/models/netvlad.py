@@ -29,6 +29,7 @@ from torch import nn
 
 from yt8m_tpu_torch.kernels.ops import netvlad as netvlad_aggregate
 from yt8m_tpu_torch.kernels.netvlad_train import netvlad_core
+from yt8m_tpu_torch.kernels.tf32 import split_weights
 from yt8m_tpu_torch.models.frame_utils import (
     ensure_float,
     frame_mask,
@@ -94,6 +95,9 @@ class NetVladAggregation(ServingModule):
             "act_scale": scale.contiguous(),
             "act_bias": bias.contiguous(),
             "centers": self.cluster_weights2[0].t().contiguous(),
+            # The f32 kernel reads Wc's TF32 split copy, made once here.
+            "cluster_w_split": ([split_weights(self.cluster_weights)]
+                                if self.dtype == torch.float32 else []),
         }
 
     def forward(self, frames, num_frames):
@@ -103,6 +107,7 @@ class NetVladAggregation(ServingModule):
         vlad = netvlad_aggregate(
             frames.contiguous(), num_frames.to(torch.int32).contiguous(),
             c["cluster_w"], c["act_scale"], c["act_bias"], c["centers"],
+            c["cluster_w_split"],
         )
         return vlad.reshape(frames.shape[0], -1)
 
