@@ -221,8 +221,18 @@ Phases, one line each with the elapsed seconds:
      --fsdp_min_size=1e8 (W the cards: one rank here) to step 2, resumed
      to 4, cli.eval --run_once and cli.inference at W ranks (with
      several, the CSV byte for byte cli.inference's at one rank at the
-     ranks' batch from the same checkpoint). Phases 1-9 run the CLIs at
-     --num_devices=1. A `phase:` line gives each phase's seconds.
+     ranks' batch from the same checkpoint); (a) also runs 3
+     tensor-parallel steps (--model_parallel) at mp = 2 and 4 where the
+     cards divide by it (none here); (d) two ranks sharing one card over
+     gloo as a (1, 2) grid, --model_parallel=2: 3 SGD steps each of
+     DbofModel (graft widths) and the fused flagship against the
+     one-device step with (b)'s bounds and a witness of each, each rank
+     holding its blocks of the MoE head (and DBoF's cluster layer), the
+     flagship's trainable kernels launched in the TP steps; (e)
+     cli.train DbofModel --num_devices=2 --model_parallel=2 on the shared
+     card, then cli.eval at one rank of its checkpoint. Phases 1-9 run
+     the CLIs at --num_devices=1. A `phase:` line gives each phase's
+     seconds.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
 line `{"ok": true, "device": {...}}`. Any failed check raises: the exit
 code is not 0 and no `ok` line is printed. Nothing of JAX is imported.
@@ -6521,6 +6531,12 @@ SHARED_STEPS = 1
 # its depth cut for the script's time.
 SHARED_LOSS_REL = 2e-3
 SHARED_MOVE_REL = 2e-2
+# (d): the tensor-parallel step (--model_parallel) on TP_RANKS ranks
+# sharing one card over gloo, a (1, 2) grid, TP_STEPS SGD steps of
+# DbofModel and of the fused flagship on one global batch, against the
+# one-device step at (b)'s bounds and witness.
+TP_RANKS = 2
+TP_STEPS = 3
 PARALLEL_TRAIN_VIDEOS = 32
 PARALLEL_EVAL_VIDEOS = 16
 PARALLEL_CLI_BATCH = 16
@@ -6548,16 +6564,31 @@ def flagship_hparams(fused: bool = True) -> dict:
         netvlad_fused_train=fused)
 
 
-def seeded_flagship(torch, dev, seed: int, bn_axis: str = ""):
-    """The flagship drawn on `dev` from a seed, as the replay harness
+def dbof_hparams() -> dict:
+    """DbofModel's ModelHParams fields at __graft_entry__.py:35-46's widths
+    (bf16)."""
+    return dict(
+        vocab_size=CLASSES, feature_dim=FEATURE_DIM, max_frames=300,
+        moe_num_mixtures=MIXTURES, dbof_cluster_size=CLUSTERS,
+        dbof_hidden_size=HIDDEN, iterations=FRAMES,
+        compute_dtype="bfloat16")
+
+
+def seeded_model(torch, dev, name: str, hparams: dict, seed: int,
+                 bn_axis: str = ""):
+    """`name` drawn on `dev` from a seed, as the replay harness
     (parallel/replay.py) draws it on each rank, in training mode."""
     from yt8m_tpu_torch.models import ModelHParams, get_model
 
     with torch.device(dev):
-        model = get_model("NetVladLstmModel", ModelHParams(
-            **flagship_hparams(), bn_axis=bn_axis))
+        model = get_model(name, ModelHParams(**hparams, bn_axis=bn_axis))
     model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model.train()
+
+
+def seeded_flagship(torch, dev, seed: int, bn_axis: str = ""):
+    return seeded_model(torch, dev, "NetVladLstmModel", flagship_hparams(),
+                        seed, bn_axis)
 
 
 def comm_share(torch, fn) -> tuple:
@@ -6583,13 +6614,24 @@ def comm_share(torch, fn) -> tuple:
     return comm, total
 
 
+def parallel_modes(world: int) -> list:
+    """(a)'s modes at `world` ranks: (name, fsdp_min_size,
+    model_parallel): data-parallel, FSDP, and tensor-parallel at each mp
+    of 2 and 4 that divides the ranks."""
+    return [("ddp", 0, 1), ("fsdp", FSDP_MIN_SIZE, 1)] + [
+        (f"tp{mp}", 0, mp) for mp in (2, 4)
+        if mp <= world and world % mp == 0]
+
+
 def parallel_rank(steps: int, device_type: str) -> dict:
     """One rank of phase 10 (a), over NCCL: the flagship at full width
     with --netvlad_fused_train, `steps` data-parallel steps (every
     variable replicated), then `steps` with --fsdp_min_size=FSDP_MIN_SIZE,
-    each from the seed-0 weights, on this rank's block of one repeated
-    global batch (Adam, the config defaults). At one rank the first
-    data-parallel step is held bit for bit to make_train_step's."""
+    then `steps` tensor-parallel at each model_parallel of
+    parallel_modes (a (world // mp, mp) grid; a data block's rows on its
+    mp ranks), each from the seed-0 weights, on this rank's block of one
+    repeated global batch (Adam, the config defaults). At one rank the
+    first data-parallel step is held bit for bit to make_train_step's."""
     import torch
 
     from yt8m_tpu_torch.parallel import distributed
@@ -6605,8 +6647,8 @@ def parallel_rank(steps: int, device_type: str) -> dict:
     dev = distributed.rank_device(device_type)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    local = shard_batch(train_batch(torch, dev, PARALLEL_BATCH, seed=1),
-                        rank, world)
+    full = train_batch(torch, dev, PARALLEL_BATCH, seed=1)
+    local = shard_batch(full, rank, world)
     axis = DATA_AXIS if world > 1 else ""
     out = {"rank": rank, "world": world, "device": str(dev),
            "name": torch.cuda.get_device_name(dev)}
@@ -6623,21 +6665,26 @@ def parallel_rank(steps: int, device_type: str) -> dict:
                           for n, p in model.named_parameters()}}
         del state, model, metrics
         torch.cuda.empty_cache()
-    for mode, fsdp in (("ddp", 0), ("fsdp", FSDP_MIN_SIZE)):
+    for mode, fsdp, mp in parallel_modes(world):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        model = seeded_flagship(torch, dev, 0, axis)
+        blocks = world // mp
+        rows = shard_batch(full, rank // mp, blocks) if mp > 1 else local
+        model = seeded_flagship(torch, dev, 0, axis if blocks > 1 else "")
         state = ParallelTrainState(model, fsdp_min_size=fsdp,
+                                   model_parallel=mp,
                                    global_batch_size=PARALLEL_BATCH)
         step = make_parallel_train_step(get_loss("CrossEntropyLoss"))
         wrappers = zero_launches()
-        times, losses = timed_steps(torch, step, state, local, steps)
+        times, losses = timed_steps(torch, step, state, rows, steps)
         launches = read_launches(torch, wrappers)
         r = {"losses": losses, "step_ms": statistics.median(times[1:]),
-             "times_ms": times, "launches": launches,
-             "sharded": sorted(state.shards),
-             "sharded_elements": sum(s.numel() * world
-                                     for s in state.shards.values()),
+             "times_ms": times, "launches": launches, "grid": (blocks, mp),
+             "sharded": sorted(state.shards) + sorted(state.blocks),
+             "sharded_elements": sum(s.numel() * blocks
+                                     for s in state.shards.values())
+             + sum(state.model.get_parameter(n).numel() * mp
+                   for n in state.blocks),
              "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
         if mode == "ddp" and world == 1:
             # Step 1 again from the seed, held to make_train_step's bits.
@@ -6652,7 +6699,7 @@ def parallel_rank(steps: int, device_type: str) -> dict:
             del state1, model1, m1, ref
             torch.cuda.empty_cache()
         r["comm_ms"], r["device_ms"] = comm_share(
-            torch, lambda: step(state, local))
+            torch, lambda: step(state, rows))
         out[mode] = r
         del state, model, step
         torch.cuda.empty_cache()
@@ -6669,12 +6716,16 @@ def parallel_one_rank_a_card(torch, dev) -> dict:
                    device=dev.type, timeout_s=PARALLEL_DEADLINE_S)
     seconds = time.perf_counter() - t0
     fwd_want = PARALLEL_STEPS * LSTM_LAYERS
+    head = ["video_classifier.experts_bias", "video_classifier.experts_kernel",
+            "video_classifier.gates_kernel"]
     for r in ranks:
-        for mode in ("ddp", "fsdp"):
+        for mode, _, mp in parallel_modes(world):
             m = r[mode]
             say("parallel", f"(a) rank {r['rank']}/{world} on {r['device']} "
-                            f"{mode}: global B={PARALLEL_BATCH} "
-                            f"({PARALLEL_BATCH // world} a rank), losses "
+                            f"{mode} (grid {m['grid'][0]} x {m['grid'][1]}): "
+                            f"global B={PARALLEL_BATCH} "
+                            f"({PARALLEL_BATCH // m['grid'][0]} a rank), "
+                            f"losses "
                             f"{[round(x, 4) for x in m['losses']]}, step ms "
                             f"{[round(t, 3) for t in m['times_ms']]} (median "
                             f"of the last {PARALLEL_STEPS - 1}: "
@@ -6695,6 +6746,9 @@ def parallel_one_rank_a_card(torch, dev) -> dict:
                       f"(a) {mode} rank {r['rank']}: {fn} launched "
                       f"{m['launches'][fn]} times in {PARALLEL_STEPS} steps,"
                       f" want {want}")
+            if mp > 1:
+                check(m["sharded"] == head,
+                      f"(a) {mode} at {world} ranks sharded {m['sharded']}")
         sharded = r["fsdp"]["sharded"]
         check(sharded == (["vlad_hidden_weights"] if world > 1 else []),
               f"(a) FSDP at {world} ranks sharded {sharded}")
@@ -6726,16 +6780,19 @@ def shared_batches(seed: int, steps: int) -> list:
             for _ in range(steps)]
 
 
-def one_device_replay(torch, dev, batches, nudge: bool = False) -> dict:
-    """make_train_step (SGD) from the seed-0 weights on `batches` (the
-    witness, `nudge`: each weight moved one float32 step up or down);
-    losses, the state after, the initial state (float32, on the
-    host)."""
+def one_device_replay(torch, dev, batches, nudge: bool = False,
+                      name: str = "NetVladLstmModel", hparams=None,
+                      uniforms=None) -> dict:
+    """make_train_step (SGD) of `name` (the fused flagship by default)
+    from the seed-0 weights on `batches` (the frame sampling fed
+    `uniforms`, where given; the witness, `nudge`: each weight moved one
+    float32 step up or down); losses, the state after, the initial state
+    (float32, on the host)."""
     from yt8m_tpu_torch.train.losses import get_loss
     from yt8m_tpu_torch.train.state import TrainState
     from yt8m_tpu_torch.train.step import make_train_step
 
-    model = seeded_flagship(torch, dev, 0)
+    model = seeded_model(torch, dev, name, hparams or flagship_hparams(), 0)
     start = {k: v.detach().to("cpu", torch.float32, copy=True)
              for k, v in model.state_dict().items()}
     if nudge:
@@ -6750,9 +6807,11 @@ def one_device_replay(torch, dev, batches, nudge: bool = False) -> dict:
                        global_batch_size=PARALLEL_BATCH)
     step = make_train_step(get_loss("CrossEntropyLoss"))
     losses = []
-    for b in batches:
+    for i, b in enumerate(batches):
+        u = (None if uniforms is None
+             else torch.from_numpy(uniforms[i]).to(dev))
         _, metrics = step(state, {k: torch.from_numpy(v).to(dev)
-                                  for k, v in b.items()})
+                                  for k, v in b.items()}, u=u)
         losses.append(metrics["loss"].item())
     out = {"losses": losses, "start": start,
            "state": {k: v.detach().to("cpu", torch.float32, copy=True)
@@ -6857,6 +6916,189 @@ def parallel_shared_card(torch, dev, work) -> dict:
                                   for r in ranks[0]])
                     + ")")
     return out
+
+
+def tp_replay(specs) -> list:
+    """One rank of (d): parallel/replay.py :: replay_steps of each spec,
+    with the kernel launches of its steps."""
+    import torch
+
+    from yt8m_tpu_torch.parallel.replay import replay_steps
+
+    out = []
+    for spec in specs:
+        wrappers = zero_launches()
+        r = replay_steps(spec)
+        r["launches"] = read_launches(torch, wrappers)
+        out.append(r)
+    return out
+
+
+def parallel_tp_shared_card(torch, dev, work) -> dict:
+    """(d): TP_RANKS ranks sharing one card over gloo as a (1, TP_RANKS)
+    grid (--model_parallel=TP_RANKS): DbofModel at the graft entry's
+    widths and the fused flagship at full width, TP_STEPS SGD steps each
+    on one global batch of PARALLEL_BATCH (DbofModel's frame sampling fed
+    the same global uniforms), against the one-device step from the same
+    weights on the same batches, with (b)'s bounds and a witness of its
+    own a model. Each rank holds its blocks of the MoE head (and of
+    DbofModel's cluster layer); the flagship's trainable kernels launch
+    inside the TP step."""
+    import numpy as np
+
+    from yt8m_tpu_torch.parallel.distributed import launch
+
+    batches = shared_batches(9, 1) * TP_STEPS
+    rng = np.random.default_rng(10)
+    uniforms = [rng.uniform(size=(PARALLEL_BATCH, FRAMES)).astype(np.float32)
+                for _ in range(TP_STEPS)]
+    paths = {"DbofModel": (dbof_hparams(), uniforms),
+             "NetVladLstmModel": (flagship_hparams(), None)}
+    specs = [dict(model=name, hparams=hp, seed=0, batches=batches,
+                  uniforms=u, optimizer="SgdOptimizer",
+                  model_parallel=TP_RANKS, device=dev.type, state_ranks=[0],
+                  state_file=os.path.join(work, f"tp-{name}-{{rank}}.pt"),
+                  train=dict(global_batch_size=PARALLEL_BATCH))
+             for name, (hp, u) in paths.items()]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = pool.submit(launch, tp_replay, (specs,), nprocs=TP_RANKS,
+                              device=dev.type, backend="gloo",
+                              timeout_s=PARALLEL_DEADLINE_S)
+        refs = {name: [one_device_replay(torch, dev, batches, nudge, name,
+                                         hp, u) for nudge in (False, True)]
+                for name, (hp, u) in paths.items()}
+        ranks = pending.result()
+    seconds = time.perf_counter() - t0
+    head = ["experts_bias", "experts_kernel", "gates_kernel"]
+    want_blocks = {"DbofModel": ["cluster_kernel"] + [
+        f"video_classifier.{k}" for k in head],
+        "NetVladLstmModel": [f"video_classifier.{k}" for k in head]}
+    out = {"seconds": seconds}
+    for i, name in enumerate(paths):
+        ref, nudged = refs[name]
+        r = ranks[0][i]
+        witness = moves(torch, nudged["state"], ref["state"], ref["start"])
+        w_loss = max(abs(a - b) / abs(b) for a, b in zip(nudged["losses"],
+                                                         ref["losses"]))
+        got = moves(torch, torch.load(r["state"], weights_only=True),
+                    ref["state"], ref["start"])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                           ref["losses"]))
+        norm_name = max(got, key=lambda k: abs(got[k][0]))
+        excess = {k: got[k][1] / max(SHARED_MOVE_REL, 2 * witness[k][1])
+                  for k in got}
+        top_name = max(excess, key=excess.get)
+        held = {k: r["held"][k]["param"] for k in r["blocks"]}
+        say("parallel", f"(d) {TP_RANKS} ranks sharing one card over gloo, "
+                        f"--model_parallel={TP_RANKS}, {name} "
+                        f"({TP_STEPS} SGD steps, blocks {held}): losses "
+                        f"{[round(x, 5) for x in r['losses']]} against the "
+                        f"one-device {[round(x, 5) for x in ref['losses']]}"
+                        f" ({loss_rel:.3e} relative, bound "
+                        f"{SHARED_LOSS_REL}; the witness's {w_loss:.3e}); "
+                        f"move norms within {abs(got[norm_name][0]):.3e} "
+                        f"({norm_name}, bound {SHARED_MOVE_REL}); element "
+                        f"deviations, of the largest move, {top_name} "
+                        f"{got[top_name][1]:.3e} against the witness's "
+                        f"{witness[top_name][1]:.3e} (bound max("
+                        f"{SHARED_MOVE_REL}, 2 x witness)); launches "
+                        + json.dumps({k: v for k, v in r["launches"].items()
+                                      if v}))
+        check(loss_rel <= SHARED_LOSS_REL
+              and abs(got[norm_name][0]) <= SHARED_MOVE_REL
+              and excess[top_name] <= 1.0,
+              f"(d) {name}: the TP ranks are not the one-device step (loss "
+              f"{loss_rel:.3e}, norm {got[norm_name][0]:.3e} on {norm_name},"
+              f" element {got[top_name][1]:.3e} on {top_name})")
+        check(r["blocks"] == want_blocks[name] and not r["sharded"],
+              f"(d) {name}: blocks {r['blocks']}, FSDP {r['sharded']}")
+        for k in r["blocks"]:
+            h = r["held"][k]
+            check(h["param"] == h["grad"] and h["param"][-1] * TP_RANKS
+                  == ref["state"][k].shape[-1],
+                  f"(d) {name}: rank 0 holds {h} of {k}")
+        check(r["digest"] == ranks[1][i]["digest"],
+              f"(d) {name}: the ranks' gathered models differ")
+        if name == "NetVladLstmModel":
+            fwd_want = TP_STEPS * LSTM_LAYERS
+            for rank in ranks:
+                n = rank[i]["launches"]
+                check(n["netvlad_core_forward"] == TP_STEPS
+                      and n["netvlad_core_backward"] == TP_STEPS
+                      and n["lstm_train_forward"] == fwd_want
+                      and n["lstm_train_backward"] == fwd_want,
+                      f"(d) rank {rank[i]['rank']}: the flagship's TP steps "
+                      f"launched {n}")
+        out[name] = {"loss_rel": loss_rel, "norm_rel": abs(got[norm_name][0]),
+                     "element": (top_name, got[top_name][1]),
+                     "launches": [rank[i]["launches"] for rank in ranks]}
+        os.remove(r["state"])
+    say("parallel", f"(d) the TP ranks and the replays in {seconds:.1f} s")
+    return out
+
+
+def tp_workflow(torch, dev, work) -> dict:
+    """(e): cli.train --num_devices=TP_RANKS --model_parallel=TP_RANKS with
+    DbofModel at the graft entry's widths on (c)'s data, TP_RANKS ranks
+    sharing the card over gloo (one a card on several, over NCCL), two
+    SGD steps (the model group's first rank reads and broadcasts the
+    batches); cli.eval --run_once at one rank serves its checkpoint, the
+    one-card format, with the serving kernels."""
+    from yt8m_tpu_torch.cli import eval as eval_cli
+    from yt8m_tpu_torch.cli import train as train_cli
+    from yt8m_tpu_torch.train.checkpoint import step_dirs
+
+    cards = torch.cuda.device_count()
+    spawn = dict(timeout_s=PARALLEL_DEADLINE_S,
+                 **({} if cards >= TP_RANKS else {"backend": "gloo"}))
+    data = os.path.join(work, "parallel_data")
+    run = os.path.join(work, "tp_run")
+    t0 = time.perf_counter()
+    last = train_cli.main([
+        f"--train_data_pattern={data}/train-*.tfrecord", f"--train_dir={run}",
+        f"--batch_size={PARALLEL_CLI_BATCH}", *DBOF_FLAGS,
+        *reader_flags("DbofModel"), f"--num_classes={CLASSES}",
+        "--compute_dtype=bfloat16", "--log_every_n_steps=1",
+        "--optimizer=SgdOptimizer", "--max_steps=2",
+        f"--num_devices={TP_RANKS}", f"--model_parallel={TP_RANKS}",
+        f"--device={dev.type}"], **spawn)
+    train_s = time.perf_counter() - t0
+    check(last == 2 and step_dirs(run) == [2],
+          f"(e) cli.train --model_parallel={TP_RANKS}: step {last}, "
+          f"checkpoints {step_dirs(run)}")
+    with open(os.path.join(run, "events.jsonl")) as f:
+        losses = [json.loads(line)["GlobalStep/Loss"] for line in f
+                  if "GlobalStep/Loss" in line]
+    check(len(losses) == 2 and all(map(math.isfinite, losses)),
+          f"(e) the TP run logged {losses}")
+    wrappers = zero_launches()
+    t0 = time.perf_counter()
+    metrics = eval_cli.main([
+        f"--eval_data_pattern={data}/validate-*", f"--train_dir={run}",
+        f"--device={dev.type}", "--run_once", "--num_devices=1",
+        f"--batch_size={PARALLEL_CLI_BATCH}"])
+    eval_s = time.perf_counter() - t0
+    launches = read_launches(torch, wrappers)
+    check(metrics["step"] == 2 and 0 <= metrics["gap"] <= 1
+          and launches["dbof_cluster_maxpool_v2"] > 0
+          and launches["moe_head_serving"] > 0,
+          f"(e) cli.eval of the TP checkpoint: {metrics}, launches "
+          f"{launches}")
+    say("parallel", f"(e) cli.train DbofModel --model_parallel={TP_RANKS} at "
+                    f"{TP_RANKS} ranks "
+                    + ("over NCCL" if cards >= TP_RANKS
+                       else "sharing the card over gloo")
+                    + f": losses {[round(x, 4) for x in losses]} in "
+                    f"{train_s:.1f} s; cli.eval at one rank of its step 2: "
+                    f"GAP {metrics['gap']:.5f} Hit@1 "
+                    f"{metrics['avg_hit_at_one']:.5f} in {eval_s:.1f} s, "
+                    f"launches " + json.dumps(
+                        {k: v for k, v in launches.items() if v}))
+    shutil.rmtree(run, ignore_errors=True)
+    return {"losses": losses, "seconds": {"train": train_s, "eval": eval_s},
+            "launches": launches}
 
 
 def link_or_copy(src: str, dst: str) -> None:
@@ -6990,7 +7232,8 @@ def parallel_workflow(torch, dev, work) -> dict:
 
 def parallel_phase(torch, dev, work) -> dict:
     """Phase 10: (a) alone (its step times and peaks), then (b) and (c)
-    together: their ranks share the card."""
+    together: their ranks share the card; then the tensor-parallel (d)
+    and (e) together, (e) on (c)'s data."""
     out = {"one_rank_a_card": parallel_one_rank_a_card(torch, dev)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -6999,6 +7242,13 @@ def parallel_phase(torch, dev, work) -> dict:
         out["workflow"] = workflow.result()
     say("parallel", f"(b) and (c) together in "
                     f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        tp_cli = pool.submit(tp_workflow, torch, dev, work)
+        out["tp_shared_card"] = parallel_tp_shared_card(torch, dev, work)
+        out["tp_workflow"] = tp_cli.result()
+    out["tp_seconds"] = time.perf_counter() - t0
+    say("parallel", f"(d) and (e) together in {out['tp_seconds']:.1f} s")
     return out
 
 
@@ -7294,16 +7544,24 @@ def main() -> int:
             row["compute_f32"] = r
     # Phase 10's data-parallel and FSDP steps launch the trainable LSTM
     # and netvlad_core on every rank (rank 0's counts here).
+    # Phase 10's tensor-parallel steps (d) launch them on both ranks
+    # sharing the card (rank 0's counts here).
     rank0 = parallel["one_rank_a_card"]["ranks"][0]
+    modes = [m for m, _, _ in parallel_modes(rank0["world"])]
+    tp0 = parallel["tp_shared_card"]["NetVladLstmModel"]["launches"][0]
     for row in rows:
         prefix = {"netvlad_core": "netvlad_core",
                   "lstm_recurrence_trainable": "lstm_train"}.get(row["name"])
         if prefix:
             row["launches_by_path"][
-                f"data-parallel + FSDP training, rank 0 of "
+                f"{' + '.join(modes)} training, rank 0 of "
                 f"{rank0['world']}"] = sum(
                     rank0[m]["launches"][f"{prefix}_{d}"]
-                    for m in ("ddp", "fsdp") for d in ("forward", "backward"))
+                    for m in modes for d in ("forward", "backward"))
+            row["launches_by_path"][
+                f"tensor-parallel training (--model_parallel={TP_RANKS}), "
+                f"rank 0 of {TP_RANKS} sharing the card"] = sum(
+                    tp0[f"{prefix}_{d}"] for d in ("forward", "backward"))
     # The shapes past the old limits (phase 3), each with its numbers.
     for row in rows:
         if row["name"] in new_shapes:

@@ -511,8 +511,13 @@ def test_adafactor_refuses_a_block_that_factors(monkeypatch):
 def test_parallel_flags_configure():
     cfg = TrainConfig(num_devices=2, fsdp_min_size=1000, device="cpu")
     assert (cfg.num_devices, cfg.fsdp_min_size) == (2, 1000)
-    with pytest.raises(ValueError, match="deprecated.*--fsdp_min_size"):
-        TrainConfig(model_parallel=2)
+    # --model_parallel is ported (a (data, model) grid of ranks); a grid
+    # the ranks do not fill raises the JAX package's make_mesh error.
+    assert TrainConfig(model_parallel=2).model_parallel == 2
+    assert TrainConfig(num_devices=4, model_parallel=2).model_parallel == 2
+    with pytest.raises(ValueError,
+                       match="3 devices not divisible by model_parallel=2"):
+        TrainConfig(num_devices=3, model_parallel=2)
 
 
 def test_launch_returns_each_rank_and_fails_loudly(tmp_path):

@@ -289,11 +289,17 @@ def test_use_ema_weights_without_decay_and_unported_flags_fail_fast(
         data, tmp_path):
     with pytest.raises(SystemExit, match="ema_decay"):
         tloop.Trainer(_port_cfg(data, str(tmp_path), use_ema_weights=True))
-    # --model_parallel stays refused, with the JAX package's reason (TP
-    # training is deprecated there in favour of --fsdp_min_size).
+    # --model_parallel is ported (tensor-parallel training over a (data,
+    # model) grid); mp must divide the ranks, as the JAX make_mesh says,
+    # and a one-rank Trainer at mp = 2 fails loudly.
+    assert _port_cfg(data, str(tmp_path),
+                     model_parallel=2).model_parallel == 2
     with pytest.raises(ValueError,
-                       match="not ported.*deprecated.*--fsdp_min_size"):
-        _port_cfg(data, str(tmp_path), model_parallel=2)
+                       match="3 devices not divisible by model_parallel=2"):
+        _port_cfg(data, str(tmp_path), model_parallel=2, num_devices=3)
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by model_parallel=2"):
+        tloop.Trainer(_port_cfg(data, str(tmp_path), model_parallel=2))
     # Multi-GPU training is ported (parallel/): --fsdp_min_size and
     # --num_devices configure.
     assert _port_cfg(data, str(tmp_path),

@@ -12,6 +12,11 @@ several cards, one rank a card: --num_devices=N spawns the ranks (unset:
 every visible card), or start them with torchrun --nproc_per_node=N -m
 yt8m_tpu_torch.cli.train ...; --batch_size is the global batch, and
 --fsdp_min_size=E shards every variable of E elements or more.
+--model_parallel=mp trains tensor-parallel on the same ranks, a
+(ranks / mp) x mp grid: the head kernels and DBoF's cluster layer are
+sharded on their columns over each group of mp ranks, which step on the
+same rows (parallel/tensor.py); mp must divide the ranks. Each rank gets
+the same argv, under --num_devices and under torchrun alike.
 """
 
 from __future__ import annotations

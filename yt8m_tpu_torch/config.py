@@ -1,15 +1,17 @@
 """Run configuration of the port's train, eval and inference CLIs: the
 reference's flag names and the JAX package's defaults (reference:
 train.py, eval.py, inference.py flags), plus `device` (default "cuda").
-
-Flags of features the port does not have are kept under their names and
-raise ValueError when set to anything but their default, so that no such
-flag is silently ignored (UNPORTED lists them, with the reason).
+Every flag of the JAX package's CLIs is ported.
 
 --num_devices is the number of ranks of a multi-GPU run (None: every
 visible card on the card, one rank on the CPU; parallel/distributed.py),
 for training, eval and inference; --fsdp_min_size shards the training
-state's large variables over them (parallel/mesh.py).
+state's large variables over them (parallel/mesh.py), and
+--model_parallel=mp arranges them as a (data, model) grid of
+ranks // mp x mp for tensor-parallel training, which shards the head
+kernels and DBoF's cluster layer on their columns over each model group
+(parallel/tensor.py); mp must divide the ranks. Eval and inference serve
+a tensor-parallel run's checkpoint as any other (the one-card format).
 """
 
 from __future__ import annotations
@@ -19,31 +21,10 @@ from typing import Optional
 
 from yt8m_tpu_torch.data.features import get_feature_names_and_sizes
 from yt8m_tpu_torch.models.hparams import ModelHParams
-
-# flag -> why it raises.
-UNPORTED = {
-    "model_parallel": (
-        "tensor-parallel training is deprecated in the JAX package (it "
-        "falls back to the GSPMD step with the fused train kernels off and "
-        "keeps the whole optimizer state on every chip; docs/FLAGS.md "
-        "--model_parallel); use --fsdp_min_size instead, which shards the "
-        "large variables and their optimizer state and keeps the kernels"),
-}
-
+from yt8m_tpu_torch.parallel.distributed import grid_shape
 
 class _Config:
-    """Shared behaviour: the model's widths follow the reader flags, and
-    unported flags refuse non-default values."""
-
-    def __post_init__(self):
-        for field in dataclasses.fields(self):
-            if field.name not in UNPORTED:
-                continue
-            value = getattr(self, field.name)
-            if value != field.default:
-                raise ValueError(
-                    f"--{field.name}={value!r} is not ported to the PyTorch "
-                    f"package: {UNPORTED[field.name]} (see ROADMAP.md)")
+    """Shared behaviour: the model's widths follow the reader flags."""
 
     def resolved_hparams(self) -> ModelHParams:
         """feature_dim follows --feature_sizes, vocab_size --num_classes."""
@@ -104,8 +85,9 @@ class TrainConfig(_Config):
     distill_alpha: float = 0.5
     boost_weights_file: str = ""
 
-    # parallelism: ranks (None: every card), the FSDP threshold in
-    # elements (0: everything replicated)
+    # parallelism: the model axis of the (data, model) grid of ranks
+    # (1: data-parallel), the FSDP threshold in elements (0: everything
+    # replicated), ranks (None: every card)
     model_parallel: int = 1
     fsdp_min_size: int = 0
     num_devices: Optional[int] = None
@@ -115,6 +97,12 @@ class TrainConfig(_Config):
     device: str = "cuda"
 
     hparams: ModelHParams = dataclasses.field(default_factory=ModelHParams)
+
+    def __post_init__(self):
+        # The grid of parallel/distributed.py :: grid_shape, checked here
+        # where the ranks are given (else when the run starts).
+        grid_shape(self.num_devices or self.model_parallel,
+                   self.model_parallel)
 
 
 @dataclasses.dataclass

@@ -29,6 +29,8 @@ from yt8m_tpu_torch.models.heads import ContextGate, l2_loss, rounded
 from yt8m_tpu_torch.models.norm import BN_EPS, BatchNorm, bn_fold, inline_bn
 from yt8m_tpu_torch.models.registry import register
 from yt8m_tpu_torch.models.serving import ServingModule
+from yt8m_tpu_torch.parallel import tensor
+from yt8m_tpu_torch.parallel.distributed import all_reduce_, model_group
 from yt8m_tpu_torch.models.video import logistic_head, make_classifier_head
 
 
@@ -50,10 +52,18 @@ class FrameLevelLogisticModel(ServingModule):
         return self.tower(masked_mean(features, num_frames))
 
 
-def soft_pooling(act):
+def soft_pooling(act, block=None):
     """SoftDBoF's pooling (the JAX package's models/frame.py): a softmax
-    over clusters for each frame, summed over the sampled frames."""
-    return torch.sum(torch.softmax(act, dim=-1), dim=1)
+    over clusters for each frame, summed over the sampled frames. With a
+    tensor-parallel `block`, act holds that block's clusters: the
+    softmax's max and denominator meet over the model group."""
+    if block is None:
+        return torch.sum(torch.softmax(act, dim=-1), dim=1)
+    top = torch.amax(act.detach(), dim=-1, keepdim=True)
+    all_reduce_(top, op=torch.distributed.ReduceOp.MAX, group=model_group())
+    e = torch.exp(act - top)
+    return torch.sum(e / tensor.sum_over_model(
+        torch.sum(e, dim=-1, keepdim=True)), dim=1)
 
 
 @register("DbofModel", frame_level=True)
@@ -88,6 +98,13 @@ class DbofModel(ServingModule):
     kernel is serving-only), with both inline BatchNorms on batch
     moments, and adds `regularization_loss`. Parameter and buffer names
     are the JAX model's (`convert.py` carries them over).
+
+    In a tensor-parallel run `cluster_kernel` may be one rank's block of
+    clusters (parallel/tensor.py): the training graph multiplies by it,
+    runs the cluster BN (its moments over the data group), the ReLU and
+    the pooling on the block with this rank's slice of the per-cluster
+    parameters, and gathers the pooled [B, K] over the model group
+    before the hidden FC, never the [B x frames, K] activations.
     """
 
     gated = False
@@ -189,18 +206,23 @@ class DbofModel(ServingModule):
             x = inline_bn(x, self.input_bn_scale, self.input_bn_bias,
                           self.input_bn_mean, self.input_bn_var,
                           self.training, hp.bn_axis)
-        act = torch.matmul(rounded(x, hp.dtype),
-                           rounded(self.cluster_kernel, hp.dtype))
+        blk = tensor.block_of(self.cluster_kernel)
+        x = rounded(x, hp.dtype)
+        if blk is not None:
+            x = tensor.copy_to_model(x)
+        act = torch.matmul(x, rounded(self.cluster_kernel, hp.dtype))
         if hp.dbof_add_batch_norm:
-            act = inline_bn(act, self.cluster_bn_scale, self.cluster_bn_bias,
+            act = inline_bn(act, tensor.take_columns(self.cluster_bn_scale,
+                                                     blk),
+                            tensor.take_columns(self.cluster_bn_bias, blk),
                             self.cluster_bn_mean, self.cluster_bn_var,
-                            self.training, hp.bn_axis)
+                            self.training, hp.bn_axis, blk)
         else:
-            act = act + self.cluster_bias
+            act = act + tensor.take_columns(self.cluster_bias, blk)
         act = torch.relu(act).reshape(b, s, -1)
         if self.pooling == "soft":
-            return soft_pooling(act)
-        return frame_pooling(act, self.pooling)
+            return tensor.gather_columns(soft_pooling(act, blk), blk)
+        return tensor.gather_columns(frame_pooling(act, self.pooling), blk)
 
     def forward(self, features, num_frames, generator=None, u=None):
         """{"predictions": [B, vocab] f32}, and in training
@@ -233,6 +255,8 @@ class DbofModel(ServingModule):
                 *c["act_affine"], c["cluster_w_split"],
             )
         else:
+            if not self.training:
+                tensor.refuse_blocks(self)
             pooled = self._cluster_pool_plain(x_raw)
 
         hidden_w = (rounded(self.hidden_kernel, hp.dtype) if self.training

@@ -8,7 +8,9 @@ draws through the `frame_uniform` operator (kernels/ops.py), a fresh
 generator with that seed on every call: the serving export's baked draw,
 as the JAX export's PRNGKey(0). Under `torch.export` a sampler without a
 seed, a generator or `u` raises, so that no export bakes a per-call
-random draw.
+random draw. A `GlobalDraw` in place of the generator draws for a whole
+global batch and keeps a block of its rows: the one-device step's draws
+for a tensor-parallel rank's rows.
 """
 
 from __future__ import annotations
@@ -34,7 +36,21 @@ def frame_mask(num_frames: torch.Tensor, max_frames: int,
     return (pos < num_frames.to(torch.int64)[:, None]).to(dtype)
 
 
+class GlobalDraw:
+    """A generator for one block of rows of a global batch: each draw is
+    the global batch's, [rows, n] from `generator`, of which the model's
+    rows [start, start + b) are kept."""
+
+    def __init__(self, generator: torch.Generator, start: int, rows: int):
+        self.generator, self.start, self.rows = generator, start, rows
+
+
 def _uniform(shape, like: torch.Tensor, generator, u):
+    if isinstance(generator, GlobalDraw):
+        full = torch.rand((generator.rows,) + tuple(shape[1:]),
+                          generator=generator.generator, device=like.device,
+                          dtype=torch.float32)
+        return full[generator.start:generator.start + shape[0]]
     if isinstance(generator, int) and not isinstance(generator, bool):
         from yt8m_tpu_torch.kernels import ops
 

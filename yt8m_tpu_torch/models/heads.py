@@ -1,6 +1,12 @@
 """Video-level classifier heads (reference: video_level_models.py).
 
-Weights keep the JAX package's names and its [in, out] layout.
+Weights keep the JAX package's names and its [in, out] layout. In a
+tensor-parallel run (--model_parallel) a head kernel or bias may be one
+rank's block of columns (parallel/tensor.py): the training forward
+multiplies by the block and gathers the logits' columns over the model
+group, then runs the rest of the head replicated. The logits, not the
+probabilities, are gathered, so any split that JAX's policy allows is
+right, a block edge inside a class's mixtures too.
 """
 
 from __future__ import annotations
@@ -13,12 +19,18 @@ from yt8m_tpu_torch.kernels.ops import moe_head as moe_head_serving
 from yt8m_tpu_torch.kernels.tf32 import split_weights
 from yt8m_tpu_torch.models.norm import BatchNorm
 from yt8m_tpu_torch.models.serving import ServingModule
+from yt8m_tpu_torch.parallel import tensor
 
 
 def l2_loss(*kernels) -> torch.Tensor:
-    """tf.nn.l2_loss semantics: sum(w**2) / 2, summed over kernels."""
-    return sum(torch.sum(torch.square(k.to(torch.float32))) / 2.0
-               for k in kernels)
+    """tf.nn.l2_loss semantics: sum(w**2) / 2, summed over kernels (a
+    tensor-parallel block's summed over its model group)."""
+    total = 0
+    for k in kernels:
+        part = torch.sum(torch.square(k.to(torch.float32))) / 2.0
+        total = total + (part if tensor.block_of(k) is None
+                         else tensor.sum_to_model(part))
+    return total
 
 
 def rounded(w: torch.Tensor, dtype) -> torch.Tensor:
@@ -67,8 +79,10 @@ class LogisticHead(ServingModule):
     def forward(self, x):
         kernel = (rounded(self.logistic_kernel, self.dtype) if self.training
                   else self.serving_constants()["kernel"])
-        logits = torch.matmul(rounded(x, self.dtype), kernel)
-        out = {"predictions": torch.sigmoid(logits + self.logistic_bias)}
+        logits, = tensor.column_products(rounded(x, self.dtype), [kernel],
+                                         [self.logistic_kernel])
+        out = {"predictions": torch.sigmoid(
+            logits + tensor.whole(self.logistic_bias))}
         if self.training:
             out["regularization_loss"] = self.l2_penalty * l2_loss(
                 self.logistic_kernel)
@@ -168,12 +182,14 @@ class MoeHead(ServingModule):
 
     def _plain(self, x, gates, experts):
         """The JAX head's plain graph on the kernels rounded to the compute
-        dtype (f32 products of rounded operands, an exact f32 softmax)."""
+        dtype (f32 products of rounded operands, an exact f32 softmax);
+        a tensor-parallel block's logits gathered whole."""
         m, c = self.num_mixtures, self.vocab_size
         b = x.shape[0]
-        xa = rounded(x, self.dtype)
-        gate_logits = torch.matmul(xa, gates)
-        expert_logits = torch.matmul(xa, experts) + self.experts_bias
+        gate_logits, expert_logits = tensor.column_products(
+            rounded(x, self.dtype), [gates, experts],
+            [self.gates_kernel, self.experts_kernel])
+        expert_logits = expert_logits + tensor.whole(self.experts_bias)
         gating = torch.softmax(gate_logits.reshape(b, c, m + 1), dim=-1)
         experts = torch.sigmoid(expert_logits.reshape(b, c, m))
         return torch.sum(gating[..., :m] * experts, dim=-1)

@@ -26,7 +26,11 @@ and the variance is max(E[x^2] - E[x]^2, 0) for both (the JAX package's
 bn_moments with an axis; for the inline BN this differs from the
 single-device E[(x - mean)^2], as it does there). The ranks' batches are
 of equal size, so these are the global batch's moments. Without an axis
-nothing changes.
+nothing changes. In a tensor-parallel run the ranks that average are
+the data group (parallel/distributed.py): the model group's ranks hold
+the same rows, and counting them mp times would be wrong. A BN over a
+block's columns (DBoF's cluster BN) moves the running statistics of the
+whole, gathered over the model group (`inline_bn`'s `block`).
 """
 
 from __future__ import annotations
@@ -34,7 +38,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yt8m_tpu_torch.parallel.distributed import all_reduce_, process_count
+from yt8m_tpu_torch.parallel import tensor
+from yt8m_tpu_torch.parallel.distributed import (
+    all_reduce_,
+    data_group,
+    group_size,
+)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
@@ -45,21 +54,21 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        return all_reduce_(x.clone())
+        return all_reduce_(x.clone(), group=data_group())
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_(grad.clone())
+        return all_reduce_(grad.clone(), group=data_group())
 
 
 def replica_moments(x):
     """(E[x], max(E[x^2] - E[x]^2, 0)) over axis 0 and over the ranks of
-    the process group (one rank where there is none)."""
-    world = process_count()
+    the data group (one rank where there is none)."""
+    ranks = group_size(data_group())
     moments = torch.stack([torch.mean(x, dim=0),
                            torch.mean(torch.square(x), dim=0)])
-    if world > 1:
-        moments = _AllReduceSum.apply(moments) / world
+    if ranks > 1:
+        moments = _AllReduceSum.apply(moments) / ranks
     mean, mean2 = moments[0], moments[1]
     return mean, torch.clamp_min(mean2 - torch.square(mean), 0.0)
 
@@ -93,12 +102,15 @@ def update_running(ra_mean, ra_var, mean, var) -> None:
 
 
 def inline_bn(x, scale, bias, ra_mean, ra_var, training: bool,
-              axis: str = ""):
+              axis: str = "", block=None):
     """The inline BN of DBoF and NetVLAD: batch moments (and a running
-    statistics update) in training, the running statistics otherwise."""
+    statistics update) in training, the running statistics otherwise.
+    With a tensor-parallel `block`, x holds that block's columns of the
+    running statistics' whole."""
     if training:
         mean, var = bn_moments(x, axis)
-        update_running(ra_mean, ra_var, mean, var)
+        update_running(ra_mean, ra_var, tensor.gathered(mean.detach(), block),
+                       tensor.gathered(var.detach(), block))
     else:
         mean, var = ra_mean, ra_var
     return bn_apply(x, scale, bias, mean, var)

@@ -7,13 +7,17 @@ when the parameters move (`.to`, `.cuda`), are reloaded
 and rebuilt on the next call. Writing to a parameter in place does not
 drop them: call `invalidate_serving()` (the port's optimizer step does).
 A training forward never reads them: it reads the parameters, so that
-autograd reaches them.
+autograd reaches them. A model holding a tensor-parallel block
+(parallel/tensor.py) refuses to build them: serving reads whole
+tensors.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from yt8m_tpu_torch.parallel import tensor
 
 
 class ServingModule(nn.Module):
@@ -26,6 +30,7 @@ class ServingModule(nn.Module):
 
     def serving_constants(self) -> dict:
         if self._serving is None:
+            tensor.refuse_blocks(self)
             with torch.no_grad():
                 self._serving = self.make_serving_constants()
         return self._serving

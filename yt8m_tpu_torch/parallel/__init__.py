@@ -1,2 +1,3 @@
-"""Multi-GPU runs of the port: the process group (distributed.py) and the
-data-axis sharding policy (mesh.py)."""
+"""Multi-GPU runs of the port: the process group and its (data, model)
+grid (distributed.py), the sharding policy (mesh.py) and the
+tensor-parallel column products (tensor.py)."""

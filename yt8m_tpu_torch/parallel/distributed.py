@@ -24,8 +24,17 @@ A launched group has no wall-clock deadline unless the caller gives one
 (the tests and the smoke script do): a training run, or an eval that
 polls for checkpoints, runs as long as it runs.
 
+A tensor-parallel run (--model_parallel=mp) arranges the ranks as the
+JAX package's make_mesh arranges its devices: a (data, model) grid of
+world // mp x mp, rank r at data index r // mp and model index r % mp
+(`use_grid`). The mp ranks of one data index form its model group (they
+hold the same rows and split the sharded variables' columns); the ranks
+of one model index form its data group (they hold the same columns and
+split the rows). Without model parallelism the data group is the world.
+
 The collectives below (`all_reduce_`, `all_gather_rows`,
-`reduce_scatter_rows`) run on the group's backend; gloo carries card
+`reduce_scatter_rows`) run on the group's backend, over the world or the
+group they are given, the last two on any dim; gloo carries card
 tensors too (all_reduce, all_gather_into_tensor, reduce_scatter_tensor
 and broadcast, read on the card with torch 2.11), through host memory.
 Host-side decisions that every rank must take alike (whether any rank
@@ -35,6 +44,7 @@ over gloo (the control group), which never waits for the card.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import pickle
@@ -60,6 +70,9 @@ LOG_FORMAT = "%(asctime)s %(name)s %(levelname)s: %(message)s"
 
 _control = None
 _local_rank = 0
+# The (data, model) grid in use and its groups, by model_parallel.
+_grid = None
+_groups: dict = {}
 
 
 def is_initialized() -> bool:
@@ -74,13 +87,77 @@ def process_index() -> int:
     return dist.get_rank() if is_initialized() else 0
 
 
-def per_host_batch(global_batch_size: int) -> int:
-    """This rank's share of a global batch."""
-    n = process_count()
+def per_host_batch(global_batch_size: int, parts: Optional[int] = None) -> int:
+    """This rank's share of a global batch split in `parts` (default one
+    a rank; a tensor-parallel run passes its data blocks)."""
+    n = process_count() if parts is None else parts
     if global_batch_size % n:
         raise ValueError(f"global batch {global_batch_size} not divisible by "
                          f"{n} processes")
     return global_batch_size // n
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The (data, model) grid: its shape and this rank's place in it."""
+    data: int
+    model: int
+    data_index: int
+    model_index: int
+
+
+def grid_shape(world: int, model_parallel: int = 1) -> tuple:
+    """(data, model): world ranks as make_mesh(world, model_parallel)
+    arranges them, with its error where mp does not divide the world."""
+    if model_parallel < 1:
+        raise ValueError(f"--model_parallel={model_parallel}: at least 1")
+    if world % model_parallel:
+        raise ValueError(f"{world} devices not divisible by "
+                         f"model_parallel={model_parallel}")
+    return world // model_parallel, model_parallel
+
+
+def use_grid(model_parallel: int = 1) -> Grid:
+    """Arrange the ranks as a (data, model) grid and make it the one in
+    use. Every rank calls it alike (the first use of an mp > 1 makes the
+    groups, which is collective); it raises where mp does not divide the
+    world."""
+    global _grid
+    world, rank = process_count(), process_index()
+    dp, mp = grid_shape(world, model_parallel)
+    if mp > 1 and mp not in _groups:
+        model = [dist.new_group(list(range(i * mp, (i + 1) * mp)))
+                 for i in range(dp)]
+        data = [dist.new_group(list(range(j, world, mp))) for j in range(mp)]
+        _groups[mp] = (data[rank % mp], model[rank // mp])
+    _grid = Grid(dp, mp, rank // mp, rank % mp)
+    return _grid
+
+
+def grid() -> Grid:
+    """The grid in use; every rank a data block where none was chosen."""
+    if _grid is None:
+        return Grid(process_count(), 1, process_index(), 0)
+    return _grid
+
+
+def data_group():
+    """This rank's data group (None: the world)."""
+    g = grid()
+    return _groups[g.model][0] if g.model > 1 else None
+
+
+def model_group():
+    """This rank's model group (None where there is no model axis)."""
+    g = grid()
+    return _groups[g.model][1] if g.model > 1 else None
+
+
+def group_size(group=None) -> int:
+    """The number of ranks in `group` (None: the world)."""
+    if not is_initialized():
+        return 1
+    return dist.get_world_size(group)
 
 
 def backend_for(device_type: str, local_ranks: int,
@@ -124,8 +201,10 @@ def rank_device(device) -> torch.device:
 
 def _init(backend: str, init_method: str, world: int, rank: int,
           local_rank: int) -> None:
-    global _control, _local_rank
+    global _control, _local_rank, _grid
     _local_rank = local_rank
+    _grid = None
+    _groups.clear()
     if backend == "nccl":
         torch.cuda.set_device(local_rank)
     dist.init_process_group(backend, init_method=init_method,
@@ -287,28 +366,59 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
 
 
 def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None):
-    """In-place all-reduce of `t`; `t`."""
-    dist.all_reduce(t, op=op, group=group)
+    """In-place all-reduce of `t` over `group` (None: the world); `t`."""
+    if group_size(group) > 1:
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
-def all_gather_rows(t: torch.Tensor, out: Optional[torch.Tensor] = None):
-    """The ranks' `t` concatenated on dim 0 in rank order (into `out`,
-    contiguous, when given)."""
-    world = process_count()
-    shape = (t.shape[0] * world,) + tuple(t.shape[1:])
-    if out is None:
-        out = torch.empty(shape, dtype=t.dtype, device=t.device)
-    _all_gather(out, t.detach().contiguous())
-    return out
+def all_gather_rows(t: torch.Tensor, out: Optional[torch.Tensor] = None,
+                    group=None, dim: int = 0):
+    """The ranks' `t` of `group` (None: the world) concatenated on `dim`
+    in rank order (into `out`, contiguous, when given)."""
+    n = group_size(group)
+    dim = dim % max(t.dim(), 1)
+    t = t.detach().contiguous()
+    if dim == 0:
+        shape = (t.shape[0] * n,) + tuple(t.shape[1:])
+        if out is None:
+            out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        if n == 1:
+            return out.copy_(t)
+        _all_gather(out, t, group=group)
+        return out
+    parts = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                        dtype=t.dtype, device=t.device)
+    if n == 1:
+        parts.copy_(t)
+    else:
+        _all_gather(parts, t, group=group)
+    whole = parts.view((n,) + tuple(t.shape)).movedim(0, dim).flatten(
+        dim, dim + 1)
+    return whole if out is None else out.copy_(whole)
 
 
-def reduce_scatter_rows(t: torch.Tensor) -> torch.Tensor:
-    """This rank's dim-0 block of the ranks' sum of `t`."""
-    shape = (t.shape[0] // process_count(),) + tuple(t.shape[1:])
+def reduce_scatter_rows(t: torch.Tensor, group=None,
+                        dim: int = 0) -> torch.Tensor:
+    """This rank's block on `dim` of the sum of `t` over `group` (None:
+    the world)."""
+    n = group_size(group)
+    dim = dim % max(t.dim(), 1)
+    src = t.detach().movedim(dim, 0).contiguous()
+    if n == 1:
+        return src.movedim(0, dim).clone()
+    shape = (src.shape[0] // n,) + tuple(src.shape[1:])
     out = torch.empty(shape, dtype=t.dtype, device=t.device)
-    _reduce_scatter(out, t.detach().contiguous())
-    return out
+    _reduce_scatter(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """`t` of rank `src` (its rank in the world), in place on every rank
+    of `group` (None: the world); `t`."""
+    if group_size(group) > 1:
+        dist.broadcast(t, src=src, group=group)
+    return t
 
 
 def host_all_reduce(values: Sequence[float], op=dist.ReduceOp.SUM) -> list:

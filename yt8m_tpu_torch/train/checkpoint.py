@@ -33,8 +33,10 @@ write itself when it is synchronous); `blocking_seconds` is their sum.
 
 In a multi-GPU run every rank holds a TrainState and makes the same
 saves; rank 0 alone writes, in the format a one-card run writes: the
-model (every rank holds it whole), and the optimizer state and EMA
-gathered from the sharded variables' blocks (ParallelTrainState).
+model, the optimizer state and the EMA gathered from the sharded
+variables' blocks (ParallelTrainState: the FSDP blocks over the data
+group, the tensor-parallel blocks, which the model itself holds, over
+the model group).
 Whether a step is due is rank 0's decision, sent to the others, and
 every rank waits at a barrier after each save. A restore reads the same
 files on every rank and re-shards them, so a checkpoint moves between
@@ -81,11 +83,12 @@ def snapshot(state, keep: bool = True) -> Optional[Dict[str, object]]:
     and the optimizer's state dicts and of the EMA. In a multi-GPU run
     every rank takes part in the gathers and only rank 0 keeps the
     copies (`keep`); the others get None."""
+    model = state.model_state()
     optimizer = state.optimizer_state()
     ema = state.ema_state()
     if not keep:
         return None
-    files = {MODEL_FILE: _to_host(state.model.state_dict()),
+    files = {MODEL_FILE: _to_host(model),
              OPTIMIZER_FILE: _to_host(optimizer)}
     if ema is not None:
         files[EMA_FILE] = _to_host(ema)
@@ -267,8 +270,7 @@ class CheckpointManager:
                 f"optimizer state (scripts/convert_jax_checkpoint.py converts "
                 f"Adam's only), and a fresh optimizer would not resume that "
                 f"run; serve the step with cli.eval or cli.inference")
-        state.model.load_state_dict(_load(path, MODEL_FILE))
-        state.model_loaded()
+        state.load_model_state(_load(path, MODEL_FILE))
         state.load_optimizer_state(_load(path, OPTIMIZER_FILE))
         state.step = int(step)
         has_ema = os.path.exists(os.path.join(path, EMA_FILE))

@@ -30,6 +30,18 @@ which contribute nothing. Only rank 0 logs, writes the summaries and
 model_flags.json, checkpoints (the one-card format) and exports; the
 loss is global and Examples/sec counts the global batch; the training
 batch's Hit@1, PERR and GAP are rank 0's rows'.
+
+With --model_parallel=mp the ranks form a (data, model) grid
+(parallel/distributed.py :: use_grid; mp must divide the ranks) and the
+step is the JAX package's GSPMD step, the one-device step at the global
+batch: the head kernels and DBoF's cluster layer are sharded on their
+columns over each model group (train/state.py), the trainable kernels
+keep running. The first rank of each model group reads its data block's
+files (shard_files over the data blocks, batch_size // data blocks, seed
+cfg.seed + data index) and broadcasts each batch to its model group; the
+frame sampling draws the global batch's uniforms from (seed + 1, step)
+and keeps the data block's rows (frame_utils.GlobalDraw); the BatchNorm
+moments span the data group where there are several data blocks.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from yt8m_tpu_torch.metrics import (
     calculate_precision_at_equal_recall_rate,
 )
 from yt8m_tpu_torch.models import get_model, is_frame_level_model
+from yt8m_tpu_torch.models.frame_utils import GlobalDraw
 from yt8m_tpu_torch.parallel import distributed
 from yt8m_tpu_torch.parallel.mesh import DATA_AXIS
 from yt8m_tpu_torch.train import losses as losses_lib
@@ -163,15 +176,29 @@ class Trainer:
                 "--use_ema_weights requires training with --ema_decay > 0")
         self.world = distributed.process_count()
         self.rank = distributed.process_index()
+        # The (data, model) grid; raises where mp does not divide the
+        # ranks, a single rank included.
+        self.grid = distributed.use_grid(cfg.model_parallel)
         self.device = distributed.rank_device(resolve_device(cfg.device))
         if self.rank == 0:
             maybe_wipe_train_dir(cfg.train_dir, cfg.start_new_model)
+            if cfg.model_parallel > 1:
+                log.warning(
+                    "--model_parallel=%d shards only the head kernels and "
+                    "DBoF's cluster layer (a block of their columns, with "
+                    "its gradient, optimizer state and EMA, a rank) and "
+                    "gathers their outputs every step; --fsdp_min_size "
+                    "shards any large variable and is the JAX package's "
+                    "recommended route (docs/FLAGS.md --model_parallel). "
+                    "Both keep the trainable kernels here; PERF.md has the "
+                    "card's step times of both", cfg.model_parallel)
         if self.world > 1:
             distributed.barrier()
-        # The training model's BatchNorm moments span the ranks; the
-        # recorded hparams (model_flags.json, exports) keep the user's.
+        # The training model's BatchNorm moments span the data blocks;
+        # the recorded hparams (model_flags.json, exports) keep the
+        # user's.
         train_hparams = (self.hparams.replace(bn_axis=DATA_AXIS)
-                         if self.world > 1 else self.hparams)
+                         if self.grid.data > 1 else self.hparams)
         self.model = get_model(cfg.model, train_hparams)
         if is_frame_level_model(cfg.model) != cfg.frame_features:
             log.warning("model %s frame-level=%s but --frame_features=%s",
@@ -185,12 +212,16 @@ class Trainer:
         self.loss_obj = losses_lib.get_loss(cfg.label_loss, **loss_kw)
         files, self.rank_batch, seed = (cfg.train_data_pattern,
                                         cfg.batch_size, cfg.seed)
+        g = self.grid
         if self.world > 1:
-            # Each rank reads its own files at its share of the batch; a
-            # rank without a file steps on padding (_batches).
-            files = shard_files(glob_files(files), self.rank, self.world)
-            self.rank_batch = distributed.per_host_batch(cfg.batch_size)
-            seed += self.rank
+            # Each data block reads its own files at its share of the
+            # batch, through its model group's first rank; a block
+            # without a file steps on padding (_batches).
+            files = (shard_files(glob_files(files), g.data_index, g.data)
+                     if g.model_index == 0 else [])
+            self.rank_batch = distributed.per_host_batch(cfg.batch_size,
+                                                         g.data)
+            seed += g.data_index
         self.data_iterator = make_batch_iterator(
             files, reader_config_from(cfg), batch_size=self.rank_batch,
             num_readers=cfg.num_readers,
@@ -211,7 +242,8 @@ class Trainer:
         state_cls, make_step, sharding = TrainState, make_train_step, {}
         if self.world > 1:
             state_cls, make_step = ParallelTrainState, make_parallel_train_step
-            sharding = {"fsdp_min_size": cfg.fsdp_min_size}
+            sharding = {"fsdp_min_size": cfg.fsdp_min_size,
+                        "model_parallel": cfg.model_parallel}
         self.state = state_cls(
             self.model, **sharding, optimizer=cfg.optimizer,
             base_learning_rate=cfg.base_learning_rate,
@@ -231,6 +263,7 @@ class Trainer:
         self.summary = (SummaryWriter(cfg.train_dir) if self.rank == 0
                         else None)
         self._warned_raw_export = False
+        self._shapes = None  # a model group's batch shapes, on first use
         if self.rank == 0:
             self._write_model_flags()
 
@@ -290,6 +323,32 @@ class Trainer:
             "PERR": perr, "GAP": gap,
         })
 
+    def _device_batch(self, batch: dict) -> dict:
+        """`batch` on the device; on a model group, its first rank's
+        batch on every rank of the group (the others' are padding)."""
+        g = self.grid
+        if g.model == 1:
+            return to_device(batch, self.device)
+        if self._shapes is None:
+            template = to_device(padding_batch(
+                reader_config_from(self.config), 1,
+                bool(self.config.boost_weights_file)), "cpu")
+            self._shapes = {k: ((self.rank_batch,) + tuple(v.shape[1:]),
+                                v.dtype) for k, v in template.items()}
+        if g.model_index == 0:
+            out = to_device(batch, self.device)
+            got = {k: (tuple(v.shape), v.dtype) for k, v in out.items()}
+            if got != self._shapes:
+                raise ValueError(f"a batch of {got} is not what its model "
+                                 f"group expects, {self._shapes}")
+        else:
+            out = {k: torch.empty(shape, dtype=dtype, device=self.device)
+                   for k, (shape, dtype) in self._shapes.items()}
+        for k in sorted(out):
+            distributed.broadcast_(out[k], g.data_index * g.model,
+                                   distributed.model_group())
+        return out
+
     def _batches(self):
         """The reader's batches; in a multi-GPU run, while any rank has
         one, with padding where this rank has none."""
@@ -330,11 +389,18 @@ class Trainer:
                 if (cfg.profile_dir and step == 10 and profiler is None
                         and self.rank == 0):
                     profiler = self._start_profiler()
-                generator = step_generator(
-                    cfg.seed + 1, step, self.device,
-                    self.rank if self.world > 1 else None)
+                if self.grid.model > 1:
+                    # The global batch's draws, this data block's rows.
+                    generator = GlobalDraw(
+                        step_generator(cfg.seed + 1, step, self.device),
+                        self.grid.data_index * self.rank_batch,
+                        cfg.batch_size)
+                else:
+                    generator = step_generator(
+                        cfg.seed + 1, step, self.device,
+                        self.rank if self.world > 1 else None)
                 state, metrics = self.train_step(
-                    state, to_device(batch, self.device), generator)
+                    state, self._device_batch(batch), generator)
                 step += 1
                 examples_since_log += int(batch["batch_mask"].sum())
                 if profiler is not None and step == 20:
@@ -376,7 +442,8 @@ class Trainer:
         cfg = self.config
         export_dir = os.path.join(cfg.train_dir, "export", f"step_{step}")
         ema = False
-        weights = self.model.state_dict()
+        # Every rank takes part in gathering the tensor-parallel blocks.
+        weights = self.state.model_state()
         # Every rank takes part in gathering a sharded EMA; rank 0 exports.
         averaged = (self.state.ema_state()
                     if cfg.ema_decay > 0 and cfg.use_ema_weights else None)

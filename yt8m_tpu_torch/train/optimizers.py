@@ -22,6 +22,12 @@ arithmetic order, dtypes and constants, not torch.optim's defaults:
   * Adagrad: optax.adagrad(lr): the sum of squares from 0.1, the update g
     / sqrt(sum + 1e-7) where the sum is positive.
 
+Adafactor also steps a tensor-parallel block (parallel/tensor.py) as
+the JAX package's GSPMD step steps the sharded leaf: whether it factors
+is decided on the whole variable's shape, and its means over the
+sharded dim (a factored statistic, the update's RMS, the parameter's
+RMS) sum the blocks over the model group.
+
 The learning rate is the group's "lr", which the train state sets each
 step from the schedule (optax reads the same schedule at its own count).
 The per-variable gradient clip runs before, as in the JAX chain. The
@@ -35,6 +41,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from yt8m_tpu_torch.parallel import tensor
+from yt8m_tpu_torch.parallel.distributed import all_reduce_, model_group
 
 F32 = torch.float32
 
@@ -155,11 +164,32 @@ def factored_dims(shape):
     return int(order[-2]), int(order[-1])
 
 
+def factored_state_is_block(key: str, p) -> bool:
+    """Whether Adafactor's statistic `key` of the tensor-parallel block p
+    is a block too, on its last dim (v is; v_row and v_col are unless
+    they average over the sharded dim)."""
+    if key not in ("v_row", "v_col"):
+        return True
+    d1, d0 = factored_dims(tensor.whole_shape(p))
+    return (d0 if key == "v_row" else d1) != p.dim() - 1
+
+
+def _mean(t, dim, sharded, blk, keepdim: bool = False):
+    """The whole variable's mean of t over `dim` (None: every element):
+    where t's dim `sharded` holds a tensor-parallel block's columns and
+    the mean runs over it, the blocks' sums meet over the model group."""
+    if sharded is None or (dim is not None and dim != sharded):
+        return t.mean() if dim is None else t.mean(dim=dim, keepdim=keepdim)
+    total = t.sum() if dim is None else t.sum(dim=dim, keepdim=keepdim)
+    count = t.numel() if dim is None else t.shape[dim]
+    return all_reduce_(total, group=model_group()) / (count * blk.parts)
+
+
 class Adafactor(_Optax):
     """optax.adafactor(learning_rate=lr) at optax 0.2.6's defaults."""
 
     def _init_state(self, p, group):
-        dims = factored_dims(tuple(p.shape))
+        dims = factored_dims(tensor.whole_shape(p))
         if dims is None:
             return {"v": torch.zeros_like(p)}
         d1, d0 = dims
@@ -175,26 +205,31 @@ class Adafactor(_Optax):
         keep = _f32(1.0 - decay)
         lr = _f32(group["lr"])
         for p, g, st in zip(params, grads, states):
+            # A block's sharded dim (its last), or None for a whole tensor.
+            blk = tensor.block_of(p)
+            last = None if blk is None else p.dim() - 1
             g2 = g * g + ADAFACTOR_EPS
             if "v" in st:
                 v = st["v"]
                 v.copy_(decay * v + keep * g2)
                 u = g * v ** -0.5
             else:
-                d1, d0 = factored_dims(tuple(p.shape))
+                d1, d0 = factored_dims(tensor.whole_shape(p))
                 v_row, v_col = st["v_row"], st["v_col"]
-                v_row.copy_(decay * v_row + keep * g2.mean(dim=d0))
-                v_col.copy_(decay * v_col + keep * g2.mean(dim=d1))
+                v_row.copy_(decay * v_row + keep * _mean(g2, d0, last, blk))
+                v_col.copy_(decay * v_col + keep * _mean(g2, d1, last, blk))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+                row_last = None if last in (None, d0) else last - 1
+                row_col_mean = _mean(v_row, reduced_d1, row_last, blk,
+                                     keepdim=True)
                 row_factor = (v_row / row_col_mean) ** -0.5
                 col_factor = v_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             # clip_by_block_rms, then lr, then the parameter's RMS.
-            rms = torch.sqrt(torch.mean(u * u))
+            rms = torch.sqrt(_mean(u * u, None, last, blk))
             u = u / torch.clamp_min(rms / ADAFACTOR_CLIPPING_THRESHOLD, 1.0)
             u = u * lr
-            p_rms = torch.sqrt(torch.mean(p * p))
+            p_rms = torch.sqrt(_mean(p * p, None, last, blk))
             scale = torch.where(p_rms <= ADAFACTOR_MIN_SCALE,
                                 torch.full_like(p_rms, ADAFACTOR_MIN_SCALE),
                                 p_rms)

@@ -30,6 +30,16 @@ summed with the gradients; the BatchNorm moments are the global batch's
 (the trainer builds the training model with hparams.bn_axis set). A rank
 without a real row contributes exactly 0. At one rank it computes what
 make_train_step computes, bit for bit.
+
+On a (data, model) grid (--model_parallel) the step is the JAX package's
+GSPMD step, which is the one-device step at the global batch: the mp
+ranks of a data block hold the same rows and compute the same loss, the
+blocks' products meeting inside the model (parallel/tensor.py); the mask
+sum, the loss and every gradient are summed over the data group only,
+and the regularization loss is divided by the number of data blocks (a
+sharded kernel's l2 is already its blocks' sum over the model group).
+The caller gives the frame sampling the global batch's draws
+(frame_utils.GlobalDraw, or `u` for this data block's rows).
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ from __future__ import annotations
 import torch
 
 from yt8m_tpu_torch.kernels.topk import sorted_topk
-from yt8m_tpu_torch.parallel.distributed import all_reduce_
+from yt8m_tpu_torch.parallel.distributed import all_reduce_, data_group
 from yt8m_tpu_torch.train.losses import BaseLoss
 from yt8m_tpu_torch.train.state import TrainState
 
@@ -123,10 +133,11 @@ def make_parallel_train_step(loss_obj: BaseLoss,
 
     def train_step(state, batch: dict, generator=None, u=None):
         state.model.train()
-        den = torch.clamp_min(all_reduce_(torch.sum(loss_mask(batch))), 1.0)
+        den = torch.clamp_min(all_reduce_(torch.sum(loss_mask(batch)),
+                                          group=data_group()), 1.0)
         total, label_part, reg, out = compute_loss(
             state.model, batch, loss_obj,
-            regularization_penalty / state.world, aux_loss_weight,
+            regularization_penalty / state.grid.data, aux_loss_weight,
             generator, u, den)
         state.optimizer.zero_grad(set_to_none=True)
         for p in state.params:
